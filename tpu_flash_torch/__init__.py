@@ -1,0 +1,34 @@
+"""tpu_flash_torch — the PyTorch and CUDA port of ``tpu_flash`` for NVIDIA
+Hopper (H100).
+
+The JAX package ``tpu_flash`` stays beside it as the reference; this package
+imports neither JAX nor ``tpu_flash``.  Every Pallas kernel on a ported path
+becomes a kernel written by hand in CUDA C++ for ``sm_90a``, built with
+``nvcc`` at first use, with a plain PyTorch version beside it that CPU
+tensors take.
+
+Layering, as in the JAX package:
+  kernels/   — CUDA kernels (flash-decode attention) + build/launch helpers
+  ops/       — plain PyTorch oracles (causal mask)
+  nn/        — layers and the pre-LN decoder transformer (torch.nn)
+  inference/ — KV cache (fp/int8/fp8, heads-minor), sampler, engine
+  utils/     — CUDA-event timing
+
+Entry points (``DecoderLM``, ``DecodeEngine``, ``generate``) run on the card
+unless the caller passes ``device="cpu"``.  Ported so far: the serving path
+(ROADMAP.md, queue A item A1).
+"""
+
+__version__ = "0.1.0"
+
+from tpu_flash_torch.inference import (  # noqa: F401
+    DecodeEngine,
+    KVCache,
+    SamplingConfig,
+    generate,
+)
+from tpu_flash_torch.kernels import (  # noqa: F401
+    flash_decode_attention,
+    flash_decode_attention_plain,
+)
+from tpu_flash_torch.nn import DecoderConfig, DecoderLM  # noqa: F401

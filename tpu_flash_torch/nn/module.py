@@ -1,0 +1,83 @@
+"""Parameter helpers, counterpart of ``tpu_flash/nn/module.py``.
+
+The JAX package's modules are configuration objects over an external
+parameter tree; the port uses ``torch.nn.Module`` state.  These helpers move
+between the two: ``load_jax_params`` copies a JAX tree (as numpy arrays)
+into a module, and ``init_params`` draws fresh values from the JAX init's
+distributions with an explicit ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Iterator
+
+import numpy as np
+import torch
+
+from tpu_flash_torch.nn.layers import Embedding, LayerNorm, Linear
+
+
+def num_parameters(model: torch.nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())
+
+
+def named_tree_leaves(tree: Any, prefix: str = "") -> Iterator[tuple[str, Any]]:
+    """Dot-joined (name, leaf) pairs of a nested dict, sorted by key: the
+    JAX package's ``named_parameters``."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from named_tree_leaves(tree[k], f"{prefix}{k}.")
+    elif tree is not None:
+        yield prefix[:-1], tree
+
+
+@torch.no_grad()
+def load_jax_params(model: torch.nn.Module, tree: Any) -> None:
+    """Copy a JAX parameter tree into ``model``.
+
+    Leaves may be JAX or numpy arrays; they pass through float32 (numpy's
+    bf16 from ml_dtypes is not a type ``torch.from_numpy`` takes) and are
+    cast to each parameter's dtype.  Linear weights are transposed from
+    ``[in, out]`` to ``[out, in]``.  Every parameter must be covered once."""
+    params = dict(model.named_parameters())
+    transposed = {f"{name}.weight" for name, m in model.named_modules()
+                  if isinstance(m, Linear)}
+    seen = set()
+    for name, leaf in named_tree_leaves(tree):
+        if name not in params:
+            raise KeyError(f"JAX parameter {name!r} has no counterpart")
+        t = torch.from_numpy(np.array(leaf, dtype=np.float32))
+        if name in transposed:
+            t = t.T
+        if t.shape != params[name].shape:
+            raise ValueError(f"{name}: JAX shape {tuple(t.shape)} does not "
+                             f"match {tuple(params[name].shape)}")
+        params[name].copy_(t)
+        seen.add(name)
+    missing = sorted(set(params) - seen)
+    if missing:
+        raise KeyError(f"parameters missing from the JAX tree: {missing}")
+
+
+@torch.no_grad()
+def init_params(model: torch.nn.Module, generator: torch.Generator) -> None:
+    """Fresh values from the JAX init's distributions, drawn in float32 on
+    the generator's device in module order, then cast to each parameter."""
+
+    def draw(p, fill):
+        x = torch.empty(p.shape, dtype=torch.float32, device=generator.device)
+        fill(x)
+        p.copy_(x)
+
+    for m in model.modules():
+        if isinstance(m, Linear):
+            a = 1.0 / math.sqrt(m.in_features)
+            for p in (m.weight, m.bias):
+                if p is not None:
+                    draw(p, lambda x: x.uniform_(-a, a, generator=generator))
+        elif isinstance(m, Embedding):
+            draw(m.weight, lambda x: x.normal_(generator=generator))
+        elif isinstance(m, LayerNorm):
+            m.gamma.fill_(1.0)
+            m.beta.fill_(0.0)

@@ -1,0 +1,303 @@
+"""Pre-LN decoder-only transformer, counterpart of
+``tpu_flash/nn/transformer.py``: ``DecoderConfig``, ``MultiHeadAttention``,
+``FeedForward``, ``TransformerLayer``, ``DecoderLM``.
+
+This slice of the port serves: the cached forward (prefill and decode over
+a KV cache) and the uncached forward with the composed ("naive") attention.
+Decode steps with at most 8 new tokens go through the flash-decode kernel;
+longer prefills attend over the cache with the composed graph, as in the JAX
+package.  What the slice does not cover raises ``NotImplementedError`` and
+names the ROADMAP.md item that brings it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Literal
+
+import torch
+
+from tpu_flash_torch.kernels.common import resolve_device
+from tpu_flash_torch.kernels.decode import flash_decode_attention
+from tpu_flash_torch.nn import functional as F
+from tpu_flash_torch.nn.layers import Dropout, Embedding, LayerNorm, Linear
+from tpu_flash_torch.ops.reference import causal_mask
+
+AttentionKind = Literal["flash", "fused", "naive", "auto"]
+
+# "auto" takes the flash kernel from this length on (the JAX package's
+# crossover, timed on a TPU; not measured on the GPU).
+_FLASH_AUTO_MIN_L = 1024
+
+# Cached steps with at most this many new tokens take the decode kernel.
+DECODE_MAX_LQ = 8
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md, queue A item {item})")
+
+
+@dataclasses.dataclass
+class DecoderConfig:
+    """The JAX package's ``DecoderConfig``; ``dtype`` is a torch dtype."""
+
+    n_vocab: int = 10_000
+    n_embd: int = 256
+    n_head: int = 8
+    n_kv_head: int | None = None                  # GQA/MQA (None = MHA)
+    positional: Literal["learned", "rope", "none"] = "learned"
+    n_positions: int = 1024
+    n_layer: int = 4
+    ff_middle_dim: int = 256
+    p_dropout: float = 0.1
+    ln_eps: float = 1e-5
+    bias: bool = True
+    causal: bool = True
+    attention_kind: AttentionKind = "flash"
+    attn_dropout: float = 0.0
+    window: int | None = None
+    kv_quant: Literal["none", "int8", "fp8",
+                      "int8_channel", "fp8_channel"] = "none"
+    use_fused_kernel: bool = False
+    dtype: Any = torch.float32
+    remat: bool = False
+    embedding_one_hot: bool = False
+    moe: Any = None
+    sequence_parallel: bool = False
+
+    def __post_init__(self):
+        if self.n_embd % self.n_head:
+            raise ValueError(
+                f"n_embd ({self.n_embd}) must divide by n_head "
+                f"({self.n_head})")
+        if self.n_kv_head is not None and self.n_head % self.n_kv_head:
+            raise ValueError(
+                f"n_head ({self.n_head}) must be a multiple of n_kv_head "
+                f"({self.n_kv_head})")
+        if self.window is not None:
+            if not self.causal:
+                raise ValueError("window requires causal=True")
+            if self.window < 1:
+                raise ValueError(
+                    f"window must be >= 1 (got {self.window}); use "
+                    f"window=None to disable sliding-window attention")
+        if self.attention_kind not in ("flash", "fused", "naive", "auto"):
+            raise ValueError(f"unknown attention_kind "
+                             f"{self.attention_kind!r}")
+        if self.kv_quant not in ("none", "int8", "fp8",
+                                 "int8_channel", "fp8_channel"):
+            raise ValueError(
+                f"kv_quant must be 'none', 'int8', 'fp8', 'int8_channel' "
+                f"or 'fp8_channel', got {self.kv_quant!r}")
+        unported = [
+            (self.kv_quant != "none", "quantized-KV training (kv_quant)",
+             "A5"),
+            (self.attn_dropout > 0.0, "attention dropout", "A5"),
+            (self.use_fused_kernel, "use_fused_kernel", "A2"),
+            (self.positional == "rope", "positional='rope'", "A7"),
+            (self.moe is not None, "moe", "A7"),
+            (self.embedding_one_hot, "embedding_one_hot", "A7"),
+            (self.remat, "remat", "A3"),
+            (self.sequence_parallel, "sequence_parallel", "A8"),
+        ]
+        for bad, what, item in unported:
+            if bad:
+                raise _not_ported(what, item)
+
+    @property
+    def attn_hidden_dim(self) -> int:
+        return self.n_embd // self.n_head
+
+    @property
+    def kv_heads(self) -> int:
+        return self.n_kv_head or self.n_head
+
+
+class MultiHeadAttention(torch.nn.Module):
+    def __init__(self, cfg: DecoderConfig, device=None):
+        super().__init__()
+        self.cfg = c = cfg
+        kv_dim = c.kv_heads * c.attn_hidden_dim
+        kw = dict(bias=c.bias, dtype=c.dtype, device=device)
+        self.q_projection = Linear(c.n_embd, c.n_embd, **kw)
+        self.k_projection = Linear(c.n_embd, kv_dim, **kw)
+        self.v_projection = Linear(c.n_embd, kv_dim, **kw)
+        self.out_projection = Linear(c.n_embd, c.n_embd, **kw)
+
+    def project_to_query_key_value(self, x):
+        """x [B, L, E] -> q [B, H, L, d], k and v [B, Hkv, L, d]."""
+        B, L, _ = x.shape
+        d = self.cfg.attn_hidden_dim
+
+        def split(y):
+            return y.reshape(B, L, -1, d).transpose(1, 2)
+
+        return (split(self.q_projection(x)), split(self.k_projection(x)),
+                split(self.v_projection(x)))
+
+    def self_attention(self, q, k, v, *, kv_mask=None):
+        """Uncached attention.  Only the composed ("naive") graph is ported;
+        "auto" takes it below ``_FLASH_AUTO_MIN_L``."""
+        c = self.cfg
+        kind = c.attention_kind
+        if kind == "auto":
+            kind = "flash" if q.shape[-2] >= _FLASH_AUTO_MIN_L else "naive"
+        if kind in ("flash", "fused"):
+            raise _not_ported(
+                f"the {kind} attention kernel on the uncached forward", "A2")
+        if c.window is not None:
+            raise _not_ported("window on the uncached forward", "A5")
+        if k.shape[1] != q.shape[1]:     # GQA: repeat each KV head
+            g = q.shape[1] // k.shape[1]
+            k = k.repeat_interleave(g, dim=1)
+            v = v.repeat_interleave(g, dim=1)
+        s = (q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(c.attn_hidden_dim))
+        if c.causal:
+            s = s + causal_mask(q.shape[-2], k.shape[-2], s.dtype, s.device)
+        if kv_mask is not None:
+            s = s + kv_mask[:, None, None, :].to(s.dtype)
+        return F.softmax(s, dim=-1) @ v
+
+    def _cached_attention(self, q, cache, impl=None):
+        """Attention over the cache (which already holds this step's keys).
+
+        At most ``DECODE_MAX_LQ`` new tokens: the flash-decode kernel, which
+        reads the cache codes up to each sequence's length.  Longer prefills:
+        the composed graph over the dequantized cache with its length mask
+        (and window band), as in the JAX package."""
+        c = self.cfg
+        if q.shape[2] <= DECODE_MAX_LQ:
+            return flash_decode_attention(
+                q, cache.k, cache.v, cache.lengths, cache.k_scale,
+                cache.v_scale, window=c.window, impl=impl)
+        k_full, v_full = cache.read_k(), cache.read_v()
+        if k_full.shape[1] != q.shape[1]:   # GQA prefill: expand KV groups
+            g = q.shape[1] // k_full.shape[1]
+            k_full = k_full.repeat_interleave(g, dim=1)
+            v_full = v_full.repeat_interleave(g, dim=1)
+        s = (q @ k_full.transpose(-1, -2)) * (
+            1.0 / math.sqrt(c.attn_hidden_dim))
+        s = s + cache.attention_mask(q.shape[2])[:, None].to(s.dtype)
+        if c.window is not None:
+            # absolute query positions: this step's tokens end at lengths-1
+            Lq, S = q.shape[2], k_full.shape[2]
+            qpos = (cache.lengths[:, None] - Lq
+                    + torch.arange(Lq, device=q.device)[None, :])
+            kpos = torch.arange(S, device=q.device)
+            band = kpos[None, None, :] > (qpos[:, :, None] - c.window)
+            s = s + torch.where(band, 0.0, -1e9)[:, None].to(s.dtype)
+        return F.softmax(s, dim=-1) @ v_full
+
+    def forward(self, x, *, kv_cache=None, kv_mask=None, impl=None):
+        """Uncached: returns ``[B, L, E]``.  Cached: appends this step's
+        keys and values to ``kv_cache`` in place and returns
+        ``(out, kv_cache)``."""
+        B, L, E = x.shape
+        q, k, v = self.project_to_query_key_value(x)
+        if kv_cache is not None:
+            kv_cache.append(k, v)
+            out = self._cached_attention(q, kv_cache, impl)
+            out = out.transpose(1, 2).reshape(B, L, E)
+            return self.out_projection(out), kv_cache
+        out = self.self_attention(q, k, v, kv_mask=kv_mask)
+        return self.out_projection(out.transpose(1, 2).reshape(B, L, E))
+
+
+class FeedForward(torch.nn.Module):
+    def __init__(self, cfg: DecoderConfig, device=None):
+        super().__init__()
+        kw = dict(bias=cfg.bias, dtype=cfg.dtype, device=device)
+        self.linear_in = Linear(cfg.n_embd, cfg.ff_middle_dim, **kw)
+        self.linear_out = Linear(cfg.ff_middle_dim, cfg.n_embd, **kw)
+        self.dropout = Dropout(cfg.p_dropout)
+
+    def forward(self, x):
+        return self.linear_out(self.dropout(F.gelu(self.linear_in(x))))
+
+
+class TransformerLayer(torch.nn.Module):
+    """Pre-LN: ``x + attn(ln_1(x))``, then ``out + ff(ln_2(out))``."""
+
+    def __init__(self, cfg: DecoderConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        ln = dict(eps=cfg.ln_eps, dtype=cfg.dtype, device=device)
+        self.ln_1 = LayerNorm(cfg.n_embd, **ln)
+        self.ln_2 = LayerNorm(cfg.n_embd, **ln)
+        self.attention = MultiHeadAttention(cfg, device)
+        self.ff = FeedForward(cfg, device)
+
+    def forward(self, x, *, kv_cache=None, kv_mask=None, impl=None):
+        h = self.ln_1(x)
+        if kv_cache is not None:
+            attn_out, kv_cache = self.attention(h, kv_cache=kv_cache,
+                                                impl=impl)
+        else:
+            attn_out = self.attention(h, kv_mask=kv_mask)
+        out = x + attn_out
+        result = out + self.ff(self.ln_2(out))
+        return (result, kv_cache) if kv_cache is not None else result
+
+
+class DecoderLM(torch.nn.Module):
+    """Token (+ learned position) embeddings, ``n_layer`` pre-LN layers,
+    final LayerNorm, lm_head.
+
+    ``device=None`` means the card and raises without one; CPU runs pass
+    ``device="cpu"``.  Parameters start from PyTorch's defaults (the same
+    distributions as the JAX init); set them with ``nn.init_params`` or
+    ``nn.load_jax_params``.  Inference only for now: parameters do not
+    require gradients (training is ROADMAP.md, queue A items A2-A3)."""
+
+    def __init__(self, cfg: DecoderConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        device = resolve_device(device)
+        emb = dict(dtype=cfg.dtype, device=device)
+        self.token_embeddings = Embedding(cfg.n_vocab, cfg.n_embd, **emb)
+        if cfg.positional == "learned":
+            self.position_embeddings = Embedding(
+                cfg.n_positions, cfg.n_embd, **emb)
+        self.layers = torch.nn.ModuleList(
+            [TransformerLayer(cfg, device) for _ in range(cfg.n_layer)])
+        self.dropout = Dropout(cfg.p_dropout)
+        self.ln = LayerNorm(cfg.n_embd, cfg.ln_eps, dtype=cfg.dtype,
+                            device=device)
+        self.lm_head = Linear(cfg.n_embd, cfg.n_vocab, bias=cfg.bias,
+                              dtype=cfg.dtype, device=device)
+        self.requires_grad_(False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.lm_head.weight.device
+
+    def forward(self, idx, *, kv_caches=None, kv_mask=None, positions=None,
+                segment_ids=None, training: bool = False, impl=None):
+        """idx [B, L] -> logits [B, L, n_vocab], or ``(logits, caches)``
+        with ``kv_caches`` (one ``KVCache`` per layer, updated in place).
+
+        ``positions`` ([1, L] or [B, L]) overrides ``arange(L)``, as decode
+        needs.  ``impl`` reaches the decode kernel's wrapper."""
+        if training:
+            raise _not_ported("training", "A3")
+        if segment_ids is not None:
+            raise _not_ported("segment_ids (packed sequences)", "A5")
+        B, L = idx.shape
+        c = self.cfg
+        if positions is None:
+            positions = torch.arange(L, device=idx.device)[None, :]
+        x = self.token_embeddings(idx)
+        if c.positional == "learned":
+            x = x + self.position_embeddings(positions)
+        x = self.dropout(x)
+        new_caches = [] if kv_caches is not None else None
+        for li, layer in enumerate(self.layers):
+            if kv_caches is not None:
+                x, cache = layer(x, kv_cache=kv_caches[li], impl=impl)
+                new_caches.append(cache)
+            else:
+                x = layer(x, kv_mask=kv_mask)
+        logits = self.lm_head(self.ln(x))
+        return logits if kv_caches is None else (logits, new_caches)
