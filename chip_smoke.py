@@ -4,41 +4,67 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds every kernel of the serving path from ``tpu_flash_torch/kernels/
-csrc`` with nvcc, holds each kernel against its plain PyTorch version on the
-card, times it, serves requests through ``DecodeEngine`` at the full width
-of the 176M serving configuration, lists the kernels of one decode step
-under ``torch.profiler``, and checks the engine against
-``generate`` and the kernel against the plain path end to end.  Each phase
-prints one JSON line; any failure raises and the script exits non-zero.  The
-last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device it
-exits with code 2 and prints no result.  It imports neither JAX nor the JAX
-package.
+It builds every kernel of the port from ``tpu_flash_torch/kernels/csrc``
+with nvcc (one process per source, all started together), then drives both
+ported paths:
+
+* serving: the flash-decode kernel against its plain PyTorch version and its
+  times; 16 requests through ``DecodeEngine`` at the full width of the 176M
+  serving configuration in three modes, with the kernels of one decode step
+  under ``torch.profiler``; the engine against ``generate`` and the kernel
+  against the plain path end to end;
+* training: the flash-attention forward and backward kernels against their
+  plain versions (fp32 and bf16, causal or not, L 64 to 2048, Lq != Lk with
+  empty rows, GQA, d 32/64/128; each error beside its limit and the
+  output's rms, and a check that the limit fails a dropped key tile) and
+  their times at B4 H8 L2048 d64; ``train_epoch`` of the E=512 L=2048
+  decoder (``bench/bench_train.py``'s production config) in fp32 with Adam
+  and in bf16 with mixed-precision Adam and dropout, with step times,
+  device idle share, the kernels of a step, the check that each attention
+  kernel ran ``n_layer`` times a step, and the check that a step from a
+  host batch makes the host wait nowhere; and one fp32 step with the
+  kernels against one with the plain versions (loss, gradients, updated
+  parameters).
+
+Each phase prints JSON lines; any failure raises and the script exits
+non-zero.  The last line is ``{"ok": true, "device": {...}}``.  Without a
+CUDA device it exits with code 2 and prints no result.  It imports neither
+JAX nor the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
+import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
 
+from tpu_flash_torch.apps.machine_translation import (make_train_step,
+                                                     place_batch, train_epoch)
 from tpu_flash_torch.inference import DecodeEngine, KVCache, SamplingConfig
 from tpu_flash_torch.inference.engine import Request
 from tpu_flash_torch.inference.sampler import generate, prefill_prompt
 from tpu_flash_torch.kernels import common
 from tpu_flash_torch.kernels.decode import flash_decode_attention
-from tpu_flash_torch.nn import (DecoderConfig, DecoderLM, init_params,
-                                num_parameters)
+from tpu_flash_torch.kernels.flash_attention import (flash_attention_backward,
+                                                     flash_attention_forward)
+from tpu_flash_torch.nn import (DecoderConfig, DecoderLM, adam, init_params,
+                                mixed_precision, num_parameters)
 from tpu_flash_torch.utils.timing import device_ms
 
 DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS = 67e12             # H100 SXM data sheet, CUDA cores
+BF16_FLOPS = 989e12            # H100 SXM data sheet, dense tensor cores
+KERNELS = ("flash_decode", "flash_attention_fwd", "flash_attention_bwd")
+ATTENTION = ("flash_attention_fwd", "flash_attention_bwd")
 SERVING = dict(n_vocab=32768, n_embd=1024, n_head=16, n_positions=8192,
                n_layer=8, ff_middle_dim=4096, p_dropout=0.0,
                attention_kind="flash", dtype=torch.bfloat16)
@@ -46,6 +72,46 @@ SERVING = dict(n_vocab=32768, n_embd=1024, n_head=16, n_positions=8192,
 # |out| < 4) and the kernel rounds p to bf16 before P.V where the plain
 # version keeps fp32; fp32 differs only by summation order and __expf.
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+# The production training config (bench/bench_train.py:28-33, "big"):
+# full width and depth.  Batches as bench/bench_train.py:37-39.
+TRAIN = dict(n_vocab=10_000, n_embd=512, n_head=8, n_positions=2048,
+             n_layer=4, ff_middle_dim=256, attention_kind="flash")
+TRAIN_B, TRAIN_L = 4, 2048
+# Flash attention, kernel vs plain on the same inputs: each output x of the
+# kernel is held to |x - ref| <= atol + arms * rms(ref) + rtol * |ref|, with
+# rms(ref) the root mean square of the plain output over the whole case.
+# fp32: the JAX package's tolerances as atol and rtol (forward 1e-3,
+# backward 1e-2); the two versions differ only by summation order, exp2f
+# and, for dQ, atomic order.  bf16: out, dq, dk and dv are rounded to bf16,
+# and an fp32 value near a rounding boundary may land an ulp either side
+# (two ulps are at most 2^-6 of |x|: rtol 2e-2).  On top, the forward
+# kernel rounds p to bf16 relative to its running max where the plain
+# version rounds it relative to the row's final max, an error of a
+# fraction of an ulp of p per key, and a few gradient entries sit where the
+# roundings of dS compound: arms, 3e-2 of the output's rms, above the
+# largest reading on an H100 (PERF.md).  The L = 2048 causal cases also
+# check that the limit fails an output with one 64-key tile dropped from
+# its last 128 rows, as a faulty kernel would give it.  lse stays fp32 in
+# both dtypes and takes the fp32 limit.
+ATTN_TOL = {   # output: (atol, arms, rtol)
+    torch.float32: {"out": (1e-3, 0.0, 1e-3), "lse": (1e-3, 0.0, 1e-3),
+                    **dict.fromkeys(("dq", "dk", "dv"), (1e-2, 0.0, 1e-2))},
+    torch.bfloat16: {"lse": (1e-3, 0.0, 1e-3), **dict.fromkeys(
+        ("out", "dq", "dk", "dv"), (0.0, 3e-2, 2e-2))},
+}
+ATTN_CASES = [
+    # name, B, H, Hkv, Lq, Lk, d, causal
+    ("train-L2048", 4, 8, 8, 2048, 2048, 64, True),
+    ("L2048-full", 1, 8, 8, 2048, 2048, 64, False),
+    ("L200", 2, 8, 8, 200, 200, 64, True),
+    ("L200-full", 2, 8, 8, 200, 200, 64, False),
+    ("L64", 2, 8, 8, 64, 64, 64, True),
+    ("L64-full", 2, 8, 8, 64, 64, 64, False),
+    ("empty-rows-130x70", 2, 8, 8, 130, 70, 64, True),
+    ("gqa-8q2kv", 2, 8, 2, 512, 512, 64, True),
+    ("d32", 2, 8, 8, 256, 256, 32, True),
+    ("d128", 2, 8, 8, 256, 256, 128, True),
+]
 
 
 def log(obj) -> None:
@@ -70,7 +136,7 @@ def filled_cache(gen, B, Hkv, S, d, quant, dtype, lengths):
 
 
 def kernel_cases(gen) -> float:
-    """Phase 3: the kernel against its plain version; returns the largest
+    """The decode kernel against its plain version; returns the largest
     error."""
     serving_lengths = [0, 1, 7, 1023, 1024, 1025, 8191, 8192]
     cases = [
@@ -118,7 +184,7 @@ def kernel_cases(gen) -> float:
 
 
 def kernel_times(gen) -> list[dict]:
-    """Phase 4: kernel, plain and library times at the serving shape.
+    """Decode kernel, plain and library times at the serving shape.
     Four copies of the cache rotate so that no call finds the previous
     call's data in L2, as each layer's own cache would not be there."""
     B, H, d, S, R = 8, 16, 64, 8192, 4
@@ -191,34 +257,360 @@ def kernel_times(gen) -> list[dict]:
     return rows
 
 
-def step_profile(eng, steps: int = 4) -> dict:
-    """Kernels of one decode step (all slots live) under torch.profiler:
-    launches per step, their summed device time, and the eight largest."""
+def compare(a, b, tol):
+    """``a`` against the plain output ``b`` under ``tol = (atol, arms,
+    rtol)``: returns (largest error, rms of b, the arms that ``a`` needs
+    beside atol and rtol, whether it agrees).  Infinities must match."""
+    atol, arms, rtol = tol
+    a, b = a.float(), b.float()
+    inf = torch.isinf(b)
+    same_inf = bool((torch.isinf(a) == inf).all() and (a[inf] == b[inf]).all())
+    a, b = a[~inf], b[~inf]
+    if not b.numel():
+        return 0.0, 0.0, 0.0, same_inf
+    diff = (a - b).abs()
+    r = float(b.square().mean().sqrt())
+    excess = float((diff - atol - rtol * b.abs()).max())
+    need = max(0.0, excess / r) if r > 0 else (0.0 if excess <= 0 else math.inf)
+    ok = same_inf and bool(torch.isfinite(a).all()) and bool(
+        (diff <= atol + arms * r + rtol * b.abs()).all())
+    return float(diff.max()), r, need, ok
+
+
+def dropped_tile(q, k, v, out):
+    """``out`` as a faulty causal forward would give it at L = 2048: keys
+    1024-1087 left out of rows 1920-2047 (the plain version on the rest)."""
+    keep = torch.ones(k.shape[2], dtype=torch.bool, device=k.device)
+    keep[1024:1088] = False
+    part, _, _ = flash_attention_forward(
+        q[:, :, 1920:], k[:, :, keep], v[:, :, keep], causal=True,
+        q_offset=1920 - 64, impl="plain")
+    bad = out.clone()
+    bad[:, :, 1920:] = part
+    return bad
+
+
+def attention_cases(gen) -> dict:
+    """The flash-attention forward and backward kernels against their
+    plain versions on the same inputs; returns the largest error of each
+    kernel over every case.  Every case is logged before a disagreement
+    fails the phase, and a last line gives, per dtype and output, the
+    largest error over its case's rms and the largest arms a case needed."""
+    worst = dict.fromkeys(ATTENTION, 0.0)
+    failed, summary = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tols = ATTN_TOL[dtype]
+        largest = summary[str(dtype).split(".")[1]] = {
+            n: {"err_over_rms": 0.0, "arms_needed": 0.0, "limit": t}
+            for n, t in tols.items()}
+        for name, B, H, Hkv, Lq, Lk, d, causal in ATTN_CASES:
+            q = torch.randn(B, H, Lq, d, generator=gen, device=DEV).to(dtype)
+            k, v = (torch.randn(B, Hkv, Lk, d, generator=gen,
+                                device=DEV).to(dtype) for _ in range(2))
+            do = torch.randn(B, H, Lq, d, generator=gen, device=DEV).to(dtype)
+            out, lse, _ = flash_attention_forward(q, k, v, causal=causal,
+                                                  impl="kernel")
+            ref_out, ref_lse, _ = flash_attention_forward(
+                q, k, v, causal=causal, impl="plain")
+            grads = flash_attention_backward(q, k, v, out, lse, do,
+                                             causal=causal, impl="kernel")
+            ref_grads = flash_attention_backward(q, k, v, out, lse, do,
+                                                 causal=causal, impl="plain")
+            torch.cuda.synchronize()
+            errs, rms, need, ok = {}, {}, {}, True
+            pairs = [("out", out, ref_out), ("lse", lse, ref_lse)] + list(
+                zip(("dq", "dk", "dv"), grads, ref_grads))
+            for n, a, b in pairs:
+                errs[n], rms[n], need[n], agree = compare(a, b, tols[n])
+                ok &= agree
+            if causal and Lq > Lk:      # rows that see no key: exact
+                e = Lq - Lk
+                ok &= (int(torch.count_nonzero(out[:, :, :e])) == 0
+                       and bool(torch.isneginf(lse[:, :, :e]).all())
+                       and int(torch.count_nonzero(grads[0][:, :, :e])) == 0)
+            log({"phase": "attention_vs_plain", "case": name,
+                 "dtype": str(dtype).split(".")[1],
+                 "shape": f"B{B} H{H} Hkv{Hkv} Lq{Lq} Lk{Lk} d{d}",
+                 "causal": causal, "max_abs_err": errs, "rms": rms,
+                 "arms_needed": need,
+                 "tol": {n: "atol {} + {} * rms + rtol {}".format(*t)
+                         for n, t in tols.items()},
+                 "ok": ok})
+            if not ok:
+                failed.append(f"{name} {dtype}")
+            if causal and Lq == Lk == 2048:
+                dropped = compare(dropped_tile(q, k, v, ref_out), ref_out,
+                                  tols["out"])
+                log({"phase": "attention_limit_power", "case": name,
+                     "dtype": str(dtype).split(".")[1],
+                     "fault": "keys 1024-1087 dropped from rows 1920-2047",
+                     "max_abs_err": dropped[0], "arms_needed": dropped[2],
+                     "caught": not dropped[3]})
+                if dropped[3]:
+                    failed.append(f"{name} {dtype}: the limit passes a "
+                                  f"dropped tile")
+            for n in errs:
+                big = largest[n]
+                if rms[n] > 0:
+                    big["err_over_rms"] = max(big["err_over_rms"],
+                                              errs[n] / rms[n])
+                big["arms_needed"] = max(big["arms_needed"], need[n])
+            worst["flash_attention_fwd"] = max(
+                worst["flash_attention_fwd"], errs["out"], errs["lse"])
+            worst["flash_attention_bwd"] = max(
+                worst["flash_attention_bwd"], errs["dq"], errs["dk"],
+                errs["dv"])
+    log({"phase": "attention_tolerance", "limit": "(atol, arms, rtol)",
+         **summary})
+    check(not failed, f"flash attention disagrees with its plain version: "
+                      f"{failed}")
+    return worst
+
+
+def attention_times(gen, B=4, H=8, L=2048, d=64) -> dict:
+    """Forward and backward times at the training shape (B4 H8 L2048 d64,
+    causal): kernel, plain and library, with the bound."""
+    rows = {}
+    for dtype, peak in ((torch.bfloat16, BF16_FLOPS),
+                        (torch.float32, FP32_FLOPS)):
+        q, k, v, do = (torch.randn(B, H, L, d, generator=gen, device=DEV
+                                   ).to(dtype) for _ in range(4))
+        out, lse, _ = flash_attention_forward(q, k, v, causal=True)
+
+        def fwd(impl):
+            return flash_attention_forward(q, k, v, causal=True, impl=impl)
+
+        def bwd(impl):
+            return flash_attention_backward(q, k, v, out, lse, do,
+                                            causal=True, impl=impl)
+
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        lib_out = sdpa(*leaves, is_causal=True)
+
+        def lib_fwdbwd():
+            o = sdpa(*leaves, is_causal=True)
+            return torch.autograd.grad(o, leaves, do)
+
+        item = q.element_size()
+        act = B * H * L * d * item                  # one [B, H, L, d] tensor
+        lse_b = B * H * L * 4
+        work = {   # useful causal flops; bytes read once and written once
+            "flash_attention_fwd": (2 * B * H * L * L * d, 4 * act + lse_b),
+            "flash_attention_bwd": (5 * B * H * L * L * d,
+                                    8 * act + 2 * lse_b)}
+        timed = {
+            "flash_attention_fwd": (
+                device_ms(lambda: fwd("kernel"), iters=10),
+                device_ms(lambda: fwd("plain"), iters=5),
+                device_ms(lambda: sdpa(q, k, v, is_causal=True), iters=10)),
+            "flash_attention_bwd": (
+                device_ms(lambda: bwd("kernel"), iters=10),
+                device_ms(lambda: bwd("plain"), iters=5),
+                device_ms(lambda: torch.autograd.grad(
+                    lib_out, leaves, do, retain_graph=True), iters=10))}
+        lib_fwdbwd_ms = device_ms(lib_fwdbwd, iters=10)
+        for name, (ms, plain_ms, library_ms) in timed.items():
+            flops, nbytes = work[name]
+            bound = {"operations": flops / peak * 1e3,
+                     "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+            bound_by = max(bound, key=bound.get)
+            row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                   "bound_ms": bound[bound_by], "bound_by": bound_by,
+                   "of_bound": bound[bound_by] / ms, "flops": flops,
+                   "bytes": nbytes, "tflops": flops / (ms * 1e-3) / 1e12}
+            log({"phase": "kernel_time", "kernel": name,
+                 "dtype": str(dtype).split(".")[1],
+                 "shape": f"B{B} H{H} L{L} d{d} causal",
+                 "library": "scaled_dot_product_attention(is_causal=True)"
+                            + (" backward" if name.endswith("bwd") else ""),
+                 "library_fwd_bwd_ms": lib_fwdbwd_ms, **row})
+            rows[(name, dtype)] = row
+        del q, k, v, do, out, lse, leaves, lib_out
+    return rows
+
+
+def kernel_profile(fn, steps: int = 4) -> dict:
+    """Kernels of ``fn()`` under torch.profiler, per call: launches, their
+    summed device time, the flash kernels' time, and the eight largest."""
     from torch.profiler import ProfilerActivity, profile
 
-    live = torch.ones(eng.n_slots, dtype=torch.bool, device=DEV)
-    eng._decode_step(eng.last_tokens, live)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            eng._decode_step(eng.last_tokens, live)
+            fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     total_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    flash = {n: sum(e.self_device_time_total for e in kernels
+                    if f"{n}_kernel" in e.key) / steps / 1e3
+             for n in KERNELS}
     return {"kernels_per_step": sum(e.count for e in kernels) / steps,
             "kernel_ms_per_step": total_us / steps / 1e3,
+            "flash_kernel_ms_per_step": flash,
             "top": [{"name": e.key[:80], "count_per_step": e.count / steps,
                      "ms_per_step": e.self_device_time_total / steps / 1e3,
                      "share": e.self_device_time_total / total_us
                      if total_us else None} for e in top]}
 
 
+def train_batch(seed: int = 0) -> dict:
+    """Token ids and 0/1 loss weights from a seed (bench_train.py:37-39)."""
+    rng = np.random.default_rng(seed)
+    shape = (TRAIN_B, TRAIN_L)
+    return {"input_ids": rng.integers(0, TRAIN["n_vocab"], shape),
+            "labels": rng.integers(0, TRAIN["n_vocab"], shape),
+            "label_token_weights": (rng.random(shape) > 0.5
+                                    ).astype(np.float32)}
+
+
+def syncs_in_a_step(step, state, batch, gen):
+    """One training step from a host batch (``place_batch`` included) under
+    torch's sync debug mode, which warns at every operation that makes the
+    host wait for the card; returns the new state and those warnings."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            state, _ = step(state, place_batch(batch, DEV), gen)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return state, [str(w.message)[:300] for w in caught
+                   if "called a synchronizing" in str(w.message)]
+
+
+def training(mode: str, dtype, p_dropout: float, opt) -> dict:
+    """``train_epoch`` at the full width and depth of the production config
+    on one repeated batch: 3 warm-up steps, then 11 (the first of them
+    opens the loop's first timing window, which it leaves out).  Returns
+    the attention kernels' launches in the timed run."""
+    cfg = DecoderConfig(**TRAIN, p_dropout=p_dropout, dtype=dtype)
+    model = DecoderLM(cfg, device=DEV)
+    init_params(model, torch.Generator(DEV).manual_seed(0))
+    state = opt.init(dict(model.named_parameters()))
+    batch = train_batch()
+    gen = torch.Generator(DEV).manual_seed(1)
+    step = make_train_step(model, opt)
+
+    def epoch(state, n, log_every):
+        return train_epoch(model, opt, state, list(range(n)),
+                           lambda _: batch, 1, generator=gen,
+                           log_every=log_every, train_step=step, log=None)
+
+    torch.cuda.reset_peak_memory_stats()
+    state, warm_losses, _, _ = epoch(state, 3, 1)
+    torch.cuda.synchronize()
+    common.launch_counts.clear()
+    state, losses, step_times, tokens = epoch(state, 11, 5)
+    torch.cuda.synchronize()
+    launches = {n: common.launch_counts[n] for n in ATTENTION}
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = statistics.mean(step_times) * 1e3
+    state, syncs = syncs_in_a_step(step, state, batch, gen)
+
+    holder = [state]
+    dev_batch = place_batch(batch, DEV)
+
+    def one_step():
+        holder[0], _ = step(holder[0], dev_batch, gen)
+
+    # device time of one step, the stream held until the host has queued it
+    device_step_ms = device_ms(one_step, warmup=1, iters=1, reps=3,
+                               hold_cycles=400_000_000)
+    prof = kernel_profile(one_step, steps=2)
+    all_losses = warm_losses + losses
+    log({"phase": "training", "mode": mode,
+         "config": {**TRAIN, "p_dropout": p_dropout,
+                    "dtype": str(dtype).split(".")[1],
+                    "batch": TRAIN_B, "seq_len": TRAIN_L},
+         "params": num_parameters(model), "steps_timed": len(step_times),
+         "step_ms": step_ms, "step_ms_each": [t * 1e3 for t in step_times],
+         "device_ms_per_step": device_step_ms,
+         "device_idle_share": 1 - device_step_ms / step_ms,
+         "tokens_per_s": tokens / (step_ms * 1e-3),
+         "peak_memory_GiB": peak_gb, "losses": all_losses,
+         "attention_launches": launches, "host_syncs_in_a_step": syncs,
+         **prof, "card": torch.cuda.get_device_name(0)})
+    check(all(math.isfinite(x) for x in all_losses),
+          f"{mode}: non-finite loss")
+    check(not syncs, f"{mode}: a training step made the host wait: {syncs}")
+    check(all_losses[-1] < all_losses[0],
+          f"{mode}: the loss did not fall on a repeated batch")
+    check(len(step_times) == 10, f"{mode}: {len(step_times)} timed steps")
+    for n, c in launches.items():
+        check(c == cfg.n_layer * len(losses),
+              f"{mode}: {n} launched {c} times in {len(losses)} steps of "
+              f"{cfg.n_layer} layers")
+    del model, state, holder
+    torch.cuda.empty_cache()
+    return launches
+
+
+def training_end_to_end() -> dict:
+    """One Adam step of the fp32 production model (TF32 off)
+    through the kernels and one through their plain versions, from the same
+    parameters: loss, every gradient, every updated parameter."""
+    cfg = DecoderConfig(**TRAIN, p_dropout=0.0, dtype=torch.float32)
+    batch = place_batch(train_batch(1), DEV)
+    lr = 1e-3
+    runs = {}
+    for impl in ("kernel", "plain"):
+        model = DecoderLM(cfg, device=DEV)
+        init_params(model, torch.Generator(DEV).manual_seed(2))
+        opt = adam(lr=lr)
+        state = opt.init(dict(model.named_parameters()))
+        _, loss = make_train_step(model, opt, impl=impl)(state, batch)
+        runs[impl] = (float(loss), {n: (p.detach(), p.grad)
+                                    for n, p in model.named_parameters()})
+    (loss_k, got), (loss_p, want) = runs["kernel"], runs["plain"]
+    # Gradients: fp32 sums in another order (4 layers of attention over
+    # 2048 positions, dQ in atomic order): 1e-3 of the tensor's largest
+    # gradient, plus 1e-5 of the model's largest for tensors whose exact
+    # gradient is 0 (the K projection's bias: softmax ignores a shift of a
+    # row's scores) and so hold rounding noise only.  Updated parameters:
+    # Adam's first step moves each weight by ~lr * sign(g), so where |g|
+    # lies within the gradient tolerance of 0 a sign may flip (up to 2 lr
+    # apart); elsewhere the steps agree to 1e-6.
+    g_max = max(float(g.abs().max()) for _, g in want.values())
+    ok = abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    grad_errs, param_err, flips = [], 0.0, 0
+    for n, (p_p, g_p) in want.items():
+        p_k, g_k = got[n]
+        tol = 1e-3 * float(g_p.abs().max()) + 1e-5 * g_max
+        err = float((g_k - g_p).abs().max())
+        grad_errs.append((err / tol, n, err, tol))
+        near0 = g_p.abs() <= tol
+        diff = (p_k - p_p).abs()
+        if bool((~near0).any()):
+            param_err = max(param_err, float(diff[~near0].max()))
+        ok &= (err <= tol and bool((diff[~near0] <= 1e-6).all())
+               and bool((diff[near0] <= 2 * lr + 1e-6).all()))
+        flips += int((diff[near0] > 1e-6).sum())
+    worst = sorted(grad_errs, reverse=True)[:3]
+    row = {"phase": "training_end_to_end", "loss_kernel": loss_k,
+           "loss_plain": loss_p, "loss_tol": "rtol 1e-5",
+           "grad_worst": [{"param": n, "max_abs_err": e, "tol": t}
+                          for _, n, e, t in worst],
+           "grad_tol": "1e-3 * max|g| of the tensor + 1e-5 * max|g| of all",
+           "param_max_err": param_err, "param_tol": 1e-6,
+           "near_zero_grad_params_moved_apart": flips,
+           "near_zero_tol": f"2 lr = {2 * lr}", "ok": bool(ok)}
+    log(row)
+    check(ok, "the training step through the kernels disagrees with the "
+              "plain versions")
+    return row
+
+
+@torch.no_grad()
 def serving(model, n_layer: int) -> int:
-    """Phase 5: 16 requests through the engine in three modes; returns the
-    kernel launches counted while the engines ran."""
+    """16 requests through the engine in three modes; returns the kernel
+    launches counted while the engines ran."""
     rng = np.random.default_rng(0)
     lens = rng.integers(16, 1025, 16)
     prompts = [rng.integers(1, model.cfg.n_vocab, n).tolist() for n in lens]
@@ -282,7 +674,8 @@ def serving(model, n_layer: int) -> int:
             check(bool(finite), f"{drive}/{quant}: non-finite logits")
             total += launches
             log({"phase": "decode_profile", "kv_quant": quant,
-                 "drive": drive, **step_profile(eng)})
+                 "drive": drive, **kernel_profile(
+                     lambda: eng._decode_step(eng.last_tokens, live))})
             del eng, done
     finally:
         hook.remove()
@@ -290,9 +683,9 @@ def serving(model, n_layer: int) -> int:
 
 
 def end_to_end() -> None:
-    """Phase 6: full width, 2 layers, fp32 with TF32 off: engine tokens
-    against generate's and the uncached forward's, and one decode step's
-    logits with the kernel against the plain path."""
+    """Serving end to end at full width, 2 layers, fp32 with TF32 off:
+    engine tokens against generate's and the uncached forward's, and one
+    decode step's logits with the kernel against the plain path."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = DecoderConfig(**{**SERVING, "n_layer": 2, "dtype": torch.float32,
@@ -372,7 +765,9 @@ def main() -> int:
          "nvidia_smi": smi.splitlines()[0], "torch": torch.__version__,
          "cuda": torch.version.cuda})
 
-    built = common.build(["flash_decode"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    built = common.build(KERNELS)
     log({"phase": "build", **{n: {"seconds": r.seconds, "log": r.log[-2000:]}
                               for n, r in built.items()}})
 
@@ -380,27 +775,52 @@ def main() -> int:
     worst = kernel_cases(gen)
     rows = kernel_times(gen)
 
+    attn_worst = attention_cases(gen)
+    attn_rows = attention_times(gen)
+
     cfg = DecoderConfig(**SERVING)
     model = DecoderLM(cfg, device=DEV)
     init_params(model, torch.Generator(DEV).manual_seed(0))
     log({"phase": "model", "params": num_parameters(model),
          "config": {k: str(v) for k, v in SERVING.items()}})
-    launches = serving(model, cfg.n_layer)
+    launches = {"flash_decode": serving(model, cfg.n_layer)}
     del model
     torch.cuda.empty_cache()
     end_to_end()
 
+    train_launches = [
+        training("fp32-adam", torch.float32, 0.0, adam(lr=1e-3)),
+        training("bf16-mixed-precision-adam-dropout", torch.bfloat16, 0.1,
+                 mixed_precision(adam(lr=1e-3)))]
+    for n in ATTENTION:
+        launches[n] = sum(t[n] for t in train_launches)
+    training_end_to_end()
+
     main_row = next(r for r in rows if r["cache"] == "int8"
                     and r["length"] == 1024)
-    log({"kernels": [{
+    entries = [{
         "name": "flash_decode", "route": "cuda",
         "source": "tpu_flash_torch/kernels/csrc/flash_decode.cu",
         "replaces": "tpu_flash/kernels/decode.py:93",
-        "launches": launches, "max_abs_err": worst,
+        "launches": launches["flash_decode"], "max_abs_err": worst,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
-        "shape": "B8 Hq16 Hkv16 Lq1 d64 S8192 int8 cache, lengths 1024"}]})
+        "shape": "B8 Hq16 Hkv16 Lq1 d64 S8192 int8 cache, lengths 1024"}]
+    replaces = {"flash_attention_fwd": "flash_attention.py:498",
+                "flash_attention_bwd": "flash_attention.py:1228"}
+    for n in ATTENTION:
+        r = attn_rows[(n, torch.bfloat16)]
+        entries.append({
+            "name": n, "route": "cuda",
+            "source": f"tpu_flash_torch/kernels/csrc/{n}.cu",
+            "replaces": f"tpu_flash/kernels/{replaces[n]}",
+            "launches": launches[n],
+            "max_abs_err": attn_worst[n], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": "B4 H8 L2048 d64 causal bf16"})
+    log({"kernels": entries})
     print(smi.splitlines()[0], flush=True)
     log({"ok": True, "device": {"platform": "gpu", "kind": name,
                                 "count": count}})

@@ -1,15 +1,17 @@
-"""The CUDA flash-decode kernel against its plain PyTorch version, on the
-card.  Every test here needs a CUDA device and skips without one; the file
-imports neither JAX nor the JAX package, so on a machine with a card and no
-JAX it runs alone:
+"""The CUDA kernels (flash decode, flash-attention forward and backward)
+against their plain PyTorch versions, on the card.  Every test here needs a
+CUDA device and skips without one; the file imports neither JAX nor the JAX
+package, so on a machine with a card and no JAX it runs alone:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 
-Tolerances: 2e-2 with bf16 q (outputs are rounded to bf16, and the kernel
-rounds p to bf16 before P.V where the plain version keeps fp32); 1e-5 in
-fp32 with TF32 off (summation order and ``__expf`` only).
+Decode tolerances: 2e-2 with bf16 q (outputs are rounded to bf16, and the
+kernel rounds p to bf16 before P.V where the plain version keeps fp32);
+1e-5 in fp32 with TF32 off (summation order and ``__expf`` only).  The
+flash-attention tolerances are stated beside their tests.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -115,3 +117,145 @@ def test_decode_step_logits_kernel_matches_plain(cuda_device):
         logits[impl] = out
     torch.testing.assert_close(logits["kernel"], logits["plain"], atol=1e-4,
                                rtol=1e-4)
+
+
+# --- flash-attention forward and backward kernels -------------------------
+#
+# Tolerances, kernel against plain on the same inputs: fp32 with TF32 off
+# differs by summation order and exp2f only (1e-4 on out/lse, 1e-3 on the
+# gradients, whose sums run over up to 2048 rows, dQ in atomic order).  lse
+# and m are fp32 in both dtypes and keep 1e-4.  bf16 out and gradients are
+# rounded to bf16 and may land an ulp either side of a boundary (rtol 2e-2
+# covers two), and the forward kernel rounds p relative to its running max
+# where the plain version uses the row's final max: BF16_ARMS of the
+# output's root mean square on top, chip_smoke.py's limit.
+
+FA_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (1e-4, None)}
+BF16_ARMS, BF16_RTOL = 3e-2, 2e-2
+
+
+def assert_close_bf16(got, want):
+    """|got - want| <= BF16_ARMS * rms(want) + BF16_RTOL * |want|."""
+    got, want = got.float(), want.float()
+    rms = float(want.square().mean().sqrt())
+    excess = (got - want).abs() - BF16_ARMS * rms - BF16_RTOL * want.abs()
+    assert float(excess.max()) <= 0, (float((got - want).abs().max()), rms)
+
+
+def attention_case(gen, dev, B, H, Hkv, Lq, Lk, d, dtype):
+    q = torch.randn(B, H, Lq, d, generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn(B, Hkv, Lk, d, generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    do = torch.randn(B, H, Lq, d, generator=gen, device=dev).to(dtype)
+    return q, k, v, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("B,H,Hkv,Lq,Lk,d", [
+    (2, 4, 4, 64, 64, 64), (1, 2, 2, 200, 200, 32), (1, 8, 2, 256, 256, 128),
+    (2, 2, 1, 130, 70, 16), (1, 4, 4, 70, 130, 64)])
+def test_flash_attention_kernels_match_plain(cuda_device, dtype, causal, B,
+                                             H, Hkv, Lq, Lk, d):
+    from tpu_flash_torch.kernels.flash_attention import (
+        flash_attention_backward, flash_attention_forward)
+
+    gen = torch.Generator(cuda_device).manual_seed(4)
+    q, k, v, do = attention_case(gen, cuda_device, B, H, Hkv, Lq, Lk, d,
+                                 dtype)
+    fw_tol, bw_tol = FA_TOL[dtype]
+    before = dict(common.launch_counts)
+    got = flash_attention_forward(q, k, v, causal=causal, with_m=True)
+    want = flash_attention_forward(q, k, v, causal=causal, with_m=True,
+                                   impl="plain")
+    out, lse = got[0], got[1]
+    grads = flash_attention_backward(q, k, v, out, lse, do, causal=causal)
+    ref = flash_attention_backward(q, k, v, out, lse, do, causal=causal,
+                                   impl="plain")
+    torch.cuda.synchronize()
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        assert common.launch_counts[name] == before.get(name, 0) + 1
+    for a, b in zip(got[1:], want[1:]):          # lse, m (-inf on empty rows)
+        torch.testing.assert_close(a, b, atol=fw_tol, rtol=fw_tol)
+    for a, b in zip((got[0], *grads), (want[0], *ref)):   # out, dq, dk, dv
+        assert torch.isfinite(a).all()
+        if dtype == torch.bfloat16:
+            assert_close_bf16(a, b)
+        else:
+            tol = fw_tol if a is got[0] else bw_tol
+            torch.testing.assert_close(a, b, atol=tol, rtol=tol)
+    if causal and Lq > Lk:                       # rows before the first key
+        empty = Lq - Lk
+        assert torch.count_nonzero(out[:, :, :empty]) == 0
+        assert torch.isneginf(lse[:, :, :empty]).all()
+        assert torch.count_nonzero(grads[0][:, :, :empty]) == 0
+
+
+@pytest.mark.cuda
+def test_flash_attention_op_trains_through_the_kernels(cuda_device):
+    """The autograd Function on CUDA tensors launches both kernels once and
+    its gradients agree with autograd through naive attention."""
+    from tpu_flash_torch.ops import flash_attention, naive_attention
+
+    gen = torch.Generator(cuda_device).manual_seed(5)
+    q, k, v, do = attention_case(gen, cuda_device, 2, 4, 4, 300, 300, 64,
+                                 torch.float32)
+    leaves = [x.requires_grad_() for x in (q, k, v)]
+    before = dict(common.launch_counts)
+    out = flash_attention(*leaves, causal=True)
+    grads = torch.autograd.grad((out * do).sum(), leaves)
+    ref = naive_attention(*leaves, causal=True)
+    ref_grads = torch.autograd.grad((ref * do).sum(), leaves)
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        assert common.launch_counts[name] == before.get(name, 0) + 1
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    for a, b in zip(grads, ref_grads):
+        torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_training_step_from_a_host_batch_makes_the_host_wait_nowhere(
+        cuda_device):
+    """place_batch and a training step with dropout, under torch's sync
+    debug mode set to raise at any operation that waits for the card."""
+    from tpu_flash_torch.apps import machine_translation as tmt
+
+    cfg = tnn.DecoderConfig(n_vocab=64, n_embd=64, n_head=4, n_positions=128,
+                            n_layer=2, ff_middle_dim=64, p_dropout=0.1,
+                            attention_kind="flash")
+    model = tnn.DecoderLM(cfg, device=cuda_device)
+    tnn.init_params(model, torch.Generator(cuda_device).manual_seed(0))
+    opt = tnn.mixed_precision(tnn.adam())
+    step = tmt.make_train_step(model, opt)
+    rng = np.random.default_rng(0)
+    batch = {"input_ids": rng.integers(0, 64, (2, 128)),
+             "labels": rng.integers(0, 64, (2, 128)),
+             "label_token_weights": np.ones((2, 128), np.float32)}
+    state, _ = step(opt.init(dict(model.named_parameters())),
+                    tmt.place_batch(batch, cuda_device))   # builds, warms up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        placed = tmt.place_batch(batch, cuda_device)
+        state, loss = step(state, placed)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert placed["input_ids"].is_cuda
+    np.testing.assert_array_equal(placed["input_ids"].cpu().numpy(),
+                                  batch["input_ids"])
+    assert torch.isfinite(loss)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernels_reject_what_they_do_not_take(cuda_device):
+    from tpu_flash_torch.kernels.flash_attention import (
+        flash_attention_forward)
+
+    x = torch.zeros(1, 2, 8, 48, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_forward(x, x, x)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention_forward(*(x[..., :32].half() for _ in range(3)))
+    with pytest.raises(NotImplementedError, match="A5"):
+        flash_attention_forward(x, x, x, window=4)

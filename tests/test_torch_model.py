@@ -52,7 +52,7 @@ def fp32_pair():
 
 def np32(x):
     if isinstance(x, torch.Tensor):
-        return x.float().numpy()
+        return x.detach().float().numpy()
     return np.asarray(x, np.float32)
 
 
@@ -127,7 +127,7 @@ def test_load_jax_params_maps_every_parameter(fp32_pair):
     names = {n for n, _ in tnn.named_tree_leaves(params)}
     assert names == {n for n, _ in tm.named_parameters()}
     np.testing.assert_array_equal(                     # [in, out] -> [out, in]
-        tm.lm_head.weight.numpy(), np.asarray(params["lm_head"]["weight"]).T)
+        np32(tm.lm_head.weight), np.asarray(params["lm_head"]["weight"]).T)
     with pytest.raises(KeyError, match="missing"):
         tnn.load_jax_params(tm, {k: v for k, v in params.items()
                                  if k != "lm_head"})
@@ -173,17 +173,19 @@ def test_unported_config_raises(over):
 
 
 def test_unported_forward_paths_raise():
+    """What the port still lacks on the uncached forward: the fused
+    attention-softmax kernel, window and packed sequences (flash attention
+    and training are ported)."""
     ids = torch.zeros(1, 4, dtype=torch.long)
-    for kind in ("flash", "fused"):
-        m = tnn.DecoderLM(tnn.DecoderConfig(**{**CFG, "attention_kind":
-                                               kind}), device="cpu")
-        with pytest.raises(NotImplementedError, match="A2"):
-            m(ids)
-    m = tnn.DecoderLM(tnn.DecoderConfig(**CFG, window=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="window"):
+    m = tnn.DecoderLM(tnn.DecoderConfig(**{**CFG, "attention_kind":
+                                           "fused"}), device="cpu")
+    with pytest.raises(NotImplementedError, match="A2"):
         m(ids)
-    with pytest.raises(NotImplementedError, match="training"):
-        m(ids, training=True)
+    for kind in ("flash", "naive"):
+        m = tnn.DecoderLM(tnn.DecoderConfig(**{**CFG, "attention_kind": kind},
+                                            window=4), device="cpu")
+        with pytest.raises(NotImplementedError, match="window"):
+            m(ids, training=True)
     with pytest.raises(NotImplementedError, match="segment_ids"):
         m(ids, segment_ids=ids)
 
@@ -205,7 +207,8 @@ def test_entry_points_need_a_card_or_cpu():
 def test_import_leaves_out_jax_and_the_jax_package():
     code = ("import sys, tpu_flash_torch, tpu_flash_torch.nn, "
             "tpu_flash_torch.inference, tpu_flash_torch.kernels, "
-            "tpu_flash_torch.utils; "
+            "tpu_flash_torch.ops, tpu_flash_torch.utils, "
+            "tpu_flash_torch.apps.machine_translation; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'tpu_flash.')) or m == 'tpu_flash'); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -216,12 +219,14 @@ def test_import_leaves_out_jax_and_the_jax_package():
 
 def test_package_sources_call_no_library_attention():
     """No JAX or tpu_flash import, no scaled_dot_product_attention, no
-    torch.compile and no flash_attn anywhere in the port's sources."""
-    banned = re.compile(r"^\s*(from|import)\s+(jax|tpu_flash)\b"
-                        r"|scaled_dot_product_attention|torch\.compile"
-                        r"|flash_attn", re.M)
+    torch.compile and no import of the flash_attn package anywhere in the
+    port's sources (the port's own parity aliases keep their names)."""
+    banned = re.compile(r"^\s*(from|import)\s+(jax|tpu_flash|flash_attn)\b"
+                        r"|scaled_dot_product_attention|torch\.compile",
+                        re.M)
     files = [*(REPO / "tpu_flash_torch").rglob("*.py"),
-             *(REPO / "tpu_flash_torch").rglob("*.cu"), REPO / "chip_smoke.py"]
+             *(REPO / "tpu_flash_torch").rglob("*.cu*"),
+             REPO / "chip_smoke.py"]
     hits = [f"{f.name}: {m.group(0)}" for f in files
             for m in banned.finditer(f.read_text())
             if not (f.name == "chip_smoke.py"

@@ -8,15 +8,18 @@ becomes a kernel written by hand in CUDA C++ for ``sm_90a``, built with
 tensors take.
 
 Layering, as in the JAX package:
-  kernels/   — CUDA kernels (flash-decode attention) + build/launch helpers
-  ops/       — plain PyTorch oracles (causal mask)
-  nn/        — layers and the pre-LN decoder transformer (torch.nn)
+  kernels/   — CUDA kernels (flash decode, flash-attention forward and
+               backward) + build/launch helpers
+  ops/       — the differentiable flash-attention op and plain PyTorch
+               oracles (causal mask, naive attention, FA1/FA2 forward)
+  nn/        — layers, the pre-LN decoder transformer (torch.nn), optimizers
   inference/ — KV cache (fp/int8/fp8, heads-minor), sampler, engine
+  apps/      — the machine-translation training core (loss, step, epoch)
   utils/     — CUDA-event timing
 
 Entry points (``DecoderLM``, ``DecodeEngine``, ``generate``) run on the card
 unless the caller passes ``device="cpu"``.  Ported so far: the serving path
-(ROADMAP.md, queue A item A1).
+and the training path (ROADMAP.md, queue A items A1-A4).
 """
 
 __version__ = "0.1.0"

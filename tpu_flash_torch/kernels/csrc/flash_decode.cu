@@ -43,12 +43,11 @@
 // nothing and returns cudaGetLastError() (or cudaErrorInvalidValue for a
 // shape or dtype it does not take).
 
-#include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -57,12 +56,6 @@ enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2, kF8E4M3 = 3 };
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kUnroll = 4;  // positions per lane group per loop step
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ void bf16x2(uint32_t w, float* f) {
-  f[0] = __uint_as_float(w << 16);
-  f[1] = __uint_as_float(w & 0xffff0000u);
-}
 
 __device__ __forceinline__ void i8x4(uint32_t w, float* f) {
   f[0] = (float)(int8_t)(uint8_t)(w);
@@ -126,10 +119,6 @@ template <> struct Codes<kF8E4M3> {
     e4m3x2(w.w >> 16, f + 14);
   }
 };
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 struct Params {
   const void* q;          // [B, Hq, Lq, D] fp32 or bf16
@@ -426,10 +415,6 @@ int tf_flash_decode(const void* q, const void* k, const void* v,
     case 128: return launch_codes<128>(p, kv_dtype, st);
   }
   return cudaErrorInvalidValue;
-}
-
-const char* tf_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

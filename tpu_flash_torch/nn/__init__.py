@@ -1,7 +1,7 @@
-"""Modules of the port: layers, the decoder transformer and the helpers
-that load or draw its parameters."""
+"""Modules of the port: layers, the decoder transformer, the optimizers
+and the helpers that load, export or draw its parameters."""
 
-from tpu_flash_torch.nn import functional  # noqa: F401
+from tpu_flash_torch.nn import functional, optim  # noqa: F401
 from tpu_flash_torch.nn.layers import (  # noqa: F401
     Dropout,
     Embedding,
@@ -13,6 +13,13 @@ from tpu_flash_torch.nn.module import (  # noqa: F401
     load_jax_params,
     named_tree_leaves,
     num_parameters,
+    to_jax_params,
+)
+from tpu_flash_torch.nn.optim import (  # noqa: F401
+    adam,
+    adamw,
+    mixed_precision,
+    sgd,
 )
 from tpu_flash_torch.nn.transformer import (  # noqa: F401
     DecoderConfig,

@@ -25,12 +25,16 @@ class Embedding(torch.nn.Embedding):
 
 
 class Dropout(torch.nn.Module):
+    """Inverted dropout; active only with ``training=True`` and a
+    ``generator`` (``functional.dropout``)."""
+
     def __init__(self, p_dropout: float = 0.1):
         super().__init__()
         self.p = float(p_dropout)
 
-    def forward(self, x: torch.Tensor, *, training: bool = False):
-        return F.dropout(x, self.p, training=training)
+    def forward(self, x: torch.Tensor, *, training: bool = False,
+                generator: torch.Generator | None = None):
+        return F.dropout(x, self.p, generator=generator, training=training)
 
 
 class LayerNorm(torch.nn.Module):

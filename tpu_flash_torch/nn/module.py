@@ -3,8 +3,9 @@
 The JAX package's modules are configuration objects over an external
 parameter tree; the port uses ``torch.nn.Module`` state.  These helpers move
 between the two: ``load_jax_params`` copies a JAX tree (as numpy arrays)
-into a module, and ``init_params`` draws fresh values from the JAX init's
-distributions with an explicit ``torch.Generator``.
+into a module, ``to_jax_params`` goes the other way, and ``init_params``
+draws fresh values from the JAX init's distributions with an explicit
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -58,6 +59,25 @@ def load_jax_params(model: torch.nn.Module, tree: Any) -> None:
     missing = sorted(set(params) - seen)
     if missing:
         raise KeyError(f"parameters missing from the JAX tree: {missing}")
+
+
+def to_jax_params(model: torch.nn.Module) -> dict:
+    """The inverse of ``load_jax_params``: the module's parameters as the
+    JAX package's nested tree of float32 numpy arrays, Linear weights
+    transposed back to ``[in, out]``."""
+    transposed = {f"{name}.weight" for name, m in model.named_modules()
+                  if isinstance(m, Linear)}
+    tree: dict = {}
+    for name, p in model.named_parameters():
+        x = p.detach().float().cpu()
+        if name in transposed:
+            x = x.T
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = x.contiguous().numpy()
+    return tree
 
 
 @torch.no_grad()

@@ -2,12 +2,15 @@
 ``tpu_flash/nn/transformer.py``: ``DecoderConfig``, ``MultiHeadAttention``,
 ``FeedForward``, ``TransformerLayer``, ``DecoderLM``.
 
-This slice of the port serves: the cached forward (prefill and decode over
-a KV cache) and the uncached forward with the composed ("naive") attention.
-Decode steps with at most 8 new tokens go through the flash-decode kernel;
-longer prefills attend over the cache with the composed graph, as in the JAX
-package.  What the slice does not cover raises ``NotImplementedError`` and
-names the ROADMAP.md item that brings it.
+Ported so far: the cached forward (prefill and decode over a KV cache) and
+the uncached forward, with training (dropout from an explicit
+``torch.Generator``, gradients through every parameter).  Decode steps with
+at most 8 new tokens go through the flash-decode kernel; longer prefills
+attend over the cache with the composed graph, as in the JAX package.  The
+uncached forward attends with the flash-attention kernels
+(``attention_kind="flash"``, and ``"auto"`` from ``_FLASH_AUTO_MIN_L``) or
+the composed ("naive") graph.  What is not ported raises
+``NotImplementedError`` and names the ROADMAP.md item that brings it.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from tpu_flash_torch.kernels.common import resolve_device
 from tpu_flash_torch.kernels.decode import flash_decode_attention
 from tpu_flash_torch.nn import functional as F
 from tpu_flash_torch.nn.layers import Dropout, Embedding, LayerNorm, Linear
+from tpu_flash_torch.ops.attention import flash_attention
 from tpu_flash_torch.ops.reference import causal_mask
 
 AttentionKind = Literal["flash", "fused", "naive", "auto"]
@@ -137,18 +141,23 @@ class MultiHeadAttention(torch.nn.Module):
         return (split(self.q_projection(x)), split(self.k_projection(x)),
                 split(self.v_projection(x)))
 
-    def self_attention(self, q, k, v, *, kv_mask=None):
-        """Uncached attention.  Only the composed ("naive") graph is ported;
-        "auto" takes it below ``_FLASH_AUTO_MIN_L``."""
+    def self_attention(self, q, k, v, *, kv_mask=None, impl=None):
+        """Uncached attention: the flash-attention kernels (``"flash"``, and
+        ``"auto"`` from ``_FLASH_AUTO_MIN_L``) or the composed graph.  As in
+        the JAX package, the flash path takes no ``kv_mask``.  ``impl``
+        reaches the kernels' wrappers."""
         c = self.cfg
         kind = c.attention_kind
         if kind == "auto":
             kind = "flash" if q.shape[-2] >= _FLASH_AUTO_MIN_L else "naive"
-        if kind in ("flash", "fused"):
+        if kind == "fused":
             raise _not_ported(
-                f"the {kind} attention kernel on the uncached forward", "A2")
+                "the fused attention-softmax kernel on the uncached forward",
+                "A2")
         if c.window is not None:
             raise _not_ported("window on the uncached forward", "A5")
+        if kind == "flash":
+            return flash_attention(q, k, v, causal=c.causal, impl=impl)
         if k.shape[1] != q.shape[1]:     # GQA: repeat each KV head
             g = q.shape[1] // k.shape[1]
             k = k.repeat_interleave(g, dim=1)
@@ -201,7 +210,7 @@ class MultiHeadAttention(torch.nn.Module):
             out = self._cached_attention(q, kv_cache, impl)
             out = out.transpose(1, 2).reshape(B, L, E)
             return self.out_projection(out), kv_cache
-        out = self.self_attention(q, k, v, kv_mask=kv_mask)
+        out = self.self_attention(q, k, v, kv_mask=kv_mask, impl=impl)
         return self.out_projection(out.transpose(1, 2).reshape(B, L, E))
 
 
@@ -213,8 +222,10 @@ class FeedForward(torch.nn.Module):
         self.linear_out = Linear(cfg.ff_middle_dim, cfg.n_embd, **kw)
         self.dropout = Dropout(cfg.p_dropout)
 
-    def forward(self, x):
-        return self.linear_out(self.dropout(F.gelu(self.linear_in(x))))
+    def forward(self, x, *, training: bool = False, generator=None):
+        h = F.gelu(self.linear_in(x))
+        return self.linear_out(self.dropout(h, training=training,
+                                            generator=generator))
 
 
 class TransformerLayer(torch.nn.Module):
@@ -229,15 +240,17 @@ class TransformerLayer(torch.nn.Module):
         self.attention = MultiHeadAttention(cfg, device)
         self.ff = FeedForward(cfg, device)
 
-    def forward(self, x, *, kv_cache=None, kv_mask=None, impl=None):
+    def forward(self, x, *, kv_cache=None, kv_mask=None, impl=None,
+                training: bool = False, generator=None):
         h = self.ln_1(x)
         if kv_cache is not None:
             attn_out, kv_cache = self.attention(h, kv_cache=kv_cache,
                                                 impl=impl)
         else:
-            attn_out = self.attention(h, kv_mask=kv_mask)
+            attn_out = self.attention(h, kv_mask=kv_mask, impl=impl)
         out = x + attn_out
-        result = out + self.ff(self.ln_2(out))
+        result = out + self.ff(self.ln_2(out), training=training,
+                               generator=generator)
         return (result, kv_cache) if kv_cache is not None else result
 
 
@@ -248,8 +261,8 @@ class DecoderLM(torch.nn.Module):
     ``device=None`` means the card and raises without one; CPU runs pass
     ``device="cpu"``.  Parameters start from PyTorch's defaults (the same
     distributions as the JAX init); set them with ``nn.init_params`` or
-    ``nn.load_jax_params``.  Inference only for now: parameters do not
-    require gradients (training is ROADMAP.md, queue A items A2-A3)."""
+    ``nn.load_jax_params``.  Parameters require gradients: serving entries
+    run under ``torch.no_grad()``."""
 
     def __init__(self, cfg: DecoderConfig, device=None):
         super().__init__()
@@ -267,21 +280,21 @@ class DecoderLM(torch.nn.Module):
                             device=device)
         self.lm_head = Linear(cfg.n_embd, cfg.n_vocab, bias=cfg.bias,
                               dtype=cfg.dtype, device=device)
-        self.requires_grad_(False)
 
     @property
     def device(self) -> torch.device:
         return self.lm_head.weight.device
 
     def forward(self, idx, *, kv_caches=None, kv_mask=None, positions=None,
-                segment_ids=None, training: bool = False, impl=None):
+                segment_ids=None, training: bool = False, generator=None,
+                impl=None):
         """idx [B, L] -> logits [B, L, n_vocab], or ``(logits, caches)``
         with ``kv_caches`` (one ``KVCache`` per layer, updated in place).
 
         ``positions`` ([1, L] or [B, L]) overrides ``arange(L)``, as decode
-        needs.  ``impl`` reaches the decode kernel's wrapper."""
-        if training:
-            raise _not_ported("training", "A3")
+        needs.  ``training`` with a ``generator`` applies the embedding and
+        feed-forward dropouts (the JAX layer has no residual dropout).
+        ``impl`` reaches the kernels' wrappers."""
         if segment_ids is not None:
             raise _not_ported("segment_ids (packed sequences)", "A5")
         B, L = idx.shape
@@ -291,13 +304,15 @@ class DecoderLM(torch.nn.Module):
         x = self.token_embeddings(idx)
         if c.positional == "learned":
             x = x + self.position_embeddings(positions)
-        x = self.dropout(x)
+        x = self.dropout(x, training=training, generator=generator)
         new_caches = [] if kv_caches is not None else None
         for li, layer in enumerate(self.layers):
             if kv_caches is not None:
-                x, cache = layer(x, kv_cache=kv_caches[li], impl=impl)
+                x, cache = layer(x, kv_cache=kv_caches[li], impl=impl,
+                                 training=training, generator=generator)
                 new_caches.append(cache)
             else:
-                x = layer(x, kv_mask=kv_mask)
+                x = layer(x, kv_mask=kv_mask, impl=impl, training=training,
+                          generator=generator)
         logits = self.lm_head(self.ln(x))
         return logits if kv_caches is None else (logits, new_caches)

@@ -1,0 +1,99 @@
+"""The differentiable flash-attention op, counterpart of
+``tpu_flash/ops/attention.py``.
+
+``flash_attention`` is a ``torch.autograd.Function`` (the JAX package's
+``custom_vjp``, ops/attention.py:219-240): the forward runs
+``kernels.flash_attention_forward`` and saves ``(q, k, v, out, lse)``; the
+backward runs ``kernels.flash_attention_backward``, which recomputes
+``P = exp(S - lse)``.  ``version=1|2`` selects the FA1 ``(l, m)`` or FA2
+``lse`` residual convention of ``flash_attention_with_residuals``; both run
+the same kernels.  ``impl``: ``None`` launches the CUDA kernels for CUDA
+tensors and runs their plain versions for CPU tensors; ``"kernel"`` or
+``"plain"`` forces one (the JAX package's ``"pallas"`` and
+``"reference"``/``"xla"``).  Quantized K/V, attention dropout, ``window``,
+``segment_ids`` and the parallel (sharded) form are not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpu_flash_torch.kernels.flash_attention import (
+    flash_attention_backward,
+    flash_attention_forward,
+)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, impl):
+        q, k, v = (x.contiguous() for x in (q, k, v))
+        out, lse, _ = flash_attention_forward(q, k, v, causal=causal,
+                                              impl=impl)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.impl = causal, impl
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, lse, do, causal=ctx.causal, impl=ctx.impl)
+        return dq, dk, dv, None, None
+
+
+def _check_version(version: int) -> None:
+    if version not in (1, 2):
+        raise ValueError(f"version must be 1 or 2, got {version}")
+
+
+def flash_attention(q, k, v, *, causal: bool = False, version: int = 2,
+                    impl: str | None = None, kv_quant: str = "none",
+                    dropout_rate: float = 0.0, dropout_seed=0,
+                    window: int | None = None,
+                    segment_ids=None) -> torch.Tensor:
+    """Flash attention over ``[B, H, L, d]`` inputs (k, v may carry fewer
+    heads: GQA); differentiable.  Returns ``[B, H, Lq, d]`` in q's dtype."""
+    _check_version(version)
+    unported = [(kv_quant != "none", "kv_quant"),
+                (dropout_rate > 0.0, "attention dropout"),
+                (window is not None, "window"),
+                (segment_ids is not None, "segment_ids")]
+    for bad, what in unported:
+        if bad:
+            raise NotImplementedError(
+                f"{what} in flash_attention is not ported yet (ROADMAP.md, "
+                f"queue A item A5)")
+    return _FlashAttention.apply(q, k, v, causal, impl)
+
+
+@torch.no_grad()
+def flash_attention_with_residuals(q, k, v, *, causal: bool = False,
+                                   version: int = 2,
+                                   impl: str | None = None):
+    """Non-differentiable forward that also returns the saved residuals:
+    ``(out, lse)`` for version 2, ``(out, l, m)`` for version 1 with
+    ``l = exp(lse - m)``."""
+    _check_version(version)
+    out, lse, m = flash_attention_forward(q, k, v, causal=causal,
+                                          with_m=version == 1, impl=impl)
+    if version == 2:
+        return out, lse
+    return out, torch.exp(lse - m), m
+
+
+# --- reference-parity aliases (Tensor.flash_attn*) --------------------------
+
+def flash_attn(q, k, v, *, impl: str | None = None):
+    """FA1, non-causal."""
+    return flash_attention(q, k, v, causal=False, version=1, impl=impl)
+
+
+def flash_attn_causal(q, k, v, *, impl: str | None = None):
+    """FA1 with causal masking."""
+    return flash_attention(q, k, v, causal=True, version=1, impl=impl)
+
+
+def flash_attn2(q, k, v, *, causal: bool = False, impl: str | None = None):
+    """FA2 (logsumexp residual)."""
+    return flash_attention(q, k, v, causal=causal, version=2, impl=impl)
