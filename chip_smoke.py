@@ -17,14 +17,24 @@ ported paths:
   plain versions (fp32 and bf16, causal or not, L 64 to 2048, Lq != Lk with
   empty rows, GQA, d 32/64/128; each error beside its limit and the
   output's rms, and a check that the limit fails a dropped key tile) and
-  their times at B4 H8 L2048 d64; ``train_epoch`` of the E=512 L=2048
-  decoder (``bench/bench_train.py``'s production config) in fp32 with Adam
-  and in bf16 with mixed-precision Adam and dropout, with step times,
-  device idle share, the kernels of a step, the check that each attention
-  kernel ran ``n_layer`` times a step, and the check that a step from a
-  host batch makes the host wait nowhere; and one fp32 step with the
-  kernels against one with the plain versions (loss, gradients, updated
-  parameters).
+  their times at B4 H8 L2048 d64; the fused LayerNorm and masked-softmax
+  kernels against their plain versions (fp32 and bf16, the reference MT
+  shapes, ragged widths, rows that see no key, a fully padded batch row,
+  widths above 512; each limit checked against a perturbed row), their
+  times at the reference MT shapes, and ``ops.fused``'s kernel route
+  against its composed route (forward plus backward) at last axes 640 and
+  1024, above its 512 limits; ``train_epoch`` in five modes: the E=512
+  L=2048 decoder (``bench/bench_train.py``'s production config) with flash
+  attention in fp32 with Adam (a) and in bf16 with mixed-precision Adam and
+  dropout (b), the reference MT config (``bench_train.py``'s "ref" row,
+  fused attention and fused LayerNorm) in fp32 (c) and in bf16 with mixed
+  precision and dropout (d), and the production config with flash attention
+  and fused LayerNorm in bf16 (e), each with step times, device idle share,
+  the kernels of a step, the check that each kernel ran its expected
+  number of times a step, and the check that a step from a host batch
+  makes the host wait nowhere; and one fp32 step with the kernels against
+  one with the plain versions (loss, gradients, updated parameters) at the
+  production flash config and at the reference fused config.
 
 Each phase prints JSON lines; any failure raises and the script exits
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -55,16 +65,26 @@ from tpu_flash_torch.kernels import common
 from tpu_flash_torch.kernels.decode import flash_decode_attention
 from tpu_flash_torch.kernels.flash_attention import (flash_attention_backward,
                                                      flash_attention_forward)
+from tpu_flash_torch.kernels.layernorm import (layernorm_backward,
+                                               layernorm_forward)
+from tpu_flash_torch.kernels.softmax import (attn_softmax_backward,
+                                             attn_softmax_forward)
 from tpu_flash_torch.nn import (DecoderConfig, DecoderLM, adam, init_params,
                                 mixed_precision, num_parameters)
+from tpu_flash_torch.ops import fused
+from tpu_flash_torch.ops.reference import causal_mask
 from tpu_flash_torch.utils.timing import device_ms
 
 DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS = 67e12             # H100 SXM data sheet, CUDA cores
 BF16_FLOPS = 989e12            # H100 SXM data sheet, dense tensor cores
-KERNELS = ("flash_decode", "flash_attention_fwd", "flash_attention_bwd")
+L2_BYTES = 50e6                # H100 L2 cache
 ATTENTION = ("flash_attention_fwd", "flash_attention_bwd")
+FUSED = ("layernorm_fwd", "layernorm_bwd", "attn_softmax_fwd",
+         "attn_softmax_bwd")
+TRAINING_KERNELS = ATTENTION + FUSED
+KERNELS = ("flash_decode",) + TRAINING_KERNELS
 SERVING = dict(n_vocab=32768, n_embd=1024, n_head=16, n_positions=8192,
                n_layer=8, ff_middle_dim=4096, p_dropout=0.0,
                attention_kind="flash", dtype=torch.bfloat16)
@@ -77,6 +97,46 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
 TRAIN = dict(n_vocab=10_000, n_embd=512, n_head=8, n_positions=2048,
              n_layer=4, ff_middle_dim=256, attention_kind="flash")
 TRAIN_B, TRAIN_L = 4, 2048
+# The reference MT config (bench/bench_train.py:30,40-48, "ref" with
+# kind="fused" and use_fused_kernel=True): full width and depth.  L = 256
+# and E = 256 are under ops.fused's 512 limits, so every LayerNorm and every
+# attention softmax runs on the fused kernels.
+REF = dict(n_vocab=10_000, n_embd=256, n_head=8, n_positions=256, n_layer=4,
+           ff_middle_dim=256, attention_kind="fused", use_fused_kernel=True)
+REF_B, REF_L = 32, 256
+# Fused kernels, kernel vs plain on the same inputs: each output x is held
+# to |x - ref| <= arms * rms(ref) + rtol * |ref| (compare()).  fp32: the
+# two differ by summation order, rsqrtf and expf: 1e-5 and 1e-5; dgamma
+# and dbeta are sums over 8192 rows in another order: 1e-4 of their rms.
+# bf16: the stores may round to the neighbouring bf16 (rtol 2e-2 covers two
+# ulps) on top of 1e-2 of the rms; mean and var stay fp32 and take the fp32
+# limit.  Every dtype and kernel also checks that its limit fails an output
+# with 1 % of one row's absolute sum added to one value of that row.
+_F32 = (0.0, 1e-5, 1e-5)
+FUSED_TOL = {
+    torch.float32: {"y": _F32, "mean": _F32, "var": _F32, "dx": _F32,
+                    "dgamma": (0.0, 1e-4, 1e-5), "dbeta": (0.0, 1e-4, 1e-5),
+                    "p": _F32},
+    torch.bfloat16: {"mean": _F32, "var": _F32, **dict.fromkeys(
+        ("y", "dx", "dgamma", "dbeta", "p"), (0.0, 1e-2, 2e-2))},
+}
+LN_CASES = [
+    # name, x shape, impl
+    ("ref-R8192-H256", (REF_B, REF_L, 256), None),
+    ("prod-R8192-H512", (TRAIN_B, TRAIN_L, 512), None),
+    ("ragged-R37-H200", (37, 200), None),
+    ("above-512-R8192-H640", (8192, 640), "kernel"),
+]
+SOFTMAX_CASES = [
+    # name, shape, mask_future, keys each batch row keeps (pad mask) or None
+    ("ref-32x8x256x256-causal", (REF_B, 8, REF_L, REF_L), True, None),
+    ("no-key-rows-2x8x130x70", (2, 8, 130, 70), True, None),
+    ("pad-all-masked-2x3x70x200", (2, 3, 70, 200), False, (150, 0)),
+    ("full-4x8x256x256", (4, 8, 256, 256), False, None),
+    ("above-512-2x8x640x640", (2, 8, 640, 640), True, None),
+]
+# Last axes above ops.fused's 512 limits at which its two routes are timed.
+DISPATCH_WIDTHS = (640, 1024)
 # Flash attention, kernel vs plain on the same inputs: each output x of the
 # kernel is held to |x - ref| <= atol + arms * rms(ref) + rtol * |ref|, with
 # rms(ref) the root mean square of the plain output over the whole case.
@@ -430,9 +490,269 @@ def attention_times(gen, B=4, H=8, L=2048, d=64) -> dict:
     return rows
 
 
+def perturbed(t):
+    """``t`` with 1 % of its last row's absolute sum added to that row's
+    first value: a faulty row a limit must catch."""
+    bad = t.detach().clone().float()
+    row = bad.reshape(-1, bad.shape[-1])[-1]
+    row[0] += 0.01 * row.abs().sum()
+    return bad
+
+
+def fused_cases(gen) -> dict:
+    """The fused LayerNorm and masked-softmax kernels against their plain
+    versions on the same inputs; returns the largest error of each kernel.
+    Every case is logged before a disagreement fails the phase; the first
+    case of each kernel and dtype checks the limit's power."""
+    worst = dict.fromkeys(FUSED, 0.0)
+    failed, summary = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tols = FUSED_TOL[dtype]
+        dname = str(dtype).split(".")[1]
+        largest = summary[dname] = dict.fromkeys(tols, 0.0)
+        power_checked = set()
+
+        def judge(kernel, case, pairs, extra_ok=True):
+            errs, need, ok = {}, {}, extra_ok
+            for n, a, b in pairs:
+                errs[n], _, need[n], agree = compare(a, b, tols[n])
+                ok &= agree and a.dtype == b.dtype
+                largest[n] = max(largest[n], need[n])
+            log({"phase": "fused_vs_plain", "kernel": kernel, "case": case,
+                 "dtype": dname, "max_abs_err": errs, "arms_needed": need,
+                 "tol": {n: "{1} * rms + rtol {2}".format(*tols[n])
+                         for n in errs}, "ok": ok})
+            if not ok:
+                failed.append(f"{kernel} {case} {dname}")
+            worst[kernel] = max(worst[kernel], *errs.values())
+            if kernel not in power_checked:
+                power_checked.add(kernel)
+                n, a, b = pairs[0]
+                caught = not compare(perturbed(b), b.float(), tols[n])[3]
+                log({"phase": "fused_limit_power", "kernel": kernel,
+                     "case": case, "dtype": dname, "output": n,
+                     "fault": "1 % of the last row's |sum| added to its "
+                              "first value", "caught": caught})
+                if not caught:
+                    failed.append(f"{kernel} {dname}: the limit passes a "
+                                  f"perturbed row")
+
+        for name, shape, impl in LN_CASES:
+            H = shape[-1]
+            x, dy = (torch.randn(*shape, generator=gen, device=DEV
+                                 ).to(dtype) for _ in range(2))
+            g = (1 + 0.1 * torch.randn(H, generator=gen, device=DEV)
+                 ).to(dtype)
+            b = (0.1 * torch.randn(H, generator=gen, device=DEV)).to(dtype)
+            got = layernorm_forward(x, g, b, impl=impl or "kernel")
+            ref = layernorm_forward(x, g, b, impl="plain")
+            mean, var = ref[1], ref[2]
+            grads = layernorm_backward(dy, x, g, mean, var,
+                                       impl=impl or "kernel")
+            ref_grads = layernorm_backward(dy, x, g, mean, var,
+                                           impl="plain")
+            torch.cuda.synchronize()
+            judge("layernorm_fwd", name,
+                  list(zip(("y", "mean", "var"), got, ref)))
+            judge("layernorm_bwd", name,
+                  list(zip(("dx", "dgamma", "dbeta"), grads, ref_grads)))
+        for name, shape, causal, keep in SOFTMAX_CASES:
+            x, dp = (torch.randn(*shape, generator=gen, device=DEV
+                                 ).to(dtype) for _ in range(2))
+            mask = None
+            if keep is not None:
+                cols = torch.arange(shape[3], device=DEV)[None, :]
+                kept = torch.tensor(keep, device=DEV)[:, None]
+                mask = torch.where(cols < kept, 0.0, -1e9)
+            p = attn_softmax_forward(x, mask, mask_future=causal,
+                                     impl="kernel")
+            ref = attn_softmax_forward(x, mask, mask_future=causal,
+                                       impl="plain")
+            dx = attn_softmax_backward(ref, dp, impl="kernel")
+            ref_dx = attn_softmax_backward(ref, dp, impl="plain")
+            torch.cuda.synchronize()
+            Lq, Lk = shape[2], shape[3]
+            empty_ok = True
+            if causal and Lq > Lk:      # rows that see no key: 1/128 each
+                empty_ok = bool((p[:, :, :Lq - Lk].float() == 1 / 128).all())
+            judge("attn_softmax_fwd", name, [("p", p, ref)], empty_ok)
+            judge("attn_softmax_bwd", name, [("dx", dx, ref_dx)])
+            del x, dp, p, ref, dx, ref_dx
+    log({"phase": "fused_tolerance", "arms_needed_beside_rtol": summary})
+    check(not failed, f"fused kernels disagree with their plain versions: "
+                      f"{failed}")
+    return worst
+
+
+def causal_visible(Lq: int, Lk: int) -> int:
+    """Scores of one [Lq, Lk] causal block that a query sees: key c is
+    visible to row i when c <= i + Lk - Lq."""
+    return sum(min(Lk, max(0, i + Lk - Lq + 1)) for i in range(Lq))
+
+
+def fused_times(gen) -> dict:
+    """Fused kernels' times at the reference MT shapes (LayerNorm R = 8192,
+    H = 256; softmax [32, 8, 256, 256] causal), fp32 and bf16: kernel,
+    plain and library, with the bound.  Inputs rotate through enough copies
+    that each call reads past the 50 MB L2."""
+    F = torch.nn.functional
+    R, H = REF_B * REF_L, REF["n_embd"]
+    shape = (REF_B, REF["n_head"], REF_L, REF_L)
+    N = math.prod(shape)
+    visible = REF_B * REF["n_head"] * causal_visible(REF_L, REF_L)
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        it = torch.tensor([], dtype=dtype).element_size()
+        # bytes each function must move (inputs read once, outputs written
+        # once) and its fp32 operations; the causal softmax forward needs
+        # only the visible scores, and writes every probability
+        work = {
+            "layernorm_fwd": (2 * R * H * it + 2 * H * it + 2 * R * 4,
+                              7 * R * H),
+            "layernorm_bwd": (3 * R * H * it + 3 * H * it + 2 * R * 4,
+                              17 * R * H),
+            "attn_softmax_fwd": ((visible + N) * it, 6 * visible),
+            "attn_softmax_bwd": (3 * N * it, 4 * N),
+        }
+        copies = {n: max(2, math.ceil(2 * L2_BYTES / b)) for n, (b, _) in
+                  work.items()}
+        g = (1 + 0.1 * torch.randn(H, generator=gen, device=DEV)).to(dtype)
+        b = (0.1 * torch.randn(H, generator=gen, device=DEV)).to(dtype)
+        nl = copies["layernorm_fwd"]
+        xs = [torch.randn(R, H, generator=gen, device=DEV).to(dtype)
+              for _ in range(nl)]
+        dys = [torch.randn(R, H, generator=gen, device=DEV).to(dtype)
+               for _ in range(nl)]
+        stats = [layernorm_forward(x, g, b)[1:] for x in xs]
+        ns = copies["attn_softmax_fwd"]
+        ss = [torch.randn(*shape, generator=gen, device=DEV).to(dtype)
+              for _ in range(ns)]
+        ps = [attn_softmax_forward(s, mask_future=True) for s in ss]
+        dps = [torch.randn(*shape, generator=gen, device=DEV).to(dtype)
+               for _ in range(ns)]
+        cmask = causal_mask(REF_L, REF_L, dtype, DEV)
+        leaves = [[t.detach().requires_grad_() for t in (x, g, b)]
+                  for x in xs]
+        lib_ys = [F.layer_norm(x, (H,), gl, bl, eps=1e-8)
+                  for x, gl, bl in leaves]
+        tick = [0]
+
+        def nxt(n):
+            tick[0] = (tick[0] + 1) % n
+            return tick[0]
+
+        def ln_fwd(impl):
+            return layernorm_forward(xs[nxt(nl)], g, b, impl=impl)
+
+        def ln_fwd_lib():
+            return F.layer_norm(xs[nxt(nl)], (H,), g, b, eps=1e-8)
+
+        def ln_bwd(impl):
+            i = nxt(nl)
+            return layernorm_backward(dys[i], xs[i], g, *stats[i], impl=impl)
+
+        def ln_bwd_lib():
+            i = nxt(nl)
+            return torch.autograd.grad(lib_ys[i], leaves[i], dys[i],
+                                       retain_graph=True)
+
+        def sm_fwd(impl):
+            return attn_softmax_forward(ss[nxt(ns)], mask_future=True,
+                                        impl=impl)
+
+        def sm_fwd_lib():
+            return torch.softmax(ss[nxt(ns)] + cmask, -1)
+
+        def sm_bwd(impl):
+            i = nxt(ns)
+            return attn_softmax_backward(ps[i], dps[i], impl=impl)
+
+        def sm_bwd_lib():
+            i = nxt(ns)
+            return torch._softmax_backward_data(dps[i], ps[i], -1, dtype)
+
+        calls = {"layernorm_fwd": (ln_fwd, ln_fwd_lib),
+                 "layernorm_bwd": (ln_bwd, ln_bwd_lib),
+                 "attn_softmax_fwd": (sm_fwd, sm_fwd_lib),
+                 "attn_softmax_bwd": (sm_bwd, sm_bwd_lib)}
+        library = {
+            "layernorm_fwd": "F.layer_norm(eps=1e-8)",
+            "layernorm_bwd": "autograd of F.layer_norm (dx, dgamma, dbeta)",
+            "attn_softmax_fwd": "torch.softmax(x + causal mask, -1)",
+            "attn_softmax_bwd": "torch._softmax_backward_data"}
+        for name, (fn, lib) in calls.items():
+            ms = device_ms(lambda: fn("kernel"), iters=20)
+            plain_ms = device_ms(lambda: fn("plain"), iters=5)
+            library_ms = device_ms(lib, iters=20)
+            nbytes, flops = work[name]
+            bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                     "operations": flops / FP32_FLOPS * 1e3}
+            bound_by = max(bound, key=bound.get)
+            row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                   "bound_ms": bound[bound_by], "bound_by": bound_by,
+                   "of_bound": bound[bound_by] / ms, "bytes": nbytes,
+                   "flops": flops, "hbm_GBps": nbytes / (ms * 1e-3) / 1e9,
+                   "copies": copies[name]}
+            log({"phase": "kernel_time", "kernel": name,
+                 "dtype": str(dtype).split(".")[1],
+                 "shape": (f"R{R} H{H}" if name.startswith("layernorm")
+                           else "B{} H{} Lq{} Lk{} causal".format(*shape)),
+                 "library": library[name], **row})
+            rows[(name, dtype)] = row
+        del xs, dys, stats, ss, ps, dps, leaves, lib_ys
+    return rows
+
+
+def fused_dispatch_times(gen) -> None:
+    """``ops.fused``'s two routes above its 512 limits, forward plus
+    backward: the kernel route (``impl="kernel"``) against the composed
+    fp32 route that ``impl=None`` takes there, for LayerNorm over the
+    production config's 8192 rows and the causal softmax over [4, 8, W, W]
+    scores, at W = 640 and 1024, fp32 and bf16.  A record of what the
+    limits cost on this card; nothing is held to a limit."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for W in DISPATCH_WIDTHS:
+            g, b = ((s * torch.randn(W, generator=gen, device=DEV) + o
+                     ).to(dtype).requires_grad_() for s, o in
+                    ((0.1, 1.0), (0.1, 0.0)))
+            ops = {
+                "layer_norm": ((TRAIN_B * TRAIN_L, W), (g, b),
+                               lambda x, impl: fused.layer_norm(
+                                   x, g, b, impl=impl)),
+                "attn_softmax": ((4, 8, W, W), (),
+                                 lambda x, impl: fused.attn_softmax(
+                                     x, mask_future=True, impl=impl)),
+            }
+            for op, (shape, params, fn) in ops.items():
+                nbytes = math.prod(shape) * g.element_size()
+                n = max(2, math.ceil(2 * L2_BYTES / nbytes))
+                xs = [torch.randn(*shape, generator=gen, device=DEV)
+                      .to(dtype).requires_grad_() for _ in range(n)]
+                # the composed route's output is fp32, the kernel's x's dtype
+                dys = {impl: [torch.randn(*shape, generator=gen, device=DEV)
+                              .to(fn(xs[0], impl).dtype) for _ in range(n)]
+                       for impl in ("kernel", None)}
+                tick = [0]
+
+                def fwd_bwd(impl):
+                    i = tick[0] = (tick[0] + 1) % n
+                    return torch.autograd.grad(fn(xs[i], impl),
+                                               (xs[i], *params), dys[impl][i])
+
+                kernel_ms = device_ms(lambda: fwd_bwd("kernel"), iters=10)
+                composed_ms = device_ms(lambda: fwd_bwd(None), iters=10)
+                log({"phase": "fused_dispatch", "op": op, "shape": shape,
+                     "dtype": str(dtype).split(".")[1],
+                     "kernel_route_fwd_bwd_ms": kernel_ms,
+                     "composed_route_fwd_bwd_ms": composed_ms,
+                     "composed_over_kernel": composed_ms / kernel_ms})
+                del xs, dys
+
+
 def kernel_profile(fn, steps: int = 4) -> dict:
     """Kernels of ``fn()`` under torch.profiler, per call: launches, their
-    summed device time, the flash kernels' time, and the eight largest."""
+    summed device time, each of the port's kernels' time, and the eight
+    largest."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -446,24 +766,24 @@ def kernel_profile(fn, steps: int = 4) -> dict:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     total_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    flash = {n: sum(e.self_device_time_total for e in kernels
-                    if f"{n}_kernel" in e.key) / steps / 1e3
-             for n in KERNELS}
+    ours = {n: sum(e.self_device_time_total for e in kernels
+                   if f"{n}_kernel" in e.key) / steps / 1e3
+            for n in KERNELS}
     return {"kernels_per_step": sum(e.count for e in kernels) / steps,
             "kernel_ms_per_step": total_us / steps / 1e3,
-            "flash_kernel_ms_per_step": flash,
+            "port_kernel_ms_per_step": ours,
             "top": [{"name": e.key[:80], "count_per_step": e.count / steps,
                      "ms_per_step": e.self_device_time_total / steps / 1e3,
                      "share": e.self_device_time_total / total_us
                      if total_us else None} for e in top]}
 
 
-def train_batch(seed: int = 0) -> dict:
+def train_batch(seed: int = 0, shape=(TRAIN_B, TRAIN_L),
+                n_vocab: int = TRAIN["n_vocab"]) -> dict:
     """Token ids and 0/1 loss weights from a seed (bench_train.py:37-39)."""
     rng = np.random.default_rng(seed)
-    shape = (TRAIN_B, TRAIN_L)
-    return {"input_ids": rng.integers(0, TRAIN["n_vocab"], shape),
-            "labels": rng.integers(0, TRAIN["n_vocab"], shape),
+    return {"input_ids": rng.integers(0, n_vocab, shape),
+            "labels": rng.integers(0, n_vocab, shape),
             "label_token_weights": (rng.random(shape) > 0.5
                                     ).astype(np.float32)}
 
@@ -485,16 +805,18 @@ def syncs_in_a_step(step, state, batch, gen):
                    if "called a synchronizing" in str(w.message)]
 
 
-def training(mode: str, dtype, p_dropout: float, opt) -> dict:
-    """``train_epoch`` at the full width and depth of the production config
-    on one repeated batch: 3 warm-up steps, then 11 (the first of them
-    opens the loop's first timing window, which it leaves out).  Returns
-    the attention kernels' launches in the timed run."""
-    cfg = DecoderConfig(**TRAIN, p_dropout=p_dropout, dtype=dtype)
+def training(mode: str, config: dict, shape, dtype, p_dropout: float, opt,
+             per_step: dict) -> dict:
+    """``train_epoch`` at the full width and depth of ``config`` on one
+    repeated batch of ``shape``: 3 warm-up steps, then 11 (the first of
+    them opens the loop's first timing window, which it leaves out).
+    ``per_step`` gives each training kernel's launches a step (0 where
+    absent); returns every training kernel's launches in the timed run."""
+    cfg = DecoderConfig(**config, p_dropout=p_dropout, dtype=dtype)
     model = DecoderLM(cfg, device=DEV)
     init_params(model, torch.Generator(DEV).manual_seed(0))
     state = opt.init(dict(model.named_parameters()))
-    batch = train_batch()
+    batch = train_batch(0, shape, cfg.n_vocab)
     gen = torch.Generator(DEV).manual_seed(1)
     step = make_train_step(model, opt)
 
@@ -509,7 +831,7 @@ def training(mode: str, dtype, p_dropout: float, opt) -> dict:
     common.launch_counts.clear()
     state, losses, step_times, tokens = epoch(state, 11, 5)
     torch.cuda.synchronize()
-    launches = {n: common.launch_counts[n] for n in ATTENTION}
+    launches = {n: common.launch_counts[n] for n in TRAINING_KERNELS}
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     step_ms = statistics.mean(step_times) * 1e3
     state, syncs = syncs_in_a_step(step, state, batch, gen)
@@ -526,16 +848,17 @@ def training(mode: str, dtype, p_dropout: float, opt) -> dict:
     prof = kernel_profile(one_step, steps=2)
     all_losses = warm_losses + losses
     log({"phase": "training", "mode": mode,
-         "config": {**TRAIN, "p_dropout": p_dropout,
+         "config": {**config, "p_dropout": p_dropout,
                     "dtype": str(dtype).split(".")[1],
-                    "batch": TRAIN_B, "seq_len": TRAIN_L},
+                    "batch": shape[0], "seq_len": shape[1]},
          "params": num_parameters(model), "steps_timed": len(step_times),
          "step_ms": step_ms, "step_ms_each": [t * 1e3 for t in step_times],
          "device_ms_per_step": device_step_ms,
          "device_idle_share": 1 - device_step_ms / step_ms,
          "tokens_per_s": tokens / (step_ms * 1e-3),
          "peak_memory_GiB": peak_gb, "losses": all_losses,
-         "attention_launches": launches, "host_syncs_in_a_step": syncs,
+         "launches": launches, "launches_per_step_expected": per_step,
+         "host_syncs_in_a_step": syncs,
          **prof, "card": torch.cuda.get_device_name(0)})
     check(all(math.isfinite(x) for x in all_losses),
           f"{mode}: non-finite loss")
@@ -544,33 +867,39 @@ def training(mode: str, dtype, p_dropout: float, opt) -> dict:
           f"{mode}: the loss did not fall on a repeated batch")
     check(len(step_times) == 10, f"{mode}: {len(step_times)} timed steps")
     for n, c in launches.items():
-        check(c == cfg.n_layer * len(losses),
-              f"{mode}: {n} launched {c} times in {len(losses)} steps of "
-              f"{cfg.n_layer} layers")
+        want = per_step.get(n, 0) * len(losses)
+        check(c == want, f"{mode}: {n} launched {c} times in {len(losses)} "
+                         f"steps, not {want}")
     del model, state, holder
     torch.cuda.empty_cache()
     return launches
 
 
-def training_end_to_end() -> dict:
-    """One Adam step of the fp32 production model (TF32 off)
-    through the kernels and one through their plain versions, from the same
-    parameters: loss, every gradient, every updated parameter."""
-    cfg = DecoderConfig(**TRAIN, p_dropout=0.0, dtype=torch.float32)
-    batch = place_batch(train_batch(1), DEV)
+def training_end_to_end(name: str, config: dict, shape) -> dict:
+    """One Adam step of the fp32 model of ``config`` (TF32 off) through the
+    kernels and one through their plain versions, from the same
+    parameters: loss, every gradient, every updated parameter, and the
+    kernels launched by the first step only."""
+    cfg = DecoderConfig(**config, p_dropout=0.0, dtype=torch.float32)
+    batch = place_batch(train_batch(1, shape, cfg.n_vocab), DEV)
     lr = 1e-3
-    runs = {}
+    runs, launched = {}, {}
     for impl in ("kernel", "plain"):
         model = DecoderLM(cfg, device=DEV)
         init_params(model, torch.Generator(DEV).manual_seed(2))
         opt = adam(lr=lr)
         state = opt.init(dict(model.named_parameters()))
+        torch.cuda.synchronize()
+        common.launch_counts.clear()
         _, loss = make_train_step(model, opt, impl=impl)(state, batch)
+        launched[impl] = {n: c for n, c in common.launch_counts.items() if c}
         runs[impl] = (float(loss), {n: (p.detach(), p.grad)
                                     for n, p in model.named_parameters()})
     (loss_k, got), (loss_p, want) = runs["kernel"], runs["plain"]
-    # Gradients: fp32 sums in another order (4 layers of attention over
-    # 2048 positions, dQ in atomic order): 1e-3 of the tensor's largest
+    # Gradients: fp32 sums in another order (at the production config 4
+    # layers of attention over 2048 positions, dQ in atomic order; at the
+    # reference config the fused kernels' row sums, rsqrtf and expf): 1e-3
+    # of the tensor's largest
     # gradient, plus 1e-5 of the model's largest for tensors whose exact
     # gradient is 0 (the K projection's bias: softmax ignores a shift of a
     # row's scores) and so hold rounding noise only.  Updated parameters:
@@ -593,7 +922,9 @@ def training_end_to_end() -> dict:
                and bool((diff[near0] <= 2 * lr + 1e-6).all()))
         flips += int((diff[near0] > 1e-6).sum())
     worst = sorted(grad_errs, reverse=True)[:3]
-    row = {"phase": "training_end_to_end", "loss_kernel": loss_k,
+    ok &= bool(launched["kernel"]) and not launched["plain"]
+    row = {"phase": "training_end_to_end", "config": name,
+           "launches": launched, "loss_kernel": loss_k,
            "loss_plain": loss_p, "loss_tol": "rtol 1e-5",
            "grad_worst": [{"param": n, "max_abs_err": e, "tol": t}
                           for _, n, e, t in worst],
@@ -602,8 +933,8 @@ def training_end_to_end() -> dict:
            "near_zero_grad_params_moved_apart": flips,
            "near_zero_tol": f"2 lr = {2 * lr}", "ok": bool(ok)}
     log(row)
-    check(ok, "the training step through the kernels disagrees with the "
-              "plain versions")
+    check(ok, f"{name}: the training step through the kernels disagrees "
+              f"with the plain versions")
     return row
 
 
@@ -768,8 +1099,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     built = common.build(KERNELS)
-    log({"phase": "build", **{n: {"seconds": r.seconds, "log": r.log[-2000:]}
-                              for n, r in built.items()}})
+    log({"phase": "build", **{
+        n: {"seconds": r.seconds, "log": r.log[-2000:],
+            "spill_lines": [ln for ln in r.log.splitlines() if "spill" in ln]}
+        for n, r in built.items()}})
 
     gen = torch.Generator(DEV).manual_seed(0)
     worst = kernel_cases(gen)
@@ -777,6 +1110,9 @@ def main() -> int:
 
     attn_worst = attention_cases(gen)
     attn_rows = attention_times(gen)
+    fused_worst = fused_cases(gen)
+    fused_rows = fused_times(gen)
+    fused_dispatch_times(gen)
 
     cfg = DecoderConfig(**SERVING)
     model = DecoderLM(cfg, device=DEV)
@@ -788,13 +1124,32 @@ def main() -> int:
     torch.cuda.empty_cache()
     end_to_end()
 
+    # launches a step, both configs having 4 layers: each attention kernel
+    # once a layer; each LayerNorm kernel twice a layer and once before
+    # lm_head
+    flash = dict.fromkeys(ATTENTION, 4)
+    fused_sm = dict.fromkeys(("attn_softmax_fwd", "attn_softmax_bwd"), 4)
+    fused_ln = dict.fromkeys(("layernorm_fwd", "layernorm_bwd"), 9)
+    prod, ref = (TRAIN_B, TRAIN_L), (REF_B, REF_L)
     train_launches = [
-        training("fp32-adam", torch.float32, 0.0, adam(lr=1e-3)),
-        training("bf16-mixed-precision-adam-dropout", torch.bfloat16, 0.1,
-                 mixed_precision(adam(lr=1e-3)))]
-    for n in ATTENTION:
+        training("(a) prod-flash-fp32-adam", TRAIN, prod, torch.float32,
+                 0.0, adam(lr=1e-3), flash),
+        training("(b) prod-flash-bf16-mixed-precision-adam-dropout", TRAIN,
+                 prod, torch.bfloat16, 0.1, mixed_precision(adam(lr=1e-3)),
+                 flash),
+        training("(c) ref-fused-fused-ln-fp32-adam", REF, ref, torch.float32,
+                 0.0, adam(lr=1e-3), {**fused_sm, **fused_ln}),
+        training("(d) ref-fused-fused-ln-bf16-mixed-precision-adam-dropout",
+                 REF, ref, torch.bfloat16, 0.1,
+                 mixed_precision(adam(lr=1e-3)), {**fused_sm, **fused_ln}),
+        training("(e) prod-flash-fused-ln-bf16-mixed-precision-adam-dropout",
+                 {**TRAIN, "use_fused_kernel": True}, prod, torch.bfloat16,
+                 0.1, mixed_precision(adam(lr=1e-3)), {**flash, **fused_ln}),
+    ]
+    for n in TRAINING_KERNELS:
         launches[n] = sum(t[n] for t in train_launches)
-    training_end_to_end()
+    training_end_to_end("prod-flash", TRAIN, prod)
+    training_end_to_end("ref-fused-fused-ln", REF, ref)
 
     main_row = next(r for r in rows if r["cache"] == "int8"
                     and r["length"] == 1024)
@@ -820,6 +1175,22 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": "B4 H8 L2048 d64 causal bf16"})
+    replaces.update({"layernorm_fwd": "layernorm.py:42",
+                     "layernorm_bwd": "layernorm.py:102",
+                     "attn_softmax_fwd": "softmax.py:48",
+                     "attn_softmax_bwd": "softmax.py:116"})
+    for n in FUSED:
+        r = fused_rows[(n, torch.float32)]
+        entries.append({
+            "name": n, "route": "cuda",
+            "source": f"tpu_flash_torch/kernels/csrc/{n}.cu",
+            "replaces": f"tpu_flash/kernels/{replaces[n]}",
+            "launches": launches[n], "max_abs_err": fused_worst[n],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "shape": ("R8192 H256 fp32" if n.startswith("layernorm")
+                      else "B32 H8 Lq256 Lk256 causal fp32")})
     log({"kernels": entries})
     print(smi.splitlines()[0], flush=True)
     log({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,5 +1,6 @@
-"""The CUDA kernels (flash decode, flash-attention forward and backward)
-against their plain PyTorch versions, on the card.  Every test here needs a
+"""The CUDA kernels (flash decode, flash-attention forward and backward,
+fused LayerNorm and masked softmax forward and backward) against their
+plain PyTorch versions, on the card.  Every test here needs a
 CUDA device and skips without one; the file imports neither JAX nor the JAX
 package, so on a machine with a card and no JAX it runs alone:
 
@@ -134,12 +135,17 @@ FA_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (1e-4, None)}
 BF16_ARMS, BF16_RTOL = 3e-2, 2e-2
 
 
-def assert_close_bf16(got, want):
-    """|got - want| <= BF16_ARMS * rms(want) + BF16_RTOL * |want|."""
+def assert_within(got, want, arms, rtol):
+    """Finite, and |got - want| <= arms * rms(want) + rtol * |want|."""
     got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
     rms = float(want.square().mean().sqrt())
-    excess = (got - want).abs() - BF16_ARMS * rms - BF16_RTOL * want.abs()
+    excess = (got - want).abs() - arms * rms - rtol * want.abs()
     assert float(excess.max()) <= 0, (float((got - want).abs().max()), rms)
+
+
+def assert_close_bf16(got, want):
+    assert_within(got, want, BF16_ARMS, BF16_RTOL)
 
 
 def attention_case(gen, dev, B, H, Hkv, Lq, Lk, d, dtype):
@@ -259,3 +265,122 @@ def test_flash_attention_kernels_reject_what_they_do_not_take(cuda_device):
         flash_attention_forward(*(x[..., :32].half() for _ in range(3)))
     with pytest.raises(NotImplementedError, match="A5"):
         flash_attention_forward(x, x, x, window=4)
+
+
+# --- fused LayerNorm and masked-softmax kernels ----------------------------
+#
+# Kernel against plain on the same inputs, |got - want| <= arms * rms(want)
+# + rtol * |want|.  fp32: the two differ by summation order, rsqrtf and
+# expf (1e-5, 1e-5); dgamma and dbeta sum over every row in another order
+# (1e-4 of their rms).  bf16: the stores may round to the neighbouring bf16
+# (rtol 2e-2 covers two ulps) on top of 1e-2 of the rms (chip_smoke.py's
+# limits).
+
+FUSED_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 2e-2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lead,H", [((37,), 200), ((4, 16), 256),
+                                    ((3, 5), 640), ((33,), 70)])
+def test_layernorm_kernels_match_plain(cuda_device, dtype, lead, H):
+    """Ragged rows (37, 33) and widths (200, 70: not multiples of 32; 70
+    not of 4), and H = 640 above the ops' 512 limit."""
+    from tpu_flash_torch.kernels.layernorm import (layernorm_backward,
+                                                   layernorm_forward)
+
+    gen = torch.Generator(cuda_device).manual_seed(6)
+    x, dy = (torch.randn(*lead, H, generator=gen, device=cuda_device
+                         ).to(dtype) for _ in range(2))
+    g, b = (torch.randn(H, generator=gen, device=cuda_device).to(dtype)
+            for _ in range(2))
+    before = dict(common.launch_counts)
+    y, mean, var = layernorm_forward(x, g, b)
+    ref = layernorm_forward(x, g, b, impl="plain")
+    grads = layernorm_backward(dy, x, g, mean, var)
+    ref_grads = layernorm_backward(dy, x, g, mean, var, impl="plain")
+    torch.cuda.synchronize()
+    for name in ("layernorm_fwd", "layernorm_bwd"):
+        assert common.launch_counts[name] == before.get(name, 0) + 1
+    arms, rtol = FUSED_TOL[dtype]
+    assert y.dtype == dtype and mean.dtype == var.dtype == torch.float32
+    for a, w in zip((y, mean, var, grads[0]), (*ref, ref_grads[0])):
+        assert_within(a, w, arms, rtol)
+    for a, w in zip(grads[1:], ref_grads[1:]):      # dgamma, dbeta
+        assert a.dtype == dtype
+        assert_within(a, w, max(arms, 1e-4), rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,causal,keep", [
+    ((2, 3, 130, 70), True, None),        # rows that see no key
+    ((2, 3, 70, 200), False, (150, 0)),   # a batch row with every key hidden
+    ((2, 2, 64, 256), True, (256, 100)),
+    ((1, 2, 4, 640), True, None),         # above 512: the chunked loop
+])
+def test_attn_softmax_kernels_match_plain(cuda_device, dtype, shape, causal,
+                                          keep):
+    from tpu_flash_torch.kernels.softmax import (attn_softmax_backward,
+                                                 attn_softmax_forward)
+
+    gen = torch.Generator(cuda_device).manual_seed(7)
+    x, dp = (torch.randn(*shape, generator=gen, device=cuda_device).to(dtype)
+             for _ in range(2))
+    mask = None
+    if keep is not None:
+        cols = torch.arange(shape[3], device=cuda_device)[None, :]
+        kept = torch.tensor(keep, device=cuda_device)[:, None]
+        mask = torch.where(cols < kept, 0.0, -1e9)
+    before = dict(common.launch_counts)
+    p = attn_softmax_forward(x, mask, mask_future=causal)
+    ref = attn_softmax_forward(x, mask, mask_future=causal, impl="plain")
+    dx = attn_softmax_backward(ref, dp)
+    ref_dx = attn_softmax_backward(ref, dp, impl="plain")
+    torch.cuda.synchronize()
+    for name in ("attn_softmax_fwd", "attn_softmax_bwd"):
+        assert common.launch_counts[name] == before.get(name, 0) + 1
+    arms, rtol = FUSED_TOL[dtype]
+    assert p.dtype == dx.dtype == dtype
+    assert_within(p, ref, arms, rtol)
+    assert_within(dx, ref_dx, arms, rtol)
+    Lq, Lk = shape[2], shape[3]
+    if causal and Lq > Lk:       # uniform over the TPU's padded width
+        torch.testing.assert_close(
+            p[:, :, :Lq - Lk].float(),
+            torch.full_like(p[:, :, :Lq - Lk], 1 / 128, dtype=torch.float32))
+
+
+@pytest.mark.cuda
+def test_fused_model_step_launches_the_fused_kernels(cuda_device):
+    """One fp32 training step of a small fused model: softmax forward and
+    backward once a layer, LayerNorm forward and backward twice a layer
+    plus the final LN, no flash kernel; the loss equals the plain step's
+    to 1e-5."""
+    from tpu_flash_torch.apps import machine_translation as tmt
+
+    cfg = tnn.DecoderConfig(n_vocab=64, n_embd=64, n_head=4, n_positions=96,
+                            n_layer=2, ff_middle_dim=64, p_dropout=0.0,
+                            attention_kind="fused", use_fused_kernel=True)
+    rng = np.random.default_rng(1)
+    batch = {"input_ids": rng.integers(0, 64, (2, 96)),
+             "labels": rng.integers(0, 64, (2, 96)),
+             "label_token_weights": np.ones((2, 96), np.float32)}
+    losses, counts = {}, {}
+    for impl in ("kernel", "plain"):
+        model = tnn.DecoderLM(cfg, device=cuda_device)
+        tnn.init_params(model, torch.Generator(cuda_device).manual_seed(0))
+        opt = tnn.adam()
+        step = tmt.make_train_step(model, opt, impl=impl)
+        before = dict(common.launch_counts)
+        _, loss = step(opt.init(dict(model.named_parameters())),
+                       tmt.place_batch(batch, cuda_device))
+        losses[impl] = float(loss)
+        counts[impl] = {n: common.launch_counts[n] - before.get(n, 0)
+                        for n in common.launch_counts}
+    assert counts["kernel"] == {
+        "attn_softmax_fwd": 2, "attn_softmax_bwd": 2, "layernorm_fwd": 5,
+        "layernorm_bwd": 5, **{n: 0 for n in counts["kernel"]
+                               if not n.startswith(("attn_", "layernorm"))}}
+    assert not any(counts["plain"].values())
+    np.testing.assert_allclose(losses["kernel"], losses["plain"], rtol=1e-5)

@@ -9,9 +9,11 @@ tensors take.
 
 Layering, as in the JAX package:
   kernels/   — CUDA kernels (flash decode, flash-attention forward and
+               backward, fused LayerNorm and masked softmax forward and
                backward) + build/launch helpers
-  ops/       — the differentiable flash-attention op and plain PyTorch
-               oracles (causal mask, naive attention, FA1/FA2 forward)
+  ops/       — the differentiable flash-attention, fused softmax and fused
+               LayerNorm ops, and plain PyTorch oracles (causal mask, naive
+               attention, FA1/FA2 forward, composed softmax and LayerNorm)
   nn/        — layers, the pre-LN decoder transformer (torch.nn), optimizers
   inference/ — KV cache (fp/int8/fp8, heads-minor), sampler, engine
   apps/      — the machine-translation training core (loss, step, epoch)
@@ -19,7 +21,8 @@ Layering, as in the JAX package:
 
 Entry points (``DecoderLM``, ``DecodeEngine``, ``generate``) run on the card
 unless the caller passes ``device="cpu"``.  Ported so far: the serving path
-and the training path (ROADMAP.md, queue A items A1-A4).
+and the training path, with flash, fused or naive attention and the fused
+or composed LayerNorm (ROADMAP.md, queue A items A1-A4).
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,9 @@
 """Machine-translation training core, counterpart of the part of
 ``tpu_flash/apps/machine_translation.py`` below its CLI: the masked-MLE
-loss, the training step (forward, backward through the flash-attention
-kernels, optimizer update) and the epoch loop, plus ``evaluate_loss``.
+loss, the training step (forward, backward through the model's kernels:
+flash attention, or the fused masked softmax, and the fused LayerNorm with
+``use_fused_kernel``; optimizer update) and the epoch loop, plus
+``evaluate_loss``.
 
 The JAX step is one jitted program over an external parameter tree; here
 the parameters live in the module, the step runs eagerly, and the
@@ -31,7 +33,7 @@ def make_loss_fn(model, chunked_vocab: int = 0):
     """``loss_fn(batch, *, generator=None, training=False, impl=None)``:
     masked MLE, ``sum(losses * label_token_weights)`` over every position,
     divided by the number of positions (or by ``batch["loss_norm"]`` for
-    packed batches).  ``impl`` reaches the attention kernels' wrappers."""
+    packed batches).  ``impl`` reaches the kernels' wrappers."""
     if chunked_vocab > 0:
         raise _not_ported("chunked_vocab (the fused lm_head + loss)")
 

@@ -149,6 +149,33 @@ def load_library(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
+def entry(name: str, symbol: str, argtypes):
+    """``(library, function)``: the C entry ``symbol`` of ``csrc/<name>.cu``
+    returning an ``int``, with its argument types declared."""
+    lib = load_library(name)
+    fn = getattr(lib, symbol)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+    return lib, fn
+
+
+def kernel_input(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (a copy where it is not), after
+    checking that it lies on ``device``."""
+    if t.device != device:
+        raise ValueError(f"a kernel input lies on {t.device}, not {device}")
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def call_on_stream(fn, device: torch.device, *args) -> int:
+    """``fn(*args, stream)`` with ``device`` current and its current
+    stream as the last argument: a kernel launches on PyTorch's stream."""
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+
+
 def check_cuda(code: int, lib: ctypes.CDLL, what: str) -> None:
     """Raise if a C entry returned a CUDA error (``cudaGetLastError()``)."""
     if code != 0:

@@ -18,9 +18,10 @@ import math
 import torch
 
 from tpu_flash_torch.kernels.common import (
+    call_on_stream,
     check_cuda,
+    entry,
     launch_counts,
-    load_library,
     resolve_impl,
 )
 
@@ -137,21 +138,17 @@ def _launch(q, k_cache, v_cache, lengths, k_scale, v_scale, H, scale,
     if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
         raise ValueError("cache buffers must be 16-byte aligned")
     out = torch.empty_like(q)
-    lib = load_library(KERNEL)
-    fn = lib.tf_flash_decode
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                 None if k_scale is None else k_scale.data_ptr(),
-                 None if v_scale is None else v_scale.data_ptr(),
-                 lengths.data_ptr(), out.data_ptr(),
-                 B, Hq, H, Lq, k_cache.shape[1], d,
-                 _Q_DTYPES[q.dtype], _KV_DTYPES[k_cache.dtype],
-                 scale, window or 0, stream)
+    lib, fn = entry(KERNEL, "tf_flash_decode",
+                    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    err = call_on_stream(fn, dev, q.data_ptr(), k_cache.data_ptr(),
+                         v_cache.data_ptr(),
+                         None if k_scale is None else k_scale.data_ptr(),
+                         None if v_scale is None else v_scale.data_ptr(),
+                         lengths.data_ptr(), out.data_ptr(),
+                         B, Hq, H, Lq, k_cache.shape[1], d,
+                         _Q_DTYPES[q.dtype], _KV_DTYPES[k_cache.dtype],
+                         scale, window or 0)
     check_cuda(err, lib, "flash_decode kernel")
     launch_counts[KERNEL] += 1
     return out

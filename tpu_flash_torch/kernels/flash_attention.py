@@ -37,9 +37,11 @@ import math
 import torch
 
 from tpu_flash_torch.kernels.common import (
+    call_on_stream,
     check_cuda,
+    entry,
+    kernel_input,
     launch_counts,
-    load_library,
     resolve_impl,
 )
 
@@ -155,23 +157,11 @@ def _kernel_inputs(*tensors):
     if tensors[0].shape[-1] not in HEAD_DIMS:
         raise ValueError(f"head dim {tensors[0].shape[-1]} not in "
                          f"{HEAD_DIMS}")
-    out = []
     for t in tensors:
         if t.device != dev or t.dtype != dtype:
             raise ValueError("q, k, v (and o, do) must share one device and "
                              "dtype")
-        t = t.contiguous()
-        out.append(t if t.data_ptr() % 16 == 0 else t.clone())
-    return out
-
-
-def _entry(name: str, symbol: str, argtypes):
-    lib = load_library(name)
-    fn = getattr(lib, symbol)
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
-    return lib, fn
+    return [kernel_input(t, dev) for t in tensors]
 
 
 def _launch_forward(q, k, v, causal, scale, q_offset, with_m):
@@ -181,15 +171,14 @@ def _launch_forward(q, k, v, causal, scale, q_offset, with_m):
     out = torch.empty_like(q)
     lse = torch.empty(B, H, Lq, dtype=torch.float32, device=q.device)
     m = torch.empty_like(lse) if with_m else None
-    lib, fn = _entry(KERNEL_FWD, "tf_flash_attention_fwd",
-                     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
-                     + [ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr(), None if m is None else m.data_ptr(),
-                 B, H, Hkv, Lq, Lk, d, _DTYPES[q.dtype], int(causal),
-                 q_offset, scale * LOG2E, stream)
+    lib, fn = entry(KERNEL_FWD, "tf_flash_attention_fwd",
+                    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+                    + [ctypes.c_float, ctypes.c_void_p])
+    err = call_on_stream(fn, q.device, q.data_ptr(), k.data_ptr(),
+                         v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                         None if m is None else m.data_ptr(),
+                         B, H, Hkv, Lq, Lk, d, _DTYPES[q.dtype], int(causal),
+                         q_offset, scale * LOG2E)
     check_cuda(err, lib, "flash_attention_fwd kernel")
     launch_counts[KERNEL_FWD] += 1
     return out, lse, m
@@ -205,16 +194,15 @@ def _launch_backward(q, k, v, o, lse, do, dlse, causal, scale, q_offset):
     lse = lse.to(device=q.device, dtype=torch.float32).contiguous()
     dq = torch.zeros(B, H, Lq, d, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib, fn = _entry(KERNEL_BWD, "tf_flash_attention_bwd",
-                     [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
-                     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(), B, H, Hkv, Lq, Lk, d,
-                 _DTYPES[q.dtype], int(causal), q_offset, scale,
-                 scale * LOG2E, stream)
+    lib, fn = entry(KERNEL_BWD, "tf_flash_attention_bwd",
+                    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+                    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+    err = call_on_stream(fn, q.device, q.data_ptr(), k.data_ptr(),
+                         v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                         dv.data_ptr(), B, H, Hkv, Lq, Lk, d,
+                         _DTYPES[q.dtype], int(causal), q_offset, scale,
+                         scale * LOG2E)
     check_cuda(err, lib, "flash_attention_bwd kernel")
     launch_counts[KERNEL_BWD] += 1
     return dq.mul_(scale).to(q.dtype), dk, dv

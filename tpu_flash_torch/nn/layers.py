@@ -11,12 +11,22 @@ from __future__ import annotations
 import torch
 
 from tpu_flash_torch.nn import functional as F
+from tpu_flash_torch.ops.fused import layer_norm as fused_layer_norm
 
 
 class Linear(torch.nn.Linear):
     """``y = x @ W^T + b`` with ``W`` stored ``[out, in]``: the transpose of
     the JAX package's ``[in, out]`` weight (``nn.module.load_jax_params``
-    transposes on load)."""
+    transposes on load).  An input of another dtype than the weight is
+    computed in the promoted dtype, as JAX's ``x @ W + b`` is: an fp32
+    activation (the fused ops' composed route) meets bf16 weights."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == self.weight.dtype:
+            return super().forward(x)
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return torch.nn.functional.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class Embedding(torch.nn.Embedding):
@@ -38,25 +48,28 @@ class Dropout(torch.nn.Module):
 
 
 class LayerNorm(torch.nn.Module):
-    """Row LayerNorm over the last axis, composed of tensor ops with the
-    given ``eps``: ``var = mean((x - mean)^2)``.  The fused kernel
-    (``fused=True``) is not ported yet (ROADMAP.md, queue A item A2)."""
+    """Row LayerNorm over the last axis.  ``fused=False`` composes tensor
+    ops with the given ``eps``: ``var = mean((x - mean)^2)``.
+    ``fused=True`` runs ``ops.fused.layer_norm`` (the fused kernels, or the
+    composed fp32 route above its size limit), whose eps is pinned to 1e-8
+    and whose ``var = E[x^2] - mean^2``, whatever ``eps`` says, as in the
+    JAX package."""
 
     def __init__(self, dim: int, eps: float = 1e-5, fused: bool = False,
                  dtype=torch.float32, device=None):
         super().__init__()
-        if fused:
-            raise NotImplementedError(
-                "the fused LayerNorm kernel is not ported yet "
-                "(ROADMAP.md, queue A item A2)")
         self.dim = dim
         self.eps = eps
+        self.fused = fused
         self.gamma = torch.nn.Parameter(
             torch.ones(dim, dtype=dtype, device=device))
         self.beta = torch.nn.Parameter(
             torch.zeros(dim, dtype=dtype, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, impl=None) -> torch.Tensor:
+        """``impl`` reaches the fused kernels' wrappers."""
+        if self.fused:
+            return fused_layer_norm(x, self.gamma, self.beta, impl=impl)
         mean = x.mean(dim=-1, keepdim=True)
         var = torch.square(x - mean).mean(dim=-1, keepdim=True)
         xhat = (x - mean) * torch.rsqrt(var + self.eps)

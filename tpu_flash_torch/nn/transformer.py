@@ -8,8 +8,10 @@ the uncached forward, with training (dropout from an explicit
 at most 8 new tokens go through the flash-decode kernel; longer prefills
 attend over the cache with the composed graph, as in the JAX package.  The
 uncached forward attends with the flash-attention kernels
-(``attention_kind="flash"``, and ``"auto"`` from ``_FLASH_AUTO_MIN_L``) or
-the composed ("naive") graph.  What is not ported raises
+(``attention_kind="flash"``, and ``"auto"`` from ``_FLASH_AUTO_MIN_L``), the
+fused masked-softmax kernels (``"fused"``) or the composed ("naive") graph;
+``use_fused_kernel=True`` puts every LayerNorm, the cached forward's too, on
+the fused LayerNorm kernels.  What is not ported raises
 ``NotImplementedError`` and names the ROADMAP.md item that brings it.
 """
 
@@ -26,6 +28,7 @@ from tpu_flash_torch.kernels.decode import flash_decode_attention
 from tpu_flash_torch.nn import functional as F
 from tpu_flash_torch.nn.layers import Dropout, Embedding, LayerNorm, Linear
 from tpu_flash_torch.ops.attention import flash_attention
+from tpu_flash_torch.ops.fused import attn_softmax
 from tpu_flash_torch.ops.reference import causal_mask
 
 AttentionKind = Literal["flash", "fused", "naive", "auto"]
@@ -99,7 +102,6 @@ class DecoderConfig:
             (self.kv_quant != "none", "quantized-KV training (kv_quant)",
              "A5"),
             (self.attn_dropout > 0.0, "attention dropout", "A5"),
-            (self.use_fused_kernel, "use_fused_kernel", "A2"),
             (self.positional == "rope", "positional='rope'", "A7"),
             (self.moe is not None, "moe", "A7"),
             (self.embedding_one_hot, "embedding_one_hot", "A7"),
@@ -141,19 +143,30 @@ class MultiHeadAttention(torch.nn.Module):
         return (split(self.q_projection(x)), split(self.k_projection(x)),
                 split(self.v_projection(x)))
 
-    def self_attention(self, q, k, v, *, kv_mask=None, impl=None):
+    def self_attention(self, q, k, v, *, kv_mask=None, segment_ids=None,
+                       impl=None):
         """Uncached attention: the flash-attention kernels (``"flash"``, and
-        ``"auto"`` from ``_FLASH_AUTO_MIN_L``) or the composed graph.  As in
-        the JAX package, the flash path takes no ``kv_mask``.  ``impl``
-        reaches the kernels' wrappers."""
+        ``"auto"`` from ``_FLASH_AUTO_MIN_L``), the fused masked-softmax
+        kernels over the materialized scores (``"fused"``) or the composed
+        graph.  As in the JAX package, the flash path takes no ``kv_mask``
+        and the fused one refuses ``window`` and ``segment_ids``, which its
+        ``[B, Lk]`` mask cannot express.  ``impl`` reaches the kernels'
+        wrappers."""
         c = self.cfg
         kind = c.attention_kind
         if kind == "auto":
             kind = "flash" if q.shape[-2] >= _FLASH_AUTO_MIN_L else "naive"
         if kind == "fused":
-            raise _not_ported(
-                "the fused attention-softmax kernel on the uncached forward",
-                "A2")
+            if c.window is not None:
+                raise NotImplementedError(
+                    "window is not expressible in the fused attn_softmax "
+                    "kernel's [B, Lk] mask; use flash or naive")
+            if segment_ids is not None:
+                raise NotImplementedError(
+                    "segment_ids is not expressible in the fused "
+                    "attn_softmax kernel's [B, Lk] mask; use flash or naive")
+        if segment_ids is not None:
+            raise _not_ported("segment_ids (packed sequences)", "A5")
         if c.window is not None:
             raise _not_ported("window on the uncached forward", "A5")
         if kind == "flash":
@@ -162,12 +175,22 @@ class MultiHeadAttention(torch.nn.Module):
             g = q.shape[1] // k.shape[1]
             k = k.repeat_interleave(g, dim=1)
             v = v.repeat_interleave(g, dim=1)
+        # the scale multiplies the product, as in the JAX package (not
+        # folded into q)
         s = (q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(c.attn_hidden_dim))
-        if c.causal:
-            s = s + causal_mask(q.shape[-2], k.shape[-2], s.dtype, s.device)
-        if kv_mask is not None:
-            s = s + kv_mask[:, None, None, :].to(s.dtype)
-        return F.softmax(s, dim=-1) @ v
+        if kind == "fused":
+            p = attn_softmax(s, kv_mask, mask_future=c.causal, impl=impl)
+        else:
+            if c.causal:
+                s = s + causal_mask(q.shape[-2], k.shape[-2], s.dtype,
+                                    s.device)
+            if kv_mask is not None:
+                s = s + kv_mask[:, None, None, :].to(s.dtype)
+            p = F.softmax(s, dim=-1)
+        if p.dtype != v.dtype:   # fp32 p from the composed route, as in JAX
+            dt = torch.promote_types(p.dtype, v.dtype)
+            p, v = p.to(dt), v.to(dt)
+        return p @ v
 
     def _cached_attention(self, q, cache, impl=None):
         """Attention over the cache (which already holds this step's keys).
@@ -199,7 +222,8 @@ class MultiHeadAttention(torch.nn.Module):
             s = s + torch.where(band, 0.0, -1e9)[:, None].to(s.dtype)
         return F.softmax(s, dim=-1) @ v_full
 
-    def forward(self, x, *, kv_cache=None, kv_mask=None, impl=None):
+    def forward(self, x, *, kv_cache=None, kv_mask=None, segment_ids=None,
+                impl=None):
         """Uncached: returns ``[B, L, E]``.  Cached: appends this step's
         keys and values to ``kv_cache`` in place and returns
         ``(out, kv_cache)``."""
@@ -210,7 +234,8 @@ class MultiHeadAttention(torch.nn.Module):
             out = self._cached_attention(q, kv_cache, impl)
             out = out.transpose(1, 2).reshape(B, L, E)
             return self.out_projection(out), kv_cache
-        out = self.self_attention(q, k, v, kv_mask=kv_mask, impl=impl)
+        out = self.self_attention(q, k, v, kv_mask=kv_mask,
+                                  segment_ids=segment_ids, impl=impl)
         return self.out_projection(out.transpose(1, 2).reshape(B, L, E))
 
 
@@ -234,22 +259,24 @@ class TransformerLayer(torch.nn.Module):
     def __init__(self, cfg: DecoderConfig, device=None):
         super().__init__()
         self.cfg = cfg
-        ln = dict(eps=cfg.ln_eps, dtype=cfg.dtype, device=device)
+        ln = dict(eps=cfg.ln_eps, fused=cfg.use_fused_kernel,
+                  dtype=cfg.dtype, device=device)
         self.ln_1 = LayerNorm(cfg.n_embd, **ln)
         self.ln_2 = LayerNorm(cfg.n_embd, **ln)
         self.attention = MultiHeadAttention(cfg, device)
         self.ff = FeedForward(cfg, device)
 
-    def forward(self, x, *, kv_cache=None, kv_mask=None, impl=None,
-                training: bool = False, generator=None):
-        h = self.ln_1(x)
+    def forward(self, x, *, kv_cache=None, kv_mask=None, segment_ids=None,
+                impl=None, training: bool = False, generator=None):
+        h = self.ln_1(x, impl=impl)
         if kv_cache is not None:
             attn_out, kv_cache = self.attention(h, kv_cache=kv_cache,
                                                 impl=impl)
         else:
-            attn_out = self.attention(h, kv_mask=kv_mask, impl=impl)
+            attn_out = self.attention(h, kv_mask=kv_mask,
+                                      segment_ids=segment_ids, impl=impl)
         out = x + attn_out
-        result = out + self.ff(self.ln_2(out), training=training,
+        result = out + self.ff(self.ln_2(out, impl=impl), training=training,
                                generator=generator)
         return (result, kv_cache) if kv_cache is not None else result
 
@@ -276,7 +303,8 @@ class DecoderLM(torch.nn.Module):
         self.layers = torch.nn.ModuleList(
             [TransformerLayer(cfg, device) for _ in range(cfg.n_layer)])
         self.dropout = Dropout(cfg.p_dropout)
-        self.ln = LayerNorm(cfg.n_embd, cfg.ln_eps, dtype=cfg.dtype,
+        self.ln = LayerNorm(cfg.n_embd, cfg.ln_eps,
+                            fused=cfg.use_fused_kernel, dtype=cfg.dtype,
                             device=device)
         self.lm_head = Linear(cfg.n_embd, cfg.n_vocab, bias=cfg.bias,
                               dtype=cfg.dtype, device=device)
@@ -294,9 +322,13 @@ class DecoderLM(torch.nn.Module):
         ``positions`` ([1, L] or [B, L]) overrides ``arange(L)``, as decode
         needs.  ``training`` with a ``generator`` applies the embedding and
         feed-forward dropouts (the JAX layer has no residual dropout).
-        ``impl`` reaches the kernels' wrappers."""
-        if segment_ids is not None:
-            raise _not_ported("segment_ids (packed sequences)", "A5")
+        ``impl`` reaches the kernels' wrappers.  ``segment_ids`` reaches
+        the uncached attention, where packed sequences are not ported yet
+        (the fused path refuses them, as the JAX package does)."""
+        if segment_ids is not None and kv_caches is not None:
+            raise NotImplementedError(
+                "segment_ids (packed training) is not supported on the "
+                "cached decode path")
         B, L = idx.shape
         c = self.cfg
         if positions is None:
@@ -312,7 +344,7 @@ class DecoderLM(torch.nn.Module):
                                  training=training, generator=generator)
                 new_caches.append(cache)
             else:
-                x = layer(x, kv_mask=kv_mask, impl=impl, training=training,
-                          generator=generator)
-        logits = self.lm_head(self.ln(x))
+                x = layer(x, kv_mask=kv_mask, segment_ids=segment_ids,
+                          impl=impl, training=training, generator=generator)
+        logits = self.lm_head(self.ln(x, impl=impl))
         return logits if kv_caches is None else (logits, new_caches)

@@ -1,8 +1,9 @@
 """Plain PyTorch oracles, counterpart of ``tpu_flash/ops/reference.py``:
-the causal mask, naive attention, and the tiled FlashAttention-1 and -2
+the causal mask, naive attention, the tiled FlashAttention-1 and -2
 forward oracles (the executable specs the attention kernels are held
-against).  Causal masking adds ``MASK_VALUE`` (-1e7), as the reference
-does."""
+against), and the composed masked softmax and LayerNorm that
+``ops.fused`` takes above its size limits.  Causal masking adds
+``MASK_VALUE`` (-1e7), as the reference does."""
 
 from __future__ import annotations
 
@@ -12,6 +13,12 @@ from typing import NamedTuple
 import torch
 
 from tpu_flash_torch.kernels.common import MASK_VALUE
+from tpu_flash_torch.kernels.layernorm import (
+    LN_EPS,
+    layernorm_backward_plain,
+    layernorm_forward_plain,
+)
+from tpu_flash_torch.kernels.softmax import SOFTMAX_EPS
 
 
 def default_scale(head_dim: int) -> float:
@@ -129,3 +136,53 @@ def flash_attention2_fw_reference(q, k, v, *, causal: bool = False,
         out[..., sl, :] = oi / li[..., None]
         lse[..., sl] = mi + torch.log(li)
     return FA2Residuals(out, lse)
+
+
+# --- fused masked attention-softmax and LayerNorm (composed forms) ---------
+# SOFTMAX_EPS (1e-8) is added to the softmax denominator, LN_EPS (1e-8) sits
+# inside the fused LayerNorm's rsqrt, as in the kernels.
+
+
+def attn_softmax_reference(x, pad_mask=None, *, mask_future: bool = False):
+    """Masked softmax over the last axis of ``[B, H, Lq, Lk]`` scores, in
+    fp32 (the result is fp32 whatever ``x``'s dtype).  ``pad_mask`` is an
+    additive ``[B, Lk]`` mask broadcast over heads and query rows;
+    ``mask_future`` adds the causal mask (bottom-right diagonal).
+    ``SOFTMAX_EPS`` is added to the denominator."""
+    x = x.float()
+    if pad_mask is not None:
+        x = x + pad_mask[:, None, None, :].float()
+    if mask_future:
+        x = x + causal_mask(x.shape[-2], x.shape[-1], device=x.device)
+    m = x.amax(dim=-1, keepdim=True)
+    e = torch.exp(x - m)
+    return e / (e.sum(dim=-1, keepdim=True) + SOFTMAX_EPS)
+
+
+def attn_softmax_bw_reference(prob, dprob):
+    """``dx = P * (dP - sum(dP * P))`` per row."""
+    row = (dprob * prob).sum(dim=-1, keepdim=True)
+    return prob * (dprob - row)
+
+
+class LNResiduals(NamedTuple):
+    out: torch.Tensor   # y, fp32
+    mean: torch.Tensor  # [...] fp32
+    var: torch.Tensor   # [...] fp32, E[x^2] - mean^2
+
+
+def layernorm_fw_reference(x, gamma, beta) -> LNResiduals:
+    """Row LayerNorm over the last axis in fp32, returning ``(y, mean,
+    var)`` with ``var = E[x^2] - mean^2`` and ``LN_EPS`` in the rsqrt: the
+    kernel's plain version on the fp32 input, differentiable with
+    autograd."""
+    return LNResiduals(*layernorm_forward_plain(x.float(), gamma, beta))
+
+
+def layernorm_bw_reference(dy, x, gamma, mean, var):
+    """Backward of the row LayerNorm from the saved ``(mean, var)``:
+    ``dx = (dxhat - (sum(dxhat) + xhat * sum(dxhat * xhat)) / H) * rstd``,
+    and ``dgamma``, ``dbeta`` summed over every row.  Returns ``(dx,
+    dgamma, dbeta)``, fp32."""
+    return layernorm_backward_plain(dy.float(), x.float(), gamma.float(),
+                                    mean, var)
