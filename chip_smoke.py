@@ -13,6 +13,15 @@ ported paths:
   serving configuration in three modes, with the kernels of one decode step
   under ``torch.profiler``; the engine against ``generate`` and the kernel
   against the plain path end to end;
+* quantized serving: the int8, packed-int4 and grouped-int4 matmul kernels
+  against their plain versions (fp32 and bf16 x, M 1 to 1024, the serving
+  model's linears and ragged shapes; each limit checked against a perturbed
+  row) and their times at decode and prefill shapes; the 176M model
+  converted by ``quantize_model_linears`` (int8, int4, int4 in groups of
+  128) serving the same 16 requests, each decode step checked to launch
+  its matmul kernel once a Linear, with the logits' error against the bf16
+  model; and the engine against ``generate`` and kernel against plain end
+  to end for each of the three;
 * training: the flash-attention forward and backward kernels against their
   plain versions (fp32 and bf16, causal or not, L 64 to 2048, Lq != Lk with
   empty rows, GQA, d 32/64/128; each error beside its limit and the
@@ -44,6 +53,7 @@ JAX nor the JAX package.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
@@ -65,12 +75,14 @@ from tpu_flash_torch.kernels import common
 from tpu_flash_torch.kernels.decode import flash_decode_attention
 from tpu_flash_torch.kernels.flash_attention import (flash_attention_backward,
                                                      flash_attention_forward)
+from tpu_flash_torch.kernels import quant
 from tpu_flash_torch.kernels.layernorm import (layernorm_backward,
                                                layernorm_forward)
 from tpu_flash_torch.kernels.softmax import (attn_softmax_backward,
                                              attn_softmax_forward)
 from tpu_flash_torch.nn import (DecoderConfig, DecoderLM, adam, init_params,
-                                mixed_precision, num_parameters)
+                                mixed_precision, num_parameters,
+                                quantize_model_linears)
 from tpu_flash_torch.ops import fused
 from tpu_flash_torch.ops.reference import causal_mask
 from tpu_flash_torch.utils.timing import device_ms
@@ -84,7 +96,13 @@ ATTENTION = ("flash_attention_fwd", "flash_attention_bwd")
 FUSED = ("layernorm_fwd", "layernorm_bwd", "attn_softmax_fwd",
          "attn_softmax_bwd")
 TRAINING_KERNELS = ATTENTION + FUSED
-KERNELS = ("flash_decode",) + TRAINING_KERNELS
+QUANT_SOURCES = ("int8_matmul", "int4_matmul")
+KERNELS = ("flash_decode",) + TRAINING_KERNELS + QUANT_SOURCES
+# The quantized matmul kernels by launch count, with (bits, group size) and
+# the TPU kernel each replaces.
+QUANT = {"int8_matmul": (8, None, "quant.py:49"),
+         "int4_matmul": (4, None, "quant.py:228"),
+         "int4_matmul_group": (4, 128, "quant.py:258")}
 SERVING = dict(n_vocab=32768, n_embd=1024, n_head=16, n_positions=8192,
                n_layer=8, ff_middle_dim=4096, p_dropout=0.0,
                attention_kind="flash", dtype=torch.bfloat16)
@@ -172,6 +190,36 @@ ATTN_CASES = [
     ("d32", 2, 8, 8, 256, 256, 32, True),
     ("d128", 2, 8, 8, 256, 256, 128, True),
 ]
+# The serving model's linears, K x N: q, k, v and out projections, FF in,
+# FF out, lm_head.
+SERVING_LINEARS = ((1024, 1024), (1024, 4096), (4096, 1024), (1024, 32768))
+# Quantized matmuls, kernel vs plain on the same inputs, M rows of x each:
+# the serving linears, a ragged K and N (K odd for int4 per column; grouped,
+# K = 256 in groups of 64), and groups of 64 at 1024 x 1024.
+QUANT_M = (1, 8, 100, 1024)
+QUANT_CASES = {
+    "int8_matmul": [(K, N, None) for K, N in SERVING_LINEARS]
+    + [(255, 300, None)],
+    "int4_matmul": [(K, N, None) for K, N in SERVING_LINEARS]
+    + [(255, 300, None)],
+    "int4_matmul_group": [(K, N, 128) for K, N in SERVING_LINEARS]
+    + [(1024, 1024, 64), (256, 300, 64)],
+}
+# Each output x held to |x - ref| <= arms * rms(ref) + rtol * |ref|
+# (compare()).  fp32 with TF32 off: the same products summed in another
+# order (1e-5, 1e-5).  bf16: out may round to the neighbouring bf16 (rtol
+# 2e-2 covers two ulps) on top of 1e-2 of the rms.
+QUANT_TOL = {torch.float32: (0.0, 1e-5, 1e-5),
+             torch.bfloat16: (0.0, 1e-2, 2e-2)}
+# Decode (M = 8) at each serving linear, and a prefill of 1024 tokens.
+QUANT_TIMED = [(8, K, N) for K, N in SERVING_LINEARS] + [(1024, 1024, 4096)]
+QUANT_MAIN_SHAPE = (8, 1024, 4096)       # the kernels line's shape
+# The quantized serving modes: weights, KV cache, chunked prefill, drive,
+# and the JAX tests' limit on the logits' error against the float model
+# (tests/test_quant.py:80, :218).
+QUANT_SERVING = (("int8_matmul", "int8", None, "run_many(8)", 0.05),
+                 ("int4_matmul", "none", None, "run()", 0.15),
+                 ("int4_matmul_group", "int8", 256, "run_many(8)", 0.15))
 
 
 def log(obj) -> None:
@@ -749,6 +797,126 @@ def fused_dispatch_times(gen) -> None:
                 del xs, dys
 
 
+def quantized(w, bits, group=None):
+    """``w`` [K, N] quantized: the kernel's weight arguments."""
+    if bits == 8:
+        return quant.quantize_weight(w)
+    packed, scales, _ = quant.quantize_weight_int4(
+        w, group_size=group, allow_small_groups=True)
+    return packed, scales
+
+
+def quant_matmul(kind, x, q, impl):
+    if kind == "int8_matmul":
+        return quant.int8_matmul(x, *q, impl=impl)
+    return quant.int4_matmul(x, *q, k_dim=x.shape[1], impl=impl)
+
+
+def quant_cases(gen) -> dict:
+    """The three quantized matmul kernels against their plain versions on
+    the same inputs, fp32 and bf16 x, at every M of ``QUANT_M``; returns
+    the largest error of each.  Every shape is logged before a disagreement
+    fails the phase; the first of each kernel and dtype also checks that
+    its limit fails a perturbed row."""
+    worst = dict.fromkeys(QUANT, 0.0)
+    failed, largest, power_checked = [], {}, set()
+    for kind, cases in QUANT_CASES.items():
+        bits = QUANT[kind][0]
+        for K, N, group in cases:
+            q = quantized(torch.randn(K, N, generator=gen, device=DEV), bits,
+                          group)
+            for dtype in (torch.float32, torch.bfloat16):
+                dname = str(dtype).split(".")[1]
+                tol = QUANT_TOL[dtype]
+                errs, need, ok = {}, {}, True
+                for M in QUANT_M:
+                    x = torch.randn(M, K, generator=gen, device=DEV).to(dtype)
+                    got = quant_matmul(kind, x, q, "kernel")
+                    ref = quant_matmul(kind, x, q, "plain")
+                    torch.cuda.synchronize()
+                    errs[M], _, need[M], agree = compare(got, ref, tol)
+                    ok &= agree and got.dtype == ref.dtype == dtype
+                    if (kind, dname) not in power_checked:
+                        power_checked.add((kind, dname))
+                        caught = not compare(perturbed(ref), ref.float(),
+                                             tol)[3]
+                        log({"phase": "quant_limit_power", "kernel": kind,
+                             "dtype": dname, "shape": f"M{M} K{K} N{N}",
+                             "fault": "1 % of the last row's |sum| added "
+                                      "to its first value",
+                             "caught": caught})
+                        if not caught:
+                            failed.append(f"{kind} {dname}: the limit "
+                                          f"passes a perturbed row")
+                key = f"{kind} {dname}"
+                largest[key] = max(largest.get(key, 0.0), *need.values())
+                log({"phase": "quant_vs_plain", "kernel": kind,
+                     "shape": f"K{K} N{N}" + (f" g{group}" if group else ""),
+                     "dtype": dname, "max_abs_err_by_M": errs,
+                     "arms_needed_by_M": need,
+                     "tol": "{1} * rms + rtol {2}".format(*tol), "ok": ok})
+                if not ok:
+                    failed.append(f"{kind} K{K} N{N} {dname}")
+                worst[kind] = max(worst[kind], *errs.values())
+            del q
+    log({"phase": "quant_tolerance", "arms_needed_beside_rtol": largest})
+    check(not failed, f"quantized matmul kernels disagree with their plain "
+                      f"versions: {failed}")
+    return worst
+
+
+def quant_times(gen) -> dict:
+    """The quantized matmul kernels' times with bf16 x at ``QUANT_TIMED``:
+    kernel, plain and library (``x @ W`` against the weight dequantized
+    once to bf16, the alternative the JAX package names at quant.py:13-15;
+    the port never calls it), with the bound.  Weights rotate through
+    enough copies that each call reads past the 50 MB L2, as each layer's
+    own weights would."""
+    rows = {}
+    for kind in QUANT:
+        for M, K, N in QUANT_TIMED:
+            q = quantized(torch.randn(K, N, generator=gen, device=DEV),
+                          *QUANT[kind][:2])
+            wbytes = sum(t.numel() * t.element_size() for t in q)
+            n = max(2, math.ceil(2 * L2_BYTES / wbytes))
+            qs = [tuple(t.clone() for t in q) for _ in range(n)]
+            deq = quant.dequantize(*q, K).to(torch.bfloat16)
+            n_lib = max(2, math.ceil(2 * L2_BYTES / (K * N * 2)))
+            deqs = [deq.clone() for _ in range(n_lib)]
+            del deq
+            x = torch.randn(M, K, generator=gen, device=DEV,
+                            dtype=torch.bfloat16)
+            tick = [0]
+
+            def nxt(k):
+                tick[0] = (tick[0] + 1) % k
+                return tick[0]
+
+            ms = device_ms(lambda: quant_matmul(kind, x, qs[nxt(n)],
+                                                "kernel"), iters=20)
+            plain_ms = device_ms(lambda: quant_matmul(kind, x, qs[nxt(n)],
+                                                      "plain"), iters=5)
+            library_ms = device_ms(lambda: x @ deqs[nxt(n_lib)], iters=20)
+            nbytes = wbytes + 2 * M * K + 2 * M * N     # codes, scales, x, out
+            flops = 2 * M * K * N
+            bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                     "operations": flops / BF16_FLOPS * 1e3}
+            bound_by = max(bound, key=bound.get)
+            bm, splits, _ = quant._plan(M, N, q[0].shape[0], x.device)
+            row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                   "bound_ms": bound[bound_by], "bound_by": bound_by,
+                   "of_bound": bound[bound_by] / ms, "bytes": nbytes,
+                   "flops": flops, "hbm_GBps": nbytes / (ms * 1e-3) / 1e9,
+                   "blocks": (common.cdiv(N, quant._BN) * common.cdiv(M, bm)
+                              * splits), "splits": splits, "copies": n}
+            log({"phase": "kernel_time", "kernel": kind,
+                 "shape": f"M{M} K{K} N{N} bf16",
+                 "library": "x @ W dequantized to bf16", **row})
+            rows[(kind, (M, K, N))] = row
+            del q, qs, deqs
+    return rows
+
+
 def kernel_profile(fn, steps: int = 4) -> dict:
     """Kernels of ``fn()`` under torch.profiler, per call: launches, their
     summed device time, each of the port's kernels' time, and the eight
@@ -768,7 +936,7 @@ def kernel_profile(fn, steps: int = 4) -> dict:
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     ours = {n: sum(e.self_device_time_total for e in kernels
                    if f"{n}_kernel" in e.key) / steps / 1e3
-            for n in KERNELS}
+            for n in KERNELS + ("int4_matmul_group", "quant_matmul_reduce")}
     return {"kernels_per_step": sum(e.count for e in kernels) / steps,
             "kernel_ms_per_step": total_us / steps / 1e3,
             "port_kernel_ms_per_step": ours,
@@ -938,13 +1106,25 @@ def training_end_to_end(name: str, config: dict, shape) -> dict:
     return row
 
 
-@torch.no_grad()
-def serving(model, n_layer: int) -> int:
-    """16 requests through the engine in three modes; returns the kernel
-    launches counted while the engines ran."""
+SERVING_MODES = (("int8", None, "run_many(8)"), ("none", None, "run()"),
+                 ("int8", 256, "run_many(8)"))
+
+
+def serving_prompts(n_vocab: int) -> list[list[int]]:
+    """16 prompts of 16 to 1024 tokens from a seed."""
     rng = np.random.default_rng(0)
     lens = rng.integers(16, 1025, 16)
-    prompts = [rng.integers(1, model.cfg.n_vocab, n).tolist() for n in lens]
+    return [rng.integers(1, n_vocab, n).tolist() for n in lens]
+
+
+@torch.no_grad()
+def serving(model, n_layer: int, modes=SERVING_MODES,
+            matmul: str | None = None) -> dict[str, int]:
+    """16 requests through the engine in each of ``modes`` (KV cache,
+    prefill chunk, drive); returns the kernel launches counted while the
+    engines ran.  ``matmul`` names a quantized model's matmul kernel: every
+    forward must launch it once for each Linear, 6 a layer and lm_head."""
+    prompts = serving_prompts(model.cfg.n_vocab)
     sampling = SamplingConfig(max_new_tokens=64)
     finite = torch.ones((), dtype=torch.bool, device=DEV)
 
@@ -959,14 +1139,13 @@ def serving(model, n_layer: int) -> int:
     del warm
     torch.cuda.synchronize()
 
-    total = 0
+    names = ("flash_decode",) + ((matmul,) if matmul else ())
+    total = dict.fromkeys(names, 0)
     hook = model.lm_head.register_forward_hook(watch)
     try:
-        for quant, chunk, drive in (("int8", None, "run_many(8)"),
-                                    ("none", None, "run()"),
-                                    ("int8", 256, "run_many(8)")):
+        for kv_quant, chunk, drive in modes:
             eng = DecodeEngine(model, n_slots=8, max_len=8192,
-                               sampling=sampling, kv_quant=quant,
+                               sampling=sampling, kv_quant=kv_quant,
                                prefill_chunk=chunk, device=DEV)
             for uid, p in enumerate(prompts):
                 eng.submit(Request(uid, p))
@@ -975,7 +1154,7 @@ def serving(model, n_layer: int) -> int:
             done = eng.run_many(8) if drive == "run_many(8)" else eng.run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = common.launch_counts["flash_decode"]
+            launches = {n: common.launch_counts[n] for n in names}
             steps = eng.stats["decode_steps"]
             n_tok = sum(len(c.tokens) for c in done)
             step_ms = eng.stats["decode_s"] / steps * 1e3
@@ -985,7 +1164,12 @@ def serving(model, n_layer: int) -> int:
             step_device_ms = device_ms(
                 lambda: eng._decode_step(eng.last_tokens, live), warmup=1,
                 iters=1, reps=5, hold_cycles=100_000_000)
-            log({"phase": "serving", "kv_quant": quant,
+            common.launch_counts.clear()      # one decode step on its own
+            eng._decode_step(eng.last_tokens, live)
+            torch.cuda.synchronize()
+            step_launches = {n: common.launch_counts[n] for n in names}
+            log({"phase": "serving", "weights": matmul or "bf16",
+                 "kv_quant": kv_quant,
                  "prefill_chunk": chunk, "drive": drive,
                  "requests": len(done), "tokens": n_tok, "wall_s": wall,
                  "tok_s": n_tok / wall, "decode_steps": steps,
@@ -993,19 +1177,34 @@ def serving(model, n_layer: int) -> int:
                  "decode_device_ms_per_step": step_device_ms,
                  "decode_device_idle_share": 1 - step_device_ms / step_ms,
                  "admit_s": eng.stats["admit_s"],
-                 "flash_decode_launches": launches,
+                 "launches": launches,
+                 "launches_per_decode_step": step_launches,
                  "card": torch.cuda.get_device_name(0)})
+            what = f"{matmul or 'bf16'} {drive}/{kv_quant}"
             check(sorted(c.uid for c in done) == list(range(len(prompts))),
-                  f"{drive}/{quant}: not every request completed")
+                  f"{what}: not every request completed")
             check(all(len(c.tokens) == 64 and c.finished_reason == "length"
-                      for c in done), f"{drive}/{quant}: short completion")
-            check(steps > 0 and launches == n_layer * steps,
-                  f"{drive}/{quant}: {launches} kernel launches for {steps} "
-                  f"decode steps of {n_layer} layers")
-            check(bool(finite), f"{drive}/{quant}: non-finite logits")
-            total += launches
-            log({"phase": "decode_profile", "kv_quant": quant,
-                 "drive": drive, **kernel_profile(
+                      for c in done), f"{what}: short completion")
+            check(steps > 0 and launches["flash_decode"] == n_layer * steps
+                  and step_launches["flash_decode"] == n_layer,
+                  f"{what}: {launches} kernel launches for {steps} decode "
+                  f"steps of {n_layer} layers")
+            if matmul:
+                # every forward: the decode steps (those between prefill
+                # chunks included) and one a prefill or prefill chunk
+                per_forward = 6 * n_layer + 1
+                forwards = steps + (len(prompts) if chunk is None else sum(
+                    common.cdiv(len(p), chunk) for p in prompts))
+                check(step_launches[matmul] == per_forward
+                      and launches[matmul] == per_forward * forwards,
+                      f"{what}: {matmul} launched {step_launches[matmul]} "
+                      f"times in a decode step (not {per_forward}) and "
+                      f"{launches[matmul]} in {forwards} forwards")
+            check(bool(finite), f"{what}: non-finite logits")
+            for n, c in launches.items():
+                total[n] += c
+            log({"phase": "decode_profile", "weights": matmul or "bf16",
+                 "kv_quant": kv_quant, "drive": drive, **kernel_profile(
                      lambda: eng._decode_step(eng.last_tokens, live))})
             del eng, done
     finally:
@@ -1013,16 +1212,48 @@ def serving(model, n_layer: int) -> int:
     return total
 
 
-def end_to_end() -> None:
-    """Serving end to end at full width, 2 layers, fp32 with TF32 off:
+@torch.no_grad()
+def quantized_serving(model) -> dict[str, int]:
+    """The serving model converted by ``quantize_model_linears`` in each
+    mode of ``QUANT_SERVING``: the logits' relative error against the float
+    model on the first prompt, held to the JAX tests' limit, then
+    ``serving`` with its launch checks; returns the launches."""
+    prompt = torch.tensor([serving_prompts(model.cfg.n_vocab)[0]],
+                          device=DEV)
+    ref = model(prompt).float()
+    total = {}
+    for kind, kv_quant, chunk, drive, limit in QUANT_SERVING:
+        bits, group, _ = QUANT[kind]
+        qmodel = quantize_model_linears(copy.deepcopy(model), bits=bits,
+                                        group_size=group)
+        rel = float((qmodel(prompt).float() - ref).norm() / ref.norm())
+        log({"phase": "quant_logits", "weights": kind, "group_size": group,
+             "prompt_tokens": prompt.shape[1], "rel_err_vs_bf16": rel,
+             "jax_test_limit": limit})
+        check(rel < limit, f"{kind}: logits {rel} from the float model's")
+        for n, c in serving(qmodel, model.cfg.n_layer, ((kv_quant, chunk,
+                                                         drive),),
+                            matmul=kind).items():
+            total[n] = total.get(n, 0) + c
+        del qmodel
+        torch.cuda.empty_cache()
+    return total
+
+
+def end_to_end(kind: str | None = None) -> None:
+    """Serving end to end at full width, 2 layers, fp32 with TF32 off,
+    with float weights or, with ``kind``, quantized for that matmul kernel:
     engine tokens against generate's and the uncached forward's, and one
-    decode step's logits with the kernel against the plain path."""
+    decode step's logits with the kernels against the plain path."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = DecoderConfig(**{**SERVING, "n_layer": 2, "dtype": torch.float32,
                            "attention_kind": "naive"})
     model = DecoderLM(cfg, device=DEV)
     init_params(model, torch.Generator(DEV).manual_seed(1))
+    if kind is not None:
+        quantize_model_linears(model, bits=QUANT[kind][0],
+                               group_size=QUANT[kind][1])
     rng = np.random.default_rng(1)
     lens = rng.integers(16, 200, 8)
     n_new, max_len = 16, 1024
@@ -1068,22 +1299,35 @@ def end_to_end() -> None:
                                       max_len=max_len)
         tok = last.argmax(-1)[:, None]
         pos = caches[0].lengths[:, None].long()
-        out = {}
+        out, launched = {}, {}
         for impl in ("kernel", "plain"):
             copies = [dataclasses.replace(
                 c, k=c.k.clone(), v=c.v.clone(), lengths=c.lengths.clone())
                 for c in caches]
+            torch.cuda.synchronize()
+            common.launch_counts.clear()
             out[impl], _ = model(tok, kv_caches=copies, positions=pos,
                                  impl=impl)
+            launched[impl] = {n: c for n, c in common.launch_counts.items()
+                              if c}
         err = float((out["kernel"] - out["plain"]).abs().max())
-    tol = 1e-4   # fp32 logits of |x| ~ 1: summation order and __expf
-    log({"phase": "end_to_end", "tokens_compared": compared,
-         "near_ties": ties, "logits_max_abs_err": err,
-         "logits_tol": tol})
-    check(err <= tol, f"kernel vs plain decode logits differ by {err}")
+    # fp32 logits of |x| ~ 1: summation order, __expf and, quantized, the
+    # matmuls' order of sums
+    tol = 1e-4
+    want = {"flash_decode": cfg.n_layer,
+            **({kind: 6 * cfg.n_layer + 1} if kind else {})}
+    log({"phase": "end_to_end", "weights": kind or "fp32",
+         "tokens_compared": compared, "near_ties": ties,
+         "logits_max_abs_err": err, "logits_tol": tol,
+         "launches": launched})
+    check(err <= tol, f"{kind}: kernel vs plain decode logits differ by "
+                      f"{err}")
+    check(launched["kernel"] == want and not launched["plain"],
+          f"{kind}: decode step launches {launched}, not {want}")
 
 
 def main() -> int:
+    t0 = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1113,16 +1357,22 @@ def main() -> int:
     fused_worst = fused_cases(gen)
     fused_rows = fused_times(gen)
     fused_dispatch_times(gen)
+    quant_worst = quant_cases(gen)
+    quant_rows = quant_times(gen)
 
     cfg = DecoderConfig(**SERVING)
     model = DecoderLM(cfg, device=DEV)
     init_params(model, torch.Generator(DEV).manual_seed(0))
     log({"phase": "model", "params": num_parameters(model),
          "config": {k: str(v) for k, v in SERVING.items()}})
-    launches = {"flash_decode": serving(model, cfg.n_layer)}
+    launches = serving(model, cfg.n_layer)
+    for n, c in quantized_serving(model).items():
+        launches[n] = launches.get(n, 0) + c
     del model
     torch.cuda.empty_cache()
     end_to_end()
+    for kind in QUANT:
+        end_to_end(kind)
 
     # launches a step, both configs having 4 layers: each attention kernel
     # once a layer; each LayerNorm kernel twice a layer and once before
@@ -1191,6 +1441,20 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "shape": ("R8192 H256 fp32" if n.startswith("layernorm")
                       else "B32 H8 Lq256 Lk256 causal fp32")})
+    for n, (_, _, line) in QUANT.items():
+        r = quant_rows[(n, QUANT_MAIN_SHAPE)]
+        entries.append({
+            "name": n, "route": "cuda",
+            "source": "tpu_flash_torch/kernels/csrc/{}.cu".format(
+                "int8_matmul" if n == "int8_matmul" else "int4_matmul"),
+            "replaces": f"tpu_flash/kernels/{line}",
+            "launches": launches[n], "max_abs_err": quant_worst[n],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "shape": "M{} K{} N{} bf16 x".format(*QUANT_MAIN_SHAPE)
+            + (", groups of 128" if n == "int4_matmul_group" else "")})
+    log({"phase": "total", "seconds": time.perf_counter() - t0})
     log({"kernels": entries})
     print(smi.splitlines()[0], flush=True)
     log({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,6 +1,7 @@
 """The CUDA kernels (flash decode, flash-attention forward and backward,
-fused LayerNorm and masked softmax forward and backward) against their
-plain PyTorch versions, on the card.  Every test here needs a
+fused LayerNorm and masked softmax forward and backward, the int8 and
+packed-int4 weight-only matmuls) against their plain PyTorch versions, on
+the card.  Every test here needs a
 CUDA device and skips without one; the file imports neither JAX nor the JAX
 package, so on a machine with a card and no JAX it runs alone:
 
@@ -384,3 +385,144 @@ def test_fused_model_step_launches_the_fused_kernels(cuda_device):
                                if not n.startswith(("attn_", "layernorm"))}}
     assert not any(counts["plain"].values())
     np.testing.assert_allclose(losses["kernel"], losses["plain"], rtol=1e-5)
+
+
+# --- weight-only quantized matmul kernels ----------------------------------
+#
+# Kernel against plain on the same inputs, |got - want| <= arms * rms(want)
+# + rtol * |want|.  fp32 with TF32 off: the same products summed in another
+# order (1e-5, 1e-5).  bf16: out may round to the neighbouring bf16 (rtol
+# 2e-2 covers two ulps) on top of 1e-2 of the rms (chip_smoke.py's limits).
+# The shapes cover ragged M, N and K (odd K for int4), N not a multiple of
+# 16 (the kernels' byte-wise loads), both block shapes (M <= 8 and above)
+# and split code rows (small N over a long K).
+
+QUANT_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 2e-2)}
+QUANT_SHAPES = [(1, 255, 300), (8, 1024, 384), (37, 513, 200),
+                (100, 96, 130), (260, 128, 64), (8, 4096, 16)]
+GROUP_SHAPES = [(1, 256, 300, 64), (8, 1024, 384, 128), (37, 512, 200, 32),
+                (100, 96, 130, 16), (260, 192, 64, 32), (8, 4096, 16, 128)]
+
+
+def quant_case(gen, dev, kind, M, K, N, g, dtype):
+    from tpu_flash_torch.kernels import quant
+
+    x = torch.randn(M, K, generator=gen, device=dev).to(dtype)
+    w = torch.randn(K, N, generator=gen, device=dev)
+    if kind == "int8_matmul":
+        codes, scales = quant.quantize_weight(w)
+        return lambda impl=None: quant.int8_matmul(x, codes, scales,
+                                                   impl=impl)
+    packed, scales, _ = quant.quantize_weight_int4(
+        w, group_size=g, allow_small_groups=True)
+    return lambda impl=None: quant.int4_matmul(x, packed, scales, k_dim=K,
+                                               impl=impl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,M,K,N,g", [
+    *(("int8_matmul", *s, None) for s in QUANT_SHAPES),
+    *(("int4_matmul", *s, None) for s in QUANT_SHAPES),
+    *(("int4_matmul_group", *s) for s in GROUP_SHAPES)])
+def test_quant_matmul_kernels_match_plain(cuda_device, dtype, kind, M, K, N,
+                                          g):
+    """A CUDA tensor with impl=None launches the kernel (its count rises by
+    one) and agrees with the plain version."""
+    gen = torch.Generator(cuda_device).manual_seed(8)
+    call = quant_case(gen, cuda_device, kind, M, K, N, g, dtype)
+    before = common.launch_counts[kind]
+    got = call()
+    assert common.launch_counts[kind] == before + 1
+    want = call("plain")
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == dtype and got.shape == (M, N)
+    assert_within(got, want, *QUANT_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,g", [(8, None), (4, None), (4, 32)])
+def test_quantized_linears_train_x_through_the_kernels(cuda_device, bits, g):
+    """int8_linear / int4_linear on CUDA tensors: the forward launches its
+    kernel; dx of the per-column forms launches the int8 kernel on the
+    transposed codes, the grouped form's a dense matmul; values and dx
+    agree with the plain route."""
+    from tpu_flash_torch.kernels import quant
+
+    gen = torch.Generator(cuda_device).manual_seed(9)
+    x = torch.randn(3, 5, 128, generator=gen, device=cuda_device)
+    w = torch.randn(128, 96, generator=gen, device=cuda_device)
+    b = torch.randn(96, generator=gen, device=cuda_device)
+    if bits == 8:
+        qw = quant.QuantizedLinearWeights(*quant.quantize_weight(w), b)
+        fn, kind = quant.int8_linear, "int8_matmul"
+    else:
+        packed, scales, k = quant.quantize_weight_int4(
+            w, group_size=g, allow_small_groups=True)
+        qw = quant.QuantizedLinearWeights4(packed, scales, k, b)
+        fn = quant.int4_linear
+        kind = "int4_matmul_group" if g else "int4_matmul"
+    outs = {}
+    for impl in (None, "plain"):
+        leaf = x.clone().requires_grad_()
+        before = dict(common.launch_counts)
+        out = fn(leaf, qw, impl=impl)
+        (dx,) = torch.autograd.grad((out ** 2).sum(), leaf)
+        launched = {n: common.launch_counts[n] - before.get(n, 0)
+                    for n in common.launch_counts}
+        outs[impl] = (out, dx, {n: c for n, c in launched.items() if c})
+    want = {kind: 1} if g else {kind: 1, "int8_matmul": 1 + (bits == 8)}
+    assert outs[None][2] == want and not outs["plain"][2]
+    for a, b in zip(outs[None][:2], outs["plain"][:2]):
+        assert_within(a.detach(), b.detach(), 1e-5, 1e-5)
+
+
+@pytest.mark.cuda
+def test_quant_kernel_that_fails_to_launch_raises(cuda_device, monkeypatch):
+    """A grid the card refuses (65,536 or more blocks along z) is reported
+    by the C entry and raised by the wrapper; nothing is counted."""
+    from tpu_flash_torch.kernels import quant
+
+    x = torch.randn(1, 128, device=cuda_device)
+    codes, scales = quant.quantize_weight(torch.randn(128, 16,
+                                                      device=cuda_device))
+    monkeypatch.setattr(quant, "_plan", lambda *a: (8, 70_000, 128))
+    before = common.launch_counts["int8_matmul"]
+    with pytest.raises(RuntimeError, match="int8_matmul kernel failed"):
+        quant.int8_matmul(x, codes, scales)
+    assert common.launch_counts["int8_matmul"] == before
+    with pytest.raises(TypeError, match="int8"):
+        quant.int8_matmul(x, codes.to(torch.int16), scales)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,g", [(8, None), (4, None), (4, 32)])
+def test_quantized_decode_step_kernel_matches_plain(cuda_device, bits, g):
+    """One decode step of a small fp32 quantized DecoderLM: the matmul
+    kernel launches once a Linear (6 a layer and lm_head) and the logits
+    agree with the plain path's."""
+    cfg = tnn.DecoderConfig(n_vocab=128, n_embd=64, n_head=4, n_positions=64,
+                            n_layer=2, ff_middle_dim=128, p_dropout=0.0,
+                            attention_kind="naive")
+    model = tnn.DecoderLM(cfg, device=cuda_device)
+    tnn.init_params(model, torch.Generator(cuda_device).manual_seed(2))
+    tnn.quantize_model_linears(model, bits=bits, group_size=g,
+                               allow_small_groups=True)
+    kind = ("int8_matmul" if bits == 8 else
+            "int4_matmul_group" if g else "int4_matmul")
+    ids = torch.randint(0, 128, (3, 20), device=cuda_device,
+                        generator=torch.Generator(cuda_device).manual_seed(3))
+    logits = {}
+    for impl in ("kernel", "plain"):
+        caches = make_caches(model, 3, 32, quant="int8")
+        with torch.no_grad():
+            model(ids, kv_caches=caches, impl=impl)
+            before = common.launch_counts[kind]
+            out, _ = model(ids[:, -1:], kv_caches=caches,
+                           positions=caches[0].lengths[:, None].long(),
+                           impl=impl)
+        launched = common.launch_counts[kind] - before
+        assert launched == (6 * cfg.n_layer + 1 if impl == "kernel" else 0)
+        logits[impl] = out
+    torch.testing.assert_close(logits["kernel"], logits["plain"], atol=1e-4,
+                               rtol=1e-4)

@@ -214,14 +214,17 @@ def test_import_leaves_out_jax_and_the_jax_package():
 
 def test_package_sources_call_no_library_attention():
     """No JAX or tpu_flash import, no scaled_dot_product_attention, no
-    library LayerNorm or softmax backward, no torch.compile and no import of
-    the flash_attn package anywhere in the port's sources (the port's own
-    parity aliases keep their names); chip_smoke.py times the library calls
-    as yardsticks only."""
+    library LayerNorm or softmax backward, no library quantized matmul
+    (``torch._int_mm``, ``_weight_int8pack_mm``, ``_weight_int4pack_mm``,
+    ``torch.ao``), no torch.compile and no import of the flash_attn package
+    anywhere in the port's sources (the port's own parity aliases keep
+    their names); chip_smoke.py times the library calls as yardsticks
+    only."""
     library = (r"scaled_dot_product_attention|torch\.nn\.functional\."
                r"layer_norm|torch\.layer_norm|_softmax_backward_data")
+    quantized = r"torch\._int_mm|_weight_int[48]pack_mm|torch\.ao\b"
     banned = re.compile(r"^\s*(from|import)\s+(jax|tpu_flash|flash_attn)\b"
-                        rf"|{library}|torch\.compile", re.M)
+                        rf"|{library}|{quantized}|torch\.compile", re.M)
     files = [*(REPO / "tpu_flash_torch").rglob("*.py"),
              *(REPO / "tpu_flash_torch").rglob("*.cu*"),
              REPO / "chip_smoke.py"]

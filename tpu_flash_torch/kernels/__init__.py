@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``), each beside its plain
 PyTorch version.  Ported so far: flash-decode attention, the
 flash-attention forward and backward, the fused LayerNorm forward and
-backward, and the fused masked attention-softmax forward and backward."""
+backward, the fused masked attention-softmax forward and backward, and the
+weight-only int8 and packed-int4 matmuls."""
 
 from tpu_flash_torch.kernels.common import build, launch_counts  # noqa: F401
 from tpu_flash_torch.kernels.decode import (  # noqa: F401
@@ -19,6 +20,20 @@ from tpu_flash_torch.kernels.layernorm import (  # noqa: F401
     layernorm_backward_plain,
     layernorm_forward,
     layernorm_forward_plain,
+)
+from tpu_flash_torch.kernels.quant import (  # noqa: F401
+    QuantizedLinearWeights,
+    QuantizedLinearWeights4,
+    dequantize,
+    int4_linear,
+    int4_matmul,
+    int4_matmul_plain,
+    int8_linear,
+    int8_matmul,
+    int8_matmul_plain,
+    quantize_weight,
+    quantize_weight_int4,
+    unpack_int4,
 )
 from tpu_flash_torch.kernels.softmax import (  # noqa: F401
     attn_softmax_backward,

@@ -1,5 +1,6 @@
-"""Modules of the port: layers, the decoder transformer, the optimizers
-and the helpers that load, export or draw its parameters."""
+"""Modules of the port: layers (float and weight-only quantized linears),
+the decoder transformer, the optimizers and the helpers that load, export
+or draw its parameters."""
 
 from tpu_flash_torch.nn import functional, optim  # noqa: F401
 from tpu_flash_torch.nn.layers import (  # noqa: F401
@@ -7,6 +8,9 @@ from tpu_flash_torch.nn.layers import (  # noqa: F401
     Embedding,
     LayerNorm,
     Linear,
+    QuantizedLinear,
+    quantize_linear_params,
+    quantize_model_linears,
 )
 from tpu_flash_torch.nn.module import (  # noqa: F401
     init_params,

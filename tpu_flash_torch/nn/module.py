@@ -33,43 +33,68 @@ def named_tree_leaves(tree: Any, prefix: str = "") -> Iterator[tuple[str, Any]]:
         yield prefix[:-1], tree
 
 
+def _state(model: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """Every parameter and buffer by dotted name: a quantized Linear's
+    codes and scales are buffers, leaves of the JAX tree like parameters."""
+    return {**dict(model.named_parameters()), **dict(model.named_buffers())}
+
+
+def _transposed(model: torch.nn.Module) -> set[str]:
+    """The float Linear weights, ``[out, in]`` here and ``[in, out]`` in
+    JAX; quantized codes keep the JAX layout."""
+    return {f"{name}.weight" for name, m in model.named_modules()
+            if isinstance(m, Linear)}
+
+
 @torch.no_grad()
 def load_jax_params(model: torch.nn.Module, tree: Any) -> None:
     """Copy a JAX parameter tree into ``model``.
 
-    Leaves may be JAX or numpy arrays; they pass through float32 (numpy's
-    bf16 from ml_dtypes is not a type ``torch.from_numpy`` takes) and are
-    cast to each parameter's dtype.  Linear weights are transposed from
-    ``[in, out]`` to ``[out, in]``.  Every parameter must be covered once."""
-    params = dict(model.named_parameters())
-    transposed = {f"{name}.weight" for name, m in model.named_modules()
-                  if isinstance(m, Linear)}
+    Leaves may be JAX or numpy arrays.  Float leaves pass through float32
+    (numpy's bf16 from ml_dtypes is not a type ``torch.from_numpy`` takes)
+    and are cast to each tensor's dtype; the int8 and uint8 codes of a
+    quantized Linear (``{"codes" | "codes4", "scales", "bias"}``, loaded
+    into a model already converted by ``quantize_model_linears``) are
+    copied as they are.  Float Linear weights are transposed from ``[in,
+    out]`` to ``[out, in]``.  Every parameter and buffer must be covered
+    once."""
+    state = _state(model)
+    transposed = _transposed(model)
     seen = set()
     for name, leaf in named_tree_leaves(tree):
-        if name not in params:
+        if name not in state:
             raise KeyError(f"JAX parameter {name!r} has no counterpart")
-        t = torch.from_numpy(np.array(leaf, dtype=np.float32))
+        dst = state[name]
+        if dst.is_floating_point():
+            t = torch.from_numpy(np.array(leaf, dtype=np.float32))
+        else:
+            t = torch.from_numpy(np.array(leaf))
+            if t.dtype != dst.dtype:
+                raise TypeError(f"{name}: JAX dtype {t.dtype} does not "
+                                f"match {dst.dtype}")
         if name in transposed:
             t = t.T
-        if t.shape != params[name].shape:
+        if t.shape != dst.shape:
             raise ValueError(f"{name}: JAX shape {tuple(t.shape)} does not "
-                             f"match {tuple(params[name].shape)}")
-        params[name].copy_(t)
+                             f"match {tuple(dst.shape)}")
+        dst.copy_(t)
         seen.add(name)
-    missing = sorted(set(params) - seen)
+    missing = sorted(set(state) - seen)
     if missing:
         raise KeyError(f"parameters missing from the JAX tree: {missing}")
 
 
 def to_jax_params(model: torch.nn.Module) -> dict:
-    """The inverse of ``load_jax_params``: the module's parameters as the
-    JAX package's nested tree of float32 numpy arrays, Linear weights
-    transposed back to ``[in, out]``."""
-    transposed = {f"{name}.weight" for name, m in model.named_modules()
-                  if isinstance(m, Linear)}
+    """The inverse of ``load_jax_params``: the module's parameters and
+    buffers as the JAX package's nested tree of numpy arrays, float32 for
+    float tensors (Linear weights transposed back to ``[in, out]``), int8
+    and uint8 for quantized codes."""
+    transposed = _transposed(model)
     tree: dict = {}
-    for name, p in model.named_parameters():
-        x = p.detach().float().cpu()
+    for name, p in _state(model).items():
+        x = p.detach().cpu()
+        if x.is_floating_point():
+            x = x.float()
         if name in transposed:
             x = x.T
         *path, leaf = name.split(".")
@@ -83,7 +108,8 @@ def to_jax_params(model: torch.nn.Module) -> dict:
 @torch.no_grad()
 def init_params(model: torch.nn.Module, generator: torch.Generator) -> None:
     """Fresh values from the JAX init's distributions, drawn in float32 on
-    the generator's device in module order, then cast to each parameter."""
+    the generator's device in module order, then cast to each parameter.
+    A quantized Linear is left as it is (the JAX init makes float trees)."""
 
     def draw(p, fill):
         x = torch.empty(p.shape, dtype=torch.float32, device=generator.device)

@@ -132,16 +132,18 @@ class MultiHeadAttention(torch.nn.Module):
         self.v_projection = Linear(c.n_embd, kv_dim, **kw)
         self.out_projection = Linear(c.n_embd, c.n_embd, **kw)
 
-    def project_to_query_key_value(self, x):
-        """x [B, L, E] -> q [B, H, L, d], k and v [B, Hkv, L, d]."""
+    def project_to_query_key_value(self, x, impl=None):
+        """x [B, L, E] -> q [B, H, L, d], k and v [B, Hkv, L, d].
+        ``impl`` reaches quantized projections' matmul kernels."""
         B, L, _ = x.shape
         d = self.cfg.attn_hidden_dim
 
         def split(y):
             return y.reshape(B, L, -1, d).transpose(1, 2)
 
-        return (split(self.q_projection(x)), split(self.k_projection(x)),
-                split(self.v_projection(x)))
+        return (split(self.q_projection(x, impl=impl)),
+                split(self.k_projection(x, impl=impl)),
+                split(self.v_projection(x, impl=impl)))
 
     def self_attention(self, q, k, v, *, kv_mask=None, segment_ids=None,
                        impl=None):
@@ -228,15 +230,16 @@ class MultiHeadAttention(torch.nn.Module):
         keys and values to ``kv_cache`` in place and returns
         ``(out, kv_cache)``."""
         B, L, E = x.shape
-        q, k, v = self.project_to_query_key_value(x)
+        q, k, v = self.project_to_query_key_value(x, impl)
         if kv_cache is not None:
             kv_cache.append(k, v)
             out = self._cached_attention(q, kv_cache, impl)
             out = out.transpose(1, 2).reshape(B, L, E)
-            return self.out_projection(out), kv_cache
+            return self.out_projection(out, impl=impl), kv_cache
         out = self.self_attention(q, k, v, kv_mask=kv_mask,
                                   segment_ids=segment_ids, impl=impl)
-        return self.out_projection(out.transpose(1, 2).reshape(B, L, E))
+        return self.out_projection(out.transpose(1, 2).reshape(B, L, E),
+                                   impl=impl)
 
 
 class FeedForward(torch.nn.Module):
@@ -247,10 +250,11 @@ class FeedForward(torch.nn.Module):
         self.linear_out = Linear(cfg.ff_middle_dim, cfg.n_embd, **kw)
         self.dropout = Dropout(cfg.p_dropout)
 
-    def forward(self, x, *, training: bool = False, generator=None):
-        h = F.gelu(self.linear_in(x))
+    def forward(self, x, *, training: bool = False, generator=None,
+                impl=None):
+        h = F.gelu(self.linear_in(x, impl=impl))
         return self.linear_out(self.dropout(h, training=training,
-                                            generator=generator))
+                                            generator=generator), impl=impl)
 
 
 class TransformerLayer(torch.nn.Module):
@@ -277,7 +281,7 @@ class TransformerLayer(torch.nn.Module):
                                       segment_ids=segment_ids, impl=impl)
         out = x + attn_out
         result = out + self.ff(self.ln_2(out, impl=impl), training=training,
-                               generator=generator)
+                               generator=generator, impl=impl)
         return (result, kv_cache) if kv_cache is not None else result
 
 
@@ -311,7 +315,7 @@ class DecoderLM(torch.nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.lm_head.weight.device
+        return self.token_embeddings.weight.device   # lm_head may be quantized
 
     def forward(self, idx, *, kv_caches=None, kv_mask=None, positions=None,
                 segment_ids=None, training: bool = False, generator=None,
@@ -346,5 +350,5 @@ class DecoderLM(torch.nn.Module):
             else:
                 x = layer(x, kv_mask=kv_mask, segment_ids=segment_ids,
                           impl=impl, training=training, generator=generator)
-        logits = self.lm_head(self.ln(x, impl=impl))
+        logits = self.lm_head(self.ln(x, impl=impl), impl=impl)
         return logits if kv_caches is None else (logits, new_caches)
