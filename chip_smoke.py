@@ -43,7 +43,24 @@ ported paths:
   number of times a step, and the check that a step from a host batch
   makes the host wait nowhere; and one fp32 step with the kernels against
   one with the plain versions (loss, gradients, updated parameters) at the
-  production flash config and at the reference fused config.
+  production flash config and at the reference fused config;
+* long-context training: the two-pass backward's dK/dV and dQ kernels
+  against their plain halves (fp32 and bf16, causal or not, GQA, Lq != Lk
+  with empty rows, ragged L, d 32/64/128; each limit checked against a
+  dropped tile; two calls the same bits); at mode (f)'s attention shape,
+  B1 H8 L16384 d64 bf16, the forward kernel and both passes against their
+  plain versions and the two passes against the fused kernel; their times
+  beside the fused kernel's at B1 H8 L16384 bf16, L8192 fp32 and B4 H8
+  L2048 bf16; ``train_epoch`` in mode (f): the production widths at
+  L=16384 with remat, the chunked-vocab loss and bf16 mixed precision (8
+  forward, 4 dK/dV and 4 dQ launches a step, the GEMMs' time by operand
+  type); peak memory a step with remat and the chunked loss on and off,
+  and from the same runs the check that remat on and off give the same
+  bits with dropout from one CUDA generator; and the fp32 kernel-vs-plain
+  step at 2 layers and L=8192, where fp32 takes the two passes.
+
+The build phase logs each kernel's registers, stack and spills as ptxas
+reports them.
 
 Each phase prints JSON lines; any failure raises and the script exits
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -53,10 +70,12 @@ JAX nor the JAX package.
 
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -72,9 +91,13 @@ from tpu_flash_torch.inference import DecodeEngine, KVCache, SamplingConfig
 from tpu_flash_torch.inference.engine import Request
 from tpu_flash_torch.inference.sampler import generate, prefill_prompt
 from tpu_flash_torch.kernels import common
+from tpu_flash_torch.kernels.backward_form import two_pass
 from tpu_flash_torch.kernels.decode import flash_decode_attention
-from tpu_flash_torch.kernels.flash_attention import (flash_attention_backward,
-                                                     flash_attention_forward)
+from tpu_flash_torch.kernels import flash_attention as fa
+from tpu_flash_torch.kernels.flash_attention import (
+    flash_attention_backward, flash_attention_backward_dkv_plain,
+    flash_attention_backward_dq_plain, flash_attention_backward_fused,
+    flash_attention_backward_two_pass, flash_attention_forward)
 from tpu_flash_torch.kernels import quant
 from tpu_flash_torch.kernels.layernorm import (layernorm_backward,
                                                layernorm_forward)
@@ -93,11 +116,17 @@ FP32_FLOPS = 67e12             # H100 SXM data sheet, CUDA cores
 BF16_FLOPS = 989e12            # H100 SXM data sheet, dense tensor cores
 L2_BYTES = 50e6                # H100 L2 cache
 ATTENTION = ("flash_attention_fwd", "flash_attention_bwd")
+# The two-pass backward: one source, two kernels with their own counts.
+TWO_PASS_SOURCE = "flash_attention_bwd_two_pass"
+TWO_PASS = ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")
 FUSED = ("layernorm_fwd", "layernorm_bwd", "attn_softmax_fwd",
          "attn_softmax_bwd")
-TRAINING_KERNELS = ATTENTION + FUSED
+TRAINING_KERNELS = ATTENTION + TWO_PASS + FUSED
 QUANT_SOURCES = ("int8_matmul", "int4_matmul")
+# Launch-count (and profiler) names, and the sources built from csrc/.
 KERNELS = ("flash_decode",) + TRAINING_KERNELS + QUANT_SOURCES
+SOURCES = (("flash_decode",) + ATTENTION + (TWO_PASS_SOURCE,) + FUSED
+           + QUANT_SOURCES)
 # The quantized matmul kernels by launch count, with (bits, group size) and
 # the TPU kernel each replaces.
 QUANT = {"int8_matmul": (8, None, "quant.py:49"),
@@ -122,6 +151,31 @@ TRAIN_B, TRAIN_L = 4, 2048
 REF = dict(n_vocab=10_000, n_embd=256, n_head=8, n_positions=256, n_layer=4,
            ff_middle_dim=256, attention_kind="fused", use_fused_kernel=True)
 REF_B, REF_L = 32, 256
+# Long-context training: the production widths at full depth, one sequence
+# of 16384 tokens (the JAX package's long-context attention shape, B1 H8
+# L16384 d64, bench/exp_bw_residual.py:463), where the backward takes the
+# two-pass form in bf16; remat per layer and the chunked-vocab loss.
+TRAIN_LONG = {**TRAIN, "n_positions": 16384, "remat": True}
+LONG_B, LONG_L, LONG_CHUNKS = 1, 16384, 8
+# The fp32 kernel-vs-plain training step: 2 layers at L = 8192, where fp32
+# takes the two passes (d 64) and the plain attention still fits.
+LONG_E2E_L = 8192
+# Two-pass kernels against their plain halves (name, B, H, Hkv, Lq, Lk, d,
+# causal), each in fp32 and bf16 at ATTN_TOL's limits.
+TWO_PASS_CASES = [
+    ("B2-H8-L2048", 2, 8, 8, 2048, 2048, 64, True),
+    ("gqa-8q2kv", 2, 8, 2, 1024, 1024, 64, True),
+    ("empty-rows-130x70", 2, 8, 8, 130, 70, 64, True),
+    ("lq-lt-lk-70x130", 2, 8, 8, 70, 130, 64, True),
+    ("ragged-L1000", 2, 8, 8, 1000, 1000, 64, True),
+    ("d32", 2, 8, 8, 512, 512, 32, True),
+    ("d128", 2, 8, 8, 512, 512, 128, True),
+    ("full-L1024", 2, 8, 8, 1024, 1024, 64, False),
+]
+# Where the two forms are timed: (dtype, B, H, L); causal, d 64.  The JAX
+# rule picks two passes at the first two, the fused pass at the third.
+TWO_PASS_TIMED = [(torch.bfloat16, 1, 8, 16384), (torch.float32, 1, 8, 8192),
+                  (torch.bfloat16, 4, 8, 2048)]
 # Fused kernels, kernel vs plain on the same inputs: each output x is held
 # to |x - ref| <= arms * rms(ref) + rtol * |ref| (compare()).  fp32: the
 # two differ by summation order, rsqrtf and expf: 1e-5 and 1e-5; dgamma
@@ -229,6 +283,42 @@ def log(obj) -> None:
 def check(cond, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+def kernel_name(mangled: str) -> str:
+    """``name<args>`` of a mangled kernel symbol: the last identifier of
+    its (nested) name and its integer and bool template arguments."""
+    i, ident, rest = (3 if mangled.startswith("_ZN") else 2), mangled, ""
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        ident, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+        rest = mangled[i:]
+    args = re.match(r"I((?:L[ib]\d+E)+)E", rest)
+    return ident + ("<{}>".format(",".join(re.findall(r"L[ib](\d+)E",
+                                                      args[1])))
+                    if args else "")
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers, stack frame and spill bytes of each kernel, from the
+    ``-Xptxas -v`` lines of an nvcc log."""
+    report, entry, props = {}, None, None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            entry = m[1]
+        elif m := re.search(r"Function properties for (\w+)", line):
+            props = m[1]
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                            r"stores, (\d+) bytes spill loads", line):
+            report.setdefault(props, {}).update(
+                stack=int(m[1]), spill_stores=int(m[2]),
+                spill_loads=int(m[3]))
+        elif m := re.search(r"Used (\d+) registers", line):
+            report.setdefault(entry, {})["registers"] = int(m[1])
+    return {kernel_name(n): r for n, r in report.items()
+            if n and "registers" in r}
 
 
 def filled_cache(gen, B, Hkv, S, d, quant, dtype, lengths):
@@ -535,6 +625,242 @@ def attention_times(gen, B=4, H=8, L=2048, d=64) -> dict:
                  "library_fwd_bwd_ms": lib_fwdbwd_ms, **row})
             rows[(name, dtype)] = row
         del q, k, v, do, out, lse, leaves, lib_out
+    return rows
+
+
+def attention_inputs(gen, B, H, Hkv, Lq, Lk, d, dtype, causal):
+    """q, k, v, the forward kernel's out and lse, and dO."""
+    q = torch.randn(B, H, Lq, d, generator=gen, device=DEV).to(dtype)
+    k, v = (torch.randn(B, Hkv, Lk, d, generator=gen, device=DEV).to(dtype)
+            for _ in range(2))
+    do = torch.randn(B, H, Lq, d, generator=gen, device=DEV).to(dtype)
+    out, lse, _ = flash_attention_forward(q, k, v, causal=causal,
+                                          impl="kernel")
+    return q, k, v, out, lse, do
+
+
+def dropped_two_pass_tile(q, k, v, out, lse, do, dq, dk, dv):
+    """The two-pass gradients at L = 2048 causal as a faulty kernel would
+    give them: the pairs of rows 1920-2047 with keys 1024-1087 left out of
+    dQ of those rows and of dK and dV of those keys."""
+    delta = fa._delta(out, do, None)
+    rows = slice(1920, 2048)
+    keep = torch.ones(k.shape[2], dtype=torch.bool, device=k.device)
+    keep[1024:1088] = False
+    part = (q[:, :, rows], do[:, :, rows], lse[:, :, rows],
+            delta[:, :, rows])
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    bad_dq = dq.clone()
+    bad_dq[:, :, rows] = fa._dq_plain(part[0], k[:, :, keep], v[:, :, keep],
+                                      part[1], part[2], part[3], True, scale,
+                                      1920 - 64)
+    ddk, ddv = fa._dkv_plain(part[0], k[:, :, 1024:1088], v[:, :, 1024:1088],
+                             part[1], part[2], part[3], True, scale,
+                             1920 - 1024)
+    bad_dk, bad_dv = dk.clone(), dv.clone()
+    bad_dk[:, :, 1024:1088] = (dk[:, :, 1024:1088].float() - ddk.float()
+                               ).to(dk.dtype)
+    bad_dv[:, :, 1024:1088] = (dv[:, :, 1024:1088].float() - ddv.float()
+                               ).to(dv.dtype)
+    return bad_dq, bad_dk, bad_dv
+
+
+def two_pass_cases(gen) -> dict:
+    """The dK/dV and dQ kernels against their plain halves on the same
+    inputs (fp32 and bf16, ``TWO_PASS_CASES``), a second call checked to
+    give the same bits, and at B2 H8 L2048 causal a check that each limit
+    fails gradients with one (128 rows x 64 keys) tile of pairs dropped;
+    returns the largest error of each kernel."""
+    worst = dict.fromkeys(TWO_PASS, 0.0)
+    failed = []
+    for dtype in (torch.float32, torch.bfloat16):
+        tols = ATTN_TOL[dtype]
+        dname = str(dtype).split(".")[1]
+        for name, B, H, Hkv, Lq, Lk, d, causal in TWO_PASS_CASES:
+            args = attention_inputs(gen, B, H, Hkv, Lq, Lk, d, dtype, causal)
+            before = {n: common.launch_counts[n] for n in TWO_PASS}
+            got = flash_attention_backward_two_pass(*args, causal=causal,
+                                                    impl="kernel")
+            again = flash_attention_backward_two_pass(*args, causal=causal,
+                                                      impl="kernel")
+            launched = {n: common.launch_counts[n] - before[n]
+                        for n in TWO_PASS}
+            dk_ref, dv_ref = flash_attention_backward_dkv_plain(
+                *args, causal=causal)
+            dq_ref = flash_attention_backward_dq_plain(*args, causal=causal)
+            torch.cuda.synchronize()
+            errs, need, ok = {}, {}, launched == dict.fromkeys(TWO_PASS, 2)
+            for n, a, b in zip(("dq", "dk", "dv"), got,
+                               (dq_ref, dk_ref, dv_ref)):
+                errs[n], _, need[n], agree = compare(a, b, tols[n])
+                ok &= agree and a.dtype == b.dtype == dtype
+            same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
+            ok &= same_bits
+            if causal and Lq > Lk:      # rows that see no key: dq exactly 0
+                ok &= int(torch.count_nonzero(got[0][:, :, :Lq - Lk])) == 0
+            log({"phase": "two_pass_vs_plain", "case": name, "dtype": dname,
+                 "shape": f"B{B} H{H} Hkv{Hkv} Lq{Lq} Lk{Lk} d{d}",
+                 "causal": causal, "max_abs_err": errs, "arms_needed": need,
+                 "tol": {n: "atol {} + {} * rms + rtol {}".format(*tols[n])
+                         for n in errs},
+                 "two_calls_same_bits": same_bits, "launches": launched,
+                 "ok": ok})
+            if not ok:
+                failed.append(f"{name} {dname}")
+            worst["flash_attention_bwd_dkv"] = max(
+                worst["flash_attention_bwd_dkv"], errs["dk"], errs["dv"])
+            worst["flash_attention_bwd_dq"] = max(
+                worst["flash_attention_bwd_dq"], errs["dq"])
+            if causal and Lq == Lk == 2048:
+                bad = dropped_two_pass_tile(*args, dq_ref, dk_ref, dv_ref)
+                caught = {n: not compare(x, ref, tols[n])[3] for n, x, ref in
+                          zip(("dq", "dk", "dv"), bad,
+                              (dq_ref, dk_ref, dv_ref))}
+                log({"phase": "two_pass_limit_power", "case": name,
+                     "dtype": dname,
+                     "fault": "pairs of rows 1920-2047 and keys 1024-1087 "
+                              "left out", "caught": caught})
+                if not all(caught.values()):
+                    failed.append(f"{name} {dname}: a limit passes a "
+                                  f"dropped tile")
+            del args, got, again, dq_ref, dk_ref, dv_ref
+    check(not failed, f"the two-pass kernels disagree with their plain "
+                      f"halves: {failed}")
+    return worst
+
+
+def two_pass_long() -> dict:
+    """At mode (f)'s attention shape, B1 H8 L16384 d64 causal bf16: the
+    forward kernel against its plain version, the dK/dV and dQ kernels
+    against their plain halves (each of those builds two [1, 8, 16384,
+    16384] fp32 tensors, ~22 GB at most), all at ATTN_TOL's bf16 limits;
+    the fused kernel as a second witness for the two passes; two calls of
+    the two passes giving the same bits.  The inputs come from a seed of
+    their own, not from the phases before.  Returns the largest error of
+    each output against its plain version (``vs_plain``) and against the
+    fused kernel (``vs_fused``)."""
+    dtype, tols = torch.bfloat16, ATTN_TOL[torch.bfloat16]
+    q, k, v, out, lse, do = args = attention_inputs(
+        torch.Generator(DEV).manual_seed(0), LONG_B, 8, 8, LONG_L, LONG_L,
+        64, dtype, True)
+    plain = dict(zip(("out", "lse"), flash_attention_forward(
+        q, k, v, causal=True, impl="plain")[:2]))
+    torch.cuda.empty_cache()
+    two = flash_attention_backward_two_pass(*args, causal=True,
+                                            impl="kernel")
+    again = flash_attention_backward_two_pass(*args, causal=True,
+                                              impl="kernel")
+    fused = flash_attention_backward_fused(*args, causal=True, impl="kernel")
+    plain["dk"], plain["dv"] = flash_attention_backward_dkv_plain(
+        *args, causal=True)
+    torch.cuda.empty_cache()
+    plain["dq"] = flash_attention_backward_dq_plain(*args, causal=True)
+    torch.cuda.synchronize()
+    got = {"out": out, "lse": lse, **dict(zip(("dq", "dk", "dv"), two))}
+    errs = {"vs_plain": {}, "vs_fused": {}}
+    need, ok = {"vs_plain": {}, "vs_fused": {}}, True
+    for n, a in got.items():
+        errs["vs_plain"][n], _, need["vs_plain"][n], agree = compare(
+            a, plain[n], tols[n])
+        ok &= agree
+    for n, a, b in zip(("dq", "dk", "dv"), two, fused):
+        errs["vs_fused"][n], _, need["vs_fused"][n], agree = compare(
+            a, b, tols[n])
+        ok &= agree
+    same_bits = all(torch.equal(a, b) for a, b in zip(two, again))
+    row = {"phase": "long_attention_vs_plain", "dtype": "bfloat16",
+           "shape": f"B{LONG_B} H8 L{LONG_L} d64 causal",
+           "max_abs_err": errs, "arms_needed": need,
+           "tol": {n: "atol {} + {} * rms + rtol {}".format(*tols[n])
+                   for n in got},
+           "two_calls_same_bits": same_bits, "ok": bool(ok and same_bits)}
+    log(row)
+    check(row["ok"], "at L = 16384 the forward or two-pass kernels disagree "
+                     "with their plain versions or the fused kernel, or two "
+                     "calls differ")
+    del args, q, k, v, out, lse, do, two, again, fused, plain, got
+    torch.cuda.empty_cache()
+    return errs
+
+
+def two_pass_times(gen) -> dict:
+    """At ``TWO_PASS_TIMED`` (causal, d 64): the dK/dV and dQ kernels each,
+    the pair against the fused kernel, the plain halves where the card's
+    free memory holds them, and the backward of
+    ``scaled_dot_product_attention`` (one time for the pair), with each
+    pass's bound.  CUDA events, the median of 5 batches."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for dtype, B, H, L in TWO_PASS_TIMED:
+        d = 64
+        args = attention_inputs(gen, B, H, H, L, L, d, dtype, True)
+        q, k, v, out, lse, do = args
+        scale = 1.0 / math.sqrt(d)
+        kin = (*fa._bwd_inputs(q, k, v, out, lse, do, None), True, scale, 0)
+        pin = (q, k, v, do, lse, kin[5], True, scale, 0)
+        iters = max(1, round(64 * 2048 ** 2 / (B * L * L)))
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        lib_out = sdpa(*leaves, is_causal=True)
+
+        def timed(fn, n=iters):
+            return device_ms(fn, warmup=1, iters=n, reps=5)
+
+        ms = {"flash_attention_bwd_dkv": timed(lambda: fa._launch_dkv(*kin)),
+              "flash_attention_bwd_dq": timed(lambda: fa._launch_dq(*kin))}
+        pair_ms = timed(lambda: flash_attention_backward_two_pass(
+            *args, causal=True, impl="kernel"))
+        fused_ms = timed(lambda: flash_attention_backward_fused(
+            *args, causal=True, impl="kernel"))
+        library_ms = timed(lambda: torch.autograd.grad(
+            lib_out, leaves, do, retain_graph=True))
+        del lib_out, leaves
+        torch.cuda.empty_cache()
+        # the plain halves hold two fp32 [B, H, L, L] tensors and a half
+        plain_bytes = 2.5 * B * H * L * L * 4 + 2 ** 30
+        fits = torch.cuda.mem_get_info()[0] > 1.2 * plain_bytes
+        plain = {"flash_attention_bwd_dkv": fa._dkv_plain,
+                 "flash_attention_bwd_dq": fa._dq_plain}
+        plain_ms = {n: (device_ms(lambda: f(*pin), warmup=1, iters=1, reps=5)
+                        if fits else None) for n, f in plain.items()}
+        torch.cuda.empty_cache()
+        item = q.element_size()
+        act = B * H * L * d * item
+        product = 2 * B * H * causal_visible(L, L) * d   # one causal product
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+        work = {   # (flops, bytes: inputs read once, outputs written once)
+            "flash_attention_bwd_dkv": (4 * product, 6 * act + 2 * B * H * L
+                                        * 4),
+            "flash_attention_bwd_dq": (3 * product, 5 * act + 2 * B * H * L
+                                       * 4)}
+        dname = str(dtype).split(".")[1]
+        shape = f"B{B} H{H} L{L} d{d} causal"
+        for n, (flops, nbytes) in work.items():
+            bound = {"operations": flops / peak * 1e3,
+                     "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+            bound_by = max(bound, key=bound.get)
+            row = {"ms": ms[n], "plain_ms": plain_ms[n],
+                   "library_ms": library_ms, "bound_ms": bound[bound_by],
+                   "bound_by": bound_by, "of_bound": bound[bound_by] / ms[n],
+                   "flops": flops, "bytes": nbytes,
+                   "tflops": flops / (ms[n] * 1e-3) / 1e12}
+            log({"phase": "kernel_time", "kernel": n, "dtype": dname,
+                 "shape": shape,
+                 "library": "scaled_dot_product_attention(is_causal=True) "
+                            "backward, the pair's yardstick", **row})
+            rows[(n, dtype, L)] = row
+        pair_bound = (7 * product) / peak * 1e3
+        log({"phase": "backward_forms", "dtype": dname, "shape": shape,
+             "two_pass_ms": pair_ms, "fused_ms": fused_ms,
+             "two_pass_over_fused": pair_ms / fused_ms,
+             "jax_rule_picks": "two-pass" if two_pass(
+                 L, L, d, item, True) else "fused",
+             "faster_on_this_card": "two-pass" if pair_ms < fused_ms
+             else "fused",
+             "library_ms": library_ms, "two_pass_bound_ms": pair_bound,
+             "fused_bound_ms": 5 * product / peak * 1e3,
+             "card": torch.cuda.get_device_name(0)})
+        del args, kin, pin, q, k, v, out, lse, do
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -917,10 +1243,22 @@ def quant_times(gen) -> dict:
     return rows
 
 
+def gemm_kind(name: str) -> str | None:
+    """The operand type of a cuBLAS / CUTLASS GEMM kernel from its name, or
+    None for any other kernel.  ``"fp32"``: SIMT ``sgemm`` or ``f32f32``
+    xmma; ``"bf16"``: a bf16 GEMM or cuBLAS's ``nvjet`` tensor-core kernels,
+    which with TF32 off run only the bf16 products here."""
+    if "nvjet" in name or ("gemm" in name and "bf16" in name):
+        return "bf16"
+    if "gemm" not in name:
+        return None
+    return "fp32" if "sgemm" in name or "f32f32" in name else "other"
+
+
 def kernel_profile(fn, steps: int = 4) -> dict:
     """Kernels of ``fn()`` under torch.profiler, per call: launches, their
-    summed device time, each of the port's kernels' time, and the eight
-    largest."""
+    summed device time, each of the port's kernels' time, the GEMMs' time
+    by operand type, and the eight largest."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -937,9 +1275,18 @@ def kernel_profile(fn, steps: int = 4) -> dict:
     ours = {n: sum(e.self_device_time_total for e in kernels
                    if f"{n}_kernel" in e.key) / steps / 1e3
             for n in KERNELS + ("int4_matmul_group", "quant_matmul_reduce")}
+    gemms = collections.defaultdict(float)
+    for e in kernels:
+        kind = gemm_kind(e.key)
+        if kind:
+            gemms[kind] += e.self_device_time_total / steps / 1e3
     return {"kernels_per_step": sum(e.count for e in kernels) / steps,
             "kernel_ms_per_step": total_us / steps / 1e3,
             "port_kernel_ms_per_step": ours,
+            "gemm_ms_per_step": dict(gemms),
+            "other_kernel_ms_per_step": (total_us / steps / 1e3
+                                         - sum(ours.values())
+                                         - sum(gemms.values())),
             "top": [{"name": e.key[:80], "count_per_step": e.count / steps,
                      "ms_per_step": e.self_device_time_total / steps / 1e3,
                      "share": e.self_device_time_total / total_us
@@ -974,7 +1321,7 @@ def syncs_in_a_step(step, state, batch, gen):
 
 
 def training(mode: str, config: dict, shape, dtype, p_dropout: float, opt,
-             per_step: dict) -> dict:
+             per_step: dict, chunked_vocab: int = 0) -> dict:
     """``train_epoch`` at the full width and depth of ``config`` on one
     repeated batch of ``shape``: 3 warm-up steps, then 11 (the first of
     them opens the loop's first timing window, which it leaves out).
@@ -986,7 +1333,7 @@ def training(mode: str, config: dict, shape, dtype, p_dropout: float, opt,
     state = opt.init(dict(model.named_parameters()))
     batch = train_batch(0, shape, cfg.n_vocab)
     gen = torch.Generator(DEV).manual_seed(1)
-    step = make_train_step(model, opt)
+    step = make_train_step(model, opt, chunked_vocab=chunked_vocab)
 
     def epoch(state, n, log_every):
         return train_epoch(model, opt, state, list(range(n)),
@@ -1018,7 +1365,8 @@ def training(mode: str, config: dict, shape, dtype, p_dropout: float, opt,
     log({"phase": "training", "mode": mode,
          "config": {**config, "p_dropout": p_dropout,
                     "dtype": str(dtype).split(".")[1],
-                    "batch": shape[0], "seq_len": shape[1]},
+                    "batch": shape[0], "seq_len": shape[1],
+                    "chunked_vocab": chunked_vocab},
          "params": num_parameters(model), "steps_timed": len(step_times),
          "step_ms": step_ms, "step_ms_each": [t * 1e3 for t in step_times],
          "device_ms_per_step": device_step_ms,
@@ -1043,11 +1391,13 @@ def training(mode: str, config: dict, shape, dtype, p_dropout: float, opt,
     return launches
 
 
-def training_end_to_end(name: str, config: dict, shape) -> dict:
+def training_end_to_end(name: str, config: dict, shape, chunked_vocab=0,
+                        launches=None) -> dict:
     """One Adam step of the fp32 model of ``config`` (TF32 off) through the
     kernels and one through their plain versions, from the same
     parameters: loss, every gradient, every updated parameter, and the
-    kernels launched by the first step only."""
+    kernels launched by the first step only (exactly ``launches`` where
+    given)."""
     cfg = DecoderConfig(**config, p_dropout=0.0, dtype=torch.float32)
     batch = place_batch(train_batch(1, shape, cfg.n_vocab), DEV)
     lr = 1e-3
@@ -1059,7 +1409,8 @@ def training_end_to_end(name: str, config: dict, shape) -> dict:
         state = opt.init(dict(model.named_parameters()))
         torch.cuda.synchronize()
         common.launch_counts.clear()
-        _, loss = make_train_step(model, opt, impl=impl)(state, batch)
+        _, loss = make_train_step(model, opt, chunked_vocab=chunked_vocab,
+                                  impl=impl)(state, batch)
         launched[impl] = {n: c for n, c in common.launch_counts.items() if c}
         runs[impl] = (float(loss), {n: (p.detach(), p.grad)
                                     for n, p in model.named_parameters()})
@@ -1091,7 +1442,10 @@ def training_end_to_end(name: str, config: dict, shape) -> dict:
         flips += int((diff[near0] > 1e-6).sum())
     worst = sorted(grad_errs, reverse=True)[:3]
     ok &= bool(launched["kernel"]) and not launched["plain"]
+    if launches is not None:
+        ok &= launched["kernel"] == launches
     row = {"phase": "training_end_to_end", "config": name,
+           "chunked_vocab": chunked_vocab,
            "launches": launched, "loss_kernel": loss_k,
            "loss_plain": loss_p, "loss_tol": "rtol 1e-5",
            "grad_worst": [{"param": n, "max_abs_err": e, "tol": t}
@@ -1104,6 +1458,72 @@ def training_end_to_end(name: str, config: dict, shape) -> dict:
     check(ok, f"{name}: the training step through the kernels disagrees "
               f"with the plain versions")
     return row
+
+
+def long_peak_memory() -> list[dict]:
+    """``torch.cuda.max_memory_allocated`` over one training step (after a
+    warm-up step) at the long config, bf16 mixed-precision Adam, dropout
+    0.1, for each of remat on and off and chunked_vocab 8 and 0; with the
+    memory held before the step (parameters, optimizer state, batch).
+
+    The same runs check remat on the card: from one seed and one CUDA
+    generator, remat on and off give the same bits in both losses, every
+    gradient and parameter after the second step, and the generator's
+    final state (every kernel of the step is deterministic: the backward
+    takes the two passes, which use no atomics)."""
+    batch = place_batch(train_batch(0, (LONG_B, LONG_L), TRAIN["n_vocab"]),
+                        DEV)
+    rows, after = [], {}
+    for remat in (True, False):
+        for chunks in (LONG_CHUNKS, 0):
+            cfg = DecoderConfig(**{**TRAIN_LONG, "remat": remat},
+                                p_dropout=0.1, dtype=torch.bfloat16)
+            model = DecoderLM(cfg, device=DEV)
+            init_params(model, torch.Generator(DEV).manual_seed(0))
+            opt = mixed_precision(adam(lr=1e-3))
+            state = opt.init(dict(model.named_parameters()))
+            step = make_train_step(model, opt, chunked_vocab=chunks)
+            gen = torch.Generator(DEV).manual_seed(1)
+            state, first = step(state, batch, gen)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            state, loss = step(state, batch, gen)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            row = {"remat": remat, "chunked_vocab": chunks,
+                   "peak_GiB": peak / 2**30, "held_before_GiB": before / 2**30,
+                   "step_peak_over_held_GiB": (peak - before) / 2**30,
+                   "loss": float(loss)}
+            log({"phase": "long_peak_memory",
+                 "shape": f"B{LONG_B} L{LONG_L}", **row,
+                 "card": torch.cuda.get_device_name(0)})
+            check(math.isfinite(row["loss"]), "long config: non-finite loss")
+            rows.append(row)
+            # kept on the host, out of the next runs' peak memory
+            after[remat, chunks] = (
+                torch.stack([first, loss]).cpu(),
+                {n: (p.detach().cpu(), p.grad.cpu())
+                 for n, p in model.named_parameters()},
+                gen.get_state())
+            del model, state, step
+            torch.cuda.empty_cache()
+    for chunks in (LONG_CHUNKS, 0):
+        (loss_r, tensors_r, gen_r), (loss_n, tensors_n, gen_n) = (
+            after[True, chunks], after[False, chunks])
+        differ = [f"{n}.{part}" for n, pair in tensors_n.items()
+                  for part, a, b in zip(("data", "grad"), pair, tensors_r[n])
+                  if not torch.equal(a, b)]
+        same = {"losses": bool(torch.equal(loss_r, loss_n)),
+                "params_and_grads": not differ,
+                "generator_state": bool(torch.equal(gen_r, gen_n))}
+        log({"phase": "long_remat_equals_no_remat", "chunked_vocab": chunks,
+             "shape": f"B{LONG_B} L{LONG_L}", "p_dropout": 0.1,
+             "steps": 2, "same_bits": same, "differ": differ[:8]})
+        check(all(same.values()), f"chunked_vocab {chunks}: remat on and "
+                                  f"off differ: {same} {differ[:8]}")
+    del after
+    return rows
 
 
 SERVING_MODES = (("int8", None, "run_many(8)"), ("none", None, "run()"),
@@ -1342,10 +1762,11 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    built = common.build(KERNELS)
+    built = common.build(SOURCES)
     log({"phase": "build", **{
-        n: {"seconds": r.seconds, "log": r.log[-2000:],
-            "spill_lines": [ln for ln in r.log.splitlines() if "spill" in ln]}
+        n: {"seconds": r.seconds, "ptxas": ptxas_report(r.log),
+            "warnings": [ln for ln in r.log.splitlines()
+                         if "warning" in ln][:20]}
         for n, r in built.items()}})
 
     gen = torch.Generator(DEV).manual_seed(0)
@@ -1354,6 +1775,9 @@ def main() -> int:
 
     attn_worst = attention_cases(gen)
     attn_rows = attention_times(gen)
+    two_worst = two_pass_cases(gen)
+    long_errs = two_pass_long()
+    two_rows = two_pass_times(gen)
     fused_worst = fused_cases(gen)
     fused_rows = fused_times(gen)
     fused_dispatch_times(gen)
@@ -1395,11 +1819,23 @@ def main() -> int:
         training("(e) prod-flash-fused-ln-bf16-mixed-precision-adam-dropout",
                  {**TRAIN, "use_fused_kernel": True}, prod, torch.bfloat16,
                  0.1, mixed_precision(adam(lr=1e-3)), {**flash, **fused_ln}),
+        # remat runs each layer's forward twice; bf16 at L = 16384 takes
+        # the two-pass backward
+        training("(f) long-flash-two-pass-bf16-remat-chunked", TRAIN_LONG,
+                 (LONG_B, LONG_L), torch.bfloat16, 0.1,
+                 mixed_precision(adam(lr=1e-3)),
+                 {"flash_attention_fwd": 8, **dict.fromkeys(TWO_PASS, 4)},
+                 chunked_vocab=LONG_CHUNKS),
     ]
     for n in TRAINING_KERNELS:
         launches[n] = sum(t[n] for t in train_launches)
+    long_peak_memory()
     training_end_to_end("prod-flash", TRAIN, prod)
     training_end_to_end("ref-fused-fused-ln", REF, ref)
+    training_end_to_end(
+        "long-two-pass", {**TRAIN_LONG, "n_layer": 2}, (LONG_B, LONG_E2E_L),
+        chunked_vocab=LONG_CHUNKS,
+        launches={"flash_attention_fwd": 4, **dict.fromkeys(TWO_PASS, 2)})
 
     main_row = next(r for r in rows if r["cache"] == "int8"
                     and r["length"] == 1024)
@@ -1414,6 +1850,7 @@ def main() -> int:
         "shape": "B8 Hq16 Hkv16 Lq1 d64 S8192 int8 cache, lengths 1024"}]
     replaces = {"flash_attention_fwd": "flash_attention.py:498",
                 "flash_attention_bwd": "flash_attention.py:1228"}
+    long_plain, long_fused = long_errs["vs_plain"], long_errs["vs_fused"]
     for n in ATTENTION:
         r = attn_rows[(n, torch.bfloat16)]
         entries.append({
@@ -1425,6 +1862,29 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": "B4 H8 L2048 d64 causal bf16"})
+    # mode (f) runs the forward kernel at L = 16384 too
+    next(e for e in entries if e["name"] == "flash_attention_fwd")[
+        "max_abs_err_at_mode_f_shape"] = max(long_plain["out"],
+                                             long_plain["lse"])
+    replaces.update({"flash_attention_bwd_dkv": "flash_attention.py:1134",
+                     "flash_attention_bwd_dq": "flash_attention.py:1159"})
+    for n in TWO_PASS:
+        r = two_rows[(n, torch.bfloat16, LONG_L)]
+        outs = ("dk", "dv") if n.endswith("dkv") else ("dq",)
+        entries.append({
+            "name": n, "route": "cuda",
+            "source": f"tpu_flash_torch/kernels/csrc/{TWO_PASS_SOURCE}.cu",
+            "replaces": f"tpu_flash/kernels/{replaces[n]}",
+            "launches": launches[n],
+            # against the plain halves at the shape of ms
+            "max_abs_err": max(long_plain[x] for x in outs),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "shape": f"B{LONG_B} H8 L{LONG_L} d64 causal bf16",
+            "max_abs_err_over_two_pass_cases": two_worst[n],
+            "max_abs_err_vs_fused_at_this_shape": max(
+                long_fused[x] for x in outs)})
     replaces.update({"layernorm_fwd": "layernorm.py:42",
                      "layernorm_bwd": "layernorm.py:102",
                      "attn_softmax_fwd": "softmax.py:48",

@@ -1,7 +1,8 @@
 """The CUDA kernels (flash decode, flash-attention forward and backward,
 fused LayerNorm and masked softmax forward and backward, the int8 and
 packed-int4 weight-only matmuls) against their plain PyTorch versions, on
-the card.  Every test here needs a
+the card, and ``remat`` with dropout from a CUDA generator against no
+remat.  Every test here needs a
 CUDA device and skips without one; the file imports neither JAX nor the JAX
 package, so on a machine with a card and no JAX it runs alone:
 
@@ -266,6 +267,166 @@ def test_flash_attention_kernels_reject_what_they_do_not_take(cuda_device):
         flash_attention_forward(*(x[..., :32].half() for _ in range(3)))
     with pytest.raises(NotImplementedError, match="A5"):
         flash_attention_forward(x, x, x, window=4)
+
+
+# --- the two-pass backward (dK/dV pass, dQ pass) ----------------------------
+#
+# Each pass against its plain half on the same inputs, at the limits above.
+# The two passes use no atomics: two calls give the same bits.
+
+
+def two_pass_case(dev, seed, B, H, Hkv, Lq, Lk, d, dtype, causal):
+    from tpu_flash_torch.kernels.flash_attention import (
+        flash_attention_forward)
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    q, k, v, do = attention_case(gen, dev, B, H, Hkv, Lq, Lk, d, dtype)
+    out, lse, _ = flash_attention_forward(q, k, v, causal=causal)
+    return q, k, v, out, lse, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("B,H,Hkv,Lq,Lk,d", [
+    (2, 4, 4, 300, 300, 64), (1, 8, 2, 256, 256, 128), (2, 2, 1, 130, 70, 16),
+    (1, 4, 4, 70, 130, 32), (1, 2, 2, 1000, 1000, 64)])
+def test_two_pass_kernels_match_plain(cuda_device, dtype, causal, B, H, Hkv,
+                                      Lq, Lk, d):
+    from tpu_flash_torch.kernels.flash_attention import (
+        flash_attention_backward_dkv_plain, flash_attention_backward_dq_plain,
+        flash_attention_backward_two_pass)
+
+    q, k, v, out, lse, do = two_pass_case(cuda_device, 6, B, H, Hkv, Lq, Lk,
+                                          d, dtype, causal)
+    before = dict(common.launch_counts)
+    dq, dk, dv = flash_attention_backward_two_pass(q, k, v, out, lse, do,
+                                                   causal=causal)
+    want_dk, want_dv = flash_attention_backward_dkv_plain(
+        q, k, v, out, lse, do, causal=causal)
+    want_dq = flash_attention_backward_dq_plain(q, k, v, out, lse, do,
+                                                causal=causal)
+    torch.cuda.synchronize()
+    for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+        assert common.launch_counts[name] == before.get(name, 0) + 1
+    assert common.launch_counts["flash_attention_bwd"] == before.get(
+        "flash_attention_bwd", 0)
+    for a, b in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert a.dtype == b.dtype == dtype and a.shape == b.shape
+        if dtype == torch.bfloat16:
+            assert_close_bf16(a, b)
+        else:
+            torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)
+    if causal and Lq > Lk:                       # rows before the first key
+        assert torch.count_nonzero(dq[:, :, :Lq - Lk]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_two_pass_is_deterministic_and_matches_the_fused_pass(cuda_device,
+                                                             dtype):
+    """Two calls give the same bits; the fused kernel (dQ in atomic order)
+    agrees within the kernel-vs-plain limits."""
+    from tpu_flash_torch.kernels.flash_attention import (
+        flash_attention_backward_fused, flash_attention_backward_two_pass)
+
+    args = two_pass_case(cuda_device, 7, 2, 8, 2, 2048, 2048, 64, dtype, True)
+    first = flash_attention_backward_two_pass(*args, causal=True)
+    second = flash_attention_backward_two_pass(*args, causal=True)
+    fused = flash_attention_backward_fused(*args, causal=True)
+    torch.cuda.synchronize()
+    for a, b, c in zip(first, second, fused):
+        assert torch.equal(a, b)
+        if dtype == torch.bfloat16:
+            assert_close_bf16(a, c)
+        else:
+            torch.testing.assert_close(a, c, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_backward_takes_the_jax_form_for_the_shape(cuda_device):
+    """bf16 causal at L = 16384 takes the two passes, at 2048 the fused
+    pass, as the JAX package's selector does."""
+    from tpu_flash_torch.kernels.flash_attention import (
+        flash_attention_backward)
+
+    for L, two in ((2048, False), (16384, True)):
+        args = two_pass_case(cuda_device, 8, 1, 1, 1, L, L, 64,
+                             torch.bfloat16, True)
+        before = dict(common.launch_counts)
+        grads = flash_attention_backward(*args, causal=True)
+        torch.cuda.synchronize()
+        launched = {n: common.launch_counts[n] - before.get(n, 0) for n in
+                    ("flash_attention_bwd", "flash_attention_bwd_dkv",
+                     "flash_attention_bwd_dq")}
+        assert launched == {"flash_attention_bwd": int(not two),
+                            "flash_attention_bwd_dkv": int(two),
+                            "flash_attention_bwd_dq": int(two)}
+        assert all(torch.isfinite(g).all() for g in grads)
+
+
+def naive_remat(layer, x, *, generator, **kw):
+    """``checkpoint`` around the layer with the caller's generator: the
+    recompute draws other dropout masks than the forward did."""
+    return torch.utils.checkpoint.checkpoint(
+        lambda t: layer(t, generator=generator, **kw), x,
+        use_reentrant=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrap", ["restored", "naive"])
+def test_remat_equals_no_remat_bit_for_bit_on_the_card(cuda_device,
+                                                       monkeypatch, wrap):
+    """fp32 at d 128 and L 4096, where the backward takes the two passes
+    (no atomics: every kernel of the step gives the same bits each call),
+    dropout 0.1 from one seeded CUDA generator, the chunked loss: the loss,
+    every gradient and the generator's final state are the same bits with
+    and without remat.  A naive wrap gives other gradients."""
+    from tpu_flash_torch.apps import machine_translation as tmt
+    from tpu_flash_torch.kernels.backward_form import two_pass
+    from tpu_flash_torch.nn import transformer as ttr
+
+    L, V = 4096, 500
+    assert two_pass(L, L, 128, 4, True)
+    if wrap == "naive":
+        monkeypatch.setattr(ttr, "_remat_layer", naive_remat)
+    rng = np.random.default_rng(3)
+    batch = tmt.place_batch(
+        {"input_ids": rng.integers(0, V, (1, L)),
+         "labels": rng.integers(0, V, (1, L)),
+         "label_token_weights": (rng.random((1, L)) > 0.3
+                                 ).astype(np.float32)}, cuda_device)
+    runs = {}
+    for remat in (False, True):
+        cfg = tnn.DecoderConfig(n_vocab=V, n_embd=256, n_head=2,
+                                n_positions=L, n_layer=2, ff_middle_dim=256,
+                                p_dropout=0.1, attention_kind="flash",
+                                remat=remat)
+        model = tnn.DecoderLM(cfg, device=cuda_device)
+        tnn.init_params(model, torch.Generator(cuda_device).manual_seed(0))
+        gen = torch.Generator(cuda_device).manual_seed(5)
+        before = dict(common.launch_counts)
+        loss = tmt.make_loss_fn(model, chunked_vocab=4)(
+            batch, generator=gen, training=True)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = {n: common.launch_counts[n] - before.get(n, 0) for n in
+                    ("flash_attention_fwd", "flash_attention_bwd",
+                     "flash_attention_bwd_dkv", "flash_attention_bwd_dq")}
+        assert launched == {"flash_attention_fwd": 2 * (1 + remat),
+                            "flash_attention_bwd": 0,
+                            "flash_attention_bwd_dkv": 2,
+                            "flash_attention_bwd_dq": 2}
+        runs[remat] = (loss.detach(), {n: p.grad.clone() for n, p in
+                                       model.named_parameters()},
+                       gen.get_state())
+    (loss0, g0, s0), (loss1, g1, s1) = runs[False], runs[True]
+    assert torch.equal(loss0, loss1)
+    same = all(torch.equal(g0[n], g1[n]) for n in g0)
+    if wrap == "restored":
+        assert same and torch.equal(s0, s1)
+    else:
+        assert not same
 
 
 # --- fused LayerNorm and masked-softmax kernels ----------------------------

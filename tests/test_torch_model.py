@@ -164,7 +164,7 @@ def test_auto_attention_below_the_flash_threshold_is_naive(rng, fp32_pair):
 
 @pytest.mark.parametrize("over", [
     {"positional": "rope"}, {"moe": object()},
-    {"kv_quant": "int8"}, {"attn_dropout": 0.1}, {"remat": True},
+    {"kv_quant": "int8"}, {"attn_dropout": 0.1},
     {"embedding_one_hot": True}, {"sequence_parallel": True},
 ])
 def test_unported_config_raises(over):

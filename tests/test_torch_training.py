@@ -342,5 +342,10 @@ def test_bf16_mixed_precision_step_keeps_dtypes(pair):
 
 
 def test_unported_training_options_raise(pair):
-    with pytest.raises(NotImplementedError, match="A4"):
-        tmt.make_loss_fn(pair[2], chunked_vocab=4)
+    """chunked_vocab is ported; its vocab- and data-parallel forms are not
+    (A8)."""
+    x, w = torch.zeros(4, 8), torch.zeros(10, 8)
+    y = torch.zeros(4, dtype=torch.long)
+    for kw in (dict(axis_name="model"), dict(batch_axis="data")):
+        with pytest.raises(NotImplementedError, match="A8"):
+            F.chunked_softmax_loss(x, w, None, y, **kw)

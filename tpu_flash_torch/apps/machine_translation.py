@@ -10,7 +10,9 @@ the parameters live in the module, the step runs eagerly, and the
 optimizer's new values are copied into the parameters in place.  The CLI
 (``main``), the BPE data pipeline, ``generate_translations`` and BLEU need
 the ``tokenizers`` and ``sacrebleu`` packages and are not ported yet
-(ROADMAP.md, queue A item A4), nor is ``chunked_vocab``.
+(ROADMAP.md, queue A item A4).  ``chunked_vocab`` > 0 fuses lm_head and the
+loss (``functional.chunked_softmax_loss``) on one device; its vocab-parallel
+form is A8.
 """
 
 from __future__ import annotations
@@ -24,26 +26,29 @@ from tpu_flash_torch.nn import functional as F
 from tpu_flash_torch.nn.optim import accumulate_gradients
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, queue A item A4)")
-
-
 def make_loss_fn(model, chunked_vocab: int = 0):
     """``loss_fn(batch, *, generator=None, training=False, impl=None)``:
     masked MLE, ``sum(losses * label_token_weights)`` over every position,
     divided by the number of positions (or by ``batch["loss_norm"]`` for
-    packed batches).  ``impl`` reaches the kernels' wrappers."""
-    if chunked_vocab > 0:
-        raise _not_ported("chunked_vocab (the fused lm_head + loss)")
+    packed batches).  ``chunked_vocab`` > 0 takes the post-LN hidden state
+    (``return_hidden``) through ``F.chunked_softmax_loss`` with lm_head's
+    weight and bias in that many vocab slices: the [B, L, V] logits are
+    never materialized.  ``impl`` reaches the kernels' wrappers."""
 
     def loss_fn(batch, *, generator=None, training: bool = False,
                 impl=None):
-        logits = model(batch["input_ids"],
-                       segment_ids=batch.get("segment_ids"),
-                       positions=batch.get("positions"),
-                       training=training, generator=generator, impl=impl)
-        losses = F.softmax_loss(logits, batch["labels"])
+        out = model(batch["input_ids"],
+                    segment_ids=batch.get("segment_ids"),
+                    positions=batch.get("positions"),
+                    training=training, generator=generator, impl=impl,
+                    return_hidden=chunked_vocab > 0)
+        if chunked_vocab > 0:
+            lm = model.lm_head
+            losses = F.chunked_softmax_loss(out, lm.weight, lm.bias,
+                                            batch["labels"],
+                                            n_chunks=chunked_vocab)
+        else:
+            losses = F.softmax_loss(out, batch["labels"])
         weighted = losses * batch["label_token_weights"]
         if "loss_norm" in batch:
             return weighted.sum() / batch["loss_norm"]
@@ -55,7 +60,8 @@ def make_loss_fn(model, chunked_vocab: int = 0):
 def make_train_step(model, opt, chunked_vocab: int = 0,
                     accum_steps: int = 1, impl=None):
     """``train_step(opt_state, batch, generator=None) -> (opt_state,
-    loss)``: forward and backward with training dropout, then ``opt``'s
+    loss)``: forward and backward with training dropout (``chunked_vocab``
+    as in ``make_loss_fn``), then ``opt``'s
     update copied into the parameters.  The loss stays a device tensor (no
     host sync).  Dropout draws from ``generator``, or, where the caller
     gives none, from the step's own generator on the model's device, seeded

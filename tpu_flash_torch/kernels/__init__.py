@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``), each beside its plain
 PyTorch version.  Ported so far: flash-decode attention, the
-flash-attention forward and backward, the fused LayerNorm forward and
+flash-attention forward and backward (fused single pass, and the two-pass
+dK/dV and dQ kernels), the fused LayerNorm forward and
 backward, the fused masked attention-softmax forward and backward, and the
 weight-only int8 and packed-int4 matmuls."""
 
@@ -11,7 +12,11 @@ from tpu_flash_torch.kernels.decode import (  # noqa: F401
 )
 from tpu_flash_torch.kernels.flash_attention import (  # noqa: F401
     flash_attention_backward,
+    flash_attention_backward_dkv_plain,
+    flash_attention_backward_dq_plain,
+    flash_attention_backward_fused,
     flash_attention_backward_plain,
+    flash_attention_backward_two_pass,
     flash_attention_forward,
     flash_attention_forward_plain,
 )

@@ -34,7 +34,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "--warn-on-spills",
+    "-Xptxas", "--warn-on-spills", "-Xptxas", "-v",
 )
 
 # Launches per kernel name.  A wrapper adds one where it launches its kernel
@@ -94,7 +94,8 @@ def find_nvcc() -> str:
 class BuildResult:
     path: Path
     seconds: float        # 0.0 when an earlier build was reused
-    log: str              # nvcc's stderr (ptxas spill warnings)
+    log: str              # nvcc's output: ptxas's report of each kernel
+                          # (registers, stack, spills) and its warnings
 
 
 def _lib_path(name: str) -> Path:

@@ -9,16 +9,30 @@ units, ``m`` the row max of the scaled scores.  The causal diagonal sits at
 the bottom right (``q_offset = Lk - Lq`` unless given).  A causal row that
 sees no key gives out 0, lse -inf and zero gradients.
 
-On CUDA tensors the forward launches ``csrc/flash_attention_fwd.cu`` and the
-backward ``csrc/flash_attention_bwd.cu``; on CPU tensors they run
-``flash_attention_forward_plain`` / ``flash_attention_backward_plain``, the
-same arithmetic in plain PyTorch (``impl="kernel"|"plain"`` forces one).
-The backward is the TPU's fused single pass in KV-outer order; dQ is added
-with fp32 atomics into a zeroed workspace (the TPU's race-free full-sequence
-scratch does not fit in a block's shared memory), and dK/dV are summed over
-each GQA group inside the kernel, in fp32, before the one cast to the input
-dtype.  ``D = rowsum(dO * O) - dlse`` is a torch op outside the kernel, as it
-is plain XLA outside Pallas in the JAX package.
+On CUDA tensors the forward launches ``csrc/flash_attention_fwd.cu``; on
+CPU tensors it runs ``flash_attention_forward_plain``, the same arithmetic in
+plain PyTorch (``impl="kernel"|"plain"`` forces one).
+
+The backward takes the form the JAX package takes for the same shapes
+(``backward_form.two_pass``, a copy of its rule; the rule models a TPU's
+VMEM and grid steps and is not retuned for the H100):
+  * the fused single pass (``flash_attention_backward_fused``,
+    ``csrc/flash_attention_bwd.cu``) below the rule's lengths: KV-outer, dK
+    and dV summed over each GQA group in the block, dQ added with fp32
+    atomics into a zeroed workspace (the TPU's race-free full-sequence
+    scratch does not fit in a block's shared memory), so its dQ sums run in
+    a different order from call to call;
+  * the two passes (``flash_attention_backward_two_pass``,
+    ``csrc/flash_attention_bwd_two_pass.cu``) from there on (bf16 causal
+    from L = 16384, fp32 from 8192 at d = 64): a dK/dV pass (the fused body
+    without dQ) and a dQ pass (one block per query tile, the loop over KV
+    tiles ending at the causal limit).  No atomics: each output is written
+    once, and two calls give the same bits.
+The plain versions are ``flash_attention_backward_plain`` (fused) and its
+halves ``flash_attention_backward_dkv_plain`` / ``_dq_plain``, which
+recompute P and dS the same way.  ``D = rowsum(dO * O) - dlse`` is a torch
+op outside the kernels, as it is plain XLA outside Pallas in the JAX
+package.
 
 Numerics, in both versions: base-2 softmax with ``scale * log2(e)`` folded
 into q; fp32 products are exact (never TF32); with bf16 inputs the scaled q,
@@ -36,6 +50,7 @@ import math
 
 import torch
 
+from tpu_flash_torch.kernels.backward_form import two_pass
 from tpu_flash_torch.kernels.common import (
     call_on_stream,
     check_cuda,
@@ -47,6 +62,10 @@ from tpu_flash_torch.kernels.common import (
 
 KERNEL_FWD = "flash_attention_fwd"
 KERNEL_BWD = "flash_attention_bwd"
+# The two-pass backward: one source, two kernels counted apart.
+SOURCE_TWO_PASS = "flash_attention_bwd_two_pass"
+KERNEL_DKV = "flash_attention_bwd_dkv"
+KERNEL_DQ = "flash_attention_bwd_dq"
 HEAD_DIMS = (16, 32, 64, 128)
 LOG2E = 1.4426950408889634
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -99,7 +118,7 @@ def _scores2(q, k, scale, causal, q_offset):
         Lq, Lk = q.shape[2], k.shape[2]
         rows = torch.arange(Lq, device=q.device)[:, None] + q_offset
         cols = torch.arange(Lk, device=q.device)[None, :]
-        s2 = s2.masked_fill(cols > rows, -math.inf)
+        s2.masked_fill_(cols > rows, -math.inf)
     return s2
 
 
@@ -126,25 +145,80 @@ def flash_attention_forward_plain(q, k, v, *, causal=False, scale=None,
     return out.to(q.dtype), lse, (m_nat if with_m else None)
 
 
+def _p_ds(q, k, v, do, lse, delta, causal, scale, q_offset):
+    """The recompute every backward shares: ``P = exp2(S2 - lse * log2e)``
+    and ``dS = P * (dO V^T - D)``, fp32 ``[B, H, Lq, Lk]`` each, built in
+    place (two such tensors live at a time).  Rows with ``lse = -inf`` get
+    P = 0, not ``exp(+inf)``."""
+    s2 = _scores2(q, k, scale, causal, q_offset)
+    lse2 = torch.where(torch.isneginf(lse), math.inf, lse.float() * LOG2E)
+    p = s2.sub_(lse2[..., None]).exp2_()
+    g = q.shape[1] // k.shape[1]
+    dp = do.float() @ _expand(v, g).float().transpose(-1, -2)
+    ds = dp.sub_(delta[..., None]).mul_(p)
+    return p, ds
+
+
+def _as_input_dtype(x, dtype):
+    """``x`` rounded to ``dtype`` and widened back to fp32, in place (a
+    no-op for fp32): the bf16 operands of the TPU's backward dots."""
+    return x if dtype == torch.float32 else x.copy_(x.to(dtype))
+
+
+def _dkv_plain(q, k, v, do, lse, delta, causal, scale, q_offset):
+    B, H, Hkv, Lq, Lk, d = _shapes(q, k, v)
+    p, ds = _p_ds(q, k, v, do, lse, delta, causal, scale, q_offset)
+    dv = _as_input_dtype(p, q.dtype).transpose(-1, -2) @ do.float()
+    del p
+    dk = _as_input_dtype(ds, q.dtype).transpose(-1, -2) @ q.float()
+    g = H // Hkv
+    dk, dv = (x.reshape(B, Hkv, g, Lk, d).sum(2) for x in (dk, dv))
+    return (scale * dk).to(k.dtype), dv.to(v.dtype)
+
+
+def _dq_plain(q, k, v, do, lse, delta, causal, scale, q_offset):
+    p, ds = _p_ds(q, k, v, do, lse, delta, causal, scale, q_offset)
+    del p
+    g = q.shape[1] // k.shape[1]
+    dq = _as_input_dtype(ds, q.dtype) @ _expand(k, g).float()
+    return (scale * dq).to(q.dtype)
+
+
 def flash_attention_backward_plain(q, k, v, o, lse, do, dlse=None, *,
                                    causal=False, scale=None, q_offset=None):
-    """The backward kernel's function in plain PyTorch: returns
-    ``(dq, dk, dv)``.  Rows with ``lse = -inf`` get P = 0, not
-    ``exp(+inf)``."""
+    """The fused backward kernel's function in plain PyTorch: returns
+    ``(dq, dk, dv)`` from one recompute of P and dS."""
     B, H, Hkv, Lq, Lk, d = _shapes(q, k, v)
     scale, q_offset = _defaults(d, Lq, Lk, scale, q_offset)
     g = H // Hkv
-    s2 = _scores2(q, k, scale, causal, q_offset)
-    lse2 = torch.where(torch.isneginf(lse), math.inf, lse.float() * LOG2E)
-    p = torch.exp2(s2 - lse2[..., None])
-    dp = do.float() @ _expand(v, g).float().transpose(-1, -2)
-    ds = p * (dp - _delta(o, do, dlse)[..., None])
-    pb, dsb = p.to(q.dtype).float(), ds.to(q.dtype).float()
+    p, ds = _p_ds(q, k, v, do, lse, _delta(o, do, dlse), causal, scale,
+                  q_offset)
+    pb, dsb = _as_input_dtype(p, q.dtype), _as_input_dtype(ds, q.dtype)
     dq = scale * (dsb @ _expand(k, g).float())
     dk = dsb.transpose(-1, -2) @ q.float()
     dv = pb.transpose(-1, -2) @ do.float()
     dk, dv = (x.reshape(B, Hkv, g, Lk, d).sum(2) for x in (dk, dv))
     return dq.to(q.dtype), (scale * dk).to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_backward_dkv_plain(q, k, v, o, lse, do, dlse=None, *,
+                                       causal=False, scale=None,
+                                       q_offset=None):
+    """The dK/dV pass in plain PyTorch: returns ``(dk, dv)``."""
+    _, _, _, Lq, Lk, d = _shapes(q, k, v)
+    scale, q_offset = _defaults(d, Lq, Lk, scale, q_offset)
+    return _dkv_plain(q, k, v, do, lse, _delta(o, do, dlse), causal, scale,
+                      q_offset)
+
+
+def flash_attention_backward_dq_plain(q, k, v, o, lse, do, dlse=None, *,
+                                      causal=False, scale=None,
+                                      q_offset=None):
+    """The dQ pass in plain PyTorch: returns ``dq``."""
+    _, _, _, Lq, Lk, d = _shapes(q, k, v)
+    scale, q_offset = _defaults(d, Lq, Lk, scale, q_offset)
+    return _dq_plain(q, k, v, do, lse, _delta(o, do, dlse), causal, scale,
+                     q_offset)
 
 
 def _kernel_inputs(*tensors):
@@ -184,14 +258,20 @@ def _launch_forward(q, k, v, causal, scale, q_offset, with_m):
     return out, lse, m
 
 
-def _launch_backward(q, k, v, o, lse, do, dlse, causal, scale, q_offset):
-    B, H, Hkv, Lq, Lk, d = _shapes(q, k, v)
-    scale, q_offset = _defaults(d, Lq, Lk, scale, q_offset)
+def _bwd_inputs(q, k, v, o, lse, do, dlse):
+    """The kernels' inputs of a backward: q, k, v and dO contiguous and
+    aligned, lse fp32, and ``D = rowsum(dO * O) - dlse``, one torch op
+    outside the kernels as it is XLA outside Pallas in the JAX package."""
+    B, H, _, Lq, _, _ = _shapes(q, k, v)
     q, k, v, o, do = _kernel_inputs(q, k, v, o, do)
     if lse.shape != (B, H, Lq):
         raise ValueError(f"lse must be [B, H, Lq] = {(B, H, Lq)}")
-    delta = _delta(o, do, dlse).contiguous()
     lse = lse.to(device=q.device, dtype=torch.float32).contiguous()
+    return q, k, v, do, lse, _delta(o, do, dlse).contiguous()
+
+
+def _launch_backward(q, k, v, do, lse, delta, causal, scale, q_offset):
+    B, H, Hkv, Lq, Lk, d = _shapes(q, k, v)
     dq = torch.zeros(B, H, Lq, d, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib, fn = entry(KERNEL_BWD, "tf_flash_attention_bwd",
@@ -206,6 +286,41 @@ def _launch_backward(q, k, v, o, lse, do, dlse, causal, scale, q_offset):
     check_cuda(err, lib, "flash_attention_bwd kernel")
     launch_counts[KERNEL_BWD] += 1
     return dq.mul_(scale).to(q.dtype), dk, dv
+
+
+def _two_pass_args(n_pointers):
+    return ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 9
+            + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+
+
+def _launch_dkv(q, k, v, do, lse, delta, causal, scale, q_offset):
+    B, H, Hkv, Lq, Lk, d = _shapes(q, k, v)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib, fn = entry(SOURCE_TWO_PASS, "tf_flash_attention_bwd_dkv",
+                    _two_pass_args(8))
+    err = call_on_stream(fn, q.device, q.data_ptr(), k.data_ptr(),
+                         v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                         B, H, Hkv, Lq, Lk, d, _DTYPES[q.dtype], int(causal),
+                         q_offset, scale, scale * LOG2E)
+    check_cuda(err, lib, "flash_attention_bwd_dkv kernel")
+    launch_counts[KERNEL_DKV] += 1
+    return dk, dv
+
+
+def _launch_dq(q, k, v, do, lse, delta, causal, scale, q_offset):
+    B, H, Hkv, Lq, Lk, d = _shapes(q, k, v)
+    dq = torch.empty_like(q)
+    lib, fn = entry(SOURCE_TWO_PASS, "tf_flash_attention_bwd_dq",
+                    _two_pass_args(7))
+    err = call_on_stream(fn, q.device, q.data_ptr(), k.data_ptr(),
+                         v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                         delta.data_ptr(), dq.data_ptr(), B, H, Hkv, Lq, Lk,
+                         d, _DTYPES[q.dtype], int(causal), q_offset, scale,
+                         scale * LOG2E)
+    check_cuda(err, lib, "flash_attention_bwd_dq kernel")
+    launch_counts[KERNEL_DQ] += 1
+    return dq
 
 
 def flash_attention_forward(q, k, v, *, causal=False, scale=None,
@@ -227,6 +342,41 @@ def flash_attention_forward(q, k, v, *, causal=False, scale=None,
     return _launch_forward(q, k, v, causal, scale, q_offset, with_m)
 
 
+def flash_attention_backward_fused(q, k, v, o, lse, do, dlse=None, *,
+                                   causal=False, scale=None, q_offset=None,
+                                   impl: str | None = None):
+    """The fused single pass (``csrc/flash_attention_bwd.cu``): returns
+    ``(dq, dk, dv)``.  ``impl`` as in the forward."""
+    _, _, _, Lq, Lk, d = _shapes(q, k, v)
+    scale, q_offset = _defaults(d, Lq, Lk, scale, q_offset)
+    if resolve_impl(impl, q) == "plain":
+        return flash_attention_backward_plain(
+            q, k, v, o, lse, do, dlse, causal=causal, scale=scale,
+            q_offset=q_offset)
+    return _launch_backward(*_bwd_inputs(q, k, v, o, lse, do, dlse), causal,
+                            scale, q_offset)
+
+
+def flash_attention_backward_two_pass(q, k, v, o, lse, do, dlse=None, *,
+                                      causal=False, scale=None,
+                                      q_offset=None,
+                                      impl: str | None = None):
+    """The two passes (``csrc/flash_attention_bwd_two_pass.cu``): the dK/dV
+    pass, then the dQ pass, from one ``D``; returns ``(dq, dk, dv)``.
+    Deterministic: no atomics, each output written once.  ``impl`` as in
+    the forward."""
+    _, _, _, Lq, Lk, d = _shapes(q, k, v)
+    scale, q_offset = _defaults(d, Lq, Lk, scale, q_offset)
+    if resolve_impl(impl, q) == "plain":
+        args = (q, k, v, do, lse, _delta(o, do, dlse), causal, scale,
+                q_offset)
+        dk, dv = _dkv_plain(*args)
+        return _dq_plain(*args), dk, dv
+    args = (*_bwd_inputs(q, k, v, o, lse, do, dlse), causal, scale, q_offset)
+    dk, dv = _launch_dkv(*args)
+    return _launch_dq(*args), dk, dv
+
+
 def flash_attention_backward(q, k, v, o, lse, do, dlse=None, *,
                              causal=False, scale=None, q_offset=None,
                              dropout_rate=0.0, window=None, segment_ids=None,
@@ -234,11 +384,14 @@ def flash_attention_backward(q, k, v, o, lse, do, dlse=None, *,
                              impl: str | None = None):
     """Flash-attention backward; returns ``(dq, dk, dv)`` in the input
     dtype, dk and dv ``[B, Hkv, Lk, d]``.  ``dlse`` is a cotangent on the
-    logsumexp output (it shifts ``D``).  ``impl`` as in the forward."""
+    logsumexp output (it shifts ``D``).  The form is the JAX package's for
+    these shapes (``backward_form.two_pass``): the fused single pass, or the
+    two passes.  ``impl`` as in the forward."""
     _not_ported(dropout_rate, window, segment_ids, k_scale, v_scale)
-    if resolve_impl(impl, q) == "plain":
-        return flash_attention_backward_plain(
-            q, k, v, o, lse, do, dlse, causal=causal, scale=scale,
-            q_offset=q_offset)
-    return _launch_backward(q, k, v, o, lse, do, dlse, causal, scale,
-                            q_offset)
+    _, _, _, Lq, Lk, d = _shapes(q, k, v)
+    form = (flash_attention_backward_two_pass
+            if two_pass(Lq, Lk, d, q.element_size(), bool(causal),
+                        _defaults(d, Lq, Lk, scale, q_offset)[1])
+            else flash_attention_backward_fused)
+    return form(q, k, v, o, lse, do, dlse, causal=causal, scale=scale,
+                q_offset=q_offset, impl=impl)

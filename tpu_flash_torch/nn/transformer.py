@@ -4,7 +4,8 @@
 
 Ported so far: the cached forward (prefill and decode over a KV cache) and
 the uncached forward, with training (dropout from an explicit
-``torch.Generator``, gradients through every parameter).  Decode steps with
+``torch.Generator``, gradients through every parameter, ``remat`` per layer,
+``return_hidden`` for the chunked-vocab loss).  Decode steps with
 at most 8 new tokens go through the flash-decode kernel; longer prefills
 attend over the cache with the composed graph, as in the JAX package.  The
 uncached forward attends with the flash-attention kernels
@@ -22,6 +23,7 @@ import math
 from typing import Any, Literal
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from tpu_flash_torch.kernels.common import resolve_device
 from tpu_flash_torch.kernels.decode import flash_decode_attention
@@ -105,7 +107,6 @@ class DecoderConfig:
             (self.positional == "rope", "positional='rope'", "A7"),
             (self.moe is not None, "moe", "A7"),
             (self.embedding_one_hot, "embedding_one_hot", "A7"),
-            (self.remat, "remat", "A3"),
             (self.sequence_parallel, "sequence_parallel", "A8"),
         ]
         for bad, what, item in unported:
@@ -285,6 +286,32 @@ class TransformerLayer(torch.nn.Module):
         return (result, kv_cache) if kv_cache is not None else result
 
 
+def _remat_layer(layer, x, *, generator, **kw):
+    """``layer(x, generator=generator, **kw)`` under
+    ``torch.utils.checkpoint``: its activations are dropped after the
+    forward and recomputed in the backward, as ``jax.checkpoint`` does per
+    layer in the JAX package (transformer.py:500-509).
+
+    The recompute must draw the same dropout masks as the forward.
+    ``checkpoint``'s ``preserve_rng_state`` saves only the default
+    generators, not an explicit ``torch.Generator``, so the state of
+    ``generator`` is captured here: the forward draws from ``generator``
+    itself (which ends where it would without remat) and every recompute
+    from a fresh generator restored to the captured state."""
+    state = None if generator is None else generator.get_state()
+    first = [True]
+
+    def run(t):
+        gen = generator
+        if state is not None and not first[0]:      # a recompute
+            gen = torch.Generator(generator.device)
+            gen.set_state(state)
+        first[0] = False
+        return layer(t, generator=gen, **kw)
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+
+
 class DecoderLM(torch.nn.Module):
     """Token (+ learned position) embeddings, ``n_layer`` pre-LN layers,
     final LayerNorm, lm_head.
@@ -319,9 +346,14 @@ class DecoderLM(torch.nn.Module):
 
     def forward(self, idx, *, kv_caches=None, kv_mask=None, positions=None,
                 segment_ids=None, training: bool = False, generator=None,
-                impl=None):
+                impl=None, return_hidden: bool = False):
         """idx [B, L] -> logits [B, L, n_vocab], or ``(logits, caches)``
         with ``kv_caches`` (one ``KVCache`` per layer, updated in place).
+        ``return_hidden=True`` returns the post-LN hidden state [B, L,
+        n_embd] instead of logits (lm_head is skipped), for
+        ``functional.chunked_softmax_loss`` to train without the [B, L,
+        n_vocab] logits.  With ``cfg.remat`` each layer of the uncached
+        forward runs under ``torch.utils.checkpoint`` (``_remat_layer``).
 
         ``positions`` ([1, L] or [B, L]) overrides ``arange(L)``, as decode
         needs.  ``training`` with a ``generator`` applies the embedding and
@@ -347,8 +379,13 @@ class DecoderLM(torch.nn.Module):
                 x, cache = layer(x, kv_cache=kv_caches[li], impl=impl,
                                  training=training, generator=generator)
                 new_caches.append(cache)
+            elif c.remat:
+                x = _remat_layer(layer, x, generator=generator,
+                                 kv_mask=kv_mask, segment_ids=segment_ids,
+                                 impl=impl, training=training)
             else:
                 x = layer(x, kv_mask=kv_mask, segment_ids=segment_ids,
                           impl=impl, training=training, generator=generator)
-        logits = self.lm_head(self.ln(x, impl=impl), impl=impl)
-        return logits if kv_caches is None else (logits, new_caches)
+        x = self.ln(x, impl=impl)
+        out = x if return_hidden else self.lm_head(x, impl=impl)
+        return out if kv_caches is None else (out, new_caches)
