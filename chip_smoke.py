@@ -14,19 +14,24 @@ ported paths:
   under ``torch.profiler``; the engine against ``generate`` and the kernel
   against the plain path end to end;
 * quantized serving: the int8, packed-int4 and grouped-int4 matmul kernels
-  against their plain versions (fp32 and bf16 x, M 1 to 1024, the serving
-  model's linears and ragged shapes; each limit checked against a perturbed
-  row) and their times at decode and prefill shapes; the 176M model
+  in their three forms (decode at M <= 8, the tensor-core prefill form for
+  bf16 x at M > 8, the CUDA-core form for fp32 x) against their plain
+  versions (fp32 and bf16 x, M 1 to 1024, the serving model's linears and
+  ragged shapes; each call checked to launch its form; each form's limit
+  checked against a perturbed row) and their times at decode and at
+  256- and 1024-token prefills of every serving linear; the 176M model
   converted by ``quantize_model_linears`` (int8, int4, int4 in groups of
   128) serving the same 16 requests, each decode step checked to launch
-  its matmul kernel once a Linear, with the logits' error against the bf16
-  model; and the engine against ``generate`` and kernel against plain end
-  to end for each of the three;
+  its matmul kernel once a Linear in the decode form and each prefill in
+  the tensor-core form, with the logits' error against the bf16 model; and
+  the engine against ``generate`` and kernel against plain end to end for
+  each of the three;
 * training: the flash-attention forward and backward kernels against their
   plain versions (fp32 and bf16, causal or not, L 64 to 2048, Lq != Lk with
   empty rows, GQA, d 32/64/128; each error beside its limit and the
   output's rms, and a check that the limit fails a dropped key tile) and
-  their times at B4 H8 L2048 d64; the fused LayerNorm and masked-softmax
+  their times at B4 H8 L2048 d64; the fused backward called twice there
+  (bf16 and fp32) giving the same bits; the fused LayerNorm and masked-softmax
   kernels against their plain versions (fp32 and bf16, the reference MT
   shapes, ragged widths, rows that see no key, a fully padded batch row,
   widths above 512; each limit checked against a perturbed row), their
@@ -49,7 +54,8 @@ ported paths:
   with empty rows, ragged L, d 32/64/128; each limit checked against a
   dropped tile; two calls the same bits); at mode (f)'s attention shape,
   B1 H8 L16384 d64 bf16, the forward kernel and both passes against their
-  plain versions and the two passes against the fused kernel; their times
+  plain versions, the two passes against the fused kernel, and two calls
+  of each backward form giving the same bits; their times
   beside the fused kernel's at B1 H8 L16384 bf16, L8192 fp32 and B4 H8
   L2048 bf16; ``train_epoch`` in mode (f): the production widths at
   L=16384 with remat, the chunked-vocab loss and bf16 mixed precision (8
@@ -123,15 +129,18 @@ FUSED = ("layernorm_fwd", "layernorm_bwd", "attn_softmax_fwd",
          "attn_softmax_bwd")
 TRAINING_KERNELS = ATTENTION + TWO_PASS + FUSED
 QUANT_SOURCES = ("int8_matmul", "int4_matmul")
-# Launch-count (and profiler) names, and the sources built from csrc/.
-KERNELS = ("flash_decode",) + TRAINING_KERNELS + QUANT_SOURCES
-SOURCES = (("flash_decode",) + ATTENTION + (TWO_PASS_SOURCE,) + FUSED
-           + QUANT_SOURCES)
 # The quantized matmul kernels by launch count, with (bits, group size) and
-# the TPU kernel each replaces.
+# the TPU kernel each replaces; each has a tensor-core prefill form counted
+# under its name + quant.TC (bf16 x at M > 8), the CUDA-core forms (decode,
+# fp32 x) under its name.
 QUANT = {"int8_matmul": (8, None, "quant.py:49"),
          "int4_matmul": (4, None, "quant.py:228"),
          "int4_matmul_group": (4, 128, "quant.py:258")}
+QUANT_TC = tuple(n + quant.TC for n in QUANT)
+# Launch-count (and profiler) names, and the sources built from csrc/.
+KERNELS = (("flash_decode",) + TRAINING_KERNELS + tuple(QUANT) + QUANT_TC)
+SOURCES = (("flash_decode",) + ATTENTION + (TWO_PASS_SOURCE,) + FUSED
+           + QUANT_SOURCES)
 SERVING = dict(n_vocab=32768, n_embd=1024, n_head=16, n_positions=8192,
                n_layer=8, ff_middle_dim=4096, p_dropout=0.0,
                attention_kind="flash", dtype=torch.bfloat16)
@@ -213,8 +222,8 @@ DISPATCH_WIDTHS = (640, 1024)
 # kernel is held to |x - ref| <= atol + arms * rms(ref) + rtol * |ref|, with
 # rms(ref) the root mean square of the plain output over the whole case.
 # fp32: the JAX package's tolerances as atol and rtol (forward 1e-3,
-# backward 1e-2); the two versions differ only by summation order, exp2f
-# and, for dQ, atomic order.  bf16: out, dq, dk and dv are rounded to bf16,
+# backward 1e-2); the two versions differ only by summation order and
+# exp2f.  bf16: out, dq, dk and dv are rounded to bf16,
 # and an fp32 value near a rounding boundary may land an ulp either side
 # (two ulps are at most 2^-6 of |x|: rtol 2e-2).  On top, the forward
 # kernel rounds p to bf16 relative to its running max where the plain
@@ -247,10 +256,12 @@ ATTN_CASES = [
 # The serving model's linears, K x N: q, k, v and out projections, FF in,
 # FF out, lm_head.
 SERVING_LINEARS = ((1024, 1024), (1024, 4096), (4096, 1024), (1024, 32768))
-# Quantized matmuls, kernel vs plain on the same inputs, M rows of x each:
-# the serving linears, a ragged K and N (K odd for int4 per column; grouped,
-# K = 256 in groups of 64), and groups of 64 at 1024 x 1024.
-QUANT_M = (1, 8, 100, 1024)
+# Quantized matmuls, kernel vs plain on the same inputs, M rows of x each
+# (1 and 8 the decode form; above 8 the tensor-core form in bf16, the
+# CUDA-core form in fp32): the serving linears, a ragged K and N (K odd for
+# int4 per column; grouped, K = 256 in groups of 64), and groups of 64 at
+# 1024 x 1024.
+QUANT_M = (1, 8, 9, 100, 256, 1024)
 QUANT_CASES = {
     "int8_matmul": [(K, N, None) for K, N in SERVING_LINEARS]
     + [(255, 300, None)],
@@ -265,9 +276,16 @@ QUANT_CASES = {
 # 2e-2 covers two ulps) on top of 1e-2 of the rms.
 QUANT_TOL = {torch.float32: (0.0, 1e-5, 1e-5),
              torch.bfloat16: (0.0, 1e-2, 2e-2)}
-# Decode (M = 8) at each serving linear, and a prefill of 1024 tokens.
-QUANT_TIMED = [(8, K, N) for K, N in SERVING_LINEARS] + [(1024, 1024, 4096)]
-QUANT_MAIN_SHAPE = (8, 1024, 4096)       # the kernels line's shape
+# bf16 x: decode (M = 8) and prefills of 256 and 1024 tokens (a chunk of
+# prefill_chunk=256, the longest bucket) at each serving linear; fp32 x at
+# one prefill shape, the CUDA-core form.
+QUANT_TIMED = [(M, K, N, torch.bfloat16) for M in (8, 256, 1024)
+               for K, N in SERVING_LINEARS] + [(1024, 1024, 4096,
+                                                torch.float32)]
+# the kernels line's shapes: decode for the CUDA-core forms, a 1024-token
+# prefill for the tensor-core form
+QUANT_MAIN_SHAPE = (8, 1024, 4096, torch.bfloat16)
+QUANT_TC_SHAPE = (1024, 1024, 4096, torch.bfloat16)
 # The quantized serving modes: weights, KV cache, chunked prefill, drive,
 # and the JAX tests' limit on the logits' error against the float model
 # (tests/test_quant.py:80, :218).
@@ -628,6 +646,27 @@ def attention_times(gen, B=4, H=8, L=2048, d=64) -> dict:
     return rows
 
 
+def fused_backward_bits(gen, B=4, H=8, L=2048, d=64) -> None:
+    """The fused backward kernel called twice on the same inputs at the
+    training shape (B4 H8 L2048 d64 causal) in bf16 and fp32: dq, dk and
+    dv the same bits (its dQ is added in a fixed order)."""
+    for dtype in (torch.bfloat16, torch.float32):
+        args = attention_inputs(gen, B, H, H, L, L, d, dtype, True)
+        first = flash_attention_backward_fused(*args, causal=True,
+                                               impl="kernel")
+        second = flash_attention_backward_fused(*args, causal=True,
+                                                impl="kernel")
+        torch.cuda.synchronize()
+        same = {n: torch.equal(a, b)
+                for n, a, b in zip(("dq", "dk", "dv"), first, second)}
+        log({"phase": "fused_backward_bits", "dtype": str(dtype).split(".")[1],
+             "shape": f"B{B} H{H} L{L} d{d} causal",
+             "two_calls_same_bits": same})
+        check(all(same.values()), f"the fused backward gives other bits on "
+                                  f"a second call ({dtype}): {same}")
+        del args, first, second
+
+
 def attention_inputs(gen, B, H, Hkv, Lq, Lk, d, dtype, causal):
     """q, k, v, the forward kernel's out and lse, and dO."""
     q = torch.randn(B, H, Lq, d, generator=gen, device=DEV).to(dtype)
@@ -751,6 +790,8 @@ def two_pass_long() -> dict:
     again = flash_attention_backward_two_pass(*args, causal=True,
                                               impl="kernel")
     fused = flash_attention_backward_fused(*args, causal=True, impl="kernel")
+    fused_again = flash_attention_backward_fused(*args, causal=True,
+                                                 impl="kernel")
     plain["dk"], plain["dv"] = flash_attention_backward_dkv_plain(
         *args, causal=True)
     torch.cuda.empty_cache()
@@ -768,17 +809,21 @@ def two_pass_long() -> dict:
             a, b, tols[n])
         ok &= agree
     same_bits = all(torch.equal(a, b) for a, b in zip(two, again))
+    fused_same = all(torch.equal(a, b) for a, b in zip(fused, fused_again))
     row = {"phase": "long_attention_vs_plain", "dtype": "bfloat16",
            "shape": f"B{LONG_B} H8 L{LONG_L} d64 causal",
            "max_abs_err": errs, "arms_needed": need,
            "tol": {n: "atol {} + {} * rms + rtol {}".format(*tols[n])
                    for n in got},
-           "two_calls_same_bits": same_bits, "ok": bool(ok and same_bits)}
+           "two_calls_same_bits": same_bits,
+           "fused_two_calls_same_bits": fused_same,
+           "ok": bool(ok and same_bits and fused_same)}
     log(row)
     check(row["ok"], "at L = 16384 the forward or two-pass kernels disagree "
                      "with their plain versions or the fused kernel, or two "
-                     "calls differ")
-    del args, q, k, v, out, lse, do, two, again, fused, plain, got
+                     "calls of either backward differ")
+    del args, q, k, v, out, lse, do, two, again, fused, fused_again, plain
+    del got
     torch.cuda.empty_cache()
     return errs
 
@@ -1138,13 +1183,20 @@ def quant_matmul(kind, x, q, impl):
     return quant.int4_matmul(x, *q, k_dim=x.shape[1], impl=impl)
 
 
+def quant_form(kind, M, dtype) -> str:
+    """The launch-count name a call of ``kind`` at M rows of ``dtype`` x
+    adds to (the plan's form; every group here is a multiple of 16)."""
+    return kind + (quant.TC if dtype == torch.bfloat16 and M > 8 else "")
+
+
 def quant_cases(gen) -> dict:
     """The three quantized matmul kernels against their plain versions on
-    the same inputs, fp32 and bf16 x, at every M of ``QUANT_M``; returns
-    the largest error of each.  Every shape is logged before a disagreement
-    fails the phase; the first of each kernel and dtype also checks that
+    the same inputs, fp32 and bf16 x, at every M of ``QUANT_M``, each call
+    checked to launch the form its plan names; returns the largest error of
+    each form by launch name.  Every shape is logged before a disagreement
+    fails the phase; the first case of each form and dtype also checks that
     its limit fails a perturbed row."""
-    worst = dict.fromkeys(QUANT, 0.0)
+    worst = dict.fromkeys((*QUANT, *QUANT_TC), 0.0)
     failed, largest, power_checked = [], {}, set()
     for kind, cases in QUANT_CASES.items():
         bits = QUANT[kind][0]
@@ -1154,36 +1206,41 @@ def quant_cases(gen) -> dict:
             for dtype in (torch.float32, torch.bfloat16):
                 dname = str(dtype).split(".")[1]
                 tol = QUANT_TOL[dtype]
-                errs, need, ok = {}, {}, True
+                errs, need, forms, ok = {}, {}, {}, True
                 for M in QUANT_M:
                     x = torch.randn(M, K, generator=gen, device=DEV).to(dtype)
+                    form = quant_form(kind, M, dtype)
+                    before = common.launch_counts[form]
                     got = quant_matmul(kind, x, q, "kernel")
+                    launched = common.launch_counts[form] - before
                     ref = quant_matmul(kind, x, q, "plain")
                     torch.cuda.synchronize()
                     errs[M], _, need[M], agree = compare(got, ref, tol)
-                    ok &= agree and got.dtype == ref.dtype == dtype
-                    if (kind, dname) not in power_checked:
-                        power_checked.add((kind, dname))
+                    forms[M] = form
+                    ok &= (agree and got.dtype == ref.dtype == dtype
+                           and launched == 1)
+                    worst[form] = max(worst[form], errs[M])
+                    if (form, dname) not in power_checked:
+                        power_checked.add((form, dname))
                         caught = not compare(perturbed(ref), ref.float(),
                                              tol)[3]
-                        log({"phase": "quant_limit_power", "kernel": kind,
+                        log({"phase": "quant_limit_power", "kernel": form,
                              "dtype": dname, "shape": f"M{M} K{K} N{N}",
                              "fault": "1 % of the last row's |sum| added "
                                       "to its first value",
                              "caught": caught})
                         if not caught:
-                            failed.append(f"{kind} {dname}: the limit "
+                            failed.append(f"{form} {dname}: the limit "
                                           f"passes a perturbed row")
                 key = f"{kind} {dname}"
                 largest[key] = max(largest.get(key, 0.0), *need.values())
                 log({"phase": "quant_vs_plain", "kernel": kind,
                      "shape": f"K{K} N{N}" + (f" g{group}" if group else ""),
                      "dtype": dname, "max_abs_err_by_M": errs,
-                     "arms_needed_by_M": need,
+                     "arms_needed_by_M": need, "form_by_M": forms,
                      "tol": "{1} * rms + rtol {2}".format(*tol), "ok": ok})
                 if not ok:
                     failed.append(f"{kind} K{K} N{N} {dname}")
-                worst[kind] = max(worst[kind], *errs.values())
             del q
     log({"phase": "quant_tolerance", "arms_needed_beside_rtol": largest})
     check(not failed, f"quantized matmul kernels disagree with their plain "
@@ -1192,26 +1249,26 @@ def quant_cases(gen) -> dict:
 
 
 def quant_times(gen) -> dict:
-    """The quantized matmul kernels' times with bf16 x at ``QUANT_TIMED``:
-    kernel, plain and library (``x @ W`` against the weight dequantized
-    once to bf16, the alternative the JAX package names at quant.py:13-15;
-    the port never calls it), with the bound.  Weights rotate through
-    enough copies that each call reads past the 50 MB L2, as each layer's
-    own weights would."""
+    """The quantized matmul kernels' times at ``QUANT_TIMED``: kernel,
+    plain and library (``x @ W`` against the weight dequantized once to x's
+    dtype, the alternative the JAX package names at quant.py:13-15; the
+    port never calls it), with the bound and the plan's form, tile, splits
+    and blocks.  Weights rotate through enough copies that each call reads
+    past the 50 MB L2, as each layer's own weights would."""
     rows = {}
     for kind in QUANT:
-        for M, K, N in QUANT_TIMED:
+        for M, K, N, dtype in QUANT_TIMED:
             q = quantized(torch.randn(K, N, generator=gen, device=DEV),
                           *QUANT[kind][:2])
             wbytes = sum(t.numel() * t.element_size() for t in q)
             n = max(2, math.ceil(2 * L2_BYTES / wbytes))
             qs = [tuple(t.clone() for t in q) for _ in range(n)]
-            deq = quant.dequantize(*q, K).to(torch.bfloat16)
-            n_lib = max(2, math.ceil(2 * L2_BYTES / (K * N * 2)))
+            deq = quant.dequantize(*q, K).to(dtype)
+            item = deq.element_size()
+            n_lib = max(2, math.ceil(2 * L2_BYTES / (K * N * item)))
             deqs = [deq.clone() for _ in range(n_lib)]
             del deq
-            x = torch.randn(M, K, generator=gen, device=DEV,
-                            dtype=torch.bfloat16)
+            x = torch.randn(M, K, generator=gen, device=DEV, dtype=dtype)
             tick = [0]
 
             def nxt(k):
@@ -1223,22 +1280,29 @@ def quant_times(gen) -> dict:
             plain_ms = device_ms(lambda: quant_matmul(kind, x, qs[nxt(n)],
                                                       "plain"), iters=5)
             library_ms = device_ms(lambda: x @ deqs[nxt(n_lib)], iters=20)
-            nbytes = wbytes + 2 * M * K + 2 * M * N     # codes, scales, x, out
+            nbytes = wbytes + item * (M * K + M * N)   # codes, scales, x, out
             flops = 2 * M * K * N
+            peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
             bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-                     "operations": flops / BF16_FLOPS * 1e3}
+                     "operations": flops / peak * 1e3}
             bound_by = max(bound, key=bound.get)
-            bm, splits, _ = quant._plan(M, N, q[0].shape[0], x.device)
+            group = K // q[1].shape[0] if q[1].dim() == 2 else None
+            plan = quant._plan(M, N, q[0].shape[0],
+                               torch.cuda.get_device_properties(
+                                   0).multi_processor_count, dtype, group)
             row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                    "bound_ms": bound[bound_by], "bound_by": bound_by,
                    "of_bound": bound[bound_by] / ms, "bytes": nbytes,
-                   "flops": flops, "hbm_GBps": nbytes / (ms * 1e-3) / 1e9,
-                   "blocks": (common.cdiv(N, quant._BN) * common.cdiv(M, bm)
-                              * splits), "splits": splits, "copies": n}
-            log({"phase": "kernel_time", "kernel": kind,
-                 "shape": f"M{M} K{K} N{N} bf16",
-                 "library": "x @ W dequantized to bf16", **row})
-            rows[(kind, (M, K, N))] = row
+                   "flops": flops, "tflops": flops / (ms * 1e-3) / 1e12,
+                   "hbm_GBps": nbytes / (ms * 1e-3) / 1e9,
+                   "form": plan.form, "tile": f"{plan.bm}x{plan.bn}",
+                   "blocks": plan.blocks, "splits": plan.splits,
+                   "copies": n}
+            dname = str(dtype).split(".")[1]
+            log({"phase": "kernel_time", "kernel": quant_form(kind, M, dtype),
+                 "shape": f"M{M} K{K} N{N} {dname} x",
+                 "library": f"x @ W dequantized to {dname}", **row})
+            rows[(kind, (M, K, N, dtype))] = row
             del q, qs, deqs
     return rows
 
@@ -1274,7 +1338,7 @@ def kernel_profile(fn, steps: int = 4) -> dict:
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     ours = {n: sum(e.self_device_time_total for e in kernels
                    if f"{n}_kernel" in e.key) / steps / 1e3
-            for n in KERNELS + ("int4_matmul_group", "quant_matmul_reduce")}
+            for n in KERNELS + ("quant_matmul_reduce",)}
     gemms = collections.defaultdict(float)
     for e in kernels:
         kind = gemm_kind(e.key)
@@ -1416,7 +1480,7 @@ def training_end_to_end(name: str, config: dict, shape, chunked_vocab=0,
                                     for n, p in model.named_parameters()})
     (loss_k, got), (loss_p, want) = runs["kernel"], runs["plain"]
     # Gradients: fp32 sums in another order (at the production config 4
-    # layers of attention over 2048 positions, dQ in atomic order; at the
+    # layers of attention over 2048 positions, dQ over 32 key tiles; at the
     # reference config the fused kernels' row sums, rsqrtf and expf): 1e-3
     # of the tensor's largest
     # gradient, plus 1e-5 of the model's largest for tensors whose exact
@@ -1543,7 +1607,9 @@ def serving(model, n_layer: int, modes=SERVING_MODES,
     """16 requests through the engine in each of ``modes`` (KV cache,
     prefill chunk, drive); returns the kernel launches counted while the
     engines ran.  ``matmul`` names a quantized model's matmul kernel: every
-    forward must launch it once for each Linear, 6 a layer and lm_head."""
+    forward must launch it once for each Linear, 6 a layer and lm_head, in
+    the decode form at a decode step (8 rows) and in the tensor-core form
+    at a prefill or prefill chunk (16 to 1024 rows of bf16)."""
     prompts = serving_prompts(model.cfg.n_vocab)
     sampling = SamplingConfig(max_new_tokens=64)
     finite = torch.ones((), dtype=torch.bool, device=DEV)
@@ -1559,7 +1625,8 @@ def serving(model, n_layer: int, modes=SERVING_MODES,
     del warm
     torch.cuda.synchronize()
 
-    names = ("flash_decode",) + ((matmul,) if matmul else ())
+    names = ("flash_decode",) + ((matmul, matmul + quant.TC) if matmul
+                                 else ())
     total = dict.fromkeys(names, 0)
     hook = model.lm_head.register_forward_hook(watch)
     try:
@@ -1611,15 +1678,21 @@ def serving(model, n_layer: int, modes=SERVING_MODES,
                   f"steps of {n_layer} layers")
             if matmul:
                 # every forward: the decode steps (those between prefill
-                # chunks included) and one a prefill or prefill chunk
+                # chunks included) in the decode form, and one a prefill or
+                # prefill chunk in the tensor-core form
                 per_forward = 6 * n_layer + 1
-                forwards = steps + (len(prompts) if chunk is None else sum(
+                prefills = (len(prompts) if chunk is None else sum(
                     common.cdiv(len(p), chunk) for p in prompts))
+                tc = matmul + quant.TC
                 check(step_launches[matmul] == per_forward
-                      and launches[matmul] == per_forward * forwards,
+                      and step_launches[tc] == 0
+                      and launches[matmul] == per_forward * steps
+                      and launches[tc] == per_forward * prefills,
                       f"{what}: {matmul} launched {step_launches[matmul]} "
-                      f"times in a decode step (not {per_forward}) and "
-                      f"{launches[matmul]} in {forwards} forwards")
+                      f"times in a decode step (not {per_forward}), "
+                      f"{launches[matmul]} in {steps} decode steps and "
+                      f"{launches[tc]} times in the tensor-core form in "
+                      f"{prefills} prefill forwards")
             check(bool(finite), f"{what}: non-finite logits")
             for n, c in launches.items():
                 total[n] += c
@@ -1775,6 +1848,7 @@ def main() -> int:
 
     attn_worst = attention_cases(gen)
     attn_rows = attention_times(gen)
+    fused_backward_bits(gen)
     two_worst = two_pass_cases(gen)
     long_errs = two_pass_long()
     two_rows = two_pass_times(gen)
@@ -1902,18 +1976,21 @@ def main() -> int:
             "shape": ("R8192 H256 fp32" if n.startswith("layernorm")
                       else "B32 H8 Lq256 Lk256 causal fp32")})
     for n, (_, _, line) in QUANT.items():
-        r = quant_rows[(n, QUANT_MAIN_SHAPE)]
-        entries.append({
-            "name": n, "route": "cuda",
-            "source": "tpu_flash_torch/kernels/csrc/{}.cu".format(
-                "int8_matmul" if n == "int8_matmul" else "int4_matmul"),
-            "replaces": f"tpu_flash/kernels/{line}",
-            "launches": launches[n], "max_abs_err": quant_worst[n],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
-            "shape": "M{} K{} N{} bf16 x".format(*QUANT_MAIN_SHAPE)
-            + (", groups of 128" if n == "int4_matmul_group" else "")})
+        for form, shape in ((n, QUANT_MAIN_SHAPE),
+                            (n + quant.TC, QUANT_TC_SHAPE)):
+            r = quant_rows[(n, shape)]
+            entries.append({
+                "name": form, "route": "cuda",
+                "source": "tpu_flash_torch/kernels/csrc/{}.cu".format(
+                    "int8_matmul" if n == "int8_matmul" else "int4_matmul"),
+                "replaces": f"tpu_flash/kernels/{line}",
+                "launches": launches[form], "max_abs_err": quant_worst[form],
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"],
+                "shape": "M{} K{} N{} bf16 x".format(*shape[:3])
+                + (", groups of 128" if n == "int4_matmul_group" else "")
+                + (", the tensor-core prefill form" if form != n else "")})
     log({"phase": "total", "seconds": time.perf_counter() - t0})
     log({"kernels": entries})
     print(smi.splitlines()[0], flush=True)

@@ -126,7 +126,7 @@ def test_decode_step_logits_kernel_matches_plain(cuda_device):
 #
 # Tolerances, kernel against plain on the same inputs: fp32 with TF32 off
 # differs by summation order and exp2f only (1e-4 on out/lse, 1e-3 on the
-# gradients, whose sums run over up to 2048 rows, dQ in atomic order).  lse
+# gradients, whose sums run over up to 2048 rows in another order).  lse
 # and m are fp32 in both dtypes and keep 1e-4.  bf16 out and gradients are
 # rounded to bf16 and may land an ulp either side of a boundary (rtol 2e-2
 # covers two), and the forward kernel rounds p relative to its running max
@@ -325,8 +325,8 @@ def test_two_pass_kernels_match_plain(cuda_device, dtype, causal, B, H, Hkv,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_two_pass_is_deterministic_and_matches_the_fused_pass(cuda_device,
                                                              dtype):
-    """Two calls give the same bits; the fused kernel (dQ in atomic order)
-    agrees within the kernel-vs-plain limits."""
+    """Two calls give the same bits; the fused kernel (its dQ summed in
+    another order) agrees within the kernel-vs-plain limits."""
     from tpu_flash_torch.kernels.flash_attention import (
         flash_attention_backward_fused, flash_attention_backward_two_pass)
 
@@ -336,6 +336,39 @@ def test_two_pass_is_deterministic_and_matches_the_fused_pass(cuda_device,
     fused = flash_attention_backward_fused(*args, causal=True)
     torch.cuda.synchronize()
     for a, b, c in zip(first, second, fused):
+        assert torch.equal(a, b)
+        if dtype == torch.bfloat16:
+            assert_close_bf16(a, c)
+        else:
+            torch.testing.assert_close(a, c, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,causal,B,H,Hkv,Lq,Lk,d", [
+    (torch.bfloat16, True, 4, 8, 8, 2048, 2048, 64),
+    (torch.float32, True, 4, 8, 8, 2048, 2048, 64),
+    (torch.bfloat16, False, 2, 4, 4, 1000, 1000, 64),
+    (torch.bfloat16, True, 2, 8, 2, 130, 70, 32),
+    (torch.float32, True, 1, 4, 4, 70, 130, 128)])
+def test_fused_backward_is_deterministic(cuda_device, dtype, causal, B, H,
+                                         Hkv, Lq, Lk, d):
+    """The fused pass adds each query chunk's dQ in a fixed order: two
+    calls give the same bits for dq, dk and dv (B4 H8 L2048 d64 causal is
+    the production shape; the others cover no causal limit, GQA, Lq > Lk
+    with rows that see no key, and Lq < Lk), and they agree with the plain
+    version within its limits."""
+    from tpu_flash_torch.kernels.flash_attention import (
+        flash_attention_backward_fused)
+
+    args = two_pass_case(cuda_device, 11, B, H, Hkv, Lq, Lk, d, dtype,
+                         causal)
+    before = common.launch_counts["flash_attention_bwd"]
+    first = flash_attention_backward_fused(*args, causal=causal)
+    second = flash_attention_backward_fused(*args, causal=causal)
+    want = flash_attention_backward_fused(*args, causal=causal, impl="plain")
+    torch.cuda.synchronize()
+    assert common.launch_counts["flash_attention_bwd"] == before + 2
+    for a, b, c in zip(first, second, want):
         assert torch.equal(a, b)
         if dtype == torch.bfloat16:
             assert_close_bf16(a, c)
@@ -373,16 +406,47 @@ def naive_remat(layer, x, *, generator, **kw):
         use_reentrant=False)
 
 
+def remat_runs(dev, cfg, L, V, chunks):
+    """The loss, every gradient and the generator's final state of one
+    forward and backward with and without remat (dropout from one seeded
+    CUDA generator), and the attention kernels each launched."""
+    from tpu_flash_torch.apps import machine_translation as tmt
+
+    rng = np.random.default_rng(3)
+    batch = tmt.place_batch(
+        {"input_ids": rng.integers(0, V, (1, L)),
+         "labels": rng.integers(0, V, (1, L)),
+         "label_token_weights": (rng.random((1, L)) > 0.3
+                                 ).astype(np.float32)}, dev)
+    runs = {}
+    for remat in (False, True):
+        model = tnn.DecoderLM(tnn.DecoderConfig(**cfg, remat=remat),
+                              device=dev)
+        tnn.init_params(model, torch.Generator(dev).manual_seed(0))
+        gen = torch.Generator(dev).manual_seed(5)
+        before = dict(common.launch_counts)
+        loss = tmt.make_loss_fn(model, chunked_vocab=chunks)(
+            batch, generator=gen, training=True)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = {n: common.launch_counts[n] - before.get(n, 0) for n in
+                    ("flash_attention_fwd", "flash_attention_bwd",
+                     "flash_attention_bwd_dkv", "flash_attention_bwd_dq")}
+        runs[remat] = (loss.detach(), {n: p.grad.clone() for n, p in
+                                       model.named_parameters()},
+                       gen.get_state(), launched)
+    return runs
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("wrap", ["restored", "naive"])
 def test_remat_equals_no_remat_bit_for_bit_on_the_card(cuda_device,
                                                        monkeypatch, wrap):
     """fp32 at d 128 and L 4096, where the backward takes the two passes
-    (no atomics: every kernel of the step gives the same bits each call),
-    dropout 0.1 from one seeded CUDA generator, the chunked loss: the loss,
-    every gradient and the generator's final state are the same bits with
-    and without remat.  A naive wrap gives other gradients."""
-    from tpu_flash_torch.apps import machine_translation as tmt
+    (every kernel of the step gives the same bits each call), dropout 0.1
+    from one seeded CUDA generator, the chunked loss: the loss, every
+    gradient and the generator's final state are the same bits with and
+    without remat.  A naive wrap gives other gradients."""
     from tpu_flash_torch.kernels.backward_form import two_pass
     from tpu_flash_torch.nn import transformer as ttr
 
@@ -390,43 +454,45 @@ def test_remat_equals_no_remat_bit_for_bit_on_the_card(cuda_device,
     assert two_pass(L, L, 128, 4, True)
     if wrap == "naive":
         monkeypatch.setattr(ttr, "_remat_layer", naive_remat)
-    rng = np.random.default_rng(3)
-    batch = tmt.place_batch(
-        {"input_ids": rng.integers(0, V, (1, L)),
-         "labels": rng.integers(0, V, (1, L)),
-         "label_token_weights": (rng.random((1, L)) > 0.3
-                                 ).astype(np.float32)}, cuda_device)
-    runs = {}
+    runs = remat_runs(cuda_device, dict(
+        n_vocab=V, n_embd=256, n_head=2, n_positions=L, n_layer=2,
+        ff_middle_dim=256, p_dropout=0.1, attention_kind="flash"), L, V, 4)
     for remat in (False, True):
-        cfg = tnn.DecoderConfig(n_vocab=V, n_embd=256, n_head=2,
-                                n_positions=L, n_layer=2, ff_middle_dim=256,
-                                p_dropout=0.1, attention_kind="flash",
-                                remat=remat)
-        model = tnn.DecoderLM(cfg, device=cuda_device)
-        tnn.init_params(model, torch.Generator(cuda_device).manual_seed(0))
-        gen = torch.Generator(cuda_device).manual_seed(5)
-        before = dict(common.launch_counts)
-        loss = tmt.make_loss_fn(model, chunked_vocab=4)(
-            batch, generator=gen, training=True)
-        loss.backward()
-        torch.cuda.synchronize()
-        launched = {n: common.launch_counts[n] - before.get(n, 0) for n in
-                    ("flash_attention_fwd", "flash_attention_bwd",
-                     "flash_attention_bwd_dkv", "flash_attention_bwd_dq")}
-        assert launched == {"flash_attention_fwd": 2 * (1 + remat),
-                            "flash_attention_bwd": 0,
-                            "flash_attention_bwd_dkv": 2,
-                            "flash_attention_bwd_dq": 2}
-        runs[remat] = (loss.detach(), {n: p.grad.clone() for n, p in
-                                       model.named_parameters()},
-                       gen.get_state())
-    (loss0, g0, s0), (loss1, g1, s1) = runs[False], runs[True]
+        assert runs[remat][3] == {"flash_attention_fwd": 2 * (1 + remat),
+                                  "flash_attention_bwd": 0,
+                                  "flash_attention_bwd_dkv": 2,
+                                  "flash_attention_bwd_dq": 2}
+    (loss0, g0, s0, _), (loss1, g1, s1, _) = runs[False], runs[True]
     assert torch.equal(loss0, loss1)
     same = all(torch.equal(g0[n], g1[n]) for n in g0)
     if wrap == "restored":
         assert same and torch.equal(s0, s1)
     else:
         assert not same
+
+
+@pytest.mark.cuda
+def test_remat_equals_no_remat_bit_for_bit_with_the_fused_backward(
+        cuda_device):
+    """The production shape (E 512, 8 heads of d 64, L 2048, bf16), where
+    the backward takes the fused pass, its dQ added in a fixed order:
+    remat on and off give the same loss, gradients and generator state."""
+    from tpu_flash_torch.kernels.backward_form import two_pass
+
+    L, V = 2048, 10_000
+    assert not two_pass(L, L, 64, 2, True)
+    runs = remat_runs(cuda_device, dict(
+        n_vocab=V, n_embd=512, n_head=8, n_positions=L, n_layer=2,
+        ff_middle_dim=256, p_dropout=0.1, attention_kind="flash",
+        dtype=torch.bfloat16), L, V, 0)
+    for remat in (False, True):
+        assert runs[remat][3] == {"flash_attention_fwd": 2 * (1 + remat),
+                                  "flash_attention_bwd": 2,
+                                  "flash_attention_bwd_dkv": 0,
+                                  "flash_attention_bwd_dq": 0}
+    (loss0, g0, s0, _), (loss1, g1, s1, _) = runs[False], runs[True]
+    assert torch.equal(loss0, loss1) and torch.equal(s0, s1)
+    assert all(torch.equal(g0[n], g1[n]) for n in g0)
 
 
 # --- fused LayerNorm and masked-softmax kernels ----------------------------
@@ -580,6 +646,29 @@ def quant_case(gen, dev, kind, M, K, N, g, dtype):
                                                impl=impl)
 
 
+def form_name(kind, M, g, dtype):
+    """The launch count a call adds to: the tensor-core form's (bf16 x at
+    M > 8, groups a multiple of 16) or the CUDA-core forms'."""
+    tc = dtype == torch.bfloat16 and M > 8 and (g is None or g % 16 == 0)
+    return kind + "_tc" if tc else kind
+
+
+def check_quant_case(dev, dtype, kind, M, K, N, g):
+    """A CUDA tensor with impl=None launches the kernel of its form (that
+    count rises by one, no other) and agrees with the plain version."""
+    gen = torch.Generator(dev).manual_seed(8)
+    call = quant_case(gen, dev, kind, M, K, N, g, dtype)
+    before = dict(common.launch_counts)
+    got = call()
+    launched = {n: c - before.get(n, 0) for n, c in
+                common.launch_counts.items() if c != before.get(n, 0)}
+    assert launched == {form_name(kind, M, g, dtype): 1}
+    want = call("plain")
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == dtype and got.shape == (M, N)
+    assert_within(got, want, *QUANT_TOL[dtype])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kind,M,K,N,g", [
@@ -588,17 +677,23 @@ def quant_case(gen, dev, kind, M, K, N, g, dtype):
     *(("int4_matmul_group", *s) for s in GROUP_SHAPES)])
 def test_quant_matmul_kernels_match_plain(cuda_device, dtype, kind, M, K, N,
                                           g):
-    """A CUDA tensor with impl=None launches the kernel (its count rises by
-    one) and agrees with the plain version."""
-    gen = torch.Generator(cuda_device).manual_seed(8)
-    call = quant_case(gen, cuda_device, kind, M, K, N, g, dtype)
-    before = common.launch_counts[kind]
-    got = call()
-    assert common.launch_counts[kind] == before + 1
-    want = call("plain")
-    torch.cuda.synchronize()
-    assert got.dtype == want.dtype == dtype and got.shape == (M, N)
-    assert_within(got, want, *QUANT_TOL[dtype])
+    check_quant_case(cuda_device, dtype, kind, M, K, N, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M", [9, 100, 256, 1024])
+@pytest.mark.parametrize("kind,K,N,g", [
+    ("int8_matmul", 1024, 4096, None), ("int8_matmul", 255, 300, None),
+    ("int4_matmul", 1024, 4096, None), ("int4_matmul", 255, 300, None),
+    ("int4_matmul_group", 1024, 4096, 128),
+    ("int4_matmul_group", 1024, 4096, 64),
+    ("int4_matmul_group", 256, 300, 64)])
+def test_prefill_forms_match_plain(cuda_device, dtype, M, kind, K, N, g):
+    """The prefill forms: bf16 x takes the tensor-core form, fp32 x the
+    CUDA-core one, at the serving model's K1024 N4096 and at ragged K and N
+    (odd K for int4 per column)."""
+    check_quant_case(cuda_device, dtype, kind, M, K, N, g)
 
 
 @pytest.mark.cuda
@@ -647,7 +742,8 @@ def test_quant_kernel_that_fails_to_launch_raises(cuda_device, monkeypatch):
     x = torch.randn(1, 128, device=cuda_device)
     codes, scales = quant.quantize_weight(torch.randn(128, 16,
                                                       device=cuda_device))
-    monkeypatch.setattr(quant, "_plan", lambda *a: (8, 70_000, 128))
+    monkeypatch.setattr(quant, "_plan", lambda *a: quant.Plan(
+        "decode", 8, 128, 70_000, 128, 70_000))
     before = common.launch_counts["int8_matmul"]
     with pytest.raises(RuntimeError, match="int8_matmul kernel failed"):
         quant.int8_matmul(x, codes, scales)

@@ -349,3 +349,39 @@ def test_unported_training_options_raise(pair):
     for kw in (dict(axis_name="model"), dict(batch_axis="data")):
         with pytest.raises(NotImplementedError, match="A8"):
             F.chunked_softmax_loss(x, w, None, y, **kw)
+
+
+@pytest.mark.parametrize("chunks", [0, 4])
+def test_train_epoch_passes_chunked_vocab_to_its_step(pair, monkeypatch,
+                                                      chunks):
+    """``train_epoch(..., chunked_vocab=n)`` without a step builds
+    ``make_train_step(model, opt, chunked_vocab=n)``, as the JAX loop does:
+    its losses and parameters are the bits of an epoch given that step."""
+    _, params, _, batch = pair
+    built = []
+
+    def spy(model, opt, chunked_vocab=0, **kw):
+        built.append(chunked_vocab)
+        return make(model, opt, chunked_vocab=chunked_vocab, **kw)
+
+    make = tmt.make_train_step
+    monkeypatch.setattr(tmt, "make_train_step", spy)
+    runs = []
+    for own in (False, True):
+        tm = tnn.DecoderLM(tnn.DecoderConfig(**{**CFG, "p_dropout": 0.1}),
+                           device="cpu")
+        tnn.load_jax_params(tm, params)
+        opt = tnn.sgd(lr=0.5)
+        step = None if own else tmt.make_train_step(tm, opt,
+                                                    chunked_vocab=chunks)
+        kw = {"chunked_vocab": chunks} if own else {}
+        _, losses, _, _ = tmt.train_epoch(
+            tm, opt, opt.init(dict(tm.named_parameters())), list(range(6)),
+            lambda _: dict(batch), 2, seed=1, train_step=step, log=None,
+            **kw)
+        runs.append((losses, {n: p.detach().clone()
+                              for n, p in tm.named_parameters()}))
+    assert built == [chunks, chunks]
+    (l0, p0), (l1, p1) = runs
+    assert l0 == l1 and l0[-1] < l0[0]
+    assert all(torch.equal(p0[n], p1[n]) for n in p0)

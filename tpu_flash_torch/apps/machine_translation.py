@@ -127,7 +127,8 @@ def place_batch(batch, device):
 
 def train_epoch(model, opt, opt_state, examples, collate_fn, batch_size, *,
                 seed: int = 0, generator=None, n_samples=None, max_iters=None,
-                log_every: int = 10, train_step=None, log=print):
+                log_every: int = 10, train_step=None, chunked_vocab: int = 0,
+                log=print):
     """One training epoch.  Returns ``(opt_state, losses, step_times,
     step_tokens)``: the parameters are the module's own and change in place,
     so where the JAX loop also returns them this one returns the optimizer
@@ -141,9 +142,11 @@ def train_epoch(model, opt, opt_state, examples, collate_fn, batch_size, *,
     syncs (reads the loss) only every ``log_every`` steps and at the last,
     so steps queue back to back in between; a step's time is its window's
     host time over the window's steps, and the first window (kernel builds,
-    warm-up) is left out of ``step_times``."""
+    warm-up) is left out of ``step_times``.  Without a ``train_step`` the
+    loop builds ``make_train_step(model, opt, chunked_vocab=chunked_vocab)``,
+    as the JAX loop does."""
     if train_step is None:
-        train_step = make_train_step(model, opt)
+        train_step = make_train_step(model, opt, chunked_vocab=chunked_vocab)
     if generator is None:
         generator = torch.Generator(model.device).manual_seed(seed)
     rng = np.random.default_rng(seed)

@@ -39,6 +39,8 @@ struct BwdParams {
   void* dv;
   int B, H, Hkv, Lq, Lk, q_offset, causal;
   float scale, scale2;  // softmax scale, and scale * log2(e)
+  int* dq_order;       // fused: int32 [B * H, ceil(Lq / kQC)] zeroed by the
+                       // caller, the dQ adds made to each query chunk
 };
 
 // lse in base 2; +inf for a row that saw no key, so that its P is 0.
@@ -76,15 +78,19 @@ __device__ __forceinline__ void store_as(void* base, size_t off, float x) {
     static_cast<float*>(base)[off] = x;
 }
 
-__device__ __forceinline__ void atomic_add4(float* addr, float4 v) {
-#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
-  atomicAdd(reinterpret_cast<float4*>(addr), v);
-#else
-  atomicAdd(addr, v.x);
-  atomicAdd(addr + 1, v.y);
-  atomicAdd(addr + 2, v.z);
-  atomicAdd(addr + 3, v.w);
-#endif
+// A counter read with acquire semantics at the scope of the whole card, and
+// written after a fence that releases what the block wrote before its last
+// __syncthreads: the handshake of the ordered dQ adds below.
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(int* p, int v) {
+  asm volatile("fence.acq_rel.gpu;\n\tst.relaxed.gpu.global.b32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
 }
 
 // --- the KV-outer body ------------------------------------------------------
@@ -100,8 +106,24 @@ __device__ __forceinline__ void atomic_add4(float* addr, float4 v) {
 // 16-byte loads), and the partial dots over a thread's 16 dims meet through
 // shuffles.  With kDQ (the fused pass) the chunk's dS [kKeys, kQC] also goes
 // to shared memory, and the block forms dQ [kQC, D] = dS^T K as a small
-// product (each thread 2 rows x 4 dims) added to the fp32 workspace with one
-// 16-byte atomic per 4 dims.
+// product (each thread 2 rows x 4 dims) added to the fp32 workspace in a
+// fixed order, so that two calls give the same bits:
+//   * the blocks of a (batch * query head) that reach a query chunk add
+//     their parts in the order of their key tiles, each after waiting on
+//     the chunk's counter in dq_order (acquire) to count the tiles below
+//     it, then bumping it (release).  Chunks start at multiples of kQC in
+//     every block (rows before a tile's causal limit see none of its keys
+//     and add 0), so the blocks agree on what a chunk is;
+//   * the block walks its query chunks from the last down to its causal
+//     limit, so every tile reaches a given chunk after the same number of
+//     chunks: the tiles of a head move in step, tile t one add behind tile
+//     t - 1 after the first chunk, and seldom wait;
+//   * blockIdx.x is the key tile, so a block waits only on blocks
+//     dispatched before it (blocks are dispatched in increasing index),
+//     which are running or done: spinning blocks cannot hold the SMs that
+//     the blocks they wait on need.  The low tiles, which walk the most
+//     chunks, start first.
+// The dK/dV pass (kDQ false) walks its chunks upward from its causal limit.
 
 constexpr int kKeys = 64;   // keys per block
 constexpr int kDt = 16;     // head dims per thread
@@ -140,7 +162,8 @@ __device__ __forceinline__ void kv_outer_body(const BwdParams& p) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int part = lane / kKeysPerWarp;
   const int key_in_block = warp * kKeysPerWarp + lane % kKeysPerWarp;
-  const int k0 = blockIdx.x * kKeys;
+  const int tile = blockIdx.x;
+  const int k0 = tile * kKeys;
   const int bhk = blockIdx.y, b = bhk / p.Hkv, hk = bhk % p.Hkv;
   const int g = p.H / p.Hkv;
   const int j = k0 + key_in_block;
@@ -161,120 +184,145 @@ __device__ __forceinline__ void kv_outer_body(const BwdParams& p) {
     dk[e] = dv[e] = 0.f;
   }
 
-  // The first query row that can see key k0.
-  const int q_start = p.causal ? max(0, k0 - p.q_offset) : 0;
+  // The first query row that can see key k0; fused, rounded down to a
+  // chunk's start.  chunks: the query chunks the block walks for a head.
+  int q_start = p.causal ? max(0, k0 - p.q_offset) : 0;
+  if constexpr (kDQ) q_start -= q_start % kQC;
+  const int chunks = q_start < p.Lq ? (p.Lq - q_start + kQC - 1) / kQC : 0;
   const int cc = tid % kCols, grp = tid / kCols;   // dQ mapping
 
-  for (int u = 0; u < g; ++u) {
+  // (query head u of the group, chunk c): the dK/dV pass walks each head's
+  // chunks upward in turn; the fused pass walks the chunks from the last
+  // down, each for every head, so that the tiles stay in step across heads
+  // (see the order of the dQ adds)
+  for (int it = 0; it < g * chunks; ++it) {
+    const int u = kDQ ? it % g : it / chunks, ci = kDQ ? it / g : it % chunks;
     const int bh = b * p.H + hk * g + u;
-    for (int i0 = q_start; i0 < p.Lq; i0 += kQC) {
-      __syncthreads();  // the previous chunk's rows are no longer read
-      for (int idx = tid; idx < kQC * D / 8; idx += kThreads) {
-        const int rr = idx / (D / 8), c = (idx % (D / 8)) * 8;
-        const int i = i0 + rr;
-        float fq[8], fd[8];
-        if (i < p.Lq) {
-          const size_t off = ((size_t)bh * p.Lq + i) * D + c;
-          load8<BF16>(p.q, off, fq);
-          load8<BF16>(p.dout, off, fd);
-        } else {
+    const int i0 = q_start + (kDQ ? chunks - 1 - ci : ci) * kQC;
+    __syncthreads();  // the previous chunk's rows are no longer read
+    for (int idx = tid; idx < kQC * D / 8; idx += kThreads) {
+      const int rr = idx / (D / 8), c = (idx % (D / 8)) * 8;
+      const int i = i0 + rr;
+      float fq[8], fd[8];
+      if (i < p.Lq) {
+        const size_t off = ((size_t)bh * p.Lq + i) * D + c;
+        load8<BF16>(p.q, off, fq);
+        load8<BF16>(p.dout, off, fd);
+      } else {
 #pragma unroll
-          for (int t = 0; t < 8; ++t) fq[t] = fd[t] = 0.f;
-        }
+        for (int t = 0; t < 8; ++t) fq[t] = fd[t] = 0.f;
+      }
 #pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          qs[rr * D + c + t] = fq[t];
-          qss[rr * D + c + t] = bwd_scaled_q<BF16>(fq[t], p.scale2);
-          dos[rr * D + c + t] = fd[t];
-        }
+      for (int t = 0; t < 8; ++t) {
+        qs[rr * D + c + t] = fq[t];
+        qss[rr * D + c + t] = bwd_scaled_q<BF16>(fq[t], p.scale2);
+        dos[rr * D + c + t] = fd[t];
       }
-      for (int rr = tid; rr < kQC; rr += kThreads) {
-        const int i = i0 + rr;
-        float l2 = INFINITY, dl = 0.f;  // rows past Lq: P = 0
-        if (i < p.Lq) {
-          l2 = bwd_lse2(p.lse[(size_t)bh * p.Lq + i]);
-          dl = p.delta[(size_t)bh * p.Lq + i];
-        }
-        lse2[rr] = l2;
-        dls[rr] = dl;
+    }
+    for (int rr = tid; rr < kQC; rr += kThreads) {
+      const int i = i0 + rr;
+      float l2 = INFINITY, dl = 0.f;  // rows past Lq: P = 0
+      if (i < p.Lq) {
+        l2 = bwd_lse2(p.lse[(size_t)bh * p.Lq + i]);
+        dl = p.delta[(size_t)bh * p.Lq + i];
       }
+      lse2[rr] = l2;
+      dls[rr] = dl;
+    }
+    __syncthreads();
+
+    // dV, dK and this chunk's dS, one query row at a time.
+    for (int rr = 0; rr < kQC; ++rr) {
+      const float* qrow = qs + rr * D + part * kDt;
+      const float* qsrow = qss + rr * D + part * kDt;
+      const float* drow = dos + rr * D + part * kDt;
+      float s4[4] = {0.f, 0.f, 0.f, 0.f}, dp4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int e = 0; e < kDt; e += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(qsrow + e);
+        const float4 d = *reinterpret_cast<const float4*>(drow + e);
+        s4[0] = fmaf(a.x, kr[e], s4[0]);
+        s4[1] = fmaf(a.y, kr[e + 1], s4[1]);
+        s4[2] = fmaf(a.z, kr[e + 2], s4[2]);
+        s4[3] = fmaf(a.w, kr[e + 3], s4[3]);
+        dp4[0] = fmaf(d.x, vr[e], dp4[0]);
+        dp4[1] = fmaf(d.y, vr[e + 1], dp4[1]);
+        dp4[2] = fmaf(d.z, vr[e + 2], dp4[2]);
+        dp4[3] = fmaf(d.w, vr[e + 3], dp4[3]);
+      }
+      float s = (s4[0] + s4[1]) + (s4[2] + s4[3]);
+      float dp = (dp4[0] + dp4[1]) + (dp4[2] + dp4[3]);
+#pragma unroll
+      for (int off = kKeysPerWarp; off < 32; off <<= 1) {
+        s += __shfl_xor_sync(kFull, s, off);
+        dp += __shfl_xor_sync(kFull, dp, off);
+      }
+      const int i = i0 + rr;
+      const bool visible = key_ok && (!p.causal || j <= i + p.q_offset);
+      const PDs pd = bwd_p_ds<BF16>(s, dp, lse2[rr], dls[rr], visible);
+#pragma unroll
+      for (int e = 0; e < kDt; e += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(qrow + e);
+        const float4 d = *reinterpret_cast<const float4*>(drow + e);
+        dv[e] = fmaf(pd.p, d.x, dv[e]);
+        dv[e + 1] = fmaf(pd.p, d.y, dv[e + 1]);
+        dv[e + 2] = fmaf(pd.p, d.z, dv[e + 2]);
+        dv[e + 3] = fmaf(pd.p, d.w, dv[e + 3]);
+        dk[e] = fmaf(pd.ds, a.x, dk[e]);
+        dk[e + 1] = fmaf(pd.ds, a.y, dk[e + 1]);
+        dk[e + 2] = fmaf(pd.ds, a.z, dk[e + 2]);
+        dk[e + 3] = fmaf(pd.ds, a.w, dk[e + 3]);
+      }
+      if constexpr (kDQ)
+        if (part == 0) dss[key_in_block * kDsPitch + rr] = pd.ds;
+    }
+
+    if constexpr (kDQ) {
       __syncthreads();
-
-      // dV, dK and this chunk's dS, one query row at a time.
-      for (int rr = 0; rr < kQC; ++rr) {
-        const float* qrow = qs + rr * D + part * kDt;
-        const float* qsrow = qss + rr * D + part * kDt;
-        const float* drow = dos + rr * D + part * kDt;
-        float s4[4] = {0.f, 0.f, 0.f, 0.f}, dp4[4] = {0.f, 0.f, 0.f, 0.f};
+      // dQ rows of the chunk: [kQC, D] = dS^T [kQC, kKeys] . K [kKeys, D].
+      float acc[kRq][4];
 #pragma unroll
-        for (int e = 0; e < kDt; e += 4) {
-          const float4 a = *reinterpret_cast<const float4*>(qsrow + e);
-          const float4 d = *reinterpret_cast<const float4*>(drow + e);
-          s4[0] = fmaf(a.x, kr[e], s4[0]);
-          s4[1] = fmaf(a.y, kr[e + 1], s4[1]);
-          s4[2] = fmaf(a.z, kr[e + 2], s4[2]);
-          s4[3] = fmaf(a.w, kr[e + 3], s4[3]);
-          dp4[0] = fmaf(d.x, vr[e], dp4[0]);
-          dp4[1] = fmaf(d.y, vr[e + 1], dp4[1]);
-          dp4[2] = fmaf(d.z, vr[e + 2], dp4[2]);
-          dp4[3] = fmaf(d.w, vr[e + 3], dp4[3]);
-        }
-        float s = (s4[0] + s4[1]) + (s4[2] + s4[3]);
-        float dp = (dp4[0] + dp4[1]) + (dp4[2] + dp4[3]);
-#pragma unroll
-        for (int off = kKeysPerWarp; off < 32; off <<= 1) {
-          s += __shfl_xor_sync(kFull, s, off);
-          dp += __shfl_xor_sync(kFull, dp, off);
-        }
-        const int i = i0 + rr;
-        const bool visible = key_ok && (!p.causal || j <= i + p.q_offset);
-        const PDs pd = bwd_p_ds<BF16>(s, dp, lse2[rr], dls[rr], visible);
-#pragma unroll
-        for (int e = 0; e < kDt; e += 4) {
-          const float4 a = *reinterpret_cast<const float4*>(qrow + e);
-          const float4 d = *reinterpret_cast<const float4*>(drow + e);
-          dv[e] = fmaf(pd.p, d.x, dv[e]);
-          dv[e + 1] = fmaf(pd.p, d.y, dv[e + 1]);
-          dv[e + 2] = fmaf(pd.p, d.z, dv[e + 2]);
-          dv[e + 3] = fmaf(pd.p, d.w, dv[e + 3]);
-          dk[e] = fmaf(pd.ds, a.x, dk[e]);
-          dk[e + 1] = fmaf(pd.ds, a.y, dk[e + 1]);
-          dk[e + 2] = fmaf(pd.ds, a.z, dk[e + 2]);
-          dk[e + 3] = fmaf(pd.ds, a.w, dk[e + 3]);
-        }
-        if constexpr (kDQ)
-          if (part == 0) dss[key_in_block * kDsPitch + rr] = pd.ds;
-      }
-
-      if constexpr (kDQ) {
-        __syncthreads();
-        // dQ rows of the chunk: [kQC, D] = dS^T [kQC, kKeys] . K [kKeys, D].
-        float acc[kRq][4];
-#pragma unroll
-        for (int t = 0; t < kRq; ++t)
-          acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-        for (int jj = 0; jj < kKeys; ++jj) {
-          const float4 kv =
-              *reinterpret_cast<const float4*>(ks + jj * D + cc * 4);
-#pragma unroll
-          for (int t = 0; t < kRq; ++t) {
-            const float w = dss[jj * kDsPitch + grp * kRq + t];
-            acc[t][0] = fmaf(w, kv.x, acc[t][0]);
-            acc[t][1] = fmaf(w, kv.y, acc[t][1]);
-            acc[t][2] = fmaf(w, kv.z, acc[t][2]);
-            acc[t][3] = fmaf(w, kv.w, acc[t][3]);
-          }
-        }
-        float* dq = static_cast<float*>(p.dq);
+      for (int t = 0; t < kRq; ++t)
+        acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+      for (int jj = 0; jj < kKeys; ++jj) {
+        const float4 kv =
+            *reinterpret_cast<const float4*>(ks + jj * D + cc * 4);
 #pragma unroll
         for (int t = 0; t < kRq; ++t) {
-          const int i = i0 + grp * kRq + t;
-          if (i < p.Lq)
-            atomic_add4(dq + ((size_t)bh * p.Lq + i) * D + cc * 4,
-                        make_float4(acc[t][0], acc[t][1], acc[t][2],
-                                    acc[t][3]));
+          const float w = dss[jj * kDsPitch + grp * kRq + t];
+          acc[t][0] = fmaf(w, kv.x, acc[t][0]);
+          acc[t][1] = fmaf(w, kv.y, acc[t][1]);
+          acc[t][2] = fmaf(w, kv.z, acc[t][2]);
+          acc[t][3] = fmaf(w, kv.w, acc[t][3]);
         }
       }
+      // Tiles 0 .. tile - 1 reach this chunk too, and add first.
+      int* order = p.dq_order + (size_t)bh * ((p.Lq + kQC - 1) / kQC) +
+                   i0 / kQC;
+      if (tid == 0)
+        for (long long spins = 0; load_acquire(order) < tile; ++spins) {
+          // an add that never comes (seconds): fail the launch, not hang
+          if (spins > (1ll << 26)) __trap();
+          __nanosleep(32);
+        }
+      __syncthreads();
+      float* dq = static_cast<float*>(p.dq);
+#pragma unroll
+      for (int t = 0; t < kRq; ++t) {
+        const int i = i0 + grp * kRq + t;
+        if (i < p.Lq) {
+          float4* at = reinterpret_cast<float4*>(
+              dq + ((size_t)bh * p.Lq + i) * D + cc * 4);
+          float4 sum = __ldcg(at);
+          sum.x += acc[t][0];
+          sum.y += acc[t][1];
+          sum.z += acc[t][2];
+          sum.w += acc[t][3];
+          __stcg(at, sum);
+        }
+      }
+      __syncthreads();   // every thread's add is made before the release
+      if (tid == 0) store_release(order, tile + 1);
     }
   }
 

@@ -15,12 +15,16 @@
 //
 // What bounds it: at decode (M = 8) the packed bytes, half those of int8
 // (0.5 MB for a 1024 x 1024 projection: 0.16 us at 3.35 TB/s); at prefill
-// the 2 M K N operations on the CUDA cores.  Grouped, each thread keeps
-// the low and the high group's partial sums beside its total and scales
-// them at the group's last row, so the group size needs no relation to the
-// slab.  Those sums take registers (~170 a thread, one block a
-// multiprocessor); holding the kernels to two blocks spilled, and made
-// decode slower.
+// the 2 M K N operations.  Decode and fp32 x at M > 8 run fp32 FMAs on the
+// CUDA cores: grouped, each thread keeps the low and the high group's
+// partial sums beside its total and scales them at the group's last row,
+// so the group size needs no relation to the slab; those sums take
+// registers (~170 a thread, one block a multiprocessor), and holding the
+// kernels to two blocks spilled and made decode slower.  bf16 x at M > 8
+// (groups a multiple of 16) runs the tensor-core form (*_tc_kernel,
+// quant_matmul.cuh): one packed tile converted once per block into the low
+// and the high codes as bf16, each multiplied with its half of x's columns
+// by mma.sync, fp32 sums, group partials scaled at the group's end.
 //
 // C entry: tf_int4_matmul(...) launches on the given stream, allocates
 // nothing and returns cudaGetLastError() (or cudaErrorInvalidValue for
@@ -50,6 +54,16 @@ int4_matmul_group_kernel_m64(const QParams p) {
   quant_matmul_body<8, 32, kInt4Group>(p);
 }
 
+__global__ void __launch_bounds__(kTcThreads)
+int4_matmul_tc_kernel(const QParams p) {
+  quant_matmul_tc_body<kInt4>(p);
+}
+
+__global__ void __launch_bounds__(kTcThreads)
+int4_matmul_group_tc_kernel(const QParams p) {
+  quant_matmul_tc_body<kInt4Group>(p);
+}
+
 }  // namespace
 
 extern "C" {
@@ -68,11 +82,15 @@ int tf_int4_matmul(const void* x, const void* packed, const float* scales,
                   dtype == 1};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (groups)
-    return quant_matmul_launch(int4_matmul_group_kernel_m8,
-                               int4_matmul_group_kernel_m64, p, bm, splits,
-                               false, s);
+    return (bm == kTcBM && (K / groups) % 16)   // the tensor-core form's k
+               ? cudaErrorInvalidValue          // depth divides the group
+               : quant_matmul_launch(int4_matmul_group_kernel_m8,
+                                     int4_matmul_group_kernel_m64,
+                                     int4_matmul_group_tc_kernel, p, bm,
+                                     splits, false, s);
   return quant_matmul_launch(int4_matmul_kernel_m8, int4_matmul_kernel_m64,
-                             p, bm, splits, true, s);
+                             int4_matmul_tc_kernel, p, bm, splits, true,
+                             s);
 }
 
 }  // extern "C"

@@ -9,10 +9,14 @@
 //
 // What bounds it: at decode (M = 8) the code bytes, read once (1 MB for a
 // 1024 x 1024 projection: 0.32 us at 3.35 TB/s); at prefill (M up to
-// 1024) the operations, 2 M K N of them, which this kernel runs as fp32
-// FMAs on the CUDA cores.  The design keeps the weight in int8 from device
-// memory to the registers (no dequantized copy of W is ever written), and
-// splits the code rows over blocks when the output alone gives too few.
+// 1024) the operations, 2 M K N of them.  Three forms, chosen by the
+// wrapper (kernels/quant.py _plan): decode (M <= 8) and fp32 x at M > 8 run
+// fp32 FMAs on the CUDA cores; bf16 x at M > 8 runs int8_matmul_tc_kernel,
+// bf16 products of x and the codes converted exactly to bf16 in shared
+// memory, fp32 sums on the tensor cores (mma.sync).  The design keeps the
+// weight in int8 from device memory to the chip (no dequantized copy of W
+// is ever written), and splits the code rows over blocks when the output
+// alone gives too few.
 //
 // C entry: tf_int8_matmul(...) launches on the given stream, allocates
 // nothing and returns cudaGetLastError() (or cudaErrorInvalidValue for
@@ -32,14 +36,20 @@ int8_matmul_kernel_m64(const QParams p) {
   quant_matmul_body<8, 32, kInt8>(p);
 }
 
+__global__ void __launch_bounds__(kTcThreads)
+int8_matmul_tc_kernel(const QParams p) {
+  quant_matmul_tc_body<kInt8>(p);
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 fp32, 1 bf16, of x and out.  bm: 8 or 64 rows a block; the code
-// rows are split into `splits` ranges of `chunk` rows (a multiple of 128
-// for bm 8, of 32 for bm 64); with splits > 1, part is an fp32 [splits, M,
-// N] workspace.
+// dtype: 0 fp32, 1 bf16, of x and out.  bm: the form, by its rows a block:
+// 8 (decode), 64 (CUDA-core prefill) or 128 (tensor-core prefill, bf16
+// only); the code rows are split into `splits` ranges of `chunk` rows (a
+// multiple of 128 for bm 8, of 32 otherwise); with splits > 1, part is an
+// fp32 [splits, M, N] workspace.
 int tf_int8_matmul(const void* x, const void* codes, const float* scales,
                    void* out, float* part, int M, int N, int K, int bm,
                    int chunk, int splits, int dtype, void* stream) {
@@ -47,7 +57,7 @@ int tf_int8_matmul(const void* x, const void* codes, const float* scales,
   const QParams p{x, static_cast<const uint8_t*>(codes), scales, out, part,
                   M, N, K, K, chunk, 1, dtype == 1};
   return quant_matmul_launch(int8_matmul_kernel_m8, int8_matmul_kernel_m64,
-                             p, bm, splits, true,
+                             int8_matmul_tc_kernel, p, bm, splits, true,
                              static_cast<cudaStream_t>(stream));
 }
 

@@ -28,13 +28,16 @@
 //           rows and sum their [8, 128] tiles in shared memory at the end.
 //           Bounded by the code bytes; four 16-byte loads in flight a
 //           thread;
-//   prefill (M > 8):   BM = 64, BK = 32, a warp per 8 rows of out.
-//           Bounded by operations on the CUDA cores.
+//   prefill (M > 8), fp32 x (or groups the tensor-core form does not
+//           take): BM = 64, BK = 32, a warp per 8 rows of out.  Bounded by
+//           operations on the CUDA cores.
+// bf16 x at M > 8 takes the tensor-core form below (quant_matmul_tc_body).
 // The wrapper splits the code rows over blockIdx.z until there are two
-// blocks a streaming multiprocessor: at decode N / 128 tiles alone would
-// leave most of the card idle (8 blocks at N = 1024).  With more than one
-// split each block writes its fp32 partial sums to a [S, M, N] workspace
-// and a second kernel sums them in split order, scales and rounds.
+// blocks a streaming multiprocessor (the tensor-core form: one): at decode
+// N / 128 tiles alone would leave most of the card idle (8 blocks at N =
+// 1024).  With more than one split each block writes its fp32 partial sums
+// to a [S, M, N] workspace and a second kernel sums them in split order,
+// scales and rounds.
 // Grouped, a lane keeps the low and the high group's partial sums beside
 // its total and scales them at a group's last row (and, when warps split a
 // slab, at the end of its rows), so no group size is tied to the slab.
@@ -274,6 +277,333 @@ __device__ __forceinline__ void quant_matmul_body(const QParams& p) {
   }
 }
 
+// --- the tensor-core prefill form ------------------------------------------
+//
+// For bf16 x at M > 8 (and groups that are a multiple of 16): bf16 products
+// with fp32 sums on the tensor cores (mma.sync.m16n8k16), the arithmetic of
+// the TPU kernels, which feed the codes to the MXU in x's dtype: every code
+// (|c| <= 127) is exact in bf16, and no scale touches a code before the
+// product.  One block of 256 threads (8 warps, 4 along M by 2 along N, a
+// warp 32 x 32 of out) per [128, 64] tile of out and per split of the code
+// rows.  A step covers 64 of x's columns and the 64 code rows that meet
+// them: int8, 64 code rows; int4, 64 packed rows, whose low codes meet x's
+// first half and whose high codes its second, so the block walks its
+// packed rows twice, the low codes first (the second pass reads the same
+// bytes again from L2, and converts the other nibbles).
+//   * x's [128, 64] bf16 and the raw codes' [64, 64] bytes come by cp.async
+//     into a ring of kTcStages stages, so that three steps' loads are in
+//     flight while one is computed;
+//   * each thread converts the 16 code bytes it loaded to bf16 into a
+//     shared [64, 64] tile (two buffers), one step ahead, once per block:
+//     each code feeds the 4 warps along M;
+//   * each warp reads its fragments with ldmatrix (.trans for the codes,
+//     stored K by N) from rows padded by 16 bytes, which keeps both reads
+//     free of bank conflicts.
+// Grouped, a warp keeps the current group's partial products apart and
+// scales them into the sum at the group's last 16 rows (or its split's
+// last), as _matmul4_group_kernel does; one walk over a half at a time
+// needs one partial, not two.
+// mma.sync and not wgmma: the simpler operand layouts (no shared-memory
+// descriptors, no warpgroup-wide asynchrony) are the ones a first tensor-core
+// form could be made right with; wgmma would add the rate of a warpgroup-wide
+// product and TMA loads (ROADMAP.md).
+
+constexpr int kTcThreads = 256;
+constexpr int kTcBM = 128;     // rows of out a block
+constexpr int kTcBN = 64;      // columns of out a block
+constexpr int kTcRows = 64;    // code rows a step (int4: packed rows)
+constexpr int kTcStages = 4;   // steps of x and raw codes in shared memory
+constexpr int kTcP = 64 + 8;   // tile row pitch, bf16: x rows, code rows
+constexpr int kTcXs = kTcBM * kTcP;          // bf16, x, a stage
+constexpr int kTcRaw = kTcRows * kTcBN;      // bytes, raw codes, a stage
+constexpr int kTcCs = kTcRows * kTcP;        // bf16, converted codes
+constexpr int kTcSmem = kTcStages * (2 * kTcXs + kTcRaw) + 2 * 2 * kTcCs;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, or zeros where !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The high 16 bits of two floats that are exact in bf16, as a bf16 pair.
+__device__ __forceinline__ uint32_t bf16_pair(float a, float b) {
+  return __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632);
+}
+
+// (nibble - 8) of the low byte of each half of a word as a bf16 pair:
+// 0x4300 | nibble is the bf16 128 + nibble, less 136 (0xC308) exactly.
+__device__ __forceinline__ uint32_t nibbles_bf16(uint32_t h) {
+  uint32_t r;
+  const uint32_t v = (h & 0x000F000Fu) | 0x43004300u;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;"
+      : "=r"(r) : "r"(v), "r"(0x3F803F80u), "r"(0xC308C308u));
+  return r;
+}
+
+// Sixteen code bytes (a row's piece) as sixteen exact bf16, out[0..15]:
+// int8 codes, or the low (shift 0) or the high (shift 4) nibbles of packed
+// bytes.
+template <bool INT4>
+__device__ __forceinline__ void codes16_bf16(uint4 w, int shift, uint4* out) {
+  const uint32_t word[4] = {w.x, w.y, w.z, w.w};
+  uint32_t o[8];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if constexpr (INT4) {
+      o[2 * e] = nibbles_bf16(__byte_perm(word[e], 0u, 0x4140) >> shift);
+      o[2 * e + 1] = nibbles_bf16(__byte_perm(word[e], 0u, 0x4342) >> shift);
+    } else {
+      float f[4];
+      int8x4(word[e], f);
+      o[2 * e] = bf16_pair(f[0], f[1]);
+      o[2 * e + 1] = bf16_pair(f[2], f[3]);
+    }
+  }
+  out[0] = make_uint4(o[0], o[1], o[2], o[3]);
+  out[1] = make_uint4(o[4], o[5], o[6], o[7]);
+}
+
+// c[2][4] (two m16 tiles by four n8 tiles of the warp) += x tile . code
+// tile over the 16 columns at kk of the step.
+__device__ __forceinline__ void mma_k16(float (&c)[2][4][4],
+                                        const __nv_bfloat16* xs,
+                                        const __nv_bfloat16* cs, int kk,
+                                        int wm, int wn, int lane) {
+  uint32_t a[2][4], b[4][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    ldmatrix_x4(a[i], xs + (wm * 32 + i * 16 + (lane & 15)) * kTcP +
+                          kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj) {
+    uint32_t r[4];
+    ldmatrix_x4_trans(r, cs + (kk * 16 + (lane & 15)) * kTcP + wn * 32 +
+                             jj * 16 + (lane >> 4) * 8);
+    b[2 * jj][0] = r[0];
+    b[2 * jj][1] = r[1];
+    b[2 * jj + 1][0] = r[2];
+    b[2 * jj + 1][1] = r[3];
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) mma_bf16(c[i][j], a[i], b[j]);
+}
+
+template <int MODE>
+__device__ __forceinline__ void quant_matmul_tc_body(const QParams& p) {
+  constexpr bool INT4 = MODE != kInt8, GROUP = MODE == kInt4Group;
+  constexpr uint8_t kZero = INT4 ? 0x88 : 0;     // a code of value 0
+  extern __shared__ uint4 tc_smem[];
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(tc_smem);
+  uint8_t* raw = reinterpret_cast<uint8_t*>(xs + kTcStages * kTcXs);
+  __nv_bfloat16* cs =
+      reinterpret_cast<__nv_bfloat16*>(raw + kTcStages * kTcRaw);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int n0 = blockIdx.x * kTcBN, m0 = blockIdx.y * kTcBM;
+  const int kbeg = blockIdx.z * p.chunk;
+  const int kend = min(p.rows, kbeg + p.chunk);
+  // steps over the split's rows, twice for int4 (low codes, then high)
+  const int walk = kbeg < kend ? (kend - kbeg + kTcRows - 1) / kTcRows : 0;
+  const int steps = INT4 ? 2 * walk : walk;
+  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.x);
+  // 16-byte pieces of x's rows (int4: its second half's too) and of the
+  // code rows stay aligned
+  const bool xvec = INT4 ? p.K % 16 == 0 : p.K % 8 == 0;
+  const bool cvec = p.N % 16 == 0;
+
+  // this thread's code piece: row crow of the step, columns ccol .. + 16
+  const int crow = tid >> 2, ccol = (tid & 3) * 16;
+
+  // the loads of step s into ring stage st: x's 64 columns (piece idx:
+  // row idx / 8, columns (idx % 8) * 8 .. + 8) and the raw codes
+  auto load_step = [&](int st, int s) {
+    const int half = INT4 && s >= walk;
+    const int k0 = kbeg + (s - half * walk) * kTcRows;
+#pragma unroll
+    for (int l = 0; l < kTcBM * 8 / kTcThreads; ++l) {
+      const int idx = tid + l * kTcThreads;
+      const int row = idx >> 3, tc = (idx & 7) * 8;
+      const int r = k0 + tc, col = half * p.rows + r, m = m0 + row;
+      __nv_bfloat16* dst = xs + st * kTcXs + row * kTcP + tc;
+      if (xvec) {
+        const bool ok = m < p.M && r < kend;
+        cp_async16(dst, ok ? x + (size_t)m * p.K + col : x, ok);
+      } else {
+        for (int e = 0; e < 8; ++e) {
+          const bool ok = m < p.M && r + e < kend && col + e < p.K;
+          dst[e] = ok ? x[(size_t)m * p.K + col + e] : __float2bfloat16(0.f);
+        }
+      }
+    }
+    const int kr = k0 + crow, n = n0 + ccol;
+    const uint8_t* src = p.w + (size_t)kr * p.N + n;
+    uint8_t* dst = raw + st * kTcRaw + crow * kTcBN + ccol;
+    if (cvec && kr < kend && n < p.N) {
+      cp_async16(dst, src, true);
+    } else {
+      for (int i = 0; i < 16; ++i)
+        dst[i] = kr < kend && n + i < p.N ? src[i] : kZero;
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  // the raw codes this thread loaded for step s (ring stage st) as bf16
+  // into code buffer buf (int4: the nibbles of the step's half)
+  auto convert = [&](int st, int buf, int s) {
+    uint4 out[2];
+    codes16_bf16<INT4>(
+        *reinterpret_cast<const uint4*>(raw + st * kTcRaw + crow * kTcBN +
+                                        ccol),
+        INT4 && s >= walk ? 4 : 0, out);
+    uint4* dst = reinterpret_cast<uint4*>(cs + buf * kTcCs + crow * kTcP +
+                                          ccol);
+    dst[0] = out[0];
+    dst[1] = out[1];
+  };
+
+  float acc[2][4][4], part[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = part[i][j][e] = 0.f;
+
+  // the columns of out this thread holds in each n8 tile: n, n + 1
+  const int nq = n0 + wn * 32 + 2 * (lane & 3);
+  // scale the group's partial into the sum: srow is a code row of the
+  // group (int4's high half counts from K2)
+  auto fold = [&](int srow) {
+    const float* sc = p.scales + (size_t)(srow / p.group) * p.N;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = nq + 8 * j;
+      const float s0 = __ldg(sc + min(n, p.N - 1));
+      const float s1 = __ldg(sc + min(n + 1, p.N - 1));
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        acc[i][j][0] = fmaf(part[i][j][0], s0, acc[i][j][0]);
+        acc[i][j][1] = fmaf(part[i][j][1], s1, acc[i][j][1]);
+        acc[i][j][2] = fmaf(part[i][j][2], s0, acc[i][j][2]);
+        acc[i][j][3] = fmaf(part[i][j][3], s1, acc[i][j][3]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
+      }
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < kTcStages - 1; ++s) {
+    if (s < steps) {
+      load_step(s, s);
+    } else {
+      asm volatile("cp.async.commit_group;" ::: "memory");
+    }
+  }
+  cp_async_wait<kTcStages - 2>();
+  if (steps > 0) convert(0, 0, 0);
+  __syncthreads();
+  for (int s = 0; s < steps; ++s) {
+    const int ahead = s + kTcStages - 1;
+    if (ahead < steps) {
+      load_step(ahead % kTcStages, ahead);
+    } else {
+      asm volatile("cp.async.commit_group;" ::: "memory");
+    }
+    cp_async_wait<kTcStages - 2>();      // step s + 1 has landed
+    if (s + 1 < steps) convert((s + 1) % kTcStages, (s + 1) & 1, s + 1);
+    const __nv_bfloat16* xst = xs + (s % kTcStages) * kTcXs;
+    const __nv_bfloat16* cst = cs + (s & 1) * kTcCs;
+    const int half = INT4 && s >= walk;
+    const int k0 = kbeg + (s - half * walk) * kTcRows;
+#pragma unroll
+    for (int kk = 0; kk < kTcRows / 16; ++kk) {
+      if constexpr (GROUP) {
+        mma_k16(part, xst, cst, kk, wm, wn, lane);
+        const int r0 = k0 + 16 * kk;   // the 16 rows' first code row
+        if (r0 < kend && ((r0 + 16) % p.group == 0 || r0 + 16 >= kend))
+          fold(half * p.rows + r0);
+      } else {
+        mma_k16(acc, xst, cst, kk, wm, wn, lane);
+      }
+    }
+    __syncthreads();
+  }
+
+  // out (or the split's partial sums), two columns at a time
+  const bool pairs = p.N % 2 == 0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int m = m0 + wm * 32 + i * 16 + (lane >> 2) + 8 * hh;
+        const int n = nq + 8 * j;
+        if (m >= p.M || n >= p.N) continue;
+        float v0 = acc[i][j][2 * hh], v1 = acc[i][j][2 * hh + 1];
+        const bool two = n + 1 < p.N;
+        if (p.part) {
+          float* dst = p.part + ((size_t)blockIdx.z * p.M + m) * p.N + n;
+          if (pairs && two) {
+            *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+          } else {
+            dst[0] = v0;
+            if (two) dst[1] = v1;
+          }
+          continue;
+        }
+        if constexpr (!GROUP) {
+          v0 *= p.scales[n];
+          if (two) v1 *= p.scales[n + 1];
+        }
+        __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(p.out) +
+                             (size_t)m * p.N + n;
+        if (pairs && two) {
+          *reinterpret_cast<__nv_bfloat162*>(dst) =
+              __floats2bfloat162_rn(v0, v1);
+        } else {
+          dst[0] = __float2bfloat16_rn(v0);
+          if (two) dst[1] = __float2bfloat16_rn(v1);
+        }
+      }
+}
+
 // The splits' partial sums, added in split order; then the column scale
 // (per-column modes) and the rounding to out's dtype.
 __global__ void __launch_bounds__(kThreads)
@@ -288,24 +618,36 @@ quant_matmul_reduce_kernel(const float* part, const float* scales, void* out,
   store1(out, i, v, bf16);
 }
 
-// Checks the arguments, launches the tile kernel for BM (k8: BM = 8, k64:
-// BM = 64) and, with more than one split, the reduction.  Returns
-// cudaGetLastError() after each launch, or cudaErrorInvalidValue for
+// Checks the arguments, launches the tile kernel of the form bm names (8:
+// decode, BM = 8; 64: CUDA-core prefill, BM = 64; 128: the tensor-core
+// prefill form, bf16 only, chunks of 64 rows) and, with more than one
+// split, the reduction.
+// Returns cudaGetLastError() after each launch, or cudaErrorInvalidValue for
 // arguments the kernels do not take.
 typedef void (*QKernel)(QParams);
 
-int quant_matmul_launch(QKernel k8, QKernel k64, QParams p, int bm,
-                        int splits, bool scale, cudaStream_t stream) {
-  const int bk = bm == 8 ? 128 : 32;
-  if ((bm != 8 && bm != 64) || p.M <= 0 || p.N <= 0 || p.K <= 0 ||
-      p.rows <= 0 || p.chunk <= 0 || p.chunk % bk || splits < 1 ||
-      (long long)splits * p.chunk < p.rows || (splits > 1) != (p.part != 0))
+int quant_matmul_launch(QKernel k8, QKernel k64, QKernel ktc, QParams p,
+                        int bm, int splits, bool scale, cudaStream_t stream) {
+  const int bk = bm == 8 ? 128 : bm == kTcBM ? kTcRows : 32;
+  if ((bm != 8 && bm != 64 && bm != kTcBM) || (bm == kTcBM && !p.bf16) ||
+      p.M <= 0 || p.N <= 0 || p.K <= 0 || p.rows <= 0 || p.chunk <= 0 ||
+      p.chunk % bk || splits < 1 || (long long)splits * p.chunk < p.rows ||
+      (splits > 1) != (p.part != 0))
     return cudaErrorInvalidValue;
-  const dim3 grid((p.N + kBN - 1) / kBN, (p.M + bm - 1) / bm, splits);
-  if (bm == 8)
-    k8<<<grid, kThreads, 0, stream>>>(p);
-  else
-    k64<<<grid, kThreads, 0, stream>>>(p);
+  if (bm == kTcBM) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ktc, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((p.N + kTcBN - 1) / kTcBN, (p.M + kTcBM - 1) / kTcBM,
+                    splits);
+    ktc<<<grid, kTcThreads, kTcSmem, stream>>>(p);
+  } else {
+    const dim3 grid((p.N + kBN - 1) / kBN, (p.M + bm - 1) / bm, splits);
+    if (bm == 8)
+      k8<<<grid, kThreads, 0, stream>>>(p);
+    else
+      k64<<<grid, kThreads, 0, stream>>>(p);
+  }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const size_t total = (size_t)p.M * p.N;

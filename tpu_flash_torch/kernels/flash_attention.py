@@ -18,16 +18,17 @@ The backward takes the form the JAX package takes for the same shapes
 VMEM and grid steps and is not retuned for the H100):
   * the fused single pass (``flash_attention_backward_fused``,
     ``csrc/flash_attention_bwd.cu``) below the rule's lengths: KV-outer, dK
-    and dV summed over each GQA group in the block, dQ added with fp32
-    atomics into a zeroed workspace (the TPU's race-free full-sequence
-    scratch does not fit in a block's shared memory), so its dQ sums run in
-    a different order from call to call;
+    and dV summed over each GQA group in the block, dQ added into a zeroed
+    fp32 workspace (the TPU's full-sequence scratch does not fit in a
+    block's shared memory) by the blocks of a query chunk one after
+    another, in a fixed order kept by a counter per chunk, so two calls
+    give the same bits;
   * the two passes (``flash_attention_backward_two_pass``,
     ``csrc/flash_attention_bwd_two_pass.cu``) from there on (bf16 causal
     from L = 16384, fp32 from 8192 at d = 64): a dK/dV pass (the fused body
     without dQ) and a dQ pass (one block per query tile, the loop over KV
-    tiles ending at the causal limit).  No atomics: each output is written
-    once, and two calls give the same bits.
+    tiles ending at the causal limit).  Each output is written once, and
+    two calls give the same bits.
 The plain versions are ``flash_attention_backward_plain`` (fused) and its
 halves ``flash_attention_backward_dkv_plain`` / ``_dq_plain``, which
 recompute P and dS the same way.  ``D = rowsum(dO * O) - dlse`` is a torch
@@ -53,6 +54,7 @@ import torch
 from tpu_flash_torch.kernels.backward_form import two_pass
 from tpu_flash_torch.kernels.common import (
     call_on_stream,
+    cdiv,
     check_cuda,
     entry,
     kernel_input,
@@ -69,6 +71,7 @@ KERNEL_DQ = "flash_attention_bwd_dq"
 HEAD_DIMS = (16, 32, 64, 128)
 LOG2E = 1.4426950408889634
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DQ_CHUNK = 32     # query rows a chunk (flash_attention_bwd.cuh kQC)
 
 
 def _not_ported(dropout_rate=0.0, window=None, segment_ids=None,
@@ -273,14 +276,18 @@ def _bwd_inputs(q, k, v, o, lse, do, dlse):
 def _launch_backward(q, k, v, do, lse, delta, causal, scale, q_offset):
     B, H, Hkv, Lq, Lk, d = _shapes(q, k, v)
     dq = torch.zeros(B, H, Lq, d, dtype=torch.float32, device=q.device)
+    # the dQ adds made to each chunk of _DQ_CHUNK query rows (the kernel's
+    # fixed order of adds)
+    dq_order = torch.zeros(B * H * cdiv(Lq, _DQ_CHUNK), dtype=torch.int32,
+                           device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib, fn = entry(KERNEL_BWD, "tf_flash_attention_bwd",
-                    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+                    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
                     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     err = call_on_stream(fn, q.device, q.data_ptr(), k.data_ptr(),
                          v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                         dv.data_ptr(), B, H, Hkv, Lq, Lk, d,
+                         delta.data_ptr(), dq.data_ptr(), dq_order.data_ptr(),
+                         dk.data_ptr(), dv.data_ptr(), B, H, Hkv, Lq, Lk, d,
                          _DTYPES[q.dtype], int(causal), q_offset, scale,
                          scale * LOG2E)
     check_cuda(err, lib, "flash_attention_bwd kernel")

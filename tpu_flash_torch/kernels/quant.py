@@ -13,9 +13,15 @@ even).
 ``int8_matmul`` and ``int4_matmul`` launch ``csrc/int8_matmul.cu`` and
 ``csrc/int4_matmul.cu`` on CUDA tensors and run ``*_plain``, the same
 arithmetic in plain PyTorch, on CPU tensors (``impl="kernel"|"plain"``
-forces one).  Both round as the TPU kernels do: the fp32 product of x and
-the integer codes is scaled after the dot (grouped: each group's partial
-dot is scaled, then summed), and the weight is never dequantized first.
+forces one).  Each source holds three forms of its kernels, and ``_plan``,
+a rule on the shape and dtype, picks one: ``decode`` (M <= 8) and
+``cuda_core`` (fp32 x at M > 8, or groups that are not a multiple of 16)
+run fp32 FMAs on the CUDA cores and count their launches under the
+kernel's name; ``tensor_core`` (bf16 x at M > 8) runs bf16 products with
+fp32 sums on the tensor cores and counts under the name with ``_tc``.
+All round as the TPU kernels do: the fp32 product of x and the integer
+codes is scaled after the dot (grouped: each group's partial dot is
+scaled, then summed), and the weight is never dequantized first.
 ``int8_linear`` and ``int4_linear`` are differentiable in x only, as the
 JAX package's ``custom_vjp``s: dx of the per-column forms runs the int8
 kernel on the transposed codes with the scales folded into dy; the grouped
@@ -44,8 +50,24 @@ from tpu_flash_torch.kernels.common import (
 KERNEL_INT8 = "int8_matmul"
 KERNEL_INT4 = "int4_matmul"          # source, and launches of per-column int4
 KERNEL_INT4_GROUP = "int4_matmul_group"
+TC = "_tc"     # the tensor-core form's launches count under the name + TC
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_BN = 128      # output columns a block (quant_matmul.cuh kBN)
+# The forms (quant_matmul.cuh): rows and columns of out a block, code rows a
+# slab (the chunks of a split are whole slabs), the blocks wanted for each
+# streaming multiprocessor.  The C entries take the rows a block as the form.
+_FORMS = {"decode": (8, 128, 128, 2), "cuda_core": (64, 128, 32, 2),
+          "tensor_core": (128, 64, 64, 1)}
+
+
+class Plan(NamedTuple):
+    """A launch: the form, its tile (``bm`` x ``bn`` of out), the code
+    rows split into ``splits`` ranges of ``chunk`` rows, and the blocks."""
+    form: str
+    bm: int
+    bn: int
+    splits: int
+    chunk: int
+    blocks: int
 
 
 class QuantizedLinearWeights(NamedTuple):
@@ -203,17 +225,36 @@ def _check_int4(x, packed, scales, k_dim) -> bool:
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=4096)
-def _plan(M: int, N: int, rows: int, device) -> tuple[int, int, int]:
-    """(rows a block, splits of the code rows, code rows a split).  Decode
-    (M <= 8) takes 8-row blocks over 128-row slabs, prefill 64-row blocks
-    over 32-row slabs; the code rows are split until the launch has two
-    blocks for each streaming multiprocessor."""
-    bm, bk = (8, 128) if M <= 8 else (64, 32)
-    tiles = cdiv(N, _BN) * cdiv(M, bm)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    splits = max(1, min(cdiv(2 * sms, tiles), cdiv(rows, bk)))
-    chunk = round_up(cdiv(rows, splits), bk)
-    return bm, cdiv(rows, chunk), chunk
+def _plan(M: int, N: int, rows: int, sms: int, dtype: torch.dtype,
+          group: int | None) -> Plan:
+    """The launch for x [M, K], ``rows`` code rows (K, or ceil(K/2)
+    packed), N columns, on a card of ``sms`` streaming multiprocessors;
+    ``group`` is the rows of W a scale covers (None: per column).  M <= 8
+    takes the decode form; bf16 x the tensor-core form where its k depth of
+    16 divides the group; the rest (fp32 x) the CUDA-core form.  The code
+    rows are split until the launch has the form's blocks for each
+    multiprocessor (the tensor-core form's chunks rounded down, so that it
+    gets them whole)."""
+    if M <= 8:
+        form = "decode"
+    elif dtype == torch.bfloat16 and (group is None or group % 16 == 0):
+        form = "tensor_core"
+    else:
+        form = "cuda_core"
+    bm, bn, bk, per_sm = _FORMS[form]
+    tiles = cdiv(N, bn) * cdiv(M, bm)
+    splits = max(1, min(cdiv(per_sm * sms, tiles), cdiv(rows, bk)))
+    if form == "tensor_core" and splits > 1:
+        chunk = max(bk, rows // splits // bk * bk)
+    else:
+        chunk = round_up(cdiv(rows, splits), bk)
+    splits = cdiv(rows, chunk)
+    return Plan(form, bm, bn, splits, chunk, tiles * splits)
+
+
+@functools.lru_cache(maxsize=16)
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _inputs(x, w, scales, what):
@@ -223,17 +264,21 @@ def _inputs(x, w, scales, what):
     return dev, [kernel_input(t, dev) for t in (x, w, scales.float())]
 
 
-def _launch(name, symbol, count_as, x, w, scales, rows, extra):
+def _launch(name, symbol, count_as, x, w, scales, rows, extra, group=None):
     """Launch ``symbol`` of ``csrc/<name>.cu``; ``extra`` are the C
-    arguments between K and bm (the int4 group count).  out takes x's
-    dtype."""
+    arguments between K and bm (the int4 group count), ``group`` the rows
+    a group scale covers.  out takes x's dtype; the launch counts under
+    ``count_as``, with ``TC`` for the tensor-core form."""
     dev, (x, w, s) = _inputs(x, w, scales, name)
     M, K = x.shape
     N = w.shape[1]
     out = torch.empty(M, N, dtype=x.dtype, device=dev)
     if out.numel() == 0:
         return out
-    bm, splits, chunk = _plan(M, N, rows, dev)
+    plan = _plan(M, N, rows, _sms(dev), x.dtype, group)
+    bm, splits, chunk = plan.bm, plan.splits, plan.chunk
+    if plan.form == "tensor_core":
+        count_as += TC
     part = (torch.empty(splits, M, N, dtype=torch.float32, device=dev)
             if splits > 1 else None)
     lib, fn = entry(name, symbol, [ctypes.c_void_p] * 5
@@ -274,7 +319,8 @@ def int4_matmul(x, packed, scales, *, k_dim=None, impl: str | None = None):
     return _launch(KERNEL_INT4, "tf_int4_matmul",
                    KERNEL_INT4_GROUP if grouped else KERNEL_INT4, x, packed,
                    scales, packed.shape[0],
-                   (scales.shape[0] if grouped else 0,))
+                   (scales.shape[0] if grouped else 0,),
+                   x.shape[1] // scales.shape[0] if grouped else None)
 
 
 # ---------------------------------------------------------------------------

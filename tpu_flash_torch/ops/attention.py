@@ -7,13 +7,13 @@
 backward runs ``kernels.flash_attention_backward``, which recomputes
 ``P = exp(S - lse)`` in the form the JAX package takes for the shape
 (``kernels.backward_form``, the TPU's rule, not retuned for the H100): the
-fused single pass below its lengths (dQ summed with atomics, so its bits
-may differ from call to call), the two passes (dK/dV, then dQ;
-deterministic) from there on (bf16 causal from L = 16384, fp32 from 8192
-at d = 64).  ``version=1|2`` selects the FA1 ``(l, m)`` or FA2
-``lse`` residual convention of ``flash_attention_with_residuals``; both run
-the same kernels.  ``impl``: ``None`` launches the CUDA kernels for CUDA
-tensors and runs their plain versions for CPU tensors; ``"kernel"`` or
+fused single pass below its lengths, the two passes (dK/dV, then dQ) from
+there on (bf16 causal from L = 16384, fp32 from 8192 at d = 64).  Both
+are deterministic: two calls give the same bits.  ``version=1|2``
+selects the FA1 ``(l, m)`` or FA2 ``lse`` residual convention of
+``flash_attention_with_residuals``; both run the same kernels.
+``impl``: ``None`` launches the CUDA kernels for CUDA tensors and runs
+their plain versions for CPU tensors; ``"kernel"`` or
 ``"plain"`` forces one (the JAX package's ``"pallas"`` and
 ``"reference"``/``"xla"``).  Quantized K/V, attention dropout, ``window``,
 ``segment_ids`` and the parallel (sharded) form are not ported yet.
