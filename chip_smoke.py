@@ -49,24 +49,27 @@ ported paths:
   makes the host wait nowhere; and one fp32 step with the kernels against
   one with the plain versions (loss, gradients, updated parameters) at the
   production flash config and at the reference fused config;
-* long-context training: the two-pass backward's dK/dV and dQ kernels
-  against their plain halves (fp32 and bf16, causal or not, GQA, Lq != Lk
-  with empty rows, ragged L, d 32/64/128; each limit checked against a
-  dropped tile; two calls the same bits); at mode (f)'s attention shape,
+* long-context training: the two-pass backward's dK/dV and dQ kernels,
+  in the CUDA-core form for fp32 and the tensor-core form for bf16 (each
+  call checked to launch its form), against their plain halves (causal or
+  not, GQA, Lq != Lk with empty rows, ragged L, d 32/64/128; each limit
+  checked against a dropped tile; two calls the same bits); at mode (f)'s
+  attention shape,
   B1 H8 L16384 d64 bf16, the forward kernel and both passes against their
   plain versions, the two passes against the fused kernel, and two calls
   of each backward form giving the same bits; their times
   beside the fused kernel's at B1 H8 L16384 bf16, L8192 fp32 and B4 H8
   L2048 bf16; ``train_epoch`` in mode (f): the production widths at
   L=16384 with remat, the chunked-vocab loss and bf16 mixed precision (8
-  forward, 4 dK/dV and 4 dQ launches a step, the GEMMs' time by operand
+  forward, 4 dK/dV and 4 dQ launches a step in the tensor-core form, the
+  GEMMs' time by operand
   type); peak memory a step with remat and the chunked loss on and off,
   and from the same runs the check that remat on and off give the same
   bits with dropout from one CUDA generator; and the fp32 kernel-vs-plain
   step at 2 layers and L=8192, where fp32 takes the two passes.
 
 The build phase logs each kernel's registers, stack and spills as ptxas
-reports them.
+reports them, and fails if a tensor-core two-pass kernel spills.
 
 Each phase prints JSON lines; any failure raises and the script exits
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -122,21 +125,24 @@ FP32_FLOPS = 67e12             # H100 SXM data sheet, CUDA cores
 BF16_FLOPS = 989e12            # H100 SXM data sheet, dense tensor cores
 L2_BYTES = 50e6                # H100 L2 cache
 ATTENTION = ("flash_attention_fwd", "flash_attention_bwd")
-# The two-pass backward: one source, two kernels with their own counts.
+# The two-pass backward: one source, two kernels with their own counts, each
+# in two forms (fa._two_pass_name): the CUDA-core form (fp32) under the
+# names, the tensor-core form (bf16) under the names + common.TC.
 TWO_PASS_SOURCE = "flash_attention_bwd_two_pass"
-TWO_PASS = ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+TWO_PASS = (fa.KERNEL_DKV, fa.KERNEL_DQ)
+TWO_PASS_TC = tuple(fa._two_pass_name(n, torch.bfloat16) for n in TWO_PASS)
 FUSED = ("layernorm_fwd", "layernorm_bwd", "attn_softmax_fwd",
          "attn_softmax_bwd")
-TRAINING_KERNELS = ATTENTION + TWO_PASS + FUSED
+TRAINING_KERNELS = ATTENTION + TWO_PASS + TWO_PASS_TC + FUSED
 QUANT_SOURCES = ("int8_matmul", "int4_matmul")
 # The quantized matmul kernels by launch count, with (bits, group size) and
 # the TPU kernel each replaces; each has a tensor-core prefill form counted
-# under its name + quant.TC (bf16 x at M > 8), the CUDA-core forms (decode,
+# under its name + common.TC (bf16 x at M > 8), the CUDA-core forms (decode,
 # fp32 x) under its name.
 QUANT = {"int8_matmul": (8, None, "quant.py:49"),
          "int4_matmul": (4, None, "quant.py:228"),
          "int4_matmul_group": (4, 128, "quant.py:258")}
-QUANT_TC = tuple(n + quant.TC for n in QUANT)
+QUANT_TC = tuple(n + common.TC for n in QUANT)
 # Launch-count (and profiler) names, and the sources built from csrc/.
 KERNELS = (("flash_decode",) + TRAINING_KERNELS + tuple(QUANT) + QUANT_TC)
 SOURCES = (("flash_decode",) + ATTENTION + (TWO_PASS_SOURCE,) + FUSED
@@ -706,29 +712,34 @@ def dropped_two_pass_tile(q, k, v, out, lse, do, dq, dk, dv):
 
 def two_pass_cases(gen) -> dict:
     """The dK/dV and dQ kernels against their plain halves on the same
-    inputs (fp32 and bf16, ``TWO_PASS_CASES``), a second call checked to
-    give the same bits, and at B2 H8 L2048 causal a check that each limit
-    fails gradients with one (128 rows x 64 keys) tile of pairs dropped;
-    returns the largest error of each kernel."""
-    worst = dict.fromkeys(TWO_PASS, 0.0)
+    inputs (fp32 and bf16, ``TWO_PASS_CASES``), each call checked to launch
+    its dtype's form, a second call checked to give the same bits, and at
+    B2 H8 L2048 causal a check that each limit fails gradients with one
+    (128 rows x 64 keys) tile of pairs dropped; returns the largest error
+    of each kernel of each form."""
+    worst = dict.fromkeys(TWO_PASS + TWO_PASS_TC, 0.0)
     failed = []
     for dtype in (torch.float32, torch.bfloat16):
         tols = ATTN_TOL[dtype]
         dname = str(dtype).split(".")[1]
+        dkv_name, dq_name = names = tuple(
+            fa._two_pass_name(n, dtype) for n in TWO_PASS)
         for name, B, H, Hkv, Lq, Lk, d, causal in TWO_PASS_CASES:
             args = attention_inputs(gen, B, H, Hkv, Lq, Lk, d, dtype, causal)
-            before = {n: common.launch_counts[n] for n in TWO_PASS}
+            before = {n: common.launch_counts[n]
+                      for n in TWO_PASS + TWO_PASS_TC}
             got = flash_attention_backward_two_pass(*args, causal=causal,
                                                     impl="kernel")
             again = flash_attention_backward_two_pass(*args, causal=causal,
                                                       impl="kernel")
             launched = {n: common.launch_counts[n] - before[n]
-                        for n in TWO_PASS}
+                        for n in TWO_PASS + TWO_PASS_TC}
             dk_ref, dv_ref = flash_attention_backward_dkv_plain(
                 *args, causal=causal)
             dq_ref = flash_attention_backward_dq_plain(*args, causal=causal)
             torch.cuda.synchronize()
-            errs, need, ok = {}, {}, launched == dict.fromkeys(TWO_PASS, 2)
+            errs, need = {}, {}
+            ok = launched == {n: 2 * (n in names) for n in launched}
             for n, a, b in zip(("dq", "dk", "dv"), got,
                                (dq_ref, dk_ref, dv_ref)):
                 errs[n], _, need[n], agree = compare(a, b, tols[n])
@@ -746,10 +757,8 @@ def two_pass_cases(gen) -> dict:
                  "ok": ok})
             if not ok:
                 failed.append(f"{name} {dname}")
-            worst["flash_attention_bwd_dkv"] = max(
-                worst["flash_attention_bwd_dkv"], errs["dk"], errs["dv"])
-            worst["flash_attention_bwd_dq"] = max(
-                worst["flash_attention_bwd_dq"], errs["dq"])
+            worst[dkv_name] = max(worst[dkv_name], errs["dk"], errs["dv"])
+            worst[dq_name] = max(worst[dq_name], errs["dq"])
             if causal and Lq == Lk == 2048:
                 bad = dropped_two_pass_tile(*args, dq_ref, dk_ref, dv_ref)
                 caught = {n: not compare(x, ref, tols[n])[3] for n, x, ref in
@@ -829,9 +838,10 @@ def two_pass_long() -> dict:
 
 
 def two_pass_times(gen) -> dict:
-    """At ``TWO_PASS_TIMED`` (causal, d 64): the dK/dV and dQ kernels each,
-    the pair against the fused kernel, the plain halves where the card's
-    free memory holds them, and the backward of
+    """At ``TWO_PASS_TIMED`` (causal, d 64): the dK/dV and dQ kernels each
+    in their dtype's form, the pair against the fused kernel, the plain
+    halves where the card's free memory holds them (each kernel also held
+    against its half there, under ``ATTN_TOL``), and the backward of
     ``scaled_dot_product_attention`` (one time for the pair), with each
     pass's bound.  CUDA events, the median of 5 batches."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -850,8 +860,10 @@ def two_pass_times(gen) -> dict:
         def timed(fn, n=iters):
             return device_ms(fn, warmup=1, iters=n, reps=5)
 
-        ms = {"flash_attention_bwd_dkv": timed(lambda: fa._launch_dkv(*kin)),
-              "flash_attention_bwd_dq": timed(lambda: fa._launch_dq(*kin))}
+        dkv_name, dq_name = (fa._two_pass_name(n, dtype)
+                             for n in TWO_PASS)
+        ms = {dkv_name: timed(lambda: fa._launch_dkv(*kin)),
+              dq_name: timed(lambda: fa._launch_dq(*kin))}
         pair_ms = timed(lambda: flash_attention_backward_two_pass(
             *args, causal=True, impl="kernel"))
         fused_ms = timed(lambda: flash_attention_backward_fused(
@@ -863,27 +875,39 @@ def two_pass_times(gen) -> dict:
         # the plain halves hold two fp32 [B, H, L, L] tensors and a half
         plain_bytes = 2.5 * B * H * L * L * 4 + 2 ** 30
         fits = torch.cuda.mem_get_info()[0] > 1.2 * plain_bytes
-        plain = {"flash_attention_bwd_dkv": fa._dkv_plain,
-                 "flash_attention_bwd_dq": fa._dq_plain}
+        plain = {dkv_name: fa._dkv_plain, dq_name: fa._dq_plain}
         plain_ms = {n: (device_ms(lambda: f(*pin), warmup=1, iters=1, reps=5)
                         if fits else None) for n, f in plain.items()}
+        # each kernel against its plain half on these inputs, where they fit
+        err = dict.fromkeys(plain)
+        if fits:
+            got = {dkv_name: fa._launch_dkv(*kin),
+                   dq_name: (fa._launch_dq(*kin),)}
+            want = {dkv_name: fa._dkv_plain(*pin),
+                    dq_name: (fa._dq_plain(*pin),)}
+            for n, outs in zip(plain, (("dk", "dv"), ("dq",))):
+                res = [compare(a, b, ATTN_TOL[dtype][o])
+                       for a, b, o in zip(got[n], want[n], outs)]
+                err[n] = max(r[0] for r in res)
+                check(all(r[3] for r in res),
+                      f"{n} disagrees with its plain half at B{B} H{H} "
+                      f"L{L}: {[r[0] for r in res]}")
+            del got, want
         torch.cuda.empty_cache()
         item = q.element_size()
         act = B * H * L * d * item
         product = 2 * B * H * causal_visible(L, L) * d   # one causal product
         peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
         work = {   # (flops, bytes: inputs read once, outputs written once)
-            "flash_attention_bwd_dkv": (4 * product, 6 * act + 2 * B * H * L
-                                        * 4),
-            "flash_attention_bwd_dq": (3 * product, 5 * act + 2 * B * H * L
-                                       * 4)}
+            dkv_name: (4 * product, 6 * act + 2 * B * H * L * 4),
+            dq_name: (3 * product, 5 * act + 2 * B * H * L * 4)}
         dname = str(dtype).split(".")[1]
         shape = f"B{B} H{H} L{L} d{d} causal"
         for n, (flops, nbytes) in work.items():
             bound = {"operations": flops / peak * 1e3,
                      "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
             bound_by = max(bound, key=bound.get)
-            row = {"ms": ms[n], "plain_ms": plain_ms[n],
+            row = {"ms": ms[n], "plain_ms": plain_ms[n], "max_abs_err": err[n],
                    "library_ms": library_ms, "bound_ms": bound[bound_by],
                    "bound_by": bound_by, "of_bound": bound[bound_by] / ms[n],
                    "flops": flops, "bytes": nbytes,
@@ -1186,7 +1210,7 @@ def quant_matmul(kind, x, q, impl):
 def quant_form(kind, M, dtype) -> str:
     """The launch-count name a call of ``kind`` at M rows of ``dtype`` x
     adds to (the plan's form; every group here is a multiple of 16)."""
-    return kind + (quant.TC if dtype == torch.bfloat16 and M > 8 else "")
+    return kind + (common.TC if dtype == torch.bfloat16 and M > 8 else "")
 
 
 def quant_cases(gen) -> dict:
@@ -1625,7 +1649,7 @@ def serving(model, n_layer: int, modes=SERVING_MODES,
     del warm
     torch.cuda.synchronize()
 
-    names = ("flash_decode",) + ((matmul, matmul + quant.TC) if matmul
+    names = ("flash_decode",) + ((matmul, matmul + common.TC) if matmul
                                  else ())
     total = dict.fromkeys(names, 0)
     hook = model.lm_head.register_forward_hook(watch)
@@ -1683,7 +1707,7 @@ def serving(model, n_layer: int, modes=SERVING_MODES,
                 per_forward = 6 * n_layer + 1
                 prefills = (len(prompts) if chunk is None else sum(
                     common.cdiv(len(p), chunk) for p in prompts))
-                tc = matmul + quant.TC
+                tc = matmul + common.TC
                 check(step_launches[matmul] == per_forward
                       and step_launches[tc] == 0
                       and launches[matmul] == per_forward * steps
@@ -1841,6 +1865,12 @@ def main() -> int:
             "warnings": [ln for ln in r.log.splitlines()
                          if "warning" in ln][:20]}
         for n, r in built.items()}})
+    # the tensor-core two-pass kernels must not spill (a spilled form of the
+    # dQ kernel passed its tests 38 times slower)
+    spills = {k: r for k, r in ptxas_report(built[TWO_PASS_SOURCE].log).items()
+              if "_tc_kernel" in k and (r.get("spill_stores", 0)
+                                        or r.get("spill_loads", 0))}
+    check(not spills, f"the tensor-core two-pass kernels spill: {spills}")
 
     gen = torch.Generator(DEV).manual_seed(0)
     worst = kernel_cases(gen)
@@ -1894,11 +1924,11 @@ def main() -> int:
                  {**TRAIN, "use_fused_kernel": True}, prod, torch.bfloat16,
                  0.1, mixed_precision(adam(lr=1e-3)), {**flash, **fused_ln}),
         # remat runs each layer's forward twice; bf16 at L = 16384 takes
-        # the two-pass backward
+        # the two-pass backward in its tensor-core form
         training("(f) long-flash-two-pass-bf16-remat-chunked", TRAIN_LONG,
                  (LONG_B, LONG_L), torch.bfloat16, 0.1,
                  mixed_precision(adam(lr=1e-3)),
-                 {"flash_attention_fwd": 8, **dict.fromkeys(TWO_PASS, 4)},
+                 {"flash_attention_fwd": 8, **dict.fromkeys(TWO_PASS_TC, 4)},
                  chunked_vocab=LONG_CHUNKS),
     ]
     for n in TRAINING_KERNELS:
@@ -1906,10 +1936,14 @@ def main() -> int:
     long_peak_memory()
     training_end_to_end("prod-flash", TRAIN, prod)
     training_end_to_end("ref-fused-fused-ln", REF, ref)
-    training_end_to_end(
+    # fp32 at L = 8192 takes the two passes in their CUDA-core form: the
+    # only run of the main path that launches them
+    long_e2e = training_end_to_end(
         "long-two-pass", {**TRAIN_LONG, "n_layer": 2}, (LONG_B, LONG_E2E_L),
         chunked_vocab=LONG_CHUNKS,
         launches={"flash_attention_fwd": 4, **dict.fromkeys(TWO_PASS, 2)})
+    for n in TWO_PASS:
+        launches[n] += long_e2e["launches"]["kernel"][n]
 
     main_row = next(r for r in rows if r["cache"] == "int8"
                     and r["length"] == 1024)
@@ -1940,25 +1974,42 @@ def main() -> int:
     next(e for e in entries if e["name"] == "flash_attention_fwd")[
         "max_abs_err_at_mode_f_shape"] = max(long_plain["out"],
                                              long_plain["lse"])
-    replaces.update({"flash_attention_bwd_dkv": "flash_attention.py:1134",
-                     "flash_attention_bwd_dq": "flash_attention.py:1159"})
-    for n in TWO_PASS:
-        r = two_rows[(n, torch.bfloat16, LONG_L)]
+    for n, line in zip(TWO_PASS, ("flash_attention.py:1134",
+                                  "flash_attention.py:1159")):
         outs = ("dk", "dv") if n.endswith("dkv") else ("dq",)
+        # the tensor-core form (bf16) at mode (f)'s shape, its max_abs_err
+        # against the plain halves there
+        tc = fa._two_pass_name(n, torch.bfloat16)
+        r = two_rows[(tc, torch.bfloat16, LONG_L)]
         entries.append({
-            "name": n, "route": "cuda",
+            "name": tc, "route": "cuda",
             "source": f"tpu_flash_torch/kernels/csrc/{TWO_PASS_SOURCE}.cu",
-            "replaces": f"tpu_flash/kernels/{replaces[n]}",
-            "launches": launches[n],
-            # against the plain halves at the shape of ms
+            "replaces": f"tpu_flash/kernels/{line}",
+            "launches": launches[tc],
             "max_abs_err": max(long_plain[x] for x in outs),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "shape": f"B{LONG_B} H8 L{LONG_L} d64 causal bf16",
-            "max_abs_err_over_two_pass_cases": two_worst[n],
+            "max_abs_err_over_two_pass_cases": two_worst[tc],
             "max_abs_err_vs_fused_at_this_shape": max(
                 long_fused[x] for x in outs)})
+        # the CUDA-core form (fp32) at the fp32 two-pass shape, its
+        # max_abs_err against the plain halves there
+        r = two_rows[(n, torch.float32, LONG_E2E_L)]
+        check(r["max_abs_err"] is not None,
+              f"{n} fp32 was not held against its plain half at L"
+              f"{LONG_E2E_L}")
+        entries.append({
+            "name": n, "route": "cuda",
+            "source": f"tpu_flash_torch/kernels/csrc/{TWO_PASS_SOURCE}.cu",
+            "replaces": f"tpu_flash/kernels/{line}",
+            "launches": launches[n], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "shape": f"B1 H8 L{LONG_E2E_L} d64 causal fp32",
+            "max_abs_err_over_two_pass_cases": two_worst[n]})
     replaces.update({"layernorm_fwd": "layernorm.py:42",
                      "layernorm_bwd": "layernorm.py:102",
                      "attn_softmax_fwd": "softmax.py:48",
@@ -1977,7 +2028,7 @@ def main() -> int:
                       else "B32 H8 Lq256 Lk256 causal fp32")})
     for n, (_, _, line) in QUANT.items():
         for form, shape in ((n, QUANT_MAIN_SHAPE),
-                            (n + quant.TC, QUANT_TC_SHAPE)):
+                            (n + common.TC, QUANT_TC_SHAPE)):
             r = quant_rows[(n, shape)]
             entries.append({
                 "name": form, "route": "cuda",

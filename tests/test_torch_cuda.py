@@ -272,17 +272,60 @@ def test_flash_attention_kernels_reject_what_they_do_not_take(cuda_device):
 # --- the two-pass backward (dK/dV pass, dQ pass) ----------------------------
 #
 # Each pass against its plain half on the same inputs, at the limits above.
-# The two passes use no atomics: two calls give the same bits.
+# The two passes use no atomics: two calls give the same bits.  bf16 takes
+# the tensor-core form (launches counted under the names + "_tc"), fp32 the
+# CUDA-core form.
 
 
-def two_pass_case(dev, seed, B, H, Hkv, Lq, Lk, d, dtype, causal):
+def two_pass_case(dev, seed, B, H, Hkv, Lq, Lk, d, dtype, causal,
+                  q_offset=None):
     from tpu_flash_torch.kernels.flash_attention import (
         flash_attention_forward)
 
     gen = torch.Generator(dev).manual_seed(seed)
     q, k, v, do = attention_case(gen, dev, B, H, Hkv, Lq, Lk, d, dtype)
-    out, lse, _ = flash_attention_forward(q, k, v, causal=causal)
+    out, lse, _ = flash_attention_forward(q, k, v, causal=causal,
+                                          q_offset=q_offset)
     return q, k, v, out, lse, do
+
+
+def two_pass_names(dtype):
+    """The launch-count names of the two passes' form for ``dtype``."""
+    from tpu_flash_torch.kernels import flash_attention as fa
+
+    return tuple(fa._two_pass_name(n, dtype)
+                 for n in (fa.KERNEL_DKV, fa.KERNEL_DQ))
+
+
+def check_two_pass(q, k, v, out, lse, do, dtype, causal, q_offset=None):
+    """The two passes against their plain halves, each launched once
+    under its form's name (and the other form's names not at all)."""
+    from tpu_flash_torch.kernels.flash_attention import (
+        flash_attention_backward_dkv_plain, flash_attention_backward_dq_plain,
+        flash_attention_backward_two_pass)
+
+    kw = dict(causal=causal, q_offset=q_offset)
+    names = two_pass_names(dtype)
+    others = two_pass_names(torch.float32 if dtype == torch.bfloat16
+                            else torch.bfloat16) + ("flash_attention_bwd",)
+    before = dict(common.launch_counts)
+    dq, dk, dv = flash_attention_backward_two_pass(q, k, v, out, lse, do,
+                                                   **kw)
+    want_dk, want_dv = flash_attention_backward_dkv_plain(q, k, v, out, lse,
+                                                          do, **kw)
+    want_dq = flash_attention_backward_dq_plain(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    for name in names:
+        assert common.launch_counts[name] == before.get(name, 0) + 1
+    for name in others:
+        assert common.launch_counts[name] == before.get(name, 0)
+    for a, b in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert a.dtype == b.dtype == dtype and a.shape == b.shape
+        if dtype == torch.bfloat16:
+            assert_close_bf16(a, b)
+        else:
+            torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)
+    return dq
 
 
 @pytest.mark.cuda
@@ -293,32 +336,68 @@ def two_pass_case(dev, seed, B, H, Hkv, Lq, Lk, d, dtype, causal):
     (1, 4, 4, 70, 130, 32), (1, 2, 2, 1000, 1000, 64)])
 def test_two_pass_kernels_match_plain(cuda_device, dtype, causal, B, H, Hkv,
                                       Lq, Lk, d):
-    from tpu_flash_torch.kernels.flash_attention import (
-        flash_attention_backward_dkv_plain, flash_attention_backward_dq_plain,
-        flash_attention_backward_two_pass)
-
-    q, k, v, out, lse, do = two_pass_case(cuda_device, 6, B, H, Hkv, Lq, Lk,
-                                          d, dtype, causal)
-    before = dict(common.launch_counts)
-    dq, dk, dv = flash_attention_backward_two_pass(q, k, v, out, lse, do,
-                                                   causal=causal)
-    want_dk, want_dv = flash_attention_backward_dkv_plain(
-        q, k, v, out, lse, do, causal=causal)
-    want_dq = flash_attention_backward_dq_plain(q, k, v, out, lse, do,
-                                                causal=causal)
-    torch.cuda.synchronize()
-    for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
-        assert common.launch_counts[name] == before.get(name, 0) + 1
-    assert common.launch_counts["flash_attention_bwd"] == before.get(
-        "flash_attention_bwd", 0)
-    for a, b in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
-        assert a.dtype == b.dtype == dtype and a.shape == b.shape
-        if dtype == torch.bfloat16:
-            assert_close_bf16(a, b)
-        else:
-            torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)
+    args = two_pass_case(cuda_device, 6, B, H, Hkv, Lq, Lk, d, dtype, causal)
+    dq = check_two_pass(*args, dtype, causal)
     if causal and Lq > Lk:                       # rows before the first key
         assert torch.count_nonzero(dq[:, :, :Lq - Lk]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("B,H,Hkv,Lq,Lk,d,q_offset", [
+    (1, 4, 2, 77, 77, 64, None),       # lengths not multiples of 16
+    (1, 2, 2, 100, 45, 32, None),      # Lq > Lk, ragged
+    (1, 2, 2, 45, 100, 32, None),      # Lq < Lk, ragged
+    (1, 2, 2, 96, 96, 64, 17),         # q_offset > 0 at Lq = Lk
+    (1, 2, 2, 96, 96, 64, -23),        # q_offset < 0: rows that see no key
+    (1, 2, 2, 90, 150, 64, 10),
+    (1, 2, 2, 150, 90, 64, -70),
+    (2, 8, 2, 200, 200, 16, None),     # d 16 under GQA
+    (1, 8, 2, 300, 300, 128, None),    # d 128 under GQA
+    (1, 4, 1, 129, 257, 128, 100)])
+def test_two_pass_tensor_core_form_at_ragged_shapes(cuda_device, causal, B,
+                                                    H, Hkv, Lq, Lk, d,
+                                                    q_offset):
+    """The bf16 tensor-core passes at the shapes where its tiles are
+    masked: ragged ends of Lq and Lk, the causal diagonal moved by
+    q_offset either way, and d 16 and 128 under GQA."""
+    args = two_pass_case(cuda_device, 9, B, H, Hkv, Lq, Lk, d,
+                         torch.bfloat16, causal, q_offset)
+    dq = check_two_pass(*args, torch.bfloat16, causal, q_offset)
+    if causal and q_offset is not None and q_offset < 0:
+        assert torch.count_nonzero(dq[:, :, :-q_offset]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["dkv", "dq"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_two_pass_entries_refuse_the_other_forms_dtype(cuda_device, which,
+                                                       dtype):
+    """The tensor-core entries take bf16 only, the CUDA-core entries fp32
+    only: handed the other dtype's flag, an entry returns an error and
+    writes nothing."""
+    import ctypes
+
+    from tpu_flash_torch.kernels import flash_attention as fa
+
+    q, k, v, out, lse, do = two_pass_case(cuda_device, 5, 1, 2, 2, 64, 64,
+                                          16, dtype, True)
+    kin = fa._bwd_inputs(q, k, v, out, lse, do, None)
+    outs = ((torch.full_like(k, float("nan")),
+             torch.full_like(v, float("nan"))) if which == "dkv"
+            else (torch.full_like(q, float("nan")),))
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    name = fa._two_pass_name(
+        fa.KERNEL_DKV if which == "dkv" else fa.KERNEL_DQ, dtype)
+    _, fn = common.entry(fa.SOURCE_TWO_PASS, "tf_" + name,
+                         fa._two_pass_args(6 + len(outs)))
+    err = common.call_on_stream(
+        fn, q.device, *(t.data_ptr() for t in kin), *(t.data_ptr()
+                                                       for t in outs),
+        1, 2, 2, 64, 64, 16, fa._DTYPES[other], 1, 0, 0.25, 0.25 * fa.LOG2E)
+    torch.cuda.synchronize()
+    assert err != 0
+    assert all(torch.isnan(t.float()).all() for t in outs)
 
 
 @pytest.mark.cuda
@@ -390,11 +469,11 @@ def test_backward_takes_the_jax_form_for_the_shape(cuda_device):
         grads = flash_attention_backward(*args, causal=True)
         torch.cuda.synchronize()
         launched = {n: common.launch_counts[n] - before.get(n, 0) for n in
-                    ("flash_attention_bwd", "flash_attention_bwd_dkv",
-                     "flash_attention_bwd_dq")}
+                    ("flash_attention_bwd", "flash_attention_bwd_dkv_tc",
+                     "flash_attention_bwd_dq_tc")}
         assert launched == {"flash_attention_bwd": int(not two),
-                            "flash_attention_bwd_dkv": int(two),
-                            "flash_attention_bwd_dq": int(two)}
+                            "flash_attention_bwd_dkv_tc": int(two),
+                            "flash_attention_bwd_dq_tc": int(two)}
         assert all(torch.isfinite(g).all() for g in grads)
 
 

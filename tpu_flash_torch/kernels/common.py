@@ -40,6 +40,8 @@ NVCC_FLAGS = (
 # Launches per kernel name.  A wrapper adds one where it launches its kernel
 # and nowhere else, so a run can show that its path went through the kernel.
 launch_counts: collections.Counter[str] = collections.Counter()
+# A kernel's tensor-core form counts its launches under the name + TC.
+TC = "_tc"
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -1,11 +1,13 @@
-// What the three flash-attention backward kernels share: the recompute of
-// P and dS for one (query row, key) pair, and the KV-outer body that both the
-// fused single pass (flash_attention_bwd.cu, with dQ) and the dK/dV pass of
+// What the flash-attention backward kernels share: the recompute of P and dS
+// for one (query row, key) pair, and the KV-outer body that both the fused
+// single pass (flash_attention_bwd.cu, with dQ) and the fp32 dK/dV pass of
 // the two-pass form (flash_attention_bwd_two_pass.cu, without dQ) run.  The
-// dQ pass (flash_attention_bwd_two_pass.cu) calls the same recompute, so the
-// three cannot disagree on it, as tpu_flash/kernels/flash_attention.py shares
-// _bwd_p_ds (:1107) between its fused, dK/dV and dQ kernels and
-// _bwd_kv_outer_body (:1254) between the first two.
+// fp32 dQ pass calls the same recompute, so they cannot disagree on it, as
+// tpu_flash/kernels/flash_attention.py shares _bwd_p_ds (:1107) between its
+// fused, dK/dV and dQ kernels and _bwd_kv_outer_body (:1254) between the
+// first two.  The two passes' bf16 tensor-core forms apply bwd_p_ds's
+// arithmetic to whole accumulator fragments (BwdParams and bwd_lse2 from
+// here).
 //
 // Numerics follow the TPU kernels: base-2 softmax with scale * log2(e) folded
 // into q; fp32 dots are exact FMAs (never TF32); with bf16 inputs the scaled

@@ -1,0 +1,90 @@
+// Tensor-core building blocks shared by the kernels that run bf16 products
+// with fp32 sums on Hopper's tensor cores through mma.sync: the quantized
+// matmuls' prefill form (quant_matmul.cuh) and the two-pass flash-attention
+// backward (flash_attention_bwd_two_pass.cu).  Copies from global to shared
+// memory by cp.async, fragment loads by ldmatrix, the m16n8k16 product, and
+// the packing of two values into a bf16 pair.
+//
+// Fragments of mma.sync.m16n8k16 (lane = 4 * g + t, g = lane / 4):
+//   A (16 x 16, row major): a[0] row g, columns 2t, 2t + 1; a[1] row g + 8;
+//     a[2] and a[3] the same rows, columns 2t + 8, 2t + 9;
+//   B (16 x 8):  b[0] rows (k) 2t, 2t + 1 of column g; b[1] rows 2t + 8, 9;
+//   C (16 x 8, fp32): c[0], c[1] row g, columns 2t, 2t + 1; c[2], c[3] row
+//     g + 8.
+// So the C tiles of two neighbouring n8 tiles, packed to bf16 pairs, are
+// the A fragment of a product over those 16 columns.
+//
+// kernels/common.py hashes every .cuh into each library's name, so an edit
+// here rebuilds every kernel.
+
+#pragma once
+
+#include "common.cuh"
+
+namespace {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, or zeros where !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes from global to shared memory, or zeros where !valid.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Waits until at most N of this thread's groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The high 16 bits of two floats that are exact in bf16, as a bf16 pair.
+__device__ __forceinline__ uint32_t bf16_pair(float a, float b) {
+  return __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632);
+}
+
+// Two floats rounded to the nearest bf16 (ties to even), as a bf16 pair:
+// a in the low half.
+__device__ __forceinline__ uint32_t bf16_pair_rn(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+}  // namespace

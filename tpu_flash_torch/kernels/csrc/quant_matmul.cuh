@@ -46,6 +46,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -318,50 +319,6 @@ constexpr int kTcXs = kTcBM * kTcP;          // bf16, x, a stage
 constexpr int kTcRaw = kTcRows * kTcBN;      // bytes, raw codes, a stage
 constexpr int kTcCs = kTcRows * kTcP;        // bf16, converted codes
 constexpr int kTcSmem = kTcStages * (2 * kTcXs + kTcRaw) + 2 * 2 * kTcCs;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory, or zeros where !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// The high 16 bits of two floats that are exact in bf16, as a bf16 pair.
-__device__ __forceinline__ uint32_t bf16_pair(float a, float b) {
-  return __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632);
-}
 
 // (nibble - 8) of the low byte of each half of a word as a bf16 pair:
 // 0x4300 | nibble is the bf16 128 + nibble, less 136 (0xC308) exactly.

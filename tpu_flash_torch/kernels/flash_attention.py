@@ -25,10 +25,13 @@ VMEM and grid steps and is not retuned for the H100):
     give the same bits;
   * the two passes (``flash_attention_backward_two_pass``,
     ``csrc/flash_attention_bwd_two_pass.cu``) from there on (bf16 causal
-    from L = 16384, fp32 from 8192 at d = 64): a dK/dV pass (the fused body
-    without dQ) and a dQ pass (one block per query tile, the loop over KV
-    tiles ending at the causal limit).  Each output is written once, and
-    two calls give the same bits.
+    from L = 16384, fp32 from 8192 at d = 64): a dK/dV pass (KV-outer) and a
+    dQ pass (one block per query tile, the loop over KV tiles ending at the
+    causal limit).  Each output is written once, and two calls give the same
+    bits.  ``_two_pass_name`` picks their form: bf16 runs its products on
+    the tensor cores (``mma.sync`` bf16 with fp32 sums, launches counted
+    under the kernel's name + ``TC``), fp32 runs exact FMAs on the CUDA
+    cores (counted under the name).
 The plain versions are ``flash_attention_backward_plain`` (fused) and its
 halves ``flash_attention_backward_dkv_plain`` / ``_dq_plain``, which
 recompute P and dS the same way.  ``D = rowsum(dO * O) - dlse`` is a torch
@@ -53,6 +56,7 @@ import torch
 
 from tpu_flash_torch.kernels.backward_form import two_pass
 from tpu_flash_torch.kernels.common import (
+    TC,
     call_on_stream,
     cdiv,
     check_cuda,
@@ -295,38 +299,49 @@ def _launch_backward(q, k, v, do, lse, delta, causal, scale, q_offset):
     return dq.mul_(scale).to(q.dtype), dk, dv
 
 
+def _two_pass_name(kernel: str, dtype: torch.dtype) -> str:
+    """``kernel``'s launch-count name in the two passes' form for ``dtype``
+    (its C entry is ``tf_`` + the name): bf16 the tensor-core form, the
+    name + ``TC`` (``mma.sync`` bf16 products with fp32 sums, the TPU
+    kernels' numerics, at every head dim of ``HEAD_DIMS``); fp32 the
+    CUDA-core form, the name (exact fp32 FMAs, never TF32)."""
+    return kernel + (TC if dtype == torch.bfloat16 else "")
+
+
 def _two_pass_args(n_pointers):
     return ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 9
             + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 
 
 def _launch_dkv(q, k, v, do, lse, delta, causal, scale, q_offset):
+    """The dK/dV pass in the form for q's dtype; returns ``(dk, dv)``."""
     B, H, Hkv, Lq, Lk, d = _shapes(q, k, v)
+    name = _two_pass_name(KERNEL_DKV, q.dtype)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib, fn = entry(SOURCE_TWO_PASS, "tf_flash_attention_bwd_dkv",
-                    _two_pass_args(8))
+    lib, fn = entry(SOURCE_TWO_PASS, "tf_" + name, _two_pass_args(8))
     err = call_on_stream(fn, q.device, q.data_ptr(), k.data_ptr(),
                          v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                          delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                          B, H, Hkv, Lq, Lk, d, _DTYPES[q.dtype], int(causal),
                          q_offset, scale, scale * LOG2E)
-    check_cuda(err, lib, "flash_attention_bwd_dkv kernel")
-    launch_counts[KERNEL_DKV] += 1
+    check_cuda(err, lib, f"{name} kernel")
+    launch_counts[name] += 1
     return dk, dv
 
 
 def _launch_dq(q, k, v, do, lse, delta, causal, scale, q_offset):
+    """The dQ pass in the form for q's dtype; returns ``dq``."""
     B, H, Hkv, Lq, Lk, d = _shapes(q, k, v)
+    name = _two_pass_name(KERNEL_DQ, q.dtype)
     dq = torch.empty_like(q)
-    lib, fn = entry(SOURCE_TWO_PASS, "tf_flash_attention_bwd_dq",
-                    _two_pass_args(7))
+    lib, fn = entry(SOURCE_TWO_PASS, "tf_" + name, _two_pass_args(7))
     err = call_on_stream(fn, q.device, q.data_ptr(), k.data_ptr(),
                          v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                          delta.data_ptr(), dq.data_ptr(), B, H, Hkv, Lq, Lk,
                          d, _DTYPES[q.dtype], int(causal), q_offset, scale,
                          scale * LOG2E)
-    check_cuda(err, lib, "flash_attention_bwd_dq kernel")
-    launch_counts[KERNEL_DQ] += 1
+    check_cuda(err, lib, f"{name} kernel")
+    launch_counts[name] += 1
     return dq
 
 

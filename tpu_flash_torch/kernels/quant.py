@@ -42,6 +42,7 @@ from tpu_flash_torch.kernels.common import (
     check_cuda,
     entry,
     kernel_input,
+    TC,
     launch_counts,
     resolve_impl,
     round_up,
@@ -50,7 +51,6 @@ from tpu_flash_torch.kernels.common import (
 KERNEL_INT8 = "int8_matmul"
 KERNEL_INT4 = "int4_matmul"          # source, and launches of per-column int4
 KERNEL_INT4_GROUP = "int4_matmul_group"
-TC = "_tc"     # the tensor-core form's launches count under the name + TC
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The forms (quant_matmul.cuh): rows and columns of out a block, code rows a
 # slab (the chunks of a split are whole slabs), the blocks wanted for each
