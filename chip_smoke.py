@@ -26,13 +26,14 @@ ported paths:
   the tensor-core form, with the logits' error against the bf16 model; and
   the engine against ``generate`` and kernel against plain end to end for
   each of the three;
-* training: the flash-attention forward and backward kernels against their
-  plain versions (fp32 and bf16, causal or not, L 64 to 2048, Lq != Lk with
-  empty rows, GQA, d 32/64/128; each error beside its limit and the
-  output's rms, and a check that the limit fails a dropped key tile) and
-  their times at B4 H8 L2048 d64; the fused backward called twice there
-  (bf16 and fp32) giving the same bits; the fused LayerNorm and masked-softmax
-  kernels against their plain versions (fp32 and bf16, the reference MT
+* training: the flash-attention forward and fused backward kernels, in the
+  CUDA-core form for fp32 and the tensor-core form for bf16 (each call
+  checked to launch its form), against their plain versions (causal or
+  not, L 64 to 2048, Lq != Lk with empty rows, GQA, d 32/64/128; each error
+  beside its limit and the output's rms, and a check that the limit fails
+  a dropped key tile) and their times at B4 H8 L2048 d64; the fused
+  backward called twice there (bf16 and fp32) giving the same bits; the
+  fused LayerNorm and masked-softmax kernels against their plain versions (fp32 and bf16, the reference MT
   shapes, ragged widths, rows that see no key, a fully padded batch row,
   widths above 512; each limit checked against a perturbed row), their
   times at the reference MT shapes, and ``ops.fused``'s kernel route
@@ -57,7 +58,8 @@ ported paths:
   attention shape,
   B1 H8 L16384 d64 bf16, the forward kernel and both passes against their
   plain versions, the two passes against the fused kernel, and two calls
-  of each backward form giving the same bits; their times
+  of each backward form giving the same bits, all in the tensor-core form;
+  their times
   beside the fused kernel's at B1 H8 L16384 bf16, L8192 fp32 and B4 H8
   L2048 bf16; ``train_epoch`` in mode (f): the production widths at
   L=16384 with remat, the chunked-vocab loss and bf16 mixed precision (8
@@ -69,7 +71,9 @@ ported paths:
   step at 2 layers and L=8192, where fp32 takes the two passes.
 
 The build phase logs each kernel's registers, stack and spills as ptxas
-reports them, and fails if a tensor-core two-pass kernel spills.
+reports them, and fails if a flash-attention kernel's tensor-core form
+spills.  Modes (b) and (e) run the forward and the fused backward in their
+tensor-core form, mode (a) in their CUDA-core form.
 
 Each phase prints JSON lines; any failure raises and the script exits
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -124,16 +128,18 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS = 67e12             # H100 SXM data sheet, CUDA cores
 BF16_FLOPS = 989e12            # H100 SXM data sheet, dense tensor cores
 L2_BYTES = 50e6                # H100 L2 cache
-ATTENTION = ("flash_attention_fwd", "flash_attention_bwd")
-# The two-pass backward: one source, two kernels with their own counts, each
-# in two forms (fa._two_pass_name): the CUDA-core form (fp32) under the
-# names, the tensor-core form (bf16) under the names + common.TC.
-TWO_PASS_SOURCE = "flash_attention_bwd_two_pass"
+# Every flash-attention kernel has two forms (fa._form_name): the CUDA-core
+# form (fp32) counted under its name, the tensor-core form (bf16) under the
+# name + common.TC.  The forward and the fused backward: a source each.
+ATTENTION = (fa.KERNEL_FWD, fa.KERNEL_BWD)
+ATTENTION_TC = tuple(fa._form_name(n, torch.bfloat16) for n in ATTENTION)
+# The two-pass backward: one source, two kernels with their own counts.
+TWO_PASS_SOURCE = fa.SOURCE_TWO_PASS
 TWO_PASS = (fa.KERNEL_DKV, fa.KERNEL_DQ)
-TWO_PASS_TC = tuple(fa._two_pass_name(n, torch.bfloat16) for n in TWO_PASS)
+TWO_PASS_TC = tuple(fa._form_name(n, torch.bfloat16) for n in TWO_PASS)
 FUSED = ("layernorm_fwd", "layernorm_bwd", "attn_softmax_fwd",
          "attn_softmax_bwd")
-TRAINING_KERNELS = ATTENTION + TWO_PASS + TWO_PASS_TC + FUSED
+TRAINING_KERNELS = ATTENTION + ATTENTION_TC + TWO_PASS + TWO_PASS_TC + FUSED
 QUANT_SOURCES = ("int8_matmul", "int4_matmul")
 # The quantized matmul kernels by launch count, with (bits, group size) and
 # the TPU kernel each replaces; each has a tensor-core prefill form counted
@@ -239,7 +245,10 @@ DISPATCH_WIDTHS = (640, 1024)
 # largest reading on an H100 (PERF.md).  The L = 2048 causal cases also
 # check that the limit fails an output with one 64-key tile dropped from
 # its last 128 rows, as a faulty kernel would give it.  lse stays fp32 in
-# both dtypes and takes the fp32 limit.
+# both dtypes and takes the fp32 limit; below d = 128 the bf16 normaliser
+# sums P rounded to bf16 (the JAX rule), against the running max in the
+# kernel and the final max in the plain version: up to an ulp of each key's
+# P apart, inside the same limit (PERF.md).
 ATTN_TOL = {   # output: (atol, arms, rtol)
     torch.float32: {"out": (1e-3, 0.0, 1e-3), "lse": (1e-3, 0.0, 1e-3),
                     **dict.fromkeys(("dq", "dk", "dv"), (1e-2, 0.0, 1e-2))},
@@ -518,10 +527,11 @@ def attention_cases(gen) -> dict:
     kernel over every case.  Every case is logged before a disagreement
     fails the phase, and a last line gives, per dtype and output, the
     largest error over its case's rms and the largest arms a case needed."""
-    worst = dict.fromkeys(ATTENTION, 0.0)
+    worst = dict.fromkeys(ATTENTION + ATTENTION_TC, 0.0)
     failed, summary = [], {}
     for dtype in (torch.float32, torch.bfloat16):
         tols = ATTN_TOL[dtype]
+        fwd_name, bwd_name = (fa._form_name(n, dtype) for n in ATTENTION)
         largest = summary[str(dtype).split(".")[1]] = {
             n: {"err_over_rms": 0.0, "arms_needed": 0.0, "limit": t}
             for n, t in tols.items()}
@@ -530,16 +540,22 @@ def attention_cases(gen) -> dict:
             k, v = (torch.randn(B, Hkv, Lk, d, generator=gen,
                                 device=DEV).to(dtype) for _ in range(2))
             do = torch.randn(B, H, Lq, d, generator=gen, device=DEV).to(dtype)
+            before = dict(common.launch_counts)
             out, lse, _ = flash_attention_forward(q, k, v, causal=causal,
                                                   impl="kernel")
-            ref_out, ref_lse, _ = flash_attention_forward(
-                q, k, v, causal=causal, impl="plain")
             grads = flash_attention_backward(q, k, v, out, lse, do,
                                              causal=causal, impl="kernel")
+            launched = {n: c - before.get(n, 0) for n, c in
+                        common.launch_counts.items() if c != before.get(n, 0)}
+            ref_out, ref_lse, _ = flash_attention_forward(
+                q, k, v, causal=causal, impl="plain")
             ref_grads = flash_attention_backward(q, k, v, out, lse, do,
                                                  causal=causal, impl="plain")
             torch.cuda.synchronize()
-            errs, rms, need, ok = {}, {}, {}, True
+            # each call launched its dtype's form (the fused backward at
+            # these lengths)
+            errs, rms, need = {}, {}, {}
+            ok = launched == {fwd_name: 1, bwd_name: 1}
             pairs = [("out", out, ref_out), ("lse", lse, ref_lse)] + list(
                 zip(("dq", "dk", "dv"), grads, ref_grads))
             for n, a, b in pairs:
@@ -554,7 +570,7 @@ def attention_cases(gen) -> dict:
                  "dtype": str(dtype).split(".")[1],
                  "shape": f"B{B} H{H} Hkv{Hkv} Lq{Lq} Lk{Lk} d{d}",
                  "causal": causal, "max_abs_err": errs, "rms": rms,
-                 "arms_needed": need,
+                 "arms_needed": need, "launches": launched,
                  "tol": {n: "atol {} + {} * rms + rtol {}".format(*t)
                          for n, t in tols.items()},
                  "ok": ok})
@@ -577,11 +593,9 @@ def attention_cases(gen) -> dict:
                     big["err_over_rms"] = max(big["err_over_rms"],
                                               errs[n] / rms[n])
                 big["arms_needed"] = max(big["arms_needed"], need[n])
-            worst["flash_attention_fwd"] = max(
-                worst["flash_attention_fwd"], errs["out"], errs["lse"])
-            worst["flash_attention_bwd"] = max(
-                worst["flash_attention_bwd"], errs["dq"], errs["dk"],
-                errs["dv"])
+            worst[fwd_name] = max(worst[fwd_name], errs["out"], errs["lse"])
+            worst[bwd_name] = max(worst[bwd_name], errs["dq"], errs["dk"],
+                                  errs["dv"])
     log({"phase": "attention_tolerance", "limit": "(atol, arms, rtol)",
          **summary})
     check(not failed, f"flash attention disagrees with its plain version: "
@@ -617,16 +631,16 @@ def attention_times(gen, B=4, H=8, L=2048, d=64) -> dict:
         item = q.element_size()
         act = B * H * L * d * item                  # one [B, H, L, d] tensor
         lse_b = B * H * L * 4
+        fwd_name, bwd_name = (fa._form_name(n, dtype) for n in ATTENTION)
         work = {   # useful causal flops; bytes read once and written once
-            "flash_attention_fwd": (2 * B * H * L * L * d, 4 * act + lse_b),
-            "flash_attention_bwd": (5 * B * H * L * L * d,
-                                    8 * act + 2 * lse_b)}
+            fwd_name: (2 * B * H * L * L * d, 4 * act + lse_b),
+            bwd_name: (5 * B * H * L * L * d, 8 * act + 2 * lse_b)}
         timed = {
-            "flash_attention_fwd": (
+            fwd_name: (
                 device_ms(lambda: fwd("kernel"), iters=10),
                 device_ms(lambda: fwd("plain"), iters=5),
                 device_ms(lambda: sdpa(q, k, v, is_causal=True), iters=10)),
-            "flash_attention_bwd": (
+            bwd_name: (
                 device_ms(lambda: bwd("kernel"), iters=10),
                 device_ms(lambda: bwd("plain"), iters=5),
                 device_ms(lambda: torch.autograd.grad(
@@ -645,7 +659,7 @@ def attention_times(gen, B=4, H=8, L=2048, d=64) -> dict:
                  "dtype": str(dtype).split(".")[1],
                  "shape": f"B{B} H{H} L{L} d{d} causal",
                  "library": "scaled_dot_product_attention(is_causal=True)"
-                            + (" backward" if name.endswith("bwd") else ""),
+                            + (" backward" if name == bwd_name else ""),
                  "library_fwd_bwd_ms": lib_fwdbwd_ms, **row})
             rows[(name, dtype)] = row
         del q, k, v, do, out, lse, leaves, lib_out
@@ -654,10 +668,13 @@ def attention_times(gen, B=4, H=8, L=2048, d=64) -> dict:
 
 def fused_backward_bits(gen, B=4, H=8, L=2048, d=64) -> None:
     """The fused backward kernel called twice on the same inputs at the
-    training shape (B4 H8 L2048 d64 causal) in bf16 and fp32: dq, dk and
-    dv the same bits (its dQ is added in a fixed order)."""
+    training shape (B4 H8 L2048 d64 causal) in bf16 (its tensor-core form)
+    and fp32 (its CUDA-core form): dq, dk and dv the same bits (its dQ is
+    added in a fixed order)."""
     for dtype in (torch.bfloat16, torch.float32):
         args = attention_inputs(gen, B, H, H, L, L, d, dtype, True)
+        name = fa._form_name(fa.KERNEL_BWD, dtype)
+        before = common.launch_counts[name]
         first = flash_attention_backward_fused(*args, causal=True,
                                                impl="kernel")
         second = flash_attention_backward_fused(*args, causal=True,
@@ -666,10 +683,13 @@ def fused_backward_bits(gen, B=4, H=8, L=2048, d=64) -> None:
         same = {n: torch.equal(a, b)
                 for n, a, b in zip(("dq", "dk", "dv"), first, second)}
         log({"phase": "fused_backward_bits", "dtype": str(dtype).split(".")[1],
-             "shape": f"B{B} H{H} L{L} d{d} causal",
+             "kernel": name, "shape": f"B{B} H{H} L{L} d{d} causal",
+             "launches": common.launch_counts[name] - before,
              "two_calls_same_bits": same})
         check(all(same.values()), f"the fused backward gives other bits on "
                                   f"a second call ({dtype}): {same}")
+        check(common.launch_counts[name] == before + 2,
+              f"the fused backward did not launch {name} twice")
         del args, first, second
 
 
@@ -723,7 +743,7 @@ def two_pass_cases(gen) -> dict:
         tols = ATTN_TOL[dtype]
         dname = str(dtype).split(".")[1]
         dkv_name, dq_name = names = tuple(
-            fa._two_pass_name(n, dtype) for n in TWO_PASS)
+            fa._form_name(n, dtype) for n in TWO_PASS)
         for name, B, H, Hkv, Lq, Lk, d, causal in TWO_PASS_CASES:
             args = attention_inputs(gen, B, H, Hkv, Lq, Lk, d, dtype, causal)
             before = {n: common.launch_counts[n]
@@ -783,11 +803,13 @@ def two_pass_long() -> dict:
     against their plain halves (each of those builds two [1, 8, 16384,
     16384] fp32 tensors, ~22 GB at most), all at ATTN_TOL's bf16 limits;
     the fused kernel as a second witness for the two passes; two calls of
-    the two passes giving the same bits.  The inputs come from a seed of
+    each backward form giving the same bits; each call checked to launch
+    its tensor-core form.  The inputs come from a seed of
     their own, not from the phases before.  Returns the largest error of
     each output against its plain version (``vs_plain``) and against the
     fused kernel (``vs_fused``)."""
     dtype, tols = torch.bfloat16, ATTN_TOL[torch.bfloat16]
+    before = dict(common.launch_counts)
     q, k, v, out, lse, do = args = attention_inputs(
         torch.Generator(DEV).manual_seed(0), LONG_B, 8, 8, LONG_L, LONG_L,
         64, dtype, True)
@@ -801,6 +823,8 @@ def two_pass_long() -> dict:
     fused = flash_attention_backward_fused(*args, causal=True, impl="kernel")
     fused_again = flash_attention_backward_fused(*args, causal=True,
                                                  impl="kernel")
+    launched = {n: c - before.get(n, 0) for n, c in
+                common.launch_counts.items() if c != before.get(n, 0)}
     plain["dk"], plain["dv"] = flash_attention_backward_dkv_plain(
         *args, causal=True)
     torch.cuda.empty_cache()
@@ -825,12 +849,15 @@ def two_pass_long() -> dict:
            "tol": {n: "atol {} + {} * rms + rtol {}".format(*tols[n])
                    for n in got},
            "two_calls_same_bits": same_bits,
-           "fused_two_calls_same_bits": fused_same,
-           "ok": bool(ok and same_bits and fused_same)}
+           "fused_two_calls_same_bits": fused_same, "launches": launched,
+           "ok": bool(ok and same_bits and fused_same and launched == {
+               ATTENTION_TC[0]: 1, ATTENTION_TC[1]: 2,
+               **dict.fromkeys(TWO_PASS_TC, 2)})}
     log(row)
     check(row["ok"], "at L = 16384 the forward or two-pass kernels disagree "
-                     "with their plain versions or the fused kernel, or two "
-                     "calls of either backward differ")
+                     "with their plain versions or the fused kernel, two "
+                     "calls of either backward differ, or a call did not "
+                     "launch its tensor-core form")
     del args, q, k, v, out, lse, do, two, again, fused, fused_again, plain
     del got
     torch.cuda.empty_cache()
@@ -860,7 +887,7 @@ def two_pass_times(gen) -> dict:
         def timed(fn, n=iters):
             return device_ms(fn, warmup=1, iters=n, reps=5)
 
-        dkv_name, dq_name = (fa._two_pass_name(n, dtype)
+        dkv_name, dq_name = (fa._form_name(n, dtype)
                              for n in TWO_PASS)
         ms = {dkv_name: timed(lambda: fa._launch_dkv(*kin)),
               dq_name: timed(lambda: fa._launch_dq(*kin))}
@@ -1859,18 +1886,24 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    built = common.build(SOURCES)
+    built = common.build(SOURCES, rebuild=True)   # with ptxas's report
     log({"phase": "build", **{
         n: {"seconds": r.seconds, "ptxas": ptxas_report(r.log),
             "warnings": [ln for ln in r.log.splitlines()
                          if "warning" in ln][:20]}
         for n, r in built.items()}})
-    # the tensor-core two-pass kernels must not spill (a spilled form of the
-    # dQ kernel passed its tests 38 times slower)
-    spills = {k: r for k, r in ptxas_report(built[TWO_PASS_SOURCE].log).items()
-              if "_tc_kernel" in k and (r.get("spill_stores", 0)
-                                        or r.get("spill_loads", 0))}
-    check(not spills, f"the tensor-core two-pass kernels spill: {spills}")
+    # the flash-attention kernels' tensor-core forms must not spill (a
+    # spilled form of the two-pass dQ kernel passed its tests 38 times
+    # slower)
+    tc = {k: r for n in ATTENTION + (TWO_PASS_SOURCE,)
+          for k, r in ptxas_report(built[n].log).items() if "_tc_kernel" in k}
+    spills = {k: r for k, r in tc.items()
+              if r.get("spill_stores", 0) or r.get("spill_loads", 0)}
+    log({"phase": "tensor_core_spills", "kernels": len(tc),
+         "spilling": spills})
+    check(len(tc) == 4 * len(fa.HEAD_DIMS) and not spills,
+          f"the flash-attention tensor-core kernels spill or are missing: "
+          f"{len(tc)} reported, {spills}")
 
     gen = torch.Generator(DEV).manual_seed(0)
     worst = kernel_cases(gen)
@@ -1903,9 +1936,10 @@ def main() -> int:
         end_to_end(kind)
 
     # launches a step, both configs having 4 layers: each attention kernel
-    # once a layer; each LayerNorm kernel twice a layer and once before
-    # lm_head
-    flash = dict.fromkeys(ATTENTION, 4)
+    # once a layer, in its dtype's form; each LayerNorm kernel twice a layer
+    # and once before lm_head
+    flash, flash_tc = dict.fromkeys(ATTENTION, 4), dict.fromkeys(ATTENTION_TC,
+                                                                 4)
     fused_sm = dict.fromkeys(("attn_softmax_fwd", "attn_softmax_bwd"), 4)
     fused_ln = dict.fromkeys(("layernorm_fwd", "layernorm_bwd"), 9)
     prod, ref = (TRAIN_B, TRAIN_L), (REF_B, REF_L)
@@ -1914,7 +1948,7 @@ def main() -> int:
                  0.0, adam(lr=1e-3), flash),
         training("(b) prod-flash-bf16-mixed-precision-adam-dropout", TRAIN,
                  prod, torch.bfloat16, 0.1, mixed_precision(adam(lr=1e-3)),
-                 flash),
+                 flash_tc),
         training("(c) ref-fused-fused-ln-fp32-adam", REF, ref, torch.float32,
                  0.0, adam(lr=1e-3), {**fused_sm, **fused_ln}),
         training("(d) ref-fused-fused-ln-bf16-mixed-precision-adam-dropout",
@@ -1922,13 +1956,14 @@ def main() -> int:
                  mixed_precision(adam(lr=1e-3)), {**fused_sm, **fused_ln}),
         training("(e) prod-flash-fused-ln-bf16-mixed-precision-adam-dropout",
                  {**TRAIN, "use_fused_kernel": True}, prod, torch.bfloat16,
-                 0.1, mixed_precision(adam(lr=1e-3)), {**flash, **fused_ln}),
+                 0.1, mixed_precision(adam(lr=1e-3)),
+                 {**flash_tc, **fused_ln}),
         # remat runs each layer's forward twice; bf16 at L = 16384 takes
-        # the two-pass backward in its tensor-core form
+        # the two-pass backward
         training("(f) long-flash-two-pass-bf16-remat-chunked", TRAIN_LONG,
                  (LONG_B, LONG_L), torch.bfloat16, 0.1,
                  mixed_precision(adam(lr=1e-3)),
-                 {"flash_attention_fwd": 8, **dict.fromkeys(TWO_PASS_TC, 4)},
+                 {ATTENTION_TC[0]: 8, **dict.fromkeys(TWO_PASS_TC, 4)},
                  chunked_vocab=LONG_CHUNKS),
     ]
     for n in TRAINING_KERNELS:
@@ -1960,18 +1995,23 @@ def main() -> int:
                 "flash_attention_bwd": "flash_attention.py:1228"}
     long_plain, long_fused = long_errs["vs_plain"], long_errs["vs_fused"]
     for n in ATTENTION:
-        r = attn_rows[(n, torch.bfloat16)]
-        entries.append({
-            "name": n, "route": "cuda",
-            "source": f"tpu_flash_torch/kernels/csrc/{n}.cu",
-            "replaces": f"tpu_flash/kernels/{replaces[n]}",
-            "launches": launches[n],
-            "max_abs_err": attn_worst[n], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": "B4 H8 L2048 d64 causal bf16"})
-    # mode (f) runs the forward kernel at L = 16384 too
-    next(e for e in entries if e["name"] == "flash_attention_fwd")[
+        # the tensor-core form (bf16) and the CUDA-core form (fp32), each at
+        # the training shape
+        for dtype in (torch.bfloat16, torch.float32):
+            form = fa._form_name(n, dtype)
+            r = attn_rows[(form, dtype)]
+            entries.append({
+                "name": form, "route": "cuda",
+                "source": f"tpu_flash_torch/kernels/csrc/{n}.cu",
+                "replaces": f"tpu_flash/kernels/{replaces[n]}",
+                "launches": launches[form],
+                "max_abs_err": attn_worst[form], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                "shape": "B4 H8 L2048 d64 causal "
+                         + str(dtype).split(".")[1]})
+    # mode (f) runs the tensor-core forward at L = 16384 too
+    next(e for e in entries if e["name"] == ATTENTION_TC[0])[
         "max_abs_err_at_mode_f_shape"] = max(long_plain["out"],
                                              long_plain["lse"])
     for n, line in zip(TWO_PASS, ("flash_attention.py:1134",
@@ -1979,7 +2019,7 @@ def main() -> int:
         outs = ("dk", "dv") if n.endswith("dkv") else ("dq",)
         # the tensor-core form (bf16) at mode (f)'s shape, its max_abs_err
         # against the plain halves there
-        tc = fa._two_pass_name(n, torch.bfloat16)
+        tc = fa._form_name(n, torch.bfloat16)
         r = two_rows[(tc, torch.bfloat16, LONG_L)]
         entries.append({
             "name": tc, "route": "cuda",

@@ -131,7 +131,11 @@ def test_decode_step_logits_kernel_matches_plain(cuda_device):
 # rounded to bf16 and may land an ulp either side of a boundary (rtol 2e-2
 # covers two), and the forward kernel rounds p relative to its running max
 # where the plain version uses the row's final max: BF16_ARMS of the
-# output's root mean square on top, chip_smoke.py's limit.
+# output's root mean square on top, chip_smoke.py's limit.  Below d = 128
+# the bf16 normaliser sums that rounded p (the JAX kernel's rule), so the
+# kernel's lse carries the same rounding: in bf16 it is held at 1e-4 against
+# ``stepped_lse``, the plain arithmetic with p rounded where the tensor-core
+# kernel rounds it.
 
 FA_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (1e-4, None)}
 BF16_ARMS, BF16_RTOL = 3e-2, 2e-2
@@ -150,6 +154,33 @@ def assert_close_bf16(got, want):
     assert_within(got, want, BF16_ARMS, BF16_RTOL)
 
 
+def stepped_lse(q, k, causal, q_offset=None):
+    """lse as the tensor-core forward computes it from bf16 q and k: the
+    online softmax over steps of 64 keys (32 at d = 128), each step's p
+    rounded to bf16 against the running max, and below d = 128 the
+    normaliser summing that bf16 p (at d = 128 the fp32 p)."""
+    from tpu_flash_torch.kernels import flash_attention as fa
+
+    B, H, Lq, d = q.shape
+    Lk, g = k.shape[2], H // k.shape[1]
+    q_offset = Lk - Lq if q_offset is None else q_offset
+    s2 = fa._scores2(q, k, 1 / d ** 0.5, causal, q_offset)
+    m = torch.full((B, H, Lq, 1), -float("inf"), device=q.device)
+    l = torch.zeros_like(m)
+    step = 64 if d <= 64 else 32
+    for k0 in range(0, Lk, step):
+        s = s2[..., k0:k0 + step]
+        mx = torch.maximum(m, s.amax(-1, keepdim=True))
+        base = torch.where(torch.isneginf(mx), 0.0, mx)
+        p = torch.exp2(s - base)
+        if d < 128:
+            p = p.bfloat16().float()
+        l = l * torch.exp2(m - base) + p.sum(-1, keepdim=True)
+        m = mx
+    lse = m[..., 0] / fa.LOG2E + torch.log(l[..., 0])
+    return torch.where(torch.isneginf(m[..., 0]), -float("inf"), lse)
+
+
 def attention_case(gen, dev, B, H, Hkv, Lq, Lk, d, dtype):
     q = torch.randn(B, H, Lq, d, generator=gen, device=dev).to(dtype)
     k, v = (torch.randn(B, Hkv, Lk, d, generator=gen, device=dev).to(dtype)
@@ -166,6 +197,7 @@ def attention_case(gen, dev, B, H, Hkv, Lq, Lk, d, dtype):
     (2, 2, 1, 130, 70, 16), (1, 4, 4, 70, 130, 64)])
 def test_flash_attention_kernels_match_plain(cuda_device, dtype, causal, B,
                                              H, Hkv, Lq, Lk, d):
+    from tpu_flash_torch.kernels import flash_attention as fa
     from tpu_flash_torch.kernels.flash_attention import (
         flash_attention_backward, flash_attention_forward)
 
@@ -182,8 +214,13 @@ def test_flash_attention_kernels_match_plain(cuda_device, dtype, causal, B,
     ref = flash_attention_backward(q, k, v, out, lse, do, causal=causal,
                                    impl="plain")
     torch.cuda.synchronize()
-    for name in ("flash_attention_fwd", "flash_attention_bwd"):
-        assert common.launch_counts[name] == before.get(name, 0) + 1
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    for name in (fa.KERNEL_FWD, fa.KERNEL_BWD):
+        mine, theirs = fa._form_name(name, dtype), fa._form_name(name, other)
+        assert common.launch_counts[mine] == before.get(mine, 0) + 1
+        assert common.launch_counts[theirs] == before.get(theirs, 0)
+    if dtype == torch.bfloat16:
+        want = (want[0], stepped_lse(q, k, causal), want[2])
     for a, b in zip(got[1:], want[1:]):          # lse, m (-inf on empty rows)
         torch.testing.assert_close(a, b, atol=fw_tol, rtol=fw_tol)
     for a, b in zip((got[0], *grads), (want[0], *ref)):   # out, dq, dk, dv
@@ -269,6 +306,135 @@ def test_flash_attention_kernels_reject_what_they_do_not_take(cuda_device):
         flash_attention_forward(x, x, x, window=4)
 
 
+# --- the tensor-core forms of the forward and the fused backward (bf16) ----
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("B,H,Hkv,Lq,Lk,d,q_offset", [
+    (1, 4, 2, 77, 77, 64, None),       # lengths not multiples of 16
+    (1, 2, 2, 100, 45, 32, None),      # Lq > Lk: rows that see no key
+    (1, 2, 2, 45, 100, 32, None),      # Lq < Lk
+    (1, 2, 2, 96, 96, 64, 17),         # q_offset > 0 at Lq = Lk
+    (1, 2, 2, 96, 96, 64, -23),        # q_offset < 0: rows that see no key
+    (1, 2, 2, 150, 90, 64, -70),
+    (2, 8, 2, 200, 200, 16, None),     # d 16 under GQA
+    (1, 8, 2, 300, 300, 128, None),    # d 128 under GQA
+    (1, 4, 1, 129, 257, 128, 100)])
+def test_tc_forward_and_fused_backward_at_ragged_shapes(cuda_device, causal,
+                                                        B, H, Hkv, Lq, Lk, d,
+                                                        q_offset):
+    """The bf16 tensor-core forward and fused backward where their tiles
+    are masked (ragged ends of Lq and Lk, the causal diagonal moved by
+    q_offset either way, d 16 and 128 under GQA): each launched once under
+    its ``_tc`` name; out and the gradients within BF16_ARMS of the plain
+    versions, lse within 1e-4 of ``stepped_lse`` and m of the plain row
+    max; rows that see no key give out 0, lse and m -inf and dq 0."""
+    from tpu_flash_torch.kernels.flash_attention import (
+        flash_attention_backward_fused, flash_attention_forward)
+
+    gen = torch.Generator(cuda_device).manual_seed(12)
+    q, k, v, do = attention_case(gen, cuda_device, B, H, Hkv, Lq, Lk, d,
+                                 torch.bfloat16)
+    kw = dict(causal=causal, q_offset=q_offset)
+    before = dict(common.launch_counts)
+    out, lse, m = flash_attention_forward(q, k, v, with_m=True, **kw)
+    want = flash_attention_forward(q, k, v, with_m=True, impl="plain", **kw)
+    grads = flash_attention_backward_fused(q, k, v, out, lse, do, **kw)
+    ref = flash_attention_backward_fused(q, k, v, out, lse, do, impl="plain",
+                                         **kw)
+    torch.cuda.synchronize()
+    launched = {n: c - before.get(n, 0) for n, c in
+                common.launch_counts.items() if c != before.get(n, 0)}
+    assert launched == {"flash_attention_fwd_tc": 1,
+                        "flash_attention_bwd_tc": 1}
+    torch.testing.assert_close(lse, stepped_lse(q, k, causal, q_offset),
+                               atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(m, want[2], atol=1e-4, rtol=1e-4)
+    for a, b in zip((out, *grads), (want[0], *ref)):
+        assert a.dtype == b.dtype == torch.bfloat16 and a.shape == b.shape
+        assert_close_bf16(a, b)
+    empty = max(0, Lq - Lk if q_offset is None else -q_offset) if causal else 0
+    assert torch.count_nonzero(out[:, :, :empty]) == 0
+    assert torch.isneginf(lse[:, :, :empty]).all()
+    assert torch.isneginf(m[:, :, :empty]).all()
+    assert torch.count_nonzero(grads[0][:, :, :empty]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,Lq,Lk,d,causal,q_offset", [
+    (4, 8, 8, 2048, 2048, 64, True, None),    # the production shape
+    (2, 8, 2, 1000, 1000, 128, True, None),   # d 128 under GQA
+    (1, 4, 4, 300, 700, 32, True, 100),
+    (2, 4, 2, 513, 513, 16, False, None)])
+def test_tc_fused_backward_gives_the_same_bits(cuda_device, B, H, Hkv, Lq,
+                                               Lk, d, causal, q_offset):
+    """The tensor-core fused backward adds each 64-row tile's dQ in the
+    order of the key tiles: two calls give the same bits for dq, dk and dv
+    (at d 128 dQ is formed 32 columns at a time inside the ordered
+    section)."""
+    from tpu_flash_torch.kernels.flash_attention import (
+        flash_attention_backward_fused)
+
+    args = two_pass_case(cuda_device, 13, B, H, Hkv, Lq, Lk, d,
+                         torch.bfloat16, causal, q_offset)
+    kw = dict(causal=causal, q_offset=q_offset)
+    before = common.launch_counts["flash_attention_bwd_tc"]
+    first = flash_attention_backward_fused(*args, **kw)
+    second = flash_attention_backward_fused(*args, **kw)
+    torch.cuda.synchronize()
+    assert common.launch_counts["flash_attention_bwd_tc"] == before + 2
+    for a, b in zip(first, second):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_entries_refuse_the_other_forms_dtype(cuda_device, which,
+                                                    dtype):
+    """The forward's and the fused backward's tensor-core entries take bf16
+    only, their CUDA-core entries fp32 only: handed the other dtype's flag,
+    an entry returns an error and writes nothing."""
+    import ctypes
+
+    from tpu_flash_torch.kernels import flash_attention as fa
+
+    q, k, v, out, lse, do = two_pass_case(cuda_device, 5, 1, 2, 2, 64, 64,
+                                          16, dtype, True)
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    kernel = fa.KERNEL_FWD if which == "fwd" else fa.KERNEL_BWD
+    symbol = "tf_" + fa._form_name(kernel, dtype)
+    shape = (1, 2, 2, 64, 64, 16, fa._DTYPES[other], 1, 0)
+
+    def nan_like(t, dtype=None):
+        return torch.full_like(t, float("nan"), dtype=dtype)
+
+    if which == "fwd":
+        outs = (nan_like(q), nan_like(lse), nan_like(lse))
+        _, fn = common.entry(kernel, symbol, [ctypes.c_void_p] * 6
+                             + [ctypes.c_int] * 9
+                             + [ctypes.c_float, ctypes.c_void_p])
+        err = common.call_on_stream(
+            fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            *(t.data_ptr() for t in outs), *shape, 0.25 * fa.LOG2E)
+    else:
+        kin = fa._bwd_inputs(q, k, v, out, lse, do, None)
+        order = torch.zeros(2, dtype=torch.int32, device=q.device)
+        outs = (nan_like(q, torch.float32), nan_like(k), nan_like(v))
+        _, fn = common.entry(kernel, symbol, [ctypes.c_void_p] * 10
+                             + [ctypes.c_int] * 9
+                             + [ctypes.c_float, ctypes.c_float,
+                                ctypes.c_void_p])
+        err = common.call_on_stream(
+            fn, q.device, *(t.data_ptr() for t in kin), outs[0].data_ptr(),
+            order.data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(), *shape,
+            0.25, 0.25 * fa.LOG2E)
+    torch.cuda.synchronize()
+    assert err != 0
+    assert all(torch.isnan(t.float()).all() for t in outs)
+
+
 # --- the two-pass backward (dK/dV pass, dQ pass) ----------------------------
 #
 # Each pass against its plain half on the same inputs, at the limits above.
@@ -293,7 +459,7 @@ def two_pass_names(dtype):
     """The launch-count names of the two passes' form for ``dtype``."""
     from tpu_flash_torch.kernels import flash_attention as fa
 
-    return tuple(fa._two_pass_name(n, dtype)
+    return tuple(fa._form_name(n, dtype)
                  for n in (fa.KERNEL_DKV, fa.KERNEL_DQ))
 
 
@@ -307,7 +473,8 @@ def check_two_pass(q, k, v, out, lse, do, dtype, causal, q_offset=None):
     kw = dict(causal=causal, q_offset=q_offset)
     names = two_pass_names(dtype)
     others = two_pass_names(torch.float32 if dtype == torch.bfloat16
-                            else torch.bfloat16) + ("flash_attention_bwd",)
+                            else torch.bfloat16) + ("flash_attention_bwd",
+                                                    "flash_attention_bwd_tc")
     before = dict(common.launch_counts)
     dq, dk, dv = flash_attention_backward_two_pass(q, k, v, out, lse, do,
                                                    **kw)
@@ -387,7 +554,7 @@ def test_two_pass_entries_refuse_the_other_forms_dtype(cuda_device, which,
              torch.full_like(v, float("nan"))) if which == "dkv"
             else (torch.full_like(q, float("nan")),))
     other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
-    name = fa._two_pass_name(
+    name = fa._form_name(
         fa.KERNEL_DKV if which == "dkv" else fa.KERNEL_DQ, dtype)
     _, fn = common.entry(fa.SOURCE_TWO_PASS, "tf_" + name,
                          fa._two_pass_args(6 + len(outs)))
@@ -436,17 +603,19 @@ def test_fused_backward_is_deterministic(cuda_device, dtype, causal, B, H,
     the production shape; the others cover no causal limit, GQA, Lq > Lk
     with rows that see no key, and Lq < Lk), and they agree with the plain
     version within its limits."""
+    from tpu_flash_torch.kernels import flash_attention as fa
     from tpu_flash_torch.kernels.flash_attention import (
         flash_attention_backward_fused)
 
     args = two_pass_case(cuda_device, 11, B, H, Hkv, Lq, Lk, d, dtype,
                          causal)
-    before = common.launch_counts["flash_attention_bwd"]
+    name = fa._form_name(fa.KERNEL_BWD, dtype)
+    before = common.launch_counts[name]
     first = flash_attention_backward_fused(*args, causal=causal)
     second = flash_attention_backward_fused(*args, causal=causal)
     want = flash_attention_backward_fused(*args, causal=causal, impl="plain")
     torch.cuda.synchronize()
-    assert common.launch_counts["flash_attention_bwd"] == before + 2
+    assert common.launch_counts[name] == before + 2
     for a, b, c in zip(first, second, want):
         assert torch.equal(a, b)
         if dtype == torch.bfloat16:
@@ -458,7 +627,8 @@ def test_fused_backward_is_deterministic(cuda_device, dtype, causal, B, H,
 @pytest.mark.cuda
 def test_backward_takes_the_jax_form_for_the_shape(cuda_device):
     """bf16 causal at L = 16384 takes the two passes, at 2048 the fused
-    pass, as the JAX package's selector does."""
+    pass, as the JAX package's selector does (each in its tensor-core
+    form)."""
     from tpu_flash_torch.kernels.flash_attention import (
         flash_attention_backward)
 
@@ -469,9 +639,9 @@ def test_backward_takes_the_jax_form_for_the_shape(cuda_device):
         grads = flash_attention_backward(*args, causal=True)
         torch.cuda.synchronize()
         launched = {n: common.launch_counts[n] - before.get(n, 0) for n in
-                    ("flash_attention_bwd", "flash_attention_bwd_dkv_tc",
+                    ("flash_attention_bwd_tc", "flash_attention_bwd_dkv_tc",
                      "flash_attention_bwd_dq_tc")}
-        assert launched == {"flash_attention_bwd": int(not two),
+        assert launched == {"flash_attention_bwd_tc": int(not two),
                             "flash_attention_bwd_dkv_tc": int(two),
                             "flash_attention_bwd_dq_tc": int(two)}
         assert all(torch.isfinite(g).all() for g in grads)
@@ -508,9 +678,11 @@ def remat_runs(dev, cfg, L, V, chunks):
             batch, generator=gen, training=True)
         loss.backward()
         torch.cuda.synchronize()
-        launched = {n: common.launch_counts[n] - before.get(n, 0) for n in
-                    ("flash_attention_fwd", "flash_attention_bwd",
-                     "flash_attention_bwd_dkv", "flash_attention_bwd_dq")}
+        launched = {n: common.launch_counts[n] - before.get(n, 0)
+                    for base in ("flash_attention_fwd", "flash_attention_bwd",
+                                 "flash_attention_bwd_dkv",
+                                 "flash_attention_bwd_dq")
+                    for n in (base, base + common.TC)}
         runs[remat] = (loss.detach(), {n: p.grad.clone() for n, p in
                                        model.named_parameters()},
                        gen.get_state(), launched)
@@ -537,10 +709,10 @@ def test_remat_equals_no_remat_bit_for_bit_on_the_card(cuda_device,
         n_vocab=V, n_embd=256, n_head=2, n_positions=L, n_layer=2,
         ff_middle_dim=256, p_dropout=0.1, attention_kind="flash"), L, V, 4)
     for remat in (False, True):
-        assert runs[remat][3] == {"flash_attention_fwd": 2 * (1 + remat),
-                                  "flash_attention_bwd": 0,
-                                  "flash_attention_bwd_dkv": 2,
-                                  "flash_attention_bwd_dq": 2}
+        launched = {n: c for n, c in runs[remat][3].items() if c}
+        assert launched == {"flash_attention_fwd": 2 * (1 + remat),
+                            "flash_attention_bwd_dkv": 2,
+                            "flash_attention_bwd_dq": 2}
     (loss0, g0, s0, _), (loss1, g1, s1, _) = runs[False], runs[True]
     assert torch.equal(loss0, loss1)
     same = all(torch.equal(g0[n], g1[n]) for n in g0)
@@ -565,10 +737,9 @@ def test_remat_equals_no_remat_bit_for_bit_with_the_fused_backward(
         ff_middle_dim=256, p_dropout=0.1, attention_kind="flash",
         dtype=torch.bfloat16), L, V, 0)
     for remat in (False, True):
-        assert runs[remat][3] == {"flash_attention_fwd": 2 * (1 + remat),
-                                  "flash_attention_bwd": 2,
-                                  "flash_attention_bwd_dkv": 0,
-                                  "flash_attention_bwd_dq": 0}
+        launched = {n: c for n, c in runs[remat][3].items() if c}
+        assert launched == {"flash_attention_fwd_tc": 2 * (1 + remat),
+                            "flash_attention_bwd_tc": 2}
     (loss0, g0, s0, _), (loss1, g1, s1, _) = runs[False], runs[True]
     assert torch.equal(loss0, loss1) and torch.equal(s0, s1)
     assert all(torch.equal(g0[n], g1[n]) for n in g0)

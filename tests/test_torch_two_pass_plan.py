@@ -1,5 +1,5 @@
 """The two-pass backward's launch plan (``kernels/flash_attention.py``
-``_two_pass_name``), which runs here without a card: bf16 takes the
+``_form_name``), which runs here without a card: bf16 takes the
 tensor-core form and counts its launches under the kernels' names + ``_tc``,
 fp32 the CUDA-core form under the names; each form calls its own C entry
 and counts one launch where that entry returns success, none where it
@@ -42,7 +42,7 @@ def plain_launches(monkeypatch):
     stand-in)."""
     def counted(kernel, plain):
         def launch(q, *a):
-            common.launch_counts[fa._two_pass_name(kernel, q.dtype)] += 1
+            common.launch_counts[fa._form_name(kernel, q.dtype)] += 1
             return plain(q, *a)
         return launch
 
@@ -64,7 +64,7 @@ def counts_of(run):
 @pytest.mark.parametrize("dtype,suffix", [(BF16, "_tc"), (FP32, "")])
 def test_the_form_follows_the_dtype(dtype, suffix, d):
     q = torch.zeros(1, 1, 8, d, dtype=dtype)
-    assert [fa._two_pass_name(n, q.dtype) for n in NAMES] == [
+    assert [fa._form_name(n, q.dtype) for n in NAMES] == [
         n + suffix for n in NAMES]
 
 
@@ -149,15 +149,15 @@ def test_dispatch_follows_the_jax_rule(monkeypatch, dtype, L, two):
     monkeypatch.setattr(fa, "resolve_impl", lambda impl, x: impl or "kernel")
 
     def zeros_dkv(q, k, v, *a):
-        common.launch_counts[fa._two_pass_name(fa.KERNEL_DKV, q.dtype)] += 1
+        common.launch_counts[fa._form_name(fa.KERNEL_DKV, q.dtype)] += 1
         return torch.zeros_like(k), torch.zeros_like(v)
 
     def zeros_dq(q, *a):
-        common.launch_counts[fa._two_pass_name(fa.KERNEL_DQ, q.dtype)] += 1
+        common.launch_counts[fa._form_name(fa.KERNEL_DQ, q.dtype)] += 1
         return torch.zeros_like(q)
 
     def zeros_fused(q, k, v, *a):
-        common.launch_counts[fa.KERNEL_BWD] += 1
+        common.launch_counts[fa._form_name(fa.KERNEL_BWD, q.dtype)] += 1
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
 
     monkeypatch.setattr(fa, "_launch_dkv", zeros_dkv)
@@ -169,7 +169,7 @@ def test_dispatch_follows_the_jax_rule(monkeypatch, dtype, L, two):
         q, q, q, q, lse, q, causal=True))
     suffix = "_tc" if dtype == BF16 else ""
     assert launched == ({n + suffix: 1 for n in NAMES} if two
-                        else {fa.KERNEL_BWD: 1})
+                        else {fa.KERNEL_BWD + suffix: 1})
 
 
 def test_the_plain_halves_stand_in_for_both_forms_bit_for_bit(

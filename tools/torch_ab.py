@@ -1,9 +1,10 @@
 """Time two trees of the port on one card, in turns (A, B, B, A), each turn
-in a process of its own: the two-pass flash-attention backward's dK/dV and
-dQ kernels, each alone (``_launch_dkv`` / ``_launch_dq`` of
-``kernels/flash_attention.py``, in the form the tree picks for the dtype),
-at the shapes below (causal, d 64; CUDA events, the median of 5 batches),
-with a check that two calls of the pair give the same bits.
+in a process of its own: the flash-attention forward and fused backward
+(``_launch_forward`` / ``_launch_backward`` of ``kernels/flash_attention.py``)
+and the two-pass backward's dK/dV and dQ kernels (``_launch_dkv`` /
+``_launch_dq``), each alone, in the form the tree picks for the dtype, at
+the shapes below (causal, d 64; CUDA events, the median of 5 batches), with
+a check that two calls of each backward give the same bits.
 
     PYTHONPATH=. python3 tools/torch_ab.py A_ROOT B_ROOT
 
@@ -23,24 +24,51 @@ import subprocess
 import sys
 from pathlib import Path
 
-# (dtype, B, H, L): causal, d 64.  B1 H8 L16384 bf16 is mode (f)'s
-# attention shape, where the JAX rule takes the two passes; B4 H8 L2048 bf16
-# the production training shape (the rule keeps the fused kernel there);
-# L8192 fp32 the fp32 two-pass shape.
-SHAPES = (("bfloat16", 1, 8, 16384), ("bfloat16", 4, 8, 2048),
-          ("float32", 1, 8, 8192))
+# (dtype, B, H, L): causal, d 64.  B4 H8 L2048 is the production training
+# shape (the JAX rule takes the fused backward there: modes (a), (b), (e));
+# B1 H8 L16384 bf16 mode (f)'s, where the rule takes the two passes; L8192
+# fp32 the fp32 two-pass shape.
+FWD_BWD_SHAPES = (("bfloat16", 4, 8, 2048), ("bfloat16", 1, 8, 16384),
+                  ("float32", 4, 8, 2048))
+TWO_PASS_SHAPES = (("bfloat16", 1, 8, 16384), ("bfloat16", 4, 8, 2048),
+                   ("float32", 1, 8, 8192))
 
 
-def pass_rows(torch, fa, device_ms) -> list[dict]:
+def inputs_at(torch, fa, shape, gen):
+    """q, k, v, the backward kernels' inputs and the shape's label."""
+    dname, B, H, L = shape
+    dtype = getattr(torch, dname)
+    q, k, v, do = (torch.randn(B, H, L, 64, generator=gen, device="cuda"
+                               ).to(dtype) for _ in range(4))
+    out, lse, _ = fa.flash_attention_forward(q, k, v, causal=True)
+    kin = (*fa._bwd_inputs(q, k, v, out, lse, do, None), True,
+           1 / math.sqrt(64), 0)
+    return q, k, v, kin, f"B{B} H{H} L{L} d64 causal"
+
+
+def timed_rows(torch, fa, device_ms) -> list[dict]:
     gen = torch.Generator("cuda").manual_seed(0)
     rows = []
-    for dname, B, H, L in SHAPES:
-        dtype = getattr(torch, dname)
-        q, k, v, do = (torch.randn(B, H, L, 64, generator=gen, device="cuda"
-                                   ).to(dtype) for _ in range(4))
-        out, lse, _ = fa.flash_attention_forward(q, k, v, causal=True)
-        kin = (*fa._bwd_inputs(q, k, v, out, lse, do, None), True,
-               1 / math.sqrt(64), 0)
+
+    def add(what, dname, shape, fn, same, B, L):
+        iters = max(1, round(4 * 2048 ** 2 * 10 / (B * L * L)))
+        rows.append({"what": what, "dtype": dname, "shape": shape,
+                     "ms": device_ms(fn, warmup=1, iters=iters, reps=5),
+                     "two_calls_same_bits": same})
+
+    for dname, B, H, L in FWD_BWD_SHAPES:
+        q, k, v, kin, shape = inputs_at(torch, fa, (dname, B, H, L), gen)
+        first, second = fa._launch_backward(*kin), fa._launch_backward(*kin)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(first, second))
+        add("fwd", dname, shape, lambda: fa._launch_forward(
+            q, k, v, True, None, None, False), None, B, L)
+        add("bwd_fused", dname, shape, lambda: fa._launch_backward(*kin),
+            same, B, L)
+        del q, k, v, kin, first, second
+        torch.cuda.empty_cache()
+    for dname, B, H, L in TWO_PASS_SHAPES:
+        q, k, v, kin, shape = inputs_at(torch, fa, (dname, B, H, L), gen)
 
         def pair():
             return (*fa._launch_dkv(*kin), fa._launch_dq(*kin))
@@ -48,14 +76,9 @@ def pass_rows(torch, fa, device_ms) -> list[dict]:
         first, second = pair(), pair()
         torch.cuda.synchronize()
         same = all(torch.equal(a, b) for a, b in zip(first, second))
-        iters = max(1, round(4 * 2048 ** 2 * 10 / (B * L * L)))
-        for what, fn in (("dkv", lambda: fa._launch_dkv(*kin)),
-                         ("dq", lambda: fa._launch_dq(*kin))):
-            rows.append({"what": what, "dtype": dname,
-                         "shape": f"B{B} H{H} L{L} d64 causal",
-                         "ms": device_ms(fn, warmup=1, iters=iters, reps=5),
-                         "two_calls_same_bits": same})
-        del q, k, v, do, out, lse, kin, first, second
+        add("dkv", dname, shape, lambda: fa._launch_dkv(*kin), same, B, L)
+        add("dq", dname, shape, lambda: fa._launch_dq(*kin), same, B, L)
+        del q, k, v, kin, first, second
         torch.cuda.empty_cache()
     return rows
 
@@ -69,8 +92,8 @@ def one(root: str) -> dict:
 
     where = Path(fa.__file__).resolve()
     assert Path(root).resolve() in where.parents, where
-    common.build([fa.KERNEL_FWD, fa.SOURCE_TWO_PASS])
-    return {"root": root, "rows": pass_rows(torch, fa, device_ms)}
+    common.build([fa.KERNEL_FWD, fa.KERNEL_BWD, fa.SOURCE_TWO_PASS])
+    return {"root": root, "rows": timed_rows(torch, fa, device_ms)}
 
 
 def main() -> int:

@@ -111,17 +111,17 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names) -> dict[str, BuildResult]:
+def build(names, rebuild: bool = False) -> dict[str, BuildResult]:
     """Compile ``csrc/<name>.cu`` for each name, one ``nvcc`` process per
     source, all started together.  Reuses a library whose source and flags
-    are unchanged."""
+    are unchanged, unless ``rebuild`` (which gets ptxas's report anew)."""
     names = list(names)
     BUILD_DIR.mkdir(exist_ok=True)
     results, running = {}, []
     t0 = time.perf_counter()
     for name in names:
         out = _lib_path(name)
-        if out.exists():
+        if out.exists() and not rebuild:
             results[name] = BuildResult(out, 0.0, "")
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")

@@ -3,8 +3,8 @@
 // Replaces tpu_flash/kernels/flash_attention.py::_bwd_fused_kernel
 // (flash_attention.py:1228) and its body _bwd_kv_outer_body (:1254), launched
 // by pl.pallas_call at :2045.  From q [B, H, Lq, D], k and v [B, Hkv, Lk, D],
-// dO [B, H, Lq, D] (fp32 or bf16), the saved lse and delta = rowsum(dO * O)
-// - dlse (fp32 [B, H, Lq], formed by the caller) it computes
+// dO [B, H, Lq, D], the saved lse and delta = rowsum(dO * O) - dlse (fp32
+// [B, H, Lq], formed by the caller) it computes
 //   P  = exp(S - lse),  dP = dO V^T,  dS = P * (dP - delta),
 //   dV = P^T dO,  dK = scale * dS^T Q,  dQ = scale * dS K.
 // dK and dV ([B, Hkv, Lk, D], the input dtype) are summed over the query heads
@@ -12,7 +12,7 @@
 // [B, H, Lq, D] fp32 workspace that the caller scales and casts: the TPU keeps
 // it race-free by running one (batch, head) in order against a full-sequence
 // VMEM scratch (:1290-1293), which does not fit in a Hopper block's 227 KB of
-// shared memory at L = 2048.  Here the blocks that reach a chunk of 32 query
+// shared memory at L = 2048.  Here the blocks that reach a chunk of query
 // rows add to it one after another, in the order of their key tiles, each
 // waiting on a counter per chunk (dq_order, int32 zeroed by the caller) that
 // the one before it released; so dQ's sums run in one order, and two calls
@@ -20,64 +20,91 @@
 // walk their chunks from the last down, so that the tiles of a head reach
 // each chunk in step (flash_attention_bwd.cuh).
 //
-// What bounds it: operations (five L^2 * D products, 4.3e10 useful flops at
-// B4 H8 L2048 d64 causal, against ~50 MB of traffic).  The body, shared with
-// the dK/dV pass of the two-pass form, is kv_outer_body in
-// flash_attention_bwd.cuh: one block per (batch * KV head, tile of 64 keys),
-// k, v, dK and dV rows in registers, query rows staged in shared memory in
-// chunks, and dQ of a chunk formed as a small product in the block and added
-// in the fixed order above.  Tensor cores, TMA and pipelining are later work
-// (ROADMAP.md).
+// Two forms, chosen by the wrapper (kernels/flash_attention.py _form_name)
+// and exported as separate C entries, both one block per (batch * KV head,
+// tile of 64 keys):
+//   * bf16: the tensor-core form (tf_flash_attention_bwd_tc), kv_outer_tc_body
+//     with dQ: every product an mma.sync.m16n8k16 with fp32 sums (the TPU
+//     rounds q * scale * log2(e), P and dS to bf16 before its dots, which
+//     makes each dot a bf16 x bf16 -> fp32 product), P^T and dS^T reused
+//     from the accumulators as A fragments, the query tiles of 64 rows (the
+//     chunk of the ordered dQ adds) through a cp.async ring, and dQ of a
+//     tile formed on the tensor cores from dS^T in shared memory;
+//   * fp32: the CUDA-core form (tf_flash_attention_bwd), kv_outer_body with
+//     dQ: exact fp32 FMAs, never TF32, k, v, dK and dV rows in registers,
+//     query rows staged in shared memory in chunks of 32, and dQ of a chunk
+//     formed as a small product in the block.
 //
-// C entry: tf_flash_attention_bwd(...) launches on the given stream,
-// allocates nothing and returns cudaGetLastError() (or cudaErrorInvalidValue
-// for a shape or dtype it does not take).
+// What bounds it: operations (five L^2 * D products, 4.3e10 useful flops at
+// B4 H8 L2048 d64 causal, against ~50 MB of traffic).  In bf16 the dQ adds
+// set the pace: one 64 x 64 fp32 tile per (key tile, query tile) pair, 0.28
+// GB of reductions into L2 at that shape and 4.3 GB at B1 H8 L16384 (PERF.md
+// measures their share).  More keys a block, wgmma, TMA and warp
+// specialisation are later work (ROADMAP.md).
+//
+// C entries launch on the given stream, allocate nothing and return
+// cudaGetLastError() (or cudaErrorInvalidValue for a shape or dtype they do
+// not take).
 
 #include "flash_attention_bwd.cuh"
 
 namespace {
 
-template <int D, bool BF16>
+template <int D>
 __global__ void __launch_bounds__(kv_outer_threads<D>())
 flash_attention_bwd_kernel(const BwdParams p) {
-  kv_outer_body<D, BF16, true>(p);
+  kv_outer_body<D, true>(p);
+}
+
+// Two blocks an SM (as the dK/dV pass: without the bound ptxas caps d = 32
+// at 168 registers and spills).
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 2)
+flash_attention_bwd_tc_kernel(const BwdParams p) {
+  kv_outer_tc_body<D, true>(p);
 }
 
 template <int D>
-cudaError_t launch_dtype(const BwdParams& p, int bf16, cudaStream_t stream) {
-  return bf16 ? launch_kv_outer<D, true>(flash_attention_bwd_kernel<D, true>,
-                                         p, stream)
-              : launch_kv_outer<D, true>(flash_attention_bwd_kernel<D, false>,
-                                         p, stream);
+cudaError_t launch_form(const BwdParams& p, bool tc, cudaStream_t stream) {
+  return tc ? launch_kv_outer_tc<D, true>(flash_attention_bwd_tc_kernel<D>, p,
+                                          stream)
+            : launch_kv_outer<D, true>(flash_attention_bwd_kernel<D>, p,
+                                       stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 fp32, 1 bf16 (q, k, v, dout, dk and dv share it).  dq: fp32
-// [B, H, Lq, d] and dq_order: int32 [B * H, ceil(Lq / 32)], both zeroed.
-int tf_flash_attention_bwd(const void* q, const void* k, const void* v,
-                           const void* dout, const float* lse,
-                           const float* delta, float* dq, int* dq_order,
-                           void* dk, void* dv, int B, int H, int Hkv, int Lq,
-                           int Lk, int d, int dtype, int causal, int q_offset,
-                           float scale, float scale2, void* stream) {
-  if (!bwd_args_ok(dtype, H, Hkv, d, (long long)B * Hkv))
-    return cudaErrorInvalidValue;
-  if (B == 0 || H == 0 || Lk == 0) return cudaSuccess;
-  const BwdParams p{q,  k,  v,        dout,        lse,   delta,
-                    dq, dk, dv,       B,           H,     Hkv,
-                    Lq, Lk, q_offset, causal != 0, scale, scale2,
-                    dq_order};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 16: return launch_dtype<16>(p, dtype, st);
-    case 32: return launch_dtype<32>(p, dtype, st);
-    case 64: return launch_dtype<64>(p, dtype, st);
-    case 128: return launch_dtype<128>(p, dtype, st);
+// dtype: 0 fp32 (the CUDA-core form); the _tc entry takes 1, bf16 (the
+// tensor-core form).  q, k, v, dout, dk and dv share it.  dq: fp32
+// [B, H, Lq, d] and dq_order: int32 [B * H, ceil(Lq / chunk)], both zeroed;
+// chunk is 32 rows (CUDA cores) or 64 (tensor cores).
+#define TF_BWD_ENTRY(symbol, tc)                                               \
+  int symbol(const void* q, const void* k, const void* v, const void* dout,   \
+             const float* lse, const float* delta, float* dq, int* dq_order,  \
+             void* dk, void* dv, int B, int H, int Hkv, int Lq, int Lk,       \
+             int d, int dtype, int causal, int q_offset, float scale,         \
+             float scale2, void* stream) {                                    \
+    if (dtype != (tc ? 1 : 0) ||                                              \
+        !bwd_args_ok(dtype, H, Hkv, d, (long long)B * Hkv))                   \
+      return cudaErrorInvalidValue;                                           \
+    if (B == 0 || H == 0 || Lk == 0) return cudaSuccess;                      \
+    const BwdParams p{q,  k,  v,        dout,        lse,   delta,            \
+                      dq, dk, dv,       B,           H,     Hkv,              \
+                      Lq, Lk, q_offset, causal != 0, scale, scale2,           \
+                      dq_order};                                              \
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);               \
+    switch (d) {                                                              \
+      case 16: return launch_form<16>(p, tc, st);                             \
+      case 32: return launch_form<32>(p, tc, st);                             \
+      case 64: return launch_form<64>(p, tc, st);                             \
+      case 128: return launch_form<128>(p, tc, st);                           \
+    }                                                                         \
+    return cudaErrorInvalidValue;                                             \
   }
-  return cudaErrorInvalidValue;
-}
+
+TF_BWD_ENTRY(tf_flash_attention_bwd, false)
+TF_BWD_ENTRY(tf_flash_attention_bwd_tc, true)
 
 }  // extern "C"

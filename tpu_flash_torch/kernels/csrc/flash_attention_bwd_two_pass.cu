@@ -19,7 +19,7 @@
 //     right), heavy query tiles first, scale * dQ written once in the input
 //     dtype, the JAX epilogue at :1223-1225.
 // Each has two forms, chosen by the wrapper (kernels/flash_attention.py
-// _two_pass_name) and exported as separate C entries:
+// _form_name) and exported as separate C entries:
 //   * bf16: the tensor-core form (tf_flash_attention_bwd_dkv_tc,
 //     tf_flash_attention_bwd_dq_tc).  The TPU kernels feed their MXU bf16
 //     operands with fp32 sums, rounding q * scale * log2(e), P before dV and
@@ -30,7 +30,8 @@
 //     tiles of 64 rows stream through a ring of shared-memory stages filled by
 //     cp.async; S, dP, P and dS live in the mma accumulators, and P and dS
 //     become the next product's A fragments without passing through shared
-//     memory (an m16n8 C tile is half an m16n8k16 A tile);
+//     memory (an m16n8 C tile is half an m16n8k16 A tile); the dK/dV pass
+//     shares its body with the fused kernel (flash_attention_bwd.cuh);
 //   * fp32: the CUDA-core form (tf_flash_attention_bwd_dkv / _dq), exact fp32
 //     FMAs, never TF32: the dK/dV pass is kv_outer_body
 //     (flash_attention_bwd.cuh) without dQ; the dQ pass holds a query row's
@@ -49,7 +50,6 @@
 // not take).
 
 #include "flash_attention_bwd.cuh"
-#include "mma.cuh"
 
 namespace {
 
@@ -58,7 +58,7 @@ namespace {
 template <int D>
 __global__ void __launch_bounds__(kv_outer_threads<D>())
 flash_attention_bwd_dkv_kernel(const BwdParams p) {
-  kv_outer_body<D, false, false>(p);
+  kv_outer_body<D, false>(p);
 }
 
 // --- the dQ pass ------------------------------------------------------------
@@ -118,7 +118,7 @@ flash_attention_bwd_dq_kernel(const BwdParams p) {
   }
 #pragma unroll
   for (int e = 0; e < kDt; ++e) {
-    qr[e] = row_ok ? bwd_scaled_q<false>(qr[e], p.scale2) : 0.f;
+    qr[e] = row_ok ? qr[e] * p.scale2 : 0.f;
     if (!row_ok) dor[e] = 0.f;
     dq[e] = 0.f;
   }
@@ -174,7 +174,7 @@ flash_attention_bwd_dq_kernel(const BwdParams p) {
         dp += __shfl_xor_sync(kFull, dp, off);
       }
       const float ds =
-          bwd_p_ds<false>(s, dp, lse2, delta, k0 + jj < limit).ds;
+          bwd_p_ds(s, dp, lse2, delta, k0 + jj < limit).ds;
 #pragma unroll
       for (int e = 0; e < kDt; e += 4) {
         const float4 kk = *reinterpret_cast<const float4*>(krow + e);
@@ -189,7 +189,7 @@ flash_attention_bwd_dq_kernel(const BwdParams p) {
   if (!row_ok) return;
 #pragma unroll
   for (int e = 0; e < kDt; ++e)
-    store_as<false>(p.dq, q_off + e, p.scale * dq[e]);
+    static_cast<float*>(p.dq)[q_off + e] = p.scale * dq[e];
 }
 
 template <int D>
@@ -206,336 +206,27 @@ cudaError_t launch_dq(const BwdParams& p, cudaStream_t stream) {
 
 // --- the tensor-core forms (bf16) -------------------------------------------
 //
-// Both passes are the same shape of kernel.  A block's warps each own 16
-// rows of the fixed side (keys in the dK/dV pass, query rows in the dQ
-// pass); the streamed side comes in tiles of 64 rows through kStages
-// shared-memory stages, each thread's cp.async pieces for tile t + kStages - 1
-// issued before tile t is computed.  One __syncthreads a tile.  A warp
-// computes S (or S^T) and dP (or dP^T) for kStep columns at a time into
-// m16n8 accumulators, turns them into P and dS in place (bwd_p_ds's
-// arithmetic; the element mask only in steps that cross the causal diagonal
-// or the ragged end of Lq or Lk), and feeds P and dS, packed to bf16 pairs,
-// as the A fragments of the products that sum dV, dK or dQ.  Shared-memory
-// rows are padded by 16 bytes, so the 8 rows an ldmatrix reads fall in
-// distinct banks.
-//
-// Fragment orientation: the dK/dV pass computes S^T = K (q scale2)^T, whose
-// rows are keys and whose columns are query rows, so lse2 and D are indexed
-// by column there, and by row in the dQ pass.
+// Both passes are the same shape of kernel (flash_attention_tc.cuh).  The
+// dK/dV pass is kv_outer_tc_body without dQ (flash_attention_bwd.cuh, which
+// the fused kernel runs with dQ).  The dQ pass is its mirror: a block's warps
+// each own 16 query rows, whose q * scale2 and dO are its A fragments, and
+// the keys come in tiles of 64 through kStages shared-memory stages, each
+// thread's cp.async pieces for tile t + kStages - 1 issued before tile t is
+// computed; one __syncthreads a tile.  A warp computes S and dP for kStep
+// keys at a time into m16n8 accumulators, turns them into dS in place
+// (bwd_p_ds's arithmetic; the element mask only in steps that cross the
+// causal diagonal or the ragged end of Lk), and feeds dS, packed to bf16
+// pairs, as the A fragments of dQ += dS K.  lse2 and D are indexed by row
+// here, by column in the dK/dV pass (S^T there).
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kTcThreads = 128;  // 4 warps, 16 fixed rows each
-constexpr int kTcBlock = 64;     // keys (dK/dV) or query rows (dQ) a block
-constexpr int kTcTile = 64;      // query rows (dK/dV) or keys (dQ) a stage
-
+// dK/dV: one block per (batch * KV head, tile of 64 keys), key-tile major,
+// so the low tiles, which see the most query rows, start first.  Two blocks
+// an SM: without the bound, ptxas caps d = 32 at 168 registers
+// (three blocks) and spills.
 template <int D>
-struct TcShape {
-  static constexpr int P = D + 8;             // bf16 row pitch in shared memory
-  static constexpr int kStages = D <= 64 ? 3 : 2;
-  // columns of S a warp holds at once: 32 at d = 128 keeps S, dP and the
-  // accumulators in registers
-  static constexpr int kStep = D <= 64 ? 64 : 32;
-  // the warp's fixed A fragments in registers (else read by ldmatrix each
-  // time, at d = 128)
-  static constexpr bool kRegs = D <= 64;
-  static constexpr int kPieces = kTcTile * D / 8 / kTcThreads;  // a thread's
-                                               // 16-byte pieces of one tile
-  static constexpr int kTileBytes = kTcTile * P * 2;
-  static_assert(kPieces * kTcThreads * 8 == kTcTile * D, "piece mapping");
-};
-
-// The 16-byte pieces of a [64, D] tile (rows r0 .. r0 + 63 of a [rows, D]
-// array at src) that this thread copies into dst [64][P]; rows at or past
-// n are zeros.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const void* src,
-                                          size_t base, int r0, int n,
-                                          int tid) {
-  using S = TcShape<D>;
-#pragma unroll
-  for (int l = 0; l < S::kPieces; ++l) {
-    const int idx = tid + l * kTcThreads;
-    const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
-    const bool ok = r0 + r < n;
-    cp_async16(dst + r * S::P + c,
-               static_cast<const bf16*>(src) +
-                   (base + (ok ? r0 + r : 0)) * D + c,
-               ok);
-  }
-}
-
-// This thread's pieces of a q tile (as load_tile copied them) times
-// scale * log2(e), rounded to bf16, into dst (which may be src).
-template <int D>
-__device__ __forceinline__ void scale_tile(bf16* dst, const bf16* src,
-                                           float scale2, int tid) {
-  using S = TcShape<D>;
-#pragma unroll
-  for (int l = 0; l < S::kPieces; ++l) {
-    const int idx = tid + l * kTcThreads;
-    const int off = idx / (D / 8) * S::P + (idx % (D / 8)) * 8;
-    const uint4 w = *reinterpret_cast<const uint4*>(src + off);
-    float f[8];
-    bf16x2(w.x, f);
-    bf16x2(w.y, f + 2);
-    bf16x2(w.z, f + 4);
-    bf16x2(w.w, f + 6);
-    *reinterpret_cast<uint4*>(dst + off) = make_uint4(
-        bf16_pair_rn(f[0] * scale2, f[1] * scale2),
-        bf16_pair_rn(f[2] * scale2, f[3] * scale2),
-        bf16_pair_rn(f[4] * scale2, f[5] * scale2),
-        bf16_pair_rn(f[6] * scale2, f[7] * scale2));
-  }
-}
-
-// The A fragment of rows row0 .. row0 + 15, columns 16 kk .. 16 kk + 15.
-template <int D>
-__device__ __forceinline__ void a_frag(uint32_t* a, const bf16* tile,
-                                       int row0, int kk, int lane) {
-  ldmatrix_x4(a, tile + (row0 + (lane & 15)) * TcShape<D>::P + kk * 16 +
-                     (lane >> 4) * 8);
-}
-
-// B fragments of two n8 tiles (b[0..1] and b[2..3]) from a tile stored n by
-// k (the rows are the product's columns): rows n0 .. n0 + 15, columns
-// 16 kk .. 16 kk + 15.
-template <int D>
-__device__ __forceinline__ void b_frags_nk(uint32_t* b, const bf16* tile,
-                                           int n0, int kk, int lane) {
-  ldmatrix_x4(b, tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) *
-                            TcShape<D>::P +
-                     kk * 16 + ((lane >> 3) & 1) * 8);
-}
-
-// B fragments of two n8 tiles from a tile stored k by n: rows (k)
-// k0 .. k0 + 15, columns (n) n0 .. n0 + 15.
-template <int D>
-__device__ __forceinline__ void b_frags_kn(uint32_t* b, const bf16* tile,
-                                           int k0, int n0, int lane) {
-  ldmatrix_x4_trans(b, tile + (k0 + (lane & 15)) * TcShape<D>::P + n0 +
-                           (lane >> 4) * 8);
-}
-
-// The A fragment over the 16 accumulator columns 16 kk .. 16 kk + 15.
-template <int N>
-__device__ __forceinline__ void acc_as_a(uint32_t* a, const float (&c)[N][4],
-                                         int kk) {
-  a[0] = bf16_pair_rn(c[2 * kk][0], c[2 * kk][1]);
-  a[1] = bf16_pair_rn(c[2 * kk][2], c[2 * kk][3]);
-  a[2] = bf16_pair_rn(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  a[3] = bf16_pair_rn(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-}
-
-// scale * acc, a warp's [16, D] accumulators, as bf16 pairs into rows
-// row0 .. row0 + 15 (after row base) of a [rows, D] array; rows at or past
-// n are skipped.
-template <int D>
-__device__ __forceinline__ void store_rows(void* out, size_t base, int row0,
-                                           int n, const float (&acc)[D / 8][4],
-                                           float scale, int lane) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = row0 + (lane >> 2) + 8 * h;
-    if (r >= n) continue;
-    bf16* dst = static_cast<bf16*>(out) + (base + r) * D + 2 * (lane & 3);
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(dst + 8 * j) =
-          bf16_pair_rn(scale * acc[j][2 * h], scale * acc[j][2 * h + 1]);
-  }
-}
-
-template <int D>
-__host__ __device__ constexpr int dkv_tc_stage_bytes() {
-  // q, q * scale2 and dO tiles; lse2 and D, 64 floats each
-  return 3 * TcShape<D>::kTileBytes + 2 * kTcTile * 4;
-}
-
-template <int D>
-__host__ __device__ constexpr int dkv_tc_smem_bytes() {
-  return 2 * TcShape<D>::kTileBytes +
-         TcShape<D>::kStages * dkv_tc_stage_bytes<D>();
-}
-
-// dK/dV: one block per (batch * KV head, tile of 64 keys); blockIdx.x is the
-// key tile, so the low tiles, which see the most query rows, start first.
-template <int D>
-__global__ void __launch_bounds__(kTcThreads)
+__global__ void __launch_bounds__(kTcThreads, 2)
 flash_attention_bwd_dkv_tc_kernel(const BwdParams p) {
-  using S = TcShape<D>;
-  constexpr int P = S::P, kStages = S::kStages, NQ = S::kStep;
-  extern __shared__ uint4 tc_smem[];
-  bf16* ks = reinterpret_cast<bf16*>(tc_smem);   // [64][P] k
-  bf16* vs = ks + kTcBlock * P;                   // [64][P] v
-  char* ring = reinterpret_cast<char*>(vs + kTcBlock * P);
-  // stage st: q, q * scale2, dO [64][P] bf16, then lse2 and D [64] fp32
-  auto stage_q = [&](int st, int which) {
-    return reinterpret_cast<bf16*>(ring + st * dkv_tc_stage_bytes<D>() +
-                                   which * S::kTileBytes);
-  };
-  auto stage_f = [&](int st, int which) {
-    return reinterpret_cast<float*>(ring + st * dkv_tc_stage_bytes<D>() +
-                                    3 * S::kTileBytes + which * kTcTile * 4);
-  };
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int k0 = blockIdx.x * kTcBlock;
-  const int bhk = blockIdx.y, b = bhk / p.Hkv, hk = bhk % p.Hkv;
-  const int g = p.H / p.Hkv;
-  const size_t kv_rows = ((size_t)b * p.Hkv + hk) * p.Lk;
-  const int kw = k0 + warp * 16;   // the warp's first key
-
-  // The first query row that can see key k0, and the tiles of each head.
-  const int q_start = p.causal ? max(0, k0 - p.q_offset) : 0;
-  const int nt = q_start < p.Lq ? (p.Lq - q_start + kTcTile - 1) / kTcTile : 0;
-  const int tiles = g * nt;
-
-  load_tile<D>(ks, p.k, kv_rows, k0, p.Lk, tid);
-  load_tile<D>(vs, p.v, kv_rows, k0, p.Lk, tid);
-  cp_async_commit();
-
-  // tile it: query rows from tile_i0(it) of head it / nt of the group,
-  // whose row 0 is row tile_rows(it) of q, dO, lse and D
-  auto tile_i0 = [&](int it) { return q_start + (it % nt) * kTcTile; };
-  auto tile_rows = [&](int it) {
-    return ((size_t)b * p.H + hk * g + it / nt) * p.Lq;
-  };
-  auto load_stage = [&](int st, int it) {
-    const int i0 = tile_i0(it);
-    const size_t rows = tile_rows(it);
-    load_tile<D>(stage_q(st, 0), p.q, rows, i0, p.Lq, tid);
-    load_tile<D>(stage_q(st, 2), p.dout, rows, i0, p.Lq, tid);
-    const int r = tid % kTcTile, i = i0 + r;
-    const float* src = tid < kTcTile ? p.lse : p.delta;
-    cp_async4(stage_f(st, tid / kTcTile) + r, src + rows + (i < p.Lq ? i : 0),
-              i < p.Lq);
-    cp_async_commit();
-  };
-  // after the stage has landed: this thread's q pieces scaled, its lse in
-  // base 2 (+inf past Lq, so that P is 0 there)
-  auto convert = [&](int st, int it) {
-    const int i0 = tile_i0(it);
-    scale_tile<D>(stage_q(st, 1), stage_q(st, 0), p.scale2, tid);
-    if (tid < kTcTile) {
-      float* l2 = stage_f(st, 0) + tid;
-      *l2 = i0 + tid < p.Lq ? bwd_lse2(*l2) : INFINITY;
-    }
-  };
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < tiles) load_stage(s, s);
-    else cp_async_commit();
-  }
-  cp_async_wait<kStages - 2>();   // k, v and the first tile
-  if (tiles > 0) convert(0, 0);
-  __syncthreads();
-
-  uint32_t ka[S::kRegs ? D / 16 : 1][4], va[S::kRegs ? D / 16 : 1][4];
-  if constexpr (S::kRegs) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      a_frag<D>(ka[kk], ks, warp * 16, kk, lane);
-      a_frag<D>(va[kk], vs, warp * 16, kk, lane);
-    }
-  }
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
-
-  for (int it = 0; it < tiles; ++it) {
-    const int st = it % kStages;
-    if (it + kStages - 1 < tiles) load_stage((it + kStages - 1) % kStages,
-                                             it + kStages - 1);
-    else cp_async_commit();
-    const int i0 = tile_i0(it);
-    const bf16* qt = stage_q(st, 0);
-    const bf16* qst = stage_q(st, 1);
-    const bf16* ot = stage_q(st, 2);
-    const float* l2 = stage_f(st, 0);
-    const float* dl = stage_f(st, 1);
-#pragma unroll
-    for (int sub = 0; sub < kTcTile; sub += NQ) {
-      const int r0 = i0 + sub;   // the step's first query row
-      // every row of the step is past Lq, or sees none of the warp's keys
-      if (r0 >= p.Lq || (p.causal && kw > r0 + NQ - 1 + p.q_offset)) continue;
-      const bool full = r0 + NQ <= p.Lq &&
-                        !(p.causal && kw + 15 > r0 + p.q_offset);
-      // S^T = K (q scale2)^T and dP^T = V dO^T: rows keys, columns query rows
-      float s[NQ / 8][4], dp[NQ / 8][4];
-#pragma unroll
-      for (int j = 0; j < NQ / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t kf[4], vf[4];
-        const uint32_t* ak = kf;
-        const uint32_t* av = vf;
-        if constexpr (S::kRegs) {
-          ak = ka[kk];
-          av = va[kk];
-        } else {
-          a_frag<D>(kf, ks, warp * 16, kk, lane);
-          a_frag<D>(vf, vs, warp * 16, kk, lane);
-        }
-#pragma unroll
-        for (int n2 = 0; n2 < NQ / 16; ++n2) {
-          uint32_t bq[4], bo[4];
-          b_frags_nk<D>(bq, qst, sub + 16 * n2, kk, lane);
-          b_frags_nk<D>(bo, ot, sub + 16 * n2, kk, lane);
-          mma_bf16(s[2 * n2], ak, bq);
-          mma_bf16(s[2 * n2 + 1], ak, bq + 2);
-          mma_bf16(dp[2 * n2], av, bo);
-          mma_bf16(dp[2 * n2 + 1], av, bo + 2);
-        }
-      }
-      // P^T and dS^T in place; column c is query row i0 + c
-#pragma unroll
-      for (int j = 0; j < NQ / 8; ++j) {
-        const int c = sub + 8 * j + 2 * (lane & 3);
-        const float2 lse2 = *reinterpret_cast<const float2*>(l2 + c);
-        const float2 delta = *reinterpret_cast<const float2*>(dl + c);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float pr = exp2f(s[j][e] - (e & 1 ? lse2.y : lse2.x));
-          if (!full) {
-            const int key = kw + (lane >> 2) + 8 * (e >> 1);
-            const int i = i0 + c + (e & 1);
-            if (i >= p.Lq || (p.causal && key > i + p.q_offset)) pr = 0.f;
-          }
-          s[j][e] = pr;
-          dp[j][e] = pr * (dp[j][e] - (e & 1 ? delta.y : delta.x));
-        }
-      }
-      // dV += P^T dO and dK += dS^T q over the step's query rows
-#pragma unroll
-      for (int kk = 0; kk < NQ / 16; ++kk) {
-        uint32_t pa[4], da[4];
-        acc_as_a(pa, s, kk);
-        acc_as_a(da, dp, kk);
-#pragma unroll
-        for (int n2 = 0; n2 < D / 16; ++n2) {
-          uint32_t bo[4], bq[4];
-          b_frags_kn<D>(bo, ot, sub + 16 * kk, 16 * n2, lane);
-          b_frags_kn<D>(bq, qt, sub + 16 * kk, 16 * n2, lane);
-          mma_bf16(dv[2 * n2], pa, bo);
-          mma_bf16(dv[2 * n2 + 1], pa, bo + 2);
-          mma_bf16(dk[2 * n2], da, bq);
-          mma_bf16(dk[2 * n2 + 1], da, bq + 2);
-        }
-      }
-    }
-    cp_async_wait<kStages - 2>();   // tile it + 1 has landed
-    if (it + 1 < tiles) convert((it + 1) % kStages, it + 1);
-    __syncthreads();
-  }
-
-  store_rows<D>(p.dk, kv_rows, kw, p.Lk, dk, p.scale, lane);
-  store_rows<D>(p.dv, kv_rows, kw, p.Lk, dv, 1.f, lane);
+  kv_outer_tc_body<D, false>(p);
 }
 
 template <int D>
@@ -691,16 +382,14 @@ flash_attention_bwd_dq_tc_kernel(const BwdParams p) {
 }
 
 template <int D>
-cudaError_t launch_tc(const BwdParams& p, bool dkv, cudaStream_t stream) {
-  const int smem = dkv ? dkv_tc_smem_bytes<D>() : dq_tc_smem_bytes<D>();
-  auto kernel = dkv ? flash_attention_bwd_dkv_tc_kernel<D>
-                    : flash_attention_bwd_dq_tc_kernel<D>;
+cudaError_t launch_dq_tc(const BwdParams& p, cudaStream_t stream) {
+  constexpr int kSmem = dq_tc_smem_bytes<D>();
+  auto kernel = flash_attention_bwd_dq_tc_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(((dkv ? p.Lk : p.Lq) + kTcBlock - 1) / kTcBlock,
-                  p.B * (dkv ? p.Hkv : p.H));
-  kernel<<<grid, kTcThreads, smem, stream>>>(p);
+  const dim3 grid((p.Lq + kTcBlock - 1) / kTcBlock, p.B * p.H);
+  kernel<<<grid, kTcThreads, kSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -709,7 +398,10 @@ cudaError_t launch_tc(const BwdParams& p, bool dkv, cudaStream_t stream) {
 template <int D>
 cudaError_t launch_pass(const BwdParams& p, bool dkv, bool tc,
                         cudaStream_t stream) {
-  if (tc) return launch_tc<D>(p, dkv, stream);
+  if (tc)
+    return dkv ? launch_kv_outer_tc<D, false>(
+                     flash_attention_bwd_dkv_tc_kernel<D>, p, stream)
+               : launch_dq_tc<D>(p, stream);
   return dkv ? launch_kv_outer<D, false>(flash_attention_bwd_dkv_kernel<D>,
                                          p, stream)
              : launch_dq<D>(p, stream);

@@ -1,0 +1,153 @@
+// The tiles and fragments that the flash-attention kernels' tensor-core
+// forms (bf16 products with fp32 sums through mma.sync) share: the forward
+// (flash_attention_fwd.cu), the fused backward (flash_attention_bwd.cu) and
+// the two passes (flash_attention_bwd_two_pass.cu).
+//
+// A block has 4 warps, each owning 16 rows of its fixed side (query rows in
+// the forward and the dQ pass, keys in the KV-outer kernels); the other
+// side's rows come in tiles of 64 through a ring of shared-memory stages
+// filled by cp.async.  Tiles are stored row major in bf16 with rows padded
+// by 16 bytes, so that the 8 rows an ldmatrix reads fall in distinct banks.
+//
+// kernels/common.py hashes every .cuh into each library's name, so an edit
+// here rebuilds every kernel.
+
+#pragma once
+
+#include "mma.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcThreads = 128;  // 4 warps, 16 fixed rows each
+constexpr int kTcBlock = 64;     // fixed rows a block
+constexpr int kTcTile = 64;      // streamed rows a stage
+
+template <int D>
+struct TcShape {
+  static constexpr int P = D + 8;             // bf16 row pitch in shared memory
+  static constexpr int kStages = D <= 64 ? 3 : 2;
+  // columns of S a warp holds at once: 32 at d = 128 keeps S and the
+  // accumulators in registers
+  static constexpr int kStep = D <= 64 ? 64 : 32;
+  // the backward's fixed A fragments in registers (else read by ldmatrix
+  // each time, at d = 128)
+  static constexpr bool kRegs = D <= 64;
+  static constexpr int kPieces = kTcTile * D / 8 / kTcThreads;  // a thread's
+                                               // 16-byte pieces of one tile
+  static constexpr int kTileBytes = kTcTile * P * 2;
+  static_assert(kPieces * kTcThreads * 8 == kTcTile * D, "piece mapping");
+};
+
+// The 16-byte pieces of a [64, D] tile (rows r0 .. r0 + 63 of a [rows, D]
+// array at src) that this thread copies into dst [64][P]; rows at or past
+// n are zeros.
+template <int D>
+__device__ __forceinline__ void load_tile(bf16* dst, const void* src,
+                                          size_t base, int r0, int n,
+                                          int tid) {
+  using S = TcShape<D>;
+#pragma unroll
+  for (int l = 0; l < S::kPieces; ++l) {
+    const int idx = tid + l * kTcThreads;
+    const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
+    const bool ok = r0 + r < n;
+    cp_async16(dst + r * S::P + c,
+               static_cast<const bf16*>(src) +
+                   (base + (ok ? r0 + r : 0)) * D + c,
+               ok);
+  }
+}
+
+// This thread's pieces of a q tile (as load_tile copied them) times
+// scale * log2(e), rounded to bf16, into dst (which may be src).
+template <int D>
+__device__ __forceinline__ void scale_tile(bf16* dst, const bf16* src,
+                                           float scale2, int tid) {
+  using S = TcShape<D>;
+#pragma unroll
+  for (int l = 0; l < S::kPieces; ++l) {
+    const int idx = tid + l * kTcThreads;
+    const int off = idx / (D / 8) * S::P + (idx % (D / 8)) * 8;
+    const uint4 w = *reinterpret_cast<const uint4*>(src + off);
+    float f[8];
+    bf16x2(w.x, f);
+    bf16x2(w.y, f + 2);
+    bf16x2(w.z, f + 4);
+    bf16x2(w.w, f + 6);
+    *reinterpret_cast<uint4*>(dst + off) = make_uint4(
+        bf16_pair_rn(f[0] * scale2, f[1] * scale2),
+        bf16_pair_rn(f[2] * scale2, f[3] * scale2),
+        bf16_pair_rn(f[4] * scale2, f[5] * scale2),
+        bf16_pair_rn(f[6] * scale2, f[7] * scale2));
+  }
+}
+
+// The A fragment of rows row0 .. row0 + 15, columns 16 kk .. 16 kk + 15.
+template <int D>
+__device__ __forceinline__ void a_frag(uint32_t* a, const bf16* tile,
+                                       int row0, int kk, int lane) {
+  ldmatrix_x4(a, tile + (row0 + (lane & 15)) * TcShape<D>::P + kk * 16 +
+                     (lane >> 4) * 8);
+}
+
+// The A fragment of rows (m) m0 .. m0 + 15, columns (k) k0 .. k0 + 15 of a
+// matrix stored transposed, k by m, with row pitch `pitch`.
+__device__ __forceinline__ void a_frag_t(uint32_t* a, const bf16* t,
+                                         int pitch, int k0, int m0,
+                                         int lane) {
+  ldmatrix_x4_trans(a, t + (k0 + (lane & 7) + ((lane >> 4) << 3)) * pitch +
+                           m0 + ((lane >> 3) & 1) * 8);
+}
+
+// B fragments of two n8 tiles (b[0..1] and b[2..3]) from a tile stored n by
+// k (the rows are the product's columns): rows n0 .. n0 + 15, columns
+// 16 kk .. 16 kk + 15.
+template <int D>
+__device__ __forceinline__ void b_frags_nk(uint32_t* b, const bf16* tile,
+                                           int n0, int kk, int lane) {
+  ldmatrix_x4(b, tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) *
+                            TcShape<D>::P +
+                     kk * 16 + ((lane >> 3) & 1) * 8);
+}
+
+// B fragments of two n8 tiles from a tile stored k by n: rows (k)
+// k0 .. k0 + 15, columns (n) n0 .. n0 + 15.
+template <int D>
+__device__ __forceinline__ void b_frags_kn(uint32_t* b, const bf16* tile,
+                                           int k0, int n0, int lane) {
+  ldmatrix_x4_trans(b, tile + (k0 + (lane & 15)) * TcShape<D>::P + n0 +
+                           (lane >> 4) * 8);
+}
+
+// The A fragment over the 16 accumulator columns 16 kk .. 16 kk + 15.
+template <int N>
+__device__ __forceinline__ void acc_as_a(uint32_t* a, const float (&c)[N][4],
+                                         int kk) {
+  a[0] = bf16_pair_rn(c[2 * kk][0], c[2 * kk][1]);
+  a[1] = bf16_pair_rn(c[2 * kk][2], c[2 * kk][3]);
+  a[2] = bf16_pair_rn(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+  a[3] = bf16_pair_rn(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+}
+
+// scale * acc, a warp's [16, D] accumulators, as bf16 pairs into rows
+// row0 .. row0 + 15 (after row base) of a [rows, D] array; rows at or past
+// n are skipped.
+template <int D>
+__device__ __forceinline__ void store_rows(void* out, size_t base, int row0,
+                                           int n, const float (&acc)[D / 8][4],
+                                           float scale, int lane) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + (lane >> 2) + 8 * h;
+    if (r >= n) continue;
+    bf16* dst = static_cast<bf16*>(out) + (base + r) * D + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+          bf16_pair_rn(scale * acc[j][2 * h], scale * acc[j][2 * h + 1]);
+  }
+}
+
+}  // namespace

@@ -1,7 +1,7 @@
 // Tensor-core building blocks shared by the kernels that run bf16 products
 // with fp32 sums on Hopper's tensor cores through mma.sync: the quantized
-// matmuls' prefill form (quant_matmul.cuh) and the two-pass flash-attention
-// backward (flash_attention_bwd_two_pass.cu).  Copies from global to shared
+// matmuls' prefill form (quant_matmul.cuh) and the flash-attention kernels'
+// tensor-core forms (flash_attention_tc.cuh).  Copies from global to shared
 // memory by cp.async, fragment loads by ldmatrix, the m16n8k16 product, and
 // the packing of two values into a bf16 pair.
 //

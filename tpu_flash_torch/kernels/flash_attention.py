@@ -28,23 +28,26 @@ VMEM and grid steps and is not retuned for the H100):
     from L = 16384, fp32 from 8192 at d = 64): a dK/dV pass (KV-outer) and a
     dQ pass (one block per query tile, the loop over KV tiles ending at the
     causal limit).  Each output is written once, and two calls give the same
-    bits.  ``_two_pass_name`` picks their form: bf16 runs its products on
-    the tensor cores (``mma.sync`` bf16 with fp32 sums, launches counted
-    under the kernel's name + ``TC``), fp32 runs exact FMAs on the CUDA
-    cores (counted under the name).
-The plain versions are ``flash_attention_backward_plain`` (fused) and its
-halves ``flash_attention_backward_dkv_plain`` / ``_dq_plain``, which
-recompute P and dS the same way.  ``D = rowsum(dO * O) - dlse`` is a torch
-op outside the kernels, as it is plain XLA outside Pallas in the JAX
+    bits.
+Every kernel has two forms, picked by ``_form_name``: bf16 runs its products
+on the tensor cores (``mma.sync`` bf16 with fp32 sums, launches counted under
+the kernel's name + ``TC``), fp32 runs exact FMAs on the CUDA cores (counted
+under the name).  The plain versions are ``flash_attention_backward_plain``
+(fused) and its halves ``flash_attention_backward_dkv_plain`` / ``_dq_plain``,
+which recompute P and dS the same way.  ``D = rowsum(dO * O) - dlse`` is a
+torch op outside the kernels, as it is plain XLA outside Pallas in the JAX
 package.
 
 Numerics, in both versions: base-2 softmax with ``scale * log2(e)`` folded
 into q; fp32 products are exact (never TF32); with bf16 inputs the scaled q,
 p (before P.V and dV) and dS (before dK and dQ) are rounded to bf16, as the
-TPU feeds its MXU in the input dtype, and every sum is fp32.  The TPU's tile
-sizes, ``q_pack``, ``score_layout`` and ``interpret`` have no counterpart:
-the kernels pick their own tiling.  Dropout, ``window``, ``segment_ids`` and
-quantized K/V are not ported yet (ROADMAP.md A5, B3).
+TPU feeds its MXU in the input dtype, and every sum is fp32.  Below d = 128
+the forward's softmax normaliser is the sum of that bf16 p, as the JAX
+kernel's ones column rides its P.V product (``_fold_l``); at d = 128 it sums
+the fp32 p.  The TPU's tile sizes, ``q_pack``, ``score_layout`` and
+``interpret`` have no counterpart: the kernels pick their own tiling.
+Dropout, ``window``, ``segment_ids`` and quantized K/V are not ported yet
+(ROADMAP.md A5, B3).
 """
 
 from __future__ import annotations
@@ -75,7 +78,9 @@ KERNEL_DQ = "flash_attention_bwd_dq"
 HEAD_DIMS = (16, 32, 64, 128)
 LOG2E = 1.4426950408889634
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_DQ_CHUNK = 32     # query rows a chunk (flash_attention_bwd.cuh kQC)
+# query rows a chunk of the fused backward's ordered dQ adds, by the dtype's
+# form (flash_attention_bwd.cuh kQC and kTcTile)
+_DQ_CHUNK = {torch.float32: 32, torch.bfloat16: 64}
 
 
 def _not_ported(dropout_rate=0.0, window=None, segment_ids=None,
@@ -134,6 +139,13 @@ def _delta(o, do, dlse):
     return delta if dlse is None else delta - dlse.float()
 
 
+def _fold_l(d: int) -> bool:
+    """The JAX package's ``_fold_l`` (its forward, :403): below d = 128 the
+    softmax normaliser rides the P.V product as a ones column of V, so it
+    is the sum of the same P, in the input dtype, that multiplies V."""
+    return d < 128
+
+
 def flash_attention_forward_plain(q, k, v, *, causal=False, scale=None,
                                   q_offset=None, with_m=False):
     """The forward kernel's function in plain PyTorch: returns
@@ -144,8 +156,9 @@ def flash_attention_forward_plain(q, k, v, *, causal=False, scale=None,
     m2 = s2.amax(-1, keepdim=True)
     empty = m2 == -math.inf
     p = torch.exp2(s2 - torch.where(empty, 0.0, m2))
-    l = p.sum(-1, keepdim=True)
-    acc = p.to(q.dtype).float() @ _expand(v, H // Hkv).float()
+    pv = p.to(q.dtype).float()
+    l = (pv if _fold_l(d) else p).sum(-1, keepdim=True)
+    acc = pv @ _expand(v, H // Hkv).float()
     out = torch.where(empty, 0.0, acc / torch.where(empty, 1.0, l))
     m_nat = m2[..., 0] * (1.0 / LOG2E)
     lse = torch.where(empty[..., 0], -math.inf, m_nat + torch.log(l[..., 0]))
@@ -245,14 +258,24 @@ def _kernel_inputs(*tensors):
     return [kernel_input(t, dev) for t in tensors]
 
 
+def _form_name(kernel: str, dtype: torch.dtype) -> str:
+    """``kernel``'s launch-count name in its form for ``dtype`` (its C entry
+    is ``tf_`` + the name): bf16 the tensor-core form, the name + ``TC``
+    (``mma.sync`` bf16 products with fp32 sums, the TPU kernels' numerics,
+    at every head dim of ``HEAD_DIMS``); fp32 the CUDA-core form, the name
+    (exact fp32 FMAs, never TF32)."""
+    return kernel + (TC if dtype == torch.bfloat16 else "")
+
+
 def _launch_forward(q, k, v, causal, scale, q_offset, with_m):
     B, H, Hkv, Lq, Lk, d = _shapes(q, k, v)
     scale, q_offset = _defaults(d, Lq, Lk, scale, q_offset)
     q, k, v = _kernel_inputs(q, k, v)
+    name = _form_name(KERNEL_FWD, q.dtype)
     out = torch.empty_like(q)
     lse = torch.empty(B, H, Lq, dtype=torch.float32, device=q.device)
     m = torch.empty_like(lse) if with_m else None
-    lib, fn = entry(KERNEL_FWD, "tf_flash_attention_fwd",
+    lib, fn = entry(KERNEL_FWD, "tf_" + name,
                     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
                     + [ctypes.c_float, ctypes.c_void_p])
     err = call_on_stream(fn, q.device, q.data_ptr(), k.data_ptr(),
@@ -260,8 +283,8 @@ def _launch_forward(q, k, v, causal, scale, q_offset, with_m):
                          None if m is None else m.data_ptr(),
                          B, H, Hkv, Lq, Lk, d, _DTYPES[q.dtype], int(causal),
                          q_offset, scale * LOG2E)
-    check_cuda(err, lib, "flash_attention_fwd kernel")
-    launch_counts[KERNEL_FWD] += 1
+    check_cuda(err, lib, f"{name} kernel")
+    launch_counts[name] += 1
     return out, lse, m
 
 
@@ -278,14 +301,17 @@ def _bwd_inputs(q, k, v, o, lse, do, dlse):
 
 
 def _launch_backward(q, k, v, do, lse, delta, causal, scale, q_offset):
+    """The fused backward in the form for q's dtype; returns
+    ``(dq, dk, dv)``."""
     B, H, Hkv, Lq, Lk, d = _shapes(q, k, v)
+    name = _form_name(KERNEL_BWD, q.dtype)
     dq = torch.zeros(B, H, Lq, d, dtype=torch.float32, device=q.device)
-    # the dQ adds made to each chunk of _DQ_CHUNK query rows (the kernel's
-    # fixed order of adds)
-    dq_order = torch.zeros(B * H * cdiv(Lq, _DQ_CHUNK), dtype=torch.int32,
-                           device=q.device)
+    # the dQ adds made to each chunk of query rows (the kernel's fixed
+    # order of adds)
+    dq_order = torch.zeros(B * H * cdiv(Lq, _DQ_CHUNK[q.dtype]),
+                           dtype=torch.int32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib, fn = entry(KERNEL_BWD, "tf_flash_attention_bwd",
+    lib, fn = entry(KERNEL_BWD, "tf_" + name,
                     [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
                     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     err = call_on_stream(fn, q.device, q.data_ptr(), k.data_ptr(),
@@ -294,18 +320,9 @@ def _launch_backward(q, k, v, do, lse, delta, causal, scale, q_offset):
                          dk.data_ptr(), dv.data_ptr(), B, H, Hkv, Lq, Lk, d,
                          _DTYPES[q.dtype], int(causal), q_offset, scale,
                          scale * LOG2E)
-    check_cuda(err, lib, "flash_attention_bwd kernel")
-    launch_counts[KERNEL_BWD] += 1
+    check_cuda(err, lib, f"{name} kernel")
+    launch_counts[name] += 1
     return dq.mul_(scale).to(q.dtype), dk, dv
-
-
-def _two_pass_name(kernel: str, dtype: torch.dtype) -> str:
-    """``kernel``'s launch-count name in the two passes' form for ``dtype``
-    (its C entry is ``tf_`` + the name): bf16 the tensor-core form, the
-    name + ``TC`` (``mma.sync`` bf16 products with fp32 sums, the TPU
-    kernels' numerics, at every head dim of ``HEAD_DIMS``); fp32 the
-    CUDA-core form, the name (exact fp32 FMAs, never TF32)."""
-    return kernel + (TC if dtype == torch.bfloat16 else "")
 
 
 def _two_pass_args(n_pointers):
@@ -316,7 +333,7 @@ def _two_pass_args(n_pointers):
 def _launch_dkv(q, k, v, do, lse, delta, causal, scale, q_offset):
     """The dK/dV pass in the form for q's dtype; returns ``(dk, dv)``."""
     B, H, Hkv, Lq, Lk, d = _shapes(q, k, v)
-    name = _two_pass_name(KERNEL_DKV, q.dtype)
+    name = _form_name(KERNEL_DKV, q.dtype)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib, fn = entry(SOURCE_TWO_PASS, "tf_" + name, _two_pass_args(8))
     err = call_on_stream(fn, q.device, q.data_ptr(), k.data_ptr(),
@@ -332,7 +349,7 @@ def _launch_dkv(q, k, v, do, lse, delta, causal, scale, q_offset):
 def _launch_dq(q, k, v, do, lse, delta, causal, scale, q_offset):
     """The dQ pass in the form for q's dtype; returns ``dq``."""
     B, H, Hkv, Lq, Lk, d = _shapes(q, k, v)
-    name = _two_pass_name(KERNEL_DQ, q.dtype)
+    name = _form_name(KERNEL_DQ, q.dtype)
     dq = torch.empty_like(q)
     lib, fn = entry(SOURCE_TWO_PASS, "tf_" + name, _two_pass_args(7))
     err = call_on_stream(fn, q.device, q.data_ptr(), k.data_ptr(),
@@ -368,7 +385,8 @@ def flash_attention_backward_fused(q, k, v, o, lse, do, dlse=None, *,
                                    causal=False, scale=None, q_offset=None,
                                    impl: str | None = None):
     """The fused single pass (``csrc/flash_attention_bwd.cu``): returns
-    ``(dq, dk, dv)``.  ``impl`` as in the forward."""
+    ``(dq, dk, dv)``.  Deterministic: dQ's adds run in a fixed order.
+    ``impl`` as in the forward."""
     _, _, _, Lq, Lk, d = _shapes(q, k, v)
     scale, q_offset = _defaults(d, Lq, Lk, scale, q_offset)
     if resolve_impl(impl, q) == "plain":
