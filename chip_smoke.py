@@ -14,18 +14,20 @@ ported paths:
   under ``torch.profiler``; the engine against ``generate`` and the kernel
   against the plain path end to end;
 * quantized serving: the int8, packed-int4 and grouped-int4 matmul kernels
-  in their three forms (decode at M <= 8, the tensor-core prefill form for
-  bf16 x at M > 8, the CUDA-core form for fp32 x) against their plain
-  versions (fp32 and bf16 x, M 1 to 1024, the serving model's linears and
-  ragged shapes; each call checked to launch its form; each form's limit
-  checked against a perturbed row) and their times at decode and at
-  256- and 1024-token prefills of every serving linear; the 176M model
-  converted by ``quantize_model_linears`` (int8, int4, int4 in groups of
-  128) serving the same 16 requests, each decode step checked to launch
-  its matmul kernel once a Linear in the decode form and each prefill in
-  the tensor-core form, with the logits' error against the bf16 model; and
-  the engine against ``generate`` and kernel against plain end to end for
-  each of the three;
+  in their four forms (for bf16 x the tensor-core decode form at M <= 8 and
+  the tensor-core prefill form above; for fp32 x the CUDA-core decode and
+  prefill forms) against their plain versions (fp32 and bf16 x, M 1 to
+  1024, the serving model's linears and ragged shapes; each call checked to
+  launch its form, the tensor-core decode form to give the same bits twice;
+  each form's limit checked against a perturbed row) and their times at
+  decode and at 256- and 1024-token prefills of every serving linear, each
+  bf16 decode call checked under the profiler to run one kernel; the 176M
+  model converted by ``quantize_model_linears`` (int8, int4, int4 in groups
+  of 128) serving the same 16 requests, each decode step checked to launch
+  its matmul kernel once a Linear in the tensor-core decode form and each
+  prefill in the tensor-core prefill form, with the logits' error against
+  the bf16 model; and the engine against ``generate`` and kernel against
+  plain end to end for each of the three in fp32 (the CUDA-core forms);
 * training: the flash-attention forward and fused backward kernels, in the
   CUDA-core form for fp32 and the tensor-core form for bf16 (each call
   checked to launch its form), against their plain versions (causal or
@@ -71,8 +73,8 @@ ported paths:
   step at 2 layers and L=8192, where fp32 takes the two passes.
 
 The build phase logs each kernel's registers, stack and spills as ptxas
-reports them, and fails if a flash-attention kernel's tensor-core form
-spills.  Modes (b) and (e) run the forward and the fused backward in their
+reports them, and fails if a flash-attention kernel's tensor-core form or
+a quantized matmul's tensor-core decode form spills.  Modes (b) and (e) run the forward and the fused backward in their
 tensor-core form, mode (a) in their CUDA-core form.
 
 Each phase prints JSON lines; any failure raises and the script exits
@@ -121,13 +123,13 @@ from tpu_flash_torch.nn import (DecoderConfig, DecoderLM, adam, init_params,
                                 quantize_model_linears)
 from tpu_flash_torch.ops import fused
 from tpu_flash_torch.ops.reference import causal_mask
-from tpu_flash_torch.utils.timing import device_ms
+from tpu_flash_torch.utils.timing import (L2_BYTES, device_ms, past_l2,
+                                          rotating_ms)
 
 DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS = 67e12             # H100 SXM data sheet, CUDA cores
 BF16_FLOPS = 989e12            # H100 SXM data sheet, dense tensor cores
-L2_BYTES = 50e6                # H100 L2 cache
 # Every flash-attention kernel has two forms (fa._form_name): the CUDA-core
 # form (fp32) counted under its name, the tensor-core form (bf16) under the
 # name + common.TC.  The forward and the fused backward: a source each.
@@ -142,15 +144,17 @@ FUSED = ("layernorm_fwd", "layernorm_bwd", "attn_softmax_fwd",
 TRAINING_KERNELS = ATTENTION + ATTENTION_TC + TWO_PASS + TWO_PASS_TC + FUSED
 QUANT_SOURCES = ("int8_matmul", "int4_matmul")
 # The quantized matmul kernels by launch count, with (bits, group size) and
-# the TPU kernel each replaces; each has a tensor-core prefill form counted
-# under its name + common.TC (bf16 x at M > 8), the CUDA-core forms (decode,
-# fp32 x) under its name.
+# the TPU kernel each replaces; bf16 x runs the tensor-core forms, counted
+# under the name + common.DEC (decode, M <= 8) and + common.TC (prefill), fp32
+# x the CUDA-core forms under the name.
 QUANT = {"int8_matmul": (8, None, "quant.py:49"),
          "int4_matmul": (4, None, "quant.py:228"),
          "int4_matmul_group": (4, 128, "quant.py:258")}
 QUANT_TC = tuple(n + common.TC for n in QUANT)
+QUANT_DEC = tuple(n + common.DEC for n in QUANT)
 # Launch-count (and profiler) names, and the sources built from csrc/.
-KERNELS = (("flash_decode",) + TRAINING_KERNELS + tuple(QUANT) + QUANT_TC)
+KERNELS = (("flash_decode",) + TRAINING_KERNELS + tuple(QUANT) + QUANT_TC
+           + QUANT_DEC)
 SOURCES = (("flash_decode",) + ATTENTION + (TWO_PASS_SOURCE,) + FUSED
            + QUANT_SOURCES)
 SERVING = dict(n_vocab=32768, n_embd=1024, n_head=16, n_positions=8192,
@@ -272,18 +276,20 @@ ATTN_CASES = [
 # FF out, lm_head.
 SERVING_LINEARS = ((1024, 1024), (1024, 4096), (4096, 1024), (1024, 32768))
 # Quantized matmuls, kernel vs plain on the same inputs, M rows of x each
-# (1 and 8 the decode form; above 8 the tensor-core form in bf16, the
-# CUDA-core form in fp32): the serving linears, a ragged K and N (K odd for
-# int4 per column; grouped, K = 256 in groups of 64), and groups of 64 at
-# 1024 x 1024.
+# (1 and 8 the decode forms, above 8 the prefill forms; bf16 the
+# tensor-core forms, fp32 the CUDA-core forms): the serving linears, a
+# ragged K and N (K odd for int4 per column; grouped, K = 256 in groups of
+# 64), and groups of 64 at 1024 x 1024.  N 304 ends in a ragged tile of the
+# tensor-core decode form; N 300, not a multiple of 16, takes the CUDA-core
+# decode form at M <= 8 in bf16 too.
 QUANT_M = (1, 8, 9, 100, 256, 1024)
 QUANT_CASES = {
     "int8_matmul": [(K, N, None) for K, N in SERVING_LINEARS]
-    + [(255, 300, None)],
+    + [(255, 304, None), (255, 300, None)],
     "int4_matmul": [(K, N, None) for K, N in SERVING_LINEARS]
-    + [(255, 300, None)],
+    + [(255, 304, None), (255, 300, None)],
     "int4_matmul_group": [(K, N, 128) for K, N in SERVING_LINEARS]
-    + [(1024, 1024, 64), (256, 300, 64)],
+    + [(1024, 1024, 64), (256, 304, 64), (256, 300, 64)],
 }
 # Each output x held to |x - ref| <= arms * rms(ref) + rtol * |ref|
 # (compare()).  fp32 with TF32 off: the same products summed in another
@@ -293,20 +299,28 @@ QUANT_TOL = {torch.float32: (0.0, 1e-5, 1e-5),
              torch.bfloat16: (0.0, 1e-2, 2e-2)}
 # bf16 x: decode (M = 8) and prefills of 256 and 1024 tokens (a chunk of
 # prefill_chunk=256, the longest bucket) at each serving linear; fp32 x at
-# one prefill shape, the CUDA-core form.
+# one decode and one prefill shape, the CUDA-core forms.
 QUANT_TIMED = [(M, K, N, torch.bfloat16) for M in (8, 256, 1024)
-               for K, N in SERVING_LINEARS] + [(1024, 1024, 4096,
-                                                torch.float32)]
-# the kernels line's shapes: decode for the CUDA-core forms, a 1024-token
-# prefill for the tensor-core form
+               for K, N in SERVING_LINEARS] + [
+                   (M, 1024, 4096, torch.float32) for M in (8, 1024)]
+# the kernels line's shapes: bf16 decode for the tensor-core decode form, a
+# 1024-token bf16 prefill for the tensor-core prefill form, fp32 decode for
+# the CUDA-core forms (run by the fp32 end-to-end serving checks)
 QUANT_MAIN_SHAPE = (8, 1024, 4096, torch.bfloat16)
 QUANT_TC_SHAPE = (1024, 1024, 4096, torch.bfloat16)
+QUANT_CUDA_CORE_SHAPE = (8, 1024, 4096, torch.float32)
 # The quantized serving modes: weights, KV cache, chunked prefill, drive,
 # and the JAX tests' limit on the logits' error against the float model
 # (tests/test_quant.py:80, :218).
 QUANT_SERVING = (("int8_matmul", "int8", None, "run_many(8)", 0.05),
                  ("int4_matmul", "none", None, "run()", 0.15),
                  ("int4_matmul_group", "int8", 256, "run_many(8)", 0.15))
+
+
+# Profiler traces taken of the same calls before an empty one fails, and
+# the pause before each new one: now and then a trace holds no device event
+# at all (tools/torch_profiler_empty_traces.py).
+TRACE_TRIES, TRACE_PAUSE_S = 5, 0.5
 
 
 def log(obj) -> None:
@@ -1234,20 +1248,60 @@ def quant_matmul(kind, x, q, impl):
     return quant.int4_matmul(x, *q, k_dim=x.shape[1], impl=impl)
 
 
-def quant_form(kind, M, dtype) -> str:
+def quant_form(kind, M, N, dtype) -> str:
     """The launch-count name a call of ``kind`` at M rows of ``dtype`` x
-    adds to (the plan's form; every group here is a multiple of 16)."""
-    return kind + (common.TC if dtype == torch.bfloat16 and M > 8 else "")
+    and N columns adds to (the plan's form; every group here is a multiple
+    of 16): bf16 the tensor-core forms, but at M <= 8 only where 16 divides
+    N; the rest the CUDA-core forms."""
+    if dtype != torch.bfloat16 or (M <= 8 and N % 16):
+        return kind
+    return kind + (common.DEC if M <= 8 else common.TC)
+
+
+def device_events(fn, calls: int, tries: int = TRACE_TRIES,
+                  pause: float = TRACE_PAUSE_S) -> list:
+    """The device events of ``calls`` calls of ``fn`` under torch.profiler
+    (after a call outside it), as ``key_averages`` groups them.  A trace
+    that holds no device event at all saw nothing, which is not zero
+    kernels: it is logged and, after ``pause`` seconds, taken again, up to
+    ``tries`` traces in all; then it raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, tries + 1):
+        if attempt > 1:
+            time.sleep(pause)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return events
+        log({"phase": "profiler_empty_trace", "calls": calls,
+             "trace": attempt, "of": tries})
+    raise RuntimeError(f"{tries} profiler traces of {calls} calls held no "
+                       f"device event")
+
+
+def kernels_run(fn, calls: int = 3) -> list[str]:
+    """The CUDA kernels ``calls`` calls of ``fn`` run, by name, under the
+    profiler (``device_events``)."""
+    return [e.key for e in device_events(fn, calls) for _ in range(e.count)]
 
 
 def quant_cases(gen) -> dict:
     """The three quantized matmul kernels against their plain versions on
     the same inputs, fp32 and bf16 x, at every M of ``QUANT_M``, each call
     checked to launch the form its plan names; returns the largest error of
-    each form by launch name.  Every shape is logged before a disagreement
-    fails the phase; the first case of each form and dtype also checks that
-    its limit fails a perturbed row."""
-    worst = dict.fromkeys((*QUANT, *QUANT_TC), 0.0)
+    each form by launch name; the tensor-core decode form is also called a
+    second time and must give the same bits.  Every shape is logged before
+    a disagreement fails the phase; the first case of each form and dtype
+    also checks that its limit fails a perturbed row."""
+    worst = dict.fromkeys((*QUANT, *QUANT_TC, *QUANT_DEC), 0.0)
     failed, largest, power_checked = [], {}, set()
     for kind, cases in QUANT_CASES.items():
         bits = QUANT[kind][0]
@@ -1260,16 +1314,18 @@ def quant_cases(gen) -> dict:
                 errs, need, forms, ok = {}, {}, {}, True
                 for M in QUANT_M:
                     x = torch.randn(M, K, generator=gen, device=DEV).to(dtype)
-                    form = quant_form(kind, M, dtype)
+                    form = quant_form(kind, M, N, dtype)
                     before = common.launch_counts[form]
                     got = quant_matmul(kind, x, q, "kernel")
                     launched = common.launch_counts[form] - before
+                    same = (form not in QUANT_DEC or torch.equal(
+                        got, quant_matmul(kind, x, q, "kernel")))
                     ref = quant_matmul(kind, x, q, "plain")
                     torch.cuda.synchronize()
                     errs[M], _, need[M], agree = compare(got, ref, tol)
                     forms[M] = form
                     ok &= (agree and got.dtype == ref.dtype == dtype
-                           and launched == 1)
+                           and launched == 1 and same)
                     worst[form] = max(worst[form], errs[M])
                     if (form, dname) not in power_checked:
                         power_checked.add((form, dname))
@@ -1304,33 +1360,27 @@ def quant_times(gen) -> dict:
     plain and library (``x @ W`` against the weight dequantized once to x's
     dtype, the alternative the JAX package names at quant.py:13-15; the
     port never calls it), with the bound and the plan's form, tile, splits
-    and blocks.  Weights rotate through enough copies that each call reads
-    past the 50 MB L2, as each layer's own weights would."""
+    (the tensor-core decode form: its cluster), blocks and ring.  Weights
+    rotate through enough copies that each call reads past the 50 MB L2, as
+    each layer's own weights would.  Tensor-core decode calls must run one
+    kernel each under the profiler (no reduction kernel, no workspace
+    fill)."""
     rows = {}
     for kind in QUANT:
         for M, K, N, dtype in QUANT_TIMED:
             q = quantized(torch.randn(K, N, generator=gen, device=DEV),
                           *QUANT[kind][:2])
             wbytes = sum(t.numel() * t.element_size() for t in q)
-            n = max(2, math.ceil(2 * L2_BYTES / wbytes))
-            qs = [tuple(t.clone() for t in q) for _ in range(n)]
-            deq = quant.dequantize(*q, K).to(dtype)
-            item = deq.element_size()
-            n_lib = max(2, math.ceil(2 * L2_BYTES / (K * N * item)))
-            deqs = [deq.clone() for _ in range(n_lib)]
-            del deq
+            qs = past_l2(*q)
+            deqs = past_l2(quant.dequantize(*q, K).to(dtype))
+            item = deqs[0][0].element_size()
             x = torch.randn(M, K, generator=gen, device=DEV, dtype=dtype)
-            tick = [0]
-
-            def nxt(k):
-                tick[0] = (tick[0] + 1) % k
-                return tick[0]
-
-            ms = device_ms(lambda: quant_matmul(kind, x, qs[nxt(n)],
-                                                "kernel"), iters=20)
-            plain_ms = device_ms(lambda: quant_matmul(kind, x, qs[nxt(n)],
-                                                      "plain"), iters=5)
-            library_ms = device_ms(lambda: x @ deqs[nxt(n_lib)], iters=20)
+            ms = rotating_ms(lambda *w: quant_matmul(kind, x, w, "kernel"),
+                             qs, iters=20)
+            plain_ms = rotating_ms(lambda *w: quant_matmul(kind, x, w,
+                                                           "plain"),
+                                   qs, iters=5)
+            library_ms = rotating_ms(lambda d: x @ d, deqs, iters=20)
             nbytes = wbytes + item * (M * K + M * N)   # codes, scales, x, out
             flops = 2 * M * K * N
             peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
@@ -1348,9 +1398,17 @@ def quant_times(gen) -> dict:
                    "hbm_GBps": nbytes / (ms * 1e-3) / 1e9,
                    "form": plan.form, "tile": f"{plan.bm}x{plan.bn}",
                    "blocks": plan.blocks, "splits": plan.splits,
-                   "copies": n}
+                   "copies": len(qs)}
             dname = str(dtype).split(".")[1]
-            log({"phase": "kernel_time", "kernel": quant_form(kind, M, dtype),
+            if plan.form == "decode_tc":
+                run = kernels_run(lambda: quant_matmul(kind, x, qs[0],
+                                                       "kernel"))
+                row["cluster"], row["kernels_in_3_calls"] = plan.splits, run
+                row["ring"] = f"{plan.stages}x{plan.stage_rows} rows"
+                check(len(run) == 3 and all("_dec_kernel" in k for k in run),
+                      f"{kind} M{M} K{K} N{N}: 3 decode calls ran {run}")
+            log({"phase": "kernel_time",
+                 "kernel": quant_form(kind, M, N, dtype),
                  "shape": f"M{M} K{K} N{N} {dname} x",
                  "library": f"x @ W dequantized to {dname}", **row})
             rows[(kind, (M, K, N, dtype))] = row
@@ -1374,17 +1432,7 @@ def kernel_profile(fn, steps: int = 4) -> dict:
     """Kernels of ``fn()`` under torch.profiler, per call: launches, their
     summed device time, each of the port's kernels' time, the GEMMs' time
     by operand type, and the eight largest."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_events(fn, steps)
     total_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     ours = {n: sum(e.self_device_time_total for e in kernels
@@ -1659,8 +1707,9 @@ def serving(model, n_layer: int, modes=SERVING_MODES,
     prefill chunk, drive); returns the kernel launches counted while the
     engines ran.  ``matmul`` names a quantized model's matmul kernel: every
     forward must launch it once for each Linear, 6 a layer and lm_head, in
-    the decode form at a decode step (8 rows) and in the tensor-core form
-    at a prefill or prefill chunk (16 to 1024 rows of bf16)."""
+    the tensor-core decode form at a decode step (8 rows of bf16) and in
+    the tensor-core prefill form at a prefill or prefill chunk (16 to 1024
+    rows), and never in the CUDA-core forms."""
     prompts = serving_prompts(model.cfg.n_vocab)
     sampling = SamplingConfig(max_new_tokens=64)
     finite = torch.ones((), dtype=torch.bool, device=DEV)
@@ -1676,8 +1725,8 @@ def serving(model, n_layer: int, modes=SERVING_MODES,
     del warm
     torch.cuda.synchronize()
 
-    names = ("flash_decode",) + ((matmul, matmul + common.TC) if matmul
-                                 else ())
+    names = ("flash_decode",) + ((matmul, matmul + common.TC,
+                                  matmul + common.DEC) if matmul else ())
     total = dict.fromkeys(names, 0)
     hook = model.lm_head.register_forward_hook(watch)
     try:
@@ -1729,21 +1778,22 @@ def serving(model, n_layer: int, modes=SERVING_MODES,
                   f"steps of {n_layer} layers")
             if matmul:
                 # every forward: the decode steps (those between prefill
-                # chunks included) in the decode form, and one a prefill or
-                # prefill chunk in the tensor-core form
+                # chunks included) in the tensor-core decode form, and one a
+                # prefill or prefill chunk in the tensor-core prefill form
                 per_forward = 6 * n_layer + 1
                 prefills = (len(prompts) if chunk is None else sum(
                     common.cdiv(len(p), chunk) for p in prompts))
-                tc = matmul + common.TC
-                check(step_launches[matmul] == per_forward
-                      and step_launches[tc] == 0
-                      and launches[matmul] == per_forward * steps
-                      and launches[tc] == per_forward * prefills,
-                      f"{what}: {matmul} launched {step_launches[matmul]} "
-                      f"times in a decode step (not {per_forward}), "
-                      f"{launches[matmul]} in {steps} decode steps and "
-                      f"{launches[tc]} times in the tensor-core form in "
-                      f"{prefills} prefill forwards")
+                tc, dec = matmul + common.TC, matmul + common.DEC
+                check(step_launches[dec] == per_forward
+                      and step_launches[tc] == step_launches[matmul] == 0
+                      and launches[dec] == per_forward * steps
+                      and launches[tc] == per_forward * prefills
+                      and launches[matmul] == 0,
+                      f"{what}: {dec} launched {step_launches[dec]} times "
+                      f"in a decode step (not {per_forward}), "
+                      f"{launches[dec]} in {steps} decode steps, {tc} "
+                      f"{launches[tc]} times in {prefills} prefill forwards "
+                      f"and {matmul} {launches[matmul]} times")
             check(bool(finite), f"{what}: non-finite logits")
             for n, c in launches.items():
                 total[n] += c
@@ -1784,11 +1834,13 @@ def quantized_serving(model) -> dict[str, int]:
     return total
 
 
-def end_to_end(kind: str | None = None) -> None:
+def end_to_end(kind: str | None = None) -> dict[str, int]:
     """Serving end to end at full width, 2 layers, fp32 with TF32 off,
-    with float weights or, with ``kind``, quantized for that matmul kernel:
-    engine tokens against generate's and the uncached forward's, and one
-    decode step's logits with the kernels against the plain path."""
+    with float weights or, with ``kind``, quantized for that matmul kernel
+    (fp32 x: the CUDA-core forms): engine tokens against generate's and the
+    uncached forward's, and one decode step's logits with the kernels
+    against the plain path.  Returns the launches of the ``generate`` and
+    engine runs."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = DecoderConfig(**{**SERVING, "n_layer": 2, "dtype": torch.float32,
@@ -1807,6 +1859,7 @@ def end_to_end(kind: str | None = None) -> None:
         prompts.append(rng.integers(1, cfg.n_vocab, n).tolist())
         ids[i, :n] = prompts[-1]
     sampling = SamplingConfig(max_new_tokens=n_new)
+    common.launch_counts.clear()
     ref, _ = generate(model, ids, lens, sampling, max_len=max_len,
                       device=DEV)
     ref = ref.cpu().numpy()
@@ -1815,6 +1868,7 @@ def end_to_end(kind: str | None = None) -> None:
     for uid, p in enumerate(prompts):
         eng.submit(Request(uid, p))
     got = {c.uid: c.tokens for c in eng.run()}
+    served = dict(common.launch_counts)
     # A token may differ only where the uncached forward's top-2 gap is a
     # near tie; the comparison of that sequence stops there.
     compared = ties = 0
@@ -1868,6 +1922,7 @@ def end_to_end(kind: str | None = None) -> None:
                       f"{err}")
     check(launched["kernel"] == want and not launched["plain"],
           f"{kind}: decode step launches {launched}, not {want}")
+    return served
 
 
 def main() -> int:
@@ -1892,18 +1947,23 @@ def main() -> int:
             "warnings": [ln for ln in r.log.splitlines()
                          if "warning" in ln][:20]}
         for n, r in built.items()}})
-    # the flash-attention kernels' tensor-core forms must not spill (a
-    # spilled form of the two-pass dQ kernel passed its tests 38 times
-    # slower)
+    # the flash-attention kernels' tensor-core forms and the quantized
+    # matmuls' tensor-core decode form must not spill (a spilled form of the
+    # two-pass dQ kernel passed its tests 38 times slower)
     tc = {k: r for n in ATTENTION + (TWO_PASS_SOURCE,)
           for k, r in ptxas_report(built[n].log).items() if "_tc_kernel" in k}
-    spills = {k: r for k, r in tc.items()
+    dec = {k: r for n in QUANT_SOURCES
+           for k, r in ptxas_report(built[n].log).items()
+           if "_dec_kernel" in k}
+    spills = {k: r for k, r in {**tc, **dec}.items()
               if r.get("spill_stores", 0) or r.get("spill_loads", 0)}
-    log({"phase": "tensor_core_spills", "kernels": len(tc),
-         "spilling": spills})
-    check(len(tc) == 4 * len(fa.HEAD_DIMS) and not spills,
-          f"the flash-attention tensor-core kernels spill or are missing: "
-          f"{len(tc)} reported, {spills}")
+    log({"phase": "tensor_core_spills", "kernels": len(tc) + len(dec),
+         "decode_form": dec, "spilling": spills})
+    # the decode form: a kernel a mode at tiles of 32, 64 and 128 columns
+    check(len(tc) == 4 * len(fa.HEAD_DIMS) and len(dec) == 3 * len(QUANT)
+          and not spills,
+          f"the tensor-core kernels spill or are missing: {len(tc)} flash, "
+          f"{len(dec)} quantized decode reported, {spills}")
 
     gen = torch.Generator(DEV).manual_seed(0)
     worst = kernel_cases(gen)
@@ -1933,7 +1993,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     end_to_end()
     for kind in QUANT:
-        end_to_end(kind)
+        # fp32 weights' serving runs the CUDA-core forms
+        launches[kind] = launches.get(kind, 0) + end_to_end(kind).get(kind, 0)
 
     # launches a step, both configs having 4 layers: each attention kernel
     # once a layer, in its dtype's form; each LayerNorm kernel twice a layer
@@ -2066,10 +2127,12 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "shape": ("R8192 H256 fp32" if n.startswith("layernorm")
                       else "B32 H8 Lq256 Lk256 causal fp32")})
+    forms = ((common.DEC, QUANT_MAIN_SHAPE, "the tensor-core decode form"),
+             (common.TC, QUANT_TC_SHAPE, "the tensor-core prefill form"),
+             ("", QUANT_CUDA_CORE_SHAPE, "the CUDA-core decode form"))
     for n, (_, _, line) in QUANT.items():
-        for form, shape in ((n, QUANT_MAIN_SHAPE),
-                            (n + common.TC, QUANT_TC_SHAPE)):
-            r = quant_rows[(n, shape)]
+        for suffix, shape, what in forms:
+            form, r = n + suffix, quant_rows[(n, shape)]
             entries.append({
                 "name": form, "route": "cuda",
                 "source": "tpu_flash_torch/kernels/csrc/{}.cu".format(
@@ -2079,9 +2142,10 @@ def main() -> int:
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"],
-                "shape": "M{} K{} N{} bf16 x".format(*shape[:3])
+                "shape": "M{} K{} N{} {} x".format(
+                    *shape[:3], str(shape[3]).split(".")[1])
                 + (", groups of 128" if n == "int4_matmul_group" else "")
-                + (", the tensor-core prefill form" if form != n else "")})
+                + f", {what}"})
     log({"phase": "total", "seconds": time.perf_counter() - t0})
     log({"kernels": entries})
     print(smi.splitlines()[0], flush=True)

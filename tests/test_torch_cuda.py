@@ -872,13 +872,17 @@ def test_fused_model_step_launches_the_fused_kernels(cuda_device):
 # 2e-2 covers two ulps) on top of 1e-2 of the rms (chip_smoke.py's limits).
 # The shapes cover ragged M, N and K (odd K for int4), N not a multiple of
 # 16 (the kernels' byte-wise loads), both block shapes (M <= 8 and above)
-# and split code rows (small N over a long K).
+# and split code rows (small N over a long K); bf16 x at M <= 8 runs the
+# tensor-core decode form where 16 divides the group and N, else the
+# CUDA-core decode kernel (the groups of 24 and 8 at M 1 and 8, and N 300).
 
 QUANT_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 2e-2)}
 QUANT_SHAPES = [(1, 255, 300), (8, 1024, 384), (37, 513, 200),
                 (100, 96, 130), (260, 128, 64), (8, 4096, 16)]
 GROUP_SHAPES = [(1, 256, 300, 64), (8, 1024, 384, 128), (37, 512, 200, 32),
-                (100, 96, 130, 16), (260, 192, 64, 32), (8, 4096, 16, 128)]
+                (100, 96, 130, 16), (260, 192, 64, 32), (8, 4096, 16, 128),
+                (1, 240, 304, 24), (8, 240, 304, 24), (1, 256, 256, 8),
+                (8, 1024, 384, 8)]
 
 
 def quant_case(gen, dev, kind, M, K, N, g, dtype):
@@ -896,11 +900,14 @@ def quant_case(gen, dev, kind, M, K, N, g, dtype):
                                                impl=impl)
 
 
-def form_name(kind, M, g, dtype):
-    """The launch count a call adds to: the tensor-core form's (bf16 x at
-    M > 8, groups a multiple of 16) or the CUDA-core forms'."""
-    tc = dtype == torch.bfloat16 and M > 8 and (g is None or g % 16 == 0)
-    return kind + "_tc" if tc else kind
+def form_name(kind, M, N, g, dtype):
+    """The launch count a call adds to: the tensor-core forms' (bf16 x,
+    groups a multiple of 16: ``_dec`` at M <= 8 where 16 divides N too,
+    ``_tc`` above) or the CUDA-core forms'."""
+    if (dtype != torch.bfloat16 or (g is not None and g % 16)
+            or (M <= 8 and N % 16)):
+        return kind
+    return kind + (common.DEC if M <= 8 else common.TC)
 
 
 def check_quant_case(dev, dtype, kind, M, K, N, g):
@@ -912,7 +919,7 @@ def check_quant_case(dev, dtype, kind, M, K, N, g):
     got = call()
     launched = {n: c - before.get(n, 0) for n, c in
                 common.launch_counts.items() if c != before.get(n, 0)}
-    assert launched == {form_name(kind, M, g, dtype): 1}
+    assert launched == {form_name(kind, M, N, g, dtype): 1}
     want = call("plain")
     torch.cuda.synchronize()
     assert got.dtype == want.dtype == dtype and got.shape == (M, N)
@@ -944,6 +951,72 @@ def test_prefill_forms_match_plain(cuda_device, dtype, M, kind, K, N, g):
     CUDA-core one, at the serving model's K1024 N4096 and at ragged K and N
     (odd K for int4 per column)."""
     check_quant_case(cuda_device, dtype, kind, M, K, N, g)
+
+
+# The tensor-core decode form (bf16 x, M <= 8): every serving linear of the
+# 176M model at M 1 and 8, every M from 1 to 8 at the projections' shape,
+# and ragged N and K (N 304 ends in a ragged tile, K 255 odd for int4 per
+# column; grouped K 256 in groups of 64), groups of 64 and 128.  N 300, not
+# a multiple of 16, takes the CUDA-core decode kernel, with the same checks.
+SERVING_LINEARS = ((1024, 1024), (1024, 4096), (4096, 1024), (1024, 32768))
+DECODE_KINDS = (("int8_matmul", None), ("int4_matmul", None),
+                ("int4_matmul_group", 128))
+DECODE_CASES = [
+    *((kind, M, K, N, g) for kind, g in DECODE_KINDS
+      for K, N in SERVING_LINEARS for M in (1, 8)),
+    *((kind, M, 1024, 1024, g) for kind, g in DECODE_KINDS
+      for M in range(2, 8)),
+    *((kind, M, K, N, g) for kind, K, g in (
+        ("int8_matmul", 255, None), ("int4_matmul", 255, None),
+        ("int4_matmul_group", 256, 64)) for M in (1, 5, 8)
+      for N in (304, 300)),
+    *(("int4_matmul_group", M, 1024, 4096, 64) for M in (1, 8)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,M,K,N,g", DECODE_CASES)
+def test_decode_form_matches_plain_and_repeats_its_bits(cuda_device, kind, M,
+                                                        K, N, g):
+    """Each call launches its decode form once (the tensor-core one
+    counted under ``_dec``); two calls give the same bits; the values agree
+    with the plain version under the bf16 limits of QUANT_TOL."""
+    gen = torch.Generator(cuda_device).manual_seed(10)
+    call = quant_case(gen, cuda_device, kind, M, K, N, g, torch.bfloat16)
+    before = dict(common.launch_counts)
+    got, again = call(), call()
+    launched = {n: c - before.get(n, 0) for n, c in
+                common.launch_counts.items() if c != before.get(n, 0)}
+    assert launched == {form_name(kind, M, N, g, torch.bfloat16): 2}
+    want = call("plain")
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    assert torch.equal(got, again)
+    assert_within(got, want, *QUANT_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,g", DECODE_KINDS)
+def test_decode_form_runs_one_kernel_a_call(cuda_device, kind, g):
+    """Under the profiler three decode calls at K1024 N4096 (a cluster of
+    4) run exactly three kernels, all the decode form's: no reduction
+    kernel and no workspace fill."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(cuda_device).manual_seed(11)
+    call = quant_case(gen, cuda_device, kind, 8, 1024, 4096, g,
+                      torch.bfloat16)
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum(e.count for e in kernels) == 3, [e.key for e in kernels]
+    assert all("_dec_kernel" in e.key for e in kernels)
 
 
 @pytest.mark.cuda

@@ -1,10 +1,12 @@
 """The quantized matmuls' launch plan (``kernels/quant.py`` ``_plan``), a
 pure function of the shape, the dtype, the group and the card's count of
 streaming multiprocessors, so it runs here without a card: which form each
-shape takes (decode for M <= 8, the tensor-core form for bf16 x at M > 8
-where its k depth of 16 divides the group, the CUDA-core form otherwise),
-its tile, its splits of the code rows, and that every prefill shape of the
-176M serving model fills an H100's 132 multiprocessors."""
+shape takes (bf16 x where the tensor cores' k depth of 16 divides the group:
+``decode_tc`` at M <= 8, the tensor-core form above; otherwise the CUDA-core
+forms, ``decode`` at M <= 8), its tile, its splits of the code rows, its
+ring, and that every decode and prefill shape of the 176M serving model
+fills an H100's 132 multiprocessors.  ``_launch`` runs here too with its C
+entry replaced by a recorder, to show what a decode call hands the kernel."""
 
 import pytest
 import torch
@@ -25,8 +27,8 @@ def weights(kind, K):
 
 
 @pytest.mark.parametrize("M,dtype,group,form", [
-    (1, BF16, None, "decode"),
-    (8, BF16, 128, "decode"),
+    (1, BF16, None, "decode_tc"),
+    (8, BF16, 128, "decode_tc"),
     (8, FP32, None, "decode"),
     (9, BF16, None, "tensor_core"),
     (9, FP32, None, "cuda_core"),
@@ -41,16 +43,37 @@ def test_the_form_follows_m_dtype_and_group(M, dtype, group, form):
     assert quant._plan(M, 1024, 512, SMS, dtype, group).form == form
 
 
+@pytest.mark.parametrize("M,dtype,group,form", [
+    (M, dtype, group, form) for M in (1, 8) for dtype, group, form in (
+        (BF16, None, "decode_tc"), (BF16, 128, "decode_tc"),
+        (BF16, 64, "decode_tc"), (BF16, 8, "decode"), (BF16, 24, "decode"),
+        (FP32, None, "decode"))])
+def test_the_decode_form_follows_dtype_and_group(M, dtype, group, form):
+    """bf16 x takes the tensor-core decode form where 16 divides the group
+    and N; fp32 x and other groups keep the CUDA-core decode kernels, as do
+    N not a multiple of 16 (the codes' tensor map needs 16-byte rows) and
+    more code rows than 8 blocks' slices of x hold."""
+    for N, rows in ((1024, 512), (32768, 1024), (304, 128)):
+        assert quant._plan(M, N, rows, SMS, dtype, group).form == form
+    for N in (300, 1000, 4097):
+        assert quant._plan(M, N, 128, SMS, dtype, group).form == "decode"
+    assert quant._plan(M, 4096, 8 * 2048 + 1, SMS, dtype,
+                       group).form == "decode"
+
+
 @pytest.mark.parametrize("M,N,rows,dtype,group,want", [
-    # form, bm, bn, splits, chunk, blocks
-    (1024, 4096, 1024, BF16, None, ("tensor_core", 128, 64, 1, 1024, 512)),
-    (1024, 1024, 512, BF16, 128, ("tensor_core", 128, 64, 2, 256, 256)),
-    (256, 1024, 512, BF16, None, ("tensor_core", 128, 64, 8, 64, 256)),
-    (16, 1024, 512, BF16, None, ("tensor_core", 128, 64, 8, 64, 128)),
-    (300, 300, 255, BF16, None, ("tensor_core", 128, 64, 4, 64, 60)),
-    (8, 4096, 1024, BF16, None, ("decode", 8, 128, 8, 128, 256)),
-    (8, 32768, 1024, BF16, None, ("decode", 8, 128, 2, 512, 512)),
-    (1024, 4096, 1024, FP32, None, ("cuda_core", 64, 128, 1, 1024, 512)),
+    # form, bm, bn, splits, chunk, blocks, stages, stage_rows (the ring:
+    # decode_tc's alone)
+    (1024, 4096, 1024, BF16, None,
+     ("tensor_core", 128, 64, 1, 1024, 512, 0, 0)),
+    (1024, 1024, 512, BF16, 128, ("tensor_core", 128, 64, 2, 256, 256, 0, 0)),
+    (256, 1024, 512, BF16, None, ("tensor_core", 128, 64, 8, 64, 256, 0, 0)),
+    (16, 1024, 512, BF16, None, ("tensor_core", 128, 64, 8, 64, 128, 0, 0)),
+    (300, 300, 255, BF16, None, ("tensor_core", 128, 64, 4, 64, 60, 0, 0)),
+    (8, 4096, 1024, BF16, None, ("decode_tc", 8, 64, 4, 256, 256, 1, 64)),
+    (8, 32768, 1024, BF16, None, ("decode_tc", 8, 128, 1, 1024, 256, 2, 32)),
+    (8, 32768, 512, BF16, 128, ("decode_tc", 8, 128, 1, 512, 256, 2, 32)),
+    (1024, 4096, 1024, FP32, None, ("cuda_core", 64, 128, 1, 1024, 512, 0, 0)),
 ])
 def test_tiles_and_splits(M, N, rows, dtype, group, want):
     assert tuple(quant._plan(M, N, rows, SMS, dtype, group)) == want
@@ -66,13 +89,28 @@ def pr4_plan(M, N, rows, sms):
     return bm, cdiv(rows, chunk), chunk
 
 
-@pytest.mark.parametrize("M,dtype", [(1, BF16), (8, BF16), (8, FP32),
-                                     (9, FP32), (1024, FP32)])
-def test_the_cuda_core_forms_keep_their_plan(M, dtype):
+@pytest.mark.parametrize("M,dtype,group", [(1, BF16, 24), (8, BF16, 8),
+                                           (8, FP32, None), (9, FP32, None),
+                                           (1024, FP32, None)])
+def test_the_cuda_core_forms_keep_their_plan(M, dtype, group):
     for K, N in SERVING_LINEARS + ((255, 300), (96, 130)):
         for kind in ("int8", "int4"):
             rows, _ = weights(kind, K)
-            plan = quant._plan(M, N, rows, SMS, dtype, None)
+            plan = quant._plan(M, N, rows, SMS, dtype, group)
+            assert plan.form in ("decode", "cuda_core")
+            assert (plan.bm, plan.splits, plan.chunk) == pr4_plan(M, N, rows,
+                                                                  SMS)
+
+
+@pytest.mark.parametrize("M,group", [(1, None), (8, None), (1, 128),
+                                     (8, 64)])
+def test_decode_keeps_the_cuda_core_plan_where_16_does_not_divide_n(M, group):
+    """bf16 x at M <= 8 with N not a multiple of 16 takes the CUDA-core
+    decode form with its plan as it stood before the tensor-core forms."""
+    for N in (300, 130, 1000, 4100):
+        for rows in (128, 255, 512, 2048):
+            plan = quant._plan(M, N, rows, SMS, BF16, group)
+            assert plan.form == "decode" and plan.stages == 0
             assert (plan.bm, plan.splits, plan.chunk) == pr4_plan(M, N, rows,
                                                                   SMS)
 
@@ -87,13 +125,86 @@ def test_every_serving_prefill_shape_fills_the_card(M, kind):
         assert plan.blocks >= SMS, (K, N, plan)
 
 
+@pytest.mark.parametrize("kind", ["int8", "int4", "int4_g128"])
+@pytest.mark.parametrize("K,N", SERVING_LINEARS)
+def test_every_serving_decode_plan_fills_the_card(K, N, kind):
+    """The tensor-core decode form at each serving linear: at least one
+    block a multiprocessor (256 blocks at each), a cluster of 1 to 8 whose
+    ranges are whole 16-row steps for each of a block's 4 warps, covering
+    the code rows with none empty; each warp's ring of 1 or 2 stages of at
+    most 4 KB, no deeper than its quarter of the range; the same plan at
+    M 1 and 8."""
+    rows, group = weights(kind, K)
+    plan = quant._plan(8, N, rows, SMS, BF16, group)
+    assert plan == quant._plan(1, N, rows, SMS, BF16, group)
+    assert plan.form == "decode_tc" and plan.bn in (32, 64, 128)
+    assert plan.blocks == cdiv(N, plan.bn) * plan.splits >= SMS
+    assert 1 <= plan.splits <= 8 and plan.chunk % 64 == 0
+    assert (plan.splits - 1) * plan.chunk < rows <= plan.splits * plan.chunk
+    assert 1 <= plan.stages <= 2 and plan.stage_rows % 16 == 0
+    assert plan.stage_rows * plan.bn <= 4096
+    assert (plan.stages - 1) * plan.stage_rows < plan.chunk // 4
+
+
+class Recorder:
+    """A C entry that records its arguments and returns success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, fn, dev, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4", "int4_g128"])
+def test_a_decode_call_hands_the_kernel_its_plan_and_no_workspace(
+        monkeypatch, kind):
+    """One bf16 decode call at K1024 N4096: one launch of form 3 with the
+    plan's tile, range, cluster and ring, no workspace pointer, counted
+    under the kernel's name + ``_dec``; fp32 x keeps form 0 and its
+    workspace."""
+    rec = Recorder()
+    monkeypatch.setattr(quant, "entry", lambda *a: (None, None))
+    monkeypatch.setattr(quant, "call_on_stream", rec)
+    monkeypatch.setattr(quant, "_sms", lambda dev: SMS)
+    gen = torch.Generator().manual_seed(0)
+    w = torch.randn(1024, 4096, generator=gen)
+    before = dict(quant.launch_counts)
+    for dtype in (BF16, FP32):
+        x = torch.randn(8, 1024, generator=gen).to(dtype)
+        if kind == "int8":
+            name, group = quant.KERNEL_INT8, None
+            quant._launch(name, "tf_int8_matmul", name, x,
+                          *quant.quantize_weight(w), 1024, ())
+        else:
+            group = 128 if kind == "int4_g128" else None
+            packed, scales, _ = quant.quantize_weight_int4(w, group_size=group)
+            name = quant.KERNEL_INT4_GROUP if group else quant.KERNEL_INT4
+            quant._launch(quant.KERNEL_INT4, "tf_int4_matmul", name, x,
+                          packed, scales, 512,
+                          (scales.shape[0] if group else 0,), group)
+    rows, groups = (1024, ()) if kind == "int8" else (512, (8 if group
+                                                            else 0,))
+    plan = quant._plan(8, 4096, rows, SMS, BF16, group)
+    bf16, fp32 = rec.calls
+    assert all(bf16[:4]) and bf16[4] is None
+    assert bf16[5:] == (8, 4096, 1024, *groups, 3, plan.bn, plan.chunk,
+                        plan.splits, plan.stage_rows, plan.stages, 1)
+    assert fp32[4] is not None and fp32[8 + len(groups)] == 0
+    launched = {n: c - before.get(n, 0) for n, c in quant.launch_counts.items()
+                if c != before.get(n, 0)}
+    assert launched == {name + "_dec": 1, name: 1}
+
+
 @pytest.mark.parametrize("dtype,group", [(BF16, None), (BF16, 64),
                                          (FP32, None)])
 @pytest.mark.parametrize("sms", [1, 16, 132])
 def test_splits_cover_the_rows_in_whole_slabs(dtype, group, sms):
     """Every split is a whole number of the form's slabs (the C entry
     refuses others), the splits cover the code rows and none is empty."""
-    slab = {"decode": 128, "cuda_core": 32, "tensor_core": 64}
+    slab = {"decode": 128, "cuda_core": 32, "tensor_core": 64,
+            "decode_tc": 64}
     for M in (1, 8, 9, 64, 129, 1024):
         for N in (5, 64, 300, 4096):
             for rows in (1, 31, 96, 255, 512, 2048):

@@ -4,19 +4,29 @@ in a process of its own: the flash-attention forward and fused backward
 and the two-pass backward's dK/dV and dQ kernels (``_launch_dkv`` /
 ``_launch_dq``), each alone, in the form the tree picks for the dtype, at
 the shapes below (causal, d 64; CUDA events, the median of 5 batches), with
-a check that two calls of each backward give the same bits.
+a check that two calls of each backward give the same bits; and the
+quantized matmuls (``int8_matmul`` / ``int4_matmul`` of
+``kernels/quant.py``, int8, int4 and int4 in groups of 128) at bf16 decode
+(M 8) on each linear of the 176M serving model and at one 1024-token
+prefill, weights rotating past the 50 MB L2, with the same check; and the
+host's time to issue one quantized Linear call (``int8_linear`` /
+``int4_linear`` under ``torch.no_grad``, as serving calls them) at bf16
+decode on each serving linear, the stream held so that the host never
+waits for the card (``host_us``; these rows' ``clock`` is ``host``).
 
     PYTHONPATH=. python3 tools/torch_ab.py A_ROOT B_ROOT
 
 A_ROOT and B_ROOT are checkouts of the repository (for example the parent
 commit unpacked with ``git archive`` into a directory ``.gitignore`` lists,
 and ``.``).  Each turn imports ``tpu_flash_torch`` from its root and builds
-that tree's kernels there.  It prints one JSON line a turn and a summary
-with the card's name and power limit.  Needs a CUDA device.
+that tree's kernels there; every turn times with this tree's
+``tpu_flash_torch/utils/timing.py``.  It prints one JSON line a turn and a
+summary with the card's name and power limit.  Needs a CUDA device.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import math
 import statistics
@@ -32,6 +42,14 @@ FWD_BWD_SHAPES = (("bfloat16", 4, 8, 2048), ("bfloat16", 1, 8, 16384),
                   ("float32", 4, 8, 2048))
 TWO_PASS_SHAPES = (("bfloat16", 1, 8, 16384), ("bfloat16", 4, 8, 2048),
                    ("float32", 1, 8, 8192))
+# (kind, group), and (M, K, N) of bf16 x: decode on the serving linears (q,
+# k, v and out; FF in; FF out; lm_head), then one prefill.
+QUANT_KINDS = (("int8", None), ("int4", None), ("int4_g128", 128))
+QUANT_SHAPES = tuple((8, K, N) for K, N in ((1024, 1024), (1024, 4096),
+                                            (4096, 1024), (1024, 32768))
+                     ) + ((1024, 1024, 4096),)
+TIMING = (Path(__file__).resolve().parents[1] / "tpu_flash_torch" / "utils"
+          / "timing.py")
 
 
 def inputs_at(torch, fa, shape, gen):
@@ -44,6 +62,15 @@ def inputs_at(torch, fa, shape, gen):
     kin = (*fa._bwd_inputs(q, k, v, out, lse, do, None), True,
            1 / math.sqrt(64), 0)
     return q, k, v, kin, f"B{B} H{H} L{L} d64 causal"
+
+
+def timing():
+    """This tree's timing module, loaded from its file, so that both turns'
+    trees are timed by the same code."""
+    spec = importlib.util.spec_from_file_location("ab_timing", TIMING)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def timed_rows(torch, fa, device_ms) -> list[dict]:
@@ -83,17 +110,61 @@ def timed_rows(torch, fa, device_ms) -> list[dict]:
     return rows
 
 
+def quant_rows(torch, quant, timer) -> list[dict]:
+    gen = torch.Generator("cuda").manual_seed(0)
+    rows, hosts = [], []
+    for kind, group in QUANT_KINDS:
+        for M, K, N in QUANT_SHAPES:
+            w = torch.randn(K, N, generator=gen, device="cuda")
+            if kind == "int8":
+                q = quant.quantize_weight(w)
+
+                def call(x, *q):
+                    return quant.int8_matmul(x, *q)
+
+                qw = quant.QuantizedLinearWeights(*q)
+                linear = quant.int8_linear
+            else:
+                q = quant.quantize_weight_int4(w, group_size=group)[:2]
+
+                def call(x, *q):
+                    return quant.int4_matmul(x, *q, k_dim=K)
+
+                qw = quant.QuantizedLinearWeights4(*q, K)
+                linear = quant.int4_linear
+            x = torch.randn(M, K, generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            same = torch.equal(call(x, *q), call(x, *q))
+            rows.append({"what": f"quant {kind}", "dtype": "bfloat16",
+                         "shape": f"M{M} K{K} N{N}", "clock": "device",
+                         "ms": timer.rotating_ms(
+                             lambda *w: call(x, *w), timer.past_l2(*q),
+                             iters=20, reps=5),
+                         "two_calls_same_bits": same})
+            if M <= 8:
+                with torch.no_grad():
+                    us = timer.host_us(lambda: linear(x, qw))
+                hosts.append({"what": f"host {kind} linear",
+                              "dtype": "bfloat16", "shape": f"M{M} K{K} N{N}",
+                              "clock": "host", "ms": us * 1e-3,
+                              "two_calls_same_bits": same})
+            del w, q, qw
+    return rows + hosts
+
+
 def one(root: str) -> dict:
     sys.path.insert(0, str(Path(root).resolve()))
     import torch
 
-    from tpu_flash_torch.kernels import common, flash_attention as fa
-    from tpu_flash_torch.utils.timing import device_ms
+    from tpu_flash_torch.kernels import common, flash_attention as fa, quant
 
     where = Path(fa.__file__).resolve()
     assert Path(root).resolve() in where.parents, where
-    common.build([fa.KERNEL_FWD, fa.KERNEL_BWD, fa.SOURCE_TWO_PASS])
-    return {"root": root, "rows": timed_rows(torch, fa, device_ms)}
+    common.build([fa.KERNEL_FWD, fa.KERNEL_BWD, fa.SOURCE_TWO_PASS,
+                  quant.KERNEL_INT8, quant.KERNEL_INT4])
+    timer = timing()
+    return {"root": root, "rows": timed_rows(torch, fa, timer.device_ms)
+            + quant_rows(torch, quant, timer)}
 
 
 def main() -> int:
@@ -119,7 +190,8 @@ def main() -> int:
                 for r in (a, b)}
         summary.append({
             "what": row["what"], "dtype": row["dtype"], "shape": row["shape"],
-            "a_ms": vals[a], "b_ms": vals[b],
+            "clock": row.get("clock", "device"), "a_ms": vals[a],
+            "b_ms": vals[b],
             "b_over_a": statistics.mean(vals[b]) / statistics.mean(vals[a]),
             "same_bits": [x["rows"][i]["two_calls_same_bits"]
                           for x in runs]})

@@ -40,8 +40,10 @@ NVCC_FLAGS = (
 # Launches per kernel name.  A wrapper adds one where it launches its kernel
 # and nowhere else, so a run can show that its path went through the kernel.
 launch_counts: collections.Counter[str] = collections.Counter()
-# A kernel's tensor-core form counts its launches under the name + TC.
+# A kernel's tensor-core form counts its launches under the name + TC; the
+# quantized matmuls' tensor-core decode form under the name + DEC.
 TC = "_tc"
+DEC = "_dec"
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

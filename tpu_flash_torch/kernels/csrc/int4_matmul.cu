@@ -9,22 +9,27 @@
 // column K of an odd K reads 0), scales fp32 [N] applied in the epilogue
 // (kInt4) or [G, N] over groups of K / G rows, each group's fp32 partial
 // dot scaled before it is added (kInt4Group).  x fp32 or bf16, out in x's
-// dtype.  The body is quant_matmul.cuh's: a 16-byte load of packed codes
-// feeds two FMAs a byte, one against x's low half and one against its high
-// half, kept in shared memory side by side.
+// dtype.  The bodies are quant_matmul.cuh's; every form reads a packed byte
+// once for both of its codes, the low one against x's first half and the
+// high one against its second.
 //
-// What bounds it: at decode (M = 8) the packed bytes, half those of int8
-// (0.5 MB for a 1024 x 1024 projection: 0.16 us at 3.35 TB/s); at prefill
-// the 2 M K N operations.  Decode and fp32 x at M > 8 run fp32 FMAs on the
-// CUDA cores: grouped, each thread keeps the low and the high group's
-// partial sums beside its total and scales them at the group's last row,
-// so the group size needs no relation to the slab; those sums take
-// registers (~170 a thread, one block a multiprocessor), and holding the
-// kernels to two blocks spilled and made decode slower.  bf16 x at M > 8
-// (groups a multiple of 16) runs the tensor-core form (*_tc_kernel,
-// quant_matmul.cuh): one packed tile converted once per block into the low
-// and the high codes as bf16, each multiplied with its half of x's columns
-// by mma.sync, fp32 sums, group partials scaled at the group's end.
+// What bounds it: at decode (M <= 8) the packed bytes, half those of int8
+// (0.5 MB for a 1024 x 1024 projection: 0.16 us at 3.35 TB/s; 2.1 MB at
+// K1024 N4096: 0.65 us); at prefill the 2 M K N operations.  bf16 x at
+// M <= 8 (groups and N a multiple of 16) runs the tensor-core decode form
+// (*_dec_kernel, quant_matmul.cuh): one launch, the packed rows split over a
+// thread-block cluster and summed in distributed shared memory, a TMA ring,
+// mma.sync with the tokens as the n8 side; each loaded word of packed codes
+// gives the A fragments of two products, its low nibbles against x's first
+// half and its high nibbles against the second; grouped, each half's
+// current group partial (8 floats a lane) is scaled into the sum at the
+// group's end.  bf16 x at M > 8 runs the tensor-core prefill form
+// (*_tc_kernel): one packed tile converted once per block into the low and
+// the high codes as bf16 in shared memory, fp32 sums, group partials scaled
+// at the group's end.  fp32 x (and groups the tensor-core forms do not
+// take) runs fp32 FMAs on the CUDA cores (_m8, _m64): grouped, each thread
+// keeps the low and the high group's partial sums beside its total (~170
+// registers, one block a multiprocessor).
 //
 // C entry: tf_int4_matmul(...) launches on the given stream, allocates
 // nothing and returns cudaGetLastError() (or cudaErrorInvalidValue for
@@ -64,33 +69,54 @@ int4_matmul_group_tc_kernel(const QParams p) {
   quant_matmul_tc_body<kInt4Group>(p);
 }
 
+template <int BN>
+__global__ void __launch_bounds__(kDecThreads)
+int4_matmul_dec_kernel(const __grid_constant__ QDecParams d) {
+  quant_matmul_dec_body<kInt4, BN>(d);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kDecThreads)
+int4_matmul_group_dec_kernel(const __grid_constant__ QDecParams d) {
+  quant_matmul_dec_body<kInt4Group, BN>(d);
+}
+
 }  // namespace
 
 extern "C" {
 
 // groups: 0 for per-column scales [N], else G for scales [G, N] (G even
-// and dividing K).  The other arguments as tf_int8_matmul's, with the
-// packed rows K2 = ceil(K / 2) split into ranges of `chunk`.
+// and dividing K; the tensor-core forms 2 and 3 need K / G a multiple of
+// 16).  The other arguments as tf_int8_matmul's, with the packed rows K2 =
+// ceil(K / 2) split into ranges of `chunk`.
 int tf_int4_matmul(const void* x, const void* packed, const float* scales,
                    void* out, float* part, int M, int N, int K, int groups,
-                   int bm, int chunk, int splits, int dtype, void* stream) {
+                   int form, int bn, int chunk, int splits, int stage_rows,
+                   int stages, int dtype, void* stream) {
   if ((dtype != 0 && dtype != 1) || groups < 0 ||
-      (groups > 0 && (groups % 2 || K % groups)))
+      (groups > 0 && (groups % 2 || K % groups)) ||
+      (groups > 0 && (form == kTensorCore || form == kDecodeTc) &&
+       (K / groups) % 16))
     return cudaErrorInvalidValue;
   const QParams p{x, static_cast<const uint8_t*>(packed), scales, out, part,
                   M, N, K, (K + 1) / 2, chunk, groups ? K / groups : 1,
                   dtype == 1};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (groups)
-    return (bm == kTcBM && (K / groups) % 16)   // the tensor-core form's k
-               ? cudaErrorInvalidValue          // depth divides the group
-               : quant_matmul_launch(int4_matmul_group_kernel_m8,
-                                     int4_matmul_group_kernel_m64,
-                                     int4_matmul_group_tc_kernel, p, bm,
-                                     splits, false, s);
-  return quant_matmul_launch(int4_matmul_kernel_m8, int4_matmul_kernel_m64,
-                             int4_matmul_tc_kernel, p, bm, splits, true,
-                             s);
+    return quant_matmul_launch(
+        {int4_matmul_group_kernel_m8,
+         int4_matmul_group_kernel_m64,
+         int4_matmul_group_tc_kernel,
+         {int4_matmul_group_dec_kernel<32>, int4_matmul_group_dec_kernel<64>,
+          int4_matmul_group_dec_kernel<128>}},
+        p, true, form, bn, splits, stage_rows, stages, false, s);
+  return quant_matmul_launch(
+      {int4_matmul_kernel_m8,
+       int4_matmul_kernel_m64,
+       int4_matmul_tc_kernel,
+       {int4_matmul_dec_kernel<32>, int4_matmul_dec_kernel<64>,
+        int4_matmul_dec_kernel<128>}},
+      p, true, form, bn, splits, stage_rows, stages, true, s);
 }
 
 }  // extern "C"

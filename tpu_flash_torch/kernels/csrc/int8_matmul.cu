@@ -7,16 +7,18 @@
 // contiguous: 16-byte loads along N), scales fp32 applied once in the
 // epilogue, out in x's dtype.  The body is quant_matmul.cuh's (MODE kInt8).
 //
-// What bounds it: at decode (M = 8) the code bytes, read once (1 MB for a
-// 1024 x 1024 projection: 0.32 us at 3.35 TB/s); at prefill (M up to
-// 1024) the operations, 2 M K N of them.  Three forms, chosen by the
-// wrapper (kernels/quant.py _plan): decode (M <= 8) and fp32 x at M > 8 run
-// fp32 FMAs on the CUDA cores; bf16 x at M > 8 runs int8_matmul_tc_kernel,
-// bf16 products of x and the codes converted exactly to bf16 in shared
-// memory, fp32 sums on the tensor cores (mma.sync).  The design keeps the
-// weight in int8 from device memory to the chip (no dequantized copy of W
-// is ever written), and splits the code rows over blocks when the output
-// alone gives too few.
+// What bounds it: at decode (M <= 8) the code bytes, read once (4.29 MB at
+// K1024 N4096: 1.28 us at 3.35 TB/s; 1 MB for a 1024 x 1024 projection:
+// 0.31 us); at prefill (M up to 1024) the operations, 2 M K N of them.
+// Four forms, chosen by the wrapper (kernels/quant.py _plan), each
+// described in quant_matmul.cuh: bf16 x at M <= 8 (N a multiple of 16)
+// runs int8_matmul_dec_kernel (one launch, the code rows split over a thread-
+// block cluster and summed in distributed shared memory, a TMA ring, the
+// tensor cores with the tokens as the n8 side); bf16 x at M > 8
+// int8_matmul_tc_kernel (bf16 products of x and the codes converted exactly
+// to bf16 in shared memory, fp32 sums on the tensor cores); fp32 x, and
+// other N at M <= 8, the CUDA-core kernels (_m8, _m64: fp32 FMAs).  No
+// form writes a dequantized copy of W.
 //
 // C entry: tf_int8_matmul(...) launches on the given stream, allocates
 // nothing and returns cudaGetLastError() (or cudaErrorInvalidValue for
@@ -41,24 +43,40 @@ int8_matmul_tc_kernel(const QParams p) {
   quant_matmul_tc_body<kInt8>(p);
 }
 
+template <int BN>
+__global__ void __launch_bounds__(kDecThreads)
+int8_matmul_dec_kernel(const __grid_constant__ QDecParams d) {
+  quant_matmul_dec_body<kInt8, BN>(d);
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 fp32, 1 bf16, of x and out.  bm: the form, by its rows a block:
-// 8 (decode), 64 (CUDA-core prefill) or 128 (tensor-core prefill, bf16
-// only); the code rows are split into `splits` ranges of `chunk` rows (a
-// multiple of 128 for bm 8, of 32 otherwise); with splits > 1, part is an
-// fp32 [splits, M, N] workspace.
+// dtype: 0 fp32, 1 bf16, of x and out.  form: 0 decode on the CUDA cores
+// (bn 128, chunks a multiple of 128 rows), 1 prefill on the CUDA cores (bn
+// 128, chunks of 32), 2 prefill on the tensor cores (bf16, bn 64, chunks of
+// 64), 3 decode on the tensor cores (bf16, M <= 8, N a multiple of 16, bn
+// 32, 64 or 128, chunks a multiple of 64, `splits` <= 8 the cluster,
+// stage_rows and stages each warp's ring, no workspace).  The code rows are
+// split into `splits` ranges of `chunk` rows; forms 0-2 with splits > 1
+// take part, an fp32 [splits, M, N]
+// workspace.
 int tf_int8_matmul(const void* x, const void* codes, const float* scales,
-                   void* out, float* part, int M, int N, int K, int bm,
-                   int chunk, int splits, int dtype, void* stream) {
+                   void* out, float* part, int M, int N, int K, int form,
+                   int bn, int chunk, int splits, int stage_rows, int stages,
+                   int dtype, void* stream) {
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
   const QParams p{x, static_cast<const uint8_t*>(codes), scales, out, part,
                   M, N, K, K, chunk, 1, dtype == 1};
-  return quant_matmul_launch(int8_matmul_kernel_m8, int8_matmul_kernel_m64,
-                             int8_matmul_tc_kernel, p, bm, splits, true,
-                             static_cast<cudaStream_t>(stream));
+  return quant_matmul_launch(
+      {int8_matmul_kernel_m8,
+       int8_matmul_kernel_m64,
+       int8_matmul_tc_kernel,
+       {int8_matmul_dec_kernel<32>, int8_matmul_dec_kernel<64>,
+        int8_matmul_dec_kernel<128>}},
+      p, false, form, bn, splits, stage_rows, stages, true,
+      static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

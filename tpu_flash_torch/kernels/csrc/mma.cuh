@@ -1,9 +1,10 @@
 // Tensor-core building blocks shared by the kernels that run bf16 products
 // with fp32 sums on Hopper's tensor cores through mma.sync: the quantized
-// matmuls' prefill form (quant_matmul.cuh) and the flash-attention kernels'
-// tensor-core forms (flash_attention_tc.cuh).  Copies from global to shared
-// memory by cp.async, fragment loads by ldmatrix, the m16n8k16 product, and
-// the packing of two values into a bf16 pair.
+// matmuls' tensor-core forms (quant_matmul.cuh) and the flash-attention
+// kernels' tensor-core forms (flash_attention_tc.cuh).  Copies from global to
+// shared memory by cp.async or by TMA (cp.async.bulk.tensor) completing on
+// an mbarrier, fragment loads by ldmatrix, the m16n8k16 product, and the
+// packing of two values into a bf16 pair.
 //
 // Fragments of mma.sync.m16n8k16 (lane = 4 * g + t, g = lane / 4):
 //   A (16 x 16, row major): a[0] row g, columns 2t, 2t + 1; a[1] row g + 8;
@@ -51,6 +52,52 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+// mbarriers in shared memory: init (one thread, then fence_mbarrier_init
+// and a block barrier), arrive, arrive announcing the bytes a TMA copy will
+// deliver, and a wait for the phase of the given parity to complete.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void fence_mbarrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{ .reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p; }"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// TMA: the box at (c0 along the inner dimension, c1) of a 2D tensor map
+// (in .param space: a __grid_constant__ kernel argument) into shared
+// memory, completing on bar; elements outside the tensor read zero.
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map,
+                                            int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
+         "r"(c1), "r"(smem_addr(bar))
+      : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {

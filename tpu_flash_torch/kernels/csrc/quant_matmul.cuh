@@ -12,38 +12,46 @@
 //     0 (odd K).  Per-column scales [N] (kInt4) or group scales [G, N]
 //     over groups of g = K / G rows of W (kInt4Group): each group's fp32
 //     partial dot is scaled, then added to the sum, as the TPU kernel does.
+// They replace the three Pallas kernels of tpu_flash/kernels/quant.py:
+// _matmul_kernel (:49, pallas_call at :103), _matmul4_kernel (:228, at
+// :383) and _matmul4_group_kernel (:258, at :371), which feed the codes to
+// the MXU in x's dtype with fp32 sums, block_m = min(256, round_up(M, 8)).
 // A product of a bf16 or fp32 x and a small integer code is exact in an
-// FMA, so the CUDA cores' fp32 FMA gives the TPU kernel's numbers up to
-// the order of the sums.
+// FMA and in a bf16 tensor-core product, so every form gives the TPU
+// kernels' numbers up to the order of the sums.
 //
-// One block of 256 threads (8 warps) per [BM, 128] tile of out and per
-// split of the code rows (blockIdx.z).  Each slab of BK code rows is loaded
-// as 16-byte pieces along N, the next slab's pieces issued before the
-// current one is computed, and x's matching columns go to shared memory as
-// fp32.  A lane owns 4 columns and 8 rows of out: one 32-bit word of codes
-// a row feeds 32 FMAs (int8) or 64 (int4), and each code becomes a float
-// once per warp, by a byte permute and an add (the int-to-float conversion
-// runs at a quarter of the FMA rate).  Two shapes:
-//   decode  (M <= 8):  BM = 8,  BK = 128, the 8 warps split each slab's
-//           rows and sum their [8, 128] tiles in shared memory at the end.
-//           Bounded by the code bytes; four 16-byte loads in flight a
-//           thread;
-//   prefill (M > 8), fp32 x (or groups the tensor-core form does not
-//           take): BM = 64, BK = 32, a warp per 8 rows of out.  Bounded by
-//           operations on the CUDA cores.
-// bf16 x at M > 8 takes the tensor-core form below (quant_matmul_tc_body).
+// Four forms, picked by the wrapper (kernels/quant.py _plan), each a kernel
+// of its own:
+//   * decode on the tensor cores (bf16 x, M <= 8, groups and N a multiple
+//     of 16): quant_matmul_dec_body below, one launch a call, no workspace;
+//   * prefill on the tensor cores (bf16 x, M > 8, groups a multiple of
+//     16): quant_matmul_tc_body below;
+//   * the CUDA-core forms (fp32 x, groups that are not a multiple of 16,
+//     and at M <= 8 N that is not): quant_matmul_body, BM = 8 (M <= 8) or
+//     64.
+//
+// The CUDA-core forms: one block of 256 threads (8 warps) per [BM, 128]
+// tile of out and per split of the code rows (blockIdx.z).  Each slab of BK
+// code rows is loaded as 16-byte pieces along N, the next slab's pieces
+// issued before the current one is computed, and x's matching columns go to
+// shared memory as fp32.  A lane owns 4 columns and 8 rows of out: one
+// 32-bit word of codes a row feeds 32 FMAs (int8) or 64 (int4), and each
+// code becomes a float once per warp, by a byte permute and an add.  BM = 8:
+// BK = 128, the 8 warps split each slab's rows and sum their [8, 128] tiles
+// in shared memory at the end; BM = 64: BK = 32, a warp per 8 rows of out.
 // The wrapper splits the code rows over blockIdx.z until there are two
-// blocks a streaming multiprocessor (the tensor-core form: one): at decode
-// N / 128 tiles alone would leave most of the card idle (8 blocks at N =
-// 1024).  With more than one split each block writes its fp32 partial sums
-// to a [S, M, N] workspace and a second kernel sums them in split order,
-// scales and rounds.
-// Grouped, a lane keeps the low and the high group's partial sums beside
-// its total and scales them at a group's last row (and, when warps split a
-// slab, at the end of its rows), so no group size is tied to the slab.
-// Ragged M, N and K are masked in the kernel: nothing is padded.
+// blocks a streaming multiprocessor; with more than one split each block
+// writes its fp32 partial sums to a [S, M, N] workspace and a second kernel
+// sums them in split order, scales and rounds.  Grouped, a lane keeps the
+// low and the high group's partial sums beside its total and scales them at
+// a group's last row (and, when warps split a slab, at the end of its rows),
+// so no group size is tied to the slab.
+// Ragged M, N and K are masked in every kernel: nothing is padded.
 
 #pragma once
+
+#include <cooperative_groups.h>
+#include <cuda.h>
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -330,6 +338,18 @@ __device__ __forceinline__ uint32_t nibbles_bf16(uint32_t h) {
   return r;
 }
 
+// Two int8 codes c, in the low bytes of a word's halves, as an exact bf16
+// pair: 0x4300 | (c & 0x7f) is the bf16 128 + (c & 0x7f), and the bias
+// 0xC300 | (c & 0x80), -128 or (sign bit set) -256, makes it c.
+__device__ __forceinline__ uint32_t int8x2_bf16(uint32_t h) {
+  uint32_t r;
+  const uint32_t v = (h & 0x007F007Fu) | 0x43004300u;
+  const uint32_t b = (h & 0x00800080u) | 0xC300C300u;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;"
+      : "=r"(r) : "r"(v), "r"(0x3F803F80u), "r"(b));
+  return r;
+}
+
 // Sixteen code bytes (a row's piece) as sixteen exact bf16, out[0..15]:
 // int8 codes, or the low (shift 0) or the high (shift 4) nibbles of packed
 // bytes.
@@ -561,6 +581,386 @@ __device__ __forceinline__ void quant_matmul_tc_body(const QParams& p) {
       }
 }
 
+// --- the tensor-core decode form -------------------------------------------
+//
+// For bf16 x at M <= 8 (groups a multiple of 16): every decode step of a
+// quantized server.  What bounds it is the code bytes, read once: int8 at
+// K1024 N4096 moves 4.29 MB (1.28 us at 3.35 TB/s), the K1024 N1024
+// projections 0.5-1 MB (0.16-0.31 us), so the launch, the latency of the
+// first bytes and the sum over a split count as much as the stream.  The
+// design:
+//   * one launch a call, no workspace.  A block owns a [8, BN] tile of out
+//     (BN = 32, 64 or 128 code bytes a row: whole 32-byte sectors) and a
+//     range of `chunk` code rows; where the tiles alone would not fill the
+//     card, the ranges of a tile are the blocks of one thread-block cluster
+//     (up to 8, set at launch).  Each rank adds its warps' partials in warp
+//     order and stores the [8, BN] sum, a share of the columns to each rank,
+//     into that rank's shared memory (distributed shared memory); after one
+//     cluster barrier each rank adds what it received in rank order, scales
+//     and rounds.  The barrier's first phase (every block has started) is
+//     arrived at when the block starts and waited for only then.  A fixed
+//     order, so two calls give the same bits;
+//   * the plan (kernels/quant.py _plan) gives every serving linear at
+//     least a block an SM (256 at each): tiles of 128 bytes where they
+//     alone do (lm_head), else 64 where clusters of up to 8 make it
+//     (N 4096), else 32 (N 1024), and the smallest cluster that makes up
+//     the rest; long rows, and few blocks reading each element of x;
+//   * each of the 4 warps owns the tile's columns and a contiguous quarter
+//     of the block's rows, and streams them through a ring of its own of
+//     stages of up to 4 KB, each stage one TMA copy
+//     (cp.async.bulk.tensor of a [rows, BN] box of a 2D tensor map of the
+//     codes, issued by the warp's first lane) completing on an mbarrier,
+//     and no block barrier inside the loop.  N must be a multiple of 16
+//     (the tensor map's row stride); the plan sends other N to the
+//     CUDA-core decode kernels.  The block's slice of x
+//     (M x chunk bf16, twice for int4's two halves) is copied to shared
+//     memory once, first, with the tile's column scales, by 16-byte
+//     cp.async on an mbarrier of its own: the load path, so that x does
+//     not queue behind the codes in the copy engine (plain loads where the
+//     slice or the tile is ragged).  Fewer, larger TMA copies beat more,
+//     smaller ones with the same bytes in flight, and at lm_head two 4 KB
+//     stages a warp beat three or four (tools/torch_decode_plans.py): the
+//     plan gives a warp's ring up to 2 stages, the kernel takes up to 4;
+//   * the tensor cores with the tokens as the narrow side: out^T = W^T .
+//     x^T by mma.sync.m16n8k16, 16 output columns as m16, the <= 8 tokens
+//     as n8 (tokens beyond M read zero), fp32 sums.  In each 32-column
+//     group, lane (g, t) reads one 32-bit word of codes (columns 4g .. 4g +
+//     3) from each of rows 2t, 2t + 1, 2t + 8, 2t + 9 of a 16-row step, the
+//     rows of its A fragments' k pairs, and byte permutes turn the four
+//     words into the A fragments of two m16 tiles: row g of tile j is
+//     column 4g + 2j, row g + 8 column 4g + 2j + 1.  The lane's B fragment
+//     is two 32-bit loads of x (rows 2t, 2t + 1 and 2t + 8, 2t + 9 of token
+//     g).  A byte permute puts a fragment's two codes in the low bytes of a
+//     word's halves, and three operations make them an exact bf16 pair
+//     (int8x2_bf16, nibbles_bf16); int4's high nibbles are a second product
+//     against x's second half;
+//   * grouped, a warp keeps the current group's partial products of each
+//     half apart and scales them into the sum at the group's last step or
+//     its range's last, as _matmul4_group_kernel scales each group's
+//     partial dot before adding it; the next group's scales are loaded at
+//     the fold, ahead of their use.
+
+constexpr int kDecThreads = 128;        // 4 warps, each a quarter of the rows
+constexpr int kDecStages = 4;           // ring stages a warp at most
+constexpr int kDecStageBytes = 4096;    // code bytes a warp's stage at most
+constexpr int kDecCluster = 8;          // blocks a cluster at most (portable)
+
+struct QDecParams {
+  CUtensorMap codes;   // [rows, N] uint8, box [stage_rows, bn]
+  QParams p;           // p.chunk: code rows a block; part unused
+  int stage_rows;      // code rows a warp's ring stage, a multiple of 16
+  int stages;          // a warp's ring stages, 1 .. kDecStages
+  int xpitch;          // bf16 a token's row of the x slice
+  bool xaligned;       // x's rows 16-byte aligned: cp.async where whole
+};
+
+// Shared memory of the decode form at a tile of bn columns, in bytes: the
+// warps' rings, x's slice, the warps' sums, the partials received from the
+// cluster, the tile's column scales, the mbarriers.
+__host__ __device__ __forceinline__ int dec_x_bytes(const QDecParams& d) {
+  return (d.p.M * d.xpitch * 2 + 15) / 16 * 16;
+}
+
+__host__ __device__ __forceinline__ int dec_smem_bytes(const QDecParams& d,
+                                                       int bn, int cluster) {
+  return 4 * d.stages * d.stage_rows * bn + dec_x_bytes(d) +
+         4 * ((4 + cluster) * 8 + 1) * bn + 8 * (4 * d.stages + 1);
+}
+
+// The split cluster barrier: arrive (relaxed, or releasing this thread's
+// writes) and wait (acquiring the others').  Every thread of every block
+// of the cluster takes part; arrivals and waits alternate.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+template <int MODE, int BN>
+__device__ __forceinline__ void quant_matmul_dec_body(const QDecParams& d) {
+  namespace cg = cooperative_groups;
+  constexpr bool INT4 = MODE != kInt8, GROUP = MODE == kInt4Group;
+  constexpr int XT = INT4 ? 2 : 1;   // x's halves a code row meets
+  constexpr int T = 2 * BN / 32;     // m16 tiles: two a 32-column group
+  constexpr int N4 = 2 * BN;         // float4s of an [8, BN] tile
+  const QParams& p = d.p;
+  extern __shared__ __align__(128) unsigned char dec_smem[];
+  const int srows = d.stage_rows, stages = d.stages;
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int C = cluster.num_blocks(), rank = cluster.block_rank();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x / C * BN;
+  const int rbeg = rank * p.chunk;
+  const int nrows = max(0, min(p.rows, rbeg + p.chunk) - rbeg);
+  const int rw = p.chunk / 4, wbeg = warp * rw;   // the warp's rows, local
+  const int wrows = max(0, min(nrows - wbeg, rw));
+  const int nstage = (wrows + srows - 1) / srows, nsteps = (wrows + 15) / 16;
+  const int sps = srows / 16;                     // steps a stage
+
+  uint8_t* ring = dec_smem + warp * stages * srows * BN;  // [stages][srows][BN]
+  __nv_bfloat16* xs =
+      reinterpret_cast<__nv_bfloat16*>(dec_smem + 4 * stages * srows * BN);
+  float* red = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(xs) +
+                                        dec_x_bytes(d));  // [warp][8][BN]
+  float* recv = red + 4 * 8 * BN;                         // [C][8][BN]
+  float* ss = recv + C * 8 * BN;                          // [BN]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ss + BN);
+  uint64_t* full = bars + warp * stages;
+  uint64_t* xbar = bars + 4 * stages;
+
+  if (C > 1) cluster_arrive_relaxed();   // phase 0: this block has started
+  if (warp == 0 && lane <= 4 * stages) {
+    mbar_init(bars + lane, lane == 4 * stages ? kDecThreads : 1);
+    fence_mbarrier_init();
+  }
+  if (warp == 1 && lane == 0)
+    asm volatile("prefetch.tensormap [%0];"
+                 :: "l"(reinterpret_cast<uint64_t>(&d.codes)) : "memory");
+  __syncthreads();
+
+  // x's slice first, and the tile's column scales (per-column modes):
+  // xs[m][h * chunk + k] = x[m][h * rows + rbeg + k], ss[i] = scales[n0 +
+  // i], by 16-byte cp.async (the load path, not the copy engine the codes
+  // queue on) where the rows are whole, else plain loads (zeros past the
+  // range or K), every thread arriving on xbar when its copies land
+  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.x);
+  const bool xvec = d.xaligned && nrows == p.chunk &&
+                    (!INT4 || p.rows + rbeg + p.chunk <= p.K);
+  const int xpieces = p.M * XT * p.chunk / 8;   // 16-byte pieces
+  for (int i = tid; i < xpieces; i += kDecThreads) {
+    const int k = i * 8 % p.chunk, h = i * 8 / p.chunk % XT;
+    const int m = i * 8 / (p.chunk * XT);
+    __nv_bfloat16* dst = xs + m * d.xpitch + h * p.chunk + k;
+    const __nv_bfloat16* src = x + (size_t)m * p.K + h * p.rows + rbeg + k;
+    if (xvec) {
+      cp_async16(dst, src, true);
+    } else {
+      for (int e = 0; e < 8; ++e)
+        dst[e] = k + e < nrows && h * p.rows + rbeg + k + e < p.K
+                     ? src[e] : __float2bfloat16(0.f);
+    }
+  }
+  if constexpr (!GROUP) {
+    if (n0 + BN <= p.N) {
+      if (tid < BN / 4) cp_async16(ss + 4 * tid, p.scales + n0 + 4 * tid, true);
+    } else {
+      for (int i = tid; i < BN; i += kDecThreads)
+        ss[i] = n0 + i < p.N ? p.scales[n0 + i] : 0.f;
+    }
+  }
+  if (xvec && (GROUP || n0 + BN <= p.N)) {
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];"
+                 :: "r"(smem_addr(xbar)) : "memory");
+  } else {   // plain stores too: arrive, releasing them, once all landed
+    cp_async_commit();
+    cp_async_wait<0>();
+    mbar_arrive(xbar);
+  }
+
+  // stage s of the warp's rows into its ring slot s % stages
+  auto issue = [&](int s) {
+    if (lane == 0) {
+      uint64_t* bar = full + s % stages;
+      mbar_expect_tx(bar, srows * BN);
+      tma_load_2d(ring + s % stages * srows * BN, &d.codes, n0,
+                  rbeg + wbeg + s * srows, bar);
+    }
+  };
+  for (int s = 0; s < min(stages, nstage); ++s) issue(s);
+
+  // grouped: the scales of the warp's first group, loaded ahead; this
+  // lane's columns in 32-column group c are n0 + 32c + 4g + 0 .. 3
+  float glo[BN / 32][4], ghi[BN / 32][4];
+  auto load_group = [&](int kr) {   // kr: a code row of the group
+    const float* lo = p.scales + (size_t)(kr / p.group) * p.N;
+    const float* hi = p.scales + (size_t)((p.rows + kr) / p.group) * p.N;
+#pragma unroll
+    for (int c = 0; c < BN / 32; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = min(n0 + 32 * c + 4 * g + e, p.N - 1);
+        glo[c][e] = __ldg(lo + n);
+        ghi[c][e] = __ldg(hi + n);
+      }
+  };
+  if (GROUP && wrows > 0) load_group(rbeg + wbeg);
+
+  // acc[j][e]: tile j's C fragment (j = 2c + jj in 32-column group c); e =
+  // 0, 1 column 4g + 2jj, e = 2, 3 column 4g + 2jj + 1, tokens 2t (even e)
+  // and 2t + 1 (odd e)
+  float acc[T][4], plo[GROUP ? T : 1][4], phi[GROUP ? T : 1][4];
+#pragma unroll
+  for (int j = 0; j < T; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  if constexpr (GROUP)
+#pragma unroll
+    for (int j = 0; j < T; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) plo[j][e] = phi[j][e] = 0.f;
+  const bool token = g < p.M;
+  const uint32_t* xrow = reinterpret_cast<const uint32_t*>(
+      xs + g * d.xpitch + wbeg + 2 * t);
+  mbar_wait(xbar, 0);
+
+  for (int s = 0; s < nstage; ++s) {
+    mbar_wait(full + s % stages, s / stages & 1);
+    const uint8_t* cs = ring + s % stages * srows * BN + 2 * t * BN + 4 * g;
+    const int qend = min(nsteps, (s + 1) * sps);
+#pragma unroll 2
+    for (int q = s * sps; q < qend; ++q) {
+      const uint8_t* cq = cs + (q - s * sps) * 16 * BN;
+      uint32_t b[XT][2];
+#pragma unroll
+      for (int h = 0; h < XT; ++h) {   // x's rows 2t, 2t + 1; 2t + 8, 2t + 9
+        const uint32_t* xp = xrow + (h * p.chunk + 16 * q) / 2;
+        b[h][0] = token ? xp[0] : 0u;
+        b[h][1] = token ? xp[4] : 0u;
+      }
+#pragma unroll
+      for (int c = 0; c < BN / 32; ++c) {
+        uint32_t w[4];   // rows 2t, 2t + 1, 2t + 8, 2t + 9; columns 4g ..
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          w[i] = *reinterpret_cast<const uint32_t*>(
+              cq + ((i & 1) + 8 * (i >> 1)) * BN + 32 * c);
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int j = 2 * c + jj;
+          // byte 2jj + u (column 4g + 2jj + u: A's row g + 8u) of rows
+          // (2t, 2t + 1) and (2t + 8, 2t + 9), at bits 0 and 16
+          uint32_t p01[2], p23[2];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int e = 2 * jj + u;
+            const int sel = e | e << 4 | (e + 4) << 8 | (e + 4) << 12;
+            p01[u] = __byte_perm(w[0], w[1], sel);
+            p23[u] = __byte_perm(w[2], w[3], sel);
+          }
+          if constexpr (INT4) {
+            const uint32_t lo[4] = {nibbles_bf16(p01[0]), nibbles_bf16(p01[1]),
+                                    nibbles_bf16(p23[0]), nibbles_bf16(p23[1])};
+            const uint32_t hi[4] = {
+                nibbles_bf16(p01[0] >> 4), nibbles_bf16(p01[1] >> 4),
+                nibbles_bf16(p23[0] >> 4), nibbles_bf16(p23[1] >> 4)};
+            if constexpr (GROUP) {
+              mma_bf16(plo[j], lo, b[0]);
+              mma_bf16(phi[j], hi, b[1]);
+            } else {
+              mma_bf16(acc[j], lo, b[0]);
+              mma_bf16(acc[j], hi, b[1]);
+            }
+          } else {
+            const uint32_t a[4] = {int8x2_bf16(p01[0]), int8x2_bf16(p01[1]),
+                                   int8x2_bf16(p23[0]), int8x2_bf16(p23[1])};
+            mma_bf16(acc[j], a, b[0]);
+          }
+        }
+      }
+      if constexpr (GROUP) {
+        // the group or the range ends with this step: scale both halves'
+        // partials into the sum (K2 = rows is a multiple of the group),
+        // then load the next group's scales
+        const int kr = rbeg + wbeg + 16 * q;
+        if (q + 1 == nsteps || kr / p.group != (kr + 16) / p.group) {
+#pragma unroll
+          for (int j = 0; j < T; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = 2 * (j % 2) + e / 2;
+              acc[j][e] = fmaf(plo[j][e], glo[j / 2][col], acc[j][e]);
+              acc[j][e] = fmaf(phi[j][e], ghi[j / 2][col], acc[j][e]);
+              plo[j][e] = phi[j][e] = 0.f;
+            }
+          if (q + 1 < nsteps) load_group(kr + 16);
+        }
+      }
+    }
+    __syncwarp();   // slot s % stages is no longer read
+    if (s + stages < nstage) issue(s + stages);
+  }
+
+  // the warps' sums, added in warp order into the block's partial
+#pragma unroll
+  for (int c = 0; c < BN / 32; ++c) {
+    float* r = red + warp * 8 * BN + 32 * c + 4 * g;
+    const float* a0 = acc[2 * c];
+    const float* a1 = acc[2 * c + 1];
+    *reinterpret_cast<float4*>(r + 2 * t * BN) =
+        make_float4(a0[0], a0[2], a1[0], a1[2]);
+    *reinterpret_cast<float4*>(r + (2 * t + 1) * BN) =
+        make_float4(a0[1], a0[3], a1[1], a1[3]);
+  }
+  __syncthreads();
+  constexpr int U = N4 > kDecThreads ? N4 / kDecThreads : 1;
+  float4 v[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int i = tid + u * kDecThreads;
+    v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (i < N4) {
+      const float4* r4 = reinterpret_cast<const float4*>(red);
+      for (int w = 0; w < 4; ++w) {
+        const float4 a = r4[w * N4 + i];
+        v[u].x += a.x; v[u].y += a.y; v[u].z += a.z; v[u].w += a.w;
+      }
+    }
+  }
+  if (C > 1) {
+    // every rank's partial of four columns to the rank that owns them
+    // (their float4's index % C), added there in rank order after the
+    // barrier
+    cluster_wait();   // phase 0: every block of the cluster has started
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = tid + u * kDecThreads;
+      if (i < N4)
+        cluster.map_shared_rank(reinterpret_cast<float4*>(recv),
+                                i % C)[rank * N4 + i] = v[u];
+    }
+    cluster_arrive();
+    cluster_wait();
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = tid + u * kDecThreads;
+      if (i < N4 && i % C == rank) {
+        const float4* r4 = reinterpret_cast<const float4*>(recv);
+        v[u] = r4[i];
+        for (int r = 1; r < C; ++r) {
+          const float4 a = r4[r * N4 + i];
+          v[u].x += a.x; v[u].y += a.y; v[u].z += a.z; v[u].w += a.w;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int i = tid + u * kDecThreads;
+    const int m = 4 * i / BN, on = n0 + 4 * i % BN;
+    if (i >= N4 || i % C != rank || m >= p.M || on >= p.N) continue;
+    float o[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+    if constexpr (!GROUP)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[e] *= ss[4 * i % BN + e];
+    const int cnt = min(4, p.N - on);
+    __nv_bfloat16* dst =
+        static_cast<__nv_bfloat16*>(p.out) + (size_t)m * p.N + on;
+    if (cnt == 4 && p.N % 4 == 0) {
+      *reinterpret_cast<uint2*>(dst) =
+          make_uint2(bf16_pair_rn(o[0], o[1]), bf16_pair_rn(o[2], o[3]));
+    } else {
+      for (int e = 0; e < cnt; ++e) dst[e] = __float2bfloat16_rn(o[e]);
+    }
+  }
+}
+
 // The splits' partial sums, added in split order; then the column scale
 // (per-column modes) and the rounding to out's dtype.
 __global__ void __launch_bounds__(kThreads)
@@ -575,35 +975,134 @@ quant_matmul_reduce_kernel(const float* part, const float* scales, void* out,
   store1(out, i, v, bf16);
 }
 
-// Checks the arguments, launches the tile kernel of the form bm names (8:
-// decode, BM = 8; 64: CUDA-core prefill, BM = 64; 128: the tensor-core
-// prefill form, bf16 only, chunks of 64 rows) and, with more than one
-// split, the reduction.
+// The forms, as the C entries take them (kernels/quant.py _FORM_IDS).
+enum Form { kDecode = 0, kCudaCore = 1, kTensorCore = 2, kDecodeTc = 3 };
+
+typedef void (*QKernel)(QParams);
+typedef void (*QDecKernel)(QDecParams);
+
+// A source's kernels: the CUDA-core forms (BM 8 and 64), the tensor-core
+// prefill form and the tensor-core decode form at BN 32, 64 and 128.
+struct QKernels {
+  QKernel m8, m64, tc;
+  QDecKernel dec[3];
+};
+
+// cuTensorMapEncodeTiled, a driver entry point, reached through the
+// runtime (the libraries link no libcuda); null where the driver lacks it.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor-core decode form: one launch of the kernel for bn, clusters
+// of `splits` blocks along x, one a range of `chunk` code rows of a [8, bn]
+// tile.
+int quant_matmul_dec_launch(const QKernels& ks, QParams p, bool int4, int bn,
+                            int splits, int stage_rows, int stages,
+                            cudaStream_t stream) {
+  if (!p.bf16 || p.M > 8 || (bn != 32 && bn != 64 && bn != 128) ||
+      p.N % 16 || p.chunk % 64 || splits > kDecCluster ||
+      (long long)(splits - 1) * p.chunk >= p.rows || p.part ||
+      stage_rows % 16 || stage_rows <= 0 || stage_rows * bn > kDecStageBytes ||
+      stages < 1 || stages > kDecStages)
+    return cudaErrorInvalidValue;
+  const QDecKernel k = ks.dec[bn == 32 ? 0 : bn == 64 ? 1 : 2];
+  QDecParams d{};
+  d.p = p;
+  d.stage_rows = stage_rows;
+  d.stages = stages;
+  d.xpitch = (int4 ? 2 : 1) * p.chunk + 8;   // 16-byte rows, no conflicts
+  d.xaligned = p.K % 8 == 0 && p.rows % 8 == 0;
+  const EncodeTiled encode = tensor_map_encoder();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)p.N, (cuuint64_t)p.rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)p.N};
+  const cuuint32_t box[2] = {(cuuint32_t)bn, (cuuint32_t)stage_rows};
+  const cuuint32_t ones[2] = {1, 1};
+  if (encode(&d.codes, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+             const_cast<uint8_t*>(p.w), dims, strides, box, ones,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_NONE,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  const int smem = dec_smem_bytes(d, bn, splits);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = splits;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((p.N + bn - 1) / bn * splits);
+  cfg.blockDim = dim3(kDecThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, k, d);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// Checks the arguments and launches the kernel of `form`: the tensor-core
+// decode form (above), or the tile kernel of the others (kDecode BM = 8
+// and kCudaCore BM = 64, columns of 128; kTensorCore bf16 only, columns of
+// 64, chunks of 64 rows) and, with more than one split, the reduction.
 // Returns cudaGetLastError() after each launch, or cudaErrorInvalidValue for
 // arguments the kernels do not take.
-typedef void (*QKernel)(QParams);
-
-int quant_matmul_launch(QKernel k8, QKernel k64, QKernel ktc, QParams p,
-                        int bm, int splits, bool scale, cudaStream_t stream) {
-  const int bk = bm == 8 ? 128 : bm == kTcBM ? kTcRows : 32;
-  if ((bm != 8 && bm != 64 && bm != kTcBM) || (bm == kTcBM && !p.bf16) ||
-      p.M <= 0 || p.N <= 0 || p.K <= 0 || p.rows <= 0 || p.chunk <= 0 ||
-      p.chunk % bk || splits < 1 || (long long)splits * p.chunk < p.rows ||
+int quant_matmul_launch(const QKernels& k, QParams p, bool int4, int form,
+                        int bn, int splits, int stage_rows, int stages,
+                        bool scale, cudaStream_t stream) {
+  if (p.M <= 0 || p.N <= 0 || p.K <= 0 || p.rows <= 0 || p.chunk <= 0 ||
+      splits < 1 || (long long)splits * p.chunk < p.rows)
+    return cudaErrorInvalidValue;
+  if (form == kDecodeTc)
+    return quant_matmul_dec_launch(k, p, int4, bn, splits, stage_rows,
+                                   stages, stream);
+  const int bm = form == kDecode ? 8 : form == kCudaCore ? 64 : kTcBM;
+  const int bk = form == kDecode ? 128 : form == kTensorCore ? kTcRows : 32;
+  if (form < kDecode || form > kTensorCore ||
+      bn != (form == kTensorCore ? kTcBN : kBN) ||
+      (form == kTensorCore && !p.bf16) || p.chunk % bk ||
       (splits > 1) != (p.part != 0))
     return cudaErrorInvalidValue;
-  if (bm == kTcBM) {
+  if (form == kTensorCore) {
     const cudaError_t err = cudaFuncSetAttribute(
-        ktc, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
+        k.tc, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
     if (err != cudaSuccess) return err;
     const dim3 grid((p.N + kTcBN - 1) / kTcBN, (p.M + kTcBM - 1) / kTcBM,
                     splits);
-    ktc<<<grid, kTcThreads, kTcSmem, stream>>>(p);
+    k.tc<<<grid, kTcThreads, kTcSmem, stream>>>(p);
   } else {
     const dim3 grid((p.N + kBN - 1) / kBN, (p.M + bm - 1) / bm, splits);
-    if (bm == 8)
-      k8<<<grid, kThreads, 0, stream>>>(p);
+    if (form == kDecode)
+      k.m8<<<grid, kThreads, 0, stream>>>(p);
     else
-      k64<<<grid, kThreads, 0, stream>>>(p);
+      k.m64<<<grid, kThreads, 0, stream>>>(p);
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;

@@ -13,14 +13,17 @@ even).
 ``int8_matmul`` and ``int4_matmul`` launch ``csrc/int8_matmul.cu`` and
 ``csrc/int4_matmul.cu`` on CUDA tensors and run ``*_plain``, the same
 arithmetic in plain PyTorch, on CPU tensors (``impl="kernel"|"plain"``
-forces one).  Each source holds three forms of its kernels, and ``_plan``,
-a rule on the shape and dtype, picks one: ``decode`` (M <= 8) and
-``cuda_core`` (fp32 x at M > 8, or groups that are not a multiple of 16)
-run fp32 FMAs on the CUDA cores and count their launches under the
-kernel's name; ``tensor_core`` (bf16 x at M > 8) runs bf16 products with
-fp32 sums on the tensor cores and counts under the name with ``_tc``.
-All round as the TPU kernels do: the fp32 product of x and the integer
-codes is scaled after the dot (grouped: each group's partial dot is
+forces one).  Each source holds four forms of its kernels, and ``_plan``, a
+rule on the shape, the dtype and the group, picks one.  bf16 x where the
+tensor cores' k depth of 16 divides the group runs bf16 products with fp32
+sums on the tensor cores: ``decode_tc`` at M <= 8 where 16 divides N too
+(one launch, the code rows split over a thread-block cluster, counted under
+the kernel's name with ``_dec``), ``tensor_core`` above (counted with
+``_tc``).  fp32 x, groups that are not a multiple of 16, and at M <= 8 N
+that is not, run fp32 FMAs on the CUDA cores:
+``decode`` at M <= 8 and ``cuda_core`` above, counted under the kernel's
+name.  All round as the TPU kernels do: the fp32 product of x and the
+integer codes is scaled after the dot (grouped: each group's partial dot is
 scaled, then summed), and the weight is never dequantized first.
 ``int8_linear`` and ``int4_linear`` are differentiable in x only, as the
 JAX package's ``custom_vjp``s: dx of the per-column forms runs the int8
@@ -37,6 +40,7 @@ from typing import NamedTuple
 import torch
 
 from tpu_flash_torch.kernels.common import (
+    DEC,
     call_on_stream,
     cdiv,
     check_cuda,
@@ -54,20 +58,32 @@ KERNEL_INT4_GROUP = "int4_matmul_group"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The forms (quant_matmul.cuh): rows and columns of out a block, code rows a
 # slab (the chunks of a split are whole slabs), the blocks wanted for each
-# streaming multiprocessor.  The C entries take the rows a block as the form.
+# streaming multiprocessor, and their id in the C entries (``form``).
 _FORMS = {"decode": (8, 128, 128, 2), "cuda_core": (64, 128, 32, 2),
-          "tensor_core": (128, 64, 64, 1)}
+          "tensor_core": (128, 64, 64, 1), "decode_tc": (8, None, 64, 1)}
+_FORM_IDS = {"decode": 0, "cuda_core": 1, "tensor_core": 2, "decode_tc": 3}
+# The tensor-core decode form: blocks a cluster at most (the portable
+# limit); code bytes a warp's ring stage and stages at most (two 4 KB stages
+# a warp streamed lm_head fastest on an H100: tools/torch_decode_plans.py);
+# code rows a block at most (its slice of x, up to 8 x 2 x 2048 bf16, stays
+# in shared memory).
+_DEC_CLUSTER, _DEC_STAGE_BYTES, _DEC_STAGES, _DEC_ROWS = 8, 4096, 2, 2048
 
 
 class Plan(NamedTuple):
     """A launch: the form, its tile (``bm`` x ``bn`` of out), the code
-    rows split into ``splits`` ranges of ``chunk`` rows, and the blocks."""
+    rows split into ``splits`` ranges of ``chunk`` rows (``decode_tc``: the
+    blocks of a cluster), the blocks, and ``decode_tc``'s ring: each warp's
+    ``stages`` of ``stage_rows`` code rows (0 in the other forms, whose
+    kernels fix their own)."""
     form: str
     bm: int
     bn: int
     splits: int
     chunk: int
     blocks: int
+    stages: int = 0
+    stage_rows: int = 0
 
 
 class QuantizedLinearWeights(NamedTuple):
@@ -229,18 +245,22 @@ def _plan(M: int, N: int, rows: int, sms: int, dtype: torch.dtype,
           group: int | None) -> Plan:
     """The launch for x [M, K], ``rows`` code rows (K, or ceil(K/2)
     packed), N columns, on a card of ``sms`` streaming multiprocessors;
-    ``group`` is the rows of W a scale covers (None: per column).  M <= 8
-    takes the decode form; bf16 x the tensor-core form where its k depth of
-    16 divides the group; the rest (fp32 x) the CUDA-core form.  The code
-    rows are split until the launch has the form's blocks for each
-    multiprocessor (the tensor-core form's chunks rounded down, so that it
-    gets them whole)."""
+    ``group`` is the rows of W a scale covers (None: per column).  bf16 x
+    where the tensor cores' k depth of 16 divides the group takes a
+    tensor-core form: ``decode_tc`` at M <= 8 (up to 8 x 2048 code rows,
+    and N a multiple of 16, the row stride its tensor map of the codes
+    needs), ``tensor_core`` above; the rest the CUDA-core forms,
+    ``decode`` at M <= 8 and ``cuda_core`` above.  The code rows are split
+    until the launch has the form's blocks for each multiprocessor (the
+    tensor-core prefill form's chunks rounded down, so that it gets them
+    whole)."""
+    tc = dtype == torch.bfloat16 and (group is None or group % 16 == 0)
     if M <= 8:
+        if tc and N % 16 == 0 and rows <= _DEC_CLUSTER * _DEC_ROWS:
+            return _decode_plan(N, rows, sms)
         form = "decode"
-    elif dtype == torch.bfloat16 and (group is None or group % 16 == 0):
-        form = "tensor_core"
     else:
-        form = "cuda_core"
+        form = "tensor_core" if tc else "cuda_core"
     bm, bn, bk, per_sm = _FORMS[form]
     tiles = cdiv(N, bn) * cdiv(M, bm)
     splits = max(1, min(cdiv(per_sm * sms, tiles), cdiv(rows, bk)))
@@ -250,6 +270,31 @@ def _plan(M: int, N: int, rows: int, sms: int, dtype: torch.dtype,
         chunk = round_up(cdiv(rows, splits), bk)
     splits = cdiv(rows, chunk)
     return Plan(form, bm, bn, splits, chunk, tiles * splits)
+
+
+def _decode_plan(N: int, rows: int, sms: int) -> Plan:
+    """``decode_tc``: tiles of 128 code bytes a row where they alone give
+    a block a multiprocessor, else of 64 where clusters of 8 can spread
+    them that far, else of 32; the code rows split over a cluster of the
+    smallest power of two (at most 8) that gives a block a multiprocessor,
+    and into at least ``rows / _DEC_ROWS`` ranges, each a whole number of
+    16-row steps for each of the block's 4 warps; each warp's quarter of
+    the range through a ring of up to 2 stages of up to 4 KB."""
+    _, _, slab, per_sm = _FORMS["decode_tc"]
+    want = per_sm * sms
+    if cdiv(N, 128) >= want:
+        bn = 128
+    else:
+        bn = 64 if cdiv(N, 64) * _DEC_CLUSTER >= want else 32
+    tiles = cdiv(N, bn)
+    cluster = 1 << (cdiv(want, tiles) - 1).bit_length()
+    cluster = max(min(_DEC_CLUSTER, cluster, cdiv(rows, slab)),
+                  cdiv(rows, _DEC_ROWS))
+    chunk = round_up(cdiv(rows, cluster), slab)
+    cluster = cdiv(rows, chunk)
+    stage_rows = min(chunk // 4, _DEC_STAGE_BYTES // bn)
+    return Plan("decode_tc", 8, bn, cluster, chunk, tiles * cluster,
+                min(_DEC_STAGES, cdiv(chunk // 4, stage_rows)), stage_rows)
 
 
 @functools.lru_cache(maxsize=16)
@@ -266,9 +311,10 @@ def _inputs(x, w, scales, what):
 
 def _launch(name, symbol, count_as, x, w, scales, rows, extra, group=None):
     """Launch ``symbol`` of ``csrc/<name>.cu``; ``extra`` are the C
-    arguments between K and bm (the int4 group count), ``group`` the rows
-    a group scale covers.  out takes x's dtype; the launch counts under
-    ``count_as``, with ``TC`` for the tensor-core form."""
+    arguments between K and the form (the int4 group count), ``group`` the
+    rows a group scale covers.  out takes x's dtype; the launch counts under
+    ``count_as``, with ``DEC`` or ``TC`` for the tensor-core forms.  The
+    CUDA-core forms with more than one split take an fp32 workspace."""
     dev, (x, w, s) = _inputs(x, w, scales, name)
     M, K = x.shape
     N = w.shape[1]
@@ -276,18 +322,18 @@ def _launch(name, symbol, count_as, x, w, scales, rows, extra, group=None):
     if out.numel() == 0:
         return out
     plan = _plan(M, N, rows, _sms(dev), x.dtype, group)
-    bm, splits, chunk = plan.bm, plan.splits, plan.chunk
-    if plan.form == "tensor_core":
-        count_as += TC
-    part = (torch.empty(splits, M, N, dtype=torch.float32, device=dev)
-            if splits > 1 else None)
+    count_as += {"decode_tc": DEC, "tensor_core": TC}.get(plan.form, "")
+    part = (torch.empty(plan.splits, M, N, dtype=torch.float32, device=dev)
+            if plan.splits > 1 and plan.form != "decode_tc" else None)
     lib, fn = entry(name, symbol, [ctypes.c_void_p] * 5
-                    + [ctypes.c_int] * (3 + len(extra) + 4)
+                    + [ctypes.c_int] * (3 + len(extra) + 7)
                     + [ctypes.c_void_p])
     err = call_on_stream(fn, dev, x.data_ptr(), w.data_ptr(), s.data_ptr(),
                          out.data_ptr(),
                          None if part is None else part.data_ptr(),
-                         M, N, K, *extra, bm, chunk, splits, _DTYPES[x.dtype])
+                         M, N, K, *extra, _FORM_IDS[plan.form], plan.bn,
+                         plan.chunk, plan.splits, plan.stage_rows,
+                         plan.stages, _DTYPES[x.dtype])
     check_cuda(err, lib, f"{count_as} kernel")
     launch_counts[count_as] += 1
     return out
