@@ -29,11 +29,13 @@ ported paths:
   the bf16 model; and the engine against ``generate`` and kernel against
   plain end to end for each of the three in fp32 (the CUDA-core forms);
 * training: the flash-attention forward and fused backward kernels, in the
-  CUDA-core form for fp32 and the tensor-core form for bf16 (each call
-  checked to launch its form), against their plain versions (causal or
-  not, L 64 to 2048, Lq != Lk with empty rows, GQA, d 32/64/128; each error
-  beside its limit and the output's rms, and a check that the limit fails
-  a dropped key tile) and their times at B4 H8 L2048 d64; the fused
+  six-product form for fp32 (each fp32 product six bf16 products on the
+  tensor cores) and the tensor-core form for bf16 (each call checked to
+  launch its form), against their plain versions (causal or not, L 64 to
+  2048, Lq != Lk with empty rows, GQA, d 32/64/128; each error beside its
+  limit and the output's rms, and a check that the limit fails a dropped
+  key tile), the fp32 kernels and the plain version each against a float64
+  attention at B4 H8 L2048 d64, and their times there; the fused
   backward called twice there (bf16 and fp32) giving the same bits; the
   fused LayerNorm and masked-softmax kernels against their plain versions (fp32 and bf16, the reference MT
   shapes, ragged widths, rows that see no key, a fully padded batch row,
@@ -73,9 +75,10 @@ ported paths:
   step at 2 layers and L=8192, where fp32 takes the two passes.
 
 The build phase logs each kernel's registers, stack and spills as ptxas
-reports them, and fails if a flash-attention kernel's tensor-core form or
-a quantized matmul's tensor-core decode form spills.  Modes (b) and (e) run the forward and the fused backward in their
-tensor-core form, mode (a) in their CUDA-core form.
+reports them, and fails if a flash-attention kernel's tensor-core or
+six-product form or a quantized matmul's tensor-core decode form spills.
+Modes (b) and (e) run the forward and the fused backward in their
+tensor-core form, mode (a) in their six-product form.
 
 Each phase prints JSON lines; any failure raises and the script exits
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -128,20 +131,28 @@ from tpu_flash_torch.utils.timing import (L2_BYTES, device_ms, past_l2,
 
 DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-FP32_FLOPS = 67e12             # H100 SXM data sheet, CUDA cores
 BF16_FLOPS = 989e12            # H100 SXM data sheet, dense tensor cores
-# Every flash-attention kernel has two forms (fa._form_name): the CUDA-core
-# form (fp32) counted under its name, the tensor-core form (bf16) under the
-# name + common.TC.  The forward and the fused backward: a source each.
+# An fp32-accurate product: six bf16 products on the tensor cores (the
+# flash kernels' fp32 form, the TPU's Precision.HIGHEST), 164.8 TFLOP/s, the
+# least time the card takes for one; the bound of every fp32 product here.
+FP32_FLOPS = BF16_FLOPS / 6
+CUDA_CORE_FLOPS = 67e12        # H100 SXM data sheet, fp32 on the CUDA cores
+# Every flash-attention kernel has a form for each dtype (fa._form_name):
+# bf16 the tensor-core form, counted under the name + common.TC; fp32 the
+# six-product form of the forward and the fused backward (the name +
+# common.X6) and the CUDA-core form of the two passes (the name).  The
+# forward and the fused backward: a source each.
 ATTENTION = (fa.KERNEL_FWD, fa.KERNEL_BWD)
 ATTENTION_TC = tuple(fa._form_name(n, torch.bfloat16) for n in ATTENTION)
+ATTENTION_X6 = tuple(fa._form_name(n, torch.float32) for n in ATTENTION)
 # The two-pass backward: one source, two kernels with their own counts.
 TWO_PASS_SOURCE = fa.SOURCE_TWO_PASS
 TWO_PASS = (fa.KERNEL_DKV, fa.KERNEL_DQ)
 TWO_PASS_TC = tuple(fa._form_name(n, torch.bfloat16) for n in TWO_PASS)
 FUSED = ("layernorm_fwd", "layernorm_bwd", "attn_softmax_fwd",
          "attn_softmax_bwd")
-TRAINING_KERNELS = ATTENTION + ATTENTION_TC + TWO_PASS + TWO_PASS_TC + FUSED
+TRAINING_KERNELS = (ATTENTION_X6 + ATTENTION_TC + TWO_PASS + TWO_PASS_TC
+                    + FUSED)
 QUANT_SOURCES = ("int8_matmul", "int4_matmul")
 # The quantized matmul kernels by launch count, with (bits, group size) and
 # the TPU kernel each replaces; bf16 x runs the tensor-core forms, counted
@@ -238,8 +249,9 @@ DISPATCH_WIDTHS = (640, 1024)
 # kernel is held to |x - ref| <= atol + arms * rms(ref) + rtol * |ref|, with
 # rms(ref) the root mean square of the plain output over the whole case.
 # fp32: the JAX package's tolerances as atol and rtol (forward 1e-3,
-# backward 1e-2); the two versions differ only by summation order and
-# exp2f.  bf16: out, dq, dk and dv are rounded to bf16,
+# backward 1e-2); the two versions differ only by summation order, exp2f
+# and, in the six-product form, the products it leaves out (below 2^-24 of
+# each).  bf16: out, dq, dk and dv are rounded to bf16,
 # and an fp32 value near a rounding boundary may land an ulp either side
 # (two ulps are at most 2^-6 of |x|: rtol 2e-2).  On top, the forward
 # kernel rounds p to bf16 relative to its running max where the plain
@@ -487,7 +499,7 @@ def kernel_times(gen) -> list[dict]:
                       + B * 4)                               # lengths
             flops = 4 * B * H * L * d
             bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-                     "operations": flops / FP32_FLOPS * 1e3}
+                     "operations": flops / CUDA_CORE_FLOPS * 1e3}
             bound_by = max(bound, key=bound.get)
             row = {"cache": "bf16" if quant == "none" else quant,
                    "length": L, "ms": ms, "plain_ms": plain_ms,
@@ -541,7 +553,7 @@ def attention_cases(gen) -> dict:
     kernel over every case.  Every case is logged before a disagreement
     fails the phase, and a last line gives, per dtype and output, the
     largest error over its case's rms and the largest arms a case needed."""
-    worst = dict.fromkeys(ATTENTION + ATTENTION_TC, 0.0)
+    worst = dict.fromkeys(ATTENTION_X6 + ATTENTION_TC, 0.0)
     failed, summary = [], {}
     for dtype in (torch.float32, torch.bfloat16):
         tols = ATTN_TOL[dtype]
@@ -617,6 +629,66 @@ def attention_cases(gen) -> dict:
     return worst
 
 
+def attention_fp64(q, k, v, do):
+    """Causal attention's forward and backward in float64 (H = Hkv, Lq =
+    Lk), the exact values the fp32 forms approach: out, lse, dq, dk, dv."""
+    q, k, v, do = (x.double() for x in (q, k, v, do))
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    L = q.shape[2]
+    s = (q @ k.transpose(-1, -2)).mul_(scale)
+    s.masked_fill_(torch.ones(L, L, dtype=torch.bool, device=q.device
+                              ).triu_(1), -math.inf)
+    lse = torch.logsumexp(s, -1)
+    p = s.sub_(lse[..., None]).exp_()
+    out = p @ v
+    ds = (do @ v.transpose(-1, -2)).sub_(
+        (do * out).sum(-1, keepdim=True)).mul_(p)
+    return (out, lse, scale * (ds @ k), scale * (ds.transpose(-1, -2) @ q),
+            p.transpose(-1, -2) @ do)
+
+
+def attention_vs_fp64(gen, B=4, H=8, L=2048, d=64) -> dict:
+    """fp32 at the training shape (causal, ATTN_CASES' train-L2048): out,
+    lse, dq, dk and dv of the six-product kernels and of the plain version
+    each against a float64 attention on the same inputs, each within
+    ATTN_TOL's fp32 limits of it.  Returns the kernels' largest error by
+    output."""
+    dtype = torch.float32
+    q, k, v, do = (torch.randn(B, H, L, d, generator=gen, device=DEV)
+                   for _ in range(4))
+    ref = attention_fp64(q, k, v, do)
+    names = ("out", "lse", "dq", "dk", "dv")
+    errs, rms, ok = {}, {}, True
+    for impl in ("kernel", "plain"):
+        before = dict(common.launch_counts)
+        out, lse, _ = flash_attention_forward(q, k, v, causal=True,
+                                              impl=impl)
+        grads = flash_attention_backward(q, k, v, out, lse, do, causal=True,
+                                         impl=impl)
+        torch.cuda.synchronize()
+        launched = {n: c - before.get(n, 0) for n, c in
+                    common.launch_counts.items() if c != before.get(n, 0)}
+        ok &= launched == (dict.fromkeys(ATTENTION_X6, 1)
+                           if impl == "kernel" else {})
+        errs[impl] = {}
+        for n, a, b in zip(names, (out, lse, *grads), ref):
+            finite = torch.isfinite(b)
+            errs[impl][n] = float((a.double() - b)[finite].abs().max())
+            rms[n] = float(b[finite].square().mean().sqrt())
+            ok &= compare(a, b, ATTN_TOL[dtype][n])[3]
+        del out, lse, grads
+    log({"phase": "attention_vs_fp64", "dtype": "float32",
+         "shape": f"B{B} H{H} L{L} d{d} causal", "max_abs_err": errs,
+         "rms": rms, "kernel_over_plain": {
+             n: errs["kernel"][n] / errs["plain"][n]
+             if errs["plain"][n] else None for n in names},
+         "kernels": list(ATTENTION_X6), "ok": ok})
+    check(ok, f"fp32 attention strays from float64: {errs}")
+    del q, k, v, do, ref
+    torch.cuda.empty_cache()
+    return errs["kernel"]
+
+
 def attention_times(gen, B=4, H=8, L=2048, d=64) -> dict:
     """Forward and backward times at the training shape (B4 H8 L2048 d64,
     causal): kernel, plain and library, with the bound."""
@@ -683,7 +755,7 @@ def attention_times(gen, B=4, H=8, L=2048, d=64) -> dict:
 def fused_backward_bits(gen, B=4, H=8, L=2048, d=64) -> None:
     """The fused backward kernel called twice on the same inputs at the
     training shape (B4 H8 L2048 d64 causal) in bf16 (its tensor-core form)
-    and fp32 (its CUDA-core form): dq, dk and dv the same bits (its dQ is
+    and fp32 (its six-product form): dq, dk and dv the same bits (its dQ is
     added in a fixed order)."""
     for dtype in (torch.bfloat16, torch.float32):
         args = attention_inputs(gen, B, H, H, L, L, d, dtype, True)
@@ -1170,7 +1242,7 @@ def fused_times(gen) -> dict:
             library_ms = device_ms(lib, iters=20)
             nbytes, flops = work[name]
             bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-                     "operations": flops / FP32_FLOPS * 1e3}
+                     "operations": flops / CUDA_CORE_FLOPS * 1e3}
             bound_by = max(bound, key=bound.get)
             row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                    "bound_ms": bound[bound_by], "bound_by": bound_by,
@@ -1947,29 +2019,36 @@ def main() -> int:
             "warnings": [ln for ln in r.log.splitlines()
                          if "warning" in ln][:20]}
         for n, r in built.items()}})
-    # the flash-attention kernels' tensor-core forms and the quantized
-    # matmuls' tensor-core decode form must not spill (a spilled form of the
-    # two-pass dQ kernel passed its tests 38 times slower)
-    tc = {k: r for n in ATTENTION + (TWO_PASS_SOURCE,)
-          for k, r in ptxas_report(built[n].log).items() if "_tc_kernel" in k}
+    # the flash-attention kernels' tensor-core and six-product forms and
+    # the quantized matmuls' tensor-core decode form must not spill (a
+    # spilled form of the two-pass dQ kernel passed its tests 38 times
+    # slower)
+    reports = {k: r for n in ATTENTION + (TWO_PASS_SOURCE,)
+               for k, r in ptxas_report(built[n].log).items()}
+    tc = {k: r for k, r in reports.items() if "_tc_kernel" in k}
+    x6 = {k: r for k, r in reports.items() if "_x6_kernel" in k}
     dec = {k: r for n in QUANT_SOURCES
            for k, r in ptxas_report(built[n].log).items()
            if "_dec_kernel" in k}
-    spills = {k: r for k, r in {**tc, **dec}.items()
+    spills = {k: r for k, r in {**tc, **x6, **dec}.items()
               if r.get("spill_stores", 0) or r.get("spill_loads", 0)}
-    log({"phase": "tensor_core_spills", "kernels": len(tc) + len(dec),
+    log({"phase": "tensor_core_spills",
+         "kernels": len(tc) + len(x6) + len(dec), "six_product_form": x6,
          "decode_form": dec, "spilling": spills})
     # the decode form: a kernel a mode at tiles of 32, 64 and 128 columns
-    check(len(tc) == 4 * len(fa.HEAD_DIMS) and len(dec) == 3 * len(QUANT)
-          and not spills,
+    check(len(tc) == 4 * len(fa.HEAD_DIMS)
+          and len(x6) == len(ATTENTION_X6) * len(fa.HEAD_DIMS)
+          and len(dec) == 3 * len(QUANT) and not spills,
           f"the tensor-core kernels spill or are missing: {len(tc)} flash, "
-          f"{len(dec)} quantized decode reported, {spills}")
+          f"{len(x6)} six-product, {len(dec)} quantized decode reported, "
+          f"{spills}")
 
     gen = torch.Generator(DEV).manual_seed(0)
     worst = kernel_cases(gen)
     rows = kernel_times(gen)
 
     attn_worst = attention_cases(gen)
+    fp64_errs = attention_vs_fp64(gen)
     attn_rows = attention_times(gen)
     fused_backward_bits(gen)
     two_worst = two_pass_cases(gen)
@@ -1999,8 +2078,8 @@ def main() -> int:
     # launches a step, both configs having 4 layers: each attention kernel
     # once a layer, in its dtype's form; each LayerNorm kernel twice a layer
     # and once before lm_head
-    flash, flash_tc = dict.fromkeys(ATTENTION, 4), dict.fromkeys(ATTENTION_TC,
-                                                                 4)
+    flash, flash_tc = (dict.fromkeys(ATTENTION_X6, 4),
+                       dict.fromkeys(ATTENTION_TC, 4))
     fused_sm = dict.fromkeys(("attn_softmax_fwd", "attn_softmax_bwd"), 4)
     fused_ln = dict.fromkeys(("layernorm_fwd", "layernorm_bwd"), 9)
     prod, ref = (TRAIN_B, TRAIN_L), (REF_B, REF_L)
@@ -2037,7 +2116,7 @@ def main() -> int:
     long_e2e = training_end_to_end(
         "long-two-pass", {**TRAIN_LONG, "n_layer": 2}, (LONG_B, LONG_E2E_L),
         chunked_vocab=LONG_CHUNKS,
-        launches={"flash_attention_fwd": 4, **dict.fromkeys(TWO_PASS, 2)})
+        launches={ATTENTION_X6[0]: 4, **dict.fromkeys(TWO_PASS, 2)})
     for n in TWO_PASS:
         launches[n] += long_e2e["launches"]["kernel"][n]
 
@@ -2056,8 +2135,8 @@ def main() -> int:
                 "flash_attention_bwd": "flash_attention.py:1228"}
     long_plain, long_fused = long_errs["vs_plain"], long_errs["vs_fused"]
     for n in ATTENTION:
-        # the tensor-core form (bf16) and the CUDA-core form (fp32), each at
-        # the training shape
+        # the tensor-core form (bf16) and the six-product form (fp32), each
+        # at the training shape
         for dtype in (torch.bfloat16, torch.float32):
             form = fa._form_name(n, dtype)
             r = attn_rows[(form, dtype)]
@@ -2071,6 +2150,11 @@ def main() -> int:
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                 "shape": "B4 H8 L2048 d64 causal "
                          + str(dtype).split(".")[1]})
+            if dtype == torch.float32:
+                outs = (("out", "lse") if n == fa.KERNEL_FWD
+                        else ("dq", "dk", "dv"))
+                entries[-1]["max_abs_err_vs_float64"] = {
+                    o: fp64_errs[o] for o in outs}
     # mode (f) runs the tensor-core forward at L = 16384 too
     next(e for e in entries if e["name"] == ATTENTION_TC[0])[
         "max_abs_err_at_mode_f_shape"] = max(long_plain["out"],

@@ -125,8 +125,10 @@ def test_decode_step_logits_kernel_matches_plain(cuda_device):
 # --- flash-attention forward and backward kernels -------------------------
 #
 # Tolerances, kernel against plain on the same inputs: fp32 with TF32 off
-# differs by summation order and exp2f only (1e-4 on out/lse, 1e-3 on the
-# gradients, whose sums run over up to 2048 rows in another order).  lse
+# differs by summation order, exp2f and, in the forward's and the fused
+# backward's six-product form, the products that form leaves out (below
+# 2^-24 of each) (1e-4 on out/lse, 1e-3 on the gradients, whose sums run
+# over up to 2048 rows in another order).  lse
 # and m are fp32 in both dtypes and keep 1e-4.  bf16 out and gradients are
 # rounded to bf16 and may land an ulp either side of a boundary (rtol 2e-2
 # covers two), and the forward kernel rounds p relative to its running max
@@ -252,7 +254,7 @@ def test_flash_attention_op_trains_through_the_kernels(cuda_device):
     grads = torch.autograd.grad((out * do).sum(), leaves)
     ref = naive_attention(*leaves, causal=True)
     ref_grads = torch.autograd.grad((ref * do).sum(), leaves)
-    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+    for name in ("flash_attention_fwd_x6", "flash_attention_bwd_x6"):
         assert common.launch_counts[name] == before.get(name, 0) + 1
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
     for a, b in zip(grads, ref_grads):
@@ -388,13 +390,95 @@ def test_tc_fused_backward_gives_the_same_bits(cuda_device, B, H, Hkv, Lq,
         assert torch.isfinite(a).all() and torch.equal(a, b)
 
 
+# --- the fp32 forms of the forward and the fused backward (six products) --
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("B,H,Hkv,Lq,Lk,d,q_offset", [
+    (1, 4, 2, 77, 77, 64, None),       # lengths not multiples of 16
+    (1, 2, 2, 100, 45, 32, None),      # Lq > Lk: rows that see no key
+    (1, 2, 2, 45, 100, 32, None),      # Lq < Lk
+    (1, 2, 2, 96, 96, 64, 17),         # q_offset > 0 at Lq = Lk
+    (1, 2, 2, 96, 96, 64, -23),        # q_offset < 0: rows that see no key
+    (2, 8, 2, 200, 200, 16, None),     # d 16 under GQA
+    (1, 8, 2, 300, 300, 128, None),    # d 128 under GQA
+    (1, 8, 2, 130, 250, 128, 60),      # d 128 under GQA, q_offset given
+    (1, 4, 1, 129, 257, 128, -40)])    # and q_offset < 0
+def test_x6_forward_and_fused_backward_at_ragged_shapes(cuda_device, causal,
+                                                        B, H, Hkv, Lq, Lk, d,
+                                                        q_offset):
+    """The fp32 forward and fused backward (each product six bf16 products
+    on the tensor cores) where their tiles are masked: ragged ends of Lq and
+    Lk, the causal diagonal moved by q_offset either way, d 16 and 128 under
+    GQA; each launched once under its ``_x6`` name, within FA_TOL's fp32
+    limits of the plain versions (with ``dlse`` given); rows that see no
+    key give out 0, lse and m -inf and dq 0."""
+    from tpu_flash_torch.kernels.flash_attention import (
+        flash_attention_backward_fused, flash_attention_forward)
+
+    gen = torch.Generator(cuda_device).manual_seed(14)
+    q, k, v, do = attention_case(gen, cuda_device, B, H, Hkv, Lq, Lk, d,
+                                 torch.float32)
+    kw = dict(causal=causal, q_offset=q_offset)
+    fw_tol, bw_tol = FA_TOL[torch.float32]
+    before = dict(common.launch_counts)
+    out, lse, m = flash_attention_forward(q, k, v, with_m=True, **kw)
+    want = flash_attention_forward(q, k, v, with_m=True, impl="plain", **kw)
+    dlse = torch.randn(B, H, Lq, generator=gen, device=cuda_device)
+    grads = flash_attention_backward_fused(q, k, v, out, lse, do, dlse, **kw)
+    ref = flash_attention_backward_fused(q, k, v, out, lse, do, dlse,
+                                         impl="plain", **kw)
+    torch.cuda.synchronize()
+    launched = {n: c - before.get(n, 0) for n, c in
+                common.launch_counts.items() if c != before.get(n, 0)}
+    assert launched == {"flash_attention_fwd_x6": 1,
+                        "flash_attention_bwd_x6": 1}
+    for a, b in zip((out, lse, m), want):
+        torch.testing.assert_close(a, b, atol=fw_tol, rtol=fw_tol)
+    for a, b in zip(grads, ref):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        torch.testing.assert_close(a, b, atol=bw_tol, rtol=bw_tol)
+    empty = max(0, Lq - Lk if q_offset is None else -q_offset) if causal else 0
+    assert torch.count_nonzero(out[:, :, :empty]) == 0
+    assert torch.isneginf(lse[:, :, :empty]).all()
+    assert torch.isneginf(m[:, :, :empty]).all()
+    assert torch.count_nonzero(grads[0][:, :, :empty]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,Lq,Lk,d,causal,q_offset", [
+    (4, 8, 8, 2048, 2048, 64, True, None),    # the production shape
+    (2, 8, 2, 1000, 1000, 128, True, None),   # d 128 under GQA: 32-row tiles
+    (1, 8, 2, 700, 500, 128, True, -30),      # and q_offset given
+    (1, 4, 4, 300, 700, 32, True, 100),
+    (2, 4, 2, 513, 513, 16, False, None)])
+def test_x6_fused_backward_gives_the_same_bits(cuda_device, B, H, Hkv, Lq,
+                                               Lk, d, causal, q_offset):
+    """The fp32 fused backward adds each query tile's dQ in the order of the
+    key tiles: two calls give the same bits for dq, dk and dv."""
+    from tpu_flash_torch.kernels.flash_attention import (
+        flash_attention_backward_fused)
+
+    args = two_pass_case(cuda_device, 15, B, H, Hkv, Lq, Lk, d,
+                         torch.float32, causal, q_offset)
+    kw = dict(causal=causal, q_offset=q_offset)
+    before = common.launch_counts["flash_attention_bwd_x6"]
+    first = flash_attention_backward_fused(*args, **kw)
+    second = flash_attention_backward_fused(*args, **kw)
+    torch.cuda.synchronize()
+    assert common.launch_counts["flash_attention_bwd_x6"] == before + 2
+    for a, b in zip(first, second):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", ["fwd", "bwd"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_entries_refuse_the_other_forms_dtype(cuda_device, which,
                                                     dtype):
-    """The forward's and the fused backward's tensor-core entries take bf16
-    only, their CUDA-core entries fp32 only: handed the other dtype's flag,
+    """The forward's and the fused backward's ``_tc`` entries take bf16
+    only, their ``_x6`` entries fp32 only: handed the other dtype's flag,
     an entry returns an error and writes nothing."""
     import ctypes
 
@@ -473,7 +557,7 @@ def check_two_pass(q, k, v, out, lse, do, dtype, causal, q_offset=None):
     kw = dict(causal=causal, q_offset=q_offset)
     names = two_pass_names(dtype)
     others = two_pass_names(torch.float32 if dtype == torch.bfloat16
-                            else torch.bfloat16) + ("flash_attention_bwd",
+                            else torch.bfloat16) + ("flash_attention_bwd_x6",
                                                     "flash_attention_bwd_tc")
     before = dict(common.launch_counts)
     dq, dk, dv = flash_attention_backward_two_pass(q, k, v, out, lse, do,
@@ -682,7 +766,7 @@ def remat_runs(dev, cfg, L, V, chunks):
                     for base in ("flash_attention_fwd", "flash_attention_bwd",
                                  "flash_attention_bwd_dkv",
                                  "flash_attention_bwd_dq")
-                    for n in (base, base + common.TC)}
+                    for n in (base, base + common.TC, base + common.X6)}
         runs[remat] = (loss.detach(), {n: p.grad.clone() for n, p in
                                        model.named_parameters()},
                        gen.get_state(), launched)
@@ -710,7 +794,7 @@ def test_remat_equals_no_remat_bit_for_bit_on_the_card(cuda_device,
         ff_middle_dim=256, p_dropout=0.1, attention_kind="flash"), L, V, 4)
     for remat in (False, True):
         launched = {n: c for n, c in runs[remat][3].items() if c}
-        assert launched == {"flash_attention_fwd": 2 * (1 + remat),
+        assert launched == {"flash_attention_fwd_x6": 2 * (1 + remat),
                             "flash_attention_bwd_dkv": 2,
                             "flash_attention_bwd_dq": 2}
     (loss0, g0, s0, _), (loss1, g1, s1, _) = runs[False], runs[True]

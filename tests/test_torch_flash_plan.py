@@ -2,10 +2,11 @@
 (``kernels/flash_attention.py`` ``_form_name``), which runs here without a
 card: bf16 calls the tensor-core entries ``tf_flash_attention_{fwd,bwd}_tc``
 and counts its launches under the kernels' names + ``_tc``, fp32 calls the
-CUDA-core entries under the names; each launcher counts one launch where its
-entry returns success and none where it fails; the fused backward's dQ
-order holds one counter per chunk of its form (64 query rows on the tensor
-cores, 32 on the CUDA cores); and ``flash_attention_backward`` still takes
+six-product entries ``tf_flash_attention_{fwd,bwd}_x6`` under the names +
+``_x6``; each launcher counts one launch where its entry returns success
+and none where it fails; the fused backward's dQ order holds one counter
+per chunk of its form (64 query rows, and 32 in fp32 at d = 128); and
+``flash_attention_backward`` still takes
 the form ``backward_form.two_pass`` (the JAX package's rule) gives.  The C
 entries are stubs that record their call and return a code."""
 
@@ -67,7 +68,7 @@ def stub_entries(monkeypatch):
 
 
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
-@pytest.mark.parametrize("dtype,suffix", [(BF16, "_tc"), (FP32, "")])
+@pytest.mark.parametrize("dtype,suffix", [(BF16, "_tc"), (FP32, "_x6")])
 def test_the_form_follows_the_dtype(dtype, suffix, d):
     q = torch.zeros(1, 1, 8, d, dtype=dtype)
     assert [fa._form_name(n, q.dtype) for n in SOURCES.values()] == [
@@ -75,10 +76,10 @@ def test_the_form_follows_the_dtype(dtype, suffix, d):
 
 
 @pytest.mark.parametrize("which", ["fwd", "bwd"])
-@pytest.mark.parametrize("dtype,suffix", [(BF16, "_tc"), (FP32, "")])
+@pytest.mark.parametrize("dtype,suffix", [(BF16, "_tc"), (FP32, "_x6")])
 def test_each_form_calls_its_own_c_entry(stub_entries, which, dtype, suffix):
     """The forward and the fused backward call ``tf_flash_attention_<which>``
-    + ``_tc`` for bf16 and without it for fp32, in the kernel's source, with
+    + ``_tc`` for bf16 and + ``_x6`` for fp32, in the kernel's source, with
     dtype flag 1 or 0 and the pointers of the outputs they return, and count
     one launch under the entry's name."""
     calls, _ = stub_entries
@@ -110,13 +111,15 @@ def test_each_form_calls_its_own_c_entry(stub_entries, which, dtype, suffix):
         assert all(t.dtype == dtype for t in outs)
 
 
-@pytest.mark.parametrize("dtype,chunk", [(BF16, 64), (FP32, 32)])
+@pytest.mark.parametrize("dtype,d,chunk", [
+    (BF16, 32, 64), (BF16, 128, 64), (FP32, 32, 64), (FP32, 128, 32)])
 @pytest.mark.parametrize("Lq", [40, 64, 130])
 def test_the_dq_order_has_a_counter_per_chunk_of_the_form(
-        stub_entries, monkeypatch, dtype, chunk, Lq):
+        stub_entries, monkeypatch, dtype, d, chunk, Lq):
     """dq_order (int32, zeroed) holds B * H * ceil(Lq / chunk) counters,
-    chunk being the form's rows a chunk; the fp32 dQ workspace is zeroed
-    [B, H, Lq, d]."""
+    chunk being the form's query tile (the fp32 form takes 32 rows at
+    d = 128, where 64 would not fit its shared memory); the fp32 dQ
+    workspace is zeroed [B, H, Lq, d]."""
     zeros = []
     real_zeros = torch.zeros
 
@@ -126,7 +129,7 @@ def test_the_dq_order_has_a_counter_per_chunk_of_the_form(
         return t
 
     monkeypatch.setattr(torch, "zeros", recording_zeros)
-    q, k, v, do = inputs(dtype, B=2, Lq=Lq)
+    q, k, v, do = inputs(dtype, B=2, Lq=Lq, d=d)
     lse = real_zeros(2, 4, Lq)
     kin = (*fa._bwd_inputs(q, k, v, q, lse, do, None), True, 0.25, 0)
     calls, _ = stub_entries
@@ -134,7 +137,7 @@ def test_the_dq_order_has_a_counter_per_chunk_of_the_form(
     (_, _, a), = calls
     by_ptr = {t.data_ptr(): t for t in zeros}
     dq, order = by_ptr[a[6]], by_ptr[a[7]]
-    assert dq.dtype == torch.float32 and dq.shape == (2, 4, Lq, 32)
+    assert dq.dtype == torch.float32 and dq.shape == (2, 4, Lq, d)
     assert order.dtype == torch.int32
     assert order.shape == (2 * 4 * -(-Lq // chunk),)
     assert not order.any() and not dq.any()
@@ -147,7 +150,7 @@ def test_a_failed_launch_raises_with_the_forms_name(stub_entries, which,
     _, codes = stub_entries
     codes[0] = 1
     q, k, v, do = inputs(dtype)
-    name = f"flash_attention_{which}" + ("_tc" if dtype == BF16 else "")
+    name = f"flash_attention_{which}" + ("_tc" if dtype == BF16 else "_x6")
     before = dict(common.launch_counts)
     with pytest.raises(RuntimeError, match=f"{name} kernel failed"):
         if which == "fwd":
@@ -162,28 +165,31 @@ def test_a_failed_launch_raises_with_the_forms_name(stub_entries, which,
 
 @pytest.mark.parametrize("dtype,L,two", [
     (BF16, 2048, False),     # modes (b), (e): the fused kernel, tensor cores
-    (FP32, 2048, False),     # mode (a): the fused kernel, CUDA cores
+    (FP32, 2048, False),     # mode (a): the fused kernel, six products
     (BF16, 16384, True),     # mode (f): the two passes
     (FP32, 8192, True)])
 def test_the_training_shapes_take_the_jax_form(stub_entries, dtype, L, two):
     """A forward and a backward at the attention shapes of the training
     modes (one head; the rule reads lengths, d and dtype only) through the
     real launchers: the forward in its dtype's form, then the fused kernel
-    or the two passes where ``backward_form.two_pass`` says so."""
+    or the two passes where ``backward_form.two_pass`` says so (in fp32 the
+    forward and the fused kernel take the six-product form, the two passes
+    the CUDA-core form)."""
     assert backward_form.two_pass(L, L, 64, dtype.itemsize, True) == two
     calls, _ = stub_entries
     q = torch.zeros(1, 1, L, 64, dtype=dtype)
-    suffix = "_tc" if dtype == BF16 else ""
+    fused, passes = ("_tc", "_tc") if dtype == BF16 else ("_x6", "")
 
     def step():
         out, lse, _ = fa.flash_attention_forward(q, q, q, causal=True)
         return fa.flash_attention_backward(q, q, q, out, lse, q, causal=True)
 
     grads, launched = counts_of(step)
-    bwd = ((fa.KERNEL_DKV, fa.KERNEL_DQ) if two else (fa.KERNEL_BWD,))
-    assert launched == {n + suffix: 1 for n in (fa.KERNEL_FWD, *bwd)}
-    assert [c[1] for c in calls] == ["tf_" + n + suffix
-                                     for n in (fa.KERNEL_FWD, *bwd)]
+    names = [fa.KERNEL_FWD + fused] + (
+        [fa.KERNEL_DKV + passes, fa.KERNEL_DQ + passes] if two
+        else [fa.KERNEL_BWD + fused])
+    assert launched == {n: 1 for n in names}
+    assert [c[1] for c in calls] == ["tf_" + n for n in names]
     assert [g.dtype for g in grads] == [dtype] * 3
 
 

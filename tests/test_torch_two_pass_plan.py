@@ -168,8 +168,9 @@ def test_dispatch_follows_the_jax_rule(monkeypatch, dtype, L, two):
     _, launched = counts_of(lambda: fa.flash_attention_backward(
         q, q, q, q, lse, q, causal=True))
     suffix = "_tc" if dtype == BF16 else ""
+    fused = "_tc" if dtype == BF16 else "_x6"
     assert launched == ({n + suffix: 1 for n in NAMES} if two
-                        else {fa.KERNEL_BWD + suffix: 1})
+                        else {fa.KERNEL_BWD + fused: 1})
 
 
 def test_the_plain_halves_stand_in_for_both_forms_bit_for_bit(

@@ -41,9 +41,12 @@ NVCC_FLAGS = (
 # and nowhere else, so a run can show that its path went through the kernel.
 launch_counts: collections.Counter[str] = collections.Counter()
 # A kernel's tensor-core form counts its launches under the name + TC; the
-# quantized matmuls' tensor-core decode form under the name + DEC.
+# quantized matmuls' tensor-core decode form under the name + DEC; the flash
+# kernels' fp32 form on the tensor cores (six bf16 products a product)
+# under the name + X6.
 TC = "_tc"
 DEC = "_dec"
+X6 = "_x6"
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

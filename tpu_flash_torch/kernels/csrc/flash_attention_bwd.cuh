@@ -1,19 +1,20 @@
 // What the flash-attention backward kernels share: the recompute of P and dS
-// for one (query row, key) pair, and the KV-outer bodies that both the fused
-// single pass (flash_attention_bwd.cu, with dQ) and the dK/dV pass of the
-// two-pass form (flash_attention_bwd_two_pass.cu, without dQ) run, in two
-// forms: kv_outer_body on the CUDA cores (fp32) and kv_outer_tc_body on the
-// tensor cores (bf16).  The fp32 dQ pass calls the same recompute, so they
-// cannot disagree on it, as tpu_flash/kernels/flash_attention.py shares
-// _bwd_p_ds (:1107) between its fused, dK/dV and dQ kernels and
-// _bwd_kv_outer_body (:1254) between the first two.  The tensor-core forms
-// apply bwd_p_ds's arithmetic to whole accumulator fragments.
+// for one (query row, key) pair, and the KV-outer bodies: kv_outer_body, the
+// fp32 dK/dV pass of the two-pass form on the CUDA cores
+// (flash_attention_bwd_two_pass.cu), and kv_outer_tc_body on the tensor
+// cores (bf16), which both the fused single pass (flash_attention_bwd.cu,
+// with dQ) and the bf16 dK/dV pass (without dQ) run.  The fp32 dQ pass calls
+// the same recompute, so they cannot disagree on it, as
+// tpu_flash/kernels/flash_attention.py shares _bwd_p_ds (:1107) between its
+// fused, dK/dV and dQ kernels and _bwd_kv_outer_body (:1254) between the
+// first two.  The tensor-core forms apply bwd_p_ds's arithmetic to whole
+// accumulator fragments.
 //
 // Numerics follow the TPU kernels: base-2 softmax with scale * log2(e) folded
-// into q; fp32 dots are exact FMAs (never TF32); with bf16 inputs the scaled
-// q, P before dV, and dS before dK and dQ are rounded to bf16; every sum is
-// fp32.  A row whose lse is -inf (it saw no key) gets P = 0, not exp(+inf),
-// so its dS and dQ are 0.
+// into q; fp32 dots here are exact FMAs (never TF32); with bf16 inputs the
+// scaled q, P before dV, and dS before dK and dQ are rounded to bf16; every
+// sum is fp32.  A row whose lse is -inf (it saw no key) gets P = 0, not
+// exp(+inf), so its dS and dQ are 0.
 //
 // kernels/common.py hashes every .cuh into each library's name, so an edit
 // here rebuilds every kernel that includes it.
@@ -43,8 +44,7 @@ struct BwdParams {
   float scale, scale2;  // softmax scale, and scale * log2(e)
   int* dq_order;       // fused: int32 [B * H, ceil(Lq / chunk)] zeroed by
                        // the caller, the dQ adds made to each query chunk
-                       // (kQC rows on the CUDA cores, kTcTile on the
-                       // tensor cores)
+                       // (the form's tile of query rows)
 };
 
 // lse in base 2; +inf for a row that saw no key, so that its P is 0.
@@ -92,77 +92,49 @@ __device__ __forceinline__ void await_turn(const int* order, int tile) {
   __syncthreads();
 }
 
-// --- the KV-outer body ------------------------------------------------------
+// --- the KV-outer body (the fp32 dK/dV pass) -------------------------------
 //
 // One block per (batch * KV head, tile of kKeys keys).  A key belongs to
 // D / 16 threads, each owning 16 head dims of its k, v, dK and dV rows in
 // registers; the block walks the query rows that can see its keys (the
 // causal limit sets the first one, so dead tiles are never loaded), kQC rows
-// at a time, for each query head of the GQA group, and sums dK and dV over
-// the group in fp32 before writing scale * dK and dV once in the input dtype.
-// A chunk's q, q * scale * log2(e) and dO rows are staged in shared memory in
-// fp32; the threads of a warp read the same query row at a time (broadcast
-// 16-byte loads), and the partial dots over a thread's 16 dims meet through
-// shuffles.  With kDQ (the fused pass) the chunk's dS [kKeys, kQC] also goes
-// to shared memory, and the block forms dQ [kQC, D] = dS^T K as a small
-// product (each thread 2 rows x 4 dims) added to the fp32 workspace in a
-// fixed order, so that two calls give the same bits:
-//   * the blocks of a (batch * query head) that reach a query chunk add
-//     their parts in the order of their key tiles, each after waiting on
-//     the chunk's counter in dq_order (acquire) to count the tiles below
-//     it, then bumping it (release).  Chunks start at multiples of kQC in
-//     every block (rows before a tile's causal limit see none of its keys
-//     and add 0), so the blocks agree on what a chunk is;
-//   * the block walks its query chunks from the last down to its causal
-//     limit, so every tile reaches a given chunk after the same number of
-//     chunks: the tiles of a head move in step, tile t one add behind tile
-//     t - 1 after the first chunk, and seldom wait;
-//   * blockIdx.x is the key tile, so a block waits only on blocks
-//     dispatched before it (blocks are dispatched in increasing index),
-//     which are running or done: spinning blocks cannot hold the SMs that
-//     the blocks they wait on need.  The low tiles, which walk the most
-//     chunks, start first.
-// The dK/dV pass (kDQ false) walks its chunks upward from its causal limit.
+// at a time, for each query head of the GQA group in turn, chunks upward,
+// and sums dK and dV over the group in fp32 before writing scale * dK and dV
+// once in the input dtype.  A chunk's q, q * scale * log2(e) and dO rows are
+// staged in shared memory in fp32; the threads of a warp read the same query
+// row at a time (broadcast 16-byte loads), and the partial dots over a
+// thread's 16 dims meet through shuffles.
 
 constexpr int kKeys = 64;   // keys per block
 constexpr int kDt = 16;     // head dims per thread
 constexpr int kQC = 32;     // query rows per chunk
-constexpr int kDsPitch = kQC + 2;
 
 template <int D>
 __host__ __device__ constexpr int kv_outer_threads() {
   return kKeys * (D / kDt);
 }
 
-template <int D, bool kDQ>
+template <int D>
 __host__ __device__ constexpr size_t kv_outer_smem_bytes() {
-  return sizeof(float) * (3 * kQC * D + 2 * kQC +
-                          (kDQ ? kKeys * D + kKeys * kDsPitch : 0));
+  return sizeof(float) * (3 * kQC * D + 2 * kQC);
 }
 
-template <int D, bool kDQ>
+template <int D>
 __device__ __forceinline__ void kv_outer_body(const BwdParams& p) {
   constexpr int kTpk = D / kDt;            // threads per key
   constexpr int kKeysPerWarp = 32 / kTpk;
   constexpr int kThreads = kv_outer_threads<D>();
-  constexpr int kCols = D / 4;             // float4 columns of a dQ row
-  constexpr int kGroups = kThreads / kCols;
-  constexpr int kRq = kQC / kGroups;       // dQ rows per thread
-  static_assert(kGroups * kRq == kQC, "dQ mapping");
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // [kQC][D] q
   float* qss = qs + kQC * D;                     // [kQC][D] q * scale2
   float* dos = qss + kQC * D;                    // [kQC][D] dO
   float* lse2 = dos + kQC * D;                   // [kQC] lse * log2(e)
   float* dls = lse2 + kQC;                       // [kQC] delta
-  float* ks = dls + kQC;                         // [kKeys][D] (kDQ)
-  float* dss = ks + kKeys * D;                   // [kKeys][kDsPitch] (kDQ)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int part = lane / kKeysPerWarp;
   const int key_in_block = warp * kKeysPerWarp + lane % kKeysPerWarp;
-  const int tile = blockIdx.x;
-  const int k0 = tile * kKeys;
+  const int k0 = blockIdx.x * kKeys;
   const int bhk = blockIdx.y, b = bhk / p.Hkv, hk = bhk % p.Hkv;
   const int g = p.H / p.Hkv;
   const int j = k0 + key_in_block;
@@ -179,25 +151,17 @@ __device__ __forceinline__ void kv_outer_body(const BwdParams& p) {
 #pragma unroll
   for (int e = 0; e < kDt; ++e) {
     if (!key_ok) kr[e] = vr[e] = 0.f;
-    if constexpr (kDQ) ks[key_in_block * D + part * kDt + e] = kr[e];
     dk[e] = dv[e] = 0.f;
   }
 
-  // The first query row that can see key k0; fused, rounded down to a
-  // chunk's start.  chunks: the query chunks the block walks for a head.
-  int q_start = p.causal ? max(0, k0 - p.q_offset) : 0;
-  if constexpr (kDQ) q_start -= q_start % kQC;
+  // The first query row that can see key k0, and the query chunks the
+  // block walks for a head.
+  const int q_start = p.causal ? max(0, k0 - p.q_offset) : 0;
   const int chunks = q_start < p.Lq ? (p.Lq - q_start + kQC - 1) / kQC : 0;
-  const int cc = tid % kCols, grp = tid / kCols;   // dQ mapping
 
-  // (query head u of the group, chunk c): the dK/dV pass walks each head's
-  // chunks upward in turn; the fused pass walks the chunks from the last
-  // down, each for every head, so that the tiles stay in step across heads
-  // (see the order of the dQ adds)
   for (int it = 0; it < g * chunks; ++it) {
-    const int u = kDQ ? it % g : it / chunks, ci = kDQ ? it / g : it % chunks;
-    const int bh = b * p.H + hk * g + u;
-    const int i0 = q_start + (kDQ ? chunks - 1 - ci : ci) * kQC;
+    const int bh = b * p.H + hk * g + it / chunks;
+    const int i0 = q_start + (it % chunks) * kQC;
     __syncthreads();  // the previous chunk's rows are no longer read
     for (int idx = tid; idx < kQC * D / 8; idx += kThreads) {
       const int rr = idx / (D / 8), c = (idx % (D / 8)) * 8;
@@ -230,7 +194,7 @@ __device__ __forceinline__ void kv_outer_body(const BwdParams& p) {
     }
     __syncthreads();
 
-    // dV, dK and this chunk's dS, one query row at a time.
+    // dV and dK, one query row at a time.
     for (int rr = 0; rr < kQC; ++rr) {
       const float* qrow = qs + rr * D + part * kDt;
       const float* qsrow = qss + rr * D + part * kDt;
@@ -272,50 +236,6 @@ __device__ __forceinline__ void kv_outer_body(const BwdParams& p) {
         dk[e + 2] = fmaf(pd.ds, a.z, dk[e + 2]);
         dk[e + 3] = fmaf(pd.ds, a.w, dk[e + 3]);
       }
-      if constexpr (kDQ)
-        if (part == 0) dss[key_in_block * kDsPitch + rr] = pd.ds;
-    }
-
-    if constexpr (kDQ) {
-      __syncthreads();
-      // dQ rows of the chunk: [kQC, D] = dS^T [kQC, kKeys] . K [kKeys, D].
-      float acc[kRq][4];
-#pragma unroll
-      for (int t = 0; t < kRq; ++t)
-        acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-      for (int jj = 0; jj < kKeys; ++jj) {
-        const float4 kv =
-            *reinterpret_cast<const float4*>(ks + jj * D + cc * 4);
-#pragma unroll
-        for (int t = 0; t < kRq; ++t) {
-          const float w = dss[jj * kDsPitch + grp * kRq + t];
-          acc[t][0] = fmaf(w, kv.x, acc[t][0]);
-          acc[t][1] = fmaf(w, kv.y, acc[t][1]);
-          acc[t][2] = fmaf(w, kv.z, acc[t][2]);
-          acc[t][3] = fmaf(w, kv.w, acc[t][3]);
-        }
-      }
-      // Tiles 0 .. tile - 1 reach this chunk too, and add first.
-      int* order = p.dq_order + (size_t)bh * ((p.Lq + kQC - 1) / kQC) +
-                   i0 / kQC;
-      await_turn(order, tile);
-      float* dq = static_cast<float*>(p.dq);
-#pragma unroll
-      for (int t = 0; t < kRq; ++t) {
-        const int i = i0 + grp * kRq + t;
-        if (i < p.Lq) {
-          float4* at = reinterpret_cast<float4*>(
-              dq + ((size_t)bh * p.Lq + i) * D + cc * 4);
-          float4 sum = __ldcg(at);
-          sum.x += acc[t][0];
-          sum.y += acc[t][1];
-          sum.z += acc[t][2];
-          sum.w += acc[t][3];
-          __stcg(at, sum);
-        }
-      }
-      __syncthreads();   // every thread's add is made before the release
-      if (tid == 0) store_release(order, tile + 1);
     }
   }
 
@@ -328,10 +248,10 @@ __device__ __forceinline__ void kv_outer_body(const BwdParams& p) {
 }
 
 // Launches kernel<D> over the KV-outer grid with its shared memory.
-template <int D, bool kDQ, typename Kernel>
+template <int D, typename Kernel>
 cudaError_t launch_kv_outer(Kernel kernel, const BwdParams& p,
                             cudaStream_t stream) {
-  constexpr size_t kSmem = kv_outer_smem_bytes<D, kDQ>();
+  constexpr size_t kSmem = kv_outer_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
   if (err != cudaSuccess) return err;
@@ -363,10 +283,18 @@ cudaError_t launch_kv_outer(Kernel kernel, const BwdParams& p,
 // rows] in bf16 to shared memory; after a __syncthreads each warp forms dQ
 // of 16 of the tile's query rows, dS [16, 64 keys] . K [64 keys, D], its A
 // fragments read from dS^T by ldmatrix.trans and its B fragments from the
-// block's k, and adds it to the fp32 workspace in the fixed order of
-// kv_outer_body, the tile of 64 query rows being the chunk: a block waits
-// only on the key tiles below it, and the query tiles are walked from the
-// last down, each for every head of the group.  A warp adds its rows as
+// block's k, and adds it to the fp32 workspace in a fixed order, the tile
+// of 64 query rows being the chunk:
+//   * the blocks of a (batch * query head) that reach a chunk add their
+//     parts in the order of their key tiles, each after waiting on the
+//     chunk's counter in dq_order (acquire, await_turn) to count the tiles
+//     below it, then bumping it (release).  Chunks start at multiples of
+//     the tile in every block (rows before a key tile's causal limit see
+//     none of its keys and add 0), so the blocks agree on what a chunk is;
+//   * the block walks its query tiles from the last down, each for every
+//     head of the group, so that every key tile reaches a given chunk after
+//     the same number of chunks: the tiles of a head move in step.
+// A warp adds its rows as
 // float4 atomic adds (reductions at L2; lanes t and t ^ 1 trade halves of
 // their C fragments first) that nothing waits on: the block releases the
 // chunk one tile later, after the next tile's products, when the adds have

@@ -34,7 +34,7 @@
 //     shares its body with the fused kernel (flash_attention_bwd.cuh);
 //   * fp32: the CUDA-core form (tf_flash_attention_bwd_dkv / _dq), exact fp32
 //     FMAs, never TF32: the dK/dV pass is kv_outer_body
-//     (flash_attention_bwd.cuh) without dQ; the dQ pass holds a query row's
+//     (flash_attention_bwd.cuh); the dQ pass holds a query row's
 //     q, dO and dQ in registers (D / 16 threads a row) and stages K and V
 //     tiles in shared memory in fp32.
 //
@@ -58,7 +58,7 @@ namespace {
 template <int D>
 __global__ void __launch_bounds__(kv_outer_threads<D>())
 flash_attention_bwd_dkv_kernel(const BwdParams p) {
-  kv_outer_body<D, false>(p);
+  kv_outer_body<D>(p);
 }
 
 // --- the dQ pass ------------------------------------------------------------
@@ -402,8 +402,8 @@ cudaError_t launch_pass(const BwdParams& p, bool dkv, bool tc,
     return dkv ? launch_kv_outer_tc<D, false>(
                      flash_attention_bwd_dkv_tc_kernel<D>, p, stream)
                : launch_dq_tc<D>(p, stream);
-  return dkv ? launch_kv_outer<D, false>(flash_attention_bwd_dkv_kernel<D>,
-                                         p, stream)
+  return dkv ? launch_kv_outer<D>(flash_attention_bwd_dkv_kernel<D>, p,
+                                  stream)
              : launch_dq<D>(p, stream);
 }
 

@@ -16,23 +16,20 @@
 //
 // What bounds it: operations.  At the training shape (B4 H8 L2048 d64,
 // causal) the causal half of QK^T and P.V is 1.7e10 flops against 34 MB of
-// q, k, v and out, some 500 flops per byte.  Two forms, chosen by the
-// wrapper (kernels/flash_attention.py _form_name) and exported as separate
-// C entries:
-//   * bf16: the tensor-core form (tf_flash_attention_fwd_tc, below).  The
-//     TPU kernel rounds q * scale * log2(e) and P to bf16 before its dots
-//     and sums in fp32, exactly a bf16 x bf16 -> fp32 product, so both
-//     products are mma.sync.m16n8k16 and only the order of the fp32 sums
-//     differs from the plain version;
-//   * fp32: the CUDA-core form (tf_flash_attention_fwd), exact fp32 FMAs,
-//     never TF32 (the TPU runs fp32 at Precision.HIGHEST): one block of
-//     kRows query rows per (batch * head, Q tile); a row belongs to one
-//     thread (two for D = 128, each owning half of the head dims), so
-//     q * scale * log2(e), the online-softmax state (m, l) and the output
-//     accumulator stay in registers; K and V tiles of kTileK keys are staged
-//     in shared memory, and every thread of a warp reads the same key at a
-//     time (each 16-byte shared load a broadcast feeding 4 FMAs); keys are
-//     taken kChunk at a time, the running max rescaled once per chunk.
+// q, k, v and out, some 500 flops per byte.  Two forms on the tensor cores,
+// chosen by the wrapper (kernels/flash_attention.py _form_name) and exported
+// as separate C entries, both one block of 4 warps per (batch * head, tile
+// of 64 query rows):
+//   * bf16 (tf_flash_attention_fwd_tc): the TPU kernel rounds
+//     q * scale * log2(e) and P to bf16 before its dots and sums in fp32,
+//     exactly a bf16 x bf16 -> fp32 product, so both products are
+//     mma.sync.m16n8k16 and only the order of the fp32 sums differs from the
+//     plain version;
+//   * fp32 (tf_flash_attention_fwd_x6): the TPU runs fp32 dots at
+//     Precision.HIGHEST, bf16 passes on its MXU; here each fp32 product is
+//     six bf16 mma.sync products of the operands split in three (mma_x6,
+//     mma.cuh), which keeps fp32 accuracy at up to 989 / 6 = 165 TFLOP/s
+//     where the CUDA cores' FMAs stop at 67.
 // wgmma, TMA and warp specialisation are later work (ROADMAP.md).
 //
 // C entries launch on the given stream, allocate nothing and return
@@ -45,9 +42,6 @@
 
 namespace {
 
-constexpr int kRows = 128;   // query rows per block
-constexpr int kTileK = 64;   // keys per shared-memory tile
-constexpr int kChunk = 16;   // keys per online-softmax update
 constexpr float kInvLog2e = 0.6931471805599453f;  // 1 / log2(e)
 
 struct Params {
@@ -60,148 +54,6 @@ struct Params {
   int B, H, Hkv, Lq, Lk, q_offset, causal;
   float scale2;    // softmax scale * log2(e)
 };
-
-template <int D>
-__host__ __device__ constexpr int threads_per_row() { return D > 64 ? 2 : 1; }
-
-template <int D>
-__global__ void __launch_bounds__(kRows * threads_per_row<D>())
-flash_attention_fwd_kernel(const Params p) {
-  constexpr int kTpr = threads_per_row<D>();
-  constexpr int kDt = D / kTpr;            // head dims per thread
-  constexpr int kRowsPerWarp = 32 / kTpr;
-  constexpr int kThreads = kRows * kTpr;
-  extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);   // [kTileK][D]
-  float* vs = ks + kTileK * D;                    // [kTileK][D]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int part = lane / kRowsPerWarp;           // which half of D (D = 128)
-  const int row_in_block = warp * kRowsPerWarp + lane % kRowsPerWarp;
-  const int qt = gridDim.x - 1 - blockIdx.x;      // heavy tiles first
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
-  const int hk = h / (p.H / p.Hkv);
-  const int row0 = qt * kRows;
-  const int r = row0 + row_in_block;
-  const bool row_ok = r < p.Lq;
-
-  // Keys this block needs, and the keys each row and each warp may see.
-  const int block_last = min(row0 + kRows, p.Lq) - 1;
-  const int kend = p.causal ? max(0, min(p.Lk, block_last + p.q_offset + 1))
-                            : p.Lk;
-  const int limit = p.causal ? min(p.Lk, r + p.q_offset + 1) : p.Lk;
-  const int warp_last = min(row0 + (warp + 1) * kRowsPerWarp, p.Lq) - 1;
-  const int warp_limit =
-      warp_last < row0 + warp * kRowsPerWarp
-          ? 0  // every row of this warp is padding
-          : (p.causal ? min(p.Lk, warp_last + p.q_offset + 1) : p.Lk);
-
-  const size_t q_off = ((size_t)bh * p.Lq + (row_ok ? r : 0)) * D + part * kDt;
-  float q[kDt];
-#pragma unroll
-  for (int e = 0; e < kDt; e += 8) {
-    float f[8];
-    load8<false>(p.q, q_off + e, f);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) q[e + i] = row_ok ? f[i] * p.scale2 : 0.f;
-  }
-
-  float m = -INFINITY, l = 0.f, acc[kDt];
-#pragma unroll
-  for (int e = 0; e < kDt; ++e) acc[e] = 0.f;
-
-  const size_t kv_base = ((size_t)b * p.Hkv + hk) * p.Lk * D;
-  for (int k0 = 0; k0 < kend; k0 += kTileK) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int idx = tid; idx < kTileK * D / 8; idx += kThreads) {
-      const int kr = idx / (D / 8), c = (idx % (D / 8)) * 8;
-      float fk[8], fv[8];
-      if (k0 + kr < p.Lk) {
-        const size_t off = kv_base + (size_t)(k0 + kr) * D + c;
-        load8<false>(p.k, off, fk);
-        load8<false>(p.v, off, fv);
-      } else {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) fk[i] = fv[i] = 0.f;
-      }
-      float4* kd = reinterpret_cast<float4*>(ks + kr * D + c);
-      float4* vd = reinterpret_cast<float4*>(vs + kr * D + c);
-      kd[0] = make_float4(fk[0], fk[1], fk[2], fk[3]);
-      kd[1] = make_float4(fk[4], fk[5], fk[6], fk[7]);
-      vd[0] = make_float4(fv[0], fv[1], fv[2], fv[3]);
-      vd[1] = make_float4(fv[4], fv[5], fv[6], fv[7]);
-    }
-    __syncthreads();
-
-    const int nk = min(kTileK, warp_limit - k0);  // warp-uniform
-    for (int c = 0; c < nk; c += kChunk) {
-      float s[kChunk];
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) s[j] = 0.f;
-#pragma unroll
-      for (int e = 0; e < kDt; e += 4) {
-#pragma unroll
-        for (int j = 0; j < kChunk; ++j) {
-          const float4 kv = *reinterpret_cast<const float4*>(
-              ks + (c + j) * D + part * kDt + e);
-          s[j] = fmaf(q[e], kv.x, s[j]);
-          s[j] = fmaf(q[e + 1], kv.y, s[j]);
-          s[j] = fmaf(q[e + 2], kv.z, s[j]);
-          s[j] = fmaf(q[e + 3], kv.w, s[j]);
-        }
-      }
-      if constexpr (kTpr == 2) {
-#pragma unroll
-        for (int j = 0; j < kChunk; ++j)
-          s[j] += __shfl_xor_sync(kFull, s[j], kRowsPerWarp);
-      }
-      float mx = m;
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        if (k0 + c + j >= limit) s[j] = -INFINITY;
-        mx = fmaxf(mx, s[j]);
-      }
-      if (mx == -INFINITY) continue;  // nothing visible to this row yet
-      const float alpha = exp2f(m - mx);  // 0 while m is -inf
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        s[j] = exp2f(s[j] - mx);  // masked keys: exp2(-inf) = 0
-        psum += s[j];
-      }
-      l = l * alpha + psum;
-      m = mx;
-#pragma unroll
-      for (int e = 0; e < kDt; ++e) acc[e] *= alpha;
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-#pragma unroll
-        for (int e = 0; e < kDt; e += 4) {
-          const float4 vv = *reinterpret_cast<const float4*>(
-              vs + (c + j) * D + part * kDt + e);
-          acc[e] = fmaf(s[j], vv.x, acc[e]);
-          acc[e + 1] = fmaf(s[j], vv.y, acc[e + 1]);
-          acc[e + 2] = fmaf(s[j], vv.z, acc[e + 2]);
-          acc[e + 3] = fmaf(s[j], vv.w, acc[e + 3]);
-        }
-      }
-    }
-  }
-
-  if (!row_ok) return;
-  const bool empty = m == -INFINITY;
-  const size_t o_off = ((size_t)bh * p.Lq + r) * D + part * kDt;
-#pragma unroll
-  for (int e = 0; e < kDt; ++e)
-    static_cast<float*>(p.out)[o_off + e] = empty ? 0.f : acc[e] / l;
-  if (part == 0) {
-    const size_t row = (size_t)bh * p.Lq + r;
-    const float m_nat = m * kInvLog2e;
-    p.lse[row] = empty ? -INFINITY : m_nat + logf(l);
-    if (p.m) p.m[row] = empty ? -INFINITY : m_nat;
-  }
-}
-
 
 // --- the tensor-core form (bf16) --------------------------------------------
 //
@@ -399,21 +251,259 @@ flash_attention_fwd_tc_kernel(const Params p) {
   }
 }
 
+// --- the fp32 form on the tensor cores (six bf16 products a product) -----
+//
+// The same walk as the bf16 form, with every product mma_x6.  The block's
+// q rows arrive in fp32 by cp.async beside the first K and V tile, and are
+// scaled by scale2 (one fp32 rounding, as the plain version's) and split
+// once into three bf16 planes; below d = 128 each warp then holds its rows'
+// planes as A fragments (48 registers at d = 64), at d = 128 (96 would not
+// fit beside the 64 of the output accumulator) it reads them from shared
+// memory each step of 16 keys.  Each K and V tile arrives in fp32 by cp.async into one
+// stage, while the tile before it is computed, and is split once by the
+// whole block into three planes each, which the 4 warps share; the stage is
+// refilled as soon as it is split, so two __syncthreads a tile fence the
+// planes.  P stays fp32 and is split in registers into the A fragments of
+// acc += P V, each step's six products summed apart and added to acc
+// rounded to nearest (mma_x6_add: acc sums over the whole key length); l
+// sums the fp32 P at every d, and scores, the online max and exp2 are the
+// plain version's fp32 arithmetic.  Shared memory at d = 64:
+// K and V planes 54 KB and the stage 34 KB (q staged over the planes before
+// the first tile), so that two blocks share an SM.
+
+template <int D>
+struct FwdX6 {
+  static constexpr int P = TcShape<D>::P;
+  static constexpr int F = kF32Pitch<D>;
+  static constexpr bool kQRegs = D <= 64;        // q's planes in registers
+  // keys of S a warp holds at once, and the steps of a tile unrolled: at
+  // d = 128 16 keys a step, not unrolled, or ptxas spills
+  static constexpr int NK = kQRegs ? TcShape<D>::kStep : 16;
+  static constexpr int kUnrollSteps = kQRegs ? kTcTile / NK : 1;
+  static constexpr int kPlane = kTcTile * P;     // elements of one plane
+  static constexpr int kPlanesBytes = 6 * kPlane * 2;          // K, V
+  static constexpr int kQPlanesBytes = kQRegs ? 0 : 3 * kPlane * 2;
+  static constexpr int kSmem = kPlanesBytes + kQPlanesBytes +
+                               2 * kTcTile * F * 4;            // the stage
+  static_assert(kTcTile * F * 4 <= 3 * kPlane * 2, "q staged over V's planes");
+  static_assert(kSmem <= 232448, "shared memory");
+};
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, D <= 64 ? 2 : 1)
+flash_attention_fwd_x6_kernel(const Params p) {
+  using X = FwdX6<D>;
+  constexpr int NK = X::NK, kPlane = X::kPlane, F = X::F;
+  extern __shared__ uint4 x6_smem[];
+  char* base = reinterpret_cast<char*>(x6_smem);
+  bf16* kpl = reinterpret_cast<bf16*>(base);     // K's planes [64][P] x 3
+  bf16* vpl = kpl + 3 * kPlane;                  // V's
+  // q * scale2's planes: over K's before the first tile below d = 128
+  bf16* qpl = X::kQRegs ? kpl : vpl + 3 * kPlane;
+  float* stage = reinterpret_cast<float*>(base + X::kPlanesBytes +
+                                          X::kQPlanesBytes);  // K, V [64][F]
+  float* qstage = reinterpret_cast<float*>(vpl);  // q [64][F], once
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int row0 = (gridDim.x - 1 - blockIdx.x) * kTcBlock;
+  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  const int hk = h / (p.H / p.Hkv);
+  const size_t rows = (size_t)bh * p.Lq;
+  const size_t kv_rows = ((size_t)b * p.Hkv + hk) * p.Lk;
+
+  // Keys the block needs; the warp's rows and the keys they may see.
+  const int block_last = min(row0 + kTcBlock, p.Lq) - 1;
+  const int kend = p.causal ? max(0, min(p.Lk, block_last + p.q_offset + 1))
+                            : p.Lk;
+  const int tiles = (kend + kTcTile - 1) / kTcTile;
+  const int rw = row0 + warp * 16;
+  const int wlimit =
+      rw >= p.Lq ? 0
+                 : (p.causal ? min(p.Lk, min(rw + 15, p.Lq - 1) +
+                                             p.q_offset + 1)
+                             : p.Lk);
+
+  auto load_stage = [&](int t) {
+    load_tile_f32<D, kTcTile>(stage, p.k, kv_rows, t * kTcTile, p.Lk, tid);
+    load_tile_f32<D, kTcTile>(stage + kTcTile * F, p.v, kv_rows,
+                              t * kTcTile, p.Lk, tid);
+  };
+  auto split_stage = [&]() {
+    split_tile<D, kTcTile>(kpl, kPlane, stage, 1.f, tid);
+    split_tile<D, kTcTile>(vpl, kPlane, stage + kTcTile * F, 1.f, tid);
+  };
+  load_tile_f32<D, kTcTile>(qstage, p.q, rows, row0, p.Lq, tid);
+  if (tiles > 0) load_stage(0);
+  cp_async_commit();
+  cp_async_wait<0>();   // q and the first tile
+  __syncthreads();
+  split_tile<D, kTcTile>(qpl, kPlane, qstage, p.scale2, tid);
+  __syncthreads();
+  uint32_t qa[X::kQRegs ? D / 16 : 1][3][4];
+  if constexpr (X::kQRegs) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+      for (int pl = 0; pl < 3; ++pl)
+        a_frag<D>(qa[kk][pl], qpl + pl * kPlane, warp * 16, kk, lane);
+    __syncthreads();    // q's planes are read before K's overwrite them
+  }
+  if (tiles > 0) split_stage();
+  __syncthreads();
+  if (tiles > 1) load_stage(1);
+  cp_async_commit();
+
+  // this thread's rows rw + lane / 4 and rw + lane / 4 + 8: running max,
+  // its part of l, and the output accumulators
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int t = 0; t < tiles; ++t) {
+#pragma unroll (X::kUnrollSteps)
+    for (int sub = 0; sub < kTcTile; sub += NK) {
+      const int kc = t * kTcTile + sub;   // the step's first key
+      if (kc >= wlimit) continue;         // the warp's rows see none of them
+      const bool full = kc + NK <= p.Lk &&
+                        !(p.causal && kc + NK - 1 > rw + p.q_offset);
+      // S = (q scale2) K^T
+      float s[NK / 8][4];
+#pragma unroll
+      for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t qf[3][4];
+#pragma unroll
+        for (int pl = 0; pl < 3; ++pl) {
+          if constexpr (X::kQRegs) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) qf[pl][e] = qa[kk][pl][e];
+          } else {
+            a_frag<D>(qf[pl], qpl + pl * kPlane, warp * 16, kk, lane);
+          }
+        }
+#pragma unroll
+        for (int n2 = 0; n2 < NK / 16; ++n2) {
+          uint32_t bk[3][4];
+#pragma unroll
+          for (int pl = 0; pl < 3; ++pl)
+            b_frags_nk<D>(bk[pl], kpl + pl * kPlane, sub + 16 * n2, kk, lane);
+          mma_x6(s[2 * n2], qf, bk[0], bk[1], bk[2]);
+          mma_x6(s[2 * n2 + 1], qf, bk[0] + 2, bk[1] + 2, bk[2] + 2);
+        }
+      }
+      if (!full) {
+#pragma unroll
+        for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = kc + 8 * j + 2 * (lane & 3) + (e & 1);
+            const int i = rw + (lane >> 2) + 8 * (e >> 1);
+            if (key >= p.Lk || (p.causal && key > i + p.q_offset))
+              s[j][e] = -INFINITY;
+          }
+      }
+      // the online softmax of the thread's two rows (e / 2)
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      float base2[2], alpha[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+        base2[r] = mx[r] == -INFINITY ? 0.f : mx[r];  // nothing seen yet
+        alpha[r] = exp2f(m[r] - base2[r]);            // 0 while m is -inf
+        m[r] = mx[r];
+      }
+#pragma unroll
+      for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // masked keys: exp2(-inf) = 0
+          s[j][e] = exp2f(s[j][e] - base2[e >> 1]);
+          psum[e >> 1] += s[j][e];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + psum[r];
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[j][0] *= alpha[0];
+        acc[j][1] *= alpha[0];
+        acc[j][2] *= alpha[1];
+        acc[j][3] *= alpha[1];
+      }
+      // acc += P V over the step's keys
+#pragma unroll
+      for (int kk = 0; kk < NK / 16; ++kk) {
+        uint32_t pa[3][4];
+        acc_as_a_x6(pa, s, kk);
+#pragma unroll
+        for (int n2 = 0; n2 < D / 16; ++n2) {
+          uint32_t bv[3][4];
+#pragma unroll
+          for (int pl = 0; pl < 3; ++pl)
+            b_frags_kn<D>(bv[pl], vpl + pl * kPlane, sub + 16 * kk, 16 * n2,
+                          lane);
+          mma_x6_add(acc[2 * n2], pa, bv[0], bv[1], bv[2]);
+          mma_x6_add(acc[2 * n2 + 1], pa, bv[0] + 2, bv[1] + 2, bv[2] + 2);
+        }
+      }
+    }
+    if (t + 1 < tiles) {
+      cp_async_wait<0>();   // tile t + 1 has landed
+      __syncthreads();      // and every warp is done with tile t's planes
+      split_stage();
+      __syncthreads();
+      if (t + 2 < tiles) load_stage(t + 2);
+      cp_async_commit();
+    }
+  }
+
+  // out = acc / l; a row that saw no key gives out 0, lse -inf and m -inf
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(kFull, l[r], 1);
+    l[r] += __shfl_xor_sync(kFull, l[r], 2);
+  }
+  const bool empty[2] = {m[0] == -INFINITY, m[1] == -INFINITY};
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      acc[j][e] = empty[e >> 1] ? 0.f : acc[j][e] / l[e >> 1];
+  store_rows_f32<D>(p.out, rows, rw, p.Lq, acc, 1.f, lane);
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = rw + (lane >> 2) + 8 * r;
+      if (i >= p.Lq) continue;
+      const float m_nat = m[r] * kInvLog2e;
+      p.lse[rows + i] = empty[r] ? -INFINITY : m_nat + logf(l[r]);
+      if (p.m) p.m[rows + i] = empty[r] ? -INFINITY : m_nat;
+    }
+  }
+}
+
 // --- launches ---------------------------------------------------------------
 
 template <int D>
-cudaError_t launch(const Params& p, bool tc, cudaStream_t stream) {
-  const int threads = tc ? kTcThreads : kRows * threads_per_row<D>();
-  const int rows = tc ? kTcBlock : kRows;
-  const int smem = tc ? fwd_tc_smem_bytes<D>()
-                      : 2 * kTileK * D * (int)sizeof(float);
-  auto kernel = tc ? flash_attention_fwd_tc_kernel<D>
-                   : flash_attention_fwd_kernel<D>;
+cudaError_t launch(const Params& p, bool x6, cudaStream_t stream) {
+  const int smem = x6 ? FwdX6<D>::kSmem : fwd_tc_smem_bytes<D>();
+  auto kernel = x6 ? flash_attention_fwd_x6_kernel<D>
+                   : flash_attention_fwd_tc_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Lq + rows - 1) / rows, p.B * p.H);
-  kernel<<<grid, threads, smem, stream>>>(p);
+  const dim3 grid((p.Lq + kTcBlock - 1) / kTcBlock, p.B * p.H);
+  kernel<<<grid, kTcThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -421,14 +511,14 @@ cudaError_t launch(const Params& p, bool tc, cudaStream_t stream) {
 
 extern "C" {
 
-// dtype: 0 fp32 (the CUDA-core form); the _tc entry takes 1, bf16 (the
-// tensor-core form).  q, k, v and out share it.
-#define TF_FWD_ENTRY(symbol, tc)                                              \
+// dtype: the _tc entry takes 1, bf16 (the tensor-core form), the _x6 entry
+// 0, fp32 (six bf16 products a product).  q, k, v and out share it.
+#define TF_FWD_ENTRY(symbol, x6)                                              \
   int symbol(const void* q, const void* k, const void* v, void* out,         \
              float* lse, float* m, int B, int H, int Hkv, int Lq, int Lk,    \
              int d, int dtype, int causal, int q_offset, float scale2,       \
              void* stream) {                                                 \
-    if (dtype != (tc ? 1 : 0) || Hkv <= 0 || H % Hkv || B * H > 65535 ||     \
+    if (dtype != (x6 ? 0 : 1) || Hkv <= 0 || H % Hkv || B * H > 65535 ||     \
         Lk <= 0)                                                             \
       return cudaErrorInvalidValue;                                          \
     if (B == 0 || H == 0 || Lq == 0) return cudaSuccess;                     \
@@ -436,15 +526,15 @@ extern "C" {
                    causal != 0, scale2};                                     \
     const cudaStream_t st = static_cast<cudaStream_t>(stream);              \
     switch (d) {                                                             \
-      case 16: return launch<16>(p, tc, st);                                 \
-      case 32: return launch<32>(p, tc, st);                                 \
-      case 64: return launch<64>(p, tc, st);                                 \
-      case 128: return launch<128>(p, tc, st);                               \
+      case 16: return launch<16>(p, x6, st);                                 \
+      case 32: return launch<32>(p, x6, st);                                 \
+      case 64: return launch<64>(p, x6, st);                                 \
+      case 128: return launch<128>(p, x6, st);                               \
     }                                                                        \
     return cudaErrorInvalidValue;                                            \
   }
 
-TF_FWD_ENTRY(tf_flash_attention_fwd, false)
-TF_FWD_ENTRY(tf_flash_attention_fwd_tc, true)
+TF_FWD_ENTRY(tf_flash_attention_fwd_tc, false)
+TF_FWD_ENTRY(tf_flash_attention_fwd_x6, true)
 
 }  // extern "C"

@@ -1,7 +1,8 @@
 // The tiles and fragments that the flash-attention kernels' tensor-core
-// forms (bf16 products with fp32 sums through mma.sync) share: the forward
-// (flash_attention_fwd.cu), the fused backward (flash_attention_bwd.cu) and
-// the two passes (flash_attention_bwd_two_pass.cu).
+// forms (bf16 products with fp32 sums through mma.sync, and for fp32 inputs
+// six such products a product) share: the forward (flash_attention_fwd.cu),
+// the fused backward (flash_attention_bwd.cu) and the two passes
+// (flash_attention_bwd_two_pass.cu).
 //
 // A block has 4 warps, each owning 16 rows of its fixed side (query rows in
 // the forward and the dQ pass, keys in the KV-outer kernels); the other
@@ -147,6 +148,96 @@ __device__ __forceinline__ void store_rows(void* out, size_t base, int row0,
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<uint32_t*>(dst + 8 * j) =
           bf16_pair_rn(scale * acc[j][2 * h], scale * acc[j][2 * h + 1]);
+  }
+}
+
+// --- the fp32 forms: six bf16 products a product (mma_x6) -------------------
+//
+// fp32 tiles arrive by cp.async into rows padded by 4 floats (kF32Pitch),
+// and each is split once, by the whole block, into three bf16 planes (hi,
+// mid, lo) of TcShape's layout, plane pl at pl * plane elements after the
+// first: the planes are what every warp's ldmatrix reads.
+
+template <int D>
+constexpr int kF32Pitch = D + 4;   // fp32 row pitch in shared memory
+
+// The 16-byte pieces of rows r0 .. r0 + R - 1 of an fp32 [rows, D] array
+// at src (after row base) into dst [R][D + 4]; rows at or past n are zeros.
+template <int D, int R>
+__device__ __forceinline__ void load_tile_f32(float* dst, const void* src,
+                                              size_t base, int r0, int n,
+                                              int tid) {
+  constexpr int kPieces = R * D / 4;
+  static_assert(kPieces % kTcThreads == 0, "piece mapping");
+#pragma unroll
+  for (int l = 0; l < kPieces / kTcThreads; ++l) {
+    const int idx = tid + l * kTcThreads;
+    const int r = idx / (D / 4), c = (idx % (D / 4)) * 4;
+    const bool ok = r0 + r < n;
+    cp_async16(dst + r * kF32Pitch<D> + c,
+               static_cast<const float*>(src) +
+                   (base + (ok ? r0 + r : 0)) * D + c,
+               ok);
+  }
+}
+
+// An fp32 tile [R][D + 4] times scale (rounded once in fp32; 1 leaves it
+// as it is) split into its three planes [R][P]; four values a thread at a
+// time, so that each quarter warp reads 128 contiguous bytes.
+template <int D, int R>
+__device__ __forceinline__ void split_tile(bf16* dst, int plane,
+                                           const float* src, float scale,
+                                           int tid) {
+  constexpr int kQuads = R * D / 4;
+  static_assert(kQuads % kTcThreads == 0, "quad mapping");
+#pragma unroll
+  for (int l = 0; l < kQuads / kTcThreads; ++l) {
+    const int idx = tid + l * kTcThreads;
+    const int r = idx / (D / 4), c = (idx % (D / 4)) * 4;
+    const float4 x =
+        *reinterpret_cast<const float4*>(src + r * kF32Pitch<D> + c);
+    // __fmul_rn: no fused multiply-add into the split
+    uint32_t a[3], b[3];
+    split3_pair(__fmul_rn(x.x, scale), __fmul_rn(x.y, scale), a[0], a[1],
+                a[2]);
+    split3_pair(__fmul_rn(x.z, scale), __fmul_rn(x.w, scale), b[0], b[1],
+                b[2]);
+    bf16* row = dst + r * TcShape<D>::P + c;
+#pragma unroll
+    for (int pl = 0; pl < 3; ++pl)
+      *reinterpret_cast<uint2*>(row + pl * plane) = make_uint2(a[pl], b[pl]);
+  }
+}
+
+// The A fragments of the three planes over the 16 accumulator columns
+// 16 kk .. 16 kk + 15 (acc_as_a, each value split in three).
+template <int N>
+__device__ __forceinline__ void acc_as_a_x6(uint32_t (&a)[3][4],
+                                            const float (&c)[N][4], int kk) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float* v = c[2 * kk + (i >> 1)] + 2 * (i & 1);
+    split3_pair(v[0], v[1], a[0][i], a[1][i], a[2][i]);
+  }
+}
+
+// scale * acc, a warp's [16, D] accumulators, in fp32 into rows
+// row0 .. row0 + 15 (after row base) of a [rows, D] array; rows at or past
+// n are skipped.
+template <int D>
+__device__ __forceinline__ void store_rows_f32(void* out, size_t base,
+                                               int row0, int n,
+                                               const float (&acc)[D / 8][4],
+                                               float scale, int lane) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + (lane >> 2) + 8 * h;
+    if (r >= n) continue;
+    float* dst = static_cast<float*>(out) + (base + r) * D + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(dst + 8 * j) =
+          make_float2(scale * acc[j][2 * h], scale * acc[j][2 * h + 1]);
   }
 }
 

@@ -3,8 +3,9 @@
 // matmuls' tensor-core forms (quant_matmul.cuh) and the flash-attention
 // kernels' tensor-core forms (flash_attention_tc.cuh).  Copies from global to
 // shared memory by cp.async or by TMA (cp.async.bulk.tensor) completing on
-// an mbarrier, fragment loads by ldmatrix, the m16n8k16 product, and the
-// packing of two values into a bf16 pair.
+// an mbarrier, fragment loads by ldmatrix, the m16n8k16 product, the
+// packing of two values into a bf16 pair, and an fp32-accurate product as
+// six bf16 products (the flash kernels' fp32 forms).
 //
 // Fragments of mma.sync.m16n8k16 (lane = 4 * g + t, g = lane / 4):
 //   A (16 x 16, row major): a[0] row g, columns 2t, 2t + 1; a[1] row g + 8;
@@ -132,6 +133,58 @@ __device__ __forceinline__ uint32_t bf16_pair(float a, float b) {
 __device__ __forceinline__ uint32_t bf16_pair_rn(float a, float b) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// fp32-accurate products on the tensor cores, as the TPU computes a dot at
+// Precision.HIGHEST: each fp32 operand x is split into three bf16 planes,
+// hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), whose sum is x
+// exactly (each subtraction is exact in fp32; a residual below fp32's
+// normal range may lose bits), and a b is summed from the six products
+// that matter.  The plain version is kernels/flash_attention.py matmul_x6.
+
+// Two floats (a in the low halves) split into their hi, mid and lo pairs.
+__device__ __forceinline__ void split3_pair(float a, float b, uint32_t& hi,
+                                            uint32_t& mid, uint32_t& lo) {
+  float f[2];
+  hi = bf16_pair_rn(a, b);
+  bf16x2(hi, f);
+  const float ra = a - f[0], rb = b - f[1];
+  mid = bf16_pair_rn(ra, rb);
+  bf16x2(mid, f);
+  lo = bf16_pair_rn(ra - f[0], rb - f[1]);
+}
+
+// c += a b from the planes of a (a[0] hi, a[1] mid, a[2] lo: A fragments)
+// and of b (B fragments bh, bm, bl): hi.lo, mid.mid, lo.hi, then hi.mid,
+// mid.hi, then hi.hi, smallest first, so that hi.hi does not swamp the
+// small terms in the tensor cores' fp32 sum.  The three products left out
+// (mid.lo, lo.mid, lo.lo) are below 2^-24 of |a| |b|.  The tensor cores
+// truncate each fp32 sum, by up to an ulp of c: fine for a sum over a head
+// dim or one tile, but over a sequence the bias would grow with its length.
+__device__ __forceinline__ void mma_x6(float* c, const uint32_t (&a)[3][4],
+                                       const uint32_t* bh, const uint32_t* bm,
+                                       const uint32_t* bl) {
+  mma_bf16(c, a[0], bl);
+  mma_bf16(c, a[1], bm);
+  mma_bf16(c, a[2], bh);
+  mma_bf16(c, a[0], bm);
+  mma_bf16(c, a[1], bh);
+  mma_bf16(c, a[0], bh);
+}
+
+// mma_x6 for sums over a sequence: the six products into a fresh
+// accumulator, added to c in fp32 rounded to nearest, so that the tensor
+// cores' truncation stays within one product and the error of c grows as
+// an fp32 sum's does.
+__device__ __forceinline__ void mma_x6_add(float* c,
+                                           const uint32_t (&a)[3][4],
+                                           const uint32_t* bh,
+                                           const uint32_t* bm,
+                                           const uint32_t* bl) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_x6(t, a, bh, bm, bl);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] += t[i];
 }
 
 }  // namespace

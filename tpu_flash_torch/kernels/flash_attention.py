@@ -29,23 +29,28 @@ VMEM and grid steps and is not retuned for the H100):
     dQ pass (one block per query tile, the loop over KV tiles ending at the
     causal limit).  Each output is written once, and two calls give the same
     bits.
-Every kernel has two forms, picked by ``_form_name``: bf16 runs its products
-on the tensor cores (``mma.sync`` bf16 with fp32 sums, launches counted under
-the kernel's name + ``TC``), fp32 runs exact FMAs on the CUDA cores (counted
-under the name).  The plain versions are ``flash_attention_backward_plain``
-(fused) and its halves ``flash_attention_backward_dkv_plain`` / ``_dq_plain``,
+Each kernel has a form for each dtype, picked by ``_form_name``: bf16 runs
+its products on the tensor cores (``mma.sync`` bf16 with fp32 sums, launches
+counted under the kernel's name + ``TC``); fp32 runs the forward and the
+fused backward on the tensor cores too, each fp32 product as six bf16
+products of its operands split in three (``split3_bf16``, ``matmul_x6``: the
+TPU's Precision.HIGHEST algorithm; counted under the name + ``X6``), and the
+two passes as exact FMAs on the CUDA cores (counted under the name).  The
+plain versions are ``flash_attention_backward_plain`` (fused) and its halves
+``flash_attention_backward_dkv_plain`` / ``_dq_plain``,
 which recompute P and dS the same way.  ``D = rowsum(dO * O) - dlse`` is a
 torch op outside the kernels, as it is plain XLA outside Pallas in the JAX
 package.
 
 Numerics, in both versions: base-2 softmax with ``scale * log2(e)`` folded
-into q; fp32 products are exact (never TF32); with bf16 inputs the scaled q,
-p (before P.V and dV) and dS (before dK and dQ) are rounded to bf16, as the
-TPU feeds its MXU in the input dtype, and every sum is fp32.  Below d = 128
-the forward's softmax normaliser is the sum of that bf16 p, as the JAX
-kernel's ones column rides its P.V product (``_fold_l``); at d = 128 it sums
-the fp32 p.  The TPU's tile sizes, ``q_pack``, ``score_layout`` and
-``interpret`` have no counterpart: the kernels pick their own tiling.
+into q; fp32 products are fp32-accurate (never TF32); with bf16 inputs the
+scaled q, p (before P.V and dV) and dS (before dK and dQ) are rounded to
+bf16, as the TPU feeds its MXU in the input dtype, and every sum is fp32.
+Below d = 128 the bf16 forward's softmax normaliser is the sum of that bf16
+p, as the JAX kernel's ones column rides its P.V product (``_fold_l``); at
+d = 128, and in fp32, it sums the fp32 p.  The TPU's tile sizes, ``q_pack``,
+``score_layout`` and ``interpret`` have no counterpart: the kernels pick
+their own tiling.
 Dropout, ``window``, ``segment_ids`` and quantized K/V are not ported yet
 (ROADMAP.md A5, B3).
 """
@@ -60,6 +65,7 @@ import torch
 from tpu_flash_torch.kernels.backward_form import two_pass
 from tpu_flash_torch.kernels.common import (
     TC,
+    X6,
     call_on_stream,
     cdiv,
     check_cuda,
@@ -78,9 +84,13 @@ KERNEL_DQ = "flash_attention_bwd_dq"
 HEAD_DIMS = (16, 32, 64, 128)
 LOG2E = 1.4426950408889634
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# query rows a chunk of the fused backward's ordered dQ adds, by the dtype's
-# form (flash_attention_bwd.cuh kQC and kTcTile)
-_DQ_CHUNK = {torch.float32: 32, torch.bfloat16: 64}
+
+
+def _dq_chunk(dtype: torch.dtype, d: int) -> int:
+    """Query rows a chunk of the fused backward's ordered dQ adds: the
+    form's query tile (``kTcTile`` of flash_attention_tc.cuh; ``BwdX6``'s
+    ``kQT`` of flash_attention_bwd.cu in fp32, 32 at d = 128)."""
+    return 32 if dtype == torch.float32 and d > 64 else 64
 
 
 def _not_ported(dropout_rate=0.0, window=None, segment_ids=None,
@@ -144,6 +154,35 @@ def _fold_l(d: int) -> bool:
     softmax normaliser rides the P.V product as a ones column of V, so it
     is the sum of the same P, in the input dtype, that multiplies V."""
     return d < 128
+
+
+def split3_bf16(x: torch.Tensor):
+    """fp32 ``x`` as three bf16 tensors ``(hi, mid, lo)``, each rounded to
+    the nearest (ties to even): ``hi = bf16(x)``, ``mid = bf16(x - hi)``,
+    ``lo = bf16(x - hi - mid)``.  Each subtraction is exact in fp32, so
+    ``hi + mid + lo == x`` wherever the residuals stay normal: the operand
+    split of the fp32 kernels (``split3_pair`` in csrc/mma.cuh)."""
+    x = x.float()
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
+
+
+def matmul_x6(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in fp32 as the fp32 kernels form it (``mma_x6`` in
+    csrc/mma.cuh): both split by ``split3_bf16`` and six of the nine
+    products, each exact bf16 x bf16 with fp32 sums, added in the kernels'
+    order, smallest first (hi.lo, mid.mid, lo.hi, hi.mid, mid.hi, hi.hi).
+    The three left out are below 2^-24 of ``|a| |b|``.
+    ``tests/test_torch_fp32_split.py`` holds it against JAX's ``_dot`` at
+    Precision.HIGHEST and a float64 product."""
+    ah, am, al = (t.float() for t in split3_bf16(a))
+    bh, bm, bl = (t.float() for t in split3_bf16(b))
+    out = ah @ bl
+    for x, y in ((am, bm), (al, bh), (ah, bm), (am, bh), (ah, bh)):
+        out += x @ y
+    return out
 
 
 def flash_attention_forward_plain(q, k, v, *, causal=False, scale=None,
@@ -262,9 +301,13 @@ def _form_name(kernel: str, dtype: torch.dtype) -> str:
     """``kernel``'s launch-count name in its form for ``dtype`` (its C entry
     is ``tf_`` + the name): bf16 the tensor-core form, the name + ``TC``
     (``mma.sync`` bf16 products with fp32 sums, the TPU kernels' numerics,
-    at every head dim of ``HEAD_DIMS``); fp32 the CUDA-core form, the name
-    (exact fp32 FMAs, never TF32)."""
-    return kernel + (TC if dtype == torch.bfloat16 else "")
+    at every head dim of ``HEAD_DIMS``); fp32 the forward's and the fused
+    backward's six-product form, the name + ``X6`` (each fp32 product six
+    ``mma.sync`` bf16 products, ``matmul_x6``), and the two passes'
+    CUDA-core form, the name (exact fp32 FMAs, never TF32)."""
+    if dtype == torch.bfloat16:
+        return kernel + TC
+    return kernel + (X6 if kernel in (KERNEL_FWD, KERNEL_BWD) else "")
 
 
 def _launch_forward(q, k, v, causal, scale, q_offset, with_m):
@@ -308,7 +351,7 @@ def _launch_backward(q, k, v, do, lse, delta, causal, scale, q_offset):
     dq = torch.zeros(B, H, Lq, d, dtype=torch.float32, device=q.device)
     # the dQ adds made to each chunk of query rows (the kernel's fixed
     # order of adds)
-    dq_order = torch.zeros(B * H * cdiv(Lq, _DQ_CHUNK[q.dtype]),
+    dq_order = torch.zeros(B * H * cdiv(Lq, _dq_chunk(q.dtype, d)),
                            dtype=torch.int32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib, fn = entry(KERNEL_BWD, "tf_" + name,
