@@ -35,7 +35,8 @@ ported paths:
   2048, Lq != Lk with empty rows, GQA, d 32/64/128; each error beside its
   limit and the output's rms, and a check that the limit fails a dropped
   key tile), the fp32 kernels and the plain version each against a float64
-  attention at B4 H8 L2048 d64, and their times there; the fused
+  attention at B4 H8 L2048 d64 (the fused backward) and B1 H8 L8192 d64
+  (the two passes), and their times at B4 H8 L2048; the fused
   backward called twice there (bf16 and fp32) giving the same bits; the
   fused LayerNorm and masked-softmax kernels against their plain versions (fp32 and bf16, the reference MT
   shapes, ragged widths, rows that see no key, a fully padded batch row,
@@ -55,7 +56,7 @@ ported paths:
   one with the plain versions (loss, gradients, updated parameters) at the
   production flash config and at the reference fused config;
 * long-context training: the two-pass backward's dK/dV and dQ kernels,
-  in the CUDA-core form for fp32 and the tensor-core form for bf16 (each
+  in the six-product form for fp32 and the tensor-core form for bf16 (each
   call checked to launch its form), against their plain halves (causal or
   not, GQA, Lq != Lk with empty rows, ragged L, d 32/64/128; each limit
   checked against a dropped tile; two calls the same bits); at mode (f)'s
@@ -72,7 +73,8 @@ ported paths:
   type); peak memory a step with remat and the chunked loss on and off,
   and from the same runs the check that remat on and off give the same
   bits with dropout from one CUDA generator; and the fp32 kernel-vs-plain
-  step at 2 layers and L=8192, where fp32 takes the two passes.
+  step at 2 layers and L=8192, where fp32 takes the two passes in their
+  six-product form, with the kernels of a step and their time.
 
 The build phase logs each kernel's registers, stack and spills as ptxas
 reports them, and fails if a flash-attention kernel's tensor-core or
@@ -139,16 +141,18 @@ FP32_FLOPS = BF16_FLOPS / 6
 CUDA_CORE_FLOPS = 67e12        # H100 SXM data sheet, fp32 on the CUDA cores
 # Every flash-attention kernel has a form for each dtype (fa._form_name):
 # bf16 the tensor-core form, counted under the name + common.TC; fp32 the
-# six-product form of the forward and the fused backward (the name +
-# common.X6) and the CUDA-core form of the two passes (the name).  The
-# forward and the fused backward: a source each.
+# six-product form, the name + common.X6.  The forward and the fused
+# backward: a source each.
 ATTENTION = (fa.KERNEL_FWD, fa.KERNEL_BWD)
 ATTENTION_TC = tuple(fa._form_name(n, torch.bfloat16) for n in ATTENTION)
 ATTENTION_X6 = tuple(fa._form_name(n, torch.float32) for n in ATTENTION)
-# The two-pass backward: one source, two kernels with their own counts.
+# The two-pass backward: one source, two kernels with their own counts,
+# each in its fp32 form (TWO_PASS) and its bf16 form (TWO_PASS_TC).
 TWO_PASS_SOURCE = fa.SOURCE_TWO_PASS
-TWO_PASS = (fa.KERNEL_DKV, fa.KERNEL_DQ)
-TWO_PASS_TC = tuple(fa._form_name(n, torch.bfloat16) for n in TWO_PASS)
+TWO_PASS_KERNELS = (fa.KERNEL_DKV, fa.KERNEL_DQ)
+TWO_PASS = tuple(fa._form_name(n, torch.float32) for n in TWO_PASS_KERNELS)
+TWO_PASS_TC = tuple(fa._form_name(n, torch.bfloat16)
+                    for n in TWO_PASS_KERNELS)
 FUSED = ("layernorm_fwd", "layernorm_bwd", "attn_softmax_fwd",
          "attn_softmax_bwd")
 TRAINING_KERNELS = (ATTENTION_X6 + ATTENTION_TC + TWO_PASS + TWO_PASS_TC
@@ -647,46 +651,59 @@ def attention_fp64(q, k, v, do):
             p.transpose(-1, -2) @ do)
 
 
-def attention_vs_fp64(gen, B=4, H=8, L=2048, d=64) -> dict:
-    """fp32 at the training shape (causal, ATTN_CASES' train-L2048): out,
-    lse, dq, dk and dv of the six-product kernels and of the plain version
+# fp32 against float64: (B, H, L), causal, d 64.  The JAX rule takes the
+# fused backward at the training shape (train-L2048) and the two passes at
+# the fp32 two-pass shape (the long-two-pass step's, ~13 GB in float64).
+FP64_SHAPES = ((4, 8, 2048), (1, 8, LONG_E2E_L))
+
+
+def attention_vs_fp64(gen, d=64) -> dict:
+    """fp32 at ``FP64_SHAPES``: out, lse, dq, dk and dv of the six-product
+    kernels (the forward, then the backward form the JAX rule takes there)
+    and of the plain version (its halves where the rule takes two passes)
     each against a float64 attention on the same inputs, each within
-    ATTN_TOL's fp32 limits of it.  Returns the kernels' largest error by
-    output."""
+    ATTN_TOL's fp32 limits of it.  Returns, by L, the kernels' largest
+    error by output."""
     dtype = torch.float32
-    q, k, v, do = (torch.randn(B, H, L, d, generator=gen, device=DEV)
-                   for _ in range(4))
-    ref = attention_fp64(q, k, v, do)
     names = ("out", "lse", "dq", "dk", "dv")
-    errs, rms, ok = {}, {}, True
-    for impl in ("kernel", "plain"):
-        before = dict(common.launch_counts)
-        out, lse, _ = flash_attention_forward(q, k, v, causal=True,
-                                              impl=impl)
-        grads = flash_attention_backward(q, k, v, out, lse, do, causal=True,
-                                         impl=impl)
-        torch.cuda.synchronize()
-        launched = {n: c - before.get(n, 0) for n, c in
-                    common.launch_counts.items() if c != before.get(n, 0)}
-        ok &= launched == (dict.fromkeys(ATTENTION_X6, 1)
-                           if impl == "kernel" else {})
-        errs[impl] = {}
-        for n, a, b in zip(names, (out, lse, *grads), ref):
-            finite = torch.isfinite(b)
-            errs[impl][n] = float((a.double() - b)[finite].abs().max())
-            rms[n] = float(b[finite].square().mean().sqrt())
-            ok &= compare(a, b, ATTN_TOL[dtype][n])[3]
-        del out, lse, grads
-    log({"phase": "attention_vs_fp64", "dtype": "float32",
-         "shape": f"B{B} H{H} L{L} d{d} causal", "max_abs_err": errs,
-         "rms": rms, "kernel_over_plain": {
-             n: errs["kernel"][n] / errs["plain"][n]
-             if errs["plain"][n] else None for n in names},
-         "kernels": list(ATTENTION_X6), "ok": ok})
-    check(ok, f"fp32 attention strays from float64: {errs}")
-    del q, k, v, do, ref
-    torch.cuda.empty_cache()
-    return errs["kernel"]
+    worst = {}
+    for B, H, L in FP64_SHAPES:
+        q, k, v, do = (torch.randn(B, H, L, d, generator=gen, device=DEV)
+                       for _ in range(4))
+        ref = attention_fp64(q, k, v, do)
+        kernels = (ATTENTION_X6[0],) + (
+            TWO_PASS if two_pass(L, L, d, 4, True) else ATTENTION_X6[1:])
+        errs, rms, ok = {}, {}, True
+        for impl in ("kernel", "plain"):
+            before = dict(common.launch_counts)
+            out, lse, _ = flash_attention_forward(q, k, v, causal=True,
+                                                  impl=impl)
+            grads = flash_attention_backward(q, k, v, out, lse, do,
+                                             causal=True, impl=impl)
+            torch.cuda.synchronize()
+            launched = {n: c - before.get(n, 0) for n, c in
+                        common.launch_counts.items() if c != before.get(n, 0)}
+            ok &= launched == (dict.fromkeys(kernels, 1)
+                               if impl == "kernel" else {})
+            errs[impl] = {}
+            for n, a, b in zip(names, (out, lse, *grads), ref):
+                finite = torch.isfinite(b)
+                errs[impl][n] = float((a.double() - b)[finite].abs().max())
+                rms[n] = float(b[finite].square().mean().sqrt())
+                ok &= compare(a, b, ATTN_TOL[dtype][n])[3]
+            del out, lse, grads
+            torch.cuda.empty_cache()
+        log({"phase": "attention_vs_fp64", "dtype": "float32",
+             "shape": f"B{B} H{H} L{L} d{d} causal", "max_abs_err": errs,
+             "rms": rms, "kernel_over_plain": {
+                 n: errs["kernel"][n] / errs["plain"][n]
+                 if errs["plain"][n] else None for n in names},
+             "kernels": list(kernels), "ok": ok})
+        check(ok, f"fp32 attention strays from float64 at L{L}: {errs}")
+        worst[L] = errs["kernel"]
+        del q, k, v, do, ref
+        torch.cuda.empty_cache()
+    return worst
 
 
 def attention_times(gen, B=4, H=8, L=2048, d=64) -> dict:
@@ -829,7 +846,7 @@ def two_pass_cases(gen) -> dict:
         tols = ATTN_TOL[dtype]
         dname = str(dtype).split(".")[1]
         dkv_name, dq_name = names = tuple(
-            fa._form_name(n, dtype) for n in TWO_PASS)
+            fa._form_name(n, dtype) for n in TWO_PASS_KERNELS)
         for name, B, H, Hkv, Lq, Lk, d, causal in TWO_PASS_CASES:
             args = attention_inputs(gen, B, H, Hkv, Lq, Lk, d, dtype, causal)
             before = {n: common.launch_counts[n]
@@ -974,7 +991,7 @@ def two_pass_times(gen) -> dict:
             return device_ms(fn, warmup=1, iters=n, reps=5)
 
         dkv_name, dq_name = (fa._form_name(n, dtype)
-                             for n in TWO_PASS)
+                             for n in TWO_PASS_KERNELS)
         ms = {dkv_name: timed(lambda: fa._launch_dkv(*kin)),
               dq_name: timed(lambda: fa._launch_dq(*kin))}
         pair_ms = timed(lambda: flash_attention_backward_two_pass(
@@ -1627,12 +1644,13 @@ def training(mode: str, config: dict, shape, dtype, p_dropout: float, opt,
 
 
 def training_end_to_end(name: str, config: dict, shape, chunked_vocab=0,
-                        launches=None) -> dict:
+                        launches=None, profile=False) -> dict:
     """One Adam step of the fp32 model of ``config`` (TF32 off) through the
     kernels and one through their plain versions, from the same
     parameters: loss, every gradient, every updated parameter, and the
     kernels launched by the first step only (exactly ``launches`` where
-    given)."""
+    given).  With ``profile``, then the device time of a kernel step and
+    its kernels under the profiler (``kernel_profile``)."""
     cfg = DecoderConfig(**config, p_dropout=0.0, dtype=torch.float32)
     batch = place_batch(train_batch(1, shape, cfg.n_vocab), DEV)
     lr = 1e-3
@@ -1689,6 +1707,26 @@ def training_end_to_end(name: str, config: dict, shape, chunked_vocab=0,
            "param_max_err": param_err, "param_tol": 1e-6,
            "near_zero_grad_params_moved_apart": flips,
            "near_zero_tol": f"2 lr = {2 * lr}", "ok": bool(ok)}
+    if profile:
+        del runs, got, want
+        torch.cuda.empty_cache()
+        model = DecoderLM(cfg, device=DEV)
+        init_params(model, torch.Generator(DEV).manual_seed(2))
+        opt = adam(lr=lr)
+        state = opt.init(dict(model.named_parameters()))
+        step = make_train_step(model, opt, chunked_vocab=chunked_vocab,
+                               impl="kernel")
+
+        def one_step():
+            step(state, batch)
+
+        row["device_ms_per_step"] = device_ms(one_step, warmup=1, iters=1,
+                                              reps=3,
+                                              hold_cycles=400_000_000)
+        row.update(kernel_profile(one_step, steps=2))
+        row["card"] = torch.cuda.get_device_name(0)
+        del model, state, step
+        torch.cuda.empty_cache()
     log(row)
     check(ok, f"{name}: the training step through the kernels disagrees "
               f"with the plain versions")
@@ -2019,10 +2057,10 @@ def main() -> int:
             "warnings": [ln for ln in r.log.splitlines()
                          if "warning" in ln][:20]}
         for n, r in built.items()}})
-    # the flash-attention kernels' tensor-core and six-product forms and
-    # the quantized matmuls' tensor-core decode form must not spill (a
-    # spilled form of the two-pass dQ kernel passed its tests 38 times
-    # slower)
+    # the flash-attention kernels' tensor-core and six-product forms (each
+    # of the four kernels at each head dim) and the quantized matmuls'
+    # tensor-core decode form must not spill (a spilled form of the two-pass
+    # dQ kernel passed its tests 38 times slower)
     reports = {k: r for n in ATTENTION + (TWO_PASS_SOURCE,)
                for k, r in ptxas_report(built[n].log).items()}
     tc = {k: r for k, r in reports.items() if "_tc_kernel" in k}
@@ -2037,7 +2075,8 @@ def main() -> int:
          "decode_form": dec, "spilling": spills})
     # the decode form: a kernel a mode at tiles of 32, 64 and 128 columns
     check(len(tc) == 4 * len(fa.HEAD_DIMS)
-          and len(x6) == len(ATTENTION_X6) * len(fa.HEAD_DIMS)
+          and len(x6) == (len(ATTENTION_X6) + len(TWO_PASS))
+          * len(fa.HEAD_DIMS)
           and len(dec) == 3 * len(QUANT) and not spills,
           f"the tensor-core kernels spill or are missing: {len(tc)} flash, "
           f"{len(x6)} six-product, {len(dec)} quantized decode reported, "
@@ -2111,12 +2150,13 @@ def main() -> int:
     long_peak_memory()
     training_end_to_end("prod-flash", TRAIN, prod)
     training_end_to_end("ref-fused-fused-ln", REF, ref)
-    # fp32 at L = 8192 takes the two passes in their CUDA-core form: the
+    # fp32 at L = 8192 takes the two passes in their six-product form: the
     # only run of the main path that launches them
     long_e2e = training_end_to_end(
         "long-two-pass", {**TRAIN_LONG, "n_layer": 2}, (LONG_B, LONG_E2E_L),
         chunked_vocab=LONG_CHUNKS,
-        launches={ATTENTION_X6[0]: 4, **dict.fromkeys(TWO_PASS, 2)})
+        launches={ATTENTION_X6[0]: 4, **dict.fromkeys(TWO_PASS, 2)},
+        profile=True)
     for n in TWO_PASS:
         launches[n] += long_e2e["launches"]["kernel"][n]
 
@@ -2154,13 +2194,13 @@ def main() -> int:
                 outs = (("out", "lse") if n == fa.KERNEL_FWD
                         else ("dq", "dk", "dv"))
                 entries[-1]["max_abs_err_vs_float64"] = {
-                    o: fp64_errs[o] for o in outs}
+                    o: fp64_errs[TRAIN_L][o] for o in outs}
     # mode (f) runs the tensor-core forward at L = 16384 too
     next(e for e in entries if e["name"] == ATTENTION_TC[0])[
         "max_abs_err_at_mode_f_shape"] = max(long_plain["out"],
                                              long_plain["lse"])
-    for n, line in zip(TWO_PASS, ("flash_attention.py:1134",
-                                  "flash_attention.py:1159")):
+    for n, line in zip(TWO_PASS_KERNELS, ("flash_attention.py:1134",
+                                          "flash_attention.py:1159")):
         outs = ("dk", "dv") if n.endswith("dkv") else ("dq",)
         # the tensor-core form (bf16) at mode (f)'s shape, its max_abs_err
         # against the plain halves there
@@ -2179,22 +2219,24 @@ def main() -> int:
             "max_abs_err_over_two_pass_cases": two_worst[tc],
             "max_abs_err_vs_fused_at_this_shape": max(
                 long_fused[x] for x in outs)})
-        # the CUDA-core form (fp32) at the fp32 two-pass shape, its
+        # the six-product form (fp32) at the fp32 two-pass shape, its
         # max_abs_err against the plain halves there
-        r = two_rows[(n, torch.float32, LONG_E2E_L)]
+        x6 = fa._form_name(n, torch.float32)
+        r = two_rows[(x6, torch.float32, LONG_E2E_L)]
         check(r["max_abs_err"] is not None,
-              f"{n} fp32 was not held against its plain half at L"
-              f"{LONG_E2E_L}")
+              f"{x6} was not held against its plain half at L{LONG_E2E_L}")
         entries.append({
-            "name": n, "route": "cuda",
+            "name": x6, "route": "cuda",
             "source": f"tpu_flash_torch/kernels/csrc/{TWO_PASS_SOURCE}.cu",
             "replaces": f"tpu_flash/kernels/{line}",
-            "launches": launches[n], "max_abs_err": r["max_abs_err"],
+            "launches": launches[x6], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "shape": f"B1 H8 L{LONG_E2E_L} d64 causal fp32",
-            "max_abs_err_over_two_pass_cases": two_worst[n]})
+            "max_abs_err_over_two_pass_cases": two_worst[x6],
+            "max_abs_err_vs_float64": {
+                o: fp64_errs[LONG_E2E_L][o] for o in outs}})
     replaces.update({"layernorm_fwd": "layernorm.py:42",
                      "layernorm_bwd": "layernorm.py:102",
                      "attn_softmax_fwd": "softmax.py:48",

@@ -524,7 +524,7 @@ def test_flash_entries_refuse_the_other_forms_dtype(cuda_device, which,
 # Each pass against its plain half on the same inputs, at the limits above.
 # The two passes use no atomics: two calls give the same bits.  bf16 takes
 # the tensor-core form (launches counted under the names + "_tc"), fp32 the
-# CUDA-core form.
+# six-product form (the names + "_x6").
 
 
 def two_pass_case(dev, seed, B, H, Hkv, Lq, Lk, d, dtype, causal,
@@ -594,6 +594,7 @@ def test_two_pass_kernels_match_plain(cuda_device, dtype, causal, B, H, Hkv,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("B,H,Hkv,Lq,Lk,d,q_offset", [
     (1, 4, 2, 77, 77, 64, None),       # lengths not multiples of 16
@@ -606,15 +607,16 @@ def test_two_pass_kernels_match_plain(cuda_device, dtype, causal, B, H, Hkv,
     (2, 8, 2, 200, 200, 16, None),     # d 16 under GQA
     (1, 8, 2, 300, 300, 128, None),    # d 128 under GQA
     (1, 4, 1, 129, 257, 128, 100)])
-def test_two_pass_tensor_core_form_at_ragged_shapes(cuda_device, causal, B,
-                                                    H, Hkv, Lq, Lk, d,
-                                                    q_offset):
-    """The bf16 tensor-core passes at the shapes where its tiles are
-    masked: ragged ends of Lq and Lk, the causal diagonal moved by
-    q_offset either way, and d 16 and 128 under GQA."""
-    args = two_pass_case(cuda_device, 9, B, H, Hkv, Lq, Lk, d,
-                         torch.bfloat16, causal, q_offset)
-    dq = check_two_pass(*args, torch.bfloat16, causal, q_offset)
+def test_two_pass_tensor_core_form_at_ragged_shapes(cuda_device, dtype,
+                                                    causal, B, H, Hkv, Lq,
+                                                    Lk, d, q_offset):
+    """The tensor-core passes of each dtype (bf16 one product, fp32 six) at
+    the shapes where their tiles are masked: ragged ends of Lq and Lk, the
+    causal diagonal moved by q_offset either way, and d 16 and 128 under
+    GQA."""
+    args = two_pass_case(cuda_device, 9, B, H, Hkv, Lq, Lk, d, dtype,
+                         causal, q_offset)
+    dq = check_two_pass(*args, dtype, causal, q_offset)
     if causal and q_offset is not None and q_offset < 0:
         assert torch.count_nonzero(dq[:, :, :-q_offset]) == 0
 
@@ -624,9 +626,10 @@ def test_two_pass_tensor_core_form_at_ragged_shapes(cuda_device, causal, B,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_two_pass_entries_refuse_the_other_forms_dtype(cuda_device, which,
                                                        dtype):
-    """The tensor-core entries take bf16 only, the CUDA-core entries fp32
-    only: handed the other dtype's flag, an entry returns an error and
-    writes nothing."""
+    """The tensor-core entries (``tf_..._tc``) take bf16 only, the
+    six-product entries (``tf_flash_attention_bwd_dkv_x6``,
+    ``tf_flash_attention_bwd_dq_x6``) fp32 only: handed the other dtype's
+    flag, an entry returns an error and writes nothing."""
     import ctypes
 
     from tpu_flash_torch.kernels import flash_attention as fa
@@ -795,8 +798,8 @@ def test_remat_equals_no_remat_bit_for_bit_on_the_card(cuda_device,
     for remat in (False, True):
         launched = {n: c for n, c in runs[remat][3].items() if c}
         assert launched == {"flash_attention_fwd_x6": 2 * (1 + remat),
-                            "flash_attention_bwd_dkv": 2,
-                            "flash_attention_bwd_dq": 2}
+                            "flash_attention_bwd_dkv_x6": 2,
+                            "flash_attention_bwd_dq_x6": 2}
     (loss0, g0, s0, _), (loss1, g1, s1, _) = runs[False], runs[True]
     assert torch.equal(loss0, loss1)
     same = all(torch.equal(g0[n], g1[n]) for n in g0)

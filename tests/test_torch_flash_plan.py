@@ -173,12 +173,12 @@ def test_the_training_shapes_take_the_jax_form(stub_entries, dtype, L, two):
     modes (one head; the rule reads lengths, d and dtype only) through the
     real launchers: the forward in its dtype's form, then the fused kernel
     or the two passes where ``backward_form.two_pass`` says so (in fp32 the
-    forward and the fused kernel take the six-product form, the two passes
-    the CUDA-core form)."""
+    forward, the fused kernel and the two passes take the six-product
+    form)."""
     assert backward_form.two_pass(L, L, 64, dtype.itemsize, True) == two
     calls, _ = stub_entries
     q = torch.zeros(1, 1, L, 64, dtype=dtype)
-    fused, passes = ("_tc", "_tc") if dtype == BF16 else ("_x6", "")
+    fused, passes = ("_tc", "_tc") if dtype == BF16 else ("_x6", "_x6")
 
     def step():
         out, lse, _ = fa.flash_attention_forward(q, q, q, causal=True)

@@ -1,7 +1,8 @@
 """The two-pass backward's launch plan (``kernels/flash_attention.py``
 ``_form_name``), which runs here without a card: bf16 takes the
 tensor-core form and counts its launches under the kernels' names + ``_tc``,
-fp32 the CUDA-core form under the names; each form calls its own C entry
+fp32 the six-product form under the names + ``_x6``; each form calls its
+own C entry
 and counts one launch where that entry returns success, none where it
 fails; and ``flash_attention_backward`` still takes the two passes exactly
 where ``backward_form.two_pass`` (the JAX package's rule) says, mode (f)'s
@@ -61,7 +62,7 @@ def counts_of(run):
 
 
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
-@pytest.mark.parametrize("dtype,suffix", [(BF16, "_tc"), (FP32, "")])
+@pytest.mark.parametrize("dtype,suffix", [(BF16, "_tc"), (FP32, "_x6")])
 def test_the_form_follows_the_dtype(dtype, suffix, d):
     q = torch.zeros(1, 1, 8, d, dtype=dtype)
     assert [fa._form_name(n, q.dtype) for n in NAMES] == [
@@ -69,7 +70,7 @@ def test_the_form_follows_the_dtype(dtype, suffix, d):
 
 
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
-@pytest.mark.parametrize("dtype,suffix", [(BF16, "_tc"), (FP32, "")])
+@pytest.mark.parametrize("dtype,suffix", [(BF16, "_tc"), (FP32, "_x6")])
 def test_launches_count_under_the_forms_names(plain_launches, dtype, suffix,
                                               d):
     args = inputs(dtype, d=d)
@@ -84,11 +85,11 @@ def test_launches_count_under_the_forms_names(plain_launches, dtype, suffix,
 
 
 @pytest.mark.parametrize("which", ["dkv", "dq"])
-@pytest.mark.parametrize("dtype,symbol_suffix", [(BF16, "_tc"), (FP32, "")])
+@pytest.mark.parametrize("dtype,symbol_suffix", [(BF16, "_tc"), (FP32, "_x6")])
 def test_each_form_calls_its_own_c_entry(monkeypatch, which, dtype,
                                          symbol_suffix):
     """``_launch_dkv`` / ``_launch_dq`` call ``tf_flash_attention_bwd_<pass>``
-    + ``_tc`` for bf16 and without it for fp32, with dtype flag 1 or 0 and
+    + ``_tc`` for bf16 and + ``_x6`` for fp32, with dtype flag 1 or 0 and
     the pointers of the outputs they return."""
     calls = []
 
@@ -127,7 +128,7 @@ def test_a_failed_launch_raises_with_the_forms_name(monkeypatch, dtype):
     monkeypatch.setattr(fa, "call_on_stream", lambda fn, dev, *a: fn(*a))
     args = inputs(dtype)
     kin = (*fa._bwd_inputs(*args, None), True, 0.25, 0)
-    name = "flash_attention_bwd_dkv" + ("_tc" if dtype == BF16 else "")
+    name = "flash_attention_bwd_dkv" + ("_tc" if dtype == BF16 else "_x6")
     before = dict(common.launch_counts)
     with pytest.raises(RuntimeError, match=f"{name} kernel failed"):
         fa._launch_dkv(*kin)
@@ -167,7 +168,7 @@ def test_dispatch_follows_the_jax_rule(monkeypatch, dtype, L, two):
     lse = torch.zeros(1, 1, L)
     _, launched = counts_of(lambda: fa.flash_attention_backward(
         q, q, q, q, lse, q, causal=True))
-    suffix = "_tc" if dtype == BF16 else ""
+    suffix = "_tc" if dtype == BF16 else "_x6"
     fused = "_tc" if dtype == BF16 else "_x6"
     assert launched == ({n + suffix: 1 for n in NAMES} if two
                         else {fa.KERNEL_BWD + fused: 1})

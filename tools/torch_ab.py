@@ -12,7 +12,10 @@ prefill, weights rotating past the 50 MB L2, with the same check; and the
 host's time to issue one quantized Linear call (``int8_linear`` /
 ``int4_linear`` under ``torch.no_grad``, as serving calls them) at bf16
 decode on each serving linear, the stream held so that the host never
-waits for the card (``host_us``; these rows' ``clock`` is ``host``).
+waits for the card (``host_us``; these rows' ``clock`` is ``host``); and
+the device time of one fp32 training step of ``chip_smoke.py``'s
+long-two-pass config (the production widths, 2 layers, L 8192, remat, the
+chunked loss over 8 pieces), where the backward takes the two passes.
 
     PYTHONPATH=. python3 tools/torch_ab.py A_ROOT B_ROOT
 
@@ -48,6 +51,11 @@ QUANT_KINDS = (("int8", None), ("int4", None), ("int4_g128", 128))
 QUANT_SHAPES = tuple((8, K, N) for K, N in ((1024, 1024), (1024, 4096),
                                             (4096, 1024), (1024, 32768))
                      ) + ((1024, 1024, 4096),)
+# chip_smoke.py's long-two-pass step: TRAIN_LONG at 2 layers, B1 L8192, fp32.
+TRAIN_STEP = dict(n_vocab=10_000, n_embd=512, n_head=8, n_positions=8192,
+                  n_layer=2, ff_middle_dim=256, attention_kind="flash",
+                  remat=True, p_dropout=0.0)
+TRAIN_STEP_L, TRAIN_STEP_CHUNKS = 8192, 8
 TIMING = (Path(__file__).resolve().parents[1] / "tpu_flash_torch" / "utils"
           / "timing.py")
 
@@ -152,6 +160,35 @@ def quant_rows(torch, quant, timer) -> list[dict]:
     return rows + hosts
 
 
+def train_rows(torch, device_ms) -> list[dict]:
+    """Device time of one fp32 step of ``TRAIN_STEP`` (Adam, random weights
+    and tokens from seeds), the stream held while the host queues it."""
+    import numpy as np
+
+    from tpu_flash_torch.apps.machine_translation import (make_train_step,
+                                                         place_batch)
+    from tpu_flash_torch.nn import DecoderConfig, DecoderLM, adam, init_params
+
+    cfg = DecoderConfig(**TRAIN_STEP, dtype=torch.float32)
+    model = DecoderLM(cfg, device="cuda")
+    init_params(model, torch.Generator("cuda").manual_seed(2))
+    opt = adam(lr=1e-3)
+    state = opt.init(dict(model.named_parameters()))
+    rng = np.random.default_rng(1)
+    shape = (1, TRAIN_STEP_L)
+    batch = place_batch({"input_ids": rng.integers(0, cfg.n_vocab, shape),
+                         "labels": rng.integers(0, cfg.n_vocab, shape),
+                         "label_token_weights": (rng.random(shape) > 0.5
+                                                 ).astype(np.float32)},
+                        "cuda")
+    step = make_train_step(model, opt, chunked_vocab=TRAIN_STEP_CHUNKS)
+    ms = device_ms(lambda: step(state, batch), warmup=1, iters=1, reps=5,
+                   hold_cycles=400_000_000)
+    return [{"what": "train step long-two-pass", "dtype": "float32",
+             "shape": f"E512 2 layers B1 L{TRAIN_STEP_L}", "ms": ms,
+             "two_calls_same_bits": None}]
+
+
 def one(root: str) -> dict:
     sys.path.insert(0, str(Path(root).resolve()))
     import torch
@@ -164,7 +201,8 @@ def one(root: str) -> dict:
                   quant.KERNEL_INT8, quant.KERNEL_INT4])
     timer = timing()
     return {"root": root, "rows": timed_rows(torch, fa, timer.device_ms)
-            + quant_rows(torch, quant, timer)}
+            + quant_rows(torch, quant, timer)
+            + train_rows(torch, timer.device_ms)}
 
 
 def main() -> int:

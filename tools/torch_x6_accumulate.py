@@ -36,7 +36,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 WORK = ROOT / "workdir_x6_forms"
-SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu")
+# the files holding the forward's and the fused backward's products (the
+# backward's body is shared with the two-pass dK/dV pass, which is not built)
+SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cuh")
 SHAPES = ((4, 8, 2048), (1, 8, 8192))     # (B, H, L): causal, d 64
 FORMS = ("shipped", "in_place", "fresh")
 OUTPUTS = ("out", "lse", "dq", "dk", "dv")

@@ -26,26 +26,6 @@ __device__ __forceinline__ void bf16x2(uint32_t w, float* f) {
   f[1] = __uint_as_float(w & 0xffff0000u);
 }
 
-// Eight consecutive values of a row as floats (16 bytes of bf16, or two
-// 16-byte fp32 loads); off counts elements and keeps 16-byte alignment.
-template <bool BF16>
-__device__ __forceinline__ void load8(const void* base, size_t off, float* f) {
-  if constexpr (BF16) {
-    const uint4 w = *reinterpret_cast<const uint4*>(
-        static_cast<const __nv_bfloat16*>(base) + off);
-    bf16x2(w.x, f);
-    bf16x2(w.y, f + 2);
-    bf16x2(w.z, f + 4);
-    bf16x2(w.w, f + 6);
-  } else {
-    const float4* p = reinterpret_cast<const float4*>(
-        static_cast<const float*>(base) + off);
-    const float4 a = p[0], b = p[1];
-    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-    f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
-  }
-}
-
 // The row-reduction kernels (LayerNorm, masked softmax) take fp32 or bf16
 // per array, chosen at run time by a flag (the branch is uniform across the
 // grid).  One value as a float:

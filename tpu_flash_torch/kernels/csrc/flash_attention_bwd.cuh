@@ -1,20 +1,21 @@
-// What the flash-attention backward kernels share: the recompute of P and dS
-// for one (query row, key) pair, and the KV-outer bodies: kv_outer_body, the
-// fp32 dK/dV pass of the two-pass form on the CUDA cores
-// (flash_attention_bwd_two_pass.cu), and kv_outer_tc_body on the tensor
-// cores (bf16), which both the fused single pass (flash_attention_bwd.cu,
-// with dQ) and the bf16 dK/dV pass (without dQ) run.  The fp32 dQ pass calls
-// the same recompute, so they cannot disagree on it, as
-// tpu_flash/kernels/flash_attention.py shares _bwd_p_ds (:1107) between its
-// fused, dK/dV and dQ kernels and _bwd_kv_outer_body (:1254) between the
-// first two.  The tensor-core forms apply bwd_p_ds's arithmetic to whole
-// accumulator fragments.
+// What the flash-attention backward kernels share: the parameters, lse in
+// base 2, the ordered dQ adds' handshake, and the KV-outer bodies, one for
+// each dtype, which both the fused single pass (flash_attention_bwd.cu, with
+// dQ) and the dK/dV pass of the two-pass form
+// (flash_attention_bwd_two_pass.cu, without dQ) run: kv_outer_tc_body (bf16,
+// one bf16 product a product) and kv_outer_x6_body (fp32, six bf16 products
+// a product), as tpu_flash/kernels/flash_attention.py shares
+// _bwd_kv_outer_body (:1254) between its fused and dK/dV kernels.  Every
+// form applies the recompute of _bwd_p_ds (:1107), P = exp2(S2 - lse2) and
+// dS = P * (dP - D), to whole accumulator fragments.
 //
 // Numerics follow the TPU kernels: base-2 softmax with scale * log2(e) folded
-// into q; fp32 dots here are exact FMAs (never TF32); with bf16 inputs the
-// scaled q, P before dV, and dS before dK and dQ are rounded to bf16; every
-// sum is fp32.  A row whose lse is -inf (it saw no key) gets P = 0, not
-// exp(+inf), so its dS and dQ are 0.
+// into q; with bf16 inputs the scaled q, P before dV, and dS before dK and dQ
+// are rounded to bf16, each product a bf16 x bf16 -> fp32 mma.sync; fp32
+// products are six bf16 products of the operands split in three (mma_x6,
+// mma.cuh: the TPU's Precision.HIGHEST, never TF32); every sum is fp32.  A
+// row whose lse is -inf (it saw no key) gets P = 0, not exp(+inf), so its dS
+// and dQ are 0.
 //
 // kernels/common.py hashes every .cuh into each library's name, so an edit
 // here rebuilds every kernel that includes it.
@@ -52,19 +53,6 @@ __device__ __forceinline__ float bwd_lse2(float lse) {
   return lse == -INFINITY ? INFINITY : lse * kBwdLog2e;
 }
 
-struct PDs {
-  float p;   // P as dV's operand
-  float ds;  // dS as dK's and dQ's operand
-};
-
-// P = exp2(s2 - lse2) and dS = P * (dP - D) of one pair from its base-2
-// score s2 and dP = dO . v; a key the row may not see has P = 0.
-__device__ __forceinline__ PDs bwd_p_ds(float s2, float dp, float lse2,
-                                        float delta, bool visible) {
-  const float pr = visible ? exp2f(s2 - lse2) : 0.f;
-  return {pr, pr * (dp - delta)};
-}
-
 // A counter read with acquire semantics at the scope of the whole card, and
 // written after a fence that releases what the block wrote before its last
 // __syncthreads: the handshake of the ordered dQ adds below.
@@ -92,192 +80,26 @@ __device__ __forceinline__ void await_turn(const int* order, int tile) {
   __syncthreads();
 }
 
-// --- the KV-outer body (the fp32 dK/dV pass) -------------------------------
-//
-// One block per (batch * KV head, tile of kKeys keys).  A key belongs to
-// D / 16 threads, each owning 16 head dims of its k, v, dK and dV rows in
-// registers; the block walks the query rows that can see its keys (the
-// causal limit sets the first one, so dead tiles are never loaded), kQC rows
-// at a time, for each query head of the GQA group in turn, chunks upward,
-// and sums dK and dV over the group in fp32 before writing scale * dK and dV
-// once in the input dtype.  A chunk's q, q * scale * log2(e) and dO rows are
-// staged in shared memory in fp32; the threads of a warp read the same query
-// row at a time (broadcast 16-byte loads), and the partial dots over a
-// thread's 16 dims meet through shuffles.
-
-constexpr int kKeys = 64;   // keys per block
-constexpr int kDt = 16;     // head dims per thread
-constexpr int kQC = 32;     // query rows per chunk
-
-template <int D>
-__host__ __device__ constexpr int kv_outer_threads() {
-  return kKeys * (D / kDt);
-}
-
-template <int D>
-__host__ __device__ constexpr size_t kv_outer_smem_bytes() {
-  return sizeof(float) * (3 * kQC * D + 2 * kQC);
-}
-
-template <int D>
-__device__ __forceinline__ void kv_outer_body(const BwdParams& p) {
-  constexpr int kTpk = D / kDt;            // threads per key
-  constexpr int kKeysPerWarp = 32 / kTpk;
-  constexpr int kThreads = kv_outer_threads<D>();
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // [kQC][D] q
-  float* qss = qs + kQC * D;                     // [kQC][D] q * scale2
-  float* dos = qss + kQC * D;                    // [kQC][D] dO
-  float* lse2 = dos + kQC * D;                   // [kQC] lse * log2(e)
-  float* dls = lse2 + kQC;                       // [kQC] delta
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int part = lane / kKeysPerWarp;
-  const int key_in_block = warp * kKeysPerWarp + lane % kKeysPerWarp;
-  const int k0 = blockIdx.x * kKeys;
-  const int bhk = blockIdx.y, b = bhk / p.Hkv, hk = bhk % p.Hkv;
-  const int g = p.H / p.Hkv;
-  const int j = k0 + key_in_block;
-  const bool key_ok = j < p.Lk;
-
-  const size_t kv_off = (((size_t)b * p.Hkv + hk) * p.Lk + (key_ok ? j : 0)) *
-                            D + part * kDt;
-  float kr[kDt], vr[kDt], dk[kDt], dv[kDt];
-#pragma unroll
-  for (int e = 0; e < kDt; e += 8) {
-    load8<false>(p.k, kv_off + e, kr + e);
-    load8<false>(p.v, kv_off + e, vr + e);
-  }
-#pragma unroll
-  for (int e = 0; e < kDt; ++e) {
-    if (!key_ok) kr[e] = vr[e] = 0.f;
-    dk[e] = dv[e] = 0.f;
-  }
-
-  // The first query row that can see key k0, and the query chunks the
-  // block walks for a head.
-  const int q_start = p.causal ? max(0, k0 - p.q_offset) : 0;
-  const int chunks = q_start < p.Lq ? (p.Lq - q_start + kQC - 1) / kQC : 0;
-
-  for (int it = 0; it < g * chunks; ++it) {
-    const int bh = b * p.H + hk * g + it / chunks;
-    const int i0 = q_start + (it % chunks) * kQC;
-    __syncthreads();  // the previous chunk's rows are no longer read
-    for (int idx = tid; idx < kQC * D / 8; idx += kThreads) {
-      const int rr = idx / (D / 8), c = (idx % (D / 8)) * 8;
-      const int i = i0 + rr;
-      float fq[8], fd[8];
-      if (i < p.Lq) {
-        const size_t off = ((size_t)bh * p.Lq + i) * D + c;
-        load8<false>(p.q, off, fq);
-        load8<false>(p.dout, off, fd);
-      } else {
-#pragma unroll
-        for (int t = 0; t < 8; ++t) fq[t] = fd[t] = 0.f;
-      }
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        qs[rr * D + c + t] = fq[t];
-        qss[rr * D + c + t] = fq[t] * p.scale2;
-        dos[rr * D + c + t] = fd[t];
-      }
-    }
-    for (int rr = tid; rr < kQC; rr += kThreads) {
-      const int i = i0 + rr;
-      float l2 = INFINITY, dl = 0.f;  // rows past Lq: P = 0
-      if (i < p.Lq) {
-        l2 = bwd_lse2(p.lse[(size_t)bh * p.Lq + i]);
-        dl = p.delta[(size_t)bh * p.Lq + i];
-      }
-      lse2[rr] = l2;
-      dls[rr] = dl;
-    }
-    __syncthreads();
-
-    // dV and dK, one query row at a time.
-    for (int rr = 0; rr < kQC; ++rr) {
-      const float* qrow = qs + rr * D + part * kDt;
-      const float* qsrow = qss + rr * D + part * kDt;
-      const float* drow = dos + rr * D + part * kDt;
-      float s4[4] = {0.f, 0.f, 0.f, 0.f}, dp4[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int e = 0; e < kDt; e += 4) {
-        const float4 a = *reinterpret_cast<const float4*>(qsrow + e);
-        const float4 d = *reinterpret_cast<const float4*>(drow + e);
-        s4[0] = fmaf(a.x, kr[e], s4[0]);
-        s4[1] = fmaf(a.y, kr[e + 1], s4[1]);
-        s4[2] = fmaf(a.z, kr[e + 2], s4[2]);
-        s4[3] = fmaf(a.w, kr[e + 3], s4[3]);
-        dp4[0] = fmaf(d.x, vr[e], dp4[0]);
-        dp4[1] = fmaf(d.y, vr[e + 1], dp4[1]);
-        dp4[2] = fmaf(d.z, vr[e + 2], dp4[2]);
-        dp4[3] = fmaf(d.w, vr[e + 3], dp4[3]);
-      }
-      float s = (s4[0] + s4[1]) + (s4[2] + s4[3]);
-      float dp = (dp4[0] + dp4[1]) + (dp4[2] + dp4[3]);
-#pragma unroll
-      for (int off = kKeysPerWarp; off < 32; off <<= 1) {
-        s += __shfl_xor_sync(kFull, s, off);
-        dp += __shfl_xor_sync(kFull, dp, off);
-      }
-      const int i = i0 + rr;
-      const bool visible = key_ok && (!p.causal || j <= i + p.q_offset);
-      const PDs pd = bwd_p_ds(s, dp, lse2[rr], dls[rr], visible);
-#pragma unroll
-      for (int e = 0; e < kDt; e += 4) {
-        const float4 a = *reinterpret_cast<const float4*>(qrow + e);
-        const float4 d = *reinterpret_cast<const float4*>(drow + e);
-        dv[e] = fmaf(pd.p, d.x, dv[e]);
-        dv[e + 1] = fmaf(pd.p, d.y, dv[e + 1]);
-        dv[e + 2] = fmaf(pd.p, d.z, dv[e + 2]);
-        dv[e + 3] = fmaf(pd.p, d.w, dv[e + 3]);
-        dk[e] = fmaf(pd.ds, a.x, dk[e]);
-        dk[e + 1] = fmaf(pd.ds, a.y, dk[e + 1]);
-        dk[e + 2] = fmaf(pd.ds, a.z, dk[e + 2]);
-        dk[e + 3] = fmaf(pd.ds, a.w, dk[e + 3]);
-      }
-    }
-  }
-
-  if (!key_ok) return;
-#pragma unroll
-  for (int e = 0; e < kDt; ++e) {
-    static_cast<float*>(p.dk)[kv_off + e] = p.scale * dk[e];
-    static_cast<float*>(p.dv)[kv_off + e] = dv[e];
-  }
-}
-
-// Launches kernel<D> over the KV-outer grid with its shared memory.
-template <int D, typename Kernel>
-cudaError_t launch_kv_outer(Kernel kernel, const BwdParams& p,
-                            cudaStream_t stream) {
-  constexpr size_t kSmem = kv_outer_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.Lk + kKeys - 1) / kKeys, p.B * p.Hkv);
-  kernel<<<grid, kv_outer_threads<D>(), kSmem, stream>>>(p);
-  return cudaGetLastError();
-}
-
 // --- the KV-outer body on the tensor cores (bf16) ---------------------------
 //
-// The same walk as kv_outer_body, with every product an mma.sync (the TPU
-// kernels feed their MXU the scaled q, P and dS rounded to bf16 with fp32
-// sums, which is exactly a bf16 x bf16 -> fp32 product): one block of 4
-// warps per (batch * KV head, tile of 64 keys), each warp owning 16 keys,
-// whose k and v rows are its A fragments.  The query rows come in tiles of
-// 64 through kStages shared-memory stages (q, q * scale2 and dO in bf16,
-// lse2 and D in fp32), each thread's cp.async pieces for tile t + kStages - 1
-// issued before tile t is computed.  A warp computes S^T = K (q scale2)^T
-// and dP^T = V dO^T for NQ query rows at a time into m16n8 accumulators
-// (rows keys, columns query rows, so lse2 and D are read by column), turns
-// them into P^T and dS^T in place (bwd_p_ds's arithmetic; the element mask
-// only in steps that cross the causal diagonal or the ragged end of Lq or
-// Lk, a warp-uniform test), and feeds them, packed to bf16 pairs, as the A
-// fragments of dV += P^T dO and dK += dS^T q (an m16n8 C tile is half an
-// m16n8k16 A tile).  dK and dV are summed over the GQA group in fp32 and
-// written once, scale * dK and dV in bf16.
+// Every product an mma.sync (the TPU kernels feed their MXU the scaled q, P
+// and dS rounded to bf16 with fp32 sums, which is exactly a bf16 x bf16 ->
+// fp32 product): one block of 4 warps per (batch * KV head, tile of 64
+// keys), each warp owning 16 keys, whose k and v rows are its A fragments.
+// The block walks the query rows that can see its keys (the causal limit
+// sets the first one, so dead tiles are never loaded), for each query head
+// of the GQA group.  They come in tiles of 64 through kStages shared-memory
+// stages (q, q * scale2 and dO in bf16, lse2 and D in fp32), each thread's
+// cp.async pieces for tile t + kStages - 1 issued before tile t is computed.
+// A warp computes S^T = K (q scale2)^T and dP^T = V dO^T for NQ query rows
+// at a time into m16n8 accumulators (rows keys, columns query rows, so lse2
+// and D are read by column), turns them into P^T = exp2(S^T - lse2) and
+// dS^T = P^T (dP^T - D) in place (the element mask only in steps that cross
+// the causal diagonal or the ragged end of Lq or Lk, a warp-uniform test),
+// and feeds them, packed to bf16 pairs, as the A fragments of dV += P^T dO
+// and dK += dS^T q (an m16n8 C tile is half an m16n8k16 A tile).  dK and dV
+// are summed over the GQA group in fp32 and written once, scale * dK and dV
+// in bf16.
 //
 // With kDQ (the fused pass) each warp also writes its dS^T [16 keys, 64
 // rows] in bf16 to shared memory; after a __syncthreads each warp forms dQ
@@ -610,6 +432,391 @@ template <int D, bool kDQ, typename Kernel>
 cudaError_t launch_kv_outer_tc(Kernel kernel, const BwdParams& p,
                                cudaStream_t stream) {
   constexpr int kSmem = kv_outer_tc_smem_bytes<D, kDQ>();
+  const int tiles = (p.Lk + kTcBlock - 1) / kTcBlock;
+  if (tiles > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.B * p.Hkv, tiles);
+  kernel<<<grid, kTcThreads, kSmem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// --- the KV-outer body in fp32 on the tensor cores (six bf16 products) ----
+//
+// kv_outer_tc_body's block, grid and, with kDQ, order of dQ adds, with
+// every product mma_x6 (mma.cuh), as the TPU runs fp32 dots at
+// Precision.HIGHEST.  Shared memory cannot hold three planes of everything
+// the bf16 form keeps in bf16 (at d = 64: k, v, and per stage q,
+// q * scale2 and dO, plus dS^T, tripled, is over 227 KB), so:
+//   * k and v arrive in fp32 once and are split into three planes each,
+//     from which every warp reads its A fragments (k also B fragments of
+//     dQ);
+//   * a tile of kQT query rows (q, dO, lse and D) arrives in fp32 by
+//     cp.async into one stage while the tile before it is computed, and is
+//     split once by the whole block into the planes of q * scale2 and dO;
+//     dK sums dS^T (q * scale2) and is scaled by scale / scale2 at the end,
+//     so that q needs one set of planes;
+//   * with kDQ, dS^T goes to shared memory as three planes for dQ = dS K.
+// P and dS stay fp32 in the accumulators and are split in registers into
+// the A fragments of dV and dK, whose sums over every query row the block
+// sees take mma_x6_add (each step's products summed apart, then added
+// rounded to nearest); S^T, dP^T (over the head dim) and a tile's dQ (over
+// 64 keys) accumulate in place.  The block walks its query tiles from the
+// last down, each for every head of the group.  With dQ, kQT is 64 below
+// d = 128 and 32 at 128, the chunk of the ordered dQ adds
+// (kernels/flash_attention.py _dq_chunk), and one block fits an SM (170 KB
+// of shared memory at d = 64, 202 KB at 128); without it kQT is 32, and
+// two blocks fit an SM below d = 128 (106 KB at d = 64; 202 KB at 128).
+
+template <int D, bool kDQ>
+struct BwdX6 {
+  // query rows a tile, and rows of S^T a warp holds: without dQ 32 and
+  // 16, so that two blocks fit an SM below d = 128 (and no spill at 64)
+  static constexpr int kQT = D <= 64 && kDQ ? 64 : 32;
+  static constexpr int NQ = D <= 64 && kDQ ? 32 : 16;
+  static constexpr int P = TcShape<D>::P;
+  static constexpr int F = kF32Pitch<D>;
+  static constexpr int kDsP = kQT + 8;            // dS^T's bf16 pitch
+  static constexpr int kKPlane = kTcBlock * P;    // elements of a plane
+  static constexpr int kQPlane = kQT * P;
+  static constexpr int kDsPlane = kTcBlock * kDsP;
+  // dQ of a tile: kRowGroups warps along its rows, each forming kDqCols
+  // columns of 16 rows
+  static constexpr int kRowGroups = kQT / 16;
+  static constexpr int kDqCols = D * kRowGroups / 4;
+  // At d = 128 dK and dV hold 128 registers a thread: there the walk over
+  // a tile's steps and the products' loops over the contraction are not
+  // unrolled, and dQ is formed 16 columns at a time, or ptxas spills
+  static constexpr int kUnroll = D <= 64 ? 8 : 1;
+  static constexpr int kUnrollSteps = D <= 64 ? kQT / NQ : 1;
+  static constexpr int kDqPiece = D <= 64 ? kDqCols : 16;
+  // byte offsets: k and v planes, then q * scale2 and dO planes, with kDQ
+  // dS^T planes, the fp32 stage (q, dO [kQT][F], lse, D [kQT]), and lse2
+  // and D of the tile in the planes.  k and v in fp32 arrive over the
+  // planes of q, dO and dS^T, and past them where those are smaller.
+  static constexpr int kQdOff = 6 * kKPlane * 2;
+  static constexpr int kDsOff = kQdOff + 6 * kQPlane * 2;
+  static constexpr int kPlanesEnd = kDsOff + (kDQ ? 3 * kDsPlane * 2 : 0);
+  static constexpr int kKvEnd = kQdOff + 2 * kTcBlock * F * 4;
+  static constexpr int kStageOff = kPlanesEnd > kKvEnd ? kPlanesEnd : kKvEnd;
+  static constexpr int kCurOff = kStageOff + (2 * kQT * F + 2 * kQT) * 4;
+  static constexpr int kSmem = kCurOff + 2 * kQT * 4;
+  static_assert(kSmem <= 232448, "shared memory");
+};
+
+// A warp's dS^T accumulators over N query rows (zeros where c is null),
+// split in three, into its 16 rows of the planes of dS^T [64][kDsP],
+// columns col0 .. col0 + N - 1.
+template <int N, int kDsP>
+__device__ __forceinline__ void store_ds_t_x6(bf16* dst, int plane,
+                                              const float (*c)[4], int row0,
+                                              int col0, int lane) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t pieces[3] = {0u, 0u, 0u};
+      if (c) split3_pair(c[j][2 * h], c[j][2 * h + 1], pieces[0], pieces[1],
+                         pieces[2]);
+      bf16* at = dst + (row0 + (lane >> 2) + 8 * h) * kDsP + col0 + 8 * j +
+                 2 * (lane & 3);
+#pragma unroll
+      for (int pl = 0; pl < 3; ++pl)
+        *reinterpret_cast<uint32_t*>(at + pl * plane) = pieces[pl];
+    }
+}
+
+// p by value: ptxas then allocates the fused kernel's registers without a
+// spill (taken by reference, it spilled 8 bytes at d = 64 and 4 at 32).
+template <int D, bool kDQ>
+__device__ __forceinline__ void kv_outer_x6_body(const BwdParams p) {
+  using X = BwdX6<D, kDQ>;
+  constexpr int kQT = X::kQT, NQ = X::NQ, F = X::F;
+  constexpr int kKPlane = X::kKPlane, kQPlane = X::kQPlane;
+  extern __shared__ uint4 x6_smem[];
+  char* sm = reinterpret_cast<char*>(x6_smem);
+  bf16* kpl = reinterpret_cast<bf16*>(sm);       // k's planes [64][P] x 3
+  bf16* vpl = kpl + 3 * kKPlane;                 // v's
+  bf16* qpl = reinterpret_cast<bf16*>(sm + X::kQdOff);   // q * scale2's
+  bf16* opl = qpl + 3 * kQPlane;                 // dO's [kQT][P] x 3
+  bf16* dspl = reinterpret_cast<bf16*>(sm + X::kDsOff);  // kDQ: dS^T's
+  float* qst = reinterpret_cast<float*>(sm + X::kStageOff);  // q [kQT][F]
+  float* ost = qst + kQT * F;                    // dO
+  float* lst = ost + kQT * F;                    // lse, then D [kQT]
+  float* cur = reinterpret_cast<float*>(sm + X::kCurOff);  // lse2, then D
+  float* kvst = reinterpret_cast<float*>(sm + X::kQdOff);  // k, v [64][F]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tile = blockIdx.y;
+  const int k0 = tile * kTcBlock;
+  const int bhk = blockIdx.x, b = bhk / p.Hkv, hk = bhk % p.Hkv;
+  const int g = p.H / p.Hkv;
+  const size_t kv_rows = ((size_t)b * p.Hkv + hk) * p.Lk;
+  const int kw = k0 + warp * 16;   // the warp's first key
+
+  // The first query row that can see key k0 (with kDQ rounded down to a
+  // tile's start, so that every block's tiles are the same chunks), and
+  // the tiles of each head, walked from the last down, each for every head.
+  const int first = p.causal ? max(0, k0 - p.q_offset) : 0;
+  const int q_start = kDQ ? first - first % kQT : first;
+  const int nt = q_start < p.Lq ? (p.Lq - q_start + kQT - 1) / kQT : 0;
+  const int tiles = g * nt;
+  auto tile_i0 = [&](int it) { return q_start + (nt - 1 - it / g) * kQT; };
+  auto tile_rows = [&](int it) {
+    return ((size_t)b * p.H + hk * g + it % g) * p.Lq;
+  };
+  // kDQ: the counter of tile it's chunk (kQT query rows of its head)
+  [[maybe_unused]] auto order_of = [&](int it) {
+    return p.dq_order + ((size_t)b * p.H + hk * g + it % g) *
+                            ((p.Lq + kQT - 1) / kQT) +
+           tile_i0(it) / kQT;
+  };
+  auto load_stage = [&](int it) {
+    const int i0 = tile_i0(it);
+    const size_t rows = tile_rows(it);
+    load_tile_f32<D, kQT>(qst, p.q, rows, i0, p.Lq, tid);
+    load_tile_f32<D, kQT>(ost, p.dout, rows, i0, p.Lq, tid);
+    if (tid < 2 * kQT) {
+      const int i = i0 + tid % kQT;
+      cp_async4(lst + tid, (tid < kQT ? p.lse : p.delta) + rows +
+                               (i < p.Lq ? i : 0),
+                i < p.Lq);
+    }
+  };
+  // the landed stage into the planes, and its lse in base 2 (+inf past Lq,
+  // so that P is 0 there) and D beside them
+  auto split_stage = [&](int it) {
+    split_tile<D, kQT>(qpl, kQPlane, qst, p.scale2, tid);
+    split_tile<D, kQT>(opl, kQPlane, ost, 1.f, tid);
+    if (tid < 2 * kQT)
+      cur[tid] = tid >= kQT ? lst[tid]
+                 : tile_i0(it) + tid < p.Lq ? bwd_lse2(lst[tid])
+                                            : INFINITY;
+  };
+
+  // k, v and the first tile
+  load_tile_f32<D, kTcBlock>(kvst, p.k, kv_rows, k0, p.Lk, tid);
+  load_tile_f32<D, kTcBlock>(kvst + kTcBlock * F, p.v, kv_rows, k0, p.Lk,
+                             tid);
+  if (tiles > 0) load_stage(0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  split_tile<D, kTcBlock>(kpl, kKPlane, kvst, 1.f, tid);
+  split_tile<D, kTcBlock>(vpl, kKPlane, kvst + kTcBlock * F, 1.f, tid);
+  __syncthreads();   // k and v in fp32 read before their space is reused
+  if (tiles > 0) split_stage(0);
+  __syncthreads();
+  if (tiles > 1) load_stage(1);
+  cp_async_commit();
+
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+  // kDQ: this warp's part of a tile's dQ, rows dq_r .., columns dq_c ..
+  [[maybe_unused]] const int dq_r = (warp % X::kRowGroups) * 16;
+  [[maybe_unused]] const int dq_c = (warp / X::kRowGroups) * X::kDqCols;
+
+  for (int it = 0; it < tiles; ++it) {
+    const int i0 = tile_i0(it);
+#pragma unroll (X::kUnrollSteps)
+    for (int sub = 0; sub < kQT; sub += NQ) {
+      const int r0 = i0 + sub;   // the step's first query row
+      // every row of the step is past Lq, or sees none of the warp's keys
+      if (r0 >= p.Lq || (p.causal && kw > r0 + NQ - 1 + p.q_offset)) {
+        if constexpr (kDQ)
+          store_ds_t_x6<NQ, X::kDsP>(dspl, X::kDsPlane, nullptr, warp * 16,
+                                     sub, lane);
+        continue;
+      }
+      const bool full = kw + 16 <= p.Lk && r0 + NQ <= p.Lq &&
+                        !(p.causal && kw + 15 > r0 + p.q_offset);
+      // S^T = K (q scale2)^T and dP^T = V dO^T: rows keys, columns query rows
+      float s[NQ / 8][4], dp[NQ / 8][4];
+#pragma unroll
+      for (int j = 0; j < NQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll (X::kUnroll)
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t ka[3][4];
+#pragma unroll
+        for (int pl = 0; pl < 3; ++pl)
+          a_frag<D>(ka[pl], kpl + pl * kKPlane, warp * 16, kk, lane);
+#pragma unroll
+        for (int n2 = 0; n2 < NQ / 16; ++n2) {
+          uint32_t bq[3][4];
+#pragma unroll
+          for (int pl = 0; pl < 3; ++pl)
+            b_frags_nk<D>(bq[pl], qpl + pl * kQPlane, sub + 16 * n2, kk,
+                          lane);
+          mma_x6(s[2 * n2], ka, bq[0], bq[1], bq[2]);
+          mma_x6(s[2 * n2 + 1], ka, bq[0] + 2, bq[1] + 2, bq[2] + 2);
+        }
+      }
+#pragma unroll (X::kUnroll)
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t va[3][4];
+#pragma unroll
+        for (int pl = 0; pl < 3; ++pl)
+          a_frag<D>(va[pl], vpl + pl * kKPlane, warp * 16, kk, lane);
+#pragma unroll
+        for (int n2 = 0; n2 < NQ / 16; ++n2) {
+          uint32_t bo[3][4];
+#pragma unroll
+          for (int pl = 0; pl < 3; ++pl)
+            b_frags_nk<D>(bo[pl], opl + pl * kQPlane, sub + 16 * n2, kk,
+                          lane);
+          mma_x6(dp[2 * n2], va, bo[0], bo[1], bo[2]);
+          mma_x6(dp[2 * n2 + 1], va, bo[0] + 2, bo[1] + 2, bo[2] + 2);
+        }
+      }
+      // P^T = exp2(S^T - lse2) and dS^T = P^T (dP^T - D) in place, in fp32;
+      // column c is query row i0 + c
+#pragma unroll
+      for (int j = 0; j < NQ / 8; ++j) {
+        const int c = sub + 8 * j + 2 * (lane & 3);
+        const float2 lse2 = *reinterpret_cast<const float2*>(cur + c);
+        const float2 delta = *reinterpret_cast<const float2*>(cur + kQT + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float pr = exp2f(s[j][e] - (e & 1 ? lse2.y : lse2.x));
+          if (!full) {
+            const int key = kw + (lane >> 2) + 8 * (e >> 1);
+            const int i = i0 + c + (e & 1);
+            if (key >= p.Lk || i >= p.Lq ||
+                (p.causal && key > i + p.q_offset))
+              pr = 0.f;
+          }
+          s[j][e] = pr;
+          // __fmul_rn: no fused multiply-add into the split
+          dp[j][e] = __fmul_rn(pr, dp[j][e] - (e & 1 ? delta.y : delta.x));
+        }
+      }
+      if constexpr (kDQ)
+        store_ds_t_x6<NQ, X::kDsP>(dspl, X::kDsPlane, dp, warp * 16, sub,
+                                   lane);
+      // dV += P^T dO and dK += dS^T (q scale2) over the step's query rows
+#pragma unroll
+      for (int kk = 0; kk < NQ / 16; ++kk) {
+        uint32_t pa[3][4];
+        acc_as_a_x6(pa, s, kk);
+#pragma unroll
+        for (int n2 = 0; n2 < D / 16; ++n2) {
+          uint32_t bo[3][4];
+#pragma unroll
+          for (int pl = 0; pl < 3; ++pl)
+            b_frags_kn<D>(bo[pl], opl + pl * kQPlane, sub + 16 * kk, 16 * n2,
+                          lane);
+          mma_x6_add(dv[2 * n2], pa, bo[0], bo[1], bo[2]);
+          mma_x6_add(dv[2 * n2 + 1], pa, bo[0] + 2, bo[1] + 2, bo[2] + 2);
+        }
+        uint32_t da[3][4];
+        acc_as_a_x6(da, dp, kk);
+#pragma unroll
+        for (int n2 = 0; n2 < D / 16; ++n2) {
+          uint32_t bq[3][4];
+#pragma unroll
+          for (int pl = 0; pl < 3; ++pl)
+            b_frags_kn<D>(bq[pl], qpl + pl * kQPlane, sub + 16 * kk, 16 * n2,
+                          lane);
+          mma_x6_add(dk[2 * n2], da, bq[0], bq[1], bq[2]);
+          mma_x6_add(dk[2 * n2 + 1], da, bq[0] + 2, bq[1] + 2, bq[2] + 2);
+        }
+      }
+    }
+    cp_async_wait<0>();   // tile it + 1 has landed
+    // the planes of tile it are no longer read (with kDQ: dS^T is whole,
+    // and the block's dQ adds of tile it - 1 were issued before the last
+    // barrier)
+    __syncthreads();
+    if constexpr (kDQ) {
+      if (tid == 0 && it > 0) store_release(order_of(it - 1), tile + 1);
+      // dQ [kQT, D] = dS [kQT, 64 keys] K [64 keys, D], this warp's part,
+      // kPiece columns at a time (all of them below d = 128, formed before
+      // the wait; 16 at d = 128, formed in turn after it)
+      constexpr int kPiece = X::kDqPiece;
+      float dq[kPiece / 8][4];
+      auto form = [&](int n0) {
+#pragma unroll
+        for (int j = 0; j < kPiece / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+#pragma unroll (X::kUnroll)
+        for (int kk = 0; kk < kTcBlock / 16; ++kk) {
+          uint32_t da[3][4];
+#pragma unroll
+          for (int pl = 0; pl < 3; ++pl)
+            a_frag_t(da[pl], dspl + pl * X::kDsPlane, X::kDsP, 16 * kk, dq_r,
+                     lane);
+#pragma unroll
+          for (int n2 = 0; n2 < kPiece / 16; ++n2) {
+            uint32_t bk[3][4];
+#pragma unroll
+            for (int pl = 0; pl < 3; ++pl)
+              b_frags_kn<D>(bk[pl], kpl + pl * kKPlane, 16 * kk,
+                            dq_c + n0 + 16 * n2, lane);
+            mma_x6(dq[2 * n2], da, bk[0], bk[1], bk[2]);
+            mma_x6(dq[2 * n2 + 1], da, bk[0] + 2, bk[1] + 2, bk[2] + 2);
+          }
+        }
+      };
+      // lanes t and t ^ 1 trade halves: even t then holds four columns of
+      // row lane / 4, odd t four columns of row lane / 4 + 8
+      const bool odd = lane & 1;
+      const int r = i0 + dq_r + (lane >> 2) + (odd ? 8 : 0);
+      float* dqg = static_cast<float*>(p.dq) + (tile_rows(it) + r) * D +
+                   dq_c + 2 * (lane & 2);
+      auto add = [&](int n0) {
+#pragma unroll
+        for (int j = 0; j < kPiece / 8; ++j) {
+          const float x =
+              __shfl_xor_sync(kFull, odd ? dq[j][0] : dq[j][2], 1);
+          const float y =
+              __shfl_xor_sync(kFull, odd ? dq[j][1] : dq[j][3], 1);
+          const float4 part = odd ? make_float4(x, y, dq[j][2], dq[j][3])
+                                  : make_float4(dq[j][0], dq[j][1], x, y);
+          if (r < p.Lq)
+            atomicAdd(reinterpret_cast<float4*>(dqg + n0 + 8 * j), part);
+        }
+      };
+      if constexpr (kPiece == X::kDqCols) form(0);
+      if (it + 1 < tiles) split_stage(it + 1);
+      // key tiles 0 .. tile - 1 reach this chunk too, and add first; the
+      // barrier inside also fences the planes of tile it + 1 and the stage
+      await_turn(order_of(it), tile);
+#pragma unroll
+      for (int n0 = 0; n0 < X::kDqCols; n0 += kPiece) {
+        if constexpr (kPiece != X::kDqCols) form(n0);
+        add(n0);
+      }
+      // dS^T is read before the next tile's steps write it
+      if constexpr (kPiece != X::kDqCols) __syncthreads();
+    } else {
+      if (it + 1 < tiles) split_stage(it + 1);
+      __syncthreads();   // the planes of tile it + 1 written, the stage read
+    }
+    if (it + 2 < tiles) load_stage(it + 2);
+    cp_async_commit();
+  }
+
+  if constexpr (kDQ) {
+    __syncthreads();   // the last adds are issued before the release
+    if (tid == 0 && tiles > 0) store_release(order_of(tiles - 1), tile + 1);
+  }
+  store_rows_f32<D>(p.dk, kv_rows, kw, p.Lk, dk, p.scale / p.scale2, lane);
+  store_rows_f32<D>(p.dv, kv_rows, kw, p.Lk, dv, 1.f, lane);
+}
+
+// Launches kernel<D> over the KV-outer grid of the six-product form, key
+// tiles along y.
+template <int D, bool kDQ, typename Kernel>
+cudaError_t launch_kv_outer_x6(Kernel kernel, const BwdParams& p,
+                               cudaStream_t stream) {
+  constexpr int kSmem = BwdX6<D, kDQ>::kSmem;
   const int tiles = (p.Lk + kTcBlock - 1) / kTcBlock;
   if (tiles > 65535) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(

@@ -19,31 +19,37 @@
 //     right), heavy query tiles first, scale * dQ written once in the input
 //     dtype, the JAX epilogue at :1223-1225.
 // Each has two forms, chosen by the wrapper (kernels/flash_attention.py
-// _form_name) and exported as separate C entries:
+// _form_name) and exported as separate C entries, both on the tensor cores
+// with 4 warps a block, 16 keys (dK/dV) or 16 query rows (dQ) each; the
+// other operand's tiles stream through shared-memory stages filled by
+// cp.async; S, dP, P and dS live in the mma accumulators, and P and dS
+// become the next product's A fragments without passing through shared
+// memory (an m16n8 C tile is half an m16n8k16 A tile); the dK/dV pass
+// shares its body with the fused kernel (flash_attention_bwd.cuh):
 //   * bf16: the tensor-core form (tf_flash_attention_bwd_dkv_tc,
 //     tf_flash_attention_bwd_dq_tc).  The TPU kernels feed their MXU bf16
 //     operands with fp32 sums, rounding q * scale * log2(e), P before dV and
 //     dS before dK and dQ to bf16: exactly a bf16 x bf16 -> fp32 product, so
-//     every product here is an mma.sync.m16n8k16 on the tensor cores and only
-//     the order of the fp32 sums differs from the plain version.  4 warps a
-//     block, 16 keys (dK/dV) or 16 query rows (dQ) each; the other operand's
-//     tiles of 64 rows stream through a ring of shared-memory stages filled by
-//     cp.async; S, dP, P and dS live in the mma accumulators, and P and dS
-//     become the next product's A fragments without passing through shared
-//     memory (an m16n8 C tile is half an m16n8k16 A tile); the dK/dV pass
-//     shares its body with the fused kernel (flash_attention_bwd.cuh);
-//   * fp32: the CUDA-core form (tf_flash_attention_bwd_dkv / _dq), exact fp32
-//     FMAs, never TF32: the dK/dV pass is kv_outer_body
-//     (flash_attention_bwd.cuh); the dQ pass holds a query row's
-//     q, dO and dQ in registers (D / 16 threads a row) and stages K and V
-//     tiles in shared memory in fp32.
+//     every product here is an mma.sync.m16n8k16 and only the order of the
+//     fp32 sums differs from the plain version; the other operand's tiles
+//     of 64 rows come through a ring of kStages bf16 stages;
+//   * fp32: the six-product form (tf_flash_attention_bwd_dkv_x6,
+//     tf_flash_attention_bwd_dq_x6), every product six bf16 products of the
+//     operands split in three (mma_x6, mma.cuh), as the TPU runs fp32 dots
+//     at Precision.HIGHEST; each tile arrives in fp32 into one stage while
+//     the tile before it is computed and is split once by the whole block
+//     into three bf16 planes in shared memory, which every warp reads.  The
+//     sums over the sequence (dK and dV over query rows, dQ over keys) take
+//     mma_x6_add, each 16-row or 16-key step's products summed apart and
+//     added in fp32 rounded to nearest; the sums over the head dim (S, dP)
+//     accumulate in place.
 //
 // What bounds them: operations.  At B1 H8 L16384 d64 causal one causal
 // L^2 * d product is 1.37e11 flops; the dK/dV pass does four (S, dP, dV, dK)
-// and the dQ pass three (S, dP, dQ), against ~100 MB of traffic each.  The
-// tensor-core form uses mma.sync with ldmatrix fragments; wgmma, TMA and
-// warp specialisation are later work (ROADMAP.md).  Numerics as in
-// flash_attention_bwd.cuh.
+// and the dQ pass three (S, dP, dQ), against ~100 MB of traffic each; in
+// fp32 each is six bf16 products.  Both forms use mma.sync with ldmatrix
+// fragments; wgmma, TMA and warp specialisation are later work
+// (ROADMAP.md).  Numerics as in flash_attention_bwd.cuh.
 //
 // C entries launch on the given stream, allocate nothing and return
 // cudaGetLastError() (or cudaErrorInvalidValue for a shape or dtype they do
@@ -52,157 +58,6 @@
 #include "flash_attention_bwd.cuh"
 
 namespace {
-
-// --- the CUDA-core forms (fp32) ---------------------------------------------
-
-template <int D>
-__global__ void __launch_bounds__(kv_outer_threads<D>())
-flash_attention_bwd_dkv_kernel(const BwdParams p) {
-  kv_outer_body<D>(p);
-}
-
-// --- the dQ pass ------------------------------------------------------------
-//
-// The mirror of kv_outer_body: there a key's k, v, dK and dV rows sit in
-// registers and the query rows stream through shared memory; here a query
-// row's q, dO and dQ sit in registers and the keys stream through it.  A row
-// belongs to D / 16 threads, each owning 16 head dims; one key at a time,
-// the partial dots over a thread's dims meet through shuffles.
-
-constexpr int kRowsQ = 64;   // query rows per block
-constexpr int kTileK = 64;   // keys per shared-memory tile
-
-template <int D>
-__host__ __device__ constexpr int dq_threads() {
-  return kRowsQ * (D / kDt);
-}
-
-template <int D>
-__global__ void __launch_bounds__(dq_threads<D>())
-flash_attention_bwd_dq_kernel(const BwdParams p) {
-  constexpr int kTpr = D / kDt;            // threads per query row
-  constexpr int kRowsPerWarp = 32 / kTpr;
-  constexpr int kThreads = dq_threads<D>();
-  extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);   // [kTileK][D]
-  float* vs = ks + kTileK * D;                    // [kTileK][D]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int part = lane / kRowsPerWarp;           // which 16 dims of the row
-  const int row_in_block = warp * kRowsPerWarp + lane % kRowsPerWarp;
-  const int qt = gridDim.x - 1 - blockIdx.x;      // heavy tiles first
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
-  const int hk = h / (p.H / p.Hkv);
-  const int row0 = qt * kRowsQ;
-  const int r = row0 + row_in_block;
-  const bool row_ok = r < p.Lq;
-
-  // Keys this block needs, and the keys each row and each warp may see.
-  const int block_last = min(row0 + kRowsQ, p.Lq) - 1;
-  const int kend = p.causal ? max(0, min(p.Lk, block_last + p.q_offset + 1))
-                            : p.Lk;
-  const int limit = p.causal ? min(p.Lk, r + p.q_offset + 1) : p.Lk;
-  const int warp_last = min(row0 + (warp + 1) * kRowsPerWarp, p.Lq) - 1;
-  const int warp_limit =
-      warp_last < row0 + warp * kRowsPerWarp
-          ? 0  // every row of this warp is padding
-          : (p.causal ? min(p.Lk, warp_last + p.q_offset + 1) : p.Lk);
-
-  const size_t row_idx = (size_t)bh * p.Lq + (row_ok ? r : 0);
-  const size_t q_off = row_idx * D + part * kDt;
-  float qr[kDt], dor[kDt], dq[kDt];
-#pragma unroll
-  for (int e = 0; e < kDt; e += 8) {
-    load8<false>(p.q, q_off + e, qr + e);
-    load8<false>(p.dout, q_off + e, dor + e);
-  }
-#pragma unroll
-  for (int e = 0; e < kDt; ++e) {
-    qr[e] = row_ok ? qr[e] * p.scale2 : 0.f;
-    if (!row_ok) dor[e] = 0.f;
-    dq[e] = 0.f;
-  }
-  const float lse2 = row_ok ? bwd_lse2(p.lse[row_idx]) : INFINITY;
-  const float delta = row_ok ? p.delta[row_idx] : 0.f;
-
-  const size_t kv_base = ((size_t)b * p.Hkv + hk) * p.Lk * D;
-  for (int k0 = 0; k0 < kend; k0 += kTileK) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int idx = tid; idx < kTileK * D / 8; idx += kThreads) {
-      const int kr = idx / (D / 8), c = (idx % (D / 8)) * 8;
-      float fk[8], fv[8];
-      if (k0 + kr < p.Lk) {
-        const size_t off = kv_base + (size_t)(k0 + kr) * D + c;
-        load8<false>(p.k, off, fk);
-        load8<false>(p.v, off, fv);
-      } else {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) fk[i] = fv[i] = 0.f;
-      }
-      float4* kd = reinterpret_cast<float4*>(ks + kr * D + c);
-      float4* vd = reinterpret_cast<float4*>(vs + kr * D + c);
-      kd[0] = make_float4(fk[0], fk[1], fk[2], fk[3]);
-      kd[1] = make_float4(fk[4], fk[5], fk[6], fk[7]);
-      vd[0] = make_float4(fv[0], fv[1], fv[2], fv[3]);
-      vd[1] = make_float4(fv[4], fv[5], fv[6], fv[7]);
-    }
-    __syncthreads();
-
-    const int nk = min(kTileK, warp_limit - k0);  // warp-uniform
-    for (int jj = 0; jj < nk; ++jj) {
-      const float* krow = ks + jj * D + part * kDt;
-      const float* vrow = vs + jj * D + part * kDt;
-      float s4[4] = {0.f, 0.f, 0.f, 0.f}, dp4[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int e = 0; e < kDt; e += 4) {
-        const float4 kk = *reinterpret_cast<const float4*>(krow + e);
-        const float4 vv = *reinterpret_cast<const float4*>(vrow + e);
-        s4[0] = fmaf(qr[e], kk.x, s4[0]);
-        s4[1] = fmaf(qr[e + 1], kk.y, s4[1]);
-        s4[2] = fmaf(qr[e + 2], kk.z, s4[2]);
-        s4[3] = fmaf(qr[e + 3], kk.w, s4[3]);
-        dp4[0] = fmaf(dor[e], vv.x, dp4[0]);
-        dp4[1] = fmaf(dor[e + 1], vv.y, dp4[1]);
-        dp4[2] = fmaf(dor[e + 2], vv.z, dp4[2]);
-        dp4[3] = fmaf(dor[e + 3], vv.w, dp4[3]);
-      }
-      float s = (s4[0] + s4[1]) + (s4[2] + s4[3]);
-      float dp = (dp4[0] + dp4[1]) + (dp4[2] + dp4[3]);
-#pragma unroll
-      for (int off = kRowsPerWarp; off < 32; off <<= 1) {
-        s += __shfl_xor_sync(kFull, s, off);
-        dp += __shfl_xor_sync(kFull, dp, off);
-      }
-      const float ds =
-          bwd_p_ds(s, dp, lse2, delta, k0 + jj < limit).ds;
-#pragma unroll
-      for (int e = 0; e < kDt; e += 4) {
-        const float4 kk = *reinterpret_cast<const float4*>(krow + e);
-        dq[e] = fmaf(ds, kk.x, dq[e]);
-        dq[e + 1] = fmaf(ds, kk.y, dq[e + 1]);
-        dq[e + 2] = fmaf(ds, kk.z, dq[e + 2]);
-        dq[e + 3] = fmaf(ds, kk.w, dq[e + 3]);
-      }
-    }
-  }
-
-  if (!row_ok) return;
-#pragma unroll
-  for (int e = 0; e < kDt; ++e)
-    static_cast<float*>(p.dq)[q_off + e] = p.scale * dq[e];
-}
-
-template <int D>
-cudaError_t launch_dq(const BwdParams& p, cudaStream_t stream) {
-  constexpr int kSmem = 2 * kTileK * D * sizeof(float);
-  auto kernel = flash_attention_bwd_dq_kernel<D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.Lq + kRowsQ - 1) / kRowsQ, p.B * p.H);
-  kernel<<<grid, dq_threads<D>(), kSmem, stream>>>(p);
-  return cudaGetLastError();
-}
 
 // --- the tensor-core forms (bf16) -------------------------------------------
 //
@@ -213,9 +68,10 @@ cudaError_t launch_dq(const BwdParams& p, cudaStream_t stream) {
 // the keys come in tiles of 64 through kStages shared-memory stages, each
 // thread's cp.async pieces for tile t + kStages - 1 issued before tile t is
 // computed; one __syncthreads a tile.  A warp computes S and dP for kStep
-// keys at a time into m16n8 accumulators, turns them into dS in place
-// (bwd_p_ds's arithmetic; the element mask only in steps that cross the
-// causal diagonal or the ragged end of Lk), and feeds dS, packed to bf16
+// keys at a time into m16n8 accumulators, turns them into P = exp2(S -
+// lse2) and dS = P (dP - D) in place (the element mask only in steps that
+// cross the causal diagonal or the ragged end of Lk), and feeds dS, packed
+// to bf16
 // pairs, as the A fragments of dQ += dS K.  lse2 and D are indexed by row
 // here, by column in the dK/dV pass (S^T there).
 
@@ -393,6 +249,236 @@ cudaError_t launch_dq_tc(const BwdParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// --- the six-product forms (fp32) ------------------------------------------
+//
+// The dK/dV pass is kv_outer_x6_body without dQ (flash_attention_bwd.cuh,
+// which the fused kernel runs with dQ): query tiles of 32 rows, 106 KB of
+// shared memory at d = 64, two blocks an SM below d = 128.
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 2)
+flash_attention_bwd_dkv_x6_kernel(const BwdParams p) {
+  kv_outer_x6_body<D, false>(p);
+}
+
+// The dQ pass is flash_attention_bwd_dq_tc_kernel's mirror with every
+// product mma_x6: one block per (batch * head, tile of 64 query rows),
+// heavy tiles first, each warp owning 16 rows.  The block's q * scale2 and
+// dO arrive in fp32 once and are split once into three planes each, from
+// which the warps read their A fragments each step (held in registers, the
+// six planes of both would cost 24 D / 16 registers a thread).  K and V
+// tiles of kKT keys arrive in fp32 by cp.async into one stage while the
+// tile before is computed, and the whole block splits each once into three
+// planes a tensor.  A warp computes S and dP for NK keys at a time, turns
+// them into dS in place in fp32 (exp2f, the mask, dS = P (dP - D) with
+// __fmul_rn: the fused x6 body's arithmetic), splits dS in registers into
+// the A fragments of dQ += dS K (acc_as_a_x6), and adds each 16 keys'
+// products to dQ by mma_x6_add: a row's dQ stays in registers across all
+// its keys, so the sums are fresh ones, as an fp32 sum's error grows.
+// Tiles of 32 keys: 98 KB of shared memory at d = 64, two blocks an SM
+// below d = 128 (64 keys would take 142 KB at d = 64 and 276 KB at 128).
+
+template <int D>
+struct DqX6 {
+  static constexpr int kKT = 32;                  // keys a tile
+  static constexpr int NK = D <= 64 ? 32 : 16;    // keys a step (at d = 128
+                                                  // 32 spill)
+  static constexpr int P = TcShape<D>::P;
+  static constexpr int F = kF32Pitch<D>;
+  static constexpr int kQPlane = kTcBlock * P;    // elements of a plane
+  static constexpr int kKPlane = kKT * P;
+  // at d = 128 the products' loops over the head dim are not unrolled
+  static constexpr int kUnroll = D <= 64 ? 8 : 1;
+  // byte offsets: the planes of q * scale2 and dO, those of k and v, and
+  // the fp32 stage (k, v [kKT][F]); q and dO arrive in fp32 over the
+  // planes of k and v and the stage
+  static constexpr int kKvOff = 6 * kQPlane * 2;
+  static constexpr int kStageOff = kKvOff + 6 * kKPlane * 2;
+  static constexpr int kSmem = kStageOff + 2 * kKT * F * 4;
+  static_assert(2 * kTcBlock * F * 4 <= kSmem - kKvOff, "q, dO staging");
+  static_assert(kSmem <= 232448, "shared memory");
+};
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 2)
+flash_attention_bwd_dq_x6_kernel(const BwdParams p) {
+  using X = DqX6<D>;
+  constexpr int kKT = X::kKT, NK = X::NK, F = X::F;
+  constexpr int kQPlane = X::kQPlane, kKPlane = X::kKPlane;
+  extern __shared__ uint4 x6_smem[];
+  char* sm = reinterpret_cast<char*>(x6_smem);
+  bf16* qpl = reinterpret_cast<bf16*>(sm);       // q * scale2's [64][P] x 3
+  bf16* opl = qpl + 3 * kQPlane;                 // dO's
+  bf16* kpl = reinterpret_cast<bf16*>(sm + X::kKvOff);   // k's [kKT][P] x 3
+  bf16* vpl = kpl + 3 * kKPlane;                 // v's
+  float* kst = reinterpret_cast<float*>(sm + X::kStageOff);  // k [kKT][F]
+  float* vst = kst + kKT * F;                    // v
+  float* qdst = reinterpret_cast<float*>(sm + X::kKvOff);  // q, dO [64][F]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int row0 = (gridDim.x - 1 - blockIdx.x) * kTcBlock;
+  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  const int hk = h / (p.H / p.Hkv);
+  const size_t rows = (size_t)bh * p.Lq;
+  const size_t kv_rows = ((size_t)b * p.Hkv + hk) * p.Lk;
+
+  // Keys the block needs; the warp's rows and the keys they may see.
+  const int block_last = min(row0 + kTcBlock, p.Lq) - 1;
+  const int kend = p.causal ? max(0, min(p.Lk, block_last + p.q_offset + 1))
+                            : p.Lk;
+  const int tiles = (kend + kKT - 1) / kKT;
+  const int rw = row0 + warp * 16;
+  const int wlimit =
+      rw >= p.Lq ? 0
+                 : (p.causal ? min(p.Lk, min(rw + 15, p.Lq - 1) +
+                                             p.q_offset + 1)
+                             : p.Lk);
+
+  auto load_stage = [&](int t) {
+    load_tile_f32<D, kKT>(kst, p.k, kv_rows, t * kKT, p.Lk, tid);
+    load_tile_f32<D, kKT>(vst, p.v, kv_rows, t * kKT, p.Lk, tid);
+  };
+  auto split_stage = [&]() {
+    split_tile<D, kKT>(kpl, kKPlane, kst, 1.f, tid);
+    split_tile<D, kKT>(vpl, kKPlane, vst, 1.f, tid);
+  };
+
+  // q and dO, then the first tile
+  load_tile_f32<D, kTcBlock>(qdst, p.q, rows, row0, p.Lq, tid);
+  load_tile_f32<D, kTcBlock>(qdst + kTcBlock * F, p.dout, rows, row0, p.Lq,
+                             tid);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  split_tile<D, kTcBlock>(qpl, kQPlane, qdst, p.scale2, tid);
+  split_tile<D, kTcBlock>(opl, kQPlane, qdst + kTcBlock * F, 1.f, tid);
+  __syncthreads();   // q and dO in fp32 read before their space is reused
+  if (tiles > 0) load_stage(0);
+  cp_async_commit();
+  // this thread's rows rw + lane / 4 and rw + lane / 4 + 8: lse in base 2
+  // (+inf past Lq, so that P is 0 there) and D
+  float lse2[2], delta[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int i = rw + (lane >> 2) + 8 * hh;
+    lse2[hh] = i < p.Lq ? bwd_lse2(p.lse[rows + i]) : INFINITY;
+    delta[hh] = i < p.Lq ? p.delta[rows + i] : 0.f;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  if (tiles > 0) split_stage();
+  __syncthreads();
+  if (tiles > 1) load_stage(1);
+  cp_async_commit();
+
+  float dq[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+
+  for (int t = 0; t < tiles; ++t) {
+#pragma unroll
+    for (int sub = 0; sub < kKT; sub += NK) {
+      const int kc = t * kKT + sub;   // the step's first key
+      if (kc >= wlimit) continue;     // the warp's rows see none of them
+      const bool full = kc + NK <= p.Lk &&
+                        !(p.causal && kc + NK - 1 > rw + p.q_offset);
+      // S = (q scale2) K^T and dP = dO V^T
+      float s[NK / 8][4], dp[NK / 8][4];
+#pragma unroll
+      for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll (X::kUnroll)
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t qa[3][4];
+#pragma unroll
+        for (int pl = 0; pl < 3; ++pl)
+          a_frag<D>(qa[pl], qpl + pl * kQPlane, warp * 16, kk, lane);
+#pragma unroll
+        for (int n2 = 0; n2 < NK / 16; ++n2) {
+          uint32_t bk[3][4];
+#pragma unroll
+          for (int pl = 0; pl < 3; ++pl)
+            b_frags_nk<D>(bk[pl], kpl + pl * kKPlane, sub + 16 * n2, kk,
+                          lane);
+          mma_x6(s[2 * n2], qa, bk[0], bk[1], bk[2]);
+          mma_x6(s[2 * n2 + 1], qa, bk[0] + 2, bk[1] + 2, bk[2] + 2);
+        }
+      }
+#pragma unroll (X::kUnroll)
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t oa[3][4];
+#pragma unroll
+        for (int pl = 0; pl < 3; ++pl)
+          a_frag<D>(oa[pl], opl + pl * kQPlane, warp * 16, kk, lane);
+#pragma unroll
+        for (int n2 = 0; n2 < NK / 16; ++n2) {
+          uint32_t bv[3][4];
+#pragma unroll
+          for (int pl = 0; pl < 3; ++pl)
+            b_frags_nk<D>(bv[pl], vpl + pl * kKPlane, sub + 16 * n2, kk,
+                          lane);
+          mma_x6(dp[2 * n2], oa, bv[0], bv[1], bv[2]);
+          mma_x6(dp[2 * n2 + 1], oa, bv[0] + 2, bv[1] + 2, bv[2] + 2);
+        }
+      }
+      // P = exp2(S - lse2) and dS = P (dP - D) in place of dP, in fp32; row
+      // r is the thread's row lane / 4 + 8 (e / 2)
+#pragma unroll
+      for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float pr = exp2f(s[j][e] - lse2[e >> 1]);
+          if (!full) {
+            const int key = kc + 8 * j + 2 * (lane & 3) + (e & 1);
+            const int i = rw + (lane >> 2) + 8 * (e >> 1);
+            if (key >= p.Lk || (p.causal && key > i + p.q_offset)) pr = 0.f;
+          }
+          // __fmul_rn: no fused multiply-add into the split
+          dp[j][e] = __fmul_rn(pr, dp[j][e] - delta[e >> 1]);
+        }
+      // dQ += dS K over the step's keys, 16 at a time
+#pragma unroll
+      for (int kk = 0; kk < NK / 16; ++kk) {
+        uint32_t da[3][4];
+        acc_as_a_x6(da, dp, kk);
+#pragma unroll
+        for (int n2 = 0; n2 < D / 16; ++n2) {
+          uint32_t bk[3][4];
+#pragma unroll
+          for (int pl = 0; pl < 3; ++pl)
+            b_frags_kn<D>(bk[pl], kpl + pl * kKPlane, sub + 16 * kk, 16 * n2,
+                          lane);
+          mma_x6_add(dq[2 * n2], da, bk[0], bk[1], bk[2]);
+          mma_x6_add(dq[2 * n2 + 1], da, bk[0] + 2, bk[1] + 2, bk[2] + 2);
+        }
+      }
+    }
+    cp_async_wait<0>();   // tile t + 1 has landed
+    __syncthreads();      // the planes of tile t are no longer read
+    if (t + 1 < tiles) split_stage();
+    __syncthreads();      // the planes of tile t + 1 written, the stage read
+    if (t + 2 < tiles) load_stage(t + 2);
+    cp_async_commit();
+  }
+
+  store_rows_f32<D>(p.dq, rows, rw, p.Lq, dq, p.scale, lane);
+}
+
+template <int D>
+cudaError_t launch_dq_x6(const BwdParams& p, cudaStream_t stream) {
+  constexpr int kSmem = DqX6<D>::kSmem;
+  auto kernel = flash_attention_bwd_dq_x6_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Lq + kTcBlock - 1) / kTcBlock, p.B * p.H);
+  kernel<<<grid, kTcThreads, kSmem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 // --- launches ---------------------------------------------------------------
 
 template <int D>
@@ -402,13 +488,13 @@ cudaError_t launch_pass(const BwdParams& p, bool dkv, bool tc,
     return dkv ? launch_kv_outer_tc<D, false>(
                      flash_attention_bwd_dkv_tc_kernel<D>, p, stream)
                : launch_dq_tc<D>(p, stream);
-  return dkv ? launch_kv_outer<D>(flash_attention_bwd_dkv_kernel<D>, p,
-                                  stream)
-             : launch_dq<D>(p, stream);
+  return dkv ? launch_kv_outer_x6<D, false>(
+                   flash_attention_bwd_dkv_x6_kernel<D>, p, stream)
+             : launch_dq_x6<D>(p, stream);
 }
 
-// The checks every entry makes (tc: bf16 only; else fp32 only), then the
-// launch of the pass at head dim d.
+// The checks every entry makes (tc: bf16 only; else, the six-product
+// form, fp32 only), then the launch of the pass at head dim d.
 cudaError_t launch_any(const BwdParams& p, bool dkv, int d, int dtype,
                        bool tc, cudaStream_t stream) {
   if (dtype != (tc ? 1 : 0) ||
@@ -429,8 +515,9 @@ cudaError_t launch_any(const BwdParams& p, bool dkv, int d, int dtype,
 
 extern "C" {
 
-// The dK/dV pass.  dtype: 0 fp32 (the CUDA-core form); the _tc entry takes
-// 1, bf16 (the tensor-core form).  q, k, v, dout, dk and dv share it.
+// The dK/dV pass.  dtype: the _x6 entry takes 0, fp32 (the six-product
+// form); the _tc entry 1, bf16 (the tensor-core form).  q, k, v, dout, dk
+// and dv share it.
 // Writes dk and dv [B, Hkv, Lk, d] (zeros for keys no query row sees).
 #define TF_DKV_ENTRY(symbol, tc)                                              \
   int symbol(const void* q, const void* k, const void* v, const void* dout,  \
@@ -457,9 +544,9 @@ extern "C" {
                       static_cast<cudaStream_t>(stream));                    \
   }
 
-TF_DKV_ENTRY(tf_flash_attention_bwd_dkv, false)
+TF_DKV_ENTRY(tf_flash_attention_bwd_dkv_x6, false)
 TF_DKV_ENTRY(tf_flash_attention_bwd_dkv_tc, true)
-TF_DQ_ENTRY(tf_flash_attention_bwd_dq, false)
+TF_DQ_ENTRY(tf_flash_attention_bwd_dq_x6, false)
 TF_DQ_ENTRY(tf_flash_attention_bwd_dq_tc, true)
 
 }  // extern "C"

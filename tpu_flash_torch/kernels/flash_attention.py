@@ -29,14 +29,14 @@ VMEM and grid steps and is not retuned for the H100):
     dQ pass (one block per query tile, the loop over KV tiles ending at the
     causal limit).  Each output is written once, and two calls give the same
     bits.
-Each kernel has a form for each dtype, picked by ``_form_name``: bf16 runs
-its products on the tensor cores (``mma.sync`` bf16 with fp32 sums, launches
-counted under the kernel's name + ``TC``); fp32 runs the forward and the
-fused backward on the tensor cores too, each fp32 product as six bf16
-products of its operands split in three (``split3_bf16``, ``matmul_x6``: the
-TPU's Precision.HIGHEST algorithm; counted under the name + ``X6``), and the
-two passes as exact FMAs on the CUDA cores (counted under the name).  The
-plain versions are ``flash_attention_backward_plain`` (fused) and its halves
+Each kernel has a form for each dtype, picked by ``_form_name``, both on
+the tensor cores: bf16 runs each product as one ``mma.sync`` bf16 product
+with fp32 sums (launches counted under the kernel's name + ``TC``); fp32 as
+six bf16 products of its operands split in three (``split3_bf16``,
+``matmul_x6``: the TPU's Precision.HIGHEST algorithm; counted under the
+name + ``X6``), its sums over the sequence (P.V, dK, dV, and dQ in the dQ
+pass) each step's six products summed apart and added in fp32.  The plain
+versions are ``flash_attention_backward_plain`` (fused) and its halves
 ``flash_attention_backward_dkv_plain`` / ``_dq_plain``,
 which recompute P and dS the same way.  ``D = rowsum(dO * O) - dlse`` is a
 torch op outside the kernels, as it is plain XLA outside Pallas in the JAX
@@ -89,7 +89,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def _dq_chunk(dtype: torch.dtype, d: int) -> int:
     """Query rows a chunk of the fused backward's ordered dQ adds: the
     form's query tile (``kTcTile`` of flash_attention_tc.cuh; ``BwdX6``'s
-    ``kQT`` of flash_attention_bwd.cu in fp32, 32 at d = 128)."""
+    ``kQT`` of flash_attention_bwd.cuh in fp32, 32 at d = 128)."""
     return 32 if dtype == torch.float32 and d > 64 else 64
 
 
@@ -299,15 +299,12 @@ def _kernel_inputs(*tensors):
 
 def _form_name(kernel: str, dtype: torch.dtype) -> str:
     """``kernel``'s launch-count name in its form for ``dtype`` (its C entry
-    is ``tf_`` + the name): bf16 the tensor-core form, the name + ``TC``
-    (``mma.sync`` bf16 products with fp32 sums, the TPU kernels' numerics,
-    at every head dim of ``HEAD_DIMS``); fp32 the forward's and the fused
-    backward's six-product form, the name + ``X6`` (each fp32 product six
-    ``mma.sync`` bf16 products, ``matmul_x6``), and the two passes'
-    CUDA-core form, the name (exact fp32 FMAs, never TF32)."""
-    if dtype == torch.bfloat16:
-        return kernel + TC
-    return kernel + (X6 if kernel in (KERNEL_FWD, KERNEL_BWD) else "")
+    is ``tf_`` + the name), at every head dim of ``HEAD_DIMS``: bf16 the
+    tensor-core form, the name + ``TC`` (``mma.sync`` bf16 products with
+    fp32 sums, the TPU kernels' numerics); fp32 the six-product form, the
+    name + ``X6`` (each fp32 product six ``mma.sync`` bf16 products,
+    ``matmul_x6``, never TF32)."""
+    return kernel + (TC if dtype == torch.bfloat16 else X6)
 
 
 def _launch_forward(q, k, v, causal, scale, q_offset, with_m):
