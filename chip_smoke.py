@@ -14,20 +14,26 @@ ported paths:
   under ``torch.profiler``; the engine against ``generate`` and the kernel
   against the plain path end to end;
 * quantized serving: the int8, packed-int4 and grouped-int4 matmul kernels
-  in their four forms (for bf16 x the tensor-core decode form at M <= 8 and
-  the tensor-core prefill form above; for fp32 x the CUDA-core decode and
-  prefill forms) against their plain versions (fp32 and bf16 x, M 1 to
+  in their five forms (for bf16 x the tensor-core decode form at M <= 8 and
+  the tensor-core prefill form above; for fp32 x the CUDA-core decode form
+  and above M = 8 the fp32 tensor-core prefill form, three bf16 products a
+  product, for int8 and grouped int4, the CUDA-core prefill form for int4
+  per column) against their plain versions (fp32 and bf16 x, M 1 to
   1024, the serving model's linears and ragged shapes; each call checked to
-  launch its form, the tensor-core decode form to give the same bits twice;
-  each form's limit checked against a perturbed row) and their times at
-  decode and at 256- and 1024-token prefills of every serving linear, each
-  bf16 decode call checked under the profiler to run one kernel; the 176M
-  model converted by ``quantize_model_linears`` (int8, int4, int4 in groups
-  of 128) serving the same 16 requests, each decode step checked to launch
-  its matmul kernel once a Linear in the tensor-core decode form and each
-  prefill in the tensor-core prefill form, with the logits' error against
-  the bf16 model; and the engine against ``generate`` and kernel against
-  plain end to end for each of the three in fp32 (the CUDA-core forms);
+  launch its form, the tensor-core decode and fp32 prefill forms to give
+  the same bits twice; each form's limit checked against a perturbed row),
+  the fp32 prefill form and the plain fp32 version each against a float64
+  product at M1024 K4096 N1024, and their times at decode and at 256- and
+  1024-token prefills of every serving linear (fp32 x at K1024 N4096),
+  each bf16 decode call checked under the profiler to run one kernel; the
+  176M model converted by ``quantize_model_linears`` (int8, int4, int4 in
+  groups of 128) serving the same 16 requests, each decode step checked to
+  launch its matmul kernel once a Linear in the tensor-core decode form and
+  each prefill in the tensor-core prefill form, with the logits' error
+  against the bf16 model; and the engine against ``generate`` and kernel
+  against plain end to end for each of the three in fp32 (decode steps in
+  the CUDA-core decode form, prefills in the fp32 tensor-core form but for
+  int4 per column);
 * training: the flash-attention forward and fused backward kernels, in the
   six-product form for fp32 (each fp32 product six bf16 products on the
   tensor cores) and the tensor-core form for bf16 (each call checked to
@@ -78,7 +84,8 @@ ported paths:
 
 The build phase logs each kernel's registers, stack and spills as ptxas
 reports them, and fails if a flash-attention kernel's tensor-core or
-six-product form or a quantized matmul's tensor-core decode form spills.
+six-product form or a quantized matmul's tensor-core decode or fp32 prefill
+form spills.
 Modes (b) and (e) run the forward and the fused backward in their
 tensor-core form, mode (a) in their six-product form.
 
@@ -138,6 +145,10 @@ BF16_FLOPS = 989e12            # H100 SXM data sheet, dense tensor cores
 # flash kernels' fp32 form, the TPU's Precision.HIGHEST), 164.8 TFLOP/s, the
 # least time the card takes for one; the bound of every fp32 product here.
 FP32_FLOPS = BF16_FLOPS / 6
+# A product of an fp32 x and an integer code exact in bf16: three bf16
+# products on the tensor cores (the quantized matmuls' fp32-x prefill form,
+# x split in three), 329.7 TFLOP/s; the bound of that form alone.
+FP32_X3_FLOPS = BF16_FLOPS / 3
 CUDA_CORE_FLOPS = 67e12        # H100 SXM data sheet, fp32 on the CUDA cores
 # Every flash-attention kernel has a form for each dtype (fa._form_name):
 # bf16 the tensor-core form, counted under the name + common.TC; fp32 the
@@ -160,16 +171,19 @@ TRAINING_KERNELS = (ATTENTION_X6 + ATTENTION_TC + TWO_PASS + TWO_PASS_TC
 QUANT_SOURCES = ("int8_matmul", "int4_matmul")
 # The quantized matmul kernels by launch count, with (bits, group size) and
 # the TPU kernel each replaces; bf16 x runs the tensor-core forms, counted
-# under the name + common.DEC (decode, M <= 8) and + common.TC (prefill), fp32
-# x the CUDA-core forms under the name.
+# under the name + common.DEC (decode, M <= 8) and + common.TC (prefill);
+# fp32 x above M = 8 the fp32 tensor-core form where the kernel has it
+# (quant.X3_KERNELS: int8 and grouped int4), the name + common.X3; the rest
+# of fp32 x the CUDA-core forms under the name.
 QUANT = {"int8_matmul": (8, None, "quant.py:49"),
          "int4_matmul": (4, None, "quant.py:228"),
          "int4_matmul_group": (4, 128, "quant.py:258")}
 QUANT_TC = tuple(n + common.TC for n in QUANT)
 QUANT_DEC = tuple(n + common.DEC for n in QUANT)
+QUANT_X3 = tuple(n + common.X3 for n in quant.X3_KERNELS)
 # Launch-count (and profiler) names, and the sources built from csrc/.
 KERNELS = (("flash_decode",) + TRAINING_KERNELS + tuple(QUANT) + QUANT_TC
-           + QUANT_DEC)
+           + QUANT_DEC + QUANT_X3)
 SOURCES = (("flash_decode",) + ATTENTION + (TWO_PASS_SOURCE,) + FUSED
            + QUANT_SOURCES)
 SERVING = dict(n_vocab=32768, n_embd=1024, n_head=16, n_positions=8192,
@@ -293,11 +307,12 @@ ATTN_CASES = [
 SERVING_LINEARS = ((1024, 1024), (1024, 4096), (4096, 1024), (1024, 32768))
 # Quantized matmuls, kernel vs plain on the same inputs, M rows of x each
 # (1 and 8 the decode forms, above 8 the prefill forms; bf16 the
-# tensor-core forms, fp32 the CUDA-core forms): the serving linears, a
-# ragged K and N (K odd for int4 per column; grouped, K = 256 in groups of
-# 64), and groups of 64 at 1024 x 1024.  N 304 ends in a ragged tile of the
-# tensor-core decode form; N 300, not a multiple of 16, takes the CUDA-core
-# decode form at M <= 8 in bf16 too.
+# tensor-core forms, fp32 the CUDA-core decode form and above 8 the fp32
+# tensor-core form, the CUDA-core one for int4 per column): the serving
+# linears, a ragged K and N (K odd for int4 per column; grouped, K = 256 in
+# groups of 64), and groups of 64 at 1024 x 1024.  N 304 ends in a ragged
+# tile of the tensor-core decode form; N 300, not a multiple of 16, takes
+# the CUDA-core decode form at M <= 8 in bf16 too.
 QUANT_M = (1, 8, 9, 100, 256, 1024)
 QUANT_CASES = {
     "int8_matmul": [(K, N, None) for K, N in SERVING_LINEARS]
@@ -315,16 +330,22 @@ QUANT_TOL = {torch.float32: (0.0, 1e-5, 1e-5),
              torch.bfloat16: (0.0, 1e-2, 2e-2)}
 # bf16 x: decode (M = 8) and prefills of 256 and 1024 tokens (a chunk of
 # prefill_chunk=256, the longest bucket) at each serving linear; fp32 x at
-# one decode and one prefill shape, the CUDA-core forms.
+# K1024 N4096, decode (the CUDA-core form) and the same two prefills (the
+# fp32 tensor-core form; int4 per column the CUDA-core one).
 QUANT_TIMED = [(M, K, N, torch.bfloat16) for M in (8, 256, 1024)
                for K, N in SERVING_LINEARS] + [
-                   (M, 1024, 4096, torch.float32) for M in (8, 1024)]
+                   (M, 1024, 4096, torch.float32) for M in (8, 256, 1024)]
 # the kernels line's shapes: bf16 decode for the tensor-core decode form, a
 # 1024-token bf16 prefill for the tensor-core prefill form, fp32 decode for
-# the CUDA-core forms (run by the fp32 end-to-end serving checks)
+# the CUDA-core forms (run by the fp32 end-to-end serving checks), a
+# 1024-token fp32 prefill for the fp32 tensor-core form
 QUANT_MAIN_SHAPE = (8, 1024, 4096, torch.bfloat16)
 QUANT_TC_SHAPE = (1024, 1024, 4096, torch.bfloat16)
 QUANT_CUDA_CORE_SHAPE = (8, 1024, 4096, torch.float32)
+QUANT_X3_SHAPE = (1024, 1024, 4096, torch.float32)
+# The fp32 tensor-core form against float64, beside the plain fp32 version:
+# its largest error at most X3_FP64_RATIO times the plain one's.
+QUANT_FP64_SHAPE, X3_FP64_RATIO = (1024, 4096, 1024), 2.0
 # The quantized serving modes: weights, KV cache, chunked prefill, drive,
 # and the JAX tests' limit on the logits' error against the float model
 # (tests/test_quant.py:80, :218).
@@ -1341,8 +1362,11 @@ def quant_form(kind, M, N, dtype) -> str:
     """The launch-count name a call of ``kind`` at M rows of ``dtype`` x
     and N columns adds to (the plan's form; every group here is a multiple
     of 16): bf16 the tensor-core forms, but at M <= 8 only where 16 divides
-    N; the rest the CUDA-core forms."""
-    if dtype != torch.bfloat16 or (M <= 8 and N % 16):
+    N; fp32 above M = 8 the fp32 tensor-core form where the kernel has it;
+    the rest the CUDA-core forms."""
+    if dtype != torch.bfloat16:
+        return kind + common.X3 if M > 8 and kind in quant.X3_KERNELS else kind
+    if M <= 8 and N % 16:
         return kind
     return kind + (common.DEC if M <= 8 else common.TC)
 
@@ -1386,11 +1410,12 @@ def quant_cases(gen) -> dict:
     """The three quantized matmul kernels against their plain versions on
     the same inputs, fp32 and bf16 x, at every M of ``QUANT_M``, each call
     checked to launch the form its plan names; returns the largest error of
-    each form by launch name; the tensor-core decode form is also called a
-    second time and must give the same bits.  Every shape is logged before
+    each form by launch name; the tensor-core decode form and the fp32
+    tensor-core form are also called a second time and must give the same
+    bits.  Every shape is logged before
     a disagreement fails the phase; the first case of each form and dtype
     also checks that its limit fails a perturbed row."""
-    worst = dict.fromkeys((*QUANT, *QUANT_TC, *QUANT_DEC), 0.0)
+    worst = dict.fromkeys((*QUANT, *QUANT_TC, *QUANT_DEC, *QUANT_X3), 0.0)
     failed, largest, power_checked = [], {}, set()
     for kind, cases in QUANT_CASES.items():
         bits = QUANT[kind][0]
@@ -1407,7 +1432,7 @@ def quant_cases(gen) -> dict:
                     before = common.launch_counts[form]
                     got = quant_matmul(kind, x, q, "kernel")
                     launched = common.launch_counts[form] - before
-                    same = (form not in QUANT_DEC or torch.equal(
+                    same = (form not in QUANT_DEC + QUANT_X3 or torch.equal(
                         got, quant_matmul(kind, x, q, "kernel")))
                     ref = quant_matmul(kind, x, q, "plain")
                     torch.cuda.synchronize()
@@ -1472,7 +1497,9 @@ def quant_times(gen) -> dict:
             library_ms = rotating_ms(lambda d: x @ d, deqs, iters=20)
             nbytes = wbytes + item * (M * K + M * N)   # codes, scales, x, out
             flops = 2 * M * K * N
-            peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+            form = quant_form(kind, M, N, dtype)
+            peak = (BF16_FLOPS if dtype == torch.bfloat16 else FP32_X3_FLOPS
+                    if form in QUANT_X3 else FP32_FLOPS)
             bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
                      "operations": flops / peak * 1e3}
             bound_by = max(bound, key=bound.get)
@@ -1496,13 +1523,49 @@ def quant_times(gen) -> dict:
                 row["ring"] = f"{plan.stages}x{plan.stage_rows} rows"
                 check(len(run) == 3 and all("_dec_kernel" in k for k in run),
                       f"{kind} M{M} K{K} N{N}: 3 decode calls ran {run}")
-            log({"phase": "kernel_time",
-                 "kernel": quant_form(kind, M, N, dtype),
+            log({"phase": "kernel_time", "kernel": form,
                  "shape": f"M{M} K{K} N{N} {dname} x",
                  "library": f"x @ W dequantized to {dname}", **row})
             rows[(kind, (M, K, N, dtype))] = row
             del q, qs, deqs
     return rows
+
+
+def quant_x3_vs_fp64(gen) -> dict:
+    """The fp32 tensor-core form of each kernel that has it against the
+    float64 product of the same x and weights at ``QUANT_FP64_SHAPE``,
+    beside the plain fp32 version (cuBLAS's fp32 GEMM with TF32 off, then
+    the scales): the largest and the rms error of each; the form's largest
+    must be at most ``X3_FP64_RATIO`` times the plain one's.  Returns the
+    form's largest error by launch name."""
+    M, K, N = QUANT_FP64_SHAPE
+    x = torch.randn(M, K, generator=gen, device=DEV)
+    w = torch.randn(K, N, generator=gen, device=DEV)
+    worst, failed = {}, []
+    for kind in quant.X3_KERNELS:
+        bits, group, _ = QUANT[kind]
+        q = quantized(w, bits, group)
+        codes = q[0] if bits == 8 else quant.unpack_int4(q[0], K)
+        exact = x.double() @ quant.dequantize(codes, q[1], K).double()
+        errs = {}
+        for impl in ("kernel", "plain"):
+            d = quant_matmul(kind, x, q, impl).double() - exact
+            errs[impl] = {"max_abs": float(d.abs().max()),
+                          "rms": float(d.square().mean().sqrt())}
+        ratio = errs["kernel"]["max_abs"] / errs["plain"]["max_abs"]
+        form = kind + common.X3
+        log({"phase": "quant_x3_vs_float64", "kernel": form,
+             "shape": f"M{M} K{K} N{N} fp32 x"
+             + (f", groups of {group}" if group else ""),
+             "kernel_err": errs["kernel"], "plain_fp32_err": errs["plain"],
+             "max_abs_over_plain": ratio, "limit": X3_FP64_RATIO})
+        if not ratio <= X3_FP64_RATIO:
+            failed.append(f"{form}: {ratio}")
+        worst[form] = errs["kernel"]["max_abs"]
+        del q, codes, exact
+    check(not failed, f"fp32 tensor-core form against float64: {failed} "
+                      f"times the plain fp32 version's error")
+    return worst
 
 
 def gemm_kind(name: str) -> str | None:
@@ -1947,7 +2010,8 @@ def quantized_serving(model) -> dict[str, int]:
 def end_to_end(kind: str | None = None) -> dict[str, int]:
     """Serving end to end at full width, 2 layers, fp32 with TF32 off,
     with float weights or, with ``kind``, quantized for that matmul kernel
-    (fp32 x: the CUDA-core forms): engine tokens against generate's and the
+    (fp32 x: the CUDA-core decode form, prefills in the fp32 tensor-core
+    form where the kernel has it): engine tokens against generate's and the
     uncached forward's, and one decode step's logits with the kernels
     against the plain path.  Returns the launches of the ``generate`` and
     engine runs."""
@@ -1981,6 +2045,10 @@ def end_to_end(kind: str | None = None) -> dict[str, int]:
     served = dict(common.launch_counts)
     # A token may differ only where the uncached forward's top-2 gap is a
     # near tie; the comparison of that sequence stops there.
+    if kind in quant.X3_KERNELS:
+        # every prefill (M > 8) in the fp32 tensor-core form
+        check(served.get(kind + common.X3, 0) > 0,
+              f"{kind}: no prefill ran {kind + common.X3}: {served}")
     compared = ties = 0
     with torch.no_grad():
         for i, p in enumerate(prompts):
@@ -2065,22 +2133,25 @@ def main() -> int:
                for k, r in ptxas_report(built[n].log).items()}
     tc = {k: r for k, r in reports.items() if "_tc_kernel" in k}
     x6 = {k: r for k, r in reports.items() if "_x6_kernel" in k}
-    dec = {k: r for n in QUANT_SOURCES
-           for k, r in ptxas_report(built[n].log).items()
-           if "_dec_kernel" in k}
-    spills = {k: r for k, r in {**tc, **x6, **dec}.items()
+    quant_reports = {k: r for n in QUANT_SOURCES
+                     for k, r in ptxas_report(built[n].log).items()}
+    dec = {k: r for k, r in quant_reports.items() if "_dec_kernel" in k}
+    x3 = {k: r for k, r in quant_reports.items() if "_x3_kernel" in k}
+    spills = {k: r for k, r in {**tc, **x6, **dec, **x3}.items()
               if r.get("spill_stores", 0) or r.get("spill_loads", 0)}
     log({"phase": "tensor_core_spills",
-         "kernels": len(tc) + len(x6) + len(dec), "six_product_form": x6,
-         "decode_form": dec, "spilling": spills})
+         "kernels": len(tc) + len(x6) + len(dec) + len(x3),
+         "six_product_form": x6, "decode_form": dec,
+         "fp32_prefill_form": x3, "spilling": spills})
     # the decode form: a kernel a mode at tiles of 32, 64 and 128 columns
     check(len(tc) == 4 * len(fa.HEAD_DIMS)
           and len(x6) == (len(ATTENTION_X6) + len(TWO_PASS))
           * len(fa.HEAD_DIMS)
-          and len(dec) == 3 * len(QUANT) and not spills,
+          and len(dec) == 3 * len(QUANT) and len(x3) == len(QUANT_X3)
+          and not spills,
           f"the tensor-core kernels spill or are missing: {len(tc)} flash, "
-          f"{len(x6)} six-product, {len(dec)} quantized decode reported, "
-          f"{spills}")
+          f"{len(x6)} six-product, {len(dec)} quantized decode, {len(x3)} "
+          f"quantized fp32 prefill reported, {spills}")
 
     gen = torch.Generator(DEV).manual_seed(0)
     worst = kernel_cases(gen)
@@ -2097,6 +2168,7 @@ def main() -> int:
     fused_rows = fused_times(gen)
     fused_dispatch_times(gen)
     quant_worst = quant_cases(gen)
+    x3_fp64 = quant_x3_vs_fp64(gen)
     quant_rows = quant_times(gen)
 
     cfg = DecoderConfig(**SERVING)
@@ -2111,8 +2183,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     end_to_end()
     for kind in QUANT:
-        # fp32 weights' serving runs the CUDA-core forms
-        launches[kind] = launches.get(kind, 0) + end_to_end(kind).get(kind, 0)
+        # fp32 weights' serving: decode steps in the CUDA-core decode form,
+        # prefills in the fp32 tensor-core form where the kernel has it
+        served = end_to_end(kind)
+        for n in (kind, kind + common.X3):
+            launches[n] = launches.get(n, 0) + served.get(n, 0)
 
     # launches a step, both configs having 4 layers: each attention kernel
     # once a layer, in its dtype's form; each LayerNorm kernel twice a layer
@@ -2255,10 +2330,14 @@ def main() -> int:
                       else "B32 H8 Lq256 Lk256 causal fp32")})
     forms = ((common.DEC, QUANT_MAIN_SHAPE, "the tensor-core decode form"),
              (common.TC, QUANT_TC_SHAPE, "the tensor-core prefill form"),
-             ("", QUANT_CUDA_CORE_SHAPE, "the CUDA-core decode form"))
+             ("", QUANT_CUDA_CORE_SHAPE, "the CUDA-core decode form"),
+             (common.X3, QUANT_X3_SHAPE, "the fp32 tensor-core prefill form"))
     for n, (_, _, line) in QUANT.items():
         for suffix, shape, what in forms:
-            form, r = n + suffix, quant_rows[(n, shape)]
+            form = n + suffix
+            if suffix == common.X3 and form not in QUANT_X3:
+                continue
+            r = quant_rows[(n, shape)]
             entries.append({
                 "name": form, "route": "cuda",
                 "source": "tpu_flash_torch/kernels/csrc/{}.cu".format(
@@ -2272,6 +2351,8 @@ def main() -> int:
                     *shape[:3], str(shape[3]).split(".")[1])
                 + (", groups of 128" if n == "int4_matmul_group" else "")
                 + f", {what}"})
+            if form in x3_fp64:
+                entries[-1]["max_abs_err_vs_float64"] = x3_fp64[form]
     log({"phase": "total", "seconds": time.perf_counter() - t0})
     log({"kernels": entries})
     print(smi.splitlines()[0], flush=True)

@@ -961,7 +961,9 @@ def test_fused_model_step_launches_the_fused_kernels(cuda_device):
 # 16 (the kernels' byte-wise loads), both block shapes (M <= 8 and above)
 # and split code rows (small N over a long K); bf16 x at M <= 8 runs the
 # tensor-core decode form where 16 divides the group and N, else the
-# CUDA-core decode kernel (the groups of 24 and 8 at M 1 and 8, and N 300).
+# CUDA-core decode kernel (the groups of 24 and 8 at M 1 and 8, and N 300);
+# fp32 x above M = 8 runs the fp32 tensor-core form (``_x3``) for int8 and
+# for groups that are a multiple of 16, the CUDA-core form for the rest.
 
 QUANT_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 2e-2)}
 QUANT_SHAPES = [(1, 255, 300), (8, 1024, 384), (37, 513, 200),
@@ -988,11 +990,15 @@ def quant_case(gen, dev, kind, M, K, N, g, dtype):
 
 
 def form_name(kind, M, N, g, dtype):
-    """The launch count a call adds to: the tensor-core forms' (bf16 x,
-    groups a multiple of 16: ``_dec`` at M <= 8 where 16 divides N too,
-    ``_tc`` above) or the CUDA-core forms'."""
-    if (dtype != torch.bfloat16 or (g is not None and g % 16)
-            or (M <= 8 and N % 16)):
+    """The launch count a call adds to: the tensor-core forms' (groups a
+    multiple of 16; bf16 x: ``_dec`` at M <= 8 where 16 divides N too,
+    ``_tc`` above; fp32 x above M = 8 ``_x3``, but not for int4 per
+    column) or the CUDA-core forms'."""
+    if g is not None and g % 16:
+        return kind
+    if dtype != torch.bfloat16:
+        return kind + common.X3 if M > 8 and kind != "int4_matmul" else kind
+    if M <= 8 and N % 16:
         return kind
     return kind + (common.DEC if M <= 8 else common.TC)
 
@@ -1035,9 +1041,64 @@ def test_quant_matmul_kernels_match_plain(cuda_device, dtype, kind, M, K, N,
     ("int4_matmul_group", 256, 300, 64)])
 def test_prefill_forms_match_plain(cuda_device, dtype, M, kind, K, N, g):
     """The prefill forms: bf16 x takes the tensor-core form, fp32 x the
-    CUDA-core one, at the serving model's K1024 N4096 and at ragged K and N
-    (odd K for int4 per column)."""
+    fp32 tensor-core form (int4 per column: the CUDA-core one), at the
+    serving model's K1024 N4096 and at ragged K and N (odd K for int4 per
+    column)."""
     check_quant_case(cuda_device, dtype, kind, M, K, N, g)
+
+
+X3_CASES = [("int8_matmul", None), ("int4_matmul_group", 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,g", X3_CASES)
+@pytest.mark.parametrize("M,K,N", [(1024, 1024, 4096), (37, 768, 200),
+                                   (256, 4096, 1024)])
+def test_x3_form_repeats_its_bits(cuda_device, kind, g, M, K, N):
+    """Two calls of the fp32 tensor-core form on the same inputs give the
+    same bits (a fixed order of sums, no atomics; K4096 N1024 at M256
+    splits the code rows)."""
+    gen = torch.Generator(cuda_device).manual_seed(12)
+    call = quant_case(gen, cuda_device, kind, M, K, N, g, torch.float32)
+    before = common.launch_counts[kind + common.X3]
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    assert common.launch_counts[kind + common.X3] == before + 2
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,g", X3_CASES)
+def test_x3_form_error_against_float64(cuda_device, kind, g):
+    """At M1024 K4096 N1024 the fp32 tensor-core form's largest error
+    against the float64 product of the same x and weights is at most twice
+    the plain fp32 version's (its products are summed apart a 64-row step,
+    grouped 16 rows, at a time and added rounded to nearest: the tensor
+    cores' own sums truncate)."""
+    from tpu_flash_torch.kernels import quant
+
+    gen = torch.Generator(cuda_device).manual_seed(13)
+    M, K, N = 1024, 4096, 1024
+    x = torch.randn(M, K, generator=gen, device=cuda_device)
+    w = torch.randn(K, N, generator=gen, device=cuda_device)
+    if kind == "int8_matmul":
+        q = quant.quantize_weight(w)
+        codes, scales = q
+    else:
+        packed, scales, _ = quant.quantize_weight_int4(w, group_size=g)
+        codes = quant.unpack_int4(packed, K)
+        q = (packed, scales)
+    exact = x.double() @ quant.dequantize(codes, scales, K).double()
+    if kind == "int8_matmul":
+        got, plain = (quant.int8_matmul(x, *q, impl=impl)
+                      for impl in ("kernel", "plain"))
+    else:
+        got, plain = (quant.int4_matmul(x, *q, k_dim=K, impl=impl)
+                      for impl in ("kernel", "plain"))
+    torch.cuda.synchronize()
+    err = float((got.double() - exact).abs().max())
+    plain_err = float((plain.double() - exact).abs().max())
+    assert err <= 2 * plain_err, (err, plain_err)
 
 
 # The tensor-core decode form (bf16 x, M <= 8): every serving linear of the
@@ -1109,10 +1170,11 @@ def test_decode_form_runs_one_kernel_a_call(cuda_device, kind, g):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits,g", [(8, None), (4, None), (4, 32)])
 def test_quantized_linears_train_x_through_the_kernels(cuda_device, bits, g):
-    """int8_linear / int4_linear on CUDA tensors: the forward launches its
-    kernel; dx of the per-column forms launches the int8 kernel on the
-    transposed codes, the grouped form's a dense matmul; values and dx
-    agree with the plain route."""
+    """int8_linear / int4_linear on CUDA tensors, fp32 x of 15 rows: the
+    forward launches its kernel (the fp32 tensor-core form, but for int4
+    per column); dx of the per-column forms launches the int8 kernel's
+    fp32 tensor-core form on the transposed codes, the grouped form's a
+    dense matmul; values and dx agree with the plain route."""
     from tpu_flash_torch.kernels import quant
 
     gen = torch.Generator(cuda_device).manual_seed(9)
@@ -1137,7 +1199,9 @@ def test_quantized_linears_train_x_through_the_kernels(cuda_device, bits, g):
         launched = {n: common.launch_counts[n] - before.get(n, 0)
                     for n in common.launch_counts}
         outs[impl] = (out, dx, {n: c for n, c in launched.items() if c})
-    want = {kind: 1} if g else {kind: 1, "int8_matmul": 1 + (bits == 8)}
+    x3 = "int8_matmul" + common.X3
+    want = ({kind + common.X3: 1} if g else {x3: 2} if bits == 8
+            else {kind: 1, x3: 1})
     assert outs[None][2] == want and not outs["plain"][2]
     for a, b in zip(outs[None][:2], outs["plain"][:2]):
         assert_within(a.detach(), b.detach(), 1e-5, 1e-5)
@@ -1160,6 +1224,32 @@ def test_quant_kernel_that_fails_to_launch_raises(cuda_device, monkeypatch):
     assert common.launch_counts["int8_matmul"] == before
     with pytest.raises(TypeError, match="int8"):
         quant.int8_matmul(x, codes.to(torch.int16), scales)
+
+
+@pytest.mark.cuda
+def test_quant_x3_kernel_that_fails_to_launch_raises(cuda_device,
+                                                     monkeypatch):
+    """The fp32 tensor-core form raises as the other forms do, for a grid
+    the card refuses and for a plan its C entry refuses (int4 per column
+    has no such kernel), and counts nothing: no call falls back to the
+    CUDA-core form or to the plain version."""
+    from tpu_flash_torch.kernels import quant
+
+    x = torch.randn(16, 128, device=cuda_device)
+    w = torch.randn(128, 16, device=cuda_device)
+    codes, scales = quant.quantize_weight(w)
+    packed, scales4, _ = quant.quantize_weight_int4(w)
+    before = dict(common.launch_counts)
+    monkeypatch.setattr(quant, "_plan", lambda *a: quant.Plan(
+        "tensor_core_x3", 128, 128, 70_000, 64, 70_000))
+    with pytest.raises(RuntimeError, match="int8_matmul_x3 kernel failed"):
+        quant.int8_matmul(x, codes, scales)
+    monkeypatch.setattr(quant, "_plan", lambda *a: quant.Plan(
+        "tensor_core_x3", 128, 128, 1, 64, 1))
+    with pytest.raises(RuntimeError, match="int4_matmul_x3 kernel failed"):
+        quant.int4_matmul(x, packed, scales4, k_dim=128)
+    torch.cuda.synchronize()
+    assert dict(common.launch_counts) == before
 
 
 @pytest.mark.cuda

@@ -1,12 +1,15 @@
 """The quantized matmuls' launch plan (``kernels/quant.py`` ``_plan``), a
-pure function of the shape, the dtype, the group and the card's count of
-streaming multiprocessors, so it runs here without a card: which form each
-shape takes (bf16 x where the tensor cores' k depth of 16 divides the group:
-``decode_tc`` at M <= 8, the tensor-core form above; otherwise the CUDA-core
-forms, ``decode`` at M <= 8), its tile, its splits of the code rows, its
-ring, and that every decode and prefill shape of the 176M serving model
-fills an H100's 132 multiprocessors.  ``_launch`` runs here too with its C
-entry replaced by a recorder, to show what a decode call hands the kernel."""
+pure function of the shape, the dtype, the group, the card's count of
+streaming multiprocessors and whether the kernel has the fp32-x form, so it
+runs here without a card: which form each shape takes (where the tensor
+cores' k depth of 16 divides the group, bf16 x takes ``decode_tc`` at M <= 8
+and the tensor-core form above, fp32 x above M = 8 ``tensor_core_x3`` for
+int8 and grouped int4; otherwise the CUDA-core forms, ``decode`` at M <=
+8), its tile, its splits of the code rows, its ring, and that every decode
+and prefill shape of the 176M serving model fills an H100's 132
+multiprocessors.  ``_launch`` runs here too with its C entry replaced by a
+recorder, to show what a decode call and an fp32 prefill call hand the
+kernel."""
 
 import pytest
 import torch
@@ -26,6 +29,12 @@ def weights(kind, K):
             "int4_g128": (cdiv(K, 2), 128)}[kind]
 
 
+# whether each kind's kernel has the fp32-x form (quant.X3_KERNELS)
+X3 = {"int8": quant.KERNEL_INT8 in quant.X3_KERNELS,
+      "int4": quant.KERNEL_INT4 in quant.X3_KERNELS,
+      "int4_g128": quant.KERNEL_INT4_GROUP in quant.X3_KERNELS}
+
+
 @pytest.mark.parametrize("M,dtype,group,form", [
     (1, BF16, None, "decode_tc"),
     (8, BF16, 128, "decode_tc"),
@@ -41,6 +50,33 @@ def weights(kind, K):
 ])
 def test_the_form_follows_m_dtype_and_group(M, dtype, group, form):
     assert quant._plan(M, 1024, 512, SMS, dtype, group).form == form
+
+
+def test_the_kernels_with_the_fp32_x_form():
+    assert X3 == {"int8": True, "int4": False, "int4_g128": True}
+
+
+@pytest.mark.parametrize("M,kind,group,form", [
+    (9, "int8", None, "tensor_core_x3"),
+    (1024, "int8", None, "tensor_core_x3"),
+    (9, "int4_g128", 128, "tensor_core_x3"),
+    (1024, "int4_g128", 128, "tensor_core_x3"),
+    (100, "int4_g128", 16, "tensor_core_x3"),
+    (9, "int4", None, "cuda_core"),
+    (1024, "int4", None, "cuda_core"),
+    (100, "int4_g128", 8, "cuda_core"),
+    (100, "int4_g128", 24, "cuda_core"),
+    (8, "int8", None, "decode"),
+    (1, "int4_g128", 128, "decode"),
+])
+def test_fp32_x_takes_the_x3_form_where_the_kernel_has_it(M, kind, group,
+                                                          form):
+    """fp32 x above M = 8 takes the fp32 tensor-core form for int8 and for
+    int4 in groups that are a multiple of 16; int4 per column, other groups
+    and M <= 8 keep the CUDA-core forms.  bf16 x ignores ``x3``."""
+    assert quant._plan(M, 1024, 512, SMS, FP32, group, X3[kind]).form == form
+    bf16 = quant._plan(M, 1024, 512, SMS, BF16, group)
+    assert quant._plan(M, 1024, 512, SMS, BF16, group, X3[kind]) == bf16
 
 
 @pytest.mark.parametrize("M,dtype,group,form", [
@@ -79,6 +115,22 @@ def test_tiles_and_splits(M, N, rows, dtype, group, want):
     assert tuple(quant._plan(M, N, rows, SMS, dtype, group)) == want
 
 
+@pytest.mark.parametrize("M,N,rows,group,want", [
+    # form, bm, bn, splits, chunk, blocks: [128, 128] tiles, a block an SM
+    (1024, 4096, 1024, None, ("tensor_core_x3", 128, 128, 1, 1024, 256)),
+    (1024, 4096, 512, 128, ("tensor_core_x3", 128, 128, 1, 512, 256)),
+    (256, 4096, 1024, None, ("tensor_core_x3", 128, 128, 4, 320, 256)),
+    (1024, 1024, 4096, None, ("tensor_core_x3", 128, 128, 4, 1344, 256)),
+    (16, 1024, 512, 128, ("tensor_core_x3", 128, 128, 8, 64, 64)),
+    (300, 300, 255, None, ("tensor_core_x3", 128, 128, 4, 64, 36)),
+])
+def test_x3_tiles_and_splits(M, N, rows, group, want):
+    """The fp32-x form's tiles, and its splits of the code rows by the
+    tensor-core prefill rule (whole 64-row chunks, rounded down)."""
+    plan = quant._plan(M, N, rows, SMS, FP32, group, True)
+    assert tuple(plan) == (*want, 0, 0)
+
+
 def pr4_plan(M, N, rows, sms):
     """The decode and CUDA-core forms' plan as it stood before the
     tensor-core form: (bm, splits, chunk)."""
@@ -93,10 +145,14 @@ def pr4_plan(M, N, rows, sms):
                                            (8, FP32, None), (9, FP32, None),
                                            (1024, FP32, None)])
 def test_the_cuda_core_forms_keep_their_plan(M, dtype, group):
+    """As the plan stood before the tensor-core forms, for the shapes that
+    keep the CUDA-core forms: fp32 x above M = 8 only for int4 per column
+    (int8 takes the fp32 tensor-core form there)."""
+    kinds = ("int4",) if dtype == FP32 and M > 8 else ("int8", "int4")
     for K, N in SERVING_LINEARS + ((255, 300), (96, 130)):
-        for kind in ("int8", "int4"):
+        for kind in kinds:
             rows, _ = weights(kind, K)
-            plan = quant._plan(M, N, rows, SMS, dtype, group)
+            plan = quant._plan(M, N, rows, SMS, dtype, group, X3[kind])
             assert plan.form in ("decode", "cuda_core")
             assert (plan.bm, plan.splits, plan.chunk) == pr4_plan(M, N, rows,
                                                                   SMS)
@@ -204,13 +260,52 @@ def test_splits_cover_the_rows_in_whole_slabs(dtype, group, sms):
     """Every split is a whole number of the form's slabs (the C entry
     refuses others), the splits cover the code rows and none is empty."""
     slab = {"decode": 128, "cuda_core": 32, "tensor_core": 64,
-            "decode_tc": 64}
+            "decode_tc": 64, "tensor_core_x3": 64}
     for M in (1, 8, 9, 64, 129, 1024):
         for N in (5, 64, 300, 4096):
             for rows in (1, 31, 96, 255, 512, 2048):
-                plan = quant._plan(M, N, rows, sms, dtype, group)
-                assert plan.chunk % slab[plan.form] == 0
-                assert (plan.splits - 1) * plan.chunk < rows
-                assert plan.splits * plan.chunk >= rows
-                assert plan.blocks == (cdiv(N, plan.bn) * cdiv(M, plan.bm)
-                                       * plan.splits)
+                for x3 in (False, True):
+                    plan = quant._plan(M, N, rows, sms, dtype, group, x3)
+                    assert plan.chunk % slab[plan.form] == 0
+                    assert (plan.splits - 1) * plan.chunk < rows
+                    assert plan.splits * plan.chunk >= rows
+                    assert plan.blocks == (cdiv(N, plan.bn)
+                                           * cdiv(M, plan.bm) * plan.splits)
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4", "int4_g128"])
+def test_an_fp32_prefill_call_hands_the_kernel_its_plan(monkeypatch, kind):
+    """One fp32 call at M256 K1024 N4096: int8 and int4 in groups of 128
+    launch form 4 (the fp32 tensor-core form) with the plan's 128 columns,
+    64-row chunks and its splits over an fp32 workspace, counted under the
+    kernel's name + ``_x3``; int4 per column launches form 1 (the CUDA-core
+    prefill form), counted under its name."""
+    rec = Recorder()
+    monkeypatch.setattr(quant, "entry", lambda *a: (None, None))
+    monkeypatch.setattr(quant, "call_on_stream", rec)
+    monkeypatch.setattr(quant, "_sms", lambda dev: SMS)
+    gen = torch.Generator().manual_seed(1)
+    w = torch.randn(1024, 4096, generator=gen)
+    x = torch.randn(256, 1024, generator=gen)
+    before = dict(quant.launch_counts)
+    if kind == "int8":
+        name, group, rows, extra = quant.KERNEL_INT8, None, 1024, ()
+        quant._launch(name, "tf_int8_matmul", name, x,
+                      *quant.quantize_weight(w), rows, extra)
+    else:
+        group = 128 if kind == "int4_g128" else None
+        packed, scales, _ = quant.quantize_weight_int4(w, group_size=group)
+        name = quant.KERNEL_INT4_GROUP if group else quant.KERNEL_INT4
+        rows, extra = 512, (scales.shape[0] if group else 0,)
+        quant._launch(quant.KERNEL_INT4, "tf_int4_matmul", name, x, packed,
+                      scales, rows, extra, group)
+    plan = quant._plan(256, 4096, rows, SMS, FP32, group, X3[kind])
+    (args,) = rec.calls
+    x3 = kind != "int4"
+    assert plan.form == ("tensor_core_x3" if x3 else "cuda_core")
+    assert (args[4] is not None) == (plan.splits > 1)
+    assert args[5:] == (256, 4096, 1024, *extra, 4 if x3 else 1, plan.bn,
+                        plan.chunk, plan.splits, 0, 0, 0)
+    launched = {n: c - before.get(n, 0) for n, c in quant.launch_counts.items()
+                if c != before.get(n, 0)}
+    assert launched == {name + ("_x3" if x3 else ""): 1}

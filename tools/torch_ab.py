@@ -8,7 +8,13 @@ a check that two calls of each backward give the same bits; and the
 quantized matmuls (``int8_matmul`` / ``int4_matmul`` of
 ``kernels/quant.py``, int8, int4 and int4 in groups of 128) at bf16 decode
 (M 8) on each linear of the 176M serving model and at one 1024-token
-prefill, weights rotating past the 50 MB L2, with the same check; and the
+prefill, and int8 and int4 in groups of 128 at fp32 prefills of 256 and
+1024 tokens at K1024 N4096, weights rotating past the 50 MB L2, with the
+same check; the fused LayerNorm forward and backward at R8192 H256 and the
+masked softmax forward and backward at B32 H8 L256 causal (fp32, the
+reference MT shapes), and flash decode at B8 H16 d64 over an int8 cache
+of 8192 positions at length 1024, inputs rotating past the L2, with the
+same check; and the
 host's time to issue one quantized Linear call (``int8_linear`` /
 ``int4_linear`` under ``torch.no_grad``, as serving calls them) at bf16
 decode on each serving linear, the stream held so that the host never
@@ -51,6 +57,10 @@ QUANT_KINDS = (("int8", None), ("int4", None), ("int4_g128", 128))
 QUANT_SHAPES = tuple((8, K, N) for K, N in ((1024, 1024), (1024, 4096),
                                             (4096, 1024), (1024, 32768))
                      ) + ((1024, 1024, 4096),)
+# fp32 x: prefills at the FF-in linear, for the kinds with an fp32 tensor-core
+# prefill form.
+QUANT_FP32_KINDS = (("int8", None), ("int4_g128", 128))
+QUANT_FP32_SHAPES = ((256, 1024, 4096), (1024, 1024, 4096))
 # chip_smoke.py's long-two-pass step: TRAIN_LONG at 2 layers, B1 L8192, fp32.
 TRAIN_STEP = dict(n_vocab=10_000, n_embd=512, n_head=8, n_positions=8192,
                   n_layer=2, ff_middle_dim=256, attention_kind="flash",
@@ -121,43 +131,100 @@ def timed_rows(torch, fa, device_ms) -> list[dict]:
 def quant_rows(torch, quant, timer) -> list[dict]:
     gen = torch.Generator("cuda").manual_seed(0)
     rows, hosts = [], []
-    for kind, group in QUANT_KINDS:
-        for M, K, N in QUANT_SHAPES:
-            w = torch.randn(K, N, generator=gen, device="cuda")
-            if kind == "int8":
-                q = quant.quantize_weight(w)
+    cases = [(kind, group, shape, torch.bfloat16)
+             for kind, group in QUANT_KINDS for shape in QUANT_SHAPES] + [
+                 (kind, group, shape, torch.float32)
+                 for kind, group in QUANT_FP32_KINDS
+                 for shape in QUANT_FP32_SHAPES]
+    for kind, group, (M, K, N), dtype in cases:
+        w = torch.randn(K, N, generator=gen, device="cuda")
+        if kind == "int8":
+            q = quant.quantize_weight(w)
 
-                def call(x, *q):
-                    return quant.int8_matmul(x, *q)
+            def call(x, *q):
+                return quant.int8_matmul(x, *q)
 
-                qw = quant.QuantizedLinearWeights(*q)
-                linear = quant.int8_linear
-            else:
-                q = quant.quantize_weight_int4(w, group_size=group)[:2]
+            qw = quant.QuantizedLinearWeights(*q)
+            linear = quant.int8_linear
+        else:
+            q = quant.quantize_weight_int4(w, group_size=group)[:2]
 
-                def call(x, *q):
-                    return quant.int4_matmul(x, *q, k_dim=K)
+            def call(x, *q):
+                return quant.int4_matmul(x, *q, k_dim=K)
 
-                qw = quant.QuantizedLinearWeights4(*q, K)
-                linear = quant.int4_linear
-            x = torch.randn(M, K, generator=gen, device="cuda",
-                            dtype=torch.bfloat16)
-            same = torch.equal(call(x, *q), call(x, *q))
-            rows.append({"what": f"quant {kind}", "dtype": "bfloat16",
-                         "shape": f"M{M} K{K} N{N}", "clock": "device",
-                         "ms": timer.rotating_ms(
-                             lambda *w: call(x, *w), timer.past_l2(*q),
-                             iters=20, reps=5),
-                         "two_calls_same_bits": same})
-            if M <= 8:
-                with torch.no_grad():
-                    us = timer.host_us(lambda: linear(x, qw))
-                hosts.append({"what": f"host {kind} linear",
-                              "dtype": "bfloat16", "shape": f"M{M} K{K} N{N}",
-                              "clock": "host", "ms": us * 1e-3,
-                              "two_calls_same_bits": same})
-            del w, q, qw
+            qw = quant.QuantizedLinearWeights4(*q, K)
+            linear = quant.int4_linear
+        x = torch.randn(M, K, generator=gen, device="cuda", dtype=dtype)
+        same = torch.equal(call(x, *q), call(x, *q))
+        rows.append({"what": f"quant {kind}",
+                     "dtype": str(dtype).split(".")[1],
+                     "shape": f"M{M} K{K} N{N}", "clock": "device",
+                     "ms": timer.rotating_ms(
+                         lambda *w: call(x, *w), timer.past_l2(*q),
+                         iters=20, reps=5),
+                     "two_calls_same_bits": same})
+        if M <= 8:
+            with torch.no_grad():
+                us = timer.host_us(lambda: linear(x, qw))
+            hosts.append({"what": f"host {kind} linear",
+                          "dtype": "bfloat16", "shape": f"M{M} K{K} N{N}",
+                          "clock": "host", "ms": us * 1e-3,
+                          "two_calls_same_bits": same})
+        del w, q, qw
     return rows + hosts
+
+
+def other_rows(torch, timer) -> list[dict]:
+    """The LayerNorm, softmax and decode kernels at PERF.md §6's shapes."""
+    from tpu_flash_torch.kernels.decode import flash_decode_attention
+    from tpu_flash_torch.kernels.layernorm import (layernorm_backward,
+                                                   layernorm_forward)
+    from tpu_flash_torch.kernels.softmax import (attn_softmax_backward,
+                                                 attn_softmax_forward)
+
+    gen = torch.Generator("cuda").manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    R, H = 8192, 256
+    x, dy, g, b = randn(R, H), randn(R, H), 1 + 0.1 * randn(H), randn(H)
+    _, mean, var = layernorm_forward(x, g, b)
+    s = randn(32, 8, 256, 256)
+    p, dp = attn_softmax_forward(s, mask_future=True), randn(*s.shape)
+    B, Hq, d, S, L = 8, 16, 64, 8192, 1024
+    k, v = (torch.randint(-127, 128, (B, S, Hq * d), generator=gen,
+                          device="cuda", dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand(B, Hq, S, generator=gen, device="cuda") / 64
+              for _ in range(2))
+    q = randn(B, Hq, 1, d).to(torch.bfloat16)
+    lengths = torch.full((B,), L, dtype=torch.int32, device="cuda")
+    cases = (
+        ("layernorm fwd", "float32", f"R{R} H{H}", (x,),
+         lambda x: layernorm_forward(x, g, b)),
+        ("layernorm bwd", "float32", f"R{R} H{H}", (dy, x, mean, var),
+         lambda dy, x, mean, var: layernorm_backward(dy, x, g, mean, var)),
+        ("softmax fwd", "float32", "B32 H8 L256 causal", (s,),
+         lambda s: attn_softmax_forward(s, mask_future=True)),
+        ("softmax bwd", "float32", "B32 H8 L256 causal", (p, dp),
+         attn_softmax_backward),
+        ("flash decode", "bfloat16",
+         f"B{B} H{Hq} d{d} S{S} int8 cache, length {L}", (k, v, ks, vs),
+         lambda k, v, ks, vs: flash_decode_attention(q, k, v, lengths, ks,
+                                                     vs)))
+    rows = []
+    for what, dname, shape, args, fn in cases:
+        first, second = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        if isinstance(first, torch.Tensor):
+            first, second = (first,), (second,)
+        rows.append({"what": what, "dtype": dname, "shape": shape,
+                     "clock": "device",
+                     "ms": timer.rotating_ms(fn, timer.past_l2(*args),
+                                             iters=20, reps=5),
+                     "two_calls_same_bits": all(
+                         torch.equal(a, c) for a, c in zip(first, second))})
+    return rows
 
 
 def train_rows(torch, device_ms) -> list[dict]:
@@ -198,10 +265,12 @@ def one(root: str) -> dict:
     where = Path(fa.__file__).resolve()
     assert Path(root).resolve() in where.parents, where
     common.build([fa.KERNEL_FWD, fa.KERNEL_BWD, fa.SOURCE_TWO_PASS,
-                  quant.KERNEL_INT8, quant.KERNEL_INT4])
+                  quant.KERNEL_INT8, quant.KERNEL_INT4, "layernorm_fwd",
+                  "layernorm_bwd", "attn_softmax_fwd", "attn_softmax_bwd",
+                  "flash_decode"])
     timer = timing()
     return {"root": root, "rows": timed_rows(torch, fa, timer.device_ms)
-            + quant_rows(torch, quant, timer)
+            + quant_rows(torch, quant, timer) + other_rows(torch, timer)
             + train_rows(torch, timer.device_ms)}
 
 

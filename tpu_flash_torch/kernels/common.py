@@ -43,10 +43,12 @@ launch_counts: collections.Counter[str] = collections.Counter()
 # A kernel's tensor-core form counts its launches under the name + TC; the
 # quantized matmuls' tensor-core decode form under the name + DEC; the flash
 # kernels' fp32 form on the tensor cores (six bf16 products a product)
-# under the name + X6.
+# under the name + X6; the quantized matmuls' fp32-x prefill form on the
+# tensor cores (three bf16 products a product) under the name + X3.
 TC = "_tc"
 DEC = "_dec"
 X6 = "_x6"
+X3 = "_x3"
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -58,6 +60,20 @@ def cdiv(a: int, b: int) -> int:
 
 def round_up(x: int, m: int) -> int:
     return cdiv(x, m) * m
+
+
+def split3_bf16(x: torch.Tensor):
+    """fp32 ``x`` as three bf16 tensors ``(hi, mid, lo)``, each rounded to
+    the nearest (ties to even): ``hi = bf16(x)``, ``mid = bf16(x - hi)``,
+    ``lo = bf16(x - hi - mid)``.  Each subtraction is exact in fp32, so
+    ``hi + mid + lo == x`` wherever the residuals stay normal: the operand
+    split of the fp32 kernels' tensor-core forms (``split3_pair`` in
+    csrc/mma.cuh)."""
+    x = x.float()
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -9,16 +9,19 @@
 //
 // What bounds it: at decode (M <= 8) the code bytes, read once (4.29 MB at
 // K1024 N4096: 1.28 us at 3.35 TB/s; 1 MB for a 1024 x 1024 projection:
-// 0.31 us); at prefill (M up to 1024) the operations, 2 M K N of them.
-// Four forms, chosen by the wrapper (kernels/quant.py _plan), each
+// 0.31 us); at prefill (M up to 1024) the operations, 2 M K N of them (fp32
+// x: three bf16 products each, 2 M K N / 329.7 TFLOP/s).
+// Five forms, chosen by the wrapper (kernels/quant.py _plan), each
 // described in quant_matmul.cuh: bf16 x at M <= 8 (N a multiple of 16)
 // runs int8_matmul_dec_kernel (one launch, the code rows split over a thread-
 // block cluster and summed in distributed shared memory, a TMA ring, the
 // tensor cores with the tokens as the n8 side); bf16 x at M > 8
 // int8_matmul_tc_kernel (bf16 products of x and the codes converted exactly
-// to bf16 in shared memory, fp32 sums on the tensor cores); fp32 x, and
-// other N at M <= 8, the CUDA-core kernels (_m8, _m64: fp32 FMAs).  No
-// form writes a dequantized copy of W.
+// to bf16 in shared memory, fp32 sums on the tensor cores); fp32 x at M > 8
+// int8_matmul_x3_kernel (x split into three bf16 planes in shared memory,
+// each code product three bf16 products on the tensor cores); fp32 x at
+// M <= 8, and other N at M <= 8, the CUDA-core kernels (_m8, _m64: fp32
+// FMAs).  No form writes a dequantized copy of W.
 //
 // C entry: tf_int8_matmul(...) launches on the given stream, allocates
 // nothing and returns cudaGetLastError() (or cudaErrorInvalidValue for
@@ -43,6 +46,11 @@ int8_matmul_tc_kernel(const QParams p) {
   quant_matmul_tc_body<kInt8>(p);
 }
 
+__global__ void __launch_bounds__(kTcThreads)
+int8_matmul_x3_kernel(const QParams p) {
+  quant_matmul_x3_body<kInt8>(p);
+}
+
 template <int BN>
 __global__ void __launch_bounds__(kDecThreads)
 int8_matmul_dec_kernel(const __grid_constant__ QDecParams d) {
@@ -58,10 +66,10 @@ extern "C" {
 // 128, chunks of 32), 2 prefill on the tensor cores (bf16, bn 64, chunks of
 // 64), 3 decode on the tensor cores (bf16, M <= 8, N a multiple of 16, bn
 // 32, 64 or 128, chunks a multiple of 64, `splits` <= 8 the cluster,
-// stage_rows and stages each warp's ring, no workspace).  The code rows are
-// split into `splits` ranges of `chunk` rows; forms 0-2 with splits > 1
-// take part, an fp32 [splits, M, N]
-// workspace.
+// stage_rows and stages each warp's ring, no workspace), 4 prefill on the
+// tensor cores for fp32 x (fp32, bn 128, chunks of 64).  The code rows are
+// split into `splits` ranges of `chunk` rows; forms 0-2 and 4 with splits >
+// 1 take part, an fp32 [splits, M, N] workspace.
 int tf_int8_matmul(const void* x, const void* codes, const float* scales,
                    void* out, float* part, int M, int N, int K, int form,
                    int bn, int chunk, int splits, int stage_rows, int stages,
@@ -73,6 +81,7 @@ int tf_int8_matmul(const void* x, const void* codes, const float* scales,
       {int8_matmul_kernel_m8,
        int8_matmul_kernel_m64,
        int8_matmul_tc_kernel,
+       int8_matmul_x3_kernel,
        {int8_matmul_dec_kernel<32>, int8_matmul_dec_kernel<64>,
         int8_matmul_dec_kernel<128>}},
       p, false, form, bn, splits, stage_rows, stages, true,

@@ -5,7 +5,8 @@
 // shared memory by cp.async or by TMA (cp.async.bulk.tensor) completing on
 // an mbarrier, fragment loads by ldmatrix, the m16n8k16 product, the
 // packing of two values into a bf16 pair, and an fp32-accurate product as
-// six bf16 products (the flash kernels' fp32 forms).
+// six bf16 products (the flash kernels' fp32 forms) or, where the other
+// operand is exact in bf16, three (the quantized matmuls' fp32 form).
 //
 // Fragments of mma.sync.m16n8k16 (lane = 4 * g + t, g = lane / 4):
 //   A (16 x 16, row major): a[0] row g, columns 2t, 2t + 1; a[1] row g + 8;
@@ -183,6 +184,27 @@ __device__ __forceinline__ void mma_x6_add(float* c,
                                            const uint32_t* bl) {
   float t[4] = {0.f, 0.f, 0.f, 0.f};
   mma_x6(t, a, bh, bm, bl);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] += t[i];
+}
+
+// c += a b where only a is fp32 (its planes a[0] hi, a[1] mid, a[2] lo) and
+// b is exact in bf16 (the quantized matmuls' integer codes): hi.b + mid.b
+// + lo.b is the whole product, each of the three exact in the tensor cores,
+// summed lo first.  The plain version is kernels/quant.py matmul_x3.
+__device__ __forceinline__ void mma_x3(float* c, const uint32_t (&a)[3][4],
+                                       const uint32_t* b) {
+  mma_bf16(c, a[2], b);
+  mma_bf16(c, a[1], b);
+  mma_bf16(c, a[0], b);
+}
+
+// mma_x3 into a fresh accumulator, added to c rounded to nearest, as
+// mma_x6_add.
+__device__ __forceinline__ void mma_x3_add(float* c, const uint32_t (&a)[3][4],
+                                           const uint32_t* b) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_x3(t, a, b);
 #pragma unroll
   for (int i = 0; i < 4; ++i) c[i] += t[i];
 }

@@ -20,15 +20,18 @@
 // FMA and in a bf16 tensor-core product, so every form gives the TPU
 // kernels' numbers up to the order of the sums.
 //
-// Four forms, picked by the wrapper (kernels/quant.py _plan), each a kernel
+// Five forms, picked by the wrapper (kernels/quant.py _plan), each a kernel
 // of its own:
 //   * decode on the tensor cores (bf16 x, M <= 8, groups and N a multiple
 //     of 16): quant_matmul_dec_body below, one launch a call, no workspace;
 //   * prefill on the tensor cores (bf16 x, M > 8, groups a multiple of
 //     16): quant_matmul_tc_body below;
-//   * the CUDA-core forms (fp32 x, groups that are not a multiple of 16,
-//     and at M <= 8 N that is not): quant_matmul_body, BM = 8 (M <= 8) or
-//     64.
+//   * prefill on the tensor cores for fp32 x (M > 8; int8, and int4 in
+//     groups that are a multiple of 16): quant_matmul_x3_body below, x
+//     split into three bf16 planes, three products a product;
+//   * the CUDA-core forms (fp32 x at M <= 8 and int4 per column at M > 8,
+//     groups that are not a multiple of 16, and at M <= 8 N that is not):
+//     quant_matmul_body, BM = 8 (M <= 8) or 64.
 //
 // The CUDA-core forms: one block of 256 threads (8 warps) per [BM, 128]
 // tile of out and per split of the code rows (blockIdx.z).  Each slab of BK
@@ -581,6 +584,326 @@ __device__ __forceinline__ void quant_matmul_tc_body(const QParams& p) {
       }
 }
 
+// --- the fp32-x prefill form ----------------------------------------------
+//
+// For fp32 x at M > 8 (int8, and int4 in groups that are a multiple of 16):
+// the tensor-core prefill form's steps, code conversion and warps' 32 rows,
+// on tiles twice as wide.  A code is exact in bf16, so with x = hi + mid +
+// lo (split3_pair, exact) x c = hi c + mid c + lo c, each of the three
+// products exact in the tensor cores: three bf16 products a product, where
+// two fp32 operands take six, and as accurate as an fp32 FMA up to the
+// order of the sums.
+//   * x's [128, 64] fp32 tile (32 KB, twice the bf16 tile) comes by
+//     cp.async into a ring of kX3Stages stages.  Each thread splits the x
+//     pieces it loaded itself, one step ahead as it converts its codes, into
+//     x's three bf16 planes (two buffers of [3][128][72]), which the warps
+//     read with ldmatrix as the bf16 form reads x.  Only the thread that
+//     loads a piece reads it from the ring, so it refills the stage as soon
+//     as it has split it, with no block barrier: with two stages the loads
+//     run two steps ahead of the split.
+//   * [128, 128] tiles of out (a warp 32 x 64): each block splits its x
+//     tiles, and reads them from L2, once for each 128 columns of out (N /
+//     128 times: 128 MB of x at M1024 K1024 N4096 where 64 columns read
+//     256 MB), and each A fragment meets eight n8 tiles of codes.
+//   * Shared memory: ring 2 x (32 + 8) KB, planes 2 x 54 KB, codes 2 x 17
+//     KB: 222 KB, one block an SM (the bf16 form's 106 KB fits two); a
+//     third stage does not fit in the 227 KB a block may have.
+//   * The tensor cores truncate each fp32 sum (mma.cuh).  Per column, a
+//     step's twelve products of each tile go in place into a fresh sum,
+//     added to the total rounded to nearest; grouped, each 16 code rows'
+//     three into a fresh sum added to the group's partial (mma_x3_add),
+//     which a rounded fmaf scales into the total at the group's end.
+// A body of its own, beside quant_matmul_tc_body: the two share the
+// conversion of the codes (codes16_bf16) and the tiles' layout, and a
+// template of both compiled the bf16 form 4-5 % slower.
+
+// Columns of out a block; the row pitch of the converted codes (bf16); the
+// ring's stages of fp32 x (rows unpadded: a piece is read by the thread
+// that loaded it, as a float4) and raw codes; the bytes: the ring, the two
+// buffers of converted codes and of x's three planes, 227,328 in all.
+constexpr int kX3BN = 128;
+constexpr int kX3CP = kX3BN + 8;
+constexpr int kX3Stages = 2;
+constexpr int kX3Smem = kX3Stages * (4 * kTcBM * kTcRows + kTcRows * kX3BN) +
+                        2 * 2 * kTcRows * kX3CP + 2 * 3 * 2 * kTcXs;
+static_assert(kX3Smem <= 232448, "the fp32-x form's shared memory");
+
+// The B fragments of the warp's NT n8 tiles of codes (rows of kX3CP bf16)
+// over the 16 rows at kk of the step.
+template <int NT>
+__device__ __forceinline__ void x3_code_fragments(uint32_t (&b)[NT][2],
+                                                  const __nv_bfloat16* cs,
+                                                  int kk, int wn, int lane) {
+#pragma unroll
+  for (int jj = 0; jj < NT / 2; ++jj) {
+    uint32_t r[4];
+    ldmatrix_x4_trans(r, cs + (kk * 16 + (lane & 15)) * kX3CP + wn * NT * 8 +
+                             jj * 16 + (lane >> 4) * 8);
+    b[2 * jj][0] = r[0];
+    b[2 * jj][1] = r[1];
+    b[2 * jj + 1][0] = r[2];
+    b[2 * jj + 1][1] = r[3];
+  }
+}
+
+// c[2][NT] (two m16 tiles by NT n8 tiles of the warp) += x tile . code
+// tile over the 16 columns at kk of the step, x from its three planes (hi
+// at pl, mid and lo kTcXs apart): each code fragment meets the three, in
+// place (mma_x3) or into a fresh sum (FRESH: mma_x3_add).
+template <int NT, bool FRESH>
+__device__ __forceinline__ void mma_k16_x3(float (&c)[2][NT][4],
+                                           const __nv_bfloat16* pl,
+                                           const __nv_bfloat16* cs, int kk,
+                                           int wm, int wn, int lane) {
+  uint32_t a[2][3][4], b[NT][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+      ldmatrix_x4(a[i][q], pl + q * kTcXs +
+                               (wm * 32 + i * 16 + (lane & 15)) * kTcP +
+                               kk * 16 + (lane >> 4) * 8);
+  x3_code_fragments<NT>(b, cs, kk, wn, lane);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if constexpr (FRESH) {
+        mma_x3_add(c[i][j], a[i], b[j]);
+      } else {
+        mma_x3(c[i][j], a[i], b[j]);
+      }
+    }
+}
+
+template <int MODE>
+__device__ __forceinline__ void quant_matmul_x3_body(const QParams& p) {
+  constexpr bool INT4 = MODE != kInt8, GROUP = MODE == kInt4Group;
+  constexpr uint8_t kZero = INT4 ? 0x88 : 0;     // a code of value 0
+  constexpr int NT = kX3BN / 16;                 // n8 tiles a warp
+  constexpr int CR = kX3BN / 16;                 // 16-byte pieces a code row
+  constexpr int XS = kTcBM * kTcRows;            // floats, x, a ring stage
+  constexpr int RAW = kTcRows * kX3BN;           // bytes, raw codes, a stage
+  constexpr int CS = kTcRows * kX3CP;            // bf16, converted codes
+  extern __shared__ uint4 tc_smem[];
+  float* xring = reinterpret_cast<float*>(tc_smem);
+  uint8_t* raw = reinterpret_cast<uint8_t*>(xring + kX3Stages * XS);
+  __nv_bfloat16* cs =
+      reinterpret_cast<__nv_bfloat16*>(raw + kX3Stages * RAW);
+  __nv_bfloat16* planes = cs + 2 * CS;   // [2][hi, mid, lo][BM][kTcP]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int n0 = blockIdx.x * kX3BN, m0 = blockIdx.y * kTcBM;
+  const int kbeg = blockIdx.z * p.chunk;
+  const int kend = min(p.rows, kbeg + p.chunk);
+  // steps over the split's rows, twice for int4 (low codes, then high)
+  const int walk = kbeg < kend ? (kend - kbeg + kTcRows - 1) / kTcRows : 0;
+  const int steps = INT4 ? 2 * walk : walk;
+  const float* x = static_cast<const float*>(p.x);
+  // 16-byte pieces of x's rows (int4: its second half's too) and of the
+  // code rows stay aligned
+  const bool xvec = INT4 ? p.K % 8 == 0 : p.K % 4 == 0;
+  const bool cvec = p.N % 16 == 0;
+
+  // the loads of step s into ring stage st: x's 64 columns (piece idx =
+  // tid + 256 l: row idx / 16, columns (idx % 16) * 4 .. + 4) and the raw
+  // codes (piece idx = tid + 256 c: row idx / CR, columns (idx % CR) * 16
+  // .. + 16)
+  auto load_step = [&](int st, int s) {
+    const int half = INT4 && s >= walk;
+    const int k0 = kbeg + (s - half * walk) * kTcRows;
+#pragma unroll
+    for (int l = 0; l < kTcBM * 16 / kTcThreads; ++l) {
+      const int idx = tid + l * kTcThreads;
+      const int row = idx >> 4, tc = (idx & 15) * 4;
+      const int r = k0 + tc, col = half * p.rows + r, m = m0 + row;
+      float* dst = xring + st * XS + row * kTcRows + tc;
+      if (xvec) {
+        const bool ok = m < p.M && r < kend;
+        cp_async16(dst, ok ? x + (size_t)m * p.K + col : x, ok);
+      } else {
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = m < p.M && r + e < kend && col + e < p.K;
+          dst[e] = ok ? x[(size_t)m * p.K + col + e] : 0.f;
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kTcRows * CR / kTcThreads; ++c) {
+      const unsigned idx = tid + c * kTcThreads;
+      const int crow = idx / CR, ccol = idx % CR * 16;
+      const int kr = k0 + crow, n = n0 + ccol;
+      const uint8_t* src = p.w + (size_t)kr * p.N + n;
+      uint8_t* dst = raw + st * RAW + crow * kX3BN + ccol;
+      if (cvec && kr < kend && n < p.N) {
+        cp_async16(dst, src, true);
+      } else {
+        for (int i = 0; i < 16; ++i)
+          dst[i] = kr < kend && n + i < p.N ? src[i] : kZero;
+      }
+    }
+    cp_async_commit();
+  };
+  // the raw codes this thread loaded for step s (ring stage st) as bf16
+  // into code buffer buf (int4: the nibbles of the step's half), and the x
+  // pieces it loaded split into plane buffer buf
+  auto convert = [&](int st, int buf, int s) {
+#pragma unroll
+    for (int c = 0; c < kTcRows * CR / kTcThreads; ++c) {
+      const unsigned idx = tid + c * kTcThreads;
+      const int crow = idx / CR, ccol = idx % CR * 16;
+      uint4 out[2];
+      codes16_bf16<INT4>(
+          *reinterpret_cast<const uint4*>(raw + st * RAW + crow * kX3BN +
+                                          ccol),
+          INT4 && s >= walk ? 4 : 0, out);
+      uint4* dst =
+          reinterpret_cast<uint4*>(cs + buf * CS + crow * kX3CP + ccol);
+      dst[0] = out[0];
+      dst[1] = out[1];
+    }
+#pragma unroll
+    for (int l = 0; l < kTcBM * 16 / kTcThreads; ++l) {
+      const int idx = tid + l * kTcThreads;
+      const int row = idx >> 4, tc = (idx & 15) * 4;
+      const float4 v = *reinterpret_cast<const float4*>(
+          xring + st * XS + row * kTcRows + tc);
+      uint32_t h[2], m[2], o[2];
+      split3_pair(v.x, v.y, h[0], m[0], o[0]);
+      split3_pair(v.z, v.w, h[1], m[1], o[1]);
+      __nv_bfloat16* at = planes + buf * 3 * kTcXs + row * kTcP + tc;
+      *reinterpret_cast<uint2*>(at) = make_uint2(h[0], h[1]);
+      *reinterpret_cast<uint2*>(at + kTcXs) = make_uint2(m[0], m[1]);
+      *reinterpret_cast<uint2*>(at + 2 * kTcXs) = make_uint2(o[0], o[1]);
+    }
+  };
+
+  // acc: the sum; part: grouped, the group's partial; fresh: per column,
+  // the step's products
+  float acc[2][NT][4], part[2][NT][4], fresh[2][NT][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = part[i][j][e] = 0.f;
+
+  // the columns of out this thread holds in each n8 tile: n, n + 1
+  const int nq = n0 + wn * NT * 8 + 2 * (lane & 3);
+  // scale the group's partial into the sum: srow is a code row of the
+  // group (int4's high half counts from K2)
+  auto fold = [&](int srow) {
+    const float* sc = p.scales + (size_t)(srow / p.group) * p.N;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int n = nq + 8 * j;
+      const float s0 = __ldg(sc + min(n, p.N - 1));
+      const float s1 = __ldg(sc + min(n + 1, p.N - 1));
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        acc[i][j][0] = fmaf(part[i][j][0], s0, acc[i][j][0]);
+        acc[i][j][1] = fmaf(part[i][j][1], s1, acc[i][j][1]);
+        acc[i][j][2] = fmaf(part[i][j][2], s0, acc[i][j][2]);
+        acc[i][j][3] = fmaf(part[i][j][3], s1, acc[i][j][3]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
+      }
+    }
+  };
+
+  // every stage loaded ahead; a thread refills the stage of step s + 1
+  // with step s + 1 + kX3Stages once it has converted its own pieces of it
+#pragma unroll
+  for (int s = 0; s < kX3Stages; ++s) {
+    if (s < steps) {
+      load_step(s, s);
+    } else {
+      cp_async_commit();
+    }
+  }
+  cp_async_wait<kX3Stages - 1>();          // step 0 has landed
+  if (steps > 0) convert(0, 0, 0);
+  if (kX3Stages < steps) {
+    load_step(0, kX3Stages);
+  } else {
+    cp_async_commit();
+  }
+  __syncthreads();
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<kX3Stages - 1>();        // step s + 1 has landed
+    if (s + 1 < steps) convert((s + 1) % kX3Stages, (s + 1) & 1, s + 1);
+    if (s + 1 + kX3Stages < steps) {
+      load_step((s + 1) % kX3Stages, s + 1 + kX3Stages);
+    } else {
+      cp_async_commit();
+    }
+    const __nv_bfloat16* pst = planes + (s & 1) * 3 * kTcXs;
+    const __nv_bfloat16* cst = cs + (s & 1) * CS;
+    const int half = INT4 && s >= walk;
+    const int k0 = kbeg + (s - half * walk) * kTcRows;
+    if constexpr (!GROUP) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) fresh[i][j][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kTcRows / 16; ++kk) {
+      if constexpr (GROUP) {
+        mma_k16_x3<NT, true>(part, pst, cst, kk, wm, wn, lane);
+        const int r0 = k0 + 16 * kk;   // the 16 rows' first code row
+        if (r0 < kend && ((r0 + 16) % p.group == 0 || r0 + 16 >= kend))
+          fold(half * p.rows + r0);
+      } else {
+        mma_k16_x3<NT, false>(fresh, pst, cst, kk, wm, wn, lane);
+      }
+    }
+    if constexpr (!GROUP) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] += fresh[i][j][e];
+    }
+    __syncthreads();
+  }
+
+  // out (or the split's partial sums), two columns at a time
+  const bool pairs = p.N % 2 == 0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int m = m0 + wm * 32 + i * 16 + (lane >> 2) + 8 * hh;
+        const int n = nq + 8 * j;
+        if (m >= p.M || n >= p.N) continue;
+        float v0 = acc[i][j][2 * hh], v1 = acc[i][j][2 * hh + 1];
+        const bool two = n + 1 < p.N;
+        float* dst;
+        if (p.part) {
+          dst = p.part + ((size_t)blockIdx.z * p.M + m) * p.N + n;
+        } else {
+          dst = static_cast<float*>(p.out) + (size_t)m * p.N + n;
+          if constexpr (!GROUP) {
+            v0 *= p.scales[n];
+            if (two) v1 *= p.scales[n + 1];
+          }
+        }
+        if (pairs && two) {
+          *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+        } else {
+          dst[0] = v0;
+          if (two) dst[1] = v1;
+        }
+      }
+}
+
 // --- the tensor-core decode form -------------------------------------------
 //
 // For bf16 x at M <= 8 (groups a multiple of 16): every decode step of a
@@ -976,15 +1299,19 @@ quant_matmul_reduce_kernel(const float* part, const float* scales, void* out,
 }
 
 // The forms, as the C entries take them (kernels/quant.py _FORM_IDS).
-enum Form { kDecode = 0, kCudaCore = 1, kTensorCore = 2, kDecodeTc = 3 };
+enum Form {
+  kDecode = 0, kCudaCore = 1, kTensorCore = 2, kDecodeTc = 3,
+  kTensorCoreX3 = 4
+};
 
 typedef void (*QKernel)(QParams);
 typedef void (*QDecKernel)(QDecParams);
 
 // A source's kernels: the CUDA-core forms (BM 8 and 64), the tensor-core
-// prefill form and the tensor-core decode form at BN 32, 64 and 128.
+// prefill forms for bf16 x and for fp32 x (x3: null where the mode has
+// none) and the tensor-core decode form at BN 32, 64 and 128.
 struct QKernels {
-  QKernel m8, m64, tc;
+  QKernel m8, m64, tc, x3;
   QDecKernel dec[3];
 };
 
@@ -1071,7 +1398,8 @@ int quant_matmul_dec_launch(const QKernels& ks, QParams p, bool int4, int bn,
 // Checks the arguments and launches the kernel of `form`: the tensor-core
 // decode form (above), or the tile kernel of the others (kDecode BM = 8
 // and kCudaCore BM = 64, columns of 128; kTensorCore bf16 only, columns of
-// 64, chunks of 64 rows) and, with more than one split, the reduction.
+// 64, and kTensorCoreX3 fp32 only, columns of 128, both chunks of 64 rows)
+// and, with more than one split, the reduction.
 // Returns cudaGetLastError() after each launch, or cudaErrorInvalidValue for
 // arguments the kernels do not take.
 int quant_matmul_launch(const QKernels& k, QParams p, bool int4, int form,
@@ -1083,20 +1411,24 @@ int quant_matmul_launch(const QKernels& k, QParams p, bool int4, int form,
   if (form == kDecodeTc)
     return quant_matmul_dec_launch(k, p, int4, bn, splits, stage_rows,
                                    stages, stream);
+  const bool tc = form == kTensorCore || form == kTensorCoreX3;
   const int bm = form == kDecode ? 8 : form == kCudaCore ? 64 : kTcBM;
-  const int bk = form == kDecode ? 128 : form == kTensorCore ? kTcRows : 32;
-  if (form < kDecode || form > kTensorCore ||
-      bn != (form == kTensorCore ? kTcBN : kBN) ||
-      (form == kTensorCore && !p.bf16) || p.chunk % bk ||
+  const int bk = form == kDecode ? 128 : tc ? kTcRows : 32;
+  if (form < kDecode || form > kTensorCoreX3 ||
+      bn != (form == kTensorCore ? kTcBN : form == kTensorCoreX3 ? kX3BN
+                                                                 : kBN) ||
+      (form == kTensorCore && !p.bf16) ||
+      (form == kTensorCoreX3 && (p.bf16 || !k.x3)) || p.chunk % bk ||
       (splits > 1) != (p.part != 0))
     return cudaErrorInvalidValue;
-  if (form == kTensorCore) {
+  if (tc) {
+    const QKernel kern = form == kTensorCore ? k.tc : k.x3;
+    const int smem = form == kTensorCore ? kTcSmem : kX3Smem;
     const cudaError_t err = cudaFuncSetAttribute(
-        k.tc, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((p.N + kTcBN - 1) / kTcBN, (p.M + kTcBM - 1) / kTcBM,
-                    splits);
-    k.tc<<<grid, kTcThreads, kTcSmem, stream>>>(p);
+    const dim3 grid((p.N + bn - 1) / bn, (p.M + kTcBM - 1) / kTcBM, splits);
+    kern<<<grid, kTcThreads, smem, stream>>>(p);
   } else {
     const dim3 grid((p.N + kBN - 1) / kBN, (p.M + bm - 1) / bm, splits);
     if (form == kDecode)

@@ -73,6 +73,7 @@ from tpu_flash_torch.kernels.common import (
     kernel_input,
     launch_counts,
     resolve_impl,
+    split3_bf16,
 )
 
 KERNEL_FWD = "flash_attention_fwd"
@@ -154,19 +155,6 @@ def _fold_l(d: int) -> bool:
     softmax normaliser rides the P.V product as a ones column of V, so it
     is the sum of the same P, in the input dtype, that multiplies V."""
     return d < 128
-
-
-def split3_bf16(x: torch.Tensor):
-    """fp32 ``x`` as three bf16 tensors ``(hi, mid, lo)``, each rounded to
-    the nearest (ties to even): ``hi = bf16(x)``, ``mid = bf16(x - hi)``,
-    ``lo = bf16(x - hi - mid)``.  Each subtraction is exact in fp32, so
-    ``hi + mid + lo == x`` wherever the residuals stay normal: the operand
-    split of the fp32 kernels (``split3_pair`` in csrc/mma.cuh)."""
-    x = x.float()
-    hi = x.to(torch.bfloat16)
-    r = x - hi.float()
-    mid = r.to(torch.bfloat16)
-    return hi, mid, (r - mid.float()).to(torch.bfloat16)
 
 
 def matmul_x6(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -13,18 +13,23 @@ even).
 ``int8_matmul`` and ``int4_matmul`` launch ``csrc/int8_matmul.cu`` and
 ``csrc/int4_matmul.cu`` on CUDA tensors and run ``*_plain``, the same
 arithmetic in plain PyTorch, on CPU tensors (``impl="kernel"|"plain"``
-forces one).  Each source holds four forms of its kernels, and ``_plan``, a
-rule on the shape, the dtype and the group, picks one.  bf16 x where the
-tensor cores' k depth of 16 divides the group runs bf16 products with fp32
-sums on the tensor cores: ``decode_tc`` at M <= 8 where 16 divides N too
-(one launch, the code rows split over a thread-block cluster, counted under
-the kernel's name with ``_dec``), ``tensor_core`` above (counted with
-``_tc``).  fp32 x, groups that are not a multiple of 16, and at M <= 8 N
-that is not, run fp32 FMAs on the CUDA cores:
-``decode`` at M <= 8 and ``cuda_core`` above, counted under the kernel's
-name.  All round as the TPU kernels do: the fp32 product of x and the
-integer codes is scaled after the dot (grouped: each group's partial dot is
-scaled, then summed), and the weight is never dequantized first.
+forces one).  Each source holds up to five forms of its kernels, and
+``_plan``, a rule on the shape, the dtype and the group, picks one.  bf16 x
+where the tensor cores' k depth of 16 divides the group runs bf16 products
+with fp32 sums on the tensor cores: ``decode_tc`` at M <= 8 where 16 divides
+N too (one launch, the code rows split over a thread-block cluster, counted
+under the kernel's name with ``_dec``), ``tensor_core`` above (counted with
+``_tc``).  fp32 x at M > 8 runs ``tensor_core_x3`` on the tensor cores
+where the kernel has it (``X3_KERNELS``: int8, and int4 in groups that are a
+multiple of 16; counted with ``_x3``): x split into three bf16 planes, each
+product three exact bf16 products (``matmul_x3`` is that arithmetic in
+plain PyTorch).  The rest (fp32 x at M <= 8, int4 per column in fp32,
+groups that are not a multiple of 16, and at M <= 8 N that is not) runs
+fp32 FMAs on the CUDA cores: ``decode`` at M <= 8 and ``cuda_core`` above,
+counted under the kernel's name.  All round as the TPU kernels do: the
+fp32 product of x and the integer codes is scaled after the dot (grouped:
+each group's partial dot is scaled, then summed), and the weight is never
+dequantized first.
 ``int8_linear`` and ``int4_linear`` are differentiable in x only, as the
 JAX package's ``custom_vjp``s: dx of the per-column forms runs the int8
 kernel on the transposed codes with the scales folded into dy; the grouped
@@ -41,27 +46,34 @@ import torch
 
 from tpu_flash_torch.kernels.common import (
     DEC,
+    TC,
+    X3,
     call_on_stream,
     cdiv,
     check_cuda,
     entry,
     kernel_input,
-    TC,
     launch_counts,
     resolve_impl,
     round_up,
+    split3_bf16,
 )
 
 KERNEL_INT8 = "int8_matmul"
 KERNEL_INT4 = "int4_matmul"          # source, and launches of per-column int4
 KERNEL_INT4_GROUP = "int4_matmul_group"
+# The kernels (by launch-count name) whose source has the fp32-x prefill
+# form on the tensor cores; int4 per column has it not.
+X3_KERNELS = (KERNEL_INT8, KERNEL_INT4_GROUP)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The forms (quant_matmul.cuh): rows and columns of out a block, code rows a
 # slab (the chunks of a split are whole slabs), the blocks wanted for each
 # streaming multiprocessor, and their id in the C entries (``form``).
 _FORMS = {"decode": (8, 128, 128, 2), "cuda_core": (64, 128, 32, 2),
-          "tensor_core": (128, 64, 64, 1), "decode_tc": (8, None, 64, 1)}
-_FORM_IDS = {"decode": 0, "cuda_core": 1, "tensor_core": 2, "decode_tc": 3}
+          "tensor_core": (128, 64, 64, 1), "decode_tc": (8, None, 64, 1),
+          "tensor_core_x3": (128, 128, 64, 1)}
+_FORM_IDS = {"decode": 0, "cuda_core": 1, "tensor_core": 2, "decode_tc": 3,
+             "tensor_core_x3": 4}
 # The tensor-core decode form: blocks a cluster at most (the portable
 # limit); code bytes a warp's ring stage and stages at most (two 4 KB stages
 # a warp streamed lm_head fastest on an H100: tools/torch_decode_plans.py);
@@ -204,6 +216,39 @@ def int4_matmul_plain(x, packed, scales, *, k_dim=None):
     return acc.to(x.dtype)
 
 
+def matmul_x3(x, codes, scales):
+    """The ``_x3`` kernels' arithmetic in plain PyTorch: fp32 ``x`` [M, K]
+    split by ``split3_bf16`` (hi + mid + lo == x); the integer ``codes``
+    [K, N] (int8 codes, or int4 codes unpacked) met by the three planes in
+    steps of rows, lo, mid, hi (smallest first, each product exact), each
+    step's products summed apart and added in row order.  Per-column
+    ``scales`` [N]: steps of 64 rows (the kernel's), the sum times the
+    scales.  Group scales [G, N]: steps of 16 rows added to the group's
+    sum, each group's sum scaled and added to the total group by group (the
+    low half's groups, then the high half's, as the kernel walks the packed
+    rows).  Returns fp32 [M, N].  The CPU tests hold it against the JAX
+    package; no path calls it."""
+    hi, mid, lo = (t.float() for t in split3_bf16(x))
+    c = codes.float()
+    K = x.shape[1]
+    s = scales.float()
+    grouped = s.dim() == 2
+    g, step = (K // s.shape[0], 16) if grouped else (K, 64)
+    acc = None
+    for g0 in range(0, K, g):
+        part = None
+        for k0 in range(g0, min(K, g0 + g), step):
+            r = slice(k0, min(K, g0 + g, k0 + step))
+            fresh = lo[:, r] @ c[r]
+            fresh = fresh + mid[:, r] @ c[r]
+            fresh = fresh + hi[:, r] @ c[r]
+            part = fresh if part is None else part + fresh
+        if grouped:
+            part = part * s[g0 // g]
+        acc = part if acc is None else acc + part
+    return acc if grouped else acc * s
+
+
 # ---------------------------------------------------------------------------
 # Checks (the JAX package's asserts and errors)
 # ---------------------------------------------------------------------------
@@ -242,29 +287,36 @@ def _check_int4(x, packed, scales, k_dim) -> bool:
 
 @functools.lru_cache(maxsize=4096)
 def _plan(M: int, N: int, rows: int, sms: int, dtype: torch.dtype,
-          group: int | None) -> Plan:
+          group: int | None, x3: bool = False) -> Plan:
     """The launch for x [M, K], ``rows`` code rows (K, or ceil(K/2)
     packed), N columns, on a card of ``sms`` streaming multiprocessors;
-    ``group`` is the rows of W a scale covers (None: per column).  bf16 x
-    where the tensor cores' k depth of 16 divides the group takes a
-    tensor-core form: ``decode_tc`` at M <= 8 (up to 8 x 2048 code rows,
-    and N a multiple of 16, the row stride its tensor map of the codes
-    needs), ``tensor_core`` above; the rest the CUDA-core forms,
-    ``decode`` at M <= 8 and ``cuda_core`` above.  The code rows are split
-    until the launch has the form's blocks for each multiprocessor (the
-    tensor-core prefill form's chunks rounded down, so that it gets them
-    whole)."""
-    tc = dtype == torch.bfloat16 and (group is None or group % 16 == 0)
+    ``group`` is the rows of W a scale covers (None: per column); ``x3``
+    says whether the kernel's source has the fp32-x tensor-core form
+    (``X3_KERNELS``).  Where the tensor cores' k depth of 16 divides the
+    group, bf16 x takes a tensor-core form: ``decode_tc`` at M <= 8 (up to
+    8 x 2048 code rows, and N a multiple of 16, the row stride its tensor
+    map of the codes needs), ``tensor_core`` above; fp32 x above M = 8
+    takes ``tensor_core_x3`` where the source has it.  The rest take the
+    CUDA-core forms, ``decode`` at M <= 8 and ``cuda_core`` above.  The
+    code rows are split until the launch has the form's blocks for each
+    multiprocessor (the tensor-core prefill forms' chunks rounded down, so
+    that they get them whole)."""
+    tc = group is None or group % 16 == 0
     if M <= 8:
-        if tc and N % 16 == 0 and rows <= _DEC_CLUSTER * _DEC_ROWS:
+        if (tc and dtype == torch.bfloat16 and N % 16 == 0
+                and rows <= _DEC_CLUSTER * _DEC_ROWS):
             return _decode_plan(N, rows, sms)
         form = "decode"
+    elif tc and dtype == torch.bfloat16:
+        form = "tensor_core"
+    elif tc and x3:
+        form = "tensor_core_x3"
     else:
-        form = "tensor_core" if tc else "cuda_core"
+        form = "cuda_core"
     bm, bn, bk, per_sm = _FORMS[form]
     tiles = cdiv(N, bn) * cdiv(M, bm)
     splits = max(1, min(cdiv(per_sm * sms, tiles), cdiv(rows, bk)))
-    if form == "tensor_core" and splits > 1:
+    if form in ("tensor_core", "tensor_core_x3") and splits > 1:
         chunk = max(bk, rows // splits // bk * bk)
     else:
         chunk = round_up(cdiv(rows, splits), bk)
@@ -313,16 +365,19 @@ def _launch(name, symbol, count_as, x, w, scales, rows, extra, group=None):
     """Launch ``symbol`` of ``csrc/<name>.cu``; ``extra`` are the C
     arguments between K and the form (the int4 group count), ``group`` the
     rows a group scale covers.  out takes x's dtype; the launch counts under
-    ``count_as``, with ``DEC`` or ``TC`` for the tensor-core forms.  The
-    CUDA-core forms with more than one split take an fp32 workspace."""
+    ``count_as``, with ``DEC``, ``TC`` or ``X3`` for the tensor-core forms
+    (``X3`` where ``count_as`` is one of ``X3_KERNELS``).  Every form but
+    ``decode_tc`` takes an fp32 workspace when it splits the code rows."""
     dev, (x, w, s) = _inputs(x, w, scales, name)
     M, K = x.shape
     N = w.shape[1]
     out = torch.empty(M, N, dtype=x.dtype, device=dev)
     if out.numel() == 0:
         return out
-    plan = _plan(M, N, rows, _sms(dev), x.dtype, group)
-    count_as += {"decode_tc": DEC, "tensor_core": TC}.get(plan.form, "")
+    plan = _plan(M, N, rows, _sms(dev), x.dtype, group,
+                 count_as in X3_KERNELS)
+    count_as += {"decode_tc": DEC, "tensor_core": TC,
+                 "tensor_core_x3": X3}.get(plan.form, "")
     part = (torch.empty(plan.splits, M, N, dtype=torch.float32, device=dev)
             if plan.splits > 1 and plan.form != "decode_tc" else None)
     lib, fn = entry(name, symbol, [ctypes.c_void_p] * 5
