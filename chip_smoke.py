@@ -2033,22 +2033,41 @@ def end_to_end(kind: str | None = None) -> dict[str, int]:
         prompts.append(rng.integers(1, cfg.n_vocab, n).tolist())
         ids[i, :n] = prompts[-1]
     sampling = SamplingConfig(max_new_tokens=n_new)
+    # the quantized calls by kernel and by whether x has more than 8 rows
+    calls = collections.Counter()
+    launch = quant._launch
+
+    def counted(name, symbol, count_as, x, *args, **kwargs):
+        calls[count_as, x.shape[0] > 8] += 1
+        return launch(name, symbol, count_as, x, *args, **kwargs)
+
     common.launch_counts.clear()
-    ref, _ = generate(model, ids, lens, sampling, max_len=max_len,
-                      device=DEV)
-    ref = ref.cpu().numpy()
-    eng = DecodeEngine(model, n_slots=8, max_len=max_len, sampling=sampling,
-                       device=DEV)
-    for uid, p in enumerate(prompts):
-        eng.submit(Request(uid, p))
-    got = {c.uid: c.tokens for c in eng.run()}
+    quant._launch = counted
+    try:
+        ref, _ = generate(model, ids, lens, sampling, max_len=max_len,
+                          device=DEV)
+        ref = ref.cpu().numpy()
+        eng = DecodeEngine(model, n_slots=8, max_len=max_len,
+                           sampling=sampling, device=DEV)
+        for uid, p in enumerate(prompts):
+            eng.submit(Request(uid, p))
+        got = {c.uid: c.tokens for c in eng.run()}
+    finally:
+        quant._launch = launch
     served = dict(common.launch_counts)
+    if kind is not None:
+        # fp32 x: every call of more than 8 rows (the prefills) in the fp32
+        # tensor-core form where the kernel has it, every other call in the
+        # CUDA-core form under the bare name
+        x3 = kind in quant.X3_KERNELS
+        want = {kind + common.X3: calls[kind, True] if x3 else 0,
+                kind: calls[kind, False] + (0 if x3 else calls[kind, True])}
+        got_n = {n: served.get(n, 0) for n in want}
+        check(got_n == want and calls[kind, True] > 0,
+              f"{kind}: launches {got_n}, calls by M > 8 {dict(calls)}, "
+              f"want {want}")
     # A token may differ only where the uncached forward's top-2 gap is a
     # near tie; the comparison of that sequence stops there.
-    if kind in quant.X3_KERNELS:
-        # every prefill (M > 8) in the fp32 tensor-core form
-        check(served.get(kind + common.X3, 0) > 0,
-              f"{kind}: no prefill ran {kind + common.X3}: {served}")
     compared = ties = 0
     with torch.no_grad():
         for i, p in enumerate(prompts):

@@ -1253,6 +1253,25 @@ def test_quant_x3_kernel_that_fails_to_launch_raises(cuda_device,
 
 
 @pytest.mark.cuda
+def test_int8_entry_refuses_the_cuda_core_prefill_form(cuda_device,
+                                                       monkeypatch):
+    """int8 has no CUDA-core prefill kernel (the tensor-core forms take
+    every M > 8): a plan for one raises and counts nothing."""
+    from tpu_flash_torch.kernels import quant
+
+    x = torch.randn(16, 128, device=cuda_device)
+    codes, scales = quant.quantize_weight(
+        torch.randn(128, 16, device=cuda_device))
+    before = dict(common.launch_counts)
+    monkeypatch.setattr(quant, "_plan", lambda *a: quant.Plan(
+        "cuda_core", 64, 128, 1, 128, 1))
+    with pytest.raises(RuntimeError, match="int8_matmul kernel failed"):
+        quant.int8_matmul(x, codes, scales)
+    torch.cuda.synchronize()
+    assert dict(common.launch_counts) == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("bits,g", [(8, None), (4, None), (4, 32)])
 def test_quantized_decode_step_kernel_matches_plain(cuda_device, bits, g):
     """One decode step of a small fp32 quantized DecoderLM: the matmul

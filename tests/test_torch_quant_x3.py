@@ -33,6 +33,38 @@ def excess(got, want, arms=1e-5, rtol=1e-5):
     return float((np.abs(got - want) - arms * rms - rtol * np.abs(want)).max())
 
 
+def matmul_x3(x, codes, scales):
+    """The ``_x3`` kernels' arithmetic in plain PyTorch: fp32 ``x`` [M, K]
+    split by ``split3_bf16`` (hi + mid + lo == x); the integer ``codes``
+    [K, N] (int8 codes, or int4 codes unpacked) met by the three planes in
+    steps of rows, lo, mid, hi (smallest first, each product exact), each
+    step's products summed apart and added in row order.  Per-column
+    ``scales`` [N]: steps of 64 rows (the kernel's), the sum times the
+    scales.  Group scales [G, N]: steps of 16 rows added to the group's
+    sum, each group's sum scaled and added to the total group by group (the
+    low half's groups, then the high half's, as the kernel walks the packed
+    rows).  Returns fp32 [M, N]."""
+    hi, mid, lo = (t.float() for t in split3_bf16(x))
+    c = codes.float()
+    K = x.shape[1]
+    s = scales.float()
+    grouped = s.dim() == 2
+    g, step = (K // s.shape[0], 16) if grouped else (K, 64)
+    acc = None
+    for g0 in range(0, K, g):
+        part = None
+        for k0 in range(g0, min(K, g0 + g), step):
+            r = slice(k0, min(K, g0 + g, k0 + step))
+            fresh = lo[:, r] @ c[r]
+            fresh = fresh + mid[:, r] @ c[r]
+            fresh = fresh + hi[:, r] @ c[r]
+            part = fresh if part is None else part + fresh
+        if grouped:
+            part = part * s[g0 // g]
+        acc = part if acc is None else acc + part
+    return acc if grouped else acc * s
+
+
 def inputs(M, K, N, seed):
     """fp32 x [M, K] with rows spread over 2^-8 .. 2^8, and a weight [K, N]."""
     rng = np.random.default_rng(seed)
@@ -43,7 +75,7 @@ def inputs(M, K, N, seed):
 
 def hi_only(x, codes, scales):
     """``matmul_x3`` with the hi plane alone: one bf16 product a product."""
-    return tq.matmul_x3(split3_bf16(x)[0].float(), codes, scales)
+    return matmul_x3(split3_bf16(x)[0].float(), codes, scales)
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -63,7 +95,7 @@ def test_three_products_match_jax_int8_matmul(M, K, N):
                                      interpret=True))
     tc, ts = (torch.from_numpy(np.array(a)) for a in (codes, scales))
     tx = torch.from_numpy(x)
-    got = tq.matmul_x3(tx, tc, ts)
+    got = matmul_x3(tx, tc, ts)
     assert got.dtype == torch.float32 and got.shape == (M, N)
     exact = x.astype(np.float64) @ (np.asarray(codes, np.float64)
                                     * np.asarray(scales, np.float64))
@@ -82,7 +114,7 @@ def test_three_products_match_jax_grouped_int4_matmul(M, K, N, g):
                                      k_dim=k, interpret=True))
     codes = tq.unpack_int4(torch.from_numpy(np.array(packed)), K)
     ts, tx = torch.from_numpy(np.array(scales)), torch.from_numpy(x)
-    got = tq.matmul_x3(tx, codes, ts)
+    got = matmul_x3(tx, codes, ts)
     assert got.dtype == torch.float32 and got.shape == (M, N)
     exact = x.astype(np.float64) @ tq.dequantize(codes, ts, K).double().numpy()
     assert excess(got, want) <= 0
@@ -97,5 +129,5 @@ def test_groups_are_scaled_before_they_are_summed():
     x = torch.ones(16, 64)
     codes = torch.ones(64, 8, dtype=torch.int8)
     scales = torch.tensor([[1.0] * 8, [2.0 ** -20] * 8])
-    got = tq.matmul_x3(x, codes, scales)
+    got = matmul_x3(x, codes, scales)
     assert torch.equal(got, torch.full((16, 8), 32 + 32 * 2.0 ** -20))

@@ -8,8 +8,8 @@ a check that two calls of each backward give the same bits; and the
 quantized matmuls (``int8_matmul`` / ``int4_matmul`` of
 ``kernels/quant.py``, int8, int4 and int4 in groups of 128) at bf16 decode
 (M 8) on each linear of the 176M serving model and at one 1024-token
-prefill, and int8 and int4 in groups of 128 at fp32 prefills of 256 and
-1024 tokens at K1024 N4096, weights rotating past the 50 MB L2, with the
+prefill, and int8 and int4 in groups of 128 at fp32 prefills of 16, 64,
+128, 256 and 1024 tokens at K1024 N4096, weights rotating past the 50 MB L2, with the
 same check; the fused LayerNorm forward and backward at R8192 H256 and the
 masked softmax forward and backward at B32 H8 L256 causal (fp32, the
 reference MT shapes), and flash decode at B8 H16 d64 over an int8 cache
@@ -58,9 +58,10 @@ QUANT_SHAPES = tuple((8, K, N) for K, N in ((1024, 1024), (1024, 4096),
                                             (4096, 1024), (1024, 32768))
                      ) + ((1024, 1024, 4096),)
 # fp32 x: prefills at the FF-in linear, for the kinds with an fp32 tensor-core
-# prefill form.
+# prefill form; M 16 to 128 are the short prompts of fp32 serving, where
+# most of the form's 128-row tile is empty.
 QUANT_FP32_KINDS = (("int8", None), ("int4_g128", 128))
-QUANT_FP32_SHAPES = ((256, 1024, 4096), (1024, 1024, 4096))
+QUANT_FP32_SHAPES = tuple((M, 1024, 4096) for M in (16, 64, 128, 256, 1024))
 # chip_smoke.py's long-two-pass step: TRAIN_LONG at 2 layers, B1 L8192, fp32.
 TRAIN_STEP = dict(n_vocab=10_000, n_embd=512, n_head=8, n_positions=8192,
                   n_layer=2, ff_middle_dim=256, attention_kind="flash",

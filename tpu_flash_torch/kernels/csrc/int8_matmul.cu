@@ -11,7 +11,7 @@
 // K1024 N4096: 1.28 us at 3.35 TB/s; 1 MB for a 1024 x 1024 projection:
 // 0.31 us); at prefill (M up to 1024) the operations, 2 M K N of them (fp32
 // x: three bf16 products each, 2 M K N / 329.7 TFLOP/s).
-// Five forms, chosen by the wrapper (kernels/quant.py _plan), each
+// Four forms, chosen by the wrapper (kernels/quant.py _plan), each
 // described in quant_matmul.cuh: bf16 x at M <= 8 (N a multiple of 16)
 // runs int8_matmul_dec_kernel (one launch, the code rows split over a thread-
 // block cluster and summed in distributed shared memory, a TMA ring, the
@@ -20,8 +20,9 @@
 // to bf16 in shared memory, fp32 sums on the tensor cores); fp32 x at M > 8
 // int8_matmul_x3_kernel (x split into three bf16 planes in shared memory,
 // each code product three bf16 products on the tensor cores); fp32 x at
-// M <= 8, and other N at M <= 8, the CUDA-core kernels (_m8, _m64: fp32
-// FMAs).  No form writes a dequantized copy of W.
+// M <= 8, and other N at M <= 8, the CUDA-core kernel (_m8: fp32 FMAs).
+// The tensor-core forms take every M > 8, so int8 has no CUDA-core
+// prefill kernel.  No form writes a dequantized copy of W.
 //
 // C entry: tf_int8_matmul(...) launches on the given stream, allocates
 // nothing and returns cudaGetLastError() (or cudaErrorInvalidValue for
@@ -34,11 +35,6 @@ namespace {
 __global__ void __launch_bounds__(kThreads)
 int8_matmul_kernel_m8(const QParams p) {
   quant_matmul_body<1, 128, kInt8>(p);
-}
-
-__global__ void __launch_bounds__(kThreads)
-int8_matmul_kernel_m64(const QParams p) {
-  quant_matmul_body<8, 32, kInt8>(p);
 }
 
 __global__ void __launch_bounds__(kTcThreads)
@@ -62,8 +58,8 @@ int8_matmul_dec_kernel(const __grid_constant__ QDecParams d) {
 extern "C" {
 
 // dtype: 0 fp32, 1 bf16, of x and out.  form: 0 decode on the CUDA cores
-// (bn 128, chunks a multiple of 128 rows), 1 prefill on the CUDA cores (bn
-// 128, chunks of 32), 2 prefill on the tensor cores (bf16, bn 64, chunks of
+// (bn 128, chunks a multiple of 128 rows), 1 (the CUDA-core prefill) is
+// refused, 2 prefill on the tensor cores (bf16, bn 64, chunks of
 // 64), 3 decode on the tensor cores (bf16, M <= 8, N a multiple of 16, bn
 // 32, 64 or 128, chunks a multiple of 64, `splits` <= 8 the cluster,
 // stage_rows and stages each warp's ring, no workspace), 4 prefill on the
@@ -79,7 +75,7 @@ int tf_int8_matmul(const void* x, const void* codes, const float* scales,
                   M, N, K, K, chunk, 1, dtype == 1};
   return quant_matmul_launch(
       {int8_matmul_kernel_m8,
-       int8_matmul_kernel_m64,
+       nullptr,
        int8_matmul_tc_kernel,
        int8_matmul_x3_kernel,
        {int8_matmul_dec_kernel<32>, int8_matmul_dec_kernel<64>,

@@ -1307,9 +1307,10 @@ enum Form {
 typedef void (*QKernel)(QParams);
 typedef void (*QDecKernel)(QDecParams);
 
-// A source's kernels: the CUDA-core forms (BM 8 and 64), the tensor-core
-// prefill forms for bf16 x and for fp32 x (x3: null where the mode has
-// none) and the tensor-core decode form at BN 32, 64 and 128.
+// A source's kernels: the CUDA-core forms (BM 8 and 64; m64 null where the
+// tensor-core forms take every M > 8), the tensor-core prefill forms for
+// bf16 x and for fp32 x (x3: null where the mode has none) and the
+// tensor-core decode form at BN 32, 64 and 128.
 struct QKernels {
   QKernel m8, m64, tc, x3;
   QDecKernel dec[3];
@@ -1418,6 +1419,7 @@ int quant_matmul_launch(const QKernels& k, QParams p, bool int4, int form,
       bn != (form == kTensorCore ? kTcBN : form == kTensorCoreX3 ? kX3BN
                                                                  : kBN) ||
       (form == kTensorCore && !p.bf16) ||
+      (form == kCudaCore && !k.m64) ||
       (form == kTensorCoreX3 && (p.bf16 || !k.x3)) || p.chunk % bk ||
       (splits > 1) != (p.part != 0))
     return cudaErrorInvalidValue;

@@ -22,10 +22,9 @@ under the kernel's name with ``_dec``), ``tensor_core`` above (counted with
 ``_tc``).  fp32 x at M > 8 runs ``tensor_core_x3`` on the tensor cores
 where the kernel has it (``X3_KERNELS``: int8, and int4 in groups that are a
 multiple of 16; counted with ``_x3``): x split into three bf16 planes, each
-product three exact bf16 products (``matmul_x3`` is that arithmetic in
-plain PyTorch).  The rest (fp32 x at M <= 8, int4 per column in fp32,
-groups that are not a multiple of 16, and at M <= 8 N that is not) runs
-fp32 FMAs on the CUDA cores: ``decode`` at M <= 8 and ``cuda_core`` above,
+product three exact bf16 products.  The rest (fp32 x at M <= 8, int4 per
+column in fp32, groups that are not a multiple of 16, and at M <= 8 N that
+is not) runs fp32 FMAs on the CUDA cores: ``decode`` at M <= 8 and ``cuda_core`` above,
 counted under the kernel's name.  All round as the TPU kernels do: the
 fp32 product of x and the integer codes is scaled after the dot (grouped:
 each group's partial dot is scaled, then summed), and the weight is never
@@ -56,7 +55,6 @@ from tpu_flash_torch.kernels.common import (
     launch_counts,
     resolve_impl,
     round_up,
-    split3_bf16,
 )
 
 KERNEL_INT8 = "int8_matmul"
@@ -214,39 +212,6 @@ def int4_matmul_plain(x, packed, scales, *, k_dim=None):
             acc = acc + (xf[:, lo] @ codes[lo]) * s[i]
             acc = acc + (xf[:, hi] @ codes[hi]) * s[G // 2 + i]
     return acc.to(x.dtype)
-
-
-def matmul_x3(x, codes, scales):
-    """The ``_x3`` kernels' arithmetic in plain PyTorch: fp32 ``x`` [M, K]
-    split by ``split3_bf16`` (hi + mid + lo == x); the integer ``codes``
-    [K, N] (int8 codes, or int4 codes unpacked) met by the three planes in
-    steps of rows, lo, mid, hi (smallest first, each product exact), each
-    step's products summed apart and added in row order.  Per-column
-    ``scales`` [N]: steps of 64 rows (the kernel's), the sum times the
-    scales.  Group scales [G, N]: steps of 16 rows added to the group's
-    sum, each group's sum scaled and added to the total group by group (the
-    low half's groups, then the high half's, as the kernel walks the packed
-    rows).  Returns fp32 [M, N].  The CPU tests hold it against the JAX
-    package; no path calls it."""
-    hi, mid, lo = (t.float() for t in split3_bf16(x))
-    c = codes.float()
-    K = x.shape[1]
-    s = scales.float()
-    grouped = s.dim() == 2
-    g, step = (K // s.shape[0], 16) if grouped else (K, 64)
-    acc = None
-    for g0 in range(0, K, g):
-        part = None
-        for k0 in range(g0, min(K, g0 + g), step):
-            r = slice(k0, min(K, g0 + g, k0 + step))
-            fresh = lo[:, r] @ c[r]
-            fresh = fresh + mid[:, r] @ c[r]
-            fresh = fresh + hi[:, r] @ c[r]
-            part = fresh if part is None else part + fresh
-        if grouped:
-            part = part * s[g0 // g]
-        acc = part if acc is None else acc + part
-    return acc if grouped else acc * s
 
 
 # ---------------------------------------------------------------------------
