@@ -14,11 +14,10 @@ ported paths:
   under ``torch.profiler``; the engine against ``generate`` and the kernel
   against the plain path end to end;
 * quantized serving: the int8, packed-int4 and grouped-int4 matmul kernels
-  in their five forms (for bf16 x the tensor-core decode form at M <= 8 and
+  in their forms (for bf16 x the tensor-core decode form at M <= 8 and
   the tensor-core prefill form above; for fp32 x the CUDA-core decode form
   and above M = 8 the fp32 tensor-core prefill form, three bf16 products a
-  product, for int8 and grouped int4, the CUDA-core prefill form for int4
-  per column) against their plain versions (fp32 and bf16 x, M 1 to
+  product) against their plain versions (fp32 and bf16 x, M 1 to
   1024, the serving model's linears and ragged shapes; each call checked to
   launch its form, the tensor-core decode and fp32 prefill forms to give
   the same bits twice; each form's limit checked against a perturbed row),
@@ -32,8 +31,7 @@ ported paths:
   each prefill in the tensor-core prefill form, with the logits' error
   against the bf16 model; and the engine against ``generate`` and kernel
   against plain end to end for each of the three in fp32 (decode steps in
-  the CUDA-core decode form, prefills in the fp32 tensor-core form but for
-  int4 per column);
+  the CUDA-core decode form, prefills in the fp32 tensor-core form);
 * training: the flash-attention forward and fused backward kernels, in the
   six-product form for fp32 (each fp32 product six bf16 products on the
   tensor cores) and the tensor-core form for bf16 (each call checked to
@@ -84,8 +82,8 @@ ported paths:
 
 The build phase logs each kernel's registers, stack and spills as ptxas
 reports them, and fails if a flash-attention kernel's tensor-core or
-six-product form or a quantized matmul's tensor-core decode or fp32 prefill
-form spills.
+six-product form, a quantized matmul's tensor-core decode or fp32 prefill
+form, or a form of the masked-softmax forward spills.
 Modes (b) and (e) run the forward and the fused backward in their
 tensor-core form, mode (a) in their six-product form.
 
@@ -129,7 +127,7 @@ from tpu_flash_torch.kernels import quant
 from tpu_flash_torch.kernels.layernorm import (layernorm_backward,
                                                layernorm_forward)
 from tpu_flash_torch.kernels.softmax import (attn_softmax_backward,
-                                             attn_softmax_forward)
+                                             attn_softmax_forward, pad_cols)
 from tpu_flash_torch.nn import (DecoderConfig, DecoderLM, adam, init_params,
                                 mixed_precision, num_parameters,
                                 quantize_model_linears)
@@ -172,15 +170,15 @@ QUANT_SOURCES = ("int8_matmul", "int4_matmul")
 # The quantized matmul kernels by launch count, with (bits, group size) and
 # the TPU kernel each replaces; bf16 x runs the tensor-core forms, counted
 # under the name + common.DEC (decode, M <= 8) and + common.TC (prefill);
-# fp32 x above M = 8 the fp32 tensor-core form where the kernel has it
-# (quant.X3_KERNELS: int8 and grouped int4), the name + common.X3; the rest
-# of fp32 x the CUDA-core forms under the name.
+# fp32 x above M = 8 the fp32 tensor-core form (every group here is a
+# multiple of 16), the name + common.X3; the rest of fp32 x (M <= 8) the
+# CUDA-core decode form under the name.
 QUANT = {"int8_matmul": (8, None, "quant.py:49"),
          "int4_matmul": (4, None, "quant.py:228"),
          "int4_matmul_group": (4, 128, "quant.py:258")}
 QUANT_TC = tuple(n + common.TC for n in QUANT)
 QUANT_DEC = tuple(n + common.DEC for n in QUANT)
-QUANT_X3 = tuple(n + common.X3 for n in quant.X3_KERNELS)
+QUANT_X3 = tuple(n + common.X3 for n in QUANT)
 # Launch-count (and profiler) names, and the sources built from csrc/.
 KERNELS = (("flash_decode",) + TRAINING_KERNELS + tuple(QUANT) + QUANT_TC
            + QUANT_DEC + QUANT_X3)
@@ -260,6 +258,11 @@ SOFTMAX_CASES = [
     ("pad-all-masked-2x3x70x200", (2, 3, 70, 200), False, (150, 0)),
     ("full-4x8x256x256", (4, 8, 256, 256), False, None),
     ("above-512-2x8x640x640", (2, 8, 640, 640), True, None),
+    # Lk not a multiple of the kernel's 16-byte vectors (single values),
+    # two chunks held, the pad mask with the causal mask
+    ("ragged-pad-causal-2x8x100x257", (2, 8, 100, 257), True, (257, 120)),
+    # rows that see no key in vectors, two chunks held, a batch row hidden
+    ("no-key-rows-pad-2x4x300x264", (2, 4, 300, 264), True, (264, 0)),
 ]
 # Last axes above ops.fused's 512 limits at which its two routes are timed.
 DISPATCH_WIDTHS = (640, 1024)
@@ -308,11 +311,11 @@ SERVING_LINEARS = ((1024, 1024), (1024, 4096), (4096, 1024), (1024, 32768))
 # Quantized matmuls, kernel vs plain on the same inputs, M rows of x each
 # (1 and 8 the decode forms, above 8 the prefill forms; bf16 the
 # tensor-core forms, fp32 the CUDA-core decode form and above 8 the fp32
-# tensor-core form, the CUDA-core one for int4 per column): the serving
-# linears, a ragged K and N (K odd for int4 per column; grouped, K = 256 in
-# groups of 64), and groups of 64 at 1024 x 1024.  N 304 ends in a ragged
-# tile of the tensor-core decode form; N 300, not a multiple of 16, takes
-# the CUDA-core decode form at M <= 8 in bf16 too.
+# tensor-core form): the serving linears, a ragged K and N (K odd for int4
+# per column, where the fp32 tensor-core form takes x by single values;
+# grouped, K = 256 in groups of 64), and groups of 64 at 1024 x 1024.  N
+# 304 ends in a ragged tile of the tensor-core decode form; N 300, not a
+# multiple of 16, takes the CUDA-core decode form at M <= 8 in bf16 too.
 QUANT_M = (1, 8, 9, 100, 256, 1024)
 QUANT_CASES = {
     "int8_matmul": [(K, N, None) for K, N in SERVING_LINEARS]
@@ -331,7 +334,7 @@ QUANT_TOL = {torch.float32: (0.0, 1e-5, 1e-5),
 # bf16 x: decode (M = 8) and prefills of 256 and 1024 tokens (a chunk of
 # prefill_chunk=256, the longest bucket) at each serving linear; fp32 x at
 # K1024 N4096, decode (the CUDA-core form) and the same two prefills (the
-# fp32 tensor-core form; int4 per column the CUDA-core one).
+# fp32 tensor-core form).
 QUANT_TIMED = [(M, K, N, torch.bfloat16) for M in (8, 256, 1024)
                for K, N in SERVING_LINEARS] + [
                    (M, 1024, 4096, torch.float32) for M in (8, 256, 1024)]
@@ -1167,8 +1170,10 @@ def fused_cases(gen) -> dict:
             torch.cuda.synchronize()
             Lq, Lk = shape[2], shape[3]
             empty_ok = True
-            if causal and Lq > Lk:      # rows that see no key: 1/128 each
-                empty_ok = bool((p[:, :, :Lq - Lk].float() == 1 / 128).all())
+            if causal and Lq > Lk:      # rows that see no key: uniform over
+                width = Lk + pad_cols(Lk)   # the TPU's padded width
+                uniform = torch.tensor(1 / width).to(dtype)
+                empty_ok = bool((p[:, :, :Lq - Lk] == uniform).all())
             judge("attn_softmax_fwd", name, [("p", p, ref)], empty_ok)
             judge("attn_softmax_bwd", name, [("dx", dx, ref_dx)])
             del x, dp, p, ref, dx, ref_dx
@@ -1362,10 +1367,10 @@ def quant_form(kind, M, N, dtype) -> str:
     """The launch-count name a call of ``kind`` at M rows of ``dtype`` x
     and N columns adds to (the plan's form; every group here is a multiple
     of 16): bf16 the tensor-core forms, but at M <= 8 only where 16 divides
-    N; fp32 above M = 8 the fp32 tensor-core form where the kernel has it;
-    the rest the CUDA-core forms."""
+    N; fp32 above M = 8 the fp32 tensor-core form; the rest the CUDA-core
+    forms."""
     if dtype != torch.bfloat16:
-        return kind + common.X3 if M > 8 and kind in quant.X3_KERNELS else kind
+        return kind + common.X3 if M > 8 else kind
     if M <= 8 and N % 16:
         return kind
     return kind + (common.DEC if M <= 8 else common.TC)
@@ -1532,7 +1537,7 @@ def quant_times(gen) -> dict:
 
 
 def quant_x3_vs_fp64(gen) -> dict:
-    """The fp32 tensor-core form of each kernel that has it against the
+    """The fp32 tensor-core form of each kernel against the
     float64 product of the same x and weights at ``QUANT_FP64_SHAPE``,
     beside the plain fp32 version (cuBLAS's fp32 GEMM with TF32 off, then
     the scales): the largest and the rms error of each; the form's largest
@@ -1542,7 +1547,7 @@ def quant_x3_vs_fp64(gen) -> dict:
     x = torch.randn(M, K, generator=gen, device=DEV)
     w = torch.randn(K, N, generator=gen, device=DEV)
     worst, failed = {}, []
-    for kind in quant.X3_KERNELS:
+    for kind in QUANT:
         bits, group, _ = QUANT[kind]
         q = quantized(w, bits, group)
         codes = q[0] if bits == 8 else quant.unpack_int4(q[0], K)
@@ -2011,7 +2016,7 @@ def end_to_end(kind: str | None = None) -> dict[str, int]:
     """Serving end to end at full width, 2 layers, fp32 with TF32 off,
     with float weights or, with ``kind``, quantized for that matmul kernel
     (fp32 x: the CUDA-core decode form, prefills in the fp32 tensor-core
-    form where the kernel has it): engine tokens against generate's and the
+    form): engine tokens against generate's and the
     uncached forward's, and one decode step's logits with the kernels
     against the plain path.  Returns the launches of the ``generate`` and
     engine runs."""
@@ -2057,11 +2062,9 @@ def end_to_end(kind: str | None = None) -> dict[str, int]:
     served = dict(common.launch_counts)
     if kind is not None:
         # fp32 x: every call of more than 8 rows (the prefills) in the fp32
-        # tensor-core form where the kernel has it, every other call in the
-        # CUDA-core form under the bare name
-        x3 = kind in quant.X3_KERNELS
-        want = {kind + common.X3: calls[kind, True] if x3 else 0,
-                kind: calls[kind, False] + (0 if x3 else calls[kind, True])}
+        # tensor-core form, every other call in the CUDA-core form under the
+        # bare name
+        want = {kind + common.X3: calls[kind, True], kind: calls[kind, False]}
         got_n = {n: served.get(n, 0) for n in want}
         check(got_n == want and calls[kind, True] > 0,
               f"{kind}: launches {got_n}, calls by M > 8 {dict(calls)}, "
@@ -2158,10 +2161,16 @@ def main() -> int:
     x3 = {k: r for k, r in quant_reports.items() if "_x3_kernel" in k}
     spills = {k: r for k, r in {**tc, **x6, **dec, **x3}.items()
               if r.get("spill_stores", 0) or r.get("spill_loads", 0)}
+    # the softmax forward's 32 template forms share one name in the
+    # report, so their spills are read from ptxas's warnings
+    sm_spills = [ln for ln in built["attn_softmax_fwd"].log.splitlines()
+                 if "warning" in ln and "spill" in ln]
     log({"phase": "tensor_core_spills",
          "kernels": len(tc) + len(x6) + len(dec) + len(x3),
          "six_product_form": x6, "decode_form": dec,
-         "fp32_prefill_form": x3, "spilling": spills})
+         "fp32_prefill_form": x3, "spilling": spills,
+         "softmax_forward_spills": sm_spills})
+    check(not sm_spills, f"the softmax forward spills: {sm_spills}")
     # the decode form: a kernel a mode at tiles of 32, 64 and 128 columns
     check(len(tc) == 4 * len(fa.HEAD_DIMS)
           and len(x6) == (len(ATTENTION_X6) + len(TWO_PASS))
@@ -2203,7 +2212,7 @@ def main() -> int:
     end_to_end()
     for kind in QUANT:
         # fp32 weights' serving: decode steps in the CUDA-core decode form,
-        # prefills in the fp32 tensor-core form where the kernel has it
+        # prefills in the fp32 tensor-core form
         served = end_to_end(kind)
         for n in (kind, kind + common.X3):
             launches[n] = launches.get(n, 0) + served.get(n, 0)
@@ -2347,6 +2356,10 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "shape": ("R8192 H256 fp32" if n.startswith("layernorm")
                       else "B32 H8 Lq256 Lk256 causal fp32")})
+        if n == "attn_softmax_fwd":     # redesigned for both dtypes
+            b = fused_rows[(n, torch.bfloat16)]
+            entries[-1]["bfloat16"] = {k: b[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     forms = ((common.DEC, QUANT_MAIN_SHAPE, "the tensor-core decode form"),
              (common.TC, QUANT_TC_SHAPE, "the tensor-core prefill form"),
              ("", QUANT_CUDA_CORE_SHAPE, "the CUDA-core decode form"),

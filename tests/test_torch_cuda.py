@@ -883,11 +883,22 @@ def test_layernorm_kernels_match_plain(cuda_device, dtype, lead, H):
     ((2, 3, 70, 200), False, (150, 0)),   # a batch row with every key hidden
     ((2, 2, 64, 256), True, (256, 100)),
     ((1, 2, 4, 640), True, None),         # above 512: the chunked loop
+    ((2, 3, 33, 257), True, (257, 100)),  # Lk 257: single values, 2 chunks
+    ((2, 3, 70, 70), False, (70, 30)),    # Lk 70: single values
+    ((2, 2, 6, 1030), True, (1030, 600)),  # above 512, single values
+    ((2, 2, 300, 264), True, (264, 0)),   # Lq > Lk, vectors, every key hidden
 ])
 def test_attn_softmax_kernels_match_plain(cuda_device, dtype, shape, causal,
                                           keep):
-    from tpu_flash_torch.kernels.softmax import (attn_softmax_backward,
+    """The forward's 16-byte vectors (Lk a multiple of 4 fp32 or 8 bf16
+    values) and its single values (70, 257, 1030), rows held in registers
+    (Lk <= 512) and read again (640, 1030), the pad mask with and without
+    the causal mask, and rows that see no key (Lq > Lk), uniform over the
+    TPU's padded width; two forward calls give the same bits."""
+    from tpu_flash_torch.kernels.softmax import (TPU_LANES,
+                                                 attn_softmax_backward,
                                                  attn_softmax_forward)
+    from tpu_flash_torch.kernels.common import round_up
 
     gen = torch.Generator(cuda_device).manual_seed(7)
     x, dp = (torch.randn(*shape, generator=gen, device=cuda_device).to(dtype)
@@ -909,11 +920,11 @@ def test_attn_softmax_kernels_match_plain(cuda_device, dtype, shape, causal,
     assert p.dtype == dx.dtype == dtype
     assert_within(p, ref, arms, rtol)
     assert_within(dx, ref_dx, arms, rtol)
+    assert torch.equal(p, attn_softmax_forward(x, mask, mask_future=causal))
     Lq, Lk = shape[2], shape[3]
     if causal and Lq > Lk:       # uniform over the TPU's padded width
-        torch.testing.assert_close(
-            p[:, :, :Lq - Lk].float(),
-            torch.full_like(p[:, :, :Lq - Lk], 1 / 128, dtype=torch.float32))
+        uniform = torch.tensor(1 / round_up(Lk, TPU_LANES)).to(dtype)
+        assert bool((p[:, :, :Lq - Lk] == uniform).all())
 
 
 @pytest.mark.cuda
@@ -962,7 +973,7 @@ def test_fused_model_step_launches_the_fused_kernels(cuda_device):
 # and split code rows (small N over a long K); bf16 x at M <= 8 runs the
 # tensor-core decode form where 16 divides the group and N, else the
 # CUDA-core decode kernel (the groups of 24 and 8 at M 1 and 8, and N 300);
-# fp32 x above M = 8 runs the fp32 tensor-core form (``_x3``) for int8 and
+# fp32 x above M = 8 runs the fp32 tensor-core form (``_x3``) per column and
 # for groups that are a multiple of 16, the CUDA-core form for the rest.
 
 QUANT_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 2e-2)}
@@ -992,12 +1003,11 @@ def quant_case(gen, dev, kind, M, K, N, g, dtype):
 def form_name(kind, M, N, g, dtype):
     """The launch count a call adds to: the tensor-core forms' (groups a
     multiple of 16; bf16 x: ``_dec`` at M <= 8 where 16 divides N too,
-    ``_tc`` above; fp32 x above M = 8 ``_x3``, but not for int4 per
-    column) or the CUDA-core forms'."""
+    ``_tc`` above; fp32 x above M = 8 ``_x3``) or the CUDA-core forms'."""
     if g is not None and g % 16:
         return kind
     if dtype != torch.bfloat16:
-        return kind + common.X3 if M > 8 and kind != "int4_matmul" else kind
+        return kind + common.X3 if M > 8 else kind
     if M <= 8 and N % 16:
         return kind
     return kind + (common.DEC if M <= 8 else common.TC)
@@ -1041,13 +1051,13 @@ def test_quant_matmul_kernels_match_plain(cuda_device, dtype, kind, M, K, N,
     ("int4_matmul_group", 256, 300, 64)])
 def test_prefill_forms_match_plain(cuda_device, dtype, M, kind, K, N, g):
     """The prefill forms: bf16 x takes the tensor-core form, fp32 x the
-    fp32 tensor-core form (int4 per column: the CUDA-core one), at the
-    serving model's K1024 N4096 and at ragged K and N (odd K for int4 per
-    column)."""
+    fp32 tensor-core form, at the serving model's K1024 N4096 and at ragged
+    K and N (odd K for int4 per column: x by single values)."""
     check_quant_case(cuda_device, dtype, kind, M, K, N, g)
 
 
-X3_CASES = [("int8_matmul", None), ("int4_matmul_group", 128)]
+X3_CASES = [("int8_matmul", None), ("int4_matmul", None),
+            ("int4_matmul_group", 128)]
 
 
 @pytest.mark.cuda
@@ -1065,6 +1075,24 @@ def test_x3_form_repeats_its_bits(cuda_device, kind, g, M, K, N):
     torch.cuda.synchronize()
     assert common.launch_counts[kind + common.X3] == before + 2
     assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8_matmul", "int4_matmul"])
+@pytest.mark.parametrize("M", [100, 256])
+def test_x3_form_repeats_its_bits_at_an_odd_k(cuda_device, kind, M):
+    """The same at K 255, N 300 (per column only: x by single values,
+    int4's last packed row holding the zero code in its high nibble; codes
+    by single bytes)."""
+    gen = torch.Generator(cuda_device).manual_seed(14)
+    call = quant_case(gen, cuda_device, kind, M, 255, 300, None,
+                      torch.float32)
+    before = common.launch_counts[kind + common.X3]
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    assert common.launch_counts[kind + common.X3] == before + 2
+    assert torch.equal(first, second)
+    assert_within(first, call("plain"), *QUANT_TOL[torch.float32])
 
 
 @pytest.mark.cuda
@@ -1171,10 +1199,10 @@ def test_decode_form_runs_one_kernel_a_call(cuda_device, kind, g):
 @pytest.mark.parametrize("bits,g", [(8, None), (4, None), (4, 32)])
 def test_quantized_linears_train_x_through_the_kernels(cuda_device, bits, g):
     """int8_linear / int4_linear on CUDA tensors, fp32 x of 15 rows: the
-    forward launches its kernel (the fp32 tensor-core form, but for int4
-    per column); dx of the per-column forms launches the int8 kernel's
-    fp32 tensor-core form on the transposed codes, the grouped form's a
-    dense matmul; values and dx agree with the plain route."""
+    forward launches its kernel's fp32 tensor-core form; dx of the
+    per-column forms launches the int8 kernel's fp32 tensor-core form on
+    the transposed codes, the grouped form's a dense matmul; values and dx
+    agree with the plain route."""
     from tpu_flash_torch.kernels import quant
 
     gen = torch.Generator(cuda_device).manual_seed(9)
@@ -1201,7 +1229,7 @@ def test_quantized_linears_train_x_through_the_kernels(cuda_device, bits, g):
         outs[impl] = (out, dx, {n: c for n, c in launched.items() if c})
     x3 = "int8_matmul" + common.X3
     want = ({kind + common.X3: 1} if g else {x3: 2} if bits == 8
-            else {kind: 1, x3: 1})
+            else {kind + common.X3: 1, x3: 1})
     assert outs[None][2] == want and not outs["plain"][2]
     for a, b in zip(outs[None][:2], outs["plain"][:2]):
         assert_within(a.detach(), b.detach(), 1e-5, 1e-5)
@@ -1230,9 +1258,9 @@ def test_quant_kernel_that_fails_to_launch_raises(cuda_device, monkeypatch):
 def test_quant_x3_kernel_that_fails_to_launch_raises(cuda_device,
                                                      monkeypatch):
     """The fp32 tensor-core form raises as the other forms do, for a grid
-    the card refuses and for a plan its C entry refuses (int4 per column
-    has no such kernel), and counts nothing: no call falls back to the
-    CUDA-core form or to the plain version."""
+    the card refuses and for a plan its C entry refuses (the form for bf16
+    x), and counts nothing: no call falls back to the CUDA-core form or to
+    the plain version."""
     from tpu_flash_torch.kernels import quant
 
     x = torch.randn(16, 128, device=cuda_device)
@@ -1247,7 +1275,7 @@ def test_quant_x3_kernel_that_fails_to_launch_raises(cuda_device,
     monkeypatch.setattr(quant, "_plan", lambda *a: quant.Plan(
         "tensor_core_x3", 128, 128, 1, 64, 1))
     with pytest.raises(RuntimeError, match="int4_matmul_x3 kernel failed"):
-        quant.int4_matmul(x, packed, scales4, k_dim=128)
+        quant.int4_matmul(x.to(torch.bfloat16), packed, scales4, k_dim=128)
     torch.cuda.synchronize()
     assert dict(common.launch_counts) == before
 
@@ -1269,6 +1297,34 @@ def test_int8_entry_refuses_the_cuda_core_prefill_form(cuda_device,
         quant.int8_matmul(x, codes, scales)
     torch.cuda.synchronize()
     assert dict(common.launch_counts) == before
+
+
+@pytest.mark.cuda
+def test_int4_entry_refuses_the_cuda_core_prefill_form(cuda_device,
+                                                       monkeypatch):
+    """Per-column int4 has no CUDA-core prefill kernel either (the
+    tensor-core forms take every M > 8): a plan for one raises and counts
+    nothing; groups that are not a multiple of 16 keep theirs."""
+    from tpu_flash_torch.kernels import quant
+
+    x = torch.randn(16, 128, device=cuda_device)
+    w = torch.randn(128, 16, device=cuda_device)
+    packed, scales, _ = quant.quantize_weight_int4(w)
+    before = dict(common.launch_counts)
+    monkeypatch.setattr(quant, "_plan", lambda *a: quant.Plan(
+        "cuda_core", 64, 128, 1, 64, 1))
+    with pytest.raises(RuntimeError, match="int4_matmul kernel failed"):
+        quant.int4_matmul(x, packed, scales, k_dim=128)
+    torch.cuda.synchronize()
+    assert dict(common.launch_counts) == before
+    packed, scales, _ = quant.quantize_weight_int4(
+        w, group_size=8, allow_small_groups=True)
+    got = quant.int4_matmul(x, packed, scales, k_dim=128)
+    assert common.launch_counts["int4_matmul_group"] == before.get(
+        "int4_matmul_group", 0) + 1
+    assert_within(got, quant.int4_matmul(x, packed, scales, k_dim=128,
+                                         impl="plain"),
+                  *QUANT_TOL[torch.float32])
 
 
 @pytest.mark.cuda

@@ -1,15 +1,17 @@
 """The quantized matmuls' launch plan (``kernels/quant.py`` ``_plan``), a
-pure function of the shape, the dtype, the group, the card's count of
-streaming multiprocessors and whether the kernel has the fp32-x form, so it
-runs here without a card: which form each shape takes (where the tensor
+pure function of the shape, the dtype, the group and the card's count of
+streaming multiprocessors, so it runs here without a card: which form each shape takes (where the tensor
 cores' k depth of 16 divides the group, bf16 x takes ``decode_tc`` at M <= 8
 and the tensor-core form above, fp32 x above M = 8 ``tensor_core_x3`` for
-int8 and grouped int4; otherwise the CUDA-core forms, ``decode`` at M <=
-8), its tile, its splits of the code rows, its ring, and that every decode
+every kernel; otherwise the CUDA-core forms, ``decode`` at M <= 8), its
+tile, its splits of the code rows, its ring, and that every decode
 and prefill shape of the 176M serving model fills an H100's 132
 multiprocessors.  ``_launch`` runs here too with its C entry replaced by a
 recorder, to show what a decode call and an fp32 prefill call hand the
 kernel."""
+
+import pathlib
+import re
 
 import pytest
 import torch
@@ -29,10 +31,7 @@ def weights(kind, K):
             "int4_g128": (cdiv(K, 2), 128)}[kind]
 
 
-# whether each kind's kernel has the fp32-x form (quant.X3_KERNELS)
-X3 = {"int8": quant.KERNEL_INT8 in quant.X3_KERNELS,
-      "int4": quant.KERNEL_INT4 in quant.X3_KERNELS,
-      "int4_g128": quant.KERNEL_INT4_GROUP in quant.X3_KERNELS}
+CSRC = pathlib.Path(quant.__file__).parent / "csrc"
 
 
 @pytest.mark.parametrize("M,dtype,group,form", [
@@ -40,11 +39,13 @@ X3 = {"int8": quant.KERNEL_INT8 in quant.X3_KERNELS,
     (8, BF16, 128, "decode_tc"),
     (8, FP32, None, "decode"),
     (9, BF16, None, "tensor_core"),
-    (9, FP32, None, "cuda_core"),
+    (9, FP32, None, "tensor_core_x3"),
+    (9, FP32, 8, "cuda_core"),
     (100, BF16, 16, "tensor_core"),
     (256, BF16, 64, "tensor_core"),
     (1024, BF16, 128, "tensor_core"),
-    (1024, FP32, 128, "cuda_core"),
+    (1024, FP32, 128, "tensor_core_x3"),
+    (1024, FP32, 24, "cuda_core"),
     (100, BF16, 8, "cuda_core"),
     (100, BF16, 24, "cuda_core"),
 ])
@@ -53,7 +54,21 @@ def test_the_form_follows_m_dtype_and_group(M, dtype, group, form):
 
 
 def test_the_kernels_with_the_fp32_x_form():
-    assert X3 == {"int8": True, "int4": False, "int4_g128": True}
+    """Every kernel's source fills the fp32-x slot of its launch table,
+    where ``_plan`` sends every fp32 prefill that 16 divides the group of;
+    the per-column kernels have no CUDA-core prefill form (their slot is
+    empty, and the C entry refuses form 1), the grouped one keeps it for
+    the groups that 16 does not divide."""
+    src = {n: (CSRC / f"{n}.cu").read_text()
+           for n in (quant.KERNEL_INT8, quant.KERNEL_INT4)}
+    for name, source in ((quant.KERNEL_INT8, quant.KERNEL_INT8),
+                         (quant.KERNEL_INT4, quant.KERNEL_INT4),
+                         (quant.KERNEL_INT4_GROUP, quant.KERNEL_INT4)):
+        assert f"{name}_x3_kernel(const QParams p)" in src[source]
+    for name in (quant.KERNEL_INT8, quant.KERNEL_INT4):
+        assert f"{name}_kernel_m64" not in src[name]
+        assert re.search(rf"{{\s*{name}_kernel_m8,\s*nullptr,", src[name])
+    assert "int4_matmul_group_kernel_m64," in src[quant.KERNEL_INT4]
 
 
 @pytest.mark.parametrize("M,kind,group,form", [
@@ -62,8 +77,8 @@ def test_the_kernels_with_the_fp32_x_form():
     (9, "int4_g128", 128, "tensor_core_x3"),
     (1024, "int4_g128", 128, "tensor_core_x3"),
     (100, "int4_g128", 16, "tensor_core_x3"),
-    (9, "int4", None, "cuda_core"),
-    (1024, "int4", None, "cuda_core"),
+    (9, "int4", None, "tensor_core_x3"),
+    (1024, "int4", None, "tensor_core_x3"),
     (100, "int4_g128", 8, "cuda_core"),
     (100, "int4_g128", 24, "cuda_core"),
     (8, "int8", None, "decode"),
@@ -71,12 +86,12 @@ def test_the_kernels_with_the_fp32_x_form():
 ])
 def test_fp32_x_takes_the_x3_form_where_the_kernel_has_it(M, kind, group,
                                                           form):
-    """fp32 x above M = 8 takes the fp32 tensor-core form for int8 and for
-    int4 in groups that are a multiple of 16; int4 per column, other groups
-    and M <= 8 keep the CUDA-core forms.  bf16 x ignores ``x3``."""
-    assert quant._plan(M, 1024, 512, SMS, FP32, group, X3[kind]).form == form
-    bf16 = quant._plan(M, 1024, 512, SMS, BF16, group)
-    assert quant._plan(M, 1024, 512, SMS, BF16, group, X3[kind]) == bf16
+    """fp32 x above M = 8 takes the fp32 tensor-core form for int8, int4
+    per column and int4 in groups that are a multiple of 16; other groups
+    and M <= 8 keep the CUDA-core forms.  bf16 x never takes it."""
+    assert quant._plan(M, 1024, 512, SMS, FP32, group).form == form
+    assert quant._plan(M, 1024, 512, SMS, BF16,
+                       group).form != "tensor_core_x3"
 
 
 @pytest.mark.parametrize("M,dtype,group,form", [
@@ -109,7 +124,8 @@ def test_the_decode_form_follows_dtype_and_group(M, dtype, group, form):
     (8, 4096, 1024, BF16, None, ("decode_tc", 8, 64, 4, 256, 256, 1, 64)),
     (8, 32768, 1024, BF16, None, ("decode_tc", 8, 128, 1, 1024, 256, 2, 32)),
     (8, 32768, 512, BF16, 128, ("decode_tc", 8, 128, 1, 512, 256, 2, 32)),
-    (1024, 4096, 1024, FP32, None, ("cuda_core", 64, 128, 1, 1024, 512, 0, 0)),
+    (1024, 4096, 1024, FP32, None,
+     ("tensor_core_x3", 128, 128, 1, 1024, 256, 0, 0)),
 ])
 def test_tiles_and_splits(M, N, rows, dtype, group, want):
     assert tuple(quant._plan(M, N, rows, SMS, dtype, group)) == want
@@ -127,7 +143,7 @@ def test_tiles_and_splits(M, N, rows, dtype, group, want):
 def test_x3_tiles_and_splits(M, N, rows, group, want):
     """The fp32-x form's tiles, and its splits of the code rows by the
     tensor-core prefill rule (whole 64-row chunks, rounded down)."""
-    plan = quant._plan(M, N, rows, SMS, FP32, group, True)
+    plan = quant._plan(M, N, rows, SMS, FP32, group)
     assert tuple(plan) == (*want, 0, 0)
 
 
@@ -142,17 +158,18 @@ def pr4_plan(M, N, rows, sms):
 
 
 @pytest.mark.parametrize("M,dtype,group", [(1, BF16, 24), (8, BF16, 8),
-                                           (8, FP32, None), (9, FP32, None),
-                                           (1024, FP32, None)])
+                                           (8, FP32, None), (9, FP32, 8),
+                                           (1024, FP32, 24)])
 def test_the_cuda_core_forms_keep_their_plan(M, dtype, group):
     """As the plan stood before the tensor-core forms, for the shapes that
-    keep the CUDA-core forms: fp32 x above M = 8 only for int4 per column
-    (int8 takes the fp32 tensor-core form there)."""
-    kinds = ("int4",) if dtype == FP32 and M > 8 else ("int8", "int4")
+    keep the CUDA-core forms: fp32 x above M = 8 only in groups that are
+    not a multiple of 16 (every kernel takes the fp32 tensor-core form for
+    the rest)."""
+    kinds = ("int8", "int4")
     for K, N in SERVING_LINEARS + ((255, 300), (96, 130)):
         for kind in kinds:
             rows, _ = weights(kind, K)
-            plan = quant._plan(M, N, rows, SMS, dtype, group, X3[kind])
+            plan = quant._plan(M, N, rows, SMS, dtype, group)
             assert plan.form in ("decode", "cuda_core")
             assert (plan.bm, plan.splits, plan.chunk) == pr4_plan(M, N, rows,
                                                                   SMS)
@@ -254,7 +271,7 @@ def test_a_decode_call_hands_the_kernel_its_plan_and_no_workspace(
 
 
 @pytest.mark.parametrize("dtype,group", [(BF16, None), (BF16, 64),
-                                         (FP32, None)])
+                                         (FP32, None), (FP32, 24)])
 @pytest.mark.parametrize("sms", [1, 16, 132])
 def test_splits_cover_the_rows_in_whole_slabs(dtype, group, sms):
     """Every split is a whole number of the form's slabs (the C entry
@@ -264,22 +281,20 @@ def test_splits_cover_the_rows_in_whole_slabs(dtype, group, sms):
     for M in (1, 8, 9, 64, 129, 1024):
         for N in (5, 64, 300, 4096):
             for rows in (1, 31, 96, 255, 512, 2048):
-                for x3 in (False, True):
-                    plan = quant._plan(M, N, rows, sms, dtype, group, x3)
-                    assert plan.chunk % slab[plan.form] == 0
-                    assert (plan.splits - 1) * plan.chunk < rows
-                    assert plan.splits * plan.chunk >= rows
-                    assert plan.blocks == (cdiv(N, plan.bn)
-                                           * cdiv(M, plan.bm) * plan.splits)
+                plan = quant._plan(M, N, rows, sms, dtype, group)
+                assert plan.chunk % slab[plan.form] == 0
+                assert (plan.splits - 1) * plan.chunk < rows
+                assert plan.splits * plan.chunk >= rows
+                assert plan.blocks == (cdiv(N, plan.bn)
+                                       * cdiv(M, plan.bm) * plan.splits)
 
 
 @pytest.mark.parametrize("kind", ["int8", "int4", "int4_g128"])
 def test_an_fp32_prefill_call_hands_the_kernel_its_plan(monkeypatch, kind):
-    """One fp32 call at M256 K1024 N4096: int8 and int4 in groups of 128
-    launch form 4 (the fp32 tensor-core form) with the plan's 128 columns,
-    64-row chunks and its splits over an fp32 workspace, counted under the
-    kernel's name + ``_x3``; int4 per column launches form 1 (the CUDA-core
-    prefill form), counted under its name."""
+    """One fp32 call at M256 K1024 N4096: int8, int4 per column and int4
+    in groups of 128 each launch form 4 (the fp32 tensor-core form) with
+    the plan's 128 columns, 64-row chunks and its splits over an fp32
+    workspace, counted under the kernel's name + ``_x3``."""
     rec = Recorder()
     monkeypatch.setattr(quant, "entry", lambda *a: (None, None))
     monkeypatch.setattr(quant, "call_on_stream", rec)
@@ -299,13 +314,12 @@ def test_an_fp32_prefill_call_hands_the_kernel_its_plan(monkeypatch, kind):
         rows, extra = 512, (scales.shape[0] if group else 0,)
         quant._launch(quant.KERNEL_INT4, "tf_int4_matmul", name, x, packed,
                       scales, rows, extra, group)
-    plan = quant._plan(256, 4096, rows, SMS, FP32, group, X3[kind])
+    plan = quant._plan(256, 4096, rows, SMS, FP32, group)
     (args,) = rec.calls
-    x3 = kind != "int4"
-    assert plan.form == ("tensor_core_x3" if x3 else "cuda_core")
+    assert plan.form == "tensor_core_x3"
     assert (args[4] is not None) == (plan.splits > 1)
-    assert args[5:] == (256, 4096, 1024, *extra, 4 if x3 else 1, plan.bn,
-                        plan.chunk, plan.splits, 0, 0, 0)
+    assert args[5:] == (256, 4096, 1024, *extra, 4, plan.bn, plan.chunk,
+                        plan.splits, 0, 0, 0)
     launched = {n: c - before.get(n, 0) for n, c in quant.launch_counts.items()
                 if c != before.get(n, 0)}
-    assert launched == {name + ("_x3" if x3 else ""): 1}
+    assert launched == {name + "_x3": 1}

@@ -1,11 +1,11 @@
 """The arithmetic of the quantized matmuls' fp32-x form on the tensor cores
-(``int8_matmul_x3`` / ``int4_matmul_group_x3``), on the CPU: x is split into
-three bf16 planes whose sum is x exactly, and ``matmul_x3`` (each step of
-code rows' three products, lo, mid and hi, summed apart and added in row
-order; per-column scales after the sum, group scales on each group's sum)
-agrees
-with the JAX package's ``int8_matmul`` and grouped ``int4_matmul`` (Pallas,
-in interpret mode) and with a float64 product.
+(``int8_matmul_x3`` / ``int4_matmul_x3`` / ``int4_matmul_group_x3``), on the
+CPU: x is split into three bf16 planes whose sum is x exactly, and
+``matmul_x3`` (each step of code rows' three products, lo, mid and hi,
+summed apart and added in row order; per-column scales after the sum, group
+scales on each group's sum) agrees with the JAX package's ``int8_matmul``
+and ``int4_matmul``, per column and grouped (Pallas, in interpret mode), and
+with a float64 product.
 
 Tolerance: within 1e-5 of the output's rms plus 1e-5 of the value
 (chip_smoke.py's fp32 ``QUANT_TOL``): both sides add the same exact
@@ -33,14 +33,16 @@ def excess(got, want, arms=1e-5, rtol=1e-5):
     return float((np.abs(got - want) - arms * rms - rtol * np.abs(want)).max())
 
 
-def matmul_x3(x, codes, scales):
+def matmul_x3(x, codes, scales, *, k2=None):
     """The ``_x3`` kernels' arithmetic in plain PyTorch: fp32 ``x`` [M, K]
     split by ``split3_bf16`` (hi + mid + lo == x); the integer ``codes``
     [K, N] (int8 codes, or int4 codes unpacked) met by the three planes in
     steps of rows, lo, mid, hi (smallest first, each product exact), each
     step's products summed apart and added in row order.  Per-column
     ``scales`` [N]: steps of 64 rows (the kernel's), the sum times the
-    scales.  Group scales [G, N]: steps of 16 rows added to the group's
+    scales; ``k2``, int4's packed rows ceil(K/2), starts the steps afresh
+    at row k2, as the kernel walks the low nibbles' rows, then the high
+    ones'.  Group scales [G, N]: steps of 16 rows added to the group's
     sum, each group's sum scaled and added to the total group by group (the
     low half's groups, then the high half's, as the kernel walks the packed
     rows).  Returns fp32 [M, N]."""
@@ -49,7 +51,7 @@ def matmul_x3(x, codes, scales):
     K = x.shape[1]
     s = scales.float()
     grouped = s.dim() == 2
-    g, step = (K // s.shape[0], 16) if grouped else (K, 64)
+    g, step = (K // s.shape[0], 16) if grouped else (k2 or K, 64)
     acc = None
     for g0 in range(0, K, g):
         part = None
@@ -58,10 +60,13 @@ def matmul_x3(x, codes, scales):
             fresh = lo[:, r] @ c[r]
             fresh = fresh + mid[:, r] @ c[r]
             fresh = fresh + hi[:, r] @ c[r]
-            part = fresh if part is None else part + fresh
+            if grouped:
+                part = fresh if part is None else part + fresh
+            else:
+                acc = fresh if acc is None else acc + fresh
         if grouped:
             part = part * s[g0 // g]
-        acc = part if acc is None else acc + part
+            acc = part if acc is None else acc + part
     return acc if grouped else acc * s
 
 
@@ -102,6 +107,29 @@ def test_three_products_match_jax_int8_matmul(M, K, N):
     assert excess(got, want) <= 0
     assert excess(got, exact) <= 0
     assert excess(hi_only(tx, tc, ts), exact) > 0
+
+
+@pytest.mark.parametrize("M,K,N", [(24, 255, 128), (40, 200, 72),
+                                   (16, 4096, 64)])
+def test_three_products_match_jax_int4_matmul(M, K, N):
+    """Per-column int4: the packed rows walked twice, the low nibbles'
+    K2 = ceil(K/2) rows, then the high ones', in steps of 64 rows; K 255
+    is odd (x's column K reads 0 against the last packed row's high
+    nibble, the zero code) and K2 128 at K 255 or 100 at K 200 ends the
+    low half inside a step."""
+    x, w = inputs(M, K, N, M + K + 1)
+    packed, scales, k = jq.quantize_weight_int4(jnp.asarray(w))
+    want = np.asarray(jq.int4_matmul(jnp.asarray(x), packed, scales,
+                                     k_dim=k, interpret=True))
+    tp = torch.from_numpy(np.array(packed))
+    codes = tq.unpack_int4(tp, K)
+    ts, tx = torch.from_numpy(np.array(scales)), torch.from_numpy(x)
+    got = matmul_x3(tx, codes, ts, k2=tp.shape[0])
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    exact = x.astype(np.float64) @ tq.dequantize(codes, ts, K).double().numpy()
+    assert excess(got, want) <= 0
+    assert excess(got, exact) <= 0
+    assert excess(hi_only(tx, codes, ts), exact) > 0
 
 
 @pytest.mark.parametrize("M,K,N,g", [(24, 256, 128, 128), (40, 192, 72, 32),

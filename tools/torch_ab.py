@@ -8,20 +8,28 @@ a check that two calls of each backward give the same bits; and the
 quantized matmuls (``int8_matmul`` / ``int4_matmul`` of
 ``kernels/quant.py``, int8, int4 and int4 in groups of 128) at bf16 decode
 (M 8) on each linear of the 176M serving model and at one 1024-token
-prefill, and int8 and int4 in groups of 128 at fp32 prefills of 16, 64,
-128, 256 and 1024 tokens at K1024 N4096, weights rotating past the 50 MB L2, with the
-same check; the fused LayerNorm forward and backward at R8192 H256 and the
-masked softmax forward and backward at B32 H8 L256 causal (fp32, the
-reference MT shapes), and flash decode at B8 H16 d64 over an int8 cache
-of 8192 positions at length 1024, inputs rotating past the L2, with the
-same check; and the
+prefill, and int8, int4 and int4 in groups of 128 at fp32 prefills of 16,
+64, 128, 256 and 1024 tokens at K1024 N4096, weights rotating past the 50
+MB L2, with the same check, beside cuBLAS's fp32 ``x @ W`` against the
+weight dequantized once (the same for every tree: a yardstick, never
+called by the port); the fused LayerNorm forward and backward at R8192
+H256 and the masked softmax forward (fp32 and bf16) and backward (fp32) at
+B32 H8 L256 causal (the reference MT shapes), and flash decode at B8 H16
+d64 over an int8 cache of 8192 positions at length 1024, inputs rotating
+past the L2, with the same check; and the
 host's time to issue one quantized Linear call (``int8_linear`` /
 ``int4_linear`` under ``torch.no_grad``, as serving calls them) at bf16
 decode on each serving linear, the stream held so that the host never
 waits for the card (``host_us``; these rows' ``clock`` is ``host``); and
-the device time of one fp32 training step of ``chip_smoke.py``'s
-long-two-pass config (the production widths, 2 layers, L 8192, remat, the
-chunked loss over 8 pieces), where the backward takes the two passes.
+the device time of one training step of ``chip_smoke.py``'s long-two-pass
+config (the production widths, 2 layers, L 8192, remat, the chunked loss
+over 8 pieces, fp32), where the backward takes the two passes, the stream
+held while the host queues it; and the kernels' summed device time a step
+(the profiler's sum, ``clock`` ``kernels``), all of them and the softmax
+forward's, of its training modes (c) and (d) (the reference MT config,
+fused attention and fused LayerNorm, B32 L256, fp32 Adam, and bf16 mixed
+precision with dropout 0.1), whose host issues a step slower than the card
+runs it, so that a held stream fills before the step is queued.
 
     PYTHONPATH=. python3 tools/torch_ab.py A_ROOT B_ROOT
 
@@ -60,13 +68,23 @@ QUANT_SHAPES = tuple((8, K, N) for K, N in ((1024, 1024), (1024, 4096),
 # fp32 x: prefills at the FF-in linear, for the kinds with an fp32 tensor-core
 # prefill form; M 16 to 128 are the short prompts of fp32 serving, where
 # most of the form's 128-row tile is empty.
-QUANT_FP32_KINDS = (("int8", None), ("int4_g128", 128))
+QUANT_FP32_KINDS = (("int8", None), ("int4", None), ("int4_g128", 128))
 QUANT_FP32_SHAPES = tuple((M, 1024, 4096) for M in (16, 64, 128, 256, 1024))
-# chip_smoke.py's long-two-pass step: TRAIN_LONG at 2 layers, B1 L8192, fp32.
-TRAIN_STEP = dict(n_vocab=10_000, n_embd=512, n_head=8, n_positions=8192,
+# Training steps (label, config, B, L, dtype, dropout, chunked_vocab,
+# clock): chip_smoke.py's long-two-pass step (TRAIN_LONG at 2 layers), and
+# its modes (c) and (d) (REF).
+TRAIN_LONG = dict(n_vocab=10_000, n_embd=512, n_head=8, n_positions=8192,
                   n_layer=2, ff_middle_dim=256, attention_kind="flash",
-                  remat=True, p_dropout=0.0)
-TRAIN_STEP_L, TRAIN_STEP_CHUNKS = 8192, 8
+                  remat=True)
+TRAIN_REF = dict(n_vocab=10_000, n_embd=256, n_head=8, n_positions=256,
+                 n_layer=4, ff_middle_dim=256, attention_kind="fused",
+                 use_fused_kernel=True)
+TRAIN_STEPS = (("long-two-pass", TRAIN_LONG, 1, 8192, "float32", 0.0, 8,
+                "device"),
+               ("(c) ref fused", TRAIN_REF, 32, 256, "float32", 0.0, 0,
+                "kernels"),
+               ("(d) ref fused mixed", TRAIN_REF, 32, 256, "bfloat16", 0.1,
+                0, "kernels"))
 TIMING = (Path(__file__).resolve().parents[1] / "tpu_flash_torch" / "utils"
           / "timing.py")
 
@@ -172,6 +190,18 @@ def quant_rows(torch, quant, timer) -> list[dict]:
                           "clock": "host", "ms": us * 1e-3,
                           "two_calls_same_bits": same})
         del w, q, qw
+    for M, K, N in QUANT_FP32_SHAPES:
+        # the yardstick: cuBLAS's fp32 GEMM (TF32 off) on the weight
+        # dequantized once, as chip_smoke.py's library_ms
+        w = torch.randn(K, N, generator=gen, device="cuda")
+        x = torch.randn(M, K, generator=gen, device="cuda")
+        rows.append({"what": "cublas x @ W dequantized", "dtype": "float32",
+                     "shape": f"M{M} K{K} N{N}", "clock": "device",
+                     "ms": timer.rotating_ms(lambda d: x @ d,
+                                             timer.past_l2(w), iters=20,
+                                             reps=5),
+                     "two_calls_same_bits": None})
+        del w, x
     return rows + hosts
 
 
@@ -192,6 +222,7 @@ def other_rows(torch, timer) -> list[dict]:
     x, dy, g, b = randn(R, H), randn(R, H), 1 + 0.1 * randn(H), randn(H)
     _, mean, var = layernorm_forward(x, g, b)
     s = randn(32, 8, 256, 256)
+    s16 = s.to(torch.bfloat16)
     p, dp = attn_softmax_forward(s, mask_future=True), randn(*s.shape)
     B, Hq, d, S, L = 8, 16, 64, 8192, 1024
     k, v = (torch.randint(-127, 128, (B, S, Hq * d), generator=gen,
@@ -206,6 +237,8 @@ def other_rows(torch, timer) -> list[dict]:
         ("layernorm bwd", "float32", f"R{R} H{H}", (dy, x, mean, var),
          lambda dy, x, mean, var: layernorm_backward(dy, x, g, mean, var)),
         ("softmax fwd", "float32", "B32 H8 L256 causal", (s,),
+         lambda s: attn_softmax_forward(s, mask_future=True)),
+        ("softmax fwd", "bfloat16", "B32 H8 L256 causal", (s16,),
          lambda s: attn_softmax_forward(s, mask_future=True)),
         ("softmax bwd", "float32", "B32 H8 L256 causal", (p, dp),
          attn_softmax_backward),
@@ -228,33 +261,80 @@ def other_rows(torch, timer) -> list[dict]:
     return rows
 
 
+def kernel_ms(torch, fn, keys=("",), calls=2, reps=7) -> list[float]:
+    """Medians over ``reps`` profiler traces of ``calls`` calls of ``fn``
+    of the summed device time a call of the kernels whose names hold each
+    of ``keys`` (``""``: every kernel).  A trace now and then holds no
+    device event (PERF.md §7); such a trace is taken again, up to ``reps``
+    times in all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    sums, empty = [], 0
+    while len(sums) < reps:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not events:
+            empty += 1
+            if empty == reps:
+                raise RuntimeError(f"{reps} profiler traces held no kernel")
+            continue
+        sums.append([sum(e.self_device_time_total for e in events
+                         if k in e.key) / calls / 1e3 for k in keys])
+    return [statistics.median(col) for col in zip(*sums)]
+
+
 def train_rows(torch, device_ms) -> list[dict]:
-    """Device time of one fp32 step of ``TRAIN_STEP`` (Adam, random weights
-    and tokens from seeds), the stream held while the host queues it."""
+    """Each of ``TRAIN_STEPS`` (Adam, in mixed precision for bf16; random
+    weights and tokens from seeds): the device time of one step, the stream
+    held while the host queues it, or its kernels' summed time a step and
+    the softmax forward's."""
     import numpy as np
 
     from tpu_flash_torch.apps.machine_translation import (make_train_step,
                                                          place_batch)
-    from tpu_flash_torch.nn import DecoderConfig, DecoderLM, adam, init_params
+    from tpu_flash_torch.nn import (DecoderConfig, DecoderLM, adam,
+                                    init_params, mixed_precision)
 
-    cfg = DecoderConfig(**TRAIN_STEP, dtype=torch.float32)
-    model = DecoderLM(cfg, device="cuda")
-    init_params(model, torch.Generator("cuda").manual_seed(2))
-    opt = adam(lr=1e-3)
-    state = opt.init(dict(model.named_parameters()))
-    rng = np.random.default_rng(1)
-    shape = (1, TRAIN_STEP_L)
-    batch = place_batch({"input_ids": rng.integers(0, cfg.n_vocab, shape),
-                         "labels": rng.integers(0, cfg.n_vocab, shape),
-                         "label_token_weights": (rng.random(shape) > 0.5
-                                                 ).astype(np.float32)},
-                        "cuda")
-    step = make_train_step(model, opt, chunked_vocab=TRAIN_STEP_CHUNKS)
-    ms = device_ms(lambda: step(state, batch), warmup=1, iters=1, reps=5,
-                   hold_cycles=400_000_000)
-    return [{"what": "train step long-two-pass", "dtype": "float32",
-             "shape": f"E512 2 layers B1 L{TRAIN_STEP_L}", "ms": ms,
-             "two_calls_same_bits": None}]
+    rows = []
+    for label, config, B, L, dname, dropout, chunks, clock in TRAIN_STEPS:
+        dtype = getattr(torch, dname)
+        cfg = DecoderConfig(**config, p_dropout=dropout, dtype=dtype)
+        model = DecoderLM(cfg, device="cuda")
+        init_params(model, torch.Generator("cuda").manual_seed(2))
+        opt = adam(lr=1e-3)
+        if dtype == torch.bfloat16:
+            opt = mixed_precision(opt)
+        state = opt.init(dict(model.named_parameters()))
+        rng = np.random.default_rng(1)
+        batch = place_batch(
+            {"input_ids": rng.integers(0, cfg.n_vocab, (B, L)),
+             "labels": rng.integers(0, cfg.n_vocab, (B, L)),
+             "label_token_weights": (rng.random((B, L)) > 0.5
+                                     ).astype(np.float32)}, "cuda")
+        step = make_train_step(model, opt, chunked_vocab=chunks)
+        shape = f"E{cfg.n_embd} {cfg.n_layer} layers B{B} L{L}"
+        if clock == "device":
+            ms = [device_ms(lambda: step(state, batch), warmup=1, iters=1,
+                            reps=5, hold_cycles=400_000_000)]
+            whats = [f"train step {label}"]
+        else:
+            ms = kernel_ms(torch, lambda: step(state, batch),
+                           ("", "attn_softmax_fwd"))
+            whats = [f"train step {label}, kernels",
+                     f"train step {label}, softmax fwd kernels"]
+        rows += [{"what": what, "dtype": dname, "shape": shape,
+                  "clock": clock, "ms": t, "two_calls_same_bits": None}
+                 for what, t in zip(whats, ms)]
+        del model, state, opt, step
+        torch.cuda.empty_cache()
+    return rows
 
 
 def one(root: str) -> dict:
@@ -263,6 +343,7 @@ def one(root: str) -> dict:
 
     from tpu_flash_torch.kernels import common, flash_attention as fa, quant
 
+    torch.backends.cuda.matmul.allow_tf32 = False    # fp32 GEMMs in fp32
     where = Path(fa.__file__).resolve()
     assert Path(root).resolve() in where.parents, where
     common.build([fa.KERNEL_FWD, fa.KERNEL_BWD, fa.SOURCE_TWO_PASS,

@@ -26,14 +26,18 @@
 // group's end.  bf16 x at M > 8 runs the tensor-core prefill form
 // (*_tc_kernel): one packed tile converted once per block into the low and
 // the high codes as bf16 in shared memory, fp32 sums, group partials scaled
-// at the group's end.  fp32 x at M > 8 in groups that are a multiple of 16
-// runs int4_matmul_group_x3_kernel: the same tiles, x split into three
-// bf16 planes in shared memory, each code product three bf16 products on
-// the tensor cores (2 M K N / 329.7 TFLOP/s at best).  Other fp32 x (M <=
-// 8, per-column scales) and groups the tensor-core forms do not take run
-// fp32 FMAs on the CUDA cores (_m8, _m64): grouped, each thread keeps the
-// low and the high group's partial sums beside its total (~170 registers,
-// one block a multiprocessor).
+// at the group's end.  fp32 x at M > 8, per column or in groups that are a
+// multiple of 16, runs int4_matmul_x3_kernel / int4_matmul_group_x3_kernel:
+// the same tiles, x split into three bf16 planes in shared memory, each
+// code product three bf16 products on the tensor cores (2 M K N / 329.7
+// TFLOP/s at best); per column an odd K takes x by single values, its
+// column K read as 0 against the last packed row's high nibble.  fp32 x at
+// M <= 8 runs fp32 FMAs on the CUDA cores (_m8), as do groups the
+// tensor-core forms do not take (_m8, and _m64 above M = 8): grouped, each
+// thread keeps the low and the high group's partial sums beside its total
+// (~170 registers, one block a multiprocessor).  Per column the tensor-core
+// forms take every M > 8, so there is no per-column CUDA-core prefill
+// kernel.
 //
 // C entry: tf_int4_matmul(...) launches on the given stream, allocates
 // nothing and returns cudaGetLastError() (or cudaErrorInvalidValue for
@@ -46,11 +50,6 @@ namespace {
 __global__ void __launch_bounds__(kThreads)
 int4_matmul_kernel_m8(const QParams p) {
   quant_matmul_body<1, 128, kInt4>(p);
-}
-
-__global__ void __launch_bounds__(kThreads)
-int4_matmul_kernel_m64(const QParams p) {
-  quant_matmul_body<8, 32, kInt4>(p);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -71,6 +70,11 @@ int4_matmul_tc_kernel(const QParams p) {
 __global__ void __launch_bounds__(kTcThreads)
 int4_matmul_group_tc_kernel(const QParams p) {
   quant_matmul_tc_body<kInt4Group>(p);
+}
+
+__global__ void __launch_bounds__(kTcThreads)
+int4_matmul_x3_kernel(const QParams p) {
+  quant_matmul_x3_body<kInt4>(p);
 }
 
 __global__ void __launch_bounds__(kTcThreads)
@@ -96,9 +100,9 @@ extern "C" {
 
 // groups: 0 for per-column scales [N], else G for scales [G, N] (G even
 // and dividing K; the tensor-core forms 2 to 4 need K / G a multiple of
-// 16, and form 4, fp32 x, is there for group scales only).  The other
-// arguments as tf_int8_matmul's, with the packed rows K2 = ceil(K / 2)
-// split into ranges of `chunk`.
+// 16, and form 1, the CUDA-core prefill form, is there for group scales
+// only).  The other arguments as tf_int8_matmul's, with the packed rows
+// K2 = ceil(K / 2) split into ranges of `chunk`.
 int tf_int4_matmul(const void* x, const void* packed, const float* scales,
                    void* out, float* part, int M, int N, int K, int groups,
                    int form, int bn, int chunk, int splits, int stage_rows,
@@ -124,9 +128,9 @@ int tf_int4_matmul(const void* x, const void* packed, const float* scales,
         p, true, form, bn, splits, stage_rows, stages, false, s);
   return quant_matmul_launch(
       {int4_matmul_kernel_m8,
-       int4_matmul_kernel_m64,
-       int4_matmul_tc_kernel,
        nullptr,
+       int4_matmul_tc_kernel,
+       int4_matmul_x3_kernel,
        {int4_matmul_dec_kernel<32>, int4_matmul_dec_kernel<64>,
         int4_matmul_dec_kernel<128>}},
       p, true, form, bn, splits, stage_rows, stages, true, s);

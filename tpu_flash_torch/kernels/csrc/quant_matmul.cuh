@@ -26,12 +26,14 @@
 //     of 16): quant_matmul_dec_body below, one launch a call, no workspace;
 //   * prefill on the tensor cores (bf16 x, M > 8, groups a multiple of
 //     16): quant_matmul_tc_body below;
-//   * prefill on the tensor cores for fp32 x (M > 8; int8, and int4 in
-//     groups that are a multiple of 16): quant_matmul_x3_body below, x
-//     split into three bf16 planes, three products a product;
-//   * the CUDA-core forms (fp32 x at M <= 8 and int4 per column at M > 8,
-//     groups that are not a multiple of 16, and at M <= 8 N that is not):
-//     quant_matmul_body, BM = 8 (M <= 8) or 64.
+//   * prefill on the tensor cores for fp32 x (M > 8; int8, int4 per
+//     column, and int4 in groups that are a multiple of 16):
+//     quant_matmul_x3_body below, x split into three bf16 planes, three
+//     products a product;
+//   * the CUDA-core forms (fp32 x at M <= 8, groups that are not a
+//     multiple of 16, and at M <= 8 N that is not): quant_matmul_body,
+//     BM = 8 (M <= 8) or 64 (such groups above M = 8, the only CUDA-core
+//     prefill kernel left).
 //
 // The CUDA-core forms: one block of 256 threads (8 warps) per [BM, 128]
 // tile of out and per split of the code rows (blockIdx.z).  Each slab of BK
@@ -586,9 +588,9 @@ __device__ __forceinline__ void quant_matmul_tc_body(const QParams& p) {
 
 // --- the fp32-x prefill form ----------------------------------------------
 //
-// For fp32 x at M > 8 (int8, and int4 in groups that are a multiple of 16):
-// the tensor-core prefill form's steps, code conversion and warps' 32 rows,
-// on tiles twice as wide.  A code is exact in bf16, so with x = hi + mid +
+// For fp32 x at M > 8 (int8, int4 per column, and int4 in groups that are
+// a multiple of 16): the tensor-core prefill form's steps, code conversion
+// and warps' 32 rows, on tiles twice as wide.  A code is exact in bf16, so with x = hi + mid +
 // lo (split3_pair, exact) x c = hi c + mid c + lo c, each of the three
 // products exact in the tensor cores: three bf16 products a product, where
 // two fp32 operands take six, and as accurate as an fp32 FMA up to the
@@ -608,6 +610,12 @@ __device__ __forceinline__ void quant_matmul_tc_body(const QParams& p) {
 //   * Shared memory: ring 2 x (32 + 8) KB, planes 2 x 54 KB, codes 2 x 17
 //     KB: 222 KB, one block an SM (the bf16 form's 106 KB fits two); a
 //     third stage does not fit in the 227 KB a block may have.
+//   * int4 walks a split's packed rows twice, the low nibbles against x's
+//     first K2 columns, then the high ones against the rest.  Where 8
+//     does not divide K, x's rows or their second half are not 16-byte
+//     aligned and x comes by single values; an odd K (per column only: an
+//     even group divides K) reads x's column K as 0 against the last
+//     packed row's high nibble (the zero code 8).
 //   * The tensor cores truncate each fp32 sum (mma.cuh).  Per column, a
 //     step's twelve products of each tile go in place into a fresh sum,
 //     added to the total rounded to nearest; grouped, each 16 code rows'

@@ -20,15 +20,15 @@ with fp32 sums on the tensor cores: ``decode_tc`` at M <= 8 where 16 divides
 N too (one launch, the code rows split over a thread-block cluster, counted
 under the kernel's name with ``_dec``), ``tensor_core`` above (counted with
 ``_tc``).  fp32 x at M > 8 runs ``tensor_core_x3`` on the tensor cores
-where the kernel has it (``X3_KERNELS``: int8, and int4 in groups that are a
-multiple of 16; counted with ``_x3``): x split into three bf16 planes, each
-product three exact bf16 products.  The rest (fp32 x at M <= 8, int4 per
-column in fp32, groups that are not a multiple of 16, and at M <= 8 N that
-is not) runs fp32 FMAs on the CUDA cores: ``decode`` at M <= 8 and ``cuda_core`` above,
-counted under the kernel's name.  All round as the TPU kernels do: the
-fp32 product of x and the integer codes is scaled after the dot (grouped:
-each group's partial dot is scaled, then summed), and the weight is never
-dequantized first.
+where the group allows it (per column, or a multiple of 16; counted with
+``_x3``): x split into three bf16 planes, each product three exact bf16
+products.  The rest (fp32 x at M <= 8, groups that are not a multiple of
+16, and at M <= 8 N that is not) runs fp32 FMAs on the CUDA cores:
+``decode`` at M <= 8 and ``cuda_core`` above (such groups only), counted
+under the kernel's name.  All round as
+the TPU kernels do: the fp32 product of x and the integer codes is scaled
+after the dot (grouped: each group's partial dot is scaled, then summed),
+and the weight is never dequantized first.
 ``int8_linear`` and ``int4_linear`` are differentiable in x only, as the
 JAX package's ``custom_vjp``s: dx of the per-column forms runs the int8
 kernel on the transposed codes with the scales folded into dy; the grouped
@@ -60,9 +60,6 @@ from tpu_flash_torch.kernels.common import (
 KERNEL_INT8 = "int8_matmul"
 KERNEL_INT4 = "int4_matmul"          # source, and launches of per-column int4
 KERNEL_INT4_GROUP = "int4_matmul_group"
-# The kernels (by launch-count name) whose source has the fp32-x prefill
-# form on the tensor cores; int4 per column has it not.
-X3_KERNELS = (KERNEL_INT8, KERNEL_INT4_GROUP)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The forms (quant_matmul.cuh): rows and columns of out a block, code rows a
 # slab (the chunks of a split are whole slabs), the blocks wanted for each
@@ -252,17 +249,16 @@ def _check_int4(x, packed, scales, k_dim) -> bool:
 
 @functools.lru_cache(maxsize=4096)
 def _plan(M: int, N: int, rows: int, sms: int, dtype: torch.dtype,
-          group: int | None, x3: bool = False) -> Plan:
+          group: int | None) -> Plan:
     """The launch for x [M, K], ``rows`` code rows (K, or ceil(K/2)
     packed), N columns, on a card of ``sms`` streaming multiprocessors;
-    ``group`` is the rows of W a scale covers (None: per column); ``x3``
-    says whether the kernel's source has the fp32-x tensor-core form
-    (``X3_KERNELS``).  Where the tensor cores' k depth of 16 divides the
-    group, bf16 x takes a tensor-core form: ``decode_tc`` at M <= 8 (up to
-    8 x 2048 code rows, and N a multiple of 16, the row stride its tensor
-    map of the codes needs), ``tensor_core`` above; fp32 x above M = 8
-    takes ``tensor_core_x3`` where the source has it.  The rest take the
-    CUDA-core forms, ``decode`` at M <= 8 and ``cuda_core`` above.  The
+    ``group`` is the rows of W a scale covers (None: per column).  Where
+    the tensor cores' k depth of 16 divides the group, bf16 x takes a
+    tensor-core form: ``decode_tc`` at M <= 8 (up to 8 x 2048 code rows,
+    and N a multiple of 16, the row stride its tensor map of the codes
+    needs), ``tensor_core`` above; fp32 x above M = 8 takes
+    ``tensor_core_x3``.  The rest take the CUDA-core forms, ``decode`` at
+    M <= 8 and ``cuda_core`` above (groups that 16 does not divide).  The
     code rows are split until the launch has the form's blocks for each
     multiprocessor (the tensor-core prefill forms' chunks rounded down, so
     that they get them whole)."""
@@ -272,10 +268,8 @@ def _plan(M: int, N: int, rows: int, sms: int, dtype: torch.dtype,
                 and rows <= _DEC_CLUSTER * _DEC_ROWS):
             return _decode_plan(N, rows, sms)
         form = "decode"
-    elif tc and dtype == torch.bfloat16:
-        form = "tensor_core"
-    elif tc and x3:
-        form = "tensor_core_x3"
+    elif tc:
+        form = "tensor_core" if dtype == torch.bfloat16 else "tensor_core_x3"
     else:
         form = "cuda_core"
     bm, bn, bk, per_sm = _FORMS[form]
@@ -330,17 +324,16 @@ def _launch(name, symbol, count_as, x, w, scales, rows, extra, group=None):
     """Launch ``symbol`` of ``csrc/<name>.cu``; ``extra`` are the C
     arguments between K and the form (the int4 group count), ``group`` the
     rows a group scale covers.  out takes x's dtype; the launch counts under
-    ``count_as``, with ``DEC``, ``TC`` or ``X3`` for the tensor-core forms
-    (``X3`` where ``count_as`` is one of ``X3_KERNELS``).  Every form but
-    ``decode_tc`` takes an fp32 workspace when it splits the code rows."""
+    ``count_as``, with ``DEC``, ``TC`` or ``X3`` for the tensor-core
+    forms.  Every form but ``decode_tc`` takes an fp32 workspace when it
+    splits the code rows."""
     dev, (x, w, s) = _inputs(x, w, scales, name)
     M, K = x.shape
     N = w.shape[1]
     out = torch.empty(M, N, dtype=x.dtype, device=dev)
     if out.numel() == 0:
         return out
-    plan = _plan(M, N, rows, _sms(dev), x.dtype, group,
-                 count_as in X3_KERNELS)
+    plan = _plan(M, N, rows, _sms(dev), x.dtype, group)
     count_as += {"decode_tc": DEC, "tensor_core": TC,
                  "tensor_core_x3": X3}.get(plan.form, "")
     part = (torch.empty(plan.splits, M, N, dtype=torch.float32, device=dev)
