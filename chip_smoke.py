@@ -8,8 +8,12 @@ It builds every kernel of the port from ``tpu_flash_torch/kernels/csrc``
 with nvcc (one process per source, all started together), then drives both
 ported paths:
 
-* serving: the flash-decode kernel against its plain PyTorch version and its
-  times; 16 requests through ``DecodeEngine`` at the full width of the 176M
+* serving: the flash-decode kernel against its plain PyTorch version (the
+  serving shape's lengths 0, 1 and below the cluster it splits over,
+  windows that leave blocks of the cluster nothing to read, GQA and Lq up
+  to 8, fp32 / bf16 / int8 / fp8 caches; each case called twice for the
+  same bits) and its times over bf16 and int8 caches at lengths 1024 and
+  8192; 16 requests through ``DecodeEngine`` at the full width of the 176M
   serving configuration in three modes, with the kernels of one decode step
   under ``torch.profiler``; the engine against ``generate`` and the kernel
   against the plain path end to end;
@@ -44,8 +48,10 @@ ported paths:
   backward called twice there (bf16 and fp32) giving the same bits; the
   fused LayerNorm and masked-softmax kernels against their plain versions (fp32 and bf16, the reference MT
   shapes, ragged widths, rows that see no key, a fully padded batch row,
-  widths above 512; each limit checked against a perturbed row), their
-  times at the reference MT shapes, and ``ops.fused``'s kernel route
+  widths above 512; each limit checked against a perturbed row; the
+  LayerNorm backward's dx, dgamma and dbeta the same bits on two calls),
+  their times at the reference MT shapes (and the LayerNorm backward's at
+  the production width, R8192 H512), and ``ops.fused``'s kernel route
   against its composed route (forward plus backward) at last axes 640 and
   1024, above its 512 limits; ``train_epoch`` in five modes: the E=512
   L=2048 decoder (``bench/bench_train.py``'s production config) with flash
@@ -83,7 +89,8 @@ ported paths:
 The build phase logs each kernel's registers, stack and spills as ptxas
 reports them, and fails if a flash-attention kernel's tensor-core or
 six-product form, a quantized matmul's tensor-core decode or fp32 prefill
-form, or a form of the masked-softmax forward spills.
+form, a form of the masked-softmax forward or of the LayerNorm backward, or
+a flash-decode kernel spills.
 Modes (b) and (e) run the forward and the fused backward in their
 tensor-core form, mode (a) in their six-product form.
 
@@ -117,6 +124,7 @@ from tpu_flash_torch.inference.engine import Request
 from tpu_flash_torch.inference.sampler import generate, prefill_prompt
 from tpu_flash_torch.kernels import common
 from tpu_flash_torch.kernels.backward_form import two_pass
+from tpu_flash_torch.kernels import decode
 from tpu_flash_torch.kernels.decode import flash_decode_attention
 from tpu_flash_torch.kernels import flash_attention as fa
 from tpu_flash_torch.kernels.flash_attention import (
@@ -421,9 +429,14 @@ def filled_cache(gen, B, Hkv, S, d, quant, dtype, lengths):
 
 
 def kernel_cases(gen) -> float:
-    """The decode kernel against its plain version; returns the largest
-    error."""
+    """The decode kernel against its plain version, each case called twice
+    for the same bits; returns the largest error."""
     serving_lengths = [0, 1, 7, 1023, 1024, 1025, 8191, 8192]
+    # the serving shape's cluster: lengths below it leave blocks of the
+    # cluster no position, and so do windows of 1 and 5
+    C = decode._plan(8, 16, 1, 64, torch.int8,
+                     common.sm_count(torch.device(DEV))).cluster
+    split_lengths = [0, 1, C - 1, C, C + 1, 1000, 8191, 8192]
     cases = [
         # name, B, Hq, Hkv, Lq, S, d, dtype, quant, lengths, window
         ("serving-bf16", 8, 16, 16, 1, 8192, 64, torch.bfloat16, "none",
@@ -444,6 +457,14 @@ def kernel_cases(gen) -> float:
          [5, 512], None),
         ("d16-fp8-window", 3, 4, 2, 3, 300, 16, torch.bfloat16, "fp8",
          [2, 150, 300], 5),
+        ("split-below-cluster-int8", 8, 16, 16, 1, 8192, 64,
+         torch.bfloat16, "int8", split_lengths, None),
+        ("split-empty-shares-window1", 8, 16, 16, 1, 8192, 64,
+         torch.bfloat16, "int8", split_lengths, 1),
+        ("split-empty-shares-window5-bf16", 8, 16, 16, 1, 8192, 64,
+         torch.bfloat16, "none", split_lengths, 5),
+        ("gqa-8q2kv-lq8-window", 4, 8, 2, 8, 2048, 64, torch.bfloat16,
+         "int8", [3, C - 1, 1000, 2048], 100),
     ]
     worst = 0.0
     for (name, B, Hq, Hkv, Lq, S, d, dtype, quant, lengths,
@@ -453,15 +474,18 @@ def kernel_cases(gen) -> float:
         args = (q, cache.k, cache.v, cache.lengths, cache.k_scale,
                 cache.v_scale)
         out = flash_decode_attention(*args, window=window, impl="kernel")
+        again = flash_decode_attention(*args, window=window, impl="kernel")
         ref = flash_decode_attention(*args, window=window, impl="plain")
         torch.cuda.synchronize()
+        same = torch.equal(out, again)
         out, ref = out.float(), ref.float()
         err = float((out - ref).abs().max())
         tol = TOL[dtype]
-        ok = bool(torch.isfinite(out).all()) and bool(
+        ok = same and bool(torch.isfinite(out).all()) and bool(
             ((out - ref).abs() <= tol + tol * ref.abs()).all())
         log({"phase": "kernel_vs_plain", "case": name, "max_abs_err": err,
-             "tol": f"atol {tol} + rtol {tol}", "ok": ok})
+             "tol": f"atol {tol} + rtol {tol}",
+             "two_calls_same_bits": same, "ok": ok})
         check(ok, f"flash_decode disagrees with its plain version: {name}")
         worst = max(worst, err)
         del cache
@@ -1146,13 +1170,17 @@ def fused_cases(gen) -> dict:
             mean, var = ref[1], ref[2]
             grads = layernorm_backward(dy, x, g, mean, var,
                                        impl=impl or "kernel")
+            again = layernorm_backward(dy, x, g, mean, var,
+                                       impl=impl or "kernel")
             ref_grads = layernorm_backward(dy, x, g, mean, var,
                                            impl="plain")
             torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(grads, again))
             judge("layernorm_fwd", name,
                   list(zip(("y", "mean", "var"), got, ref)))
             judge("layernorm_bwd", name,
-                  list(zip(("dx", "dgamma", "dbeta"), grads, ref_grads)))
+                  list(zip(("dx", "dgamma", "dbeta"), grads, ref_grads)),
+                  same)
         for name, shape, causal, keep in SOFTMAX_CASES:
             x, dp = (torch.randn(*shape, generator=gen, device=DEV
                                  ).to(dtype) for _ in range(2))
@@ -1190,10 +1218,11 @@ def causal_visible(Lq: int, Lk: int) -> int:
 
 
 def fused_times(gen) -> dict:
-    """Fused kernels' times at the reference MT shapes (LayerNorm R = 8192,
-    H = 256; softmax [32, 8, 256, 256] causal), fp32 and bf16: kernel,
-    plain and library, with the bound.  Inputs rotate through enough copies
-    that each call reads past the 50 MB L2."""
+    """Fused kernels' times at the reference MT shapes (LayerNorm forward R
+    = 8192, H = 256; softmax [32, 8, 256, 256] causal), fp32 and bf16:
+    kernel, plain and library, with the bound (the LayerNorm backward's in
+    ``ln_backward_times``).  Inputs rotate through enough copies that each
+    call reads past the 50 MB L2."""
     F = torch.nn.functional
     R, H = REF_B * REF_L, REF["n_embd"]
     shape = (REF_B, REF["n_head"], REF_L, REF_L)
@@ -1208,8 +1237,6 @@ def fused_times(gen) -> dict:
         work = {
             "layernorm_fwd": (2 * R * H * it + 2 * H * it + 2 * R * 4,
                               7 * R * H),
-            "layernorm_bwd": (3 * R * H * it + 3 * H * it + 2 * R * 4,
-                              17 * R * H),
             "attn_softmax_fwd": ((visible + N) * it, 6 * visible),
             "attn_softmax_bwd": (3 * N * it, 4 * N),
         }
@@ -1220,9 +1247,6 @@ def fused_times(gen) -> dict:
         nl = copies["layernorm_fwd"]
         xs = [torch.randn(R, H, generator=gen, device=DEV).to(dtype)
               for _ in range(nl)]
-        dys = [torch.randn(R, H, generator=gen, device=DEV).to(dtype)
-               for _ in range(nl)]
-        stats = [layernorm_forward(x, g, b)[1:] for x in xs]
         ns = copies["attn_softmax_fwd"]
         ss = [torch.randn(*shape, generator=gen, device=DEV).to(dtype)
               for _ in range(ns)]
@@ -1230,10 +1254,6 @@ def fused_times(gen) -> dict:
         dps = [torch.randn(*shape, generator=gen, device=DEV).to(dtype)
                for _ in range(ns)]
         cmask = causal_mask(REF_L, REF_L, dtype, DEV)
-        leaves = [[t.detach().requires_grad_() for t in (x, g, b)]
-                  for x in xs]
-        lib_ys = [F.layer_norm(x, (H,), gl, bl, eps=1e-8)
-                  for x, gl, bl in leaves]
         tick = [0]
 
         def nxt(n):
@@ -1245,15 +1265,6 @@ def fused_times(gen) -> dict:
 
         def ln_fwd_lib():
             return F.layer_norm(xs[nxt(nl)], (H,), g, b, eps=1e-8)
-
-        def ln_bwd(impl):
-            i = nxt(nl)
-            return layernorm_backward(dys[i], xs[i], g, *stats[i], impl=impl)
-
-        def ln_bwd_lib():
-            i = nxt(nl)
-            return torch.autograd.grad(lib_ys[i], leaves[i], dys[i],
-                                       retain_graph=True)
 
         def sm_fwd(impl):
             return attn_softmax_forward(ss[nxt(ns)], mask_future=True,
@@ -1271,12 +1282,10 @@ def fused_times(gen) -> dict:
             return torch._softmax_backward_data(dps[i], ps[i], -1, dtype)
 
         calls = {"layernorm_fwd": (ln_fwd, ln_fwd_lib),
-                 "layernorm_bwd": (ln_bwd, ln_bwd_lib),
                  "attn_softmax_fwd": (sm_fwd, sm_fwd_lib),
                  "attn_softmax_bwd": (sm_bwd, sm_bwd_lib)}
         library = {
             "layernorm_fwd": "F.layer_norm(eps=1e-8)",
-            "layernorm_bwd": "autograd of F.layer_norm (dx, dgamma, dbeta)",
             "attn_softmax_fwd": "torch.softmax(x + causal mask, -1)",
             "attn_softmax_bwd": "torch._softmax_backward_data"}
         for name, (fn, lib) in calls.items():
@@ -1298,7 +1307,64 @@ def fused_times(gen) -> dict:
                            else "B{} H{} Lq{} Lk{} causal".format(*shape)),
                  "library": library[name], **row})
             rows[(name, dtype)] = row
-        del xs, dys, stats, ss, ps, dps, leaves, lib_ys
+        del xs, ss, ps, dps
+    return rows
+
+
+def ln_backward_times(gen, H) -> dict:
+    """The LayerNorm backward's times (the whole call: dx, dgamma, dbeta) at
+    R = 8192 rows of H, the rows of both training configs (H 256 the
+    reference MT width, 512 the production one, mode (e)'s), fp32 and bf16:
+    kernel, plain and library, with the bound.  Inputs rotate past the
+    L2."""
+    F = torch.nn.functional
+    R = REF_B * REF_L
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        it = torch.tensor([], dtype=dtype).element_size()
+        nbytes, flops = 3 * R * H * it + 3 * H * it + 2 * R * 4, 17 * R * H
+        n = max(2, math.ceil(2 * L2_BYTES / nbytes))
+        g = (1 + 0.1 * torch.randn(H, generator=gen, device=DEV)).to(dtype)
+        b = (0.1 * torch.randn(H, generator=gen, device=DEV)).to(dtype)
+        xs, dys = ([torch.randn(R, H, generator=gen, device=DEV).to(dtype)
+                    for _ in range(n)] for _ in range(2))
+        stats = [layernorm_forward(x, g, b)[1:] for x in xs]
+        leaves = [[t.detach().requires_grad_() for t in (x, g, b)]
+                  for x in xs]
+        lib_ys = [F.layer_norm(x, (H,), gl, bl, eps=1e-8)
+                  for x, gl, bl in leaves]
+        tick = [0]
+
+        def nxt():
+            tick[0] = (tick[0] + 1) % n
+            return tick[0]
+
+        def ln_bwd(impl):
+            i = nxt()
+            return layernorm_backward(dys[i], xs[i], g, *stats[i], impl=impl)
+
+        def ln_bwd_lib():
+            i = nxt()
+            return torch.autograd.grad(lib_ys[i], leaves[i], dys[i],
+                                       retain_graph=True)
+
+        ms = device_ms(lambda: ln_bwd("kernel"), iters=20)
+        plain_ms = device_ms(lambda: ln_bwd("plain"), iters=5)
+        library_ms = device_ms(ln_bwd_lib, iters=20)
+        bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "operations": flops / CUDA_CORE_FLOPS * 1e3}
+        bound_by = max(bound, key=bound.get)
+        row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": bound[bound_by], "bound_by": bound_by,
+               "of_bound": bound[bound_by] / ms, "bytes": nbytes,
+               "flops": flops, "hbm_GBps": nbytes / (ms * 1e-3) / 1e9,
+               "copies": n}
+        log({"phase": "kernel_time", "kernel": "layernorm_bwd",
+             "dtype": str(dtype).split(".")[1], "shape": f"R{R} H{H}",
+             "library": "autograd of F.layer_norm (dx, dgamma, dbeta)",
+             **row})
+        rows[dtype] = row
+        del xs, dys, stats, leaves, lib_ys
     return rows
 
 
@@ -2161,16 +2227,28 @@ def main() -> int:
     x3 = {k: r for k, r in quant_reports.items() if "_x3_kernel" in k}
     spills = {k: r for k, r in {**tc, **x6, **dec, **x3}.items()
               if r.get("spill_stores", 0) or r.get("spill_loads", 0)}
-    # the softmax forward's 32 template forms share one name in the
-    # report, so their spills are read from ptxas's warnings
-    sm_spills = [ln for ln in built["attn_softmax_fwd"].log.splitlines()
-                 if "warning" in ln and "spill" in ln]
+    # the softmax forward's 32 template forms and the LayerNorm backward's
+    # 38 share a name each in the report (it reads integer template
+    # arguments only), so their spills are read from ptxas's warnings
+    sm_spills, ln_spills = ([ln for ln in built[n].log.splitlines()
+                             if "warning" in ln and "spill" in ln]
+                            for n in ("attn_softmax_fwd", "layernorm_bwd"))
+    # flash decode: a kernel for each head dim, cache dtype and rows a block
+    fd = ptxas_report(built["flash_decode"].log)
+    fd_spills = {k: r for k, r in fd.items()
+                 if r.get("spill_stores", 0) or r.get("spill_loads", 0)}
     log({"phase": "tensor_core_spills",
          "kernels": len(tc) + len(x6) + len(dec) + len(x3),
          "six_product_form": x6, "decode_form": dec,
          "fp32_prefill_form": x3, "spilling": spills,
-         "softmax_forward_spills": sm_spills})
+         "softmax_forward_spills": sm_spills,
+         "layernorm_backward": ptxas_report(built["layernorm_bwd"].log),
+         "layernorm_backward_spills": ln_spills,
+         "flash_decode": fd, "flash_decode_spills": fd_spills})
     check(not sm_spills, f"the softmax forward spills: {sm_spills}")
+    check(not ln_spills, f"the LayerNorm backward spills: {ln_spills}")
+    check(len(fd) == 4 * (4 + 3 + 2 + 2) and not fd_spills,
+          f"flash decode: {len(fd)} kernels reported, spilling {fd_spills}")
     # the decode form: a kernel a mode at tiles of 32, 64 and 128 columns
     check(len(tc) == 4 * len(fa.HEAD_DIMS)
           and len(x6) == (len(ATTENTION_X6) + len(TWO_PASS))
@@ -2194,6 +2272,10 @@ def main() -> int:
     two_rows = two_pass_times(gen)
     fused_worst = fused_cases(gen)
     fused_rows = fused_times(gen)
+    ln_rows = {H: ln_backward_times(gen, H)
+               for H in (REF["n_embd"], TRAIN["n_embd"])}
+    fused_rows.update({("layernorm_bwd", dt): r
+                       for dt, r in ln_rows[REF["n_embd"]].items()})
     fused_dispatch_times(gen)
     quant_worst = quant_cases(gen)
     x3_fp64 = quant_x3_vs_fp64(gen)
@@ -2265,6 +2347,7 @@ def main() -> int:
 
     main_row = next(r for r in rows if r["cache"] == "int8"
                     and r["length"] == 1024)
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     entries = [{
         "name": "flash_decode", "route": "cuda",
         "source": "tpu_flash_torch/kernels/csrc/flash_decode.cu",
@@ -2273,7 +2356,10 @@ def main() -> int:
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
-        "shape": "B8 Hq16 Hkv16 Lq1 d64 S8192 int8 cache, lengths 1024"}]
+        "shape": "B8 Hq16 Hkv16 Lq1 d64 S8192 int8 cache, lengths 1024",
+        "other_shapes": {f"{r['cache']} cache, lengths {r['length']}":
+                         {k: r[k] for k in timed}
+                         for r in rows if r is not main_row}}]
     replaces = {"flash_attention_fwd": "flash_attention.py:498",
                 "flash_attention_bwd": "flash_attention.py:1228"}
     long_plain, long_fused = long_errs["vs_plain"], long_errs["vs_fused"]
@@ -2356,10 +2442,13 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "shape": ("R8192 H256 fp32" if n.startswith("layernorm")
                       else "B32 H8 Lq256 Lk256 causal fp32")})
-        if n == "attn_softmax_fwd":     # redesigned for both dtypes
+        if n in ("attn_softmax_fwd", "layernorm_bwd"):  # both dtypes
             b = fused_rows[(n, torch.bfloat16)]
-            entries[-1]["bfloat16"] = {k: b[k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            entries[-1]["bfloat16"] = {k: b[k] for k in timed}
+        if n == "layernorm_bwd":        # and the production width
+            entries[-1]["R8192 H512"] = {
+                str(dt).split(".")[1]: {k: r[k] for k in timed}
+                for dt, r in ln_rows[TRAIN["n_embd"]].items()}
     forms = ((common.DEC, QUANT_MAIN_SHAPE, "the tensor-core decode form"),
              (common.TC, QUANT_TC_SHAPE, "the tensor-core prefill form"),
              ("", QUANT_CUDA_CORE_SHAPE, "the CUDA-core decode form"),

@@ -20,7 +20,7 @@ import torch
 
 from tpu_flash_torch import nn as tnn
 from tpu_flash_torch.inference import KVCache, make_caches
-from tpu_flash_torch.kernels import common
+from tpu_flash_torch.kernels import common, decode
 from tpu_flash_torch.kernels.decode import flash_decode_attention
 
 torch.set_num_threads(1)
@@ -80,6 +80,62 @@ def test_kernel_matches_plain_fp32(cuda_device, d, Hq, Hkv, Lq):
     q = torch.randn(3, Hq, Lq, d, generator=gen, device=cuda_device)
     got, want = kernel_and_plain(cache, q, None)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def serving_plan(dev, B, Hq, Hkv, Lq, dtype, d=64):
+    return decode._plan(B, Hkv, Lq * (Hq // Hkv), d, dtype,
+                        common.sm_count(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_split_decode_at_the_split_s_edges(cuda_device, quant):
+    """The serving shape (B8 Hq16 d64; over an int8 cache clusters of C = 2
+    at 132 multiprocessors), lengths 0, 1, C - 1, C, 7, 1000, 8191 and
+    8192 = S; then windows of 1 and 5, which leave a block of the cluster
+    nothing to read; the same bits on two calls."""
+    gen = torch.Generator(cuda_device).manual_seed(11)
+    C = serving_plan(cuda_device, 8, 16, 16, 1, torch.int8).cluster
+    assert C > 1         # over a bf16 cache the plan takes no cluster
+    lengths = [0, 1, C - 1, C, 7, 1000, 8191, 8192]
+    cache = filled_cache(gen, cuda_device, 8, 16, 8192, 64, quant,
+                         torch.bfloat16, lengths)
+    q = torch.randn(8, 16, 1, 64, generator=gen,
+                    device=cuda_device).bfloat16()
+    for window in (None, 1, 5):
+        got, want = kernel_and_plain(cache, q, window)
+        torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+        assert torch.count_nonzero(got[0]) == 0      # length 0: all rows 0
+        again = flash_decode_attention(q, cache.k, cache.v, cache.lengths,
+                                       cache.k_scale, cache.v_scale,
+                                       window=window)
+        assert torch.equal(again.float(), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,quant", [(torch.bfloat16, "none"),
+                                         (torch.bfloat16, "fp8"),
+                                         (torch.float32, "none")])
+def test_split_decode_gqa_lq8(cuda_device, dtype, quant):
+    """Lq = 8 with 4 query heads a KV head: 32 rows a KV head, more than a
+    block holds (several chunks), each row its own causal limit; lengths
+    below Lq (rows that see no position), below C, and S below the length
+    (an idle slot); a window; the same bits on two calls."""
+    gen = torch.Generator(cuda_device).manual_seed(12)
+    plan = serving_plan(cuda_device, 4, 8, 2, 8, dtype)
+    assert plan.chunks > 1
+    cache = filled_cache(gen, cuda_device, 4, 2, 300, 64, quant, dtype,
+                         [3, plan.cluster - 1, 257, 300])
+    cache.lengths[3] = 310            # past S: reads stop at S
+    q = torch.randn(4, 8, 8, 64, generator=gen, device=cuda_device).to(dtype)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    for window in (None, 20):
+        got, want = kernel_and_plain(cache, q, window)
+        torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+        again = flash_decode_attention(q, cache.k, cache.v, cache.lengths,
+                                       cache.k_scale, cache.v_scale,
+                                       window=window)
+        assert torch.equal(again.float(), got)
 
 
 @pytest.mark.cuda
@@ -872,6 +928,41 @@ def test_layernorm_kernels_match_plain(cuda_device, dtype, lead, H):
     for a, w in zip((y, mean, var, grads[0]), (*ref, ref_grads[0])):
         assert_within(a, w, arms, rtol)
     for a, w in zip(grads[1:], ref_grads[1:]):      # dgamma, dbeta
+        assert a.dtype == dtype
+        assert_within(a, w, max(arms, 1e-4), rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,H", [(8192, 256), (8192, 512), (5000, 1024),
+                                 (0, 256), (3, 70)])
+def test_layernorm_backward_gives_the_same_bits(cuda_device, dtype, R, H):
+    """The one-launch backward, dgamma and dbeta included, the same bits on
+    two calls: the reference MT and production widths, a row held at the
+    widest, no rows at all (dgamma and dbeta zero), and the looped form;
+    against the plain version too."""
+    from tpu_flash_torch.kernels.layernorm import (layernorm_backward,
+                                                   layernorm_forward)
+
+    gen = torch.Generator(cuda_device).manual_seed(7)
+    x, dy = (torch.randn(R, H, generator=gen, device=cuda_device).to(dtype)
+             for _ in range(2))
+    g = torch.randn(H, generator=gen, device=cuda_device).to(dtype)
+    _, mean, var = layernorm_forward(x, g, torch.zeros_like(g))
+    before = common.launch_counts["layernorm_bwd"]
+    first = layernorm_backward(dy, x, g, mean, var)
+    second = layernorm_backward(dy, x, g, mean, var)
+    torch.cuda.synchronize()
+    assert common.launch_counts["layernorm_bwd"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    if R == 0:
+        assert first[0].shape == (0, H)
+        assert not first[1].any() and not first[2].any()
+        return
+    ref = layernorm_backward(dy, x, g, mean, var, impl="plain")
+    arms, rtol = FUSED_TOL[dtype]
+    assert_within(first[0], ref[0], arms, rtol)
+    for a, w in zip(first[1:], ref[1:]):
         assert a.dtype == dtype
         assert_within(a, w, max(arms, 1e-4), rtol)
 

@@ -70,21 +70,31 @@ def close(got, want, **tol):
 # --- the kernels' plain versions against the Pallas kernels ----------------
 
 @pytest.mark.parametrize("lead", [(37,), (4, 16)])
-@pytest.mark.parametrize("H", [64, 200])
-def test_layernorm_kernels_match_jax(lead, H):
-    """R = 37 or 64 rows (64 as [4, 16, H]), H = 64 or 200: y, mean, var,
-    dx, dgamma and dbeta at 1e-5."""
-    x, g, b, dy = arrays(1, (*lead, H), (H,), (H,), (*lead, H))
-    y, mean, var = jax_ln_fwd(*map(jnp.asarray, (x, g, b)), interpret=True)
-    dx, dg, db = jax_ln_bwd(*map(jnp.asarray, (dy, x, g)), mean, var,
-                            interpret=True)
-    t = [torch.from_numpy(a) for a in (x, g, b, dy)]
+@pytest.mark.parametrize("H,dtype", [(64, "float32"), (200, "float32"),
+                                     (512, "float32"), (512, "bfloat16")],
+                         ids=["64", "200", "512", "512-bf16"])
+def test_layernorm_kernels_match_jax(lead, H, dtype):
+    """R = 37 or 64 rows (64 as [4, 16, H]), H = 64, 200 or 512 (the
+    production width, training mode (e)), fp32 and at 512 bf16: y, mean,
+    var, dx, dgamma and dbeta at 1e-5, the bf16 outputs within an ulp
+    (mean and var stay fp32: 1e-5)."""
+    x, g, b, dy = (np.asarray(jnp.asarray(a, dtype).astype(jnp.float32))
+                   for a in arrays(1, (*lead, H), (H,), (H,), (*lead, H)))
+    y, mean, var = jax_ln_fwd(*(jnp.asarray(a, dtype) for a in (x, g, b)),
+                              interpret=True)
+    dx, dg, db = jax_ln_bwd(*(jnp.asarray(a, dtype) for a in (dy, x, g)),
+                            mean, var, interpret=True)
+    t = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in (x, g, b, dy)]
     ty, tmean, tvar = layernorm_forward(t[0], t[1], t[2])
     got = layernorm_backward(t[3], t[0], t[1], torch.from_numpy(
         np.array(mean)), torch.from_numpy(np.array(var)))
-    for a, w in zip((ty, tmean, tvar, *got), (y, mean, var, dx, dg, db)):
+    tol = TIGHT if dtype == "float32" else BF16
+    for a, w, t_ in zip((ty, tmean, tvar, *got), (y, mean, var, dx, dg, db),
+                        (tol, TIGHT, TIGHT, tol, tol, tol)):
         assert tuple(a.shape) == w.shape
-        close(a, w, **TIGHT)
+        assert a.dtype == (getattr(torch, dtype) if t_ is tol
+                           else torch.float32)
+        close(a, np.asarray(jnp.asarray(w, jnp.float32)), **t_)
 
 
 SOFTMAX_CASES = [

@@ -240,7 +240,7 @@ def test_a_decode_call_hands_the_kernel_its_plan_and_no_workspace(
     rec = Recorder()
     monkeypatch.setattr(quant, "entry", lambda *a: (None, None))
     monkeypatch.setattr(quant, "call_on_stream", rec)
-    monkeypatch.setattr(quant, "_sms", lambda dev: SMS)
+    monkeypatch.setattr(quant, "sm_count", lambda dev: SMS)
     gen = torch.Generator().manual_seed(0)
     w = torch.randn(1024, 4096, generator=gen)
     before = dict(quant.launch_counts)
@@ -298,7 +298,7 @@ def test_an_fp32_prefill_call_hands_the_kernel_its_plan(monkeypatch, kind):
     rec = Recorder()
     monkeypatch.setattr(quant, "entry", lambda *a: (None, None))
     monkeypatch.setattr(quant, "call_on_stream", rec)
-    monkeypatch.setattr(quant, "_sms", lambda dev: SMS)
+    monkeypatch.setattr(quant, "sm_count", lambda dev: SMS)
     gen = torch.Generator().manual_seed(1)
     w = torch.randn(1024, 4096, generator=gen)
     x = torch.randn(256, 1024, generator=gen)

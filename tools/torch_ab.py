@@ -12,11 +12,17 @@ prefill, and int8, int4 and int4 in groups of 128 at fp32 prefills of 16,
 64, 128, 256 and 1024 tokens at K1024 N4096, weights rotating past the 50
 MB L2, with the same check, beside cuBLAS's fp32 ``x @ W`` against the
 weight dequantized once (the same for every tree: a yardstick, never
-called by the port); the fused LayerNorm forward and backward at R8192
-H256 and the masked softmax forward (fp32 and bf16) and backward (fp32) at
-B32 H8 L256 causal (the reference MT shapes), and flash decode at B8 H16
-d64 over an int8 cache of 8192 positions at length 1024, inputs rotating
-past the L2, with the same check; and the
+called by the port); the fused LayerNorm forward at R8192 H256 and
+backward at R8192 H256 (fp32 and bf16) and H512 (the production width,
+fp32 and bf16), the masked softmax forward (fp32 and bf16) and backward
+(fp32) at B32 H8 L256 causal (the reference MT shapes), and flash decode at
+B8 H16 d64 over int8 and bf16 caches of 8192 positions at lengths 1024 and
+8192, inputs rotating past the L2, with the same check (each call of the
+LayerNorm backward timed whole: dx, dgamma and dbeta); the kernels' summed
+device time of one decode step of the 176M serving model (8 layers, bf16
+weights, 8 sequences of ~1024 tokens, int8 and bf16 caches of 8192
+positions), all of them and flash decode's (the profiler's sum, ``clock``
+``kernels``: a decode step's host is slower than the card); and the
 host's time to issue one quantized Linear call (``int8_linear`` /
 ``int4_linear`` under ``torch.no_grad``, as serving calls them) at bf16
 decode on each serving linear, the stream held so that the host never
@@ -224,13 +230,36 @@ def other_rows(torch, timer) -> list[dict]:
     s = randn(32, 8, 256, 256)
     s16 = s.to(torch.bfloat16)
     p, dp = attn_softmax_forward(s, mask_future=True), randn(*s.shape)
-    B, Hq, d, S, L = 8, 16, 64, 8192, 1024
+    B, Hq, d, S = 8, 16, 64, 8192
     k, v = (torch.randint(-127, 128, (B, S, Hq * d), generator=gen,
                           device="cuda", dtype=torch.int8) for _ in range(2))
     ks, vs = (torch.rand(B, Hq, S, generator=gen, device="cuda") / 64
               for _ in range(2))
+    k16, v16 = (randn(B, S, Hq * d).to(torch.bfloat16) for _ in range(2))
     q = randn(B, Hq, 1, d).to(torch.bfloat16)
-    lengths = torch.full((B,), L, dtype=torch.int32, device="cuda")
+
+    def ln_bwd(dname, H):
+        """(name, dtype, shape, operands, call) of the backward at R x H."""
+        dt = getattr(torch, dname)
+        x, dy = randn(R, H).to(dt), randn(R, H).to(dt)
+        g = (1 + 0.1 * randn(H)).to(dt)
+        _, mean, var = layernorm_forward(x, g, torch.zeros_like(g))
+        return ("layernorm bwd", dname, f"R{R} H{H}", (dy, x, mean, var),
+                lambda dy, x, mean, var: layernorm_backward(dy, x, g, mean,
+                                                            var))
+
+    def decode(cache, L):
+        lengths = torch.full((B,), L, dtype=torch.int32, device="cuda")
+        if cache == "int8":
+            return ("flash decode", "bfloat16",
+                    f"B{B} H{Hq} d{d} S{S} int8 cache, length {L}",
+                    (k, v, ks, vs),
+                    lambda k, v, ks, vs: flash_decode_attention(
+                        q, k, v, lengths, ks, vs))
+        return ("flash decode", "bfloat16",
+                f"B{B} H{Hq} d{d} S{S} bf16 cache, length {L}", (k16, v16),
+                lambda k, v: flash_decode_attention(q, k, v, lengths))
+
     cases = (
         ("layernorm fwd", "float32", f"R{R} H{H}", (x,),
          lambda x: layernorm_forward(x, g, b)),
@@ -242,10 +271,10 @@ def other_rows(torch, timer) -> list[dict]:
          lambda s: attn_softmax_forward(s, mask_future=True)),
         ("softmax bwd", "float32", "B32 H8 L256 causal", (p, dp),
          attn_softmax_backward),
-        ("flash decode", "bfloat16",
-         f"B{B} H{Hq} d{d} S{S} int8 cache, length {L}", (k, v, ks, vs),
-         lambda k, v, ks, vs: flash_decode_attention(q, k, v, lengths, ks,
-                                                     vs)))
+        decode("int8", 1024),
+        ln_bwd("bfloat16", 256), ln_bwd("float32", 512),
+        ln_bwd("bfloat16", 512),
+        decode("bf16", 1024), decode("int8", 8192), decode("bf16", 8192))
     rows = []
     for what, dname, shape, args, fn in cases:
         first, second = fn(*args), fn(*args)
@@ -288,6 +317,53 @@ def kernel_ms(torch, fn, keys=("",), calls=2, reps=7) -> list[float]:
         sums.append([sum(e.self_device_time_total for e in events
                          if k in e.key) / calls / 1e3 for k in keys])
     return [statistics.median(col) for col in zip(*sums)]
+
+
+def decode_step_rows(torch) -> list[dict]:
+    """The kernels' summed device time of one decode step of the 176M
+    serving model (``chip_smoke.py``'s SERVING: 8 layers, E 1024, 16
+    heads, bf16 weights from a seed), 8 sequences of 1024 prompt tokens
+    in caches of 8192 positions, int8 and bf16: all of them and flash
+    decode's.  Each step appends a token, so the traces read lengths
+    1024 to ~1040."""
+    from tpu_flash_torch.inference.sampler import prefill_prompt
+    from tpu_flash_torch.nn import DecoderConfig, DecoderLM, init_params
+
+    cfg = DecoderConfig(n_vocab=32768, n_embd=1024, n_head=16,
+                        n_positions=8192, n_layer=8, ff_middle_dim=4096,
+                        p_dropout=0.0, attention_kind="flash",
+                        dtype=torch.bfloat16)
+    model = DecoderLM(cfg, device="cuda")
+    init_params(model, torch.Generator("cuda").manual_seed(0))
+    B, L = 8, 1024
+    gen = torch.Generator("cuda").manual_seed(3)
+    prompt = torch.randint(0, cfg.n_vocab, (B, L), generator=gen,
+                           device="cuda")
+    rows = []
+    for quant in ("int8", "none"):
+        with torch.no_grad():
+            logits, caches = prefill_prompt(
+                model, prompt, torch.full((B,), L, device="cuda"),
+                max_len=cfg.n_positions, kv_quant=quant)
+            tok = logits.argmax(-1)[:, None]
+
+            def step():
+                return model(tok, kv_caches=caches,
+                             positions=caches[0].lengths[:, None].long())
+
+            ms = kernel_ms(torch, step, ("", "flash_decode"))
+        cache = "bf16" if quant == "none" else quant
+        rows += [{"what": what, "dtype": "bfloat16",
+                  "shape": f"176M, 8 layers, B{B}, {cache} cache near "
+                           f"length {L}",
+                  "clock": "kernels", "ms": t, "two_calls_same_bits": None}
+                 for what, t in zip(("decode step, kernels",
+                                     "decode step, flash decode kernels"),
+                                    ms)]
+        del caches
+    del model
+    torch.cuda.empty_cache()
+    return rows
 
 
 def train_rows(torch, device_ms) -> list[dict]:
@@ -353,7 +429,7 @@ def one(root: str) -> dict:
     timer = timing()
     return {"root": root, "rows": timed_rows(torch, fa, timer.device_ms)
             + quant_rows(torch, quant, timer) + other_rows(torch, timer)
-            + train_rows(torch, timer.device_ms)}
+            + decode_step_rows(torch) + train_rows(torch, timer.device_ms)}
 
 
 def main() -> int:

@@ -16,6 +16,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import shutil
@@ -89,6 +90,12 @@ def resolve_device(device=None) -> torch.device:
     if dev.index is None:     # "cuda" names the current card
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+@functools.lru_cache(maxsize=16)
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors, which launch plans fill."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def resolve_impl(impl: str | None, x: torch.Tensor) -> str:

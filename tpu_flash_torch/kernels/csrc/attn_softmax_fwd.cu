@@ -71,70 +71,6 @@ struct Params {
   int HLq, Lq, Lk, q_offset, pad_cols;
 };
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// Two floats as two bf16 in a word (the first in the low half), rounded to
-// nearest even.
-__device__ __forceinline__ uint32_t bf16_pair(float a, float b) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// V neighbouring values as floats: one 16-byte load where V values of T
-// are 16 bytes (the address then 16-byte aligned), else single values.
-template <typename T, int V>
-__device__ __forceinline__ void load_v(const T* src, float* f) {
-  if constexpr (V * sizeof(T) == 16) {
-    const uint4 w = *reinterpret_cast<const uint4*>(src);
-    if constexpr (sizeof(T) == 4) {
-      f[0] = __uint_as_float(w.x);
-      f[1] = __uint_as_float(w.y);
-      f[2] = __uint_as_float(w.z);
-      f[3] = __uint_as_float(w.w);
-    } else {
-      bf16x2(w.x, f);
-      bf16x2(w.y, f + 2);
-      bf16x2(w.z, f + 4);
-      bf16x2(w.w, f + 6);
-    }
-  } else {
-#pragma unroll
-    for (int e = 0; e < V; ++e) f[e] = to_float(src[e]);
-  }
-}
-
-template <typename T, int V>
-__device__ __forceinline__ void store_v(T* dst, const float* f) {
-  if constexpr (V * sizeof(T) == 16) {
-    uint4 w;
-    if constexpr (sizeof(T) == 4) {
-      w = make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
-                     __float_as_uint(f[2]), __float_as_uint(f[3]));
-    } else {
-      w = make_uint4(bf16_pair(f[0], f[1]), bf16_pair(f[2], f[3]),
-                     bf16_pair(f[4], f[5]), bf16_pair(f[6], f[7]));
-    }
-    *reinterpret_cast<uint4*>(dst) = w;
-  } else {
-#pragma unroll
-    for (int e = 0; e < V; ++e) dst[e] = from_float<T>(f[e]);
-  }
-}
-
 // V neighbouring pad-mask values: 16-byte loads where V is a multiple of 4.
 template <int V>
 __device__ __forceinline__ void load_mask(const float* src, float* f) {

@@ -129,13 +129,6 @@ __device__ __forceinline__ uint32_t bf16_pair(float a, float b) {
   return __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632);
 }
 
-// Two floats rounded to the nearest bf16 (ties to even), as a bf16 pair:
-// a in the low half.
-__device__ __forceinline__ uint32_t bf16_pair_rn(float a, float b) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // fp32-accurate products on the tensor cores, as the TPU computes a dot at
 // Precision.HIGHEST: each fp32 operand x is split into three bf16 planes,
 // hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), whose sum is x

@@ -998,21 +998,6 @@ __host__ __device__ __forceinline__ int dec_smem_bytes(const QDecParams& d,
          4 * ((4 + cluster) * 8 + 1) * bn + 8 * (4 * d.stages + 1);
 }
 
-// The split cluster barrier: arrive (relaxed, or releasing this thread's
-// writes) and wait (acquiring the others').  Every thread of every block
-// of the cluster takes part; arrivals and waits alternate.
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
-}
-
 template <int MODE, int BN>
 __device__ __forceinline__ void quant_matmul_dec_body(const QDecParams& d) {
   namespace cg = cooperative_groups;

@@ -7,22 +7,28 @@ fp32; lengths ``[B]``).  On CUDA tensors it launches the hand-written kernel
 in ``csrc/flash_decode.cu``; on CPU tensors it runs
 ``flash_decode_attention_plain``, the same function in plain PyTorch.  The
 TPU version's ``block_s`` and ``interpret`` arguments have no counterpart:
-the CUDA kernel picks its own tiling.
+``_plan`` picks the kernel's query rows and KV heads a block and the
+thread-block cluster each (sequence, KV heads, chunk of rows) splits its
+positions over.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 
 import torch
 
 from tpu_flash_torch.kernels.common import (
     call_on_stream,
+    cdiv,
     check_cuda,
     entry,
     launch_counts,
     resolve_impl,
+    sm_count,
 )
 
 KERNEL = "flash_decode"
@@ -31,6 +37,53 @@ HEAD_DIMS = (16, 32, 64, 128)
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
               torch.float8_e4m3fn: 3}
+# cache values a lane's 16-byte load holds
+_VALUES = {torch.float32: 4, torch.bfloat16: 8, torch.int8: 16,
+           torch.float8_e4m3fn: 16}
+MAX_CLUSTER = 8      # blocks a cluster: the portable limit
+FILL = 0.9           # blocks an SM the clusters should make at least
+# KV heads a block takes: enough for CHUNK_BYTES contiguous bytes of a
+# position, at most MAX_HEADS (csrc/flash_decode.cu heads_a_block)
+CHUNK_BYTES, MAX_HEADS = 128, 4
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    rows: int        # query rows a block holds (a power of two)
+    chunks: int      # clusters along the group's rows: ceil(G / rows)
+    heads: int       # KV heads a block takes
+    cluster: int     # blocks that split a (sequence, heads, chunk)'s
+                     # positions into equal shares
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan(B: int, Hkv: int, G: int, d: int, kv_dtype: torch.dtype,
+          sms: int) -> Plan:
+    """The kernel's launch for B sequences, Hkv KV heads of d and G = Lq *
+    Hq / Hkv query rows a KV head, over a cache of ``kv_dtype``, on a card
+    of ``sms`` multiprocessors.  A block holds the smallest power of two of
+    rows that covers G, at most 32 / (values a 16-byte load) (so that q and
+    the accumulator stay within 64 registers a lane); larger groups take
+    more chunks, each reading the stripes again.  It takes the KV heads
+    whose stripes of a position make ``CHUNK_BYTES`` contiguous bytes (the
+    cache is heads-minor), a lane each, at most ``MAX_HEADS`` and the
+    warp's lanes.  Each (sequence, heads, chunk) is a cluster of the
+    smallest power of two of blocks, at most 8, that gives ``FILL`` blocks
+    a multiprocessor: a block an SM, each with a deep ring, beat more,
+    smaller blocks at the serving shape on an H100 (128 blocks, clusters
+    of 2 over an int8 cache and none over bf16; PERF.md)."""
+    values = _VALUES[kv_dtype]
+    rows, cap = 1, 32 // values
+    while rows < G and rows < cap:
+        rows *= 2
+    chunks = cdiv(G, rows)
+    lanes, itemsize = d // values, 16 // values
+    heads = max(1, min(CHUNK_BYTES // (d * itemsize), 32 // lanes,
+                       MAX_HEADS))
+    clusters, cluster = B * cdiv(Hkv, heads) * chunks, 1
+    while cluster < MAX_CLUSTER and clusters * cluster < FILL * sms:
+        cluster *= 2
+    return Plan(rows, chunks, heads, cluster)
 
 
 def _normalize(q, k_cache, v_cache, k_scale, v_scale, scale, window):
@@ -138,9 +191,11 @@ def _launch(q, k_cache, v_cache, lengths, k_scale, v_scale, H, scale,
     if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
         raise ValueError("cache buffers must be 16-byte aligned")
     out = torch.empty_like(q)
+    plan = _plan(B, H, Lq * (Hq // H), d, k_cache.dtype, sm_count(dev))
     lib, fn = entry(KERNEL, "tf_flash_decode",
                     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                    + [ctypes.c_float] + [ctypes.c_int] * 3
+                    + [ctypes.c_void_p])
     err = call_on_stream(fn, dev, q.data_ptr(), k_cache.data_ptr(),
                          v_cache.data_ptr(),
                          None if k_scale is None else k_scale.data_ptr(),
@@ -148,7 +203,7 @@ def _launch(q, k_cache, v_cache, lengths, k_scale, v_scale, H, scale,
                          lengths.data_ptr(), out.data_ptr(),
                          B, Hq, H, Lq, k_cache.shape[1], d,
                          _Q_DTYPES[q.dtype], _KV_DTYPES[k_cache.dtype],
-                         scale, window or 0)
+                         scale, window or 0, plan.rows, plan.cluster)
     check_cuda(err, lib, "flash_decode kernel")
     launch_counts[KERNEL] += 1
     return out

@@ -14,10 +14,11 @@ On CUDA tensors the forward launches ``csrc/layernorm_fwd.cu`` and the
 backward ``csrc/layernorm_bwd.cu``; on CPU tensors they run
 ``layernorm_forward_plain`` / ``layernorm_backward_plain``, the same
 arithmetic in plain PyTorch (``impl="kernel"|"plain"`` forces one).  The
-backward kernel writes fp32 partial sums of ``dy * xhat`` and ``dy`` for
-each block of ``LN_BWD_ROWS`` rows into a ``[n_blocks, H]`` workspace, and
-one torch sum over the blocks finishes ``dgamma`` and ``dbeta``, as the JAX
-package sums its per-tile slabs outside the Pallas call.
+backward is one launch: a persistent grid of clusters of 8 blocks
+(``_bwd_clusters``) writes dx and finishes ``dgamma`` and ``dbeta`` itself,
+in a fixed order, through a workspace of each cluster's fp32 partial sums
+that is allocated once per device (``_workspace``); the JAX package sums its
+per-tile slabs outside the Pallas call.
 """
 
 from __future__ import annotations
@@ -34,13 +35,24 @@ from tpu_flash_torch.kernels.common import (
     kernel_input,
     launch_counts,
     resolve_impl,
+    sm_count,
 )
 
 KERNEL_FWD = "layernorm_fwd"
 KERNEL_BWD = "layernorm_bwd"
 LN_EPS = 1e-8
-LN_BWD_ROWS = 32       # rows per block of the backward kernel
+# The backward kernel: blocks of 8 warps, a row a warp at a time, in
+# clusters of 8 blocks; rows up to 1024 wide are held in registers, and the
+# looped form (wider rows, H % 4 != 0) keeps a slab of shared memory a warp,
+# which bounds H.
+LN_BWD_WARPS = 8
+LN_BWD_CLUSTER = 8
+LN_BWD_HELD_MAX = 1024
+LN_BWD_MAX_H = 3072
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the backward's workspace on each device: a counter for each eighth of the
+# columns, then each cluster's [2H] partial sums
+_workspaces: dict[torch.device, torch.Tensor] = {}
 
 
 def _rows(x):
@@ -105,6 +117,32 @@ def _launch_forward(x, gamma, beta):
     return y.view(x.shape), mean.view(lead), var.view(lead)
 
 
+def _bwd_clusters(R: int, H: int, sms: int) -> int:
+    """Clusters of the backward kernel's persistent grid for R rows of H on
+    a card of ``sms`` multiprocessors: blocks enough for a row a warp, at
+    most as many as its registers let an SM hold at once (the held form
+    takes ~63 registers a lane up to H = 256, ~118 up to 512 and ~216 up to
+    1024; the looped form ~48); at least one cluster.  The C entry lowers
+    it to the clusters of 8 the card holds at once, fewer than the blocks
+    an SM allows suggest (a cluster's blocks share a GPC)."""
+    held = H % 4 == 0 and H <= LN_BWD_HELD_MAX
+    per_sm = 4 if H <= 256 or not held else 2 if H <= 512 else 1
+    blocks = min(cdiv(max(R, 1), LN_BWD_WARPS), per_sm * sms)
+    return cdiv(blocks, LN_BWD_CLUSTER)
+
+
+def _workspace(device: torch.device, floats: int) -> torch.Tensor:
+    """The backward's workspace on ``device``, at least ``floats`` long:
+    allocated zeroed once and grown when a call needs more.  The kernel
+    leaves its counter at 0, so calls on one device share it in stream
+    order."""
+    ws = _workspaces.get(device)
+    if ws is None or ws.numel() < floats:
+        ws = _workspaces[device] = torch.zeros(floats, dtype=torch.float32,
+                                               device=device)
+    return ws
+
+
 def _launch_backward(dy, x, gamma, mean, var):
     _check(x, gamma, "layernorm_backward")
     if dy.dtype not in _DTYPES or dy.shape != x.shape:
@@ -112,25 +150,27 @@ def _launch_backward(dy, x, gamma, mean, var):
     if mean.shape != x.shape[:-1] or var.shape != x.shape[:-1]:
         raise ValueError("mean and var must have x's leading shape")
     dy2, R, H = _rows(dy)
+    if H > LN_BWD_MAX_H:
+        raise ValueError(f"the layernorm_bwd kernel takes H <= "
+                         f"{LN_BWD_MAX_H}, got {H}")
     x2 = x.reshape(R, H)
     dy2, x2, g = (kernel_input(t, x.device) for t in (dy2, x2, gamma))
     m, v = (kernel_input(t.reshape(R).float(), x.device)
             for t in (mean, var))
-    n_blocks = cdiv(R, LN_BWD_ROWS)
+    clusters = _bwd_clusters(R, H, sm_count(x.device))
+    ws = _workspace(x.device, LN_BWD_CLUSTER + clusters * 2 * H)
     dx = torch.empty_like(x2)
-    part = torch.empty(2, n_blocks, H, dtype=torch.float32, device=x.device)
+    dgamma, dbeta = torch.empty(2, H, dtype=gamma.dtype, device=x.device)
     lib, fn = entry(KERNEL_BWD, "tf_layernorm_bwd",
-                    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                     + [ctypes.c_void_p])
     err = call_on_stream(fn, x.device, dy2.data_ptr(), x2.data_ptr(),
                          g.data_ptr(), m.data_ptr(), v.data_ptr(),
-                         dx.data_ptr(), part[0].data_ptr(),
-                         part[1].data_ptr(), R, H, LN_BWD_ROWS,
-                         _DTYPES[dy.dtype], _DTYPES[x.dtype],
-                         _DTYPES[gamma.dtype])
+                         dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
+                         ws.data_ptr(), R, H, clusters, _DTYPES[dy.dtype],
+                         _DTYPES[x.dtype], _DTYPES[gamma.dtype])
     check_cuda(err, lib, "layernorm_bwd kernel")
     launch_counts[KERNEL_BWD] += 1
-    dgamma, dbeta = part.sum(dim=1).to(gamma.dtype)
     return dx.view(x.shape), dgamma, dbeta
 
 

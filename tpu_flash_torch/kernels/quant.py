@@ -55,6 +55,7 @@ from tpu_flash_torch.kernels.common import (
     launch_counts,
     resolve_impl,
     round_up,
+    sm_count,
 )
 
 KERNEL_INT8 = "int8_matmul"
@@ -308,11 +309,6 @@ def _decode_plan(N: int, rows: int, sms: int) -> Plan:
                 min(_DEC_STAGES, cdiv(chunk // 4, stage_rows)), stage_rows)
 
 
-@functools.lru_cache(maxsize=16)
-def _sms(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _inputs(x, w, scales, what):
     if x.dtype not in _DTYPES:
         raise TypeError(f"{what} takes float32 or bfloat16 x, got {x.dtype}")
@@ -333,7 +329,7 @@ def _launch(name, symbol, count_as, x, w, scales, rows, extra, group=None):
     out = torch.empty(M, N, dtype=x.dtype, device=dev)
     if out.numel() == 0:
         return out
-    plan = _plan(M, N, rows, _sms(dev), x.dtype, group)
+    plan = _plan(M, N, rows, sm_count(dev), x.dtype, group)
     count_as += {"decode_tc": DEC, "tensor_core": TC,
                  "tensor_core_x3": X3}.get(plan.form, "")
     part = (torch.empty(plan.splits, M, N, dtype=torch.float32, device=dev)
