@@ -19,23 +19,25 @@ ported paths:
   against the plain path end to end;
 * quantized serving: the int8, packed-int4 and grouped-int4 matmul kernels
   in their forms (for bf16 x the tensor-core decode form at M <= 8 and
-  the tensor-core prefill form above; for fp32 x the CUDA-core decode form
-  and above M = 8 the fp32 tensor-core prefill form, three bf16 products a
-  product) against their plain versions (fp32 and bf16 x, M 1 to
-  1024, the serving model's linears and ragged shapes; each call checked to
-  launch its form, the tensor-core decode and fp32 prefill forms to give
-  the same bits twice; each form's limit checked against a perturbed row),
-  the fp32 prefill form and the plain fp32 version each against a float64
-  product at M1024 K4096 N1024, and their times at decode and at 256- and
-  1024-token prefills of every serving linear (fp32 x at K1024 N4096),
-  each bf16 decode call checked under the profiler to run one kernel; the
+  the tensor-core prefill form above; for fp32 x the fp32 tensor-core
+  decode form at M <= 8 (int4 per column: the CUDA-core one) and above
+  the fp32 tensor-core prefill form, three bf16 products a product) against
+  their plain versions (fp32 and bf16 x, M 1 to 1024, the serving model's
+  linears and ragged shapes; each call checked to launch its form, the
+  tensor-core decode and fp32 forms to give the same bits twice; each
+  form's limit checked against a perturbed row), the fp32 tensor-core forms
+  and the plain fp32 version each against a float64 product at M1024 and
+  M8 K4096 N1024, and their times at decode and at 256- and 1024-token
+  prefills of every serving linear (fp32 prefills at K1024 N4096), each
+  tensor-core decode call checked under the profiler to run one kernel; the
   176M model converted by ``quantize_model_linears`` (int8, int4, int4 in
   groups of 128) serving the same 16 requests, each decode step checked to
   launch its matmul kernel once a Linear in the tensor-core decode form and
   each prefill in the tensor-core prefill form, with the logits' error
   against the bf16 model; and the engine against ``generate`` and kernel
   against plain end to end for each of the three in fp32 (decode steps in
-  the CUDA-core decode form, prefills in the fp32 tensor-core form);
+  the fp32 tensor-core decode form, int4 per column in the CUDA-core one,
+  prefills in the fp32 tensor-core form);
 * training: the flash-attention forward and fused backward kernels, in the
   six-product form for fp32 (each fp32 product six bf16 products on the
   tensor cores) and the tensor-core form for bf16 (each call checked to
@@ -88,9 +90,9 @@ ported paths:
 
 The build phase logs each kernel's registers, stack and spills as ptxas
 reports them, and fails if a flash-attention kernel's tensor-core or
-six-product form, a quantized matmul's tensor-core decode or fp32 prefill
-form, a form of the masked-softmax forward or of the LayerNorm backward, or
-a flash-decode kernel spills.
+six-product form, a quantized matmul's tensor-core decode, fp32 decode or
+fp32 prefill form, a form of the masked-softmax forward or of the
+LayerNorm backward, or a flash-decode kernel spills.
 Modes (b) and (e) run the forward and the fused backward in their
 tensor-core form, mode (a) in their six-product form.
 
@@ -179,17 +181,22 @@ QUANT_SOURCES = ("int8_matmul", "int4_matmul")
 # the TPU kernel each replaces; bf16 x runs the tensor-core forms, counted
 # under the name + common.DEC (decode, M <= 8) and + common.TC (prefill);
 # fp32 x above M = 8 the fp32 tensor-core form (every group here is a
-# multiple of 16), the name + common.X3; the rest of fp32 x (M <= 8) the
-# CUDA-core decode form under the name.
+# multiple of 16), the name + common.X3; fp32 x at M <= 8 the fp32
+# tensor-core decode form of int8 and grouped int4, the name +
+# common.DEC_X3, and int4 per column's CUDA-core decode form under the name.
 QUANT = {"int8_matmul": (8, None, "quant.py:49"),
          "int4_matmul": (4, None, "quant.py:228"),
          "int4_matmul_group": (4, 128, "quant.py:258")}
 QUANT_TC = tuple(n + common.TC for n in QUANT)
 QUANT_DEC = tuple(n + common.DEC for n in QUANT)
 QUANT_X3 = tuple(n + common.X3 for n in QUANT)
+# The kernels with the fp32-x decode form (int4 per column keeps the
+# CUDA-core one).
+QUANT_DEC_X3_KINDS = ("int8_matmul", "int4_matmul_group")
+QUANT_DEC_X3 = tuple(n + common.DEC_X3 for n in QUANT_DEC_X3_KINDS)
 # Launch-count (and profiler) names, and the sources built from csrc/.
 KERNELS = (("flash_decode",) + TRAINING_KERNELS + tuple(QUANT) + QUANT_TC
-           + QUANT_DEC + QUANT_X3)
+           + QUANT_DEC + QUANT_X3 + QUANT_DEC_X3)
 SOURCES = (("flash_decode",) + ATTENTION + (TWO_PASS_SOURCE,) + FUSED
            + QUANT_SOURCES)
 SERVING = dict(n_vocab=32768, n_embd=1024, n_head=16, n_positions=8192,
@@ -318,12 +325,13 @@ ATTN_CASES = [
 SERVING_LINEARS = ((1024, 1024), (1024, 4096), (4096, 1024), (1024, 32768))
 # Quantized matmuls, kernel vs plain on the same inputs, M rows of x each
 # (1 and 8 the decode forms, above 8 the prefill forms; bf16 the
-# tensor-core forms, fp32 the CUDA-core decode form and above 8 the fp32
-# tensor-core form): the serving linears, a ragged K and N (K odd for int4
-# per column, where the fp32 tensor-core form takes x by single values;
-# grouped, K = 256 in groups of 64), and groups of 64 at 1024 x 1024.  N
-# 304 ends in a ragged tile of the tensor-core decode form; N 300, not a
-# multiple of 16, takes the CUDA-core decode form at M <= 8 in bf16 too.
+# tensor-core forms, fp32 the fp32 tensor-core decode form (int4 per
+# column: the CUDA-core one) and above 8 the fp32 tensor-core form): the
+# serving linears, a ragged K and N (K odd for int4 per column, where the
+# fp32 tensor-core form takes x by single values; grouped, K = 256 in
+# groups of 64), and groups of 64 at 1024 x 1024.  N 304 ends in a ragged
+# tile of the tensor-core decode forms; N 300, not a multiple of 16, takes
+# the CUDA-core decode form at M <= 8 in both dtypes.
 QUANT_M = (1, 8, 9, 100, 256, 1024)
 QUANT_CASES = {
     "int8_matmul": [(K, N, None) for K, N in SERVING_LINEARS]
@@ -340,23 +348,27 @@ QUANT_CASES = {
 QUANT_TOL = {torch.float32: (0.0, 1e-5, 1e-5),
              torch.bfloat16: (0.0, 1e-2, 2e-2)}
 # bf16 x: decode (M = 8) and prefills of 256 and 1024 tokens (a chunk of
-# prefill_chunk=256, the longest bucket) at each serving linear; fp32 x at
-# K1024 N4096, decode (the CUDA-core form) and the same two prefills (the
+# prefill_chunk=256, the longest bucket) at each serving linear; fp32 x:
+# decode at each serving linear (the fp32 tensor-core decode form; int4 per
+# column the CUDA-core one) and the same two prefills at K1024 N4096 (the
 # fp32 tensor-core form).
 QUANT_TIMED = [(M, K, N, torch.bfloat16) for M in (8, 256, 1024)
                for K, N in SERVING_LINEARS] + [
-                   (M, 1024, 4096, torch.float32) for M in (8, 256, 1024)]
+                   (8, K, N, torch.float32) for K, N in SERVING_LINEARS] + [
+                   (M, 1024, 4096, torch.float32) for M in (256, 1024)]
 # the kernels line's shapes: bf16 decode for the tensor-core decode form, a
 # 1024-token bf16 prefill for the tensor-core prefill form, fp32 decode for
-# the CUDA-core forms (run by the fp32 end-to-end serving checks), a
-# 1024-token fp32 prefill for the fp32 tensor-core form
+# the fp32 tensor-core decode form and int4 per column's CUDA-core form
+# (run by the fp32 end-to-end serving checks), a 1024-token fp32 prefill
+# for the fp32 tensor-core form
 QUANT_MAIN_SHAPE = (8, 1024, 4096, torch.bfloat16)
 QUANT_TC_SHAPE = (1024, 1024, 4096, torch.bfloat16)
-QUANT_CUDA_CORE_SHAPE = (8, 1024, 4096, torch.float32)
+QUANT_FP32_DECODE_SHAPE = (8, 1024, 4096, torch.float32)
 QUANT_X3_SHAPE = (1024, 1024, 4096, torch.float32)
-# The fp32 tensor-core form against float64, beside the plain fp32 version:
-# its largest error at most X3_FP64_RATIO times the plain one's.
-QUANT_FP64_SHAPE, X3_FP64_RATIO = (1024, 4096, 1024), 2.0
+# The fp32 tensor-core forms against float64, beside the plain fp32
+# version, at a 1024-token prefill and a decode step of 8 rows: the largest
+# error at most X3_FP64_RATIO times the plain one's.
+QUANT_FP64_SHAPES, X3_FP64_RATIO = ((1024, 4096, 1024), (8, 4096, 1024)), 2.0
 # The quantized serving modes: weights, KV cache, chunked prefill, drive,
 # and the JAX tests' limit on the logits' error against the float model
 # (tests/test_quant.py:80, :218).
@@ -367,8 +379,12 @@ QUANT_SERVING = (("int8_matmul", "int8", None, "run_many(8)", 0.05),
 
 # Profiler traces taken of the same calls before an empty one fails, and
 # the pause before each new one: now and then a trace holds no device event
-# at all (tools/torch_profiler_empty_traces.py).
+# at all (tools/torch_profiler_empty_traces.py).  A short trace, some
+# device events but fewer than its calls' kernels, is retaken at most
+# SHORT_TRACES_ALLOWED times in a run; the next one fails the run.
 TRACE_TRIES, TRACE_PAUSE_S = 5, 0.5
+SHORT_TRACES_ALLOWED = 1
+short_traces: list[dict] = []   # this run's short traces, as logged
 
 
 def log(obj) -> None:
@@ -1432,61 +1448,94 @@ def quant_matmul(kind, x, q, impl):
 def quant_form(kind, M, N, dtype) -> str:
     """The launch-count name a call of ``kind`` at M rows of ``dtype`` x
     and N columns adds to (the plan's form; every group here is a multiple
-    of 16): bf16 the tensor-core forms, but at M <= 8 only where 16 divides
-    N; fp32 above M = 8 the fp32 tensor-core form; the rest the CUDA-core
-    forms."""
-    if dtype != torch.bfloat16:
-        return kind + common.X3 if M > 8 else kind
-    if M <= 8 and N % 16:
+    of 16 and every K at most 4096): the tensor-core forms, but at M <= 8
+    only where 16 divides N and, for fp32 x, only for the kernels with the
+    fp32 decode form; the rest the CUDA-core forms."""
+    if M > 8:
+        return kind + (common.TC if dtype == torch.bfloat16 else common.X3)
+    if N % 16:
         return kind
-    return kind + (common.DEC if M <= 8 else common.TC)
+    if dtype == torch.bfloat16:
+        return kind + common.DEC
+    return kind + common.DEC_X3 if kind in QUANT_DEC_X3_KINDS else kind
+
+
+def trace(fn, calls: int) -> tuple[list, dict]:
+    """One torch.profiler trace of ``calls`` calls of ``fn``: its device
+    events as ``key_averages`` groups them, and the host's kernel-launch
+    calls in it (runtime API events), by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    events = [e for e in averages
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    launches = {e.key: e.count for e in averages
+                if e.device_type == torch.autograd.DeviceType.CPU
+                and "LaunchKernel" in e.key}
+    return events, launches
 
 
 def device_events(fn, calls: int, tries: int = TRACE_TRIES,
-                  pause: float = TRACE_PAUSE_S) -> list:
+                  pause: float = TRACE_PAUSE_S, least: int = 1) -> list:
     """The device events of ``calls`` calls of ``fn`` under torch.profiler
     (after a call outside it), as ``key_averages`` groups them.  A trace
     that holds no device event at all saw nothing, which is not zero
     kernels: it is logged and, after ``pause`` seconds, taken again, up to
-    ``tries`` traces in all; then it raises."""
-    from torch.profiler import ProfilerActivity, profile
-
+    ``tries`` traces in all; then it raises.  A trace that holds some but
+    fewer than ``least`` (a caller whose every call runs a kernel passes
+    ``least=calls``) is a short one: it is logged with its kernels and the
+    host's launch calls and taken again, ``SHORT_TRACES_ALLOWED`` times in
+    a run; the next short trace raises."""
     fn()
     torch.cuda.synchronize()
     for attempt in range(1, tries + 1):
         if attempt > 1:
             time.sleep(pause)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        if events:
+        events, launches = trace(fn, calls)
+        seen = sum(e.count for e in events)
+        if seen >= least:
             return events
-        log({"phase": "profiler_empty_trace", "calls": calls,
-             "trace": attempt, "of": tries})
+        if not seen:
+            log({"phase": "profiler_empty_trace", "calls": calls,
+                 "trace": attempt, "of": tries, "host_launches": launches})
+            continue
+        short_traces.append({"calls": calls, "least": least,
+                             "kernels": {e.key: e.count for e in events},
+                             "host_launches": launches})
+        log({"phase": "profiler_short_trace", **short_traces[-1],
+             "in_run": len(short_traces), "allowed": SHORT_TRACES_ALLOWED})
+        if len(short_traces) > SHORT_TRACES_ALLOWED:
+            raise RuntimeError(f"{len(short_traces)} profiler traces in this "
+                               f"run held fewer device events than their "
+                               f"calls' kernels: {short_traces}")
     raise RuntimeError(f"{tries} profiler traces of {calls} calls held no "
                        f"device event")
 
 
 def kernels_run(fn, calls: int = 3) -> list[str]:
     """The CUDA kernels ``calls`` calls of ``fn`` run, by name, under the
-    profiler (``device_events``)."""
-    return [e.key for e in device_events(fn, calls) for _ in range(e.count)]
+    profiler (``device_events``); each call runs one at least, so a trace
+    that holds fewer is a short one."""
+    return [e.key for e in device_events(fn, calls, least=calls)
+            for _ in range(e.count)]
 
 
 def quant_cases(gen) -> dict:
     """The three quantized matmul kernels against their plain versions on
     the same inputs, fp32 and bf16 x, at every M of ``QUANT_M``, each call
     checked to launch the form its plan names; returns the largest error of
-    each form by launch name; the tensor-core decode form and the fp32
+    each form by launch name; the tensor-core decode forms and the fp32
     tensor-core form are also called a second time and must give the same
     bits.  Every shape is logged before
     a disagreement fails the phase; the first case of each form and dtype
     also checks that its limit fails a perturbed row."""
-    worst = dict.fromkeys((*QUANT, *QUANT_TC, *QUANT_DEC, *QUANT_X3), 0.0)
+    worst = dict.fromkeys((*QUANT, *QUANT_TC, *QUANT_DEC, *QUANT_X3,
+                           *QUANT_DEC_X3), 0.0)
     failed, largest, power_checked = [], {}, set()
     for kind, cases in QUANT_CASES.items():
         bits = QUANT[kind][0]
@@ -1503,8 +1552,9 @@ def quant_cases(gen) -> dict:
                     before = common.launch_counts[form]
                     got = quant_matmul(kind, x, q, "kernel")
                     launched = common.launch_counts[form] - before
-                    same = (form not in QUANT_DEC + QUANT_X3 or torch.equal(
-                        got, quant_matmul(kind, x, q, "kernel")))
+                    same = (form not in QUANT_DEC + QUANT_X3 + QUANT_DEC_X3
+                            or torch.equal(got,
+                                           quant_matmul(kind, x, q, "kernel")))
                     ref = quant_matmul(kind, x, q, "plain")
                     torch.cuda.synchronize()
                     errs[M], _, need[M], agree = compare(got, ref, tol)
@@ -1547,9 +1597,9 @@ def quant_times(gen) -> dict:
     port never calls it), with the bound and the plan's form, tile, splits
     (the tensor-core decode form: its cluster), blocks and ring.  Weights
     rotate through enough copies that each call reads past the 50 MB L2, as
-    each layer's own weights would.  Tensor-core decode calls must run one
-    kernel each under the profiler (no reduction kernel, no workspace
-    fill)."""
+    each layer's own weights would.  Tensor-core decode calls, bf16 and
+    fp32 x, must run one kernel each under the profiler (no reduction
+    kernel, no workspace fill)."""
     rows = {}
     for kind in QUANT:
         for M, K, N, dtype in QUANT_TIMED:
@@ -1570,14 +1620,15 @@ def quant_times(gen) -> dict:
             flops = 2 * M * K * N
             form = quant_form(kind, M, N, dtype)
             peak = (BF16_FLOPS if dtype == torch.bfloat16 else FP32_X3_FLOPS
-                    if form in QUANT_X3 else FP32_FLOPS)
+                    if form in QUANT_X3 + QUANT_DEC_X3 else FP32_FLOPS)
             bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
                      "operations": flops / peak * 1e3}
             bound_by = max(bound, key=bound.get)
             group = K // q[1].shape[0] if q[1].dim() == 2 else None
             plan = quant._plan(M, N, q[0].shape[0],
                                torch.cuda.get_device_properties(
-                                   0).multi_processor_count, dtype, group)
+                                   0).multi_processor_count, dtype, group,
+                               kind in QUANT_DEC_X3_KINDS)
             row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                    "bound_ms": bound[bound_by], "bound_by": bound_by,
                    "of_bound": bound[bound_by] / ms, "bytes": nbytes,
@@ -1587,12 +1638,14 @@ def quant_times(gen) -> dict:
                    "blocks": plan.blocks, "splits": plan.splits,
                    "copies": len(qs)}
             dname = str(dtype).split(".")[1]
-            if plan.form == "decode_tc":
+            if plan.form in ("decode_tc", "decode_tc_x3"):
                 run = kernels_run(lambda: quant_matmul(kind, x, qs[0],
                                                        "kernel"))
                 row["cluster"], row["kernels_in_3_calls"] = plan.splits, run
                 row["ring"] = f"{plan.stages}x{plan.stage_rows} rows"
-                check(len(run) == 3 and all("_dec_kernel" in k for k in run),
+                name = ("_dec_kernel" if plan.form == "decode_tc"
+                        else "_dec_x3_kernel")
+                check(len(run) == 3 and all(name in k for k in run),
                       f"{kind} M{M} K{K} N{N}: 3 decode calls ran {run}")
             log({"phase": "kernel_time", "kernel": form,
                  "shape": f"M{M} K{K} N{N} {dname} x",
@@ -1603,38 +1656,45 @@ def quant_times(gen) -> dict:
 
 
 def quant_x3_vs_fp64(gen) -> dict:
-    """The fp32 tensor-core form of each kernel against the
-    float64 product of the same x and weights at ``QUANT_FP64_SHAPE``,
-    beside the plain fp32 version (cuBLAS's fp32 GEMM with TF32 off, then
-    the scales): the largest and the rms error of each; the form's largest
-    must be at most ``X3_FP64_RATIO`` times the plain one's.  Returns the
-    form's largest error by launch name."""
-    M, K, N = QUANT_FP64_SHAPE
-    x = torch.randn(M, K, generator=gen, device=DEV)
-    w = torch.randn(K, N, generator=gen, device=DEV)
+    """The fp32 tensor-core forms of each kernel against the float64
+    product of the same x and weights at each of ``QUANT_FP64_SHAPES``
+    (the prefill form, ``_x3``, at 1024 rows; the decode form, ``_dec_x3``,
+    at 8, where the kernel has it), beside the plain fp32 version (cuBLAS's
+    fp32 GEMM with TF32 off, then the scales): the largest and the rms error
+    of each; the form's largest must be at most ``X3_FP64_RATIO`` times the
+    plain one's.  Returns the form's largest error by launch name."""
     worst, failed = {}, []
-    for kind in QUANT:
-        bits, group, _ = QUANT[kind]
-        q = quantized(w, bits, group)
-        codes = q[0] if bits == 8 else quant.unpack_int4(q[0], K)
-        exact = x.double() @ quant.dequantize(codes, q[1], K).double()
-        errs = {}
-        for impl in ("kernel", "plain"):
-            d = quant_matmul(kind, x, q, impl).double() - exact
-            errs[impl] = {"max_abs": float(d.abs().max()),
-                          "rms": float(d.square().mean().sqrt())}
-        ratio = errs["kernel"]["max_abs"] / errs["plain"]["max_abs"]
-        form = kind + common.X3
-        log({"phase": "quant_x3_vs_float64", "kernel": form,
-             "shape": f"M{M} K{K} N{N} fp32 x"
-             + (f", groups of {group}" if group else ""),
-             "kernel_err": errs["kernel"], "plain_fp32_err": errs["plain"],
-             "max_abs_over_plain": ratio, "limit": X3_FP64_RATIO})
-        if not ratio <= X3_FP64_RATIO:
-            failed.append(f"{form}: {ratio}")
-        worst[form] = errs["kernel"]["max_abs"]
-        del q, codes, exact
-    check(not failed, f"fp32 tensor-core form against float64: {failed} "
+    for M, K, N in QUANT_FP64_SHAPES:
+        x = torch.randn(M, K, generator=gen, device=DEV)
+        w = torch.randn(K, N, generator=gen, device=DEV)
+        for kind in QUANT:
+            form = quant_form(kind, M, N, torch.float32)
+            if form not in QUANT_X3 + QUANT_DEC_X3:
+                continue
+            bits, group, _ = QUANT[kind]
+            q = quantized(w, bits, group)
+            codes = q[0] if bits == 8 else quant.unpack_int4(q[0], K)
+            exact = x.double() @ quant.dequantize(codes, q[1], K).double()
+            errs = {}
+            for impl in ("kernel", "plain"):
+                before = common.launch_counts[form]
+                d = quant_matmul(kind, x, q, impl).double() - exact
+                check((common.launch_counts[form] - before
+                       == (impl == "kernel")),
+                      f"{kind} M{M}: the kernel call did not launch {form}")
+                errs[impl] = {"max_abs": float(d.abs().max()),
+                              "rms": float(d.square().mean().sqrt())}
+            ratio = errs["kernel"]["max_abs"] / errs["plain"]["max_abs"]
+            log({"phase": "quant_x3_vs_float64", "kernel": form,
+                 "shape": f"M{M} K{K} N{N} fp32 x"
+                 + (f", groups of {group}" if group else ""),
+                 "kernel_err": errs["kernel"], "plain_fp32_err": errs["plain"],
+                 "max_abs_over_plain": ratio, "limit": X3_FP64_RATIO})
+            if not ratio <= X3_FP64_RATIO:
+                failed.append(f"{form}: {ratio}")
+            worst[form] = errs["kernel"]["max_abs"]
+            del q, codes, exact
+    check(not failed, f"fp32 tensor-core forms against float64: {failed} "
                       f"times the plain fp32 version's error")
     return worst
 
@@ -2081,8 +2141,9 @@ def quantized_serving(model) -> dict[str, int]:
 def end_to_end(kind: str | None = None) -> dict[str, int]:
     """Serving end to end at full width, 2 layers, fp32 with TF32 off,
     with float weights or, with ``kind``, quantized for that matmul kernel
-    (fp32 x: the CUDA-core decode form, prefills in the fp32 tensor-core
-    form): engine tokens against generate's and the
+    (fp32 x: decode steps in the fp32 tensor-core decode form, int4 per
+    column in the CUDA-core one, prefills in the fp32 tensor-core form):
+    engine tokens against generate's and the
     uncached forward's, and one decode step's logits with the kernels
     against the plain path.  Returns the launches of the ``generate`` and
     engine runs."""
@@ -2126,11 +2187,15 @@ def end_to_end(kind: str | None = None) -> dict[str, int]:
     finally:
         quant._launch = launch
     served = dict(common.launch_counts)
+    # fp32 x at a decode step: the fp32 tensor-core decode form, or int4
+    # per column's CUDA-core form under the bare name
+    decode_form = quant_form(kind, 8, SERVING["n_embd"], torch.float32
+                             ) if kind else None
     if kind is not None:
-        # fp32 x: every call of more than 8 rows (the prefills) in the fp32
-        # tensor-core form, every other call in the CUDA-core form under the
-        # bare name
-        want = {kind + common.X3: calls[kind, True], kind: calls[kind, False]}
+        # every call of more than 8 rows (the prefills) in the fp32
+        # tensor-core form, every other call in the decode form
+        want = {kind + common.X3: calls[kind, True],
+                decode_form: calls[kind, False]}
         got_n = {n: served.get(n, 0) for n in want}
         check(got_n == want and calls[kind, True] > 0,
               f"{kind}: launches {got_n}, calls by M > 8 {dict(calls)}, "
@@ -2179,7 +2244,7 @@ def end_to_end(kind: str | None = None) -> dict[str, int]:
     # matmuls' order of sums
     tol = 1e-4
     want = {"flash_decode": cfg.n_layer,
-            **({kind: 6 * cfg.n_layer + 1} if kind else {})}
+            **({decode_form: 6 * cfg.n_layer + 1} if kind else {})}
     log({"phase": "end_to_end", "weights": kind or "fp32",
          "tokens_compared": compared, "near_ties": ties,
          "logits_max_abs_err": err, "logits_tol": tol,
@@ -2224,8 +2289,11 @@ def main() -> int:
     quant_reports = {k: r for n in QUANT_SOURCES
                      for k, r in ptxas_report(built[n].log).items()}
     dec = {k: r for k, r in quant_reports.items() if "_dec_kernel" in k}
-    x3 = {k: r for k, r in quant_reports.items() if "_x3_kernel" in k}
-    spills = {k: r for k, r in {**tc, **x6, **dec, **x3}.items()
+    dec_x3 = {k: r for k, r in quant_reports.items()
+              if "_dec_x3_kernel" in k}
+    x3 = {k: r for k, r in quant_reports.items()
+          if "_x3_kernel" in k and k not in dec_x3}
+    spills = {k: r for k, r in {**tc, **x6, **dec, **x3, **dec_x3}.items()
               if r.get("spill_stores", 0) or r.get("spill_loads", 0)}
     # the softmax forward's 32 template forms and the LayerNorm backward's
     # 38 share a name each in the report (it reads integer template
@@ -2238,9 +2306,10 @@ def main() -> int:
     fd_spills = {k: r for k, r in fd.items()
                  if r.get("spill_stores", 0) or r.get("spill_loads", 0)}
     log({"phase": "tensor_core_spills",
-         "kernels": len(tc) + len(x6) + len(dec) + len(x3),
+         "kernels": len(tc) + len(x6) + len(dec) + len(x3) + len(dec_x3),
          "six_product_form": x6, "decode_form": dec,
-         "fp32_prefill_form": x3, "spilling": spills,
+         "fp32_prefill_form": x3, "fp32_decode_form": dec_x3,
+         "spilling": spills,
          "softmax_forward_spills": sm_spills,
          "layernorm_backward": ptxas_report(built["layernorm_bwd"].log),
          "layernorm_backward_spills": ln_spills,
@@ -2249,15 +2318,16 @@ def main() -> int:
     check(not ln_spills, f"the LayerNorm backward spills: {ln_spills}")
     check(len(fd) == 4 * (4 + 3 + 2 + 2) and not fd_spills,
           f"flash decode: {len(fd)} kernels reported, spilling {fd_spills}")
-    # the decode form: a kernel a mode at tiles of 32, 64 and 128 columns
+    # the decode forms: a kernel a mode at tiles of 32, 64 and 128 columns
     check(len(tc) == 4 * len(fa.HEAD_DIMS)
           and len(x6) == (len(ATTENTION_X6) + len(TWO_PASS))
           * len(fa.HEAD_DIMS)
           and len(dec) == 3 * len(QUANT) and len(x3) == len(QUANT_X3)
-          and not spills,
+          and len(dec_x3) == 3 * len(QUANT_DEC_X3) and not spills,
           f"the tensor-core kernels spill or are missing: {len(tc)} flash, "
           f"{len(x6)} six-product, {len(dec)} quantized decode, {len(x3)} "
-          f"quantized fp32 prefill reported, {spills}")
+          f"quantized fp32 prefill, {len(dec_x3)} quantized fp32 decode "
+          f"reported, {spills}")
 
     gen = torch.Generator(DEV).manual_seed(0)
     worst = kernel_cases(gen)
@@ -2293,10 +2363,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     end_to_end()
     for kind in QUANT:
-        # fp32 weights' serving: decode steps in the CUDA-core decode form,
-        # prefills in the fp32 tensor-core form
+        # fp32 weights' serving: decode steps in the fp32 tensor-core decode
+        # form (int4 per column: the CUDA-core one), prefills in the fp32
+        # tensor-core form
         served = end_to_end(kind)
-        for n in (kind, kind + common.X3):
+        for n in (kind, kind + common.X3, kind + common.DEC_X3):
             launches[n] = launches.get(n, 0) + served.get(n, 0)
 
     # launches a step, both configs having 4 layers: each attention kernel
@@ -2449,14 +2520,20 @@ def main() -> int:
             entries[-1]["R8192 H512"] = {
                 str(dt).split(".")[1]: {k: r[k] for k in timed}
                 for dt, r in ln_rows[TRAIN["n_embd"]].items()}
+    # fp32 decode: the fp32 tensor-core decode form where the kernel has
+    # it, else (int4 per column) the CUDA-core decode form, the only one on
+    # the main path
     forms = ((common.DEC, QUANT_MAIN_SHAPE, "the tensor-core decode form"),
              (common.TC, QUANT_TC_SHAPE, "the tensor-core prefill form"),
-             ("", QUANT_CUDA_CORE_SHAPE, "the CUDA-core decode form"),
+             ("", QUANT_FP32_DECODE_SHAPE, "the CUDA-core decode form"),
+             (common.DEC_X3, QUANT_FP32_DECODE_SHAPE,
+              "the fp32 tensor-core decode form"),
              (common.X3, QUANT_X3_SHAPE, "the fp32 tensor-core prefill form"))
     for n, (_, _, line) in QUANT.items():
         for suffix, shape, what in forms:
             form = n + suffix
-            if suffix == common.X3 and form not in QUANT_X3:
+            fp32_decode = common.DEC_X3 if n in QUANT_DEC_X3_KINDS else ""
+            if suffix in ("", common.DEC_X3) and suffix != fp32_decode:
                 continue
             r = quant_rows[(n, shape)]
             entries.append({
@@ -2474,7 +2551,14 @@ def main() -> int:
                 + f", {what}"})
             if form in x3_fp64:
                 entries[-1]["max_abs_err_vs_float64"] = x3_fp64[form]
-    log({"phase": "total", "seconds": time.perf_counter() - t0})
+            if suffix == common.DEC_X3:   # the other serving linears
+                entries[-1]["other_shapes"] = {
+                    "M{} K{} N{}".format(*t[:3]): {
+                        k: quant_rows[(n, t)][k] for k in timed}
+                    for t in QUANT_TIMED
+                    if t[0] == 8 and t[3] == torch.float32 and t != shape}
+    log({"phase": "total", "seconds": time.perf_counter() - t0,
+         "short_profiler_traces": len(short_traces)})
     log({"kernels": entries})
     print(smi.splitlines()[0], flush=True)
     log({"ok": True, "device": {"platform": "gpu", "kind": name,

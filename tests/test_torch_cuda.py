@@ -1065,7 +1065,10 @@ def test_fused_model_step_launches_the_fused_kernels(cuda_device):
 # tensor-core decode form where 16 divides the group and N, else the
 # CUDA-core decode kernel (the groups of 24 and 8 at M 1 and 8, and N 300);
 # fp32 x above M = 8 runs the fp32 tensor-core form (``_x3``) per column and
-# for groups that are a multiple of 16, the CUDA-core form for the rest.
+# for groups that are a multiple of 16, the CUDA-core form for the rest; at
+# M <= 8 the fp32 tensor-core decode form (``_dec_x3``) for int8 and groups
+# that are a multiple of 16 where 16 divides N, the CUDA-core decode kernel
+# for the rest (int4 per column among them).
 
 QUANT_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 2e-2)}
 QUANT_SHAPES = [(1, 255, 300), (8, 1024, 384), (37, 513, 200),
@@ -1093,15 +1096,18 @@ def quant_case(gen, dev, kind, M, K, N, g, dtype):
 
 def form_name(kind, M, N, g, dtype):
     """The launch count a call adds to: the tensor-core forms' (groups a
-    multiple of 16; bf16 x: ``_dec`` at M <= 8 where 16 divides N too,
-    ``_tc`` above; fp32 x above M = 8 ``_x3``) or the CUDA-core forms'."""
+    multiple of 16; at M <= 8 where 16 divides N too: bf16 x ``_dec``,
+    fp32 x ``_dec_x3`` for int8 and grouped int4; above M = 8 bf16 x
+    ``_tc``, fp32 x ``_x3``) or the CUDA-core forms'."""
     if g is not None and g % 16:
         return kind
-    if dtype != torch.bfloat16:
-        return kind + common.X3 if M > 8 else kind
-    if M <= 8 and N % 16:
+    if M > 8:
+        return kind + (common.TC if dtype == torch.bfloat16 else common.X3)
+    if N % 16:
         return kind
-    return kind + (common.DEC if M <= 8 else common.TC)
+    if dtype == torch.bfloat16:
+        return kind + common.DEC
+    return kind + common.DEC_X3 if kind != "int4_matmul" else kind
 
 
 def check_quant_case(dev, dtype, kind, M, K, N, g):
@@ -1286,6 +1292,117 @@ def test_decode_form_runs_one_kernel_a_call(cuda_device, kind, g):
     assert all("_dec_kernel" in e.key for e in kernels)
 
 
+# The fp32-x decode form (``_dec_x3``: int8 and int4 in groups that are a
+# multiple of 16): the same shapes as the bf16 decode form's, at fp32 x.
+DEC_X3_KINDS = (("int8_matmul", None), ("int4_matmul_group", 128))
+DEC_X3_CASES = [case for case in DECODE_CASES if case[0] != "int4_matmul"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,M,K,N,g", DEC_X3_CASES)
+def test_fp32_decode_form_matches_plain_and_repeats_its_bits(cuda_device,
+                                                             kind, M, K, N,
+                                                             g):
+    """Each fp32 call launches its decode form once (the tensor-core one
+    counted under ``_dec_x3``, N 300 the CUDA-core one); two calls give the
+    same bits; the values agree with the plain version under the fp32
+    limits of QUANT_TOL."""
+    gen = torch.Generator(cuda_device).manual_seed(15)
+    call = quant_case(gen, cuda_device, kind, M, K, N, g, torch.float32)
+    before = dict(common.launch_counts)
+    got, again = call(), call()
+    launched = {n: c - before.get(n, 0) for n, c in
+                common.launch_counts.items() if c != before.get(n, 0)}
+    assert launched == {form_name(kind, M, N, g, torch.float32): 2}
+    want = call("plain")
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    assert torch.equal(got, again)
+    assert_within(got, want, *QUANT_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,g", DEC_X3_KINDS)
+@pytest.mark.parametrize("K,N", SERVING_LINEARS)
+def test_fp32_decode_form_runs_one_kernel_a_call(cuda_device, kind, g, K,
+                                                 N):
+    """Under the profiler three fp32 decode calls at each serving linear
+    run exactly three kernels, all the fp32 decode form's: no reduction
+    kernel and no workspace fill."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(cuda_device).manual_seed(16)
+    call = quant_case(gen, cuda_device, kind, 8, K, N, g, torch.float32)
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum(e.count for e in kernels) == 3, [e.key for e in kernels]
+    assert all("_dec_x3_kernel" in e.key for e in kernels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,g", DEC_X3_KINDS)
+@pytest.mark.parametrize("M", [1, 8])
+def test_fp32_decode_form_error_against_float64(cuda_device, kind, g, M):
+    """At K4096 N1024 the fp32 decode form's largest error against the
+    float64 product of the same x and weights is at most twice the plain
+    fp32 version's."""
+    from tpu_flash_torch.kernels import quant
+
+    gen = torch.Generator(cuda_device).manual_seed(17)
+    K, N = 4096, 1024
+    x = torch.randn(M, K, generator=gen, device=cuda_device)
+    w = torch.randn(K, N, generator=gen, device=cuda_device)
+    if kind == "int8_matmul":
+        q = quant.quantize_weight(w)
+        codes = q[0]
+        got, plain = (quant.int8_matmul(x, *q, impl=impl)
+                      for impl in ("kernel", "plain"))
+    else:
+        q = quant.quantize_weight_int4(w, group_size=g)[:2]
+        codes = quant.unpack_int4(q[0], K)
+        got, plain = (quant.int4_matmul(x, *q, k_dim=K, impl=impl)
+                      for impl in ("kernel", "plain"))
+    exact = x.double() @ quant.dequantize(codes, q[1], K).double()
+    torch.cuda.synchronize()
+    err = float((got.double() - exact).abs().max())
+    plain_err = float((plain.double() - exact).abs().max())
+    assert err <= 2 * plain_err, (err, plain_err)
+
+
+@pytest.mark.cuda
+def test_per_column_int4_refuses_the_fp32_decode_form(cuda_device,
+                                                      monkeypatch):
+    """int4 per column has no fp32 decode kernel, and bf16 x none of form
+    5: a plan for one raises and counts nothing (no fallback)."""
+    from tpu_flash_torch.kernels import quant
+
+    x = torch.randn(8, 256, device=cuda_device)
+    w = torch.randn(256, 64, device=cuda_device)
+    packed, scales, _ = quant.quantize_weight_int4(w)
+    codes, scales8 = quant.quantize_weight(w)
+    plan = quant._plan
+    monkeypatch.setattr(quant, "_plan", lambda M, N, rows, sms, dtype, group,
+                        dec_x3: plan(M, N, rows, sms, torch.float32, group,
+                                     True))
+    assert quant._plan(8, 64, 128, 132, torch.bfloat16, None,
+                       False).form == "decode_tc_x3"
+    before = dict(common.launch_counts)
+    with pytest.raises(RuntimeError, match="int4_matmul_dec_x3 kernel failed"):
+        quant.int4_matmul(x, packed, scales, k_dim=256)
+    with pytest.raises(RuntimeError,
+                       match="int8_matmul_dec_x3 kernel failed"):
+        quant.int8_matmul(x.to(torch.bfloat16), codes, scales8)
+    torch.cuda.synchronize()
+    assert dict(common.launch_counts) == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits,g", [(8, None), (4, None), (4, 32)])
 def test_quantized_linears_train_x_through_the_kernels(cuda_device, bits, g):
@@ -1422,8 +1539,9 @@ def test_int4_entry_refuses_the_cuda_core_prefill_form(cuda_device,
 @pytest.mark.parametrize("bits,g", [(8, None), (4, None), (4, 32)])
 def test_quantized_decode_step_kernel_matches_plain(cuda_device, bits, g):
     """One decode step of a small fp32 quantized DecoderLM: the matmul
-    kernel launches once a Linear (6 a layer and lm_head) and the logits
-    agree with the plain path's."""
+    kernel launches once a Linear (6 a layer and lm_head) in its fp32
+    decode form (``_dec_x3``, int4 per column the CUDA-core one) and the
+    logits agree with the plain path's."""
     cfg = tnn.DecoderConfig(n_vocab=128, n_embd=64, n_head=4, n_positions=64,
                             n_layer=2, ff_middle_dim=128, p_dropout=0.0,
                             attention_kind="naive")
@@ -1431,8 +1549,9 @@ def test_quantized_decode_step_kernel_matches_plain(cuda_device, bits, g):
     tnn.init_params(model, torch.Generator(cuda_device).manual_seed(2))
     tnn.quantize_model_linears(model, bits=bits, group_size=g,
                                allow_small_groups=True)
-    kind = ("int8_matmul" if bits == 8 else
-            "int4_matmul_group" if g else "int4_matmul")
+    kind = form_name("int8_matmul" if bits == 8 else
+                     "int4_matmul_group" if g else "int4_matmul", 3, 64, g,
+                     torch.float32)
     ids = torch.randint(0, 128, (3, 20), device=cuda_device,
                         generator=torch.Generator(cuda_device).manual_seed(3))
     logits = {}

@@ -1,14 +1,16 @@
 """The quantized matmuls' launch plan (``kernels/quant.py`` ``_plan``), a
-pure function of the shape, the dtype, the group and the card's count of
-streaming multiprocessors, so it runs here without a card: which form each shape takes (where the tensor
-cores' k depth of 16 divides the group, bf16 x takes ``decode_tc`` at M <= 8
-and the tensor-core form above, fp32 x above M = 8 ``tensor_core_x3`` for
-every kernel; otherwise the CUDA-core forms, ``decode`` at M <= 8), its
-tile, its splits of the code rows, its ring, and that every decode
-and prefill shape of the 176M serving model fills an H100's 132
-multiprocessors.  ``_launch`` runs here too with its C entry replaced by a
-recorder, to show what a decode call and an fp32 prefill call hand the
-kernel."""
+pure function of the shape, the dtype, the group, the kernel and the card's
+count of streaming multiprocessors, so it runs here without a card: which
+form each shape takes (where the tensor cores' k depth of 16 divides the
+group, bf16 x takes ``decode_tc`` at M <= 8 and the tensor-core form above,
+fp32 x ``decode_tc_x3`` at M <= 8 for the kernels that have it, int8 and
+grouped int4, and ``tensor_core_x3`` above for every kernel; otherwise the
+CUDA-core forms, ``decode`` at M <= 8), its tile, its splits of the code
+rows, its ring, and that every decode and prefill shape of the 176M serving
+model fills an H100's 132 multiprocessors.  ``_launch`` runs here too with
+its C entry replaced by a recorder, to show what a decode call and an fp32
+prefill call hand the kernel.  ``_plan``'s ``dec_x3`` flag is False unless
+given: a kernel without the fp32 decode form, as int4 per column."""
 
 import pathlib
 import re
@@ -37,7 +39,7 @@ CSRC = pathlib.Path(quant.__file__).parent / "csrc"
 @pytest.mark.parametrize("M,dtype,group,form", [
     (1, BF16, None, "decode_tc"),
     (8, BF16, 128, "decode_tc"),
-    (8, FP32, None, "decode"),
+    (8, FP32, None, "decode"),          # a kernel without decode_tc_x3
     (9, BF16, None, "tensor_core"),
     (9, FP32, None, "tensor_core_x3"),
     (9, FP32, 8, "cuda_core"),
@@ -81,35 +83,54 @@ def test_the_kernels_with_the_fp32_x_form():
     (1024, "int4", None, "tensor_core_x3"),
     (100, "int4_g128", 8, "cuda_core"),
     (100, "int4_g128", 24, "cuda_core"),
-    (8, "int8", None, "decode"),
-    (1, "int4_g128", 128, "decode"),
+    (8, "int8", None, "decode_tc_x3"),
+    (1, "int4_g128", 128, "decode_tc_x3"),
+    (8, "int4", None, "decode"),
+    (1, "int4_g128", 8, "decode"),
 ])
 def test_fp32_x_takes_the_x3_form_where_the_kernel_has_it(M, kind, group,
                                                           form):
     """fp32 x above M = 8 takes the fp32 tensor-core form for int8, int4
     per column and int4 in groups that are a multiple of 16; other groups
-    and M <= 8 keep the CUDA-core forms.  bf16 x never takes it."""
-    assert quant._plan(M, 1024, 512, SMS, FP32, group).form == form
-    assert quant._plan(M, 1024, 512, SMS, BF16,
-                       group).form != "tensor_core_x3"
+    keep the CUDA-core forms.  At M <= 8 int8 and int4 in groups that are a
+    multiple of 16 take the fp32 tensor-core decode form, int4 per column
+    and other groups the CUDA-core one.  bf16 x never takes either."""
+    dec_x3 = kind != "int4"
+    assert quant._plan(M, 1024, 512, SMS, FP32, group,
+                       dec_x3).form == form
+    assert quant._plan(M, 1024, 512, SMS, BF16, group, dec_x3).form not in (
+        "tensor_core_x3", "decode_tc_x3")
 
 
-@pytest.mark.parametrize("M,dtype,group,form", [
-    (M, dtype, group, form) for M in (1, 8) for dtype, group, form in (
-        (BF16, None, "decode_tc"), (BF16, 128, "decode_tc"),
-        (BF16, 64, "decode_tc"), (BF16, 8, "decode"), (BF16, 24, "decode"),
-        (FP32, None, "decode"))])
-def test_the_decode_form_follows_dtype_and_group(M, dtype, group, form):
+@pytest.mark.parametrize("M,dtype,kind,group,form", [
+    (M, dtype, kind, group, form) for M in (1, 8)
+    for dtype, kind, group, form in (
+        (BF16, "int8", None, "decode_tc"), (BF16, "int4", None, "decode_tc"),
+        (BF16, "int4_g", 128, "decode_tc"), (BF16, "int4_g", 64, "decode_tc"),
+        (BF16, "int4_g", 8, "decode"), (BF16, "int4_g", 24, "decode"),
+        (FP32, "int8", None, "decode_tc_x3"), (FP32, "int4", None, "decode"),
+        (FP32, "int4_g", 128, "decode_tc_x3"),
+        (FP32, "int4_g", 16, "decode_tc_x3"),
+        (FP32, "int4_g", 8, "decode"), (FP32, "int4_g", 24, "decode"))])
+def test_the_decode_form_follows_dtype_and_group(M, dtype, kind, group,
+                                                 form):
     """bf16 x takes the tensor-core decode form where 16 divides the group
-    and N; fp32 x and other groups keep the CUDA-core decode kernels, as do
-    N not a multiple of 16 (the codes' tensor map needs 16-byte rows) and
-    more code rows than 8 blocks' slices of x hold."""
-    for N, rows in ((1024, 512), (32768, 1024), (304, 128)):
-        assert quant._plan(M, N, rows, SMS, dtype, group).form == form
+    and N, in every kernel; fp32 x the fp32 tensor-core decode form there
+    in int8 and grouped int4 (``dec_x3``, as their wrappers pass it), int4
+    per column keeping the CUDA-core decode kernel; other groups keep the
+    CUDA-core decode kernels, as do N not a multiple of 16 (the codes'
+    tensor map needs 16-byte rows) and more code rows than 8 blocks' slices
+    of x hold (8 x 2048 bf16, 8 x 1024 fp32: its three planes)."""
+    dec_x3 = kind != "int4"
+    cap = 2048 if dtype == BF16 else 1024
+    for N, rows in ((1024, 512), (32768, 1024), (304, 128), (4096, 8 * cap)):
+        assert quant._plan(M, N, rows, SMS, dtype, group,
+                           dec_x3).form == form
     for N in (300, 1000, 4097):
-        assert quant._plan(M, N, 128, SMS, dtype, group).form == "decode"
-    assert quant._plan(M, 4096, 8 * 2048 + 1, SMS, dtype,
-                       group).form == "decode"
+        assert quant._plan(M, N, 128, SMS, dtype, group,
+                           dec_x3).form == "decode"
+    assert quant._plan(M, 4096, 8 * cap + 1, SMS, dtype, group,
+                       dec_x3).form == "decode"
 
 
 @pytest.mark.parametrize("M,N,rows,dtype,group,want", [
@@ -126,9 +147,14 @@ def test_the_decode_form_follows_dtype_and_group(M, dtype, group, form):
     (8, 32768, 512, BF16, 128, ("decode_tc", 8, 128, 1, 512, 256, 2, 32)),
     (1024, 4096, 1024, FP32, None,
      ("tensor_core_x3", 128, 128, 1, 1024, 256, 0, 0)),
+    (8, 4096, 1024, FP32, None, ("decode_tc_x3", 8, 64, 4, 256, 256, 1, 64)),
+    (8, 1024, 4096, FP32, None, ("decode_tc_x3", 8, 32, 8, 512, 256, 1, 128)),
+    (8, 32768, 512, FP32, 128, ("decode_tc_x3", 8, 128, 1, 512, 256, 2, 32)),
+    (8, 4096, 4096, FP32, None,
+     ("decode_tc_x3", 8, 64, 4, 1024, 256, 2, 64)),
 ])
 def test_tiles_and_splits(M, N, rows, dtype, group, want):
-    assert tuple(quant._plan(M, N, rows, SMS, dtype, group)) == want
+    assert tuple(quant._plan(M, N, rows, SMS, dtype, group, True)) == want
 
 
 @pytest.mark.parametrize("M,N,rows,group,want", [
@@ -164,7 +190,8 @@ def test_the_cuda_core_forms_keep_their_plan(M, dtype, group):
     """As the plan stood before the tensor-core forms, for the shapes that
     keep the CUDA-core forms: fp32 x above M = 8 only in groups that are
     not a multiple of 16 (every kernel takes the fp32 tensor-core form for
-    the rest)."""
+    the rest), and at M <= 8 in a kernel without the fp32 decode form (the
+    default of ``_plan``'s flag: int4 per column)."""
     kinds = ("int8", "int4")
     for K, N in SERVING_LINEARS + ((255, 300), (96, 130)):
         for kind in kinds:
@@ -230,44 +257,98 @@ class Recorder:
         return 0
 
 
+def decode_call(monkeypatch, kind, dtype, K=1024, N=4096, seed=0):
+    """One call of ``kind`` at M8 x K x N with ``dtype`` x through the
+    public wrapper (``int8_matmul`` / ``int4_matmul``), as on a CUDA tensor,
+    its C entry replaced by a recorder: (the recorded arguments, the
+    kernel's launch-count name, the code rows, the C arguments between K
+    and the form, the group, the counts it added)."""
+    rec = Recorder()
+    monkeypatch.setattr(quant, "resolve_impl", lambda impl, x: "kernel")
+    monkeypatch.setattr(quant, "entry", lambda *a: (None, None))
+    monkeypatch.setattr(quant, "call_on_stream", rec)
+    monkeypatch.setattr(quant, "sm_count", lambda dev: SMS)
+    gen = torch.Generator().manual_seed(seed)
+    w = torch.randn(K, N, generator=gen)
+    x = torch.randn(8, K, generator=gen).to(dtype)
+    before = dict(quant.launch_counts)
+    if kind == "int8":
+        name, group, rows, extra = quant.KERNEL_INT8, None, K, ()
+        quant.int8_matmul(x, *quant.quantize_weight(w))
+    else:
+        group = 128 if kind == "int4_g128" else None
+        packed, scales, _ = quant.quantize_weight_int4(w, group_size=group)
+        name = quant.KERNEL_INT4_GROUP if group else quant.KERNEL_INT4
+        rows, extra = K // 2, (scales.shape[0] if group else 0,)
+        quant.int4_matmul(x, packed, scales, k_dim=K)
+    launched = {n: c - before.get(n, 0) for n, c in quant.launch_counts.items()
+                if c != before.get(n, 0)}
+    (args,) = rec.calls
+    return args, name, rows, extra, group, launched
+
+
 @pytest.mark.parametrize("kind", ["int8", "int4", "int4_g128"])
 def test_a_decode_call_hands_the_kernel_its_plan_and_no_workspace(
         monkeypatch, kind):
     """One bf16 decode call at K1024 N4096: one launch of form 3 with the
     plan's tile, range, cluster and ring, no workspace pointer, counted
-    under the kernel's name + ``_dec``; fp32 x keeps form 0 and its
+    under the kernel's name + ``_dec``; fp32 x takes form 5, the same plan
+    and no workspace, counted with ``_dec_x3``, where the kernel has the
+    fp32 decode form, and int4 per column keeps form 0 and its
     workspace."""
-    rec = Recorder()
-    monkeypatch.setattr(quant, "entry", lambda *a: (None, None))
-    monkeypatch.setattr(quant, "call_on_stream", rec)
-    monkeypatch.setattr(quant, "sm_count", lambda dev: SMS)
-    gen = torch.Generator().manual_seed(0)
-    w = torch.randn(1024, 4096, generator=gen)
-    before = dict(quant.launch_counts)
-    for dtype in (BF16, FP32):
-        x = torch.randn(8, 1024, generator=gen).to(dtype)
-        if kind == "int8":
-            name, group = quant.KERNEL_INT8, None
-            quant._launch(name, "tf_int8_matmul", name, x,
-                          *quant.quantize_weight(w), 1024, ())
-        else:
-            group = 128 if kind == "int4_g128" else None
-            packed, scales, _ = quant.quantize_weight_int4(w, group_size=group)
-            name = quant.KERNEL_INT4_GROUP if group else quant.KERNEL_INT4
-            quant._launch(quant.KERNEL_INT4, "tf_int4_matmul", name, x,
-                          packed, scales, 512,
-                          (scales.shape[0] if group else 0,), group)
-    rows, groups = (1024, ()) if kind == "int8" else (512, (8 if group
-                                                            else 0,))
+    bf16, name, rows, groups, group, launched = decode_call(monkeypatch,
+                                                            kind, BF16)
     plan = quant._plan(8, 4096, rows, SMS, BF16, group)
-    bf16, fp32 = rec.calls
     assert all(bf16[:4]) and bf16[4] is None
     assert bf16[5:] == (8, 4096, 1024, *groups, 3, plan.bn, plan.chunk,
                         plan.splits, plan.stage_rows, plan.stages, 1)
-    assert fp32[4] is not None and fp32[8 + len(groups)] == 0
-    launched = {n: c - before.get(n, 0) for n, c in quant.launch_counts.items()
-                if c != before.get(n, 0)}
-    assert launched == {name + "_dec": 1, name: 1}
+    assert launched == {name + "_dec": 1}
+    fp32, *_, launched = decode_call(monkeypatch, kind, FP32)
+    if kind == "int4":
+        assert fp32[4] is not None and fp32[8 + len(groups)] == 0
+        assert launched == {name: 1}
+    else:
+        assert fp32[4] is None
+        assert fp32[5:] == (8, 4096, 1024, *groups, 5, *bf16[9 + len(groups):
+                                                              -1], 0)
+        assert launched == {name + "_dec_x3": 1}
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4_g128"])
+@pytest.mark.parametrize("K,N", SERVING_LINEARS)
+def test_an_fp32_decode_call_hands_the_kernel_its_plan_and_no_workspace(
+        monkeypatch, kind, K, N):
+    """One fp32 decode call at each serving linear: one launch of form 5
+    (the fp32 tensor-core decode form) with the plan's tile, range,
+    cluster and ring, no workspace pointer and dtype 0, counted under the
+    kernel's name + ``_dec_x3`` and under no other name."""
+    args, name, rows, extra, group, launched = decode_call(
+        monkeypatch, kind, FP32, K, N, seed=K + N)
+    plan = quant._plan(8, N, rows, SMS, FP32, group, True)
+    assert plan.form == "decode_tc_x3"
+    assert all(args[:4]) and args[4] is None
+    assert args[5:] == (8, N, K, *extra, 5, plan.bn, plan.chunk, plan.splits,
+                        plan.stage_rows, plan.stages, 0)
+    assert launched == {name + "_dec_x3": 1}
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4", "int4_g128"])
+@pytest.mark.parametrize("K,N", SERVING_LINEARS)
+def test_every_serving_fp32_decode_plan_fills_the_card(K, N, kind):
+    """fp32 x at M <= 8 on each serving linear: int8 and int4 in groups of
+    128 take the fp32 tensor-core decode form in one launch, with the bf16
+    form's tile, cluster and ring (the fp32 form's cap of 1024 code rows a
+    block splits none of them further); int4 per column keeps the CUDA-core
+    decode form and its workspace."""
+    rows, group = weights(kind, K)
+    plan = quant._plan(8, N, rows, SMS, FP32, group, kind != "int4")
+    if kind == "int4":
+        assert plan.form == "decode" and plan.splits > 1
+        return
+    assert plan == quant._plan(1, N, rows, SMS, FP32, group, True)
+    assert plan == quant._plan(8, N, rows, SMS, BF16, group)._replace(
+        form="decode_tc_x3")
+    assert plan.blocks >= SMS and plan.chunk <= 1024
 
 
 @pytest.mark.parametrize("dtype,group", [(BF16, None), (BF16, 64),
@@ -277,11 +358,12 @@ def test_splits_cover_the_rows_in_whole_slabs(dtype, group, sms):
     """Every split is a whole number of the form's slabs (the C entry
     refuses others), the splits cover the code rows and none is empty."""
     slab = {"decode": 128, "cuda_core": 32, "tensor_core": 64,
-            "decode_tc": 64, "tensor_core_x3": 64}
+            "decode_tc": 64, "tensor_core_x3": 64, "decode_tc_x3": 64}
     for M in (1, 8, 9, 64, 129, 1024):
         for N in (5, 64, 300, 4096):
             for rows in (1, 31, 96, 255, 512, 2048):
-                plan = quant._plan(M, N, rows, sms, dtype, group)
+                plan = quant._plan(M, N, rows, sms, dtype, group,
+                                   dtype == FP32)
                 assert plan.chunk % slab[plan.form] == 0
                 assert (plan.splits - 1) * plan.chunk < rows
                 assert plan.splits * plan.chunk >= rows

@@ -1,10 +1,14 @@
-"""The arithmetic of the quantized matmuls' fp32-x form on the tensor cores
-(``int8_matmul_x3`` / ``int4_matmul_x3`` / ``int4_matmul_group_x3``), on the
-CPU: x is split into three bf16 planes whose sum is x exactly, and
-``matmul_x3`` (each step of code rows' three products, lo, mid and hi,
-summed apart and added in row order; per-column scales after the sum, group
-scales on each group's sum) agrees with the JAX package's ``int8_matmul``
-and ``int4_matmul``, per column and grouped (Pallas, in interpret mode), and
+"""The arithmetic of the quantized matmuls' fp32-x forms on the tensor
+cores, on the CPU: x is split into three bf16 planes whose sum is x
+exactly.  The prefill form (``int8_matmul_x3`` / ``int4_matmul_x3`` /
+``int4_matmul_group_x3``): ``matmul_x3`` (each step of code rows' three
+products, lo, mid and hi, summed apart and added in row order; per-column
+scales after the sum, group scales on each group's sum).  The decode form
+(``int8_matmul_dec_x3`` / ``int4_matmul_group_dec_x3``): ``matmul_dec_x3``
+(``_plan``'s ranges of code rows, each warp's quarter of a range in 16-row
+steps of three products, the warps' sums and then the ranges' added in
+order).  Both agree with the JAX package's ``int8_matmul`` and
+``int4_matmul``, per column and grouped (Pallas, in interpret mode), and
 with a float64 product.
 
 Tolerance: within 1e-5 of the output's rms plus 1e-5 of the value
@@ -159,3 +163,119 @@ def test_groups_are_scaled_before_they_are_summed():
     scales = torch.tensor([[1.0] * 8, [2.0 ** -20] * 8])
     got = matmul_x3(x, codes, scales)
     assert torch.equal(got, torch.full((16, 8), 32 + 32 * 2.0 ** -20))
+
+
+def matmul_dec_x3(x, codes, scales, plan, *, k2=None):
+    """The ``_dec_x3`` kernels' arithmetic in plain PyTorch, at M <= 8:
+    fp32 ``x`` [M, K] split by ``split3_bf16``; the integer ``codes``
+    [K, N] (int8 codes, or grouped int4 codes unpacked); ``plan``, the
+    ``decode_tc_x3`` plan of ``_plan``: ``plan.splits`` ranges of
+    ``plan.chunk`` code rows (the blocks of a cluster), each split into 4
+    warps' quarters.  A warp walks its rows in 16-row steps, each meeting
+    the three planes, lo, mid, hi, in a fresh sum added to the warp's
+    (``mma_x3_b``); grouped int4 (``k2``: the packed rows K/2) meets x's
+    first half with the low codes and its second with the high ones in
+    each step, keeps each half's group sum apart and scales it into the
+    warp's sum at the group's last step or the warp's.  The 4 warps' sums
+    are added in warp order, then the ranges' in range order; per-column
+    scales after the sum.  Returns fp32 [M, N]."""
+    planes = [t.float() for t in split3_bf16(x)][::-1]    # lo, mid, hi
+    c = codes.float()
+    s = scales.float()
+    grouped = s.dim() == 2
+    K = x.shape[1]
+    rows = k2 or K
+    halves = (0, rows) if k2 else (0,)
+    g = K // s.shape[0] if grouped else K
+    zeros = torch.zeros(x.shape[0], c.shape[1])
+    total = None
+    for rank in range(plan.splits):
+        block = zeros
+        for warp in range(4):
+            w0 = rank * plan.chunk + warp * plan.chunk // 4
+            w1 = min(rows, w0 + plan.chunk // 4)
+            acc, part = zeros, {h: zeros for h in halves}
+            for r0 in range(w0, w1, 16):
+                r1 = min(w1, r0 + 16)
+                for h in halves:
+                    cols = slice(h + r0, h + r1)
+                    step = zeros
+                    for plane in planes:
+                        step = step + plane[:, cols] @ c[cols]
+                    if grouped:
+                        part[h] = part[h] + step
+                    else:
+                        acc = acc + step
+                if grouped and (r1 == w1 or r0 // g != (r0 + 16) // g):
+                    for h in halves:
+                        acc = acc + part[h] * s[(h + r0) // g]
+                        part[h] = zeros
+            block = block + acc
+        total = block if total is None else total + block
+    return total if grouped else total * s
+
+
+def dec_plan(M, N, rows, group, sms):
+    plan = tq._plan(M, N, rows, sms, torch.float32, group, True)
+    assert plan.form == "decode_tc_x3"
+    return plan
+
+
+@pytest.mark.parametrize("M", [1, 8])
+@pytest.mark.parametrize("K,N,sms", [(256, 48, 132), (512, 80, 1),
+                                     (4096, 32, 1), (1024, 64, 132)])
+def test_the_decode_form_matches_jax_int8_matmul(M, K, N, sms):
+    """int8 at M 1 and 8: a range a block (132 SMs: 4 to 8 short ranges,
+    a step or two a warp; 1 SM: one long range of up to 1024 rows, or 4 of
+    1024 at K4096, 8 to 16 steps a warp), N ragged against the tile (48,
+    80) or whole."""
+    x, w = inputs(M, K, N, 7 * M + K)
+    codes, scales = jq.quantize_weight(jnp.asarray(w))
+    want = np.asarray(jq.int8_matmul(jnp.asarray(x), codes, scales,
+                                     interpret=True))
+    tc, ts = (torch.from_numpy(np.array(a)) for a in (codes, scales))
+    tx = torch.from_numpy(x)
+    plan = dec_plan(M, N, K, None, sms)
+    got = matmul_dec_x3(tx, tc, ts, plan)
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    exact = x.astype(np.float64) @ (np.asarray(codes, np.float64)
+                                    * np.asarray(scales, np.float64))
+    assert excess(got, want) <= 0
+    assert excess(got, exact) <= 0
+    assert excess(hi_only(tx, tc, ts), exact) > 0
+
+
+@pytest.mark.parametrize("M", [1, 8])
+@pytest.mark.parametrize("K,N,g,sms", [(256, 48, 16, 132), (512, 80, 32, 1),
+                                       (1024, 64, 128, 132),
+                                       (4096, 32, 128, 1)])
+def test_the_decode_form_matches_jax_grouped_int4_matmul(M, K, N, g, sms):
+    """Grouped int4 at M 1 and 8, groups of 16, 32 and 128: a group ends
+    inside a warp's quarter (16, 32), with it (1024 rows in 132 SMs' plan)
+    or spans warps (128 at K1024: 64-row ranges, 16 rows a warp)."""
+    x, w = inputs(M, K, N, 5 * M + K + g)
+    packed, scales, k = jq.quantize_weight_int4(
+        jnp.asarray(w), group_size=g, allow_small_groups=True)
+    want = np.asarray(jq.int4_matmul(jnp.asarray(x), packed, scales,
+                                     k_dim=k, interpret=True))
+    tp = torch.from_numpy(np.array(packed))
+    codes = tq.unpack_int4(tp, K)
+    ts, tx = torch.from_numpy(np.array(scales)), torch.from_numpy(x)
+    plan = dec_plan(M, N, tp.shape[0], g, sms)
+    got = matmul_dec_x3(tx, codes, ts, plan, k2=tp.shape[0])
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    exact = x.astype(np.float64) @ tq.dequantize(codes, ts, K).double().numpy()
+    assert excess(got, want) <= 0
+    assert excess(got, exact) <= 0
+    assert excess(hi_only(tx, codes, ts), exact) > 0
+
+
+def test_the_decode_form_scales_groups_before_they_are_summed():
+    """As in the prefill form: two groups whose scales differ by 2^20
+    keep the small group's products, in each half of the packed rows."""
+    x = torch.ones(8, 128)
+    codes = torch.ones(128, 16, dtype=torch.int8)
+    scales = torch.tensor([[1.0] * 16, [2.0 ** -20] * 16] * 2)
+    plan = dec_plan(8, 16, 64, 32, 132)
+    got = matmul_dec_x3(x, codes, scales, plan, k2=64)
+    assert torch.equal(got, torch.full((8, 16), 64 + 64 * 2.0 ** -20))

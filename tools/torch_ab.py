@@ -8,11 +8,12 @@ a check that two calls of each backward give the same bits; and the
 quantized matmuls (``int8_matmul`` / ``int4_matmul`` of
 ``kernels/quant.py``, int8, int4 and int4 in groups of 128) at bf16 decode
 (M 8) on each linear of the 176M serving model and at one 1024-token
-prefill, and int8, int4 and int4 in groups of 128 at fp32 prefills of 16,
-64, 128, 256 and 1024 tokens at K1024 N4096, weights rotating past the 50
-MB L2, with the same check, beside cuBLAS's fp32 ``x @ W`` against the
-weight dequantized once (the same for every tree: a yardstick, never
-called by the port); the fused LayerNorm forward at R8192 H256 and
+prefill, and int8, int4 and int4 in groups of 128 at fp32 decode (M 8) on
+each serving linear and at fp32 prefills of 16, 64, 128, 256 and 1024
+tokens at K1024 N4096, weights rotating past the 50 MB L2, with the same
+check, beside cuBLAS's fp32 ``x @ W`` against the weight dequantized once
+at each fp32 shape (the same for every tree: a yardstick, never called by
+the port); the fused LayerNorm forward at R8192 H256 and
 backward at R8192 H256 (fp32 and bf16) and H512 (the production width,
 fp32 and bf16), the masked softmax forward (fp32 and bf16) and backward
 (fp32) at B32 H8 L256 causal (the reference MT shapes), and flash decode at
@@ -22,11 +23,15 @@ LayerNorm backward timed whole: dx, dgamma and dbeta); the kernels' summed
 device time of one decode step of the 176M serving model (8 layers, bf16
 weights, 8 sequences of ~1024 tokens, int8 and bf16 caches of 8192
 positions), all of them and flash decode's (the profiler's sum, ``clock``
-``kernels``: a decode step's host is slower than the card); and the
-host's time to issue one quantized Linear call (``int8_linear`` /
-``int4_linear`` under ``torch.no_grad``, as serving calls them) at bf16
-decode on each serving linear, the stream held so that the host never
-waits for the card (``host_us``; these rows' ``clock`` is ``host``); and
+``kernels``: a decode step's host is slower than the card), and the same
+of one fp32 decode step of that model at 2 layers with int8 and with
+grouped int4 weights (``chip_smoke.py``'s ``end_to_end``: 13 quantized
+Linears a step), all kernels and the quantized matmuls' (their reduction
+kernel included); and the host's time to issue one quantized Linear call
+(``int8_linear`` / ``int4_linear`` under ``torch.no_grad``, as serving
+calls them) at bf16 and fp32 decode on each serving linear, the stream
+held so that the host never waits for the card (``host_us``; these rows'
+``clock`` is ``host``); and
 the device time of one training step of ``chip_smoke.py``'s long-two-pass
 config (the production widths, 2 layers, L 8192, remat, the chunked loss
 over 8 pieces, fp32), where the backward takes the two passes, the stream
@@ -75,7 +80,8 @@ QUANT_SHAPES = tuple((8, K, N) for K, N in ((1024, 1024), (1024, 4096),
 # prefill form; M 16 to 128 are the short prompts of fp32 serving, where
 # most of the form's 128-row tile is empty.
 QUANT_FP32_KINDS = (("int8", None), ("int4", None), ("int4_g128", 128))
-QUANT_FP32_SHAPES = tuple((M, 1024, 4096) for M in (16, 64, 128, 256, 1024))
+QUANT_FP32_SHAPES = QUANT_SHAPES[:4] + tuple(
+    (M, 1024, 4096) for M in (16, 64, 128, 256, 1024))
 # Training steps (label, config, B, L, dtype, dropout, chunked_vocab,
 # clock): chip_smoke.py's long-two-pass step (TRAIN_LONG at 2 layers), and
 # its modes (c) and (d) (REF).
@@ -192,9 +198,9 @@ def quant_rows(torch, quant, timer) -> list[dict]:
             with torch.no_grad():
                 us = timer.host_us(lambda: linear(x, qw))
             hosts.append({"what": f"host {kind} linear",
-                          "dtype": "bfloat16", "shape": f"M{M} K{K} N{N}",
-                          "clock": "host", "ms": us * 1e-3,
-                          "two_calls_same_bits": same})
+                          "dtype": str(dtype).split(".")[1],
+                          "shape": f"M{M} K{K} N{N}", "clock": "host",
+                          "ms": us * 1e-3, "two_calls_same_bits": same})
         del w, q, qw
     for M, K, N in QUANT_FP32_SHAPES:
         # the yardstick: cuBLAS's fp32 GEMM (TF32 off) on the weight
@@ -366,6 +372,54 @@ def decode_step_rows(torch) -> list[dict]:
     return rows
 
 
+def fp32_decode_step_rows(torch) -> list[dict]:
+    """The kernels' summed device time of one decode step of the 176M
+    serving model at 2 layers in fp32 (``chip_smoke.py``'s ``end_to_end``:
+    weights from a seed, TF32 off) with its Linears quantized to int8 and
+    to int4 in groups of 128, 8 sequences of 1024 prompt tokens in fp32
+    caches of 2048 positions: all kernels and the quantized matmuls' (the
+    names holding ``_matmul``: each form's kernel and the CUDA-core form's
+    reduction kernel)."""
+    from tpu_flash_torch.inference.sampler import prefill_prompt
+    from tpu_flash_torch.nn import (DecoderConfig, DecoderLM, init_params,
+                                    quantize_model_linears)
+
+    cfg = DecoderConfig(n_vocab=32768, n_embd=1024, n_head=16,
+                        n_positions=8192, n_layer=2, ff_middle_dim=4096,
+                        p_dropout=0.0, attention_kind="naive",
+                        dtype=torch.float32)
+    B, L = 8, 1024
+    gen = torch.Generator("cuda").manual_seed(4)
+    prompt = torch.randint(0, cfg.n_vocab, (B, L), generator=gen,
+                           device="cuda")
+    rows = []
+    for kind, bits, group in (("int8", 8, None), ("int4_g128", 4, 128)):
+        model = DecoderLM(cfg, device="cuda")
+        init_params(model, torch.Generator("cuda").manual_seed(1))
+        quantize_model_linears(model, bits=bits, group_size=group)
+        with torch.no_grad():
+            logits, caches = prefill_prompt(
+                model, prompt, torch.full((B,), L, device="cuda"),
+                max_len=2 * L)
+            tok = logits.argmax(-1)[:, None]
+
+            def step():
+                return model(tok, kv_caches=caches,
+                             positions=caches[0].lengths[:, None].long())
+
+            ms = kernel_ms(torch, step, ("", "_matmul"))
+        rows += [{"what": what, "dtype": "float32",
+                  "shape": f"176M, 2 layers, {kind} weights, B{B}, fp32 "
+                           f"cache near length {L}",
+                  "clock": "kernels", "ms": t, "two_calls_same_bits": None}
+                 for what, t in zip(("fp32 decode step, kernels",
+                                     "fp32 decode step, quantized matmul "
+                                     "kernels"), ms)]
+        del model, caches
+        torch.cuda.empty_cache()
+    return rows
+
+
 def train_rows(torch, device_ms) -> list[dict]:
     """Each of ``TRAIN_STEPS`` (Adam, in mixed precision for bf16; random
     weights and tokens from seeds): the device time of one step, the stream
@@ -429,7 +483,8 @@ def one(root: str) -> dict:
     timer = timing()
     return {"root": root, "rows": timed_rows(torch, fa, timer.device_ms)
             + quant_rows(torch, quant, timer) + other_rows(torch, timer)
-            + decode_step_rows(torch) + train_rows(torch, timer.device_ms)}
+            + decode_step_rows(torch) + fp32_decode_step_rows(torch)
+            + train_rows(torch, timer.device_ms)}
 
 
 def main() -> int:

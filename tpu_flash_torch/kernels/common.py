@@ -45,11 +45,13 @@ launch_counts: collections.Counter[str] = collections.Counter()
 # quantized matmuls' tensor-core decode form under the name + DEC; the flash
 # kernels' fp32 form on the tensor cores (six bf16 products a product)
 # under the name + X6; the quantized matmuls' fp32-x prefill form on the
-# tensor cores (three bf16 products a product) under the name + X3.
+# tensor cores (three bf16 products a product) under the name + X3, and
+# their fp32-x decode form on the tensor cores under the name + DEC_X3.
 TC = "_tc"
 DEC = "_dec"
 X6 = "_x6"
 X3 = "_x3"
+DEC_X3 = "_dec_x3"
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

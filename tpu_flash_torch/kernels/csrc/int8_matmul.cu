@@ -11,18 +11,22 @@
 // K1024 N4096: 1.28 us at 3.35 TB/s; 1 MB for a 1024 x 1024 projection:
 // 0.31 us); at prefill (M up to 1024) the operations, 2 M K N of them (fp32
 // x: three bf16 products each, 2 M K N / 329.7 TFLOP/s).
-// Four forms, chosen by the wrapper (kernels/quant.py _plan), each
+// Five forms, chosen by the wrapper (kernels/quant.py _plan), each
 // described in quant_matmul.cuh: bf16 x at M <= 8 (N a multiple of 16)
 // runs int8_matmul_dec_kernel (one launch, the code rows split over a thread-
 // block cluster and summed in distributed shared memory, a TMA ring, the
-// tensor cores with the tokens as the n8 side); bf16 x at M > 8
+// tensor cores with the tokens as the n8 side); fp32 x at M <= 8 (N a
+// multiple of 16, up to 8 x 1024 code rows) int8_matmul_dec_x3_kernel (the
+// same launch, the block's slice of x split into three bf16 planes in
+// shared memory, each code product three bf16 products); bf16 x at M > 8
 // int8_matmul_tc_kernel (bf16 products of x and the codes converted exactly
 // to bf16 in shared memory, fp32 sums on the tensor cores); fp32 x at M > 8
 // int8_matmul_x3_kernel (x split into three bf16 planes in shared memory,
-// each code product three bf16 products on the tensor cores); fp32 x at
-// M <= 8, and other N at M <= 8, the CUDA-core kernel (_m8: fp32 FMAs).
-// The tensor-core forms take every M > 8, so int8 has no CUDA-core
-// prefill kernel.  No form writes a dequantized copy of W.
+// each code product three bf16 products on the tensor cores); at M <= 8
+// other N, and fp32 x beyond 8 x 1024 code rows, the CUDA-core kernel (_m8:
+// fp32 FMAs, a second kernel summing its splits).  The tensor-core forms
+// take every M > 8, so int8 has no CUDA-core prefill kernel.  No form
+// writes a dequantized copy of W.
 //
 // C entry: tf_int8_matmul(...) launches on the given stream, allocates
 // nothing and returns cudaGetLastError() (or cudaErrorInvalidValue for
@@ -50,7 +54,13 @@ int8_matmul_x3_kernel(const QParams p) {
 template <int BN>
 __global__ void __launch_bounds__(kDecThreads)
 int8_matmul_dec_kernel(const __grid_constant__ QDecParams d) {
-  quant_matmul_dec_body<kInt8, BN>(d);
+  quant_matmul_dec_body<kInt8, BN, false>(d);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kDecThreads)
+int8_matmul_dec_x3_kernel(const __grid_constant__ QDecParams d) {
+  quant_matmul_dec_body<kInt8, BN, true>(d);
 }
 
 }  // namespace
@@ -63,7 +73,8 @@ extern "C" {
 // 64), 3 decode on the tensor cores (bf16, M <= 8, N a multiple of 16, bn
 // 32, 64 or 128, chunks a multiple of 64, `splits` <= 8 the cluster,
 // stage_rows and stages each warp's ring, no workspace), 4 prefill on the
-// tensor cores for fp32 x (fp32, bn 128, chunks of 64).  The code rows are
+// tensor cores for fp32 x (fp32, bn 128, chunks of 64), 5 decode on the
+// tensor cores for fp32 x (fp32, as form 3 otherwise).  The code rows are
 // split into `splits` ranges of `chunk` rows; forms 0-2 and 4 with splits >
 // 1 take part, an fp32 [splits, M, N] workspace.
 int tf_int8_matmul(const void* x, const void* codes, const float* scales,
@@ -79,7 +90,9 @@ int tf_int8_matmul(const void* x, const void* codes, const float* scales,
        int8_matmul_tc_kernel,
        int8_matmul_x3_kernel,
        {int8_matmul_dec_kernel<32>, int8_matmul_dec_kernel<64>,
-        int8_matmul_dec_kernel<128>}},
+        int8_matmul_dec_kernel<128>},
+       {int8_matmul_dec_x3_kernel<32>, int8_matmul_dec_x3_kernel<64>,
+        int8_matmul_dec_x3_kernel<128>}},
       p, false, form, bn, splits, stage_rows, stages, true,
       static_cast<cudaStream_t>(stream));
 }

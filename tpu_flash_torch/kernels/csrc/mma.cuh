@@ -6,7 +6,7 @@
 // an mbarrier, fragment loads by ldmatrix, the m16n8k16 product, the
 // packing of two values into a bf16 pair, and an fp32-accurate product as
 // six bf16 products (the flash kernels' fp32 forms) or, where the other
-// operand is exact in bf16, three (the quantized matmuls' fp32 form).
+// operand is exact in bf16, three (the quantized matmuls' fp32-x forms).
 //
 // Fragments of mma.sync.m16n8k16 (lane = 4 * g + t, g = lane / 4):
 //   A (16 x 16, row major): a[0] row g, columns 2t, 2t + 1; a[1] row g + 8;
@@ -198,6 +198,20 @@ __device__ __forceinline__ void mma_x3_add(float* c, const uint32_t (&a)[3][4],
                                            const uint32_t* b) {
   float t[4] = {0.f, 0.f, 0.f, 0.f};
   mma_x3(t, a, b);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] += t[i];
+}
+
+// mma_x3 with the operands' roles swapped: a is exact in bf16 (the codes as
+// A fragments, the quantized matmuls' decode form) and b is fp32, its
+// planes b[0] hi, b[1] mid, b[2] lo as B fragments; the three products go
+// into a fresh accumulator, smallest first, added to c rounded to nearest.
+__device__ __forceinline__ void mma_x3_b(float* c, const uint32_t* a,
+                                         const uint32_t (&b)[3][2]) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_bf16(t, a, b[2]);
+  mma_bf16(t, a, b[1]);
+  mma_bf16(t, a, b[0]);
 #pragma unroll
   for (int i = 0; i < 4; ++i) c[i] += t[i];
 }

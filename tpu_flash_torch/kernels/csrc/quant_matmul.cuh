@@ -20,20 +20,24 @@
 // FMA and in a bf16 tensor-core product, so every form gives the TPU
 // kernels' numbers up to the order of the sums.
 //
-// Five forms, picked by the wrapper (kernels/quant.py _plan), each a kernel
+// Six forms, picked by the wrapper (kernels/quant.py _plan), each a kernel
 // of its own:
 //   * decode on the tensor cores (bf16 x, M <= 8, groups and N a multiple
 //     of 16): quant_matmul_dec_body below, one launch a call, no workspace;
+//   * decode on the tensor cores for fp32 x (M <= 8; int8, and int4 in
+//     groups that are a multiple of 16; N a multiple of 16): the same body,
+//     x's slice split into three bf16 planes, three products a product;
 //   * prefill on the tensor cores (bf16 x, M > 8, groups a multiple of
 //     16): quant_matmul_tc_body below;
 //   * prefill on the tensor cores for fp32 x (M > 8; int8, int4 per
 //     column, and int4 in groups that are a multiple of 16):
 //     quant_matmul_x3_body below, x split into three bf16 planes, three
 //     products a product;
-//   * the CUDA-core forms (fp32 x at M <= 8, groups that are not a
-//     multiple of 16, and at M <= 8 N that is not): quant_matmul_body,
-//     BM = 8 (M <= 8) or 64 (such groups above M = 8, the only CUDA-core
-//     prefill kernel left).
+//   * the CUDA-core forms (fp32 x at M <= 8 per column, groups that are not
+//     a multiple of 16, at M <= 8 N that is not, and more code rows than
+//     the decode forms' clusters take): quant_matmul_body, BM = 8 (M <= 8)
+//     or 64 (such groups above M = 8, the only CUDA-core prefill kernel
+//     left).
 //
 // The CUDA-core forms: one block of 256 threads (8 warps) per [BM, 128]
 // tile of out and per split of the code rows (blockIdx.z).  Each slab of BK
@@ -969,7 +973,23 @@ __device__ __forceinline__ void quant_matmul_x3_body(const QParams& p) {
 //     half apart and scales them into the sum at the group's last step or
 //     its range's last, as _matmul4_group_kernel scales each group's
 //     partial dot before adding it; the next group's scales are loaded at
-//     the fold, ahead of their use.
+//     the fold, ahead of their use;
+//   * fp32 x (X3: int8, and int4 in groups that 16 divides), every decode
+//     step of fp32 quantized serving: the same launch, cluster, rings and
+//     sums.  The warps' first TMA copies are issued first; then each thread
+//     loads 16-byte pieces of the block's fp32 slice of x and splits each
+//     once, as it lands, into three bf16 planes in shared memory
+//     (split3_pair: hi + mid + lo == x exactly), 1.5 times the fp32 slice's
+//     bytes, so the plan caps a block's code rows at 1024 (int4 at M = 8:
+//     96 KB of planes).  Each A fragment of codes meets the three planes' B
+//     fragments in three products, lo, mid and hi (mma_x3_b), each exact,
+//     so a product is as accurate as an fp32 FMA; out is fp32, scaled in
+//     fp32.  The tensor cores truncate each fp32 sum (mma.cuh), so each
+//     16-row step's three products of a tile go into a fresh sum added
+//     rounded to nearest (mma_x3_b): summed in place over a warp's rows,
+//     the error against float64 exceeded twice the plain fp32 version's at
+//     lm_head, and grouped int4 at BN 64 spilled (chip_smoke.py holds the
+//     error to twice plain's).
 
 constexpr int kDecThreads = 128;        // 4 warps, each a quarter of the rows
 constexpr int kDecStages = 4;           // ring stages a warp at most
@@ -981,15 +1001,16 @@ struct QDecParams {
   QParams p;           // p.chunk: code rows a block; part unused
   int stage_rows;      // code rows a warp's ring stage, a multiple of 16
   int stages;          // a warp's ring stages, 1 .. kDecStages
-  int xpitch;          // bf16 a token's row of the x slice
-  bool xaligned;       // x's rows 16-byte aligned: cp.async where whole
+  int xpitch;          // bf16 a token's row of the x slice (of each plane)
+  bool xaligned;       // x's rows 16-byte aligned: 16-byte copies where whole
 };
 
 // Shared memory of the decode form at a tile of bn columns, in bytes: the
-// warps' rings, x's slice, the warps' sums, the partials received from the
-// cluster, the tile's column scales, the mbarriers.
+// warps' rings, x's slice (fp32 x: its three planes), the warps' sums, the
+// partials received from the cluster, the tile's column scales, the
+// mbarriers.
 __host__ __device__ __forceinline__ int dec_x_bytes(const QDecParams& d) {
-  return (d.p.M * d.xpitch * 2 + 15) / 16 * 16;
+  return (d.p.M * d.xpitch * 2 * (d.p.bf16 ? 1 : 3) + 15) / 16 * 16;
 }
 
 __host__ __device__ __forceinline__ int dec_smem_bytes(const QDecParams& d,
@@ -998,11 +1019,24 @@ __host__ __device__ __forceinline__ int dec_smem_bytes(const QDecParams& d,
          4 * ((4 + cluster) * 8 + 1) * bn + 8 * (4 * d.stages + 1);
 }
 
-template <int MODE, int BN>
+// c += a b of an A fragment of codes and x's B fragment: bf16 x one
+// product, fp32 x (X3) three, one a plane (mma_x3_b).
+template <bool X3>
+__device__ __forceinline__ void mma_dec(float* c, const uint32_t* a,
+                                        const uint32_t (&b)[X3 ? 3 : 1][2]) {
+  if constexpr (X3) {
+    mma_x3_b(c, a, b);
+  } else {
+    mma_bf16(c, a, b[0]);
+  }
+}
+
+template <int MODE, int BN, bool X3>
 __device__ __forceinline__ void quant_matmul_dec_body(const QDecParams& d) {
   namespace cg = cooperative_groups;
   constexpr bool INT4 = MODE != kInt8, GROUP = MODE == kInt4Group;
   constexpr int XT = INT4 ? 2 : 1;   // x's halves a code row meets
+  constexpr int PL = X3 ? 3 : 1;     // x's planes: hi (, mid, lo)
   constexpr int T = 2 * BN / 32;     // m16 tiles: two a 32-column group
   constexpr int N4 = 2 * BN;         // float4s of an [8, BN] tile
   const QParams& p = d.p;
@@ -1041,45 +1075,6 @@ __device__ __forceinline__ void quant_matmul_dec_body(const QDecParams& d) {
                  :: "l"(reinterpret_cast<uint64_t>(&d.codes)) : "memory");
   __syncthreads();
 
-  // x's slice first, and the tile's column scales (per-column modes):
-  // xs[m][h * chunk + k] = x[m][h * rows + rbeg + k], ss[i] = scales[n0 +
-  // i], by 16-byte cp.async (the load path, not the copy engine the codes
-  // queue on) where the rows are whole, else plain loads (zeros past the
-  // range or K), every thread arriving on xbar when its copies land
-  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.x);
-  const bool xvec = d.xaligned && nrows == p.chunk &&
-                    (!INT4 || p.rows + rbeg + p.chunk <= p.K);
-  const int xpieces = p.M * XT * p.chunk / 8;   // 16-byte pieces
-  for (int i = tid; i < xpieces; i += kDecThreads) {
-    const int k = i * 8 % p.chunk, h = i * 8 / p.chunk % XT;
-    const int m = i * 8 / (p.chunk * XT);
-    __nv_bfloat16* dst = xs + m * d.xpitch + h * p.chunk + k;
-    const __nv_bfloat16* src = x + (size_t)m * p.K + h * p.rows + rbeg + k;
-    if (xvec) {
-      cp_async16(dst, src, true);
-    } else {
-      for (int e = 0; e < 8; ++e)
-        dst[e] = k + e < nrows && h * p.rows + rbeg + k + e < p.K
-                     ? src[e] : __float2bfloat16(0.f);
-    }
-  }
-  if constexpr (!GROUP) {
-    if (n0 + BN <= p.N) {
-      if (tid < BN / 4) cp_async16(ss + 4 * tid, p.scales + n0 + 4 * tid, true);
-    } else {
-      for (int i = tid; i < BN; i += kDecThreads)
-        ss[i] = n0 + i < p.N ? p.scales[n0 + i] : 0.f;
-    }
-  }
-  if (xvec && (GROUP || n0 + BN <= p.N)) {
-    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];"
-                 :: "r"(smem_addr(xbar)) : "memory");
-  } else {   // plain stores too: arrive, releasing them, once all landed
-    cp_async_commit();
-    cp_async_wait<0>();
-    mbar_arrive(xbar);
-  }
-
   // stage s of the warp's rows into its ring slot s % stages
   auto issue = [&](int s) {
     if (lane == 0) {
@@ -1089,7 +1084,100 @@ __device__ __forceinline__ void quant_matmul_dec_body(const QDecParams& d) {
                   rbeg + wbeg + s * srows, bar);
     }
   };
-  for (int s = 0; s < min(stages, nstage); ++s) issue(s);
+  // fp32 x: the codes first, while x is loaded and split
+  if constexpr (X3)
+    for (int s = 0; s < min(stages, nstage); ++s) issue(s);
+
+  // x's slice, and the tile's column scales (per-column modes):
+  // xs[m][h * chunk + k] = x[m][h * rows + rbeg + k] (fp32 x: plane q at xs
+  // + q * M * xpitch), ss[i] = scales[n0 + i].  bf16 x first, by 16-byte
+  // cp.async (the load path, not the copy engine the codes queue on) where
+  // the rows are whole; fp32 x by 16-byte loads split in registers; else
+  // plain loads (zeros past the range or K).  Every thread arrives on xbar
+  // when its copies land.
+  const bool xvec = d.xaligned && nrows == p.chunk &&
+                    (!INT4 || p.rows + rbeg + p.chunk <= p.K);
+  const int plane = p.M * d.xpitch;             // bf16 a plane
+  auto load_scales = [&] {
+    if constexpr (!GROUP) {
+      if (n0 + BN <= p.N) {
+        if (tid < BN / 4)
+          cp_async16(ss + 4 * tid, p.scales + n0 + 4 * tid, true);
+      } else {
+        for (int i = tid; i < BN; i += kDecThreads)
+          ss[i] = n0 + i < p.N ? p.scales[n0 + i] : 0.f;
+      }
+    }
+  };
+  if constexpr (X3) {
+    load_scales();
+    // 4 pieces of 4 floats a thread in flight, then split
+    const float* x = static_cast<const float*>(p.x);
+    const int xpieces = p.M * XT * p.chunk / 4;
+    for (int i0 = tid; i0 < xpieces; i0 += 4 * kDecThreads) {
+      float4 v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u * kDecThreads;
+        const int k = i * 4 % p.chunk, h = i * 4 / p.chunk % XT;
+        const float* src = x + (size_t)(i * 4 / (p.chunk * XT)) * p.K +
+                           h * p.rows + rbeg + k;
+        if (i >= xpieces) {
+          v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        } else if (xvec) {
+          v[u] = __ldg(reinterpret_cast<const float4*>(src));
+        } else {
+          float e[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            e[j] = k + j < nrows && h * p.rows + rbeg + k + j < p.K ? src[j]
+                                                                    : 0.f;
+          v[u] = make_float4(e[0], e[1], e[2], e[3]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u * kDecThreads;
+        if (i >= xpieces) break;
+        const int k = i * 4 % p.chunk, h = i * 4 / p.chunk % XT;
+        uint32_t hi[2], mid[2], lo[2];
+        split3_pair(v[u].x, v[u].y, hi[0], mid[0], lo[0]);
+        split3_pair(v[u].z, v[u].w, hi[1], mid[1], lo[1]);
+        __nv_bfloat16* dst =
+            xs + i * 4 / (p.chunk * XT) * d.xpitch + h * p.chunk + k;
+        *reinterpret_cast<uint2*>(dst) = make_uint2(hi[0], hi[1]);
+        *reinterpret_cast<uint2*>(dst + plane) = make_uint2(mid[0], mid[1]);
+        *reinterpret_cast<uint2*>(dst + 2 * plane) = make_uint2(lo[0], lo[1]);
+      }
+    }
+  } else {
+    const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.x);
+    const int xpieces = p.M * XT * p.chunk / 8;   // 16-byte pieces
+    for (int i = tid; i < xpieces; i += kDecThreads) {
+      const int k = i * 8 % p.chunk, h = i * 8 / p.chunk % XT;
+      const int m = i * 8 / (p.chunk * XT);
+      __nv_bfloat16* dst = xs + m * d.xpitch + h * p.chunk + k;
+      const __nv_bfloat16* src = x + (size_t)m * p.K + h * p.rows + rbeg + k;
+      if (xvec) {
+        cp_async16(dst, src, true);
+      } else {
+        for (int e = 0; e < 8; ++e)
+          dst[e] = k + e < nrows && h * p.rows + rbeg + k + e < p.K
+                       ? src[e] : __float2bfloat16(0.f);
+      }
+    }
+  }
+  if constexpr (!X3) load_scales();
+  if (!X3 && xvec && (GROUP || n0 + BN <= p.N)) {
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];"
+                 :: "r"(smem_addr(xbar)) : "memory");
+  } else {   // plain stores too: arrive, releasing them, once all landed
+    cp_async_commit();
+    cp_async_wait<0>();
+    mbar_arrive(xbar);
+  }
+  if constexpr (!X3)
+    for (int s = 0; s < min(stages, nstage); ++s) issue(s);
 
   // grouped: the scales of the warp's first group, loaded ahead; this
   // lane's columns in 32-column group c are n0 + 32c + 4g + 0 .. 3
@@ -1133,13 +1221,15 @@ __device__ __forceinline__ void quant_matmul_dec_body(const QDecParams& d) {
 #pragma unroll 2
     for (int q = s * sps; q < qend; ++q) {
       const uint8_t* cq = cs + (q - s * sps) * 16 * BN;
-      uint32_t b[XT][2];
+      uint32_t b[XT][PL][2];
 #pragma unroll
-      for (int h = 0; h < XT; ++h) {   // x's rows 2t, 2t + 1; 2t + 8, 2t + 9
-        const uint32_t* xp = xrow + (h * p.chunk + 16 * q) / 2;
-        b[h][0] = token ? xp[0] : 0u;
-        b[h][1] = token ? xp[4] : 0u;
-      }
+      for (int h = 0; h < XT; ++h)     // x's rows 2t, 2t + 1; 2t + 8, 2t + 9
+#pragma unroll
+        for (int v = 0; v < PL; ++v) {
+          const uint32_t* xp = xrow + (v * plane + h * p.chunk + 16 * q) / 2;
+          b[h][v][0] = token ? xp[0] : 0u;
+          b[h][v][1] = token ? xp[4] : 0u;
+        }
 #pragma unroll
       for (int c = 0; c < BN / 32; ++c) {
         uint32_t w[4];   // rows 2t, 2t + 1, 2t + 8, 2t + 9; columns 4g ..
@@ -1167,16 +1257,16 @@ __device__ __forceinline__ void quant_matmul_dec_body(const QDecParams& d) {
                 nibbles_bf16(p01[0] >> 4), nibbles_bf16(p01[1] >> 4),
                 nibbles_bf16(p23[0] >> 4), nibbles_bf16(p23[1] >> 4)};
             if constexpr (GROUP) {
-              mma_bf16(plo[j], lo, b[0]);
-              mma_bf16(phi[j], hi, b[1]);
+              mma_dec<X3>(plo[j], lo, b[0]);
+              mma_dec<X3>(phi[j], hi, b[1]);
             } else {
-              mma_bf16(acc[j], lo, b[0]);
-              mma_bf16(acc[j], hi, b[1]);
+              mma_dec<X3>(acc[j], lo, b[0]);
+              mma_dec<X3>(acc[j], hi, b[1]);
             }
           } else {
             const uint32_t a[4] = {int8x2_bf16(p01[0]), int8x2_bf16(p01[1]),
                                    int8x2_bf16(p23[0]), int8x2_bf16(p23[1])};
-            mma_bf16(acc[j], a, b[0]);
+            mma_dec<X3>(acc[j], a, b[0]);
           }
         }
       }
@@ -1266,13 +1356,22 @@ __device__ __forceinline__ void quant_matmul_dec_body(const QDecParams& d) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[e] *= ss[4 * i % BN + e];
     const int cnt = min(4, p.N - on);
-    __nv_bfloat16* dst =
-        static_cast<__nv_bfloat16*>(p.out) + (size_t)m * p.N + on;
-    if (cnt == 4 && p.N % 4 == 0) {
-      *reinterpret_cast<uint2*>(dst) =
-          make_uint2(bf16_pair_rn(o[0], o[1]), bf16_pair_rn(o[2], o[3]));
+    if constexpr (X3) {
+      float* dst = static_cast<float*>(p.out) + (size_t)m * p.N + on;
+      if (cnt == 4 && p.N % 4 == 0) {
+        *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+      } else {
+        for (int e = 0; e < cnt; ++e) dst[e] = o[e];
+      }
     } else {
-      for (int e = 0; e < cnt; ++e) dst[e] = __float2bfloat16_rn(o[e]);
+      __nv_bfloat16* dst =
+          static_cast<__nv_bfloat16*>(p.out) + (size_t)m * p.N + on;
+      if (cnt == 4 && p.N % 4 == 0) {
+        *reinterpret_cast<uint2*>(dst) =
+            make_uint2(bf16_pair_rn(o[0], o[1]), bf16_pair_rn(o[2], o[3]));
+      } else {
+        for (int e = 0; e < cnt; ++e) dst[e] = __float2bfloat16_rn(o[e]);
+      }
     }
   }
 }
@@ -1294,7 +1393,7 @@ quant_matmul_reduce_kernel(const float* part, const float* scales, void* out,
 // The forms, as the C entries take them (kernels/quant.py _FORM_IDS).
 enum Form {
   kDecode = 0, kCudaCore = 1, kTensorCore = 2, kDecodeTc = 3,
-  kTensorCoreX3 = 4
+  kTensorCoreX3 = 4, kDecodeTcX3 = 5
 };
 
 typedef void (*QKernel)(QParams);
@@ -1302,11 +1401,11 @@ typedef void (*QDecKernel)(QDecParams);
 
 // A source's kernels: the CUDA-core forms (BM 8 and 64; m64 null where the
 // tensor-core forms take every M > 8), the tensor-core prefill forms for
-// bf16 x and for fp32 x (x3: null where the mode has none) and the
-// tensor-core decode form at BN 32, 64 and 128.
+// bf16 x and for fp32 x, and the tensor-core decode forms for bf16 x and
+// for fp32 x (dec_x3: null where the mode has none) at BN 32, 64 and 128.
 struct QKernels {
   QKernel m8, m64, tc, x3;
-  QDecKernel dec[3];
+  QDecKernel dec[3], dec_x3[3];
 };
 
 // cuTensorMapEncodeTiled, a driver entry point, reached through the
@@ -1336,25 +1435,30 @@ EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// The tensor-core decode form: one launch of the kernel for bn, clusters
-// of `splits` blocks along x, one a range of `chunk` code rows of a [8, bn]
-// tile.
-int quant_matmul_dec_launch(const QKernels& ks, QParams p, bool int4, int bn,
-                            int splits, int stage_rows, int stages,
-                            cudaStream_t stream) {
-  if (!p.bf16 || p.M > 8 || (bn != 32 && bn != 64 && bn != 128) ||
+// The tensor-core decode forms (kDecodeTc bf16 x, kDecodeTcX3 fp32 x): one
+// launch of the kernel for bn, clusters of `splits` blocks along x, one a
+// range of `chunk` code rows of a [8, bn] tile.
+int quant_matmul_dec_launch(const QKernels& ks, QParams p, bool int4,
+                            int form, int bn, int splits, int stage_rows,
+                            int stages, cudaStream_t stream) {
+  const bool x3 = form == kDecodeTcX3;
+  if (p.bf16 == x3 || p.M > 8 || (bn != 32 && bn != 64 && bn != 128) ||
       p.N % 16 || p.chunk % 64 || splits > kDecCluster ||
       (long long)(splits - 1) * p.chunk >= p.rows || p.part ||
       stage_rows % 16 || stage_rows <= 0 || stage_rows * bn > kDecStageBytes ||
       stages < 1 || stages > kDecStages)
     return cudaErrorInvalidValue;
-  const QDecKernel k = ks.dec[bn == 32 ? 0 : bn == 64 ? 1 : 2];
+  const QDecKernel k = (x3 ? ks.dec_x3 : ks.dec)[bn == 32 ? 0 : bn == 64 ? 1
+                                                                          : 2];
+  if (!k) return cudaErrorInvalidValue;
   QDecParams d{};
   d.p = p;
   d.stage_rows = stage_rows;
   d.stages = stages;
   d.xpitch = (int4 ? 2 : 1) * p.chunk + 8;   // 16-byte rows, no conflicts
-  d.xaligned = p.K % 8 == 0 && p.rows % 8 == 0;
+  // x's rows (and int4's second halves) start on 16 bytes
+  const int per16 = x3 ? 4 : 8;
+  d.xaligned = p.K % per16 == 0 && p.rows % per16 == 0;
   const EncodeTiled encode = tensor_map_encoder();
   if (!encode) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)p.N, (cuuint64_t)p.rows};
@@ -1402,8 +1506,8 @@ int quant_matmul_launch(const QKernels& k, QParams p, bool int4, int form,
   if (p.M <= 0 || p.N <= 0 || p.K <= 0 || p.rows <= 0 || p.chunk <= 0 ||
       splits < 1 || (long long)splits * p.chunk < p.rows)
     return cudaErrorInvalidValue;
-  if (form == kDecodeTc)
-    return quant_matmul_dec_launch(k, p, int4, bn, splits, stage_rows,
+  if (form == kDecodeTc || form == kDecodeTcX3)
+    return quant_matmul_dec_launch(k, p, int4, form, bn, splits, stage_rows,
                                    stages, stream);
   const bool tc = form == kTensorCore || form == kTensorCoreX3;
   const int bm = form == kDecode ? 8 : form == kCudaCore ? 64 : kTcBM;

@@ -13,19 +13,22 @@ even).
 ``int8_matmul`` and ``int4_matmul`` launch ``csrc/int8_matmul.cu`` and
 ``csrc/int4_matmul.cu`` on CUDA tensors and run ``*_plain``, the same
 arithmetic in plain PyTorch, on CPU tensors (``impl="kernel"|"plain"``
-forces one).  Each source holds up to five forms of its kernels, and
-``_plan``, a rule on the shape, the dtype and the group, picks one.  bf16 x
-where the tensor cores' k depth of 16 divides the group runs bf16 products
-with fp32 sums on the tensor cores: ``decode_tc`` at M <= 8 where 16 divides
-N too (one launch, the code rows split over a thread-block cluster, counted
-under the kernel's name with ``_dec``), ``tensor_core`` above (counted with
-``_tc``).  fp32 x at M > 8 runs ``tensor_core_x3`` on the tensor cores
-where the group allows it (per column, or a multiple of 16; counted with
-``_x3``): x split into three bf16 planes, each product three exact bf16
-products.  The rest (fp32 x at M <= 8, groups that are not a multiple of
-16, and at M <= 8 N that is not) runs fp32 FMAs on the CUDA cores:
-``decode`` at M <= 8 and ``cuda_core`` above (such groups only), counted
-under the kernel's name.  All round as
+forces one).  Each source holds up to six forms of its kernels, and
+``_plan``, a rule on the shape, the dtype, the group and the kernel, picks
+one.  bf16 x where the tensor cores' k depth of 16 divides the group runs
+bf16 products with fp32 sums on the tensor cores: ``decode_tc`` at M <= 8
+where 16 divides N too (one launch, the code rows split over a
+thread-block cluster, counted under the kernel's name with ``_dec``),
+``tensor_core`` above (counted with ``_tc``).  fp32 x runs the same two
+shapes of launch with x split into three bf16 planes, each product three
+exact bf16 products: ``decode_tc_x3`` at M <= 8 (int8, and int4 in groups
+that are a multiple of 16; N a multiple of 16; counted with ``_dec_x3``)
+and ``tensor_core_x3`` above (per column, or groups that are a multiple
+of 16; counted with ``_x3``).  The rest (fp32 x at M <= 8
+per column, groups that are not a multiple of 16, at M <= 8 N that is
+not, and more code rows than a decode form's cluster takes) runs fp32 FMAs
+on the CUDA cores: ``decode`` at M <= 8 and ``cuda_core`` above (such
+groups only), counted under the kernel's name.  All round as
 the TPU kernels do: the fp32 product of x and the integer codes is scaled
 after the dot (grouped: each group's partial dot is scaled, then summed),
 and the weight is never dequantized first.
@@ -45,6 +48,7 @@ import torch
 
 from tpu_flash_torch.kernels.common import (
     DEC,
+    DEC_X3,
     TC,
     X3,
     call_on_stream,
@@ -67,23 +71,25 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # streaming multiprocessor, and their id in the C entries (``form``).
 _FORMS = {"decode": (8, 128, 128, 2), "cuda_core": (64, 128, 32, 2),
           "tensor_core": (128, 64, 64, 1), "decode_tc": (8, None, 64, 1),
-          "tensor_core_x3": (128, 128, 64, 1)}
+          "tensor_core_x3": (128, 128, 64, 1),
+          "decode_tc_x3": (8, None, 64, 1)}
 _FORM_IDS = {"decode": 0, "cuda_core": 1, "tensor_core": 2, "decode_tc": 3,
-             "tensor_core_x3": 4}
-# The tensor-core decode form: blocks a cluster at most (the portable
+             "tensor_core_x3": 4, "decode_tc_x3": 5}
+# The tensor-core decode forms: blocks a cluster at most (the portable
 # limit); code bytes a warp's ring stage and stages at most (two 4 KB stages
 # a warp streamed lm_head fastest on an H100: tools/torch_decode_plans.py);
-# code rows a block at most (its slice of x, up to 8 x 2 x 2048 bf16, stays
-# in shared memory).
-_DEC_CLUSTER, _DEC_STAGE_BYTES, _DEC_STAGES, _DEC_ROWS = 8, 4096, 2, 2048
+# code rows a block at most (its slice of x stays in shared memory: up to
+# 8 x 2 x 2048 bf16, and fp32 x's three bf16 planes, 8 x 2 x 1024 each).
+_DEC_CLUSTER, _DEC_STAGE_BYTES, _DEC_STAGES = 8, 4096, 2
+_DEC_ROWS = {"decode_tc": 2048, "decode_tc_x3": 1024}
 
 
 class Plan(NamedTuple):
     """A launch: the form, its tile (``bm`` x ``bn`` of out), the code
-    rows split into ``splits`` ranges of ``chunk`` rows (``decode_tc``: the
-    blocks of a cluster), the blocks, and ``decode_tc``'s ring: each warp's
-    ``stages`` of ``stage_rows`` code rows (0 in the other forms, whose
-    kernels fix their own)."""
+    rows split into ``splits`` ranges of ``chunk`` rows (the decode forms
+    on the tensor cores: the blocks of a cluster), the blocks, and those
+    forms' ring: each warp's ``stages`` of ``stage_rows`` code rows (0 in
+    the other forms, whose kernels fix their own)."""
     form: str
     bm: int
     bn: int
@@ -250,24 +256,28 @@ def _check_int4(x, packed, scales, k_dim) -> bool:
 
 @functools.lru_cache(maxsize=4096)
 def _plan(M: int, N: int, rows: int, sms: int, dtype: torch.dtype,
-          group: int | None) -> Plan:
+          group: int | None, dec_x3: bool = False) -> Plan:
     """The launch for x [M, K], ``rows`` code rows (K, or ceil(K/2)
     packed), N columns, on a card of ``sms`` streaming multiprocessors;
-    ``group`` is the rows of W a scale covers (None: per column).  Where
-    the tensor cores' k depth of 16 divides the group, bf16 x takes a
-    tensor-core form: ``decode_tc`` at M <= 8 (up to 8 x 2048 code rows,
-    and N a multiple of 16, the row stride its tensor map of the codes
-    needs), ``tensor_core`` above; fp32 x above M = 8 takes
-    ``tensor_core_x3``.  The rest take the CUDA-core forms, ``decode`` at
-    M <= 8 and ``cuda_core`` above (groups that 16 does not divide).  The
-    code rows are split until the launch has the form's blocks for each
-    multiprocessor (the tensor-core prefill forms' chunks rounded down, so
-    that they get them whole)."""
+    ``group`` is the rows of W a scale covers (None: per column);
+    ``dec_x3``: the kernel has the fp32-x decode form (int8 and grouped
+    int4; int4 per column keeps the CUDA-core one).
+    Where the tensor cores' k depth of 16 divides the group, x takes a
+    tensor-core form: at M <= 8 ``decode_tc`` for bf16 x (up to 8 x 2048
+    code rows) and ``decode_tc_x3`` for fp32 x where ``dec_x3`` (up to
+    8 x 1024), both where N is a multiple of 16, the row stride their
+    tensor map of the codes needs; above M = 8 ``tensor_core`` for bf16 x
+    and ``tensor_core_x3`` for fp32 x.  The rest take the CUDA-core forms,
+    ``decode`` at M <= 8 and ``cuda_core`` above (groups that 16 does not
+    divide).  The code rows are split until the launch has the form's
+    blocks for each multiprocessor (the tensor-core prefill forms' chunks
+    rounded down, so that they get them whole)."""
     tc = group is None or group % 16 == 0
     if M <= 8:
-        if (tc and dtype == torch.bfloat16 and N % 16 == 0
-                and rows <= _DEC_CLUSTER * _DEC_ROWS):
-            return _decode_plan(N, rows, sms)
+        form = "decode_tc" if dtype == torch.bfloat16 else "decode_tc_x3"
+        if (tc and (dtype == torch.bfloat16 or dec_x3) and N % 16 == 0
+                and rows <= _DEC_CLUSTER * _DEC_ROWS[form]):
+            return _decode_plan(N, rows, sms, form)
         form = "decode"
     elif tc:
         form = "tensor_core" if dtype == torch.bfloat16 else "tensor_core_x3"
@@ -284,15 +294,16 @@ def _plan(M: int, N: int, rows: int, sms: int, dtype: torch.dtype,
     return Plan(form, bm, bn, splits, chunk, tiles * splits)
 
 
-def _decode_plan(N: int, rows: int, sms: int) -> Plan:
-    """``decode_tc``: tiles of 128 code bytes a row where they alone give
-    a block a multiprocessor, else of 64 where clusters of 8 can spread
-    them that far, else of 32; the code rows split over a cluster of the
-    smallest power of two (at most 8) that gives a block a multiprocessor,
-    and into at least ``rows / _DEC_ROWS`` ranges, each a whole number of
-    16-row steps for each of the block's 4 warps; each warp's quarter of
-    the range through a ring of up to 2 stages of up to 4 KB."""
-    _, _, slab, per_sm = _FORMS["decode_tc"]
+def _decode_plan(N: int, rows: int, sms: int, form: str) -> Plan:
+    """``decode_tc`` and ``decode_tc_x3``: tiles of 128 code bytes a row
+    where they alone give a block a multiprocessor, else of 64 where
+    clusters of 8 can spread them that far, else of 32; the code rows split
+    over a cluster of the smallest power of two (at most 8) that gives a
+    block a multiprocessor, and into at least ``rows / _DEC_ROWS[form]``
+    ranges, each a whole number of 16-row steps for each of the block's 4
+    warps; each warp's quarter of the range through a ring of up to 2
+    stages of up to 4 KB."""
+    _, _, slab, per_sm = _FORMS[form]
     want = per_sm * sms
     if cdiv(N, 128) >= want:
         bn = 128
@@ -301,11 +312,11 @@ def _decode_plan(N: int, rows: int, sms: int) -> Plan:
     tiles = cdiv(N, bn)
     cluster = 1 << (cdiv(want, tiles) - 1).bit_length()
     cluster = max(min(_DEC_CLUSTER, cluster, cdiv(rows, slab)),
-                  cdiv(rows, _DEC_ROWS))
+                  cdiv(rows, _DEC_ROWS[form]))
     chunk = round_up(cdiv(rows, cluster), slab)
     cluster = cdiv(rows, chunk)
     stage_rows = min(chunk // 4, _DEC_STAGE_BYTES // bn)
-    return Plan("decode_tc", 8, bn, cluster, chunk, tiles * cluster,
+    return Plan(form, 8, bn, cluster, chunk, tiles * cluster,
                 min(_DEC_STAGES, cdiv(chunk // 4, stage_rows)), stage_rows)
 
 
@@ -316,24 +327,27 @@ def _inputs(x, w, scales, what):
     return dev, [kernel_input(t, dev) for t in (x, w, scales.float())]
 
 
-def _launch(name, symbol, count_as, x, w, scales, rows, extra, group=None):
+def _launch(name, symbol, count_as, x, w, scales, rows, extra, group=None,
+            dec_x3=False):
     """Launch ``symbol`` of ``csrc/<name>.cu``; ``extra`` are the C
     arguments between K and the form (the int4 group count), ``group`` the
-    rows a group scale covers.  out takes x's dtype; the launch counts under
-    ``count_as``, with ``DEC``, ``TC`` or ``X3`` for the tensor-core
-    forms.  Every form but ``decode_tc`` takes an fp32 workspace when it
-    splits the code rows."""
+    rows a group scale covers, ``dec_x3`` whether the kernel has the fp32-x
+    decode form (``_plan``).  out takes x's dtype; the launch counts under
+    ``count_as``, with ``DEC``, ``DEC_X3``, ``TC`` or ``X3`` for the
+    tensor-core forms.  The forms but the decode ones on the tensor cores
+    take an fp32 workspace when they split the code rows."""
     dev, (x, w, s) = _inputs(x, w, scales, name)
     M, K = x.shape
     N = w.shape[1]
     out = torch.empty(M, N, dtype=x.dtype, device=dev)
     if out.numel() == 0:
         return out
-    plan = _plan(M, N, rows, sm_count(dev), x.dtype, group)
-    count_as += {"decode_tc": DEC, "tensor_core": TC,
+    plan = _plan(M, N, rows, sm_count(dev), x.dtype, group, dec_x3)
+    count_as += {"decode_tc": DEC, "decode_tc_x3": DEC_X3, "tensor_core": TC,
                  "tensor_core_x3": X3}.get(plan.form, "")
     part = (torch.empty(plan.splits, M, N, dtype=torch.float32, device=dev)
-            if plan.splits > 1 and plan.form != "decode_tc" else None)
+            if plan.splits > 1
+            and plan.form not in ("decode_tc", "decode_tc_x3") else None)
     lib, fn = entry(name, symbol, [ctypes.c_void_p] * 5
                     + [ctypes.c_int] * (3 + len(extra) + 7)
                     + [ctypes.c_void_p])
@@ -359,7 +373,7 @@ def int8_matmul(x, codes, scales, *, impl: str | None = None):
     if codes.dtype != torch.int8:
         raise TypeError(f"codes must be int8, got {codes.dtype}")
     return _launch(KERNEL_INT8, "tf_int8_matmul", KERNEL_INT8, x, codes,
-                   scales, x.shape[1], ())
+                   scales, x.shape[1], (), dec_x3=True)
 
 
 def int4_matmul(x, packed, scales, *, k_dim=None, impl: str | None = None):
@@ -375,7 +389,8 @@ def int4_matmul(x, packed, scales, *, k_dim=None, impl: str | None = None):
                    KERNEL_INT4_GROUP if grouped else KERNEL_INT4, x, packed,
                    scales, packed.shape[0],
                    (scales.shape[0] if grouped else 0,),
-                   x.shape[1] // scales.shape[0] if grouped else None)
+                   x.shape[1] // scales.shape[0] if grouped else None,
+                   dec_x3=grouped)
 
 
 # ---------------------------------------------------------------------------
