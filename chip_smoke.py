@@ -20,10 +20,11 @@ ported paths:
 * quantized serving: the int8, packed-int4 and grouped-int4 matmul kernels
   in their forms (for bf16 x the tensor-core decode form at M <= 8 and
   the tensor-core prefill form above; for fp32 x the fp32 tensor-core
-  decode form at M <= 8 (int4 per column: the CUDA-core one) and above
-  the fp32 tensor-core prefill form, three bf16 products a product) against
-  their plain versions (fp32 and bf16 x, M 1 to 1024, the serving model's
-  linears and ragged shapes; each call checked to launch its form, the
+  decode form at M <= 8 and above the fp32 tensor-core prefill form, three
+  bf16 products a product; the CUDA-core decode form at N not a multiple
+  of 16 and past the decode forms' code rows) against their plain
+  versions (fp32 and bf16 x, M 1 to 1024, the serving model's linears and
+  ragged shapes; each call checked to launch its form, the
   tensor-core decode and fp32 forms to give the same bits twice; each
   form's limit checked against a perturbed row), the fp32 tensor-core forms
   and the plain fp32 version each against a float64 product at M1024 and
@@ -36,8 +37,8 @@ ported paths:
   each prefill in the tensor-core prefill form, with the logits' error
   against the bf16 model; and the engine against ``generate`` and kernel
   against plain end to end for each of the three in fp32 (decode steps in
-  the fp32 tensor-core decode form, int4 per column in the CUDA-core one,
-  prefills in the fp32 tensor-core form);
+  the fp32 tensor-core decode form, prefills in the fp32 tensor-core
+  form);
 * training: the flash-attention forward and fused backward kernels, in the
   six-product form for fp32 (each fp32 product six bf16 products on the
   tensor cores) and the tensor-core form for bf16 (each call checked to
@@ -52,8 +53,9 @@ ported paths:
   shapes, ragged widths, rows that see no key, a fully padded batch row,
   widths above 512; each limit checked against a perturbed row; the
   LayerNorm backward's dx, dgamma and dbeta the same bits on two calls),
-  their times at the reference MT shapes (and the LayerNorm backward's at
-  the production width, R8192 H512), and ``ops.fused``'s kernel route
+  their times at the reference MT shapes in both dtypes (and the
+  LayerNorm forward's and backward's at the production width, R8192
+  H512), and ``ops.fused``'s kernel route
   against its composed route (forward plus backward) at last axes 640 and
   1024, above its 512 limits; ``train_epoch`` in five modes: the E=512
   L=2048 decoder (``bench/bench_train.py``'s production config) with flash
@@ -182,18 +184,16 @@ QUANT_SOURCES = ("int8_matmul", "int4_matmul")
 # under the name + common.DEC (decode, M <= 8) and + common.TC (prefill);
 # fp32 x above M = 8 the fp32 tensor-core form (every group here is a
 # multiple of 16), the name + common.X3; fp32 x at M <= 8 the fp32
-# tensor-core decode form of int8 and grouped int4, the name +
-# common.DEC_X3, and int4 per column's CUDA-core decode form under the name.
+# tensor-core decode form, the name + common.DEC_X3; the CUDA-core decode
+# form (N not a multiple of 16, more code rows than the decode forms take)
+# counts under the name.
 QUANT = {"int8_matmul": (8, None, "quant.py:49"),
          "int4_matmul": (4, None, "quant.py:228"),
          "int4_matmul_group": (4, 128, "quant.py:258")}
 QUANT_TC = tuple(n + common.TC for n in QUANT)
 QUANT_DEC = tuple(n + common.DEC for n in QUANT)
 QUANT_X3 = tuple(n + common.X3 for n in QUANT)
-# The kernels with the fp32-x decode form (int4 per column keeps the
-# CUDA-core one).
-QUANT_DEC_X3_KINDS = ("int8_matmul", "int4_matmul_group")
-QUANT_DEC_X3 = tuple(n + common.DEC_X3 for n in QUANT_DEC_X3_KINDS)
+QUANT_DEC_X3 = tuple(n + common.DEC_X3 for n in QUANT)
 # Launch-count (and profiler) names, and the sources built from csrc/.
 KERNELS = (("flash_decode",) + TRAINING_KERNELS + tuple(QUANT) + QUANT_TC
            + QUANT_DEC + QUANT_X3 + QUANT_DEC_X3)
@@ -325,22 +325,27 @@ ATTN_CASES = [
 SERVING_LINEARS = ((1024, 1024), (1024, 4096), (4096, 1024), (1024, 32768))
 # Quantized matmuls, kernel vs plain on the same inputs, M rows of x each
 # (1 and 8 the decode forms, above 8 the prefill forms; bf16 the
-# tensor-core forms, fp32 the fp32 tensor-core decode form (int4 per
-# column: the CUDA-core one) and above 8 the fp32 tensor-core form): the
-# serving linears, a ragged K and N (K odd for int4 per column, where the
-# fp32 tensor-core form takes x by single values; grouped, K = 256 in
-# groups of 64), and groups of 64 at 1024 x 1024.  N 304 ends in a ragged
-# tile of the tensor-core decode forms; N 300, not a multiple of 16, takes
-# the CUDA-core decode form at M <= 8 in both dtypes.
+# tensor-core forms, fp32 the fp32 tensor-core decode form and above 8 the
+# fp32 tensor-core form): the serving linears, a ragged K and N (K odd for
+# int4 per column, where the fp32 tensor-core forms take x by single
+# values; grouped, K = 256 in groups of 64), and groups of 64 at 1024 x
+# 1024.  N 304 ends in a ragged tile of the tensor-core decode forms; N
+# 300, not a multiple of 16, takes the CUDA-core decode form at M <= 8 in
+# both dtypes, as does fp32 x past the fp32 decode form's 8 x 1024 code
+# rows (int8 K8320, int4 per column K16400, grouped K16640).
 QUANT_M = (1, 8, 9, 100, 256, 1024)
 QUANT_CASES = {
     "int8_matmul": [(K, N, None) for K, N in SERVING_LINEARS]
-    + [(255, 304, None), (255, 300, None)],
+    + [(255, 304, None), (255, 300, None), (8320, 1024, None)],
     "int4_matmul": [(K, N, None) for K, N in SERVING_LINEARS]
-    + [(255, 304, None), (255, 300, None)],
+    + [(255, 304, None), (255, 300, None), (16400, 1024, None)],
     "int4_matmul_group": [(K, N, 128) for K, N in SERVING_LINEARS]
-    + [(1024, 1024, 64), (256, 304, 64), (256, 300, 64)],
+    + [(1024, 1024, 64), (256, 304, 64), (256, 300, 64),
+       (16640, 1024, 128)],
 }
+# Code rows a call at M <= 8 takes the tensor-core decode forms up to
+# (quant._plan's cap: 8 blocks of x's slice), by x's dtype.
+QUANT_DEC_ROWS = {torch.bfloat16: 8 * 2048, torch.float32: 8 * 1024}
 # Each output x held to |x - ref| <= arms * rms(ref) + rtol * |ref|
 # (compare()).  fp32 with TF32 off: the same products summed in another
 # order (1e-5, 1e-5).  bf16: out may round to the neighbouring bf16 (rtol
@@ -349,18 +354,16 @@ QUANT_TOL = {torch.float32: (0.0, 1e-5, 1e-5),
              torch.bfloat16: (0.0, 1e-2, 2e-2)}
 # bf16 x: decode (M = 8) and prefills of 256 and 1024 tokens (a chunk of
 # prefill_chunk=256, the longest bucket) at each serving linear; fp32 x:
-# decode at each serving linear (the fp32 tensor-core decode form; int4 per
-# column the CUDA-core one) and the same two prefills at K1024 N4096 (the
-# fp32 tensor-core form).
+# decode at each serving linear (the fp32 tensor-core decode form) and the
+# same two prefills at K1024 N4096 (the fp32 tensor-core form).
 QUANT_TIMED = [(M, K, N, torch.bfloat16) for M in (8, 256, 1024)
                for K, N in SERVING_LINEARS] + [
                    (8, K, N, torch.float32) for K, N in SERVING_LINEARS] + [
                    (M, 1024, 4096, torch.float32) for M in (256, 1024)]
 # the kernels line's shapes: bf16 decode for the tensor-core decode form, a
 # 1024-token bf16 prefill for the tensor-core prefill form, fp32 decode for
-# the fp32 tensor-core decode form and int4 per column's CUDA-core form
-# (run by the fp32 end-to-end serving checks), a 1024-token fp32 prefill
-# for the fp32 tensor-core form
+# the fp32 tensor-core decode form (run by the fp32 end-to-end serving
+# checks), a 1024-token fp32 prefill for the fp32 tensor-core form
 QUANT_MAIN_SHAPE = (8, 1024, 4096, torch.bfloat16)
 QUANT_TC_SHAPE = (1024, 1024, 4096, torch.bfloat16)
 QUANT_FP32_DECODE_SHAPE = (8, 1024, 4096, torch.float32)
@@ -1237,7 +1240,7 @@ def fused_times(gen) -> dict:
     """Fused kernels' times at the reference MT shapes (LayerNorm forward R
     = 8192, H = 256; softmax [32, 8, 256, 256] causal), fp32 and bf16:
     kernel, plain and library, with the bound (the LayerNorm backward's in
-    ``ln_backward_times``).  Inputs rotate through enough copies that each
+    ``ln_times``).  Inputs rotate through enough copies that each
     call reads past the 50 MB L2."""
     F = torch.nn.functional
     R, H = REF_B * REF_L, REF["n_embd"]
@@ -1327,18 +1330,24 @@ def fused_times(gen) -> dict:
     return rows
 
 
-def ln_backward_times(gen, H) -> dict:
-    """The LayerNorm backward's times (the whole call: dx, dgamma, dbeta) at
-    R = 8192 rows of H, the rows of both training configs (H 256 the
-    reference MT width, 512 the production one, mode (e)'s), fp32 and bf16:
-    kernel, plain and library, with the bound.  Inputs rotate past the
-    L2."""
+def ln_times(gen, H, kernel="layernorm_bwd") -> dict:
+    """The LayerNorm backward's times (the whole call: dx, dgamma, dbeta),
+    or with ``kernel="layernorm_fwd"`` the forward's (y, mean, var), at R =
+    8192 rows of H, the rows of both training configs (H 256 the reference
+    MT width, 512 the production one, mode (e)'s), fp32 and bf16: kernel,
+    plain and library, with the bound.  Inputs rotate past the L2."""
     F = torch.nn.functional
     R = REF_B * REF_L
+    fwd = kernel == "layernorm_fwd"
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         it = torch.tensor([], dtype=dtype).element_size()
-        nbytes, flops = 3 * R * H * it + 3 * H * it + 2 * R * 4, 17 * R * H
+        # bytes each function must move and its fp32 operations: the
+        # forward reads x, gamma, beta and writes y, mean, var; the backward
+        # reads dy, x, gamma, mean, var and writes dx, dgamma, dbeta
+        nbytes, flops = ((2 * R * H * it + 2 * H * it + 2 * R * 4, 7 * R * H)
+                         if fwd else
+                         (3 * R * H * it + 3 * H * it + 2 * R * 4, 17 * R * H))
         n = max(2, math.ceil(2 * L2_BYTES / nbytes))
         g = (1 + 0.1 * torch.randn(H, generator=gen, device=DEV)).to(dtype)
         b = (0.1 * torch.randn(H, generator=gen, device=DEV)).to(dtype)
@@ -1355,18 +1364,22 @@ def ln_backward_times(gen, H) -> dict:
             tick[0] = (tick[0] + 1) % n
             return tick[0]
 
-        def ln_bwd(impl):
+        def ln_call(impl):
             i = nxt()
+            if fwd:
+                return layernorm_forward(xs[i], g, b, impl=impl)
             return layernorm_backward(dys[i], xs[i], g, *stats[i], impl=impl)
 
-        def ln_bwd_lib():
+        def ln_lib():
             i = nxt()
+            if fwd:
+                return F.layer_norm(xs[i], (H,), g, b, eps=1e-8)
             return torch.autograd.grad(lib_ys[i], leaves[i], dys[i],
                                        retain_graph=True)
 
-        ms = device_ms(lambda: ln_bwd("kernel"), iters=20)
-        plain_ms = device_ms(lambda: ln_bwd("plain"), iters=5)
-        library_ms = device_ms(ln_bwd_lib, iters=20)
+        ms = device_ms(lambda: ln_call("kernel"), iters=20)
+        plain_ms = device_ms(lambda: ln_call("plain"), iters=5)
+        library_ms = device_ms(ln_lib, iters=20)
         bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
                  "operations": flops / CUDA_CORE_FLOPS * 1e3}
         bound_by = max(bound, key=bound.get)
@@ -1375,9 +1388,10 @@ def ln_backward_times(gen, H) -> dict:
                "of_bound": bound[bound_by] / ms, "bytes": nbytes,
                "flops": flops, "hbm_GBps": nbytes / (ms * 1e-3) / 1e9,
                "copies": n}
-        log({"phase": "kernel_time", "kernel": "layernorm_bwd",
+        log({"phase": "kernel_time", "kernel": kernel,
              "dtype": str(dtype).split(".")[1], "shape": f"R{R} H{H}",
-             "library": "autograd of F.layer_norm (dx, dgamma, dbeta)",
+             "library": ("F.layer_norm(eps=1e-8)" if fwd else
+                         "autograd of F.layer_norm (dx, dgamma, dbeta)"),
              **row})
         rows[dtype] = row
         del xs, dys, stats, leaves, lib_ys
@@ -1445,19 +1459,18 @@ def quant_matmul(kind, x, q, impl):
     return quant.int4_matmul(x, *q, k_dim=x.shape[1], impl=impl)
 
 
-def quant_form(kind, M, N, dtype) -> str:
-    """The launch-count name a call of ``kind`` at M rows of ``dtype`` x
+def quant_form(kind, M, K, N, dtype) -> str:
+    """The launch-count name a call of ``kind`` at M rows of ``dtype`` x, K
     and N columns adds to (the plan's form; every group here is a multiple
-    of 16 and every K at most 4096): the tensor-core forms, but at M <= 8
-    only where 16 divides N and, for fp32 x, only for the kernels with the
-    fp32 decode form; the rest the CUDA-core forms."""
+    of 16): the tensor-core forms, but at M <= 8 only where 16 divides N
+    and the code rows (K, or int4's ceil(K / 2)) are within
+    ``QUANT_DEC_ROWS``; the rest the CUDA-core decode form."""
     if M > 8:
         return kind + (common.TC if dtype == torch.bfloat16 else common.X3)
-    if N % 16:
+    rows = K if kind == "int8_matmul" else (K + 1) // 2
+    if N % 16 or rows > QUANT_DEC_ROWS[dtype]:
         return kind
-    if dtype == torch.bfloat16:
-        return kind + common.DEC
-    return kind + common.DEC_X3 if kind in QUANT_DEC_X3_KINDS else kind
+    return kind + (common.DEC if dtype == torch.bfloat16 else common.DEC_X3)
 
 
 def trace(fn, calls: int) -> tuple[list, dict]:
@@ -1548,7 +1561,7 @@ def quant_cases(gen) -> dict:
                 errs, need, forms, ok = {}, {}, {}, True
                 for M in QUANT_M:
                     x = torch.randn(M, K, generator=gen, device=DEV).to(dtype)
-                    form = quant_form(kind, M, N, dtype)
+                    form = quant_form(kind, M, K, N, dtype)
                     before = common.launch_counts[form]
                     got = quant_matmul(kind, x, q, "kernel")
                     launched = common.launch_counts[form] - before
@@ -1618,7 +1631,7 @@ def quant_times(gen) -> dict:
             library_ms = rotating_ms(lambda d: x @ d, deqs, iters=20)
             nbytes = wbytes + item * (M * K + M * N)   # codes, scales, x, out
             flops = 2 * M * K * N
-            form = quant_form(kind, M, N, dtype)
+            form = quant_form(kind, M, K, N, dtype)
             peak = (BF16_FLOPS if dtype == torch.bfloat16 else FP32_X3_FLOPS
                     if form in QUANT_X3 + QUANT_DEC_X3 else FP32_FLOPS)
             bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
@@ -1627,8 +1640,7 @@ def quant_times(gen) -> dict:
             group = K // q[1].shape[0] if q[1].dim() == 2 else None
             plan = quant._plan(M, N, q[0].shape[0],
                                torch.cuda.get_device_properties(
-                                   0).multi_processor_count, dtype, group,
-                               kind in QUANT_DEC_X3_KINDS)
+                                   0).multi_processor_count, dtype, group)
             row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                    "bound_ms": bound[bound_by], "bound_by": bound_by,
                    "of_bound": bound[bound_by] / ms, "bytes": nbytes,
@@ -1659,7 +1671,7 @@ def quant_x3_vs_fp64(gen) -> dict:
     """The fp32 tensor-core forms of each kernel against the float64
     product of the same x and weights at each of ``QUANT_FP64_SHAPES``
     (the prefill form, ``_x3``, at 1024 rows; the decode form, ``_dec_x3``,
-    at 8, where the kernel has it), beside the plain fp32 version (cuBLAS's
+    at 8), beside the plain fp32 version (cuBLAS's
     fp32 GEMM with TF32 off, then the scales): the largest and the rms error
     of each; the form's largest must be at most ``X3_FP64_RATIO`` times the
     plain one's.  Returns the form's largest error by launch name."""
@@ -1668,9 +1680,10 @@ def quant_x3_vs_fp64(gen) -> dict:
         x = torch.randn(M, K, generator=gen, device=DEV)
         w = torch.randn(K, N, generator=gen, device=DEV)
         for kind in QUANT:
-            form = quant_form(kind, M, N, torch.float32)
-            if form not in QUANT_X3 + QUANT_DEC_X3:
-                continue
+            form = quant_form(kind, M, K, N, torch.float32)
+            check(form in QUANT_X3 + QUANT_DEC_X3,
+                  f"{kind} M{M} K{K} N{N}: {form} is no fp32 tensor-core "
+                  f"form")
             bits, group, _ = QUANT[kind]
             q = quantized(w, bits, group)
             codes = q[0] if bits == 8 else quant.unpack_int4(q[0], K)
@@ -2141,8 +2154,8 @@ def quantized_serving(model) -> dict[str, int]:
 def end_to_end(kind: str | None = None) -> dict[str, int]:
     """Serving end to end at full width, 2 layers, fp32 with TF32 off,
     with float weights or, with ``kind``, quantized for that matmul kernel
-    (fp32 x: decode steps in the fp32 tensor-core decode form, int4 per
-    column in the CUDA-core one, prefills in the fp32 tensor-core form):
+    (fp32 x: decode steps in the fp32 tensor-core decode form, prefills in
+    the fp32 tensor-core form):
     engine tokens against generate's and the
     uncached forward's, and one decode step's logits with the kernels
     against the plain path.  Returns the launches of the ``generate`` and
@@ -2187,10 +2200,9 @@ def end_to_end(kind: str | None = None) -> dict[str, int]:
     finally:
         quant._launch = launch
     served = dict(common.launch_counts)
-    # fp32 x at a decode step: the fp32 tensor-core decode form, or int4
-    # per column's CUDA-core form under the bare name
-    decode_form = quant_form(kind, 8, SERVING["n_embd"], torch.float32
-                             ) if kind else None
+    # fp32 x at a decode step: the fp32 tensor-core decode form
+    decode_form = quant_form(kind, 8, SERVING["n_embd"], SERVING["n_embd"],
+                             torch.float32) if kind else None
     if kind is not None:
         # every call of more than 8 rows (the prefills) in the fp32
         # tensor-core form, every other call in the decode form
@@ -2342,10 +2354,12 @@ def main() -> int:
     two_rows = two_pass_times(gen)
     fused_worst = fused_cases(gen)
     fused_rows = fused_times(gen)
-    ln_rows = {H: ln_backward_times(gen, H)
+    ln_rows = {H: ln_times(gen, H)
                for H in (REF["n_embd"], TRAIN["n_embd"])}
     fused_rows.update({("layernorm_bwd", dt): r
                        for dt, r in ln_rows[REF["n_embd"]].items()})
+    # the forward at mode (e)'s width (H 256's rows are fused_times')
+    ln_fwd_wide = ln_times(gen, TRAIN["n_embd"], "layernorm_fwd")
     fused_dispatch_times(gen)
     quant_worst = quant_cases(gen)
     x3_fp64 = quant_x3_vs_fp64(gen)
@@ -2364,8 +2378,7 @@ def main() -> int:
     end_to_end()
     for kind in QUANT:
         # fp32 weights' serving: decode steps in the fp32 tensor-core decode
-        # form (int4 per column: the CUDA-core one), prefills in the fp32
-        # tensor-core form
+        # form, prefills in the fp32 tensor-core form
         served = end_to_end(kind)
         for n in (kind, kind + common.X3, kind + common.DEC_X3):
             launches[n] = launches.get(n, 0) + served.get(n, 0)
@@ -2513,28 +2526,31 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "shape": ("R8192 H256 fp32" if n.startswith("layernorm")
                       else "B32 H8 Lq256 Lk256 causal fp32")})
-        if n in ("attn_softmax_fwd", "layernorm_bwd"):  # both dtypes
-            b = fused_rows[(n, torch.bfloat16)]
-            entries[-1]["bfloat16"] = {k: b[k] for k in timed}
-        if n == "layernorm_bwd":        # and the production width
+        # both dtypes, with the launches a step of the training modes that
+        # run each (bf16: (d), and (e) for the LayerNorm)
+        b = fused_rows[(n, torch.bfloat16)]
+        per_step = {**fused_sm, **fused_ln}[n]
+        entries[-1]["launches_a_step"] = {
+            "(c) fp32": per_step, "(d) bf16": per_step,
+            **({"(e) bf16": per_step} if n.startswith("layernorm") else {})}
+        entries[-1]["bfloat16"] = {k: b[k] for k in timed}
+        if n.startswith("layernorm"):   # and the production width, (e)'s
+            wide = (ln_fwd_wide if n == "layernorm_fwd"
+                    else ln_rows[TRAIN["n_embd"]])
             entries[-1]["R8192 H512"] = {
                 str(dt).split(".")[1]: {k: r[k] for k in timed}
-                for dt, r in ln_rows[TRAIN["n_embd"]].items()}
-    # fp32 decode: the fp32 tensor-core decode form where the kernel has
-    # it, else (int4 per column) the CUDA-core decode form, the only one on
-    # the main path
+                for dt, r in wide.items()}
+    # every form on the main path; the CUDA-core decode form is on none of
+    # its shapes (their N are multiples of 16, their code rows within the
+    # cap) and is held against plain in quant_cases only
     forms = ((common.DEC, QUANT_MAIN_SHAPE, "the tensor-core decode form"),
              (common.TC, QUANT_TC_SHAPE, "the tensor-core prefill form"),
-             ("", QUANT_FP32_DECODE_SHAPE, "the CUDA-core decode form"),
              (common.DEC_X3, QUANT_FP32_DECODE_SHAPE,
               "the fp32 tensor-core decode form"),
              (common.X3, QUANT_X3_SHAPE, "the fp32 tensor-core prefill form"))
     for n, (_, _, line) in QUANT.items():
         for suffix, shape, what in forms:
             form = n + suffix
-            fp32_decode = common.DEC_X3 if n in QUANT_DEC_X3_KINDS else ""
-            if suffix in ("", common.DEC_X3) and suffix != fp32_decode:
-                continue
             r = quant_rows[(n, shape)]
             entries.append({
                 "name": form, "route": "cuda",

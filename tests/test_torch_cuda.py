@@ -1066,9 +1066,9 @@ def test_fused_model_step_launches_the_fused_kernels(cuda_device):
 # CUDA-core decode kernel (the groups of 24 and 8 at M 1 and 8, and N 300);
 # fp32 x above M = 8 runs the fp32 tensor-core form (``_x3``) per column and
 # for groups that are a multiple of 16, the CUDA-core form for the rest; at
-# M <= 8 the fp32 tensor-core decode form (``_dec_x3``) for int8 and groups
-# that are a multiple of 16 where 16 divides N, the CUDA-core decode kernel
-# for the rest (int4 per column among them).
+# M <= 8 the fp32 tensor-core decode form (``_dec_x3``) per column and for
+# groups that are a multiple of 16 where 16 divides N, up to 8 x 1024 code
+# rows, the CUDA-core decode kernel for the rest.
 
 QUANT_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 2e-2)}
 QUANT_SHAPES = [(1, 255, 300), (8, 1024, 384), (37, 513, 200),
@@ -1094,20 +1094,20 @@ def quant_case(gen, dev, kind, M, K, N, g, dtype):
                                                impl=impl)
 
 
-def form_name(kind, M, N, g, dtype):
+def form_name(kind, M, K, N, g, dtype):
     """The launch count a call adds to: the tensor-core forms' (groups a
-    multiple of 16; at M <= 8 where 16 divides N too: bf16 x ``_dec``,
-    fp32 x ``_dec_x3`` for int8 and grouped int4; above M = 8 bf16 x
-    ``_tc``, fp32 x ``_x3``) or the CUDA-core forms'."""
+    multiple of 16; at M <= 8 where 16 divides N too and the code rows, K
+    or int4's ceil(K / 2), are at most 8 x 2048 for bf16 x (``_dec``) or
+    8 x 1024 for fp32 x (``_dec_x3``); above M = 8 bf16 x ``_tc``, fp32 x
+    ``_x3``) or the CUDA-core forms'."""
     if g is not None and g % 16:
         return kind
     if M > 8:
         return kind + (common.TC if dtype == torch.bfloat16 else common.X3)
-    if N % 16:
+    rows = K if kind == "int8_matmul" else (K + 1) // 2
+    if N % 16 or rows > 8 * (2048 if dtype == torch.bfloat16 else 1024):
         return kind
-    if dtype == torch.bfloat16:
-        return kind + common.DEC
-    return kind + common.DEC_X3 if kind != "int4_matmul" else kind
+    return kind + (common.DEC if dtype == torch.bfloat16 else common.DEC_X3)
 
 
 def check_quant_case(dev, dtype, kind, M, K, N, g):
@@ -1119,7 +1119,7 @@ def check_quant_case(dev, dtype, kind, M, K, N, g):
     got = call()
     launched = {n: c - before.get(n, 0) for n, c in
                 common.launch_counts.items() if c != before.get(n, 0)}
-    assert launched == {form_name(kind, M, N, g, dtype): 1}
+    assert launched == {form_name(kind, M, K, N, g, dtype): 1}
     want = call("plain")
     torch.cuda.synchronize()
     assert got.dtype == want.dtype == dtype and got.shape == (M, N)
@@ -1260,7 +1260,7 @@ def test_decode_form_matches_plain_and_repeats_its_bits(cuda_device, kind, M,
     got, again = call(), call()
     launched = {n: c - before.get(n, 0) for n, c in
                 common.launch_counts.items() if c != before.get(n, 0)}
-    assert launched == {form_name(kind, M, N, g, torch.bfloat16): 2}
+    assert launched == {form_name(kind, M, K, N, g, torch.bfloat16): 2}
     want = call("plain")
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 and got.shape == (M, N)
@@ -1292,28 +1292,28 @@ def test_decode_form_runs_one_kernel_a_call(cuda_device, kind, g):
     assert all("_dec_kernel" in e.key for e in kernels)
 
 
-# The fp32-x decode form (``_dec_x3``: int8 and int4 in groups that are a
-# multiple of 16): the same shapes as the bf16 decode form's, at fp32 x.
-DEC_X3_KINDS = (("int8_matmul", None), ("int4_matmul_group", 128))
-DEC_X3_CASES = [case for case in DECODE_CASES if case[0] != "int4_matmul"]
+# The fp32-x decode form (``_dec_x3``: int8, int4 per column and int4 in
+# groups that are a multiple of 16): the same shapes as the bf16 decode
+# form's, at fp32 x (K 255 odd for int4 per column: x by single values, its
+# column K read as 0).
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind,M,K,N,g", DEC_X3_CASES)
+@pytest.mark.parametrize("kind,M,K,N,g", DECODE_CASES)
 def test_fp32_decode_form_matches_plain_and_repeats_its_bits(cuda_device,
                                                              kind, M, K, N,
                                                              g):
     """Each fp32 call launches its decode form once (the tensor-core one
     counted under ``_dec_x3``, N 300 the CUDA-core one); two calls give the
-    same bits; the values agree with the plain version under the fp32
-    limits of QUANT_TOL."""
+    same bits (the cluster's partials are added in rank order); the values
+    agree with the plain version under the fp32 limits of QUANT_TOL."""
     gen = torch.Generator(cuda_device).manual_seed(15)
     call = quant_case(gen, cuda_device, kind, M, K, N, g, torch.float32)
     before = dict(common.launch_counts)
     got, again = call(), call()
     launched = {n: c - before.get(n, 0) for n, c in
                 common.launch_counts.items() if c != before.get(n, 0)}
-    assert launched == {form_name(kind, M, N, g, torch.float32): 2}
+    assert launched == {form_name(kind, M, K, N, g, torch.float32): 2}
     want = call("plain")
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and got.shape == (M, N)
@@ -1322,7 +1322,7 @@ def test_fp32_decode_form_matches_plain_and_repeats_its_bits(cuda_device,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind,g", DEC_X3_KINDS)
+@pytest.mark.parametrize("kind,g", DECODE_KINDS)
 @pytest.mark.parametrize("K,N", SERVING_LINEARS)
 def test_fp32_decode_form_runs_one_kernel_a_call(cuda_device, kind, g, K,
                                                  N):
@@ -1347,7 +1347,7 @@ def test_fp32_decode_form_runs_one_kernel_a_call(cuda_device, kind, g, K,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind,g", DEC_X3_KINDS)
+@pytest.mark.parametrize("kind,g", DECODE_KINDS)
 @pytest.mark.parametrize("M", [1, 8])
 def test_fp32_decode_form_error_against_float64(cuda_device, kind, g, M):
     """At K4096 N1024 the fp32 decode form's largest error against the
@@ -1377,30 +1377,59 @@ def test_fp32_decode_form_error_against_float64(cuda_device, kind, g, M):
 
 
 @pytest.mark.cuda
-def test_per_column_int4_refuses_the_fp32_decode_form(cuda_device,
-                                                      monkeypatch):
-    """int4 per column has no fp32 decode kernel, and bf16 x none of form
-    5: a plan for one raises and counts nothing (no fallback)."""
+def test_per_column_int4_takes_the_fp32_decode_form_and_bf16_x_is_refused(
+        cuda_device, monkeypatch):
+    """int4 per column at fp32 x and M 8 launches its fp32 decode kernel
+    once, counted under ``int4_matmul_dec_x3``, and agrees with the plain
+    version; bf16 x has no kernel of form 5: a plan for one raises and
+    counts nothing (no fallback)."""
     from tpu_flash_torch.kernels import quant
 
     x = torch.randn(8, 256, device=cuda_device)
     w = torch.randn(256, 64, device=cuda_device)
     packed, scales, _ = quant.quantize_weight_int4(w)
     codes, scales8 = quant.quantize_weight(w)
-    plan = quant._plan
-    monkeypatch.setattr(quant, "_plan", lambda M, N, rows, sms, dtype, group,
-                        dec_x3: plan(M, N, rows, sms, torch.float32, group,
-                                     True))
-    assert quant._plan(8, 64, 128, 132, torch.bfloat16, None,
-                       False).form == "decode_tc_x3"
     before = dict(common.launch_counts)
-    with pytest.raises(RuntimeError, match="int4_matmul_dec_x3 kernel failed"):
-        quant.int4_matmul(x, packed, scales, k_dim=256)
+    got = quant.int4_matmul(x, packed, scales, k_dim=256)
+    launched = {n: c - before.get(n, 0) for n, c in
+                common.launch_counts.items() if c != before.get(n, 0)}
+    assert launched == {"int4_matmul_dec_x3": 1}
+    assert_within(got, quant.int4_matmul(x, packed, scales, k_dim=256,
+                                         impl="plain"),
+                  *QUANT_TOL[torch.float32])
+    plan = quant._plan
+    monkeypatch.setattr(quant, "_plan", lambda M, N, rows, sms, dtype, group:
+                        plan(M, N, rows, sms, torch.float32, group))
+    assert quant._plan(8, 64, 256, 132, torch.bfloat16,
+                       None).form == "decode_tc_x3"
+    before = dict(common.launch_counts)
     with pytest.raises(RuntimeError,
                        match="int8_matmul_dec_x3 kernel failed"):
         quant.int8_matmul(x.to(torch.bfloat16), codes, scales8)
     torch.cuda.synchronize()
     assert dict(common.launch_counts) == before
+
+
+# Past the decode forms' cap of code rows (8 x 1024 for fp32 x: int8 at
+# K8320, int4 per column at K16400, 8,200 packed rows, grouped at K16640;
+# 8 x 2048 for bf16 x: int8 at K16400) a call at M <= 8 takes the CUDA-core
+# decode kernel (``_m8``) with its reduction, counted under the bare name.
+OVER_CAP_CASES = [("int8_matmul", 8320, None, torch.float32),
+                  ("int4_matmul", 16400, None, torch.float32),
+                  ("int4_matmul_group", 16640, 128, torch.float32),
+                  ("int8_matmul", 16400, None, torch.bfloat16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,K,g,dtype", OVER_CAP_CASES)
+@pytest.mark.parametrize("M", [1, 8])
+def test_decode_above_the_row_cap_takes_the_cuda_core_form(cuda_device,
+                                                           kind, K, g, dtype,
+                                                           M):
+    """Each such call launches the CUDA-core decode form once and agrees
+    with the plain version under QUANT_TOL."""
+    assert form_name(kind, M, K, 1024, g, dtype) == kind
+    check_quant_case(cuda_device, dtype, kind, M, K, 1024, g)
 
 
 @pytest.mark.cuda
@@ -1540,8 +1569,8 @@ def test_int4_entry_refuses_the_cuda_core_prefill_form(cuda_device,
 def test_quantized_decode_step_kernel_matches_plain(cuda_device, bits, g):
     """One decode step of a small fp32 quantized DecoderLM: the matmul
     kernel launches once a Linear (6 a layer and lm_head) in its fp32
-    decode form (``_dec_x3``, int4 per column the CUDA-core one) and the
-    logits agree with the plain path's."""
+    decode form (``_dec_x3``) and the logits agree with the plain
+    path's."""
     cfg = tnn.DecoderConfig(n_vocab=128, n_embd=64, n_head=4, n_positions=64,
                             n_layer=2, ff_middle_dim=128, p_dropout=0.0,
                             attention_kind="naive")
@@ -1550,8 +1579,8 @@ def test_quantized_decode_step_kernel_matches_plain(cuda_device, bits, g):
     tnn.quantize_model_linears(model, bits=bits, group_size=g,
                                allow_small_groups=True)
     kind = form_name("int8_matmul" if bits == 8 else
-                     "int4_matmul_group" if g else "int4_matmul", 3, 64, g,
-                     torch.float32)
+                     "int4_matmul_group" if g else "int4_matmul", 3, 64, 64,
+                     g, torch.float32)
     ids = torch.randint(0, 128, (3, 20), device=cuda_device,
                         generator=torch.Generator(cuda_device).manual_seed(3))
     logits = {}

@@ -1,16 +1,14 @@
 """The quantized matmuls' launch plan (``kernels/quant.py`` ``_plan``), a
-pure function of the shape, the dtype, the group, the kernel and the card's
-count of streaming multiprocessors, so it runs here without a card: which
-form each shape takes (where the tensor cores' k depth of 16 divides the
-group, bf16 x takes ``decode_tc`` at M <= 8 and the tensor-core form above,
-fp32 x ``decode_tc_x3`` at M <= 8 for the kernels that have it, int8 and
-grouped int4, and ``tensor_core_x3`` above for every kernel; otherwise the
-CUDA-core forms, ``decode`` at M <= 8), its tile, its splits of the code
-rows, its ring, and that every decode and prefill shape of the 176M serving
-model fills an H100's 132 multiprocessors.  ``_launch`` runs here too with
-its C entry replaced by a recorder, to show what a decode call and an fp32
-prefill call hand the kernel.  ``_plan``'s ``dec_x3`` flag is False unless
-given: a kernel without the fp32 decode form, as int4 per column."""
+pure function of the shape, the dtype, the group and the card's count of
+streaming multiprocessors, so it runs here without a card: which form each
+shape takes (where the tensor cores' k depth of 16 divides the group, bf16
+x takes ``decode_tc`` at M <= 8 and the tensor-core form above, fp32 x
+``decode_tc_x3`` at M <= 8 and ``tensor_core_x3`` above, in every kernel;
+otherwise the CUDA-core forms, ``decode`` at M <= 8), its tile, its splits
+of the code rows, its ring, and that every decode and prefill shape of the
+176M serving model fills an H100's 132 multiprocessors.  ``_launch`` runs
+here too with its C entry replaced by a recorder, to show what a decode
+call and an fp32 prefill call hand the kernel."""
 
 import pathlib
 import re
@@ -39,7 +37,7 @@ CSRC = pathlib.Path(quant.__file__).parent / "csrc"
 @pytest.mark.parametrize("M,dtype,group,form", [
     (1, BF16, None, "decode_tc"),
     (8, BF16, 128, "decode_tc"),
-    (8, FP32, None, "decode"),          # a kernel without decode_tc_x3
+    (8, FP32, None, "decode_tc_x3"),
     (9, BF16, None, "tensor_core"),
     (9, FP32, None, "tensor_core_x3"),
     (9, FP32, 8, "cuda_core"),
@@ -73,6 +71,28 @@ def test_the_kernels_with_the_fp32_x_form():
     assert "int4_matmul_group_kernel_m64," in src[quant.KERNEL_INT4]
 
 
+@pytest.mark.parametrize("name,source", [
+    (quant.KERNEL_INT8, quant.KERNEL_INT8),
+    (quant.KERNEL_INT4, quant.KERNEL_INT4),
+    (quant.KERNEL_INT4_GROUP, quant.KERNEL_INT4)])
+def test_every_kernel_has_the_fp32_decode_form(name, source):
+    """Every kernel fills its fp32-x decode slots (form 5, which ``_plan``
+    gives every fp32 call at M <= 8 that 16 divides the group and N of)
+    with the ``_dec_x3`` body at each tile width, and the launcher keeps no
+    refusal of an empty slot."""
+    src = (CSRC / f"{source}.cu").read_text()
+    body = {quant.KERNEL_INT8: "kInt8", quant.KERNEL_INT4: "kInt4",
+            quant.KERNEL_INT4_GROUP: "kInt4Group"}[name]
+    assert re.search(rf"{name}_dec_x3_kernel\(const __grid_constant__ "
+                     rf"QDecParams d\) {{\s*quant_matmul_dec_body<{body}, "
+                     rf"BN, true>\(d\);", src)
+    assert re.search(r"\{\s*" + r",\s*".join(
+        f"{name}_dec_x3_kernel<{bn}>" for bn in (32, 64, 128)) + r"\s*\}",
+        src)
+    assert "{nullptr, nullptr, nullptr}" not in src
+    assert "if (!k)" not in (CSRC / "quant_matmul.cuh").read_text()
+
+
 @pytest.mark.parametrize("M,kind,group,form", [
     (9, "int8", None, "tensor_core_x3"),
     (1024, "int8", None, "tensor_core_x3"),
@@ -85,20 +105,19 @@ def test_the_kernels_with_the_fp32_x_form():
     (100, "int4_g128", 24, "cuda_core"),
     (8, "int8", None, "decode_tc_x3"),
     (1, "int4_g128", 128, "decode_tc_x3"),
-    (8, "int4", None, "decode"),
+    (8, "int4", None, "decode_tc_x3"),
+    (1, "int4", None, "decode_tc_x3"),
     (1, "int4_g128", 8, "decode"),
 ])
 def test_fp32_x_takes_the_x3_form_where_the_kernel_has_it(M, kind, group,
                                                           form):
     """fp32 x above M = 8 takes the fp32 tensor-core form for int8, int4
     per column and int4 in groups that are a multiple of 16; other groups
-    keep the CUDA-core forms.  At M <= 8 int8 and int4 in groups that are a
-    multiple of 16 take the fp32 tensor-core decode form, int4 per column
-    and other groups the CUDA-core one.  bf16 x never takes either."""
-    dec_x3 = kind != "int4"
-    assert quant._plan(M, 1024, 512, SMS, FP32, group,
-                       dec_x3).form == form
-    assert quant._plan(M, 1024, 512, SMS, BF16, group, dec_x3).form not in (
+    keep the CUDA-core forms.  At M <= 8 the same kernels take the fp32
+    tensor-core decode form, other groups the CUDA-core one.  bf16 x never
+    takes either."""
+    assert quant._plan(M, 1024, 512, SMS, FP32, group).form == form
+    assert quant._plan(M, 1024, 512, SMS, BF16, group).form not in (
         "tensor_core_x3", "decode_tc_x3")
 
 
@@ -108,29 +127,26 @@ def test_fp32_x_takes_the_x3_form_where_the_kernel_has_it(M, kind, group,
         (BF16, "int8", None, "decode_tc"), (BF16, "int4", None, "decode_tc"),
         (BF16, "int4_g", 128, "decode_tc"), (BF16, "int4_g", 64, "decode_tc"),
         (BF16, "int4_g", 8, "decode"), (BF16, "int4_g", 24, "decode"),
-        (FP32, "int8", None, "decode_tc_x3"), (FP32, "int4", None, "decode"),
+        (FP32, "int8", None, "decode_tc_x3"),
+        (FP32, "int4", None, "decode_tc_x3"),
         (FP32, "int4_g", 128, "decode_tc_x3"),
         (FP32, "int4_g", 16, "decode_tc_x3"),
         (FP32, "int4_g", 8, "decode"), (FP32, "int4_g", 24, "decode"))])
 def test_the_decode_form_follows_dtype_and_group(M, dtype, kind, group,
                                                  form):
     """bf16 x takes the tensor-core decode form where 16 divides the group
-    and N, in every kernel; fp32 x the fp32 tensor-core decode form there
-    in int8 and grouped int4 (``dec_x3``, as their wrappers pass it), int4
-    per column keeping the CUDA-core decode kernel; other groups keep the
-    CUDA-core decode kernels, as do N not a multiple of 16 (the codes'
-    tensor map needs 16-byte rows) and more code rows than 8 blocks' slices
-    of x hold (8 x 2048 bf16, 8 x 1024 fp32: its three planes)."""
-    dec_x3 = kind != "int4"
+    and N, in every kernel; fp32 x the fp32 tensor-core decode form there,
+    in every kernel too; other groups keep the CUDA-core decode kernels, as
+    do N not a multiple of 16 (the codes' tensor map needs 16-byte rows)
+    and more code rows than 8 blocks' slices of x hold (8 x 2048 bf16, 8 x
+    1024 fp32: its three planes)."""
     cap = 2048 if dtype == BF16 else 1024
     for N, rows in ((1024, 512), (32768, 1024), (304, 128), (4096, 8 * cap)):
-        assert quant._plan(M, N, rows, SMS, dtype, group,
-                           dec_x3).form == form
+        assert quant._plan(M, N, rows, SMS, dtype, group).form == form
     for N in (300, 1000, 4097):
-        assert quant._plan(M, N, 128, SMS, dtype, group,
-                           dec_x3).form == "decode"
-    assert quant._plan(M, 4096, 8 * cap + 1, SMS, dtype, group,
-                       dec_x3).form == "decode"
+        assert quant._plan(M, N, 128, SMS, dtype, group).form == "decode"
+    assert quant._plan(M, 4096, 8 * cap + 1, SMS, dtype,
+                       group).form == "decode"
 
 
 @pytest.mark.parametrize("M,N,rows,dtype,group,want", [
@@ -152,9 +168,23 @@ def test_the_decode_form_follows_dtype_and_group(M, dtype, kind, group,
     (8, 32768, 512, FP32, 128, ("decode_tc_x3", 8, 128, 1, 512, 256, 2, 32)),
     (8, 4096, 4096, FP32, None,
      ("decode_tc_x3", 8, 64, 4, 1024, 256, 2, 64)),
+    # int4 per column, fp32 x at each serving linear (K / 2 packed rows)
+    (8, 1024, 512, FP32, None, ("decode_tc_x3", 8, 32, 8, 64, 256, 1, 16)),
+    (8, 4096, 512, FP32, None, ("decode_tc_x3", 8, 64, 4, 128, 256, 1, 32)),
+    (8, 1024, 2048, FP32, None,
+     ("decode_tc_x3", 8, 32, 8, 256, 256, 1, 64)),
+    (8, 32768, 512, FP32, None,
+     ("decode_tc_x3", 8, 128, 1, 512, 256, 2, 32)),
+    # 8 x 1024 code rows, the fp32 cap, and past it (int4 per column at
+    # K16384 and K16400; int8 at K8320), where the CUDA-core decode form
+    # takes over with its workspace
+    (8, 1024, 8192, FP32, None,
+     ("decode_tc_x3", 8, 32, 8, 1024, 256, 2, 128)),
+    (8, 1024, 8200, FP32, None, ("decode", 8, 128, 33, 256, 264, 0, 0)),
+    (8, 1024, 8320, FP32, None, ("decode", 8, 128, 33, 256, 264, 0, 0)),
 ])
 def test_tiles_and_splits(M, N, rows, dtype, group, want):
-    assert tuple(quant._plan(M, N, rows, SMS, dtype, group, True)) == want
+    assert tuple(quant._plan(M, N, rows, SMS, dtype, group)) == want
 
 
 @pytest.mark.parametrize("M,N,rows,group,want", [
@@ -190,11 +220,14 @@ def test_the_cuda_core_forms_keep_their_plan(M, dtype, group):
     """As the plan stood before the tensor-core forms, for the shapes that
     keep the CUDA-core forms: fp32 x above M = 8 only in groups that are
     not a multiple of 16 (every kernel takes the fp32 tensor-core form for
-    the rest), and at M <= 8 in a kernel without the fp32 decode form (the
-    default of ``_plan``'s flag: int4 per column)."""
-    kinds = ("int8", "int4")
-    for K, N in SERVING_LINEARS + ((255, 300), (96, 130)):
-        for kind in kinds:
+    the rest), and per column at M <= 8 only at N not a multiple of 16 and
+    above the fp32 decode form's 8 x 1024 code rows (K16400: 16400 rows of
+    int8, 8200 of int4)."""
+    shapes = SERVING_LINEARS + ((255, 300), (96, 130))
+    if group is None:
+        shapes = ((255, 300), (96, 130), (16400, 1024), (16400, 4096))
+    for K, N in shapes:
+        for kind in ("int8", "int4"):
             rows, _ = weights(kind, K)
             plan = quant._plan(M, N, rows, SMS, dtype, group)
             assert plan.form in ("decode", "cuda_core")
@@ -293,9 +326,7 @@ def test_a_decode_call_hands_the_kernel_its_plan_and_no_workspace(
     """One bf16 decode call at K1024 N4096: one launch of form 3 with the
     plan's tile, range, cluster and ring, no workspace pointer, counted
     under the kernel's name + ``_dec``; fp32 x takes form 5, the same plan
-    and no workspace, counted with ``_dec_x3``, where the kernel has the
-    fp32 decode form, and int4 per column keeps form 0 and its
-    workspace."""
+    and no workspace, counted with ``_dec_x3``, in every kernel."""
     bf16, name, rows, groups, group, launched = decode_call(monkeypatch,
                                                             kind, BF16)
     plan = quant._plan(8, 4096, rows, SMS, BF16, group)
@@ -304,17 +335,13 @@ def test_a_decode_call_hands_the_kernel_its_plan_and_no_workspace(
                         plan.splits, plan.stage_rows, plan.stages, 1)
     assert launched == {name + "_dec": 1}
     fp32, *_, launched = decode_call(monkeypatch, kind, FP32)
-    if kind == "int4":
-        assert fp32[4] is not None and fp32[8 + len(groups)] == 0
-        assert launched == {name: 1}
-    else:
-        assert fp32[4] is None
-        assert fp32[5:] == (8, 4096, 1024, *groups, 5, *bf16[9 + len(groups):
-                                                              -1], 0)
-        assert launched == {name + "_dec_x3": 1}
+    assert fp32[4] is None
+    assert fp32[5:] == (8, 4096, 1024, *groups, 5, *bf16[9 + len(groups):
+                                                          -1], 0)
+    assert launched == {name + "_dec_x3": 1}
 
 
-@pytest.mark.parametrize("kind", ["int8", "int4_g128"])
+@pytest.mark.parametrize("kind", ["int8", "int4", "int4_g128"])
 @pytest.mark.parametrize("K,N", SERVING_LINEARS)
 def test_an_fp32_decode_call_hands_the_kernel_its_plan_and_no_workspace(
         monkeypatch, kind, K, N):
@@ -324,7 +351,7 @@ def test_an_fp32_decode_call_hands_the_kernel_its_plan_and_no_workspace(
     kernel's name + ``_dec_x3`` and under no other name."""
     args, name, rows, extra, group, launched = decode_call(
         monkeypatch, kind, FP32, K, N, seed=K + N)
-    plan = quant._plan(8, N, rows, SMS, FP32, group, True)
+    plan = quant._plan(8, N, rows, SMS, FP32, group)
     assert plan.form == "decode_tc_x3"
     assert all(args[:4]) and args[4] is None
     assert args[5:] == (8, N, K, *extra, 5, plan.bn, plan.chunk, plan.splits,
@@ -335,17 +362,13 @@ def test_an_fp32_decode_call_hands_the_kernel_its_plan_and_no_workspace(
 @pytest.mark.parametrize("kind", ["int8", "int4", "int4_g128"])
 @pytest.mark.parametrize("K,N", SERVING_LINEARS)
 def test_every_serving_fp32_decode_plan_fills_the_card(K, N, kind):
-    """fp32 x at M <= 8 on each serving linear: int8 and int4 in groups of
-    128 take the fp32 tensor-core decode form in one launch, with the bf16
-    form's tile, cluster and ring (the fp32 form's cap of 1024 code rows a
-    block splits none of them further); int4 per column keeps the CUDA-core
-    decode form and its workspace."""
+    """fp32 x at M <= 8 on each serving linear: int8, int4 per column and
+    int4 in groups of 128 take the fp32 tensor-core decode form in one
+    launch, with the bf16 form's tile, cluster and ring (the fp32 form's
+    cap of 1024 code rows a block splits none of them further)."""
     rows, group = weights(kind, K)
-    plan = quant._plan(8, N, rows, SMS, FP32, group, kind != "int4")
-    if kind == "int4":
-        assert plan.form == "decode" and plan.splits > 1
-        return
-    assert plan == quant._plan(1, N, rows, SMS, FP32, group, True)
+    plan = quant._plan(8, N, rows, SMS, FP32, group)
+    assert plan == quant._plan(1, N, rows, SMS, FP32, group)
     assert plan == quant._plan(8, N, rows, SMS, BF16, group)._replace(
         form="decode_tc_x3")
     assert plan.blocks >= SMS and plan.chunk <= 1024
@@ -362,8 +385,7 @@ def test_splits_cover_the_rows_in_whole_slabs(dtype, group, sms):
     for M in (1, 8, 9, 64, 129, 1024):
         for N in (5, 64, 300, 4096):
             for rows in (1, 31, 96, 255, 512, 2048):
-                plan = quant._plan(M, N, rows, sms, dtype, group,
-                                   dtype == FP32)
+                plan = quant._plan(M, N, rows, sms, dtype, group)
                 assert plan.chunk % slab[plan.form] == 0
                 assert (plan.splits - 1) * plan.chunk < rows
                 assert plan.splits * plan.chunk >= rows

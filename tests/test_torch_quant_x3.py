@@ -4,7 +4,8 @@ exactly.  The prefill form (``int8_matmul_x3`` / ``int4_matmul_x3`` /
 ``int4_matmul_group_x3``): ``matmul_x3`` (each step of code rows' three
 products, lo, mid and hi, summed apart and added in row order; per-column
 scales after the sum, group scales on each group's sum).  The decode form
-(``int8_matmul_dec_x3`` / ``int4_matmul_group_dec_x3``): ``matmul_dec_x3``
+(``int8_matmul_dec_x3`` / ``int4_matmul_dec_x3`` /
+``int4_matmul_group_dec_x3``): ``matmul_dec_x3``
 (``_plan``'s ranges of code rows, each warp's quarter of a range in 16-row
 steps of three products, the warps' sums and then the ranges' added in
 order).  Both agree with the JAX package's ``int8_matmul`` and
@@ -168,15 +169,17 @@ def test_groups_are_scaled_before_they_are_summed():
 def matmul_dec_x3(x, codes, scales, plan, *, k2=None):
     """The ``_dec_x3`` kernels' arithmetic in plain PyTorch, at M <= 8:
     fp32 ``x`` [M, K] split by ``split3_bf16``; the integer ``codes``
-    [K, N] (int8 codes, or grouped int4 codes unpacked); ``plan``, the
+    [K, N] (int8 codes, or int4 codes unpacked); ``plan``, the
     ``decode_tc_x3`` plan of ``_plan``: ``plan.splits`` ranges of
     ``plan.chunk`` code rows (the blocks of a cluster), each split into 4
     warps' quarters.  A warp walks its rows in 16-row steps, each meeting
     the three planes, lo, mid, hi, in a fresh sum added to the warp's
-    (``mma_x3_b``); grouped int4 (``k2``: the packed rows K/2) meets x's
+    (``mma_x3_b``); int4 (``k2``: the packed rows ceil(K/2)) meets x's
     first half with the low codes and its second with the high ones in
-    each step, keeps each half's group sum apart and scales it into the
-    warp's sum at the group's last step or the warp's.  The 4 warps' sums
+    each step (per column both into the warp's sum, x's column K of an odd
+    K absent, as the zero it reads on the card); grouped, each half's
+    group sum is kept apart and scaled into the warp's sum at the group's
+    last step or the warp's.  The 4 warps' sums
     are added in warp order, then the ranges' in range order; per-column
     scales after the sum.  Returns fp32 [M, N]."""
     planes = [t.float() for t in split3_bf16(x)][::-1]    # lo, mid, hi
@@ -216,7 +219,7 @@ def matmul_dec_x3(x, codes, scales, plan, *, k2=None):
 
 
 def dec_plan(M, N, rows, group, sms):
-    plan = tq._plan(M, N, rows, sms, torch.float32, group, True)
+    plan = tq._plan(M, N, rows, sms, torch.float32, group)
     assert plan.form == "decode_tc_x3"
     return plan
 
@@ -243,6 +246,33 @@ def test_the_decode_form_matches_jax_int8_matmul(M, K, N, sms):
     assert excess(got, want) <= 0
     assert excess(got, exact) <= 0
     assert excess(hi_only(tx, tc, ts), exact) > 0
+
+
+@pytest.mark.parametrize("M", [1, 8])
+@pytest.mark.parametrize("K,N,sms", [(255, 48, 132), (512, 80, 1),
+                                     (4096, 32, 1), (8192, 32, 1),
+                                     (1024, 64, 132)])
+def test_the_decode_form_matches_jax_int4_matmul(M, K, N, sms):
+    """Per-column int4 at M 1 and 8: K 255 is odd (128 packed rows, x's
+    column 255 absent against the last packed row's high nibble, the zero
+    code), N 48 ragged against the tile, on 132 SMs' plan (2 ranges of 64
+    rows, a step a warp); 1 SM: one range of 256 rows (K512, N 80 ragged),
+    two of 1024 (K4096) and four of 1024 (K8192), 16 steps a warp; K1024
+    on 132 SMs, 8 ranges of 64 rows."""
+    x, w = inputs(M, K, N, 3 * M + K)
+    packed, scales, k = jq.quantize_weight_int4(jnp.asarray(w))
+    want = np.asarray(jq.int4_matmul(jnp.asarray(x), packed, scales,
+                                     k_dim=k, interpret=True))
+    tp = torch.from_numpy(np.array(packed))
+    codes = tq.unpack_int4(tp, K)
+    ts, tx = torch.from_numpy(np.array(scales)), torch.from_numpy(x)
+    plan = dec_plan(M, N, tp.shape[0], None, sms)
+    got = matmul_dec_x3(tx, codes, ts, plan, k2=tp.shape[0])
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    exact = x.astype(np.float64) @ tq.dequantize(codes, ts, K).double().numpy()
+    assert excess(got, want) <= 0
+    assert excess(got, exact) <= 0
+    assert excess(hi_only(tx, codes, ts), exact) > 0
 
 
 @pytest.mark.parametrize("M", [1, 8])

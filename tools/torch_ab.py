@@ -13,10 +13,11 @@ each serving linear and at fp32 prefills of 16, 64, 128, 256 and 1024
 tokens at K1024 N4096, weights rotating past the 50 MB L2, with the same
 check, beside cuBLAS's fp32 ``x @ W`` against the weight dequantized once
 at each fp32 shape (the same for every tree: a yardstick, never called by
-the port); the fused LayerNorm forward at R8192 H256 and
-backward at R8192 H256 (fp32 and bf16) and H512 (the production width,
-fp32 and bf16), the masked softmax forward (fp32 and bf16) and backward
-(fp32) at B32 H8 L256 causal (the reference MT shapes), and flash decode at
+the port); the fused LayerNorm forward at R8192 H256 (fp32 and bf16) and
+H512 (bf16, mode (e)'s) and backward at R8192 H256 (fp32 and bf16) and H512
+(the production width, fp32 and bf16), the masked softmax forward and
+backward (fp32 and bf16, the dtypes modes (c) and (d) give them) at B32 H8
+L256 causal (the reference MT shapes), and flash decode at
 B8 H16 d64 over int8 and bf16 caches of 8192 positions at lengths 1024 and
 8192, inputs rotating past the L2, with the same check (each call of the
 LayerNorm backward timed whole: dx, dgamma and dbeta); the kernels' summed
@@ -24,8 +25,9 @@ device time of one decode step of the 176M serving model (8 layers, bf16
 weights, 8 sequences of ~1024 tokens, int8 and bf16 caches of 8192
 positions), all of them and flash decode's (the profiler's sum, ``clock``
 ``kernels``: a decode step's host is slower than the card), and the same
-of one fp32 decode step of that model at 2 layers with int8 and with
-grouped int4 weights (``chip_smoke.py``'s ``end_to_end``: 13 quantized
+of one fp32 decode step of that model at 2 layers with int8, per-column
+int4 and grouped int4 weights (``chip_smoke.py``'s ``end_to_end``: 13
+quantized
 Linears a step), all kernels and the quantized matmuls' (their reduction
 kernel included); and the host's time to issue one quantized Linear call
 (``int8_linear`` / ``int4_linear`` under ``torch.no_grad``, as serving
@@ -244,6 +246,13 @@ def other_rows(torch, timer) -> list[dict]:
     k16, v16 = (randn(B, S, Hq * d).to(torch.bfloat16) for _ in range(2))
     q = randn(B, Hq, 1, d).to(torch.bfloat16)
 
+    def ln_fwd(dname, H):
+        """(name, dtype, shape, operands, call) of the forward at R x H."""
+        dt = getattr(torch, dname)
+        g, b = (1 + 0.1 * randn(H)).to(dt), (0.1 * randn(H)).to(dt)
+        return ("layernorm fwd", dname, f"R{R} H{H}", (randn(R, H).to(dt),),
+                lambda x: layernorm_forward(x, g, b))
+
     def ln_bwd(dname, H):
         """(name, dtype, shape, operands, call) of the backward at R x H."""
         dt = getattr(torch, dname)
@@ -280,7 +289,11 @@ def other_rows(torch, timer) -> list[dict]:
         decode("int8", 1024),
         ln_bwd("bfloat16", 256), ln_bwd("float32", 512),
         ln_bwd("bfloat16", 512),
-        decode("bf16", 1024), decode("int8", 8192), decode("bf16", 8192))
+        decode("bf16", 1024), decode("int8", 8192), decode("bf16", 8192),
+        ln_fwd("bfloat16", 256), ln_fwd("bfloat16", 512),
+        ("softmax bwd", "bfloat16", "B32 H8 L256 causal",
+         (attn_softmax_forward(s16, mask_future=True),
+          dp.to(torch.bfloat16)), attn_softmax_backward))
     rows = []
     for what, dname, shape, args, fn in cases:
         first, second = fn(*args), fn(*args)
@@ -375,11 +388,11 @@ def decode_step_rows(torch) -> list[dict]:
 def fp32_decode_step_rows(torch) -> list[dict]:
     """The kernels' summed device time of one decode step of the 176M
     serving model at 2 layers in fp32 (``chip_smoke.py``'s ``end_to_end``:
-    weights from a seed, TF32 off) with its Linears quantized to int8 and
-    to int4 in groups of 128, 8 sequences of 1024 prompt tokens in fp32
-    caches of 2048 positions: all kernels and the quantized matmuls' (the
-    names holding ``_matmul``: each form's kernel and the CUDA-core form's
-    reduction kernel)."""
+    weights from a seed, TF32 off) with its Linears quantized to int8, to
+    int4 per column and to int4 in groups of 128, 8 sequences of 1024
+    prompt tokens in fp32 caches of 2048 positions: all kernels and the
+    quantized matmuls' (the names holding ``_matmul``: each form's kernel
+    and the CUDA-core form's reduction kernel)."""
     from tpu_flash_torch.inference.sampler import prefill_prompt
     from tpu_flash_torch.nn import (DecoderConfig, DecoderLM, init_params,
                                     quantize_model_linears)
@@ -393,7 +406,8 @@ def fp32_decode_step_rows(torch) -> list[dict]:
     prompt = torch.randint(0, cfg.n_vocab, (B, L), generator=gen,
                            device="cuda")
     rows = []
-    for kind, bits, group in (("int8", 8, None), ("int4_g128", 4, 128)):
+    for kind, bits, group in (("int8", 8, None), ("int4", 4, None),
+                              ("int4_g128", 4, 128)):
         model = DecoderLM(cfg, device="cuda")
         init_params(model, torch.Generator("cuda").manual_seed(1))
         quantize_model_linears(model, bits=bits, group_size=group)

@@ -32,16 +32,19 @@
 // code product three bf16 products on the tensor cores (2 M K N / 329.7
 // TFLOP/s at best); per column an odd K takes x by single values, its
 // column K read as 0 against the last packed row's high nibble.  fp32 x at
-// M <= 8 in groups that are a multiple of 16 (N a multiple of 16, up to 8 x
-// 1024 packed rows) runs int4_matmul_group_dec_x3_kernel: the bf16 decode
-// form's launch, the block's slice of x split into three bf16 planes in
-// shared memory, each code product three bf16 products.  fp32 x at M <= 8
-// per column, or at other N or more rows, runs fp32 FMAs on the CUDA cores
-// (_m8, a second kernel summing its splits), as do groups the tensor-core
-// forms do not take (_m8, and _m64 above M = 8): grouped, each thread keeps
-// the low and the high group's partial sums beside its total (~170
-// registers, one block a multiprocessor).  Per column the tensor-core forms
-// take every M > 8, so there is no per-column CUDA-core prefill kernel.
+// M <= 8, per column or in groups that are a multiple of 16 (N a multiple
+// of 16, up to 8 x 1024 packed rows), runs int4_matmul_dec_x3_kernel /
+// int4_matmul_group_dec_x3_kernel: the bf16 decode form's launch, the
+// block's slice of x, both halves, split into three bf16 planes in shared
+// memory, each code product three bf16 products, the per-column scales
+// applied to the fp32 sum in the epilogue; per column an odd K takes x by
+// single values, its column K read as 0.  fp32 x at M <= 8 with other N or
+// more rows runs fp32 FMAs on the CUDA cores (_m8, a second kernel summing
+// its splits), as do groups the tensor-core forms do not take (_m8, and
+// _m64 above M = 8): grouped, each thread keeps the low and the high
+// group's partial sums beside its total (~170 registers, one block a
+// multiprocessor).  Per column the tensor-core forms take every M > 8, so
+// there is no per-column CUDA-core prefill kernel.
 //
 // C entry: tf_int4_matmul(...) launches on the given stream, allocates
 // nothing and returns cudaGetLastError() (or cudaErrorInvalidValue for
@@ -94,6 +97,12 @@ int4_matmul_dec_kernel(const __grid_constant__ QDecParams d) {
 
 template <int BN>
 __global__ void __launch_bounds__(kDecThreads)
+int4_matmul_dec_x3_kernel(const __grid_constant__ QDecParams d) {
+  quant_matmul_dec_body<kInt4, BN, true>(d);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kDecThreads)
 int4_matmul_group_dec_kernel(const __grid_constant__ QDecParams d) {
   quant_matmul_dec_body<kInt4Group, BN, false>(d);
 }
@@ -110,8 +119,8 @@ extern "C" {
 
 // groups: 0 for per-column scales [N], else G for scales [G, N] (G even
 // and dividing K; the tensor-core forms 2 to 5 need K / G a multiple of
-// 16; form 1, the CUDA-core prefill form, and form 5, the fp32-x decode
-// form, are there for group scales only).  The other arguments as
+// 16; form 1, the CUDA-core prefill form, is there for group scales
+// only).  The other arguments as
 // tf_int8_matmul's, with the packed rows K2 = ceil(K / 2) split into ranges
 // of `chunk`.
 int tf_int4_matmul(const void* x, const void* packed, const float* scales,
@@ -145,7 +154,8 @@ int tf_int4_matmul(const void* x, const void* packed, const float* scales,
        int4_matmul_x3_kernel,
        {int4_matmul_dec_kernel<32>, int4_matmul_dec_kernel<64>,
         int4_matmul_dec_kernel<128>},
-       {nullptr, nullptr, nullptr}},
+       {int4_matmul_dec_x3_kernel<32>, int4_matmul_dec_x3_kernel<64>,
+        int4_matmul_dec_x3_kernel<128>}},
       p, true, form, bn, splits, stage_rows, stages, true, s);
 }
 

@@ -24,18 +24,19 @@
 // of its own:
 //   * decode on the tensor cores (bf16 x, M <= 8, groups and N a multiple
 //     of 16): quant_matmul_dec_body below, one launch a call, no workspace;
-//   * decode on the tensor cores for fp32 x (M <= 8; int8, and int4 in
-//     groups that are a multiple of 16; N a multiple of 16): the same body,
-//     x's slice split into three bf16 planes, three products a product;
+//   * decode on the tensor cores for fp32 x (M <= 8; int8, int4 per
+//     column, and int4 in groups that are a multiple of 16; N a multiple
+//     of 16): the same body, x's slice split into three bf16 planes, three
+//     products a product;
 //   * prefill on the tensor cores (bf16 x, M > 8, groups a multiple of
 //     16): quant_matmul_tc_body below;
 //   * prefill on the tensor cores for fp32 x (M > 8; int8, int4 per
 //     column, and int4 in groups that are a multiple of 16):
 //     quant_matmul_x3_body below, x split into three bf16 planes, three
 //     products a product;
-//   * the CUDA-core forms (fp32 x at M <= 8 per column, groups that are not
-//     a multiple of 16, at M <= 8 N that is not, and more code rows than
-//     the decode forms' clusters take): quant_matmul_body, BM = 8 (M <= 8)
+//   * the CUDA-core forms (groups that are not a multiple of 16, at M <= 8
+//     N that is not, and more code rows than the decode forms' clusters
+//     take): quant_matmul_body, BM = 8 (M <= 8)
 //     or 64 (such groups above M = 8, the only CUDA-core prefill kernel
 //     left).
 //
@@ -974,14 +975,17 @@ __device__ __forceinline__ void quant_matmul_x3_body(const QParams& p) {
 //     its range's last, as _matmul4_group_kernel scales each group's
 //     partial dot before adding it; the next group's scales are loaded at
 //     the fold, ahead of their use;
-//   * fp32 x (X3: int8, and int4 in groups that 16 divides), every decode
-//     step of fp32 quantized serving: the same launch, cluster, rings and
-//     sums.  The warps' first TMA copies are issued first; then each thread
-//     loads 16-byte pieces of the block's fp32 slice of x and splits each
-//     once, as it lands, into three bf16 planes in shared memory
-//     (split3_pair: hi + mid + lo == x exactly), 1.5 times the fp32 slice's
-//     bytes, so the plan caps a block's code rows at 1024 (int4 at M = 8:
-//     96 KB of planes).  Each A fragment of codes meets the three planes' B
+//   * fp32 x (X3: int8, int4 per column, and int4 in groups that 16
+//     divides), every decode step of fp32 quantized serving: the same
+//     launch, cluster, rings and sums.  The warps' first TMA copies are
+//     issued first; then each thread loads 16-byte pieces of the block's
+//     fp32 slice of x (single values where the slice is ragged or
+//     unaligned, an odd K among them: columns at K or beyond read 0) and
+//     splits each once, as it lands, into three bf16 planes in shared
+//     memory (split3_pair: hi + mid + lo == x exactly), 1.5 times the fp32
+//     slice's bytes, so the plan caps a block's code rows at 1024 (int4 at
+//     M = 8: 96 KB of planes, ~180 KB with the rings and sums at BN 128).
+//     Each A fragment of codes meets the three planes' B
 //     fragments in three products, lo, mid and hi (mma_x3_b), each exact,
 //     so a product is as accurate as an fp32 FMA; out is fp32, scaled in
 //     fp32.  The tensor cores truncate each fp32 sum (mma.cuh), so each
@@ -1402,7 +1406,7 @@ typedef void (*QDecKernel)(QDecParams);
 // A source's kernels: the CUDA-core forms (BM 8 and 64; m64 null where the
 // tensor-core forms take every M > 8), the tensor-core prefill forms for
 // bf16 x and for fp32 x, and the tensor-core decode forms for bf16 x and
-// for fp32 x (dec_x3: null where the mode has none) at BN 32, 64 and 128.
+// for fp32 x at BN 32, 64 and 128.
 struct QKernels {
   QKernel m8, m64, tc, x3;
   QDecKernel dec[3], dec_x3[3];
@@ -1450,7 +1454,6 @@ int quant_matmul_dec_launch(const QKernels& ks, QParams p, bool int4,
     return cudaErrorInvalidValue;
   const QDecKernel k = (x3 ? ks.dec_x3 : ks.dec)[bn == 32 ? 0 : bn == 64 ? 1
                                                                           : 2];
-  if (!k) return cudaErrorInvalidValue;
   QDecParams d{};
   d.p = p;
   d.stage_rows = stage_rows;

@@ -14,24 +14,23 @@ even).
 ``csrc/int4_matmul.cu`` on CUDA tensors and run ``*_plain``, the same
 arithmetic in plain PyTorch, on CPU tensors (``impl="kernel"|"plain"``
 forces one).  Each source holds up to six forms of its kernels, and
-``_plan``, a rule on the shape, the dtype, the group and the kernel, picks
-one.  bf16 x where the tensor cores' k depth of 16 divides the group runs
-bf16 products with fp32 sums on the tensor cores: ``decode_tc`` at M <= 8
+``_plan``, a rule on the shape, the dtype and the group, picks one.  bf16
+x where the tensor cores' k depth of 16 divides the group runs bf16
+products with fp32 sums on the tensor cores: ``decode_tc`` at M <= 8
 where 16 divides N too (one launch, the code rows split over a
 thread-block cluster, counted under the kernel's name with ``_dec``),
 ``tensor_core`` above (counted with ``_tc``).  fp32 x runs the same two
 shapes of launch with x split into three bf16 planes, each product three
-exact bf16 products: ``decode_tc_x3`` at M <= 8 (int8, and int4 in groups
-that are a multiple of 16; N a multiple of 16; counted with ``_dec_x3``)
-and ``tensor_core_x3`` above (per column, or groups that are a multiple
-of 16; counted with ``_x3``).  The rest (fp32 x at M <= 8
-per column, groups that are not a multiple of 16, at M <= 8 N that is
-not, and more code rows than a decode form's cluster takes) runs fp32 FMAs
-on the CUDA cores: ``decode`` at M <= 8 and ``cuda_core`` above (such
-groups only), counted under the kernel's name.  All round as
-the TPU kernels do: the fp32 product of x and the integer codes is scaled
-after the dot (grouped: each group's partial dot is scaled, then summed),
-and the weight is never dequantized first.
+exact bf16 products: ``decode_tc_x3`` at M <= 8 (N a multiple of 16;
+counted with ``_dec_x3``) and ``tensor_core_x3`` above (counted with
+``_x3``), per column or in groups that are a multiple of 16.  The rest
+(groups that are not a multiple of 16, at M <= 8 N that is not, and more
+code rows than a decode form's cluster takes) runs fp32 FMAs on the CUDA
+cores: ``decode`` at M <= 8 and ``cuda_core`` above (such groups only),
+counted under the kernel's name.  All round as the TPU kernels do: the
+fp32 product of x and the integer codes is scaled after the dot (grouped:
+each group's partial dot is scaled, then summed), and the weight is never
+dequantized first.
 ``int8_linear`` and ``int4_linear`` are differentiable in x only, as the
 JAX package's ``custom_vjp``s: dx of the per-column forms runs the int8
 kernel on the transposed codes with the scales folded into dy; the grouped
@@ -256,18 +255,16 @@ def _check_int4(x, packed, scales, k_dim) -> bool:
 
 @functools.lru_cache(maxsize=4096)
 def _plan(M: int, N: int, rows: int, sms: int, dtype: torch.dtype,
-          group: int | None, dec_x3: bool = False) -> Plan:
+          group: int | None) -> Plan:
     """The launch for x [M, K], ``rows`` code rows (K, or ceil(K/2)
     packed), N columns, on a card of ``sms`` streaming multiprocessors;
-    ``group`` is the rows of W a scale covers (None: per column);
-    ``dec_x3``: the kernel has the fp32-x decode form (int8 and grouped
-    int4; int4 per column keeps the CUDA-core one).
+    ``group`` is the rows of W a scale covers (None: per column).
     Where the tensor cores' k depth of 16 divides the group, x takes a
     tensor-core form: at M <= 8 ``decode_tc`` for bf16 x (up to 8 x 2048
-    code rows) and ``decode_tc_x3`` for fp32 x where ``dec_x3`` (up to
-    8 x 1024), both where N is a multiple of 16, the row stride their
-    tensor map of the codes needs; above M = 8 ``tensor_core`` for bf16 x
-    and ``tensor_core_x3`` for fp32 x.  The rest take the CUDA-core forms,
+    code rows) and ``decode_tc_x3`` for fp32 x (up to 8 x 1024), both
+    where N is a multiple of 16, the row stride their tensor map of the
+    codes needs; above M = 8 ``tensor_core`` for bf16 x and
+    ``tensor_core_x3`` for fp32 x.  The rest take the CUDA-core forms,
     ``decode`` at M <= 8 and ``cuda_core`` above (groups that 16 does not
     divide).  The code rows are split until the launch has the form's
     blocks for each multiprocessor (the tensor-core prefill forms' chunks
@@ -275,8 +272,7 @@ def _plan(M: int, N: int, rows: int, sms: int, dtype: torch.dtype,
     tc = group is None or group % 16 == 0
     if M <= 8:
         form = "decode_tc" if dtype == torch.bfloat16 else "decode_tc_x3"
-        if (tc and (dtype == torch.bfloat16 or dec_x3) and N % 16 == 0
-                and rows <= _DEC_CLUSTER * _DEC_ROWS[form]):
+        if tc and N % 16 == 0 and rows <= _DEC_CLUSTER * _DEC_ROWS[form]:
             return _decode_plan(N, rows, sms, form)
         form = "decode"
     elif tc:
@@ -327,12 +323,10 @@ def _inputs(x, w, scales, what):
     return dev, [kernel_input(t, dev) for t in (x, w, scales.float())]
 
 
-def _launch(name, symbol, count_as, x, w, scales, rows, extra, group=None,
-            dec_x3=False):
+def _launch(name, symbol, count_as, x, w, scales, rows, extra, group=None):
     """Launch ``symbol`` of ``csrc/<name>.cu``; ``extra`` are the C
     arguments between K and the form (the int4 group count), ``group`` the
-    rows a group scale covers, ``dec_x3`` whether the kernel has the fp32-x
-    decode form (``_plan``).  out takes x's dtype; the launch counts under
+    rows a group scale covers.  out takes x's dtype; the launch counts under
     ``count_as``, with ``DEC``, ``DEC_X3``, ``TC`` or ``X3`` for the
     tensor-core forms.  The forms but the decode ones on the tensor cores
     take an fp32 workspace when they split the code rows."""
@@ -342,7 +336,7 @@ def _launch(name, symbol, count_as, x, w, scales, rows, extra, group=None,
     out = torch.empty(M, N, dtype=x.dtype, device=dev)
     if out.numel() == 0:
         return out
-    plan = _plan(M, N, rows, sm_count(dev), x.dtype, group, dec_x3)
+    plan = _plan(M, N, rows, sm_count(dev), x.dtype, group)
     count_as += {"decode_tc": DEC, "decode_tc_x3": DEC_X3, "tensor_core": TC,
                  "tensor_core_x3": X3}.get(plan.form, "")
     part = (torch.empty(plan.splits, M, N, dtype=torch.float32, device=dev)
@@ -373,7 +367,7 @@ def int8_matmul(x, codes, scales, *, impl: str | None = None):
     if codes.dtype != torch.int8:
         raise TypeError(f"codes must be int8, got {codes.dtype}")
     return _launch(KERNEL_INT8, "tf_int8_matmul", KERNEL_INT8, x, codes,
-                   scales, x.shape[1], (), dec_x3=True)
+                   scales, x.shape[1], ())
 
 
 def int4_matmul(x, packed, scales, *, k_dim=None, impl: str | None = None):
@@ -389,8 +383,7 @@ def int4_matmul(x, packed, scales, *, k_dim=None, impl: str | None = None):
                    KERNEL_INT4_GROUP if grouped else KERNEL_INT4, x, packed,
                    scales, packed.shape[0],
                    (scales.shape[0] if grouped else 0,),
-                   x.shape[1] // scales.shape[0] if grouped else None,
-                   dec_x3=grouped)
+                   x.shape[1] // scales.shape[0] if grouped else None)
 
 
 # ---------------------------------------------------------------------------
