@@ -69,6 +69,20 @@ ported paths:
   makes the host wait nowhere; and one fp32 step with the kernels against
   one with the plain versions (loss, gradients, updated parameters) at the
   production flash config and at the reference fused config;
+* sliding windows and packed segments: every flash kernel's masked form
+  (both dtypes) against its plain version over ``MASK_CASES`` (windows 1 to
+  past L, Lq < Lk, GQA, ragged L, each head dim, packed segment ids with
+  length-1 runs and a pad tail, both together), the fused backward twice
+  under a window for the same bits, and the masked forms held against
+  their plain versions and timed at ``MASK_TIMED`` (modes (g)'s and (h)'s
+  shapes among them) beside the causal forms on the same inputs; ``train_epoch``
+  in mode (g), mode (f)'s config under a sliding window of 2048 (the masked
+  forward and two passes), and mode (h), the production config over 4
+  packed rows of 2048 tokens of the synthetic translation corpus
+  (``collate_packed`` through a stand-in word tokenizer; the masked forward
+  and fused backward), each checking its masked kernels' launches a step;
+  and one fp32 step of each against its plain version (the six-product
+  masked forms);
 * long-context training: the two-pass backward's dK/dV and dQ kernels,
   in the six-product form for fp32 and the tensor-core form for bf16 (each
   call checked to launch its form), against their plain halves (causal or
@@ -92,9 +106,9 @@ ported paths:
 
 The build phase logs each kernel's registers, stack and spills as ptxas
 reports them, and fails if a flash-attention kernel's tensor-core or
-six-product form, a quantized matmul's tensor-core decode, fp32 decode or
-fp32 prefill form, a form of the masked-softmax forward or of the
-LayerNorm backward, or a flash-decode kernel spills.
+six-product form (unmasked or masked), a quantized matmul's tensor-core
+decode, fp32 decode or fp32 prefill form, a form of the masked-softmax
+forward or of either LayerNorm kernel, or a flash-decode kernel spills.
 Modes (b) and (e) run the forward and the fused backward in their
 tensor-core form, mode (a) in their six-product form.
 
@@ -123,6 +137,8 @@ import torch
 
 from tpu_flash_torch.apps.machine_translation import (make_train_step,
                                                      place_batch, train_epoch)
+from tpu_flash_torch.data.mt import (WordTokenizer, collate_packed,
+                                     synthetic_translation_dataset)
 from tpu_flash_torch.inference import DecodeEngine, KVCache, SamplingConfig
 from tpu_flash_torch.inference.engine import Request
 from tpu_flash_torch.inference.sampler import generate, prefill_prompt
@@ -174,10 +190,20 @@ TWO_PASS_KERNELS = (fa.KERNEL_DKV, fa.KERNEL_DQ)
 TWO_PASS = tuple(fa._form_name(n, torch.float32) for n in TWO_PASS_KERNELS)
 TWO_PASS_TC = tuple(fa._form_name(n, torch.bfloat16)
                     for n in TWO_PASS_KERNELS)
+# Each flash kernel's masked form (a call with a window or segment ids; the
+# same C entry, the kernel's kMask instantiation), counted under the form's
+# name + fa.MASK: bf16 (MASKED_TC) and fp32 (MASKED_X6), in the order
+# forward, fused backward, dK/dV pass, dQ pass.
+FLASH_KERNELS = ATTENTION + TWO_PASS_KERNELS
+MASKED_TC = tuple(fa._form_name(n, torch.bfloat16, True)
+                  for n in FLASH_KERNELS)
+MASKED_X6 = tuple(fa._form_name(n, torch.float32, True)
+                  for n in FLASH_KERNELS)
+MASKED = MASKED_TC + MASKED_X6
 FUSED = ("layernorm_fwd", "layernorm_bwd", "attn_softmax_fwd",
          "attn_softmax_bwd")
 TRAINING_KERNELS = (ATTENTION_X6 + ATTENTION_TC + TWO_PASS + TWO_PASS_TC
-                    + FUSED)
+                    + MASKED + FUSED)
 QUANT_SOURCES = ("int8_matmul", "int4_matmul")
 # The quantized matmul kernels by launch count, with (bits, group size) and
 # the TPU kernel each replaces; bf16 x runs the tensor-core forms, counted
@@ -320,6 +346,52 @@ ATTN_CASES = [
     ("d32", 2, 8, 8, 256, 256, 32, True),
     ("d128", 2, 8, 8, 256, 256, 128, True),
 ]
+# The masked forms against their plain versions, each form of every flash
+# kernel at ATTN_TOL (name, B, H, Hkv, Lq, Lk, d, window, segments): windows
+# of one key, just under, at and off a 64-key tile, and past L (equal to
+# causal); Lq < Lk; GQA; ragged L; each head dim; packed segment ids (runs
+# of length 1 among them and a pad tail, segment_ids()), alone and under a
+# window.
+MASK_CASES = [
+    ("w1", 2, 8, 8, 1000, 1000, 64, 1, False),
+    ("w63", 2, 8, 8, 1000, 1000, 64, 63, False),
+    ("w64", 2, 8, 8, 1024, 1024, 64, 64, False),
+    ("w100-ragged-L1000", 2, 8, 8, 1000, 1000, 64, 100, False),
+    ("w256-L2048", 2, 8, 8, 2048, 2048, 64, 256, False),
+    ("w-ge-L", 2, 8, 8, 512, 512, 64, 4096, False),
+    ("lq-lt-lk-300x700-w100", 2, 8, 8, 300, 700, 64, 100, False),
+    ("gqa-8q2kv-w128", 2, 8, 2, 512, 512, 64, 128, False),
+    ("d16-w50", 2, 8, 8, 300, 300, 16, 50, False),
+    ("d32-w100", 2, 8, 8, 512, 512, 32, 100, False),
+    ("d128-w100", 2, 8, 8, 512, 512, 128, 100, False),
+    ("seg-L1024", 2, 8, 8, 1024, 1024, 64, None, True),
+    ("seg-gqa-d128", 2, 8, 2, 512, 512, 128, None, True),
+    ("seg-d32-ragged", 2, 8, 8, 333, 333, 32, None, True),
+    ("seg-w100", 2, 8, 8, 1024, 1024, 64, 100, True),
+]
+# Under a window of 1 a row sees only its own key: P is 1 and dS = P (dP -
+# D) is exactly 0, so dq and dk are 0 and both versions hold the rounding
+# noise of fp32 sums over d (~3e-6 at d64 on an H100); they are held to
+# this absolute limit there instead of ATTN_TOL's share of their rms.
+W1_GRAD_ATOL = 1e-4
+# The masked forms' timed shapes (label, dtype, B, H, L, window, segments
+# from the packed batch of mode (h)), d 64, causal: each with its causal
+# unmasked forms beside it.  The windowed training shape in both dtypes;
+# mode (h)'s packed rows; mode (g)'s shape (L16384, window 2048, the JAX
+# rule's two passes); the fp32 two-pass shape under the same window.
+MASK_TIMED = [
+    ("window 256", torch.bfloat16, 4, 8, 2048, 256, False),
+    ("window 256", torch.float32, 4, 8, 2048, 256, False),
+    ("segments of mode (h)", torch.bfloat16, 4, 8, 2048, None, True),
+    ("segments of mode (h)", torch.float32, 4, 8, 2048, None, True),
+    ("mode (g): window 2048", torch.bfloat16, 1, 8, 16384, 2048, False),
+    ("window 2048", torch.float32, 1, 8, 8192, 2048, False),
+]
+# Mode (g): TRAIN_LONG under the long-context demo's sliding window
+# (bench/demo_long_context.py:34).  Mode (h): TRAIN's widths over packed
+# rows of the synthetic translation corpus (collate_packed).
+LONG_WINDOW = 2048
+PACK_ROWS, PACK_L = 4, 2048
 # The serving model's linears, K x N: q, k, v and out projections, FF in,
 # FF out, lm_head.
 SERVING_LINEARS = ((1024, 1024), (1024, 4096), (4096, 1024), (1024, 32768))
@@ -836,24 +908,26 @@ def attention_times(gen, B=4, H=8, L=2048, d=64) -> dict:
     return rows
 
 
-def fused_backward_bits(gen, B=4, H=8, L=2048, d=64) -> None:
+def fused_backward_bits(gen, B=4, H=8, L=2048, d=64, window=None) -> None:
     """The fused backward kernel called twice on the same inputs at the
     training shape (B4 H8 L2048 d64 causal) in bf16 (its tensor-core form)
     and fp32 (its six-product form): dq, dk and dv the same bits (its dQ is
-    added in a fixed order)."""
+    added in a fixed order; under a window each key tile waits only for the
+    tiles that reach its chunk, in the same order)."""
     for dtype in (torch.bfloat16, torch.float32):
-        args = attention_inputs(gen, B, H, H, L, L, d, dtype, True)
-        name = fa._form_name(fa.KERNEL_BWD, dtype)
+        args = attention_inputs(gen, B, H, H, L, L, d, dtype, True, window)
+        name = fa._form_name(fa.KERNEL_BWD, dtype, window is not None)
         before = common.launch_counts[name]
         first = flash_attention_backward_fused(*args, causal=True,
-                                               impl="kernel")
+                                               window=window, impl="kernel")
         second = flash_attention_backward_fused(*args, causal=True,
-                                                impl="kernel")
+                                                window=window, impl="kernel")
         torch.cuda.synchronize()
         same = {n: torch.equal(a, b)
                 for n, a, b in zip(("dq", "dk", "dv"), first, second)}
         log({"phase": "fused_backward_bits", "dtype": str(dtype).split(".")[1],
              "kernel": name, "shape": f"B{B} H{H} L{L} d{d} causal",
+             "window": window,
              "launches": common.launch_counts[name] - before,
              "two_calls_same_bits": same})
         check(all(same.values()), f"the fused backward gives other bits on "
@@ -863,15 +937,313 @@ def fused_backward_bits(gen, B=4, H=8, L=2048, d=64) -> None:
         del args, first, second
 
 
-def attention_inputs(gen, B, H, Hkv, Lq, Lk, d, dtype, causal):
+def attention_inputs(gen, B, H, Hkv, Lq, Lk, d, dtype, causal, window=None,
+                     seg=None):
     """q, k, v, the forward kernel's out and lse, and dO."""
     q = torch.randn(B, H, Lq, d, generator=gen, device=DEV).to(dtype)
     k, v = (torch.randn(B, Hkv, Lk, d, generator=gen, device=DEV).to(dtype)
             for _ in range(2))
     do = torch.randn(B, H, Lq, d, generator=gen, device=DEV).to(dtype)
     out, lse, _ = flash_attention_forward(q, k, v, causal=causal,
+                                          window=window, segment_ids=seg,
                                           impl="kernel")
     return q, k, v, out, lse, do
+
+
+def segment_ids(B, L, seed=0):
+    """Segment ids [B, L] on the card as a packed batch gives them: runs of
+    1 to 40 positions from a seed (a fifth of them of length 1), then a
+    pad-tail segment of its own id in every row but the last, which ends in
+    a run of length 1."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for b in range(B):
+        ids, sid = [], 0
+        tail = 0 if b == B - 1 else int(rng.integers(1, L // 4))
+        while len(ids) < L - tail:
+            n = 1 if rng.random() < 0.2 else int(rng.integers(2, 41))
+            ids += [sid] * min(n, L - tail - len(ids))
+            sid += 1
+        if b == B - 1:
+            ids[-1] = sid
+        rows.append(ids + [sid + 1] * tail)
+    return torch.tensor(rows, dtype=torch.int32, device=DEV)
+
+
+def packed_batch(rows=PACK_ROWS, length=PACK_L) -> dict:
+    """Mode (h)'s batch: the synthetic translation corpus's examples packed
+    into ``rows`` rows of ``length`` tokens by ``collate_packed`` through
+    the stand-in word tokenizer (segment ids, positions, next-token labels
+    inside each example, the targets weighted)."""
+    data = synthetic_translation_dataset(n_train=rows * length // 8,
+                                         n_validation=1, n_test=1)["train"]
+    batch = collate_packed(data, "de", "en", WordTokenizer(data), length,
+                           fixed_rows=rows)
+    return {n: batch[n] for n in ("input_ids", "labels",
+                                  "label_token_weights", "segment_ids",
+                                  "positions")}
+
+
+def masked_cases(gen) -> dict:
+    """The four flash kernels' masked forms against their plain versions on
+    the same inputs (fp32 and bf16, ``MASK_CASES``, ATTN_TOL): the forward,
+    the fused backward and both passes, each call launching its masked form
+    once; a window past L checked against the unmasked causal kernel
+    (within ATTN_TOL; same bits logged).  Returns each masked form's
+    largest error."""
+    worst = dict.fromkeys(MASKED, 0.0)
+    failed = []
+    for dtype in (torch.float32, torch.bfloat16):
+        tols = ATTN_TOL[dtype]
+        dname = str(dtype).split(".")[1]
+        names = [fa._form_name(n, dtype, True) for n in FLASH_KERNELS]
+        for name, B, H, Hkv, Lq, Lk, d, window, seg_on in MASK_CASES:
+            seg = segment_ids(B, Lq, 1) if seg_on else None
+            kw = dict(causal=True, window=window, segment_ids=seg)
+            q = torch.randn(B, H, Lq, d, generator=gen, device=DEV).to(dtype)
+            k, v = (torch.randn(B, Hkv, Lk, d, generator=gen,
+                                device=DEV).to(dtype) for _ in range(2))
+            do = torch.randn(B, H, Lq, d, generator=gen,
+                             device=DEV).to(dtype)
+            before = dict(common.launch_counts)
+            out, lse, _ = flash_attention_forward(q, k, v, impl="kernel",
+                                                  **kw)
+            fused = flash_attention_backward_fused(q, k, v, out, lse, do,
+                                                   impl="kernel", **kw)
+            two = flash_attention_backward_two_pass(q, k, v, out, lse, do,
+                                                    impl="kernel", **kw)
+            launched = {n: c - before.get(n, 0) for n, c in
+                        common.launch_counts.items() if c != before.get(n, 0)}
+            ref_out, ref_lse, _ = flash_attention_forward(q, k, v,
+                                                          impl="plain", **kw)
+            ref = flash_attention_backward_fused(q, k, v, out, lse, do,
+                                                 impl="plain", **kw)
+            torch.cuda.synchronize()
+            ok = launched == dict.fromkeys(names, 1)
+            errs = {}
+            pairs = ([("out", out, ref_out), ("lse", lse, ref_lse)]
+                     + list(zip(("dq", "dk", "dv"), fused, ref))
+                     + list(zip(("dq_two_pass", "dk_two_pass",
+                                 "dv_two_pass"), two, ref)))
+            for n, a, b in pairs:
+                tol = tols[n.split("_")[0]]
+                if window == 1 and n[:2] in ("dq", "dk"):
+                    tol = (W1_GRAD_ATOL, 0.0, 0.0)
+                errs[n], _, _, agree = compare(a, b, tol)
+                ok &= agree
+            row = {"phase": "masked_vs_plain", "case": name, "dtype": dname,
+                   "shape": f"B{B} H{H} Hkv{Hkv} Lq{Lq} Lk{Lk} d{d} causal",
+                   "window": window, "segments": seg_on,
+                   "max_abs_err": errs, "launches": launched}
+            if window is not None and window >= Lk and not seg_on:
+                unmasked = flash_attention_forward(q, k, v, causal=True,
+                                                   impl="kernel")
+                row["same_bits_as_causal"] = (
+                    torch.equal(out, unmasked[0])
+                    and torch.equal(lse, unmasked[1]))
+                ok &= compare(out, unmasked[0], tols["out"])[3]
+            row["ok"] = ok
+            log(row)
+            if not ok:
+                failed.append(f"{name} {dname}")
+            for n, outs in zip(names, (("out", "lse"), ("dq", "dk", "dv"),
+                                       ("dk_two_pass", "dv_two_pass"),
+                                       ("dq_two_pass",))):
+                worst[n] = max(worst[n], *(errs[o] for o in outs))
+            del q, k, v, do, out, lse, fused, two, ref
+    check(not failed, f"a masked flash form disagrees with its plain "
+                      f"version: {failed}")
+    return worst
+
+
+def visible_pairs(B, Lq, Lk, window=None, seg=None) -> int:
+    """Scores one head sees over the B batch rows under the causal limit
+    (q_offset = Lk - Lq), the window's band and the segments: the work the
+    masked forms' bounds count."""
+    rows = torch.arange(Lq, device=DEV)[:, None] + (Lk - Lq)
+    cols = torch.arange(Lk, device=DEV)[None, :]
+    keep = cols <= rows
+    if window is not None:
+        keep &= cols > rows - window
+    if seg is None:
+        return B * int(keep.sum())
+    return int((keep[None] & (seg[:, :, None] == seg[:, None, :])).sum())
+
+
+def masked_times(gen) -> dict:
+    """At ``MASK_TIMED`` (causal, d 64; the shapes the main path gives the
+    masked forms, modes (g) and (h) among them): the masked forward and the
+    masked backward form the JAX rule takes there (the fused kernel, or the
+    dK/dV and dQ passes), each held against its plain version on the same
+    inputs at ATTN_TOL (one launch of each form) and timed: kernel, plain
+    and library (``scaled_dot_product_attention`` with an explicit boolean
+    mask, a yardstick only), each bound on the pairs the masks leave
+    visible; beside them the unmasked causal forms on the same q, k, v (the
+    masked forward's time over the causal one's).  CUDA events, the median
+    of 5 batches.  Each row carries its kernel's ``max_abs_err`` at that
+    shape."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    packed = None
+    failed = []
+    for label, dtype, B, H, L, window, seg_on in MASK_TIMED:
+        d = 64
+        tols = ATTN_TOL[dtype]
+        if seg_on:
+            if packed is None:
+                packed = torch.as_tensor(packed_batch()["segment_ids"],
+                                         device=DEV)
+            seg = packed[:B, :L].contiguous()
+        else:
+            seg = None
+        args = attention_inputs(gen, B, H, H, L, L, d, dtype, True, window,
+                                seg)
+        q, k, v, out, lse, do = args
+        scale = 1.0 / math.sqrt(d)
+        kin = (*fa._bwd_inputs(q, k, v, out, lse, do, None), True, scale, 0,
+               window, seg)
+        vis = visible_pairs(B, L, L, window, seg)
+        causal_vis = B * causal_visible(L, L)
+        iters = max(1, round(64 * 2048 ** 2 / (B * L * L)))
+        two = two_pass(L, L, d, q.element_size(), True, 0, window)
+        names = [fa._form_name(n, dtype, True) for n in FLASH_KERNELS]
+        bwd_names = names[2:] if two else names[1:2]
+        outs_of = dict(zip(names, (("out", "lse"), ("dq", "dk", "dv"),
+                                   ("dk", "dv"), ("dq",))))
+
+        def timed(fn, n=iters):
+            return device_ms(fn, warmup=1, iters=n, reps=5)
+
+        ms = {names[0]: timed(lambda: fa._launch_forward(
+            q, k, v, True, scale, 0, False, window, seg))}
+        if two:
+            ms[names[2]] = timed(lambda: fa._launch_dkv(*kin))
+            ms[names[3]] = timed(lambda: fa._launch_dq(*kin))
+        else:
+            ms[names[1]] = timed(lambda: fa._launch_backward(*kin))
+        causal_fwd_ms = timed(lambda: fa._launch_forward(
+            q, k, v, True, scale, 0, False))
+        if two:
+            causal_bwd_ms = timed(lambda: (fa._launch_dkv(*kin[:-2]),
+                                           fa._launch_dq(*kin[:-2])))
+        else:
+            causal_bwd_ms = timed(lambda: fa._launch_backward(*kin[:-2]))
+        # the library's yardstick: SDPA under the same boolean mask
+        rr = torch.arange(L, device=DEV)
+        keep = rr[None, :] <= rr[:, None]
+        if window is not None:
+            keep &= rr[None, :] > rr[:, None] - window
+        keep = keep[None, None]
+        if seg is not None:
+            keep = keep & (seg[:, None, :, None] == seg[:, None, None, :])
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        lib_fwd_ms = timed(lambda: sdpa(q, k, v, attn_mask=keep))
+        lib_out = sdpa(*leaves, attn_mask=keep)
+        lib_bwd_ms = timed(lambda: torch.autograd.grad(
+            lib_out, leaves, do, retain_graph=True))
+        del lib_out, leaves, keep
+        torch.cuda.empty_cache()
+        # the plain versions (a few fp32 [B, H, L, L] tensors each, ~30 GB
+        # at L = 16384)
+        pin = (q, k, v, do, lse, kin[5], True, scale, 0, window, seg)
+        plain = {names[0]: lambda: fa.flash_attention_forward_plain(
+            q, k, v, causal=True, window=window, segment_ids=seg)}
+        if two:
+            plain[names[2]] = lambda: fa._dkv_plain(*pin)
+            plain[names[3]] = lambda: fa._dq_plain(*pin)
+        else:
+            plain[names[1]] = lambda: fa.flash_attention_backward_plain(
+                q, k, v, out, lse, do, causal=True, window=window,
+                segment_ids=seg)
+        # each kernel against its plain version at this shape, ATTN_TOL
+        before = dict(common.launch_counts)
+        got = {"out": out, "lse": lse}
+        if two:
+            got["dk"], got["dv"] = fa._launch_dkv(*kin)
+            got["dq"] = fa._launch_dq(*kin)
+        else:
+            got["dq"], got["dk"], got["dv"] = fa._launch_backward(*kin)
+        launched = {n: c - before.get(n, 0) for n, c in
+                    common.launch_counts.items() if c != before.get(n, 0)}
+        want = {}
+        for n, f in plain.items():
+            res = f()
+            want.update(zip(outs_of[n], res if isinstance(res, tuple)
+                            else (res,)))
+            del res
+            torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        errs, need = {}, {}
+        ok = launched == dict.fromkeys(bwd_names, 1)
+        for o, a in got.items():
+            errs[o], _, need[o], agree = compare(a, want[o], tols[o])
+            ok &= agree
+        del got, want
+        plain_ms = {n: device_ms(f, warmup=1, iters=1, reps=3)
+                    for n, f in plain.items()}
+        torch.cuda.empty_cache()
+        item = q.element_size()
+        act = B * H * L * d * item
+        lse_b = B * H * L * 4
+        seg_b = 0 if seg is None else B * L * 4
+        product = 2 * H * vis * d        # one product over the visible pairs
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+        work = {   # (flops, bytes: inputs read once, outputs written once)
+            names[0]: (2 * product, 4 * act + lse_b + seg_b),
+            names[1]: (5 * product, 8 * act + 2 * lse_b + seg_b),
+            names[2]: (4 * product, 6 * act + 2 * lse_b + seg_b),
+            names[3]: (3 * product, 5 * act + 2 * lse_b + seg_b)}
+        dname = str(dtype).split(".")[1]
+        shape = (f"B{B} H{H} L{L} d{d} causal"
+                 + (f" window {window}" if window else "")
+                 + (" segments of mode (h)" if seg_on else ""))
+        for n in ms:
+            flops, nbytes = work[n]
+            bound = {"operations": flops / peak * 1e3,
+                     "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+            bound_by = max(bound, key=bound.get)
+            lib = lib_fwd_ms if n == names[0] else lib_bwd_ms
+            row = {"ms": ms[n], "plain_ms": plain_ms[n],
+                   "shape": f"{shape} {dname}",
+                   "max_abs_err": max(errs[o] for o in outs_of[n]),
+                   "library_ms": lib, "bound_ms": bound[bound_by],
+                   "bound_by": bound_by, "of_bound": bound[bound_by] / ms[n],
+                   "flops": flops, "bytes": nbytes,
+                   "visible_pairs_per_head": vis,
+                   "causal_pairs_per_head": causal_vis,
+                   "tflops": flops / (ms[n] * 1e-3) / 1e12}
+            log({"phase": "kernel_time", "kernel": n, "dtype": dname,
+                 "label": label,
+                 "library": "scaled_dot_product_attention(attn_mask=bool "
+                            "[.., L, L])" + (" backward, the pair's "
+                                             "yardstick" if two and
+                                             n != names[0] else
+                                             " backward" if n != names[0]
+                                             else ""), **row})
+            rows[(n, label)] = row
+        log({"phase": "masked_over_causal", "dtype": dname, "shape": shape,
+             "label": label, "forward_ms": ms[names[0]],
+             "causal_forward_ms": causal_fwd_ms,
+             "forward_over_causal": ms[names[0]] / causal_fwd_ms,
+             "backward_ms": sum(ms[n] for n in bwd_names),
+             "causal_backward_ms": causal_bwd_ms,
+             "backward_over_causal": (sum(ms[n] for n in bwd_names)
+                                      / causal_bwd_ms),
+             "visible_over_causal_pairs": vis / causal_vis,
+             "backward_form": "two-pass" if two else "fused",
+             "card": torch.cuda.get_device_name(0)})
+        log({"phase": "masked_vs_plain", "case": label, "dtype": dname,
+             "shape": shape, "max_abs_err": errs, "arms_needed": need,
+             "tol": {o: "atol {} + {} * rms + rtol {}".format(*tols[o])
+                     for o in errs},
+             "launches": launched, "ok": ok})
+        if not ok:
+            failed.append(f"{label} {dname}")
+        del args, kin, pin, q, k, v, out, lse, do, plain
+        torch.cuda.empty_cache()
+    check(not failed, f"at a timed shape a masked flash form disagrees with "
+                      f"its plain version or did not launch once: {failed}")
+    return rows
 
 
 def dropped_two_pass_tile(q, k, v, out, lse, do, dq, dk, dv):
@@ -1724,6 +2096,17 @@ def gemm_kind(name: str) -> str | None:
     return "fp32" if "sgemm" in name or "f32f32" in name else "other"
 
 
+def port_kernel(key: str, name: str) -> bool:
+    """Whether the profiler's kernel ``key`` is the port's kernel counted as
+    ``name``: a flash kernel's masked form (a ``true`` template flag) under
+    the form's name + ``fa.MASK``, its unmasked form under the name."""
+    base = name[:-len(fa.MASK)] if name in MASKED else name
+    if f"{base}_kernel" not in key:
+        return False
+    flash = base in ATTENTION_TC + ATTENTION_X6 + TWO_PASS + TWO_PASS_TC
+    return not flash or (", true>" in key) == (name in MASKED)
+
+
 def kernel_profile(fn, steps: int = 4) -> dict:
     """Kernels of ``fn()`` under torch.profiler, per call: launches, their
     summed device time, each of the port's kernels' time, the GEMMs' time
@@ -1732,7 +2115,7 @@ def kernel_profile(fn, steps: int = 4) -> dict:
     total_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     ours = {n: sum(e.self_device_time_total for e in kernels
-                   if f"{n}_kernel" in e.key) / steps / 1e3
+                   if port_kernel(e.key, n)) / steps / 1e3
             for n in KERNELS + ("quant_matmul_reduce",)}
     gemms = collections.defaultdict(float)
     for e in kernels:
@@ -1780,17 +2163,20 @@ def syncs_in_a_step(step, state, batch, gen):
 
 
 def training(mode: str, config: dict, shape, dtype, p_dropout: float, opt,
-             per_step: dict, chunked_vocab: int = 0) -> dict:
+             per_step: dict, chunked_vocab: int = 0,
+             batch: dict | None = None) -> dict:
     """``train_epoch`` at the full width and depth of ``config`` on one
-    repeated batch of ``shape``: 3 warm-up steps, then 11 (the first of
-    them opens the loop's first timing window, which it leaves out).
-    ``per_step`` gives each training kernel's launches a step (0 where
-    absent); returns every training kernel's launches in the timed run."""
+    repeated batch of ``shape`` (``batch``, or random ids from a seed): 3
+    warm-up steps, then 11 (the first of them opens the loop's first timing
+    window, which it leaves out).  ``per_step`` gives each training
+    kernel's launches a step (0 where absent); returns every training
+    kernel's launches in the timed run."""
     cfg = DecoderConfig(**config, p_dropout=p_dropout, dtype=dtype)
     model = DecoderLM(cfg, device=DEV)
     init_params(model, torch.Generator(DEV).manual_seed(0))
     state = opt.init(dict(model.named_parameters()))
-    batch = train_batch(0, shape, cfg.n_vocab)
+    if batch is None:
+        batch = train_batch(0, shape, cfg.n_vocab)
     gen = torch.Generator(DEV).manual_seed(1)
     step = make_train_step(model, opt, chunked_vocab=chunked_vocab)
 
@@ -1821,11 +2207,14 @@ def training(mode: str, config: dict, shape, dtype, p_dropout: float, opt,
                                hold_cycles=400_000_000)
     prof = kernel_profile(one_step, steps=2)
     all_losses = warm_losses + losses
+    seg = batch.get("segment_ids")
     log({"phase": "training", "mode": mode,
          "config": {**config, "p_dropout": p_dropout,
                     "dtype": str(dtype).split(".")[1],
                     "batch": shape[0], "seq_len": shape[1],
                     "chunked_vocab": chunked_vocab},
+         **({} if seg is None else {"segments_a_row": [
+             int(np.asarray(r).max()) + 1 for r in seg]}),
          "params": num_parameters(model), "steps_timed": len(step_times),
          "step_ms": step_ms, "step_ms_each": [t * 1e3 for t in step_times],
          "device_ms_per_step": device_step_ms,
@@ -1851,15 +2240,17 @@ def training(mode: str, config: dict, shape, dtype, p_dropout: float, opt,
 
 
 def training_end_to_end(name: str, config: dict, shape, chunked_vocab=0,
-                        launches=None, profile=False) -> dict:
+                        launches=None, profile=False,
+                        batch: dict | None = None) -> dict:
     """One Adam step of the fp32 model of ``config`` (TF32 off) through the
     kernels and one through their plain versions, from the same
-    parameters: loss, every gradient, every updated parameter, and the
-    kernels launched by the first step only (exactly ``launches`` where
-    given).  With ``profile``, then the device time of a kernel step and
-    its kernels under the profiler (``kernel_profile``)."""
+    parameters and batch (``batch``, or random ids from a seed): loss,
+    every gradient, every updated parameter, and the kernels launched by
+    the first step only (exactly ``launches`` where given).  With
+    ``profile``, then the device time of a kernel step and its kernels
+    under the profiler (``kernel_profile``)."""
     cfg = DecoderConfig(**config, p_dropout=0.0, dtype=torch.float32)
-    batch = place_batch(train_batch(1, shape, cfg.n_vocab), DEV)
+    batch = place_batch(batch or train_batch(1, shape, cfg.n_vocab), DEV)
     lr = 1e-3
     runs, launched = {}, {}
     for impl in ("kernel", "plain"):
@@ -2291,7 +2682,8 @@ def main() -> int:
                          if "warning" in ln][:20]}
         for n, r in built.items()}})
     # the flash-attention kernels' tensor-core and six-product forms (each
-    # of the four kernels at each head dim) and the quantized matmuls'
+    # of the four kernels at each head dim, unmasked and masked) and the
+    # quantized matmuls'
     # tensor-core decode form must not spill (a spilled form of the two-pass
     # dQ kernel passed its tests 38 times slower)
     reports = {k: r for n in ATTENTION + (TWO_PASS_SOURCE,)
@@ -2307,12 +2699,14 @@ def main() -> int:
           if "_x3_kernel" in k and k not in dec_x3}
     spills = {k: r for k, r in {**tc, **x6, **dec, **x3, **dec_x3}.items()
               if r.get("spill_stores", 0) or r.get("spill_loads", 0)}
-    # the softmax forward's 32 template forms and the LayerNorm backward's
-    # 38 share a name each in the report (it reads integer template
-    # arguments only), so their spills are read from ptxas's warnings
-    sm_spills, ln_spills = ([ln for ln in built[n].log.splitlines()
-                             if "warning" in ln and "spill" in ln]
-                            for n in ("attn_softmax_fwd", "layernorm_bwd"))
+    # the softmax forward's 32 template forms, the LayerNorm backward's 38
+    # and the LayerNorm forward's 26 share a name each in the report (it
+    # reads integer template arguments only), so their spills are read
+    # from ptxas's warnings
+    sm_spills, ln_spills, ln_fwd_spills = (
+        [ln for ln in built[n].log.splitlines()
+         if "warning" in ln and "spill" in ln]
+        for n in ("attn_softmax_fwd", "layernorm_bwd", "layernorm_fwd"))
     # flash decode: a kernel for each head dim, cache dtype and rows a block
     fd = ptxas_report(built["flash_decode"].log)
     fd_spills = {k: r for k, r in fd.items()
@@ -2325,15 +2719,19 @@ def main() -> int:
          "softmax_forward_spills": sm_spills,
          "layernorm_backward": ptxas_report(built["layernorm_bwd"].log),
          "layernorm_backward_spills": ln_spills,
+         "layernorm_forward": ptxas_report(built["layernorm_fwd"].log),
+         "layernorm_forward_spills": ln_fwd_spills,
          "flash_decode": fd, "flash_decode_spills": fd_spills})
     check(not sm_spills, f"the softmax forward spills: {sm_spills}")
     check(not ln_spills, f"the LayerNorm backward spills: {ln_spills}")
+    check(not ln_fwd_spills,
+          f"the LayerNorm forward spills: {ln_fwd_spills}")
     check(len(fd) == 4 * (4 + 3 + 2 + 2) and not fd_spills,
           f"flash decode: {len(fd)} kernels reported, spilling {fd_spills}")
+    # the flash kernels: each form at each head dim, unmasked and masked;
     # the decode forms: a kernel a mode at tiles of 32, 64 and 128 columns
-    check(len(tc) == 4 * len(fa.HEAD_DIMS)
-          and len(x6) == (len(ATTENTION_X6) + len(TWO_PASS))
-          * len(fa.HEAD_DIMS)
+    check(len(tc) == 2 * len(FLASH_KERNELS) * len(fa.HEAD_DIMS)
+          and len(x6) == 2 * len(FLASH_KERNELS) * len(fa.HEAD_DIMS)
           and len(dec) == 3 * len(QUANT) and len(x3) == len(QUANT_X3)
           and len(dec_x3) == 3 * len(QUANT_DEC_X3) and not spills,
           f"the tensor-core kernels spill or are missing: {len(tc)} flash, "
@@ -2349,9 +2747,12 @@ def main() -> int:
     fp64_errs = attention_vs_fp64(gen)
     attn_rows = attention_times(gen)
     fused_backward_bits(gen)
+    fused_backward_bits(gen, window=256)
+    masked_worst = masked_cases(gen)
     two_worst = two_pass_cases(gen)
     long_errs = two_pass_long()
     two_rows = two_pass_times(gen)
+    masked_rows = masked_times(gen)
     fused_worst = fused_cases(gen)
     fused_rows = fused_times(gen)
     ln_rows = {H: ln_times(gen, H)
@@ -2391,6 +2792,9 @@ def main() -> int:
     fused_sm = dict.fromkeys(("attn_softmax_fwd", "attn_softmax_bwd"), 4)
     fused_ln = dict.fromkeys(("layernorm_fwd", "layernorm_bwd"), 9)
     prod, ref = (TRAIN_B, TRAIN_L), (REF_B, REF_L)
+    packed = packed_batch()
+    long_window_two_pass = two_pass(LONG_L, LONG_L, 64, 2, True, 0,
+                                    LONG_WINDOW)
     train_launches = [
         training("(a) prod-flash-fp32-adam", TRAIN, prod, torch.float32,
                  0.0, adam(lr=1e-3), flash),
@@ -2413,9 +2817,39 @@ def main() -> int:
                  mixed_precision(adam(lr=1e-3)),
                  {ATTENTION_TC[0]: 8, **dict.fromkeys(TWO_PASS_TC, 4)},
                  chunked_vocab=LONG_CHUNKS),
+        # the window's band: the masked forward twice a layer (remat) and
+        # the backward form the JAX rule takes under the window (two passes
+        # at L = 16384 in bf16)
+        training("(g) long-window-2048-flash-bf16-remat-chunked",
+                 {**TRAIN_LONG, "window": LONG_WINDOW}, (LONG_B, LONG_L),
+                 torch.bfloat16, 0.1, mixed_precision(adam(lr=1e-3)),
+                 {MASKED_TC[0]: 8, **(dict.fromkeys(MASKED_TC[2:], 4)
+                                      if long_window_two_pass
+                                      else {MASKED_TC[1]: 4})},
+                 chunked_vocab=LONG_CHUNKS),
+        # packed rows: the masked forward and fused backward once a layer
+        training("(h) prod-packed-flash-bf16-mixed-precision-adam-dropout",
+                 TRAIN, (PACK_ROWS, PACK_L), torch.bfloat16, 0.1,
+                 mixed_precision(adam(lr=1e-3)),
+                 dict.fromkeys(MASKED_TC[:2], 4), batch=packed),
     ]
     for n in TRAINING_KERNELS:
         launches[n] = sum(t[n] for t in train_launches)
+    # the masked fp32 forms: one fp32 step at the production widths over
+    # mode (h)'s packed rows under a window of 256, and one at 2 layers and
+    # L = 8192 under mode (g)'s window, where fp32 takes the two passes
+    packed_e2e = training_end_to_end(
+        "prod-flash-window-256-packed", {**TRAIN, "window": 256},
+        (PACK_ROWS, PACK_L), batch=packed,
+        launches=dict.fromkeys(MASKED_X6[:2], 4))
+    window_e2e = training_end_to_end(
+        "long-two-pass-window-2048",
+        {**TRAIN_LONG, "n_layer": 2, "window": LONG_WINDOW},
+        (LONG_B, LONG_E2E_L), chunked_vocab=LONG_CHUNKS,
+        launches={MASKED_X6[0]: 4, **dict.fromkeys(MASKED_X6[2:], 2)})
+    for row in (packed_e2e, window_e2e):
+        for n, c in row["launches"]["kernel"].items():
+            launches[n] += c
     long_peak_memory()
     training_end_to_end("prod-flash", TRAIN, prod)
     training_end_to_end("ref-fused-fused-ln", REF, ref)
@@ -2510,6 +2944,37 @@ def main() -> int:
             "max_abs_err_over_two_pass_cases": two_worst[x6],
             "max_abs_err_vs_float64": {
                 o: fp64_errs[LONG_E2E_L][o] for o in outs}})
+    # the masked forms: each at the shape its main-path run takes (modes (g)
+    # and (h) in bf16, the two fp32 steps), the other timed shapes beside
+    main_label = {
+        MASKED_TC[0]: "mode (g): window 2048",
+        MASKED_TC[1]: "segments of mode (h)",
+        MASKED_TC[2]: "mode (g): window 2048",
+        MASKED_TC[3]: "mode (g): window 2048",
+        MASKED_X6[0]: "window 256", MASKED_X6[1]: "window 256",
+        MASKED_X6[2]: "window 2048", MASKED_X6[3]: "window 2048"}
+    lines = dict(zip(FLASH_KERNELS, ("flash_attention.py:498",
+                                     "flash_attention.py:1228",
+                                     "flash_attention.py:1134",
+                                     "flash_attention.py:1159")))
+    for n in MASKED:
+        kernel = next(k for k in FLASH_KERNELS
+                      if n.startswith(k + common.TC)
+                      or n.startswith(k + common.X6))
+        src = kernel if kernel in ATTENTION else TWO_PASS_SOURCE
+        r = masked_rows[(n, main_label[n])]
+        entries.append({
+            "name": n, "route": "cuda",
+            "source": f"tpu_flash_torch/kernels/csrc/{src}.cu",
+            "replaces": f"tpu_flash/kernels/{lines[kernel]}",
+            "launches": launches[n], "max_abs_err": r["max_abs_err"],
+            **{k: r[k] for k in timed},
+            "shape": f"{r['shape']}, {main_label[n]}",
+            "max_abs_err_over_mask_cases": masked_worst[n],
+            "other_shapes": {lb: {k: masked_rows[(m, lb)][k]
+                                  for k in timed + ("max_abs_err",)}
+                             for m, lb in masked_rows
+                             if m == n and lb != main_label[n]}})
     replaces.update({"layernorm_fwd": "layernorm.py:42",
                      "layernorm_bwd": "layernorm.py:102",
                      "attn_softmax_fwd": "softmax.py:48",

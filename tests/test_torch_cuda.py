@@ -212,17 +212,18 @@ def assert_close_bf16(got, want):
     assert_within(got, want, BF16_ARMS, BF16_RTOL)
 
 
-def stepped_lse(q, k, causal, q_offset=None):
+def stepped_lse(q, k, causal, q_offset=None, window=None, seg=None):
     """lse as the tensor-core forward computes it from bf16 q and k: the
     online softmax over steps of 64 keys (32 at d = 128), each step's p
     rounded to bf16 against the running max, and below d = 128 the
-    normaliser summing that bf16 p (at d = 128 the fp32 p)."""
+    normaliser summing that bf16 p (at d = 128 the fp32 p); ``window`` and
+    ``seg`` mask as the masked form does."""
     from tpu_flash_torch.kernels import flash_attention as fa
 
     B, H, Lq, d = q.shape
     Lk, g = k.shape[2], H // k.shape[1]
     q_offset = Lk - Lq if q_offset is None else q_offset
-    s2 = fa._scores2(q, k, 1 / d ** 0.5, causal, q_offset)
+    s2 = fa._scores2(q, k, 1 / d ** 0.5, causal, q_offset, window, seg)
     m = torch.full((B, H, Lq, 1), -float("inf"), device=q.device)
     l = torch.zeros_like(m)
     step = 64 if d <= 64 else 32
@@ -360,8 +361,12 @@ def test_flash_attention_kernels_reject_what_they_do_not_take(cuda_device):
         flash_attention_forward(x, x, x)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flash_attention_forward(*(x[..., :32].half() for _ in range(3)))
+    with pytest.raises(ValueError, match="window requires causal"):
+        flash_attention_forward(x[..., :32], x[..., :32], x[..., :32],
+                                window=4)
     with pytest.raises(NotImplementedError, match="A5"):
-        flash_attention_forward(x, x, x, window=4)
+        flash_attention_forward(x[..., :32], x[..., :32], x[..., :32],
+                                dropout_rate=0.1)
 
 
 # --- the tensor-core forms of the forward and the fused backward (bf16) ----
@@ -554,10 +559,11 @@ def test_flash_entries_refuse_the_other_forms_dtype(cuda_device, which,
         outs = (nan_like(q), nan_like(lse), nan_like(lse))
         _, fn = common.entry(kernel, symbol, [ctypes.c_void_p] * 6
                              + [ctypes.c_int] * 9
-                             + [ctypes.c_float, ctypes.c_void_p])
+                             + [ctypes.c_float, ctypes.c_int,
+                                ctypes.c_void_p, ctypes.c_void_p])
         err = common.call_on_stream(
             fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            *(t.data_ptr() for t in outs), *shape, 0.25 * fa.LOG2E)
+            *(t.data_ptr() for t in outs), *shape, 0.25 * fa.LOG2E, 0, None)
     else:
         kin = fa._bwd_inputs(q, k, v, out, lse, do, None)
         order = torch.zeros(2, dtype=torch.int32, device=q.device)
@@ -565,11 +571,12 @@ def test_flash_entries_refuse_the_other_forms_dtype(cuda_device, which,
         _, fn = common.entry(kernel, symbol, [ctypes.c_void_p] * 10
                              + [ctypes.c_int] * 9
                              + [ctypes.c_float, ctypes.c_float,
+                                ctypes.c_int, ctypes.c_void_p,
                                 ctypes.c_void_p])
         err = common.call_on_stream(
             fn, q.device, *(t.data_ptr() for t in kin), outs[0].data_ptr(),
             order.data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(), *shape,
-            0.25, 0.25 * fa.LOG2E)
+            0.25, 0.25 * fa.LOG2E, 0, None)
     torch.cuda.synchronize()
     assert err != 0
     assert all(torch.isnan(t.float()).all() for t in outs)
@@ -704,7 +711,8 @@ def test_two_pass_entries_refuse_the_other_forms_dtype(cuda_device, which,
     err = common.call_on_stream(
         fn, q.device, *(t.data_ptr() for t in kin), *(t.data_ptr()
                                                        for t in outs),
-        1, 2, 2, 64, 64, 16, fa._DTYPES[other], 1, 0, 0.25, 0.25 * fa.LOG2E)
+        1, 2, 2, 64, 64, 16, fa._DTYPES[other], 1, 0, 0.25, 0.25 * fa.LOG2E,
+        0, None)
     torch.cuda.synchronize()
     assert err != 0
     assert all(torch.isnan(t.float()).all() for t in outs)
@@ -1597,3 +1605,213 @@ def test_quantized_decode_step_kernel_matches_plain(cuda_device, bits, g):
         logits[impl] = out
     torch.testing.assert_close(logits["kernel"], logits["plain"], atol=1e-4,
                                rtol=1e-4)
+
+
+# --- sliding windows and packed segments: the masked forms ---------------
+
+
+def packed_segments(B, L, seed, dev):
+    """Segment ids [B, L] as a packed batch gives them: runs of 1 to 40
+    positions (length-1 runs among them), then a pad-tail segment of its
+    own id in every row but the last (which ends with a length-1 run)."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for b in range(B):
+        ids, sid = [], 0
+        tail = 0 if b == B - 1 else int(rng.integers(1, L // 4))
+        while len(ids) < L - tail:
+            n = 1 if rng.random() < 0.2 else int(rng.integers(2, 41))
+            ids += [sid] * min(n, L - tail - len(ids))
+            sid += 1
+        if b == B - 1:
+            ids[-1] = sid
+        rows.append(ids + [sid + 1] * tail)
+    return torch.tensor(rows, dtype=torch.int32, device=dev)
+
+
+# name, B, H, Hkv, Lq, Lk, d, window, segments: chip_smoke.py's MASK_CASES
+# (windows of one key, just under, at and off a 64-key tile, past L; Lq <
+# Lk; GQA; ragged L; each head dim; packed segments alone and under a
+# window)
+MASK_CASES = [
+    ("w1", 2, 8, 8, 1000, 1000, 64, 1, False),
+    ("w63", 2, 8, 8, 1000, 1000, 64, 63, False),
+    ("w64", 2, 8, 8, 1024, 1024, 64, 64, False),
+    ("w100-ragged-L1000", 2, 8, 8, 1000, 1000, 64, 100, False),
+    ("w256-L2048", 2, 8, 8, 2048, 2048, 64, 256, False),
+    ("w-ge-L", 2, 8, 8, 512, 512, 64, 4096, False),
+    ("lq-lt-lk-300x700-w100", 2, 8, 8, 300, 700, 64, 100, False),
+    ("gqa-8q2kv-w128", 2, 8, 2, 512, 512, 64, 128, False),
+    ("d16-w50", 2, 8, 8, 300, 300, 16, 50, False),
+    ("d32-w100", 2, 8, 8, 512, 512, 32, 100, False),
+    ("d128-w100", 2, 8, 8, 512, 512, 128, 100, False),
+    ("seg-L1024", 2, 8, 8, 1024, 1024, 64, None, True),
+    ("seg-gqa-d128", 2, 8, 2, 512, 512, 128, None, True),
+    ("seg-d32-ragged", 2, 8, 8, 333, 333, 32, None, True),
+    ("seg-w100", 2, 8, 8, 1024, 1024, 64, 100, True),
+]
+
+
+def masked_names(dtype, kernels):
+    from tpu_flash_torch.kernels import flash_attention as fa
+
+    return {fa._form_name(n, dtype, True): 1 for n in kernels}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,B,H,Hkv,Lq,Lk,d,window,segmented",
+                         MASK_CASES)
+def test_masked_forms_match_plain(cuda_device, dtype, name, B, H, Hkv, Lq,
+                                  Lk, d, window, segmented):
+    """Each flash kernel's masked form (forward, fused backward, dK/dV and
+    dQ passes) under a window, segments or both, against its plain version:
+    bf16 out and gradients within BF16_ARMS, lse within 1e-4 of
+    ``stepped_lse`` under the same masks; fp32 within FA_TOL (the two
+    passes at 1e-3).  Each call launches its masked form once and nothing
+    else; a window at or beyond L gives the unmasked causal form's bits."""
+    from tpu_flash_torch.kernels import flash_attention as fa
+    from tpu_flash_torch.kernels.flash_attention import (
+        flash_attention_backward_dkv_plain, flash_attention_backward_dq_plain,
+        flash_attention_backward_fused, flash_attention_backward_two_pass,
+        flash_attention_forward)
+
+    gen = torch.Generator(cuda_device).manual_seed(21)
+    q, k, v, do = attention_case(gen, cuda_device, B, H, Hkv, Lq, Lk, d,
+                                 dtype)
+    seg = packed_segments(B, Lq, 5, cuda_device) if segmented else None
+    kw = dict(causal=True, window=window, segment_ids=seg)
+    before = dict(common.launch_counts)
+    out, lse, m = flash_attention_forward(q, k, v, with_m=True, **kw)
+    fused = flash_attention_backward_fused(q, k, v, out, lse, do, **kw)
+    two = flash_attention_backward_two_pass(q, k, v, out, lse, do, **kw)
+    launched = {n: c - before.get(n, 0) for n, c in
+                common.launch_counts.items() if c != before.get(n, 0)}
+    want = flash_attention_forward(q, k, v, with_m=True, impl="plain", **kw)
+    ref = flash_attention_backward_fused(q, k, v, out, lse, do, impl="plain",
+                                         **kw)
+    ref_dk, ref_dv = flash_attention_backward_dkv_plain(q, k, v, out, lse,
+                                                        do, **kw)
+    ref_dq = flash_attention_backward_dq_plain(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert launched == masked_names(dtype, (fa.KERNEL_FWD, fa.KERNEL_BWD,
+                                            fa.KERNEL_DKV, fa.KERNEL_DQ))
+    fw_tol, bw_tol = FA_TOL[dtype]
+    if dtype == torch.bfloat16:
+        # a row of a short segment sees a few keys, so one bf16 P landing
+        # an ulp the other side of a rounding boundary (the scores' sums
+        # run in another order) moves its lse by up to ~5e-4: chip_smoke.py's
+        # ATTN_TOL limit for lse, 1e-3
+        torch.testing.assert_close(
+            lse, stepped_lse(q, k, True, None, window, seg), atol=1e-3,
+            rtol=1e-3)
+        torch.testing.assert_close(m, want[2], atol=1e-4, rtol=1e-4)
+        named = zip(("out", "dq", "dk", "dv", "dq", "dk", "dv"),
+                    (out, *fused, *two),
+                    (want[0], *ref, ref_dq, ref_dk, ref_dv))
+        for name, a, b in named:
+            assert a.dtype == b.dtype == dtype and a.shape == b.shape
+            if window == 1 and name in ("dq", "dk"):
+                # a row sees only its own key: P = 1, dS = P (dP - D) is 0
+                # exactly, and both hold the noise of fp32 sums over d
+                torch.testing.assert_close(a.float(), b.float(), atol=1e-4,
+                                           rtol=0)
+            else:
+                assert_close_bf16(a, b)
+    else:
+        for a, b in zip((out, lse, m), want):
+            torch.testing.assert_close(a, b, atol=fw_tol, rtol=fw_tol)
+        for a, b in zip(fused, ref):
+            torch.testing.assert_close(a, b, atol=bw_tol, rtol=bw_tol)
+        for a, b in zip(two, (ref_dq, ref_dk, ref_dv)):
+            torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)
+    if window is not None and window >= Lk and not segmented:
+        unmasked = flash_attention_forward(q, k, v, causal=True,
+                                           with_m=True)
+        for a, b in zip((out, lse, m), unmasked):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,L,d,window,segmented", [
+    (4, 8, 8, 2048, 64, 256, False),    # the timed windowed shape
+    (2, 8, 2, 1000, 128, 100, False),   # d 128: 32-row fp32 chunks
+    (1, 4, 4, 700, 32, 1, False),       # the narrowest band
+    (2, 4, 2, 513, 64, 200, True),      # with segments
+    (2, 4, 2, 400, 16, None, True)])
+def test_masked_fused_backward_gives_the_same_bits(cuda_device, dtype, B, H,
+                                                   Hkv, L, d, window,
+                                                   segmented):
+    """Under a window each key tile waits at a query chunk only for the key
+    tiles below it whose band reaches the chunk: the adds stay in key-tile
+    order (two calls give the same bits) and every wait is met (the launch
+    ends, no trap)."""
+    from tpu_flash_torch.kernels import flash_attention as fa
+    from tpu_flash_torch.kernels.flash_attention import (
+        flash_attention_backward_fused, flash_attention_forward)
+
+    gen = torch.Generator(cuda_device).manual_seed(22)
+    q, k, v, do = attention_case(gen, cuda_device, B, H, Hkv, L, L, d, dtype)
+    seg = packed_segments(B, L, 6, cuda_device) if segmented else None
+    kw = dict(causal=True, window=window, segment_ids=seg)
+    out, lse, _ = flash_attention_forward(q, k, v, **kw)
+    name = fa._form_name(fa.KERNEL_BWD, dtype, True)
+    before = common.launch_counts[name]
+    first = flash_attention_backward_fused(q, k, v, out, lse, do, **kw)
+    second = flash_attention_backward_fused(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert common.launch_counts[name] == before + 2
+    for a, b in zip(first, second):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_masked_kernels_refuse_a_window_without_causal(cuda_device):
+    """The C entries refuse what the wrapper would have refused: a window
+    without causal, segments with Lq != Lk."""
+    from tpu_flash_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(cuda_device).manual_seed(23)
+    q, k, v, _ = attention_case(gen, cuda_device, 1, 2, 2, 64, 64, 64,
+                                torch.bfloat16)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fa._launch_forward(q, k, v, False, None, None, False, 8)
+    q2 = q[:, :, :32].contiguous()
+    seg = torch.zeros(1, 64, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fa._launch_forward(q2, k, v, True, None, None, False, None, seg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt,gdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16),
+                                     (torch.bfloat16, torch.float32),
+                                     (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("R,H", [(8192, 256), (8192, 512), (1000, 1024),
+                                 (37, 32), (300, 100), (77, 200), (50, 4096),
+                                 (65, 70), (40, 1030), (3000, 264)])
+def test_layernorm_forward_forms_match_plain(cuda_device, xdt, gdt, R, H):
+    """Every form of the LayerNorm forward's plan: held rows in 16-byte
+    (and, bf16 at H % 8 != 0, 8-byte) vectors with one or two rows a warp
+    at once, ragged H inside a vector's lanes, and the looped form (H % 4
+    != 0, H > 1024), with x and gamma of either dtype; R beyond one wave
+    of the grid (3000 x 264) has warps walk rows with the next pass's loads
+    in flight.  Within FUSED_TOL of the plain version; one launch a call."""
+    from tpu_flash_torch.kernels.layernorm import layernorm_forward
+
+    gen = torch.Generator(cuda_device).manual_seed(24)
+    x = (3 * torch.randn(R, H, generator=gen, device=cuda_device) + 1
+         ).to(xdt)
+    g, b = (torch.randn(H, generator=gen, device=cuda_device).to(gdt)
+            for _ in range(2))
+    before = common.launch_counts["layernorm_fwd"]
+    y, mean, var = layernorm_forward(x, g, b)
+    ref = layernorm_forward(x, g, b, impl="plain")
+    torch.cuda.synchronize()
+    assert common.launch_counts["layernorm_fwd"] == before + 1
+    arms, rtol = FUSED_TOL[xdt]
+    assert y.dtype == xdt
+    assert_within(y, ref[0], arms, rtol)
+    for a, w in zip((mean, var), ref[1:]):
+        assert_within(a, w, *FUSED_TOL[torch.float32])

@@ -206,10 +206,19 @@ def test_aliases_and_what_raises(rng):
     torch.testing.assert_close(tops.flash_attn2(q, k, v), ref)
     torch.testing.assert_close(tops.flash_attn_causal(q, k, v),
                                tops.flash_attention(q, k, v, causal=True))
-    for kw in (dict(kv_quant="int8"), dict(dropout_rate=0.1),
-               dict(window=4, causal=True), dict(segment_ids=q[:, 0, :, 0])):
+    for kw in (dict(kv_quant="int8"), dict(dropout_rate=0.1)):
         with pytest.raises(NotImplementedError, match="A5"):
             tops.flash_attention(q, k, v, **kw)
+    # window and segment ids are ported: the op equals naive attention
+    # under the same masks
+    seg = torch.tensor([[0] * 12 + [1] * 20])
+    mask = (tref.window_mask(32, 32, 4)
+            + tref.apply_segment_mask(torch.zeros(1, 1, 32, 32), seg))
+    torch.testing.assert_close(
+        tops.flash_attention(q, k, v, causal=True, window=4,
+                             segment_ids=seg),
+        tref.naive_attention(q, k, v, causal=True, mask=mask), atol=1e-5,
+        rtol=1e-5)
     with pytest.raises(ValueError, match="version"):
         tops.flash_attention(q, k, v, version=3)
     with pytest.raises(ValueError, match="CUDA"):

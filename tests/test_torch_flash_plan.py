@@ -210,6 +210,48 @@ def test_the_c_entries_take_ctypes_of_the_right_width(stub_entries,
     fwd, bwd = argtypes["tf_flash_attention_fwd_tc"], \
         argtypes["tf_flash_attention_bwd_tc"]
     assert fwd == [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
-        ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     assert bwd == [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p]
+
+
+@pytest.mark.parametrize("window,segmented", [(8, False), (None, True),
+                                              (8, True)])
+@pytest.mark.parametrize("dtype,suffix", [(BF16, "_tc"), (FP32, "_x6")])
+def test_a_window_or_segments_launch_the_masked_form(stub_entries, window,
+                                                     segmented, dtype,
+                                                     suffix):
+    """With a window or segment ids every kernel calls its form's C entry
+    with the window (0 for none) and the ids' pointer (None for none) after
+    the scales, and counts under the form's name + MASK; without either the
+    same entries get 0 and None and count under the unmasked names."""
+    calls, _ = stub_entries
+    q, k, v, do = inputs(dtype, Lq=72)    # segments need Lq == Lk
+    seg = (torch.tensor(np.repeat(np.arange(9), 8)[None], dtype=torch.int64)
+           if segmented else None)
+    kw = dict(causal=True, window=window, segment_ids=seg)
+    for masked_call in (True, False):
+        calls.clear()
+        mkw = kw if masked_call else dict(causal=True)
+        (out, lse, _), fwd = counts_of(
+            lambda: fa.flash_attention_forward(q, k, v, **mkw))
+        _, fused = counts_of(lambda: fa.flash_attention_backward_fused(
+            q, k, v, out, lse, do, **mkw))
+        _, two = counts_of(lambda: fa.flash_attention_backward_two_pass(
+            q, k, v, out, lse, do, **mkw))
+        names = [fa._form_name(n, dtype, masked_call) for n in
+                 (fa.KERNEL_FWD, fa.KERNEL_BWD, fa.KERNEL_DKV, fa.KERNEL_DQ)]
+        assert {**fwd, **fused, **two} == dict.fromkeys(names, 1)
+        assert all(n.endswith(suffix + fa.MASK) == masked_call
+                   for n in names)
+        assert [c[1] for c in calls] == [
+            "tf_" + fa._form_name(n, dtype) for n in
+            (fa.KERNEL_FWD, fa.KERNEL_BWD, fa.KERNEL_DKV, fa.KERNEL_DQ)]
+        for _, _, a in calls:
+            win, ptr = a[-3], a[-2]
+            assert win == ((window or 0) if masked_call else 0)
+            if masked_call and segmented:
+                assert isinstance(ptr, int) and ptr != 0
+            else:
+                assert ptr is None

@@ -250,3 +250,66 @@ def test_layernorm_backward_call_hands_the_kernel_its_grid(monkeypatch):
                                             (8192, 1024, 17)]
     assert [c[12:] for c in rec.calls] == [(0, 0, 0), (1, 1, 1), (1, 1, 1)]
     assert layernorm.launch_counts[layernorm.KERNEL_BWD] == before + 3
+
+
+# --- the LayerNorm forward -------------------------------------------------
+
+@pytest.mark.parametrize("dtype,H,plan", [
+    # a row held in 16-byte vectors; 8192 rows take 2 blocks an SM, 264,
+    # each warp two passes (of two rows at once up to 32 bytes a lane)
+    (BF16, 32, (8, 1, 264)),
+    (BF16, 100, (4, 1, 264)),     # H % 8 != 0: 8-byte bf16 vectors
+    (BF16, 256, (8, 1, 264)),     # the reference MT width
+    (BF16, 512, (8, 2, 264)),     # the production width
+    (BF16, 1024, (8, 4, 264)),    # one row a warp at once
+    (BF16, 4096, (0, 0, 264)),    # past the held rows: the looped form
+    (FP32, 32, (4, 1, 264)),
+    (FP32, 100, (4, 1, 264)),
+    (FP32, 256, (4, 2, 264)),
+    (FP32, 512, (4, 4, 264)),
+    (FP32, 1024, (4, 8, 264)),
+    (FP32, 4096, (0, 0, 264)),
+    (FP32, 70, (0, 0, 264)),      # H % 4 != 0: the looped form
+])
+def test_layernorm_forward_plan(dtype, H, plan):
+    assert layernorm._fwd_plan(8192, H, dtype, SMS) == layernorm.FwdPlan(
+        *plan)
+
+
+def test_layernorm_forward_plan_bounds():
+    """Held rows fit the kernel's vectors (32 V NV >= H, NV a power of two,
+    no wider than needed), at most 1024 values; the grid is the plan's
+    blocks an SM, fewer where the rows need fewer, never empty."""
+    for dtype, H, R in itertools.product((BF16, FP32), range(4, 1100, 4),
+                                         (0, 1, 37, 8192, 100_000)):
+        p = layernorm._fwd_plan(R, H, dtype, SMS)
+        assert 1 <= p.blocks <= layernorm.LN_FWD_BLOCKS_PER_SM * SMS
+        if H > layernorm.LN_FWD_HELD_MAX:
+            assert p == (0, 0, p.blocks)
+            continue
+        item = 2 if dtype == BF16 else 4
+        assert H % p.V == 0 and p.NV & (p.NV - 1) == 0
+        assert 32 * p.V * p.NV >= H and (p.NV == 1 or H > 16 * p.V * p.NV)
+        rows = 2 if p.V * p.NV * item <= 32 else 1   # held_rows
+        assert p.blocks == max(1, min(cdiv(R, 8 * rows),
+                                      layernorm.LN_FWD_BLOCKS_PER_SM * SMS))
+
+
+def test_layernorm_forward_call_hands_the_kernel_its_plan(monkeypatch):
+    """The C entry gets R, H, the dtypes and then the plan (V, NV,
+    blocks); one launch a call."""
+    rec = Recorder()
+    monkeypatch.setattr(layernorm, "entry", lambda *a: (None, None))
+    monkeypatch.setattr(layernorm, "call_on_stream", rec)
+    monkeypatch.setattr(layernorm, "sm_count", lambda dev: SMS)
+    before = layernorm.launch_counts[layernorm.KERNEL_FWD]
+    for R, H, dtype, gdt in ((8192, 256, BF16, BF16), (8192, 512, FP32, FP32),
+                             (37, 70, BF16, FP32)):
+        x = torch.zeros(R, H, dtype=dtype)
+        g = torch.ones(H, dtype=gdt)
+        y, mean, var = layernorm._launch_forward(x, g, torch.zeros_like(g))
+        assert y.dtype == dtype and mean.shape == var.shape == (R,)
+    assert [c[6:] for c in rec.calls] == [
+        (8192, 256, 1, 1, 8, 1, 264), (8192, 512, 0, 0, 4, 4, 264),
+        (37, 70, 1, 0, 0, 0, 5)]
+    assert layernorm.launch_counts[layernorm.KERNEL_FWD] == before + 3

@@ -173,16 +173,24 @@ def test_unported_config_raises(over):
 
 
 def test_unported_forward_paths_raise():
-    """What the port still lacks on the uncached forward: window and packed
-    sequences (flash and fused attention and training are ported)."""
+    """What the uncached forward still refuses, as the JAX package does: a
+    window or packed sequences on the fused route (its [B, Lk] mask cannot
+    express them), and packed sequences on the cached decode path.  The
+    flash and naive routes take both."""
     ids = torch.zeros(1, 4, dtype=torch.long)
     for kind in ("flash", "naive"):
         m = tnn.DecoderLM(tnn.DecoderConfig(**{**CFG, "attention_kind": kind},
                                             window=4), device="cpu")
-        with pytest.raises(NotImplementedError, match="window"):
-            m(ids, training=True)
+        assert torch.isfinite(m(ids, training=True,
+                                segment_ids=torch.tensor([[0, 0, 1, 1]]))
+                              ).all()
+    fused = tnn.DecoderLM(tnn.DecoderConfig(**{**CFG, "attention_kind":
+                                               "fused"}, window=4),
+                          device="cpu")
+    with pytest.raises(NotImplementedError, match="window"):
+        fused(ids)
     with pytest.raises(NotImplementedError, match="segment_ids"):
-        m(ids, segment_ids=ids)
+        m(ids, segment_ids=ids, kv_caches=[])
 
 
 def test_entry_points_need_a_card_or_cpu():

@@ -13,8 +13,8 @@ each serving linear and at fp32 prefills of 16, 64, 128, 256 and 1024
 tokens at K1024 N4096, weights rotating past the 50 MB L2, with the same
 check, beside cuBLAS's fp32 ``x @ W`` against the weight dequantized once
 at each fp32 shape (the same for every tree: a yardstick, never called by
-the port); the fused LayerNorm forward at R8192 H256 (fp32 and bf16) and
-H512 (bf16, mode (e)'s) and backward at R8192 H256 (fp32 and bf16) and H512
+the port); the fused LayerNorm forward at R8192 H256 and H512 (fp32 and
+bf16; H512 is mode (e)'s) and backward at R8192 H256 (fp32 and bf16) and H512
 (the production width, fp32 and bf16), the masked softmax forward and
 backward (fp32 and bf16, the dtypes modes (c) and (d) give them) at B32 H8
 L256 causal (the reference MT shapes), and flash decode at
@@ -291,6 +291,7 @@ def other_rows(torch, timer) -> list[dict]:
         ln_bwd("bfloat16", 512),
         decode("bf16", 1024), decode("int8", 8192), decode("bf16", 8192),
         ln_fwd("bfloat16", 256), ln_fwd("bfloat16", 512),
+        ln_fwd("float32", 512),
         ("softmax bwd", "bfloat16", "B32 H8 L256 causal",
          (attn_softmax_forward(s16, mask_future=True),
           dp.to(torch.bfloat16)), attn_softmax_backward))

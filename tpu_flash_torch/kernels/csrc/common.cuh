@@ -28,10 +28,10 @@ __device__ __forceinline__ void bf16x2(uint32_t w, float* f) {
   f[1] = __uint_as_float(w & 0xffff0000u);
 }
 
-// The LayerNorm forward and the masked-softmax backward take fp32 or bf16
-// per array, chosen at run time by a flag (the branch is uniform across the
-// grid; the softmax forward and the LayerNorm backward take their dtypes as
-// template arguments, load_v and store_v below).  One value as a float:
+// The masked-softmax backward takes fp32 or bf16 per array, chosen at run
+// time by a flag (the branch is uniform across the grid; the softmax
+// forward and both LayerNorm kernels take their dtypes as template
+// arguments, load_v and store_v below).  One value as a float:
 __device__ __forceinline__ float load1(const void* base, size_t i, bool bf16) {
   return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(base)[i])
               : static_cast<const float*>(base)[i];

@@ -36,7 +36,11 @@
 //     Precision.HIGHEST, k, v and each query tile arriving in fp32 and split
 //     once into bf16 planes in shared memory.
 // Both bodies are flash_attention_bwd.cuh's, which the dK/dV pass of the
-// two-pass form runs without dQ.
+// two-pass form runs without dQ.  Each form has a masked instantiation
+// (kMask: a sliding window and segment ids), launched only where the call
+// has either; under a window a key tile waits at a chunk only for the key
+// tiles below it whose band reaches the chunk (dq_turn), so the adds keep
+// the key tiles' order and two calls still give the same bits.
 //
 // What bounds it: operations (five L^2 * D products, 4.3e10 useful flops at
 // B4 H8 L2048 d64 causal, against ~50 MB of traffic).  In bf16 the dQ adds
@@ -55,26 +59,39 @@ namespace {
 
 // Two blocks an SM (as the dK/dV pass: without the bound ptxas caps d = 32
 // at 168 registers and spills).
-template <int D>
+template <int D, bool kMask>
 __global__ void __launch_bounds__(kTcThreads, 2)
-flash_attention_bwd_tc_kernel(const BwdParams p) {
-  kv_outer_tc_body<D, true>(p);
+flash_attention_bwd_tc_kernel(const BwdParamsOf<kMask> p) {
+  kv_outer_tc_body<D, true, kMask>(p);
 }
 
 // The fp32 form: kv_outer_x6_body with dQ (flash_attention_bwd.cuh), one
 // block an SM.
-template <int D>
+template <int D, bool kMask>
 __global__ void __launch_bounds__(kTcThreads)
-flash_attention_bwd_x6_kernel(const BwdParams p) {
-  kv_outer_x6_body<D, true>(p);
+flash_attention_bwd_x6_kernel(const BwdParamsOf<kMask> p) {
+  kv_outer_x6_body<D, true, kMask>(p);
 }
 
-template <int D>
-cudaError_t launch_form(const BwdParams& p, bool x6, cudaStream_t stream) {
-  return x6 ? launch_kv_outer_x6<D, true>(flash_attention_bwd_x6_kernel<D>,
-                                          p, stream)
-            : launch_kv_outer_tc<D, true>(flash_attention_bwd_tc_kernel<D>, p,
-                                          stream);
+template <int D, bool kMask>
+cudaError_t launch_form(const BwdParamsOf<kMask>& p, bool x6,
+                        cudaStream_t stream) {
+  return x6 ? launch_kv_outer_x6<D, true, kMask>(
+                  flash_attention_bwd_x6_kernel<D, kMask>, p, stream)
+            : launch_kv_outer_tc<D, true, kMask>(
+                  flash_attention_bwd_tc_kernel<D, kMask>, p, stream);
+}
+
+template <bool kMask>
+cudaError_t launch_d(const BwdParamsOf<kMask>& p, int d, bool x6,
+                     cudaStream_t stream) {
+  switch (d) {
+    case 16: return launch_form<16, kMask>(p, x6, stream);
+    case 32: return launch_form<32, kMask>(p, x6, stream);
+    case 64: return launch_form<64, kMask>(p, x6, stream);
+    case 128: return launch_form<128, kMask>(p, x6, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -90,9 +107,10 @@ extern "C" {
              const float* lse, const float* delta, float* dq, int* dq_order,  \
              void* dk, void* dv, int B, int H, int Hkv, int Lq, int Lk,       \
              int d, int dtype, int causal, int q_offset, float scale,         \
-             float scale2, void* stream) {                                    \
+             float scale2, int window, const int* seg, void* stream) {        \
     if (dtype != (x6 ? 0 : 1) ||                                              \
-        !bwd_args_ok(dtype, H, Hkv, d, (long long)B * Hkv))                   \
+        !bwd_args_ok(dtype, H, Hkv, d, (long long)B * Hkv) ||                 \
+        !mask_args_ok(window, causal, seg, Lq, Lk))                           \
       return cudaErrorInvalidValue;                                           \
     if (B == 0 || H == 0 || Lk == 0) return cudaSuccess;                      \
     const BwdParams p{q,  k,  v,        dout,        lse,   delta,            \
@@ -100,13 +118,9 @@ extern "C" {
                       Lq, Lk, q_offset, causal != 0, scale, scale2,           \
                       dq_order};                                              \
     const cudaStream_t st = static_cast<cudaStream_t>(stream);               \
-    switch (d) {                                                              \
-      case 16: return launch_form<16>(p, x6, st);                             \
-      case 32: return launch_form<32>(p, x6, st);                             \
-      case 64: return launch_form<64>(p, x6, st);                             \
-      case 128: return launch_form<128>(p, x6, st);                           \
-    }                                                                         \
-    return cudaErrorInvalidValue;                                             \
+    if (window > 0 || seg)                                                    \
+      return launch_d<true>(masked(p, window, seg), d, x6, st);               \
+    return launch_d<false>(p, d, x6, st);                                     \
   }
 
 TF_BWD_ENTRY(tf_flash_attention_bwd_tc, false)

@@ -17,12 +17,21 @@
 // row whose lse is -inf (it saw no key) gets P = 0, not exp(+inf), so its dS
 // and dQ are 0.
 //
+// Each body has a masked instantiation (kMask: a sliding window and segment
+// ids, flash_attention_tc.cuh): the query walk ends at the band's last row
+// (query_tiles), steps of query rows are skipped or taken without the
+// element mask by rows_live, and under a window the fused pass's ordered
+// dQ adds wait at each chunk only for the key tiles that reach it
+// (dq_turn).
+//
 // kernels/common.py hashes every .cuh into each library's name, so an edit
 // here rebuilds every kernel that includes it.
 
 #pragma once
 
 #include <math.h>
+
+#include <type_traits>
 
 #include "flash_attention_tc.cuh"
 
@@ -47,6 +56,90 @@ struct BwdParams {
                        // the caller, the dQ adds made to each query chunk
                        // (the form's tile of query rows)
 };
+
+// The masked forms' parameters (flash_attention_tc.cuh).
+struct MaskedBwdParams : BwdParams {
+  int window;          // keys > i + q_offset - window; kNoBand for none
+  const int* seg;      // [B, L] segment ids, or null
+};
+
+template <bool kMask>
+using BwdParamsOf = std::conditional_t<kMask, MaskedBwdParams, BwdParams>;
+
+// The KV-outer bodies' query tiles of kTile rows from q_start, to the last
+// row that sees the block's keys from k0 (the masked forms: the band's
+// end, which rises with the key tile).
+template <bool kMask, int kTile, typename Prm>
+__device__ __forceinline__ int query_tiles(const Prm& p, int q_start,
+                                           int k0) {
+  if constexpr (kMask) {
+    const int last = (int)min((long long)p.Lq - 1,
+                              (long long)k0 + kTcBlock - 1 + p.window - 1 -
+                                  p.q_offset);
+    return q_start <= last ? (last - q_start) / kTile + 1 : 0;
+  } else {
+    return q_start < p.Lq ? (p.Lq - q_start + kTile - 1) / kTile : 0;
+  }
+}
+
+// The masked fused kernels' ordered dQ adds: the adds that key tile `tile`
+// waits for at the query chunk from row i0.  Those are the key tiles below
+// it that reach the chunk: every tile below it without a window (the
+// unmasked forms wait for `tile`); under one, those from the first whose
+// band reaches row i0 (the band's end rises with the tile, and the causal
+// limit only adds tiles above), so the wait is tile - that first tile's
+// index, and the adds stay in key-tile order.
+template <typename Prm>
+__device__ __forceinline__ int dq_turn(const Prm& p, int tile, int i0) {
+  const long long x = (long long)i0 + p.q_offset - p.window - (kTcBlock - 2);
+  return tile - (x > 0 ? (int)((x + kTcBlock - 1) / kTcBlock) : 0);
+}
+
+// The masked forms' test of a step of NQ query rows from r0 against the
+// warp's keys kw .. kw + 15: false where no pair is visible (every row is
+// past the band of the warp's last key, or the rows' segment ids share no
+// value with the keys'); else full is cleared where some pair is not.
+template <int NQ, typename Prm>
+__device__ __forceinline__ bool rows_live(const Prm& p,
+                                          const volatile MaskSmem* ms,
+                                          int r0, int kw, int warp, int lane,
+                                          bool& full) {
+  if (r0 > kw + 15 + p.window - 1 - p.q_offset) return false;
+  full = full && kw > r0 + NQ - 1 + p.q_offset - p.window;
+  return !p.seg || seg_step_live<NQ>(ms, p.Lq, r0, warp, lane, full);
+}
+
+// The masked forms' element mask of a step's S^T (rows the thread's two
+// keys, columns query rows from r0): -inf where the lengths, the causal
+// limit, the band or the segments hide the key, so that P^T is 0 there.
+template <int NQ, typename Prm>
+__device__ __forceinline__ void mask_scores_t(float (&s)[NQ / 8][4],
+                                              const Prm& p,
+                                              const volatile MaskSmem* ms,
+                                              int r0, int kw, int warp,
+                                              int lane) {
+  SegVals<NQ> qs{};
+  int own[2] = {0, 0};
+  if (p.seg) {
+    qs = seg_vals<NQ>(ms->seg, p.Lq, r0, lane);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      own[h] = ms->own[warp * 16 + (lane >> 2) + 8 * h];
+  }
+#pragma unroll
+  for (int j = 0; j < NQ / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int off = 2 * (lane & 3) + (e & 1);
+      const int i = r0 + 8 * j + off;
+      const int key = kw + (lane >> 2) + 8 * (e >> 1);
+      const int qseg = p.seg ? seg_at(qs, 8 * j, off) : 0;
+      if (i >= p.Lq || key >= p.Lk || (p.causal && key > i + p.q_offset) ||
+          key <= i + p.q_offset - p.window ||
+          (p.seg && qseg != own[e >> 1]))
+        s[j][e] = -INFINITY;
+    }
+}
 
 // lse in base 2; +inf for a row that saw no key, so that its P is 0.
 __device__ __forceinline__ float bwd_lse2(float lse) {
@@ -162,8 +255,8 @@ __device__ __forceinline__ void store_ds_t(bf16* dst, const float (*c)[4],
           c ? bf16_pair_rn(c[j][2 * h], c[j][2 * h + 1]) : 0u;
 }
 
-template <int D, bool kDQ>
-__device__ __forceinline__ void kv_outer_tc_body(const BwdParams& p) {
+template <int D, bool kDQ, bool kMask>
+__device__ __forceinline__ void kv_outer_tc_body(const BwdParamsOf<kMask>& p) {
   using S = TcShape<D>;
   // query rows of S^T a warp holds at once: with dQ, 32 (at 64, d = 64
   // spills)
@@ -197,8 +290,15 @@ __device__ __forceinline__ void kv_outer_tc_body(const BwdParams& p) {
   // the tiles of each head.
   const int first = p.causal ? max(0, k0 - p.q_offset) : 0;
   const int q_start = kDQ ? first - first % kTcTile : first;
-  const int nt = q_start < p.Lq ? (p.Lq - q_start + kTcTile - 1) / kTcTile : 0;
+  const int nt = query_tiles<kMask, kTcTile>(p, q_start, k0);
   const int tiles = g * nt;
+  // kMask: the mask's view of the block's keys after the form's shared
+  // memory
+  [[maybe_unused]] const volatile MaskSmem* ms = nullptr;
+  if constexpr (kMask)
+    ms = mask_setup(reinterpret_cast<char*>(tc_smem) +
+                        kv_outer_tc_smem_bytes<D, kDQ>(),
+                    p.seg, b, p.Lk, k0, tid);
 
   load_tile<D>(ks, p.k, kv_rows, k0, p.Lk, tid);
   load_tile<D>(vs, p.v, kv_rows, k0, p.Lk, tid);
@@ -287,8 +387,13 @@ __device__ __forceinline__ void kv_outer_tc_body(const BwdParams& p) {
         if constexpr (kDQ) store_ds_t<NQ>(dst, nullptr, warp * 16, sub, lane);
         continue;
       }
-      const bool full = r0 + NQ <= p.Lq &&
-                        !(p.causal && kw + 15 > r0 + p.q_offset);
+      bool full = r0 + NQ <= p.Lq && !(p.causal && kw + 15 > r0 + p.q_offset);
+      if constexpr (kMask)
+        if (!rows_live<NQ>(p, ms, r0, kw, warp, lane, full)) {
+          if constexpr (kDQ)
+            store_ds_t<NQ>(dst, nullptr, warp * 16, sub, lane);
+          continue;
+        }
       // S^T = K (q scale2)^T and dP^T = V dO^T: rows keys, columns query rows
       float s[NQ / 8][4], dp[NQ / 8][4];
 #pragma unroll
@@ -319,6 +424,8 @@ __device__ __forceinline__ void kv_outer_tc_body(const BwdParams& p) {
         }
       }
       // P^T and dS^T in place; column c is query row i0 + c
+      if constexpr (kMask)
+        if (!full) mask_scores_t<NQ>(s, p, ms, r0, kw, warp, lane);
 #pragma unroll
       for (int j = 0; j < NQ / 8; ++j) {
         const int c = sub + 8 * j + 2 * (lane & 3);
@@ -327,10 +434,12 @@ __device__ __forceinline__ void kv_outer_tc_body(const BwdParams& p) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float pr = exp2f(s[j][e] - (e & 1 ? lse2.y : lse2.x));
-          if (!full) {
-            const int key = kw + (lane >> 2) + 8 * (e >> 1);
-            const int i = i0 + c + (e & 1);
-            if (i >= p.Lq || (p.causal && key > i + p.q_offset)) pr = 0.f;
+          if constexpr (!kMask) {
+            if (!full) {
+              const int key = kw + (lane >> 2) + 8 * (e >> 1);
+              const int i = i0 + c + (e & 1);
+              if (i >= p.Lq || (p.causal && key > i + p.q_offset)) pr = 0.f;
+            }
           }
           s[j][e] = pr;
           dp[j][e] = pr * (dp[j][e] - (e & 1 ? delta.y : delta.x));
@@ -401,10 +510,20 @@ __device__ __forceinline__ void kv_outer_tc_body(const BwdParams& p) {
         }
       };
       __syncthreads();   // the tile's dS^T is whole; the last adds issued
-      if (tid == 0 && it > 0) store_release(order_of(it - 1), tile + 1);
+      if constexpr (kMask) {
+        if (tid == 0 && it > 0)
+          store_release(order_of(it - 1),
+                        dq_turn(p, tile, tile_i0(it - 1)) + 1);
+      } else {
+        if (tid == 0 && it > 0) store_release(order_of(it - 1), tile + 1);
+      }
       if constexpr (kPiece == D) form(0);
-      // key tiles 0 .. tile - 1 reach this chunk too, and add first
-      await_turn(order_of(it), tile);
+      // the key tiles below this one that reach this chunk add first: all
+      // of them without a window
+      if constexpr (kMask)
+        await_turn(order_of(it), dq_turn(p, tile, tile_i0(it)));
+      else
+        await_turn(order_of(it), tile);
 #pragma unroll
       for (int n0 = 0; n0 < D; n0 += kPiece) {
         if constexpr (kPiece != D) form(n0);
@@ -420,18 +539,26 @@ __device__ __forceinline__ void kv_outer_tc_body(const BwdParams& p) {
     }
   }
 
-  if constexpr (kDQ)   // after the loop's last __syncthreads
-    if (tid == 0 && tiles > 0) store_release(order_of(tiles - 1), tile + 1);
+  if constexpr (kDQ) {   // after the loop's last __syncthreads
+    if constexpr (kMask) {
+      if (tid == 0 && tiles > 0)
+        store_release(order_of(tiles - 1),
+                      dq_turn(p, tile, tile_i0(tiles - 1)) + 1);
+    } else {
+      if (tid == 0 && tiles > 0) store_release(order_of(tiles - 1), tile + 1);
+    }
+  }
   store_rows<D>(p.dk, kv_rows, kw, p.Lk, dk, p.scale, lane);
   store_rows<D>(p.dv, kv_rows, kw, p.Lk, dv, 1.f, lane);
 }
 
 // Launches kernel<D> over the KV-outer grid of the tensor-core form, key
 // tiles along y.
-template <int D, bool kDQ, typename Kernel>
-cudaError_t launch_kv_outer_tc(Kernel kernel, const BwdParams& p,
+template <int D, bool kDQ, bool kMask, typename Kernel>
+cudaError_t launch_kv_outer_tc(Kernel kernel, const BwdParamsOf<kMask>& p,
                                cudaStream_t stream) {
-  constexpr int kSmem = kv_outer_tc_smem_bytes<D, kDQ>();
+  constexpr int kSmem =
+      kv_outer_tc_smem_bytes<D, kDQ>() + (kMask ? kMaskSmemBytes : 0);
   const int tiles = (p.Lk + kTcBlock - 1) / kTcBlock;
   if (tiles > 65535) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
@@ -529,8 +656,8 @@ __device__ __forceinline__ void store_ds_t_x6(bf16* dst, int plane,
 
 // p by value: ptxas then allocates the fused kernel's registers without a
 // spill (taken by reference, it spilled 8 bytes at d = 64 and 4 at 32).
-template <int D, bool kDQ>
-__device__ __forceinline__ void kv_outer_x6_body(const BwdParams p) {
+template <int D, bool kDQ, bool kMask>
+__device__ __forceinline__ void kv_outer_x6_body(const BwdParamsOf<kMask> p) {
   using X = BwdX6<D, kDQ>;
   constexpr int kQT = X::kQT, NQ = X::NQ, F = X::F;
   constexpr int kKPlane = X::kKPlane, kQPlane = X::kQPlane;
@@ -560,8 +687,13 @@ __device__ __forceinline__ void kv_outer_x6_body(const BwdParams p) {
   // the tiles of each head, walked from the last down, each for every head.
   const int first = p.causal ? max(0, k0 - p.q_offset) : 0;
   const int q_start = kDQ ? first - first % kQT : first;
-  const int nt = q_start < p.Lq ? (p.Lq - q_start + kQT - 1) / kQT : 0;
+  const int nt = query_tiles<kMask, kQT>(p, q_start, k0);
   const int tiles = g * nt;
+  // kMask: the mask's view of the block's keys after the form's shared
+  // memory
+  [[maybe_unused]] const volatile MaskSmem* ms = nullptr;
+  if constexpr (kMask)
+    ms = mask_setup(sm + X::kSmem, p.seg, b, p.Lk, k0, tid);
   auto tile_i0 = [&](int it) { return q_start + (nt - 1 - it / g) * kQT; };
   auto tile_rows = [&](int it) {
     return ((size_t)b * p.H + hk * g + it % g) * p.Lq;
@@ -632,8 +764,15 @@ __device__ __forceinline__ void kv_outer_x6_body(const BwdParams p) {
                                      sub, lane);
         continue;
       }
-      const bool full = kw + 16 <= p.Lk && r0 + NQ <= p.Lq &&
-                        !(p.causal && kw + 15 > r0 + p.q_offset);
+      bool full = kw + 16 <= p.Lk && r0 + NQ <= p.Lq &&
+                  !(p.causal && kw + 15 > r0 + p.q_offset);
+      if constexpr (kMask)
+        if (!rows_live<NQ>(p, ms, r0, kw, warp, lane, full)) {
+          if constexpr (kDQ)
+            store_ds_t_x6<NQ, X::kDsP>(dspl, X::kDsPlane, nullptr,
+                                       warp * 16, sub, lane);
+          continue;
+        }
       // S^T = K (q scale2)^T and dP^T = V dO^T: rows keys, columns query rows
       float s[NQ / 8][4], dp[NQ / 8][4];
 #pragma unroll
@@ -676,6 +815,8 @@ __device__ __forceinline__ void kv_outer_x6_body(const BwdParams p) {
       }
       // P^T = exp2(S^T - lse2) and dS^T = P^T (dP^T - D) in place, in fp32;
       // column c is query row i0 + c
+      if constexpr (kMask)
+        if (!full) mask_scores_t<NQ>(s, p, ms, r0, kw, warp, lane);
 #pragma unroll
       for (int j = 0; j < NQ / 8; ++j) {
         const int c = sub + 8 * j + 2 * (lane & 3);
@@ -684,12 +825,14 @@ __device__ __forceinline__ void kv_outer_x6_body(const BwdParams p) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float pr = exp2f(s[j][e] - (e & 1 ? lse2.y : lse2.x));
-          if (!full) {
-            const int key = kw + (lane >> 2) + 8 * (e >> 1);
-            const int i = i0 + c + (e & 1);
-            if (key >= p.Lk || i >= p.Lq ||
-                (p.causal && key > i + p.q_offset))
-              pr = 0.f;
+          if constexpr (!kMask) {
+            if (!full) {
+              const int key = kw + (lane >> 2) + 8 * (e >> 1);
+              const int i = i0 + c + (e & 1);
+              if (key >= p.Lk || i >= p.Lq ||
+                  (p.causal && key > i + p.q_offset))
+                pr = 0.f;
+            }
           }
           s[j][e] = pr;
           // __fmul_rn: no fused multiply-add into the split
@@ -734,7 +877,13 @@ __device__ __forceinline__ void kv_outer_x6_body(const BwdParams p) {
     // barrier)
     __syncthreads();
     if constexpr (kDQ) {
-      if (tid == 0 && it > 0) store_release(order_of(it - 1), tile + 1);
+      if constexpr (kMask) {
+        if (tid == 0 && it > 0)
+          store_release(order_of(it - 1),
+                        dq_turn(p, tile, tile_i0(it - 1)) + 1);
+      } else {
+        if (tid == 0 && it > 0) store_release(order_of(it - 1), tile + 1);
+      }
       // dQ [kQT, D] = dS [kQT, 64 keys] K [64 keys, D], this warp's part,
       // kPiece columns at a time (all of them below d = 128, formed before
       // the wait; 16 at d = 128, formed in turn after it)
@@ -785,9 +934,13 @@ __device__ __forceinline__ void kv_outer_x6_body(const BwdParams p) {
       };
       if constexpr (kPiece == X::kDqCols) form(0);
       if (it + 1 < tiles) split_stage(it + 1);
-      // key tiles 0 .. tile - 1 reach this chunk too, and add first; the
-      // barrier inside also fences the planes of tile it + 1 and the stage
-      await_turn(order_of(it), tile);
+      // the key tiles below this one that reach this chunk add first (all
+      // of them without a window); the barrier inside also fences the
+      // planes of tile it + 1 and the stage
+      if constexpr (kMask)
+        await_turn(order_of(it), dq_turn(p, tile, tile_i0(it)));
+      else
+        await_turn(order_of(it), tile);
 #pragma unroll
       for (int n0 = 0; n0 < X::kDqCols; n0 += kPiece) {
         if constexpr (kPiece != X::kDqCols) form(n0);
@@ -805,7 +958,13 @@ __device__ __forceinline__ void kv_outer_x6_body(const BwdParams p) {
 
   if constexpr (kDQ) {
     __syncthreads();   // the last adds are issued before the release
-    if (tid == 0 && tiles > 0) store_release(order_of(tiles - 1), tile + 1);
+    if constexpr (kMask) {
+      if (tid == 0 && tiles > 0)
+        store_release(order_of(tiles - 1),
+                      dq_turn(p, tile, tile_i0(tiles - 1)) + 1);
+    } else {
+      if (tid == 0 && tiles > 0) store_release(order_of(tiles - 1), tile + 1);
+    }
   }
   store_rows_f32<D>(p.dk, kv_rows, kw, p.Lk, dk, p.scale / p.scale2, lane);
   store_rows_f32<D>(p.dv, kv_rows, kw, p.Lk, dv, 1.f, lane);
@@ -813,10 +972,11 @@ __device__ __forceinline__ void kv_outer_x6_body(const BwdParams p) {
 
 // Launches kernel<D> over the KV-outer grid of the six-product form, key
 // tiles along y.
-template <int D, bool kDQ, typename Kernel>
-cudaError_t launch_kv_outer_x6(Kernel kernel, const BwdParams& p,
+template <int D, bool kDQ, bool kMask, typename Kernel>
+cudaError_t launch_kv_outer_x6(Kernel kernel, const BwdParamsOf<kMask>& p,
                                cudaStream_t stream) {
-  constexpr int kSmem = BwdX6<D, kDQ>::kSmem;
+  constexpr int kSmem =
+      BwdX6<D, kDQ>::kSmem + (kMask ? kMaskSmemBytes : 0);
   const int tiles = (p.Lk + kTcBlock - 1) / kTcBlock;
   if (tiles > 65535) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
@@ -834,6 +994,20 @@ __host__ inline bool bwd_args_ok(int dtype, int H, int Hkv, int d,
                                  long long grid_y) {
   return (dtype == 0 || dtype == 1) && Hkv > 0 && H % Hkv == 0 &&
          grid_y <= 65535 && (d == 16 || d == 32 || d == 64 || d == 128);
+}
+
+// The masked forms' arguments: a window of 0 (none) or >= 1 with causal,
+// segment ids only where Lq == Lk.
+__host__ inline bool mask_args_ok(int window, int causal, const int* seg,
+                                  int Lq, int Lk) {
+  return window >= 0 && (window == 0 || causal) && (!seg || Lq == Lk);
+}
+
+// The masked forms' parameters from a call's: the window kNoBand where the
+// call has none.
+__host__ inline MaskedBwdParams masked(const BwdParams& p, int window,
+                                       const int* seg) {
+  return MaskedBwdParams{p, window > 0 ? window : kNoBand, seg};
 }
 
 }  // namespace

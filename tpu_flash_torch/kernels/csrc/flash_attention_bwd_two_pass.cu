@@ -51,6 +51,11 @@
 // fragments; wgmma, TMA and warp specialisation are later work
 // (ROADMAP.md).  Numerics as in flash_attention_bwd.cuh.
 //
+// Each kernel has a masked instantiation (kMask: a sliding window and
+// segment ids, flash_attention_tc.cuh), launched only where the call has
+// either: the dK/dV pass's query walk ends at the band's last row, the dQ
+// pass's key loop starts at the band's first tile.
+//
 // C entries launch on the given stream, allocate nothing and return
 // cudaGetLastError() (or cudaErrorInvalidValue for a shape or dtype they do
 // not take).
@@ -79,10 +84,10 @@ namespace {
 // so the low tiles, which see the most query rows, start first.  Two blocks
 // an SM: without the bound, ptxas caps d = 32 at 168 registers
 // (three blocks) and spills.
-template <int D>
+template <int D, bool kMask>
 __global__ void __launch_bounds__(kTcThreads, 2)
-flash_attention_bwd_dkv_tc_kernel(const BwdParams p) {
-  kv_outer_tc_body<D, false>(p);
+flash_attention_bwd_dkv_tc_kernel(const BwdParamsOf<kMask> p) {
+  kv_outer_tc_body<D, false, kMask>(p);
 }
 
 template <int D>
@@ -93,9 +98,9 @@ __host__ __device__ constexpr int dq_tc_smem_bytes() {
 
 // dQ: one block per (batch * head, tile of 64 query rows); heavy tiles (more
 // keys under the causal mask) first.
-template <int D>
+template <int D, bool kMask>
 __global__ void __launch_bounds__(kTcThreads)
-flash_attention_bwd_dq_tc_kernel(const BwdParams p) {
+flash_attention_bwd_dq_tc_kernel(const BwdParamsOf<kMask> p) {
   using S = TcShape<D>;
   constexpr int P = S::P, kStages = S::kStages, NK = S::kStep;
   extern __shared__ uint4 tc_smem[];
@@ -121,6 +126,13 @@ flash_attention_bwd_dq_tc_kernel(const BwdParams p) {
                  : (p.causal ? min(p.Lk, min(rw + 15, p.Lq - 1) +
                                              p.q_offset + 1)
                              : p.Lk);
+  // kMask: the band's first tile starts the key loop; the mask's view of
+  // the block's rows after the form's shared memory
+  const int t0 = band_first_tile<kMask, kTcTile>(p, row0, tiles);
+  [[maybe_unused]] const volatile MaskSmem* ms = nullptr;
+  if constexpr (kMask)
+    ms = mask_setup(reinterpret_cast<char*>(tc_smem) + dq_tc_smem_bytes<D>(),
+                    p.seg, b, p.Lq, row0, tid);
 
   load_tile<D>(qs, p.q, rows, row0, p.Lq, tid);
   load_tile<D>(os, p.dout, rows, row0, p.Lq, tid);
@@ -133,7 +145,7 @@ flash_attention_bwd_dq_tc_kernel(const BwdParams p) {
   };
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
-    if (s < tiles) load_stage(s, s);
+    if (t0 + s < tiles) load_stage(s, t0 + s);
     else cp_async_commit();
   }
   cp_async_wait<kStages - 2>();   // q, dO and the first tile
@@ -162,18 +174,21 @@ flash_attention_bwd_dq_tc_kernel(const BwdParams p) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
 
-  for (int t = 0; t < tiles; ++t) {
-    if (t + kStages - 1 < tiles) load_stage((t + kStages - 1) % kStages,
+  for (int t = t0; t < tiles; ++t) {
+    const int u = t - t0;   // the tile's place in the ring
+    if (t + kStages - 1 < tiles) load_stage((u + kStages - 1) % kStages,
                                             t + kStages - 1);
     else cp_async_commit();
-    const bf16* kt = ring + 2 * (t % kStages) * kTcTile * P;
+    const bf16* kt = ring + 2 * (u % kStages) * kTcTile * P;
     const bf16* vt = kt + kTcTile * P;
 #pragma unroll
     for (int sub = 0; sub < kTcTile; sub += NK) {
       const int kc = t * kTcTile + sub;   // the step's first key
       if (kc >= wlimit) continue;         // the warp's rows see none of them
-      const bool full = kc + NK <= p.Lk &&
-                        !(p.causal && kc + NK - 1 > rw + p.q_offset);
+      bool full = kc + NK <= p.Lk &&
+                  !(p.causal && kc + NK - 1 > rw + p.q_offset);
+      if constexpr (kMask)
+        if (!keys_live<NK>(p, ms, kc, rw, warp, lane, full)) continue;
       // S = (q scale2) K^T and dP = dO V^T
       float s[NK / 8][4], dp[NK / 8][4];
 #pragma unroll
@@ -204,15 +219,20 @@ flash_attention_bwd_dq_tc_kernel(const BwdParams p) {
         }
       }
       // dS in place of dP; row r is the thread's row lane / 4 + 8 (e / 2)
+      if constexpr (kMask)
+        if (!full) mask_scores<NK>(s, p, ms, kc, rw, warp, lane);
 #pragma unroll
       for (int j = 0; j < NK / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float pr = exp2f(s[j][e] - lse2[e >> 1]);
-          if (!full) {
-            const int key = kc + 8 * j + 2 * (lane & 3) + (e & 1);
-            const int i = rw + (lane >> 2) + 8 * (e >> 1);
-            if (key >= p.Lk || (p.causal && key > i + p.q_offset)) pr = 0.f;
+          if constexpr (!kMask) {
+            if (!full) {
+              const int key = kc + 8 * j + 2 * (lane & 3) + (e & 1);
+              const int i = rw + (lane >> 2) + 8 * (e >> 1);
+              if (key >= p.Lk || (p.causal && key > i + p.q_offset))
+                pr = 0.f;
+            }
           }
           dp[j][e] = pr * (dp[j][e] - delta[e >> 1]);
         }
@@ -237,10 +257,10 @@ flash_attention_bwd_dq_tc_kernel(const BwdParams p) {
   store_rows<D>(p.dq, rows, rw, p.Lq, dq, p.scale, lane);
 }
 
-template <int D>
-cudaError_t launch_dq_tc(const BwdParams& p, cudaStream_t stream) {
-  constexpr int kSmem = dq_tc_smem_bytes<D>();
-  auto kernel = flash_attention_bwd_dq_tc_kernel<D>;
+template <int D, bool kMask>
+cudaError_t launch_dq_tc(const BwdParamsOf<kMask>& p, cudaStream_t stream) {
+  constexpr int kSmem = dq_tc_smem_bytes<D>() + (kMask ? kMaskSmemBytes : 0);
+  auto kernel = flash_attention_bwd_dq_tc_kernel<D, kMask>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
@@ -255,10 +275,10 @@ cudaError_t launch_dq_tc(const BwdParams& p, cudaStream_t stream) {
 // which the fused kernel runs with dQ): query tiles of 32 rows, 106 KB of
 // shared memory at d = 64, two blocks an SM below d = 128.
 
-template <int D>
+template <int D, bool kMask>
 __global__ void __launch_bounds__(kTcThreads, 2)
-flash_attention_bwd_dkv_x6_kernel(const BwdParams p) {
-  kv_outer_x6_body<D, false>(p);
+flash_attention_bwd_dkv_x6_kernel(const BwdParamsOf<kMask> p) {
+  kv_outer_x6_body<D, false, kMask>(p);
 }
 
 // The dQ pass is flash_attention_bwd_dq_tc_kernel's mirror with every
@@ -299,9 +319,9 @@ struct DqX6 {
   static_assert(kSmem <= 232448, "shared memory");
 };
 
-template <int D>
+template <int D, bool kMask>
 __global__ void __launch_bounds__(kTcThreads, 2)
-flash_attention_bwd_dq_x6_kernel(const BwdParams p) {
+flash_attention_bwd_dq_x6_kernel(const BwdParamsOf<kMask> p) {
   using X = DqX6<D>;
   constexpr int kKT = X::kKT, NK = X::NK, F = X::F;
   constexpr int kQPlane = X::kQPlane, kKPlane = X::kKPlane;
@@ -333,6 +353,12 @@ flash_attention_bwd_dq_x6_kernel(const BwdParams p) {
                  : (p.causal ? min(p.Lk, min(rw + 15, p.Lq - 1) +
                                              p.q_offset + 1)
                              : p.Lk);
+  // kMask: the band's first tile starts the key loop; the mask's view of
+  // the block's rows after the form's shared memory
+  const int t0 = band_first_tile<kMask, kKT>(p, row0, tiles);
+  [[maybe_unused]] const volatile MaskSmem* ms = nullptr;
+  if constexpr (kMask)
+    ms = mask_setup(sm + X::kSmem, p.seg, b, p.Lq, row0, tid);
 
   auto load_stage = [&](int t) {
     load_tile_f32<D, kKT>(kst, p.k, kv_rows, t * kKT, p.Lk, tid);
@@ -353,7 +379,7 @@ flash_attention_bwd_dq_x6_kernel(const BwdParams p) {
   split_tile<D, kTcBlock>(qpl, kQPlane, qdst, p.scale2, tid);
   split_tile<D, kTcBlock>(opl, kQPlane, qdst + kTcBlock * F, 1.f, tid);
   __syncthreads();   // q and dO in fp32 read before their space is reused
-  if (tiles > 0) load_stage(0);
+  if (t0 < tiles) load_stage(t0);
   cp_async_commit();
   // this thread's rows rw + lane / 4 and rw + lane / 4 + 8: lse in base 2
   // (+inf past Lq, so that P is 0 there) and D
@@ -366,9 +392,9 @@ flash_attention_bwd_dq_x6_kernel(const BwdParams p) {
   }
   cp_async_wait<0>();
   __syncthreads();
-  if (tiles > 0) split_stage();
+  if (t0 < tiles) split_stage();
   __syncthreads();
-  if (tiles > 1) load_stage(1);
+  if (t0 + 1 < tiles) load_stage(t0 + 1);
   cp_async_commit();
 
   float dq[D / 8][4];
@@ -377,13 +403,15 @@ flash_attention_bwd_dq_x6_kernel(const BwdParams p) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
 
-  for (int t = 0; t < tiles; ++t) {
+  for (int t = t0; t < tiles; ++t) {
 #pragma unroll
     for (int sub = 0; sub < kKT; sub += NK) {
       const int kc = t * kKT + sub;   // the step's first key
       if (kc >= wlimit) continue;     // the warp's rows see none of them
-      const bool full = kc + NK <= p.Lk &&
-                        !(p.causal && kc + NK - 1 > rw + p.q_offset);
+      bool full = kc + NK <= p.Lk &&
+                  !(p.causal && kc + NK - 1 > rw + p.q_offset);
+      if constexpr (kMask)
+        if (!keys_live<NK>(p, ms, kc, rw, warp, lane, full)) continue;
       // S = (q scale2) K^T and dP = dO V^T
       float s[NK / 8][4], dp[NK / 8][4];
 #pragma unroll
@@ -426,15 +454,20 @@ flash_attention_bwd_dq_x6_kernel(const BwdParams p) {
       }
       // P = exp2(S - lse2) and dS = P (dP - D) in place of dP, in fp32; row
       // r is the thread's row lane / 4 + 8 (e / 2)
+      if constexpr (kMask)
+        if (!full) mask_scores<NK>(s, p, ms, kc, rw, warp, lane);
 #pragma unroll
       for (int j = 0; j < NK / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float pr = exp2f(s[j][e] - lse2[e >> 1]);
-          if (!full) {
-            const int key = kc + 8 * j + 2 * (lane & 3) + (e & 1);
-            const int i = rw + (lane >> 2) + 8 * (e >> 1);
-            if (key >= p.Lk || (p.causal && key > i + p.q_offset)) pr = 0.f;
+          if constexpr (!kMask) {
+            if (!full) {
+              const int key = kc + 8 * j + 2 * (lane & 3) + (e & 1);
+              const int i = rw + (lane >> 2) + 8 * (e >> 1);
+              if (key >= p.Lk || (p.causal && key > i + p.q_offset))
+                pr = 0.f;
+            }
           }
           // __fmul_rn: no fused multiply-add into the split
           dp[j][e] = __fmul_rn(pr, dp[j][e] - delta[e >> 1]);
@@ -467,10 +500,10 @@ flash_attention_bwd_dq_x6_kernel(const BwdParams p) {
   store_rows_f32<D>(p.dq, rows, rw, p.Lq, dq, p.scale, lane);
 }
 
-template <int D>
-cudaError_t launch_dq_x6(const BwdParams& p, cudaStream_t stream) {
-  constexpr int kSmem = DqX6<D>::kSmem;
-  auto kernel = flash_attention_bwd_dq_x6_kernel<D>;
+template <int D, bool kMask>
+cudaError_t launch_dq_x6(const BwdParamsOf<kMask>& p, cudaStream_t stream) {
+  constexpr int kSmem = DqX6<D>::kSmem + (kMask ? kMaskSmemBytes : 0);
+  auto kernel = flash_attention_bwd_dq_x6_kernel<D, kMask>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
@@ -481,34 +514,45 @@ cudaError_t launch_dq_x6(const BwdParams& p, cudaStream_t stream) {
 
 // --- launches ---------------------------------------------------------------
 
-template <int D>
-cudaError_t launch_pass(const BwdParams& p, bool dkv, bool tc,
+template <int D, bool kMask>
+cudaError_t launch_pass(const BwdParamsOf<kMask>& p, bool dkv, bool tc,
                         cudaStream_t stream) {
   if (tc)
-    return dkv ? launch_kv_outer_tc<D, false>(
-                     flash_attention_bwd_dkv_tc_kernel<D>, p, stream)
-               : launch_dq_tc<D>(p, stream);
-  return dkv ? launch_kv_outer_x6<D, false>(
-                   flash_attention_bwd_dkv_x6_kernel<D>, p, stream)
-             : launch_dq_x6<D>(p, stream);
+    return dkv ? launch_kv_outer_tc<D, false, kMask>(
+                     flash_attention_bwd_dkv_tc_kernel<D, kMask>, p, stream)
+               : launch_dq_tc<D, kMask>(p, stream);
+  return dkv ? launch_kv_outer_x6<D, false, kMask>(
+                   flash_attention_bwd_dkv_x6_kernel<D, kMask>, p, stream)
+             : launch_dq_x6<D, kMask>(p, stream);
+}
+
+template <bool kMask>
+cudaError_t launch_d(const BwdParamsOf<kMask>& p, bool dkv, int d, bool tc,
+                     cudaStream_t stream) {
+  switch (d) {
+    case 16: return launch_pass<16, kMask>(p, dkv, tc, stream);
+    case 32: return launch_pass<32, kMask>(p, dkv, tc, stream);
+    case 64: return launch_pass<64, kMask>(p, dkv, tc, stream);
+    case 128: return launch_pass<128, kMask>(p, dkv, tc, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // The checks every entry makes (tc: bf16 only; else, the six-product
-// form, fp32 only), then the launch of the pass at head dim d.
-cudaError_t launch_any(const BwdParams& p, bool dkv, int d, int dtype,
-                       bool tc, cudaStream_t stream) {
+// form, fp32 only), then the launch of the pass at head dim d, in its
+// masked form where the call has a window or segment ids.
+cudaError_t launch_any(const BwdParams& p, int window, const int* seg,
+                       bool dkv, int d, int dtype, bool tc,
+                       cudaStream_t stream) {
   if (dtype != (tc ? 1 : 0) ||
       !bwd_args_ok(dtype, p.H, p.Hkv, d,
-                   (long long)p.B * (dkv ? p.Hkv : p.H)))
+                   (long long)p.B * (dkv ? p.Hkv : p.H)) ||
+      !mask_args_ok(window, p.causal, seg, p.Lq, p.Lk))
     return cudaErrorInvalidValue;
   if (p.B == 0 || p.H == 0 || (dkv ? p.Lk : p.Lq) == 0) return cudaSuccess;
-  switch (d) {
-    case 16: return launch_pass<16>(p, dkv, tc, stream);
-    case 32: return launch_pass<32>(p, dkv, tc, stream);
-    case 64: return launch_pass<64>(p, dkv, tc, stream);
-    case 128: return launch_pass<128>(p, dkv, tc, stream);
-  }
-  return cudaErrorInvalidValue;
+  if (window > 0 || seg)
+    return launch_d<true>(masked(p, window, seg), dkv, d, tc, stream);
+  return launch_d<false>(p, dkv, d, tc, stream);
 }
 
 }  // namespace
@@ -517,17 +561,18 @@ extern "C" {
 
 // The dK/dV pass.  dtype: the _x6 entry takes 0, fp32 (the six-product
 // form); the _tc entry 1, bf16 (the tensor-core form).  q, k, v, dout, dk
-// and dv share it.
+// and dv share it.  window (0 for none) and seg (or null) as the forward's
+// entries take them.
 // Writes dk and dv [B, Hkv, Lk, d] (zeros for keys no query row sees).
 #define TF_DKV_ENTRY(symbol, tc)                                              \
   int symbol(const void* q, const void* k, const void* v, const void* dout,  \
              const float* lse, const float* delta, void* dk, void* dv,       \
              int B, int H, int Hkv, int Lq, int Lk, int d, int dtype,        \
              int causal, int q_offset, float scale, float scale2,            \
-             void* stream) {                                                 \
+             int window, const int* seg, void* stream) {                     \
     const BwdParams p{q, k, v, dout, lse, delta, nullptr, dk, dv, B, H, Hkv, \
                       Lq, Lk, q_offset, causal != 0, scale, scale2};         \
-    return launch_any(p, true, d, dtype, tc,                                 \
+    return launch_any(p, window, seg, true, d, dtype, tc,                    \
                       static_cast<cudaStream_t>(stream));                    \
   }
 
@@ -537,10 +582,11 @@ extern "C" {
   int symbol(const void* q, const void* k, const void* v, const void* dout,  \
              const float* lse, const float* delta, void* dq, int B, int H,   \
              int Hkv, int Lq, int Lk, int d, int dtype, int causal,          \
-             int q_offset, float scale, float scale2, void* stream) {        \
+             int q_offset, float scale, float scale2, int window,            \
+             const int* seg, void* stream) {                                 \
     const BwdParams p{q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, H, \
                       Hkv, Lq, Lk, q_offset, causal != 0, scale, scale2};    \
-    return launch_any(p, false, d, dtype, tc,                                \
+    return launch_any(p, window, seg, false, d, dtype, tc,                   \
                       static_cast<cudaStream_t>(stream));                    \
   }
 

@@ -32,11 +32,22 @@
 //     where the CUDA cores' FMAs stop at 67.
 // wgmma, TMA and warp specialisation are later work (ROADMAP.md).
 //
+// Sliding windows and packed segments (tpu_flash/kernels/flash_attention.py
+// _apply_mask, :359, and the dead-tile schedule of _tile_schedule, :132):
+// each form has a masked instantiation (kMask, flash_attention_tc.cuh),
+// launched only for a call with a window or segment ids.  Its key loop and
+// the cp.async ring start at the band's first tile, so tiles wholly behind
+// every row's window are never loaded (O(L window) work), and a step of
+// keys is skipped, or taken without the element mask, by the tests of
+// keys_live.
+//
 // C entries launch on the given stream, allocate nothing and return
 // cudaGetLastError() (or cudaErrorInvalidValue for a shape or dtype they do
 // not take).
 
 #include <math.h>
+
+#include <type_traits>
 
 #include "flash_attention_tc.cuh"
 
@@ -54,6 +65,15 @@ struct Params {
   int B, H, Hkv, Lq, Lk, q_offset, causal;
   float scale2;    // softmax scale * log2(e)
 };
+
+// The masked form's parameters (flash_attention_tc.cuh).
+struct MaskedParams : Params {
+  int window;      // keys > i + q_offset - window; kNoBand for none
+  const int* seg;  // [B, L] segment ids, or null
+};
+
+template <bool kMask>
+using ParamsOf = std::conditional_t<kMask, MaskedParams, Params>;
 
 // --- the tensor-core form (bf16) --------------------------------------------
 //
@@ -78,9 +98,9 @@ __host__ __device__ constexpr int fwd_tc_smem_bytes() {
   return (1 + 2 * TcShape<D>::kStages) * TcShape<D>::kTileBytes;
 }
 
-template <int D>
+template <int D, bool kMask>
 __global__ void __launch_bounds__(kTcThreads)
-flash_attention_fwd_tc_kernel(const Params p) {
+flash_attention_fwd_tc_kernel(const ParamsOf<kMask> p) {
   using S = TcShape<D>;
   constexpr int P = S::P, kStages = S::kStages, NK = S::kStep;
   constexpr bool kFoldL = D < 128;
@@ -106,6 +126,13 @@ flash_attention_fwd_tc_kernel(const Params p) {
                  : (p.causal ? min(p.Lk, min(rw + 15, p.Lq - 1) +
                                              p.q_offset + 1)
                              : p.Lk);
+  // kMask: the band's first tile starts the key loop; the mask's view of
+  // the block's rows after the form's shared memory
+  const int t0 = band_first_tile<kMask, kTcTile>(p, row0, tiles);
+  [[maybe_unused]] const volatile MaskSmem* ms = nullptr;
+  if constexpr (kMask)
+    ms = mask_setup(reinterpret_cast<char*>(tc_smem) + fwd_tc_smem_bytes<D>(),
+                    p.seg, b, p.Lq, row0, tid);
 
   load_tile<D>(qs, p.q, rows, row0, p.Lq, tid);
   cp_async_commit();
@@ -117,7 +144,7 @@ flash_attention_fwd_tc_kernel(const Params p) {
   };
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
-    if (s < tiles) load_stage(s, s);
+    if (t0 + s < tiles) load_stage(s, t0 + s);
     else cp_async_commit();
   }
   cp_async_wait<kStages - 2>();   // q and the first tile
@@ -137,18 +164,21 @@ flash_attention_fwd_tc_kernel(const Params p) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
-  for (int t = 0; t < tiles; ++t) {
-    if (t + kStages - 1 < tiles) load_stage((t + kStages - 1) % kStages,
+  for (int t = t0; t < tiles; ++t) {
+    const int u = t - t0;   // the tile's place in the ring
+    if (t + kStages - 1 < tiles) load_stage((u + kStages - 1) % kStages,
                                             t + kStages - 1);
     else cp_async_commit();
-    const bf16* kt = ring + 2 * (t % kStages) * kTcTile * P;
+    const bf16* kt = ring + 2 * (u % kStages) * kTcTile * P;
     const bf16* vt = kt + kTcTile * P;
 #pragma unroll
     for (int sub = 0; sub < kTcTile; sub += NK) {
       const int kc = t * kTcTile + sub;   // the step's first key
       if (kc >= wlimit) continue;         // the warp's rows see none of them
-      const bool full = kc + NK <= p.Lk &&
-                        !(p.causal && kc + NK - 1 > rw + p.q_offset);
+      bool full = kc + NK <= p.Lk &&
+                  !(p.causal && kc + NK - 1 > rw + p.q_offset);
+      if constexpr (kMask)
+        if (!keys_live<NK>(p, ms, kc, rw, warp, lane, full)) continue;
       // S = (q scale2) K^T
       float s[NK / 8][4];
 #pragma unroll
@@ -165,15 +195,19 @@ flash_attention_fwd_tc_kernel(const Params p) {
           mma_bf16(s[2 * n2 + 1], qa[kk], bk + 2);
         }
       if (!full) {
+        if constexpr (kMask) {
+          mask_scores<NK>(s, p, ms, kc, rw, warp, lane);
+        } else {
 #pragma unroll
-        for (int j = 0; j < NK / 8; ++j)
+          for (int j = 0; j < NK / 8; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int key = kc + 8 * j + 2 * (lane & 3) + (e & 1);
-            const int i = rw + (lane >> 2) + 8 * (e >> 1);
-            if (key >= p.Lk || (p.causal && key > i + p.q_offset))
-              s[j][e] = -INFINITY;
-          }
+            for (int e = 0; e < 4; ++e) {
+              const int key = kc + 8 * j + 2 * (lane & 3) + (e & 1);
+              const int i = rw + (lane >> 2) + 8 * (e >> 1);
+              if (key >= p.Lk || (p.causal && key > i + p.q_offset))
+                s[j][e] = -INFINITY;
+            }
+        }
       }
       // the online softmax of the thread's two rows (e / 2)
       float mx[2] = {m[0], m[1]};
@@ -289,9 +323,9 @@ struct FwdX6 {
   static_assert(kSmem <= 232448, "shared memory");
 };
 
-template <int D>
+template <int D, bool kMask>
 __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 2 : 1)
-flash_attention_fwd_x6_kernel(const Params p) {
+flash_attention_fwd_x6_kernel(const ParamsOf<kMask> p) {
   using X = FwdX6<D>;
   constexpr int NK = X::NK, kPlane = X::kPlane, F = X::F;
   extern __shared__ uint4 x6_smem[];
@@ -322,6 +356,12 @@ flash_attention_fwd_x6_kernel(const Params p) {
                  : (p.causal ? min(p.Lk, min(rw + 15, p.Lq - 1) +
                                              p.q_offset + 1)
                              : p.Lk);
+  // kMask: the band's first tile starts the key loop; the mask's view of
+  // the block's rows after the form's shared memory
+  const int t0 = band_first_tile<kMask, kTcTile>(p, row0, tiles);
+  [[maybe_unused]] const volatile MaskSmem* ms = nullptr;
+  if constexpr (kMask)
+    ms = mask_setup(base + X::kSmem, p.seg, b, p.Lq, row0, tid);
 
   auto load_stage = [&](int t) {
     load_tile_f32<D, kTcTile>(stage, p.k, kv_rows, t * kTcTile, p.Lk, tid);
@@ -333,7 +373,7 @@ flash_attention_fwd_x6_kernel(const Params p) {
     split_tile<D, kTcTile>(vpl, kPlane, stage + kTcTile * F, 1.f, tid);
   };
   load_tile_f32<D, kTcTile>(qstage, p.q, rows, row0, p.Lq, tid);
-  if (tiles > 0) load_stage(0);
+  if (t0 < tiles) load_stage(t0);
   cp_async_commit();
   cp_async_wait<0>();   // q and the first tile
   __syncthreads();
@@ -348,9 +388,9 @@ flash_attention_fwd_x6_kernel(const Params p) {
         a_frag<D>(qa[kk][pl], qpl + pl * kPlane, warp * 16, kk, lane);
     __syncthreads();    // q's planes are read before K's overwrite them
   }
-  if (tiles > 0) split_stage();
+  if (t0 < tiles) split_stage();
   __syncthreads();
-  if (tiles > 1) load_stage(1);
+  if (t0 + 1 < tiles) load_stage(t0 + 1);
   cp_async_commit();
 
   // this thread's rows rw + lane / 4 and rw + lane / 4 + 8: running max,
@@ -362,13 +402,15 @@ flash_attention_fwd_x6_kernel(const Params p) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
-  for (int t = 0; t < tiles; ++t) {
+  for (int t = t0; t < tiles; ++t) {
 #pragma unroll (X::kUnrollSteps)
     for (int sub = 0; sub < kTcTile; sub += NK) {
       const int kc = t * kTcTile + sub;   // the step's first key
       if (kc >= wlimit) continue;         // the warp's rows see none of them
-      const bool full = kc + NK <= p.Lk &&
-                        !(p.causal && kc + NK - 1 > rw + p.q_offset);
+      bool full = kc + NK <= p.Lk &&
+                  !(p.causal && kc + NK - 1 > rw + p.q_offset);
+      if constexpr (kMask)
+        if (!keys_live<NK>(p, ms, kc, rw, warp, lane, full)) continue;
       // S = (q scale2) K^T
       float s[NK / 8][4];
 #pragma unroll
@@ -398,15 +440,19 @@ flash_attention_fwd_x6_kernel(const Params p) {
         }
       }
       if (!full) {
+        if constexpr (kMask) {
+          mask_scores<NK>(s, p, ms, kc, rw, warp, lane);
+        } else {
 #pragma unroll
-        for (int j = 0; j < NK / 8; ++j)
+          for (int j = 0; j < NK / 8; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int key = kc + 8 * j + 2 * (lane & 3) + (e & 1);
-            const int i = rw + (lane >> 2) + 8 * (e >> 1);
-            if (key >= p.Lk || (p.causal && key > i + p.q_offset))
-              s[j][e] = -INFINITY;
-          }
+            for (int e = 0; e < 4; ++e) {
+              const int key = kc + 8 * j + 2 * (lane & 3) + (e & 1);
+              const int i = rw + (lane >> 2) + 8 * (e >> 1);
+              if (key >= p.Lk || (p.causal && key > i + p.q_offset))
+                s[j][e] = -INFINITY;
+            }
+        }
       }
       // the online softmax of the thread's two rows (e / 2)
       float mx[2] = {m[0], m[1]};
@@ -494,11 +540,12 @@ flash_attention_fwd_x6_kernel(const Params p) {
 
 // --- launches ---------------------------------------------------------------
 
-template <int D>
-cudaError_t launch(const Params& p, bool x6, cudaStream_t stream) {
-  const int smem = x6 ? FwdX6<D>::kSmem : fwd_tc_smem_bytes<D>();
-  auto kernel = x6 ? flash_attention_fwd_x6_kernel<D>
-                   : flash_attention_fwd_tc_kernel<D>;
+template <int D, bool kMask>
+cudaError_t launch(const ParamsOf<kMask>& p, bool x6, cudaStream_t stream) {
+  const int smem = (x6 ? FwdX6<D>::kSmem : fwd_tc_smem_bytes<D>()) +
+                   (kMask ? kMaskSmemBytes : 0);
+  auto kernel = x6 ? flash_attention_fwd_x6_kernel<D, kMask>
+                   : flash_attention_fwd_tc_kernel<D, kMask>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -507,31 +554,43 @@ cudaError_t launch(const Params& p, bool x6, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <bool kMask>
+cudaError_t launch_d(const ParamsOf<kMask>& p, int d, bool x6,
+                     cudaStream_t stream) {
+  switch (d) {
+    case 16: return launch<16, kMask>(p, x6, stream);
+    case 32: return launch<32, kMask>(p, x6, stream);
+    case 64: return launch<64, kMask>(p, x6, stream);
+    case 128: return launch<128, kMask>(p, x6, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
 
 // dtype: the _tc entry takes 1, bf16 (the tensor-core form), the _x6 entry
 // 0, fp32 (six bf16 products a product).  q, k, v and out share it.
+// window: 0 for none, else >= 1 with causal; seg: int32 [B, Lq] segment ids
+// (Lq == Lk) or null.  Either launches the masked form.
 #define TF_FWD_ENTRY(symbol, x6)                                              \
   int symbol(const void* q, const void* k, const void* v, void* out,         \
              float* lse, float* m, int B, int H, int Hkv, int Lq, int Lk,    \
              int d, int dtype, int causal, int q_offset, float scale2,       \
-             void* stream) {                                                 \
+             int window, const int* seg, void* stream) {                     \
     if (dtype != (x6 ? 0 : 1) || Hkv <= 0 || H % Hkv || B * H > 65535 ||     \
-        Lk <= 0)                                                             \
+        Lk <= 0 || window < 0 || (window > 0 && !causal) ||                  \
+        (seg && Lq != Lk))                                                   \
       return cudaErrorInvalidValue;                                          \
     if (B == 0 || H == 0 || Lq == 0) return cudaSuccess;                     \
     const Params p{q, k, v, out, lse, m, B, H, Hkv, Lq, Lk, q_offset,        \
                    causal != 0, scale2};                                     \
     const cudaStream_t st = static_cast<cudaStream_t>(stream);              \
-    switch (d) {                                                             \
-      case 16: return launch<16>(p, x6, st);                                 \
-      case 32: return launch<32>(p, x6, st);                                 \
-      case 64: return launch<64>(p, x6, st);                                 \
-      case 128: return launch<128>(p, x6, st);                               \
-    }                                                                        \
-    return cudaErrorInvalidValue;                                            \
+    if (window > 0 || seg)                                                   \
+      return launch_d<true>(                                                 \
+          MaskedParams{p, window > 0 ? window : kNoBand, seg}, d, x6, st);   \
+    return launch_d<false>(p, d, x6, st);                                    \
   }
 
 TF_FWD_ENTRY(tf_flash_attention_fwd_tc, false)

@@ -151,6 +151,175 @@ __device__ __forceinline__ void store_rows(void* out, size_t base, int row0,
   }
 }
 
+// --- sliding windows and packed segments (the masked forms) ----------------
+//
+// Each flash kernel has a masked form (template flag kMask) beside the one
+// that takes neither, launched only for a call with a window or segment
+// ids; the unmasked form is compiled from the same code as before the
+// masked one existed.  Query row i sees key j where the causal and length
+// tests pass and, in the masked form, j > i + q_offset - window and
+// seg[i] == seg[j] (seg null: no segments; Lq == Lk).  The masked form's
+// parameters add window (kNoBand where the call has none) and seg.  The
+// kernels skip whole tiles behind the band and test each step (NK keys, or
+// NQ query rows) once: a step wholly outside the band, or whose segment ids
+// share no value with those of the warp's 16 fixed rows (query rows, or
+// keys in the KV-outer kernels), is skipped; a step inside the band whose
+// ids are all the fixed rows' one id needs no element mask.  The mask holds
+// nothing in registers across a step's products: the block's view sits in
+// shared memory after the form's own (MaskSmem, read through a volatile
+// pointer so that it is re-read where used), and the step's ids are
+// re-read from global memory (L1) by loads the compiler neither merges nor
+// hoists (ld_fresh).
+
+constexpr int kNoBand = 1 << 30;   // a window wider than any sequence
+
+__device__ __forceinline__ int ld_fresh(const int* p) {
+  int v;
+  asm volatile("ld.global.nc.b32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+
+struct MaskSmem {
+  const int* seg;          // the batch row's segment ids, or null
+  int lo[4], hi[4];        // each warp's fixed rows' least and greatest id
+  int own[kTcBlock];       // each fixed row's id
+};
+constexpr int kMaskSmemBytes = (sizeof(MaskSmem) + 15) / 16 * 16;
+
+// Every thread of the block, before a __syncthreads: the block's view at
+// `at` (the end of the form's shared memory) of batch row b of the
+// segment ids seg [B, n] (null: none), for its fixed rows fixed0 ..
+// fixed0 + 63 (clipped to n - 1); returns it.
+__device__ __forceinline__ const volatile MaskSmem* mask_setup(
+    char* at, const int* seg, int b, int n, int fixed0, int tid) {
+  MaskSmem* ms = reinterpret_cast<MaskSmem*>(at);
+  if (seg) seg += (size_t)b * n;
+  if (tid == 0) ms->seg = seg;
+  if (seg) {
+    const int lane = tid & 31, warp = tid >> 5;
+    const int v = __ldg(seg + min(fixed0 + warp * 16 + (lane & 15), n - 1));
+    const int lo = __reduce_min_sync(kFull, v);
+    const int hi = __reduce_max_sync(kFull, v);
+    if (lane < 16) ms->own[warp * 16 + lane] = v;
+    if (lane == 0) {
+      ms->lo[warp] = lo;
+      ms->hi[warp] = hi;
+    }
+  }
+  return ms;
+}
+
+// The ids of positions i0 .. i0 + N - 1 (N 16, 32 or 64), clipped to
+// n - 1: v[h] is position i0 + 32 h + lane (lane % N for N = 16).
+template <int N>
+struct SegVals {
+  int v[(N + 31) / 32];
+};
+
+template <int N>
+__device__ __forceinline__ SegVals<N> seg_vals(const int* seg, int n,
+                                               int i0, int lane) {
+  SegVals<N> r;
+#pragma unroll
+  for (int h = 0; h < (N + 31) / 32; ++h)
+    r.v[h] = ld_fresh(seg + min(i0 + 32 * h + (N < 32 ? lane % N : lane),
+                                n - 1));
+  return r;
+}
+
+// The least and greatest of a run's ids over the warp.  Every lane calls it.
+template <int N>
+__device__ __forceinline__ void seg_range(const SegVals<N>& r, int& lo,
+                                          int& hi) {
+  lo = hi = r.v[0];
+#pragma unroll
+  for (int h = 1; h < (N + 31) / 32; ++h) {
+    lo = min(lo, r.v[h]);
+    hi = max(hi, r.v[h]);
+  }
+  lo = __reduce_min_sync(kFull, lo);
+  hi = __reduce_max_sync(kFull, hi);
+}
+
+// The id of position i0 + base + off of a run (base a multiple of 8 known
+// at compile time once unrolled, off < 8).  Every lane calls it.
+template <int N>
+__device__ __forceinline__ int seg_at(const SegVals<N>& r, int base,
+                                      int off) {
+  return __shfl_sync(kFull, r.v[base / 32], (base + off) & 31);
+}
+
+// A step of N streamed positions from s0 against the warp's 16 fixed rows
+// (ms's view): false where their ids share no value; else full is cleared
+// unless every id is the fixed rows' one id.  Every lane calls it.
+template <int N>
+__device__ __forceinline__ bool seg_step_live(const volatile MaskSmem* ms,
+                                              int n, int s0, int warp,
+                                              int lane, bool& full) {
+  int lo, hi;
+  seg_range(seg_vals<N>(ms->seg, n, s0, lane), lo, hi);
+  const int wlo = ms->lo[warp], whi = ms->hi[warp];
+  if (hi < wlo || lo > whi) return false;
+  full = full && lo == hi && wlo == whi && lo == wlo;
+  return true;
+}
+
+// The first tile of kTile keys that a block of query rows from row0 sees
+// under the window's band (0 in the unmasked form).
+template <bool kMask, int kTile, typename Prm>
+__device__ __forceinline__ int band_first_tile(const Prm& p, int row0,
+                                               int tiles) {
+  if constexpr (kMask)
+    return min(tiles, max(0, row0 + p.q_offset - p.window + 1) / kTile);
+  else
+    return 0;
+}
+
+// The masked forms' test of a step of NK keys from kc against the warp's
+// query rows rw .. rw + 15 (the forward and the dQ pass): false where no
+// pair is visible; else full is cleared where some pair is not.
+template <int NK, typename Prm>
+__device__ __forceinline__ bool keys_live(const Prm& p,
+                                          const volatile MaskSmem* ms,
+                                          int kc, int rw, int warp, int lane,
+                                          bool& full) {
+  if (kc + NK <= rw + p.q_offset - p.window + 1) return false;
+  full = full && kc > rw + 15 + p.q_offset - p.window;
+  return !p.seg || seg_step_live<NK>(ms, p.Lk, kc, warp, lane, full);
+}
+
+// The masked forms' element mask of a step's scores s (rows the thread's
+// two query rows, columns keys from kc): -inf where the length, the causal
+// limit, the band or the segments hide the key.
+template <int NK, typename Prm>
+__device__ __forceinline__ void mask_scores(float (&s)[NK / 8][4],
+                                            const Prm& p,
+                                            const volatile MaskSmem* ms,
+                                            int kc, int rw, int warp,
+                                            int lane) {
+  SegVals<NK> ks{};
+  int own[2] = {0, 0};
+  if (p.seg) {
+    ks = seg_vals<NK>(ms->seg, p.Lk, kc, lane);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      own[h] = ms->own[warp * 16 + (lane >> 2) + 8 * h];
+  }
+#pragma unroll
+  for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int off = 2 * (lane & 3) + (e & 1);
+      const int key = kc + 8 * j + off;
+      const int i = rw + (lane >> 2) + 8 * (e >> 1);
+      const int kseg = p.seg ? seg_at(ks, 8 * j, off) : 0;
+      if (key >= p.Lk || (p.causal && key > i + p.q_offset) ||
+          key <= i + p.q_offset - p.window ||
+          (p.seg && kseg != own[e >> 1]))
+        s[j][e] = -INFINITY;
+    }
+}
+
 // --- the fp32 forms: six bf16 products a product (mma_x6) -------------------
 //
 // fp32 tiles arrive by cp.async into rows padded by 4 floats (kF32Pitch),

@@ -14,7 +14,9 @@ On CUDA tensors the forward launches ``csrc/layernorm_fwd.cu`` and the
 backward ``csrc/layernorm_bwd.cu``; on CPU tensors they run
 ``layernorm_forward_plain`` / ``layernorm_backward_plain``, the same
 arithmetic in plain PyTorch (``impl="kernel"|"plain"`` forces one).  The
-backward is one launch: a persistent grid of clusters of 8 blocks
+forward takes its plan from ``_fwd_plan``: a row held in registers in
+16-byte vectors (or the looped form), the rows a warp loads at once and a
+grid sized to the card.  The backward is one launch: a persistent grid of clusters of 8 blocks
 (``_bwd_clusters``) writes dx and finishes ``dgamma`` and ``dbeta`` itself,
 in a fixed order, through a workspace of each cluster's fp32 partial sums
 that is allocated once per device (``_workspace``); the JAX package sums its
@@ -24,6 +26,7 @@ per-tile slabs outside the Pallas call.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -49,7 +52,23 @@ LN_BWD_WARPS = 8
 LN_BWD_CLUSTER = 8
 LN_BWD_HELD_MAX = 1024
 LN_BWD_MAX_H = 3072
+# The forward kernel: blocks of 8 warps, 2 an SM (tools/torch_ln_fwd_plans.py
+# times 1 to 8: at 2 a warp walks two passes of rows at R8192, the second's
+# loads in flight under the first's stores), each warp a row at a time (or
+# two); rows up to 1024 wide are held in registers.
+LN_FWD_WARPS = 8
+LN_FWD_BLOCKS_PER_SM = 2
+LN_FWD_HELD_MAX = 1024
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class FwdPlan(NamedTuple):
+    """The forward kernel's launch: ``V`` values a vector and ``NV``
+    vectors a lane of the held form (``V`` 0: the looped form), and the
+    blocks of the grid."""
+    V: int
+    NV: int
+    blocks: int
 # the backward's workspace on each device: a counter for each eighth of the
 # columns, then each cluster's [2H] partial sums
 _workspaces: dict[torch.device, torch.Tensor] = {}
@@ -95,6 +114,29 @@ def _check(x, gamma, what):
                          f"{tuple(gamma.shape)}")
 
 
+def _fwd_plan(R: int, H: int, dtype: torch.dtype, sms: int) -> FwdPlan:
+    """The forward kernel's plan for R rows of H in ``dtype`` on a card of
+    ``sms`` multiprocessors: a row held in 16-byte vectors (V = 8 in bf16,
+    4 in fp32; 8-byte bf16 vectors where H % 8 != 0), NV the least power of
+    two with 32 V NV >= H, up to H = 1024 and H % 4 == 0, else the looped
+    form; blocks enough for every warp's rows (two a warp at once where a
+    row is at most 32 bytes a lane, ``held_rows`` in the kernel), at most
+    ``LN_FWD_BLOCKS_PER_SM`` an SM, at least one."""
+    item = 2 if dtype == torch.bfloat16 else 4
+    if H % 4 or H > LN_FWD_HELD_MAX:
+        V = NV = 0
+        rows = 1
+    else:
+        V = 8 if item == 2 and H % 8 == 0 else 4
+        NV = 1
+        while 32 * V * NV < H:
+            NV *= 2
+        rows = 2 if V * NV * item <= 32 else 1
+    blocks = min(cdiv(max(R, 1), LN_FWD_WARPS * rows),
+                 LN_FWD_BLOCKS_PER_SM * sms)
+    return FwdPlan(V, NV, max(blocks, 1))
+
+
 def _launch_forward(x, gamma, beta):
     _check(x, gamma, "layernorm_forward")
     if beta.dtype != gamma.dtype or beta.shape != gamma.shape:
@@ -104,13 +146,14 @@ def _launch_forward(x, gamma, beta):
     y = torch.empty_like(x2)
     mean = torch.empty(R, dtype=torch.float32, device=x.device)
     var = torch.empty_like(mean)
+    plan = _fwd_plan(R, H, x.dtype, sm_count(x.device))
     lib, fn = entry(KERNEL_FWD, "tf_layernorm_fwd",
-                    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                     + [ctypes.c_void_p])
     err = call_on_stream(fn, x.device, x2.data_ptr(), g.data_ptr(),
                          b.data_ptr(), y.data_ptr(), mean.data_ptr(),
                          var.data_ptr(), R, H, _DTYPES[x.dtype],
-                         _DTYPES[gamma.dtype])
+                         _DTYPES[gamma.dtype], *plan)
     check_cuda(err, lib, "layernorm_fwd kernel")
     launch_counts[KERNEL_FWD] += 1
     lead = x.shape[:-1]

@@ -11,7 +11,8 @@ attend over the cache with the composed graph, as in the JAX package.  The
 uncached forward attends with the flash-attention kernels
 (``attention_kind="flash"``, and ``"auto"`` from ``_FLASH_AUTO_MIN_L``), the
 fused masked-softmax kernels (``"fused"``) or the composed ("naive") graph;
-``use_fused_kernel=True`` puts every LayerNorm, the cached forward's too, on
+the flash and composed routes take ``cfg.window`` (sliding-window attention)
+and ``segment_ids`` (packed sequences); ``use_fused_kernel=True`` puts every LayerNorm, the cached forward's too, on
 the fused LayerNorm kernels.  What is not ported raises
 ``NotImplementedError`` and names the ROADMAP.md item that brings it.
 """
@@ -31,7 +32,8 @@ from tpu_flash_torch.nn import functional as F
 from tpu_flash_torch.nn.layers import Dropout, Embedding, LayerNorm, Linear
 from tpu_flash_torch.ops.attention import flash_attention
 from tpu_flash_torch.ops.fused import attn_softmax
-from tpu_flash_torch.ops.reference import causal_mask
+from tpu_flash_torch.ops.reference import (apply_segment_mask, causal_mask,
+                                           window_mask)
 
 AttentionKind = Literal["flash", "fused", "naive", "auto"]
 
@@ -153,8 +155,8 @@ class MultiHeadAttention(torch.nn.Module):
         kernels over the materialized scores (``"fused"``) or the composed
         graph.  As in the JAX package, the flash path takes no ``kv_mask``
         and the fused one refuses ``window`` and ``segment_ids``, which its
-        ``[B, Lk]`` mask cannot express.  ``impl`` reaches the kernels'
-        wrappers."""
+        ``[B, Lk]`` mask cannot express; the flash and composed paths take
+        both.  ``impl`` reaches the kernels' wrappers."""
         c = self.cfg
         kind = c.attention_kind
         if kind == "auto":
@@ -168,12 +170,10 @@ class MultiHeadAttention(torch.nn.Module):
                 raise NotImplementedError(
                     "segment_ids is not expressible in the fused "
                     "attn_softmax kernel's [B, Lk] mask; use flash or naive")
-        if segment_ids is not None:
-            raise _not_ported("segment_ids (packed sequences)", "A5")
-        if c.window is not None:
-            raise _not_ported("window on the uncached forward", "A5")
         if kind == "flash":
-            return flash_attention(q, k, v, causal=c.causal, impl=impl)
+            return flash_attention(q, k, v, causal=c.causal,
+                                   window=c.window, segment_ids=segment_ids,
+                                   impl=impl)
         if k.shape[1] != q.shape[1]:     # GQA: repeat each KV head
             g = q.shape[1] // k.shape[1]
             k = k.repeat_interleave(g, dim=1)
@@ -187,6 +187,11 @@ class MultiHeadAttention(torch.nn.Module):
             if c.causal:
                 s = s + causal_mask(q.shape[-2], k.shape[-2], s.dtype,
                                     s.device)
+                if c.window is not None:
+                    s = s + window_mask(q.shape[-2], k.shape[-2], c.window,
+                                        s.dtype, s.device)
+            if segment_ids is not None:
+                s = apply_segment_mask(s, segment_ids)
             if kv_mask is not None:
                 s = s + kv_mask[:, None, None, :].to(s.dtype)
             p = F.softmax(s, dim=-1)
@@ -358,9 +363,11 @@ class DecoderLM(torch.nn.Module):
         ``positions`` ([1, L] or [B, L]) overrides ``arange(L)``, as decode
         needs.  ``training`` with a ``generator`` applies the embedding and
         feed-forward dropouts (the JAX layer has no residual dropout).
-        ``impl`` reaches the kernels' wrappers.  ``segment_ids`` reaches
-        the uncached attention, where packed sequences are not ported yet
-        (the fused path refuses them, as the JAX package does)."""
+        ``impl`` reaches the kernels' wrappers.  ``segment_ids`` ([B, L])
+        reaches the uncached attention: packed sequences, each row attending
+        only its own segment (the fused path refuses them, as the JAX
+        package does); with ``positions`` per segment a packed row gives
+        each example's logits alone."""
         if segment_ids is not None and kv_caches is not None:
             raise NotImplementedError(
                 "segment_ids (packed training) is not supported on the "

@@ -15,7 +15,9 @@ from tpu_flash_torch.ops.fused import (  # noqa: F401
     layer_norm_with_stats,
 )
 from tpu_flash_torch.ops.reference import (  # noqa: F401
+    apply_segment_mask,
     causal_mask,
     default_scale,
     naive_attention,
+    window_mask,
 )

@@ -4,7 +4,8 @@
 ``flash_attention`` is a ``torch.autograd.Function`` (the JAX package's
 ``custom_vjp``, ops/attention.py:219-240): the forward runs
 ``kernels.flash_attention_forward`` and saves ``(q, k, v, out, lse)``; the
-backward runs ``kernels.flash_attention_backward``, which recomputes
+backward runs ``kernels.flash_attention_backward`` (both past their checks,
+which ``flash_attention`` makes once), which recomputes
 ``P = exp(S - lse)`` in the form the JAX package takes for the shape
 (``kernels.backward_form``, the TPU's rule, not retuned for the H100): the
 fused single pass below its lengths, the two passes (dK/dV, then dQ) from
@@ -15,8 +16,11 @@ selects the FA1 ``(l, m)`` or FA2 ``lse`` residual convention of
 ``impl``: ``None`` launches the CUDA kernels for CUDA tensors and runs
 their plain versions for CPU tensors; ``"kernel"`` or
 ``"plain"`` forces one (the JAX package's ``"pallas"`` and
-``"reference"``/``"xla"``).  Quantized K/V, attention dropout, ``window``,
-``segment_ids`` and the parallel (sharded) form are not ported yet.
+``"reference"``/``"xla"``).  ``window`` (sliding-window attention, requires
+``causal``) and ``segment_ids`` (packed sequences, ``[B, L]``) reach every
+kernel, forward and backward, validated as the JAX package validates them.
+Quantized K/V, attention dropout and the parallel (sharded) form are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -24,27 +28,30 @@ from __future__ import annotations
 import torch
 
 from tpu_flash_torch.kernels.flash_attention import (
-    flash_attention_backward,
+    _backward,
+    _forward,
+    check_mask,
     flash_attention_forward,
 )
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, impl):
+    def forward(ctx, q, k, v, causal, impl, window, seg):
+        # window and seg as flash_attention's check_mask returned them
         q, k, v = (x.contiguous() for x in (q, k, v))
-        out, lse, _ = flash_attention_forward(q, k, v, causal=causal,
-                                              impl=impl)
+        out, lse, _ = _forward(q, k, v, causal, None, None, False, window,
+                               seg, impl)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.impl = causal, impl
+        ctx.causal, ctx.impl, ctx.window, ctx.seg = causal, impl, window, seg
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(
-            q, k, v, out, lse, do, causal=ctx.causal, impl=ctx.impl)
-        return dq, dk, dv, None, None
+        dq, dk, dv = _backward(q, k, v, out, lse, do, None, ctx.causal,
+                               None, None, ctx.window, ctx.seg, ctx.impl)
+        return dq, dk, dv, None, None, None, None
 
 
 def _check_version(version: int) -> None:
@@ -58,18 +65,21 @@ def flash_attention(q, k, v, *, causal: bool = False, version: int = 2,
                     window: int | None = None,
                     segment_ids=None) -> torch.Tensor:
     """Flash attention over ``[B, H, L, d]`` inputs (k, v may carry fewer
-    heads: GQA); differentiable.  Returns ``[B, H, Lq, d]`` in q's dtype."""
+    heads: GQA); differentiable.  Returns ``[B, H, Lq, d]`` in q's dtype.
+    ``window`` (requires ``causal``): row r attends keys in
+    ``(r - window, r]``; ``segment_ids`` (``[B, L]`` int, Lq == Lk): row r
+    attends only keys of its own segment (composed with causal and
+    window)."""
     _check_version(version)
     unported = [(kv_quant != "none", "kv_quant"),
-                (dropout_rate > 0.0, "attention dropout"),
-                (window is not None, "window"),
-                (segment_ids is not None, "segment_ids")]
+                (dropout_rate > 0.0, "attention dropout")]
     for bad, what in unported:
         if bad:
             raise NotImplementedError(
                 f"{what} in flash_attention is not ported yet (ROADMAP.md, "
-                f"queue A item A5)")
-    return _FlashAttention.apply(q, k, v, causal, impl)
+                f"queue A item A5, queue B item B3)")
+    window, seg = check_mask(q, k, causal, window, segment_ids)
+    return _FlashAttention.apply(q, k, v, causal, impl, window, seg)
 
 
 @torch.no_grad()

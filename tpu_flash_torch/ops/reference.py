@@ -1,6 +1,6 @@
 """Plain PyTorch oracles, counterpart of ``tpu_flash/ops/reference.py``:
-the causal mask, naive attention, the tiled FlashAttention-1 and -2
-forward oracles (the executable specs the attention kernels are held
+the causal, sliding-window and segment masks, naive attention, the tiled
+FlashAttention-1 and -2 forward oracles (the executable specs the attention kernels are held
 against), and the composed masked softmax and LayerNorm that
 ``ops.fused`` takes above its size limits.  Causal masking adds
 ``MASK_VALUE`` (-1e7), as the reference does."""
@@ -33,6 +33,26 @@ def causal_mask(seq_q: int, seq_k: int, dtype=torch.float32,
     q_ids = torch.arange(seq_q, device=device)[:, None] + (seq_k - seq_q)
     k_ids = torch.arange(seq_k, device=device)[None, :]
     return torch.where(k_ids <= q_ids, 0.0, MASK_VALUE).to(dtype)
+
+
+def window_mask(seq_q: int, seq_k: int, window: int, dtype=torch.float32,
+                device=None) -> torch.Tensor:
+    """Additive sliding-window lower-bound mask ``[seq_q, seq_k]`` (combine
+    with ``causal_mask``): bottom-right-aligned row r attends keys in
+    ``(r + offset - window, r + offset]``; -1e9 behind the band."""
+    offset = seq_k - seq_q
+    rows = torch.arange(seq_q, device=device)[:, None] + offset
+    cols = torch.arange(seq_k, device=device)[None, :]
+    return torch.where(cols > rows - window, 0.0, -1e9).to(dtype)
+
+
+def apply_segment_mask(s: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+    """Cross-segment scores of ``s`` ``[B, H, Lq, Lk]`` set to
+    ``MASK_VALUE`` given segment ids ``seg`` ``[B, L]`` (packed-sequence
+    attention; set rather than added, as the kernels mask in-tile)."""
+    same = seg[:, None, :, None] == seg[:, None, None, :]
+    return torch.where(same, s, torch.tensor(MASK_VALUE, dtype=s.dtype,
+                                             device=s.device))
 
 
 def naive_attention(q, k, v, *, causal: bool = False, mask=None,
