@@ -83,6 +83,20 @@ ported paths:
   and fused backward), each checking its masked kernels' launches a step;
   and one fp32 step of each against its plain version (the six-product
   masked forms);
+* attention dropout: every flash kernel's dropout form (both dtypes,
+  unmasked and masked) held against its plain version at rate 0.1 and a
+  fixed seed at the main path's shapes (``DROP_TIMED``: mode (i)'s B4 H8
+  L2048 in both dtypes, mode (f)'s B1 H8 L16384 and it under mode (g)'s
+  window 2048, mode (h)'s packed segments, and the fp32 steps' shapes)
+  and timed beside the form without dropout on the same inputs and SDPA
+  with ``dropout_p``; every kernel's keep bits read back exactly and held
+  bit for bit against the hash (``mask_probe``); the fused backward's
+  dropout forms twice for the same bits; ``train_epoch`` in mode (i),
+  mode (b) with ``attn_dropout=0.1`` on the dropout forms; one bf16 step
+  each of (f) and (g) at 2 layers, (h) and (d) with attention dropout, and
+  four fp32 steps with it against their plain versions (mode (h)'s packed
+  rows under window 256, the production config, and the long config at 2
+  layers and L=8192, alone and under window 2048);
 * long-context training: the two-pass backward's dK/dV and dQ kernels,
   in the six-product form for fp32 and the tensor-core form for bf16 (each
   call checked to launch its form), against their plain halves (causal or
@@ -106,7 +120,8 @@ ported paths:
 
 The build phase logs each kernel's registers, stack and spills as ptxas
 reports them, and fails if a flash-attention kernel's tensor-core or
-six-product form (unmasked or masked), a quantized matmul's tensor-core
+six-product form (unmasked or masked, without or with dropout), a
+quantized matmul's tensor-core
 decode, fp32 decode or fp32 prefill form, a form of the masked-softmax
 forward or of either LayerNorm kernel, or a flash-decode kernel spills.
 Modes (b) and (e) run the forward and the fused backward in their
@@ -200,10 +215,22 @@ MASKED_TC = tuple(fa._form_name(n, torch.bfloat16, True)
 MASKED_X6 = tuple(fa._form_name(n, torch.float32, True)
                   for n in FLASH_KERNELS)
 MASKED = MASKED_TC + MASKED_X6
+# Each flash kernel's dropout forms (a call with dropout; the same C entry,
+# the kernel's kDrop instantiation, with and without the mask), counted
+# under the form's name (+ fa.MASK) + fa.DROP, in FLASH_KERNELS' order.
+DROPPED_TC = tuple(fa._form_name(n, torch.bfloat16, False, True)
+                   for n in FLASH_KERNELS)
+DROPPED_X6 = tuple(fa._form_name(n, torch.float32, False, True)
+                   for n in FLASH_KERNELS)
+MASK_DROPPED_TC = tuple(fa._form_name(n, torch.bfloat16, True, True)
+                        for n in FLASH_KERNELS)
+MASK_DROPPED_X6 = tuple(fa._form_name(n, torch.float32, True, True)
+                        for n in FLASH_KERNELS)
+DROPPED = DROPPED_TC + DROPPED_X6 + MASK_DROPPED_TC + MASK_DROPPED_X6
 FUSED = ("layernorm_fwd", "layernorm_bwd", "attn_softmax_fwd",
          "attn_softmax_bwd")
 TRAINING_KERNELS = (ATTENTION_X6 + ATTENTION_TC + TWO_PASS + TWO_PASS_TC
-                    + MASKED + FUSED)
+                    + MASKED + DROPPED + FUSED)
 QUANT_SOURCES = ("int8_matmul", "int4_matmul")
 # The quantized matmul kernels by launch count, with (bits, group size) and
 # the TPU kernel each replaces; bf16 x runs the tensor-core forms, counted
@@ -333,6 +360,17 @@ ATTN_TOL = {   # output: (atol, arms, rtol)
     torch.bfloat16: {"lse": (1e-3, 0.0, 1e-3), **dict.fromkeys(
         ("out", "dq", "dk", "dv"), (0.0, 3e-2, 2e-2))},
 }
+# The dropout forms take ATTN_TOL, but for bf16 out an arms of 4e-2: the
+# kernel rounds P keep / (1 - rate) against its running max, the plain
+# version against the row's final max, and over the fewer kept terms of a
+# row the tail of that difference is longer (at mode (f)'s shape a reading
+# of 0.0336; on other inputs there 0.0295 where the form without dropout
+# reads 0.0228, the worst elements in rows 64-1024, where the running max
+# moves; PERF.md §6).
+DROP_ATTN_TOL = {
+    torch.float32: ATTN_TOL[torch.float32],
+    torch.bfloat16: {**ATTN_TOL[torch.bfloat16], "out": (0.0, 4e-2, 2e-2)},
+}
 ATTN_CASES = [
     # name, B, H, Hkv, Lq, Lk, d, causal
     ("train-L2048", 4, 8, 8, 2048, 2048, 64, True),
@@ -385,6 +423,28 @@ MASK_TIMED = [
     ("segments of mode (h)", torch.bfloat16, 4, 8, 2048, None, True),
     ("segments of mode (h)", torch.float32, 4, 8, 2048, None, True),
     ("mode (g): window 2048", torch.bfloat16, 1, 8, 16384, 2048, False),
+    ("window 2048", torch.float32, 1, 8, 8192, 2048, False),
+]
+# Attention dropout at the main path's shapes: the rate of mode (i) and the
+# shorter dropout steps (DecoderConfig.attn_dropout), one fixed seed.  The
+# dropout forms are held against their plain versions and timed at
+# DROP_TIMED (label, dtype, B, H, L, window, segments; d 64, causal): mode
+# (i)'s shape in both dtypes (the unmasked forward and fused backward),
+# mode (f)'s (the unmasked forward and two passes in bf16) and under mode
+# (g)'s window (masked), mode (h)'s packed rows (the masked forward and
+# fused backward in bf16) and, in fp32, those rows under a window of 256,
+# B1 L8192 (the two passes) and it under a window of 2048: the shapes of
+# the dropout steps that launch each form.
+DROP_RATE, DROP_SEED = 0.1, -20260
+DROP_TIMED = [
+    ("mode (i)", torch.bfloat16, 4, 8, 2048, None, False),
+    ("mode (i)", torch.float32, 4, 8, 2048, None, False),
+    ("mode (f)", torch.bfloat16, 1, 8, 16384, None, False),
+    ("mode (g): window 2048", torch.bfloat16, 1, 8, 16384, 2048, False),
+    ("segments of mode (h)", torch.bfloat16, 4, 8, 2048, None, True),
+    ("window 256, segments of mode (h)", torch.float32, 4, 8, 2048, 256,
+     True),
+    ("L8192", torch.float32, 1, 8, 8192, None, False),
     ("window 2048", torch.float32, 1, 8, 8192, 2048, False),
 ]
 # Mode (g): TRAIN_LONG under the long-context demo's sliding window
@@ -908,26 +968,30 @@ def attention_times(gen, B=4, H=8, L=2048, d=64) -> dict:
     return rows
 
 
-def fused_backward_bits(gen, B=4, H=8, L=2048, d=64, window=None) -> None:
+def fused_backward_bits(gen, B=4, H=8, L=2048, d=64, window=None,
+                        rate=0.0) -> None:
     """The fused backward kernel called twice on the same inputs at the
     training shape (B4 H8 L2048 d64 causal) in bf16 (its tensor-core form)
     and fp32 (its six-product form): dq, dk and dv the same bits (its dQ is
     added in a fixed order; under a window each key tile waits only for the
-    tiles that reach its chunk, in the same order)."""
+    tiles that reach its chunk, in the same order; under dropout at
+    ``rate`` both calls regenerate the same mask)."""
     for dtype in (torch.bfloat16, torch.float32):
-        args = attention_inputs(gen, B, H, H, L, L, d, dtype, True, window)
-        name = fa._form_name(fa.KERNEL_BWD, dtype, window is not None)
+        args = attention_inputs(gen, B, H, H, L, L, d, dtype, True, window,
+                                None, rate)
+        name = fa._form_name(fa.KERNEL_BWD, dtype, window is not None,
+                             rate > 0)
+        kw = dict(causal=True, window=window, dropout_rate=rate,
+                  dropout_seed=DROP_SEED, impl="kernel")
         before = common.launch_counts[name]
-        first = flash_attention_backward_fused(*args, causal=True,
-                                               window=window, impl="kernel")
-        second = flash_attention_backward_fused(*args, causal=True,
-                                                window=window, impl="kernel")
+        first = flash_attention_backward_fused(*args, **kw)
+        second = flash_attention_backward_fused(*args, **kw)
         torch.cuda.synchronize()
         same = {n: torch.equal(a, b)
                 for n, a, b in zip(("dq", "dk", "dv"), first, second)}
         log({"phase": "fused_backward_bits", "dtype": str(dtype).split(".")[1],
              "kernel": name, "shape": f"B{B} H{H} L{L} d{d} causal",
-             "window": window,
+             "window": window, "dropout_rate": rate,
              "launches": common.launch_counts[name] - before,
              "two_calls_same_bits": same})
         check(all(same.values()), f"the fused backward gives other bits on "
@@ -938,16 +1002,85 @@ def fused_backward_bits(gen, B=4, H=8, L=2048, d=64, window=None) -> None:
 
 
 def attention_inputs(gen, B, H, Hkv, Lq, Lk, d, dtype, causal, window=None,
-                     seg=None):
-    """q, k, v, the forward kernel's out and lse, and dO."""
+                     seg=None, rate=0.0):
+    """q, k, v, the forward kernel's out and lse (under dropout at ``rate``
+    with ``DROP_SEED``), and dO."""
     q = torch.randn(B, H, Lq, d, generator=gen, device=DEV).to(dtype)
     k, v = (torch.randn(B, Hkv, Lk, d, generator=gen, device=DEV).to(dtype)
             for _ in range(2))
     do = torch.randn(B, H, Lq, d, generator=gen, device=DEV).to(dtype)
     out, lse, _ = flash_attention_forward(q, k, v, causal=causal,
                                           window=window, segment_ids=seg,
+                                          dropout_rate=rate,
+                                          dropout_seed=DROP_SEED,
                                           impl="kernel")
     return q, k, v, out, lse, do
+
+
+def mask_probe(B=2, H=8, d=64) -> dict:
+    """Each flash kernel's keep bits, read back exactly and held bit for
+    bit against the hash (``fa.dropout_keep_mask``), in both dtypes, in
+    the unmasked and (under a window of 20) the masked dropout forms, at
+    rates 0.5, 0.1 and 0.9 with seeds that wrap, seed offsets among them.
+    With q = 0 and K = I (Lk = d) every score is 0 and P uniform, so the
+    forward's out with V = I is ``P keep / (1 - rate)``; with V = 1,
+    dO = I (Lq = d), O = 0 (D = 0) and lse = log(d), dV is
+    ``(P keep / (1 - rate))^T`` and dQ ``scale P keep / (1 - rate)``, in
+    the fused backward and in the dK/dV and dQ passes.  Returns the
+    number of bits compared."""
+    compared, failed = 0, []
+    r = torch.arange(d, device=DEV)
+    eye = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        eye[dtype] = torch.eye(d, device=DEV).expand(B, H, d, d).to(dtype)
+    for dtype, window, (seed, rate) in (
+            (dt, w, sr) for dt in (torch.bfloat16, torch.float32)
+            for w in (None, 20)
+            for sr in ((-123456789, 0.5), ((7, 3, 5), 0.1),
+                       (2 ** 31 - 1, 0.9))):
+        seed_t = (torch.tensor(seed, dtype=torch.int32, device=DEV)
+                  if isinstance(seed, tuple) else seed)
+        kw = dict(causal=window is not None, window=window,
+                  dropout_rate=rate, dropout_seed=seed_t, impl="kernel")
+        i, zero = eye[dtype], torch.zeros(B, H, d, d, device=DEV,
+                                          dtype=dtype)
+        before = dict(common.launch_counts)
+        out, _, _ = flash_attention_forward(zero, i, i, **kw)
+        lse = torch.full((B, H, d), math.log(d), device=DEV)
+        args = (zero, i, torch.ones_like(i), zero, lse, i)
+        dq_f, _, dv_f = flash_attention_backward_fused(*args, **kw)
+        dq_t, _, dv_t = flash_attention_backward_two_pass(*args, **kw)
+        torch.cuda.synchronize()
+        launched = {n: c - before.get(n, 0) for n, c in
+                    common.launch_counts.items() if c != before.get(n, 0)}
+        s = [int(x) for x in fa.dropout_seed_array(seed_t, DEV).tolist()]
+        keep = fa.dropout_keep_mask(
+            r[:, None], r[None, :],
+            torch.arange(B, device=DEV)[:, None, None, None] + s[1],
+            torch.arange(H, device=DEV)[None, :, None, None] + s[2], s[0],
+            rate)
+        if window is not None:
+            keep &= (r[None, :] <= r[:, None]) & (r[None, :] > r[:, None]
+                                                  - window)
+        bits = {"out": out != 0, "dv_fused": (dv_f != 0).transpose(-1, -2),
+                "dq_fused": dq_f != 0,
+                "dv_two_pass": (dv_t != 0).transpose(-1, -2),
+                "dq_two_pass": dq_t != 0}
+        differ = {n: int((b != keep).sum()) for n, b in bits.items()}
+        names = [fa._form_name(n, dtype, window is not None, True)
+                 for n in FLASH_KERNELS]
+        ok = not any(differ.values()) and launched == dict.fromkeys(names, 1)
+        compared += keep.numel() * len(bits)
+        log({"phase": "mask_probe", "dtype": str(dtype).split(".")[1],
+             "window": window, "seed": list(s), "rate": rate,
+             "shape": f"B{B} H{H} L{d} d{d}",
+             "kept_share": float(keep.float().mean()),
+             "bits_differing": differ, "launches": launched, "ok": ok})
+        if not ok:
+            failed.append((str(dtype), window, rate))
+    check(not failed, f"a flash kernel's keep bits differ from the hash's: "
+                      f"{failed}")
+    return compared
 
 
 def segment_ids(B, L, seed=0):
@@ -1070,25 +1203,29 @@ def visible_pairs(B, Lq, Lk, window=None, seg=None) -> int:
     return int((keep[None] & (seg[:, :, None] == seg[:, None, :])).sum())
 
 
-def masked_times(gen) -> dict:
-    """At ``MASK_TIMED`` (causal, d 64; the shapes the main path gives the
-    masked forms, modes (g) and (h) among them): the masked forward and the
-    masked backward form the JAX rule takes there (the fused kernel, or the
-    dK/dV and dQ passes), each held against its plain version on the same
-    inputs at ATTN_TOL (one launch of each form) and timed: kernel, plain
-    and library (``scaled_dot_product_attention`` with an explicit boolean
-    mask, a yardstick only), each bound on the pairs the masks leave
-    visible; beside them the unmasked causal forms on the same q, k, v (the
-    masked forward's time over the causal one's).  CUDA events, the median
-    of 5 batches.  Each row carries its kernel's ``max_abs_err`` at that
-    shape."""
+def masked_times(gen, cases=MASK_TIMED, rate: float = 0.0) -> dict:
+    """At ``cases`` (causal, d 64; the shapes the main path gives the
+    forms, ``MASK_TIMED`` by default, modes (g) and (h) among them): the
+    masked forward and the masked backward form the JAX rule takes there
+    (the fused kernel, or the dK/dV and dQ passes), each held against its
+    plain version on the same inputs at ATTN_TOL (one launch of each form)
+    and timed: kernel, plain and library (``scaled_dot_product_attention``
+    with an explicit boolean mask, a yardstick only), each bound on the
+    pairs the masks leave visible; beside them the unmasked causal forms
+    on the same q, k, v (the masked forward's time over the causal one's).
+    With ``rate`` the same for the dropout forms (``DROP_SEED``; masked
+    where the case has a window or segments): SDPA with ``dropout_p`` the
+    yardstick, the bound that of the undropped form (dropout removes no
+    work), and beside them the forms without dropout under the same masks
+    (``dropout_over_undropped``).  CUDA events, the median of 5 batches.
+    Each row carries its kernel's ``max_abs_err`` at that shape."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
     packed = None
     failed = []
-    for label, dtype, B, H, L, window, seg_on in MASK_TIMED:
+    for label, dtype, B, H, L, window, seg_on in cases:
         d = 64
-        tols = ATTN_TOL[dtype]
+        tols = (DROP_ATTN_TOL if rate else ATTN_TOL)[dtype]
         if seg_on:
             if packed is None:
                 packed = torch.as_tensor(packed_batch()["segment_ids"],
@@ -1097,16 +1234,22 @@ def masked_times(gen) -> dict:
         else:
             seg = None
         args = attention_inputs(gen, B, H, H, L, L, d, dtype, True, window,
-                                seg)
+                                seg, rate)
         q, k, v, out, lse, do = args
+        drop = fa.check_dropout(q, rate, DROP_SEED)
+        masked = window is not None or seg is not None
         scale = 1.0 / math.sqrt(d)
         kin = (*fa._bwd_inputs(q, k, v, out, lse, do, None), True, scale, 0,
-               window, seg)
+               window, seg, drop)
+        # the forms beside: under dropout the same masks without it; else
+        # the causal unmasked forms
+        base_kin = kin[:-1] if drop else kin[:-3]
         vis = visible_pairs(B, L, L, window, seg)
         causal_vis = B * causal_visible(L, L)
         iters = max(1, round(64 * 2048 ** 2 / (B * L * L)))
         two = two_pass(L, L, d, q.element_size(), True, 0, window)
-        names = [fa._form_name(n, dtype, True) for n in FLASH_KERNELS]
+        names = [fa._form_name(n, dtype, masked, drop is not None)
+                 for n in FLASH_KERNELS]
         bwd_names = names[2:] if two else names[1:2]
         outs_of = dict(zip(names, (("out", "lse"), ("dq", "dk", "dv"),
                                    ("dk", "dv"), ("dq",))))
@@ -1115,46 +1258,53 @@ def masked_times(gen) -> dict:
             return device_ms(fn, warmup=1, iters=n, reps=5)
 
         ms = {names[0]: timed(lambda: fa._launch_forward(
-            q, k, v, True, scale, 0, False, window, seg))}
+            q, k, v, True, scale, 0, False, window, seg, drop))}
         if two:
             ms[names[2]] = timed(lambda: fa._launch_dkv(*kin))
             ms[names[3]] = timed(lambda: fa._launch_dq(*kin))
         else:
             ms[names[1]] = timed(lambda: fa._launch_backward(*kin))
-        causal_fwd_ms = timed(lambda: fa._launch_forward(
-            q, k, v, True, scale, 0, False))
+        base_fwd_ms = timed(lambda: fa._launch_forward(
+            q, k, v, True, scale, 0, False, *base_kin[9:]))
         if two:
-            causal_bwd_ms = timed(lambda: (fa._launch_dkv(*kin[:-2]),
-                                           fa._launch_dq(*kin[:-2])))
+            base_bwd_ms = timed(lambda: (fa._launch_dkv(*base_kin),
+                                         fa._launch_dq(*base_kin)))
         else:
-            causal_bwd_ms = timed(lambda: fa._launch_backward(*kin[:-2]))
-        # the library's yardstick: SDPA under the same boolean mask
-        rr = torch.arange(L, device=DEV)
-        keep = rr[None, :] <= rr[:, None]
-        if window is not None:
-            keep &= rr[None, :] > rr[:, None] - window
-        keep = keep[None, None]
-        if seg is not None:
-            keep = keep & (seg[:, None, :, None] == seg[:, None, None, :])
+            base_bwd_ms = timed(lambda: fa._launch_backward(*base_kin))
+        # the library's yardstick: SDPA under the same boolean mask (or
+        # is_causal where there is none), dropping at the same rate
+        if masked:
+            rr = torch.arange(L, device=DEV)
+            keep = rr[None, :] <= rr[:, None]
+            if window is not None:
+                keep &= rr[None, :] > rr[:, None] - window
+            keep = keep[None, None]
+            if seg is not None:
+                keep = keep & (seg[:, None, :, None]
+                               == seg[:, None, None, :])
+            lib_kw = dict(attn_mask=keep, dropout_p=rate)
+        else:
+            lib_kw = dict(is_causal=True, dropout_p=rate)
         leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-        lib_fwd_ms = timed(lambda: sdpa(q, k, v, attn_mask=keep))
-        lib_out = sdpa(*leaves, attn_mask=keep)
+        lib_fwd_ms = timed(lambda: sdpa(q, k, v, **lib_kw))
+        lib_out = sdpa(*leaves, **lib_kw)
         lib_bwd_ms = timed(lambda: torch.autograd.grad(
             lib_out, leaves, do, retain_graph=True))
-        del lib_out, leaves, keep
+        del lib_out, leaves, lib_kw
         torch.cuda.empty_cache()
         # the plain versions (a few fp32 [B, H, L, L] tensors each, ~30 GB
-        # at L = 16384)
-        pin = (q, k, v, do, lse, kin[5], True, scale, 0, window, seg)
+        # at L = 16384; dropout's multiplier a block of rows at a time)
+        pin = (q, k, v, do, lse, kin[5], True, scale, 0, window, seg, drop)
         plain = {names[0]: lambda: fa.flash_attention_forward_plain(
-            q, k, v, causal=True, window=window, segment_ids=seg)}
+            q, k, v, causal=True, window=window, segment_ids=seg,
+            drop=drop)}
         if two:
             plain[names[2]] = lambda: fa._dkv_plain(*pin)
             plain[names[3]] = lambda: fa._dq_plain(*pin)
         else:
             plain[names[1]] = lambda: fa.flash_attention_backward_plain(
                 q, k, v, out, lse, do, causal=True, window=window,
-                segment_ids=seg)
+                segment_ids=seg, drop=drop)
         # each kernel against its plain version at this shape, ATTN_TOL
         before = dict(common.launch_counts)
         got = {"out": out, "lse": lse}
@@ -1196,7 +1346,12 @@ def masked_times(gen) -> dict:
         dname = str(dtype).split(".")[1]
         shape = (f"B{B} H{H} L{L} d{d} causal"
                  + (f" window {window}" if window else "")
-                 + (" segments of mode (h)" if seg_on else ""))
+                 + (" segments of mode (h)" if seg_on else "")
+                 + (f" dropout {rate}" if drop else ""))
+        lib_name = ("scaled_dot_product_attention("
+                    + ("attn_mask=bool [.., L, L]" if masked
+                       else "is_causal=True")
+                    + (f", dropout_p={rate}" if drop else "") + ")")
         for n in ms:
             flops, nbytes = work[n]
             bound = {"operations": flops / peak * 1e3,
@@ -1214,35 +1369,42 @@ def masked_times(gen) -> dict:
                    "tflops": flops / (ms[n] * 1e-3) / 1e12}
             log({"phase": "kernel_time", "kernel": n, "dtype": dname,
                  "label": label,
-                 "library": "scaled_dot_product_attention(attn_mask=bool "
-                            "[.., L, L])" + (" backward, the pair's "
-                                             "yardstick" if two and
-                                             n != names[0] else
-                                             " backward" if n != names[0]
-                                             else ""), **row})
+                 "library": lib_name + (" backward, the pair's yardstick"
+                                        if two and n != names[0] else
+                                        " backward" if n != names[0]
+                                        else ""), **row})
             rows[(n, label)] = row
-        log({"phase": "masked_over_causal", "dtype": dname, "shape": shape,
+        over = "dropout_over_undropped" if drop else "masked_over_causal"
+        base = "undropped" if drop else "causal"
+        log({"phase": over, "dtype": dname, "shape": shape,
              "label": label, "forward_ms": ms[names[0]],
-             "causal_forward_ms": causal_fwd_ms,
-             "forward_over_causal": ms[names[0]] / causal_fwd_ms,
+             f"{base}_forward_ms": base_fwd_ms,
+             f"forward_over_{base}": ms[names[0]] / base_fwd_ms,
              "backward_ms": sum(ms[n] for n in bwd_names),
-             "causal_backward_ms": causal_bwd_ms,
-             "backward_over_causal": (sum(ms[n] for n in bwd_names)
-                                      / causal_bwd_ms),
+             f"{base}_backward_ms": base_bwd_ms,
+             f"backward_over_{base}": (sum(ms[n] for n in bwd_names)
+                                       / base_bwd_ms),
+             **({"each_over_undropped": {
+                 n: ms[n] / timed(fn) for n, fn in (
+                     (names[2], lambda: fa._launch_dkv(*base_kin)),
+                     (names[3], lambda: fa._launch_dq(*base_kin)))}}
+                if drop and two else {}),
              "visible_over_causal_pairs": vis / causal_vis,
              "backward_form": "two-pass" if two else "fused",
              "card": torch.cuda.get_device_name(0)})
-        log({"phase": "masked_vs_plain", "case": label, "dtype": dname,
+        log({"phase": "dropout_vs_plain" if drop else "masked_vs_plain",
+             "case": label, "dtype": dname,
              "shape": shape, "max_abs_err": errs, "arms_needed": need,
              "tol": {o: "atol {} + {} * rms + rtol {}".format(*tols[o])
                      for o in errs},
              "launches": launched, "ok": ok})
         if not ok:
             failed.append(f"{label} {dname}")
-        del args, kin, pin, q, k, v, out, lse, do, plain
+        del args, kin, base_kin, pin, q, k, v, out, lse, do, plain
         torch.cuda.empty_cache()
-    check(not failed, f"at a timed shape a masked flash form disagrees with "
-                      f"its plain version or did not launch once: {failed}")
+    check(not failed, f"at a timed shape a {'dropout' if rate else 'masked'} "
+                      f"flash form disagrees with its plain version or did "
+                      f"not launch once: {failed}")
     return rows
 
 
@@ -2098,13 +2260,20 @@ def gemm_kind(name: str) -> str | None:
 
 def port_kernel(key: str, name: str) -> bool:
     """Whether the profiler's kernel ``key`` is the port's kernel counted as
-    ``name``: a flash kernel's masked form (a ``true`` template flag) under
-    the form's name + ``fa.MASK``, its unmasked form under the name."""
-    base = name[:-len(fa.MASK)] if name in MASKED else name
+    ``name``: a flash kernel's form ``<D, kMask, kDrop>`` under the form's
+    name, + ``fa.MASK`` where kMask is true, + ``fa.DROP`` where kDrop
+    is."""
+    dropped = name.endswith(fa.DROP)
+    base = name[:-len(fa.DROP)] if dropped else name
+    masked = base.endswith(fa.MASK)
+    base = base[:-len(fa.MASK)] if masked else base
     if f"{base}_kernel" not in key:
         return False
-    flash = base in ATTENTION_TC + ATTENTION_X6 + TWO_PASS + TWO_PASS_TC
-    return not flash or (", true>" in key) == (name in MASKED)
+    if base not in ATTENTION_TC + ATTENTION_X6 + TWO_PASS + TWO_PASS_TC:
+        return True
+    flags = re.search(r"_kernel<\d+, (true|false), (true|false)>", key)
+    return bool(flags) and flags.groups() == (
+        str(masked).lower(), str(dropped).lower())
 
 
 def kernel_profile(fn, steps: int = 4) -> dict:
@@ -2329,6 +2498,49 @@ def training_end_to_end(name: str, config: dict, shape, chunked_vocab=0,
     check(ok, f"{name}: the training step through the kernels disagrees "
               f"with the plain versions")
     return row
+
+
+def dropout_step(name: str, config: dict, shape, per_step: dict,
+                 chunked_vocab: int = 0, batch: dict | None = None) -> dict:
+    """One bf16 mixed-precision Adam step of ``config`` (its
+    ``attn_dropout`` on, feed-forward dropout 0.1, one seeded CUDA
+    generator) after a warm-up step: the loss finite and each training
+    kernel launched exactly ``per_step`` times in the counted step (the
+    counts set to 0 just before it); its host time and peak memory beside.
+    Returns the counted step's launches."""
+    cfg = DecoderConfig(**config, p_dropout=0.1, dtype=torch.bfloat16)
+    model = DecoderLM(cfg, device=DEV)
+    init_params(model, torch.Generator(DEV).manual_seed(0))
+    opt = mixed_precision(adam(lr=1e-3))
+    state = opt.init(dict(model.named_parameters()))
+    batch = place_batch(batch or train_batch(0, shape, cfg.n_vocab), DEV)
+    gen = torch.Generator(DEV).manual_seed(1)
+    step = make_train_step(model, opt, chunked_vocab=chunked_vocab)
+    state, warm = step(state, batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    common.launch_counts.clear()
+    t = time.perf_counter()
+    state, loss = step(state, batch, gen)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3
+    launches = {n: c for n, c in common.launch_counts.items()
+                if c and n in TRAINING_KERNELS}
+    losses = [float(warm), float(loss)]
+    ok = all(math.isfinite(x) for x in losses) and launches == per_step
+    log({"phase": "dropout_step", "config": name,
+         "attn_dropout": cfg.attn_dropout, "p_dropout": cfg.p_dropout,
+         "dtype": "bfloat16", "batch": shape[0], "seq_len": shape[1],
+         "n_layer": cfg.n_layer, "chunked_vocab": chunked_vocab,
+         "losses": losses, "step_ms": step_ms,
+         "peak_memory_GiB": torch.cuda.max_memory_allocated() / 2**30,
+         "launches": launches, "launches_expected": per_step, "ok": ok,
+         "card": torch.cuda.get_device_name(0)})
+    check(ok, f"{name}: a non-finite loss, or the step launched {launches}, "
+              f"not {per_step}")
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+    return launches
 
 
 def long_peak_memory() -> list[dict]:
@@ -2682,7 +2894,8 @@ def main() -> int:
                          if "warning" in ln][:20]}
         for n, r in built.items()}})
     # the flash-attention kernels' tensor-core and six-product forms (each
-    # of the four kernels at each head dim, unmasked and masked) and the
+    # of the four kernels at each head dim, unmasked and masked, without
+    # and with dropout) and the
     # quantized matmuls'
     # tensor-core decode form must not spill (a spilled form of the two-pass
     # dQ kernel passed its tests 38 times slower)
@@ -2728,10 +2941,11 @@ def main() -> int:
           f"the LayerNorm forward spills: {ln_fwd_spills}")
     check(len(fd) == 4 * (4 + 3 + 2 + 2) and not fd_spills,
           f"flash decode: {len(fd)} kernels reported, spilling {fd_spills}")
-    # the flash kernels: each form at each head dim, unmasked and masked;
+    # the flash kernels: each form at each head dim, unmasked and masked,
+    # without and with dropout;
     # the decode forms: a kernel a mode at tiles of 32, 64 and 128 columns
-    check(len(tc) == 2 * len(FLASH_KERNELS) * len(fa.HEAD_DIMS)
-          and len(x6) == 2 * len(FLASH_KERNELS) * len(fa.HEAD_DIMS)
+    check(len(tc) == 4 * len(FLASH_KERNELS) * len(fa.HEAD_DIMS)
+          and len(x6) == 4 * len(FLASH_KERNELS) * len(fa.HEAD_DIMS)
           and len(dec) == 3 * len(QUANT) and len(x3) == len(QUANT_X3)
           and len(dec_x3) == 3 * len(QUANT_DEC_X3) and not spills,
           f"the tensor-core kernels spill or are missing: {len(tc)} flash, "
@@ -2748,11 +2962,15 @@ def main() -> int:
     attn_rows = attention_times(gen)
     fused_backward_bits(gen)
     fused_backward_bits(gen, window=256)
+    fused_backward_bits(gen, rate=DROP_RATE)
+    fused_backward_bits(gen, window=256, rate=DROP_RATE)
+    probed_bits = mask_probe()
     masked_worst = masked_cases(gen)
     two_worst = two_pass_cases(gen)
     long_errs = two_pass_long()
     two_rows = two_pass_times(gen)
     masked_rows = masked_times(gen)
+    drop_rows = masked_times(gen, DROP_TIMED, DROP_RATE)
     fused_worst = fused_cases(gen)
     fused_rows = fused_times(gen)
     ln_rows = {H: ln_times(gen, H)
@@ -2832,9 +3050,41 @@ def main() -> int:
                  TRAIN, (PACK_ROWS, PACK_L), torch.bfloat16, 0.1,
                  mixed_precision(adam(lr=1e-3)),
                  dict.fromkeys(MASKED_TC[:2], 4), batch=packed),
+        # (b) with attention dropout: the forward's and the fused
+        # backward's dropout forms once a layer
+        training("(i) prod-flash-bf16-mixed-precision-adam-dropout-"
+                 "attn-dropout", {**TRAIN, "attn_dropout": DROP_RATE}, prod,
+                 torch.bfloat16, 0.1, mixed_precision(adam(lr=1e-3)),
+                 dict.fromkeys(DROPPED_TC[:2], 4)),
+    ]
+    # the shorter attention-dropout steps: (f) at 2 layers (the forward
+    # twice a layer under remat, the two passes once), (g) at 2 layers (the
+    # masked forms), (h) (the masked forward and fused backward) and the
+    # reference config (d) on the fused route (P times the keep multiplier
+    # outside the kernels)
+    drop = {"attn_dropout": DROP_RATE}
+    train_launches += [
+        dropout_step("(f) long-flash-two-pass-bf16-remat-chunked, 2 layers",
+                     {**TRAIN_LONG, "n_layer": 2, **drop}, (LONG_B, LONG_L),
+                     {DROPPED_TC[0]: 4, **dict.fromkeys(DROPPED_TC[2:], 2)},
+                     chunked_vocab=LONG_CHUNKS),
+        dropout_step("(g) long-window-2048-flash-bf16-remat-chunked, "
+                     "2 layers",
+                     {**TRAIN_LONG, "n_layer": 2, "window": LONG_WINDOW,
+                      **drop}, (LONG_B, LONG_L),
+                     {MASK_DROPPED_TC[0]: 4,
+                      **(dict.fromkeys(MASK_DROPPED_TC[2:], 2)
+                         if long_window_two_pass
+                         else {MASK_DROPPED_TC[1]: 2})},
+                     chunked_vocab=LONG_CHUNKS),
+        dropout_step("(h) prod-packed-flash-bf16", {**TRAIN, **drop},
+                     (PACK_ROWS, PACK_L), dict.fromkeys(MASK_DROPPED_TC[:2], 4),
+                     batch=packed),
+        dropout_step("(d) ref-fused-fused-ln-bf16", {**REF, **drop}, ref,
+                     {**fused_sm, **fused_ln}),
     ]
     for n in TRAINING_KERNELS:
-        launches[n] = sum(t[n] for t in train_launches)
+        launches[n] = sum(t.get(n, 0) for t in train_launches)
     # the masked fp32 forms: one fp32 step at the production widths over
     # mode (h)'s packed rows under a window of 256, and one at 2 layers and
     # L = 8192 under mode (g)'s window, where fp32 takes the two passes
@@ -2847,7 +3097,29 @@ def main() -> int:
         {**TRAIN_LONG, "n_layer": 2, "window": LONG_WINDOW},
         (LONG_B, LONG_E2E_L), chunked_vocab=LONG_CHUNKS,
         launches={MASKED_X6[0]: 4, **dict.fromkeys(MASKED_X6[2:], 2)})
-    for row in (packed_e2e, window_e2e):
+    # the fp32 dropout forms: the same two steps and the production and
+    # long configs' with attn_dropout, each against its plain version (the
+    # same seeds, so the same masks)
+    drop_e2e = [
+        training_end_to_end(
+            "prod-flash-window-256-packed-attn-dropout",
+            {**TRAIN, "window": 256, **drop}, (PACK_ROWS, PACK_L),
+            batch=packed, launches=dict.fromkeys(MASK_DROPPED_X6[:2], 4)),
+        training_end_to_end(
+            "prod-flash-attn-dropout", {**TRAIN, **drop}, prod,
+            launches=dict.fromkeys(DROPPED_X6[:2], 4)),
+        training_end_to_end(
+            "long-two-pass-attn-dropout",
+            {**TRAIN_LONG, "n_layer": 2, **drop}, (LONG_B, LONG_E2E_L),
+            chunked_vocab=LONG_CHUNKS,
+            launches={DROPPED_X6[0]: 4, **dict.fromkeys(DROPPED_X6[2:], 2)}),
+        training_end_to_end(
+            "long-two-pass-window-2048-attn-dropout",
+            {**TRAIN_LONG, "n_layer": 2, "window": LONG_WINDOW, **drop},
+            (LONG_B, LONG_E2E_L), chunked_vocab=LONG_CHUNKS,
+            launches={MASK_DROPPED_X6[0]: 4,
+                      **dict.fromkeys(MASK_DROPPED_X6[2:], 2)})]
+    for row in (packed_e2e, window_e2e, *drop_e2e):
         for n, c in row["launches"]["kernel"].items():
             launches[n] += c
     long_peak_memory()
@@ -2975,6 +3247,36 @@ def main() -> int:
                                   for k in timed + ("max_abs_err",)}
                              for m, lb in masked_rows
                              if m == n and lb != main_label[n]}})
+    # the dropout forms: each at the shape of the dropout run that launches
+    # it on the main path, the other dropout shapes beside
+    drop_label = {
+        **dict.fromkeys(DROPPED_TC[:2] + DROPPED_X6[:2], "mode (i)"),
+        **dict.fromkeys(DROPPED_TC[2:], "mode (f)"),
+        **dict.fromkeys(DROPPED_X6[2:], "L8192"),
+        MASK_DROPPED_TC[0]: "mode (g): window 2048",
+        MASK_DROPPED_TC[1]: "segments of mode (h)",
+        **dict.fromkeys(MASK_DROPPED_TC[2:], "mode (g): window 2048"),
+        **dict.fromkeys(MASK_DROPPED_X6[:2],
+                        "window 256, segments of mode (h)"),
+        **dict.fromkeys(MASK_DROPPED_X6[2:], "window 2048")}
+    for n in DROPPED:
+        kernel = next(k for k in FLASH_KERNELS
+                      if n.startswith(k + common.TC)
+                      or n.startswith(k + common.X6))
+        src = kernel if kernel in ATTENTION else TWO_PASS_SOURCE
+        r = drop_rows[(n, drop_label[n])]
+        entries.append({
+            "name": n, "route": "cuda",
+            "source": f"tpu_flash_torch/kernels/csrc/{src}.cu",
+            "replaces": f"tpu_flash/kernels/{lines[kernel]}",
+            "launches": launches[n], "max_abs_err": r["max_abs_err"],
+            **{k: r[k] for k in timed},
+            "shape": f"{r['shape']}, {drop_label[n]}",
+            "mask_probe_bits_compared": probed_bits,
+            "other_shapes": {lb: {k: drop_rows[(m, lb)][k]
+                                  for k in timed + ("max_abs_err",)}
+                             for m, lb in drop_rows
+                             if m == n and lb != drop_label[n]}})
     replaces.update({"layernorm_fwd": "layernorm.py:42",
                      "layernorm_bwd": "layernorm.py:102",
                      "attn_softmax_fwd": "softmax.py:48",
@@ -3038,6 +3340,9 @@ def main() -> int:
                         k: quant_rows[(n, t)][k] for k in timed}
                     for t in QUANT_TIMED
                     if t[0] == 8 and t[3] == torch.float32 and t != shape}
+    idle = [e["name"] for e in entries if not e["launches"] > 0]
+    check(not idle, f"kernels of the kernels line the main path never "
+                    f"launched: {idle}")
     log({"phase": "total", "seconds": time.perf_counter() - t0,
          "short_profiler_traces": len(short_traces)})
     log({"kernels": entries})

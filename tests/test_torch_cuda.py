@@ -1,4 +1,7 @@
-"""The CUDA kernels (flash decode, flash-attention forward and backward,
+"""The CUDA kernels (flash decode, flash-attention forward and backward, with
+windows, packed segments and attention dropout (each dropout form against
+its plain version, every kernel's keep bits against the hash, the same
+bits twice, no host sync),
 fused LayerNorm and masked softmax forward and backward, the int8 and
 packed-int4 weight-only matmuls) against their plain PyTorch versions, on
 the card, and ``remat`` with dropout from a CUDA generator against no
@@ -364,9 +367,14 @@ def test_flash_attention_kernels_reject_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="window requires causal"):
         flash_attention_forward(x[..., :32], x[..., :32], x[..., :32],
                                 window=4)
-    with pytest.raises(NotImplementedError, match="A5"):
+    # dropout is ported: a rate outside [0, 1) is refused; quantized K/V
+    # still raises
+    with pytest.raises(ValueError, match="dropout_rate"):
         flash_attention_forward(x[..., :32], x[..., :32], x[..., :32],
-                                dropout_rate=0.1)
+                                dropout_rate=1.0)
+    with pytest.raises(NotImplementedError, match="B3c"):
+        flash_attention_forward(x[..., :32], x[..., :32], x[..., :32],
+                                dropout_rate=0.1, k_scale=x[0, 0, :, 0])
 
 
 # --- the tensor-core forms of the forward and the fused backward (bf16) ----
@@ -559,24 +567,23 @@ def test_flash_entries_refuse_the_other_forms_dtype(cuda_device, which,
         outs = (nan_like(q), nan_like(lse), nan_like(lse))
         _, fn = common.entry(kernel, symbol, [ctypes.c_void_p] * 6
                              + [ctypes.c_int] * 9
-                             + [ctypes.c_float, ctypes.c_int,
-                                ctypes.c_void_p, ctypes.c_void_p])
+                             + [ctypes.c_float] + fa._MASK_DROP_ARGS)
         err = common.call_on_stream(
             fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            *(t.data_ptr() for t in outs), *shape, 0.25 * fa.LOG2E, 0, None)
+            *(t.data_ptr() for t in outs), *shape, 0.25 * fa.LOG2E, 0, None,
+            None, 0, 1.0)
     else:
         kin = fa._bwd_inputs(q, k, v, out, lse, do, None)
         order = torch.zeros(2, dtype=torch.int32, device=q.device)
         outs = (nan_like(q, torch.float32), nan_like(k), nan_like(v))
         _, fn = common.entry(kernel, symbol, [ctypes.c_void_p] * 10
                              + [ctypes.c_int] * 9
-                             + [ctypes.c_float, ctypes.c_float,
-                                ctypes.c_int, ctypes.c_void_p,
-                                ctypes.c_void_p])
+                             + [ctypes.c_float, ctypes.c_float]
+                             + fa._MASK_DROP_ARGS)
         err = common.call_on_stream(
             fn, q.device, *(t.data_ptr() for t in kin), outs[0].data_ptr(),
             order.data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(), *shape,
-            0.25, 0.25 * fa.LOG2E, 0, None)
+            0.25, 0.25 * fa.LOG2E, 0, None, None, 0, 1.0)
     torch.cuda.synchronize()
     assert err != 0
     assert all(torch.isnan(t.float()).all() for t in outs)
@@ -712,7 +719,7 @@ def test_two_pass_entries_refuse_the_other_forms_dtype(cuda_device, which,
         fn, q.device, *(t.data_ptr() for t in kin), *(t.data_ptr()
                                                        for t in outs),
         1, 2, 2, 64, 64, 16, fa._DTYPES[other], 1, 0, 0.25, 0.25 * fa.LOG2E,
-        0, None)
+        0, None, None, 0, 1.0)
     torch.cuda.synchronize()
     assert err != 0
     assert all(torch.isnan(t.float()).all() for t in outs)
@@ -1815,3 +1822,176 @@ def test_layernorm_forward_forms_match_plain(cuda_device, xdt, gdt, R, H):
     assert_within(y, ref[0], arms, rtol)
     for a, w in zip((mean, var), ref[1:]):
         assert_within(a, w, *FUSED_TOL[torch.float32])
+
+
+# --- attention dropout: the dropout forms ------------------------------------
+
+
+def dropout_names(dtype, masked, kernels):
+    from tpu_flash_torch.kernels import flash_attention as fa
+
+    return {fa._form_name(n, dtype, masked, True): 1 for n in kernels}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("mask", [None, "window", "segments"])
+def test_dropout_forms_match_plain(cuda_device, dtype, d, mask):
+    """Each flash kernel's dropout form (forward, fused backward, dK/dV and
+    dQ passes; unmasked, and masked under a window or packed segments) at
+    rate 0.1 against its plain version with the same seed, at each head dim
+    (GQA 4:2, a ragged L): bf16 out and gradients within BF16_ARMS, lse at
+    1e-4 (under dropout the normaliser sums the fp32 P in both); fp32
+    within FA_TOL (the two passes at 1e-3).  Each call launches its dropout
+    form once and nothing else."""
+    from tpu_flash_torch.kernels import flash_attention as fa
+    from tpu_flash_torch.kernels.flash_attention import (
+        flash_attention_backward_dkv_plain, flash_attention_backward_dq_plain,
+        flash_attention_backward_fused, flash_attention_backward_two_pass,
+        flash_attention_forward)
+
+    B, H, Hkv, L = 2, 4, 2, 300
+    gen = torch.Generator(cuda_device).manual_seed(31)
+    q, k, v, do = attention_case(gen, cuda_device, B, H, Hkv, L, L, d, dtype)
+    seed = torch.tensor([-1234567, 1, 2], dtype=torch.int32,
+                        device=cuda_device)
+    kw = dict(causal=mask is not None or d != 32, dropout_rate=0.1,
+              dropout_seed=seed,
+              window=77 if mask == "window" else None,
+              segment_ids=(packed_segments(B, L, 7, cuda_device)
+                           if mask == "segments" else None))
+    before = dict(common.launch_counts)
+    out, lse, _ = flash_attention_forward(q, k, v, **kw)
+    fused = flash_attention_backward_fused(q, k, v, out, lse, do, **kw)
+    two = flash_attention_backward_two_pass(q, k, v, out, lse, do, **kw)
+    launched = {n: c - before.get(n, 0) for n, c in
+                common.launch_counts.items() if c != before.get(n, 0)}
+    want = flash_attention_forward(q, k, v, impl="plain", **kw)
+    ref = flash_attention_backward_fused(q, k, v, out, lse, do, impl="plain",
+                                         **kw)
+    ref_dk, ref_dv = flash_attention_backward_dkv_plain(
+        q, k, v, out, lse, do, causal=kw["causal"], window=kw["window"],
+        segment_ids=kw["segment_ids"], drop=fa.check_dropout(q, 0.1, seed))
+    ref_dq = flash_attention_backward_dq_plain(
+        q, k, v, out, lse, do, causal=kw["causal"], window=kw["window"],
+        segment_ids=kw["segment_ids"], drop=fa.check_dropout(q, 0.1, seed))
+    torch.cuda.synchronize()
+    assert launched == dropout_names(dtype, mask is not None,
+                                     (fa.KERNEL_FWD, fa.KERNEL_BWD,
+                                      fa.KERNEL_DKV, fa.KERNEL_DQ))
+    torch.testing.assert_close(lse, want[1], atol=1e-4, rtol=1e-4)
+    named = list(zip((out, *fused, *two),
+                     (want[0], *ref, ref_dq, ref_dk, ref_dv)))
+    if dtype == torch.bfloat16:
+        for a, b in named:
+            assert a.dtype == b.dtype == dtype and a.shape == b.shape
+            assert_close_bf16(a, b)
+    else:
+        fw_tol, bw_tol = FA_TOL[dtype]
+        for i, (a, b) in enumerate(named):
+            tol = fw_tol if i == 0 else bw_tol if i < 4 else 1e-3
+            torch.testing.assert_close(a, b, atol=tol, rtol=tol)
+
+
+def probe_bits(dtype, dev, seed, rate, B=2, H=4, d=64, window=None):
+    """The keep bits each flash kernel applied, read back exactly, beside
+    the hash's (``mask_probe`` of chip_smoke.py): with q = 0 and K = I
+    (Lk = d) every score is 0 and P uniform, so the forward's out with
+    V = I is ``P keep / (1 - rate)``; with V = 1, dO = I (Lq = d), O = 0
+    (D = 0) and lse = log(d), dV is ``(P keep / (1 - rate))^T`` and dQ
+    ``scale P keep / (1 - rate)``, in the fused backward and the two
+    passes.  Returns {output: its bits} and the hash's bits [B, H, d, d]."""
+    from tpu_flash_torch.kernels import flash_attention as fa
+
+    eye = torch.eye(d, device=dev).expand(B, H, d, d).to(dtype)
+    zero = torch.zeros(B, H, d, d, device=dev, dtype=dtype)
+    kw = dict(causal=window is not None, window=window, dropout_rate=rate,
+              dropout_seed=seed)
+    out, lse, _ = fa.flash_attention_forward(zero, eye, eye, **kw)
+    lse = torch.full((B, H, d), float(np.log(d)), device=dev)
+    ones = torch.ones_like(eye)
+    args = (zero, eye, ones, zero, lse, eye)
+    dq_f, _, dv_f = fa.flash_attention_backward_fused(*args, **kw)
+    dq_t, _, dv_t = fa.flash_attention_backward_two_pass(*args, **kw)
+    torch.cuda.synchronize()
+    s = fa.dropout_seed_array(seed, torch.device(dev)).tolist()
+    r = torch.arange(d, device=dev)
+    keep = fa.dropout_keep_mask(
+        r[:, None], r[None, :],
+        torch.arange(B, device=dev)[:, None, None, None] + s[1],
+        torch.arange(H, device=dev)[None, :, None, None] + s[2], s[0], rate)
+    if window is not None:
+        keep &= (r[None, :] <= r[:, None]) & (r[None, :] > r[:, None] - window)
+    return {"out": out != 0, "dv_fused": (dv_f != 0).transpose(-1, -2),
+            "dq_fused": dq_f != 0, "dv_two_pass": (dv_t != 0).transpose(-1, -2),
+            "dq_two_pass": dq_t != 0}, keep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seed,rate", [(-123456789, 0.5), ([7, 3, 5], 0.1),
+                                       (2 ** 31 - 1, 0.9)])
+def test_dropout_mask_probe_reads_the_hash_bits(cuda_device, dtype, seed,
+                                                rate):
+    """Every kernel's keep bits, read back exactly, equal the hash's bit
+    for bit (the forward's, the fused backward's and both passes'; seed
+    offsets shift the batch and head); and the masked forms' too under a
+    window."""
+    if isinstance(seed, list):
+        seed = torch.tensor(seed, dtype=torch.int32, device=cuda_device)
+    for window in (None, 20):
+        bits, keep = probe_bits(dtype, cuda_device, seed, rate,
+                                window=window)
+        for name, got in bits.items():
+            assert torch.equal(got, keep), (name, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_fused_backward_gives_the_same_bits(cuda_device, dtype):
+    """The fused backward's dropout form twice on the same inputs (and the
+    masked one under a window): the same bits."""
+    from tpu_flash_torch.kernels.flash_attention import (
+        flash_attention_backward_fused, flash_attention_forward)
+
+    gen = torch.Generator(cuda_device).manual_seed(32)
+    q, k, v, do = attention_case(gen, cuda_device, 2, 8, 8, 1000, 1000, 64,
+                                 dtype)
+    for window in (None, 100):
+        kw = dict(causal=True, window=window, dropout_rate=0.1,
+                  dropout_seed=99)
+        out, lse, _ = flash_attention_forward(q, k, v, **kw)
+        first = flash_attention_backward_fused(q, k, v, out, lse, do, **kw)
+        second = flash_attention_backward_fused(q, k, v, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.isfinite(a).all() and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [256, 16384])
+def test_dropout_op_makes_the_host_wait_nowhere(cuda_device, L):
+    """``ops.flash_attention`` forward and backward with dropout and a
+    device seed (the fused backward, and at L = 16384 the two passes) under
+    torch's sync debug mode "error": the seed never goes to the host."""
+    from tpu_flash_torch import ops as tops
+
+    gen = torch.Generator(cuda_device).manual_seed(33)
+    q, k, v, do = attention_case(gen, cuda_device, 1, 2, 2, L, L, 64,
+                                 torch.bfloat16)
+    leaves = [x.requires_grad_() for x in (q, k, v)]
+    seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=gen,
+                         device=cuda_device, dtype=torch.int32)
+    tops.flash_attention(*leaves, causal=True, dropout_rate=0.1,
+                         dropout_seed=seed).backward(do)   # builds
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = tops.flash_attention(*leaves, causal=True, dropout_rate=0.1,
+                                   dropout_seed=seed)
+        out.backward(do)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(x.grad).all() for x in leaves)

@@ -206,9 +206,15 @@ def test_aliases_and_what_raises(rng):
     torch.testing.assert_close(tops.flash_attn2(q, k, v), ref)
     torch.testing.assert_close(tops.flash_attn_causal(q, k, v),
                                tops.flash_attention(q, k, v, causal=True))
-    for kw in (dict(kv_quant="int8"), dict(dropout_rate=0.1)):
-        with pytest.raises(NotImplementedError, match="A5"):
-            tops.flash_attention(q, k, v, **kw)
+    # quantized K/V still raises; attention dropout is ported: the op
+    # equals naive attention with P times the kernels' keep multiplier
+    with pytest.raises(NotImplementedError, match="A5.*B3c"):
+        tops.flash_attention(q, k, v, kv_quant="int8")
+    s = q @ k.transpose(-1, -2) / 4.0
+    p = torch.softmax(s, -1) * tref.dropout_keep_oracle(1, 2, 32, 32, 3, 0.1)
+    torch.testing.assert_close(
+        tops.flash_attention(q, k, v, dropout_rate=0.1, dropout_seed=3),
+        p @ v, atol=1e-5, rtol=1e-5)
     # window and segment ids are ported: the op equals naive attention
     # under the same masks
     seg = torch.tensor([[0] * 12 + [1] * 20])

@@ -7,7 +7,9 @@ six-product entries ``tf_flash_attention_{fwd,bwd}_x6`` under the names +
 and none where it fails; the fused backward's dQ order holds one counter
 per chunk of its form (64 query rows, and 32 in fp32 at d = 128); and
 ``flash_attention_backward`` still takes
-the form ``backward_form.two_pass`` (the JAX package's rule) gives.  The C
+the form ``backward_form.two_pass`` (the JAX package's rule) gives; a
+window or segment ids launch the masked forms, dropout the dropout forms
+with the seed's device pointer, the threshold and the scale.  The C
 entries are stubs that record their call and return a code."""
 
 import ctypes
@@ -207,13 +209,21 @@ def test_the_c_entries_take_ctypes_of_the_right_width(stub_entries,
     q, k, v, do = inputs(BF16)
     out, lse, _ = fa.flash_attention_forward(q, k, v, causal=True)
     fa.flash_attention_backward_fused(q, k, v, out, lse, do, causal=True)
+    fa.flash_attention_backward_two_pass(q, k, v, out, lse, do, causal=True)
     fwd, bwd = argtypes["tf_flash_attention_fwd_tc"], \
         argtypes["tf_flash_attention_bwd_tc"]
+    # after the scales: the window, the segment ids, dropout's seed pointer,
+    # its threshold (uint32) and scale, and the stream
+    tail = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32,
+            ctypes.c_float, ctypes.c_void_p]
     assert fwd == [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_float] + tail
     assert bwd == [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [
-        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_float] + tail
+    for n, n_ptr in (("dkv", 8), ("dq", 7)):
+        assert argtypes[f"tf_flash_attention_bwd_{n}_tc"] == (
+            [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 9
+            + [ctypes.c_float, ctypes.c_float] + tail)
 
 
 @pytest.mark.parametrize("window,segmented", [(8, False), (None, True),
@@ -249,9 +259,57 @@ def test_a_window_or_segments_launch_the_masked_form(stub_entries, window,
             "tf_" + fa._form_name(n, dtype) for n in
             (fa.KERNEL_FWD, fa.KERNEL_BWD, fa.KERNEL_DKV, fa.KERNEL_DQ)]
         for _, _, a in calls:
-            win, ptr = a[-3], a[-2]
+            win, ptr = a[-6], a[-5]
             assert win == ((window or 0) if masked_call else 0)
             if masked_call and segmented:
                 assert isinstance(ptr, int) and ptr != 0
             else:
                 assert ptr is None
+            assert a[-4:-1] == (None, 0, 1.0)    # no dropout
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype,suffix", [(BF16, "_tc"), (FP32, "_x6")])
+def test_dropout_launches_the_dropout_form(stub_entries, masked, dtype,
+                                           suffix):
+    """With dropout every kernel calls its form's C entry with the seed's
+    device pointer (int32 [seed, batch offset, head offset]), the keep
+    threshold and 1 / (1 - rate) before the stream, and counts under the
+    form's name (+ MASK) + DROP; the seed is the caller's, padded with
+    zeros, and never read back to the host."""
+    calls, _ = stub_entries
+    q, k, v, do = inputs(dtype, Lq=72)
+    seen = []
+    real = fa.dropout_seed_array
+
+    def recording(seed, device):
+        arr = real(seed, device)
+        seen.append(arr)
+        return arr
+
+    fa_seed = torch.tensor([-9, 2], dtype=torch.int32)
+    kw = dict(causal=True, dropout_rate=0.25, dropout_seed=fa_seed,
+              window=8 if masked else None)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fa, "dropout_seed_array", recording)
+        (out, lse, _), fwd = counts_of(
+            lambda: fa.flash_attention_forward(q, k, v, **kw))
+        _, fused = counts_of(lambda: fa.flash_attention_backward_fused(
+            q, k, v, out, lse, do, **kw))
+        _, two = counts_of(lambda: fa.flash_attention_backward_two_pass(
+            q, k, v, out, lse, do, **kw))
+    names = [fa._form_name(n, dtype, masked, True) for n in
+             (fa.KERNEL_FWD, fa.KERNEL_BWD, fa.KERNEL_DKV, fa.KERNEL_DQ)]
+    assert {**fwd, **fused, **two} == dict.fromkeys(names, 1)
+    assert all(n.endswith(suffix + fa.MASK * masked + fa.DROP)
+               for n in names)
+    assert [c[1] for c in calls] == [
+        "tf_" + fa._form_name(n, dtype) for n in
+        (fa.KERNEL_FWD, fa.KERNEL_BWD, fa.KERNEL_DKV, fa.KERNEL_DQ)]
+    assert len(seen) == 3
+    for arr in seen:
+        assert arr.dtype == torch.int32 and arr.tolist() == [-9, 2, 0]
+    for (_, _, a), arr in zip(calls, [seen[0], seen[1], seen[2], seen[2]]):
+        assert a[-4:-1] == (arr.data_ptr(), fa.dropout_threshold(0.25),
+                            pytest.approx(1 / 0.75))
+        assert fa.dropout_threshold(0.25) == 2 ** 30

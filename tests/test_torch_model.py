@@ -164,7 +164,7 @@ def test_auto_attention_below_the_flash_threshold_is_naive(rng, fp32_pair):
 
 @pytest.mark.parametrize("over", [
     {"positional": "rope"}, {"moe": object()},
-    {"kv_quant": "int8"}, {"attn_dropout": 0.1},
+    {"kv_quant": "int8"}, {"attn_dropout": 0.1, "kv_quant": "fp8"},
     {"embedding_one_hot": True}, {"sequence_parallel": True},
 ])
 def test_unported_config_raises(over):
@@ -176,7 +176,8 @@ def test_unported_forward_paths_raise():
     """What the uncached forward still refuses, as the JAX package does: a
     window or packed sequences on the fused route (its [B, Lk] mask cannot
     express them), and packed sequences on the cached decode path.  The
-    flash and naive routes take both."""
+    flash and naive routes take both.  Attention dropout runs on every
+    route (quantized K/V, which it would compose with, still raises)."""
     ids = torch.zeros(1, 4, dtype=torch.long)
     for kind in ("flash", "naive"):
         m = tnn.DecoderLM(tnn.DecoderConfig(**{**CFG, "attention_kind": kind},
@@ -191,6 +192,15 @@ def test_unported_forward_paths_raise():
         fused(ids)
     with pytest.raises(NotImplementedError, match="segment_ids"):
         m(ids, segment_ids=ids, kv_caches=[])
+    for kind in ("flash", "naive", "fused"):
+        m = tnn.DecoderLM(tnn.DecoderConfig(**{**CFG, "attention_kind": kind},
+                                            attn_dropout=0.5), device="cpu")
+        dropped = m(ids, training=True,
+                    generator=torch.Generator().manual_seed(0))
+        assert torch.isfinite(dropped).all()
+        assert not torch.equal(dropped, m(ids))
+    with pytest.raises(NotImplementedError, match="B3c"):
+        tnn.DecoderConfig(**CFG, attn_dropout=0.1, kv_quant="int8")
 
 
 def test_entry_points_need_a_card_or_cpu():

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``), each beside its plain
 PyTorch version.  Ported so far: flash-decode attention, the
 flash-attention forward and backward (fused single pass, and the two-pass
-dK/dV and dQ kernels), the fused LayerNorm forward and
+dK/dV and dQ kernels; sliding windows, packed segments and attention
+dropout in each), the fused LayerNorm forward and
 backward, the fused masked attention-softmax forward and backward, and the
 weight-only int8 and packed-int4 matmuls."""
 
@@ -11,6 +12,7 @@ from tpu_flash_torch.kernels.decode import (  # noqa: F401
     flash_decode_attention_plain,
 )
 from tpu_flash_torch.kernels.flash_attention import (  # noqa: F401
+    dropout_keep_mask,
     flash_attention_backward,
     flash_attention_backward_dkv_plain,
     flash_attention_backward_dq_plain,

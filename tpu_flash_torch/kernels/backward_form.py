@@ -14,9 +14,10 @@ a TensorCore's VMEM and its cost per grid step, calibrated on a TPU v5e.
 The port keeps it unchanged so that both packages run the same form on the
 same shapes (bf16: two passes from L = 16384; fp32: from 8192 at d = 64,
 from 4096 at d = 128, causal, Lq = Lk).  It is not tuned for the H100:
-``chip_smoke.py`` times both forms there (PERF.md).  ``segment_ids`` and the
-``wq`` score layout are not ported, so the JAX ``wq_cols`` term is 0 and
-left out, as is the explicit ``q_pack`` of its sweeps.
+``chip_smoke.py`` times both forms there (PERF.md).  The ``wq`` score
+layout is not ported, and with ``segment_ids`` the JAX rule takes the
+``qw`` layout, so its ``wq_cols`` term is 0 here and left out, as is the
+explicit ``q_pack`` of its sweeps.  Dropout does not enter the rule.
 """
 
 from __future__ import annotations

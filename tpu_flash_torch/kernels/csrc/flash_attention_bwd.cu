@@ -40,7 +40,9 @@
 // (kMask: a sliding window and segment ids), launched only where the call
 // has either; under a window a key tile waits at a chunk only for the key
 // tiles below it whose band reaches the chunk (dq_turn), so the adds keep
-// the key tiles' order and two calls still give the same bits.
+// the key tiles' order and two calls still give the same bits.  Each form,
+// masked or not, has a dropout instantiation (kDrop), which regenerates
+// the forward's keep bits (flash_attention_tc.cuh).
 //
 // What bounds it: operations (five L^2 * D products, 4.3e10 useful flops at
 // B4 H8 L2048 d64 causal, against ~50 MB of traffic).  In bf16 the dQ adds
@@ -59,37 +61,37 @@ namespace {
 
 // Two blocks an SM (as the dK/dV pass: without the bound ptxas caps d = 32
 // at 168 registers and spills).
-template <int D, bool kMask>
+template <int D, bool kMask, bool kDrop>
 __global__ void __launch_bounds__(kTcThreads, 2)
-flash_attention_bwd_tc_kernel(const BwdParamsOf<kMask> p) {
-  kv_outer_tc_body<D, true, kMask>(p);
+flash_attention_bwd_tc_kernel(const BwdParamsOf<kMask, kDrop> p) {
+  kv_outer_tc_body<D, true, kMask, kDrop>(p);
 }
 
 // The fp32 form: kv_outer_x6_body with dQ (flash_attention_bwd.cuh), one
 // block an SM.
-template <int D, bool kMask>
+template <int D, bool kMask, bool kDrop>
 __global__ void __launch_bounds__(kTcThreads)
-flash_attention_bwd_x6_kernel(const BwdParamsOf<kMask> p) {
-  kv_outer_x6_body<D, true, kMask>(p);
+flash_attention_bwd_x6_kernel(const BwdParamsOf<kMask, kDrop> p) {
+  kv_outer_x6_body<D, true, kMask, kDrop>(p);
 }
 
-template <int D, bool kMask>
-cudaError_t launch_form(const BwdParamsOf<kMask>& p, bool x6,
+template <int D, bool kMask, bool kDrop>
+cudaError_t launch_form(const BwdParamsOf<kMask, kDrop>& p, bool x6,
                         cudaStream_t stream) {
-  return x6 ? launch_kv_outer_x6<D, true, kMask>(
-                  flash_attention_bwd_x6_kernel<D, kMask>, p, stream)
-            : launch_kv_outer_tc<D, true, kMask>(
-                  flash_attention_bwd_tc_kernel<D, kMask>, p, stream);
+  return x6 ? launch_kv_outer_x6<D, true, kMask, kDrop>(
+                  flash_attention_bwd_x6_kernel<D, kMask, kDrop>, p, stream)
+            : launch_kv_outer_tc<D, true, kMask, kDrop>(
+                  flash_attention_bwd_tc_kernel<D, kMask, kDrop>, p, stream);
 }
 
-template <bool kMask>
-cudaError_t launch_d(const BwdParamsOf<kMask>& p, int d, bool x6,
-                     cudaStream_t stream) {
+template <typename Prm>
+cudaError_t launch_d(const Prm& p, int d, bool x6, cudaStream_t stream) {
+  constexpr bool kMask = kMaskOf<Prm>, kDrop = kDropOf<Prm>;
   switch (d) {
-    case 16: return launch_form<16, kMask>(p, x6, stream);
-    case 32: return launch_form<32, kMask>(p, x6, stream);
-    case 64: return launch_form<64, kMask>(p, x6, stream);
-    case 128: return launch_form<128, kMask>(p, x6, stream);
+    case 16: return launch_form<16, kMask, kDrop>(p, x6, stream);
+    case 32: return launch_form<32, kMask, kDrop>(p, x6, stream);
+    case 64: return launch_form<64, kMask, kDrop>(p, x6, stream);
+    case 128: return launch_form<128, kMask, kDrop>(p, x6, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -101,13 +103,16 @@ extern "C" {
 // dtype: the _tc entry takes 1, bf16 (the tensor-core form), the _x6 entry
 // 0, fp32.  q, k, v, dout, dk and dv share it.  dq: fp32 [B, H, Lq, d] and
 // dq_order: int32 [B * H, ceil(Lq / chunk)], both zeroed; chunk is the
-// form's query tile: 64 rows, and 32 in fp32 at d = 128.
+// form's query tile: 64 rows, and 32 in fp32 at d = 128.  window and seg
+// (the masked form), seed, threshold and keep_scale (the dropout form) as
+// the forward's entries take them.
 #define TF_BWD_ENTRY(symbol, x6)                                               \
   int symbol(const void* q, const void* k, const void* v, const void* dout,   \
              const float* lse, const float* delta, float* dq, int* dq_order,  \
              void* dk, void* dv, int B, int H, int Hkv, int Lq, int Lk,       \
              int d, int dtype, int causal, int q_offset, float scale,         \
-             float scale2, int window, const int* seg, void* stream) {        \
+             float scale2, int window, const int* seg, const int* seed,       \
+             unsigned threshold, float keep_scale, void* stream) {            \
     if (dtype != (x6 ? 0 : 1) ||                                              \
         !bwd_args_ok(dtype, H, Hkv, d, (long long)B * Hkv) ||                 \
         !mask_args_ok(window, causal, seg, Lq, Lk))                           \
@@ -118,9 +123,11 @@ extern "C" {
                       Lq, Lk, q_offset, causal != 0, scale, scale2,           \
                       dq_order};                                              \
     const cudaStream_t st = static_cast<cudaStream_t>(stream);               \
-    if (window > 0 || seg)                                                    \
-      return launch_d<true>(masked(p, window, seg), d, x6, st);               \
-    return launch_d<false>(p, d, x6, st);                                     \
+    return launch_form_of(p, window, seg,                                     \
+                          DropCall{seed, threshold, keep_scale},              \
+                          [&](const auto& prm) {                              \
+                            return launch_d(prm, d, x6, st);                  \
+                          });                                                 \
   }
 
 TF_BWD_ENTRY(tf_flash_attention_bwd_tc, false)

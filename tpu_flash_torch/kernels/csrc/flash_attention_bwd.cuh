@@ -22,7 +22,11 @@
 // (query_tiles), steps of query rows are skipped or taken without the
 // element mask by rows_live, and under a window the fused pass's ordered
 // dQ adds wait at each chunk only for the key tiles that reach it
-// (dq_turn).
+// (dq_turn).  Each body has a dropout instantiation too (kDrop, with or
+// without kMask): P^T is held transposed, keys by query rows, so the keep
+// bit of element (key, row) is the hash of (row, key), the forward's; dP^T
+// is scaled by it before D is taken off, and dV takes P^T keep / (1 -
+// rate), as _bwd_finish (:1093-1105) does.
 //
 // kernels/common.py hashes every .cuh into each library's name, so an edit
 // here rebuilds every kernel that includes it.
@@ -63,8 +67,12 @@ struct MaskedBwdParams : BwdParams {
   const int* seg;      // [B, L] segment ids, or null
 };
 
-template <bool kMask>
-using BwdParamsOf = std::conditional_t<kMask, MaskedBwdParams, BwdParams>;
+// The parameters of a form: masked or not, with dropout's or without
+// (flash_attention_tc.cuh).
+template <bool kMask, bool kDrop = false>
+using BwdParamsOf = std::conditional_t<
+    kDrop, Dropped<std::conditional_t<kMask, MaskedBwdParams, BwdParams>>,
+    std::conditional_t<kMask, MaskedBwdParams, BwdParams>>;
 
 // The KV-outer bodies' query tiles of kTile rows from q_start, to the last
 // row that sees the block's keys from k0 (the masked forms: the band's
@@ -255,12 +263,14 @@ __device__ __forceinline__ void store_ds_t(bf16* dst, const float (*c)[4],
           c ? bf16_pair_rn(c[j][2 * h], c[j][2 * h + 1]) : 0u;
 }
 
-template <int D, bool kDQ, bool kMask>
-__device__ __forceinline__ void kv_outer_tc_body(const BwdParamsOf<kMask>& p) {
+template <int D, bool kDQ, bool kMask, bool kDrop>
+__device__ __forceinline__ void kv_outer_tc_body(
+    const BwdParamsOf<kMask, kDrop>& p) {
   using S = TcShape<D>;
   // query rows of S^T a warp holds at once: with dQ, 32 (at 64, d = 64
-  // spills)
-  constexpr int P = S::P, kStages = S::kStages, NQ = kDQ ? 32 : S::kStep;
+  // spills); the dropout forms at d = 128 16, or they spill
+  constexpr int P = S::P, kStages = S::kStages;
+  constexpr int NQ = kDrop && D > 64 ? 16 : kDQ ? 32 : S::kStep;
   extern __shared__ uint4 tc_smem[];
   bf16* ks = reinterpret_cast<bf16*>(tc_smem);   // [64][P] k
   bf16* vs = ks + kTcBlock * P;                   // [64][P] v
@@ -299,6 +309,15 @@ __device__ __forceinline__ void kv_outer_tc_body(const BwdParamsOf<kMask>& p) {
     ms = mask_setup(reinterpret_cast<char*>(tc_smem) +
                         kv_outer_tc_smem_bytes<D, kDQ>(),
                     p.seg, b, p.Lk, k0, tid);
+  // kDrop: the hash's terms of the block's keys after the mask's view (the
+  // batch's and head's terms are taken afresh each step: the head changes
+  // with the tile under GQA)
+  [[maybe_unused]] volatile DropSmem* ds = nullptr;
+  if constexpr (kDrop)
+    ds = drop_setup(reinterpret_cast<char*>(tc_smem) +
+                        kv_outer_tc_smem_bytes<D, kDQ>() +
+                        (kMask ? kMaskSmemBytes : 0),
+                    kDropCol, 0u, k0, tid);
 
   load_tile<D>(ks, p.k, kv_rows, k0, p.Lk, tid);
   load_tile<D>(vs, p.v, kv_rows, k0, p.Lk, tid);
@@ -394,6 +413,9 @@ __device__ __forceinline__ void kv_outer_tc_body(const BwdParamsOf<kMask>& p) {
             store_ds_t<NQ>(dst, nullptr, warp * 16, sub, lane);
           continue;
         }
+      if constexpr (kDrop)
+        drop_step<NQ>(ds, drop_bh(p.seed, b, hk * g + tile_head(it)), r0,
+                      kDropRow, p.threshold, tid);
       // S^T = K (q scale2)^T and dP^T = V dO^T: rows keys, columns query rows
       float s[NQ / 8][4], dp[NQ / 8][4];
 #pragma unroll
@@ -426,6 +448,8 @@ __device__ __forceinline__ void kv_outer_tc_body(const BwdParamsOf<kMask>& p) {
       // P^T and dS^T in place; column c is query row i0 + c
       if constexpr (kMask)
         if (!full) mask_scores_t<NQ>(s, p, ms, r0, kw, warp, lane);
+      [[maybe_unused]] uint32_t bits = 0;
+      if constexpr (kDrop) bits = ds->bits[tid];
 #pragma unroll
       for (int j = 0; j < NQ / 8; ++j) {
         const int c = sub + 8 * j + 2 * (lane & 3);
@@ -441,8 +465,17 @@ __device__ __forceinline__ void kv_outer_tc_body(const BwdParamsOf<kMask>& p) {
               if (i >= p.Lq || (p.causal && key > i + p.q_offset)) pr = 0.f;
             }
           }
-          s[j][e] = pr;
-          dp[j][e] = pr * (dp[j][e] - (e & 1 ? delta.y : delta.x));
+          if constexpr (kDrop) {
+            // dV takes P^T keep / (1 - rate); dP^T is scaled by the same
+            // before D is taken off (the JAX _bwd_finish)
+            const float ks = drop_scale(bits, j, e, p.keep_scale);
+            s[j][e] = __fmul_rn(pr, ks);
+            dp[j][e] = pr * (__fmul_rn(dp[j][e], ks) -
+                             (e & 1 ? delta.y : delta.x));
+          } else {
+            s[j][e] = pr;
+            dp[j][e] = pr * (dp[j][e] - (e & 1 ? delta.y : delta.x));
+          }
         }
       }
       if constexpr (kDQ) store_ds_t<NQ>(dst, dp, warp * 16, sub, lane);
@@ -554,11 +587,13 @@ __device__ __forceinline__ void kv_outer_tc_body(const BwdParamsOf<kMask>& p) {
 
 // Launches kernel<D> over the KV-outer grid of the tensor-core form, key
 // tiles along y.
-template <int D, bool kDQ, bool kMask, typename Kernel>
-cudaError_t launch_kv_outer_tc(Kernel kernel, const BwdParamsOf<kMask>& p,
+template <int D, bool kDQ, bool kMask, bool kDrop, typename Kernel>
+cudaError_t launch_kv_outer_tc(Kernel kernel,
+                               const BwdParamsOf<kMask, kDrop>& p,
                                cudaStream_t stream) {
-  constexpr int kSmem =
-      kv_outer_tc_smem_bytes<D, kDQ>() + (kMask ? kMaskSmemBytes : 0);
+  constexpr int kSmem = kv_outer_tc_smem_bytes<D, kDQ>() +
+                        (kMask ? kMaskSmemBytes : 0) +
+                        (kDrop ? kDropSmemBytes : 0);
   const int tiles = (p.Lk + kTcBlock - 1) / kTcBlock;
   if (tiles > 65535) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
@@ -616,7 +651,6 @@ struct BwdX6 {
   // a tile's steps and the products' loops over the contraction are not
   // unrolled, and dQ is formed 16 columns at a time, or ptxas spills
   static constexpr int kUnroll = D <= 64 ? 8 : 1;
-  static constexpr int kUnrollSteps = D <= 64 ? kQT / NQ : 1;
   static constexpr int kDqPiece = D <= 64 ? kDqCols : 16;
   // byte offsets: k and v planes, then q * scale2 and dO planes, with kDQ
   // dS^T planes, the fp32 stage (q, dO [kQT][F], lse, D [kQT]), and lse2
@@ -656,10 +690,15 @@ __device__ __forceinline__ void store_ds_t_x6(bf16* dst, int plane,
 
 // p by value: ptxas then allocates the fused kernel's registers without a
 // spill (taken by reference, it spilled 8 bytes at d = 64 and 4 at 32).
-template <int D, bool kDQ, bool kMask>
-__device__ __forceinline__ void kv_outer_x6_body(const BwdParamsOf<kMask> p) {
+template <int D, bool kDQ, bool kMask, bool kDrop>
+__device__ __forceinline__ void kv_outer_x6_body(
+    const BwdParamsOf<kMask, kDrop> p) {
   using X = BwdX6<D, kDQ>;
-  constexpr int kQT = X::kQT, NQ = X::NQ, F = X::F;
+  // the fused dropout form at d = 64 holds 16 query rows of S^T a step,
+  // not 32: the form without dropout already holds 255 registers
+  constexpr int kQT = X::kQT, NQ = kDrop && D <= 64 && kDQ ? 16 : X::NQ;
+  constexpr int kUnrollSteps = D <= 64 ? kQT / NQ : 1;
+  constexpr int F = X::F;
   constexpr int kKPlane = X::kKPlane, kQPlane = X::kQPlane;
   extern __shared__ uint4 x6_smem[];
   char* sm = reinterpret_cast<char*>(x6_smem);
@@ -694,6 +733,12 @@ __device__ __forceinline__ void kv_outer_x6_body(const BwdParamsOf<kMask> p) {
   [[maybe_unused]] const volatile MaskSmem* ms = nullptr;
   if constexpr (kMask)
     ms = mask_setup(sm + X::kSmem, p.seg, b, p.Lk, k0, tid);
+  // kDrop: the hash's terms of the block's keys after the mask's view (the
+  // batch's and head's terms are taken afresh each step)
+  [[maybe_unused]] volatile DropSmem* ds = nullptr;
+  if constexpr (kDrop)
+    ds = drop_setup(sm + X::kSmem + (kMask ? kMaskSmemBytes : 0), kDropCol,
+                    0u, k0, tid);
   auto tile_i0 = [&](int it) { return q_start + (nt - 1 - it / g) * kQT; };
   auto tile_rows = [&](int it) {
     return ((size_t)b * p.H + hk * g + it % g) * p.Lq;
@@ -754,7 +799,7 @@ __device__ __forceinline__ void kv_outer_x6_body(const BwdParamsOf<kMask> p) {
 
   for (int it = 0; it < tiles; ++it) {
     const int i0 = tile_i0(it);
-#pragma unroll (X::kUnrollSteps)
+#pragma unroll (kUnrollSteps)
     for (int sub = 0; sub < kQT; sub += NQ) {
       const int r0 = i0 + sub;   // the step's first query row
       // every row of the step is past Lq, or sees none of the warp's keys
@@ -773,6 +818,9 @@ __device__ __forceinline__ void kv_outer_x6_body(const BwdParamsOf<kMask> p) {
                                        warp * 16, sub, lane);
           continue;
         }
+      if constexpr (kDrop)
+        drop_step<NQ>(ds, drop_bh(p.seed, b, hk * g + it % g), r0, kDropRow,
+                      p.threshold, tid);
       // S^T = K (q scale2)^T and dP^T = V dO^T: rows keys, columns query rows
       float s[NQ / 8][4], dp[NQ / 8][4];
 #pragma unroll
@@ -817,6 +865,8 @@ __device__ __forceinline__ void kv_outer_x6_body(const BwdParamsOf<kMask> p) {
       // column c is query row i0 + c
       if constexpr (kMask)
         if (!full) mask_scores_t<NQ>(s, p, ms, r0, kw, warp, lane);
+      [[maybe_unused]] uint32_t bits = 0;
+      if constexpr (kDrop) bits = ds->bits[tid];
 #pragma unroll
       for (int j = 0; j < NQ / 8; ++j) {
         const int c = sub + 8 * j + 2 * (lane & 3);
@@ -834,9 +884,24 @@ __device__ __forceinline__ void kv_outer_x6_body(const BwdParamsOf<kMask> p) {
                 pr = 0.f;
             }
           }
-          s[j][e] = pr;
-          // __fmul_rn: no fused multiply-add into the split
-          dp[j][e] = __fmul_rn(pr, dp[j][e] - (e & 1 ? delta.y : delta.x));
+          if constexpr (kDrop) {
+            // dV takes P^T keep / (1 - rate); dP^T is scaled by the same
+            // before D is taken off (the JAX _bwd_finish)
+            float ks;
+            if constexpr (D <= 64)
+              ks = drop_scale(bits, j, e, p.keep_scale);
+            else   // re-read for each element where dK and dV hold 128
+                   // registers (held, the masked dK/dV pass spills)
+              ks = drop_scale(ds->bits[tid], j, e, p.keep_scale);
+            s[j][e] = __fmul_rn(pr, ks);
+            dp[j][e] = __fmul_rn(pr, __fmul_rn(dp[j][e], ks) -
+                                         (e & 1 ? delta.y : delta.x));
+          } else {
+            s[j][e] = pr;
+            // __fmul_rn: no fused multiply-add into the split
+            dp[j][e] =
+                __fmul_rn(pr, dp[j][e] - (e & 1 ? delta.y : delta.x));
+          }
         }
       }
       if constexpr (kDQ)
@@ -972,11 +1037,13 @@ __device__ __forceinline__ void kv_outer_x6_body(const BwdParamsOf<kMask> p) {
 
 // Launches kernel<D> over the KV-outer grid of the six-product form, key
 // tiles along y.
-template <int D, bool kDQ, bool kMask, typename Kernel>
-cudaError_t launch_kv_outer_x6(Kernel kernel, const BwdParamsOf<kMask>& p,
+template <int D, bool kDQ, bool kMask, bool kDrop, typename Kernel>
+cudaError_t launch_kv_outer_x6(Kernel kernel,
+                               const BwdParamsOf<kMask, kDrop>& p,
                                cudaStream_t stream) {
-  constexpr int kSmem =
-      BwdX6<D, kDQ>::kSmem + (kMask ? kMaskSmemBytes : 0);
+  constexpr int kSmem = BwdX6<D, kDQ>::kSmem +
+                        (kMask ? kMaskSmemBytes : 0) +
+                        (kDrop ? kDropSmemBytes : 0);
   const int tiles = (p.Lk + kTcBlock - 1) / kTcBlock;
   if (tiles > 65535) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
@@ -1008,6 +1075,42 @@ __host__ inline bool mask_args_ok(int window, int causal, const int* seg,
 __host__ inline MaskedBwdParams masked(const BwdParams& p, int window,
                                        const int* seg) {
   return MaskedBwdParams{p, window > 0 ? window : kNoBand, seg};
+}
+
+// The form of a parameter struct: masked, with dropout.
+template <typename Prm>
+constexpr bool kMaskOf = std::is_base_of_v<MaskedBwdParams, Prm>;
+template <typename Prm>
+constexpr bool kDropOf =
+    std::is_base_of_v<Dropped<BwdParams>, Prm> ||
+    std::is_base_of_v<Dropped<MaskedBwdParams>, Prm>;
+
+// A call's dropout (the C entries' last arguments before the stream): the
+// seed on the device, null for none, the keep threshold and the scale.
+struct DropCall {
+  const int* seed;
+  uint32_t threshold;
+  float keep_scale;
+};
+
+// launch<kMask, kDrop>(params) for the call's form: masked where it has a
+// window or segment ids, with dropout where it has a seed.
+template <typename Launch>
+__host__ inline cudaError_t launch_form_of(const BwdParams& p, int window,
+                                           const int* seg,
+                                           const DropCall& drop,
+                                           Launch launch) {
+  if (window > 0 || seg) {
+    const MaskedBwdParams mp = masked(p, window, seg);
+    if (drop.seed)
+      return launch(Dropped<MaskedBwdParams>{mp, drop.seed, drop.threshold,
+                                             drop.keep_scale});
+    return launch(mp);
+  }
+  if (drop.seed)
+    return launch(
+        Dropped<BwdParams>{p, drop.seed, drop.threshold, drop.keep_scale});
+  return launch(p);
 }
 
 }  // namespace

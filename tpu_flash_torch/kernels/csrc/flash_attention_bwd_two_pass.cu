@@ -54,7 +54,10 @@
 // Each kernel has a masked instantiation (kMask: a sliding window and
 // segment ids, flash_attention_tc.cuh), launched only where the call has
 // either: the dK/dV pass's query walk ends at the band's last row, the dQ
-// pass's key loop starts at the band's first tile.
+// pass's key loop starts at the band's first tile.  Each form, masked or
+// not, has a dropout instantiation (kDrop, flash_attention_tc.cuh),
+// launched for a call with a seed: dP is scaled by the forward's keep bits
+// before D is taken off, and dV takes P keep / (1 - rate).
 //
 // C entries launch on the given stream, allocate nothing and return
 // cudaGetLastError() (or cudaErrorInvalidValue for a shape or dtype they do
@@ -84,10 +87,10 @@ namespace {
 // so the low tiles, which see the most query rows, start first.  Two blocks
 // an SM: without the bound, ptxas caps d = 32 at 168 registers
 // (three blocks) and spills.
-template <int D, bool kMask>
+template <int D, bool kMask, bool kDrop>
 __global__ void __launch_bounds__(kTcThreads, 2)
-flash_attention_bwd_dkv_tc_kernel(const BwdParamsOf<kMask> p) {
-  kv_outer_tc_body<D, false, kMask>(p);
+flash_attention_bwd_dkv_tc_kernel(const BwdParamsOf<kMask, kDrop> p) {
+  kv_outer_tc_body<D, false, kMask, kDrop>(p);
 }
 
 template <int D>
@@ -98,9 +101,9 @@ __host__ __device__ constexpr int dq_tc_smem_bytes() {
 
 // dQ: one block per (batch * head, tile of 64 query rows); heavy tiles (more
 // keys under the causal mask) first.
-template <int D, bool kMask>
+template <int D, bool kMask, bool kDrop>
 __global__ void __launch_bounds__(kTcThreads)
-flash_attention_bwd_dq_tc_kernel(const BwdParamsOf<kMask> p) {
+flash_attention_bwd_dq_tc_kernel(const BwdParamsOf<kMask, kDrop> p) {
   using S = TcShape<D>;
   constexpr int P = S::P, kStages = S::kStages, NK = S::kStep;
   extern __shared__ uint4 tc_smem[];
@@ -133,6 +136,12 @@ flash_attention_bwd_dq_tc_kernel(const BwdParamsOf<kMask> p) {
   if constexpr (kMask)
     ms = mask_setup(reinterpret_cast<char*>(tc_smem) + dq_tc_smem_bytes<D>(),
                     p.seg, b, p.Lq, row0, tid);
+  // kDrop: the hash's terms of the block's rows after the mask's view
+  [[maybe_unused]] volatile DropSmem* ds = nullptr;
+  if constexpr (kDrop)
+    ds = drop_setup(reinterpret_cast<char*>(tc_smem) + dq_tc_smem_bytes<D>() +
+                        (kMask ? kMaskSmemBytes : 0),
+                    kDropRow, drop_bh(p.seed, b, h), row0, tid);
 
   load_tile<D>(qs, p.q, rows, row0, p.Lq, tid);
   load_tile<D>(os, p.dout, rows, row0, p.Lq, tid);
@@ -189,6 +198,8 @@ flash_attention_bwd_dq_tc_kernel(const BwdParamsOf<kMask> p) {
                   !(p.causal && kc + NK - 1 > rw + p.q_offset);
       if constexpr (kMask)
         if (!keys_live<NK>(p, ms, kc, rw, warp, lane, full)) continue;
+      if constexpr (kDrop)
+        drop_step<NK>(ds, 0u, kc, kDropCol, p.threshold, tid);
       // S = (q scale2) K^T and dP = dO V^T
       float s[NK / 8][4], dp[NK / 8][4];
 #pragma unroll
@@ -221,6 +232,8 @@ flash_attention_bwd_dq_tc_kernel(const BwdParamsOf<kMask> p) {
       // dS in place of dP; row r is the thread's row lane / 4 + 8 (e / 2)
       if constexpr (kMask)
         if (!full) mask_scores<NK>(s, p, ms, kc, rw, warp, lane);
+      [[maybe_unused]] uint32_t bits = 0;
+      if constexpr (kDrop) bits = ds->bits[tid];
 #pragma unroll
       for (int j = 0; j < NK / 8; ++j)
 #pragma unroll
@@ -234,7 +247,13 @@ flash_attention_bwd_dq_tc_kernel(const BwdParamsOf<kMask> p) {
                 pr = 0.f;
             }
           }
-          dp[j][e] = pr * (dp[j][e] - delta[e >> 1]);
+          if constexpr (kDrop) {
+            // dP scaled by the keep mask before D is taken off
+            const float ks = drop_scale(bits, j, e, p.keep_scale);
+            dp[j][e] = pr * (__fmul_rn(dp[j][e], ks) - delta[e >> 1]);
+          } else {
+            dp[j][e] = pr * (dp[j][e] - delta[e >> 1]);
+          }
         }
       // dQ += dS K over the step's keys
 #pragma unroll
@@ -257,10 +276,12 @@ flash_attention_bwd_dq_tc_kernel(const BwdParamsOf<kMask> p) {
   store_rows<D>(p.dq, rows, rw, p.Lq, dq, p.scale, lane);
 }
 
-template <int D, bool kMask>
-cudaError_t launch_dq_tc(const BwdParamsOf<kMask>& p, cudaStream_t stream) {
-  constexpr int kSmem = dq_tc_smem_bytes<D>() + (kMask ? kMaskSmemBytes : 0);
-  auto kernel = flash_attention_bwd_dq_tc_kernel<D, kMask>;
+template <int D, bool kMask, bool kDrop>
+cudaError_t launch_dq_tc(const BwdParamsOf<kMask, kDrop>& p,
+                         cudaStream_t stream) {
+  constexpr int kSmem = dq_tc_smem_bytes<D>() + (kMask ? kMaskSmemBytes : 0) +
+                        (kDrop ? kDropSmemBytes : 0);
+  auto kernel = flash_attention_bwd_dq_tc_kernel<D, kMask, kDrop>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
@@ -275,10 +296,10 @@ cudaError_t launch_dq_tc(const BwdParamsOf<kMask>& p, cudaStream_t stream) {
 // which the fused kernel runs with dQ): query tiles of 32 rows, 106 KB of
 // shared memory at d = 64, two blocks an SM below d = 128.
 
-template <int D, bool kMask>
+template <int D, bool kMask, bool kDrop>
 __global__ void __launch_bounds__(kTcThreads, 2)
-flash_attention_bwd_dkv_x6_kernel(const BwdParamsOf<kMask> p) {
-  kv_outer_x6_body<D, false, kMask>(p);
+flash_attention_bwd_dkv_x6_kernel(const BwdParamsOf<kMask, kDrop> p) {
+  kv_outer_x6_body<D, false, kMask, kDrop>(p);
 }
 
 // The dQ pass is flash_attention_bwd_dq_tc_kernel's mirror with every
@@ -319,9 +340,9 @@ struct DqX6 {
   static_assert(kSmem <= 232448, "shared memory");
 };
 
-template <int D, bool kMask>
+template <int D, bool kMask, bool kDrop>
 __global__ void __launch_bounds__(kTcThreads, 2)
-flash_attention_bwd_dq_x6_kernel(const BwdParamsOf<kMask> p) {
+flash_attention_bwd_dq_x6_kernel(const BwdParamsOf<kMask, kDrop> p) {
   using X = DqX6<D>;
   constexpr int kKT = X::kKT, NK = X::NK, F = X::F;
   constexpr int kQPlane = X::kQPlane, kKPlane = X::kKPlane;
@@ -359,6 +380,11 @@ flash_attention_bwd_dq_x6_kernel(const BwdParamsOf<kMask> p) {
   [[maybe_unused]] const volatile MaskSmem* ms = nullptr;
   if constexpr (kMask)
     ms = mask_setup(sm + X::kSmem, p.seg, b, p.Lq, row0, tid);
+  // kDrop: the hash's terms of the block's rows after the mask's view
+  [[maybe_unused]] volatile DropSmem* ds = nullptr;
+  if constexpr (kDrop)
+    ds = drop_setup(sm + X::kSmem + (kMask ? kMaskSmemBytes : 0), kDropRow,
+                    drop_bh(p.seed, b, h), row0, tid);
 
   auto load_stage = [&](int t) {
     load_tile_f32<D, kKT>(kst, p.k, kv_rows, t * kKT, p.Lk, tid);
@@ -412,6 +438,8 @@ flash_attention_bwd_dq_x6_kernel(const BwdParamsOf<kMask> p) {
                   !(p.causal && kc + NK - 1 > rw + p.q_offset);
       if constexpr (kMask)
         if (!keys_live<NK>(p, ms, kc, rw, warp, lane, full)) continue;
+      if constexpr (kDrop)
+        drop_step<NK>(ds, 0u, kc, kDropCol, p.threshold, tid);
       // S = (q scale2) K^T and dP = dO V^T
       float s[NK / 8][4], dp[NK / 8][4];
 #pragma unroll
@@ -456,6 +484,8 @@ flash_attention_bwd_dq_x6_kernel(const BwdParamsOf<kMask> p) {
       // r is the thread's row lane / 4 + 8 (e / 2)
       if constexpr (kMask)
         if (!full) mask_scores<NK>(s, p, ms, kc, rw, warp, lane);
+      [[maybe_unused]] uint32_t bits = 0;
+      if constexpr (kDrop) bits = ds->bits[tid];
 #pragma unroll
       for (int j = 0; j < NK / 8; ++j)
 #pragma unroll
@@ -469,8 +499,15 @@ flash_attention_bwd_dq_x6_kernel(const BwdParamsOf<kMask> p) {
                 pr = 0.f;
             }
           }
-          // __fmul_rn: no fused multiply-add into the split
-          dp[j][e] = __fmul_rn(pr, dp[j][e] - delta[e >> 1]);
+          if constexpr (kDrop) {
+            // dP scaled by the keep mask before D is taken off
+            const float ks = drop_scale(bits, j, e, p.keep_scale);
+            dp[j][e] =
+                __fmul_rn(pr, __fmul_rn(dp[j][e], ks) - delta[e >> 1]);
+          } else {
+            // __fmul_rn: no fused multiply-add into the split
+            dp[j][e] = __fmul_rn(pr, dp[j][e] - delta[e >> 1]);
+          }
         }
       // dQ += dS K over the step's keys, 16 at a time
 #pragma unroll
@@ -500,10 +537,12 @@ flash_attention_bwd_dq_x6_kernel(const BwdParamsOf<kMask> p) {
   store_rows_f32<D>(p.dq, rows, rw, p.Lq, dq, p.scale, lane);
 }
 
-template <int D, bool kMask>
-cudaError_t launch_dq_x6(const BwdParamsOf<kMask>& p, cudaStream_t stream) {
-  constexpr int kSmem = DqX6<D>::kSmem + (kMask ? kMaskSmemBytes : 0);
-  auto kernel = flash_attention_bwd_dq_x6_kernel<D, kMask>;
+template <int D, bool kMask, bool kDrop>
+cudaError_t launch_dq_x6(const BwdParamsOf<kMask, kDrop>& p,
+                         cudaStream_t stream) {
+  constexpr int kSmem = DqX6<D>::kSmem + (kMask ? kMaskSmemBytes : 0) +
+                        (kDrop ? kDropSmemBytes : 0);
+  auto kernel = flash_attention_bwd_dq_x6_kernel<D, kMask, kDrop>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
@@ -514,45 +553,49 @@ cudaError_t launch_dq_x6(const BwdParamsOf<kMask>& p, cudaStream_t stream) {
 
 // --- launches ---------------------------------------------------------------
 
-template <int D, bool kMask>
-cudaError_t launch_pass(const BwdParamsOf<kMask>& p, bool dkv, bool tc,
-                        cudaStream_t stream) {
+template <int D, bool kMask, bool kDrop>
+cudaError_t launch_pass(const BwdParamsOf<kMask, kDrop>& p, bool dkv,
+                        bool tc, cudaStream_t stream) {
   if (tc)
-    return dkv ? launch_kv_outer_tc<D, false, kMask>(
-                     flash_attention_bwd_dkv_tc_kernel<D, kMask>, p, stream)
-               : launch_dq_tc<D, kMask>(p, stream);
-  return dkv ? launch_kv_outer_x6<D, false, kMask>(
-                   flash_attention_bwd_dkv_x6_kernel<D, kMask>, p, stream)
-             : launch_dq_x6<D, kMask>(p, stream);
+    return dkv ? launch_kv_outer_tc<D, false, kMask, kDrop>(
+                     flash_attention_bwd_dkv_tc_kernel<D, kMask, kDrop>, p,
+                     stream)
+               : launch_dq_tc<D, kMask, kDrop>(p, stream);
+  return dkv ? launch_kv_outer_x6<D, false, kMask, kDrop>(
+                   flash_attention_bwd_dkv_x6_kernel<D, kMask, kDrop>, p,
+                   stream)
+             : launch_dq_x6<D, kMask, kDrop>(p, stream);
 }
 
-template <bool kMask>
-cudaError_t launch_d(const BwdParamsOf<kMask>& p, bool dkv, int d, bool tc,
+template <typename Prm>
+cudaError_t launch_d(const Prm& p, bool dkv, int d, bool tc,
                      cudaStream_t stream) {
+  constexpr bool kMask = kMaskOf<Prm>, kDrop = kDropOf<Prm>;
   switch (d) {
-    case 16: return launch_pass<16, kMask>(p, dkv, tc, stream);
-    case 32: return launch_pass<32, kMask>(p, dkv, tc, stream);
-    case 64: return launch_pass<64, kMask>(p, dkv, tc, stream);
-    case 128: return launch_pass<128, kMask>(p, dkv, tc, stream);
+    case 16: return launch_pass<16, kMask, kDrop>(p, dkv, tc, stream);
+    case 32: return launch_pass<32, kMask, kDrop>(p, dkv, tc, stream);
+    case 64: return launch_pass<64, kMask, kDrop>(p, dkv, tc, stream);
+    case 128: return launch_pass<128, kMask, kDrop>(p, dkv, tc, stream);
   }
   return cudaErrorInvalidValue;
 }
 
 // The checks every entry makes (tc: bf16 only; else, the six-product
 // form, fp32 only), then the launch of the pass at head dim d, in its
-// masked form where the call has a window or segment ids.
+// masked form where the call has a window or segment ids, in its dropout
+// form where it has a seed.
 cudaError_t launch_any(const BwdParams& p, int window, const int* seg,
-                       bool dkv, int d, int dtype, bool tc,
-                       cudaStream_t stream) {
+                       const DropCall& drop, bool dkv, int d, int dtype,
+                       bool tc, cudaStream_t stream) {
   if (dtype != (tc ? 1 : 0) ||
       !bwd_args_ok(dtype, p.H, p.Hkv, d,
                    (long long)p.B * (dkv ? p.Hkv : p.H)) ||
       !mask_args_ok(window, p.causal, seg, p.Lq, p.Lk))
     return cudaErrorInvalidValue;
   if (p.B == 0 || p.H == 0 || (dkv ? p.Lk : p.Lq) == 0) return cudaSuccess;
-  if (window > 0 || seg)
-    return launch_d<true>(masked(p, window, seg), dkv, d, tc, stream);
-  return launch_d<false>(p, dkv, d, tc, stream);
+  return launch_form_of(p, window, seg, drop, [&](const auto& prm) {
+    return launch_d(prm, dkv, d, tc, stream);
+  });
 }
 
 }  // namespace
@@ -561,18 +604,20 @@ extern "C" {
 
 // The dK/dV pass.  dtype: the _x6 entry takes 0, fp32 (the six-product
 // form); the _tc entry 1, bf16 (the tensor-core form).  q, k, v, dout, dk
-// and dv share it.  window (0 for none) and seg (or null) as the forward's
-// entries take them.
+// and dv share it.  window (0 for none) and seg (or null), seed (null for
+// no dropout), threshold and keep_scale as the forward's entries take them.
 // Writes dk and dv [B, Hkv, Lk, d] (zeros for keys no query row sees).
 #define TF_DKV_ENTRY(symbol, tc)                                              \
   int symbol(const void* q, const void* k, const void* v, const void* dout,  \
              const float* lse, const float* delta, void* dk, void* dv,       \
              int B, int H, int Hkv, int Lq, int Lk, int d, int dtype,        \
              int causal, int q_offset, float scale, float scale2,            \
-             int window, const int* seg, void* stream) {                     \
+             int window, const int* seg, const int* seed,                    \
+             unsigned threshold, float keep_scale, void* stream) {           \
     const BwdParams p{q, k, v, dout, lse, delta, nullptr, dk, dv, B, H, Hkv, \
                       Lq, Lk, q_offset, causal != 0, scale, scale2};         \
-    return launch_any(p, window, seg, true, d, dtype, tc,                    \
+    return launch_any(p, window, seg, DropCall{seed, threshold, keep_scale}, \
+                      true, d, dtype, tc,                                    \
                       static_cast<cudaStream_t>(stream));                    \
   }
 
@@ -583,10 +628,12 @@ extern "C" {
              const float* lse, const float* delta, void* dq, int B, int H,   \
              int Hkv, int Lq, int Lk, int d, int dtype, int causal,          \
              int q_offset, float scale, float scale2, int window,            \
-             const int* seg, void* stream) {                                 \
+             const int* seg, const int* seed, unsigned threshold,            \
+             float keep_scale, void* stream) {                               \
     const BwdParams p{q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, H, \
                       Hkv, Lq, Lk, q_offset, causal != 0, scale, scale2};    \
-    return launch_any(p, window, seg, false, d, dtype, tc,                   \
+    return launch_any(p, window, seg, DropCall{seed, threshold, keep_scale}, \
+                      false, d, dtype, tc,                                   \
                       static_cast<cudaStream_t>(stream));                    \
   }
 

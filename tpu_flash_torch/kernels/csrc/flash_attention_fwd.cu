@@ -41,6 +41,14 @@
 // keys is skipped, or taken without the element mask, by the tests of
 // keys_live.
 //
+// Attention dropout (_fwd_kernel's dropout_rate, :596-626): each form,
+// masked or not, has a dropout instantiation (kDrop, flash_attention_tc.cuh),
+// launched only for a call with a seed.  Where a step's P is formed, the
+// normaliser sums the undropped fp32 P (fold_l is off under dropout, :890),
+// and P.V takes P keep / (1 - rate), rounded to bf16 in the bf16 form, the
+// keep bit the hash of (query row, key, batch, head, seed).  The hash costs
+// integer operations per score and no memory traffic.
+//
 // C entries launch on the given stream, allocate nothing and return
 // cudaGetLastError() (or cudaErrorInvalidValue for a shape or dtype they do
 // not take).
@@ -72,8 +80,12 @@ struct MaskedParams : Params {
   const int* seg;  // [B, L] segment ids, or null
 };
 
-template <bool kMask>
-using ParamsOf = std::conditional_t<kMask, MaskedParams, Params>;
+// The parameters of a form: masked or not, with dropout's or without
+// (flash_attention_tc.cuh).
+template <bool kMask, bool kDrop>
+using ParamsOf = std::conditional_t<
+    kDrop, Dropped<std::conditional_t<kMask, MaskedParams, Params>>,
+    std::conditional_t<kMask, MaskedParams, Params>>;
 
 // --- the tensor-core form (bf16) --------------------------------------------
 //
@@ -98,9 +110,9 @@ __host__ __device__ constexpr int fwd_tc_smem_bytes() {
   return (1 + 2 * TcShape<D>::kStages) * TcShape<D>::kTileBytes;
 }
 
-template <int D, bool kMask>
+template <int D, bool kMask, bool kDrop>
 __global__ void __launch_bounds__(kTcThreads)
-flash_attention_fwd_tc_kernel(const ParamsOf<kMask> p) {
+flash_attention_fwd_tc_kernel(const ParamsOf<kMask, kDrop> p) {
   using S = TcShape<D>;
   constexpr int P = S::P, kStages = S::kStages, NK = S::kStep;
   constexpr bool kFoldL = D < 128;
@@ -133,6 +145,12 @@ flash_attention_fwd_tc_kernel(const ParamsOf<kMask> p) {
   if constexpr (kMask)
     ms = mask_setup(reinterpret_cast<char*>(tc_smem) + fwd_tc_smem_bytes<D>(),
                     p.seg, b, p.Lq, row0, tid);
+  // kDrop: the hash's terms of the block's rows after the mask's view
+  [[maybe_unused]] volatile DropSmem* ds = nullptr;
+  if constexpr (kDrop)
+    ds = drop_setup(reinterpret_cast<char*>(tc_smem) +
+                        fwd_tc_smem_bytes<D>() + (kMask ? kMaskSmemBytes : 0),
+                    kDropRow, drop_bh(p.seed, b, h), row0, tid);
 
   load_tile<D>(qs, p.q, rows, row0, p.Lq, tid);
   cp_async_commit();
@@ -179,6 +197,8 @@ flash_attention_fwd_tc_kernel(const ParamsOf<kMask> p) {
                   !(p.causal && kc + NK - 1 > rw + p.q_offset);
       if constexpr (kMask)
         if (!keys_live<NK>(p, ms, kc, rw, warp, lane, full)) continue;
+      if constexpr (kDrop)
+        drop_step<NK>(ds, 0u, kc, kDropCol, p.threshold, tid);
       // S = (q scale2) K^T
       float s[NK / 8][4];
 #pragma unroll
@@ -224,14 +244,22 @@ flash_attention_fwd_tc_kernel(const ParamsOf<kMask> p) {
         alpha[r] = exp2f(m[r] - base[r]);            // 0 while m is -inf
         m[r] = mx[r];
       }
+      [[maybe_unused]] uint32_t bits = 0;
+      if constexpr (kDrop) bits = ds->bits[tid];
 #pragma unroll
       for (int j = 0; j < NK / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           // masked keys: exp2(-inf) = 0
           const float pr = exp2f(s[j][e] - base[e >> 1]);
-          s[j][e] = kFoldL ? round_bf16(pr) : pr;
-          psum[e >> 1] += s[j][e];
+          if constexpr (kDrop) {
+            // l sums the undropped fp32 P; P.V takes P keep / (1 - rate)
+            psum[e >> 1] += pr;
+            s[j][e] = __fmul_rn(pr, drop_scale(bits, j, e, p.keep_scale));
+          } else {
+            s[j][e] = kFoldL ? round_bf16(pr) : pr;
+            psum[e >> 1] += s[j][e];
+          }
         }
 #pragma unroll
       for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + psum[r];
@@ -310,10 +338,9 @@ struct FwdX6 {
   static constexpr int P = TcShape<D>::P;
   static constexpr int F = kF32Pitch<D>;
   static constexpr bool kQRegs = D <= 64;        // q's planes in registers
-  // keys of S a warp holds at once, and the steps of a tile unrolled: at
-  // d = 128 16 keys a step, not unrolled, or ptxas spills
+  // keys of S a warp holds at once: at d = 128 16 keys a step, and the
+  // steps of a tile not unrolled, or ptxas spills
   static constexpr int NK = kQRegs ? TcShape<D>::kStep : 16;
-  static constexpr int kUnrollSteps = kQRegs ? kTcTile / NK : 1;
   static constexpr int kPlane = kTcTile * P;     // elements of one plane
   static constexpr int kPlanesBytes = 6 * kPlane * 2;          // K, V
   static constexpr int kQPlanesBytes = kQRegs ? 0 : 3 * kPlane * 2;
@@ -323,11 +350,15 @@ struct FwdX6 {
   static_assert(kSmem <= 232448, "shared memory");
 };
 
-template <int D, bool kMask>
+template <int D, bool kMask, bool kDrop>
 __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 2 : 1)
-flash_attention_fwd_x6_kernel(const ParamsOf<kMask> p) {
+flash_attention_fwd_x6_kernel(const ParamsOf<kMask, kDrop> p) {
   using X = FwdX6<D>;
-  constexpr int NK = X::NK, kPlane = X::kPlane, F = X::F;
+  // the dropout forms at d = 64 take 32 keys a step: 16 registers of S
+  // fewer, where the form without dropout already holds 255
+  constexpr int NK = kDrop && X::kQRegs ? 32 : X::NK;
+  constexpr int kUnrollSteps = X::kQRegs ? kTcTile / NK : 1;
+  constexpr int kPlane = X::kPlane, F = X::F;
   extern __shared__ uint4 x6_smem[];
   char* base = reinterpret_cast<char*>(x6_smem);
   bf16* kpl = reinterpret_cast<bf16*>(base);     // K's planes [64][P] x 3
@@ -362,6 +393,11 @@ flash_attention_fwd_x6_kernel(const ParamsOf<kMask> p) {
   [[maybe_unused]] const volatile MaskSmem* ms = nullptr;
   if constexpr (kMask)
     ms = mask_setup(base + X::kSmem, p.seg, b, p.Lq, row0, tid);
+  // kDrop: the hash's terms of the block's rows after the mask's view
+  [[maybe_unused]] volatile DropSmem* ds = nullptr;
+  if constexpr (kDrop)
+    ds = drop_setup(base + X::kSmem + (kMask ? kMaskSmemBytes : 0),
+                    kDropRow, drop_bh(p.seed, b, h), row0, tid);
 
   auto load_stage = [&](int t) {
     load_tile_f32<D, kTcTile>(stage, p.k, kv_rows, t * kTcTile, p.Lk, tid);
@@ -403,7 +439,7 @@ flash_attention_fwd_x6_kernel(const ParamsOf<kMask> p) {
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
   for (int t = t0; t < tiles; ++t) {
-#pragma unroll (X::kUnrollSteps)
+#pragma unroll (kUnrollSteps)
     for (int sub = 0; sub < kTcTile; sub += NK) {
       const int kc = t * kTcTile + sub;   // the step's first key
       if (kc >= wlimit) continue;         // the warp's rows see none of them
@@ -411,6 +447,8 @@ flash_attention_fwd_x6_kernel(const ParamsOf<kMask> p) {
                   !(p.causal && kc + NK - 1 > rw + p.q_offset);
       if constexpr (kMask)
         if (!keys_live<NK>(p, ms, kc, rw, warp, lane, full)) continue;
+      if constexpr (kDrop)
+        drop_step<NK>(ds, 0u, kc, kDropCol, p.threshold, tid);
       // S = (q scale2) K^T
       float s[NK / 8][4];
 #pragma unroll
@@ -469,13 +507,22 @@ flash_attention_fwd_x6_kernel(const ParamsOf<kMask> p) {
         alpha[r] = exp2f(m[r] - base2[r]);            // 0 while m is -inf
         m[r] = mx[r];
       }
+      [[maybe_unused]] uint32_t bits = 0;
+      if constexpr (kDrop) bits = ds->bits[tid];
 #pragma unroll
       for (int j = 0; j < NK / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           // masked keys: exp2(-inf) = 0
-          s[j][e] = exp2f(s[j][e] - base2[e >> 1]);
-          psum[e >> 1] += s[j][e];
+          if constexpr (kDrop) {
+            // l sums the undropped P; P.V takes P keep / (1 - rate)
+            const float pr = exp2f(s[j][e] - base2[e >> 1]);
+            psum[e >> 1] += pr;
+            s[j][e] = __fmul_rn(pr, drop_scale(bits, j, e, p.keep_scale));
+          } else {
+            s[j][e] = exp2f(s[j][e] - base2[e >> 1]);
+            psum[e >> 1] += s[j][e];
+          }
         }
 #pragma unroll
       for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + psum[r];
@@ -540,12 +587,14 @@ flash_attention_fwd_x6_kernel(const ParamsOf<kMask> p) {
 
 // --- launches ---------------------------------------------------------------
 
-template <int D, bool kMask>
-cudaError_t launch(const ParamsOf<kMask>& p, bool x6, cudaStream_t stream) {
+template <int D, bool kMask, bool kDrop>
+cudaError_t launch(const ParamsOf<kMask, kDrop>& p, bool x6,
+                   cudaStream_t stream) {
   const int smem = (x6 ? FwdX6<D>::kSmem : fwd_tc_smem_bytes<D>()) +
-                   (kMask ? kMaskSmemBytes : 0);
-  auto kernel = x6 ? flash_attention_fwd_x6_kernel<D, kMask>
-                   : flash_attention_fwd_tc_kernel<D, kMask>;
+                   (kMask ? kMaskSmemBytes : 0) +
+                   (kDrop ? kDropSmemBytes : 0);
+  auto kernel = x6 ? flash_attention_fwd_x6_kernel<D, kMask, kDrop>
+                   : flash_attention_fwd_tc_kernel<D, kMask, kDrop>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -554,16 +603,29 @@ cudaError_t launch(const ParamsOf<kMask>& p, bool x6, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool kMask>
-cudaError_t launch_d(const ParamsOf<kMask>& p, int d, bool x6,
+template <bool kMask, bool kDrop>
+cudaError_t launch_d(const ParamsOf<kMask, kDrop>& p, int d, bool x6,
                      cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<16, kMask>(p, x6, stream);
-    case 32: return launch<32, kMask>(p, x6, stream);
-    case 64: return launch<64, kMask>(p, x6, stream);
-    case 128: return launch<128, kMask>(p, x6, stream);
+    case 16: return launch<16, kMask, kDrop>(p, x6, stream);
+    case 32: return launch<32, kMask, kDrop>(p, x6, stream);
+    case 64: return launch<64, kMask, kDrop>(p, x6, stream);
+    case 128: return launch<128, kMask, kDrop>(p, x6, stream);
   }
   return cudaErrorInvalidValue;
+}
+
+// The form for the call: masked where it has a window or segment ids,
+// with dropout where it has a seed.
+template <bool kMask>
+cudaError_t launch_drop(const ParamsOf<kMask, false>& p, int d, bool x6,
+                        const int* seed, uint32_t threshold, float keep_scale,
+                        cudaStream_t stream) {
+  if (seed)
+    return launch_d<kMask, true>(
+        Dropped<ParamsOf<kMask, false>>{p, seed, threshold, keep_scale}, d,
+        x6, stream);
+  return launch_d<kMask, false>(p, d, x6, stream);
 }
 
 }  // namespace
@@ -573,12 +635,15 @@ extern "C" {
 // dtype: the _tc entry takes 1, bf16 (the tensor-core form), the _x6 entry
 // 0, fp32 (six bf16 products a product).  q, k, v and out share it.
 // window: 0 for none, else >= 1 with causal; seg: int32 [B, Lq] segment ids
-// (Lq == Lk) or null.  Either launches the masked form.
+// (Lq == Lk) or null.  Either launches the masked form.  seed: null for no
+// dropout, else int32 [3] on the device (seed, batch offset, head offset),
+// with the keep threshold and 1 / (1 - rate): the dropout form.
 #define TF_FWD_ENTRY(symbol, x6)                                              \
   int symbol(const void* q, const void* k, const void* v, void* out,         \
              float* lse, float* m, int B, int H, int Hkv, int Lq, int Lk,    \
              int d, int dtype, int causal, int q_offset, float scale2,       \
-             int window, const int* seg, void* stream) {                     \
+             int window, const int* seg, const int* seed,                    \
+             unsigned threshold, float keep_scale, void* stream) {           \
     if (dtype != (x6 ? 0 : 1) || Hkv <= 0 || H % Hkv || B * H > 65535 ||     \
         Lk <= 0 || window < 0 || (window > 0 && !causal) ||                  \
         (seg && Lq != Lk))                                                   \
@@ -588,9 +653,10 @@ extern "C" {
                    causal != 0, scale2};                                     \
     const cudaStream_t st = static_cast<cudaStream_t>(stream);              \
     if (window > 0 || seg)                                                   \
-      return launch_d<true>(                                                 \
-          MaskedParams{p, window > 0 ? window : kNoBand, seg}, d, x6, st);   \
-    return launch_d<false>(p, d, x6, st);                                    \
+      return launch_drop<true>(                                              \
+          MaskedParams{p, window > 0 ? window : kNoBand, seg}, d, x6, seed,  \
+          threshold, keep_scale, st);                                        \
+    return launch_drop<false>(p, d, x6, seed, threshold, keep_scale, st);    \
   }
 
 TF_FWD_ENTRY(tf_flash_attention_fwd_tc, false)

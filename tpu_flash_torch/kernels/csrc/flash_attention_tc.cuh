@@ -320,6 +320,112 @@ __device__ __forceinline__ void mask_scores(float (&s)[NK / 8][4],
     }
 }
 
+// --- attention dropout (the dropout forms) ----------------------------------
+//
+// tpu_flash/kernels/flash_attention.py dropout_keep_mask (:443): the keep
+// bit of query row i, key j (the call's indices from 0: q_offset is not
+// added), batch b and query head h is a hash of them and the seed, uint32
+// multiply, xor and shift, kept where the hash is at least the call's
+// threshold, min(round(rate 2^32), 2^32 - 1); kept entries are scaled by
+// 1 / (1 - rate) (keep_scale, rounded to fp32 by the caller).  Every
+// kernel computes the same bits, so the backward regenerates the forward's
+// mask.  Each flash kernel has a dropout form (template flag kDrop) beside
+// its forms without, with or without the mask; the forms without dropout
+// are compiled from the same code as before it existed.  The seed stays
+// on the device: int32 [seed, batch offset, head offset], read by the
+// kernel (the offsets shift b and h, as the JAX kernels' _global_bh).
+
+constexpr uint32_t kDropRow = 0x9E3779B1u, kDropCol = 0x85EBCA77u,
+                   kDropB = 0xC2B2AE3Du, kDropH = 0x27D4EB2Fu;
+
+// A form's parameters with dropout's beside them.
+template <typename Base>
+struct Dropped : Base {
+  const int* seed;      // int32 [3] on the device
+  uint32_t threshold;   // keep where the hash >= threshold
+  float keep_scale;     // 1 / (1 - rate)
+};
+
+// The hash's terms of batch b and query head h: the same for every score
+// of a (batch, head).  The seed is re-read by loads the compiler neither
+// merges nor hoists (ld_fresh), so that a step can take them afresh
+// without holding a register across the steps.
+__device__ __forceinline__ uint32_t drop_bh(const int* seed, int b, int h) {
+  return ((uint32_t)b + (uint32_t)ld_fresh(seed + 1)) * kDropB ^
+         ((uint32_t)h + (uint32_t)ld_fresh(seed + 2)) * kDropH ^
+         (uint32_t)ld_fresh(seed);
+}
+
+// The keep bit from the hash's terms: the fixed ones (drop_bh xor one
+// index's product) and the other index's product.
+__device__ __forceinline__ bool drop_keep(uint32_t fixed, uint32_t other,
+                                          uint32_t threshold) {
+  uint32_t u = fixed ^ other;
+  u ^= u >> 16;
+  u *= 0x7FEB352Du;
+  u ^= u >> 15;
+  u *= 0x846CA68Bu;
+  u ^= u >> 16;
+  return u >= threshold;
+}
+
+// The dropout forms' view of the block in shared memory, after the form's
+// own and the mask's: each of the 64 fixed rows' term of the hash (query
+// rows in the forward and the dQ pass, with the batch's and head's terms;
+// keys in the KV-outer bodies), and each thread's keep bits of its current
+// step.  A thread hashes its step's scores before the step's products and
+// parks the bits here (through a volatile pointer), so that nothing of the
+// hash stays in registers across the products (the _x6 forms sit at 255).
+struct DropSmem {
+  uint32_t terms[kTcBlock];
+  uint32_t bits[kTcThreads];
+};
+constexpr int kDropSmemBytes = sizeof(DropSmem);
+
+// Every thread of the block, before a __syncthreads: the view at `at`, the
+// terms of fixed rows fixed0 .. fixed0 + 63 being index times mul xor mix.
+__device__ __forceinline__ volatile DropSmem* drop_setup(char* at,
+                                                         uint32_t mul,
+                                                         uint32_t mix,
+                                                         int fixed0,
+                                                         int tid) {
+  DropSmem* ds = reinterpret_cast<DropSmem*>(at);
+  if (tid < kTcBlock) ds->terms[tid] = (uint32_t)(fixed0 + tid) * mul ^ mix;
+  return ds;
+}
+
+// Every thread, before a step's products: the keep bits of its N / 8 m16n8
+// accumulator tiles over the step's N streamed positions from `first`
+// (N <= 64), bit 4 j + e of element [j][e], into its slot.  Element
+// [j][e] is fixed row lane / 4 + 8 (e / 2) of the warp's 16 (its term xor
+// bh) and streamed position first + 8 j + 2 (lane % 4) + e % 2 (times mul).
+template <int N>
+__device__ __forceinline__ void drop_step(volatile DropSmem* ds, uint32_t bh,
+                                          int first, uint32_t mul,
+                                          uint32_t threshold, int tid) {
+  static_assert(N <= 64, "32 keep bits a step");
+  const int warp = tid >> 5, lane = tid & 31;
+  const uint32_t fixed[2] = {ds->terms[warp * 16 + (lane >> 2)] ^ bh,
+                             ds->terms[warp * 16 + (lane >> 2) + 8] ^ bh};
+  uint32_t bits = 0;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (drop_keep(fixed[e >> 1],
+                    (uint32_t)(first + 8 * j + 2 * (lane & 3) + (e & 1)) * mul,
+                    threshold))
+        bits |= 1u << (4 * j + e);
+  ds->bits[tid] = bits;
+}
+
+// The multiplier of element [j][e] from a step's keep bits: keep_scale
+// where kept, 0 where dropped.
+__device__ __forceinline__ float drop_scale(uint32_t bits, int j, int e,
+                                            float keep_scale) {
+  return (bits >> (4 * j + e)) & 1u ? keep_scale : 0.f;
+}
+
 // --- the fp32 forms: six bf16 products a product (mma_x6) -------------------
 //
 // fp32 tiles arrive by cp.async into rows padded by 4 floats (kF32Pitch),

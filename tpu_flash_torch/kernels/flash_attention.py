@@ -51,6 +51,20 @@ form (the same C entry, a second template instantiation), counted under
 the form's name + ``MASK``; a call with neither launches exactly the
 unmasked form.
 
+Attention dropout, as in the JAX package (``dropout_rate``,
+``dropout_seed``): the keep bit of (query row, key, batch, query head) is a
+hash of those indices and the seed (``dropout_keep_mask``, the JAX
+function's bits; rows and keys are the local indices, q_offset is not
+added), so the backward regenerates the mask instead of storing it.  P.V
+(and dV) sees ``P * keep / (1 - rate)``, the normaliser sums the undropped
+P (so the bf16 forward sums the fp32 P at every d under dropout), and the
+backward scales dP by the same mask before ``dS = P * (dP - D)`` with D
+unchanged.  The seed reaches the kernels as a device tensor, int32
+``[seed, batch offset, head offset]`` (``dropout_seed_array``; the host
+never reads it), beside the keep threshold and the scale; each kernel's
+dropout form (a third template instantiation, with or without the mask)
+counts under the form's name + ``DROP``.
+
 Numerics, in both versions: base-2 softmax with ``scale * log2(e)`` folded
 into q; fp32 products are fp32-accurate (never TF32); with bf16 inputs the
 scaled q, p (before P.V and dV) and dS (before dK and dQ) are rounded to
@@ -60,13 +74,14 @@ p, as the JAX kernel's ones column rides its P.V product (``_fold_l``); at
 d = 128, and in fp32, it sums the fp32 p.  The TPU's tile sizes, ``q_pack``,
 ``score_layout`` and ``interpret`` have no counterpart: the kernels pick
 their own tiling.
-Dropout and quantized K/V are not ported yet (ROADMAP.md A5, B3).
+Quantized K/V is not ported yet (ROADMAP.md A5, B3c).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -92,8 +107,10 @@ KERNEL_DKV = "flash_attention_bwd_dkv"
 KERNEL_DQ = "flash_attention_bwd_dq"
 HEAD_DIMS = (16, 32, 64, 128)
 # A call with a window or segment ids counts its launches under the form's
-# name + MASK (the kernel's masked instantiation).
+# name + MASK (the kernel's masked instantiation); a call with dropout
+# under the name (+ MASK) + DROP (its dropout instantiation).
 MASK = "_mask"
+DROP = "_drop"
 LOG2E = 1.4426950408889634
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -105,14 +122,141 @@ def _dq_chunk(dtype: torch.dtype, d: int) -> int:
     return 32 if dtype == torch.float32 and d > 64 else 64
 
 
-def _not_ported(dropout_rate=0.0, k_scale=None, v_scale=None) -> None:
-    for bad, what in ((dropout_rate > 0.0, "attention dropout"),
-                      (k_scale is not None or v_scale is not None,
-                       "quantized K/V")):
-        if bad:
-            raise NotImplementedError(
-                f"{what} in the flash-attention kernels is not ported yet "
-                f"(ROADMAP.md, queue A item A5 and queue B item B3)")
+def _not_ported(k_scale=None, v_scale=None) -> None:
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(
+            "quantized K/V in the flash-attention kernels is not ported yet "
+            "(ROADMAP.md, queue A item A5 and queue B item B3c)")
+
+
+# --- attention dropout: the JAX package's counter-based hash ---------------
+
+_U32 = 0xFFFFFFFF
+
+
+def _mul32(x, c: int):
+    """``x * c`` mod 2**32 for x in [0, 2**32) held in int64 (a tensor or
+    an int), without an int64 product past 2**63: c is taken in 16-bit
+    halves."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _U32
+
+
+def _u32(x):
+    """An int or int tensor as its uint32 bits (two's complement), in
+    int64: what ``astype(jnp.uint32)`` gives an int32."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.int64) & _U32
+    return int(x) & _U32
+
+
+def dropout_threshold(rate: float) -> int:
+    """Keep where the hash is at least this: ``round(rate * 2**32)``, at
+    most ``2**32 - 1`` (Python's round, as the JAX function takes it)."""
+    return min(int(round(rate * 2.0 ** 32)), 2 ** 32 - 1)
+
+
+def dropout_keep_mask(rows, cols, b, h, seed, rate):
+    """The JAX package's ``dropout_keep_mask``
+    (tpu_flash/kernels/flash_attention.py:443) in plain PyTorch: bool keep
+    bits, P(keep) = 1 - rate, of query rows ``rows`` and keys ``cols``
+    (int tensors, broadcastable) of batch ``b`` and query head ``h``, from
+    the int32 ``seed`` (ints or int tensors; negative values wrap as
+    uint32).  uint32 multiply / xor / shift (a murmur3 finaliser), held in
+    int64 and masked to 32 bits after every product."""
+    u = (_mul32(_u32(rows), 0x9E3779B1) ^ _mul32(_u32(cols), 0x85EBCA77)
+         ^ _mul32(_u32(b), 0xC2B2AE3D) ^ _mul32(_u32(h), 0x27D4EB2F)
+         ^ _u32(seed))
+    u = u ^ (u >> 16)
+    u = _mul32(u, 0x7FEB352D)
+    u = u ^ (u >> 15)
+    u = _mul32(u, 0x846CA68B)
+    u = u ^ (u >> 16)
+    return u >= dropout_threshold(rate)
+
+
+class Dropout(NamedTuple):
+    """A call's attention dropout: the int32 ``[seed, batch offset, head
+    offset]`` on the inputs' device (``dropout_seed_array``) and the rate."""
+
+    seed: torch.Tensor
+    rate: float
+
+    @property
+    def threshold(self) -> int:
+        return dropout_threshold(self.rate)
+
+    @property
+    def scale(self) -> float:
+        """``1 / (1 - rate)`` in Python's double, rounded to fp32 where it
+        multiplies (as the JAX kernels take it)."""
+        return 1.0 / (1.0 - self.rate)
+
+
+def dropout_seed_array(seed, device) -> torch.Tensor:
+    """``seed`` as the kernels read it: int32 ``[seed, batch offset, head
+    offset]`` on ``device``, padded with zeros (the JAX package's
+    ``seed_arr``).  An int seed wraps to int32 and is written by a fill
+    (no copy from the host); a tensor seed of 1 to 3 values is copied on
+    the device it is moved to.  Nothing here reads the seed back to the
+    host."""
+    if isinstance(seed, torch.Tensor):
+        s = seed.to(device=device, dtype=torch.int32).reshape(-1)
+        if not 1 <= s.numel() <= 3:
+            raise ValueError(f"dropout_seed must hold 1 to 3 values "
+                             f"([seed, batch offset, head offset]), got "
+                             f"{tuple(seed.shape)}")
+        # a copy: a later change to the caller's tensor cannot reach the
+        # backward's mask
+        return torch.cat([s, s.new_zeros(3 - s.numel())])
+    s = torch.zeros(3, dtype=torch.int32, device=device)
+    s[:1].fill_((int(seed) + 2 ** 31) % 2 ** 32 - 2 ** 31)
+    return s
+
+
+def check_dropout(q, dropout_rate=0.0, dropout_seed=0):
+    """None without dropout, else ``Dropout(seed array on q's device,
+    rate)``; the rate must lie in [0, 1)."""
+    rate = float(dropout_rate)
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")
+    if rate == 0.0:
+        return None
+    return Dropout(dropout_seed_array(dropout_seed, q.device), rate)
+
+
+def dropout_keep_blocks(B, H, Lq, Lk, drop: Dropout, rows_per_block=None):
+    """``(rows, keep)`` over blocks of query rows: ``keep`` the fp32
+    ``[B, H, len(rows), Lk]`` multiplier, ``1 / (1 - rate)`` where kept
+    and 0 where dropped, on the seed's device.  Blocks hold about 2**24
+    scores, so that the hash's int64 temporaries stay small at any
+    length."""
+    dev = drop.seed.device
+    if rows_per_block is None:
+        rows_per_block = max(1, 2 ** 24 // max(1, B * H * Lk))
+    b = (torch.arange(B, device=dev, dtype=torch.int64)
+         + drop.seed[1].to(torch.int64))[:, None, None, None]
+    h = (torch.arange(H, device=dev, dtype=torch.int64)
+         + drop.seed[2].to(torch.int64))[None, :, None, None]
+    cols = torch.arange(Lk, device=dev, dtype=torch.int64)[None, :]
+    one = torch.full((), drop.scale, dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    for r0 in range(0, Lq, rows_per_block):
+        rows = slice(r0, min(Lq, r0 + rows_per_block))
+        r = torch.arange(rows.start, rows.stop, device=dev,
+                         dtype=torch.int64)[:, None]
+        keep = dropout_keep_mask(r, cols, b, h, drop.seed[0], drop.rate)
+        yield rows, torch.where(keep, one, zero)
+
+
+def _apply_keep(x, drop: Dropout):
+    """``x`` ``[B, H, Lq, Lk]`` times the keep multiplier, in place, a block
+    of rows at a time; returns x."""
+    B, H, Lq, Lk = x.shape
+    for rows, keep in dropout_keep_blocks(B, H, Lq, Lk, drop):
+        x[:, :, rows].mul_(keep)
+    return x
 
 
 def check_mask(q, k, causal, window=None, segment_ids=None):
@@ -217,19 +361,25 @@ def matmul_x6(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def flash_attention_forward_plain(q, k, v, *, causal=False, scale=None,
                                   q_offset=None, with_m=False, window=None,
-                                  segment_ids=None):
+                                  segment_ids=None, drop=None):
     """The forward kernel's function in plain PyTorch: returns
     ``(out, lse, m)`` (``m`` None unless ``with_m``).  ``window`` and
-    ``segment_ids`` are taken as ``check_mask`` returns them, unchecked, as
-    in every plain version."""
+    ``segment_ids`` are taken as ``check_mask`` returns them, and ``drop``
+    as ``check_dropout`` does, unchecked, as in every plain version.  Under
+    dropout the normaliser sums the undropped fp32 P and P.V takes
+    ``P * keep / (1 - rate)`` (in the input dtype)."""
     B, H, Hkv, Lq, Lk, d = _shapes(q, k, v)
     scale, q_offset = _defaults(d, Lq, Lk, scale, q_offset)
     s2 = _scores2(q, k, scale, causal, q_offset, window, segment_ids)
     m2 = s2.amax(-1, keepdim=True)
     empty = m2 == -math.inf
     p = torch.exp2(s2 - torch.where(empty, 0.0, m2))
-    pv = p.to(q.dtype).float()
-    l = (pv if _fold_l(d) else p).sum(-1, keepdim=True)
+    if drop is None:
+        pv = p.to(q.dtype).float()
+        l = (pv if _fold_l(d) else p).sum(-1, keepdim=True)
+    else:
+        l = p.sum(-1, keepdim=True)
+        pv = _as_input_dtype(_apply_keep(p, drop), q.dtype)
     acc = pv @ _expand(v, H // Hkv).float()
     out = torch.where(empty, 0.0, acc / torch.where(empty, 1.0, l))
     m_nat = m2[..., 0] * (1.0 / LOG2E)
@@ -238,17 +388,24 @@ def flash_attention_forward_plain(q, k, v, *, causal=False, scale=None,
 
 
 def _p_ds(q, k, v, do, lse, delta, causal, scale, q_offset, window=None,
-          seg=None):
+          seg=None, drop=None):
     """The recompute every backward shares: ``P = exp2(S2 - lse * log2e)``
-    and ``dS = P * (dO V^T - D)``, fp32 ``[B, H, Lq, Lk]`` each, built in
+    and ``dS = P * (dP - D)``, fp32 ``[B, H, Lq, Lk]`` each, built in
     place (two such tensors live at a time).  Rows with ``lse = -inf`` get
-    P = 0, not ``exp(+inf)``."""
+    P = 0, not ``exp(+inf)``.  Under dropout dP is scaled by the keep
+    multiplier before D is taken off (D unchanged), and the P returned is
+    ``P * keep / (1 - rate)``, the operand of dV (the JAX ``_bwd_finish``,
+    :1093-1105)."""
     s2 = _scores2(q, k, scale, causal, q_offset, window, seg)
     lse2 = torch.where(torch.isneginf(lse), math.inf, lse.float() * LOG2E)
     p = s2.sub_(lse2[..., None]).exp2_()
     g = q.shape[1] // k.shape[1]
     dp = do.float() @ _expand(v, g).float().transpose(-1, -2)
+    if drop is not None:
+        _apply_keep(dp, drop)
     ds = dp.sub_(delta[..., None]).mul_(p)
+    if drop is not None:
+        _apply_keep(p, drop)
     return p, ds
 
 
@@ -259,10 +416,10 @@ def _as_input_dtype(x, dtype):
 
 
 def _dkv_plain(q, k, v, do, lse, delta, causal, scale, q_offset,
-               window=None, seg=None):
+               window=None, seg=None, drop=None):
     B, H, Hkv, Lq, Lk, d = _shapes(q, k, v)
     p, ds = _p_ds(q, k, v, do, lse, delta, causal, scale, q_offset, window,
-                  seg)
+                  seg, drop)
     dv = _as_input_dtype(p, q.dtype).transpose(-1, -2) @ do.float()
     del p
     dk = _as_input_dtype(ds, q.dtype).transpose(-1, -2) @ q.float()
@@ -272,9 +429,9 @@ def _dkv_plain(q, k, v, do, lse, delta, causal, scale, q_offset,
 
 
 def _dq_plain(q, k, v, do, lse, delta, causal, scale, q_offset,
-              window=None, seg=None):
+              window=None, seg=None, drop=None):
     p, ds = _p_ds(q, k, v, do, lse, delta, causal, scale, q_offset, window,
-                  seg)
+                  seg, drop)
     del p
     g = q.shape[1] // k.shape[1]
     dq = _as_input_dtype(ds, q.dtype) @ _expand(k, g).float()
@@ -283,14 +440,14 @@ def _dq_plain(q, k, v, do, lse, delta, causal, scale, q_offset,
 
 def flash_attention_backward_plain(q, k, v, o, lse, do, dlse=None, *,
                                    causal=False, scale=None, q_offset=None,
-                                   window=None, segment_ids=None):
+                                   window=None, segment_ids=None, drop=None):
     """The fused backward kernel's function in plain PyTorch: returns
     ``(dq, dk, dv)`` from one recompute of P and dS."""
     B, H, Hkv, Lq, Lk, d = _shapes(q, k, v)
     scale, q_offset = _defaults(d, Lq, Lk, scale, q_offset)
     g = H // Hkv
     p, ds = _p_ds(q, k, v, do, lse, _delta(o, do, dlse), causal, scale,
-                  q_offset, window, segment_ids)
+                  q_offset, window, segment_ids, drop)
     pb, dsb = _as_input_dtype(p, q.dtype), _as_input_dtype(ds, q.dtype)
     dq = scale * (dsb @ _expand(k, g).float())
     dk = dsb.transpose(-1, -2) @ q.float()
@@ -302,23 +459,23 @@ def flash_attention_backward_plain(q, k, v, o, lse, do, dlse=None, *,
 def flash_attention_backward_dkv_plain(q, k, v, o, lse, do, dlse=None, *,
                                        causal=False, scale=None,
                                        q_offset=None, window=None,
-                                       segment_ids=None):
+                                       segment_ids=None, drop=None):
     """The dK/dV pass in plain PyTorch: returns ``(dk, dv)``."""
     _, _, _, Lq, Lk, d = _shapes(q, k, v)
     scale, q_offset = _defaults(d, Lq, Lk, scale, q_offset)
     return _dkv_plain(q, k, v, do, lse, _delta(o, do, dlse), causal, scale,
-                      q_offset, window, segment_ids)
+                      q_offset, window, segment_ids, drop)
 
 
 def flash_attention_backward_dq_plain(q, k, v, o, lse, do, dlse=None, *,
                                       causal=False, scale=None,
                                       q_offset=None, window=None,
-                                      segment_ids=None):
+                                      segment_ids=None, drop=None):
     """The dQ pass in plain PyTorch: returns ``dq``."""
     _, _, _, Lq, Lk, d = _shapes(q, k, v)
     scale, q_offset = _defaults(d, Lq, Lk, scale, q_offset)
     return _dq_plain(q, k, v, do, lse, _delta(o, do, dlse), causal, scale,
-                     q_offset, window, segment_ids)
+                     q_offset, window, segment_ids, drop)
 
 
 def _kernel_inputs(*tensors):
@@ -338,16 +495,18 @@ def _kernel_inputs(*tensors):
     return [kernel_input(t, dev) for t in tensors]
 
 
-def _form_name(kernel: str, dtype: torch.dtype, masked: bool = False) -> str:
+def _form_name(kernel: str, dtype: torch.dtype, masked: bool = False,
+               dropped: bool = False) -> str:
     """``kernel``'s launch-count name in its form for ``dtype`` (its C entry
-    is ``tf_`` + the name without ``MASK``), at every head dim of
-    ``HEAD_DIMS``: bf16 the tensor-core form, the name + ``TC``
+    is ``tf_`` + the name without ``MASK`` and ``DROP``), at every head dim
+    of ``HEAD_DIMS``: bf16 the tensor-core form, the name + ``TC``
     (``mma.sync`` bf16 products with fp32 sums, the TPU kernels' numerics);
     fp32 the six-product form, the name + ``X6`` (each fp32 product six
     ``mma.sync`` bf16 products, ``matmul_x6``, never TF32); + ``MASK`` for
-    the masked instantiation a window or segment ids launch."""
+    the masked instantiation a window or segment ids launch, + ``DROP`` for
+    the dropout instantiation."""
     return (kernel + (TC if dtype == torch.bfloat16 else X6)
-            + (MASK if masked else ""))
+            + (MASK if masked else "") + (DROP if dropped else ""))
 
 
 def _mask_args(window, seg):
@@ -359,25 +518,40 @@ def _mask_args(window, seg):
             window is not None or seg is not None)
 
 
+# The C entries' last arguments before the stream: the window, the segment
+# ids, and dropout's seed pointer (None for none), threshold and scale.
+_MASK_DROP_ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p]
+
+
+def _drop_args(drop: Dropout | None):
+    """The C entries' dropout arguments: the seed's device pointer (None
+    for none: the form without dropout), the keep threshold and the
+    scale."""
+    if drop is None:
+        return None, 0, 1.0
+    return drop.seed.data_ptr(), drop.threshold, drop.scale
+
+
 def _launch_forward(q, k, v, causal, scale, q_offset, with_m, window=None,
-                    seg=None):
+                    seg=None, drop=None):
     B, H, Hkv, Lq, Lk, d = _shapes(q, k, v)
     scale, q_offset = _defaults(d, Lq, Lk, scale, q_offset)
     q, k, v = _kernel_inputs(q, k, v)
     win, seg_ptr, masked = _mask_args(window, seg)
-    name = _form_name(KERNEL_FWD, q.dtype, masked)
+    name = _form_name(KERNEL_FWD, q.dtype, masked, drop is not None)
     out = torch.empty_like(q)
     lse = torch.empty(B, H, Lq, dtype=torch.float32, device=q.device)
     m = torch.empty_like(lse) if with_m else None
     lib, fn = entry(KERNEL_FWD, "tf_" + _form_name(KERNEL_FWD, q.dtype),
                     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
-                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p])
+                    + [ctypes.c_float] + _MASK_DROP_ARGS)
     err = call_on_stream(fn, q.device, q.data_ptr(), k.data_ptr(),
                          v.data_ptr(), out.data_ptr(), lse.data_ptr(),
                          None if m is None else m.data_ptr(),
                          B, H, Hkv, Lq, Lk, d, _DTYPES[q.dtype], int(causal),
-                         q_offset, scale * LOG2E, win, seg_ptr)
+                         q_offset, scale * LOG2E, win, seg_ptr,
+                         *_drop_args(drop))
     check_cuda(err, lib, f"{name} kernel")
     launch_counts[name] += 1
     return out, lse, m
@@ -396,12 +570,12 @@ def _bwd_inputs(q, k, v, o, lse, do, dlse):
 
 
 def _launch_backward(q, k, v, do, lse, delta, causal, scale, q_offset,
-                     window=None, seg=None):
+                     window=None, seg=None, drop=None):
     """The fused backward in the form for q's dtype; returns
     ``(dq, dk, dv)``."""
     B, H, Hkv, Lq, Lk, d = _shapes(q, k, v)
     win, seg_ptr, masked = _mask_args(window, seg)
-    name = _form_name(KERNEL_BWD, q.dtype, masked)
+    name = _form_name(KERNEL_BWD, q.dtype, masked, drop is not None)
     dq = torch.zeros(B, H, Lq, d, dtype=torch.float32, device=q.device)
     # the dQ adds made to each chunk of query rows (the kernel's fixed
     # order of adds)
@@ -410,14 +584,13 @@ def _launch_backward(q, k, v, do, lse, delta, causal, scale, q_offset,
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib, fn = entry(KERNEL_BWD, "tf_" + _form_name(KERNEL_BWD, q.dtype),
                     [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
-                    + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p])
+                    + [ctypes.c_float, ctypes.c_float] + _MASK_DROP_ARGS)
     err = call_on_stream(fn, q.device, q.data_ptr(), k.data_ptr(),
                          v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                          delta.data_ptr(), dq.data_ptr(), dq_order.data_ptr(),
                          dk.data_ptr(), dv.data_ptr(), B, H, Hkv, Lq, Lk, d,
                          _DTYPES[q.dtype], int(causal), q_offset, scale,
-                         scale * LOG2E, win, seg_ptr)
+                         scale * LOG2E, win, seg_ptr, *_drop_args(drop))
     check_cuda(err, lib, f"{name} kernel")
     launch_counts[name] += 1
     return dq.mul_(scale).to(q.dtype), dk, dv
@@ -425,16 +598,15 @@ def _launch_backward(q, k, v, do, lse, delta, causal, scale, q_offset,
 
 def _two_pass_args(n_pointers):
     return ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 9
-            + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-               ctypes.c_void_p])
+            + [ctypes.c_float, ctypes.c_float] + _MASK_DROP_ARGS)
 
 
 def _launch_dkv(q, k, v, do, lse, delta, causal, scale, q_offset,
-                window=None, seg=None):
+                window=None, seg=None, drop=None):
     """The dK/dV pass in the form for q's dtype; returns ``(dk, dv)``."""
     B, H, Hkv, Lq, Lk, d = _shapes(q, k, v)
     win, seg_ptr, masked = _mask_args(window, seg)
-    name = _form_name(KERNEL_DKV, q.dtype, masked)
+    name = _form_name(KERNEL_DKV, q.dtype, masked, drop is not None)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib, fn = entry(SOURCE_TWO_PASS, "tf_" + _form_name(KERNEL_DKV, q.dtype),
                     _two_pass_args(8))
@@ -442,18 +614,19 @@ def _launch_dkv(q, k, v, do, lse, delta, causal, scale, q_offset,
                          v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                          delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                          B, H, Hkv, Lq, Lk, d, _DTYPES[q.dtype], int(causal),
-                         q_offset, scale, scale * LOG2E, win, seg_ptr)
+                         q_offset, scale, scale * LOG2E, win, seg_ptr,
+                         *_drop_args(drop))
     check_cuda(err, lib, f"{name} kernel")
     launch_counts[name] += 1
     return dk, dv
 
 
 def _launch_dq(q, k, v, do, lse, delta, causal, scale, q_offset,
-               window=None, seg=None):
+               window=None, seg=None, drop=None):
     """The dQ pass in the form for q's dtype; returns ``dq``."""
     B, H, Hkv, Lq, Lk, d = _shapes(q, k, v)
     win, seg_ptr, masked = _mask_args(window, seg)
-    name = _form_name(KERNEL_DQ, q.dtype, masked)
+    name = _form_name(KERNEL_DQ, q.dtype, masked, drop is not None)
     dq = torch.empty_like(q)
     lib, fn = entry(SOURCE_TWO_PASS, "tf_" + _form_name(KERNEL_DQ, q.dtype),
                     _two_pass_args(7))
@@ -461,7 +634,7 @@ def _launch_dq(q, k, v, do, lse, delta, causal, scale, q_offset,
                          v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                          delta.data_ptr(), dq.data_ptr(), B, H, Hkv, Lq, Lk,
                          d, _DTYPES[q.dtype], int(causal), q_offset, scale,
-                         scale * LOG2E, win, seg_ptr)
+                         scale * LOG2E, win, seg_ptr, *_drop_args(drop))
     check_cuda(err, lib, f"{name} kernel")
     launch_counts[name] += 1
     return dq
@@ -469,8 +642,9 @@ def _launch_dq(q, k, v, do, lse, delta, causal, scale, q_offset,
 
 def flash_attention_forward(q, k, v, *, causal=False, scale=None,
                             q_offset=None, with_m=False, dropout_rate=0.0,
-                            window=None, segment_ids=None, k_scale=None,
-                            v_scale=None, impl: str | None = None):
+                            dropout_seed=0, window=None, segment_ids=None,
+                            k_scale=None, v_scale=None,
+                            impl: str | None = None):
     """Flash-attention forward; returns ``(out, lse, m)`` with ``out`` in
     q's dtype and ``lse`` / ``m`` fp32 ``[B, H, Lq]`` (``m`` None unless
     ``with_m``).
@@ -478,102 +652,117 @@ def flash_attention_forward(q, k, v, *, causal=False, scale=None,
     Query row r attends keys ``<= r + q_offset`` when ``causal``, and with
     ``window`` only those ``> r + q_offset - window``; with ``segment_ids``
     (``[B, L]``, Lq == Lk) only keys of its own segment.
+    ``dropout_rate`` > 0 drops entries of the normalised P by the hash of
+    ``dropout_seed`` (an int, or an int32 tensor of 1 to 3 values:
+    ``[seed, batch offset, head offset]``); lse stays that of the undropped
+    softmax.
     ``impl``: ``None`` launches the CUDA kernel for CUDA tensors and runs the
     plain version for CPU tensors; ``"plain"`` forces the plain version."""
-    _not_ported(dropout_rate, k_scale, v_scale)
+    _not_ported(k_scale, v_scale)
     window, seg = check_mask(q, k, causal, window, segment_ids)
+    drop = check_dropout(q, dropout_rate, dropout_seed)
     return _forward(q, k, v, causal, scale, q_offset, with_m, window, seg,
-                    impl)
+                    impl, drop)
 
 
-def _forward(q, k, v, causal, scale, q_offset, with_m, window, seg, impl):
-    """The forward on a validated mask (``check_mask``'s result)."""
+def _forward(q, k, v, causal, scale, q_offset, with_m, window, seg, impl,
+             drop=None):
+    """The forward on a validated mask and dropout (``check_mask``'s and
+    ``check_dropout``'s results)."""
     if resolve_impl(impl, q) == "plain":
         return flash_attention_forward_plain(
             q, k, v, causal=causal, scale=scale, q_offset=q_offset,
-            with_m=with_m, window=window, segment_ids=seg)
+            with_m=with_m, window=window, segment_ids=seg, drop=drop)
     return _launch_forward(q, k, v, causal, scale, q_offset, with_m, window,
-                           seg)
+                           seg, drop)
 
 
 def flash_attention_backward_fused(q, k, v, o, lse, do, dlse=None, *,
                                    causal=False, scale=None, q_offset=None,
+                                   dropout_rate=0.0, dropout_seed=0,
                                    window=None, segment_ids=None,
                                    impl: str | None = None):
     """The fused single pass (``csrc/flash_attention_bwd.cu``): returns
     ``(dq, dk, dv)``.  Deterministic: dQ's adds run in a fixed order.
-    ``window``, ``segment_ids`` and ``impl`` as in the forward."""
+    ``dropout_rate``, ``dropout_seed``, ``window``, ``segment_ids`` and
+    ``impl`` as in the forward."""
     window, seg = check_mask(q, k, causal, window, segment_ids)
+    drop = check_dropout(q, dropout_rate, dropout_seed)
     return _fused(q, k, v, o, lse, do, dlse, causal, scale, q_offset, window,
-                  seg, impl)
+                  seg, impl, drop)
 
 
 def _fused(q, k, v, o, lse, do, dlse, causal, scale, q_offset, window, seg,
-           impl):
+           impl, drop=None):
     _, _, _, Lq, Lk, d = _shapes(q, k, v)
     scale, q_offset = _defaults(d, Lq, Lk, scale, q_offset)
     if resolve_impl(impl, q) == "plain":
         return flash_attention_backward_plain(
             q, k, v, o, lse, do, dlse, causal=causal, scale=scale,
-            q_offset=q_offset, window=window, segment_ids=seg)
+            q_offset=q_offset, window=window, segment_ids=seg, drop=drop)
     return _launch_backward(*_bwd_inputs(q, k, v, o, lse, do, dlse), causal,
-                            scale, q_offset, window, seg)
+                            scale, q_offset, window, seg, drop)
 
 
 def flash_attention_backward_two_pass(q, k, v, o, lse, do, dlse=None, *,
                                       causal=False, scale=None,
-                                      q_offset=None, window=None,
+                                      q_offset=None, dropout_rate=0.0,
+                                      dropout_seed=0, window=None,
                                       segment_ids=None,
                                       impl: str | None = None):
     """The two passes (``csrc/flash_attention_bwd_two_pass.cu``): the dK/dV
     pass, then the dQ pass, from one ``D``; returns ``(dq, dk, dv)``.
-    Deterministic: no atomics, each output written once.  ``window``,
-    ``segment_ids`` and ``impl`` as in the forward."""
+    Deterministic: no atomics, each output written once.
+    ``dropout_rate``, ``dropout_seed``, ``window``, ``segment_ids`` and
+    ``impl`` as in the forward."""
     window, seg = check_mask(q, k, causal, window, segment_ids)
+    drop = check_dropout(q, dropout_rate, dropout_seed)
     return _two_pass(q, k, v, o, lse, do, dlse, causal, scale, q_offset,
-                     window, seg, impl)
+                     window, seg, impl, drop)
 
 
 def _two_pass(q, k, v, o, lse, do, dlse, causal, scale, q_offset, window,
-              seg, impl):
+              seg, impl, drop=None):
     _, _, _, Lq, Lk, d = _shapes(q, k, v)
     scale, q_offset = _defaults(d, Lq, Lk, scale, q_offset)
     if resolve_impl(impl, q) == "plain":
         args = (q, k, v, do, lse, _delta(o, do, dlse), causal, scale,
-                q_offset, window, seg)
+                q_offset, window, seg, drop)
         dk, dv = _dkv_plain(*args)
         return _dq_plain(*args), dk, dv
     args = (*_bwd_inputs(q, k, v, o, lse, do, dlse), causal, scale, q_offset,
-            window, seg)
+            window, seg, drop)
     dk, dv = _launch_dkv(*args)
     return _launch_dq(*args), dk, dv
 
 
 def flash_attention_backward(q, k, v, o, lse, do, dlse=None, *,
                              causal=False, scale=None, q_offset=None,
-                             dropout_rate=0.0, window=None, segment_ids=None,
-                             k_scale=None, v_scale=None,
+                             dropout_rate=0.0, dropout_seed=0, window=None,
+                             segment_ids=None, k_scale=None, v_scale=None,
                              impl: str | None = None):
     """Flash-attention backward; returns ``(dq, dk, dv)`` in the input
     dtype, dk and dv ``[B, Hkv, Lk, d]``.  ``dlse`` is a cotangent on the
     logsumexp output (it shifts ``D``).  The form is the JAX package's for
     these shapes (``backward_form.two_pass``): the fused single pass, or the
-    two passes.  ``window``, ``segment_ids`` and ``impl`` as in the
-    forward (the rule takes the window)."""
-    _not_ported(dropout_rate, k_scale, v_scale)
+    two passes.  ``dropout_rate`` and ``dropout_seed`` (the forward's, so
+    that the mask is the same), ``window``, ``segment_ids`` and ``impl`` as
+    in the forward (the rule takes the window)."""
+    _not_ported(k_scale, v_scale)
     window, seg = check_mask(q, k, causal, window, segment_ids)
+    drop = check_dropout(q, dropout_rate, dropout_seed)
     return _backward(q, k, v, o, lse, do, dlse, causal, scale, q_offset,
-                     window, seg, impl)
+                     window, seg, impl, drop)
 
 
 def _backward(q, k, v, o, lse, do, dlse, causal, scale, q_offset, window,
-              seg, impl):
-    """The backward in the JAX rule's form on a validated mask
-    (``check_mask``'s result)."""
+              seg, impl, drop=None):
+    """The backward in the JAX rule's form on a validated mask and dropout
+    (``check_mask``'s and ``check_dropout``'s results)."""
     _, _, _, Lq, Lk, d = _shapes(q, k, v)
     form = (_two_pass if two_pass(Lq, Lk, d, q.element_size(), bool(causal),
                                   _defaults(d, Lq, Lk, scale, q_offset)[1],
                                   window)
             else _fused)
     return form(q, k, v, o, lse, do, dlse, causal, scale, q_offset, window,
-                seg, impl)
+                seg, impl, drop)

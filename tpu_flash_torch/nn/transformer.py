@@ -4,7 +4,8 @@
 
 Ported so far: the cached forward (prefill and decode over a KV cache) and
 the uncached forward, with training (dropout from an explicit
-``torch.Generator``, gradients through every parameter, ``remat`` per layer,
+``torch.Generator``, attention dropout (``attn_dropout``) on every
+attention route, gradients through every parameter, ``remat`` per layer,
 ``return_hidden`` for the chunked-vocab loss).  Decode steps with
 at most 8 new tokens go through the flash-decode kernel; longer prefills
 attend over the cache with the composed graph, as in the JAX package.  The
@@ -33,7 +34,7 @@ from tpu_flash_torch.nn.layers import Dropout, Embedding, LayerNorm, Linear
 from tpu_flash_torch.ops.attention import flash_attention
 from tpu_flash_torch.ops.fused import attn_softmax
 from tpu_flash_torch.ops.reference import (apply_segment_mask, causal_mask,
-                                           window_mask)
+                                           dropout_keep_oracle, window_mask)
 
 AttentionKind = Literal["flash", "fused", "naive", "auto"]
 
@@ -104,8 +105,7 @@ class DecoderConfig:
                 f"or 'fp8_channel', got {self.kv_quant!r}")
         unported = [
             (self.kv_quant != "none", "quantized-KV training (kv_quant)",
-             "A5"),
-            (self.attn_dropout > 0.0, "attention dropout", "A5"),
+             "A5 and queue B item B3c"),
             (self.positional == "rope", "positional='rope'", "A7"),
             (self.moe is not None, "moe", "A7"),
             (self.embedding_one_hot, "embedding_one_hot", "A7"),
@@ -122,6 +122,15 @@ class DecoderConfig:
     @property
     def kv_heads(self) -> int:
         return self.n_kv_head or self.n_head
+
+
+def attention_seed(generator: torch.Generator) -> torch.Tensor:
+    """One attention-dropout seed, int32 ``[1]`` in ``[0, 2**31 - 1)``,
+    drawn from ``generator`` on its device (the JAX package's
+    ``randint(key, (), 0, int32 max)``): it stays there, and the host
+    never reads it."""
+    return torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                         device=generator.device, dtype=torch.int32)
 
 
 class MultiHeadAttention(torch.nn.Module):
@@ -149,15 +158,25 @@ class MultiHeadAttention(torch.nn.Module):
                 split(self.v_projection(x, impl=impl)))
 
     def self_attention(self, q, k, v, *, kv_mask=None, segment_ids=None,
-                       impl=None):
+                       impl=None, training: bool = False, generator=None):
         """Uncached attention: the flash-attention kernels (``"flash"``, and
         ``"auto"`` from ``_FLASH_AUTO_MIN_L``), the fused masked-softmax
         kernels over the materialized scores (``"fused"``) or the composed
         graph.  As in the JAX package, the flash path takes no ``kv_mask``
         and the fused one refuses ``window`` and ``segment_ids``, which its
         ``[B, Lk]`` mask cannot express; the flash and composed paths take
-        both.  ``impl`` reaches the kernels' wrappers."""
+        both.  ``impl`` reaches the kernels' wrappers.
+
+        ``training`` with ``cfg.attn_dropout > 0`` and a ``generator``
+        draws one int32 seed from it on its device (``attention_seed``)
+        and drops attention probabilities by the kernels' hash of it: the
+        flash kernels in-kernel, the fused and composed routes by
+        multiplying P by ``dropout_keep_oracle``, the same bits (the JAX
+        package's transformer.py:204-249)."""
         c = self.cfg
+        seed = (attention_seed(generator)
+                if training and c.attn_dropout > 0.0 and generator is not None
+                else None)
         kind = c.attention_kind
         if kind == "auto":
             kind = "flash" if q.shape[-2] >= _FLASH_AUTO_MIN_L else "naive"
@@ -171,9 +190,11 @@ class MultiHeadAttention(torch.nn.Module):
                     "segment_ids is not expressible in the fused "
                     "attn_softmax kernel's [B, Lk] mask; use flash or naive")
         if kind == "flash":
-            return flash_attention(q, k, v, causal=c.causal,
-                                   window=c.window, segment_ids=segment_ids,
-                                   impl=impl)
+            return flash_attention(
+                q, k, v, causal=c.causal, window=c.window,
+                segment_ids=segment_ids,
+                dropout_rate=0.0 if seed is None else c.attn_dropout,
+                dropout_seed=0 if seed is None else seed, impl=impl)
         if k.shape[1] != q.shape[1]:     # GQA: repeat each KV head
             g = q.shape[1] // k.shape[1]
             k = k.repeat_interleave(g, dim=1)
@@ -195,6 +216,10 @@ class MultiHeadAttention(torch.nn.Module):
             if kv_mask is not None:
                 s = s + kv_mask[:, None, None, :].to(s.dtype)
             p = F.softmax(s, dim=-1)
+        if seed is not None:
+            p = p * dropout_keep_oracle(
+                q.shape[0], q.shape[1], q.shape[2], k.shape[2], seed,
+                c.attn_dropout, p.device).to(p.dtype)
         if p.dtype != v.dtype:   # fp32 p from the composed route, as in JAX
             dt = torch.promote_types(p.dtype, v.dtype)
             p, v = p.to(dt), v.to(dt)
@@ -231,10 +256,10 @@ class MultiHeadAttention(torch.nn.Module):
         return F.softmax(s, dim=-1) @ v_full
 
     def forward(self, x, *, kv_cache=None, kv_mask=None, segment_ids=None,
-                impl=None):
-        """Uncached: returns ``[B, L, E]``.  Cached: appends this step's
-        keys and values to ``kv_cache`` in place and returns
-        ``(out, kv_cache)``."""
+                impl=None, training: bool = False, generator=None):
+        """Uncached: returns ``[B, L, E]`` (``training`` and ``generator``
+        for attention dropout).  Cached: appends this step's keys and
+        values to ``kv_cache`` in place and returns ``(out, kv_cache)``."""
         B, L, E = x.shape
         q, k, v = self.project_to_query_key_value(x, impl)
         if kv_cache is not None:
@@ -243,7 +268,8 @@ class MultiHeadAttention(torch.nn.Module):
             out = out.transpose(1, 2).reshape(B, L, E)
             return self.out_projection(out, impl=impl), kv_cache
         out = self.self_attention(q, k, v, kv_mask=kv_mask,
-                                  segment_ids=segment_ids, impl=impl)
+                                  segment_ids=segment_ids, impl=impl,
+                                  training=training, generator=generator)
         return self.out_projection(out.transpose(1, 2).reshape(B, L, E),
                                    impl=impl)
 
@@ -284,7 +310,8 @@ class TransformerLayer(torch.nn.Module):
                                                 impl=impl)
         else:
             attn_out = self.attention(h, kv_mask=kv_mask,
-                                      segment_ids=segment_ids, impl=impl)
+                                      segment_ids=segment_ids, impl=impl,
+                                      training=training, generator=generator)
         out = x + attn_out
         result = out + self.ff(self.ln_2(out, impl=impl), training=training,
                                generator=generator, impl=impl)
@@ -362,7 +389,8 @@ class DecoderLM(torch.nn.Module):
 
         ``positions`` ([1, L] or [B, L]) overrides ``arange(L)``, as decode
         needs.  ``training`` with a ``generator`` applies the embedding and
-        feed-forward dropouts (the JAX layer has no residual dropout).
+        feed-forward dropouts and, with ``cfg.attn_dropout``, attention
+        dropout (the JAX layer has no residual dropout).
         ``impl`` reaches the kernels' wrappers.  ``segment_ids`` ([B, L])
         reaches the uncached attention: packed sequences, each row attending
         only its own segment (the fused path refuses them, as the JAX

@@ -18,6 +18,7 @@ from tpu_flash_torch.ops.reference import (  # noqa: F401
     apply_segment_mask,
     causal_mask,
     default_scale,
+    dropout_keep_oracle,
     naive_attention,
     window_mask,
 )

@@ -19,8 +19,10 @@ their plain versions for CPU tensors; ``"kernel"`` or
 ``"reference"``/``"xla"``).  ``window`` (sliding-window attention, requires
 ``causal``) and ``segment_ids`` (packed sequences, ``[B, L]``) reach every
 kernel, forward and backward, validated as the JAX package validates them.
-Quantized K/V, attention dropout and the parallel (sharded) form are not
-ported yet.
+``dropout_rate`` and ``dropout_seed`` (attention dropout) reach every kernel
+too: the forward saves the seed tensor, and the backward regenerates the
+same keep mask from it.  Quantized K/V and the parallel (sharded) form are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -28,8 +30,10 @@ from __future__ import annotations
 import torch
 
 from tpu_flash_torch.kernels.flash_attention import (
+    Dropout,
     _backward,
     _forward,
+    check_dropout,
     check_mask,
     flash_attention_forward,
 )
@@ -37,21 +41,25 @@ from tpu_flash_torch.kernels.flash_attention import (
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, impl, window, seg):
-        # window and seg as flash_attention's check_mask returned them
+    def forward(ctx, q, k, v, causal, impl, window, seg, seed, rate):
+        # window and seg as flash_attention's check_mask returned them; seed
+        # the int32 [3] device tensor of check_dropout (None: no dropout)
         q, k, v = (x.contiguous() for x in (q, k, v))
+        drop = None if seed is None else Dropout(seed, rate)
         out, lse, _ = _forward(q, k, v, causal, None, None, False, window,
-                               seg, impl)
+                               seg, impl, drop)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.impl, ctx.window, ctx.seg = causal, impl, window, seg
+        ctx.drop = drop
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _backward(q, k, v, out, lse, do, None, ctx.causal,
-                               None, None, ctx.window, ctx.seg, ctx.impl)
-        return dq, dk, dv, None, None, None, None
+                               None, None, ctx.window, ctx.seg, ctx.impl,
+                               ctx.drop)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def _check_version(version: int) -> None:
@@ -69,17 +77,21 @@ def flash_attention(q, k, v, *, causal: bool = False, version: int = 2,
     ``window`` (requires ``causal``): row r attends keys in
     ``(r - window, r]``; ``segment_ids`` (``[B, L]`` int, Lq == Lk): row r
     attends only keys of its own segment (composed with causal and
-    window)."""
+    window).  ``dropout_rate`` > 0: attention dropout on the softmax
+    probabilities by the kernels' hash of ``dropout_seed`` (an int, or an
+    int32 tensor ``[seed, batch offset, head offset]`` of 1 to 3 values,
+    best on q's device, where nothing reads it back to the host); derive a
+    fresh seed each step."""
     _check_version(version)
-    unported = [(kv_quant != "none", "kv_quant"),
-                (dropout_rate > 0.0, "attention dropout")]
-    for bad, what in unported:
-        if bad:
-            raise NotImplementedError(
-                f"{what} in flash_attention is not ported yet (ROADMAP.md, "
-                f"queue A item A5, queue B item B3)")
+    if kv_quant != "none":
+        raise NotImplementedError(
+            "kv_quant in flash_attention is not ported yet (ROADMAP.md, "
+            "queue A item A5, queue B item B3c)")
     window, seg = check_mask(q, k, causal, window, segment_ids)
-    return _FlashAttention.apply(q, k, v, causal, impl, window, seg)
+    drop = check_dropout(q, dropout_rate, dropout_seed)
+    seed, rate = (None, 0.0) if drop is None else drop
+    return _FlashAttention.apply(q, k, v, causal, impl, window, seg, seed,
+                                 rate)
 
 
 @torch.no_grad()

@@ -1,5 +1,6 @@
 """Plain PyTorch oracles, counterpart of ``tpu_flash/ops/reference.py``:
-the causal, sliding-window and segment masks, naive attention, the tiled
+the causal, sliding-window and segment masks, the attention-dropout keep
+multiplier, naive attention, the tiled
 FlashAttention-1 and -2 forward oracles (the executable specs the attention kernels are held
 against), and the composed masked softmax and LayerNorm that
 ``ops.fused`` takes above its size limits.  Causal masking adds
@@ -13,6 +14,11 @@ from typing import NamedTuple
 import torch
 
 from tpu_flash_torch.kernels.common import MASK_VALUE
+from tpu_flash_torch.kernels.flash_attention import (
+    Dropout,
+    dropout_keep_blocks,
+    dropout_seed_array,
+)
 from tpu_flash_torch.kernels.layernorm import (
     LN_EPS,
     layernorm_backward_plain,
@@ -53,6 +59,26 @@ def apply_segment_mask(s: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
     same = seg[:, None, :, None] == seg[:, None, None, :]
     return torch.where(same, s, torch.tensor(MASK_VALUE, dtype=s.dtype,
                                              device=s.device))
+
+
+def dropout_keep_oracle(B: int, H: int, Lq: int, Lk: int, seed, rate: float,
+                        device=None) -> torch.Tensor:
+    """The attention-dropout multiplier of the whole ``[B, H, Lq, Lk]``
+    probability tensor, fp32: ``1 / (1 - rate)`` where the kernels keep an
+    entry and 0 where they drop it (the JAX package's
+    ``dropout_keep_oracle``, ops/reference.py:374).  ``seed`` as the ops
+    take it: an int, or an int32 tensor ``[seed, batch offset, head
+    offset]`` (1 to 3 values), whose offsets shift the batch and head
+    indices as in the kernels.  On ``device``, else the seed tensor's
+    device, else the CPU."""
+    if device is None:
+        device = seed.device if isinstance(seed, torch.Tensor) else "cpu"
+    drop = Dropout(dropout_seed_array(seed, torch.device(device)),
+                   float(rate))
+    out = torch.empty(B, H, Lq, Lk, dtype=torch.float32, device=device)
+    for rows, keep in dropout_keep_blocks(B, H, Lq, Lk, drop):
+        out[:, :, rows] = keep
+    return out
 
 
 def naive_attention(q, k, v, *, causal: bool = False, mask=None,
