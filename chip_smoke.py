@@ -97,6 +97,25 @@ ported paths:
   four fp32 steps with it against their plain versions (mode (h)'s packed
   rows under window 256, the production config, and the long config at 2
   layers and L=8192, alone and under window 2048);
+* quantized K/V (``kv_quant``): every flash kernel's quantized forms (both
+  dtypes; token scales and channel codes; unmasked, masked and dropped)
+  held against their plain versions on the same codes and scales over
+  ``KVQ_CASES`` (ragged L, GQA, each head dim, windows, segments,
+  dropout) in the four modes, int8 and e4m3 codes; the fused backward's
+  quantized forms twice for the same bits; the fp32 quantized forms and
+  the plain fp32 version against a float64 attention on the dequantized
+  K and V at B4 H8 L2048 and B1 H8 L8192; each form held against plain
+  and timed at the shape of the run that launches it (``KVQ_TIMED``)
+  beside the form without quantization on the dequantized K and V and
+  SDPA on them (the dequantization timed apart); ``train_epoch`` in mode
+  (j), (b) with int8 K/V (JAX's ``--kv-quant-train int8``), beside (b);
+  one step each of every other quantized configuration the kernels line
+  needs (fp8, int8_channel, fp8_channel at (b)'s widths, attention
+  dropout, mode (h)'s packed rows alone and under window 256 with
+  dropout, the long configs alone, with dropout and under window 2048,
+  in bf16 and fp32), and four fp32 steps against their plain versions
+  ((a) with int8 and int8_channel, the long config at L=8192 with int8,
+  (h)'s rows under window 256 with dropout and int8);
 * long-context training: the two-pass backward's dK/dV and dQ kernels,
   in the six-product form for fp32 and the tensor-core form for bf16 (each
   call checked to launch its form), against their plain halves (causal or
@@ -120,7 +139,8 @@ ported paths:
 
 The build phase logs each kernel's registers, stack and spills as ptxas
 reports them, and fails if a flash-attention kernel's tensor-core or
-six-product form (unmasked or masked, without or with dropout), a
+six-product form (unmasked or masked, without or with dropout, without or
+with quantized K/V), a
 quantized matmul's tensor-core
 decode, fp32 decode or fp32 prefill form, a form of the masked-softmax
 forward or of either LayerNorm kernel, or a flash-decode kernel spills.
@@ -175,6 +195,8 @@ from tpu_flash_torch.nn import (DecoderConfig, DecoderLM, adam, init_params,
                                 mixed_precision, num_parameters,
                                 quantize_model_linears)
 from tpu_flash_torch.ops import fused
+from tpu_flash_torch.ops.attention import (dequantize_kv, kv_quant_parts,
+                                           quantize_kv)
 from tpu_flash_torch.ops.reference import causal_mask
 from tpu_flash_torch.utils.timing import (L2_BYTES, device_ms, past_l2,
                                           rotating_ms)
@@ -227,10 +249,23 @@ MASK_DROPPED_TC = tuple(fa._form_name(n, torch.bfloat16, True, True)
 MASK_DROPPED_X6 = tuple(fa._form_name(n, torch.float32, True, True)
                         for n in FLASH_KERNELS)
 DROPPED = DROPPED_TC + DROPPED_X6 + MASK_DROPPED_TC + MASK_DROPPED_X6
+# Each flash kernel's quantized-K/V forms (k and v one-byte codes; the C
+# entries of the <source>_kvq library for token scales and _kvqc for
+# channel codes, the kernel's kQuant instantiations), counted under the
+# form's name (+ fa.MASK, + fa.DROP) + fa.KVQ[granularity]: QUANTIZED[(g,
+# dtype, masked, dropped)] the four kernels' names in FLASH_KERNELS' order.
+KVQ_GRANS = ("token", "channel")
+QUANTIZED = {(g, dt, m, dr): tuple(fa._form_name(n, dt, m, dr, g)
+                                   for n in FLASH_KERNELS)
+             for g in KVQ_GRANS for dt in (torch.bfloat16, torch.float32)
+             for m in (False, True) for dr in (False, True)}
+KVQ_FORMS = tuple(n for names in QUANTIZED.values() for n in names)
+FLASH_SOURCES = ATTENTION + (fa.SOURCE_TWO_PASS,)
+KVQ_SOURCES = tuple(s + fa.KVQ[g] for s in FLASH_SOURCES for g in KVQ_GRANS)
 FUSED = ("layernorm_fwd", "layernorm_bwd", "attn_softmax_fwd",
          "attn_softmax_bwd")
 TRAINING_KERNELS = (ATTENTION_X6 + ATTENTION_TC + TWO_PASS + TWO_PASS_TC
-                    + MASKED + DROPPED + FUSED)
+                    + MASKED + DROPPED + KVQ_FORMS + FUSED)
 QUANT_SOURCES = ("int8_matmul", "int4_matmul")
 # The quantized matmul kernels by launch count, with (bits, group size) and
 # the TPU kernel each replaces; bf16 x runs the tensor-core forms, counted
@@ -250,8 +285,8 @@ QUANT_DEC_X3 = tuple(n + common.DEC_X3 for n in QUANT)
 # Launch-count (and profiler) names, and the sources built from csrc/.
 KERNELS = (("flash_decode",) + TRAINING_KERNELS + tuple(QUANT) + QUANT_TC
            + QUANT_DEC + QUANT_X3 + QUANT_DEC_X3)
-SOURCES = (("flash_decode",) + ATTENTION + (TWO_PASS_SOURCE,) + FUSED
-           + QUANT_SOURCES)
+SOURCES = (("flash_decode",) + ATTENTION + (TWO_PASS_SOURCE,) + KVQ_SOURCES
+           + FUSED + QUANT_SOURCES)
 SERVING = dict(n_vocab=32768, n_embd=1024, n_head=16, n_positions=8192,
                n_layer=8, ff_middle_dim=4096, p_dropout=0.0,
                attention_kind="flash", dtype=torch.bfloat16)
@@ -969,20 +1004,29 @@ def attention_times(gen, B=4, H=8, L=2048, d=64) -> dict:
 
 
 def fused_backward_bits(gen, B=4, H=8, L=2048, d=64, window=None,
-                        rate=0.0) -> None:
+                        rate=0.0, mode=None) -> None:
     """The fused backward kernel called twice on the same inputs at the
     training shape (B4 H8 L2048 d64 causal) in bf16 (its tensor-core form)
     and fp32 (its six-product form): dq, dk and dv the same bits (its dQ is
     added in a fixed order; under a window each key tile waits only for the
     tiles that reach its chunk, in the same order; under dropout at
-    ``rate`` both calls regenerate the same mask)."""
+    ``rate`` both calls regenerate the same mask; with ``mode``, on the
+    codes of quantized K/V, its quantized form)."""
     for dtype in (torch.bfloat16, torch.float32):
-        args = attention_inputs(gen, B, H, H, L, L, d, dtype, True, window,
-                                None, rate)
+        if mode is None:
+            args = attention_inputs(gen, B, H, H, L, L, d, dtype, True,
+                                    window, None, rate)
+            kw = dict(causal=True, window=window, dropout_rate=rate,
+                      dropout_seed=DROP_SEED, impl="kernel")
+        else:
+            q, kc, vc, do, kw = kvq_inputs(gen, B, H, H, L, d, dtype, mode,
+                                           window, None, rate)
+            kw["impl"] = "kernel"
+            out, lse, _ = flash_attention_forward(q, kc, vc, **kw)
+            args = (q, kc, vc, out, lse, do)
         name = fa._form_name(fa.KERNEL_BWD, dtype, window is not None,
-                             rate > 0)
-        kw = dict(causal=True, window=window, dropout_rate=rate,
-                  dropout_seed=DROP_SEED, impl="kernel")
+                             rate > 0, None if mode is None
+                             else kv_quant_parts(mode)[1])
         before = common.launch_counts[name]
         first = flash_attention_backward_fused(*args, **kw)
         second = flash_attention_backward_fused(*args, **kw)
@@ -991,7 +1035,7 @@ def fused_backward_bits(gen, B=4, H=8, L=2048, d=64, window=None,
                 for n, a, b in zip(("dq", "dk", "dv"), first, second)}
         log({"phase": "fused_backward_bits", "dtype": str(dtype).split(".")[1],
              "kernel": name, "shape": f"B{B} H{H} L{L} d{d} causal",
-             "window": window, "dropout_rate": rate,
+             "window": window, "dropout_rate": rate, "kv_quant": mode,
              "launches": common.launch_counts[name] - before,
              "two_calls_same_bits": same})
         check(all(same.values()), f"the fused backward gives other bits on "
@@ -1405,6 +1449,456 @@ def masked_times(gen, cases=MASK_TIMED, rate: float = 0.0) -> dict:
     check(not failed, f"at a timed shape a {'dropout' if rate else 'masked'} "
                       f"flash form disagrees with its plain version or did "
                       f"not launch once: {failed}")
+    return rows
+
+
+# --- quantized K/V (kv_quant): the kvq forms ---------------------------------
+
+# The quantized forms take ATTN_TOL (DROP_ATTN_TOL under dropout), but for
+# bf16 lse with channel codes below d = 128 without dropout an atol of
+# 2e-3: there the normaliser sums P rounded to bf16 (fold_l, as without
+# quantization), in the kernel against its running max and in the plain
+# version against the row's final max, so the two l differ by at most one
+# bf16 rounding, 2^-9 of l (lse 1.95e-3); a row of a short packed segment
+# under a window of 100, whose few keys straddle a step, read 1.62e-3
+# (ATTN_TOL's 1e-3 held the unquantized masked forms, their rows' largest
+# reading ~5e-4).  And bf16 out with token scales takes DROP_ATTN_TOL's
+# (arms 4e-2): P.V takes P vs rounded to bf16 against the kernel's running
+# max and the plain version's final max, the dropout forms' case; mode
+# (g)'s shape read 0.0312 of the rms.
+def kvq_tols(dtype, gran: str, rate: float, d: int) -> dict:
+    tols = (DROP_ATTN_TOL if rate else ATTN_TOL)[dtype]
+    if dtype == torch.bfloat16 and gran == "token":
+        return {**tols, "out": DROP_ATTN_TOL[dtype]["out"]}
+    if dtype == torch.bfloat16 and not rate and d < 128:
+        return {**tols, "lse": (2e-3, 0.0, 1e-3)}
+    return tols
+
+
+# The modes the main path's quantized runs and the timed shapes take (the
+# forms are the granularity's: int8 and e4m3 codes share them), and the
+# four modes of the correctness sweep.
+KVQ_MODE = {"token": "int8", "channel": "int8_channel"}
+KVQ_MODES = ("int8", "fp8", "int8_channel", "fp8_channel")
+# Each quantized form against its plain version on the same codes and
+# scales at ATTN_TOL (DROP_ATTN_TOL under dropout), in both dtypes and the
+# four modes (name, B, H, Hkv, L, d, window, segments, rate; causal): a
+# ragged L, GQA, each head dim, a window, packed segments, dropout.
+KVQ_CASES = [
+    ("L1000", 2, 8, 8, 1000, 64, None, False, 0.0),
+    ("gqa-8q2kv-L512-drop", 2, 8, 2, 512, 64, None, False, DROP_RATE),
+    ("d16-w50", 2, 8, 8, 300, 16, 50, False, 0.0),
+    ("d32-seg-ragged-drop", 2, 8, 8, 333, 32, None, True, DROP_RATE),
+    ("d128-gqa-w100-drop", 2, 8, 4, 512, 128, 100, False, DROP_RATE),
+    ("seg-w100", 2, 8, 8, 1024, 64, 100, True, 0.0),
+]
+# The quantized forms' timed shapes (label, dtype, B, H, L, window,
+# segments of mode (h), rate; d 64, causal), each the shape of the
+# main-path run that launches its form: mode (j) and mode (a) (the
+# unmasked forward and fused backward), with attention dropout, mode
+# (h)'s packed rows, those under a window of 256 with dropout, mode (f)'s
+# L16384 in bf16 and the fp32 two-pass L8192 (the two passes), with
+# dropout, under a window of 2048, and both; for each granularity.
+KVQ_TIMED = [
+    ("mode (j)", torch.bfloat16, 4, 8, 2048, None, False, 0.0),
+    ("mode (j), attention dropout", torch.bfloat16, 4, 8, 2048, None, False,
+     DROP_RATE),
+    ("segments of mode (h)", torch.bfloat16, 4, 8, 2048, None, True, 0.0),
+    ("window 256, segments of mode (h), attention dropout", torch.bfloat16,
+     4, 8, 2048, 256, True, DROP_RATE),
+    ("mode (f)", torch.bfloat16, 1, 8, 16384, None, False, 0.0),
+    ("mode (f), attention dropout", torch.bfloat16, 1, 8, 16384, None,
+     False, DROP_RATE),
+    ("mode (g): window 2048", torch.bfloat16, 1, 8, 16384, 2048, False,
+     0.0),
+    ("mode (g): window 2048, attention dropout", torch.bfloat16, 1, 8,
+     16384, 2048, False, DROP_RATE),
+    ("mode (a)", torch.float32, 4, 8, 2048, None, False, 0.0),
+    ("mode (a), attention dropout", torch.float32, 4, 8, 2048, None, False,
+     DROP_RATE),
+    ("segments of mode (h)", torch.float32, 4, 8, 2048, None, True, 0.0),
+    ("window 256, segments of mode (h), attention dropout", torch.float32,
+     4, 8, 2048, 256, True, DROP_RATE),
+    ("L8192", torch.float32, 1, 8, 8192, None, False, 0.0),
+    ("L8192, attention dropout", torch.float32, 1, 8, 8192, None, False,
+     DROP_RATE),
+    ("window 2048", torch.float32, 1, 8, 8192, 2048, False, 0.0),
+    ("window 2048, attention dropout", torch.float32, 1, 8, 8192, 2048,
+     False, DROP_RATE),
+]
+
+
+def kvq_inputs(gen, B, H, Hkv, L, d, dtype, mode, window=None, seg=None,
+               rate=0.0):
+    """q and dO in ``dtype``, the codes of normal K and V
+    (``ops.quantize_kv``, as the op quantizes them), and the entries'
+    keywords: causal, the scales and their granularity, window, segments,
+    dropout at ``rate`` with ``DROP_SEED``."""
+    q = torch.randn(B, H, L, d, generator=gen, device=DEV).to(dtype)
+    k, v = (torch.randn(B, Hkv, L, d, generator=gen, device=DEV).to(dtype)
+            for _ in range(2))
+    do = torch.randn(B, H, L, d, generator=gen, device=DEV).to(dtype)
+    (kc, ks), (vc, vs) = quantize_kv(k, mode), quantize_kv(v, mode)
+    kw = dict(causal=True, window=window, segment_ids=seg,
+              dropout_rate=rate, dropout_seed=DROP_SEED, k_scale=ks,
+              v_scale=vs, kv_scale_mode=kv_quant_parts(mode)[1])
+    return q, kc, vc, do, kw
+
+
+def kvq_cases(gen) -> dict:
+    """Every quantized form (the forward, the fused backward and both
+    passes; unmasked, masked, dropped; token and channel) against its
+    plain version on the same codes and scales over ``KVQ_CASES``, in both
+    dtypes and the four modes, through the entries (the channel forms with
+    their folds), at ``kvq_tols``; each call checked to launch exactly its
+    form.  Returns each form's largest error."""
+    worst = dict.fromkeys(KVQ_FORMS, 0.0)
+    failed = []
+    for name, B, H, Hkv, L, d, window, seg_on, rate in KVQ_CASES:
+        seg = segment_ids(B, L) if seg_on else None
+        for dtype in (torch.float32, torch.bfloat16):
+            for mode in KVQ_MODES:
+                q, kc, vc, do, kw = kvq_inputs(gen, B, H, Hkv, L, d, dtype,
+                                               mode, window, seg, rate)
+                tols = kvq_tols(dtype, kw["kv_scale_mode"], rate, d)
+                names = QUANTIZED[(kw["kv_scale_mode"], dtype,
+                                   window is not None or seg_on, rate > 0)]
+                before = dict(common.launch_counts)
+                out, lse, _ = flash_attention_forward(q, kc, vc,
+                                                      impl="kernel", **kw)
+                fused = flash_attention_backward_fused(
+                    q, kc, vc, out, lse, do, impl="kernel", **kw)
+                two = flash_attention_backward_two_pass(
+                    q, kc, vc, out, lse, do, impl="kernel", **kw)
+                launched = {n: c - before.get(n, 0) for n, c in
+                            common.launch_counts.items()
+                            if c != before.get(n, 0)}
+                ref = flash_attention_forward(q, kc, vc, impl="plain", **kw)
+                ref_fused = flash_attention_backward_fused(
+                    q, kc, vc, out, lse, do, impl="plain", **kw)
+                ref_two = flash_attention_backward_two_pass(
+                    q, kc, vc, out, lse, do, impl="plain", **kw)
+                torch.cuda.synchronize()
+                ok = launched == dict.fromkeys(names, 1)
+                errs = {}
+                for form, outs, got, want in (
+                        (names[0], ("out", "lse"), (out, lse), ref[:2]),
+                        (names[1], ("dq", "dk", "dv"), fused, ref_fused),
+                        (names[2], ("dk", "dv"), two[1:], ref_two[1:]),
+                        (names[3], ("dq",), two[:1], ref_two[:1])):
+                    for o, a, b in zip(outs, got, want):
+                        err, _, _, agree = compare(a, b, tols[o])
+                        errs[f"{form}:{o}"] = err
+                        worst[form] = max(worst[form], err)
+                        ok &= agree
+                log({"phase": "kvq_vs_plain", "case": name, "mode": mode,
+                     "dtype": str(dtype).split(".")[1],
+                     "shape": f"B{B} H{H} Hkv{Hkv} L{L} d{d} causal"
+                              + (f" window {window}" if window else "")
+                              + (" segments" if seg_on else "")
+                              + (f" dropout {rate}" if rate else ""),
+                     "max_abs_err": errs, "launches": launched, "ok": ok})
+                if not ok:
+                    failed.append(f"{name} {mode} {dtype}")
+                del q, kc, vc, do, kw, out, lse, fused, two, ref, ref_fused
+                del ref_two
+        torch.cuda.empty_cache()
+    check(not failed, f"a quantized flash form disagrees with its plain "
+                      f"version or launched another form: {failed}")
+    return worst
+
+
+def dequantized(codes, scales, mode, dtype=torch.float64):
+    """K or V as the codes and scales give them, in ``dtype``."""
+    return dequantize_kv(codes, scales, mode).to(dtype)
+
+
+def kvq_vs_fp64(gen, d=64) -> dict:
+    """The six-product quantized forms (fp32 q, int8 codes, token and
+    channel) at ``FP64_SHAPES`` against a float64 attention on the
+    dequantized K and V, beside the plain fp32 version on the same codes:
+    out, lse and the gradients (dK and dV those of the dequantized K and
+    V), each within ATTN_TOL's fp32 limits of float64.  Returns the
+    kernels' largest error by (granularity, L) and output."""
+    names = ("out", "lse", "dq", "dk", "dv")
+    worst = {}
+    for B, H, L in FP64_SHAPES:
+        for g, mode in KVQ_MODE.items():
+            q, kc, vc, do, kw = kvq_inputs(gen, B, H, H, L, d,
+                                           torch.float32, mode)
+            ref = attention_fp64(q, dequantized(kc, kw["k_scale"], mode),
+                                 dequantized(vc, kw["v_scale"], mode), do)
+            forms = QUANTIZED[(g, torch.float32, False, False)]
+            kernels = (forms[0],) + (forms[2:] if two_pass(L, L, d, 4, True)
+                                     else forms[1:2])
+            errs, ok = {}, True
+            for impl in ("kernel", "plain"):
+                before = dict(common.launch_counts)
+                out, lse, _ = flash_attention_forward(q, kc, vc, impl=impl,
+                                                      **kw)
+                grads = flash_attention_backward(q, kc, vc, out, lse, do,
+                                                 impl=impl, **kw)
+                torch.cuda.synchronize()
+                launched = {n: c - before.get(n, 0) for n, c in
+                            common.launch_counts.items()
+                            if c != before.get(n, 0)}
+                ok &= launched == (dict.fromkeys(kernels, 1)
+                                   if impl == "kernel" else {})
+                errs[impl] = {}
+                for n, a, b in zip(names, (out, lse, *grads), ref):
+                    finite = torch.isfinite(b)
+                    errs[impl][n] = float((a.double() - b)[finite].abs().max())
+                    ok &= compare(a, b, ATTN_TOL[torch.float32][n])[3]
+                del out, lse, grads
+                torch.cuda.empty_cache()
+            log({"phase": "kvq_vs_fp64", "dtype": "float32", "mode": mode,
+                 "shape": f"B{B} H{H} L{L} d{d} causal",
+                 "max_abs_err": errs, "kernel_over_plain": {
+                     n: errs["kernel"][n] / errs["plain"][n]
+                     if errs["plain"][n] else None for n in names},
+                 "kernels": list(kernels), "ok": ok})
+            check(ok, f"quantized fp32 attention strays from float64 "
+                      f"({mode}, L{L}): {errs}")
+            worst[(g, L)] = errs["kernel"]
+            del q, kc, vc, do, kw, ref
+            torch.cuda.empty_cache()
+    return worst
+
+
+def kvq_times(gen, cases=KVQ_TIMED) -> dict:
+    """At each of ``cases`` for each granularity (``KVQ_MODE``'s modes), the
+    quantized forward and the backward form the JAX rule takes there, each
+    held against its plain version on the same codes and scales at
+    ``kvq_tols`` (one launch of each form), and
+    timed: the kernel, the plain version, and the library's yardstick,
+    ``scaled_dot_product_attention`` on the dequantized K and V in q's
+    dtype (the mask, or is_causal; dropout_p) with the dequantization's own
+    time apart; beside them the forms without quantization on those
+    dequantized K and V (``quantized_over_unquantized``).  The kernels are
+    launched as the entries launch them (the channel forms on q and dO
+    with K's and V's scales folded in; the folds are the entry's and are
+    not timed).  Bounds: the flops of the visible pairs at the peak of
+    each product (bf16: 989 TFLOP/s; fp32: a product with codes as one
+    operand three bf16 products, FP32_X3_FLOPS, else FP32_FLOPS) and the
+    bytes of q, dO, out, dQ, dK, dV in q's dtype, K and V at one byte an
+    element, the scales, lse, D and the segment ids, each read or written
+    once.  CUDA events, the median of 5 batches (plain: 1 at L >= 8192)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    packed = None
+    failed = []
+    for g, mode in KVQ_MODE.items():
+        for label, dtype, B, H, L, window, seg_on, rate in cases:
+            d = 64
+            tols = kvq_tols(dtype, g, rate, d)
+            if seg_on:
+                if packed is None:
+                    packed = torch.as_tensor(packed_batch()["segment_ids"],
+                                             device=DEV)
+                seg = packed[:B, :L].contiguous()
+            else:
+                seg = None
+            q, kc, vc, do, kw = kvq_inputs(gen, B, H, H, L, d, dtype, mode,
+                                           window, seg, rate)
+            drop = fa.check_dropout(q, rate, DROP_SEED)
+            kvq = fa.KvQuant(g, kw["k_scale"], kw["v_scale"])
+            inside = kvq.inside()
+            masked = window is not None or seg is not None
+            scale = 1.0 / math.sqrt(d)
+            # the kernels' inputs as the entries give them: the channel
+            # forms take q and dO with the scales folded in, and D of the
+            # raw dO and out
+            qk = q if kvq.token else fa._channel(q, kvq.k_scale, 1)
+            dok = do if kvq.token else fa._channel(do, kvq.v_scale, 1)
+            out, lse, _ = fa._launch_forward(qk, kc, vc, True, scale, 0,
+                                             False, window, seg, drop,
+                                             inside)
+            raw_out = out if kvq.token else fa._channel(out, kvq.v_scale, 1)
+            kin = (*fa._delta_inputs(qk, kc, vc, lse, dok,
+                                     fa._delta(raw_out, do, None), True),
+                   True, scale, 0, window, seg, drop, inside)
+            two = two_pass(L, L, d, q.element_size(), True, 0, window)
+            names = QUANTIZED[(g, dtype, masked, drop is not None)]
+            bwd_names = names[2:] if two else names[1:2]
+            outs_of = dict(zip(names, (("out", "lse"), ("dq", "dk", "dv"),
+                                       ("dk", "dv"), ("dq",))))
+            long = L >= 8192
+            iters = max(1, round(64 * 2048 ** 2 / (B * L * L)))
+
+            def timed(fn, n=iters):
+                return device_ms(fn, warmup=1, iters=n, reps=5)
+
+            ms = {names[0]: timed(lambda: fa._launch_forward(
+                qk, kc, vc, True, scale, 0, False, window, seg, drop,
+                inside))}
+            if two:
+                ms[names[2]] = timed(lambda: fa._launch_dkv(*kin))
+                ms[names[3]] = timed(lambda: fa._launch_dq(*kin))
+            else:
+                ms[names[1]] = timed(lambda: fa._launch_backward(*kin))
+            # the forms without quantization on the dequantized K and V
+            kd, vd = (dequantized(c, s, mode, dtype) for c, s in
+                      ((kc, kvq.k_scale), (vc, kvq.v_scale)))
+            dequant_ms = timed(lambda: (dequantized(kc, kvq.k_scale, mode,
+                                                    dtype),
+                                        dequantized(vc, kvq.v_scale, mode,
+                                                    dtype)))
+            base_out, base_lse, _ = fa._launch_forward(
+                q, kd, vd, True, scale, 0, False, window, seg, drop)
+            base_kin = (*fa._bwd_inputs(q, kd, vd, base_out, base_lse, do,
+                                        None), True, scale, 0, window, seg,
+                        drop)
+            base_fwd_ms = timed(lambda: fa._launch_forward(
+                q, kd, vd, True, scale, 0, False, window, seg, drop))
+            if two:
+                base_bwd_ms = timed(lambda: (fa._launch_dkv(*base_kin),
+                                             fa._launch_dq(*base_kin)))
+            else:
+                base_bwd_ms = timed(lambda: fa._launch_backward(*base_kin))
+            del base_out, base_lse, base_kin
+            # the library's yardstick on the dequantized K and V
+            if masked:
+                rr = torch.arange(L, device=DEV)
+                keep = rr[None, :] <= rr[:, None]
+                if window is not None:
+                    keep &= rr[None, :] > rr[:, None] - window
+                keep = keep[None, None]
+                if seg is not None:
+                    keep = keep & (seg[:, None, :, None]
+                                   == seg[:, None, None, :])
+                lib_kw = dict(attn_mask=keep, dropout_p=rate)
+            else:
+                lib_kw = dict(is_causal=True, dropout_p=rate)
+            leaves = [x.detach().requires_grad_() for x in (q, kd, vd)]
+            lib_fwd_ms = timed(lambda: sdpa(q, kd, vd, **lib_kw))
+            lib_out = sdpa(*leaves, **lib_kw)
+            lib_bwd_ms = timed(lambda: torch.autograd.grad(
+                lib_out, leaves, do, retain_graph=True))
+            del lib_out, leaves, lib_kw, kd, vd
+            torch.cuda.empty_cache()
+            # the plain versions on the kernels' inputs
+            pin = (qk, kc, vc, dok, lse, kin[5], True, scale, 0, window, seg,
+                   drop, inside)
+            plain = {names[0]: lambda: fa.flash_attention_forward_plain(
+                qk, kc, vc, causal=True, window=window, segment_ids=seg,
+                drop=drop, kvq=inside)}
+            if two:
+                plain[names[2]] = lambda: fa._dkv_plain(*pin)
+                plain[names[3]] = lambda: fa._dq_plain(*pin)
+            else:
+                plain[names[1]] = lambda: fa.flash_attention_backward_plain(
+                    qk, kc, vc, None, lse, dok, causal=True, scale=scale,
+                    q_offset=0, window=window, segment_ids=seg, drop=drop,
+                    kvq=inside, delta=kin[5])
+            before = dict(common.launch_counts)
+            got = {"out": out, "lse": lse}
+            if two:
+                got["dk"], got["dv"] = fa._launch_dkv(*kin)
+                got["dq"] = fa._launch_dq(*kin)
+            else:
+                got["dq"], got["dk"], got["dv"] = fa._launch_backward(*kin)
+            launched = {n: c - before.get(n, 0) for n, c in
+                        common.launch_counts.items() if c != before.get(n, 0)}
+            want = {}
+            for n, f in plain.items():
+                res = f()
+                want.update(zip(outs_of[n], res if isinstance(res, tuple)
+                                else (res,)))
+                del res
+                torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            errs, need = {}, {}
+            ok = launched == dict.fromkeys(bwd_names, 1)
+            for o, a in got.items():
+                errs[o], _, need[o], agree = compare(a, want[o], tols[o])
+                ok &= agree
+            del got, want
+            plain_ms = {n: device_ms(f, warmup=0 if long else 1, iters=1,
+                                     reps=1 if long else 3)
+                        for n, f in plain.items()}
+            torch.cuda.empty_cache()
+            item = q.element_size()
+            act = B * H * L * d * item
+            codes = B * H * L * d            # K or V, a byte an element
+            scales = 4 * B * H * (L if kvq.token else d)
+            lse_b = B * H * L * 4
+            seg_b = 0 if seg is None else B * L * 4
+            vis = visible_pairs(B, L, L, window, seg)
+            product = 2 * H * vis * d        # one product's flops
+            if dtype == torch.bfloat16:
+                coded = plain_peak = BF16_FLOPS
+            else:
+                coded, plain_peak = FP32_X3_FLOPS, FP32_FLOPS
+            work = {   # (seconds of flops at peak, bytes)
+                names[0]: (2 * product / coded,
+                           2 * act + 2 * codes + 2 * scales + lse_b + seg_b),
+                names[1]: (3 * product / coded + 2 * product / plain_peak,
+                           6 * act + 2 * codes + 2 * scales + 2 * lse_b
+                           + seg_b),
+                names[2]: (2 * product / coded + 2 * product / plain_peak,
+                           4 * act + 2 * codes + 2 * scales + 2 * lse_b
+                           + seg_b),
+                names[3]: (3 * product / coded,
+                           3 * act + 2 * codes + 2 * scales + 2 * lse_b
+                           + seg_b)}
+            flop_count = {names[0]: 2 * product, names[1]: 5 * product,
+                          names[2]: 4 * product, names[3]: 3 * product}
+            dname = str(dtype).split(".")[1]
+            shape = (f"B{B} H{H} L{L} d{d} causal {mode}"
+                     + (f" window {window}" if window else "")
+                     + (" segments of mode (h)" if seg_on else "")
+                     + (f" dropout {rate}" if drop else ""))
+            lib_name = ("scaled_dot_product_attention on the dequantized K "
+                        "and V (" + ("attn_mask=bool [.., L, L]" if masked
+                                     else "is_causal=True")
+                        + (f", dropout_p={rate}" if drop else "") + ")")
+            for n in ms:
+                op_s, nbytes = work[n]
+                bound = {"operations": op_s * 1e3,
+                         "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+                bound_by = max(bound, key=bound.get)
+                lib = lib_fwd_ms if n == names[0] else lib_bwd_ms
+                row = {"ms": ms[n], "plain_ms": plain_ms[n],
+                       "shape": f"{shape} {dname}",
+                       "max_abs_err": max(errs[o] for o in outs_of[n]),
+                       "library_ms": lib, "dequant_ms": dequant_ms,
+                       "bound_ms": bound[bound_by], "bound_by": bound_by,
+                       "of_bound": bound[bound_by] / ms[n],
+                       "flops": flop_count[n], "bytes": nbytes,
+                       "visible_pairs_per_head": vis,
+                       "tflops": flop_count[n] / (ms[n] * 1e-3) / 1e12}
+                log({"phase": "kernel_time", "kernel": n, "dtype": dname,
+                     "label": label, "library": lib_name + (
+                         " backward, the pair's yardstick"
+                         if two and n != names[0] else
+                         " backward" if n != names[0] else ""),
+                     **row})
+                rows[(n, label)] = row
+            log({"phase": "quantized_over_unquantized", "dtype": dname,
+                 "shape": shape, "label": label,
+                 "forward_ms": ms[names[0]],
+                 "unquantized_forward_ms": base_fwd_ms,
+                 "forward_over_unquantized": ms[names[0]] / base_fwd_ms,
+                 "backward_ms": sum(ms[n] for n in bwd_names),
+                 "unquantized_backward_ms": base_bwd_ms,
+                 "backward_over_unquantized": (
+                     sum(ms[n] for n in bwd_names) / base_bwd_ms),
+                 "dequant_ms": dequant_ms,
+                 "backward_form": "two-pass" if two else "fused",
+                 "card": torch.cuda.get_device_name(0)})
+            log({"phase": "kvq_timed_vs_plain", "case": label, "mode": mode,
+                 "dtype": dname, "shape": shape, "max_abs_err": errs,
+                 "arms_needed": need,
+                 "tol": {o: "atol {} + {} * rms + rtol {}".format(*tols[o])
+                         for o in errs},
+                 "launches": launched, "ok": ok})
+            if not ok:
+                failed.append(f"{label} {mode} {dname}")
+            del q, kc, vc, do, kw, kin, pin, out, lse, raw_out, qk, dok, plain
+            torch.cuda.empty_cache()
+    check(not failed, f"at a timed shape a quantized flash form disagrees "
+                      f"with its plain version or did not launch once: "
+                      f"{failed}")
     return rows
 
 
@@ -2260,20 +2754,28 @@ def gemm_kind(name: str) -> str | None:
 
 def port_kernel(key: str, name: str) -> bool:
     """Whether the profiler's kernel ``key`` is the port's kernel counted as
-    ``name``: a flash kernel's form ``<D, kMask, kDrop>`` under the form's
-    name, + ``fa.MASK`` where kMask is true, + ``fa.DROP`` where kDrop
-    is."""
+    ``name``: a flash kernel's form ``<D, kMask, kDrop, kQuant>`` under the
+    form's name, + ``fa.MASK`` where kMask is true, + ``fa.DROP`` where
+    kDrop is, + ``fa.KVQ[g]`` where kQuant is g's (1 token, 2 channel; the
+    quantized fused fp32 forms are ``flash_attention_bwd_kvq_x6_kernel``)."""
+    quant = 0
+    for i, suffix in enumerate(fa.KVQ.values(), 1):
+        if name.endswith(suffix):
+            name, quant = name[:-len(suffix)], i
     dropped = name.endswith(fa.DROP)
     base = name[:-len(fa.DROP)] if dropped else name
     masked = base.endswith(fa.MASK)
     base = base[:-len(fa.MASK)] if masked else base
-    if f"{base}_kernel" not in key:
+    kernel = ("flash_attention_bwd_kvq_x6" if quant and base == ATTENTION_X6[1]
+              else base)
+    if f"{kernel}_kernel" not in key:
         return False
     if base not in ATTENTION_TC + ATTENTION_X6 + TWO_PASS + TWO_PASS_TC:
         return True
-    flags = re.search(r"_kernel<\d+, (true|false), (true|false)>", key)
+    flags = re.search(r"_kernel<\d+, (true|false), (true|false), (\d+)>",
+                      key)
     return bool(flags) and flags.groups() == (
-        str(masked).lower(), str(dropped).lower())
+        str(masked).lower(), str(dropped).lower(), str(quant))
 
 
 def kernel_profile(fn, steps: int = 4) -> dict:
@@ -2445,6 +2947,17 @@ def training_end_to_end(name: str, config: dict, shape, chunked_vocab=0,
     # Adam's first step moves each weight by ~lr * sign(g), so where |g|
     # lies within the gradient tolerance of 0 a sign may flip (up to 2 lr
     # apart); elsewhere the steps agree to 1e-6.
+    # With quantized K/V a code near a rounding boundary may round the
+    # other way in one of the two runs (from layer 2 on, K and V carry the
+    # fp32 noise of the layers below), so the gradients differ more, still
+    # within their limit; Adam's first step, lr g / (|g| + eps'), eps' =
+    # eps / sqrt(1 - beta2) = 3.2e-7, has the slope lr eps' / (|g| +
+    # eps')^2, which magnifies that difference where |g| is a few eps' (a
+    # reading of 2.3e-5 at the production config with int8 K/V).  There the
+    # updated parameters are held to 1e-6 plus that slope, at the smaller
+    # |g|, times each element's measured gradient difference.
+    kv_quant = cfg.kv_quant != "none"
+    eps_eff = 1e-8 / math.sqrt(1 - 0.999)
     g_max = max(float(g.abs().max()) for _, g in want.values())
     ok = abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
     grad_errs, param_err, flips = [], 0.0, 0
@@ -2455,9 +2968,14 @@ def training_end_to_end(name: str, config: dict, shape, chunked_vocab=0,
         grad_errs.append((err / tol, n, err, tol))
         near0 = g_p.abs() <= tol
         diff = (p_k - p_p).abs()
+        p_tol = 1e-6
+        if kv_quant:
+            p_tol = 1e-6 + lr * eps_eff * (g_k - g_p).abs() / (
+                torch.minimum(g_k.abs(), g_p.abs()) + eps_eff) ** 2
+            p_tol = p_tol[~near0]
         if bool((~near0).any()):
             param_err = max(param_err, float(diff[~near0].max()))
-        ok &= (err <= tol and bool((diff[~near0] <= 1e-6).all())
+        ok &= (err <= tol and bool((diff[~near0] <= p_tol).all())
                and bool((diff[near0] <= 2 * lr + 1e-6).all()))
         flips += int((diff[near0] > 1e-6).sum())
     worst = sorted(grad_errs, reverse=True)[:3]
@@ -2471,7 +2989,9 @@ def training_end_to_end(name: str, config: dict, shape, chunked_vocab=0,
            "grad_worst": [{"param": n, "max_abs_err": e, "tol": t}
                           for _, n, e, t in worst],
            "grad_tol": "1e-3 * max|g| of the tensor + 1e-5 * max|g| of all",
-           "param_max_err": param_err, "param_tol": 1e-6,
+           "param_max_err": param_err,
+           "param_tol": ("1e-6 + Adam's slope x the gradient difference"
+                         if kv_quant else 1e-6),
            "near_zero_grad_params_moved_apart": flips,
            "near_zero_tol": f"2 lr = {2 * lr}", "ok": bool(ok)}
     if profile:
@@ -2501,17 +3021,20 @@ def training_end_to_end(name: str, config: dict, shape, chunked_vocab=0,
 
 
 def dropout_step(name: str, config: dict, shape, per_step: dict,
-                 chunked_vocab: int = 0, batch: dict | None = None) -> dict:
+                 chunked_vocab: int = 0, batch: dict | None = None,
+                 dtype=torch.bfloat16, phase: str = "dropout_step") -> dict:
     """One bf16 mixed-precision Adam step of ``config`` (its
     ``attn_dropout`` on, feed-forward dropout 0.1, one seeded CUDA
     generator) after a warm-up step: the loss finite and each training
     kernel launched exactly ``per_step`` times in the counted step (the
     counts set to 0 just before it); its host time and peak memory beside.
-    Returns the counted step's launches."""
-    cfg = DecoderConfig(**config, p_dropout=0.1, dtype=torch.bfloat16)
+    fp32 ``dtype`` takes plain Adam.  Returns the counted step's
+    launches."""
+    cfg = DecoderConfig(**config, p_dropout=0.1, dtype=dtype)
     model = DecoderLM(cfg, device=DEV)
     init_params(model, torch.Generator(DEV).manual_seed(0))
-    opt = mixed_precision(adam(lr=1e-3))
+    opt = (mixed_precision(adam(lr=1e-3)) if dtype == torch.bfloat16
+           else adam(lr=1e-3))
     state = opt.init(dict(model.named_parameters()))
     batch = place_batch(batch or train_batch(0, shape, cfg.n_vocab), DEV)
     gen = torch.Generator(DEV).manual_seed(1)
@@ -2528,9 +3051,11 @@ def dropout_step(name: str, config: dict, shape, per_step: dict,
                 if c and n in TRAINING_KERNELS}
     losses = [float(warm), float(loss)]
     ok = all(math.isfinite(x) for x in losses) and launches == per_step
-    log({"phase": "dropout_step", "config": name,
+    log({"phase": phase, "config": name,
          "attn_dropout": cfg.attn_dropout, "p_dropout": cfg.p_dropout,
-         "dtype": "bfloat16", "batch": shape[0], "seq_len": shape[1],
+         "kv_quant": cfg.kv_quant, "window": cfg.window,
+         "dtype": str(dtype).split(".")[1], "batch": shape[0],
+         "seq_len": shape[1],
          "n_layer": cfg.n_layer, "chunked_vocab": chunked_vocab,
          "losses": losses, "step_ms": step_ms,
          "peak_memory_GiB": torch.cuda.max_memory_allocated() / 2**30,
@@ -2541,6 +3066,117 @@ def dropout_step(name: str, config: dict, shape, per_step: dict,
     del model, state, step, batch
     torch.cuda.empty_cache()
     return launches
+
+
+def kvq_label(dtype, masked: bool, dropped: bool, long: bool) -> str:
+    """The ``KVQ_TIMED`` label of the main-path run that launches a
+    quantized form: the production shapes for the forward and the fused
+    backward, the long ones (two passes) for the dK/dV and dQ passes."""
+    bf16 = dtype == torch.bfloat16
+    if long:
+        base = (("mode (g): window 2048" if bf16 else "window 2048")
+                if masked else "mode (f)" if bf16 else "L8192")
+    else:
+        base = (("window 256, segments of mode (h)" if dropped
+                 else "segments of mode (h)") if masked
+                else "mode (j)" if bf16 else "mode (a)")
+    return base + (", attention dropout" if dropped else "")
+
+
+def kvq_steps(packed) -> list[dict]:
+    """One training step of each quantized-K/V configuration that the
+    main path runs beside mode (j), each launching its quantized forms
+    (``dropout_step``: a warm-up step, then the counted one): in bf16 the
+    production config with fp8, int8_channel and fp8_channel K/V, with
+    attention dropout, over mode (h)'s packed rows, and over them under a
+    window of 256 with attention dropout, and the long config at 2 layers
+    (mode (f)'s L = 16384 with int8, the two passes) alone, with attention
+    dropout, under mode (g)'s window and under both; in fp32 the same that
+    ``kvq_e2e`` does not hold against plain (the long ones at L = 8192).
+    Returns each step's launches."""
+    prod, long_b = (TRAIN_B, TRAIN_L), torch.bfloat16
+    drop = {"attn_dropout": DROP_RATE}
+    runs = [("prod-flash-kv-fp8", {**TRAIN, "kv_quant": "fp8"}, prod,
+             long_b, "token", False, False, None)]
+    for g, mode in KVQ_MODE.items():
+        q = {"kv_quant": mode}
+        if g == "channel":
+            for m in ("int8_channel", "fp8_channel"):
+                runs.append((f"prod-flash-kv-{m}", {**TRAIN, "kv_quant": m},
+                             prod, long_b, g, False, False, None))
+        for dt in (torch.bfloat16, torch.float32):
+            name = f"{'bf16' if dt == torch.bfloat16 else 'fp32'}-{mode}"
+            runs += [(f"prod-flash-attn-dropout-{name}", {**TRAIN, **q,
+                                                          **drop}, prod, dt,
+                      g, False, True, None)]
+            if dt == torch.bfloat16 or g == "channel":
+                runs += [(f"prod-packed-{name}", {**TRAIN, **q},
+                          (PACK_ROWS, PACK_L), dt, g, True, False, packed),
+                         (f"prod-packed-window-256-attn-dropout-{name}",
+                          {**TRAIN, "window": 256, **q, **drop},
+                          (PACK_ROWS, PACK_L), dt, g, True, True, packed)]
+            elif dt == torch.float32:
+                runs += [(f"prod-packed-{name}", {**TRAIN, **q},
+                          (PACK_ROWS, PACK_L), dt, g, True, False, packed)]
+            long_cfg = {**TRAIN_LONG, "n_layer": 2, **q}
+            long_shape = (LONG_B, LONG_L if dt == torch.bfloat16
+                          else LONG_E2E_L)
+            for masked, dropped in ((False, False), (False, True),
+                                    (True, False), (True, True)):
+                if (dt == torch.float32 and g == "token" and not masked
+                        and not dropped):
+                    continue        # kvq_e2e's long step
+                cfg = {**long_cfg, **(drop if dropped else {}),
+                       **({"window": LONG_WINDOW} if masked else {})}
+                runs.append((f"long-two-pass{'-window-2048' * masked}"
+                             f"{'-attn-dropout' * dropped}-2-layers-{name}",
+                             cfg, long_shape, dt, g, masked, dropped, None))
+    out = []
+    for name, cfg, shape, dt, g, masked, dropped, batch in runs:
+        forms = QUANTIZED[(g, dt, masked, dropped)]
+        n = cfg["n_layer"]
+        if cfg.get("remat"):     # the forward twice a layer, two passes
+            per_step = {forms[0]: 2 * n, **dict.fromkeys(forms[2:], n)}
+        else:
+            per_step = dict.fromkeys(forms[:2], n)
+        out.append(dropout_step(name, cfg, shape, per_step,
+                                chunked_vocab=LONG_CHUNKS
+                                if cfg.get("remat") else 0,
+                                batch=batch, dtype=dt, phase="kvq_step"))
+    return out
+
+
+def kvq_e2e(packed) -> list[dict]:
+    """The fp32 quantized-K/V steps held against their plain versions
+    (``training_end_to_end``): mode (a)'s config with int8 K/V (JAX's
+    bench/exp_fp32_configs.py "int8-KV") and with int8_channel, the long
+    config at 2 layers and L = 8192 with int8 (the six-product two
+    passes), and mode (h)'s packed rows under a window of 256 with
+    attention dropout and int8 (JAX's
+    test_segment_composes_with_window_dropout_quant)."""
+    prod = (TRAIN_B, TRAIN_L)
+    f32 = torch.float32
+    token = QUANTIZED[("token", f32, False, False)]
+    return [
+        training_end_to_end("prod-flash-kv-int8", {**TRAIN,
+                                                   "kv_quant": "int8"}, prod,
+                            launches=dict.fromkeys(token[:2], 4)),
+        training_end_to_end(
+            "prod-flash-kv-int8_channel",
+            {**TRAIN, "kv_quant": "int8_channel"}, prod,
+            launches=dict.fromkeys(QUANTIZED[("channel", f32, False,
+                                              False)][:2], 4)),
+        training_end_to_end(
+            "long-two-pass-kv-int8", {**TRAIN_LONG, "n_layer": 2,
+                                      "kv_quant": "int8"},
+            (LONG_B, LONG_E2E_L), chunked_vocab=LONG_CHUNKS,
+            launches={token[0]: 4, **dict.fromkeys(token[2:], 2)}),
+        training_end_to_end(
+            "prod-flash-window-256-packed-attn-dropout-kv-int8",
+            {**TRAIN, "window": 256, "attn_dropout": DROP_RATE,
+             "kv_quant": "int8"}, (PACK_ROWS, PACK_L), batch=packed,
+            launches=dict.fromkeys(QUANTIZED[("token", f32, True,
+                                              True)][:2], 4))]
 
 
 def long_peak_memory() -> list[dict]:
@@ -2895,11 +3531,11 @@ def main() -> int:
         for n, r in built.items()}})
     # the flash-attention kernels' tensor-core and six-product forms (each
     # of the four kernels at each head dim, unmasked and masked, without
-    # and with dropout) and the
+    # and with dropout, without and with quantized K/V) and the
     # quantized matmuls'
     # tensor-core decode form must not spill (a spilled form of the two-pass
     # dQ kernel passed its tests 38 times slower)
-    reports = {k: r for n in ATTENTION + (TWO_PASS_SOURCE,)
+    reports = {k: r for n in FLASH_SOURCES + KVQ_SOURCES
                for k, r in ptxas_report(built[n].log).items()}
     tc = {k: r for k, r in reports.items() if "_tc_kernel" in k}
     x6 = {k: r for k, r in reports.items() if "_x6_kernel" in k}
@@ -2942,10 +3578,11 @@ def main() -> int:
     check(len(fd) == 4 * (4 + 3 + 2 + 2) and not fd_spills,
           f"flash decode: {len(fd)} kernels reported, spilling {fd_spills}")
     # the flash kernels: each form at each head dim, unmasked and masked,
-    # without and with dropout;
+    # without and with dropout, without quantized K/V and with it per token
+    # and per channel;
     # the decode forms: a kernel a mode at tiles of 32, 64 and 128 columns
-    check(len(tc) == 4 * len(FLASH_KERNELS) * len(fa.HEAD_DIMS)
-          and len(x6) == 4 * len(FLASH_KERNELS) * len(fa.HEAD_DIMS)
+    check(len(tc) == 12 * len(FLASH_KERNELS) * len(fa.HEAD_DIMS)
+          and len(x6) == 12 * len(FLASH_KERNELS) * len(fa.HEAD_DIMS)
           and len(dec) == 3 * len(QUANT) and len(x3) == len(QUANT_X3)
           and len(dec_x3) == 3 * len(QUANT_DEC_X3) and not spills,
           f"the tensor-core kernels spill or are missing: {len(tc)} flash, "
@@ -2971,6 +3608,11 @@ def main() -> int:
     two_rows = two_pass_times(gen)
     masked_rows = masked_times(gen)
     drop_rows = masked_times(gen, DROP_TIMED, DROP_RATE)
+    kvq_worst = kvq_cases(gen)
+    fused_backward_bits(gen, mode="int8")
+    fused_backward_bits(gen, window=256, rate=DROP_RATE, mode="fp8_channel")
+    kvq_fp64 = kvq_vs_fp64(gen)
+    kvq_rows = kvq_times(gen)
     fused_worst = fused_cases(gen)
     fused_rows = fused_times(gen)
     ln_rows = {H: ln_times(gen, H)
@@ -3056,6 +3698,13 @@ def main() -> int:
                  "attn-dropout", {**TRAIN, "attn_dropout": DROP_RATE}, prod,
                  torch.bfloat16, 0.1, mixed_precision(adam(lr=1e-3)),
                  dict.fromkeys(DROPPED_TC[:2], 4)),
+        # (b) with int8 K/V (JAX's --kv-quant-train int8): the forward's
+        # and the fused backward's token-scaled forms once a layer
+        training("(j) prod-flash-bf16-mixed-precision-adam-dropout-"
+                 "kv-quant-int8", {**TRAIN, "kv_quant": "int8"}, prod,
+                 torch.bfloat16, 0.1, mixed_precision(adam(lr=1e-3)),
+                 dict.fromkeys(QUANTIZED[("token", torch.bfloat16, False,
+                                          False)][:2], 4)),
     ]
     # the shorter attention-dropout steps: (f) at 2 layers (the forward
     # twice a layer under remat, the two passes once), (g) at 2 layers (the
@@ -3083,6 +3732,7 @@ def main() -> int:
         dropout_step("(d) ref-fused-fused-ln-bf16", {**REF, **drop}, ref,
                      {**fused_sm, **fused_ln}),
     ]
+    train_launches += kvq_steps(packed)
     for n in TRAINING_KERNELS:
         launches[n] = sum(t.get(n, 0) for t in train_launches)
     # the masked fp32 forms: one fp32 step at the production widths over
@@ -3119,7 +3769,7 @@ def main() -> int:
             (LONG_B, LONG_E2E_L), chunked_vocab=LONG_CHUNKS,
             launches={MASK_DROPPED_X6[0]: 4,
                       **dict.fromkeys(MASK_DROPPED_X6[2:], 2)})]
-    for row in (packed_e2e, window_e2e, *drop_e2e):
+    for row in (packed_e2e, window_e2e, *drop_e2e, *kvq_e2e(packed)):
         for n, c in row["launches"]["kernel"].items():
             launches[n] += c
     long_peak_memory()
@@ -3277,6 +3927,33 @@ def main() -> int:
                                   for k in timed + ("max_abs_err",)}
                              for m, lb in drop_rows
                              if m == n and lb != drop_label[n]}})
+    # the quantized forms: each at the shape of the main-path run that
+    # launches it, the other timed shapes beside
+    for (g, dt, masked_, dropped_), names in QUANTIZED.items():
+        for i, n in enumerate(names):
+            label = kvq_label(dt, masked_, dropped_, long=i >= 2)
+            r = kvq_rows[(n, label)]
+            src = FLASH_SOURCES[min(i, 2)] + fa.KVQ[g]
+            entries.append({
+                "name": n, "route": "cuda",
+                "source": f"tpu_flash_torch/kernels/csrc/{src}.cu",
+                "replaces": f"tpu_flash/kernels/{lines[FLASH_KERNELS[i]]}",
+                "launches": launches[n], "max_abs_err": r["max_abs_err"],
+                **{k: r[k] for k in timed},
+                "dequant_ms": r["dequant_ms"],
+                "shape": f"{r['shape']}, {label}",
+                "max_abs_err_over_kvq_cases": kvq_worst[n],
+                "other_shapes": {lb: {k: kvq_rows[(m, lb)][k]
+                                      for k in timed + ("max_abs_err",)}
+                                 for m, lb in kvq_rows
+                                 if m == n and lb != label}})
+            if dt == torch.float32 and not masked_ and not dropped_:
+                L = TRAIN_L if i < 2 else LONG_E2E_L
+                if i < 2 or two_pass(L, L, 64, 4, True):
+                    outs = (("out", "lse"), ("dq", "dk", "dv"), ("dk", "dv"),
+                            ("dq",))[i]
+                    entries[-1]["max_abs_err_vs_float64"] = {
+                        o: kvq_fp64[(g, L)][o] for o in outs}
     replaces.update({"layernorm_fwd": "layernorm.py:42",
                      "layernorm_bwd": "layernorm.py:102",
                      "attn_softmax_fwd": "softmax.py:48",

@@ -302,20 +302,26 @@ def test_backward_central_difference(rng, causal):
 
 
 def test_what_raises(rng):
+    """Dropout's refusals; quantized K/V is ported and composes with
+    dropout (the op, the kernels' entries given codes, the config), its
+    entries refusing float K/V with scales and a k_scale alone."""
     q = torch.zeros(1, 2, 16, 16)
-    with pytest.raises(NotImplementedError, match="B3c"):
-        tops.flash_attention(q, q, q, kv_quant="int8", dropout_rate=0.1)
-    with pytest.raises(NotImplementedError, match="B3c"):
+    out = tops.flash_attention(q, q, q, kv_quant="int8", dropout_rate=0.1)
+    assert torch.isfinite(out).all()
+    with pytest.raises(TypeError, match="codes"):
         tfa.flash_attention_forward(q, q, q, dropout_rate=0.1,
-                                    k_scale=torch.ones(1))
+                                    k_scale=torch.ones(1), v_scale=torch.ones(1))
+    with pytest.raises(ValueError, match="both"):
+        tfa.flash_attention_forward(q, q.to(torch.int8), q.to(torch.int8),
+                                    dropout_rate=0.1, k_scale=torch.ones(1))
     for rate in (-0.1, 1.0):
         with pytest.raises(ValueError, match="dropout_rate"):
             tops.flash_attention(q, q, q, dropout_rate=rate)
     with pytest.raises(ValueError, match="1 to 3"):
         tops.flash_attention(q, q, q, dropout_rate=0.1,
                              dropout_seed=torch.zeros(4, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="B3c"):
-        tnn.DecoderConfig(attn_dropout=0.1, kv_quant="int8")
+    assert tnn.DecoderConfig(attn_dropout=0.1, kv_quant="int8").kv_quant \
+        == "int8"
 
 
 # --- the model ------------------------------------------------------------------

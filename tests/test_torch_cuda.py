@@ -368,13 +368,18 @@ def test_flash_attention_kernels_reject_what_they_do_not_take(cuda_device):
         flash_attention_forward(x[..., :32], x[..., :32], x[..., :32],
                                 window=4)
     # dropout is ported: a rate outside [0, 1) is refused; quantized K/V
-    # still raises
+    # is ported: scales need codes, and both scales
     with pytest.raises(ValueError, match="dropout_rate"):
         flash_attention_forward(x[..., :32], x[..., :32], x[..., :32],
                                 dropout_rate=1.0)
-    with pytest.raises(NotImplementedError, match="B3c"):
+    with pytest.raises(TypeError, match="codes"):
         flash_attention_forward(x[..., :32], x[..., :32], x[..., :32],
-                                dropout_rate=0.1, k_scale=x[0, 0, :, 0])
+                                dropout_rate=0.1, k_scale=x[0, :, :, 0],
+                                v_scale=x[0, :, :, 0])
+    codes = x[..., :32].to(torch.int8)
+    with pytest.raises(ValueError, match="both"):
+        flash_attention_forward(x[..., :32], codes, codes,
+                                dropout_rate=0.1, k_scale=x[:, :, :, 0])
 
 
 # --- the tensor-core forms of the forward and the fused backward (bf16) ----
@@ -1995,3 +2000,164 @@ def test_dropout_op_makes_the_host_wait_nowhere(cuda_device, L):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert all(torch.isfinite(x.grad).all() for x in leaves)
+
+
+# --- quantized K/V: the kvq forms ---------------------------------------------
+
+
+def kvq_case(gen, dev, B, H, Hkv, L, d, dtype, mode):
+    """q, dO in ``dtype`` and K, V quantized by the op's quantizer (codes
+    and fp32 scales, token or channel)."""
+    from tpu_flash_torch.ops.attention import kv_quant_parts, quantize_kv
+
+    q, k, v, do = attention_case(gen, dev, B, H, Hkv, L, L, d, dtype)
+    kc, ks = quantize_kv(k, mode)
+    vc, vs = quantize_kv(v, mode)
+    return q, do, kc, vc, dict(k_scale=ks, v_scale=vs,
+                               kv_scale_mode=kv_quant_parts(mode)[1])
+
+
+def kvq_names(dtype, masked, dropped, gran, kernels):
+    from tpu_flash_torch.kernels import flash_attention as fa
+
+    return {fa._form_name(n, dtype, masked, dropped, gran): 1
+            for n in kernels}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("mode", ["int8", "fp8", "int8_channel",
+                                  "fp8_channel"])
+@pytest.mark.parametrize("variant", ["causal", "window-dropout",
+                                     "segments", "dropout"])
+def test_quantized_forms_match_plain(cuda_device, dtype, d, mode, variant):
+    """Each flash kernel's quantized form (forward, fused backward, dK/dV
+    and dQ passes) on the same codes and scales as its plain version, per
+    token or per channel, int8 or e4m3 codes, unmasked, under a window with
+    dropout, under packed segments, and non-causal with dropout, at each
+    head dim (GQA 4:2, a ragged L): bf16 out and gradients within
+    BF16_ARMS, fp32 within FA_TOL (the two passes at 1e-3); lse at 1e-4
+    (token scales: the normaliser sums the fp32 P in both), or in bf16 per
+    channel below d = 128 at 1e-3 of ``stepped_lse`` on the folded q and the
+    codes.  Each call launches its quantized form once and nothing else."""
+    from tpu_flash_torch.kernels import flash_attention as fa
+    from tpu_flash_torch.kernels.flash_attention import (
+        flash_attention_backward_dkv_plain, flash_attention_backward_dq_plain,
+        flash_attention_backward_fused, flash_attention_backward_two_pass,
+        flash_attention_forward)
+
+    B, H, Hkv, L = 2, 4, 2, 300
+    gen = torch.Generator(cuda_device).manual_seed(41)
+    q, do, kc, vc, quant = kvq_case(gen, cuda_device, B, H, Hkv, L, d, dtype,
+                                    mode)
+    dropped = "dropout" in variant
+    kw = dict(causal=variant != "dropout",
+              dropout_rate=0.1 if dropped else 0.0, dropout_seed=1234,
+              window=77 if variant == "window-dropout" else None,
+              segment_ids=(packed_segments(B, L, 7, cuda_device)
+                           if variant == "segments" else None), **quant)
+    before = dict(common.launch_counts)
+    out, lse, _ = flash_attention_forward(q, kc, vc, **kw)
+    fused = flash_attention_backward_fused(q, kc, vc, out, lse, do, **kw)
+    two = flash_attention_backward_two_pass(q, kc, vc, out, lse, do, **kw)
+    launched = {n: c - before.get(n, 0) for n, c in
+                common.launch_counts.items() if c != before.get(n, 0)}
+    want = flash_attention_forward(q, kc, vc, impl="plain", **kw)
+    ref = flash_attention_backward_fused(q, kc, vc, out, lse, do,
+                                         impl="plain", **kw)
+    two_ref = flash_attention_backward_two_pass(q, kc, vc, out, lse, do,
+                                                impl="plain", **kw)
+    torch.cuda.synchronize()
+    gran = quant["kv_scale_mode"]
+    masked = kw["window"] is not None or kw["segment_ids"] is not None
+    assert launched == kvq_names(dtype, masked, dropped, gran,
+                                 (fa.KERNEL_FWD, fa.KERNEL_BWD,
+                                  fa.KERNEL_DKV, fa.KERNEL_DQ))
+    if dtype == torch.bfloat16 and gran == "channel" and d < 128 \
+            and not dropped:
+        qf = fa._channel(q, quant["k_scale"], H // Hkv)
+        torch.testing.assert_close(
+            lse, stepped_lse(qf, kc, kw["causal"], None, kw["window"],
+                             kw["segment_ids"]), atol=1e-3, rtol=1e-3)
+    else:
+        torch.testing.assert_close(lse, want[1], atol=1e-4, rtol=1e-4)
+    named = list(zip((out, *fused, *two), (want[0], *ref, *two_ref)))
+    if dtype == torch.bfloat16:
+        for a, b in named:
+            assert a.dtype == b.dtype == dtype and a.shape == b.shape
+            assert_close_bf16(a, b)
+    else:
+        fw_tol, bw_tol = FA_TOL[dtype]
+        for i, (a, b) in enumerate(named):
+            tol = fw_tol if i == 0 else bw_tol if i < 4 else 1e-3
+            torch.testing.assert_close(a, b, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode,window", [("int8", None), ("fp8", 100),
+                                         ("int8_channel", None),
+                                         ("fp8_channel", 64)])
+def test_quantized_fused_backward_gives_the_same_bits(cuda_device, dtype,
+                                                      mode, window):
+    """The fused backward's quantized forms keep dQ's adds in key-tile
+    order: two calls give the same bits (B2 H8 Hkv4 L1000 d64)."""
+    from tpu_flash_torch.kernels.flash_attention import (
+        flash_attention_backward_fused, flash_attention_forward)
+
+    gen = torch.Generator(cuda_device).manual_seed(42)
+    q, do, kc, vc, quant = kvq_case(gen, cuda_device, 2, 8, 4, 1000, 64,
+                                    dtype, mode)
+    kw = dict(causal=True, window=window, **quant)
+    out, lse, _ = flash_attention_forward(q, kc, vc, **kw)
+    first = flash_attention_backward_fused(q, kc, vc, out, lse, do, **kw)
+    second = flash_attention_backward_fused(q, kc, vc, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantized_op_launches_only_the_quantized_forms(cuda_device, dtype):
+    """``ops.flash_attention(kv_quant=m)`` forward and backward launch the
+    quantized forms of m's granularity, one forward and one fused backward,
+    and leave the counts of every form without quantization as they were.
+    Against the op through the plain versions: fp32 out and gradients at
+    1e-3; bf16 out within BF16_ARMS and the gradients finite (each path's
+    backward takes its own forward's bf16 out, so their gradients carry
+    both paths' roundings; test_quantized_forms_match_plain holds the bf16
+    gradients on shared inputs)."""
+    from tpu_flash_torch import ops as tops
+    from tpu_flash_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(cuda_device).manual_seed(43)
+    q, k, v, do = attention_case(gen, cuda_device, 2, 4, 2, 256, 256, 64,
+                                 dtype)
+    for mode in ("int8", "fp8_channel"):
+        gran = "channel" if mode.endswith("channel") else "token"
+        grads = {}
+        for impl in ("kernel", "plain"):
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            before = dict(common.launch_counts)
+            out = tops.flash_attention(*leaves, causal=True, kv_quant=mode,
+                                       impl=impl)
+            out.backward(do)
+            torch.cuda.synchronize()
+            launched = {n: c - before.get(n, 0) for n, c in
+                        common.launch_counts.items()
+                        if c != before.get(n, 0)}
+            grads[impl] = [out] + [x.grad for x in leaves]
+            if impl == "kernel":
+                assert launched == kvq_names(dtype, False, False, gran,
+                                             (fa.KERNEL_FWD, fa.KERNEL_BWD))
+            else:
+                assert launched == {}
+        for i, (a, b) in enumerate(zip(grads["kernel"], grads["plain"])):
+            if dtype == torch.float32:
+                torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)
+            elif i == 0:
+                assert_close_bf16(a.detach(), b.detach())
+            else:
+                assert torch.isfinite(a).all()

@@ -206,10 +206,14 @@ def test_aliases_and_what_raises(rng):
     torch.testing.assert_close(tops.flash_attn2(q, k, v), ref)
     torch.testing.assert_close(tops.flash_attn_causal(q, k, v),
                                tops.flash_attention(q, k, v, causal=True))
-    # quantized K/V still raises; attention dropout is ported: the op
-    # equals naive attention with P times the kernels' keep multiplier
-    with pytest.raises(NotImplementedError, match="A5.*B3c"):
-        tops.flash_attention(q, k, v, kv_quant="int8")
+    # quantized K/V is ported: int8 codes stay within quantization noise
+    # of the unquantized op, and an unknown mode is refused; attention
+    # dropout is ported: the op equals naive attention with P times the
+    # kernels' keep multiplier
+    torch.testing.assert_close(tops.flash_attention(q, k, v, kv_quant="int8"),
+                               ref, atol=5e-2, rtol=5e-2)
+    with pytest.raises(ValueError, match="kv_quant must be"):
+        tops.flash_attention(q, k, v, kv_quant="int4")
     s = q @ k.transpose(-1, -2) / 4.0
     p = torch.softmax(s, -1) * tref.dropout_keep_oracle(1, 2, 32, 32, 3, 0.1)
     torch.testing.assert_close(

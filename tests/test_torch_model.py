@@ -164,11 +164,17 @@ def test_auto_attention_below_the_flash_threshold_is_naive(rng, fp32_pair):
 
 @pytest.mark.parametrize("over", [
     {"positional": "rope"}, {"moe": object()},
-    {"kv_quant": "int8"}, {"attn_dropout": 0.1, "kv_quant": "fp8"},
+    {"kv_quant": "int8", "attention_kind": "naive"},
+    {"attn_dropout": 0.1, "kv_quant": "int4"},
     {"embedding_one_hot": True}, {"sequence_parallel": True},
 ])
 def test_unported_config_raises(over):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md"):
+    """What the config refuses: an unported option names its ROADMAP.md
+    item; quantized K/V is ported, and refused with the JAX package's
+    ValueError on a dense route and for an unknown mode."""
+    error, match = ((ValueError, "kv_quant") if "kv_quant" in over
+                    else (NotImplementedError, r"ROADMAP\.md"))
+    with pytest.raises(error, match=match):
         tnn.DecoderConfig(**{**CFG, **over})
 
 
@@ -177,7 +183,7 @@ def test_unported_forward_paths_raise():
     window or packed sequences on the fused route (its [B, Lk] mask cannot
     express them), and packed sequences on the cached decode path.  The
     flash and naive routes take both.  Attention dropout runs on every
-    route (quantized K/V, which it would compose with, still raises)."""
+    route, and composes with quantized K/V on the flash route."""
     ids = torch.zeros(1, 4, dtype=torch.long)
     for kind in ("flash", "naive"):
         m = tnn.DecoderLM(tnn.DecoderConfig(**{**CFG, "attention_kind": kind},
@@ -199,8 +205,12 @@ def test_unported_forward_paths_raise():
                     generator=torch.Generator().manual_seed(0))
         assert torch.isfinite(dropped).all()
         assert not torch.equal(dropped, m(ids))
-    with pytest.raises(NotImplementedError, match="B3c"):
-        tnn.DecoderConfig(**CFG, attn_dropout=0.1, kv_quant="int8")
+    m = tnn.DecoderLM(tnn.DecoderConfig(**{**CFG, "attention_kind": "flash"},
+                                        attn_dropout=0.5, kv_quant="int8"),
+                      device="cpu")
+    dropped = m(ids, training=True, generator=torch.Generator().manual_seed(0))
+    assert torch.isfinite(dropped).all()
+    assert not torch.equal(dropped, m(ids))
 
 
 def test_entry_points_need_a_card_or_cpu():

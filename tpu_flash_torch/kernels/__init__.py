@@ -1,8 +1,8 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``), each beside its plain
 PyTorch version.  Ported so far: flash-decode attention, the
 flash-attention forward and backward (fused single pass, and the two-pass
-dK/dV and dQ kernels; sliding windows, packed segments and attention
-dropout in each), the fused LayerNorm forward and
+dK/dV and dQ kernels; sliding windows, packed segments, attention
+dropout and quantized K/V in each), the fused LayerNorm forward and
 backward, the fused masked attention-softmax forward and backward, and the
 weight-only int8 and packed-int4 matmuls."""
 

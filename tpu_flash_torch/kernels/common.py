@@ -131,12 +131,13 @@ class BuildResult:
 
 
 def _lib_path(name: str) -> Path:
-    """The library's path, named by a digest of its source, the shared
-    headers of ``csrc/`` and the flags, so that editing any of them
-    rebuilds it."""
+    """The library's path, named by a digest of its source, the other files
+    of ``csrc/`` (the shared headers, and the sources that a ``_kvq``
+    source includes) and the flags, so that editing any of them rebuilds
+    it."""
     h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC_DIR.glob("*.cuh")):
-        h.update(header.read_bytes())
+    for other in sorted(CSRC_DIR.glob("*.cu*")):
+        h.update(other.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

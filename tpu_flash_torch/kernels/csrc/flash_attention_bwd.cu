@@ -42,7 +42,10 @@
 // tiles below it whose band reaches the chunk (dq_turn), so the adds keep
 // the key tiles' order and two calls still give the same bits.  Each form,
 // masked or not, has a dropout instantiation (kDrop), which regenerates
-// the forward's keep bits (flash_attention_tc.cuh).
+// the forward's keep bits (flash_attention_tc.cuh), and quantized ones
+// (kQuant: K and V as one-byte codes with token scales or channel codes;
+// flash_attention_bwd.cuh), the _kvq C entries of a library of their own
+// (flash_attention_bwd_kvq.cu builds this file with TF_KVQ).
 //
 // What bounds it: operations (five L^2 * D products, 4.3e10 useful flops at
 // B4 H8 L2048 d64 causal, against ~50 MB of traffic).  In bf16 the dQ adds
@@ -61,39 +64,83 @@ namespace {
 
 // Two blocks an SM (as the dK/dV pass: without the bound ptxas caps d = 32
 // at 168 registers and spills).
-template <int D, bool kMask, bool kDrop>
+template <int D, bool kMask, bool kDrop, int kQuant>
 __global__ void __launch_bounds__(kTcThreads, 2)
-flash_attention_bwd_tc_kernel(const BwdParamsOf<kMask, kDrop> p) {
-  kv_outer_tc_body<D, true, kMask, kDrop>(p);
+flash_attention_bwd_tc_kernel(const BwdParamsOf<kMask, kDrop, kQuant> p) {
+  kv_outer_tc_body<D, true, kMask, kDrop, kQuant>(p);
 }
 
 // The fp32 form: kv_outer_x6_body with dQ (flash_attention_bwd.cuh), one
 // block an SM.
-template <int D, bool kMask, bool kDrop>
+template <int D, bool kMask, bool kDrop, int kQuant>
 __global__ void __launch_bounds__(kTcThreads)
-flash_attention_bwd_x6_kernel(const BwdParamsOf<kMask, kDrop> p) {
-  kv_outer_x6_body<D, true, kMask, kDrop>(p);
+flash_attention_bwd_x6_kernel(const BwdParamsOf<kMask, kDrop, kQuant> p) {
+  kv_outer_x6_body<D, true, kMask, kDrop, kQuant>(p, kvq_of(p));
 }
 
-template <int D, bool kMask, bool kDrop>
-cudaError_t launch_form(const BwdParamsOf<kMask, kDrop>& p, bool x6,
+// Its quantized forms, a kernel of their own bounded to two blocks an SM
+// (the shared memory allows one): without the bound ptxas holds 96-168
+// registers and spills, and the bound on the forms without quantization
+// would move their registers.
+template <int D, bool kMask, bool kDrop, int kQuant>
+__global__ void __launch_bounds__(kTcThreads, 2)
+flash_attention_bwd_kvq_x6_kernel(
+    const BwdParamsOf<kMask, kDrop, kQuant> p) {
+  kv_outer_x6_body<D, true, kMask, kDrop, kQuant>(p, kvq_of(p));
+}
+
+template <int D, bool kMask, bool kDrop, int kQuant>
+cudaError_t launch_form(const BwdParamsOf<kMask, kDrop, kQuant>& p, bool x6,
                         cudaStream_t stream) {
-  return x6 ? launch_kv_outer_x6<D, true, kMask, kDrop>(
-                  flash_attention_bwd_x6_kernel<D, kMask, kDrop>, p, stream)
-            : launch_kv_outer_tc<D, true, kMask, kDrop>(
-                  flash_attention_bwd_tc_kernel<D, kMask, kDrop>, p, stream);
+  if (!x6)
+    return launch_kv_outer_tc<D, true, kMask, kDrop, kQuant>(
+        flash_attention_bwd_tc_kernel<D, kMask, kDrop, kQuant>, p, stream);
+  if constexpr (kQuant != kKvNone)
+    return launch_kv_outer_x6<D, true, kMask, kDrop, kQuant>(
+        flash_attention_bwd_kvq_x6_kernel<D, kMask, kDrop, kQuant>, p,
+        stream);
+  else
+    return launch_kv_outer_x6<D, true, kMask, kDrop, kQuant>(
+        flash_attention_bwd_x6_kernel<D, kMask, kDrop, kQuant>, p, stream);
 }
 
 template <typename Prm>
 cudaError_t launch_d(const Prm& p, int d, bool x6, cudaStream_t stream) {
   constexpr bool kMask = kMaskOf<Prm>, kDrop = kDropOf<Prm>;
+  constexpr int kQuant = kQuantOf<Prm>;
   switch (d) {
-    case 16: return launch_form<16, kMask, kDrop>(p, x6, stream);
-    case 32: return launch_form<32, kMask, kDrop>(p, x6, stream);
-    case 64: return launch_form<64, kMask, kDrop>(p, x6, stream);
-    case 128: return launch_form<128, kMask, kDrop>(p, x6, stream);
+    case 16: return launch_form<16, kMask, kDrop, kQuant>(p, x6, stream);
+    case 32: return launch_form<32, kMask, kDrop, kQuant>(p, x6, stream);
+    case 64: return launch_form<64, kMask, kDrop, kQuant>(p, x6, stream);
+    case 128: return launch_form<128, kMask, kDrop, kQuant>(p, x6, stream);
   }
   return cudaErrorInvalidValue;
+}
+
+// The checks every entry makes, then the launch of the call's form
+// (kQuant: kKvNone in the library without quantization, TF_KVQ's in a
+// kvq library).
+template <int kQuant>
+int bwd_entry(bool x6, const void* q, const void* k, const void* v,
+              const void* dout, const float* lse, const float* delta,
+              float* dq, int* dq_order, void* dk, void* dv, int B, int H,
+              int Hkv, int Lq, int Lk, int d, int dtype, int causal,
+              int q_offset, float scale, float scale2, int window,
+              const int* seg, const DropCall& drop, const KvqCall& kvq,
+              cudaStream_t st) {
+  if (dtype != (x6 ? 0 : 1) ||
+      !bwd_args_ok(dtype, H, Hkv, d, (long long)B * Hkv) ||
+      !mask_args_ok(window, causal, seg, Lq, Lk) ||
+      !kvq_args_ok(kQuant, kvq))
+    return cudaErrorInvalidValue;
+  if (B == 0 || H == 0 || Lk == 0) return cudaSuccess;
+  const BwdParams p{q,  k,  v,        dout,        lse,   delta,
+                    dq, dk, dv,       B,           H,     Hkv,
+                    Lq, Lk, q_offset, causal != 0, scale, scale2,
+                    dq_order};
+  return launch_form_of<kQuant>(
+      p, window, seg, drop, kvq,
+      [&](const auto& prm) { return launch_d(prm, d, x6, st); });
 }
 
 }  // namespace
@@ -106,31 +153,42 @@ extern "C" {
 // form's query tile: 64 rows, and 32 in fp32 at d = 128.  window and seg
 // (the masked form), seed, threshold and keep_scale (the dropout form) as
 // the forward's entries take them.
-#define TF_BWD_ENTRY(symbol, x6)                                               \
-  int symbol(const void* q, const void* k, const void* v, const void* dout,   \
-             const float* lse, const float* delta, float* dq, int* dq_order,  \
-             void* dk, void* dv, int B, int H, int Hkv, int Lq, int Lk,       \
-             int d, int dtype, int causal, int q_offset, float scale,         \
-             float scale2, int window, const int* seg, const int* seed,       \
-             unsigned threshold, float keep_scale, void* stream) {            \
-    if (dtype != (x6 ? 0 : 1) ||                                              \
-        !bwd_args_ok(dtype, H, Hkv, d, (long long)B * Hkv) ||                 \
-        !mask_args_ok(window, causal, seg, Lq, Lk))                           \
-      return cudaErrorInvalidValue;                                           \
-    if (B == 0 || H == 0 || Lk == 0) return cudaSuccess;                      \
-    const BwdParams p{q,  k,  v,        dout,        lse,   delta,            \
-                      dq, dk, dv,       B,           H,     Hkv,              \
-                      Lq, Lk, q_offset, causal != 0, scale, scale2,           \
-                      dq_order};                                              \
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);               \
-    return launch_form_of(p, window, seg,                                     \
-                          DropCall{seed, threshold, keep_scale},              \
-                          [&](const auto& prm) {                              \
-                            return launch_d(prm, d, x6, st);                  \
-                          });                                                 \
+#define TF_BWD_ARGS                                                          \
+  const void *q, const void *k, const void *v, const void *dout,            \
+      const float *lse, const float *delta, float *dq, int *dq_order,       \
+      void *dk, void *dv, int B, int H, int Hkv, int Lq, int Lk, int d,     \
+      int dtype, int causal, int q_offset, float scale, float scale2,       \
+      int window, const int *seg, const int *seed, unsigned threshold,      \
+      float keep_scale
+#define TF_BWD_CALL                                                          \
+  q, k, v, dout, lse, delta, dq, dq_order, dk, dv, B, H, Hkv, Lq, Lk, d,    \
+      dtype, causal, q_offset, scale, scale2, window, seg,                  \
+      DropCall{seed, threshold, keep_scale}
+
+#ifndef TF_KVQ
+#define TF_BWD_ENTRY(symbol, x6)                                             \
+  int symbol(TF_BWD_ARGS, void* stream) {                                   \
+    return bwd_entry<kKvNone>(x6, TF_BWD_CALL, KvqCall{},                   \
+                            static_cast<cudaStream_t>(stream));             \
   }
 
 TF_BWD_ENTRY(tf_flash_attention_bwd_tc, false)
 TF_BWD_ENTRY(tf_flash_attention_bwd_x6, true)
+#else
+// The quantized forms of TF_KVQ's granularity (flash_attention_bwd_kvq.cu,
+// token: k_scale and v_scale fp32 [B, Hkv, Lk]; flash_attention_bwd_kvqc.cu,
+// channel codes: both null): k and v int8 or e4m3 codes (fp8 != 0); dtype
+// as above is q's, dout's, dk's and dv's.
+#define TF_BWD_KVQ_ENTRY(symbol, x6)                                         \
+  int symbol(TF_BWD_ARGS, const float* k_scale, const float* v_scale,       \
+             int fp8, void* stream) {                                       \
+    return bwd_entry<TF_KVQ>(x6, TF_BWD_CALL,                               \
+                           KvqCall{k_scale, v_scale, fp8},                  \
+                           static_cast<cudaStream_t>(stream));              \
+  }
+
+TF_BWD_KVQ_ENTRY(tf_flash_attention_bwd_tc_kvq, false)
+TF_BWD_KVQ_ENTRY(tf_flash_attention_bwd_x6_kvq, true)
+#endif
 
 }  // extern "C"

@@ -26,7 +26,14 @@
 // without kMask): P^T is held transposed, keys by query rows, so the keep
 // bit of element (key, row) is the hash of (row, key), the forward's; dP^T
 // is scaled by it before D is taken off, and dV takes P^T keep / (1 -
-// rate), as _bwd_finish (:1093-1105) does.
+// rate), as _bwd_finish (:1093-1105) does.  And each has quantized
+// instantiations (kQuant, flash_attention_tc.cuh): the block's K and V
+// codes arrive once and are turned into its bf16 tiles (the fp32 body: one
+// plane each), token scales multiply S^T and dP^T by key in registers
+// (_bwd_s2_dp, :1014-1066), and the fused pass's dQ takes dS^T times K's
+// scales (:1370-1382); dK and dV are formed as without quantization
+// (straight-through).  In the fp32 body a product with codes as an operand
+// takes three bf16 products (S^T, dP^T, dQ), dK and dV six.
 //
 // kernels/common.py hashes every .cuh into each library's name, so an edit
 // here rebuilds every kernel that includes it.
@@ -67,12 +74,15 @@ struct MaskedBwdParams : BwdParams {
   const int* seg;      // [B, L] segment ids, or null
 };
 
-// The parameters of a form: masked or not, with dropout's or without
-// (flash_attention_tc.cuh).
-template <bool kMask, bool kDrop = false>
-using BwdParamsOf = std::conditional_t<
-    kDrop, Dropped<std::conditional_t<kMask, MaskedBwdParams, BwdParams>>,
-    std::conditional_t<kMask, MaskedBwdParams, BwdParams>>;
+// The parameters of a form: masked or not, with dropout's or without,
+// with quantized K/V or without (flash_attention_tc.cuh).
+template <bool kMask, bool kDrop = false, int kQuant = kKvNone>
+using BwdParamsOf = QuantOf<
+    std::conditional_t<
+        kDrop,
+        Dropped<std::conditional_t<kMask, MaskedBwdParams, BwdParams>>,
+        std::conditional_t<kMask, MaskedBwdParams, BwdParams>>,
+    kQuant>;
 
 // The KV-outer bodies' query tiles of kTile rows from q_start, to the last
 // row that sees the block's keys from k0 (the masked forms: the band's
@@ -241,11 +251,24 @@ __host__ __device__ constexpr int kv_tc_stage_bytes() {
   return 3 * TcShape<D>::kTileBytes + 2 * kTcTile * 4;
 }
 
-template <int D, bool kDQ>
+template <int D, bool kDQ, int kQuant = kKvNone>
 __host__ __device__ constexpr int kv_outer_tc_smem_bytes() {
+  // k and v; the stages; with dQ the tile's dS^T; with token scales the
+  // block's keys' k and v scales
   return 2 * TcShape<D>::kTileBytes +
          TcShape<D>::kStages * kv_tc_stage_bytes<D>() +
-         (kDQ ? kTcBlock * kDsTPitch * 2 : 0);
+         (kDQ ? kTcBlock * kDsTPitch * 2 : 0) +
+         (kQuant == kKvToken ? 2 * kTcBlock * 4 : 0);
+}
+
+// The token scales of a KV-outer body's two keys of this thread (rows
+// lane / 4 and lane / 4 + 8 of the warp's 16), read afresh from the
+// block's scales sc [64].
+__device__ __forceinline__ void key_scales(float (&x)[2],
+                                           const volatile float* sc,
+                                           int warp, int lane) {
+  x[0] = sc[warp * 16 + (lane >> 2)];
+  x[1] = sc[warp * 16 + (lane >> 2) + 8];
 }
 
 // A warp's dS^T accumulators over N query rows (zeros where c is null) as
@@ -263,10 +286,29 @@ __device__ __forceinline__ void store_ds_t(bf16* dst, const float (*c)[4],
           c ? bf16_pair_rn(c[j][2 * h], c[j][2 * h + 1]) : 0u;
 }
 
-template <int D, bool kDQ, bool kMask, bool kDrop>
+// store_ds_t of dS^T times its keys' k scales x (each product rounded to
+// fp32, then to bf16): the dQ operand of the token-scaled forms.
+template <int N>
+__device__ __forceinline__ void store_ds_t_scaled(bf16* dst,
+                                                  const float (*c)[4],
+                                                  const float (&x)[2],
+                                                  int row0, int col0,
+                                                  int lane) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(
+          dst + (row0 + (lane >> 2) + 8 * h) * kDsTPitch + col0 + 8 * j +
+          2 * (lane & 3)) = bf16_pair_rn(__fmul_rn(c[j][2 * h], x[h]),
+                                         __fmul_rn(c[j][2 * h + 1], x[h]));
+}
+
+template <int D, bool kDQ, bool kMask, bool kDrop, int kQuant>
 __device__ __forceinline__ void kv_outer_tc_body(
-    const BwdParamsOf<kMask, kDrop>& p) {
+    const BwdParamsOf<kMask, kDrop, kQuant>& p) {
   using S = TcShape<D>;
+  constexpr bool kQ = kQuant != kKvNone;
   // query rows of S^T a warp holds at once: with dQ, 32 (at 64, d = 64
   // spills); the dropout forms at d = 128 16, or they spill
   constexpr int P = S::P, kStages = S::kStages;
@@ -286,6 +328,11 @@ __device__ __forceinline__ void kv_outer_tc_body(
   };
   // kDQ: the tile's dS^T [64 keys][kDsTPitch]
   bf16* dst = reinterpret_cast<bf16*>(ring + kStages * kv_tc_stage_bytes<D>());
+  // kKvToken: the block's keys' k scales, then v scales [64], after dS^T
+  [[maybe_unused]] float* kvs = reinterpret_cast<float*>(
+      ring + kStages * kv_tc_stage_bytes<D>() +
+      (kDQ ? kTcBlock * kDsTPitch * 2 : 0));
+  [[maybe_unused]] const volatile float* kvs_v = kvs;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int tile = blockIdx.y;
@@ -307,7 +354,7 @@ __device__ __forceinline__ void kv_outer_tc_body(
   [[maybe_unused]] const volatile MaskSmem* ms = nullptr;
   if constexpr (kMask)
     ms = mask_setup(reinterpret_cast<char*>(tc_smem) +
-                        kv_outer_tc_smem_bytes<D, kDQ>(),
+                        kv_outer_tc_smem_bytes<D, kDQ, kQuant>(),
                     p.seg, b, p.Lk, k0, tid);
   // kDrop: the hash's terms of the block's keys after the mask's view (the
   // batch's and head's terms are taken afresh each step: the head changes
@@ -315,12 +362,25 @@ __device__ __forceinline__ void kv_outer_tc_body(
   [[maybe_unused]] volatile DropSmem* ds = nullptr;
   if constexpr (kDrop)
     ds = drop_setup(reinterpret_cast<char*>(tc_smem) +
-                        kv_outer_tc_smem_bytes<D, kDQ>() +
+                        kv_outer_tc_smem_bytes<D, kDQ, kQuant>() +
                         (kMask ? kMaskSmemBytes : 0),
                     kDropCol, 0u, k0, tid);
 
-  load_tile<D>(ks, p.k, kv_rows, k0, p.Lk, tid);
-  load_tile<D>(vs, p.v, kv_rows, k0, p.Lk, tid);
+  // kQ: the block's codes land in the ring's last stage, which the loop
+  // fills first, and its token scales in kvs
+  [[maybe_unused]] uint8_t* codes = reinterpret_cast<uint8_t*>(
+      ring + (kStages - 1) * kv_tc_stage_bytes<D>());
+  if constexpr (kQ) {
+    load_codes<D, kTcBlock>(codes, p.k, kv_rows, k0, p.Lk, tid);
+    load_codes<D, kTcBlock>(codes + kTcBlock * D, p.v, kv_rows, k0, p.Lk,
+                            tid);
+    if constexpr (kQuant == kKvToken)
+      load_kv_scales<kTcBlock>(kvs, kvs + kTcBlock, p.k_scale, p.v_scale,
+                               kv_rows, k0, p.Lk, tid);
+  } else {
+    load_tile<D>(ks, p.k, kv_rows, k0, p.Lk, tid);
+    load_tile<D>(vs, p.v, kv_rows, k0, p.Lk, tid);
+  }
   cp_async_commit();
 
   // tile it: query rows from tile_i0(it) of head tile_head(it) of the
@@ -364,6 +424,11 @@ __device__ __forceinline__ void kv_outer_tc_body(
   }
   cp_async_wait<kStages - 2>();   // k, v and the first tile
   if (tiles > 0) convert(0, 0);
+  if constexpr (kQ) {   // the codes into k and v in bf16
+    __syncthreads();
+    convert_codes<D, kTcBlock>(ks, codes, p.fp8, tid);
+    convert_codes<D, kTcBlock>(vs, codes + kTcBlock * D, p.fp8, tid);
+  }
   __syncthreads();
 
   uint32_t ka[S::kRegs ? D / 16 : 1][4], va[S::kRegs ? D / 16 : 1][4];
@@ -445,6 +510,13 @@ __device__ __forceinline__ void kv_outer_tc_body(
           mma_bf16(dp[2 * n2 + 1], av, bo + 2);
         }
       }
+      if constexpr (kQuant == kKvToken) {   // by key: S^T ks, dP^T vs
+        float x[2];
+        key_scales(x, kvs_v, warp, lane);
+        scale_rows<NQ>(s, x);
+        key_scales(x, kvs_v + kTcBlock, warp, lane);
+        scale_rows<NQ>(dp, x);
+      }
       // P^T and dS^T in place; column c is query row i0 + c
       if constexpr (kMask)
         if (!full) mask_scores_t<NQ>(s, p, ms, r0, kw, warp, lane);
@@ -478,7 +550,15 @@ __device__ __forceinline__ void kv_outer_tc_body(
           }
         }
       }
-      if constexpr (kDQ) store_ds_t<NQ>(dst, dp, warp * 16, sub, lane);
+      if constexpr (kDQ) {
+        if constexpr (kQuant == kKvToken) {   // dQ's operand: dS^T ks
+          float x[2];
+          key_scales(x, kvs_v, warp, lane);
+          store_ds_t_scaled<NQ>(dst, dp, x, warp * 16, sub, lane);
+        } else {
+          store_ds_t<NQ>(dst, dp, warp * 16, sub, lane);
+        }
+      }
       // dV += P^T dO and dK += dS^T q over the step's query rows
 #pragma unroll
       for (int kk = 0; kk < NQ / 16; ++kk) {
@@ -587,11 +667,12 @@ __device__ __forceinline__ void kv_outer_tc_body(
 
 // Launches kernel<D> over the KV-outer grid of the tensor-core form, key
 // tiles along y.
-template <int D, bool kDQ, bool kMask, bool kDrop, typename Kernel>
+template <int D, bool kDQ, bool kMask, bool kDrop, int kQuant,
+          typename Kernel>
 cudaError_t launch_kv_outer_tc(Kernel kernel,
-                               const BwdParamsOf<kMask, kDrop>& p,
+                               const BwdParamsOf<kMask, kDrop, kQuant>& p,
                                cudaStream_t stream) {
-  constexpr int kSmem = kv_outer_tc_smem_bytes<D, kDQ>() +
+  constexpr int kSmem = kv_outer_tc_smem_bytes<D, kDQ, kQuant>() +
                         (kMask ? kMaskSmemBytes : 0) +
                         (kDrop ? kDropSmemBytes : 0);
   const int tiles = (p.Lk + kTcBlock - 1) / kTcBlock;
@@ -666,20 +747,63 @@ struct BwdX6 {
   static_assert(kSmem <= 232448, "shared memory");
 };
 
+// The quantized fp32 KV-outer forms at d = 128, and the fused channel
+// forms at d = 64, split D over two blocks (grid z): each forms dK and dV
+// of half the columns (D / 4 accumulator registers fewer), both form S^T
+// and dP^T, and the first alone the fused pass's dQ.  With all of D a
+// block, those forms hold 255 registers and spilled 4-92 bytes in each of
+// the 12 layouts tried (the forms without quantization fit 255 with none).
+template <int D, bool kDQ, int kQuant>
+__host__ __device__ constexpr bool x6_split_d() {
+  return kQuant != kKvNone &&
+         (D > 64 || (D == 64 && kDQ && kQuant == kKvChannel));
+}
+
+// A warp's [16, N] fp32 accumulators times scale into columns c0 .. c0 +
+// N - 1 of rows row0 .. row0 + 15 (after row base) of a [rows, D] array;
+// rows at or past n are skipped.
+template <int D, int N>
+__device__ __forceinline__ void store_cols_f32(void* out, size_t base,
+                                               int row0, int n,
+                                               const float (&acc)[N / 8][4],
+                                               float scale, int c0,
+                                               int lane) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + (lane >> 2) + 8 * h;
+    if (r >= n) continue;
+    float* dst = static_cast<float*>(out) + (base + r) * D + c0 +
+                 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+      *reinterpret_cast<float2*>(dst + 8 * j) =
+          make_float2(scale * acc[j][2 * h], scale * acc[j][2 * h + 1]);
+  }
+}
+
 // A warp's dS^T accumulators over N query rows (zeros where c is null),
 // split in three, into its 16 rows of the planes of dS^T [64][kDsP],
-// columns col0 .. col0 + N - 1.
-template <int N, int kDsP>
+// columns col0 .. col0 + N - 1; with kScaled, each of its two rows (keys)
+// times its k scale x[h] first (rounded to fp32: the token-scaled forms'
+// dQ operand).
+template <int N, int kDsP, bool kScaled = false>
 __device__ __forceinline__ void store_ds_t_x6(bf16* dst, int plane,
                                               const float (*c)[4], int row0,
-                                              int col0, int lane) {
+                                              int col0, int lane,
+                                              const float* x = nullptr) {
 #pragma unroll
   for (int j = 0; j < N / 8; ++j)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       uint32_t pieces[3] = {0u, 0u, 0u};
-      if (c) split3_pair(c[j][2 * h], c[j][2 * h + 1], pieces[0], pieces[1],
-                         pieces[2]);
+      if constexpr (kScaled) {
+        if (c) split3_pair(__fmul_rn(c[j][2 * h], x[h]),
+                           __fmul_rn(c[j][2 * h + 1], x[h]), pieces[0],
+                           pieces[1], pieces[2]);
+      } else {
+        if (c) split3_pair(c[j][2 * h], c[j][2 * h + 1], pieces[0],
+                           pieces[1], pieces[2]);
+      }
       bf16* at = dst + (row0 + (lane >> 2) + 8 * h) * kDsP + col0 + 8 * j +
                  2 * (lane & 3);
 #pragma unroll
@@ -690,13 +814,25 @@ __device__ __forceinline__ void store_ds_t_x6(bf16* dst, int plane,
 
 // p by value: ptxas then allocates the fused kernel's registers without a
 // spill (taken by reference, it spilled 8 bytes at d = 64 and 4 at 32).
-template <int D, bool kDQ, bool kMask, bool kDrop>
+// The quantized forms take the same p (the kernel's parameters less the
+// quantization's) and the quantization apart, q, whose fields are read
+// before the walk only (in p, 20 more bytes held across it spilled).
+// They hold K's and V's codes as one plane each (a code is one exact
+// bf16), three bf16 products a product with codes; some forms split D
+// over two blocks (x6_split_d).
+template <int D, bool kDQ, bool kMask, bool kDrop, int kQuant>
 __device__ __forceinline__ void kv_outer_x6_body(
-    const BwdParamsOf<kMask, kDrop> p) {
+    const BwdParamsOf<kMask, kDrop> p, const KvqCall q) {
   using X = BwdX6<D, kDQ>;
-  // the fused dropout form at d = 64 holds 16 query rows of S^T a step,
-  // not 32: the form without dropout already holds 255 registers
-  constexpr int kQT = X::kQT, NQ = kDrop && D <= 64 && kDQ ? 16 : X::NQ;
+  constexpr bool kQ = kQuant != kKvNone;
+  // the columns of dK and dV this block forms (x6_split_d)
+  constexpr bool kSplitD = x6_split_d<D, kDQ, kQuant>();
+  constexpr int DC = kSplitD ? D / 2 : D;
+  [[maybe_unused]] const int c0 = kSplitD ? blockIdx.z * DC : 0;
+  // the fused dropout and quantized forms at d = 64 hold 16 query rows of
+  // S^T a step, not 32: the form without either holds 255 registers
+  constexpr int kQT = X::kQT,
+                NQ = (kDrop || kQ) && D <= 64 && kDQ ? 16 : X::NQ;
   constexpr int kUnrollSteps = D <= 64 ? kQT / NQ : 1;
   constexpr int F = X::F;
   constexpr int kKPlane = X::kKPlane, kQPlane = X::kQPlane;
@@ -712,6 +848,10 @@ __device__ __forceinline__ void kv_outer_x6_body(
   float* lst = ost + kQT * F;                    // lse, then D [kQT]
   float* cur = reinterpret_cast<float*>(sm + X::kCurOff);  // lse2, then D
   float* kvst = reinterpret_cast<float*>(sm + X::kQdOff);  // k, v [64][F]
+  // kQ: k's and v's codes arrive at kvst and become one plane each (the
+  // first); kKvToken: the block's keys' k and v scales [64] in k's second
+  [[maybe_unused]] float* kvs = reinterpret_cast<float*>(kpl + kKPlane);
+  [[maybe_unused]] const volatile float* kvs_v = kvs;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int tile = blockIdx.y;
@@ -773,24 +913,39 @@ __device__ __forceinline__ void kv_outer_x6_body(
   };
 
   // k, v and the first tile
-  load_tile_f32<D, kTcBlock>(kvst, p.k, kv_rows, k0, p.Lk, tid);
-  load_tile_f32<D, kTcBlock>(kvst + kTcBlock * F, p.v, kv_rows, k0, p.Lk,
-                             tid);
+  if constexpr (kQ) {
+    uint8_t* c = reinterpret_cast<uint8_t*>(kvst);
+    load_codes<D, kTcBlock>(c, p.k, kv_rows, k0, p.Lk, tid);
+    load_codes<D, kTcBlock>(c + kTcBlock * D, p.v, kv_rows, k0, p.Lk, tid);
+    if constexpr (kQuant == kKvToken)
+      load_kv_scales<kTcBlock>(kvs, kvs + kTcBlock, q.k_scale, q.v_scale,
+                               kv_rows, k0, p.Lk, tid);
+  } else {
+    load_tile_f32<D, kTcBlock>(kvst, p.k, kv_rows, k0, p.Lk, tid);
+    load_tile_f32<D, kTcBlock>(kvst + kTcBlock * F, p.v, kv_rows, k0, p.Lk,
+                               tid);
+  }
   if (tiles > 0) load_stage(0);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  split_tile<D, kTcBlock>(kpl, kKPlane, kvst, 1.f, tid);
-  split_tile<D, kTcBlock>(vpl, kKPlane, kvst + kTcBlock * F, 1.f, tid);
+  if constexpr (kQ) {
+    const uint8_t* c = reinterpret_cast<const uint8_t*>(kvst);
+    convert_codes<D, kTcBlock>(kpl, c, q.fp8, tid);
+    convert_codes<D, kTcBlock>(vpl, c + kTcBlock * D, q.fp8, tid);
+  } else {
+    split_tile<D, kTcBlock>(kpl, kKPlane, kvst, 1.f, tid);
+    split_tile<D, kTcBlock>(vpl, kKPlane, kvst + kTcBlock * F, 1.f, tid);
+  }
   __syncthreads();   // k and v in fp32 read before their space is reused
   if (tiles > 0) split_stage(0);
   __syncthreads();
   if (tiles > 1) load_stage(1);
   cp_async_commit();
 
-  float dk[D / 8][4], dv[D / 8][4];
+  float dk[DC / 8][4], dv[DC / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DC / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
   // kDQ: this warp's part of a tile's dQ, rows dq_r .., columns dq_c ..
@@ -829,37 +984,75 @@ __device__ __forceinline__ void kv_outer_x6_body(
         for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll (X::kUnroll)
       for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t ka[3][4];
+        if constexpr (kQ) {   // the codes: one plane, three
+                                     // products, each plane of q * scale2
+                                     // read as it is used
+          uint32_t ka[4];
+          a_frag<D>(ka, kpl, warp * 16, kk, lane);
 #pragma unroll
-        for (int pl = 0; pl < 3; ++pl)
-          a_frag<D>(ka[pl], kpl + pl * kKPlane, warp * 16, kk, lane);
+          for (int n2 = 0; n2 < NQ / 16; ++n2)
 #pragma unroll
-        for (int n2 = 0; n2 < NQ / 16; ++n2) {
-          uint32_t bq[3][4];
+            for (int pl = 2; pl >= 0; --pl) {   // lo, mid, hi: mma_x6's
+              uint32_t bq[4];                    // order, its a.mid and
+                                                 // a.lo terms 0
+              b_frags_nk<D>(bq, qpl + pl * kQPlane, sub + 16 * n2, kk, lane);
+              mma_bf16(s[2 * n2], ka, bq);
+              mma_bf16(s[2 * n2 + 1], ka, bq + 2);
+            }
+        } else {
+          uint32_t ka[3][4];
 #pragma unroll
           for (int pl = 0; pl < 3; ++pl)
-            b_frags_nk<D>(bq[pl], qpl + pl * kQPlane, sub + 16 * n2, kk,
-                          lane);
-          mma_x6(s[2 * n2], ka, bq[0], bq[1], bq[2]);
-          mma_x6(s[2 * n2 + 1], ka, bq[0] + 2, bq[1] + 2, bq[2] + 2);
+            a_frag<D>(ka[pl], kpl + pl * kKPlane, warp * 16, kk, lane);
+#pragma unroll
+          for (int n2 = 0; n2 < NQ / 16; ++n2) {
+            uint32_t bq[3][4];
+#pragma unroll
+            for (int pl = 0; pl < 3; ++pl)
+              b_frags_nk<D>(bq[pl], qpl + pl * kQPlane, sub + 16 * n2, kk,
+                            lane);
+            mma_x6(s[2 * n2], ka, bq[0], bq[1], bq[2]);
+            mma_x6(s[2 * n2 + 1], ka, bq[0] + 2, bq[1] + 2, bq[2] + 2);
+          }
         }
       }
 #pragma unroll (X::kUnroll)
       for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t va[3][4];
+        if constexpr (kQ) {
+          uint32_t va[4];
+          a_frag<D>(va, vpl, warp * 16, kk, lane);
 #pragma unroll
-        for (int pl = 0; pl < 3; ++pl)
-          a_frag<D>(va[pl], vpl + pl * kKPlane, warp * 16, kk, lane);
+          for (int n2 = 0; n2 < NQ / 16; ++n2)
 #pragma unroll
-        for (int n2 = 0; n2 < NQ / 16; ++n2) {
-          uint32_t bo[3][4];
+            for (int pl = 2; pl >= 0; --pl) {
+              uint32_t bo[4];
+              b_frags_nk<D>(bo, opl + pl * kQPlane, sub + 16 * n2, kk, lane);
+              mma_bf16(dp[2 * n2], va, bo);
+              mma_bf16(dp[2 * n2 + 1], va, bo + 2);
+            }
+        } else {
+          uint32_t va[3][4];
 #pragma unroll
           for (int pl = 0; pl < 3; ++pl)
-            b_frags_nk<D>(bo[pl], opl + pl * kQPlane, sub + 16 * n2, kk,
-                          lane);
-          mma_x6(dp[2 * n2], va, bo[0], bo[1], bo[2]);
-          mma_x6(dp[2 * n2 + 1], va, bo[0] + 2, bo[1] + 2, bo[2] + 2);
+            a_frag<D>(va[pl], vpl + pl * kKPlane, warp * 16, kk, lane);
+#pragma unroll
+          for (int n2 = 0; n2 < NQ / 16; ++n2) {
+            uint32_t bo[3][4];
+#pragma unroll
+            for (int pl = 0; pl < 3; ++pl)
+              b_frags_nk<D>(bo[pl], opl + pl * kQPlane, sub + 16 * n2, kk,
+                            lane);
+            mma_x6(dp[2 * n2], va, bo[0], bo[1], bo[2]);
+            mma_x6(dp[2 * n2 + 1], va, bo[0] + 2, bo[1] + 2, bo[2] + 2);
+          }
         }
+      }
+      if constexpr (kQuant == kKvToken) {   // by key: S^T ks, dP^T vs
+        float x[2];
+        key_scales(x, kvs_v, warp, lane);
+        scale_rows<NQ>(s, x);
+        key_scales(x, kvs_v + kTcBlock, warp, lane);
+        scale_rows<NQ>(dp, x);
       }
       // P^T = exp2(S^T - lse2) and dS^T = P^T (dP^T - D) in place, in fp32;
       // column c is query row i0 + c
@@ -904,33 +1097,41 @@ __device__ __forceinline__ void kv_outer_x6_body(
           }
         }
       }
-      if constexpr (kDQ)
-        store_ds_t_x6<NQ, X::kDsP>(dspl, X::kDsPlane, dp, warp * 16, sub,
-                                   lane);
+      if constexpr (kDQ) {
+        if constexpr (kQuant == kKvToken) {   // dQ's operand: dS^T ks
+          float x[2];
+          key_scales(x, kvs_v, warp, lane);
+          store_ds_t_x6<NQ, X::kDsP, true>(dspl, X::kDsPlane, dp, warp * 16,
+                                           sub, lane, x);
+        } else {
+          store_ds_t_x6<NQ, X::kDsP>(dspl, X::kDsPlane, dp, warp * 16, sub,
+                                     lane);
+        }
+      }
       // dV += P^T dO and dK += dS^T (q scale2) over the step's query rows
 #pragma unroll
       for (int kk = 0; kk < NQ / 16; ++kk) {
         uint32_t pa[3][4];
         acc_as_a_x6(pa, s, kk);
 #pragma unroll
-        for (int n2 = 0; n2 < D / 16; ++n2) {
+        for (int n2 = 0; n2 < DC / 16; ++n2) {
           uint32_t bo[3][4];
 #pragma unroll
           for (int pl = 0; pl < 3; ++pl)
-            b_frags_kn<D>(bo[pl], opl + pl * kQPlane, sub + 16 * kk, 16 * n2,
-                          lane);
+            b_frags_kn<D>(bo[pl], opl + pl * kQPlane, sub + 16 * kk,
+                          c0 + 16 * n2, lane);
           mma_x6_add(dv[2 * n2], pa, bo[0], bo[1], bo[2]);
           mma_x6_add(dv[2 * n2 + 1], pa, bo[0] + 2, bo[1] + 2, bo[2] + 2);
         }
         uint32_t da[3][4];
         acc_as_a_x6(da, dp, kk);
 #pragma unroll
-        for (int n2 = 0; n2 < D / 16; ++n2) {
+        for (int n2 = 0; n2 < DC / 16; ++n2) {
           uint32_t bq[3][4];
 #pragma unroll
           for (int pl = 0; pl < 3; ++pl)
-            b_frags_kn<D>(bq[pl], qpl + pl * kQPlane, sub + 16 * kk, 16 * n2,
-                          lane);
+            b_frags_kn<D>(bq[pl], qpl + pl * kQPlane, sub + 16 * kk,
+                          c0 + 16 * n2, lane);
           mma_x6_add(dk[2 * n2], da, bq[0], bq[1], bq[2]);
           mma_x6_add(dk[2 * n2 + 1], da, bq[0] + 2, bq[1] + 2, bq[2] + 2);
         }
@@ -941,7 +1142,10 @@ __device__ __forceinline__ void kv_outer_x6_body(
     // and the block's dQ adds of tile it - 1 were issued before the last
     // barrier)
     __syncthreads();
-    if constexpr (kDQ) {
+    if (kDQ && kSplitD && c0 != 0) {   // D's second half: no dQ
+      if (it + 1 < tiles) split_stage(it + 1);
+      __syncthreads();   // the planes of tile it + 1 written, the stage read
+    } else if constexpr (kDQ) {
       if constexpr (kMask) {
         if (tid == 0 && it > 0)
           store_release(order_of(it - 1),
@@ -968,13 +1172,20 @@ __device__ __forceinline__ void kv_outer_x6_body(
                      lane);
 #pragma unroll
           for (int n2 = 0; n2 < kPiece / 16; ++n2) {
-            uint32_t bk[3][4];
+            if constexpr (kQ) {   // the codes: one plane, three
+              uint32_t bk[4];              // products
+              b_frags_kn<D>(bk, kpl, 16 * kk, dq_c + n0 + 16 * n2, lane);
+              mma_x3(dq[2 * n2], da, bk);
+              mma_x3(dq[2 * n2 + 1], da, bk + 2);
+            } else {
+              uint32_t bk[3][4];
 #pragma unroll
-            for (int pl = 0; pl < 3; ++pl)
-              b_frags_kn<D>(bk[pl], kpl + pl * kKPlane, 16 * kk,
-                            dq_c + n0 + 16 * n2, lane);
-            mma_x6(dq[2 * n2], da, bk[0], bk[1], bk[2]);
-            mma_x6(dq[2 * n2 + 1], da, bk[0] + 2, bk[1] + 2, bk[2] + 2);
+              for (int pl = 0; pl < 3; ++pl)
+                b_frags_kn<D>(bk[pl], kpl + pl * kKPlane, 16 * kk,
+                              dq_c + n0 + 16 * n2, lane);
+              mma_x6(dq[2 * n2], da, bk[0], bk[1], bk[2]);
+              mma_x6(dq[2 * n2 + 1], da, bk[0] + 2, bk[1] + 2, bk[2] + 2);
+            }
           }
         }
       };
@@ -1022,24 +1233,34 @@ __device__ __forceinline__ void kv_outer_x6_body(
   }
 
   if constexpr (kDQ) {
-    __syncthreads();   // the last adds are issued before the release
-    if constexpr (kMask) {
-      if (tid == 0 && tiles > 0)
-        store_release(order_of(tiles - 1),
-                      dq_turn(p, tile, tile_i0(tiles - 1)) + 1);
-    } else {
-      if (tid == 0 && tiles > 0) store_release(order_of(tiles - 1), tile + 1);
+    if (!kSplitD || c0 == 0) {
+      __syncthreads();   // the last adds are issued before the release
+      if constexpr (kMask) {
+        if (tid == 0 && tiles > 0)
+          store_release(order_of(tiles - 1),
+                        dq_turn(p, tile, tile_i0(tiles - 1)) + 1);
+      } else {
+        if (tid == 0 && tiles > 0)
+          store_release(order_of(tiles - 1), tile + 1);
+      }
     }
   }
-  store_rows_f32<D>(p.dk, kv_rows, kw, p.Lk, dk, p.scale / p.scale2, lane);
-  store_rows_f32<D>(p.dv, kv_rows, kw, p.Lk, dv, 1.f, lane);
+  if constexpr (kSplitD) {
+    store_cols_f32<D, DC>(p.dk, kv_rows, kw, p.Lk, dk, p.scale / p.scale2,
+                          c0, lane);
+    store_cols_f32<D, DC>(p.dv, kv_rows, kw, p.Lk, dv, 1.f, c0, lane);
+  } else {
+    store_rows_f32<D>(p.dk, kv_rows, kw, p.Lk, dk, p.scale / p.scale2, lane);
+    store_rows_f32<D>(p.dv, kv_rows, kw, p.Lk, dv, 1.f, lane);
+  }
 }
 
 // Launches kernel<D> over the KV-outer grid of the six-product form, key
 // tiles along y.
-template <int D, bool kDQ, bool kMask, bool kDrop, typename Kernel>
+template <int D, bool kDQ, bool kMask, bool kDrop, int kQuant,
+          typename Kernel>
 cudaError_t launch_kv_outer_x6(Kernel kernel,
-                               const BwdParamsOf<kMask, kDrop>& p,
+                               const BwdParamsOf<kMask, kDrop, kQuant>& p,
                                cudaStream_t stream) {
   constexpr int kSmem = BwdX6<D, kDQ>::kSmem +
                         (kMask ? kMaskSmemBytes : 0) +
@@ -1049,7 +1270,7 @@ cudaError_t launch_kv_outer_x6(Kernel kernel,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(p.B * p.Hkv, tiles);
+  const dim3 grid(p.B * p.Hkv, tiles, x6_split_d<D, kDQ, kQuant>() ? 2 : 1);
   kernel<<<grid, kTcThreads, kSmem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -1093,24 +1314,28 @@ struct DropCall {
   float keep_scale;
 };
 
-// launch<kMask, kDrop>(params) for the call's form: masked where it has a
-// window or segment ids, with dropout where it has a seed.
-template <typename Launch>
+// launch(params) for the call's form: masked where it has a window or
+// segment ids, with dropout where it has a seed, quantized as kQuant says.
+template <int kQuant, typename Launch>
 __host__ inline cudaError_t launch_form_of(const BwdParams& p, int window,
                                            const int* seg,
                                            const DropCall& drop,
+                                           const KvqCall& kvq,
                                            Launch launch) {
   if (window > 0 || seg) {
     const MaskedBwdParams mp = masked(p, window, seg);
     if (drop.seed)
-      return launch(Dropped<MaskedBwdParams>{mp, drop.seed, drop.threshold,
-                                             drop.keep_scale});
-    return launch(mp);
+      return launch(quantized<kQuant>(
+          Dropped<MaskedBwdParams>{mp, drop.seed, drop.threshold,
+                                   drop.keep_scale},
+          kvq));
+    return launch(quantized<kQuant>(mp, kvq));
   }
   if (drop.seed)
-    return launch(
-        Dropped<BwdParams>{p, drop.seed, drop.threshold, drop.keep_scale});
-  return launch(p);
+    return launch(quantized<kQuant>(
+        Dropped<BwdParams>{p, drop.seed, drop.threshold, drop.keep_scale},
+        kvq));
+  return launch(quantized<kQuant>(p, kvq));
 }
 
 }  // namespace

@@ -57,7 +57,14 @@
 // pass's key loop starts at the band's first tile.  Each form, masked or
 // not, has a dropout instantiation (kDrop, flash_attention_tc.cuh),
 // launched for a call with a seed: dP is scaled by the forward's keep bits
-// before D is taken off, and dV takes P keep / (1 - rate).
+// before D is taken off, and dV takes P keep / (1 - rate).  And each has
+// quantized instantiations (kQuant, flash_attention_tc.cuh), the _kvq C
+// entries of a library of their own (flash_attention_bwd_two_pass_kvq.cu
+// builds this file with TF_KVQ): the dK/dV pass is the KV-outer body's
+// (flash_attention_bwd.cuh); the dQ pass takes its K and V tiles as codes
+// through its stages and turns each into bf16 (one plane each in fp32),
+// token scales multiply S and dP by key and dS before dQ (_bwd_dq_kernel,
+// :1180-1210), and in fp32 each product with codes takes three products.
 //
 // C entries launch on the given stream, allocate nothing and return
 // cudaGetLastError() (or cudaErrorInvalidValue for a shape or dtype they do
@@ -87,29 +94,42 @@ namespace {
 // so the low tiles, which see the most query rows, start first.  Two blocks
 // an SM: without the bound, ptxas caps d = 32 at 168 registers
 // (three blocks) and spills.
-template <int D, bool kMask, bool kDrop>
+template <int D, bool kMask, bool kDrop, int kQuant>
 __global__ void __launch_bounds__(kTcThreads, 2)
-flash_attention_bwd_dkv_tc_kernel(const BwdParamsOf<kMask, kDrop> p) {
-  kv_outer_tc_body<D, false, kMask, kDrop>(p);
+flash_attention_bwd_dkv_tc_kernel(
+    const BwdParamsOf<kMask, kDrop, kQuant> p) {
+  kv_outer_tc_body<D, false, kMask, kDrop, kQuant>(p);
 }
 
-template <int D>
+template <int D, int kQuant = kKvNone>
 __host__ __device__ constexpr int dq_tc_smem_bytes() {
-  // q * scale2 and dO of the block's rows; k and v tiles a stage
-  return (2 + 2 * TcShape<D>::kStages) * TcShape<D>::kTileBytes;
+  // q * scale2 and dO of the block's rows; k and v tiles a stage (quantized:
+  // the tile's k and v in bf16, then their codes and scales a stage)
+  if constexpr (kQuant == kKvNone)
+    return (2 + 2 * TcShape<D>::kStages) * TcShape<D>::kTileBytes;
+  else
+    return 4 * TcShape<D>::kTileBytes +
+           TcShape<D>::kStages * kv_code_stage_bytes<D, kTcTile>();
 }
 
 // dQ: one block per (batch * head, tile of 64 query rows); heavy tiles (more
 // keys under the causal mask) first.
-template <int D, bool kMask, bool kDrop>
+template <int D, bool kMask, bool kDrop, int kQuant>
 __global__ void __launch_bounds__(kTcThreads)
-flash_attention_bwd_dq_tc_kernel(const BwdParamsOf<kMask, kDrop> p) {
+flash_attention_bwd_dq_tc_kernel(const BwdParamsOf<kMask, kDrop, kQuant> p) {
   using S = TcShape<D>;
   constexpr int P = S::P, kStages = S::kStages, NK = S::kStep;
+  constexpr bool kQ = kQuant != kKvNone;
   extern __shared__ uint4 tc_smem[];
   bf16* qs = reinterpret_cast<bf16*>(tc_smem);   // [64][P] q * scale2
   bf16* os = qs + kTcBlock * P;                   // [64][P] dO
   bf16* ring = os + kTcBlock * P;                 // stage st: k, v [64][P]
+  // kQ: the tile's k and v [64][P] at ring, then stage st's codes and
+  // scales (kv_code_stage_bytes)
+  [[maybe_unused]] auto code_stage = [&](int st) {
+    return reinterpret_cast<uint8_t*>(ring + 2 * kTcTile * P) +
+           st * kv_code_stage_bytes<D, kTcTile>();
+  };
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int row0 = (gridDim.x - 1 - blockIdx.x) * kTcBlock;
@@ -134,12 +154,14 @@ flash_attention_bwd_dq_tc_kernel(const BwdParamsOf<kMask, kDrop> p) {
   const int t0 = band_first_tile<kMask, kTcTile>(p, row0, tiles);
   [[maybe_unused]] const volatile MaskSmem* ms = nullptr;
   if constexpr (kMask)
-    ms = mask_setup(reinterpret_cast<char*>(tc_smem) + dq_tc_smem_bytes<D>(),
+    ms = mask_setup(reinterpret_cast<char*>(tc_smem) +
+                        dq_tc_smem_bytes<D, kQuant>(),
                     p.seg, b, p.Lq, row0, tid);
   // kDrop: the hash's terms of the block's rows after the mask's view
   [[maybe_unused]] volatile DropSmem* ds = nullptr;
   if constexpr (kDrop)
-    ds = drop_setup(reinterpret_cast<char*>(tc_smem) + dq_tc_smem_bytes<D>() +
+    ds = drop_setup(reinterpret_cast<char*>(tc_smem) +
+                        dq_tc_smem_bytes<D, kQuant>() +
                         (kMask ? kMaskSmemBytes : 0),
                     kDropRow, drop_bh(p.seed, b, h), row0, tid);
 
@@ -147,9 +169,21 @@ flash_attention_bwd_dq_tc_kernel(const BwdParamsOf<kMask, kDrop> p) {
   load_tile<D>(os, p.dout, rows, row0, p.Lq, tid);
   cp_async_commit();
   auto load_stage = [&](int st, int t) {
-    bf16* kt = ring + 2 * st * kTcTile * P;
-    load_tile<D>(kt, p.k, kv_rows, t * kTcTile, p.Lk, tid);
-    load_tile<D>(kt + kTcTile * P, p.v, kv_rows, t * kTcTile, p.Lk, tid);
+    if constexpr (kQ) {
+      uint8_t* c = code_stage(st);
+      load_codes<D, kTcTile>(c, p.k, kv_rows, t * kTcTile, p.Lk, tid);
+      load_codes<D, kTcTile>(c + kTcTile * D, p.v, kv_rows, t * kTcTile,
+                             p.Lk, tid);
+      if constexpr (kQuant == kKvToken) {
+        float* sc = reinterpret_cast<float*>(c + 2 * kTcTile * D);
+        load_kv_scales<kTcTile>(sc, sc + kTcTile, p.k_scale, p.v_scale,
+                                kv_rows, t * kTcTile, p.Lk, tid);
+      }
+    } else {
+      bf16* kt = ring + 2 * st * kTcTile * P;
+      load_tile<D>(kt, p.k, kv_rows, t * kTcTile, p.Lk, tid);
+      load_tile<D>(kt + kTcTile * P, p.v, kv_rows, t * kTcTile, p.Lk, tid);
+    }
     cp_async_commit();
   };
 #pragma unroll
@@ -190,6 +224,21 @@ flash_attention_bwd_dq_tc_kernel(const BwdParamsOf<kMask, kDrop> p) {
     else cp_async_commit();
     const bf16* kt = ring + 2 * (u % kStages) * kTcTile * P;
     const bf16* vt = kt + kTcTile * P;
+    // kQuant: the tile's codes into k and v in bf16 (read by every warp
+    // after the barrier), and its token scales
+    [[maybe_unused]] const float* ksc = nullptr;
+    [[maybe_unused]] const float* vsc = nullptr;
+    if constexpr (kQ) {
+      const uint8_t* c = code_stage(u % kStages);
+      convert_codes<D, kTcTile>(ring, c, p.fp8, tid);
+      convert_codes<D, kTcTile>(ring + kTcTile * P, c + kTcTile * D, p.fp8,
+                                tid);
+      ksc = reinterpret_cast<const float*>(c + 2 * kTcTile * D);
+      vsc = ksc + kTcTile;
+      kt = ring;
+      vt = ring + kTcTile * P;
+      __syncthreads();
+    }
 #pragma unroll
     for (int sub = 0; sub < kTcTile; sub += NK) {
       const int kc = t * kTcTile + sub;   // the step's first key
@@ -229,6 +278,10 @@ flash_attention_bwd_dq_tc_kernel(const BwdParamsOf<kMask, kDrop> p) {
           mma_bf16(dp[2 * n2 + 1], ao, bv + 2);
         }
       }
+      if constexpr (kQuant == kKvToken) {   // by key: S ks, dP vs
+        scale_cols<NK>(s, ksc, sub, lane);
+        scale_cols<NK>(dp, vsc, sub, lane);
+      }
       // dS in place of dP; row r is the thread's row lane / 4 + 8 (e / 2)
       if constexpr (kMask)
         if (!full) mask_scores<NK>(s, p, ms, kc, rw, warp, lane);
@@ -255,6 +308,8 @@ flash_attention_bwd_dq_tc_kernel(const BwdParamsOf<kMask, kDrop> p) {
             dp[j][e] = pr * (dp[j][e] - delta[e >> 1]);
           }
         }
+      // token scales: dQ's operand is dS ks
+      if constexpr (kQuant == kKvToken) scale_cols<NK>(dp, ksc, sub, lane);
       // dQ += dS K over the step's keys
 #pragma unroll
       for (int kk = 0; kk < NK / 16; ++kk) {
@@ -276,12 +331,13 @@ flash_attention_bwd_dq_tc_kernel(const BwdParamsOf<kMask, kDrop> p) {
   store_rows<D>(p.dq, rows, rw, p.Lq, dq, p.scale, lane);
 }
 
-template <int D, bool kMask, bool kDrop>
-cudaError_t launch_dq_tc(const BwdParamsOf<kMask, kDrop>& p,
+template <int D, bool kMask, bool kDrop, int kQuant>
+cudaError_t launch_dq_tc(const BwdParamsOf<kMask, kDrop, kQuant>& p,
                          cudaStream_t stream) {
-  constexpr int kSmem = dq_tc_smem_bytes<D>() + (kMask ? kMaskSmemBytes : 0) +
+  constexpr int kSmem = dq_tc_smem_bytes<D, kQuant>() +
+                        (kMask ? kMaskSmemBytes : 0) +
                         (kDrop ? kDropSmemBytes : 0);
-  auto kernel = flash_attention_bwd_dq_tc_kernel<D, kMask, kDrop>;
+  auto kernel = flash_attention_bwd_dq_tc_kernel<D, kMask, kDrop, kQuant>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
@@ -296,10 +352,11 @@ cudaError_t launch_dq_tc(const BwdParamsOf<kMask, kDrop>& p,
 // which the fused kernel runs with dQ): query tiles of 32 rows, 106 KB of
 // shared memory at d = 64, two blocks an SM below d = 128.
 
-template <int D, bool kMask, bool kDrop>
+template <int D, bool kMask, bool kDrop, int kQuant>
 __global__ void __launch_bounds__(kTcThreads, 2)
-flash_attention_bwd_dkv_x6_kernel(const BwdParamsOf<kMask, kDrop> p) {
-  kv_outer_x6_body<D, false, kMask, kDrop>(p);
+flash_attention_bwd_dkv_x6_kernel(
+    const BwdParamsOf<kMask, kDrop, kQuant> p) {
+  kv_outer_x6_body<D, false, kMask, kDrop, kQuant>(p, kvq_of(p));
 }
 
 // The dQ pass is flash_attention_bwd_dq_tc_kernel's mirror with every
@@ -318,6 +375,9 @@ flash_attention_bwd_dkv_x6_kernel(const BwdParamsOf<kMask, kDrop> p) {
 // its keys, so the sums are fresh ones, as an fp32 sum's error grows.
 // Tiles of 32 keys: 98 KB of shared memory at d = 64, two blocks an SM
 // below d = 128 (64 keys would take 142 KB at d = 64 and 276 KB at 128).
+// The quantized forms keep that layout: a tile's codes (and token scales)
+// arrive in the stage and become one plane each of K and V, the scales
+// copied into K's second plane; S, dP and dQ take three products.
 
 template <int D>
 struct DqX6 {
@@ -340,10 +400,11 @@ struct DqX6 {
   static_assert(kSmem <= 232448, "shared memory");
 };
 
-template <int D, bool kMask, bool kDrop>
+template <int D, bool kMask, bool kDrop, int kQuant>
 __global__ void __launch_bounds__(kTcThreads, 2)
-flash_attention_bwd_dq_x6_kernel(const BwdParamsOf<kMask, kDrop> p) {
+flash_attention_bwd_dq_x6_kernel(const BwdParamsOf<kMask, kDrop, kQuant> p) {
   using X = DqX6<D>;
+  constexpr bool kQ = kQuant != kKvNone;
   constexpr int kKT = X::kKT, NK = X::NK, F = X::F;
   constexpr int kQPlane = X::kQPlane, kKPlane = X::kKPlane;
   extern __shared__ uint4 x6_smem[];
@@ -355,6 +416,8 @@ flash_attention_bwd_dq_x6_kernel(const BwdParamsOf<kMask, kDrop> p) {
   float* kst = reinterpret_cast<float*>(sm + X::kStageOff);  // k [kKT][F]
   float* vst = kst + kKT * F;                    // v
   float* qdst = reinterpret_cast<float*>(sm + X::kKvOff);  // q, dO [64][F]
+  // kQ: the tile's token scales (k, then v [kKT]) in K's second plane
+  [[maybe_unused]] float* cur = reinterpret_cast<float*>(kpl + kKPlane);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int row0 = (gridDim.x - 1 - blockIdx.x) * kTcBlock;
@@ -387,12 +450,32 @@ flash_attention_bwd_dq_x6_kernel(const BwdParamsOf<kMask, kDrop> p) {
                     drop_bh(p.seed, b, h), row0, tid);
 
   auto load_stage = [&](int t) {
-    load_tile_f32<D, kKT>(kst, p.k, kv_rows, t * kKT, p.Lk, tid);
-    load_tile_f32<D, kKT>(vst, p.v, kv_rows, t * kKT, p.Lk, tid);
+    if constexpr (kQ) {
+      uint8_t* c = reinterpret_cast<uint8_t*>(kst);
+      load_codes<D, kKT>(c, p.k, kv_rows, t * kKT, p.Lk, tid);
+      load_codes<D, kKT>(c + kKT * D, p.v, kv_rows, t * kKT, p.Lk, tid);
+      if constexpr (kQuant == kKvToken) {
+        float* sc = reinterpret_cast<float*>(c + 2 * kKT * D);
+        load_kv_scales<kKT>(sc, sc + kKT, p.k_scale, p.v_scale, kv_rows,
+                            t * kKT, p.Lk, tid);
+      }
+    } else {
+      load_tile_f32<D, kKT>(kst, p.k, kv_rows, t * kKT, p.Lk, tid);
+      load_tile_f32<D, kKT>(vst, p.v, kv_rows, t * kKT, p.Lk, tid);
+    }
   };
   auto split_stage = [&]() {
-    split_tile<D, kKT>(kpl, kKPlane, kst, 1.f, tid);
-    split_tile<D, kKT>(vpl, kKPlane, vst, 1.f, tid);
+    if constexpr (kQ) {
+      const uint8_t* c = reinterpret_cast<const uint8_t*>(kst);
+      convert_codes<D, kKT>(kpl, c, p.fp8, tid);
+      convert_codes<D, kKT>(vpl, c + kKT * D, p.fp8, tid);
+      if constexpr (kQuant == kKvToken)
+        if (tid < 2 * kKT)
+          cur[tid] = reinterpret_cast<const float*>(c + 2 * kKT * D)[tid];
+    } else {
+      split_tile<D, kKT>(kpl, kKPlane, kst, 1.f, tid);
+      split_tile<D, kKT>(vpl, kKPlane, vst, 1.f, tid);
+    }
   };
 
   // q and dO, then the first tile
@@ -454,13 +537,20 @@ flash_attention_bwd_dq_x6_kernel(const BwdParamsOf<kMask, kDrop> p) {
           a_frag<D>(qa[pl], qpl + pl * kQPlane, warp * 16, kk, lane);
 #pragma unroll
         for (int n2 = 0; n2 < NK / 16; ++n2) {
-          uint32_t bk[3][4];
+          if constexpr (kQ) {   // the codes: one plane, three products
+            uint32_t bk[4];
+            b_frags_nk<D>(bk, kpl, sub + 16 * n2, kk, lane);
+            mma_x3(s[2 * n2], qa, bk);
+            mma_x3(s[2 * n2 + 1], qa, bk + 2);
+          } else {
+            uint32_t bk[3][4];
 #pragma unroll
-          for (int pl = 0; pl < 3; ++pl)
-            b_frags_nk<D>(bk[pl], kpl + pl * kKPlane, sub + 16 * n2, kk,
-                          lane);
-          mma_x6(s[2 * n2], qa, bk[0], bk[1], bk[2]);
-          mma_x6(s[2 * n2 + 1], qa, bk[0] + 2, bk[1] + 2, bk[2] + 2);
+            for (int pl = 0; pl < 3; ++pl)
+              b_frags_nk<D>(bk[pl], kpl + pl * kKPlane, sub + 16 * n2, kk,
+                            lane);
+            mma_x6(s[2 * n2], qa, bk[0], bk[1], bk[2]);
+            mma_x6(s[2 * n2 + 1], qa, bk[0] + 2, bk[1] + 2, bk[2] + 2);
+          }
         }
       }
 #pragma unroll (X::kUnroll)
@@ -471,14 +561,25 @@ flash_attention_bwd_dq_x6_kernel(const BwdParamsOf<kMask, kDrop> p) {
           a_frag<D>(oa[pl], opl + pl * kQPlane, warp * 16, kk, lane);
 #pragma unroll
         for (int n2 = 0; n2 < NK / 16; ++n2) {
-          uint32_t bv[3][4];
+          if constexpr (kQ) {
+            uint32_t bv[4];
+            b_frags_nk<D>(bv, vpl, sub + 16 * n2, kk, lane);
+            mma_x3(dp[2 * n2], oa, bv);
+            mma_x3(dp[2 * n2 + 1], oa, bv + 2);
+          } else {
+            uint32_t bv[3][4];
 #pragma unroll
-          for (int pl = 0; pl < 3; ++pl)
-            b_frags_nk<D>(bv[pl], vpl + pl * kKPlane, sub + 16 * n2, kk,
-                          lane);
-          mma_x6(dp[2 * n2], oa, bv[0], bv[1], bv[2]);
-          mma_x6(dp[2 * n2 + 1], oa, bv[0] + 2, bv[1] + 2, bv[2] + 2);
+            for (int pl = 0; pl < 3; ++pl)
+              b_frags_nk<D>(bv[pl], vpl + pl * kKPlane, sub + 16 * n2, kk,
+                            lane);
+            mma_x6(dp[2 * n2], oa, bv[0], bv[1], bv[2]);
+            mma_x6(dp[2 * n2 + 1], oa, bv[0] + 2, bv[1] + 2, bv[2] + 2);
+          }
         }
+      }
+      if constexpr (kQuant == kKvToken) {   // by key: S ks, dP vs
+        scale_cols<NK>(s, cur, sub, lane);
+        scale_cols<NK>(dp, cur + kKT, sub, lane);
       }
       // P = exp2(S - lse2) and dS = P (dP - D) in place of dP, in fp32; row
       // r is the thread's row lane / 4 + 8 (e / 2)
@@ -509,6 +610,8 @@ flash_attention_bwd_dq_x6_kernel(const BwdParamsOf<kMask, kDrop> p) {
             dp[j][e] = __fmul_rn(pr, dp[j][e] - delta[e >> 1]);
           }
         }
+      // token scales: dQ's operand is dS ks
+      if constexpr (kQuant == kKvToken) scale_cols<NK>(dp, cur, sub, lane);
       // dQ += dS K over the step's keys, 16 at a time
 #pragma unroll
       for (int kk = 0; kk < NK / 16; ++kk) {
@@ -516,13 +619,21 @@ flash_attention_bwd_dq_x6_kernel(const BwdParamsOf<kMask, kDrop> p) {
         acc_as_a_x6(da, dp, kk);
 #pragma unroll
         for (int n2 = 0; n2 < D / 16; ++n2) {
-          uint32_t bk[3][4];
+          if constexpr (kQ) {
+            uint32_t bk[4];
+            b_frags_kn<D>(bk, kpl, sub + 16 * kk, 16 * n2, lane);
+            mma_x3_add(dq[2 * n2], da, bk);
+            mma_x3_add(dq[2 * n2 + 1], da, bk + 2);
+          } else {
+            uint32_t bk[3][4];
 #pragma unroll
-          for (int pl = 0; pl < 3; ++pl)
-            b_frags_kn<D>(bk[pl], kpl + pl * kKPlane, sub + 16 * kk, 16 * n2,
-                          lane);
-          mma_x6_add(dq[2 * n2], da, bk[0], bk[1], bk[2]);
-          mma_x6_add(dq[2 * n2 + 1], da, bk[0] + 2, bk[1] + 2, bk[2] + 2);
+            for (int pl = 0; pl < 3; ++pl)
+              b_frags_kn<D>(bk[pl], kpl + pl * kKPlane, sub + 16 * kk,
+                            16 * n2, lane);
+            mma_x6_add(dq[2 * n2], da, bk[0], bk[1], bk[2]);
+            mma_x6_add(dq[2 * n2 + 1], da, bk[0] + 2, bk[1] + 2,
+                       bk[2] + 2);
+          }
         }
       }
     }
@@ -537,12 +648,12 @@ flash_attention_bwd_dq_x6_kernel(const BwdParamsOf<kMask, kDrop> p) {
   store_rows_f32<D>(p.dq, rows, rw, p.Lq, dq, p.scale, lane);
 }
 
-template <int D, bool kMask, bool kDrop>
-cudaError_t launch_dq_x6(const BwdParamsOf<kMask, kDrop>& p,
+template <int D, bool kMask, bool kDrop, int kQuant>
+cudaError_t launch_dq_x6(const BwdParamsOf<kMask, kDrop, kQuant>& p,
                          cudaStream_t stream) {
   constexpr int kSmem = DqX6<D>::kSmem + (kMask ? kMaskSmemBytes : 0) +
                         (kDrop ? kDropSmemBytes : 0);
-  auto kernel = flash_attention_bwd_dq_x6_kernel<D, kMask, kDrop>;
+  auto kernel = flash_attention_bwd_dq_x6_kernel<D, kMask, kDrop, kQuant>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
@@ -553,29 +664,32 @@ cudaError_t launch_dq_x6(const BwdParamsOf<kMask, kDrop>& p,
 
 // --- launches ---------------------------------------------------------------
 
-template <int D, bool kMask, bool kDrop>
-cudaError_t launch_pass(const BwdParamsOf<kMask, kDrop>& p, bool dkv,
+template <int D, bool kMask, bool kDrop, int kQuant>
+cudaError_t launch_pass(const BwdParamsOf<kMask, kDrop, kQuant>& p, bool dkv,
                         bool tc, cudaStream_t stream) {
   if (tc)
-    return dkv ? launch_kv_outer_tc<D, false, kMask, kDrop>(
-                     flash_attention_bwd_dkv_tc_kernel<D, kMask, kDrop>, p,
-                     stream)
-               : launch_dq_tc<D, kMask, kDrop>(p, stream);
-  return dkv ? launch_kv_outer_x6<D, false, kMask, kDrop>(
-                   flash_attention_bwd_dkv_x6_kernel<D, kMask, kDrop>, p,
-                   stream)
-             : launch_dq_x6<D, kMask, kDrop>(p, stream);
+    return dkv ? launch_kv_outer_tc<D, false, kMask, kDrop, kQuant>(
+                     flash_attention_bwd_dkv_tc_kernel<D, kMask, kDrop,
+                                                       kQuant>,
+                     p, stream)
+               : launch_dq_tc<D, kMask, kDrop, kQuant>(p, stream);
+  return dkv ? launch_kv_outer_x6<D, false, kMask, kDrop, kQuant>(
+                   flash_attention_bwd_dkv_x6_kernel<D, kMask, kDrop, kQuant>,
+                   p, stream)
+             : launch_dq_x6<D, kMask, kDrop, kQuant>(p, stream);
 }
 
 template <typename Prm>
 cudaError_t launch_d(const Prm& p, bool dkv, int d, bool tc,
                      cudaStream_t stream) {
   constexpr bool kMask = kMaskOf<Prm>, kDrop = kDropOf<Prm>;
+  constexpr int kQuant = kQuantOf<Prm>;
   switch (d) {
-    case 16: return launch_pass<16, kMask, kDrop>(p, dkv, tc, stream);
-    case 32: return launch_pass<32, kMask, kDrop>(p, dkv, tc, stream);
-    case 64: return launch_pass<64, kMask, kDrop>(p, dkv, tc, stream);
-    case 128: return launch_pass<128, kMask, kDrop>(p, dkv, tc, stream);
+    case 16: return launch_pass<16, kMask, kDrop, kQuant>(p, dkv, tc, stream);
+    case 32: return launch_pass<32, kMask, kDrop, kQuant>(p, dkv, tc, stream);
+    case 64: return launch_pass<64, kMask, kDrop, kQuant>(p, dkv, tc, stream);
+    case 128:
+      return launch_pass<128, kMask, kDrop, kQuant>(p, dkv, tc, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -583,19 +697,23 @@ cudaError_t launch_d(const Prm& p, bool dkv, int d, bool tc,
 // The checks every entry makes (tc: bf16 only; else, the six-product
 // form, fp32 only), then the launch of the pass at head dim d, in its
 // masked form where the call has a window or segment ids, in its dropout
-// form where it has a seed.
+// form where it has a seed, and quantized as kQuant says (kKvNone in the
+// library without quantization, TF_KVQ's in a kvq library).
+template <int kQuant>
 cudaError_t launch_any(const BwdParams& p, int window, const int* seg,
-                       const DropCall& drop, bool dkv, int d, int dtype,
-                       bool tc, cudaStream_t stream) {
+                       const DropCall& drop, const KvqCall& kvq, bool dkv,
+                       int d, int dtype, bool tc, cudaStream_t stream) {
   if (dtype != (tc ? 1 : 0) ||
       !bwd_args_ok(dtype, p.H, p.Hkv, d,
                    (long long)p.B * (dkv ? p.Hkv : p.H)) ||
-      !mask_args_ok(window, p.causal, seg, p.Lq, p.Lk))
+      !mask_args_ok(window, p.causal, seg, p.Lq, p.Lk) ||
+      !kvq_args_ok(kQuant, kvq))
     return cudaErrorInvalidValue;
   if (p.B == 0 || p.H == 0 || (dkv ? p.Lk : p.Lq) == 0) return cudaSuccess;
-  return launch_form_of(p, window, seg, drop, [&](const auto& prm) {
-    return launch_d(prm, dkv, d, tc, stream);
-  });
+  return launch_form_of<kQuant>(p, window, seg, drop, kvq,
+                                [&](const auto& prm) {
+                                  return launch_d(prm, dkv, d, tc, stream);
+                                });
 }
 
 }  // namespace
@@ -607,39 +725,70 @@ extern "C" {
 // and dv share it.  window (0 for none) and seg (or null), seed (null for
 // no dropout), threshold and keep_scale as the forward's entries take them.
 // Writes dk and dv [B, Hkv, Lk, d] (zeros for keys no query row sees).
-#define TF_DKV_ENTRY(symbol, tc)                                              \
-  int symbol(const void* q, const void* k, const void* v, const void* dout,  \
-             const float* lse, const float* delta, void* dk, void* dv,       \
-             int B, int H, int Hkv, int Lq, int Lk, int d, int dtype,        \
-             int causal, int q_offset, float scale, float scale2,            \
-             int window, const int* seg, const int* seed,                    \
-             unsigned threshold, float keep_scale, void* stream) {           \
-    const BwdParams p{q, k, v, dout, lse, delta, nullptr, dk, dv, B, H, Hkv, \
-                      Lq, Lk, q_offset, causal != 0, scale, scale2};         \
-    return launch_any(p, window, seg, DropCall{seed, threshold, keep_scale}, \
-                      true, d, dtype, tc,                                    \
-                      static_cast<cudaStream_t>(stream));                    \
+#define TF_DKV_ARGS                                                          \
+  const void *q, const void *k, const void *v, const void *dout,            \
+      const float *lse, const float *delta, void *dk, void *dv, int B,      \
+      int H, int Hkv, int Lq, int Lk, int d, int dtype, int causal,         \
+      int q_offset, float scale, float scale2, int window, const int *seg,  \
+      const int *seed, unsigned threshold, float keep_scale
+#define TF_DKV_PARAMS                                                        \
+  BwdParams {                                                                \
+    q, k, v, dout, lse, delta, nullptr, dk, dv, B, H, Hkv, Lq, Lk,           \
+        q_offset, causal != 0, scale, scale2                                 \
   }
-
 // The dQ pass.  dtype as above.  Writes dq [B, H, Lq, d] in the input dtype
 // (zeros for rows that see no key).
-#define TF_DQ_ENTRY(symbol, tc)                                               \
-  int symbol(const void* q, const void* k, const void* v, const void* dout,  \
-             const float* lse, const float* delta, void* dq, int B, int H,   \
-             int Hkv, int Lq, int Lk, int d, int dtype, int causal,          \
-             int q_offset, float scale, float scale2, int window,            \
-             const int* seg, const int* seed, unsigned threshold,            \
-             float keep_scale, void* stream) {                               \
-    const BwdParams p{q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, H, \
-                      Hkv, Lq, Lk, q_offset, causal != 0, scale, scale2};    \
-    return launch_any(p, window, seg, DropCall{seed, threshold, keep_scale}, \
-                      false, d, dtype, tc,                                   \
-                      static_cast<cudaStream_t>(stream));                    \
+#define TF_DQ_ARGS                                                           \
+  const void *q, const void *k, const void *v, const void *dout,            \
+      const float *lse, const float *delta, void *dq, int B, int H,         \
+      int Hkv, int Lq, int Lk, int d, int dtype, int causal, int q_offset,  \
+      float scale, float scale2, int window, const int *seg,                \
+      const int *seed, unsigned threshold, float keep_scale
+#define TF_DQ_PARAMS                                                         \
+  BwdParams {                                                                \
+    q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, H, Hkv, Lq, Lk,      \
+        q_offset, causal != 0, scale, scale2                                 \
   }
 
-TF_DKV_ENTRY(tf_flash_attention_bwd_dkv_x6, false)
-TF_DKV_ENTRY(tf_flash_attention_bwd_dkv_tc, true)
-TF_DQ_ENTRY(tf_flash_attention_bwd_dq_x6, false)
-TF_DQ_ENTRY(tf_flash_attention_bwd_dq_tc, true)
+#ifndef TF_KVQ
+#define TF_PASS_ENTRY(symbol, ARGS, PARAMS, dkv, tc)                         \
+  int symbol(ARGS, void* stream) {                                          \
+    return launch_any<kKvNone>(PARAMS, window, seg,                         \
+                             DropCall{seed, threshold, keep_scale},         \
+                             KvqCall{}, dkv, d, dtype, tc,                  \
+                             static_cast<cudaStream_t>(stream));            \
+  }
+
+TF_PASS_ENTRY(tf_flash_attention_bwd_dkv_x6, TF_DKV_ARGS, TF_DKV_PARAMS,
+              true, false)
+TF_PASS_ENTRY(tf_flash_attention_bwd_dkv_tc, TF_DKV_ARGS, TF_DKV_PARAMS,
+              true, true)
+TF_PASS_ENTRY(tf_flash_attention_bwd_dq_x6, TF_DQ_ARGS, TF_DQ_PARAMS, false,
+              false)
+TF_PASS_ENTRY(tf_flash_attention_bwd_dq_tc, TF_DQ_ARGS, TF_DQ_PARAMS, false,
+              true)
+#else
+// The quantized forms of TF_KVQ's granularity
+// (flash_attention_bwd_two_pass_kvq.cu, token: k_scale and v_scale fp32
+// [B, Hkv, Lk]; flash_attention_bwd_two_pass_kvqc.cu, channel codes: both
+// null): k and v int8 or e4m3 codes (fp8 != 0); dtype as above is q's.
+#define TF_PASS_KVQ_ENTRY(symbol, ARGS, PARAMS, dkv, tc)                     \
+  int symbol(ARGS, const float* k_scale, const float* v_scale, int fp8,     \
+             void* stream) {                                                \
+    return launch_any<TF_KVQ>(PARAMS, window, seg,                          \
+                            DropCall{seed, threshold, keep_scale},          \
+                            KvqCall{k_scale, v_scale, fp8}, dkv, d, dtype,  \
+                            tc, static_cast<cudaStream_t>(stream));         \
+  }
+
+TF_PASS_KVQ_ENTRY(tf_flash_attention_bwd_dkv_x6_kvq, TF_DKV_ARGS,
+                  TF_DKV_PARAMS, true, false)
+TF_PASS_KVQ_ENTRY(tf_flash_attention_bwd_dkv_tc_kvq, TF_DKV_ARGS,
+                  TF_DKV_PARAMS, true, true)
+TF_PASS_KVQ_ENTRY(tf_flash_attention_bwd_dq_x6_kvq, TF_DQ_ARGS, TF_DQ_PARAMS,
+                  false, false)
+TF_PASS_KVQ_ENTRY(tf_flash_attention_bwd_dq_tc_kvq, TF_DQ_ARGS, TF_DQ_PARAMS,
+                  false, true)
+#endif
 
 }  // extern "C"

@@ -49,6 +49,17 @@
 // keep bit the hash of (query row, key, batch, head, seed).  The hash costs
 // integer operations per score and no memory traffic.
 //
+// Quantized K/V (_fwd_kernel's quantized and scaled forms, :541-617): each
+// form, masked and dropped or not, has quantized instantiations (kQuant,
+// flash_attention_tc.cuh), exported as the _kvq C entries of a library of
+// their own (flash_attention_fwd_kvq.cu builds this file with TF_KVQ), so
+// that both compile at once.  The K and V tiles come as one-byte codes
+// through the cp.async ring and are turned into bf16 tiles in shared memory
+// once a tile; token scales multiply S and P in registers, and the
+// normaliser sums the undropped fp32 P at every d (fold_l is off, :890).  In
+// the fp32 form a product with codes as an operand takes three bf16
+// products (mma_x3: q's or P's three planes by the codes' one), not six.
+//
 // C entries launch on the given stream, allocate nothing and return
 // cudaGetLastError() (or cudaErrorInvalidValue for a shape or dtype they do
 // not take).
@@ -80,12 +91,14 @@ struct MaskedParams : Params {
   const int* seg;  // [B, L] segment ids, or null
 };
 
-// The parameters of a form: masked or not, with dropout's or without
-// (flash_attention_tc.cuh).
-template <bool kMask, bool kDrop>
-using ParamsOf = std::conditional_t<
-    kDrop, Dropped<std::conditional_t<kMask, MaskedParams, Params>>,
-    std::conditional_t<kMask, MaskedParams, Params>>;
+// The parameters of a form: masked or not, with dropout's or without, with
+// quantized K/V or without (flash_attention_tc.cuh).
+template <bool kMask, bool kDrop, int kQuant = kKvNone>
+using ParamsOf = QuantOf<
+    std::conditional_t<
+        kDrop, Dropped<std::conditional_t<kMask, MaskedParams, Params>>,
+        std::conditional_t<kMask, MaskedParams, Params>>,
+    kQuant>;
 
 // --- the tensor-core form (bf16) --------------------------------------------
 //
@@ -104,21 +117,41 @@ using ParamsOf = std::conditional_t<
 // P.V product (_fold_l, flash_attention.py:403), and the fp32 P at d = 128;
 // each lane keeps its part of l, summed across the quad at the end.
 
-template <int D>
+template <int D, int kQuant = kKvNone>
 __host__ __device__ constexpr int fwd_tc_smem_bytes() {
-  // q * scale2 of the block's rows; k and v tiles a stage
-  return (1 + 2 * TcShape<D>::kStages) * TcShape<D>::kTileBytes;
+  // q * scale2 of the block's rows; k and v tiles a stage (quantized: the
+  // tile's k and v in bf16, then their codes and scales a stage)
+  if constexpr (kQuant == kKvNone)
+    return (1 + 2 * TcShape<D>::kStages) * TcShape<D>::kTileBytes;
+  else
+    return 3 * TcShape<D>::kTileBytes + 2 * kTcTile * 4 +
+           TcShape<D>::kStages * kv_code_stage_bytes<D, kTcTile>();
 }
 
-template <int D, bool kMask, bool kDrop>
+template <int D, bool kMask, bool kDrop, int kQuant>
 __global__ void __launch_bounds__(kTcThreads)
-flash_attention_fwd_tc_kernel(const ParamsOf<kMask, kDrop> p) {
+flash_attention_fwd_tc_kernel(const ParamsOf<kMask, kDrop, kQuant> p) {
   using S = TcShape<D>;
-  constexpr int P = S::P, kStages = S::kStages, NK = S::kStep;
-  constexpr bool kFoldL = D < 128;
+  // the token-scaled forms take 32 keys a step: 16 registers of S fewer
+  // beside the scales' (with 64, ptxas holds 128 and spills); the channel
+  // forms keep the unquantized step, whose rounding of P against the
+  // running max their bf16 normaliser sums, as the unquantized one does
+  constexpr int P = S::P, kStages = S::kStages,
+                NK = kQuant == kKvToken ? 32 : S::kStep;
+  // token scales: P.V takes P vs, so l sums the fp32 P (JAX's fold_l off)
+  constexpr bool kFoldL = D < 128 && kQuant != kKvToken;
+  constexpr bool kQ = kQuant != kKvNone;
   extern __shared__ uint4 tc_smem[];
   bf16* qs = reinterpret_cast<bf16*>(tc_smem);   // [64][P] q * scale2
   bf16* ring = qs + kTcBlock * P;                 // stage st: k, v [64][P]
+  // kQ: the tile's k and v [64][P] at ring and its token scales (k, then
+  // v [64]) at a fixed place after them, so that no register holds their
+  // address; then stage st's codes and scales (kv_code_stage_bytes)
+  [[maybe_unused]] float* cur = reinterpret_cast<float*>(ring + 2 * kTcTile * P);
+  [[maybe_unused]] auto code_stage = [&](int st) {
+    return reinterpret_cast<uint8_t*>(cur + 2 * kTcTile) +
+           st * kv_code_stage_bytes<D, kTcTile>();
+  };
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int row0 = (gridDim.x - 1 - blockIdx.x) * kTcBlock;
@@ -143,21 +176,35 @@ flash_attention_fwd_tc_kernel(const ParamsOf<kMask, kDrop> p) {
   const int t0 = band_first_tile<kMask, kTcTile>(p, row0, tiles);
   [[maybe_unused]] const volatile MaskSmem* ms = nullptr;
   if constexpr (kMask)
-    ms = mask_setup(reinterpret_cast<char*>(tc_smem) + fwd_tc_smem_bytes<D>(),
+    ms = mask_setup(reinterpret_cast<char*>(tc_smem) +
+                        fwd_tc_smem_bytes<D, kQuant>(),
                     p.seg, b, p.Lq, row0, tid);
   // kDrop: the hash's terms of the block's rows after the mask's view
   [[maybe_unused]] volatile DropSmem* ds = nullptr;
   if constexpr (kDrop)
     ds = drop_setup(reinterpret_cast<char*>(tc_smem) +
-                        fwd_tc_smem_bytes<D>() + (kMask ? kMaskSmemBytes : 0),
+                        fwd_tc_smem_bytes<D, kQuant>() +
+                        (kMask ? kMaskSmemBytes : 0),
                     kDropRow, drop_bh(p.seed, b, h), row0, tid);
 
   load_tile<D>(qs, p.q, rows, row0, p.Lq, tid);
   cp_async_commit();
   auto load_stage = [&](int st, int t) {
-    bf16* kt = ring + 2 * st * kTcTile * P;
-    load_tile<D>(kt, p.k, kv_rows, t * kTcTile, p.Lk, tid);
-    load_tile<D>(kt + kTcTile * P, p.v, kv_rows, t * kTcTile, p.Lk, tid);
+    if constexpr (kQ) {
+      uint8_t* c = code_stage(st);
+      load_codes<D, kTcTile>(c, p.k, kv_rows, t * kTcTile, p.Lk, tid);
+      load_codes<D, kTcTile>(c + kTcTile * D, p.v, kv_rows, t * kTcTile,
+                             p.Lk, tid);
+      if constexpr (kQuant == kKvToken) {
+        float* sc = reinterpret_cast<float*>(c + 2 * kTcTile * D);
+        load_kv_scales<kTcTile>(sc, sc + kTcTile, p.k_scale, p.v_scale,
+                                kv_rows, t * kTcTile, p.Lk, tid);
+      }
+    } else {
+      bf16* kt = ring + 2 * st * kTcTile * P;
+      load_tile<D>(kt, p.k, kv_rows, t * kTcTile, p.Lk, tid);
+      load_tile<D>(kt + kTcTile * P, p.v, kv_rows, t * kTcTile, p.Lk, tid);
+    }
     cp_async_commit();
   };
 #pragma unroll
@@ -189,6 +236,19 @@ flash_attention_fwd_tc_kernel(const ParamsOf<kMask, kDrop> p) {
     else cp_async_commit();
     const bf16* kt = ring + 2 * (u % kStages) * kTcTile * P;
     const bf16* vt = kt + kTcTile * P;
+    // kQuant: the tile's codes into k and v in bf16 and its token scales
+    // into cur (read by every warp after the barrier)
+    if constexpr (kQ) {
+      const uint8_t* c = code_stage(u % kStages);
+      convert_codes<D, kTcTile>(ring, c, p.fp8, tid);
+      convert_codes<D, kTcTile>(ring + kTcTile * P, c + kTcTile * D, p.fp8,
+                                tid);
+      if constexpr (kQuant == kKvToken)
+        cur[tid] = reinterpret_cast<const float*>(c + 2 * kTcTile * D)[tid];
+      kt = ring;
+      vt = ring + kTcTile * P;
+      __syncthreads();
+    }
 #pragma unroll
     for (int sub = 0; sub < kTcTile; sub += NK) {
       const int kc = t * kTcTile + sub;   // the step's first key
@@ -214,6 +274,7 @@ flash_attention_fwd_tc_kernel(const ParamsOf<kMask, kDrop> p) {
           mma_bf16(s[2 * n2], qa[kk], bk);
           mma_bf16(s[2 * n2 + 1], qa[kk], bk + 2);
         }
+      if constexpr (kQuant == kKvToken) scale_cols<NK>(s, cur, sub, lane);
       if (!full) {
         if constexpr (kMask) {
           mask_scores<NK>(s, p, ms, kc, rw, warp, lane);
@@ -252,10 +313,17 @@ flash_attention_fwd_tc_kernel(const ParamsOf<kMask, kDrop> p) {
         for (int e = 0; e < 4; ++e) {
           // masked keys: exp2(-inf) = 0
           const float pr = exp2f(s[j][e] - base[e >> 1]);
-          if constexpr (kDrop) {
+          if constexpr (kDrop || kQuant == kKvToken) {
             // l sums the undropped fp32 P; P.V takes P keep / (1 - rate)
+            // (times the key's v scale)
             psum[e >> 1] += pr;
-            s[j][e] = __fmul_rn(pr, drop_scale(bits, j, e, p.keep_scale));
+            float pv = pr;
+            if constexpr (kDrop)
+              pv = __fmul_rn(pv, drop_scale(bits, j, e, p.keep_scale));
+            if constexpr (kQuant == kKvToken)
+              pv = __fmul_rn(pv, cur[kTcTile + sub + 8 * j + 2 * (lane & 3) +
+                                     (e & 1)]);
+            s[j][e] = pv;
           } else {
             s[j][e] = kFoldL ? round_bf16(pr) : pr;
             psum[e >> 1] += s[j][e];
@@ -331,7 +399,11 @@ flash_attention_fwd_tc_kernel(const ParamsOf<kMask, kDrop> p) {
 // sums the fp32 P at every d, and scores, the online max and exp2 are the
 // plain version's fp32 arithmetic.  Shared memory at d = 64:
 // K and V planes 54 KB and the stage 34 KB (q staged over the planes before
-// the first tile), so that two blocks share an SM.
+// the first tile), so that two blocks share an SM.  The quantized forms keep
+// that layout: a tile's codes (and token scales) arrive in the stage and
+// are turned into one plane each of K and V (a code is one exact bf16), the
+// scales copied beside V's plane (the stage holds the next tile's while
+// this one is computed); S and P.V take mma_x3, three products, not six.
 
 template <int D>
 struct FwdX6 {
@@ -350,13 +422,14 @@ struct FwdX6 {
   static_assert(kSmem <= 232448, "shared memory");
 };
 
-template <int D, bool kMask, bool kDrop>
+template <int D, bool kMask, bool kDrop, int kQuant>
 __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 2 : 1)
-flash_attention_fwd_x6_kernel(const ParamsOf<kMask, kDrop> p) {
+flash_attention_fwd_x6_kernel(const ParamsOf<kMask, kDrop, kQuant> p) {
   using X = FwdX6<D>;
-  // the dropout forms at d = 64 take 32 keys a step: 16 registers of S
-  // fewer, where the form without dropout already holds 255
-  constexpr int NK = kDrop && X::kQRegs ? 32 : X::NK;
+  constexpr bool kQ = kQuant != kKvNone;
+  // the dropout and quantized forms at d = 64 take 32 keys a step: 16
+  // registers of S fewer, where the form without either holds 255
+  constexpr int NK = (kDrop || kQ) && X::kQRegs ? 32 : X::NK;
   constexpr int kUnrollSteps = X::kQRegs ? kTcTile / NK : 1;
   constexpr int kPlane = X::kPlane, F = X::F;
   extern __shared__ uint4 x6_smem[];
@@ -368,6 +441,8 @@ flash_attention_fwd_x6_kernel(const ParamsOf<kMask, kDrop> p) {
   float* stage = reinterpret_cast<float*>(base + X::kPlanesBytes +
                                           X::kQPlanesBytes);  // K, V [64][F]
   float* qstage = reinterpret_cast<float*>(vpl);  // q [64][F], once
+  // kQ: the tile's token scales (k, then v [64]) in V's second plane
+  [[maybe_unused]] float* cur = reinterpret_cast<float*>(vpl + kPlane);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int row0 = (gridDim.x - 1 - blockIdx.x) * kTcBlock;
@@ -400,13 +475,35 @@ flash_attention_fwd_x6_kernel(const ParamsOf<kMask, kDrop> p) {
                     kDropRow, drop_bh(p.seed, b, h), row0, tid);
 
   auto load_stage = [&](int t) {
-    load_tile_f32<D, kTcTile>(stage, p.k, kv_rows, t * kTcTile, p.Lk, tid);
-    load_tile_f32<D, kTcTile>(stage + kTcTile * F, p.v, kv_rows,
-                              t * kTcTile, p.Lk, tid);
+    if constexpr (kQ) {
+      uint8_t* c = reinterpret_cast<uint8_t*>(stage);
+      load_codes<D, kTcTile>(c, p.k, kv_rows, t * kTcTile, p.Lk, tid);
+      load_codes<D, kTcTile>(c + kTcTile * D, p.v, kv_rows, t * kTcTile,
+                             p.Lk, tid);
+      if constexpr (kQuant == kKvToken) {
+        float* sc = reinterpret_cast<float*>(c + 2 * kTcTile * D);
+        load_kv_scales<kTcTile>(sc, sc + kTcTile, p.k_scale, p.v_scale,
+                                kv_rows, t * kTcTile, p.Lk, tid);
+      }
+    } else {
+      load_tile_f32<D, kTcTile>(stage, p.k, kv_rows, t * kTcTile, p.Lk,
+                                tid);
+      load_tile_f32<D, kTcTile>(stage + kTcTile * F, p.v, kv_rows,
+                                t * kTcTile, p.Lk, tid);
+    }
   };
   auto split_stage = [&]() {
-    split_tile<D, kTcTile>(kpl, kPlane, stage, 1.f, tid);
-    split_tile<D, kTcTile>(vpl, kPlane, stage + kTcTile * F, 1.f, tid);
+    if constexpr (kQ) {
+      const uint8_t* c = reinterpret_cast<const uint8_t*>(stage);
+      convert_codes<D, kTcTile>(kpl, c, p.fp8, tid);
+      convert_codes<D, kTcTile>(vpl, c + kTcTile * D, p.fp8, tid);
+      if constexpr (kQuant == kKvToken)
+        if (tid < 2 * kTcTile)
+          cur[tid] = reinterpret_cast<const float*>(c + 2 * kTcTile * D)[tid];
+    } else {
+      split_tile<D, kTcTile>(kpl, kPlane, stage, 1.f, tid);
+      split_tile<D, kTcTile>(vpl, kPlane, stage + kTcTile * F, 1.f, tid);
+    }
   };
   load_tile_f32<D, kTcTile>(qstage, p.q, rows, row0, p.Lq, tid);
   if (t0 < tiles) load_stage(t0);
@@ -469,14 +566,23 @@ flash_attention_fwd_x6_kernel(const ParamsOf<kMask, kDrop> p) {
         }
 #pragma unroll
         for (int n2 = 0; n2 < NK / 16; ++n2) {
-          uint32_t bk[3][4];
+          if constexpr (kQ) {   // the codes: one plane, three products
+            uint32_t bk[4];
+            b_frags_nk<D>(bk, kpl, sub + 16 * n2, kk, lane);
+            mma_x3(s[2 * n2], qf, bk);
+            mma_x3(s[2 * n2 + 1], qf, bk + 2);
+          } else {
+            uint32_t bk[3][4];
 #pragma unroll
-          for (int pl = 0; pl < 3; ++pl)
-            b_frags_nk<D>(bk[pl], kpl + pl * kPlane, sub + 16 * n2, kk, lane);
-          mma_x6(s[2 * n2], qf, bk[0], bk[1], bk[2]);
-          mma_x6(s[2 * n2 + 1], qf, bk[0] + 2, bk[1] + 2, bk[2] + 2);
+            for (int pl = 0; pl < 3; ++pl)
+              b_frags_nk<D>(bk[pl], kpl + pl * kPlane, sub + 16 * n2, kk,
+                            lane);
+            mma_x6(s[2 * n2], qf, bk[0], bk[1], bk[2]);
+            mma_x6(s[2 * n2 + 1], qf, bk[0] + 2, bk[1] + 2, bk[2] + 2);
+          }
         }
       }
+      if constexpr (kQuant == kKvToken) scale_cols<NK>(s, cur, sub, lane);
       if (!full) {
         if constexpr (kMask) {
           mask_scores<NK>(s, p, ms, kc, rw, warp, lane);
@@ -514,11 +620,18 @@ flash_attention_fwd_x6_kernel(const ParamsOf<kMask, kDrop> p) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           // masked keys: exp2(-inf) = 0
-          if constexpr (kDrop) {
-            // l sums the undropped P; P.V takes P keep / (1 - rate)
+          if constexpr (kDrop || kQuant == kKvToken) {
+            // l sums the undropped P; P.V takes P keep / (1 - rate) (times
+            // the key's v scale)
             const float pr = exp2f(s[j][e] - base2[e >> 1]);
             psum[e >> 1] += pr;
-            s[j][e] = __fmul_rn(pr, drop_scale(bits, j, e, p.keep_scale));
+            float pv = pr;
+            if constexpr (kDrop)
+              pv = __fmul_rn(pv, drop_scale(bits, j, e, p.keep_scale));
+            if constexpr (kQuant == kKvToken)
+              pv = __fmul_rn(pv, cur[kTcTile + sub + 8 * j +
+                                     2 * (lane & 3) + (e & 1)]);
+            s[j][e] = pv;
           } else {
             s[j][e] = exp2f(s[j][e] - base2[e >> 1]);
             psum[e >> 1] += s[j][e];
@@ -540,13 +653,21 @@ flash_attention_fwd_x6_kernel(const ParamsOf<kMask, kDrop> p) {
         acc_as_a_x6(pa, s, kk);
 #pragma unroll
         for (int n2 = 0; n2 < D / 16; ++n2) {
-          uint32_t bv[3][4];
+          if constexpr (kQ) {
+            uint32_t bv[4];
+            b_frags_kn<D>(bv, vpl, sub + 16 * kk, 16 * n2, lane);
+            mma_x3_add(acc[2 * n2], pa, bv);
+            mma_x3_add(acc[2 * n2 + 1], pa, bv + 2);
+          } else {
+            uint32_t bv[3][4];
 #pragma unroll
-          for (int pl = 0; pl < 3; ++pl)
-            b_frags_kn<D>(bv[pl], vpl + pl * kPlane, sub + 16 * kk, 16 * n2,
-                          lane);
-          mma_x6_add(acc[2 * n2], pa, bv[0], bv[1], bv[2]);
-          mma_x6_add(acc[2 * n2 + 1], pa, bv[0] + 2, bv[1] + 2, bv[2] + 2);
+            for (int pl = 0; pl < 3; ++pl)
+              b_frags_kn<D>(bv[pl], vpl + pl * kPlane, sub + 16 * kk,
+                            16 * n2, lane);
+            mma_x6_add(acc[2 * n2], pa, bv[0], bv[1], bv[2]);
+            mma_x6_add(acc[2 * n2 + 1], pa, bv[0] + 2, bv[1] + 2,
+                       bv[2] + 2);
+          }
         }
       }
     }
@@ -587,14 +708,14 @@ flash_attention_fwd_x6_kernel(const ParamsOf<kMask, kDrop> p) {
 
 // --- launches ---------------------------------------------------------------
 
-template <int D, bool kMask, bool kDrop>
-cudaError_t launch(const ParamsOf<kMask, kDrop>& p, bool x6,
+template <int D, bool kMask, bool kDrop, int kQuant>
+cudaError_t launch(const ParamsOf<kMask, kDrop, kQuant>& p, bool x6,
                    cudaStream_t stream) {
-  const int smem = (x6 ? FwdX6<D>::kSmem : fwd_tc_smem_bytes<D>()) +
+  const int smem = (x6 ? FwdX6<D>::kSmem : fwd_tc_smem_bytes<D, kQuant>()) +
                    (kMask ? kMaskSmemBytes : 0) +
                    (kDrop ? kDropSmemBytes : 0);
-  auto kernel = x6 ? flash_attention_fwd_x6_kernel<D, kMask, kDrop>
-                   : flash_attention_fwd_tc_kernel<D, kMask, kDrop>;
+  auto kernel = x6 ? flash_attention_fwd_x6_kernel<D, kMask, kDrop, kQuant>
+                   : flash_attention_fwd_tc_kernel<D, kMask, kDrop, kQuant>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -603,29 +724,56 @@ cudaError_t launch(const ParamsOf<kMask, kDrop>& p, bool x6,
   return cudaGetLastError();
 }
 
-template <bool kMask, bool kDrop>
-cudaError_t launch_d(const ParamsOf<kMask, kDrop>& p, int d, bool x6,
+template <bool kMask, bool kDrop, int kQuant>
+cudaError_t launch_d(const ParamsOf<kMask, kDrop, kQuant>& p, int d, bool x6,
                      cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<16, kMask, kDrop>(p, x6, stream);
-    case 32: return launch<32, kMask, kDrop>(p, x6, stream);
-    case 64: return launch<64, kMask, kDrop>(p, x6, stream);
-    case 128: return launch<128, kMask, kDrop>(p, x6, stream);
+    case 16: return launch<16, kMask, kDrop, kQuant>(p, x6, stream);
+    case 32: return launch<32, kMask, kDrop, kQuant>(p, x6, stream);
+    case 64: return launch<64, kMask, kDrop, kQuant>(p, x6, stream);
+    case 128: return launch<128, kMask, kDrop, kQuant>(p, x6, stream);
   }
   return cudaErrorInvalidValue;
 }
 
 // The form for the call: masked where it has a window or segment ids,
-// with dropout where it has a seed.
-template <bool kMask>
+// with dropout where it has a seed, quantized as kQuant says.
+template <bool kMask, int kQuant>
 cudaError_t launch_drop(const ParamsOf<kMask, false>& p, int d, bool x6,
                         const int* seed, uint32_t threshold, float keep_scale,
-                        cudaStream_t stream) {
+                        const KvqCall& kvq, cudaStream_t stream) {
   if (seed)
-    return launch_d<kMask, true>(
-        Dropped<ParamsOf<kMask, false>>{p, seed, threshold, keep_scale}, d,
-        x6, stream);
-  return launch_d<kMask, false>(p, d, x6, stream);
+    return launch_d<kMask, true, kQuant>(
+        quantized<kQuant>(
+            Dropped<ParamsOf<kMask, false>>{p, seed, threshold, keep_scale},
+            kvq),
+        d, x6, stream);
+  return launch_d<kMask, false, kQuant>(quantized<kQuant>(p, kvq), d, x6,
+                                        stream);
+}
+
+// The checks and the launch of every entry (kQuant: kKvNone in the library
+// without quantization, TF_KVQ's in a kvq library).
+template <int kQuant>
+int fwd_entry(bool x6, const void* q, const void* k, const void* v,
+              void* out, float* lse, float* m, int B, int H, int Hkv, int Lq,
+              int Lk, int d, int dtype, int causal, int q_offset,
+              float scale2, int window, const int* seg, const int* seed,
+              unsigned threshold, float keep_scale, const KvqCall& kvq,
+              cudaStream_t st) {
+  if (dtype != (x6 ? 0 : 1) || Hkv <= 0 || H % Hkv || B * H > 65535 ||
+      Lk <= 0 || window < 0 || (window > 0 && !causal) ||
+      (seg && Lq != Lk) || !kvq_args_ok(kQuant, kvq))
+    return cudaErrorInvalidValue;
+  if (B == 0 || H == 0 || Lq == 0) return cudaSuccess;
+  const Params p{q, k, v, out, lse, m, B, H, Hkv, Lq, Lk, q_offset,
+                 causal != 0, scale2};
+  if (window > 0 || seg)
+    return launch_drop<true, kQuant>(
+        MaskedParams{p, window > 0 ? window : kNoBand, seg}, d, x6, seed,
+        threshold, keep_scale, kvq, st);
+  return launch_drop<false, kQuant>(p, d, x6, seed, threshold, keep_scale,
+                                    kvq, st);
 }
 
 }  // namespace
@@ -638,28 +786,39 @@ extern "C" {
 // (Lq == Lk) or null.  Either launches the masked form.  seed: null for no
 // dropout, else int32 [3] on the device (seed, batch offset, head offset),
 // with the keep threshold and 1 / (1 - rate): the dropout form.
-#define TF_FWD_ENTRY(symbol, x6)                                              \
-  int symbol(const void* q, const void* k, const void* v, void* out,         \
-             float* lse, float* m, int B, int H, int Hkv, int Lq, int Lk,    \
-             int d, int dtype, int causal, int q_offset, float scale2,       \
-             int window, const int* seg, const int* seed,                    \
-             unsigned threshold, float keep_scale, void* stream) {           \
-    if (dtype != (x6 ? 0 : 1) || Hkv <= 0 || H % Hkv || B * H > 65535 ||     \
-        Lk <= 0 || window < 0 || (window > 0 && !causal) ||                  \
-        (seg && Lq != Lk))                                                   \
-      return cudaErrorInvalidValue;                                          \
-    if (B == 0 || H == 0 || Lq == 0) return cudaSuccess;                     \
-    const Params p{q, k, v, out, lse, m, B, H, Hkv, Lq, Lk, q_offset,        \
-                   causal != 0, scale2};                                     \
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);              \
-    if (window > 0 || seg)                                                   \
-      return launch_drop<true>(                                              \
-          MaskedParams{p, window > 0 ? window : kNoBand, seg}, d, x6, seed,  \
-          threshold, keep_scale, st);                                        \
-    return launch_drop<false>(p, d, x6, seed, threshold, keep_scale, st);    \
+#define TF_FWD_ARGS                                                         \
+  const void *q, const void *k, const void *v, void *out, float *lse,      \
+      float *m, int B, int H, int Hkv, int Lq, int Lk, int d, int dtype,   \
+      int causal, int q_offset, float scale2, int window, const int *seg,  \
+      const int *seed, unsigned threshold, float keep_scale
+#define TF_FWD_CALL                                                         \
+  q, k, v, out, lse, m, B, H, Hkv, Lq, Lk, d, dtype, causal, q_offset,     \
+      scale2, window, seg, seed, threshold, keep_scale
+
+#ifndef TF_KVQ
+#define TF_FWD_ENTRY(symbol, x6)                                            \
+  int symbol(TF_FWD_ARGS, void* stream) {                                  \
+    return fwd_entry<kKvNone>(x6, TF_FWD_CALL, KvqCall{},                  \
+                              static_cast<cudaStream_t>(stream));          \
   }
 
 TF_FWD_ENTRY(tf_flash_attention_fwd_tc, false)
 TF_FWD_ENTRY(tf_flash_attention_fwd_x6, true)
+#else
+// The quantized forms of TF_KVQ's granularity (flash_attention_fwd_kvq.cu,
+// token: k_scale and v_scale fp32 [B, Hkv, Lk]; flash_attention_fwd_kvqc.cu,
+// channel codes: both null, the wrapper folds their scales): k and v int8
+// or e4m3 codes (fp8 != 0); dtype as above is q's and out's.
+#define TF_FWD_KVQ_ENTRY(symbol, x6)                                        \
+  int symbol(TF_FWD_ARGS, const float* k_scale, const float* v_scale,      \
+             int fp8, void* stream) {                                      \
+    return fwd_entry<TF_KVQ>(x6, TF_FWD_CALL,                              \
+                             KvqCall{k_scale, v_scale, fp8},               \
+                             static_cast<cudaStream_t>(stream));           \
+  }
+
+TF_FWD_KVQ_ENTRY(tf_flash_attention_fwd_tc_kvq, false)
+TF_FWD_KVQ_ENTRY(tf_flash_attention_fwd_x6_kvq, true)
+#endif
 
 }  // extern "C"

@@ -1,0 +1,10 @@
+// The quantized-K/V forms of the flash-attention forward for channel codes
+// (their scales folded by the wrapper): every form of flash_attention_fwd.cu
+// (each dtype, head dim, mask and dropout form) with K and V as one-byte
+// codes, behind the _kvq C entries (flash_attention_tc.cuh, "quantized K/V").
+// A library of each granularity, so that nvcc compiles them beside the forms
+// without quantization (kernels/common.py starts one nvcc a source, all at
+// once).
+
+#define TF_KVQ kKvChannel
+#include "flash_attention_fwd.cu"

@@ -9,11 +9,17 @@
 // side's rows come in tiles of 64 through a ring of shared-memory stages
 // filled by cp.async.  Tiles are stored row major in bf16 with rows padded
 // by 16 bytes, so that the 8 rows an ldmatrix reads fall in distinct banks.
+// Quantized K/V arrive as one-byte codes and are turned into such tiles in
+// shared memory (the kvq forms, below).
 //
 // kernels/common.py hashes every .cuh into each library's name, so an edit
 // here rebuilds every kernel.
 
 #pragma once
+
+#include <cuda_fp8.h>
+
+#include <type_traits>
 
 #include "mma.cuh"
 
@@ -424,6 +430,203 @@ __device__ __forceinline__ void drop_step(volatile DropSmem* ds, uint32_t bh,
 __device__ __forceinline__ float drop_scale(uint32_t bits, int j, int e,
                                             float keep_scale) {
   return (bits >> (4 * j + e)) & 1u ? keep_scale : 0.f;
+}
+
+// --- quantized K/V (the kvq forms) ------------------------------------------
+//
+// tpu_flash/kernels/flash_attention.py's quantized forms (quantized, scaled;
+// _fwd_kernel :541-573, :609-617, _bwd_s2_dp :1014, the dQ products :1204,
+// :1370): k and v are one-byte codes [B, Hkv, Lk, D], int8, or e4m3 where
+// the call says fp8 (a run-time flag of the conversion).  Each flash kernel
+// has quantized forms (template value kQuant) beside its others, for every
+// mask and dropout form: kKvToken reads fp32 scales [B, Hkv, Lk] by key,
+// which multiply the fp32 scores and P in the forward (S2 = (q scale2 .
+// codes) ks, P.V on P vs) and dP and dS in the backward (dP = (dO . codes)
+// vs, dQ on dS ks), as the JAX bodies fold them, each product rounded to
+// fp32; kKvChannel reads no scale (the wrapper folds the [B, Hkv, D] scales
+// into q and dO and unfolds the outputs).  The codes arrive by cp.async, a
+// byte an element, into shared memory, and one pass of the block turns each
+// tile into the bf16 tile [R][P] that the ldmatrix / mma.sync path reads:
+// every int8 and e4m3 value is a bf16, so the products are exact in the
+// codes.  e4m3 converts by the card's cvt (subnormals kept, where the JAX
+// package's bit rebuild flushes them).  The forms without quantization are
+// compiled from the same code with kQuant kKvNone, every quantized branch
+// under if constexpr.
+
+constexpr int kKvNone = 0, kKvToken = 1, kKvChannel = 2;
+
+// A form's parameters with the quantized K/V's beside them.
+template <typename Base, int kQuant>
+struct Quantized : Base {
+  const float* k_scale;   // kKvToken: fp32 [B, Hkv, Lk]; else null
+  const float* v_scale;
+  int fp8;                // the codes are e4m3 (else int8)
+};
+
+template <typename Base, int kQuant>
+using QuantOf =
+    std::conditional_t<kQuant == kKvNone, Base, Quantized<Base, kQuant>>;
+
+template <typename Prm>
+struct QuantTrait {
+  static constexpr int value = kKvNone;
+};
+template <typename Base, int kQuant>
+struct QuantTrait<Quantized<Base, kQuant>> {
+  static constexpr int value = kQuant;
+};
+// The quantization of a parameter struct.
+template <typename Prm>
+constexpr int kQuantOf = QuantTrait<Prm>::value;
+
+// A call's quantized K/V (the kvq entries' last arguments before the
+// stream): the token scales (null for channel codes) and the code type.
+struct KvqCall {
+  const float* k_scale;
+  const float* v_scale;
+  int fp8;
+};
+
+// Whether a call's quantized K/V suit the forms of kQuant: token scales,
+// both, for kKvToken; none for kKvChannel (and kKvNone).
+__host__ inline bool kvq_args_ok(int kQuant, const KvqCall& kvq) {
+  return kQuant == kKvToken ? kvq.k_scale && kvq.v_scale
+                            : !kvq.k_scale && !kvq.v_scale;
+}
+
+// The quantized K/V of a form's parameters (nulls without).
+template <typename Prm>
+__host__ __device__ inline KvqCall kvq_of(const Prm& p) {
+  if constexpr (kQuantOf<Prm> == kKvNone)
+    return KvqCall{nullptr, nullptr, 0};
+  else
+    return KvqCall{p.k_scale, p.v_scale, p.fp8};
+}
+
+// p as the form for kQuant takes it.
+template <int kQuant, typename Prm>
+__host__ inline QuantOf<Prm, kQuant> quantized(const Prm& p,
+                                               const KvqCall& q) {
+  if constexpr (kQuant == kKvNone)
+    return p;
+  else
+    return Quantized<Prm, kQuant>{p, q.k_scale, q.v_scale, q.fp8};
+}
+
+// Bytes of a stage of R rows of K and V codes and their token scales:
+// k codes [R][D], v codes [R][D], k scales [R], v scales [R].
+template <int D, int R>
+__host__ __device__ constexpr int kv_code_stage_bytes() {
+  return 2 * R * D + 2 * R * 4;
+}
+
+// The 16-byte pieces of rows r0 .. r0 + R - 1 of a [rows, D] array of
+// one-byte codes at src (after row base) into dst [R][D]; rows at or past
+// n are zeros.
+template <int D, int R>
+__device__ __forceinline__ void load_codes(uint8_t* dst, const void* src,
+                                           size_t base, int r0, int n,
+                                           int tid) {
+  constexpr int kPieces = R * D / 16;
+#pragma unroll
+  for (int l = 0; l < (kPieces + kTcThreads - 1) / kTcThreads; ++l) {
+    const int idx = tid + l * kTcThreads;
+    if (kPieces % kTcThreads != 0 && idx >= kPieces) break;
+    const int r = idx / (D / 16), c = (idx % (D / 16)) * 16;
+    const bool ok = r0 + r < n;
+    cp_async16(dst + r * D + c,
+               static_cast<const uint8_t*>(src) +
+                   (base + (ok ? r0 + r : 0)) * D + c,
+               ok);
+  }
+}
+
+// The token scales of rows r0 .. r0 + R - 1 (after row base) of k_scale
+// and v_scale into ks [R] and vs [R], 0 at or past n: threads 0 .. 2R - 1.
+template <int R>
+__device__ __forceinline__ void load_kv_scales(float* ks, float* vs,
+                                               const float* k_scale,
+                                               const float* v_scale,
+                                               size_t base, int r0, int n,
+                                               int tid) {
+  static_assert(2 * R <= kTcThreads, "a thread a scale");
+  if (tid < 2 * R) {
+    const int r = tid % R;
+    const bool ok = r0 + r < n;
+    cp_async4((tid < R ? ks : vs) + r,
+              (tid < R ? k_scale : v_scale) + base + (ok ? r0 + r : 0), ok);
+  }
+}
+
+// Four codes (the lowest byte first), int8 or e4m3, as two bf16 pairs,
+// exactly.
+__device__ __forceinline__ uint2 codes4_bf16(uint32_t w, bool fp8) {
+  float f[4];
+  if (fp8) {
+    const float2 a = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(
+        static_cast<__nv_fp8x2_storage_t>(w & 0xffffu), __NV_E4M3)));
+    const float2 b = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(
+        static_cast<__nv_fp8x2_storage_t>(w >> 16), __NV_E4M3)));
+    f[0] = a.x;
+    f[1] = a.y;
+    f[2] = b.x;
+    f[3] = b.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      f[i] = static_cast<float>(static_cast<int>(w << (24 - 8 * i)) >> 24);
+  }
+  return make_uint2(bf16_pair_rn(f[0], f[1]), bf16_pair_rn(f[2], f[3]));
+}
+
+// A tile of R rows of D codes [R][D] into bf16 [R][P] (TcShape's layout,
+// also one plane of the fp32 forms'), 16 codes a thread at a time.
+template <int D, int R>
+__device__ __forceinline__ void convert_codes(bf16* dst, const uint8_t* src,
+                                              bool fp8, int tid) {
+  constexpr int kPieces = R * D / 16;
+#pragma unroll
+  for (int l = 0; l < (kPieces + kTcThreads - 1) / kTcThreads; ++l) {
+    const int idx = tid + l * kTcThreads;
+    if (kPieces % kTcThreads != 0 && idx >= kPieces) break;
+    const int r = idx / (D / 16), c = (idx % (D / 16)) * 16;
+    const uint4 w = *reinterpret_cast<const uint4*>(src + r * D + c);
+    const uint2 a = codes4_bf16(w.x, fp8), b = codes4_bf16(w.y, fp8);
+    const uint2 e = codes4_bf16(w.z, fp8), f = codes4_bf16(w.w, fp8);
+    bf16* row = dst + r * TcShape<D>::P + c;
+    *reinterpret_cast<uint4*>(row) = make_uint4(a.x, a.y, b.x, b.y);
+    *reinterpret_cast<uint4*>(row + 8) = make_uint4(e.x, e.y, f.x, f.y);
+  }
+}
+
+// A step's scores times their keys' scales, where the columns are keys
+// (the forward and the dQ pass): element [j][e] is key k0 + 8 j +
+// 2 (lane % 4) + e % 2 of the tile whose scales sc holds; each product
+// rounded to fp32 (no fused add).
+template <int N>
+__device__ __forceinline__ void scale_cols(float (&s)[N / 8][4],
+                                           const float* sc, int k0,
+                                           int lane) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const float2 x =
+        *reinterpret_cast<const float2*>(sc + k0 + 8 * j + 2 * (lane & 3));
+    s[j][0] = __fmul_rn(s[j][0], x.x);
+    s[j][1] = __fmul_rn(s[j][1], x.y);
+    s[j][2] = __fmul_rn(s[j][2], x.x);
+    s[j][3] = __fmul_rn(s[j][3], x.y);
+  }
+}
+
+// The same where the rows are keys (the KV-outer bodies' S^T and dP^T):
+// the thread's two rows have the scales x[0] and x[1].
+template <int N>
+__device__ __forceinline__ void scale_rows(float (&s)[N / 8][4],
+                                           const float (&x)[2]) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = __fmul_rn(s[j][e], x[e >> 1]);
 }
 
 // --- the fp32 forms: six bf16 products a product (mma_x6) -------------------

@@ -74,7 +74,26 @@ p, as the JAX kernel's ones column rides its P.V product (``_fold_l``); at
 d = 128, and in fp32, it sums the fp32 p.  The TPU's tile sizes, ``q_pack``,
 ``score_layout`` and ``interpret`` have no counterpart: the kernels pick
 their own tiling.
-Quantized K/V is not ported yet (ROADMAP.md A5, B3c).
+
+Quantized K/V, as in the JAX package (``k_scale``, ``v_scale``,
+``kv_layout``, ``kv_scale_mode``): k and v are int8 or float8_e4m3fn codes
+with fp32 scales, and the kernels read the codes (1 byte an element) and
+turn each tile into bf16 in shared memory (every int8 and e4m3 value is a
+bf16; e4m3 subnormals are kept, where the JAX package's bit rebuild
+flushes them).  Token scales (``[B, Hkv, Lk]``) multiply the fp32 scores
+and P (``S2 = (q scale log2e . codes) * ks``, P.V on ``P * vs``) and, in
+the backward, dP and dS (``dP = (dO . codes) * vs``, dQ on ``dS * ks``);
+the normaliser sums the undropped fp32 P at every d (``fold_l`` is off).
+Channel scales (``[B, Hkv, d]``) never reach the kernels: the entries fold
+K's into q and V's into dO, and unfold out, dQ, dK and dV, as the JAX
+entries do.  dK and dV are straight-through, against the dequantized K/V.
+``"dl"`` codes (d-major, the TPU's layout) are transposed once by the
+entry.  Each kernel's quantized forms (a fourth template value, token or
+channel) are C entries of their own, built from ``<source>_kvq.cu`` (token)
+and ``<source>_kvqc.cu`` (channel), and count under the form's name +
+``KVQ[mode]``.  The fp32 forms multiply an
+fp32 operand by codes as three bf16 products (a code is one exact bf16
+plane), six where neither operand is a code (dK, dV).
 """
 
 from __future__ import annotations
@@ -111,6 +130,13 @@ HEAD_DIMS = (16, 32, 64, 128)
 # under the name (+ MASK) + DROP (its dropout instantiation).
 MASK = "_mask"
 DROP = "_drop"
+# A call with quantized K/V counts under the name (+ MASK, + DROP) + KVQ of
+# its granularity, and launches the C entry ``tf_<form>`` + KVQ_ENTRY of
+# the library of its granularity, ``<source>`` + KVQ (csrc/<source>_kvq.cu
+# and _kvqc.cu).
+KVQ = {"token": "_kvq", "channel": "_kvqc"}
+KVQ_ENTRY = "_kvq"
+CODE_DTYPES = (torch.int8, torch.float8_e4m3fn)
 LOG2E = 1.4426950408889634
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -122,11 +148,77 @@ def _dq_chunk(dtype: torch.dtype, d: int) -> int:
     return 32 if dtype == torch.float32 and d > 64 else 64
 
 
-def _not_ported(k_scale=None, v_scale=None) -> None:
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "quantized K/V in the flash-attention kernels is not ported yet "
-            "(ROADMAP.md, queue A item A5 and queue B item B3c)")
+# --- quantized K/V ------------------------------------------------------------
+
+class KvQuant(NamedTuple):
+    """A call's quantized K/V below the entries (k and v being int8 or
+    float8_e4m3fn codes ``[B, Hkv, Lk, d]``): ``mode`` "token" with the fp32
+    scales ``[B, Hkv, Lk]`` that the kernels fold into the scores and P
+    (dP and dS in the backward), or "channel", whose ``[B, Hkv, d]`` scales
+    the entries fold outside the kernels (None below them)."""
+
+    mode: str
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
+
+    @property
+    def token(self) -> bool:
+        return self.mode == "token"
+
+    def inside(self) -> "KvQuant":
+        """What the kernels and plain versions take: channel scales
+        stay with the entry."""
+        return self if self.token else KvQuant("channel")
+
+
+def check_kv_quant(q, k, v, k_scale=None, v_scale=None, kv_layout="ld",
+                   kv_scale_mode="token"):
+    """``(k, v, kvq)``: the JAX entries' checks of the quantized-K/V
+    arguments (tpu_flash/kernels/flash_attention.py:783-791), "dl" codes
+    transposed to ``[B, Hkv, Lk, d]``, the scales fp32 on q's device, and
+    ``kvq`` a ``KvQuant`` (None without scales)."""
+    if kv_scale_mode not in ("token", "channel"):
+        raise ValueError(f"kv_scale_mode must be 'token' or 'channel', "
+                         f"got {kv_scale_mode!r}")
+    if kv_layout not in ("ld", "dl"):
+        raise ValueError(f"kv_layout must be 'ld' or 'dl', got {kv_layout!r}")
+    if k_scale is None:
+        if v_scale is not None:
+            raise ValueError("v_scale without k_scale: quantized K/V takes "
+                             "both")
+        return k, v, None
+    if v_scale is None:
+        raise ValueError("k_scale without v_scale: quantized K/V takes both")
+    if k.dtype not in CODE_DTYPES or v.dtype != k.dtype:
+        raise TypeError(f"quantized K/V takes int8 or float8_e4m3fn codes "
+                        f"of one dtype, got {k.dtype} and {v.dtype}")
+    if kv_layout == "dl":
+        k, v = k.transpose(-1, -2), v.transpose(-1, -2)
+    B, Hkv, Lk, d = k.shape
+    want = (B, Hkv, Lk) if kv_scale_mode == "token" else (B, Hkv, d)
+    scales = []
+    for name, x in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if tuple(x.shape) != want:
+            raise ValueError(f"{name} must be {list(want)} in "
+                             f"{kv_scale_mode} mode, got {list(x.shape)}")
+        scales.append(x.to(device=q.device, dtype=torch.float32)
+                      .contiguous())
+    return k, v, KvQuant(kv_scale_mode, *scales)
+
+
+def _channel(x, s, g):
+    """``x`` ``[B, H, L, d]`` times the channel scales ``s`` ``[B, Hkv, d]``
+    of its KV heads (each taken by repeat), in fp32, rounded back to x's
+    dtype: the JAX entries' folds (:800-806, :998-1003, :1843-1866)."""
+    return (x.float() * _expand(s, g)[:, :, None, :]).to(x.dtype)
+
+
+def _token_scales(kvq, g):
+    """Token scales by query head, ``[B, H, 1, Lk]`` each, or Nones."""
+    if kvq is None or not kvq.token:
+        return None, None
+    return tuple(_expand(x, g)[:, :, None, :] for x in (kvq.k_scale,
+                                                         kvq.v_scale))
 
 
 # --- attention dropout: the JAX package's counter-based hash ---------------
@@ -311,12 +403,17 @@ def _expand(x, g):
     return x if g == 1 else x.repeat_interleave(g, dim=1)
 
 
-def _scores2(q, k, scale, causal, q_offset, window=None, seg=None):
+def _scores2(q, k, scale, causal, q_offset, window=None, seg=None,
+             ks=None):
     """Base-2 scores ``[B, H, Lq, Lk]`` in fp32, -inf where masked: above
-    the causal diagonal, behind the window's band, across segments."""
+    the causal diagonal, behind the window's band, across segments.  With
+    token scales ``ks`` (``[B, H, 1, Lk]``) k holds codes and the product
+    is scaled by key (the JAX ``s2 * kscale``)."""
     g = q.shape[1] // k.shape[1]
     qs = (q.float() * (scale * LOG2E)).to(q.dtype).float()
     s2 = qs @ _expand(k, g).float().transpose(-1, -2)
+    if ks is not None:
+        s2.mul_(ks)
     if causal:
         Lq, Lk = q.shape[2], k.shape[2]
         rows = torch.arange(Lq, device=q.device)[:, None] + q_offset
@@ -361,25 +458,31 @@ def matmul_x6(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def flash_attention_forward_plain(q, k, v, *, causal=False, scale=None,
                                   q_offset=None, with_m=False, window=None,
-                                  segment_ids=None, drop=None):
+                                  segment_ids=None, drop=None, kvq=None):
     """The forward kernel's function in plain PyTorch: returns
     ``(out, lse, m)`` (``m`` None unless ``with_m``).  ``window`` and
-    ``segment_ids`` are taken as ``check_mask`` returns them, and ``drop``
-    as ``check_dropout`` does, unchecked, as in every plain version.  Under
-    dropout the normaliser sums the undropped fp32 P and P.V takes
-    ``P * keep / (1 - rate)`` (in the input dtype)."""
+    ``segment_ids`` are taken as ``check_mask`` returns them, ``drop`` as
+    ``check_dropout`` does and ``kvq`` as ``KvQuant.inside`` (k and v
+    codes, channel scales already folded), unchecked, as in every plain
+    version.  Under dropout the normaliser sums the undropped fp32 P and
+    P.V takes ``P * keep / (1 - rate)`` (in the input dtype); under token
+    scales too, and P.V takes ``P (* keep / (1 - rate)) * vs``."""
     B, H, Hkv, Lq, Lk, d = _shapes(q, k, v)
     scale, q_offset = _defaults(d, Lq, Lk, scale, q_offset)
-    s2 = _scores2(q, k, scale, causal, q_offset, window, segment_ids)
+    ks, vs = _token_scales(kvq, H // Hkv)
+    s2 = _scores2(q, k, scale, causal, q_offset, window, segment_ids, ks)
     m2 = s2.amax(-1, keepdim=True)
     empty = m2 == -math.inf
     p = torch.exp2(s2 - torch.where(empty, 0.0, m2))
-    if drop is None:
+    if drop is None and vs is None:
         pv = p.to(q.dtype).float()
         l = (pv if _fold_l(d) else p).sum(-1, keepdim=True)
     else:
         l = p.sum(-1, keepdim=True)
-        pv = _as_input_dtype(_apply_keep(p, drop), q.dtype)
+        pv = p if drop is None else _apply_keep(p, drop)
+        if vs is not None:
+            pv.mul_(vs)
+        pv = _as_input_dtype(pv, q.dtype)
     acc = pv @ _expand(v, H // Hkv).float()
     out = torch.where(empty, 0.0, acc / torch.where(empty, 1.0, l))
     m_nat = m2[..., 0] * (1.0 / LOG2E)
@@ -388,19 +491,23 @@ def flash_attention_forward_plain(q, k, v, *, causal=False, scale=None,
 
 
 def _p_ds(q, k, v, do, lse, delta, causal, scale, q_offset, window=None,
-          seg=None, drop=None):
+          seg=None, drop=None, kvq=None):
     """The recompute every backward shares: ``P = exp2(S2 - lse * log2e)``
     and ``dS = P * (dP - D)``, fp32 ``[B, H, Lq, Lk]`` each, built in
     place (two such tensors live at a time).  Rows with ``lse = -inf`` get
     P = 0, not ``exp(+inf)``.  Under dropout dP is scaled by the keep
     multiplier before D is taken off (D unchanged), and the P returned is
     ``P * keep / (1 - rate)``, the operand of dV (the JAX ``_bwd_finish``,
-    :1093-1105)."""
-    s2 = _scores2(q, k, scale, causal, q_offset, window, seg)
+    :1093-1105).  Under token scales S2 and dP are scaled by key
+    (:1043-1066)."""
+    g = q.shape[1] // k.shape[1]
+    ks, vs = _token_scales(kvq, g)
+    s2 = _scores2(q, k, scale, causal, q_offset, window, seg, ks)
     lse2 = torch.where(torch.isneginf(lse), math.inf, lse.float() * LOG2E)
     p = s2.sub_(lse2[..., None]).exp2_()
-    g = q.shape[1] // k.shape[1]
     dp = do.float() @ _expand(v, g).float().transpose(-1, -2)
+    if vs is not None:
+        dp.mul_(vs)
     if drop is not None:
         _apply_keep(dp, drop)
     ds = dp.sub_(delta[..., None]).mul_(p)
@@ -415,72 +522,85 @@ def _as_input_dtype(x, dtype):
     return x if dtype == torch.float32 else x.copy_(x.to(dtype))
 
 
+def _dq_operand(ds, kvq, g, dtype):
+    """dS as the dQ product's operand: ``dS * ks`` by key under token
+    scales (a new tensor; JAX's ``dsk``, :1204-1210), rounded to the input
+    dtype."""
+    ks, _ = _token_scales(kvq, g)
+    return _as_input_dtype(ds if ks is None else ds * ks, dtype)
+
+
 def _dkv_plain(q, k, v, do, lse, delta, causal, scale, q_offset,
-               window=None, seg=None, drop=None):
+               window=None, seg=None, drop=None, kvq=None):
     B, H, Hkv, Lq, Lk, d = _shapes(q, k, v)
     p, ds = _p_ds(q, k, v, do, lse, delta, causal, scale, q_offset, window,
-                  seg, drop)
+                  seg, drop, kvq)
     dv = _as_input_dtype(p, q.dtype).transpose(-1, -2) @ do.float()
     del p
     dk = _as_input_dtype(ds, q.dtype).transpose(-1, -2) @ q.float()
     g = H // Hkv
     dk, dv = (x.reshape(B, Hkv, g, Lk, d).sum(2) for x in (dk, dv))
-    return (scale * dk).to(k.dtype), dv.to(v.dtype)
+    return (scale * dk).to(q.dtype), dv.to(q.dtype)
 
 
 def _dq_plain(q, k, v, do, lse, delta, causal, scale, q_offset,
-              window=None, seg=None, drop=None):
+              window=None, seg=None, drop=None, kvq=None):
     p, ds = _p_ds(q, k, v, do, lse, delta, causal, scale, q_offset, window,
-                  seg, drop)
+                  seg, drop, kvq)
     del p
     g = q.shape[1] // k.shape[1]
-    dq = _as_input_dtype(ds, q.dtype) @ _expand(k, g).float()
+    dq = _dq_operand(ds, kvq, g, q.dtype) @ _expand(k, g).float()
     return (scale * dq).to(q.dtype)
 
 
 def flash_attention_backward_plain(q, k, v, o, lse, do, dlse=None, *,
                                    causal=False, scale=None, q_offset=None,
-                                   window=None, segment_ids=None, drop=None):
+                                   window=None, segment_ids=None, drop=None,
+                                   kvq=None, delta=None):
     """The fused backward kernel's function in plain PyTorch: returns
-    ``(dq, dk, dv)`` from one recompute of P and dS."""
+    ``(dq, dk, dv)`` from one recompute of P and dS.  ``kvq`` as in the
+    forward's plain version (dK and dV in q's dtype); ``delta``, D formed
+    by the caller, in place of ``o`` and ``dlse``."""
     B, H, Hkv, Lq, Lk, d = _shapes(q, k, v)
     scale, q_offset = _defaults(d, Lq, Lk, scale, q_offset)
     g = H // Hkv
-    p, ds = _p_ds(q, k, v, do, lse, _delta(o, do, dlse), causal, scale,
-                  q_offset, window, segment_ids, drop)
+    p, ds = _p_ds(q, k, v, do, lse,
+                  _delta(o, do, dlse) if delta is None else delta, causal,
+                  scale, q_offset, window, segment_ids, drop, kvq)
+    dq = scale * (_dq_operand(ds, kvq, g, q.dtype) @ _expand(k, g).float())
     pb, dsb = _as_input_dtype(p, q.dtype), _as_input_dtype(ds, q.dtype)
-    dq = scale * (dsb @ _expand(k, g).float())
     dk = dsb.transpose(-1, -2) @ q.float()
     dv = pb.transpose(-1, -2) @ do.float()
     dk, dv = (x.reshape(B, Hkv, g, Lk, d).sum(2) for x in (dk, dv))
-    return dq.to(q.dtype), (scale * dk).to(k.dtype), dv.to(v.dtype)
+    return dq.to(q.dtype), (scale * dk).to(q.dtype), dv.to(q.dtype)
 
 
 def flash_attention_backward_dkv_plain(q, k, v, o, lse, do, dlse=None, *,
                                        causal=False, scale=None,
                                        q_offset=None, window=None,
-                                       segment_ids=None, drop=None):
+                                       segment_ids=None, drop=None,
+                                       kvq=None):
     """The dK/dV pass in plain PyTorch: returns ``(dk, dv)``."""
     _, _, _, Lq, Lk, d = _shapes(q, k, v)
     scale, q_offset = _defaults(d, Lq, Lk, scale, q_offset)
     return _dkv_plain(q, k, v, do, lse, _delta(o, do, dlse), causal, scale,
-                      q_offset, window, segment_ids, drop)
+                      q_offset, window, segment_ids, drop, kvq)
 
 
 def flash_attention_backward_dq_plain(q, k, v, o, lse, do, dlse=None, *,
                                       causal=False, scale=None,
                                       q_offset=None, window=None,
-                                      segment_ids=None, drop=None):
+                                      segment_ids=None, drop=None, kvq=None):
     """The dQ pass in plain PyTorch: returns ``dq``."""
     _, _, _, Lq, Lk, d = _shapes(q, k, v)
     scale, q_offset = _defaults(d, Lq, Lk, scale, q_offset)
     return _dq_plain(q, k, v, do, lse, _delta(o, do, dlse), causal, scale,
-                     q_offset, window, segment_ids, drop)
+                     q_offset, window, segment_ids, drop, kvq)
 
 
-def _kernel_inputs(*tensors):
+def _kernel_inputs(*tensors, codes=()):
     """Contiguous, 16-byte aligned copies where needed; checks dtype,
-    device and head dim."""
+    device and head dim (``codes``: quantized k and v, int8 or e4m3)."""
     dev, dtype = tensors[0].device, tensors[0].dtype
     if dtype not in _DTYPES:
         raise TypeError(f"flash attention takes float32 or bfloat16, got "
@@ -492,21 +612,39 @@ def _kernel_inputs(*tensors):
         if t.device != dev or t.dtype != dtype:
             raise ValueError("q, k, v (and o, do) must share one device and "
                              "dtype")
-    return [kernel_input(t, dev) for t in tensors]
+    for t in codes:
+        if t.device != dev or t.dtype not in CODE_DTYPES:
+            raise ValueError("quantized k and v must be int8 or e4m3 codes "
+                             "on q's device")
+    return [kernel_input(t, dev) for t in (*tensors, *codes)]
 
 
 def _form_name(kernel: str, dtype: torch.dtype, masked: bool = False,
-               dropped: bool = False) -> str:
+               dropped: bool = False, quant: str | None = None) -> str:
     """``kernel``'s launch-count name in its form for ``dtype`` (its C entry
-    is ``tf_`` + the name without ``MASK`` and ``DROP``), at every head dim
-    of ``HEAD_DIMS``: bf16 the tensor-core form, the name + ``TC``
+    is ``tf_`` + the name without ``MASK``, ``DROP`` and ``KVQ``), at every
+    head dim of ``HEAD_DIMS``: bf16 the tensor-core form, the name + ``TC``
     (``mma.sync`` bf16 products with fp32 sums, the TPU kernels' numerics);
     fp32 the six-product form, the name + ``X6`` (each fp32 product six
     ``mma.sync`` bf16 products, ``matmul_x6``, never TF32); + ``MASK`` for
     the masked instantiation a window or segment ids launch, + ``DROP`` for
-    the dropout instantiation."""
+    the dropout instantiation, + ``KVQ[quant]`` for the quantized-K/V one
+    (``quant`` "token" or "channel")."""
     return (kernel + (TC if dtype == torch.bfloat16 else X6)
-            + (MASK if masked else "") + (DROP if dropped else ""))
+            + (MASK if masked else "") + (DROP if dropped else "")
+            + (KVQ[quant] if quant else ""))
+
+
+def _entry(source: str, kernel: str, dtype, argtypes, kvq):
+    """The C entry of ``kernel``'s form for ``dtype``: in ``source``, or
+    with quantized K/V its ``_kvq`` entry in the library of the
+    granularity, ``source + KVQ[kvq.mode]``, which takes ``_KVQ_ARGS``
+    before the stream."""
+    symbol = "tf_" + _form_name(kernel, dtype)
+    if kvq is None:
+        return entry(source, symbol, argtypes)
+    return entry(source + KVQ[kvq.mode], symbol + KVQ_ENTRY,
+                 argtypes[:-1] + _KVQ_ARGS + argtypes[-1:])
 
 
 def _mask_args(window, seg):
@@ -533,25 +671,47 @@ def _drop_args(drop: Dropout | None):
     return drop.seed.data_ptr(), drop.threshold, drop.scale
 
 
+# The quantized entries' last arguments before the stream: the token
+# scales' pointers (None for channel codes) and whether the codes are e4m3.
+_KVQ_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+
+
+def _kvq_args(kvq: KvQuant | None, k) -> tuple:
+    """The quantized entries' arguments of a call (none without
+    quantization)."""
+    if kvq is None:
+        return ()
+    ks, vs = ((kvq.k_scale, kvq.v_scale) if kvq.token else (None, None))
+    return (None if ks is None else ks.data_ptr(),
+            None if vs is None else vs.data_ptr(),
+            int(k.dtype == torch.float8_e4m3fn))
+
+
+def _quant_name(kvq):
+    return None if kvq is None else kvq.mode
+
+
 def _launch_forward(q, k, v, causal, scale, q_offset, with_m, window=None,
-                    seg=None, drop=None):
+                    seg=None, drop=None, kvq=None):
     B, H, Hkv, Lq, Lk, d = _shapes(q, k, v)
     scale, q_offset = _defaults(d, Lq, Lk, scale, q_offset)
-    q, k, v = _kernel_inputs(q, k, v)
+    q, k, v = (_kernel_inputs(q, k, v) if kvq is None
+               else _kernel_inputs(q, codes=(k, v)))
     win, seg_ptr, masked = _mask_args(window, seg)
-    name = _form_name(KERNEL_FWD, q.dtype, masked, drop is not None)
+    name = _form_name(KERNEL_FWD, q.dtype, masked, drop is not None,
+                      _quant_name(kvq))
     out = torch.empty_like(q)
     lse = torch.empty(B, H, Lq, dtype=torch.float32, device=q.device)
     m = torch.empty_like(lse) if with_m else None
-    lib, fn = entry(KERNEL_FWD, "tf_" + _form_name(KERNEL_FWD, q.dtype),
-                    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
-                    + [ctypes.c_float] + _MASK_DROP_ARGS)
+    lib, fn = _entry(KERNEL_FWD, KERNEL_FWD, q.dtype,
+                     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+                     + [ctypes.c_float] + _MASK_DROP_ARGS, kvq)
     err = call_on_stream(fn, q.device, q.data_ptr(), k.data_ptr(),
                          v.data_ptr(), out.data_ptr(), lse.data_ptr(),
                          None if m is None else m.data_ptr(),
                          B, H, Hkv, Lq, Lk, d, _DTYPES[q.dtype], int(causal),
                          q_offset, scale * LOG2E, win, seg_ptr,
-                         *_drop_args(drop))
+                         *_drop_args(drop), *_kvq_args(kvq, k))
     check_cuda(err, lib, f"{name} kernel")
     launch_counts[name] += 1
     return out, lse, m
@@ -561,36 +721,48 @@ def _bwd_inputs(q, k, v, o, lse, do, dlse):
     """The kernels' inputs of a backward: q, k, v and dO contiguous and
     aligned, lse fp32, and ``D = rowsum(dO * O) - dlse``, one torch op
     outside the kernels as it is XLA outside Pallas in the JAX package."""
+    _kernel_inputs(q, o)     # o's dtype and device
+    return _delta_inputs(q, k, v, lse, do, _delta(o, do, dlse))
+
+
+def _delta_inputs(q, k, v, lse, do, delta, quantized=False):
+    """``_bwd_inputs`` from D formed by the caller (the channel-scaled
+    backward takes D of the raw dO and O, then folds dO)."""
     B, H, _, Lq, _, _ = _shapes(q, k, v)
-    q, k, v, o, do = _kernel_inputs(q, k, v, o, do)
+    q, do, k, v = (_kernel_inputs(q, do, codes=(k, v)) if quantized
+                   else _kernel_inputs(q, do, k, v))
     if lse.shape != (B, H, Lq):
         raise ValueError(f"lse must be [B, H, Lq] = {(B, H, Lq)}")
     lse = lse.to(device=q.device, dtype=torch.float32).contiguous()
-    return q, k, v, do, lse, _delta(o, do, dlse).contiguous()
+    return q, k, v, do, lse, delta.float().contiguous()
 
 
 def _launch_backward(q, k, v, do, lse, delta, causal, scale, q_offset,
-                     window=None, seg=None, drop=None):
+                     window=None, seg=None, drop=None, kvq=None):
     """The fused backward in the form for q's dtype; returns
     ``(dq, dk, dv)``."""
     B, H, Hkv, Lq, Lk, d = _shapes(q, k, v)
     win, seg_ptr, masked = _mask_args(window, seg)
-    name = _form_name(KERNEL_BWD, q.dtype, masked, drop is not None)
+    name = _form_name(KERNEL_BWD, q.dtype, masked, drop is not None,
+                      _quant_name(kvq))
     dq = torch.zeros(B, H, Lq, d, dtype=torch.float32, device=q.device)
     # the dQ adds made to each chunk of query rows (the kernel's fixed
     # order of adds)
     dq_order = torch.zeros(B * H * cdiv(Lq, _dq_chunk(q.dtype, d)),
                            dtype=torch.int32, device=q.device)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib, fn = entry(KERNEL_BWD, "tf_" + _form_name(KERNEL_BWD, q.dtype),
-                    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
-                    + [ctypes.c_float, ctypes.c_float] + _MASK_DROP_ARGS)
+    dk, dv = (torch.empty(k.shape, dtype=q.dtype, device=q.device)
+              for _ in range(2))
+    lib, fn = _entry(KERNEL_BWD, KERNEL_BWD, q.dtype,
+                     [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+                     + [ctypes.c_float, ctypes.c_float] + _MASK_DROP_ARGS,
+                     kvq)
     err = call_on_stream(fn, q.device, q.data_ptr(), k.data_ptr(),
                          v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                          delta.data_ptr(), dq.data_ptr(), dq_order.data_ptr(),
                          dk.data_ptr(), dv.data_ptr(), B, H, Hkv, Lq, Lk, d,
                          _DTYPES[q.dtype], int(causal), q_offset, scale,
-                         scale * LOG2E, win, seg_ptr, *_drop_args(drop))
+                         scale * LOG2E, win, seg_ptr, *_drop_args(drop),
+                         *_kvq_args(kvq, k))
     check_cuda(err, lib, f"{name} kernel")
     launch_counts[name] += 1
     return dq.mul_(scale).to(q.dtype), dk, dv
@@ -602,39 +774,43 @@ def _two_pass_args(n_pointers):
 
 
 def _launch_dkv(q, k, v, do, lse, delta, causal, scale, q_offset,
-                window=None, seg=None, drop=None):
+                window=None, seg=None, drop=None, kvq=None):
     """The dK/dV pass in the form for q's dtype; returns ``(dk, dv)``."""
     B, H, Hkv, Lq, Lk, d = _shapes(q, k, v)
     win, seg_ptr, masked = _mask_args(window, seg)
-    name = _form_name(KERNEL_DKV, q.dtype, masked, drop is not None)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib, fn = entry(SOURCE_TWO_PASS, "tf_" + _form_name(KERNEL_DKV, q.dtype),
-                    _two_pass_args(8))
+    name = _form_name(KERNEL_DKV, q.dtype, masked, drop is not None,
+                      _quant_name(kvq))
+    dk, dv = (torch.empty(k.shape, dtype=q.dtype, device=q.device)
+              for _ in range(2))
+    lib, fn = _entry(SOURCE_TWO_PASS, KERNEL_DKV, q.dtype,
+                     _two_pass_args(8), kvq)
     err = call_on_stream(fn, q.device, q.data_ptr(), k.data_ptr(),
                          v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                          delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                          B, H, Hkv, Lq, Lk, d, _DTYPES[q.dtype], int(causal),
                          q_offset, scale, scale * LOG2E, win, seg_ptr,
-                         *_drop_args(drop))
+                         *_drop_args(drop), *_kvq_args(kvq, k))
     check_cuda(err, lib, f"{name} kernel")
     launch_counts[name] += 1
     return dk, dv
 
 
 def _launch_dq(q, k, v, do, lse, delta, causal, scale, q_offset,
-               window=None, seg=None, drop=None):
+               window=None, seg=None, drop=None, kvq=None):
     """The dQ pass in the form for q's dtype; returns ``dq``."""
     B, H, Hkv, Lq, Lk, d = _shapes(q, k, v)
     win, seg_ptr, masked = _mask_args(window, seg)
-    name = _form_name(KERNEL_DQ, q.dtype, masked, drop is not None)
+    name = _form_name(KERNEL_DQ, q.dtype, masked, drop is not None,
+                      _quant_name(kvq))
     dq = torch.empty_like(q)
-    lib, fn = entry(SOURCE_TWO_PASS, "tf_" + _form_name(KERNEL_DQ, q.dtype),
-                    _two_pass_args(7))
+    lib, fn = _entry(SOURCE_TWO_PASS, KERNEL_DQ, q.dtype, _two_pass_args(7),
+                     kvq)
     err = call_on_stream(fn, q.device, q.data_ptr(), k.data_ptr(),
                          v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                          delta.data_ptr(), dq.data_ptr(), B, H, Hkv, Lq, Lk,
                          d, _DTYPES[q.dtype], int(causal), q_offset, scale,
-                         scale * LOG2E, win, seg_ptr, *_drop_args(drop))
+                         scale * LOG2E, win, seg_ptr, *_drop_args(drop),
+                         *_kvq_args(kvq, k))
     check_cuda(err, lib, f"{name} kernel")
     launch_counts[name] += 1
     return dq
@@ -643,7 +819,8 @@ def _launch_dq(q, k, v, do, lse, delta, causal, scale, q_offset,
 def flash_attention_forward(q, k, v, *, causal=False, scale=None,
                             q_offset=None, with_m=False, dropout_rate=0.0,
                             dropout_seed=0, window=None, segment_ids=None,
-                            k_scale=None, v_scale=None,
+                            k_scale=None, v_scale=None, kv_layout="ld",
+                            kv_scale_mode="token",
                             impl: str | None = None):
     """Flash-attention forward; returns ``(out, lse, m)`` with ``out`` in
     q's dtype and ``lse`` / ``m`` fp32 ``[B, H, Lq]`` (``m`` None unless
@@ -656,82 +833,108 @@ def flash_attention_forward(q, k, v, *, causal=False, scale=None,
     ``dropout_seed`` (an int, or an int32 tensor of 1 to 3 values:
     ``[seed, batch offset, head offset]``); lse stays that of the undropped
     softmax.
+    ``k_scale`` and ``v_scale`` make k and v int8 or float8_e4m3fn codes
+    (``kv_layout`` "ld", ``[B, Hkv, Lk, d]``, or "dl", d-major) with fp32
+    scales: ``kv_scale_mode`` "token", ``[B, Hkv, Lk]``, or "channel",
+    ``[B, Hkv, d]``.
     ``impl``: ``None`` launches the CUDA kernel for CUDA tensors and runs the
     plain version for CPU tensors; ``"plain"`` forces the plain version."""
-    _not_ported(k_scale, v_scale)
+    k, v, kvq = check_kv_quant(q, k, v, k_scale, v_scale, kv_layout,
+                               kv_scale_mode)
     window, seg = check_mask(q, k, causal, window, segment_ids)
     drop = check_dropout(q, dropout_rate, dropout_seed)
     return _forward(q, k, v, causal, scale, q_offset, with_m, window, seg,
-                    impl, drop)
+                    impl, drop, kvq)
 
 
 def _forward(q, k, v, causal, scale, q_offset, with_m, window, seg, impl,
-             drop=None):
-    """The forward on a validated mask and dropout (``check_mask``'s and
-    ``check_dropout``'s results)."""
+             drop=None, kvq=None):
+    """The forward on a validated mask, dropout and quantization
+    (``check_mask``'s, ``check_dropout``'s and ``check_kv_quant``'s
+    results): channel scales fold into q and unfold from out here."""
+    g = q.shape[1] // k.shape[1]
+    if kvq is not None and not kvq.token:
+        q = _channel(q, kvq.k_scale, g)
+    inside = None if kvq is None else kvq.inside()
     if resolve_impl(impl, q) == "plain":
-        return flash_attention_forward_plain(
+        out, lse, m = flash_attention_forward_plain(
             q, k, v, causal=causal, scale=scale, q_offset=q_offset,
-            with_m=with_m, window=window, segment_ids=seg, drop=drop)
-    return _launch_forward(q, k, v, causal, scale, q_offset, with_m, window,
-                           seg, drop)
+            with_m=with_m, window=window, segment_ids=seg, drop=drop,
+            kvq=inside)
+    else:
+        out, lse, m = _launch_forward(q, k, v, causal, scale, q_offset,
+                                      with_m, window, seg, drop, inside)
+    if kvq is not None and not kvq.token:
+        out = _channel(out, kvq.v_scale, g)
+    return out, lse, m
+
+
+def _backward_args(q, k, v, causal, dropout_rate, dropout_seed, window,
+                   segment_ids, k_scale, v_scale, kv_layout, kv_scale_mode):
+    k, v, kvq = check_kv_quant(q, k, v, k_scale, v_scale, kv_layout,
+                               kv_scale_mode)
+    window, seg = check_mask(q, k, causal, window, segment_ids)
+    return k, v, window, seg, check_dropout(q, dropout_rate,
+                                            dropout_seed), kvq
 
 
 def flash_attention_backward_fused(q, k, v, o, lse, do, dlse=None, *,
                                    causal=False, scale=None, q_offset=None,
                                    dropout_rate=0.0, dropout_seed=0,
                                    window=None, segment_ids=None,
+                                   k_scale=None, v_scale=None,
+                                   kv_layout="ld", kv_scale_mode="token",
                                    impl: str | None = None):
     """The fused single pass (``csrc/flash_attention_bwd.cu``): returns
     ``(dq, dk, dv)``.  Deterministic: dQ's adds run in a fixed order.
-    ``dropout_rate``, ``dropout_seed``, ``window``, ``segment_ids`` and
-    ``impl`` as in the forward."""
-    window, seg = check_mask(q, k, causal, window, segment_ids)
-    drop = check_dropout(q, dropout_rate, dropout_seed)
-    return _fused(q, k, v, o, lse, do, dlse, causal, scale, q_offset, window,
-                  seg, impl, drop)
+    The other arguments as in ``flash_attention_backward``."""
+    k, v, window, seg, drop, kvq = _backward_args(
+        q, k, v, causal, dropout_rate, dropout_seed, window, segment_ids,
+        k_scale, v_scale, kv_layout, kv_scale_mode)
+    return _run_backward(_fused, q, k, v, o, lse, do, dlse, causal, scale,
+                         q_offset, window, seg, impl, drop, kvq)
 
 
-def _fused(q, k, v, o, lse, do, dlse, causal, scale, q_offset, window, seg,
-           impl, drop=None):
-    _, _, _, Lq, Lk, d = _shapes(q, k, v)
-    scale, q_offset = _defaults(d, Lq, Lk, scale, q_offset)
+def _fused(q, k, v, lse, do, delta, causal, scale, q_offset, window, seg,
+           impl, drop=None, kvq=None):
     if resolve_impl(impl, q) == "plain":
         return flash_attention_backward_plain(
-            q, k, v, o, lse, do, dlse, causal=causal, scale=scale,
-            q_offset=q_offset, window=window, segment_ids=seg, drop=drop)
-    return _launch_backward(*_bwd_inputs(q, k, v, o, lse, do, dlse), causal,
-                            scale, q_offset, window, seg, drop)
+            q, k, v, None, lse, do, causal=causal, scale=scale,
+            q_offset=q_offset, window=window, segment_ids=seg, drop=drop,
+            kvq=kvq, delta=delta)
+    return _launch_backward(*_delta_inputs(q, k, v, lse, do, delta,
+                                           kvq is not None),
+                            causal, scale, q_offset, window, seg, drop, kvq)
 
 
 def flash_attention_backward_two_pass(q, k, v, o, lse, do, dlse=None, *,
                                       causal=False, scale=None,
                                       q_offset=None, dropout_rate=0.0,
                                       dropout_seed=0, window=None,
-                                      segment_ids=None,
+                                      segment_ids=None, k_scale=None,
+                                      v_scale=None, kv_layout="ld",
+                                      kv_scale_mode="token",
                                       impl: str | None = None):
     """The two passes (``csrc/flash_attention_bwd_two_pass.cu``): the dK/dV
     pass, then the dQ pass, from one ``D``; returns ``(dq, dk, dv)``.
     Deterministic: no atomics, each output written once.
-    ``dropout_rate``, ``dropout_seed``, ``window``, ``segment_ids`` and
-    ``impl`` as in the forward."""
-    window, seg = check_mask(q, k, causal, window, segment_ids)
-    drop = check_dropout(q, dropout_rate, dropout_seed)
-    return _two_pass(q, k, v, o, lse, do, dlse, causal, scale, q_offset,
-                     window, seg, impl, drop)
+    The other arguments as in ``flash_attention_backward``."""
+    k, v, window, seg, drop, kvq = _backward_args(
+        q, k, v, causal, dropout_rate, dropout_seed, window, segment_ids,
+        k_scale, v_scale, kv_layout, kv_scale_mode)
+    return _run_backward(_two_pass, q, k, v, o, lse, do, dlse, causal,
+                         scale, q_offset, window, seg, impl, drop, kvq)
 
 
-def _two_pass(q, k, v, o, lse, do, dlse, causal, scale, q_offset, window,
-              seg, impl, drop=None):
-    _, _, _, Lq, Lk, d = _shapes(q, k, v)
-    scale, q_offset = _defaults(d, Lq, Lk, scale, q_offset)
+def _two_pass(q, k, v, lse, do, delta, causal, scale, q_offset, window, seg,
+              impl, drop=None, kvq=None):
     if resolve_impl(impl, q) == "plain":
-        args = (q, k, v, do, lse, _delta(o, do, dlse), causal, scale,
-                q_offset, window, seg, drop)
+        args = (q, k, v, do, lse, delta, causal, scale, q_offset, window,
+                seg, drop, kvq)
         dk, dv = _dkv_plain(*args)
         return _dq_plain(*args), dk, dv
-    args = (*_bwd_inputs(q, k, v, o, lse, do, dlse), causal, scale, q_offset,
-            window, seg, drop)
+    args = (*_delta_inputs(q, k, v, lse, do, delta, kvq is not None),
+            causal, scale, q_offset, window, seg, drop, kvq)
     dk, dv = _launch_dkv(*args)
     return _launch_dq(*args), dk, dv
 
@@ -740,29 +943,53 @@ def flash_attention_backward(q, k, v, o, lse, do, dlse=None, *,
                              causal=False, scale=None, q_offset=None,
                              dropout_rate=0.0, dropout_seed=0, window=None,
                              segment_ids=None, k_scale=None, v_scale=None,
+                             kv_layout="ld", kv_scale_mode="token",
                              impl: str | None = None):
-    """Flash-attention backward; returns ``(dq, dk, dv)`` in the input
-    dtype, dk and dv ``[B, Hkv, Lk, d]``.  ``dlse`` is a cotangent on the
-    logsumexp output (it shifts ``D``).  The form is the JAX package's for
-    these shapes (``backward_form.two_pass``): the fused single pass, or the
-    two passes.  ``dropout_rate`` and ``dropout_seed`` (the forward's, so
-    that the mask is the same), ``window``, ``segment_ids`` and ``impl`` as
-    in the forward (the rule takes the window)."""
-    _not_ported(k_scale, v_scale)
-    window, seg = check_mask(q, k, causal, window, segment_ids)
-    drop = check_dropout(q, dropout_rate, dropout_seed)
+    """Flash-attention backward; returns ``(dq, dk, dv)`` in q's dtype, dk
+    and dv ``[B, Hkv, Lk, d]``.  ``dlse`` is a cotangent on the logsumexp
+    output (it shifts ``D``).  The form is the JAX package's for these
+    shapes (``backward_form.two_pass``, on q's itemsize): the fused single
+    pass, or the two passes.  ``dropout_rate`` and ``dropout_seed`` (the
+    forward's, so that the mask is the same), ``window``, ``segment_ids``,
+    the quantized K/V's codes and scales and ``impl`` as in the forward
+    (the rule takes the window); with quantized K/V, dK and dV are the
+    gradients of the dequantized K/V (straight-through)."""
+    k, v, window, seg, drop, kvq = _backward_args(
+        q, k, v, causal, dropout_rate, dropout_seed, window, segment_ids,
+        k_scale, v_scale, kv_layout, kv_scale_mode)
     return _backward(q, k, v, o, lse, do, dlse, causal, scale, q_offset,
-                     window, seg, impl, drop)
+                     window, seg, impl, drop, kvq)
 
 
 def _backward(q, k, v, o, lse, do, dlse, causal, scale, q_offset, window,
-              seg, impl, drop=None):
-    """The backward in the JAX rule's form on a validated mask and dropout
-    (``check_mask``'s and ``check_dropout``'s results)."""
+              seg, impl, drop=None, kvq=None):
+    """The backward in the JAX rule's form on a validated mask, dropout and
+    quantization (``check_mask``'s, ``check_dropout``'s and
+    ``check_kv_quant``'s results)."""
     _, _, _, Lq, Lk, d = _shapes(q, k, v)
     form = (_two_pass if two_pass(Lq, Lk, d, q.element_size(), bool(causal),
                                   _defaults(d, Lq, Lk, scale, q_offset)[1],
                                   window)
             else _fused)
-    return form(q, k, v, o, lse, do, dlse, causal, scale, q_offset, window,
-                seg, impl, drop)
+    return _run_backward(form, q, k, v, o, lse, do, dlse, causal, scale,
+                         q_offset, window, seg, impl, drop, kvq)
+
+
+def _run_backward(form, q, k, v, o, lse, do, dlse, causal, scale, q_offset,
+                  window, seg, impl, drop, kvq):
+    """``form`` (``_fused`` or ``_two_pass``) from D of the raw dO and O;
+    channel scales fold into q and dO before it and unfold dQ, dK and dV
+    after it (the JAX entry, :1843-1866)."""
+    _, _, _, Lq, Lk, d = _shapes(q, k, v)
+    scale, q_offset = _defaults(d, Lq, Lk, scale, q_offset)
+    delta = _delta(o, do, dlse)
+    if kvq is None or kvq.token:
+        return form(q, k, v, lse, do, delta, causal, scale, q_offset, window,
+                    seg, impl, drop, kvq)
+    g = q.shape[1] // k.shape[1]
+    dq, dk, dv = form(_channel(q, kvq.k_scale, g), k, v, lse,
+                      _channel(do, kvq.v_scale, g), delta, causal, scale,
+                      q_offset, window, seg, impl, drop, kvq.inside())
+    return (_channel(dq, kvq.k_scale, g),
+            (dk.float() / kvq.k_scale[:, :, None, :]).to(dk.dtype),
+            (dv.float() / kvq.v_scale[:, :, None, :]).to(dv.dtype))

@@ -13,7 +13,10 @@ uncached forward attends with the flash-attention kernels
 (``attention_kind="flash"``, and ``"auto"`` from ``_FLASH_AUTO_MIN_L``), the
 fused masked-softmax kernels (``"fused"``) or the composed ("naive") graph;
 the flash and composed routes take ``cfg.window`` (sliding-window attention)
-and ``segment_ids`` (packed sequences); ``use_fused_kernel=True`` puts every LayerNorm, the cached forward's too, on
+and ``segment_ids`` (packed sequences); ``kv_quant`` (quantized-K/V
+training) runs the flash kernels' quantized forms, and below
+``_FLASH_AUTO_MIN_L`` on ``"auto"`` the composed graph on straight-through
+dequantized K/V, as in the JAX package; ``use_fused_kernel=True`` puts every LayerNorm, the cached forward's too, on
 the fused LayerNorm kernels.  What is not ported raises
 ``NotImplementedError`` and names the ROADMAP.md item that brings it.
 """
@@ -31,7 +34,8 @@ from tpu_flash_torch.kernels.common import resolve_device
 from tpu_flash_torch.kernels.decode import flash_decode_attention
 from tpu_flash_torch.nn import functional as F
 from tpu_flash_torch.nn.layers import Dropout, Embedding, LayerNorm, Linear
-from tpu_flash_torch.ops.attention import flash_attention
+from tpu_flash_torch.ops.attention import (dequantize_kv, flash_attention,
+                                           quantize_kv)
 from tpu_flash_torch.ops.fused import attn_softmax
 from tpu_flash_torch.ops.reference import (apply_segment_mask, causal_mask,
                                            dropout_keep_oracle, window_mask)
@@ -103,9 +107,13 @@ class DecoderConfig:
             raise ValueError(
                 f"kv_quant must be 'none', 'int8', 'fp8', 'int8_channel' "
                 f"or 'fp8_channel', got {self.kv_quant!r}")
+        if self.kv_quant != "none" and self.attention_kind in (
+                "fused", "naive"):
+            raise ValueError(
+                "kv_quant requires the flash attention path (got "
+                f"attention_kind={self.attention_kind!r}); the dense graphs "
+                "have no quantized-KV form")
         unported = [
-            (self.kv_quant != "none", "quantized-KV training (kv_quant)",
-             "A5 and queue B item B3c"),
             (self.positional == "rope", "positional='rope'", "A7"),
             (self.moe is not None, "moe", "A7"),
             (self.embedding_one_hot, "embedding_one_hot", "A7"),
@@ -122,6 +130,13 @@ class DecoderConfig:
     @property
     def kv_heads(self) -> int:
         return self.n_kv_head or self.n_head
+
+
+def _straight_through(x: torch.Tensor, mode: str) -> torch.Tensor:
+    """``x`` with the value of its quantized-and-dequantized self and the
+    gradient of the identity (JAX's ``x + stop_gradient(dq - x)``)."""
+    dq = dequantize_kv(*quantize_kv(x, mode), mode).to(x.dtype)
+    return x + (dq - x).detach()
 
 
 def attention_seed(generator: torch.Generator) -> torch.Tensor:
@@ -179,7 +194,16 @@ class MultiHeadAttention(torch.nn.Module):
                 else None)
         kind = c.attention_kind
         if kind == "auto":
-            kind = "flash" if q.shape[-2] >= _FLASH_AUTO_MIN_L else "naive"
+            if c.kv_quant != "none" and q.shape[-2] < _FLASH_AUTO_MIN_L:
+                # below the crossover, quantized-K/V training runs the
+                # composed graph on straight-through dequantized K/V, the
+                # same codes and scales as the kernels' (the JAX package's
+                # transformer.py:174-192)
+                k, v = (_straight_through(x, c.kv_quant) for x in (k, v))
+                kind = "naive"
+            else:
+                kind = ("flash" if c.kv_quant != "none"
+                        or q.shape[-2] >= _FLASH_AUTO_MIN_L else "naive")
         if kind == "fused":
             if c.window is not None:
                 raise NotImplementedError(
@@ -192,7 +216,7 @@ class MultiHeadAttention(torch.nn.Module):
         if kind == "flash":
             return flash_attention(
                 q, k, v, causal=c.causal, window=c.window,
-                segment_ids=segment_ids,
+                segment_ids=segment_ids, kv_quant=c.kv_quant,
                 dropout_rate=0.0 if seed is None else c.attn_dropout,
                 dropout_seed=0 if seed is None else seed, impl=impl)
         if k.shape[1] != q.shape[1]:     # GQA: repeat each KV head

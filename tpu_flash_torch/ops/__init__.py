@@ -3,11 +3,13 @@ masked softmax and LayerNorm, and the plain PyTorch oracles they are held
 against."""
 
 from tpu_flash_torch.ops.attention import (  # noqa: F401
+    dequantize_kv,
     flash_attention,
     flash_attention_with_residuals,
     flash_attn,
     flash_attn2,
     flash_attn_causal,
+    quantize_kv,
 )
 from tpu_flash_torch.ops.fused import (  # noqa: F401
     attn_softmax,
