@@ -137,6 +137,21 @@ ported paths:
   step at 2 layers and L=8192, where fp32 takes the two passes in their
   six-product form, with the kernels of a step and their time.
 
+* the machine-translation app: ``apps.machine_translation.main``, the CLI,
+  at the JAX CLI's defaults (the reference MT configuration: vocab 10000,
+  E 256, 8 heads, 4 layers, L 40, batch 129, dropout 0.1) on the
+  repository's German-English corpus, BPE trained in the run, BLEU after
+  every epoch over the card's flash decode: run (k) in bf16 with fp32
+  masters, the C++ batch ring and an int8 cache for BLEU, two epochs with a
+  checkpoint each, then resumed from it for a third; run (l) in fp32 over
+  packed rows with the fused LayerNorm, one epoch; each run checked to
+  launch its flash forms, flash decode and ((l)) the LayerNorm kernels,
+  its losses finite and falling from epoch to epoch, the resume to start
+  at epoch 2, and ``metrics.jsonl`` to hold its epoch and BLEU lines; and
+  ``skip_nonfinite(mixed_precision(adam))`` steps of that model, one with
+  a NaN in one gradient leaving every parameter and optimizer tensor
+  bit-equal, neither making the host wait.
+
 The build phase logs each kernel's registers, stack and spills as ptxas
 reports them, and fails if a flash-attention kernel's tensor-core or
 six-product form (unmasked or masked, without or with dropout, without or
@@ -160,7 +175,9 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -170,9 +187,12 @@ import warnings
 import numpy as np
 import torch
 
+from tpu_flash_torch.apps.machine_translation import main as mt_app_main
 from tpu_flash_torch.apps.machine_translation import (make_train_step,
-                                                     place_batch, train_epoch)
+                                                     place_batch, train_epoch,
+                                                     translation_tokens)
 from tpu_flash_torch.data.mt import (WordTokenizer, collate_packed,
+                                     get_dataset,
                                      synthetic_translation_dataset)
 from tpu_flash_torch.inference import DecodeEngine, KVCache, SamplingConfig
 from tpu_flash_torch.inference.engine import Request
@@ -193,11 +213,13 @@ from tpu_flash_torch.kernels.softmax import (attn_softmax_backward,
                                              attn_softmax_forward, pad_cols)
 from tpu_flash_torch.nn import (DecoderConfig, DecoderLM, adam, init_params,
                                 mixed_precision, num_parameters,
-                                quantize_model_linears)
+                                quantize_model_linears, skip_nonfinite)
 from tpu_flash_torch.ops import fused
 from tpu_flash_torch.ops.attention import (dequantize_kv, kv_quant_parts,
                                            quantize_kv)
 from tpu_flash_torch.ops.reference import causal_mask
+from tpu_flash_torch.utils.checkpoint import _flatten_with_paths
+from tpu_flash_torch.utils.metrics import read_metrics
 from tpu_flash_torch.utils.timing import (L2_BYTES, device_ms, past_l2,
                                           rotating_ms)
 
@@ -418,6 +440,9 @@ ATTN_CASES = [
     ("gqa-8q2kv", 2, 8, 2, 512, 512, 64, True),
     ("d32", 2, 8, 8, 256, 256, 32, True),
     ("d128", 2, 8, 8, 256, 256, 128, True),
+    # the MT app's step (mt_app, run (k) in bf16): B129 L40 d32, one
+    # ragged tile under 64 keys
+    ("mt-B129-L40-d32", 129, 8, 8, 40, 40, 32, True),
 ]
 # The masked forms against their plain versions, each form of every flash
 # kernel at ATTN_TOL (name, B, H, Hkv, Lq, Lk, d, window, segments): windows
@@ -614,6 +639,12 @@ def filled_cache(gen, B, Hkv, S, d, quant, dtype, lengths):
     return cache
 
 
+# A BLEU pass's cache lengths: from a short prompt's first step to the
+# cache's end
+MT_DECODE_LENGTHS = [2, 5, 9, 12, 17, 20, 26, 31, 39, 40, 41, 48, 57, 64,
+                     79, 80]
+
+
 def kernel_cases(gen) -> float:
     """The decode kernel against its plain version, each case called twice
     for the same bits; returns the largest error."""
@@ -651,6 +682,18 @@ def kernel_cases(gen) -> float:
          torch.bfloat16, "none", split_lengths, 5),
         ("gqa-8q2kv-lq8-window", 4, 8, 2, 8, 2048, 64, torch.bfloat16,
          "int8", [3, C - 1, 1000, 2048], 100),
+        # the MT app's BLEU passes (mt_app): 16 prompts a batch, 8 heads of
+        # 32, caches of the longest prompt plus 40 (<= 80); a decode step
+        # over run (k)'s int8 cache with a bf16 q and over run (l)'s fp32
+        # cache, and a prefill of 8-token prompts (DECODE_MAX_LQ)
+        ("mt-int8-bf16", 16, 8, 8, 1, 80, 32, torch.bfloat16, "int8",
+         MT_DECODE_LENGTHS, None),
+        ("mt-fp32", 16, 8, 8, 1, 80, 32, torch.float32, "none",
+         MT_DECODE_LENGTHS, None),
+        ("mt-int8-bf16-prefill-lq8", 16, 8, 8, 8, 80, 32, torch.bfloat16,
+         "int8", [8] * 16, None),
+        ("mt-fp32-prefill-lq8", 16, 8, 8, 8, 80, 32, torch.float32, "none",
+         [8] * 16, None),
     ]
     worst = 0.0
     for (name, B, Hq, Hkv, Lq, S, d, dtype, quant, lengths,
@@ -3507,6 +3550,278 @@ def end_to_end(kind: str | None = None) -> dict[str, int]:
     return served
 
 
+# The MT app (apps/machine_translation.main) at the JAX CLI's defaults, the
+# reference MT configuration (L 40, vocab 10000, E 256, 8 heads, 4 layers,
+# dropout 0.1, batch (128*40+40)//40 = 129), on the repository's corpus
+MT_BASE = ["--dataset", "local", "--max-iters-per-epoch", "40"]
+MT_RUNS = {
+    # bf16 with fp32 masters, the C++ batch ring, an int8 cache for BLEU;
+    # two epochs with a checkpoint each, then a resumed third
+    "k": MT_BASE + ["--dtype", "bfloat16", "--mixed-precision",
+                    "--native-loader", "--kv-quant", "int8",
+                    "--checkpoint-every", "1"],
+    # fp32 packed rows under segment masks, the fused LayerNorm
+    "l": MT_BASE + ["--pack", "--use-fused-kernel", "--n-epochs", "1"],
+}
+MT_KV_QUANT = {"k": "int8", "l": "none"}
+MT_WORKDIR = "workdir_chip_smoke_mt"     # git-ignored (workdir*/)
+MT_L = 40
+# Greedy decoding of the test split through the kernels and through their
+# plain versions on the same trained model.  The routes' logits differ by
+# rounding, so a hypothesis may leave the plain route's only where the
+# kernel route's token scores within this gap of the top logit when the
+# plain route decodes that sequence again alone: fp32 1e-3 (end_to_end's
+# near tie); bf16 2^-4 of the top logit's magnitude (the logits' own
+# rounding moves a gap by up to an ulp, 2^-7 of it, and the products of
+# one sequence may round otherwise than those of a batch of 16).
+MT_TIE_GAP = {torch.float32: (1e-3, 0.0), torch.bfloat16: (0.0, 2 ** -4)}
+
+
+def mt_main(argv: list[str]) -> tuple[dict, dict]:
+    """``main(argv)`` with the launch counts set to 0 just before and read
+    just after; returns its records and the counts."""
+    torch.cuda.synchronize()
+    common.launch_counts.clear()
+    rec = mt_app_main(argv)
+    torch.cuda.synchronize()
+    return rec, dict(common.launch_counts)
+
+
+def mt_generation_routes(rec: dict, kv_quant: str, label: str) -> dict:
+    """The trained model's greedy tokens on the test split (as
+    ``generate_translations`` takes them) through the kernels and through
+    their plain versions: every hypothesis that leaves the plain route's
+    must do so at a near tie (``MT_TIE_GAP``) inside the position table;
+    past it both routes decode NaN logits (``nan_past_table``)."""
+    model, tok = rec["model"], rec["tokenizer"]
+    test = get_dataset("local", MT_L)[0]["test"]
+    rows = {impl: translation_tokens(model, test, "de", "en", tok, MT_L,
+                                     kv_quant=kv_quant, impl=impl)
+            for impl in ("kernel", "plain")}
+    atol, rtol = MT_TIE_GAP[model.cfg.dtype]
+    ties, faults = [], []
+    for i, (a, b) in enumerate(zip(rows["kernel"], rows["plain"])):
+        if a == b:
+            continue
+        t = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        prompt = tok(f"{test[i]['de']}<eos_de>")["input_ids"]
+        at = {"example": i, "step": t, "kernel": a[t], "plain": b[t]}
+        if len(prompt) + t > model.cfg.n_positions:
+            faults.append({**at, "past_the_table": True})
+            continue
+        # generate's prefill and steps, for this sequence alone
+        last, caches = prefill_prompt(
+            model, torch.tensor([prompt], device=DEV),
+            torch.tensor([len(prompt)], device=DEV),
+            max_len=len(prompt) + t, kv_quant=kv_quant, impl="plain")
+        for x in b[:t]:
+            out, caches = model(torch.tensor([[x]], device=DEV),
+                                kv_caches=caches, impl="plain",
+                                positions=caches[0].lengths[:, None].long())
+            last = out[:, 0]
+        logits = last[0].float()
+        top = float(logits.max())
+        at.update(gap=top - float(logits[a[t]]), limit=atol + rtol * abs(top))
+        (ties if at["gap"] <= at["limit"] else faults).append(at)
+    row = {"phase": "mt_generation_routes", "run": label,
+           "kv_quant": kv_quant, "examples": len(test),
+           "same_tokens": sum(a == b for a, b in zip(*rows.values())),
+           "near_ties": ties, "faults": faults,
+           "tie_gap": f"{atol} + {rtol} * |top logit|"}
+    log(row)
+    check(not faults, f"mt_app ({label}): greedy decoding through the "
+                      f"kernels leaves the plain route's away from a near "
+                      f"tie: {faults}")
+    return row
+
+
+def mt_packed_attention(tokenizer, gen) -> dict:
+    """Run (l)'s attention at its own shapes: the first 129 training pairs
+    packed into rows of 40 by ``collate_packed`` with the run's tokenizer
+    (its segment ids), random q, k, v and dO of 8 heads of 32 in fp32; the
+    masked forward and fused backward, the forms (l) launches, against
+    their plain versions at ATTN_TOL."""
+    dtype, tols = torch.float32, ATTN_TOL[torch.float32]
+    train = get_dataset("local", MT_L)[0]["train"]
+    seg = torch.as_tensor(collate_packed(train[:129], "de", "en", tokenizer,
+                                         MT_L)["segment_ids"], device=DEV)
+    q, k, v, do = (torch.randn(seg.shape[0], 8, MT_L, 32, generator=gen,
+                               device=DEV) for _ in range(4))
+    kw = dict(causal=True, segment_ids=seg)
+    before = dict(common.launch_counts)
+    out, lse, _ = flash_attention_forward(q, k, v, impl="kernel", **kw)
+    grads = flash_attention_backward(q, k, v, out, lse, do, impl="kernel",
+                                     **kw)
+    launched = {n: c - before.get(n, 0) for n, c in
+                common.launch_counts.items() if c != before.get(n, 0)}
+    ref_out, ref_lse, _ = flash_attention_forward(q, k, v, impl="plain", **kw)
+    ref = flash_attention_backward(q, k, v, out, lse, do, impl="plain", **kw)
+    torch.cuda.synchronize()
+    ok = launched == dict.fromkeys(
+        (fa._form_name(n, dtype, True) for n in ATTENTION), 1)
+    errs = {}
+    for n, a, b in [("out", out, ref_out), ("lse", lse, ref_lse)] + list(
+            zip(("dq", "dk", "dv"), grads, ref)):
+        errs[n], _, _, agree = compare(a, b, tols[n])
+        ok &= agree
+    row = {"phase": "mt_packed_attention", "dtype": "float32",
+           "shape": f"B{seg.shape[0]} H8 L{MT_L} d32 causal",
+           "segments": int((seg[:, 1:] != seg[:, :-1]).sum()) + seg.shape[0],
+           "max_abs_err": errs, "launches": launched, "ok": ok}
+    log(row)
+    check(ok, f"mt_app (l): the masked flash forms disagree with their "
+              f"plain versions on the run's packed rows: {row}")
+    return row
+
+
+def poisoned(tx, name: str):
+    """``tx`` with a NaN written into gradient ``name`` on the card (no host
+    read): the skip's input."""
+    def update(grads, state, params):
+        g = grads[name].clone()
+        g.view(-1)[:1].fill_(float("nan"))
+        return tx.update({**grads, name: g}, state, params)
+
+    return type(tx)(tx.init, update)
+
+
+def nan_gradient_step() -> dict:
+    """``skip_nonfinite(mixed_precision(adam))`` steps of the reference MT
+    model in bf16 on a batch of 129 x 40: after a finite step, one with a
+    NaN in one gradient leaves the parameters, the fp32 masters, Adam's
+    moments and step count bit-equal and ``skipped`` at 1; neither step
+    makes the host wait (torch's sync debug mode)."""
+    cfg = DecoderConfig(n_vocab=10_000, n_embd=256, n_head=8,
+                        n_positions=MT_L, n_layer=4, p_dropout=0.1,
+                        dtype=torch.bfloat16)
+    model = DecoderLM(cfg, device=DEV)
+    init_params(model, torch.Generator(DEV).manual_seed(0))
+    tx = skip_nonfinite(mixed_precision(adam(lr=0.02)))
+    batch = train_batch(0, (129, MT_L), cfg.n_vocab)
+    gen = torch.Generator(DEV).manual_seed(1)
+    state = tx.init(dict(model.named_parameters()))
+    step = make_train_step(model, tx)
+    state, _ = step(state, place_batch(batch, DEV), gen)
+    # a finite step first: the skip's arithmetic waits for nothing either
+    state, clean_syncs = syncs_in_a_step(step, state, batch, gen)
+    name = "layers.0.attention.q_projection.weight"
+
+    def tensors():
+        return [t for _, t in _flatten_with_paths(
+            (dict(model.named_parameters()), state)) if torch.is_tensor(t)]
+
+    before = [t.clone() for t in tensors()]
+    state, syncs = syncs_in_a_step(
+        make_train_step(model, poisoned(tx, name)), state, batch, gen)
+    after = tensors()
+    changed = sum(not torch.equal(a, b) for a, b in zip(before, after))
+    # the skip count is the one leaf that moves
+    skipped = int(state.skipped)
+    row = {"phase": "mt_nan_gradient_step", "poisoned_gradient": name,
+           "tensors_compared": len(before), "tensors_changed": changed,
+           "skipped": skipped, "adam_step": int(state.inner.inner.step),
+           "host_syncs_in_a_step": syncs,
+           "host_syncs_in_a_finite_step": clean_syncs}
+    log(row)
+    check(skipped == 1 and changed == 1,
+          f"the NaN-gradient step changed {changed} tensors (only the skip "
+          f"count may move), skipped {skipped}")
+    check(not syncs and not clean_syncs,
+          f"a skip_nonfinite step made the host wait: {syncs} (NaN), "
+          f"{clean_syncs} (finite)")
+    del model, state
+    torch.cuda.empty_cache()
+    return row
+
+
+def mt_app() -> dict[str, int]:
+    """The MT app's main path on the card (``mt_app_main``, the CLI): run
+    (k) two epochs, then resumed from its checkpoint for a third; run (l)
+    one epoch; BLEU after each epoch.  Checks each run's kernels by their
+    launch counts, the losses, the resume, ``metrics.jsonl`` and the
+    NaN-gradient step; then, on each configuration's trained model, greedy
+    decoding through the kernels against their plain versions and (l)'s
+    masked attention on its packed rows.  Returns the launches of the
+    kernels line's forms."""
+    t0 = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        MT_WORKDIR)
+    shutil.rmtree(root, ignore_errors=True)
+    fwd, bwd = ATTENTION
+    expect = {
+        "k": (fa._form_name(fwd, torch.bfloat16),
+              fa._form_name(bwd, torch.bfloat16), "flash_decode"),
+        "l": (fa._form_name(fwd, torch.float32, True),
+              fa._form_name(bwd, torch.float32, True), "flash_decode",
+              "layernorm_fwd", "layernorm_bwd")}
+    launches: collections.Counter = collections.Counter()
+    rows, routes = {}, {}
+    try:
+        for name, args in MT_RUNS.items():
+            wd = ["--workdir", os.path.join(root, name)]
+            runs = ([args + wd + ["--n-epochs", "2"],
+                     args + wd + ["--n-epochs", "3", "--resume"]]
+                    if name == "k" else [args + wd])
+            for i, argv in enumerate(runs):
+                t = time.perf_counter()
+                rec, counts = mt_main(argv)
+                label = name + ("" if i == 0 else " resumed")
+                losses = [x for r in rec["epochs"]
+                          for x in (r["train_loss"], r["validation_loss"])]
+                rows[label] = {
+                    "argv": argv, "seconds": time.perf_counter() - t,
+                    "bpe_vocab": rec["tokenizer_vocab"],
+                    "epochs": rec["epochs"], "bleu": rec["bleu"],
+                    "samples": rec["samples"],
+                    "launches": {n: counts.get(n, 0) for n in expect[name]},
+                    "card": torch.cuda.get_device_name(0)}
+                log({"phase": "mt_app", "run": label, **rows[label]})
+                check(all(math.isfinite(x) for x in losses),
+                      f"mt_app ({label}): a non-finite loss {losses}")
+                check(len(rec["bleu"]) == len(rec["epochs"]) and all(
+                    0.0 <= b["bleu"] <= 100.0 for b in rec["bleu"]),
+                      f"mt_app ({label}): BLEU {rec['bleu']}")
+                idle = [n for n in expect[name] if not counts.get(n)]
+                check(not idle, f"mt_app ({label}) never launched {idle}")
+                for n in expect[name]:
+                    launches[n] += counts.get(n, 0)
+                if name == "k" and i == 0:
+                    tl = [r["train_loss"] for r in rec["epochs"]]
+                    check(len(tl) == 2 and tl[1] < tl[0],
+                          f"mt_app (k): epoch 2's train loss is not below "
+                          f"epoch 1's: {tl}")
+                if name == "k" and i == 1:
+                    check([r["epoch"] for r in rec["epochs"]] == [2],
+                          f"mt_app (k): the resumed run did not start from "
+                          f"epoch 2: {rec['epochs']}")
+            recs = read_metrics(os.path.join(root, name, "metrics.jsonl"))
+            epochs = [r["step"] for r in recs if r.get("event") == "epoch"]
+            bleus = [r["step"] for r in recs if r.get("event") == "bleu"]
+            want = [0, 1, 2] if name == "k" else [0]
+            check(epochs == want and bleus == want,
+                  f"mt_app ({name}): metrics.jsonl holds epochs {epochs}, "
+                  f"BLEU {bleus}, not {want}")
+            # the last run's trained model: kernels against plain versions
+            routes[label] = mt_generation_routes(rec, MT_KV_QUANT[name],
+                                                 label)
+            if name == "l":
+                mt_packed_attention(rec["tokenizer"],
+                                    torch.Generator(DEV).manual_seed(20))
+            del rec
+            torch.cuda.empty_cache()
+        nan_gradient_step()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log({"phase": "mt_app_total", "seconds": time.perf_counter() - t0,
+         "bleu": {k: [b["bleu"] for b in r["bleu"]] for k, r in rows.items()},
+         "tokens_per_sec": {k: [e["tokens_per_sec"] for e in r["epochs"]]
+                            for k, r in rows.items()},
+         "bpe_vocab": {k: r["bpe_vocab"] for k, r in rows.items()},
+         "greedy_tokens_same": {k: r["same_tokens"]
+                                for k, r in routes.items()}})
+    return dict(launches)
+
+
 def main() -> int:
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3784,6 +4099,10 @@ def main() -> int:
         profile=True)
     for n in TWO_PASS:
         launches[n] += long_e2e["launches"]["kernel"][n]
+    # the MT app's CLI, this slice's main path: its flash, decode and
+    # LayerNorm launches join the kernels line's
+    for n, c in mt_app().items():
+        launches[n] += c
 
     main_row = next(r for r in rows if r["cache"] == "int8"
                     and r["length"] == 1024)

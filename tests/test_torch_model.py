@@ -231,9 +231,15 @@ def test_import_leaves_out_jax_and_the_jax_package():
     code = ("import sys, tpu_flash_torch, tpu_flash_torch.nn, "
             "tpu_flash_torch.inference, tpu_flash_torch.kernels, "
             "tpu_flash_torch.ops, tpu_flash_torch.utils, "
-            "tpu_flash_torch.apps.machine_translation; "
-            "bad = sorted(m for m in sys.modules if m == 'jax' or "
-            "m.startswith(('jax.', 'tpu_flash.')) or m == 'tpu_flash'); "
+            "tpu_flash_torch.apps.machine_translation, "
+            "tpu_flash_torch.data.bpe, tpu_flash_torch.data.mt, "
+            "tpu_flash_torch.data.deen_corpus, "
+            "tpu_flash_torch.data.native_loader, "
+            "tpu_flash_torch.utils.bleu, tpu_flash_torch.utils.checkpoint, "
+            "tpu_flash_torch.utils.metrics; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'tpu_flash', 'tokenizers', 'transformers', "
+            "'sacrebleu', 'datasets', 'regex')); "
             "print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
@@ -241,7 +247,9 @@ def test_import_leaves_out_jax_and_the_jax_package():
 
 
 def test_package_sources_call_no_library_attention():
-    """No JAX or tpu_flash import, no scaled_dot_product_attention, no
+    """No JAX or tpu_flash import (nor of ``tokenizers``, ``transformers``,
+    ``sacrebleu``, ``datasets`` or ``regex``, which the card's machine does
+    not have), no scaled_dot_product_attention, no
     library LayerNorm or softmax backward, no library quantized matmul
     (``torch._int_mm``, ``_weight_int8pack_mm``, ``_weight_int4pack_mm``,
     ``torch.ao``), no torch.compile and no import of the flash_attn package
@@ -251,7 +259,8 @@ def test_package_sources_call_no_library_attention():
     library = (r"scaled_dot_product_attention|torch\.nn\.functional\."
                r"layer_norm|torch\.layer_norm|_softmax_backward_data")
     quantized = r"torch\._int_mm|_weight_int[48]pack_mm|torch\.ao\b"
-    banned = re.compile(r"^\s*(from|import)\s+(jax|tpu_flash|flash_attn)\b"
+    banned = re.compile(r"^\s*(from|import)\s+(jax|tpu_flash|flash_attn"
+                        r"|tokenizers|transformers|sacrebleu|datasets|regex)\b"
                         rf"|{library}|{quantized}|torch\.compile", re.M)
     files = [*(REPO / "tpu_flash_torch").rglob("*.py"),
              *(REPO / "tpu_flash_torch").rglob("*.cu*"),

@@ -18,15 +18,18 @@ Layering, as in the JAX package:
   nn/        — layers (float and quantized Linear), the pre-LN decoder
                transformer (torch.nn), optimizers
   inference/ — KV cache (fp/int8/fp8, heads-minor), sampler, engine
-  apps/      — the machine-translation training core (loss, step, epoch)
-  utils/     — CUDA-event timing
+  data/      — the MT corpora, byte-level BPE, collates, the C++ batch ring
+               (``native/collate.cpp``, built with g++ at first use)
+  apps/      — the machine-translation app (CLI, training, BLEU)
+  utils/     — CUDA-event timing, corpus BLEU, checkpoints, metrics log
 
-Entry points (``DecoderLM``, ``DecodeEngine``, ``generate``) run on the card
-unless the caller passes ``device="cpu"``.  Ported so far: the serving path,
-with float or weight-only quantized linears (``nn.quantize_model_linears``),
-and the training path, with flash, fused or naive attention and the fused
-or composed LayerNorm (ROADMAP.md, queue A items A1-A4 and A7's quantized
-linears).
+Entry points (``DecoderLM``, ``DecodeEngine``, ``generate``,
+``apps.machine_translation.main``) run on the card unless the caller passes
+``device="cpu"``.  Ported so far: the serving path, with float or
+weight-only quantized linears (``nn.quantize_model_linears``), the training
+path, with flash, fused or naive attention and the fused or composed
+LayerNorm, and the MT app from corpus to BLEU (ROADMAP.md, queue A items
+A1-A5 and A7's quantized linears).
 """
 
 __version__ = "0.1.0"

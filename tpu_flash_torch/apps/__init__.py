@@ -1,1 +1,1 @@
-"""Applications of the port: the machine-translation training core."""
+"""Applications of the port: the machine-translation app."""

@@ -1,2 +1,3 @@
-"""Data pipelines of the port: the packed machine-translation collate and
-the synthetic translation corpus (``data.mt``)."""
+"""Data pipelines of the port: the machine-translation corpora, byte-level
+BPE and collates (``data.mt``, ``data.bpe``, ``data.deen_corpus``) and the
+C++ batch ring (``data.native_loader``)."""

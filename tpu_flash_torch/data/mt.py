@@ -1,23 +1,32 @@
-"""Machine-translation data, counterpart of part of ``tpu_flash/data/mt.py``:
-the deterministic synthetic translation corpus
-(``synthetic_translation_dataset``, :50-84) and the sequence-packed collate
-(``collate_packed``, :219-306), numpy code kept here as the port's own copy
-(the port imports nothing of the JAX package).
+"""Machine-translation data, counterpart of ``tpu_flash/data/mt.py``: the
+corpora (``get_dataset``: the repository's German-English corpus, its
+compositional split, and the deterministic synthetic translation task),
+the byte-level BPE (``get_tokenizer``, the port's own ``data/bpe.py``),
+the fixed-length collate (``collate_batch``) and the sequence-packed one
+(``collate_packed``), numpy code kept here as the port's own copy (the port
+imports nothing of the JAX package).
 
-The tokenizer is duck-typed: ``tok(text)["input_ids"]`` gives a list of ids
-and ``tok.vocab["<pad>"]`` the pad id.  The byte-level BPE that the JAX
-package trains (``get_tokenizer``) needs the ``tokenizers`` package and is
-not ported yet (ROADMAP.md, queue A item A4); ``WordTokenizer`` is a
-stand-in of that shape, one id per word of a corpus.
+A tokenizer is duck-typed: ``tok(text)["input_ids"]`` gives a list of ids
+and ``tok.vocab["<pad>"]`` the pad id.  ``WordTokenizer`` is a stand-in of
+that shape, one id per word of a corpus.
+
+One deviation: the JAX ``get_dataset`` tries a HuggingFace download for any
+other name and falls back to the synthetic task; the port reads only the
+corpora in the repository and raises a ``ValueError`` for any other name,
+so that it never trains on the synthetic task when a corpus was asked for.
 """
 
 from __future__ import annotations
 
+import os
 import re
 
 import numpy as np
 
+from tpu_flash_torch.data.bpe import ByteLevelBPE
+
 SRC_KEY, TGT_KEY = "de", "en"
+LOCAL_CORPORA = ("local", "deen", "local-deen", "local-comp")
 
 
 class WordTokenizer:
@@ -79,6 +88,92 @@ def synthetic_translation_dataset(
         "train": make(n_train, 0),
         "validation": make(n_validation, 1),
         "test": make(n_test, 2),
+    }
+
+
+def _filtered(dataset, model_max_length: int):
+    """Pairs of fewer than ``model_max_length`` words in all, and at most
+    100 test examples: the reference's protocol."""
+    dataset = {
+        split: [ex for ex in dataset[split]
+                if len(ex[SRC_KEY].split()) + len(ex[TGT_KEY].split())
+                < model_max_length]
+        for split in dataset
+    }
+    dataset["test"] = dataset["test"][:100]
+    return dataset
+
+
+def get_dataset(dataset_name: str = "local", model_max_length: int = 40,
+                synthetic: bool | None = None, **synthetic_kwargs):
+    """``(dataset, src_key, tgt_key)``, each split a list of ``{"de": ...,
+    "en": ...}`` (JAX ``data/mt.py:85-144``).  ``"local"`` (or ``"deen"``,
+    ``"local-deen"``) is the repository's corpus (``data/deen_corpus.py``),
+    ``"local-comp"`` its compositional split; ``synthetic=True`` the
+    synthetic task whatever the name (``synthetic_kwargs`` go to it; the
+    JAX function takes a local name first, but its CLI's default name is a
+    download, so that there ``--synthetic`` alone means the synthetic
+    task, as it does here).  Any other name raises (module docstring)."""
+    if synthetic:
+        dataset = synthetic_translation_dataset(**synthetic_kwargs)
+    elif dataset_name in LOCAL_CORPORA:
+        from tpu_flash_torch.data import deen_corpus
+
+        dataset = (deen_corpus.compositional_split()
+                   if dataset_name == "local-comp"
+                   else deen_corpus.load_dataset())
+    else:
+        raise ValueError(
+            f"dataset {dataset_name!r} is not in the repository: the port "
+            f"reads {', '.join(LOCAL_CORPORA)} or synthetic=True "
+            f"(--synthetic)")
+    return _filtered(dataset, model_max_length), SRC_KEY, TGT_KEY
+
+
+def get_tokenizer(examples, vocab_size: int, src_key: str, tgt_key: str,
+                  workdir: str) -> ByteLevelBPE:
+    """A byte-level BPE trained on the pairs of ``examples`` with the
+    ``<eos_src>``, ``<eos_tgt>`` and ``<pad>`` specials (ids 0, 1, 2),
+    saved to ``workdir/tokenizer.json`` (JAX ``data/mt.py:151-172``)."""
+    os.makedirs(workdir, exist_ok=True)
+    tokenizer = ByteLevelBPE.train_from_iterator(
+        [[ex[src_key], ex[tgt_key]] for ex in examples], vocab_size,
+        special_tokens=[f"<eos_{src_key}>", f"<eos_{tgt_key}>", "<pad>"])
+    tokenizer.save(os.path.join(workdir, "tokenizer.json"))
+    return tokenizer
+
+
+def collate_batch(
+    examples,
+    src_key: str,
+    tgt_key: str,
+    tokenizer,
+    model_max_length: int,
+    mask_padding: bool = False,
+) -> dict[str, np.ndarray]:
+    """``src + <eos_src> + tgt + <eos_tgt> + pads`` at a fixed length, with
+    next-token labels and the source's label weights 0 (JAX ``data/mt.py:
+    178-216``).  ``mask_padding=False`` keeps the pads after the target at
+    weight 1, as the reference does; True gives them 0."""
+    pad_id = tokenizer.vocab["<pad>"]
+    n = len(examples)
+    L = model_max_length
+    input_ids = np.full((n, L), pad_id, np.int32)
+    labels = np.full((n, L), pad_id, np.int32)
+    weights = np.ones((n, L), np.float32)
+    for r, ex in enumerate(examples):
+        ids_src = tokenizer(f"{ex[src_key]}<eos_{src_key}>")["input_ids"]
+        ids_tgt = tokenizer(f"{ex[tgt_key]}<eos_{tgt_key}>")["input_ids"]
+        ids = (ids_src + ids_tgt)[:L]
+        input_ids[r, :len(ids)] = ids
+        labels[r, :len(ids) - 1] = ids[1:]
+        weights[r, :min(L, len(ids_src) - 1)] = 0.0
+        if mask_padding:
+            weights[r, len(ids):] = 0.0
+    return {
+        "input_ids": input_ids,
+        "labels": labels,
+        "label_token_weights": weights,
     }
 
 

@@ -82,7 +82,8 @@ def prefill_prompt(model, prompt_ids, prompt_lengths, *, max_len: int,
                          compute_dtype=model.cfg.dtype)
     positions = torch.arange(Lp, device=prompt_ids.device)[None, :]
     logits, caches = model(prompt_ids, kv_caches=caches,
-                           positions=positions.expand(B, Lp), impl=impl)
+                           positions=positions.expand(B, Lp), impl=impl,
+                           nan_past_table=Lp > model.cfg.n_positions)
     prompt_lengths = prompt_lengths.to(torch.int32)
     for c in caches:
         c.lengths.copy_(prompt_lengths)
@@ -103,7 +104,9 @@ def generate(model, prompt_ids, prompt_lengths, sampling: SamplingConfig, *,
     ``prompt_lengths`` [B] (tensors or arrays) are moved to ``device``:
     ``None`` means the card and raises without one, CPU runs pass
     ``device="cpu"``.  The model must live there already.  ``n_gen``
-    counts the tokens that are not ``pad_id``, as the JAX version does."""
+    counts the tokens that are not ``pad_id``, as the JAX version does.
+    Where ``max_len`` passes the position table, a position past it embeds
+    as NaN, as in the JAX version (``DecoderLM``'s ``nan_past_table``)."""
     device = resolve_device(device)
     if model.device != device:
         raise ValueError(f"model lives on {model.device}, not {device}")
@@ -116,6 +119,7 @@ def generate(model, prompt_ids, prompt_lengths, sampling: SamplingConfig, *,
     out = torch.full((B, sampling.max_new_tokens), pad_id, dtype=torch.int64,
                      device=device)
     done = torch.zeros(B, dtype=torch.bool, device=device)
+    past_table = max_len > model.cfg.n_positions
     for step in range(sampling.max_new_tokens):
         tok = _sample_token(last, sampling, generator)
         tok = torch.where(done, pad_id, tok)
@@ -125,7 +129,8 @@ def generate(model, prompt_ids, prompt_lengths, sampling: SamplingConfig, *,
             break
         positions = caches[0].lengths[:, None].long()
         logits, caches = model(tok[:, None], kv_caches=caches,
-                               positions=positions, impl=impl)
+                               positions=positions, impl=impl,
+                               nan_past_table=past_table)
         last = logits[:, 0, :]
     n_gen = (out != pad_id).sum(dim=-1)
     return out, n_gen

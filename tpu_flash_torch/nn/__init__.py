@@ -24,6 +24,7 @@ from tpu_flash_torch.nn.optim import (  # noqa: F401
     adamw,
     mixed_precision,
     sgd,
+    skip_nonfinite,
 )
 from tpu_flash_torch.nn.transformer import (  # noqa: F401
     DecoderConfig,

@@ -9,7 +9,12 @@ be held against the JAX package's on identical gradients.
 module's parameters.  The arithmetic is the JAX package's, operation for
 operation: Adam's ``step_size = lr * sqrt(1 - b2^t) / (1 - b1^t)`` in fp32,
 ``denom = sqrt(v) + eps``, and ``minitorch_compat``'s ``(1 - beta1)``
-coefficient on ``grad**2``.
+coefficient on ``grad**2``.  As in JAX, Adam's step count is a 0-d int32
+tensor on the parameters' device and the bias corrections are formed from
+it there, so that a step (``skip_nonfinite``'s choice included) never makes
+the host wait for the card; an ``lr`` schedule takes that tensor and
+returns a tensor.  States are NamedTuples over the dicts; ``tree_map``
+walks them.
 """
 
 from __future__ import annotations
@@ -17,7 +22,6 @@ from __future__ import annotations
 import math
 from typing import Any, Callable, NamedTuple
 
-import numpy as np
 import torch
 
 Tree = dict  # parameter name -> tensor
@@ -25,6 +29,23 @@ Tree = dict  # parameter name -> tensor
 
 def _map(fn, *trees: Tree) -> Tree:
     return {k: fn(*(t[k] for t in trees)) for k in trees[0]}
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the tensors of like-shaped trees: dicts, NamedTuples,
+    tuples and lists of tensors (None and other leaves kept from the
+    first tree)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, tuple) and hasattr(first, "_fields"):
+        return type(first)(*(tree_map(fn, *parts)
+                             for parts in zip(*trees)))
+    if isinstance(first, (list, tuple)):
+        return type(first)(tree_map(fn, *parts) for parts in zip(*trees))
+    if torch.is_tensor(first):
+        return fn(*trees)
+    return first
 
 
 class Transform(NamedTuple):
@@ -47,18 +68,19 @@ def sgd(lr: float = 0.01) -> Transform:
 
 
 class AdamState(NamedTuple):
-    step: int
+    step: torch.Tensor          # 0-d int32 on the parameters' device
     exp_avg: Tree
     exp_avg_sq: Tree
 
 
-def _bias_corrected_lr(lr, beta1, beta2, step):
-    """``lr * sqrt(1 - b2^t) / (1 - b1^t)``, each operation in fp32 as the
-    JAX package computes it."""
-    f32 = np.float32
-    bc1 = f32(1.0) - f32(beta1) ** f32(step)
-    bc2 = f32(1.0) - f32(beta2) ** f32(step)
-    return float(f32(lr) * np.sqrt(bc2) / bc1)
+def _bias_corrected_lr(lr, beta1, beta2, step: torch.Tensor) -> torch.Tensor:
+    """``lr * sqrt(1 - b2^t) / (1 - b1^t)`` as a 0-d fp32 tensor on the
+    step's device, each operation in fp32 as the JAX package computes it
+    (JAX ``nn/optim.py:78-80``); ``lr`` is a number or a 0-d tensor."""
+    t = step.float()
+    bc1 = 1.0 - torch.pow(beta1, t)
+    bc2 = 1.0 - torch.pow(beta2, t)
+    return lr * torch.sqrt(bc2) / bc1
 
 
 def _adam_moments(grads, state, beta1, beta2, sq_coeff):
@@ -71,8 +93,13 @@ def _adam_moments(grads, state, beta1, beta2, sq_coeff):
     return exp_avg, exp_avg_sq
 
 
+def _device_of(params: Tree) -> torch.device:
+    return next(iter(params.values())).device
+
+
 def _adam_init(params):
-    return AdamState(0, _map(torch.zeros_like, params),
+    step = torch.zeros((), dtype=torch.int32, device=_device_of(params))
+    return AdamState(step, _map(torch.zeros_like, params),
                      _map(torch.zeros_like, params))
 
 
@@ -99,15 +126,15 @@ def adam(lr: float = 1e-3, beta1: float = 0.9, beta2: float = 0.999,
     return Transform(_adam_init, update)
 
 
-def adamw(lr: float | Callable[[int], float] = 1e-3, beta1: float = 0.9,
-          beta2: float = 0.999, eps: float = 1e-8,
+def adamw(lr: float | Callable[[torch.Tensor], torch.Tensor] = 1e-3,
+          beta1: float = 0.9, beta2: float = 0.999, eps: float = 1e-8,
           weight_decay: float = 0.01) -> Transform:
     """AdamW: decoupled weight decay.  ``lr`` may be a schedule
-    ``step -> learning rate``."""
+    ``step -> learning rate`` over the 0-d step tensor."""
 
     def update(grads, state, params):
         step = state.step + 1
-        lr_t = float(np.float32(lr(step) if callable(lr) else lr))
+        lr_t = lr(step) if callable(lr) else lr
         exp_avg, exp_avg_sq = _adam_moments(grads, state, beta1, beta2,
                                             1.0 - beta2)
         step_size = _bias_corrected_lr(lr_t, beta1, beta2, step)
@@ -131,16 +158,21 @@ def clip_by_global_norm(grads: Tree, max_norm: float):
 
 
 def cosine_schedule(peak_lr: float, warmup_steps: int, total_steps: int,
-                    min_lr: float = 0.0) -> Callable[[int], float]:
-    """Linear warmup to ``peak_lr``, then cosine decay to ``min_lr``."""
+                    min_lr: float = 0.0
+                    ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Linear warmup to ``peak_lr``, then cosine decay to ``min_lr``: a
+    0-d step tensor in, a 0-d fp32 tensor out, on the step's device and
+    without a host read (JAX ``nn/optim.py:133-146``)."""
 
-    def lr(step: int) -> float:
-        if step < warmup_steps:
-            return peak_lr * step / max(1, warmup_steps)
-        progress = min(max((step - warmup_steps)
-                           / max(1, total_steps - warmup_steps), 0.0), 1.0)
-        return min_lr + 0.5 * (peak_lr - min_lr) * (
-            1.0 + math.cos(math.pi * progress))
+    def lr(step: torch.Tensor) -> torch.Tensor:
+        step = torch.as_tensor(step).float()
+        warm = peak_lr * step / max(1, warmup_steps)
+        progress = torch.clamp(
+            (step - warmup_steps) / max(1, total_steps - warmup_steps),
+            0.0, 1.0)
+        cos = min_lr + 0.5 * (peak_lr - min_lr) * (
+            1.0 + torch.cos(math.pi * progress))
+        return torch.where(step < warmup_steps, warm, cos)
 
     return lr
 
@@ -193,5 +225,37 @@ def mixed_precision(tx: Transform) -> Transform:
         new_master, new_inner = tx.update(grads32, state.inner, state.master)
         new_params = _map(lambda m, p: m.to(p.dtype), new_master, params)
         return new_params, MixedPrecisionState(new_inner, new_master)
+
+    return Transform(init, update)
+
+
+class SkipState(NamedTuple):
+    inner: Any
+    skipped: torch.Tensor   # 0-d int32: updates skipped for non-finite grads
+
+
+def skip_nonfinite(tx: Transform) -> Transform:
+    """Where any gradient holds a NaN or an Inf, keep the parameters and
+    ``tx``'s state as they were and count the skip (JAX ``nn/optim.py:
+    233-264``).  The inner update always runs and each new tensor is chosen
+    against the old one with ``torch.where`` on a device flag, so the step
+    makes the host wait for nothing.  Composes as
+    ``skip_nonfinite(mixed_precision(adam(...)))``."""
+
+    def init(params):
+        return SkipState(tx.init(params), torch.zeros(
+            (), dtype=torch.int32, device=_device_of(params)))
+
+    def update(grads, state, params):
+        finite = torch.stack([torch.isfinite(g).all()
+                              for g in grads.values()]).all()
+
+        def keep(new, old):
+            return tree_map(lambda n, o: torch.where(finite, n, o), new, old)
+
+        new_params, new_inner = tx.update(grads, state.inner, params)
+        skipped = state.skipped + (~finite).to(torch.int32)
+        return keep(new_params, params), SkipState(
+            keep(new_inner, state.inner), skipped)
 
     return Transform(init, update)

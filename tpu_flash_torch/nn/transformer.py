@@ -402,7 +402,8 @@ class DecoderLM(torch.nn.Module):
 
     def forward(self, idx, *, kv_caches=None, kv_mask=None, positions=None,
                 segment_ids=None, training: bool = False, generator=None,
-                impl=None, return_hidden: bool = False):
+                impl=None, return_hidden: bool = False,
+                nan_past_table: bool = False):
         """idx [B, L] -> logits [B, L, n_vocab], or ``(logits, caches)``
         with ``kv_caches`` (one ``KVCache`` per layer, updated in place).
         ``return_hidden=True`` returns the post-LN hidden state [B, L,
@@ -412,9 +413,12 @@ class DecoderLM(torch.nn.Module):
         forward runs under ``torch.utils.checkpoint`` (``_remat_layer``).
 
         ``positions`` ([1, L] or [B, L]) overrides ``arange(L)``, as decode
-        needs.  ``training`` with a ``generator`` applies the embedding and
-        feed-forward dropouts and, with ``cfg.attn_dropout``, attention
-        dropout (the JAX layer has no residual dropout).
+        needs.  ``nan_past_table`` embeds a position past ``n_positions`` as
+        NaN, as ``jnp.take``'s fill mode does in the JAX package, for a
+        generation that runs past the table (without it such a position is
+        an index error).  ``training`` with a ``generator`` applies the
+        embedding and feed-forward dropouts and, with ``cfg.attn_dropout``,
+        attention dropout (the JAX layer has no residual dropout).
         ``impl`` reaches the kernels' wrappers.  ``segment_ids`` ([B, L])
         reaches the uncached attention: packed sequences, each row attending
         only its own segment (the fused path refuses them, as the JAX
@@ -429,7 +433,11 @@ class DecoderLM(torch.nn.Module):
         if positions is None:
             positions = torch.arange(L, device=idx.device)[None, :]
         x = self.token_embeddings(idx)
-        if c.positional == "learned":
+        if c.positional == "learned" and nan_past_table:
+            inside = (positions < c.n_positions)[..., None]
+            x = x + torch.where(inside, self.position_embeddings(
+                positions.clamp(max=c.n_positions - 1)), torch.nan)
+        elif c.positional == "learned":
             x = x + self.position_embeddings(positions)
         x = self.dropout(x, training=training, generator=generator)
         new_caches = [] if kv_caches is not None else None
