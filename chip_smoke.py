@@ -13,10 +13,20 @@ ported paths:
   windows that leave blocks of the cluster nothing to read, GQA and Lq up
   to 8, fp32 / bf16 / int8 / fp8 caches; each case called twice for the
   same bits) and its times over bf16 and int8 caches at lengths 1024 and
-  8192; 16 requests through ``DecodeEngine`` at the full width of the 176M
+  8192, for a decode step's one query row and a verification forward's 2,
+  4 and 8 (each held against the plain version, in each batch row within
+  a share of the row's rms, SDPA timed with the same band); 16 requests through ``DecodeEngine`` at the full width of the 176M
   serving configuration in three modes, with the kernels of one decode step
-  under ``torch.profiler``; the engine against ``generate`` and the kernel
-  against the plain path end to end;
+  under ``torch.profiler``; speculative decoding on that model
+  (``speculative_serving``: the bench's 2-layer draft and the target as its
+  own draft through ``run_speculative``, and the acceptance guard; every
+  token of each drive's completions, ``run()``'s too, within a near tie
+  of the plain route's argmax when the plain route decodes the same tokens
+  (teacher forcing), and each drive's flash-decode launches against its
+  forwards) and a shared 512-token prefix (``prefix_serving``:
+  ``set_prefix`` against the same chunked engine without it, both held
+  token by token the same way); the engine against ``generate`` and the
+  kernel against the plain path end to end;
 * quantized serving: the int8, packed-int4 and grouped-int4 matmul kernels
   in their forms (for bf16 x the tensor-core decode form at M <= 8 and
   the tensor-core prefill form above; for fp32 x the fp32 tensor-core
@@ -147,7 +157,12 @@ ported paths:
   packed rows with the fused LayerNorm, one epoch; each run checked to
   launch its flash forms, flash decode and ((l)) the LayerNorm kernels,
   its losses finite and falling from epoch to epoch, the resume to start
-  at epoch 2, and ``metrics.jsonl`` to hold its epoch and BLEU lines; and
+  at epoch 2, and ``metrics.jsonl`` to hold its epoch and BLEU lines;
+  greedy and beam-4 decoding of (k)'s model through the kernels against the
+  plain route (a greedy row may leave the plain one at a near tie; each
+  choice of the beam pass is held against the plain route's logits on the
+  same beams and caches, within the same near tie), with the beam pass's
+  BLEU; and
   ``skip_nonfinite(mixed_precision(adam))`` steps of that model, one with
   a NaN in one gradient leaving every parameter and optimizer tensor
   bit-equal, neither making the host wait.
@@ -188,13 +203,16 @@ import numpy as np
 import torch
 
 from tpu_flash_torch.apps.machine_translation import main as mt_app_main
-from tpu_flash_torch.apps.machine_translation import (make_train_step,
+from tpu_flash_torch.apps.machine_translation import (evaluate_bleu,
+                                                     generate_translations,
+                                                     make_train_step,
                                                      place_batch, train_epoch,
                                                      translation_tokens)
 from tpu_flash_torch.data.mt import (WordTokenizer, collate_packed,
                                      get_dataset,
                                      synthetic_translation_dataset)
 from tpu_flash_torch.inference import DecodeEngine, KVCache, SamplingConfig
+from tpu_flash_torch.inference.beam import NEG_INF, _gather_cache
 from tpu_flash_torch.inference.engine import Request
 from tpu_flash_torch.inference.sampler import generate, prefill_prompt
 from tpu_flash_torch.kernels import common
@@ -645,14 +663,53 @@ MT_DECODE_LENGTHS = [2, 5, 9, 12, 17, 20, 26, 31, 39, 40, 41, 48, 57, 64,
                      79, 80]
 
 
+# the query rows of a speculative verification forward (n_draft tokens
+# over the cache), beside a decode step's 1
+VERIFY_LQ = (1, 2, 4, 8)
+# A verification forward's band (query row i sees the positions up to
+# L - Lq + i) moves an output by about (Lq - 1) / L of its size, which at
+# long lengths lies under TOL's atol: its cases are held in each batch row
+# against that row's rms, |out - ref| <= arms * rms(ref) + rtol * |ref|,
+# the rtol one bf16 ulp (2^-7 of a value) for a rounding the other way
+VERIFY_TOL = (2e-2, 2 ** -7)
+
+
+def closest(gaps, limits) -> dict:
+    """The gap that comes closest to its limit (the largest share of it;
+    a gap above a limit of 0 counts as infinitely close), that limit, and
+    the largest gap anywhere."""
+    share = torch.where(limits > 0, gaps / limits,
+                        torch.where(gaps > 0, math.inf, 0.0))
+    at = int(share.argmax())
+    return {"largest_gap": float(gaps.flatten()[at]),
+            "limit_there": float(limits.flatten()[at]),
+            "largest_gap_anywhere": float(gaps.max())}
+
+
+def within_rms(out, ref, tol=VERIFY_TOL) -> tuple[bool, float]:
+    """``out`` against ``ref`` [B, ...] under ``VERIFY_TOL`` in each batch
+    row; returns whether it holds and the largest error over its row's
+    rms."""
+    arms, rtol = tol
+    out, ref = out.float().flatten(1), ref.float().flatten(1)
+    diff = (out - ref).abs()
+    r = ref.square().mean(1, keepdim=True).sqrt()
+    ok = bool(torch.isfinite(out).all()) and bool(
+        (diff <= arms * r + rtol * ref.abs()).all())
+    return ok, float((diff / r).max())
+
+
 def kernel_cases(gen) -> float:
     """The decode kernel against its plain version, each case called twice
-    for the same bits; returns the largest error."""
+    for the same bits; returns the largest error.  The verification
+    forwards' cases (the serving shape at Lq 2, 4 and 8, lengths from Lq
+    up, where the band moves an output most) are held under
+    ``VERIFY_TOL``, the others under ``TOL``."""
     serving_lengths = [0, 1, 7, 1023, 1024, 1025, 8191, 8192]
     # the serving shape's cluster: lengths below it leave blocks of the
     # cluster no position, and so do windows of 1 and 5
-    C = decode._plan(8, 16, 1, 64, torch.int8,
-                     common.sm_count(torch.device(DEV))).cluster
+    sms = common.sm_count(torch.device(DEV))
+    C = decode._plan(8, 16, 1, 64, torch.int8, sms).cluster
     split_lengths = [0, 1, C - 1, C, C + 1, 1000, 8191, 8192]
     cases = [
         # name, B, Hq, Hkv, Lq, S, d, dtype, quant, lengths, window
@@ -695,9 +752,20 @@ def kernel_cases(gen) -> float:
         ("mt-fp32-prefill-lq8", 16, 8, 8, 8, 80, 32, torch.float32, "none",
          [8] * 16, None),
     ]
+    verify = []
+    for Lq in VERIFY_LQ[1:]:
+        for quant, kv in (("none", torch.bfloat16), ("int8", torch.int8)):
+            Cq = decode._plan(8, 16, Lq, 64, kv, sms).cluster
+            short = dict.fromkeys(max(Lq, n) for n in (
+                Lq, Lq + 1, 7, Cq - 1, Cq, Cq + 1, Lq + 2, 2 * Lq + 1, 31,
+                100))
+            verify.append((
+                f"verify-lq{Lq}-{'bf16' if quant == 'none' else quant}", 8,
+                16, 16, Lq, 8192, 64, torch.bfloat16, quant,
+                list(short)[:6] + [1000, 8192], None))
     worst = 0.0
     for (name, B, Hq, Hkv, Lq, S, d, dtype, quant, lengths,
-         window) in cases:
+         window) in cases + verify:
         cache = filled_cache(gen, B, Hkv, S, d, quant, dtype, lengths)
         q = torch.randn(B, Hq, Lq, d, generator=gen, device=DEV).to(dtype)
         args = (q, cache.k, cache.v, cache.lengths, cache.k_scale,
@@ -709,12 +777,20 @@ def kernel_cases(gen) -> float:
         same = torch.equal(out, again)
         out, ref = out.float(), ref.float()
         err = float((out - ref).abs().max())
-        tol = TOL[dtype]
-        ok = same and bool(torch.isfinite(out).all()) and bool(
-            ((out - ref).abs() <= tol + tol * ref.abs()).all())
+        row = {}
+        if name.startswith("verify-"):
+            ok, row["max_err_over_rms"] = within_rms(out, ref)
+            row["lengths"] = lengths
+            row["tol"] = (f"arms {VERIFY_TOL[0]} of each row's rms + rtol "
+                          f"{VERIFY_TOL[1]}")
+        else:
+            tol = TOL[dtype]
+            ok = bool(torch.isfinite(out).all()) and bool(
+                ((out - ref).abs() <= tol + tol * ref.abs()).all())
+            row["tol"] = f"atol {tol} + rtol {tol}"
+        ok = ok and same
         log({"phase": "kernel_vs_plain", "case": name, "max_abs_err": err,
-             "tol": f"atol {tol} + rtol {tol}",
-             "two_calls_same_bits": same, "ok": ok})
+             **row, "two_calls_same_bits": same, "ok": ok})
         check(ok, f"flash_decode disagrees with its plain version: {name}")
         worst = max(worst, err)
         del cache
@@ -722,7 +798,10 @@ def kernel_cases(gen) -> float:
 
 
 def kernel_times(gen) -> list[dict]:
-    """Decode kernel, plain and library times at the serving shape.
+    """Decode kernel, plain and library times at the serving shape, for a
+    decode step's one query row and a verification forward's 2, 4 and 8
+    (``VERIFY_LQ``; each of those held against the plain version first,
+    under ``VERIFY_TOL``).
     Four copies of the cache rotate so that no call finds the previous
     call's data in L2, as each layer's own cache would not be there."""
     B, H, d, S, R = 8, 16, 64, 8192, 4
@@ -742,9 +821,8 @@ def kernel_times(gen) -> list[dict]:
                               device=DEV, dtype=torch.int8)
             ks = torch.rand(R * B, H, S, generator=gen, device=DEV) / 64
             vs = torch.rand(R * B, H, S, generator=gen, device=DEV) / 64
-        q = torch.randn(B, H, 1, d, generator=gen, device=DEV, dtype=dtype)
         for L in (8192, 1024):
-            lengths = torch.full((R * B,), L, dtype=torch.int32, device=DEV)
+            lens = torch.full((R * B,), L, dtype=torch.int32, device=DEV)
 
             def part(x, i):
                 return None if x is None else x[i * B:(i + 1) * B]
@@ -757,39 +835,66 @@ def kernel_times(gen) -> list[dict]:
 
             views = [dense(k, ks, i) for i in range(R)]
             vviews = [dense(v, vs, i) for i in range(R)]
-            tick = [0]
+            one_ms = None
+            for Lq in VERIFY_LQ:
+                q = torch.randn(B, H, Lq, d, generator=gen, device=DEV,
+                                dtype=dtype)
+                # query row i sees the positions up to L - Lq + i, as the
+                # kernel's; SDPA takes the same band
+                mask = None if Lq == 1 else (
+                    torch.arange(L, device=DEV)[None, :]
+                    <= L - Lq + torch.arange(Lq, device=DEV)[:, None])
+                tick = [0]
 
-            def call(impl):
-                i = tick[0] = (tick[0] + 1) % R
-                return flash_decode_attention(
-                    q, part(k, i), part(v, i), part(lengths, i), part(ks, i),
-                    part(vs, i), impl=impl)
+                def call(impl):
+                    i = tick[0] = (tick[0] + 1) % R
+                    return flash_decode_attention(
+                        q, part(k, i), part(v, i), part(lens, i),
+                        part(ks, i), part(vs, i), impl=impl)
 
-            def library():
-                i = tick[0] = (tick[0] + 1) % R
-                return torch.nn.functional.scaled_dot_product_attention(
-                    q, views[i], vviews[i])
+                def library():
+                    i = tick[0] = (tick[0] + 1) % R
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        q, views[i], vviews[i], attn_mask=mask)
 
-            ms = device_ms(lambda: call("kernel"))
-            plain_ms = device_ms(lambda: call("plain"), iters=5)
-            library_ms = device_ms(library)
-            itemsize = k.element_size()
-            nbytes = (2 * B * H * L * d * itemsize           # K and V codes
-                      + (2 * B * H * L * 4 if ks is not None else 0)
-                      + 2 * B * H * d * q.element_size()     # q and out
-                      + B * 4)                               # lengths
-            flops = 4 * B * H * L * d
-            bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-                     "operations": flops / CUDA_CORE_FLOPS * 1e3}
-            bound_by = max(bound, key=bound.get)
-            row = {"cache": "bf16" if quant == "none" else quant,
-                   "length": L, "ms": ms, "plain_ms": plain_ms,
-                   "library_ms": library_ms, "bytes": nbytes,
-                   "bound_ms": bound[bound_by], "bound_by": bound_by,
-                   "hbm_GBps": nbytes / (ms * 1e-3) / 1e9}
-            log({"phase": "kernel_time", "kernel": "flash_decode",
-                 "shape": f"B{B} Hq{H} Hkv{H} Lq1 d{d} S{S}", **row})
-            rows.append(row)
+                err = None
+                if Lq > 1:
+                    tick[0] = R - 1    # both on copy 0
+                    out = call("kernel")
+                    tick[0] = R - 1
+                    ref = call("plain")
+                    torch.cuda.synchronize()
+                    err = float((out.float() - ref.float()).abs().max())
+                    ok, over = within_rms(out, ref)
+                    log({"phase": "kernel_vs_plain",
+                         "case": f"verify-lq{Lq}-{quant}-len{L}",
+                         "max_abs_err": err, "max_err_over_rms": over,
+                         "tol": f"arms {VERIFY_TOL[0]} of each row's rms + "
+                                f"rtol {VERIFY_TOL[1]}", "ok": ok})
+                    check(ok, f"flash_decode disagrees with its plain "
+                              f"version at Lq {Lq}, {quant} cache, L {L}")
+                ms = device_ms(lambda: call("kernel"))
+                plain_ms = device_ms(lambda: call("plain"), iters=5)
+                library_ms = device_ms(library)
+                itemsize = k.element_size()
+                nbytes = (2 * B * H * L * d * itemsize        # K and V codes
+                          + (2 * B * H * L * 4 if ks is not None else 0)
+                          + 2 * B * H * Lq * d * q.element_size()  # q, out
+                          + B * 4)                            # lengths
+                flops = 4 * B * H * Lq * L * d
+                bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                         "operations": flops / CUDA_CORE_FLOPS * 1e3}
+                bound_by = max(bound, key=bound.get)
+                one_ms = ms if Lq == 1 else one_ms
+                row = {"cache": "bf16" if quant == "none" else quant,
+                       "length": L, "lq": Lq, "ms": ms, "plain_ms": plain_ms,
+                       "library_ms": library_ms, "bytes": nbytes,
+                       "bound_ms": bound[bound_by], "bound_by": bound_by,
+                       "hbm_GBps": nbytes / (ms * 1e-3) / 1e9,
+                       "over_lq1": ms / one_ms, "max_abs_err": err}
+                log({"phase": "kernel_time", "kernel": "flash_decode",
+                     "shape": f"B{B} Hq{H} Hkv{H} Lq{Lq} d{d} S{S}", **row})
+                rows.append(row)
             del views, vviews
         del k, v, ks, vs
     return rows
@@ -3433,6 +3538,287 @@ def quantized_serving(model) -> dict[str, int]:
     return total
 
 
+# The speculative draft: JAX's serving bench's (bench/bench_serving.py:
+# 194-198), the serving model's family at half its width and 2 layers
+SPEC_DRAFT = dict(n_vocab=32768, n_embd=512, n_head=8, n_positions=8192,
+                  n_layer=2, p_dropout=0.0, attention_kind="flash",
+                  dtype=torch.bfloat16)
+SPEC_N_DRAFT = 4
+# The least acceptance of the target as its own draft (PERF.md §6:
+# predicted 0.62-0.75; 3 of a round's 4 proposals are drafts, so at most
+# 0.75; a near tie between the Lq 1 and Lq 4 forwards rejects the rest of
+# the round)
+SPEC_SELF_ACCEPTANCE = 0.5
+PREFIX_LEN, PREFIX_CHUNK = 512, 256
+
+
+@torch.no_grad()
+def departure(model, prompt, ref, got, kv_quant) -> dict | None:
+    """None where ``got`` equals ``ref`` (token lists of one length);
+    else where it first leaves it: the step, both tokens and, inside the
+    position table, the gap of ``got``'s token below the top logit when
+    the plain route decodes ``prompt + ref[:t]`` alone (``generate``'s
+    prefill and steps), its limit (``MT_TIE_GAP``) and whether it is a
+    near tie.  Past the table both routes decode NaN logits."""
+    t = next((j for j, (x, y) in enumerate(zip(got, ref)) if x != y), None)
+    if t is None:
+        return None
+    at = {"step": t, "got": got[t], "ref": ref[t]}
+    if len(prompt) + t > model.cfg.n_positions:
+        return {**at, "past_the_table": True, "near_tie": False}
+    last, caches = prefill_prompt(
+        model, torch.tensor([prompt], device=DEV),
+        torch.tensor([len(prompt)], device=DEV), max_len=len(prompt) + t,
+        kv_quant=kv_quant, impl="plain")
+    for x in ref[:t]:
+        out, caches = model(torch.tensor([[x]], device=DEV),
+                            kv_caches=caches, impl="plain",
+                            positions=caches[0].lengths[:, None].long())
+        last = out[:, 0]
+    logits = last[0].float()
+    top = float(logits.max())
+    atol, rtol = MT_TIE_GAP[model.cfg.dtype]
+    at.update(gap=top - float(logits[got[t]]), limit=atol + rtol * abs(top))
+    at["near_tie"] = at["gap"] <= at["limit"]
+    return at
+
+
+@torch.no_grad()
+def forced_gaps(model, prompts, rows, kv_quant):
+    """Teacher forcing through the plain route: ``prompts`` (token lists)
+    prefilled together (``prefill_prompt``), then ``rows`` [B, n] fed a
+    token a step; returns each token's gap below the top logit of its
+    position and the gap's limit there (``MT_TIE_GAP``), both [B, n]."""
+    B, n = rows.shape
+    lengths = torch.tensor([len(p) for p in prompts], device=DEV)
+    ids = torch.zeros(B, int(lengths.max()), dtype=torch.long, device=DEV)
+    for b, p in enumerate(prompts):
+        ids[b, :len(p)] = torch.tensor(p, device=DEV)
+    last, caches = prefill_prompt(model, ids, lengths,
+                                  max_len=ids.shape[1] + n,
+                                  kv_quant=kv_quant, impl="plain")
+    atol, rtol = MT_TIE_GAP[model.cfg.dtype]
+    gaps, limits = [], []
+    for j in range(n):
+        logits = last.float()
+        top = logits.max(-1).values
+        gaps.append(top - logits.gather(1, rows[:, j:j + 1])[:, 0])
+        limits.append(atol + rtol * top.abs())
+        if j + 1 < n:
+            out, caches = model(rows[:, j:j + 1], kv_caches=caches,
+                                impl="plain",
+                                positions=caches[0].lengths[:, None].long())
+            last = out[:, 0]
+    return torch.stack(gaps, 1), torch.stack(limits, 1)
+
+
+def compare_completions(model, prompts, got, kv_quant, what: str,
+                        ref=None) -> dict:
+    """``got``'s completions (uid -> tokens, one for each prompt, of one
+    length) held token by token: each token within ``MT_TIE_GAP`` of the
+    top logit when the plain route decodes the prompt and the tokens
+    before it (``forced_gaps``).  Returns the tokens held, those off the
+    plain route's argmax, the gaps ``closest`` reports and, given ``ref``,
+    the number of completions equal to ``ref``'s."""
+    check(sorted(got) == list(range(len(prompts))),
+          f"{what}: completions {sorted(got)}, not every request")
+    n = len(got[0])
+    check(all(len(t) == n for t in got.values()),
+          f"{what}: completions of more than one length")
+    rows = torch.tensor([got[u] for u in range(len(prompts))], device=DEV)
+    gaps, limits = forced_gaps(model, prompts, rows, kv_quant)
+    far = (gaps > limits).nonzero().tolist()
+    res = {"tokens_held": gaps.numel(),
+           "off_argmax": int((gaps > 0).sum()), **closest(gaps, limits)}
+    if ref is not None:
+        res["same_as_reference"] = sum(got[u] == ref[u] for u in ref)
+    check(not far, f"{what}: tokens away from a near tie of the plain "
+                   f"route's argmax (request, step): {far[:8]}")
+    return res
+
+
+@torch.no_grad()
+def speculative_serving(model) -> int:
+    """The 176M serving model with the bench's draft (``SPEC_DRAFT``):
+    16 requests, 64 greedy tokens each, int8 cache, ``n_draft`` 4, driven
+    by ``run()`` (the reference) and by ``run_speculative``: without the
+    guard with the random draft and with the target as its own draft
+    (its cache int8 too), and under the guard (8 timed rounds of each
+    mode) with the random draft.  Each drive's flash-decode launches
+    against the count of its forwards (the target's layers for each
+    verification forward and plain step, the draft's for each of its
+    steps, 4 a round; the prefills' buckets of 16 or more rows take the
+    composed attention), every drive's completions held token by token
+    through the plain route (``compare_completions``) and counted equal
+    to ``run()``'s, and the self-draft's acceptance at least
+    ``SPEC_SELF_ACCEPTANCE``.  Returns the drives' flash-decode
+    launches."""
+    t_phase = time.perf_counter()
+    prompts = serving_prompts(model.cfg.n_vocab)
+    sampling = SamplingConfig(max_new_tokens=64)
+    draft = DecoderLM(DecoderConfig(**SPEC_DRAFT), device=DEV)
+    init_params(draft, torch.Generator(DEV).manual_seed(1))
+    n_t = model.cfg.n_layer
+
+    def engine(draft_model=None, draft_kv_quant="none", n_new=64):
+        eng = DecodeEngine(model, n_slots=8, max_len=8192,
+                           sampling=SamplingConfig(max_new_tokens=n_new),
+                           kv_quant="int8", draft_model=draft_model,
+                           n_draft=SPEC_N_DRAFT,
+                           draft_kv_quant=draft_kv_quant, device=DEV)
+        return eng
+
+    warm = engine(draft, n_new=8)      # the draft's kernels and GEMMs
+    warm.submit(Request(0, prompts[0]))
+    warm.run_speculative(None)
+    del warm
+
+    def drive(eng, run):
+        for uid, p in enumerate(prompts):
+            eng.submit(Request(uid, p))
+        torch.cuda.synchronize()
+        common.launch_counts.clear()
+        t0 = time.perf_counter()
+        done = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = common.launch_counts["flash_decode"]
+        check(all(len(c.tokens) == 64 and c.finished_reason == "length"
+                  for c in done), "speculative_serving: a short completion")
+        return {c.uid: c.tokens for c in done}, wall, launched
+
+    plain = engine()
+    ref, plain_wall, plain_launched = drive(plain, plain.run)
+    steps = plain.stats["decode_steps"]
+    plain_tok = sum(map(len, ref.values()))
+    t0 = time.perf_counter()
+    held = compare_completions(model, prompts, ref, "int8",
+                               "speculative_serving (run())")
+    log({"phase": "speculative_serving", "drive": "run()",
+         "requests": len(ref), "tokens": plain_tok, "wall_s": plain_wall,
+         "tok_s": plain_tok / plain_wall, "decode_steps": steps,
+         "flash_decode_launches": plain_launched,
+         "expected_launches": n_t * steps, **held,
+         "forcing_s": time.perf_counter() - t0,
+         "card": torch.cuda.get_device_name(0)})
+    check(plain_launched == n_t * steps,
+          f"speculative_serving run(): {plain_launched} flash_decode "
+          f"launches for {steps} steps")
+    total = plain_launched
+    rows = {}
+    for label, draft_model, kvq, probe in (
+            ("random draft", draft, "none", None),
+            ("self-draft", model, "int8", None),
+            ("random draft, guard", draft, "none", 8)):
+        eng = engine(draft_model, kvq)
+        got, wall, launched = drive(
+            eng, lambda e=eng, p=probe: e.run_speculative(p))
+        st = eng._spec_stats
+        rounds, plain_steps = st["rounds"], eng.stats["decode_steps"]
+        d_layers = draft_model.cfg.n_layer
+        expected = n_t * (rounds + plain_steps) + (
+            d_layers * SPEC_N_DRAFT * rounds)
+        t0 = time.perf_counter()
+        held = compare_completions(model, prompts, got, "int8",
+                                   f"speculative_serving ({label})", ref)
+        forcing_s = time.perf_counter() - t0
+        n_tok = sum(map(len, got.values()))
+        rows[label] = row = {
+            "phase": "speculative_serving", "drive": label,
+            "probe_rounds": probe, "draft_kv_quant": kvq,
+            "requests": len(got), "tokens": n_tok, "wall_s": wall,
+            "tok_s": n_tok / wall, "tok_s_over_run": plain_wall / wall,
+            "rounds": rounds, "plain_steps": plain_steps,
+            "round_widths": sorted(eng._spec_compiled),
+            "proposed": st["proposed"], "emitted": st["emitted"],
+            "accepted": st["accepted"],
+            "acceptance": st["accepted"] / max(st["proposed"], 1),
+            "spec_decision": eng.spec_decision,
+            "flash_decode_launches": launched,
+            "expected_launches": expected,
+            **held, "forcing_s": forcing_s,
+            "card": torch.cuda.get_device_name(0)}
+        log(row)
+        check(launched == expected and row["round_widths"] == [SPEC_N_DRAFT],
+              f"speculative_serving ({label}): {launched} flash_decode "
+              f"launches, {expected} expected (rounds {rounds}, plain "
+              f"steps {plain_steps}, widths {row['round_widths']})")
+        total += launched
+        del eng
+    check(rows["self-draft"]["acceptance"] >= SPEC_SELF_ACCEPTANCE,
+          f"speculative_serving: the self-draft accepts "
+          f"{rows['self-draft']['acceptance']} of its proposals")
+    check(rows["random draft, guard"]["spec_decision"] is not None,
+          "speculative_serving: the guard made no decision")
+    del draft
+    torch.cuda.empty_cache()
+    log({"phase": "speculative_serving_total",
+         "seconds": time.perf_counter() - t_phase})
+    return total
+
+
+@torch.no_grad()
+def prefix_serving(model) -> int:
+    """Shared-prefix caching: a 512-token system prompt from a seed before
+    each of the 16 serving prompts, a chunked engine (chunk 256, int8
+    cache, ``run_many(8)``) with ``set_prefix`` against the same engine
+    without it: each engine's completions held token by token through the
+    plain route (``compare_completions``) and counted equal, each engine's
+    flash-decode launches one a layer a decode step, and both engines'
+    admission time.  Returns the launches."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(2)
+    prefix = rng.integers(1, model.cfg.n_vocab, PREFIX_LEN).tolist()
+    prompts = [prefix + p for p in serving_prompts(model.cfg.n_vocab)]
+    out, total = {}, 0
+    for label in ("uncached", "set_prefix"):
+        eng = DecodeEngine(model, n_slots=8, max_len=8192,
+                           sampling=SamplingConfig(max_new_tokens=64),
+                           kv_quant="int8", prefill_chunk=PREFIX_CHUNK,
+                           device=DEV)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if label == "set_prefix":
+            eng.set_prefix(prefix)
+        torch.cuda.synchronize()
+        prefix_s = time.perf_counter() - t0
+        for uid, p in enumerate(prompts):
+            eng.submit(Request(uid, p))
+        common.launch_counts.clear()
+        t0 = time.perf_counter()
+        done = eng.run_many(8)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = common.launch_counts["flash_decode"]
+        steps = eng.stats["decode_steps"]
+        out[label] = {c.uid: c.tokens for c in done}
+        n_tok = sum(map(len, out[label].values()))
+        row = {"phase": "prefix_serving", "engine": label,
+               "prefix_tokens": PREFIX_LEN, "prefill_chunk": PREFIX_CHUNK,
+               "set_prefix_s": prefix_s if label == "set_prefix" else None,
+               "requests": len(done), "tokens": n_tok, "wall_s": wall,
+               "tok_s": n_tok / wall, "admit_s": eng.stats["admit_s"],
+               "admissions": eng.stats["admissions"],
+               "decode_steps": steps, "flash_decode_launches": launched,
+               "card": torch.cuda.get_device_name(0)}
+        check(all(len(c.tokens) == 64 for c in done),
+              f"prefix_serving ({label}): a short completion")
+        t0 = time.perf_counter()
+        row.update(compare_completions(
+            model, prompts, out[label], "int8", f"prefix_serving ({label})",
+            out.get("uncached") if label == "set_prefix" else None))
+        row["forcing_s"] = time.perf_counter() - t0
+        log(row)
+        check(launched == model.cfg.n_layer * steps,
+              f"prefix_serving ({label}): {launched} flash_decode launches "
+              f"for {steps} decode steps")
+        total += launched
+        del eng
+    log({"phase": "prefix_serving_total",
+         "seconds": time.perf_counter() - t_phase})
+    return total
+
+
 def end_to_end(kind: str | None = None) -> dict[str, int]:
     """Serving end to end at full width, 2 layers, fp32 with TF32 off,
     with float weights or, with ``kind``, quantized for that matmul kernel
@@ -3591,8 +3977,9 @@ def mt_generation_routes(rec: dict, kv_quant: str, label: str) -> dict:
     """The trained model's greedy tokens on the test split (as
     ``generate_translations`` takes them) through the kernels and through
     their plain versions: every hypothesis that leaves the plain route's
-    must do so at a near tie (``MT_TIE_GAP``) inside the position table;
-    past it both routes decode NaN logits (``nan_past_table``)."""
+    must do so at a near tie (``MT_TIE_GAP``, ``departure``) inside the
+    position table; past it both routes decode NaN logits
+    (``nan_past_table``)."""
     model, tok = rec["model"], rec["tokenizer"]
     test = get_dataset("local", MT_L)[0]["test"]
     rows = {impl: translation_tokens(model, test, "de", "en", tok, MT_L,
@@ -3601,28 +3988,13 @@ def mt_generation_routes(rec: dict, kv_quant: str, label: str) -> dict:
     atol, rtol = MT_TIE_GAP[model.cfg.dtype]
     ties, faults = [], []
     for i, (a, b) in enumerate(zip(rows["kernel"], rows["plain"])):
-        if a == b:
+        at = departure(model, tok(f"{test[i]['de']}<eos_de>")["input_ids"],
+                       b, a, kv_quant)
+        if at is None:
             continue
-        t = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
-        prompt = tok(f"{test[i]['de']}<eos_de>")["input_ids"]
-        at = {"example": i, "step": t, "kernel": a[t], "plain": b[t]}
-        if len(prompt) + t > model.cfg.n_positions:
-            faults.append({**at, "past_the_table": True})
-            continue
-        # generate's prefill and steps, for this sequence alone
-        last, caches = prefill_prompt(
-            model, torch.tensor([prompt], device=DEV),
-            torch.tensor([len(prompt)], device=DEV),
-            max_len=len(prompt) + t, kv_quant=kv_quant, impl="plain")
-        for x in b[:t]:
-            out, caches = model(torch.tensor([[x]], device=DEV),
-                                kv_caches=caches, impl="plain",
-                                positions=caches[0].lengths[:, None].long())
-            last = out[:, 0]
-        logits = last[0].float()
-        top = float(logits.max())
-        at.update(gap=top - float(logits[a[t]]), limit=atol + rtol * abs(top))
-        (ties if at["gap"] <= at["limit"] else faults).append(at)
+        at = {"example": i, **at}
+        at["kernel"], at["plain"] = at.pop("got"), at.pop("ref")
+        (ties if at.pop("near_tie") else faults).append(at)
     row = {"phase": "mt_generation_routes", "run": label,
            "kv_quant": kv_quant, "examples": len(test),
            "same_tokens": sum(a == b for a, b in zip(*rows.values())),
@@ -3633,6 +4005,116 @@ def mt_generation_routes(rec: dict, kv_quant: str, label: str) -> dict:
                       f"kernels leaves the plain route's away from a near "
                       f"tie: {faults}")
     return row
+
+
+# Beam search over the trained (k) model's test split
+MT_BEAM = 4
+
+
+class Lockstep:
+    """``model`` as ``beam_generate`` calls it (prefill, then a step a
+    token), through the kernels, each call also run through the plain
+    route on a copy of the same caches; ``plain`` keeps those logits."""
+
+    def __init__(self, model):
+        self.model, self.cfg, self.device = model, model.cfg, model.device
+        self.plain = []
+
+    def __call__(self, ids, *, kv_caches, impl=None, **kw):
+        copies = [_gather_cache(c, torch.arange(c.k.shape[0], device=DEV))
+                  for c in kv_caches]
+        self.plain.append(self.model(ids, kv_caches=copies, impl="plain",
+                                     **kw)[0])
+        return self.model(ids, kv_caches=kv_caches, impl="kernel", **kw)
+
+
+def beam_choices(trace, plain, prompt_lengths, W, pad_id, tie) -> dict:
+    """Each choice of a beam pass through the kernels (``trace``, from
+    ``beam_generate``) against the plain route's logits on the same beams
+    and caches (``plain``, from ``Lockstep``; a prefill's row at each
+    prompt's last token, then a step's): every kept candidate's score, its
+    beam's score plus its plain log-prob, may lie below the W-th best
+    plain candidate by at most ``tie = (atol, rtol)``: atol and rtol of
+    the largest |top logit| of the sequence's live beams.  A sequence's step with a NaN logit (past the
+    position table, where both routes' logits are NaN) is not held."""
+    gaps, limits, skipped = [], [], 0
+    first = 0
+    for S, done, kept in trace:
+        logits = plain.pop(0).float()
+        if logits.shape[1] > 1:       # a prefill: each prompt's last token
+            n = logits.shape[0]
+            lens = prompt_lengths[first:first + n]
+            first += n
+            logits = logits[torch.arange(n), lens - 1].repeat_interleave(W, 0)
+        else:
+            logits = logits[:, 0]
+        B, V = S.shape[0], logits.shape[-1]
+        logp = torch.log_softmax(logits, -1).view(B, W, V)
+        finished = torch.full((V,), NEG_INF, device=DEV)
+        finished[pad_id] = 0.0
+        logp = torch.where(done[:, :, None], finished, logp)
+        cand = (S[:, :, None] + logp).view(B, W * V)
+        wth = torch.sort(cand, -1, descending=True).values[:, W - 1]
+        top = torch.where(done, 0.0, logits.view(B, W, V).amax(-1))
+        top = top.abs().amax(-1)
+        held = torch.isfinite(cand).all(-1) & torch.isfinite(top)
+        skipped += int((~held).sum())
+        gaps.append((wth[:, None] - cand.gather(1, kept))[held].amax(-1))
+        limits.append(tie[0] + tie[1] * top[held])
+    check(not plain, "mt_beam_routes: the plain logits outnumber the steps")
+    gaps, limits = torch.cat(gaps), torch.cat(limits)
+    return {"choices_held": gaps.numel(), "sequence_steps_past_table":
+            skipped, "off_plain_top": int((gaps > 0).sum()),
+            **closest(gaps, limits), "faults": int((gaps > limits).sum())}
+
+
+@torch.no_grad()
+def mt_beam_routes(rec: dict, kv_quant: str, label: str) -> tuple[dict, int]:
+    """The MT app's beam pass on the trained model: ``generate_translations
+    (beam_size=4)`` (its flash-decode launches counted) and its BLEU beside
+    the greedy BLEU of the run's last epoch; then the pass again through
+    ``Lockstep``, each of its choices held against the plain route's
+    logits on the same beams (``beam_choices``, ``MT_TIE_GAP``), and its
+    rows counted equal to a pass through the plain route."""
+    model, tok = rec["model"], rec["tokenizer"]
+    test = get_dataset("local", MT_L)[0]["test"]
+    t_phase = t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    common.launch_counts.clear()
+    hyps = generate_translations(model, test, "de", "en", tok, MT_L,
+                                 kv_quant=kv_quant, beam_size=MT_BEAM)
+    torch.cuda.synchronize()
+    launched = common.launch_counts["flash_decode"]
+    seconds = time.perf_counter() - t0
+    lock, trace = Lockstep(model), []
+    kernel = translation_tokens(lock, test, "de", "en", tok, MT_L,
+                                kv_quant=kv_quant, beam_size=MT_BEAM,
+                                trace=trace)
+    plain = translation_tokens(model, test, "de", "en", tok, MT_L,
+                               kv_quant=kv_quant, beam_size=MT_BEAM,
+                               impl="plain")
+    lengths = torch.tensor([len(tok(f"{ex['de']}<eos_de>")["input_ids"])
+                            for ex in test], device=DEV)
+    atol, rtol = MT_TIE_GAP[model.cfg.dtype]
+    held = beam_choices(trace, lock.plain, lengths, MT_BEAM,
+                        tok.vocab["<pad>"], (atol, rtol))
+    row = {"phase": "mt_beam_routes", "run": label, "kv_quant": kv_quant,
+           "beam_size": MT_BEAM, "examples": len(test),
+           "same_rows": sum(a == b for a, b in zip(kernel, plain)),
+           **held, "tie_gap": f"{atol} + {rtol} * |top logit|",
+           "beam_bleu": evaluate_bleu(test, hyps, "en")["bleu"],
+           "greedy_bleu": rec["bleu"][-1]["bleu"],
+           "beam_pass_s": seconds, "flash_decode_launches": launched,
+           "seconds": time.perf_counter() - t_phase,
+           "card": torch.cuda.get_device_name(0)}
+    log(row)
+    check(not held["faults"],
+          f"mt_app ({label}): beam choices through the kernels away from a "
+          f"near tie of the plain route's: {held}")
+    check(launched > 0 and launched % model.cfg.n_layer == 0,
+          f"mt_app ({label}): the beam pass launched flash_decode "
+          f"{launched} times")
+    return row, launched
 
 
 def mt_packed_attention(tokenizer, gen) -> dict:
@@ -3755,7 +4237,7 @@ def mt_app() -> dict[str, int]:
               fa._form_name(bwd, torch.float32, True), "flash_decode",
               "layernorm_fwd", "layernorm_bwd")}
     launches: collections.Counter = collections.Counter()
-    rows, routes = {}, {}
+    rows, routes, beams = {}, {}, {}
     try:
         for name, args in MT_RUNS.items():
             wd = ["--workdir", os.path.join(root, name)]
@@ -3804,6 +4286,10 @@ def mt_app() -> dict[str, int]:
             # the last run's trained model: kernels against plain versions
             routes[label] = mt_generation_routes(rec, MT_KV_QUANT[name],
                                                  label)
+            if name == "k":
+                beams[label], n = mt_beam_routes(rec, MT_KV_QUANT[name],
+                                                 label)
+                launches["flash_decode"] += n
             if name == "l":
                 mt_packed_attention(rec["tokenizer"],
                                     torch.Generator(DEV).manual_seed(20))
@@ -3818,7 +4304,9 @@ def mt_app() -> dict[str, int]:
                             for k, r in rows.items()},
          "bpe_vocab": {k: r["bpe_vocab"] for k, r in rows.items()},
          "greedy_tokens_same": {k: r["same_tokens"]
-                                for k, r in routes.items()}})
+                                for k, r in routes.items()},
+         "beam_rows_same": {k: r["same_rows"] for k, r in beams.items()},
+         "beam_bleu": {k: r["beam_bleu"] for k, r in beams.items()}})
     return dict(launches)
 
 
@@ -3907,7 +4395,10 @@ def main() -> int:
 
     gen = torch.Generator(DEV).manual_seed(0)
     worst = kernel_cases(gen)
+    t_times = time.perf_counter()
     rows = kernel_times(gen)
+    log({"phase": "kernel_times_total",
+         "seconds": time.perf_counter() - t_times})
 
     attn_worst = attention_cases(gen)
     fp64_errs = attention_vs_fp64(gen)
@@ -3949,6 +4440,9 @@ def main() -> int:
     launches = serving(model, cfg.n_layer)
     for n, c in quantized_serving(model).items():
         launches[n] = launches.get(n, 0) + c
+    # speculative decoding and the shared-prefix cache on the same model
+    launches["flash_decode"] += speculative_serving(model)
+    launches["flash_decode"] += prefix_serving(model)
     del model
     torch.cuda.empty_cache()
     end_to_end()
@@ -4105,7 +4599,7 @@ def main() -> int:
         launches[n] += c
 
     main_row = next(r for r in rows if r["cache"] == "int8"
-                    and r["length"] == 1024)
+                    and r["length"] == 1024 and r["lq"] == 1)
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     entries = [{
         "name": "flash_decode", "route": "cuda",
@@ -4116,8 +4610,9 @@ def main() -> int:
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
         "shape": "B8 Hq16 Hkv16 Lq1 d64 S8192 int8 cache, lengths 1024",
-        "other_shapes": {f"{r['cache']} cache, lengths {r['length']}":
-                         {k: r[k] for k in timed}
+        "other_shapes": {f"Lq{r['lq']}, {r['cache']} cache, lengths "
+                         f"{r['length']}": {k: r[k] for k in timed
+                                            + ("over_lq1", "max_abs_err")}
                          for r in rows if r is not main_row}}]
     replaces = {"flash_attention_fwd": "flash_attention.py:498",
                 "flash_attention_bwd": "flash_attention.py:1228"}

@@ -221,7 +221,7 @@ def test_metrics_logger_writes_strict_json(tmp_path):
 @pytest.mark.parametrize("flags,label", [
     (["--dp", "2"], "A8"), (["--tp", "2"], "A8"), (["--dcn-data", "2"], "A8"),
     (["--zero1"], "A8"), (["--sequence-parallel"], "A8"),
-    (["--beam-size", "4"], "A6"), (["--profile"], "A9b")])
+    (["--profile"], "A9b")])
 def test_unported_flags_raise_with_their_label(tmp_path, flags, label):
     with pytest.raises(NotImplementedError, match=f"item {label}\\)"):
         tapp.main(["--workdir", str(tmp_path)] + flags, device="cpu")
@@ -229,8 +229,6 @@ def test_unported_flags_raise_with_their_label(tmp_path, flags, label):
 
 def test_unported_arguments_raise_with_their_label():
     tm = tnn.DecoderLM(tnn.DecoderConfig(**CFG), device="cpu")
-    with pytest.raises(NotImplementedError, match="item A6\\)"):
-        tapp.generate_translations(tm, [], "de", "en", None, 16, beam_size=2)
     for fn, args in ((tapp.generate_translations,
                       (tm, [], "de", "en", None, 16)),
                      (tapp.evaluate_loss, (tm, [], None, 1)),

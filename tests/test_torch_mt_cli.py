@@ -46,15 +46,19 @@ def pair(tmp_path_factory):
     return ds, jtok, ttok, jm, params, tm
 
 
+@pytest.mark.parametrize("beam_size", [1, 3])
 @pytest.mark.parametrize("kv_quant", ["none", "int8"])
-def test_generate_translations_matches_jax(pair, kv_quant):
+def test_generate_translations_matches_jax(pair, kv_quant, beam_size):
     """The model's vocabulary (512) is larger than the tokenizer's (500),
-    as the app's is: ids without a token are left out by both."""
+    as the app's is: ids without a token are left out by both.  Greedy and
+    beam decoding run past the position table (prompt + 40 new tokens at
+    L40), where both packages embed NaN."""
     ds, jtok, ttok, jm, params, tm = pair
     want = japp.generate_translations(jm, params, ds["test"], "de", "en",
-                                      jtok, L, kv_quant=kv_quant)
+                                      jtok, L, kv_quant=kv_quant,
+                                      beam_size=beam_size)
     got = tapp.generate_translations(tm, ds["test"], "de", "en", ttok, L,
-                                     kv_quant=kv_quant)
+                                     kv_quant=kv_quant, beam_size=beam_size)
     assert got == want
     assert len(got) == 8 and any(h for h in got)
 
@@ -107,6 +111,20 @@ def test_main_trains_checkpoints_logs_and_resumes(tmp_path):
                              "--workdir", str(tmp_path / "empty")],
                      device="cpu")
     assert [r["epoch"] for r in cold["epochs"]] == [0]
+
+
+def test_main_bleu_by_beam_search(tmp_path):
+    """``--beam-size 2``: the BLEU pass decodes by beam search."""
+    args = ["--dataset", "local", "--max-iters-per-epoch", "2",
+            "--samples-per-epoch", "32", "--batch-size", "8",
+            "--model-max-length", "24", "--n-vocab", "300",
+            "--n-embd", "32", "--n-head", "2", "--n-layer", "1",
+            "--checkpoint-every", "0", "--beam-size", "2",
+            "--workdir", str(tmp_path)]
+    out = tapp.main(args, device="cpu")
+    assert [b["epoch"] for b in out["bleu"]] == [0]
+    assert 0.0 <= out["bleu"][0]["bleu"] <= 100.0
+    assert len(out["samples"]) == 3
 
 
 def test_main_refuses_a_vocab_below_the_tokenizer(tmp_path):

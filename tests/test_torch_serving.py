@@ -136,15 +136,6 @@ def test_engine_retires_at_max_len(ref):
 
 
 def test_engine_options_outside_the_slice_raise(ref):
-    with pytest.raises(NotImplementedError, match="A6"):
-        DecodeEngine(ref["model"], n_slots=1, max_len=8,
-                     sampling=SamplingConfig(), draft_model=ref["model"],
-                     device="cpu")
-    eng = DecodeEngine(ref["model"], n_slots=1, max_len=8,
-                       sampling=SamplingConfig(), prefill_chunk=4,
-                       device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        eng.set_prefix([1, 2])
     with pytest.raises(ValueError, match="prefill_chunk"):
         DecodeEngine(ref["model"], n_slots=1, max_len=8,
                      sampling=SamplingConfig(), prefill_chunk=0,

@@ -3,8 +3,8 @@
 batches (fixed-length, or sequence-packed with ``--pack``; from the C++
 batch ring with ``--native-loader``) -> decoder-only LM trained with masked
 MLE (the model's kernels: flash attention, or the fused masked softmax,
-and the fused LayerNorm with ``--use-fused-kernel``) -> greedy generation
-over the KV cache (the flash-decode kernel) -> corpus BLEU, with
+and the fused LayerNorm with ``--use-fused-kernel``) -> greedy or beam
+generation over the KV cache (the flash-decode kernel) -> corpus BLEU, with
 checkpoints, resume and a JSONL metrics log.
 
 The JAX step is one jitted program over an external parameter tree; here
@@ -23,8 +23,7 @@ Deviations from the JAX app:
   * not ported yet, each raising ``NotImplementedError`` with its
     ROADMAP.md item: ``--dp``/``--tp``/``--dcn-data`` above 1, ``--zero1``
     and ``--sequence-parallel`` (A8, as ``ctx=`` on ``train_epoch``,
-    ``evaluate_loss`` and ``generate_translations``), ``--beam-size`` above
-    1 (A6), ``--profile`` (A9b).
+    ``evaluate_loss`` and ``generate_translations``), ``--profile`` (A9b).
 """
 
 from __future__ import annotations
@@ -38,6 +37,7 @@ import numpy as np
 import torch
 
 from tpu_flash_torch.data import mt
+from tpu_flash_torch.inference.beam import beam_generate
 from tpu_flash_torch.inference.sampler import SamplingConfig, generate
 from tpu_flash_torch.kernels.common import resolve_device
 from tpu_flash_torch.nn import functional as F
@@ -247,36 +247,38 @@ def generate_translations(model, examples, src_key, tgt_key, tokenizer,
                           model_max_length, *, batch_size=16,
                           max_new_tokens=None, kv_quant="none",
                           beam_size=1, ctx=None, impl=None) -> list[str]:
-    """Greedy KV-cache decoding of the test set (JAX ``apps/
-    machine_translation.py:241-295``): ``translation_tokens`` with pads and
-    eos dropped, the rest decoded.  Returns the hypotheses in ``examples``'
-    order.  Beam search is A6's, ``ctx`` A8's."""
-    if beam_size > 1:
-        raise _not_ported(f"beam search (beam_size={beam_size})", "A6")
+    """Greedy (``beam_size`` 1) or beam KV-cache decoding of the test set
+    (JAX ``apps/machine_translation.py:241-295``): ``translation_tokens``
+    with pads and eos dropped, the rest decoded.  Returns the hypotheses in
+    ``examples``' order.  ``ctx`` is A8's."""
     _no_ctx(ctx, "generate_translations")
     drop = {tokenizer.vocab["<pad>"], tokenizer.vocab[f"<eos_{tgt_key}>"]}
     return [tokenizer.decode([t for t in row if t not in drop])
             for row in translation_tokens(
                 model, examples, src_key, tgt_key, tokenizer,
                 model_max_length, batch_size=batch_size,
-                max_new_tokens=max_new_tokens, kv_quant=kv_quant, impl=impl)]
+                max_new_tokens=max_new_tokens, kv_quant=kv_quant,
+                beam_size=beam_size, impl=impl)]
 
 
 @torch.no_grad()
 def translation_tokens(model, examples, src_key, tgt_key, tokenizer,
                        model_max_length, *, batch_size=16,
-                       max_new_tokens=None, kv_quant="none",
-                       impl=None) -> list[list[int]]:
-    """Each example's greedy tokens, one a step (pads after its eos):
-    prompts of ``src<eos_src>``, right-padded, ``batch_size`` at a time
-    through ``inference.generate`` (``eos_id`` the target's eos,
-    ``max_len`` the longest prompt plus ``max_new_tokens``, by default
+                       max_new_tokens=None, kv_quant="none", beam_size=1,
+                       impl=None, trace=None) -> list[list[int]]:
+    """Each example's tokens, one a step (pads after its eos): prompts of
+    ``src<eos_src>``, right-padded, ``batch_size`` at a time through
+    ``inference.generate`` (greedy) or, with ``beam_size`` above 1,
+    ``inference.beam_generate`` (``eos_id`` the target's eos, ``max_len``
+    the longest prompt plus ``max_new_tokens``, by default
     ``model_max_length``; ``kv_quant`` the cache's codes; ``impl`` to the
-    kernels' wrappers)."""
+    kernels' wrappers; ``trace`` to ``beam_generate``, batch after
+    batch)."""
     pad_id = tokenizer.vocab["<pad>"]
+    eos = tokenizer.vocab[f"<eos_{tgt_key}>"]
     max_new = max_new_tokens or model_max_length
     sampling = SamplingConfig(max_new_tokens=max_new, temperature=0.0,
-                              eos_id=tokenizer.vocab[f"<eos_{tgt_key}>"])
+                              eos_id=eos)
     out = []
     for i in range(0, len(examples), batch_size):
         chunk = examples[i:i + batch_size]
@@ -287,9 +289,17 @@ def translation_tokens(model, examples, src_key, tgt_key, tokenizer,
         padded = np.full((len(chunk), Lp), pad_id, np.int64)
         for j, p in enumerate(prompts):
             padded[j, :len(p)] = p
-        toks, _ = generate(model, padded, lengths, sampling,
-                           max_len=Lp + max_new, kv_quant=kv_quant,
-                           pad_id=pad_id, device=model.device, impl=impl)
+        if beam_size > 1:
+            toks, _ = beam_generate(
+                model, padded, lengths, beam_size=beam_size,
+                max_new_tokens=max_new, max_len=Lp + max_new, eos_id=eos,
+                pad_id=pad_id, kv_quant=kv_quant, device=model.device,
+                impl=impl, trace=trace)
+        else:
+            toks, _ = generate(model, padded, lengths, sampling,
+                               max_len=Lp + max_new, kv_quant=kv_quant,
+                               pad_id=pad_id, device=model.device,
+                               impl=impl)
         out += toks.cpu().tolist()
     return out
 
@@ -337,7 +347,7 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--skip-bleu", action="store_true")
     p.add_argument("--beam-size", type=int, default=1,
-                   help="beam width for BLEU generation (above 1: A6)")
+                   help="beam width for BLEU generation")
     p.add_argument("--kv-quant", default="none",
                    choices=("none", "int8", "fp8"),
                    help="the KV cache's codes for BLEU generation")
@@ -378,7 +388,6 @@ def _refuse_unported(args) -> None:
             (args.dcn_data > 1, f"--dcn-data {args.dcn_data}", "A8"),
             (args.zero1, "--zero1", "A8"),
             (args.sequence_parallel, "--sequence-parallel", "A8"),
-            (args.beam_size > 1, f"--beam-size {args.beam_size}", "A6"),
             (args.profile, "--profile", "A9b")):
         if bad:
             raise _not_ported(what, item)

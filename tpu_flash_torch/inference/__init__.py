@@ -1,5 +1,7 @@
-"""Inference: KV cache, sampler and the continuous-batching engine."""
+"""Inference: KV cache, sampler, beam search, speculative decoding and the
+continuous-batching engine."""
 
+from tpu_flash_torch.inference.beam import beam_generate  # noqa: F401
 from tpu_flash_torch.inference.engine import (  # noqa: F401
     Completion,
     DecodeEngine,
@@ -12,4 +14,7 @@ from tpu_flash_torch.inference.sampler import (  # noqa: F401
     generate,
     make_caches,
     prefill_prompt,
+)
+from tpu_flash_torch.inference.speculative import (  # noqa: F401
+    speculative_generate,
 )

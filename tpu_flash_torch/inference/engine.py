@@ -13,10 +13,15 @@ once per ``step`` or once per ``step_many``.
 
 Every slot's cache takes a row each step, idle slots included (their tokens
 are discarded); an idle slot's length may run past ``max_len`` and its writes
-then land on the buffer's last row, as in the JAX engine.
+then land on the buffer's last rows, as in the JAX engine.
 
-Not ported yet: speculative decoding with a ``draft_model`` and shared-prefix
-caching (``set_prefix``): ROADMAP.md, queue A item A6.
+With a ``draft_model`` the engine keeps the draft's own slot caches and
+``step_speculative`` / ``run_speculative`` emit up to ``n_draft`` tokens a
+slot a round (``inference/speculative.py``).  ``set_prefix`` prefills a
+shared system prompt once; admissions that start with it copy its caches
+and prefill only the rest.  The port's caches are updated in place, so each
+such admission starts from a clone of the stored prefix caches (JAX's
+immutable arrays make that copy free).
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from tpu_flash_torch.inference.sampler import (
     _sample_token,
     make_caches,
 )
+from tpu_flash_torch.inference.speculative import speculative_round
 from tpu_flash_torch.kernels.common import cdiv, resolve_device
 
 
@@ -65,6 +71,16 @@ def _scatter_subcaches(caches: list[KVCache], subs: list[KVCache], slot: int,
         main.lengths[slot] = length
 
 
+def _clone_caches(caches: list[KVCache]) -> list[KVCache]:
+    def clone(a):
+        return None if a is None else a.clone()
+
+    return [dataclasses.replace(c, k=c.k.clone(), v=c.v.clone(),
+                                k_scale=clone(c.k_scale),
+                                v_scale=clone(c.v_scale),
+                                lengths=c.lengths.clone()) for c in caches]
+
+
 def _bucket(n: int, buckets=(16, 32, 64, 128, 256, 512, 1024)) -> int:
     for b in buckets:
         if n <= b:
@@ -76,25 +92,28 @@ class DecodeEngine:
     """Fixed-slot continuous batching around a ``DecoderLM``.
 
     ``device=None`` means the card and raises without one; CPU runs pass
-    ``device="cpu"``.  The model must live on that device.  ``stats``
-    counts decode steps and admissions, with their wall time (each closes
-    on a host read of the sampled tokens)."""
+    ``device="cpu"``.  The model (and ``draft_model``) must live on that
+    device.  ``stats`` counts decode steps and admissions, with their wall
+    time (each closes on a host read of the sampled tokens); ``_spec_stats``
+    holds the JAX engine's speculative counters (``rounds``, ``proposed``,
+    ``emitted``, ``accepted``, and the timed ``spec_*`` and ``plain_*``
+    samples the guard of ``run_speculative`` compares)."""
 
     def __init__(self, model, *, n_slots: int, max_len: int,
                  sampling: SamplingConfig, kv_quant: str = "none",
                  pad_id: int = 0, seed: int = 0,
                  prefill_chunk: int | None = None, draft_model=None,
+                 n_draft: int = 4, draft_kv_quant: str = "none",
                  device=None):
         device = resolve_device(device)
-        if model.device != device:
-            raise ValueError(f"model lives on {model.device}, not {device}")
-        if draft_model is not None:
-            raise NotImplementedError(
-                "speculative decoding (draft_model) is not ported yet "
-                "(ROADMAP.md, queue A item A6)")
+        for m in (model, draft_model):
+            if m is not None and m.device != device:
+                raise ValueError(f"model lives on {m.device}, not {device}")
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, "
                              f"got {prefill_chunk}")
+        if draft_model is not None and n_draft < 1:
+            raise ValueError(f"n_draft must be >= 1, got {n_draft}")
         self.model = model
         self.device = device
         self.n_slots = n_slots
@@ -103,11 +122,21 @@ class DecodeEngine:
         self.pad_id = pad_id
         self.prefill_chunk = prefill_chunk
         self.generator = torch.Generator(device=device).manual_seed(seed)
+        self._prefix = None           # shared-prefix cache (set_prefix)
+        self._prefix_caches = {}      # is_draft -> 1-slot caches
+        self._prefix_last = None
 
         self.caches = make_caches(model, n_slots, max_len, quant=kv_quant,
                                   compute_dtype=model.cfg.dtype)
         self.last_tokens = torch.zeros(n_slots, dtype=torch.int64,
                                        device=device)
+        # speculative decoding: a draft model with its own slot caches
+        self.draft_model = draft_model
+        self.n_draft = n_draft
+        if draft_model is not None:
+            self.draft_caches = make_caches(
+                draft_model, n_slots, max_len, quant=draft_kv_quant,
+                compute_dtype=draft_model.cfg.dtype)
         # host-side bookkeeping
         self.slot_uid: list[int | None] = [None] * n_slots
         self.slot_tokens: list[list[int]] = [[] for _ in range(n_slots)]
@@ -117,12 +146,51 @@ class DecodeEngine:
         self.completions: list[Completion] = []
         self.stats = dict(decode_steps=0, decode_s=0.0, admissions=0,
                           admit_s=0.0)
+        # the guard's samples of both modes, each mode's first call (the
+        # JAX engine's compile) excluded, and the acceptance counters
+        self._spec_stats = dict(rounds=0, proposed=0, emitted=0, accepted=0,
+                                spec_timed=0, spec_s=0.0, spec_tok=0,
+                                plain_timed=0, plain_s=0.0, plain_tok=0)
+        self._spec_compiled: set[int] = set()   # round widths already run
+        self._plain_compiled = False
+        self.spec_decision: dict | None = None
 
     # ------------------------------------------------------------------ API
+    @torch.no_grad()
     def set_prefix(self, prefix) -> None:
-        raise NotImplementedError(
-            "shared-prefix caching (set_prefix) is not ported yet "
-            "(ROADMAP.md, queue A item A6)")
+        """Shared-prefix (system-prompt) caching: prefill ``prefix`` once
+        into detached 1-slot caches; every admission whose prompt starts
+        with it copies those caches and prefills only the remainder.
+        Requires chunked-prefill mode."""
+        if self.prefill_chunk is None:
+            raise ValueError("set_prefix requires prefill_chunk mode "
+                             "(DecodeEngine(prefill_chunk=C))")
+        prefix = list(prefix)
+        if not prefix or len(prefix) >= self.max_len - 1:
+            raise ValueError(f"prefix length {len(prefix)} must be in "
+                             f"[1, max_len-1)")
+        C = self.prefill_chunk
+        self._prefix = prefix
+        self._prefix_caches = {}
+        for is_draft, model, attr in self._prefill_targets():
+            # over-allocated by one chunk, as _chunked_prefill's
+            sub = self._new_subcaches(model, attr, self.max_len + C)
+            logits, n_chunks = self._run_chunks(model, sub, prefix, 0)
+            # the chunk padding advanced the lengths past the prefix: pin
+            # them back, so that the remainder starts at len(prefix)
+            for c in sub:
+                c.lengths.fill_(len(prefix))
+            self._prefix_caches[is_draft] = sub
+            if not is_draft:
+                self._prefix_last = logits[
+                    0, (len(prefix) - 1) - (n_chunks - 1) * C]
+
+    def _prefill_targets(self):
+        """(is_draft, model, caches attribute) of each model to prefill."""
+        targets = [(False, self.model, "caches")]
+        if self.draft_model is not None:
+            targets.append((True, self.draft_model, "draft_caches"))
+        return targets
 
     def submit(self, req: Request) -> None:
         self.queue.append(req)
@@ -159,47 +227,83 @@ class DecodeEngine:
         nxt = _sample_token(logits[:, 0, :], self.sampling, self.generator)
         return torch.where(active, nxt, self.pad_id)
 
-    def _new_subcaches(self, max_len: int) -> list[KVCache]:
-        c = self.caches[0]
-        return make_caches(self.model, 1, max_len, quant=c.quant,
+    def _new_subcaches(self, model, attr: str, max_len: int):
+        c = getattr(self, attr)[0]
+        return make_caches(model, 1, max_len, quant=c.quant,
                            compute_dtype=c.compute_dtype)
 
     def _prefill(self, slot: int, prompt: list[int]) -> torch.Tensor:
         """Bucketed prefill: the prompt, padded to a power-of-two bucket,
-        runs through a detached 1-slot cache that is then copied into
-        ``slot``.  Returns the last prompt token's logits."""
+        runs through detached 1-slot caches that are then copied into
+        ``slot`` (the target's, and the draft's where there is one).
+        Returns the last prompt token's logits."""
         bucket = min(_bucket(len(prompt)), self.max_len)
         ids = np.full((1, bucket), self.pad_id, np.int64)
         ids[0, : len(prompt)] = prompt
-        sub = self._new_subcaches(self.max_len)
-        logits, sub = self.model(torch.from_numpy(ids).to(self.device),
-                                 kv_caches=sub)
-        _scatter_subcaches(self.caches, sub, slot, len(prompt))
-        return logits[0, len(prompt) - 1]
+        ids = torch.from_numpy(ids).to(self.device)
+        last = None
+        for is_draft, model, attr in self._prefill_targets():
+            sub = self._new_subcaches(model, attr, self.max_len)
+            logits, sub = model(ids, kv_caches=sub)
+            _scatter_subcaches(getattr(self, attr), sub, slot, len(prompt))
+            if not is_draft:
+                last = logits[0, len(prompt) - 1]
+        return last
+
+    def _run_chunks(self, model, sub, tokens: list[int], base: int,
+                    interleave: bool = False):
+        """``tokens`` through ``sub`` in ``prefill_chunk``-sized pieces
+        from position ``base``, the last piece padded; with
+        ``interleave`` a decode step of the active slots after each piece
+        but the last.  Returns (the last piece's logits, the pieces)."""
+        C = self.prefill_chunk
+        n_chunks = cdiv(len(tokens), C)
+        logits = None
+        for t in range(n_chunks):
+            ids = np.full((1, C), self.pad_id, np.int64)
+            seg = tokens[t * C:(t + 1) * C]
+            ids[0, : len(seg)] = seg
+            positions = (base + t * C
+                         + torch.arange(C, device=self.device)[None, :])
+            logits, sub = model(torch.from_numpy(ids).to(self.device),
+                                kv_caches=sub, positions=positions)
+            if interleave and t < n_chunks - 1:
+                self.step()
+        return logits, n_chunks
 
     def _chunked_prefill(self, slot: int, prompt: list[int]) -> torch.Tensor:
         """Admit one prompt in ``prefill_chunk``-sized pieces, running a
         decode step for the already-active slots after each chunk but the
         last, so an admission delays in-flight requests by at most one chunk
-        of prefill.  The chunks write a detached sub-cache (the interleaved
-        steps write every slot of the main caches).  Returns the prompt's
-        last-token logits."""
+        of prefill.  The chunks write detached sub-caches (the interleaved
+        steps write every slot of the main caches).  A prompt that starts
+        with the ``set_prefix`` prompt starts from a copy of its caches.
+        With a draft model no step is interleaved: a plain step appends to
+        the target's caches only.  Returns the prompt's last-token
+        logits."""
         C = self.prefill_chunk
-        n_chunks = cdiv(len(prompt), C)
-        # over-allocated by one chunk: the pad-filled final chunk may write
-        # past max_len (the scatter drops the tail)
-        sub = self._new_subcaches(self.max_len + C)
-        for t in range(n_chunks):
-            ids = np.full((1, C), self.pad_id, np.int64)
-            seg = prompt[t * C:(t + 1) * C]
-            ids[0, : len(seg)] = seg
-            positions = t * C + torch.arange(C, device=self.device)[None, :]
-            logits, sub = self.model(torch.from_numpy(ids).to(self.device),
-                                     kv_caches=sub, positions=positions)
-            if t < n_chunks - 1:
-                self.step()
-        _scatter_subcaches(self.caches, sub, slot, len(prompt))
-        return logits[0, (len(prompt) - 1) - (n_chunks - 1) * C]
+        base = 0
+        if (self._prefix is not None
+                and prompt[: len(self._prefix)] == self._prefix):
+            base = len(self._prefix)
+        rest = prompt[base:]
+        last = None
+        for is_draft, model, attr in self._prefill_targets():
+            if base:
+                # a copy: the remainder's chunks write into it in place
+                sub = _clone_caches(self._prefix_caches[is_draft])
+            else:
+                # over-allocated by one chunk: the pad-filled final chunk
+                # may write past max_len (the scatter drops the tail)
+                sub = self._new_subcaches(model, attr, self.max_len + C)
+            logits, n_chunks = self._run_chunks(
+                model, sub, rest, base,
+                interleave=not is_draft and self.draft_model is None)
+            _scatter_subcaches(getattr(self, attr), sub, slot, len(prompt))
+            if not is_draft:
+                last = (self._prefix_last if n_chunks == 0
+                        else logits[0, (len(rest) - 1) - (n_chunks - 1) * C])
+        return last
 
     @torch.no_grad()
     def admit(self) -> None:
@@ -255,7 +359,8 @@ class DecodeEngine:
 
     @torch.no_grad()
     def step(self) -> None:
-        """One decode step over all slots (tokens of idle ones dropped)."""
+        """One decode step over all slots (tokens of idle ones dropped).
+        Appends to the target's caches only."""
         active = self._active_mask()
         if not active.any():
             return
@@ -263,8 +368,16 @@ class DecodeEngine:
         nxt = self._decode_step(self.last_tokens,
                                 torch.from_numpy(active).to(self.device))
         nxt_host = nxt.cpu().numpy()     # the host read closes the step
+        dt = time.perf_counter() - t0
         self.stats["decode_steps"] += 1
-        self.stats["decode_s"] += time.perf_counter() - t0
+        self.stats["decode_s"] += dt
+        if self._plain_compiled:
+            st = self._spec_stats
+            st["plain_timed"] += 1
+            st["plain_s"] += dt
+            st["plain_tok"] += int(active.sum())
+        else:
+            self._plain_compiled = True     # the first call is not timed
         for slot in range(self.n_slots):
             self.slot_len[slot] += 1     # every slot's cache took a row
             if active[slot]:
@@ -308,3 +421,111 @@ class DecodeEngine:
                     break         # retired mid-run; the rest is masked
                 self._host_emit(slot, int(toks_host[i, slot]),
                                 base + i + 1, update_last=False)
+
+    # ------------------------------------------------- speculative stepping
+    @torch.no_grad()
+    def step_speculative(self) -> None:
+        """One speculative round over all active slots (requires a
+        ``draft_model``); emits up to ``n_draft`` tokens a slot.
+
+        The round width is clamped so that no active slot's verification
+        overruns its cache, as ``step_many``'s step count is: the last
+        rounds near capacity shrink instead of retiring early, so
+        ``_host_emit`` retires a slot at the same token as ``run()``."""
+        if self.draft_model is None:
+            raise ValueError("engine was built without a draft_model")
+        # retire slots without room for a single-token round (unreachable
+        # while _host_emit's length retirement holds; a guard)
+        for slot in range(self.n_slots):
+            if (self.slot_uid[slot] is not None
+                    and self.slot_len[slot] + 1 >= self.max_len):
+                self.completions.append(Completion(
+                    self.slot_uid[slot], self.slot_tokens[slot], "length"))
+                self.slot_uid[slot] = None
+        active = self._active_mask()
+        if not active.any():
+            return
+        # this round's keys land at positions len .. len+W-1 (< max_len)
+        room = self.max_len - max(
+            self.slot_len[i] for i in range(self.n_slots) if active[i])
+        W = max(1, min(self.n_draft, room))
+        live = torch.from_numpy(active).to(self.device)
+        t0 = time.perf_counter()
+        emitted, m, g_m, self.caches, self.draft_caches = speculative_round(
+            self.model, self.draft_model, self.sampling, self.caches,
+            self.draft_caches, self.last_tokens, live, self.generator, W,
+            self.pad_id, clamp_positions=True)
+        n_valid = torch.where(live, m + 1, 0)
+        self.last_tokens = torch.where(live, g_m, self.last_tokens)
+        emitted_host = emitted.cpu().numpy()
+        n_valid_host = n_valid.cpu().numpy()   # the host read closes it
+        dt = time.perf_counter() - t0
+        st = self._spec_stats
+        n_active = int(active.sum())
+        n_emitted = int(n_valid_host[active].sum())
+        st["rounds"] += 1
+        st["proposed"] += W * n_active
+        st["emitted"] += n_emitted
+        # each active slot emits its accepted drafts and one correction:
+        # the acceptance fraction leaves the round's bonus token out
+        st["accepted"] += n_emitted - n_active
+        if W in self._spec_compiled:
+            st["spec_timed"] += 1
+            st["spec_s"] += dt
+            st["spec_tok"] += n_emitted
+        else:
+            self._spec_compiled.add(W)      # the first call is not timed
+        for slot in range(self.n_slots):
+            if not active[slot]:
+                continue
+            base = self.slot_len[slot]
+            self.slot_len[slot] += int(n_valid_host[slot])
+            for j in range(int(n_valid_host[slot])):
+                if self.slot_uid[slot] is None:
+                    break         # retired mid-round (eos); rest dropped
+                self._host_emit(slot, int(emitted_host[slot, j]),
+                                base + j + 1, update_last=False)
+
+    def run_speculative(
+            self, probe_rounds: int | None = 8) -> list[Completion]:
+        """Drain the queue with speculative rounds under an
+        acceptance-aware guard.
+
+        Greedy speculative decoding emits exactly the target's own tokens,
+        so the engine can time both modes on the live stream without
+        changing a completion.  Probation alternates timed speculative
+        rounds and plain decode steps (each mode's first call excluded);
+        once both hold ``probe_rounds`` timed samples it compares their
+        tokens a second and keeps the faster for the rest of the drain,
+        recorded with the rates and the acceptance fraction in
+        ``spec_decision``.  ``probe_rounds=None`` always takes the
+        speculative round."""
+        if self.draft_model is None:
+            raise ValueError("engine was built without a draft_model")
+        while self.has_work():
+            self.admit()
+            st = self._spec_stats
+            if probe_rounds is not None and self.spec_decision is None:
+                if (st["spec_timed"] >= probe_rounds
+                        and st["plain_timed"] >= probe_rounds):
+                    spec_tps = st["spec_tok"] / max(st["spec_s"], 1e-12)
+                    plain_tps = st["plain_tok"] / max(st["plain_s"], 1e-12)
+                    self.spec_decision = dict(
+                        mode=("speculative" if spec_tps >= plain_tps
+                              else "plain"),
+                        spec_tps=spec_tps, plain_tps=plain_tps,
+                        acceptance=st["accepted"] / max(st["proposed"], 1))
+                else:
+                    # probation: alternate timed samples of each mode
+                    if st["spec_timed"] <= st["plain_timed"]:
+                        self.step_speculative()
+                    else:
+                        self.step()
+                    continue
+            if (self.spec_decision is None
+                    or self.spec_decision["mode"] == "speculative"):
+                self.step_speculative()
+            else:
+                self.step()
+        out, self.completions = self.completions, []
+        return out
