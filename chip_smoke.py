@@ -147,6 +147,25 @@ ported paths:
   step at 2 layers and L=8192, where fp32 takes the two passes in their
   six-product form, with the kernels of a step and their time.
 
+* rotary positions and the routed MoE feed-forward (``moe_rope_serving``):
+  the serving widths with ``positional="rope"`` and 8 experts, top-2,
+  capacity factor 1.25 (~0.64B parameters), the 16 serving prompts, 64
+  greedy tokens each, 8 slots, through ``run()`` over a bf16 and an int8
+  cache and ``run_speculative(None)`` with the bench's learned draft; each
+  drive timed (tok/s, decode ms a step, 8 flash-decode launches a step,
+  peak memory), then run again with every forward the engine issues held
+  against the plain route on a copy of the same caches and slot batch
+  (``HeldLockstep``: each layer's expert choices, read by forward hooks,
+  may differ only at a near tie, ``MOE_TIE_GAP``; every other row's
+  attention output at each layer and its logits within ``MOE_HOLD_TOL`` of
+  its rms; the completions equal to the timed drive's), and two planted
+  faults (the kernel route's rotary positions shifted by one, noise on
+  its router inputs) shown to fail those limits; ``train_epoch`` in mode
+  (m), mode (b) with rotary positions and that feed-forward on the
+  objective ``ce + aux_weight * aux`` (``moe_train_step``), and one fp32
+  step of it through the kernels against the plain versions (loss, router
+  term, gradients, updated parameters);
+
 * the machine-translation app: ``apps.machine_translation.main``, the CLI,
   at the JAX CLI's defaults (the reference MT configuration: vocab 10000,
   E 256, 8 heads, 4 layers, L 40, batch 129, dropout 0.1) on the
@@ -205,6 +224,7 @@ import torch
 from tpu_flash_torch.apps.machine_translation import main as mt_app_main
 from tpu_flash_torch.apps.machine_translation import (evaluate_bleu,
                                                      generate_translations,
+                                                     make_loss_fn,
                                                      make_train_step,
                                                      place_batch, train_epoch,
                                                      translation_tokens)
@@ -229,9 +249,11 @@ from tpu_flash_torch.kernels.layernorm import (layernorm_backward,
                                                layernorm_forward)
 from tpu_flash_torch.kernels.softmax import (attn_softmax_backward,
                                              attn_softmax_forward, pad_cols)
-from tpu_flash_torch.nn import (DecoderConfig, DecoderLM, adam, init_params,
-                                mixed_precision, num_parameters,
+from tpu_flash_torch.nn import (DecoderConfig, DecoderLM, MoEConfig,
+                                MoEFeedForward, MultiHeadAttention, adam,
+                                init_params, mixed_precision, num_parameters,
                                 quantize_model_linears, skip_nonfinite)
+from tpu_flash_torch.nn.optim import accumulate_gradients
 from tpu_flash_torch.ops import fused
 from tpu_flash_torch.ops.attention import (dequantize_kv, kv_quant_parts,
                                            quantize_kv)
@@ -351,6 +373,12 @@ REF_B, REF_L = 32, 256
 # L16384 d64, bench/exp_bw_residual.py:463), where the backward takes the
 # two-pass form in bf16; remat per layer and the chunked-vocab loss.
 TRAIN_LONG = {**TRAIN, "n_positions": 16384, "remat": True}
+# Mode (m): the production config with rotary positions and a routed
+# feed-forward of 8 experts, top-2, capacity factor 1.25 (at B4 L2048 a
+# layer's dispatch and combine tensors are [8192, 8, 2560], 671 MB each in
+# fp32)
+TRAIN_MOE = {**TRAIN, "positional": "rope",
+             "moe": MoEConfig(n_experts=8, top_k=2, capacity_factor=1.25)}
 LONG_B, LONG_L, LONG_CHUNKS = 1, 16384, 8
 # The fp32 kernel-vs-plain training step: 2 layers at L = 8192, where fp32
 # takes the two passes (d 64) and the plain attention still fits.
@@ -607,6 +635,14 @@ def log(obj) -> None:
 def check(cond, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+def smi_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
 
 
 def kernel_name(mangled: str) -> str:
@@ -2964,6 +3000,47 @@ def train_batch(seed: int = 0, shape=(TRAIN_B, TRAIN_L),
                                     ).astype(np.float32)}
 
 
+def moe_train_step(model, opt, chunked_vocab: int = 0, impl=None):
+    """``make_train_step``'s step on the MoE objective, the user's in the
+    JAX package (``tests/test_moe.py:100-102``): the MT app's loss
+    (``make_loss_fn``, every batch key and ``chunked_vocab`` as there) plus
+    ``moe.aux_weight`` times the router's term summed over the layers.
+    Neither MT app has an MoE switch, so the objective is put together
+    from the app's pieces: its loss over a call of the model that keeps
+    the router's term aside, ``accumulate_gradients`` over one microbatch,
+    then ``opt``'s update copied into the parameters (no host sync).
+    Dropout draws from the step's ``generator``.  The step keeps its last
+    router term in ``step.aux``."""
+    params = dict(model.named_parameters())
+    weight = model.cfg.moe.aux_weight
+
+    def call(ids, **kw):                  # the model, its aux kept aside
+        out, step.aux = model(ids, return_aux=True, **kw)
+        return out
+
+    call.lm_head = model.lm_head
+    loss_fn = make_loss_fn(call, chunked_vocab=chunked_vocab)
+
+    def objective(batch, generator):
+        loss = loss_fn(batch, generator=generator, training=True, impl=impl)
+        return loss + weight * step.aux
+
+    compute = accumulate_gradients(objective, params, 1)
+
+    def step(opt_state, batch, generator=None):
+        loss, grads = compute({k: v[None] for k, v in batch.items()},
+                              generator)
+        with torch.no_grad():
+            new, opt_state = opt.update(
+                grads, opt_state, {n: p.detach() for n, p in params.items()})
+            for n, p in params.items():
+                p.copy_(new[n])
+        step.aux = step.aux.detach()
+        return opt_state, loss
+
+    return step
+
+
 def syncs_in_a_step(step, state, batch, gen):
     """One training step from a host batch (``place_batch`` included) under
     torch's sync debug mode, which warns at every operation that makes the
@@ -2983,11 +3060,12 @@ def syncs_in_a_step(step, state, batch, gen):
 
 def training(mode: str, config: dict, shape, dtype, p_dropout: float, opt,
              per_step: dict, chunked_vocab: int = 0,
-             batch: dict | None = None) -> dict:
+             batch: dict | None = None, make_step=make_train_step) -> dict:
     """``train_epoch`` at the full width and depth of ``config`` on one
     repeated batch of ``shape`` (``batch``, or random ids from a seed): 3
     warm-up steps, then 11 (the first of them opens the loop's first timing
-    window, which it leaves out).  ``per_step`` gives each training
+    window, which it leaves out), each step made by ``make_step`` (the MT
+    app's, or ``moe_train_step``).  ``per_step`` gives each training
     kernel's launches a step (0 where absent); returns every training
     kernel's launches in the timed run."""
     cfg = DecoderConfig(**config, p_dropout=p_dropout, dtype=dtype)
@@ -2997,7 +3075,7 @@ def training(mode: str, config: dict, shape, dtype, p_dropout: float, opt,
     if batch is None:
         batch = train_batch(0, shape, cfg.n_vocab)
     gen = torch.Generator(DEV).manual_seed(1)
-    step = make_train_step(model, opt, chunked_vocab=chunked_vocab)
+    step = make_step(model, opt, chunked_vocab=chunked_vocab)
 
     def epoch(state, n, log_every):
         return train_epoch(model, opt, state, list(range(n)),
@@ -3028,7 +3106,9 @@ def training(mode: str, config: dict, shape, dtype, p_dropout: float, opt,
     all_losses = warm_losses + losses
     seg = batch.get("segment_ids")
     log({"phase": "training", "mode": mode,
-         "config": {**config, "p_dropout": p_dropout,
+         "config": {**{k: dataclasses.asdict(v) if dataclasses.is_dataclass(v)
+                       else v for k, v in config.items()},
+                    "p_dropout": p_dropout,
                     "dtype": str(dtype).split(".")[1],
                     "batch": shape[0], "seq_len": shape[1],
                     "chunked_vocab": chunked_vocab},
@@ -3042,7 +3122,8 @@ def training(mode: str, config: dict, shape, dtype, p_dropout: float, opt,
          "peak_memory_GiB": peak_gb, "losses": all_losses,
          "launches": launches, "launches_per_step_expected": per_step,
          "host_syncs_in_a_step": syncs,
-         **prof, "card": torch.cuda.get_device_name(0)})
+         **prof, "card": torch.cuda.get_device_name(0),
+         "nvidia_smi": smi_line()})
     check(all(math.isfinite(x) for x in all_losses),
           f"{mode}: non-finite loss")
     check(not syncs, f"{mode}: a training step made the host wait: {syncs}")
@@ -3060,18 +3141,21 @@ def training(mode: str, config: dict, shape, dtype, p_dropout: float, opt,
 
 def training_end_to_end(name: str, config: dict, shape, chunked_vocab=0,
                         launches=None, profile=False,
-                        batch: dict | None = None) -> dict:
+                        batch: dict | None = None,
+                        make_step=make_train_step) -> dict:
     """One Adam step of the fp32 model of ``config`` (TF32 off) through the
     kernels and one through their plain versions, from the same
     parameters and batch (``batch``, or random ids from a seed): loss,
     every gradient, every updated parameter, and the kernels launched by
-    the first step only (exactly ``launches`` where given).  With
+    the first step only (exactly ``launches`` where given); each step made
+    by ``make_step`` (the MT app's, or ``moe_train_step``, whose router
+    term is held too, at the loss's limit).  With
     ``profile``, then the device time of a kernel step and its kernels
     under the profiler (``kernel_profile``)."""
     cfg = DecoderConfig(**config, p_dropout=0.0, dtype=torch.float32)
     batch = place_batch(batch or train_batch(1, shape, cfg.n_vocab), DEV)
     lr = 1e-3
-    runs, launched = {}, {}
+    runs, launched, aux = {}, {}, {}
     for impl in ("kernel", "plain"):
         model = DecoderLM(cfg, device=DEV)
         init_params(model, torch.Generator(DEV).manual_seed(2))
@@ -3079,9 +3163,11 @@ def training_end_to_end(name: str, config: dict, shape, chunked_vocab=0,
         state = opt.init(dict(model.named_parameters()))
         torch.cuda.synchronize()
         common.launch_counts.clear()
-        _, loss = make_train_step(model, opt, chunked_vocab=chunked_vocab,
-                                  impl=impl)(state, batch)
+        step = make_step(model, opt, chunked_vocab=chunked_vocab, impl=impl)
+        _, loss = step(state, batch)
         launched[impl] = {n: c for n, c in common.launch_counts.items() if c}
+        if hasattr(step, "aux"):
+            aux[impl] = float(step.aux)
         runs[impl] = (float(loss), {n: (p.detach(), p.grad)
                                     for n, p in model.named_parameters()})
     (loss_k, got), (loss_p, want) = runs["kernel"], runs["plain"]
@@ -3108,6 +3194,8 @@ def training_end_to_end(name: str, config: dict, shape, chunked_vocab=0,
     eps_eff = 1e-8 / math.sqrt(1 - 0.999)
     g_max = max(float(g.abs().max()) for _, g in want.values())
     ok = abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    if aux:
+        ok &= abs(aux["kernel"] - aux["plain"]) <= 1e-5 * abs(aux["plain"])
     grad_errs, param_err, flips = [], 0.0, 0
     for n, (p_p, g_p) in want.items():
         p_k, g_k = got[n]
@@ -3134,6 +3222,8 @@ def training_end_to_end(name: str, config: dict, shape, chunked_vocab=0,
            "chunked_vocab": chunked_vocab,
            "launches": launched, "loss_kernel": loss_k,
            "loss_plain": loss_p, "loss_tol": "rtol 1e-5",
+           **({"aux_kernel": aux["kernel"], "aux_plain": aux["plain"],
+               "aux_tol": "rtol 1e-5"} if aux else {}),
            "grad_worst": [{"param": n, "max_abs_err": e, "tol": t}
                           for _, n, e, t in worst],
            "grad_tol": "1e-3 * max|g| of the tensor + 1e-5 * max|g| of all",
@@ -3149,8 +3239,8 @@ def training_end_to_end(name: str, config: dict, shape, chunked_vocab=0,
         init_params(model, torch.Generator(DEV).manual_seed(2))
         opt = adam(lr=lr)
         state = opt.init(dict(model.named_parameters()))
-        step = make_train_step(model, opt, chunked_vocab=chunked_vocab,
-                               impl="kernel")
+        step = make_step(model, opt, chunked_vocab=chunked_vocab,
+                         impl="kernel")
 
         def one_step():
             step(state, batch)
@@ -3647,8 +3737,9 @@ def speculative_serving(model) -> int:
     mode) with the random draft.  Each drive's flash-decode launches
     against the count of its forwards (the target's layers for each
     verification forward and plain step, the draft's for each of its
-    steps, 4 a round; the prefills' buckets of 16 or more rows take the
-    composed attention), every drive's completions held token by token
+    steps, 4 a round, and for each plain step of the guard's probation,
+    which feeds the draft too; the prefills' buckets of 16 or more rows
+    take the composed attention), every drive's completions held token by token
     through the plain route (``compare_completions``) and counted equal
     to ``run()``'s, and the self-draft's acceptance at least
     ``SPEC_SELF_ACCEPTANCE``.  Returns the drives' flash-decode
@@ -3716,8 +3807,9 @@ def speculative_serving(model) -> int:
         st = eng._spec_stats
         rounds, plain_steps = st["rounds"], eng.stats["decode_steps"]
         d_layers = draft_model.cfg.n_layer
-        expected = n_t * (rounds + plain_steps) + (
-            d_layers * SPEC_N_DRAFT * rounds)
+        # the probation's plain steps feed the draft too (draft_fed)
+        expected = n_t * (rounds + plain_steps) + d_layers * (
+            SPEC_N_DRAFT * rounds + st["draft_fed"])
         t0 = time.perf_counter()
         held = compare_completions(model, prompts, got, "int8",
                                    f"speculative_serving ({label})", ref)
@@ -3729,6 +3821,7 @@ def speculative_serving(model) -> int:
             "requests": len(got), "tokens": n_tok, "wall_s": wall,
             "tok_s": n_tok / wall, "tok_s_over_run": plain_wall / wall,
             "rounds": rounds, "plain_steps": plain_steps,
+            "draft_fed": st["draft_fed"],
             "round_widths": sorted(eng._spec_compiled),
             "proposed": st["proposed"], "emitted": st["emitted"],
             "accepted": st["accepted"],
@@ -4026,6 +4119,298 @@ class Lockstep:
         self.plain.append(self.model(ids, kv_caches=copies, impl="plain",
                                      **kw)[0])
         return self.model(ids, kv_caches=kv_caches, impl="kernel", **kw)
+
+
+# The rotary + MoE serving model: the 176M serving widths with rotary
+# positions and a routed feed-forward of 8 experts, top-2, capacity factor
+# 1.25 (~0.64B parameters, 1.3 GB of bf16; a 2.1 GB bf16 cache for 8
+# slots at 8192)
+MOE_SERVING = {**SERVING, "positional": "rope",
+               "moe": MoEConfig(n_experts=8, top_k=2, capacity_factor=1.25)}
+# The routes' router inputs differ by rounding (the flash-decode kernel's
+# attention against the plain version's, about one bf16 ulp of a layer's
+# attention output), which moves a router probability by ~1e-4: a token's
+# experts may differ between the routes only where the plain route's k-th
+# and (k+1)-th probabilities of the round that differs lie within this gap
+MOE_TIE_GAP = 5e-3
+# Each layer's attention output and the logits, in each batch row whose
+# routing agrees, against the plain route's: |out - ref| <= arms * rms(ref)
+# + rtol * |ref| (the flash-decode cases' VERIFY_TOL reach 0.032 of a row's
+# rms; eight layers of bf16 carry the first layers' differences on)
+MOE_HOLD_TOL = (5e-2, 2 ** -7)
+# The planted faults' drive: the first prompts, a few tokens each
+FAULT_PROMPTS, FAULT_NEW = 8, 8
+
+
+def routing(ff, x):
+    """An MoE layer's choices on its input ``x`` (its router and capacity,
+    and ``_route``'s dispatch): each token's experts in round order [T, k],
+    the router's probabilities in descending order [T, X], and the experts
+    whose buffer kept it [T, X].  Without router noise round r takes the
+    r-th largest probability, the lower index first at a tie (``_route``'s
+    first-index argmax over the experts not yet taken): the stable sort's
+    order."""
+    tokens = x.reshape(-1, x.shape[-1])
+    logits = ff.router_logits(tokens)
+    dispatch, _, _ = ff._route(logits, capacity=ff.capacity(tokens.shape[0]))
+    probs, order = torch.softmax(logits, -1).sort(dim=-1, descending=True,
+                                                  stable=True)
+    return order[:, :ff.moe.top_k], probs, dispatch.sum(-1) > 0
+
+
+class HeldLockstep(Lockstep):
+    """``Lockstep`` for the engine, each forward held at once.  Forward
+    hooks (on the model's modules, none in the package) read every layer's
+    attention output and MoE routing in both routes.  Layer by layer, a
+    token's experts may differ between the routes only at a near tie of
+    the plain route (``MOE_TIE_GAP``); its batch row, and any row whose
+    buffer places changed with it (the capacity counts the whole call),
+    are then left out of the later layers' holds.  Every other row's
+    attention output at each layer, and its logits, lie within
+    ``within_rms(tol)`` of the plain route's.  Faults are counted in
+    ``stats``, not raised.  Planted faults: ``shift`` moves the kernel
+    route's rotary positions, ``noise`` adds that share of its rms to the
+    kernel route's MoE inputs."""
+
+    def __init__(self, model, tol=MOE_HOLD_TOL, shift: int = 0,
+                 noise: float = 0.0):
+        super().__init__(model)
+        self.tol, self.shift, self.noise = tol, shift, noise
+        self.gen = torch.Generator(DEV).manual_seed(9)
+        self.stats = dict(forwards=0, rows_held=0, rows_left_out=0,
+                          near_ties=0, largest_tie_gap=0.0, tie_faults=0,
+                          holds=0, hold_faults=0, largest_err_over_rms=0.0)
+        self._seen, self._kernel = None, False
+        self._hooks = []
+        for m in model.modules():
+            if isinstance(m, MultiHeadAttention):
+                self._hooks.append(m.register_forward_hook(self._attention))
+            elif isinstance(m, MoEFeedForward):
+                self._hooks.append(m.register_forward_pre_hook(self._moe))
+
+    def close(self) -> None:
+        for h in self._hooks:
+            h.remove()
+
+    def _attention(self, _mod, _args, out):
+        if self._seen is not None:
+            self._seen.append(("attention", out[0]))
+
+    def _moe(self, mod, args):
+        if self._seen is None:
+            return None
+        x = args[0]
+        planted = self.noise and self._kernel
+        if planted:
+            rms = x.float().square().mean().sqrt()
+            x = x + (self.noise * rms * torch.randn(
+                x.shape, generator=self.gen, device=DEV)).to(x.dtype)
+        self._seen.append(("moe", routing(mod, x)))
+        return (x,) if planted else None
+
+    def __call__(self, ids, *, kv_caches, impl=None, **kw):
+        copies = [_gather_cache(c, torch.arange(c.k.shape[0], device=DEV))
+                  for c in kv_caches]
+        self._seen, self._kernel = (plain_seen := []), False
+        plain = self.model(ids, kv_caches=copies, impl="plain", **kw)[0]
+        kernel_kw = dict(kw)
+        if self.shift:
+            pos = kw.get("positions")
+            if pos is None:
+                pos = torch.arange(ids.shape[1], device=DEV)[None, :]
+            kernel_kw["positions"] = pos + self.shift
+        self._seen, self._kernel = (kernel_seen := []), True
+        out = self.model(ids, kv_caches=kv_caches, impl="kernel", **kernel_kw)
+        self._seen = None
+        self.hold(out[0], plain, kernel_seen, plain_seen)
+        return out
+
+    def _hold_rows(self, got, want, rows):
+        if not bool(rows.any()):
+            return
+        arms, rtol = self.tol
+        g, w = got[rows].float().flatten(1), want[rows].float().flatten(1)
+        diff = (g - w).abs()
+        r = w.square().mean(1, keepdim=True).sqrt()
+        bad = ~(diff <= arms * r + rtol * w.abs()).all(1)
+        st = self.stats
+        st["holds"] += int(rows.sum())
+        st["hold_faults"] += int(bad.sum())
+        st["largest_err_over_rms"] = max(st["largest_err_over_rms"],
+                                         float((diff / r).max()))
+
+    def hold(self, got, want, kernel_seen, plain_seen):
+        st = self.stats
+        B, L = got.shape[:2]
+        row_of = torch.arange(B * L, device=DEV) // L
+        out = torch.zeros(B, dtype=torch.bool, device=DEV)  # rows let go
+        st["forwards"] += 1
+        for (kind, k), (_, p) in zip(kernel_seen, plain_seen, strict=True):
+            if kind == "attention":
+                self._hold_rows(k, p, ~out)
+                continue
+            (ck, _, kept_k), (cp, sp, kept_p) = k, p
+            differ = ck != cp                                   # [T, k]
+            token = differ.any(1)
+            if bool(token.any()):
+                first = differ.long().argmax(1)[:, None]     # round that moved
+                gap = (sp.gather(1, first) - sp.gather(1, first + 1))[:, 0]
+                new = token & ~out[row_of]
+                st["near_ties"] += int(new.sum())
+                if bool(new.any()):
+                    st["largest_tie_gap"] = max(st["largest_tie_gap"],
+                                                float(gap[new].max()))
+                st["tie_faults"] += int((new & (gap > MOE_TIE_GAP)).sum())
+                moved = token | (kept_k != kept_p).any(1)
+                out[row_of[moved]] = True
+            else:
+                # a buffer place changes only with some token's choice
+                st["tie_faults"] += int((kept_k != kept_p).any(1).sum())
+        self._hold_rows(got, want, ~out)
+        st["rows_held"] += int((~out).sum())
+        st["rows_left_out"] += int(out.sum())
+
+
+@torch.no_grad()
+def moe_rope_serving() -> int:
+    """The rotary + MoE serving model (``MOE_SERVING``, random weights from
+    a seed) behind the engine: the 16 serving prompts, 64 greedy tokens
+    each, 8 slots, through ``run()`` over a bf16 and an int8 cache and
+    through ``run_speculative(None)`` with the bench's learned draft
+    (``SPEC_DRAFT``, int8 cache).  Each drive runs once for its times
+    (tok/s, host ms a decode step and its kernels' ms under the profiler,
+    flash-decode launches against the forwards, peak memory), then again with the target (and the draft)
+    behind ``HeldLockstep``: every forward the engine issues runs through
+    the kernels and, on a copy of the same caches and the same slot batch,
+    through the plain route, held there; the completions must equal the
+    timed drive's.  Then the planted faults (a rotary shift of one, and
+    router-input noise of 10 % of its rms, in the kernel route) must fail
+    the holds and the tie limit.  Returns the flash-decode launches of the
+    timed drives."""
+    t_phase = time.perf_counter()
+    cfg = DecoderConfig(**MOE_SERVING)
+    model = DecoderLM(cfg, device=DEV)
+    init_params(model, torch.Generator(DEV).manual_seed(3))
+    draft = DecoderLM(DecoderConfig(**SPEC_DRAFT), device=DEV)
+    init_params(draft, torch.Generator(DEV).manual_seed(1))
+    prompts = serving_prompts(cfg.n_vocab)
+    log({"phase": "moe_rope_serving_model", "params": num_parameters(model),
+         "config": {k: str(v) for k, v in MOE_SERVING.items()}})
+
+    def engine(target, kv_quant, draft_model=None, n_new=64):
+        return DecodeEngine(target, n_slots=8, max_len=8192,
+                            sampling=SamplingConfig(max_new_tokens=n_new),
+                            kv_quant=kv_quant, draft_model=draft_model,
+                            n_draft=SPEC_N_DRAFT, draft_kv_quant="int8",
+                            device=DEV)
+
+    def drive(eng, spec, reqs=prompts):
+        for uid, p in enumerate(reqs):
+            eng.submit(Request(uid, p))
+        torch.cuda.synchronize()
+        common.launch_counts.clear()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        done = eng.run_speculative(None) if spec else eng.run()
+        torch.cuda.synchronize()
+        return ({c.uid: c.tokens for c in done}, time.perf_counter() - t0,
+                common.launch_counts["flash_decode"],
+                torch.cuda.max_memory_allocated() / 2**30)
+
+    warm = engine(model, "int8", draft, n_new=8)
+    drive(warm, True, prompts[:1])
+    del warm
+    n_t, n_d, total = cfg.n_layer, draft.cfg.n_layer, 0
+    for label, kvq, spec in (("run(), bf16 cache", "none", False),
+                             ("run(), int8 cache", "int8", False),
+                             ("run_speculative(None), int8 cache", "int8",
+                              True)):
+        eng = engine(model, kvq, draft if spec else None)
+        got, wall, launched, peak = drive(eng, spec)
+        steps, rounds = eng.stats["decode_steps"], eng._spec_stats["rounds"]
+        expected = n_t * (steps + rounds) + n_d * SPEC_N_DRAFT * rounds
+        n_tok = sum(map(len, got.values()))
+        row = {"phase": "moe_rope_serving", "drive": label,
+               "requests": len(got), "tokens": n_tok, "wall_s": wall,
+               "tok_s": n_tok / wall, "decode_steps": steps,
+               "rounds": rounds, "admit_s": eng.stats["admit_s"],
+               "flash_decode_launches": launched,
+               "expected_launches": expected, "peak_memory_GiB": peak}
+        if spec:
+            st = eng._spec_stats
+            row["acceptance"] = st["accepted"] / max(st["proposed"], 1)
+        else:
+            row["decode_ms_per_step"] = eng.stats["decode_s"] / steps * 1e3
+            live = torch.ones(8, dtype=torch.bool, device=DEV)
+            common.launch_counts.clear()      # one decode step on its own
+            eng._decode_step(eng.last_tokens, live)
+            torch.cuda.synchronize()
+            row["flash_decode_launches_per_step"] = (
+                common.launch_counts["flash_decode"])
+            prof = kernel_profile(
+                lambda: eng._decode_step(eng.last_tokens, live))
+            row["decode_profile"] = {k: prof[k] for k in (
+                "kernels_per_step", "kernel_ms_per_step", "gemm_ms_per_step",
+                "other_kernel_ms_per_step", "top")}
+        del eng
+        check(all(len(t) == 64 for t in got.values()) and len(got) == 16,
+              f"moe_rope_serving ({label}): a short or missing completion")
+        check(launched == expected and row.get(
+            "flash_decode_launches_per_step", n_t) == n_t,
+              f"moe_rope_serving ({label}): {launched} flash_decode "
+              f"launches, {expected} expected, "
+              f"{row.get('flash_decode_launches_per_step')} in one step")
+        total += launched
+        # the same drive, every forward held against the plain route
+        t0 = time.perf_counter()
+        lock = HeldLockstep(model)
+        dlock = HeldLockstep(draft) if spec else None
+        try:
+            held, *_ = drive(engine(lock, kvq, dlock), spec)
+        finally:
+            for lk in (lock, dlock):
+                if lk is not None:
+                    lk.close()
+        row.update(held_s=time.perf_counter() - t0, target=lock.stats,
+                   same_completions=held == got,
+                   tie_gap=MOE_TIE_GAP, hold_tol=list(MOE_HOLD_TOL),
+                   card=torch.cuda.get_device_name(0),
+                   nvidia_smi=smi_line())
+        if dlock is not None:
+            row["draft"] = dlock.stats
+        log(row)
+        for what, st in (("target", lock.stats),
+                         ("draft", dlock.stats if dlock else None)):
+            if st is None:
+                continue
+            check(not st["tie_faults"] and not st["hold_faults"],
+                  f"moe_rope_serving ({label}): the {what}'s kernel route "
+                  f"leaves the plain route's: {st}")
+        check(held == got, f"moe_rope_serving ({label}): the held drive's "
+                           f"completions differ from the timed drive's")
+    # planted faults: each must fail its limit
+    faults = {}
+    for label, kw in (("rotary positions shifted by one", {"shift": 1}),
+                      ("router input noise, 0.1 of its rms",
+                       {"noise": 0.1})):
+        lock = HeldLockstep(model, **kw)
+        try:
+            drive(engine(lock, "none", n_new=FAULT_NEW), False,
+                  prompts[:FAULT_PROMPTS])
+        finally:
+            lock.close()
+        faults[label] = lock.stats
+    log({"phase": "moe_rope_serving_planted_faults", "prompts": FAULT_PROMPTS,
+         "new_tokens": FAULT_NEW, **faults, "tie_gap": MOE_TIE_GAP,
+         "hold_tol": list(MOE_HOLD_TOL)})
+    check(faults["rotary positions shifted by one"]["hold_faults"] > 0
+          and faults["router input noise, 0.1 of its rms"]["tie_faults"] > 0,
+          f"moe_rope_serving: a planted fault passed the holds: {faults}")
+    del model, draft
+    torch.cuda.empty_cache()
+    log({"phase": "moe_rope_serving_total",
+         "seconds": time.perf_counter() - t_phase})
+    return total
 
 
 def beam_choices(trace, plain, prompt_lengths, W, pad_id, tie) -> dict:
@@ -4445,6 +4830,8 @@ def main() -> int:
     launches["flash_decode"] += prefix_serving(model)
     del model
     torch.cuda.empty_cache()
+    # the rotary + MoE model behind the engine, every forward held
+    launches["flash_decode"] += moe_rope_serving()
     end_to_end()
     for kind in QUANT:
         # fp32 weights' serving: decode steps in the fp32 tensor-core decode
@@ -4514,6 +4901,12 @@ def main() -> int:
                  torch.bfloat16, 0.1, mixed_precision(adam(lr=1e-3)),
                  dict.fromkeys(QUANTIZED[("token", torch.bfloat16, False,
                                           False)][:2], 4)),
+        # (b) with rotary positions and the routed feed-forward (8 experts,
+        # top-2) on the objective ce + aux_weight * aux
+        training("(m) prod-rope-moe-top2-flash-bf16-mixed-precision-adam-"
+                 "dropout", TRAIN_MOE, prod, torch.bfloat16, 0.1,
+                 mixed_precision(adam(lr=1e-3)), flash_tc,
+                 make_step=moe_train_step),
     ]
     # the shorter attention-dropout steps: (f) at 2 layers (the forward
     # twice a layer under remat, the two passes once), (g) at 2 layers (the
@@ -4578,7 +4971,13 @@ def main() -> int:
             (LONG_B, LONG_E2E_L), chunked_vocab=LONG_CHUNKS,
             launches={MASK_DROPPED_X6[0]: 4,
                       **dict.fromkeys(MASK_DROPPED_X6[2:], 2)})]
-    for row in (packed_e2e, window_e2e, *drop_e2e, *kvq_e2e(packed)):
+    # mode (m)'s config in fp32: loss, router term, gradients and updated
+    # parameters through the six-product forms against the plain versions
+    moe_e2e = training_end_to_end(
+        "prod-rope-moe-top2", TRAIN_MOE, prod, make_step=moe_train_step,
+        launches=dict.fromkeys(ATTENTION_X6, 4))
+    for row in (packed_e2e, window_e2e, *drop_e2e, *kvq_e2e(packed),
+                moe_e2e):
         for n, c in row["launches"]["kernel"].items():
             launches[n] += c
     long_peak_memory()

@@ -292,12 +292,12 @@ def test_engine_speculative_guard(ref):
 
 def test_engine_self_draft_under_probation_matches_jax(ref):
     """The target as its own draft under a probation that outlasts the
-    drain (probe_rounds=50, so no decision): JAX's completions and
-    counters.  A plain step feeds the target's caches only, in JAX as
-    here, so after one the draft proposes from a context a token short and
-    loses acceptance: the probation's self-draft accepts fewer of its
-    proposals than the same engine without the guard (an open fault of
-    both packages)."""
+    drain (probe_rounds=50, so no decision): JAX's completions.  A plain
+    step of the probation feeds the draft too (a stated deviation: JAX's
+    feeds the target only, so after one its draft proposes from a context
+    a token short), so the port's probation accepts as large a share of
+    its proposals as the same engine without the guard, where JAX's
+    accepts a smaller one, and it needs fewer rounds than JAX's."""
     keys = ("rounds", "proposed", "emitted", "accepted", "spec_timed",
             "plain_timed")
     jeng = JaxEngine(ref["jm"], ref["params"], n_slots=2, max_len=MAX_LEN,
@@ -311,12 +311,17 @@ def test_engine_self_draft_under_probation_matches_jax(ref):
     assert completions(spec.run_speculative(probe_rounds=50)) == want
     st = spec._spec_stats
     assert spec.spec_decision is None and jeng.spec_decision is None
-    assert {k: st[k] for k in keys} == {
-        k: int(jeng._spec_stats[k]) for k in keys}
+    jst = {k: int(jeng._spec_stats[k]) for k in keys}
+    assert st["plain_timed"] > 0 and jst["plain_timed"] > 0
+    assert st["draft_fed"] == spec.stats["decode_steps"]
+    assert torch.equal(spec.draft_caches[0].lengths, spec.caches[0].lengths)
+    assert st["rounds"] < jst["rounds"]
     unguarded = engine(ref, "model", n_draft=3)
     unguarded.run_speculative(probe_rounds=None)
     u = unguarded._spec_stats
-    assert st["accepted"] / st["proposed"] < u["accepted"] / u["proposed"]
+    acceptance = st["accepted"] / st["proposed"]
+    assert acceptance >= u["accepted"] / u["proposed"]
+    assert jst["accepted"] / jst["proposed"] < acceptance
 
 
 @pytest.fixture(scope="module")

@@ -38,7 +38,8 @@ from tpu_flash_torch.inference.sampler import (
     _sample_token,
     make_caches,
 )
-from tpu_flash_torch.inference.speculative import speculative_round
+from tpu_flash_torch.inference.speculative import (_positions,
+                                                   speculative_round)
 from tpu_flash_torch.kernels.common import cdiv, resolve_device
 
 
@@ -97,7 +98,8 @@ class DecodeEngine:
     time (each closes on a host read of the sampled tokens); ``_spec_stats``
     holds the JAX engine's speculative counters (``rounds``, ``proposed``,
     ``emitted``, ``accepted``, and the timed ``spec_*`` and ``plain_*``
-    samples the guard of ``run_speculative`` compares)."""
+    samples the guard of ``run_speculative`` compares) and
+    ``draft_fed``, the plain steps that also fed the draft."""
 
     def __init__(self, model, *, n_slots: int, max_len: int,
                  sampling: SamplingConfig, kv_quant: str = "none",
@@ -150,7 +152,8 @@ class DecodeEngine:
         # JAX engine's compile) excluded, and the acceptance counters
         self._spec_stats = dict(rounds=0, proposed=0, emitted=0, accepted=0,
                                 spec_timed=0, spec_s=0.0, spec_tok=0,
-                                plain_timed=0, plain_s=0.0, plain_tok=0)
+                                plain_timed=0, plain_s=0.0, plain_tok=0,
+                                draft_fed=0)
         self._spec_compiled: set[int] = set()   # round widths already run
         self._plain_compiled = False
         self.spec_decision: dict | None = None
@@ -217,10 +220,10 @@ class DecodeEngine:
     # ------------------------------------------------------------ internals
     def _decode_step(self, tokens, active):
         """One token for every slot; inactive slots emit ``pad_id``."""
-        # Idle slots keep counting past the position table; their logits
-        # are discarded, but an out-of-range lookup would fault on the card.
-        positions = self.caches[0].lengths[:, None].long().clamp(
-            max=self.model.cfg.n_positions - 1)
+        # Idle slots keep counting past a learned position table; their
+        # logits are discarded, but an out-of-range lookup would fault on
+        # the card.  A rotary model's positions are not clamped.
+        positions = _positions(self.caches[0].lengths, 1, self.model, True)
         logits, self.caches = self.model(tokens[:, None],
                                          kv_caches=self.caches,
                                          positions=positions)
@@ -356,6 +359,25 @@ class DecodeEngine:
 
     def _active_mask(self) -> np.ndarray:
         return np.asarray([u is not None for u in self.slot_uid], bool)
+
+    @torch.no_grad()
+    def _feed_draft(self) -> None:
+        """The draft takes the tokens a plain step is about to give the
+        target, so its caches stay level with the target's: the plain steps
+        of ``run_speculative``'s probation, after which a speculative round
+        may follow.  A stated deviation: the JAX engine feeds the target
+        only, and its draft falls a token behind at each such step.  The
+        card is waited for, so the feed is not in the step's timed
+        sample."""
+        if not self._active_mask().any():
+            return                       # ``step`` takes no token either
+        _, self.draft_caches = self.draft_model(
+            self.last_tokens[:, None], kv_caches=self.draft_caches,
+            positions=_positions(self.draft_caches[0].lengths, 1,
+                                 self.draft_model, True))
+        self._spec_stats["draft_fed"] += 1
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     @torch.no_grad()
     def step(self) -> None:
@@ -499,7 +521,9 @@ class DecodeEngine:
         tokens a second and keeps the faster for the rest of the drain,
         recorded with the rates and the acceptance fraction in
         ``spec_decision``.  ``probe_rounds=None`` always takes the
-        speculative round."""
+        speculative round.  A plain step of the probation also feeds the
+        draft (``_feed_draft``), so that the draft's context stays the
+        target's."""
         if self.draft_model is None:
             raise ValueError("engine was built without a draft_model")
         while self.has_work():
@@ -520,6 +544,7 @@ class DecodeEngine:
                     if st["spec_timed"] <= st["plain_timed"]:
                         self.step_speculative()
                     else:
+                        self._feed_draft()
                         self.step()
                     continue
             if (self.spec_decision is None

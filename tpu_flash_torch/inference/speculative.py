@@ -41,10 +41,14 @@ from tpu_flash_torch.kernels.common import resolve_device
 
 
 def _positions(lengths, n: int, model, clamp: bool) -> torch.Tensor:
-    """``lengths[:, None] + arange(n)``; ``clamp`` keeps them inside the
-    position table (the engine's idle slots count past it)."""
+    """``lengths[:, None] + arange(n)``; ``clamp`` keeps them inside
+    ``model``'s position table where it has one (``positional="learned"``:
+    the engine's idle slots count past it); a rotary model's positions are
+    never clamped, as in the JAX package, which clamps none."""
     pos = lengths[:, None].long() + torch.arange(n, device=lengths.device)
-    return pos.clamp(max=model.cfg.n_positions - 1) if clamp else pos
+    if clamp and model.cfg.positional == "learned":
+        return pos.clamp(max=model.cfg.n_positions - 1)
+    return pos
 
 
 @torch.no_grad()
@@ -63,8 +67,9 @@ def speculative_round(model, draft_model, sampling: SamplingConfig,
     are this round's tokens (accepted drafts, then the correction or bonus
     ``g_m``, the next round's ``pending``), the rest ``pad_id``.  The caches
     are the ones given, updated in place.  ``clamp_positions`` keeps
-    positions inside the table (the engine); ``nan_past_table`` embeds a
-    position past it as NaN, as JAX does (``speculative_generate``)."""
+    positions inside the table of each model that has one (the engine);
+    ``nan_past_table`` embeds a position past it as NaN, as JAX does
+    (``speculative_generate``)."""
     W = n_draft
     stochastic = sampling.temperature > 0.0
     B = pending.shape[0]

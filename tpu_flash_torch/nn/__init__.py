@@ -1,6 +1,6 @@
 """Modules of the port: layers (float and weight-only quantized linears),
-the decoder transformer, the optimizers and the helpers that load, export
-or draw its parameters."""
+the decoder transformer and its routed MoE feed-forward, the optimizers
+and the helpers that load, export or draw its parameters."""
 
 from tpu_flash_torch.nn import functional, optim  # noqa: F401
 from tpu_flash_torch.nn.layers import (  # noqa: F401
@@ -12,6 +12,7 @@ from tpu_flash_torch.nn.layers import (  # noqa: F401
     quantize_linear_params,
     quantize_model_linears,
 )
+from tpu_flash_torch.nn.moe import MoEConfig, MoEFeedForward  # noqa: F401
 from tpu_flash_torch.nn.module import (  # noqa: F401
     init_params,
     load_jax_params,

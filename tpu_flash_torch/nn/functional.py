@@ -1,7 +1,7 @@
 """Functional ops, counterpart of ``tpu_flash/nn/functional.py``: softmax,
-logsumexp and logsoftmax, tanh-GELU, dropout, the cross-entropy loss and
-``chunked_softmax_loss``, the fused lm_head + cross-entropy that never
-materializes the logits."""
+logsumexp and logsoftmax, tanh-GELU, ``one_hot``, dropout, the
+cross-entropy loss, ``chunked_softmax_loss``, the fused lm_head +
+cross-entropy that never materializes the logits, and ``apply_rope``."""
 
 from __future__ import annotations
 
@@ -30,6 +30,14 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     """Tanh-approximate GELU, the JAX package's formula."""
     c = math.sqrt(2.0 / math.pi)
     return 0.5 * x * (1.0 + torch.tanh(c * (x + 0.044715 * x ** 3)))
+
+
+def one_hot(ids: torch.Tensor, num_classes: int,
+            dtype=torch.float32) -> torch.Tensor:
+    """One-hot encoding, ``jax.nn.one_hot``'s: an id outside ``[0,
+    num_classes)`` gives a row of zeros (``F.one_hot`` would raise)."""
+    classes = torch.arange(num_classes, device=ids.device)
+    return (ids[..., None] == classes).to(dtype)
 
 
 def dropout(x: torch.Tensor, p: float, *,
@@ -159,3 +167,21 @@ class _ChunkedSoftmaxLoss(torch.autograd.Function):
                                  ).to(w.dtype)
             db[c0:c0 + width] = dlogits.sum(0)
         return dx.to(x.dtype), dw, db.to(b.dtype), None, None
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               base: float = 10_000.0) -> torch.Tensor:
+    """Rotary position embedding over ``x`` [B, H, L, d] at ``positions``
+    [B, L] (absolute token positions: a decode step passes the cache
+    length), the JAX package's: the halves ``x[..., :d/2]`` and ``x[...,
+    d/2:]`` (not interleaved pairs) rotate by ``positions * base **
+    (-i / (d/2))``, the angles and the rotation in fp32, the result cast
+    back to ``x.dtype``."""
+    half = x.shape[-1] // 2
+    freqs = base ** (-torch.arange(half, dtype=torch.float32,
+                                   device=x.device) / half)
+    angles = positions[:, None, :, None].float() * freqs
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)

@@ -40,8 +40,21 @@ class Linear(torch.nn.Linear):
 
 
 class Embedding(torch.nn.Embedding):
-    """Row gather.  (The JAX package's one-hot matmul variant is not
-    ported: ROADMAP.md, queue A item A7.)"""
+    """Row gather, or with ``one_hot_matmul`` the JAX package's one-hot
+    product ``one_hot(ids, V, w.dtype) @ w`` (its reference-parity path),
+    which gives a row of zeros for an id outside the table."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int, *,
+                 one_hot_matmul: bool = False, dtype=None, device=None):
+        super().__init__(num_embeddings, embedding_dim, dtype=dtype,
+                         device=device)
+        self.one_hot_matmul = one_hot_matmul
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        if self.one_hot_matmul:
+            w = self.weight
+            return F.one_hot(ids, self.num_embeddings, w.dtype) @ w
+        return super().forward(ids)
 
 
 class Dropout(torch.nn.Module):

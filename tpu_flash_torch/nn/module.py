@@ -5,7 +5,9 @@ parameter tree; the port uses ``torch.nn.Module`` state.  These helpers move
 between the two: ``load_jax_params`` copies a JAX tree (as numpy arrays)
 into a module, ``to_jax_params`` goes the other way, and ``init_params``
 draws fresh values from the JAX init's distributions with an explicit
-``torch.Generator``.
+``torch.Generator``.  An MoE feed-forward's parameters keep the JAX layout
+(``router`` [E, X], ``w_in`` [X, E, F], ``w_out`` [X, F, E]), so they load
+and export as they are.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from tpu_flash_torch.nn.layers import Embedding, LayerNorm, Linear
+from tpu_flash_torch.nn.moe import MoEFeedForward
 
 
 def num_parameters(model: torch.nn.Module) -> int:
@@ -127,3 +130,12 @@ def init_params(model: torch.nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, LayerNorm):
             m.gamma.fill_(1.0)
             m.beta.fill_(0.0)
+        elif isinstance(m, MoEFeedForward):
+            # router and w_in ~ U(+-1/sqrt(E)), w_out ~ U(+-1/sqrt(F)),
+            # biases 0 (the JAX package's moe.py:58-72)
+            for p, fan_in in ((m.router, m.n_embd), (m.w_in, m.n_embd),
+                              (m.w_out, m.middle_dim)):
+                a = 1.0 / math.sqrt(fan_in)
+                draw(p, lambda x: x.uniform_(-a, a, generator=generator))
+            m.b_in.zero_()
+            m.b_out.zero_()

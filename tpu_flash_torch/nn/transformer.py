@@ -6,8 +6,12 @@ Ported so far: the cached forward (prefill and decode over a KV cache) and
 the uncached forward, with training (dropout from an explicit
 ``torch.Generator``, attention dropout (``attn_dropout``) on every
 attention route, gradients through every parameter, ``remat`` per layer,
-``return_hidden`` for the chunked-vocab loss).  Decode steps with
-at most 8 new tokens go through the flash-decode kernel; longer prefills
+``return_hidden`` for the chunked-vocab loss), rotary positions
+(``positional="rope"``: q and k rotated before the cache takes k, so the
+cache holds rotated keys), the routed feed-forward (``moe``, with
+``return_aux``) and the one-hot embedding (``embedding_one_hot``).
+Decode steps with at most 8 new tokens go through the flash-decode
+kernel; longer prefills
 attend over the cache with the composed graph, as in the JAX package.  The
 uncached forward attends with the flash-attention kernels
 (``attention_kind="flash"``, and ``"auto"`` from ``_FLASH_AUTO_MIN_L``), the
@@ -34,6 +38,7 @@ from tpu_flash_torch.kernels.common import resolve_device
 from tpu_flash_torch.kernels.decode import flash_decode_attention
 from tpu_flash_torch.nn import functional as F
 from tpu_flash_torch.nn.layers import Dropout, Embedding, LayerNorm, Linear
+from tpu_flash_torch.nn.moe import MoEConfig, MoEFeedForward
 from tpu_flash_torch.ops.attention import (dequantize_kv, flash_attention,
                                            quantize_kv)
 from tpu_flash_torch.ops.fused import attn_softmax
@@ -80,7 +85,7 @@ class DecoderConfig:
     dtype: Any = torch.float32
     remat: bool = False
     embedding_one_hot: bool = False
-    moe: Any = None
+    moe: MoEConfig | None = None
     sequence_parallel: bool = False
 
     def __post_init__(self):
@@ -113,15 +118,8 @@ class DecoderConfig:
                 "kv_quant requires the flash attention path (got "
                 f"attention_kind={self.attention_kind!r}); the dense graphs "
                 "have no quantized-KV form")
-        unported = [
-            (self.positional == "rope", "positional='rope'", "A7"),
-            (self.moe is not None, "moe", "A7"),
-            (self.embedding_one_hot, "embedding_one_hot", "A7"),
-            (self.sequence_parallel, "sequence_parallel", "A8"),
-        ]
-        for bad, what, item in unported:
-            if bad:
-                raise _not_ported(what, item)
+        if self.sequence_parallel:
+            raise _not_ported("sequence_parallel", "A8")
 
     @property
     def attn_hidden_dim(self) -> int:
@@ -279,13 +277,21 @@ class MultiHeadAttention(torch.nn.Module):
             s = s + torch.where(band, 0.0, -1e9)[:, None].to(s.dtype)
         return F.softmax(s, dim=-1) @ v_full
 
-    def forward(self, x, *, kv_cache=None, kv_mask=None, segment_ids=None,
-                impl=None, training: bool = False, generator=None):
+    def forward(self, x, *, kv_cache=None, kv_mask=None, positions=None,
+                segment_ids=None, impl=None, training: bool = False,
+                generator=None):
         """Uncached: returns ``[B, L, E]`` (``training`` and ``generator``
         for attention dropout).  Cached: appends this step's keys and
-        values to ``kv_cache`` in place and returns ``(out, kv_cache)``."""
+        values to ``kv_cache`` in place and returns ``(out, kv_cache)``.
+        With ``positional="rope"`` q and k are rotated at ``positions``
+        ([B, L]; ``arange(L)`` where None) before the cache takes k."""
         B, L, E = x.shape
         q, k, v = self.project_to_query_key_value(x, impl)
+        if self.cfg.positional == "rope":
+            if positions is None:
+                positions = torch.arange(L, device=x.device).expand(B, L)
+            q = F.apply_rope(q, positions)
+            k = F.apply_rope(k, positions)
         if kv_cache is not None:
             kv_cache.append(k, v)
             out = self._cached_attention(q, kv_cache, impl)
@@ -324,22 +330,41 @@ class TransformerLayer(torch.nn.Module):
         self.ln_1 = LayerNorm(cfg.n_embd, **ln)
         self.ln_2 = LayerNorm(cfg.n_embd, **ln)
         self.attention = MultiHeadAttention(cfg, device)
-        self.ff = FeedForward(cfg, device)
+        if cfg.moe is not None:
+            self.ff = MoEFeedForward(cfg.n_embd, cfg.ff_middle_dim, cfg.moe,
+                                     cfg.dtype, p_dropout=cfg.p_dropout,
+                                     device=device)
+        else:
+            self.ff = FeedForward(cfg, device)
 
-    def forward(self, x, *, kv_cache=None, kv_mask=None, segment_ids=None,
-                impl=None, training: bool = False, generator=None):
+    def forward(self, x, *, kv_cache=None, kv_mask=None, positions=None,
+                segment_ids=None, impl=None, training: bool = False,
+                generator=None):
+        """The JAX layer's results: ``x``, or ``(x, kv_cache)`` cached,
+        each followed by the router's ``aux`` with an MoE feed-forward."""
         h = self.ln_1(x, impl=impl)
         if kv_cache is not None:
             attn_out, kv_cache = self.attention(h, kv_cache=kv_cache,
+                                                positions=positions,
                                                 impl=impl)
         else:
             attn_out = self.attention(h, kv_mask=kv_mask,
+                                      positions=positions,
                                       segment_ids=segment_ids, impl=impl,
                                       training=training, generator=generator)
         out = x + attn_out
-        result = out + self.ff(self.ln_2(out, impl=impl), training=training,
-                               generator=generator, impl=impl)
-        return (result, kv_cache) if kv_cache is not None else result
+        h = self.ln_2(out, impl=impl)
+        if self.cfg.moe is not None:
+            ff_out, aux = self.ff(h, training=training, generator=generator)
+            extras = (aux,)
+        else:
+            ff_out = self.ff(h, training=training, generator=generator,
+                             impl=impl)
+            extras = ()
+        result = out + ff_out
+        if kv_cache is not None:
+            return (result, kv_cache, *extras)
+        return (result, *extras) if extras else result
 
 
 def _remat_layer(layer, x, *, generator, **kw):
@@ -353,7 +378,8 @@ def _remat_layer(layer, x, *, generator, **kw):
     generators, not an explicit ``torch.Generator``, so the state of
     ``generator`` is captured here: the forward draws from ``generator``
     itself (which ends where it would without remat) and every recompute
-    from a fresh generator restored to the captured state."""
+    from a fresh generator restored to the captured state.  An MoE
+    layer's ``(x, aux)`` comes through as it is."""
     state = None if generator is None else generator.get_state()
     first = [True]
 
@@ -382,7 +408,8 @@ class DecoderLM(torch.nn.Module):
         super().__init__()
         self.cfg = cfg
         device = resolve_device(device)
-        emb = dict(dtype=cfg.dtype, device=device)
+        emb = dict(one_hot_matmul=cfg.embedding_one_hot, dtype=cfg.dtype,
+                   device=device)
         self.token_embeddings = Embedding(cfg.n_vocab, cfg.n_embd, **emb)
         if cfg.positional == "learned":
             self.position_embeddings = Embedding(
@@ -402,8 +429,8 @@ class DecoderLM(torch.nn.Module):
 
     def forward(self, idx, *, kv_caches=None, kv_mask=None, positions=None,
                 segment_ids=None, training: bool = False, generator=None,
-                impl=None, return_hidden: bool = False,
-                nan_past_table: bool = False):
+                impl=None, return_aux: bool = False,
+                return_hidden: bool = False, nan_past_table: bool = False):
         """idx [B, L] -> logits [B, L, n_vocab], or ``(logits, caches)``
         with ``kv_caches`` (one ``KVCache`` per layer, updated in place).
         ``return_hidden=True`` returns the post-LN hidden state [B, L,
@@ -416,14 +443,22 @@ class DecoderLM(torch.nn.Module):
         needs.  ``nan_past_table`` embeds a position past ``n_positions`` as
         NaN, as ``jnp.take``'s fill mode does in the JAX package, for a
         generation that runs past the table (without it such a position is
-        an index error).  ``training`` with a ``generator`` applies the
-        embedding and feed-forward dropouts and, with ``cfg.attn_dropout``,
-        attention dropout (the JAX layer has no residual dropout).
+        an index error); the one-hot embedding (``embedding_one_hot``)
+        embeds it as 0 either way, as JAX's one-hot does.  ``training``
+        with a ``generator`` applies the embedding and feed-forward
+        dropouts and, with ``cfg.attn_dropout``, attention dropout (the JAX
+        layer has no residual dropout).
         ``impl`` reaches the kernels' wrappers.  ``segment_ids`` ([B, L])
         reaches the uncached attention: packed sequences, each row attending
         only its own segment (the fused path refuses them, as the JAX
         package does); with ``positions`` per segment a packed row gives
-        each example's logits alone."""
+        each example's logits alone.  With ``positional="rope"``
+        ``positions`` (broadcast to [B, L]) rotate q and k in every layer.
+
+        ``return_aux=True`` appends the router's load-balancing term summed
+        over the layers (fp32; None without ``cfg.moe``): JAX's order,
+        ``logits[, caches][, aux_total]``.  The training objective adds
+        ``cfg.moe.aux_weight * aux_total`` itself."""
         if segment_ids is not None and kv_caches is not None:
             raise NotImplementedError(
                 "segment_ids (packed training) is not supported on the "
@@ -432,27 +467,41 @@ class DecoderLM(torch.nn.Module):
         c = self.cfg
         if positions is None:
             positions = torch.arange(L, device=idx.device)[None, :]
+        rope_positions = (positions.expand(B, L) if c.positional == "rope"
+                          else None)
         x = self.token_embeddings(idx)
-        if c.positional == "learned" and nan_past_table:
+        if (c.positional == "learned" and nan_past_table
+                and not c.embedding_one_hot):
             inside = (positions < c.n_positions)[..., None]
             x = x + torch.where(inside, self.position_embeddings(
                 positions.clamp(max=c.n_positions - 1)), torch.nan)
         elif c.positional == "learned":
+            # the one-hot product embeds a position past the table as 0
             x = x + self.position_embeddings(positions)
         x = self.dropout(x, training=training, generator=generator)
         new_caches = [] if kv_caches is not None else None
+        moe = c.moe is not None
+        aux_total = torch.zeros((), device=x.device) if moe else None
         for li, layer in enumerate(self.layers):
             if kv_caches is not None:
-                x, cache = layer(x, kv_cache=kv_caches[li], impl=impl,
-                                 training=training, generator=generator)
+                x, cache, *extras = layer(
+                    x, kv_cache=kv_caches[li], positions=rope_positions,
+                    impl=impl, training=training, generator=generator)
                 new_caches.append(cache)
-            elif c.remat:
-                x = _remat_layer(layer, x, generator=generator,
-                                 kv_mask=kv_mask, segment_ids=segment_ids,
-                                 impl=impl, training=training)
             else:
-                x = layer(x, kv_mask=kv_mask, segment_ids=segment_ids,
-                          impl=impl, training=training, generator=generator)
+                kw = dict(kv_mask=kv_mask, positions=rope_positions,
+                          segment_ids=segment_ids, impl=impl,
+                          training=training)
+                out = (_remat_layer(layer, x, generator=generator, **kw)
+                       if c.remat else layer(x, generator=generator, **kw))
+                x, *extras = out if moe else (out,)
+            if moe:
+                aux_total = aux_total + extras[0]
         x = self.ln(x, impl=impl)
         out = x if return_hidden else self.lm_head(x, impl=impl)
-        return out if kv_caches is None else (out, new_caches)
+        result = (out,)
+        if kv_caches is not None:
+            result += (new_caches,)
+        if return_aux:
+            result += (aux_total,)
+        return result if len(result) > 1 else result[0]
