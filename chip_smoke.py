@@ -184,7 +184,23 @@ ported paths:
   BLEU; and
   ``skip_nonfinite(mixed_precision(adam))`` steps of that model, one with
   a NaN in one gradient leaving every parameter and optimizer tensor
-  bit-equal, neither making the host wait.
+  bit-equal, neither making the host wait; then
+
+* the rest of the single-card surface: the points classifier trained on
+  the card to the JAX tests' accuracy thresholds (``points``); conv/pool's
+  six functions at B8 C16 H64 W64, forwards and gradients against float64
+  on the CPU, over a tie-laden maxpool input too (``conv_pool``);
+  ``grad_check`` in fp32 through the flash forward, the fused and the
+  two-pass backward (where the JAX rule takes them), the fused LayerNorm
+  and the masked softmax, each form's launches counted, the fused fp32
+  backward against the FA2 backward oracle, and a flipped backward that
+  ``grad_check`` must reject (``grad_check_kernels``); run (k) of the MT
+  app under ``--profile``, its trace read back for the flash forms and
+  split a step at a time: kernels, kernel ms, the device's idle share, the
+  GEMMs and the ten largest kernels (``mt_profile``); and
+  ``utils.timing.compare`` of the bf16 flash forward against its plain
+  version beside ``device_ms``, with ``utils.roofline``'s fraction
+  (``timing_harness``).
 
 The build phase logs each kernel's registers, stack and spills as ptxas
 reports them, and fails if a flash-attention kernel's tensor-core or
@@ -207,6 +223,7 @@ from __future__ import annotations
 import collections
 import copy
 import dataclasses
+import glob
 import json
 import math
 import os
@@ -221,6 +238,7 @@ import warnings
 import numpy as np
 import torch
 
+from tpu_flash_torch import grad_check
 from tpu_flash_torch.apps.machine_translation import main as mt_app_main
 from tpu_flash_torch.apps.machine_translation import (evaluate_bleu,
                                                      generate_translations,
@@ -228,6 +246,7 @@ from tpu_flash_torch.apps.machine_translation import (evaluate_bleu,
                                                      make_train_step,
                                                      place_batch, train_epoch,
                                                      translation_tokens)
+from tpu_flash_torch.apps.points_classifier import run as points_run
 from tpu_flash_torch.data.mt import (WordTokenizer, collate_packed,
                                      get_dataset,
                                      synthetic_translation_dataset)
@@ -253,15 +272,21 @@ from tpu_flash_torch.nn import (DecoderConfig, DecoderLM, MoEConfig,
                                 MoEFeedForward, MultiHeadAttention, adam,
                                 init_params, mixed_precision, num_parameters,
                                 quantize_model_linears, skip_nonfinite)
+from tpu_flash_torch.nn import functional as pf
 from tpu_flash_torch.nn.optim import accumulate_gradients
+from tpu_flash_torch.ops import flash_attention as flash_ops_attention
 from tpu_flash_torch.ops import fused
 from tpu_flash_torch.ops.attention import (dequantize_kv, kv_quant_parts,
                                            quantize_kv)
-from tpu_flash_torch.ops.reference import causal_mask
+from tpu_flash_torch.ops.reference import (causal_mask,
+                                           flash_attention2_bw_reference,
+                                           flash_attention2_fw_reference)
 from tpu_flash_torch.utils.checkpoint import _flatten_with_paths
 from tpu_flash_torch.utils.metrics import read_metrics
-from tpu_flash_torch.utils.timing import (L2_BYTES, device_ms, past_l2,
-                                          rotating_ms)
+from tpu_flash_torch.utils.roofline import attention_bytes, roofline
+from tpu_flash_torch.utils.timing import (L2_BYTES, attention_flops,
+                                          device_ms, past_l2, rotating_ms)
+from tpu_flash_torch.utils.timing import compare as timing_compare
 
 DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
@@ -4695,6 +4720,374 @@ def mt_app() -> dict[str, int]:
     return dict(launches)
 
 
+# --- the single-card utilities (points, conv/pool, grad_check, the MT app's
+# --profile, the timing harness) ---------------------------------------------
+
+# JAX's tests/test_points.py:48-53: (dataset, steps, least accuracy)
+POINTS = (("Simple", 200, 0.97), ("Diag", 200, 0.97), ("Xor", 500, 0.95),
+          ("Circle", 500, 0.93))
+
+
+def points() -> list[dict]:
+    """``apps.points_classifier.run`` on the card for each of ``POINTS``
+    (256 points, hidden 32, Adam lr 0.05, seed 0): the final loss, the
+    accuracy against JAX's test threshold, and the seconds of the run (the
+    host reads the losses once, after the last step)."""
+    rows = []
+    for name, steps, least in POINTS:
+        t = time.perf_counter()
+        loss, acc = points_run(name, steps=steps, device=DEV)
+        rows.append({"phase": "points", "dataset": name, "steps": steps,
+                     "loss": loss, "accuracy": acc, "least_accuracy": least,
+                     "seconds": time.perf_counter() - t,
+                     "card": torch.cuda.get_device_name(0)})
+        log(rows[-1])
+    low = [(r["dataset"], r["accuracy"]) for r in rows
+           if not r["accuracy"] >= r["least_accuracy"]]
+    check(not low, f"points: below JAX's accuracy thresholds: {low}")
+    return rows
+
+
+# The conv/pool phase's shape and its limit: fp32 on the card (TF32 off)
+# against the same code in float64 on the CPU.  A sum of n fp32 products
+# errs by ~n^0.5 * 2^-24 of its terms' size: conv2d's 144 products a value
+# and dW's 32768 stay under 1e-5 of the result's largest magnitude; 1e-4
+# leaves room for cuDNN's algorithm and fails a misplaced pad (O(1)).
+CONV_B, CONV_C, CONV_HW = 8, 16, 64
+CONV_TOL = 1e-4
+
+
+def conv_pool(gen) -> dict:
+    """``nn.functional``'s ``tile``, ``avgpool2d``, ``maxpool2d``,
+    ``argmax``, ``conv1d`` and ``conv2d`` on the card at B8 C16 H64 W64
+    (conv2d 3x3, conv1d taps 5 over the rows flattened to 4096, pools
+    2x2 and 4x4, maxpool also over values from {0, 1, 2}, where most
+    windows tie; argmax at every axis): each forward and the gradient of
+    ``sum(out * w)`` for every input against the same function in float64
+    on the CPU, within ``CONV_TOL`` of the result's largest magnitude
+    (argmax exactly, and without a gradient)."""
+    x = torch.randn(CONV_B, CONV_C, CONV_HW, CONV_HW, generator=gen,
+                    device=DEV)
+    ties = torch.randint(0, 3, x.shape, generator=gen, device=DEV).float()
+    w2 = torch.randn(CONV_C, CONV_C, 3, 3, generator=gen, device=DEV)
+    w1 = torch.randn(CONV_C, CONV_C, 5, generator=gen, device=DEV)
+    x1 = x.flatten(2)
+    cases = [("tile 2x2", lambda a: pf.tile(a, (2, 2))[0], (x,)),
+             ("tile 4x4", lambda a: pf.tile(a, (4, 4))[0], (x,)),
+             ("avgpool2d 2x2", lambda a: pf.avgpool2d(a, (2, 2)), (x,)),
+             ("avgpool2d 4x4", lambda a: pf.avgpool2d(a, (4, 4)), (x,)),
+             ("maxpool2d 2x2", lambda a: pf.maxpool2d(a, (2, 2)), (x,)),
+             ("maxpool2d 4x4", lambda a: pf.maxpool2d(a, (4, 4)), (x,)),
+             ("maxpool2d 2x2 ties", lambda a: pf.maxpool2d(a, (2, 2)),
+              (ties,)),
+             ("maxpool2d 4x4 ties", lambda a: pf.maxpool2d(a, (4, 4)),
+              (ties,)),
+             ("conv1d K5", pf.conv1d, (x1, w1)),
+             ("conv2d 3x3", pf.conv2d, (x, w2))]
+    rows, failed = {}, []
+    for label, fn, args in cases:
+        errs = []
+        for dev, dtype in ((DEV, torch.float32), ("cpu", torch.float64)):
+            leaves = [a.to(dev, dtype).requires_grad_(True) for a in args]
+            out = fn(*leaves)
+            w = torch.randn(out.shape, generator=torch.Generator(
+                "cpu").manual_seed(1), dtype=torch.float64).to(dev, dtype)
+            grads = torch.autograd.grad((out * w).sum(), leaves)
+            errs.append([out.detach(), *grads])
+        row = {}
+        for name, got, ref in zip(("out", *(f"d{i}" for i in range(
+                len(args)))), errs[0], errs[1]):
+            err = float((got.double().cpu() - ref).abs().max())
+            scale = float(ref.abs().max())
+            row[name] = {"max_abs_err": err, "largest": scale}
+            if not err <= CONV_TOL * max(1.0, scale):
+                failed.append(f"{label} {name}: {err} of {scale}")
+        if "ties" in label:     # the card's gradient split among ties
+            leaf = args[0].clone().requires_grad_(True)
+            (split,) = torch.autograd.grad(fn(leaf).sum(), leaf)
+            row["split_inputs"] = int(((split > 0) & (split < 1)).sum())
+            if not row["split_inputs"]:
+                failed.append(f"{label}: no window split its gradient")
+        rows[label] = row
+    for axis in range(-4, 4):
+        got = pf.argmax(x, axis)
+        ref = pf.argmax(x.double().cpu(), axis)
+        same = torch.equal(got.cpu(), ref) and not got.requires_grad
+        rows[f"argmax axis {axis}"] = {"same": same,
+                                       "shape": list(got.shape)}
+        if not same:
+            failed.append(f"argmax axis {axis}")
+    log({"phase": "conv_pool", "shape": f"B{CONV_B} C{CONV_C} "
+         f"H{CONV_HW} W{CONV_HW} fp32, TF32 off", "tol": f"{CONV_TOL} of "
+         "the largest |float64 value|", "cases": rows,
+         "card": torch.cuda.get_device_name(0)})
+    check(not failed, f"conv_pool against float64: {failed}")
+    return rows
+
+
+class _FlippedFlash(torch.autograd.Function):
+    """The flash kernels' forward with their backward's sign flipped: the
+    wrong VJP ``grad_check`` must catch."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse, _ = flash_attention_forward(q, k, v, causal=causal,
+                                              impl="kernel")
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        grads = flash_attention_backward(q, k, v, out, lse, do,
+                                         causal=ctx.causal, impl="kernel")
+        return (*(-g for g in grads), None)
+
+
+# grad_check's shapes: the fused backward at B1 H2 L256 d64, the two passes
+# where the JAX rule takes them in fp32 (L 8192 at d64, H1)
+GC_FUSED = (1, 2, 256, 64)
+GC_TWO_PASS = (1, 1, 8192, 64)
+BW_ORACLE_TOL = 1e-2        # the kernel backward's tolerance
+
+
+def grad_check_kernels(gen) -> dict:
+    """``grad_check`` in fp32 on the card through the kernel route of
+    ``ops.flash_attention`` (causal and not; the fused backward at
+    ``GC_FUSED``, the two passes at ``GC_TWO_PASS``, where
+    ``backward_form.two_pass`` takes them), ``ops.layer_norm`` and
+    ``ops.attn_softmax`` (``impl="kernel"``), each output weighted by a
+    fixed random tensor and summed in float64; the launches of each form
+    counted; the fused ``_x6`` backward's dq, dk, dv against
+    ``flash_attention2_bw_reference`` within ``BW_ORACLE_TOL``; and a
+    backward with its sign flipped, which ``grad_check`` must reject."""
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=DEV)
+
+    flash_forms = ATTENTION_X6 + TWO_PASS
+    rows, launched = [], collections.Counter()
+
+    def checked_run(label, fn, args, forms, **kw):
+        before = {n: common.launch_counts[n] for n in forms}
+        t = time.perf_counter()
+        ok = grad_check(fn, *args, **kw)
+        torch.cuda.synchronize()
+        n = {f: common.launch_counts[f] - before[f] for f in forms}
+        launched.update(n)
+        rows.append({"case": label, "passed": ok, "launches": n,
+                     "seconds": time.perf_counter() - t})
+
+    forms = {GC_FUSED: ATTENTION_X6, GC_TWO_PASS: (ATTENTION_X6[0],)
+             + TWO_PASS}
+    for shape, form in forms.items():
+        B, H, L, d = shape
+        q, k, v, w = (rand(B, H, L, d) for _ in range(4))
+        for causal in (False, True):
+            check(two_pass(L, L, d, 4, causal) == (shape == GC_TWO_PASS),
+                  f"grad_check: the rule's form at L{L} is not the one "
+                  f"meant")
+            checked_run(
+                f"flash_attention B{B} H{H} L{L} d{d} causal={causal}",
+                lambda *a, c=causal: (flash_ops_attention(*a, causal=c)
+                                      * w).double(),
+                (q, k, v), form)
+    x, gamma, beta, wl = rand(4, 40, 256), rand(256), rand(256), rand(256)
+    checked_run("layer_norm R160 H256",
+                lambda *a: (fused.layer_norm(*a, impl="kernel")
+                            * wl).double(),
+                (x, gamma, beta), ("layernorm_fwd", "layernorm_bwd"))
+    s, w = rand(2, 8, 40, 40), rand(2, 8, 40, 40)
+    pad = torch.zeros(2, 40, device=DEV)
+    pad[1, 30:] = common.MASK_VALUE
+    for causal in (False, True):
+        checked_run(f"attn_softmax B2 H8 L40 causal={causal}",
+                    lambda a, c=causal: (fused.attn_softmax(
+                        a, pad, mask_future=c, impl="kernel") * w).double(),
+                    (s,), ("attn_softmax_fwd", "attn_softmax_bwd"),
+                    n_samples=8)
+    idle = [f for f in flash_forms + FUSED if not launched[f]]
+    # the fused _x6 backward against the FA2 backward oracle
+    B, H, L, d = GC_FUSED
+    q, k, v, do = (rand(B, H, L, d) for _ in range(4))
+    oracle = {}
+    for causal in (False, True):
+        out, lse, _ = flash_attention_forward(q, k, v, causal=causal,
+                                              impl="kernel")
+        got = flash_attention_backward_fused(q, k, v, out, lse, do,
+                                             causal=causal, impl="kernel")
+        res = flash_attention2_fw_reference(q, k, v, causal=causal)
+        want = flash_attention2_bw_reference(q, k, v, res.out, res.lse, do,
+                                             causal=causal)
+        oracle[f"causal={causal}"] = {
+            n: float((a - b).abs().max())
+            for n, a, b in zip(("dq", "dk", "dv"), got, want)}
+    # the planted wrong VJP
+    q, k, v, w = (rand(*GC_FUSED) for _ in range(4))
+    try:
+        grad_check(lambda *a: (_FlippedFlash.apply(*a, True) * w).double(),
+                   q, k, v)
+        caught = None
+    except AssertionError as e:
+        caught = str(e)
+    log({"phase": "grad_check_kernels", "dtype": "float32",
+         "defaults": "4 positions an argument, eps 1e-3, rtol 1e-2, "
+                     "atol 1e-2", "cases": rows,
+         "launches": dict(launched), "fused_bwd_x6_vs_fa2_bw_oracle": oracle,
+         "oracle_tol": BW_ORACLE_TOL, "flipped_backward_caught": caught,
+         "card": torch.cuda.get_device_name(0)})
+    check(not idle, f"grad_check_kernels never launched {idle}")
+    far = {c: e for c, e in oracle.items()
+           if not max(e.values()) <= BW_ORACLE_TOL}
+    check(not far, f"the fused _x6 backward against the FA2 backward "
+                   f"oracle: {far}")
+    check(caught is not None, "grad_check passed a flipped backward")
+    return dict(launched)
+
+
+MT_PROFILE_ITERS = 30
+
+
+def trace_split(path: str, steps: int) -> dict:
+    """The device side of a ``utils.profiling.trace`` file, a step at a
+    time: kernels and their summed time, the port's flash kernels, the
+    GEMMs by operand type and the rest, the device's idle share over the
+    span from its first event's start to its last event's end, and the
+    ten largest kernels by time."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    device = [e for e in events if e.get("ph") == "X"
+              and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    kernels = [e for e in device if e["cat"] == "kernel"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in device)
+    busy, end = 0.0, -math.inf
+    for s, e in spans:          # the union of the device's intervals
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    span = spans[-1][1] - spans[0][0] if spans else 0.0
+    by_name: dict = collections.defaultdict(lambda: [0, 0.0])
+    for e in kernels:
+        by_name[e["name"]][0] += 1
+        by_name[e["name"]][1] += e["dur"]
+    total_us = sum(us for _, us in by_name.values())
+    ours = {n: sum(us for k, (_, us) in by_name.items() if port_kernel(k, n))
+            / steps / 1e3 for n in ATTENTION_TC}
+    gemms = collections.defaultdict(float)
+    for k, (_, us) in by_name.items():
+        if gemm_kind(k):
+            gemms[gemm_kind(k)] += us / steps / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    return {"events": len(events), "steps": steps,
+            "kernels_per_step": len(kernels) / steps,
+            "kernel_ms_per_step": total_us / steps / 1e3,
+            "device_span_ms_per_step": span / steps / 1e3,
+            "idle_share": 1.0 - busy / span if span else None,
+            "port_flash_ms_per_step": ours,
+            "gemm_ms_per_step": dict(gemms),
+            "other_kernel_ms_per_step": (total_us / steps / 1e3
+                                         - sum(ours.values())
+                                         - sum(gemms.values())),
+            "top10": [{"name": k[:100], "count_per_step": c / steps,
+                       "ms_per_step": us / steps / 1e3,
+                       "share": us / total_us if total_us else None}
+                      for k, (c, us) in top]}
+
+
+def mt_profile() -> dict[str, int]:
+    """The MT app's CLI with ``--profile``: run (k)'s argv for one epoch of
+    at most ``MT_PROFILE_ITERS`` steps (the corpus holds 22 batches of 129;
+    no checkpoint, no BLEU pass), the launch
+    counts set to 0 just before and read just after.  Checks the profile
+    line, that the trace under ``<workdir>/profile`` holds the flash
+    forward's and fused backward's ``_tc`` forms (by name, no exact count:
+    a trace may drop kernels, PERF.md §7) and that the run launched them;
+    logs the first split of the app's step (``trace_split``).  Returns
+    the launches of the kernels line's forms."""
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        MT_WORKDIR)
+    root = os.path.join(base, "k_profile")
+    shutil.rmtree(base, ignore_errors=True)
+    argv = MT_RUNS["k"] + ["--profile", "--n-epochs", "1",
+                           "--max-iters-per-epoch", str(MT_PROFILE_ITERS),
+                           "--checkpoint-every", "0", "--skip-bleu",
+                           "--workdir", root]
+    try:
+        t = time.perf_counter()
+        rec, counts = mt_main(argv)
+        seconds = time.perf_counter() - t
+        traces = glob.glob(os.path.join(root, "profile", "*.pt.trace.json"))
+        check(len(traces) == 1, f"mt_profile: traces written {traces}")
+        steps = 1 + max(r["step"] for r in read_metrics(
+            os.path.join(root, "metrics.jsonl"))
+                        if "loss" in r and r.get("event") is None)
+        t = time.perf_counter()
+        split = trace_split(traces[0], steps)
+        parse_s = time.perf_counter() - t
+        trace_mb = os.path.getsize(traces[0]) / 2 ** 20
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    forms = {n: split["port_flash_ms_per_step"][n] > 0 for n in ATTENTION_TC}
+    launches = {n: counts.get(n, 0) for n in ATTENTION_TC}
+    log({"phase": "mt_profile", "argv": argv, "seconds": seconds,
+         "trace_mb": trace_mb, "trace_parse_s": parse_s,
+         "epoch": rec["epochs"][0], "launches": launches,
+         "flash_tc_in_trace": forms, **split,
+         "card": torch.cuda.get_device_name(0)})
+    check(all(forms.values()), f"mt_profile: the trace lacks {forms}")
+    check(all(launches.values()), f"mt_profile launched {launches}")
+    # the corpus's whole batches of the app's 129 rows, at most the cap
+    batches = len(get_dataset("local", MT_L)[0]["train"]) // (
+        (128 * MT_L + MT_L) // MT_L)
+    check(steps == min(MT_PROFILE_ITERS, batches),
+          f"mt_profile ran {steps} steps, not min({MT_PROFILE_ITERS}, "
+          f"{batches})")
+    return launches
+
+
+TIMING_SHAPE = (4, 8, 2048, 64)     # PERF.md §6's row 1 shape, causal
+TIMING_AGREE = 0.15
+
+
+def timing_harness(gen) -> dict:
+    """``utils.timing.compare`` of the bf16 flash forward kernel against
+    its plain version at ``TIMING_SHAPE``, causal; ``benchmark``'s
+    ``mean_ms`` for the kernel must be within ``TIMING_AGREE`` of a
+    ``device_ms`` of the same call, and ``utils.roofline``'s fraction for
+    it is logged beside PERF.md's 13.9 %."""
+    B, H, L, d = TIMING_SHAPE
+    q, k, v = (torch.randn(B, H, L, d, generator=gen, device=DEV).to(
+        torch.bfloat16) for _ in range(3))
+    flops = attention_flops(B, H, L, d, causal=True)
+
+    def kernel(q, k, v):
+        return flash_attention_forward(q, k, v, causal=True, impl="kernel")
+
+    def plain(q, k, v):
+        return flash_attention_forward(q, k, v, causal=True, impl="plain")
+
+    before = common.launch_counts[ATTENTION_TC[0]]
+    rk, rp, speedup = timing_compare(kernel, plain, q, k, v, flops=flops,
+                                     names=("kernel", "plain"))
+    check(common.launch_counts[ATTENTION_TC[0]] > before,
+          "timing_harness: the kernel was not launched")
+    direct = device_ms(lambda: kernel(q, k, v), iters=50)
+    point = roofline(rk.mean_ms, flops, attention_bytes(B, H, L, d))
+    row = {"phase": "timing_harness", "kernel": ATTENTION_TC[0],
+           "shape": f"B{B} H{H} L{L} d{d} causal bf16",
+           "benchmark_ms": rk.mean_ms, "device_ms": direct,
+           "benchmark_over_device_ms": rk.mean_ms / direct,
+           "plain_ms": rp.mean_ms, "speedup": speedup,
+           "tflops": rk.tflops, "roofline": point.summary(),
+           "perf_md_fraction": 0.139,
+           "card": torch.cuda.get_device_name(0)}
+    log(row)
+    check(abs(rk.mean_ms / direct - 1.0) <= TIMING_AGREE,
+          f"timing_harness: benchmark {rk.mean_ms} ms against device_ms "
+          f"{direct} ms")
+    return row
+
+
 def main() -> int:
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4996,6 +5389,17 @@ def main() -> int:
     # LayerNorm launches join the kernels line's
     for n, c in mt_app().items():
         launches[n] += c
+    # this slice's paths: the points classifier, conv/pool, grad_check over
+    # the training kernels, the MT app under --profile, the timing harness
+    t_utils = time.perf_counter()
+    points()
+    conv_pool(gen)
+    grad_check_kernels(gen)
+    for n, c in mt_profile().items():
+        launches[n] += c
+    timing_harness(gen)
+    log({"phase": "single_card_utilities_total",
+         "seconds": time.perf_counter() - t_utils})
 
     main_row = next(r for r in rows if r["cache"] == "int8"
                     and r["length"] == 1024 and r["lq"] == 1)

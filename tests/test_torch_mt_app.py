@@ -220,8 +220,7 @@ def test_metrics_logger_writes_strict_json(tmp_path):
 
 @pytest.mark.parametrize("flags,label", [
     (["--dp", "2"], "A8"), (["--tp", "2"], "A8"), (["--dcn-data", "2"], "A8"),
-    (["--zero1"], "A8"), (["--sequence-parallel"], "A8"),
-    (["--profile"], "A9b")])
+    (["--zero1"], "A8"), (["--sequence-parallel"], "A8")])
 def test_unported_flags_raise_with_their_label(tmp_path, flags, label):
     with pytest.raises(NotImplementedError, match=f"item {label}\\)"):
         tapp.main(["--workdir", str(tmp_path)] + flags, device="cpu")

@@ -13,23 +13,33 @@ Layering, as in the JAX package:
                backward, int8 and packed-int4 weight-only matmuls) +
                build/launch helpers
   ops/       — the differentiable flash-attention, fused softmax and fused
-               LayerNorm ops, and plain PyTorch oracles (causal mask, naive
-               attention, FA1/FA2 forward, composed softmax and LayerNorm)
-  nn/        — layers (float and quantized Linear), the pre-LN decoder
-               transformer (torch.nn), optimizers
-  inference/ — KV cache (fp/int8/fp8, heads-minor), sampler, engine
+               LayerNorm ops, plain PyTorch oracles (causal mask, naive
+               attention, FA1/FA2 forward and backward, composed softmax and
+               LayerNorm) and the process-wide default impl (registry)
+  nn/        — layers (float and quantized Linear), functional ops (losses,
+               rotary positions, pooling and convolution), the pre-LN
+               decoder transformer with its routed MoE feed-forward
+               (torch.nn), optimizers, ``tree_cast``
+  inference/ — KV cache (fp/int8/fp8, heads-minor), sampler, beam search,
+               speculative decoding, engine
   data/      — the MT corpora, byte-level BPE, collates, the C++ batch ring
-               (``native/collate.cpp``, built with g++ at first use)
-  apps/      — the machine-translation app (CLI, training, BLEU)
-  utils/     — CUDA-event timing, corpus BLEU, checkpoints, metrics log
+               (``native/collate.cpp``, built with g++ at first use), the
+               2-D point sets
+  apps/      — the machine-translation app (CLI, training, BLEU,
+               ``--profile``) and the points classifier
+  utils/     — CUDA-event timing and the benchmark harness, roofline,
+               profiling, grad_check, corpus BLEU, checkpoints, metrics log
 
 Entry points (``DecoderLM``, ``DecodeEngine``, ``generate``,
-``apps.machine_translation.main``) run on the card unless the caller passes
-``device="cpu"``.  Ported so far: the serving path, with float or
-weight-only quantized linears (``nn.quantize_model_linears``), the training
-path, with flash, fused or naive attention and the fused or composed
-LayerNorm, and the MT app from corpus to BLEU (ROADMAP.md, queue A items
-A1-A5 and A7's quantized linears).
+``apps.machine_translation.main``, ``apps.points_classifier.run``) run on
+the card unless the caller passes ``device="cpu"``.  Ported so far:
+everything the JAX package does on one device (ROADMAP.md, queue A items
+A1-A7 and A9b's single-card utilities): the serving path, with float or
+weight-only quantized linears, beam search, speculative decoding and a
+shared prefix; the training path, with flash, fused or naive attention,
+windows, segments, dropout and quantized K/V, rotary positions and the
+routed MoE feed-forward; the MT app from corpus to BLEU; and the small
+pieces around them.  Not yet: ``parallel/`` (A8).
 """
 
 __version__ = "0.1.0"
@@ -45,3 +55,10 @@ from tpu_flash_torch.kernels import (  # noqa: F401
     flash_decode_attention_plain,
 )
 from tpu_flash_torch.nn import DecoderConfig, DecoderLM  # noqa: F401
+from tpu_flash_torch.ops import (  # noqa: F401
+    attn_softmax,
+    flash_attention,
+    layer_norm,
+    naive_attention,
+)
+from tpu_flash_torch.utils.grad_check import grad_check  # noqa: F401

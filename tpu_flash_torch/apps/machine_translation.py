@@ -23,12 +23,15 @@ Deviations from the JAX app:
   * not ported yet, each raising ``NotImplementedError`` with its
     ROADMAP.md item: ``--dp``/``--tp``/``--dcn-data`` above 1, ``--zero1``
     and ``--sequence-parallel`` (A8, as ``ctx=`` on ``train_epoch``,
-    ``evaluate_loss`` and ``generate_translations``), ``--profile`` (A9b).
+    ``evaluate_loss`` and ``generate_translations``);
+  * ``--profile`` writes a ``torch.profiler`` trace (``utils.profiling.
+    trace``: Chrome / Perfetto JSON) where JAX's writes an XProf one.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -51,6 +54,7 @@ from tpu_flash_torch.utils.checkpoint import (AsyncCheckpointer,
                                               restore_checkpoint,
                                               restore_like)
 from tpu_flash_torch.utils.metrics import MetricsLogger
+from tpu_flash_torch.utils.profiling import trace
 
 
 def _no_ctx(ctx, what: str) -> None:
@@ -367,7 +371,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest checkpoint in the workdir")
     p.add_argument("--profile", action="store_true",
-                   help="a profiler trace of epoch 0 (A9b)")
+                   help="a torch.profiler trace of the first epoch run "
+                        "into <workdir>/profile (Chrome / Perfetto JSON)")
     p.add_argument("--dp", type=int, default=1,
                    help="data-parallel mesh size (above 1: A8)")
     p.add_argument("--tp", type=int, default=1,
@@ -387,8 +392,7 @@ def _refuse_unported(args) -> None:
             (args.tp > 1, f"--tp {args.tp}", "A8"),
             (args.dcn_data > 1, f"--dcn-data {args.dcn_data}", "A8"),
             (args.zero1, "--zero1", "A8"),
-            (args.sequence_parallel, "--sequence-parallel", "A8"),
-            (args.profile, "--profile", "A9b")):
+            (args.sequence_parallel, "--sequence-parallel", "A8")):
         if bad:
             raise _not_ported(what, item)
 
@@ -535,14 +539,21 @@ def _train_loop(args, model, opt, opt_state, dataset, train_collate_fn,
                                      accum_steps=args.accum_steps)
     out = {"epochs": [], "bleu": [], "samples": []}
     for epoch in range(start_epoch, args.n_epochs):
+        traced = contextlib.nullcontext()
+        if args.profile and epoch == start_epoch:
+            traced = trace(os.path.join(os.path.dirname(ckpt_dir),
+                                        "profile"))
+            print(json.dumps({"profile": f"tracing epoch {epoch} -> "
+                                         "workdir/profile"}))
         t0 = time.perf_counter()
-        opt_state, losses, step_times, step_tokens = train_epoch(
-            model, opt, opt_state, dataset["train"], train_collate_fn,
-            batch_size, seed=args.seed * 100_003 + epoch + 1,
-            n_samples=args.samples_per_epoch,
-            max_iters=args.max_iters_per_epoch,
-            native_loader=native_loader, metrics=metrics,
-            chunked_vocab=args.chunked_loss, train_step=train_step)
+        with traced:
+            opt_state, losses, step_times, step_tokens = train_epoch(
+                model, opt, opt_state, dataset["train"], train_collate_fn,
+                batch_size, seed=args.seed * 100_003 + epoch + 1,
+                n_samples=args.samples_per_epoch,
+                max_iters=args.max_iters_per_epoch,
+                native_loader=native_loader, metrics=metrics,
+                chunked_vocab=args.chunked_loss, train_step=train_step)
         epoch_time = time.perf_counter() - t0
         val_loss = evaluate_loss(model, dataset["validation"], collate_fn,
                                  batch_size, chunked_vocab=args.chunked_loss)

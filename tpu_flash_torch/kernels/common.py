@@ -101,8 +101,15 @@ def sm_count(device: torch.device) -> int:
 
 
 def resolve_impl(impl: str | None, x: torch.Tensor) -> str:
-    """``"kernel"`` for a CUDA tensor and ``"plain"`` for a CPU one, unless
-    the caller names one.  A CPU tensor cannot take the kernel."""
+    """The call's ``impl``, else the process default
+    (``ops.registry.set_default_impl``), else ``"kernel"`` for a CUDA
+    tensor and ``"plain"`` for a CPU one.  A CPU tensor cannot take the
+    kernel."""
+    if impl is None:
+        # imported here: the ops package imports this module
+        from tpu_flash_torch.ops.registry import get_default_impl
+
+        impl = get_default_impl()
     if impl is None:
         return "kernel" if x.is_cuda else "plain"
     if impl not in ("kernel", "plain"):

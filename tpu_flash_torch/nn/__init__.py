@@ -19,10 +19,14 @@ from tpu_flash_torch.nn.module import (  # noqa: F401
     named_tree_leaves,
     num_parameters,
     to_jax_params,
+    tree_cast,
 )
 from tpu_flash_torch.nn.optim import (  # noqa: F401
+    accumulate_gradients,
     adam,
     adamw,
+    clip_by_global_norm,
+    cosine_schedule,
     mixed_precision,
     sgd,
     skip_nonfinite,

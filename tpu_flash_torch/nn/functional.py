@@ -1,7 +1,9 @@
 """Functional ops, counterpart of ``tpu_flash/nn/functional.py``: softmax,
 logsumexp and logsoftmax, tanh-GELU, ``one_hot``, dropout, the
 cross-entropy loss, ``chunked_softmax_loss``, the fused lm_head +
-cross-entropy that never materializes the logits, and ``apply_rope``."""
+cross-entropy that never materializes the logits, ``apply_rope``, and
+pooling and convolution (``tile``, ``avgpool2d``, ``maxpool2d``,
+``argmax``, ``conv1d``, ``conv2d``)."""
 
 from __future__ import annotations
 
@@ -185,3 +187,56 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
                      dim=-1).to(x.dtype)
+
+
+# --- pooling and convolution (JAX nn/functional.py:290-342) ----------------
+# The JAX package computes the convolutions with XLA's conv_general_dilated,
+# outside any Pallas kernel; here they are torch's, on zero padding placed
+# as JAX places it (right and bottom only).
+
+
+def tile(x: torch.Tensor, kernel: tuple[int, int]):
+    """``[B, C, H, W]`` as ``[B, C, H/kh, W/kw, kh*kw]`` tiles; returns
+    ``(tiles, H/kh, W/kw)``."""
+    B, C, H, W = x.shape
+    kh, kw = kernel
+    if H % kh or W % kw:
+        raise ValueError(f"kernel {kernel} does not tile {H}x{W}")
+    t = x.reshape(B, C, H // kh, kh, W // kw, kw).permute(0, 1, 2, 4, 3, 5)
+    return t.reshape(B, C, H // kh, W // kw, kh * kw), H // kh, W // kw
+
+
+def avgpool2d(x: torch.Tensor, kernel: tuple[int, int]) -> torch.Tensor:
+    """``[B, C, H, W]`` average pooling."""
+    return tile(x, kernel)[0].mean(dim=-1)
+
+
+def maxpool2d(x: torch.Tensor, kernel: tuple[int, int]) -> torch.Tensor:
+    """``[B, C, H, W]`` max pooling.  ``amax``, not ``max(dim)``: its
+    gradient splits evenly among tied maxima, as JAX's ``max`` does."""
+    return tile(x, kernel)[0].amax(dim=-1)
+
+
+def argmax(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """One-hot argmax (the first index on ties), fp32, no gradient.  At
+    another axis than -1 the class axis is swapped with ``axis``, JAX's
+    layout (``one_hot(argmax(x, axis)).swapaxes(-1, axis)``)."""
+    hot = one_hot(torch.argmax(x, dim=axis), x.shape[axis])
+    return hot if axis == -1 else hot.swapaxes(-1, axis)
+
+
+def conv1d(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """Cross-correlation of ``x`` [B, Cin, T] with ``weight`` [Cout, Cin,
+    K] into [B, Cout, T]: out[..., t] sums taps t..t+K-1, zero past the
+    end."""
+    return torch.nn.functional.conv1d(
+        torch.nn.functional.pad(x, (0, weight.shape[-1] - 1)), weight)
+
+
+def conv2d(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The 2-D ``conv1d``: ``x`` [B, Cin, H, W], ``weight`` [Cout, Cin, KH,
+    KW], out [B, Cout, H, W], the kernel anchored top-left, zero past the
+    bottom and right edges."""
+    KH, KW = weight.shape[-2:]
+    return torch.nn.functional.conv2d(
+        torch.nn.functional.pad(x, (0, KW - 1, 0, KH - 1)), weight)

@@ -20,10 +20,20 @@ import torch
 
 from tpu_flash_torch.nn.layers import Embedding, LayerNorm, Linear
 from tpu_flash_torch.nn.moe import MoEFeedForward
+from tpu_flash_torch.nn.optim import tree_map
 
 
 def num_parameters(model: torch.nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
+
+
+def tree_cast(tree: Any, dtype: torch.dtype) -> Any:
+    """Every floating tensor of a nested dict, list or tuple (NamedTuples
+    such as the optimizers' states included) cast to ``dtype``, e.g. bf16
+    for inference; integer tensors (quantized codes, step counts) and
+    other leaves stay as they are (JAX ``nn/module.py:101``)."""
+    return tree_map(lambda p: p.to(dtype) if p.is_floating_point() else p,
+                    tree)
 
 
 def named_tree_leaves(tree: Any, prefix: str = "") -> Iterator[tuple[str, Any]]:

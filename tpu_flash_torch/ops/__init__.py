@@ -1,6 +1,6 @@
 """Ops of the port: the differentiable flash-attention op, the fused
-masked softmax and LayerNorm, and the plain PyTorch oracles they are held
-against."""
+masked softmax and LayerNorm, the plain PyTorch oracles they are held
+against, and the process-wide default implementation (``registry``)."""
 
 from tpu_flash_torch.ops.attention import (  # noqa: F401
     dequantize_kv,
@@ -23,4 +23,9 @@ from tpu_flash_torch.ops.reference import (  # noqa: F401
     dropout_keep_oracle,
     naive_attention,
     window_mask,
+)
+from tpu_flash_torch.ops.registry import (  # noqa: F401
+    get_default_impl,
+    resolve_impl,
+    set_default_impl,
 )

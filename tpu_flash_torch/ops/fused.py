@@ -9,9 +9,10 @@ gradient); LayerNorm saves ``(x, gamma, mean, var)`` and its backward runs
 ``layernorm_backward``.  ``layer_norm_with_stats`` is the forward's full
 ``(y, mean, var)``, not differentiable.
 
-Size dispatch, as in the JAX package: with ``impl=None``, a last axis
-longer than ``_FUSED_SOFTMAX_PALLAS_MAX`` (softmax) or
-``_FUSED_LN_PALLAS_MAX`` (LayerNorm) takes the composed route, the fp32
+Size dispatch, as in the JAX package: with ``impl=None`` and no process
+default (``ops.registry``), a last axis longer than
+``_FUSED_SOFTMAX_PALLAS_MAX`` (softmax) or ``_FUSED_LN_PALLAS_MAX``
+(LayerNorm) takes the composed route, the fp32
 oracles of ``ops.reference`` under autograd, whose result is fp32 whatever
 the input dtype; at or below it the kernel route runs (the CUDA kernel for
 CUDA tensors, its plain version for CPU tensors), in the input dtype.
@@ -33,6 +34,7 @@ from tpu_flash_torch.kernels.softmax import (
     attn_softmax_forward,
 )
 from tpu_flash_torch.ops import reference as ref
+from tpu_flash_torch.ops.registry import resolve_impl
 
 # Above these last-axis sizes impl=None takes the composed route.  The JAX
 # package chose 512 from TPU timings; the port keeps the split for parity
@@ -80,6 +82,7 @@ def attn_softmax(x, pad_mask=None, *, mask_future: bool = False,
     in ``x``.  ``pad_mask`` is an additive ``[B, Lk]`` mask,
     ``mask_future`` the causal mask (``kernels.softmax`` for the masking
     rules of the kernel route)."""
+    impl = resolve_impl(impl)
     if impl is None and x.shape[-1] > _FUSED_SOFTMAX_PALLAS_MAX:
         return ref.attn_softmax_reference(x, pad_mask,
                                           mask_future=mask_future)
@@ -89,6 +92,7 @@ def attn_softmax(x, pad_mask=None, *, mask_future: bool = False,
 def layer_norm(x, gamma, beta, *, impl: str | None = None) -> torch.Tensor:
     """Fused row LayerNorm over the last axis (eps 1e-8, ``var = E[x^2] -
     mean^2``); differentiable in ``x``, ``gamma`` and ``beta``."""
+    impl = resolve_impl(impl)
     if impl is None and x.shape[-1] > _FUSED_LN_PALLAS_MAX:
         return ref.layernorm_fw_reference(x, gamma, beta).out
     return _LayerNorm.apply(x, gamma, beta, impl)

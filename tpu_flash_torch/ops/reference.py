@@ -1,7 +1,7 @@
 """Plain PyTorch oracles, counterpart of ``tpu_flash/ops/reference.py``:
 the causal, sliding-window and segment masks, the attention-dropout keep
-multiplier, naive attention, the tiled
-FlashAttention-1 and -2 forward oracles (the executable specs the attention kernels are held
+multiplier, naive attention, the tiled FlashAttention-1 and -2 forward and
+backward oracles (the executable specs the attention kernels are held
 against), and the composed masked softmax and LayerNorm that
 ``ops.fused`` takes above its size limits.  Causal masking adds
 ``MASK_VALUE`` (-1e7), as the reference does."""
@@ -151,6 +151,17 @@ def flash_attention1_fw_reference(q, k, v, *, causal: bool = False,
     return FA1Residuals(o, l, m)
 
 
+def flash_attention1_bw_reference(q, k, v, o, l, m, do, *,
+                                  causal: bool = False, block_q: int = 16,
+                                  block_k: int = 16):
+    """FA1 backward: K/V tiles outer, Q tiles inner; S and ``P = exp(S -
+    m) / l`` recomputed per tile from the saved ``l, m``, ``D =
+    rowsum(dO * O)``.  Returns ``(dq, dk, dv)``, fp32."""
+    return _bw_reference(q, k, v, o, do, causal, block_q, block_k,
+                         lambda s, sl: (torch.exp(s - m[..., sl, None])
+                                        / l[..., sl, None]))
+
+
 def flash_attention2_fw_reference(q, k, v, *, causal: bool = False,
                                   block_q: int = 16,
                                   block_k: int = 16) -> FA2Residuals:
@@ -182,6 +193,40 @@ def flash_attention2_fw_reference(q, k, v, *, causal: bool = False,
         out[..., sl, :] = oi / li[..., None]
         lse[..., sl] = mi + torch.log(li)
     return FA2Residuals(out, lse)
+
+
+def flash_attention2_bw_reference(q, k, v, o, lse, do, *,
+                                  causal: bool = False, block_q: int = 16,
+                                  block_k: int = 16):
+    """FA2 backward: the same tile loops with ``P = exp(S - lse)`` from the
+    saved logsumexp (the JAX oracle adds each tile's dQ where the reference
+    kernel adds it atomically).  Returns ``(dq, dk, dv)``, fp32."""
+    return _bw_reference(q, k, v, o, do, causal, block_q, block_k,
+                         lambda s, sl: torch.exp(s - lse[..., sl, None]))
+
+
+def _bw_reference(q, k, v, o, do, causal, block_q, block_k, probs):
+    """The FA1/FA2 backward tile loops; ``probs(s, rows)`` recomputes a
+    tile's P from its scores and the saved statistics of its rows."""
+    B, H, L, d = q.shape
+    scale = default_scale(d)
+    q, k, v, o, do = (x.float() for x in (q, k, v, o, do))
+    dq, dk, dv = (torch.zeros_like(x) for x in (q, k, v))
+    D = (do * o).sum(-1)
+    for j0 in range(0, L, block_k):
+        cols = slice(j0, j0 + block_k)
+        kj, vj = k[..., cols, :], v[..., cols, :]
+        for i0 in range(0, L, block_q):
+            if causal and j0 > i0 + block_q - 1:
+                continue
+            rows = slice(i0, i0 + block_q)
+            qi, doi = q[..., rows, :], do[..., rows, :]
+            p = probs(_tile_scores(qi, kj, scale, causal, i0, j0), rows)
+            dv[..., cols, :] += p.transpose(-1, -2) @ doi
+            ds = p * (doi @ vj.transpose(-1, -2) - D[..., rows, None])
+            dq[..., rows, :] += scale * (ds @ kj)
+            dk[..., cols, :] += scale * (ds.transpose(-1, -2) @ qi)
+    return dq, dk, dv
 
 
 # --- fused masked attention-softmax and LayerNorm (composed forms) ---------
