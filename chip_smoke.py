@@ -200,7 +200,31 @@ ported paths:
   GEMMs and the ten largest kernels (``mt_profile``); and
   ``utils.timing.compare`` of the bf16 flash forward against its plain
   version beside ``device_ms``, with ``utils.roofline``'s fraction
-  (``timing_harness``).
+  (``timing_harness``); then
+
+* the parallel layer (``parallel_modes``): the JAX package's parallel
+  modes through ``tpu_flash_torch.parallel.dryrun``, (p1)-(p8) in one
+  world of 4 ranks sharing this card over gloo (NCCL refuses two ranks on
+  one device; CUDA tensors staged through host memory), each held against
+  the single-process port on the same parameters and inputs: (p1) dp2 x
+  tp2 with 8 experts top-1, sequence parallelism and the vocab-parallel
+  loss at the production widths (vocab 10000, E 512, 8 heads, 4 layers, FF
+  2048, B4 L2048, the JAX dryrun's packed batch), an fp32 and a bf16 mixed
+  step, and an fp32 step at the reference MT widths on the fused kernels;
+  (p2) (p1) with attention dropout; (p3) ZeRO-1 with mixed precision, two
+  steps against plain DP x TP; (p4) GPipe, 4 stages, 4 microbatches; (p5)
+  all-gather and ring attention at B1 H8 L16384 bf16 (and under window
+  2048, where the ring truncates to 1 hop) and L32768 fp32 (the two-pass
+  backward) against the single-process kernels; (p6) the DCN-hybrid mesh;
+  (p7) sharded decode of the 176M serving model in four engine drives over
+  bf16 and int8 caches, every token within a near tie of the plain route;
+  (p8) the MT app's CLI at the JAX CLI's defaults on the mesh (``--dp 2
+  --tp 2 --zero1 --sequence-parallel``), every step's loss against the
+  single-process run (the first four at the fp32 limit, the later ones,
+  where this run's steps amplify rounding, at ``PAR_MT_DRIFT``); (p9) a
+  world of one over NCCL.  The ranks' launches
+  join the kernels line's.  Their seconds and memory are of 4 ranks
+  sharing one card: no multi-card speed.
 
 The build phase logs each kernel's registers, stack and spills as ptxas
 reports them, and fails if a flash-attention kernel's tensor-core or
@@ -274,6 +298,9 @@ from tpu_flash_torch.nn import (DecoderConfig, DecoderLM, MoEConfig,
                                 quantize_model_linears, skip_nonfinite)
 from tpu_flash_torch.nn import functional as pf
 from tpu_flash_torch.nn.optim import accumulate_gradients
+from tpu_flash_torch.parallel import dryrun as pdry
+from tpu_flash_torch.parallel.sequence import \
+    window_steps as sequence_window_steps
 from tpu_flash_torch.ops import flash_attention as flash_ops_attention
 from tpu_flash_torch.ops import fused
 from tpu_flash_torch.ops.attention import (dequantize_kv, kv_quant_parts,
@@ -5088,6 +5115,352 @@ def timing_harness(gen) -> dict:
     return row
 
 
+# ----------------------------------------------------------------------------
+# The parallel layer (A8): the JAX package's parallel modes at 4 ranks.
+# One card: the 4 ranks share cuda:0 and the world takes gloo (NCCL refuses
+# two ranks on one device), CUDA tensors staged through host memory
+# (parallel/comm.py); every kernel runs on the card.  Times here are of 4
+# ranks sharing one card and say nothing of multi-card speed.
+PAR_WORLD = 4
+PAR_DEVICE = "cuda"            # each rank binds cuda:{rank % 1}, cuda:0
+# (p1): the production widths with a routed feed-forward (the JAX dryrun's
+# model, __graft_entry__.py:25-34, at full width: vocab 10000, E 512, 8
+# heads, 4 layers, FF 2048, 8 experts top-1), Megatron sequence
+# parallelism, the vocab-parallel loss, the dryrun's packed batch at B4
+# L2048
+PAR_TRAIN = dict(n_vocab=10_000, n_embd=512, n_head=8, n_positions=2048,
+                 n_layer=4, ff_middle_dim=2048, attention_kind="flash",
+                 p_dropout=0.0)
+PAR_MOE = {**PAR_TRAIN, "moe": MoEConfig(n_experts=8, top_k=1),
+           "sequence_parallel": True}
+PAR_B, PAR_L = 4, 2048
+# (p5): mode (f)'s shape in bf16 (4096-long chunks), under window 2048 too,
+# and L32768 in fp32, whose 8192-long chunks take the two-pass backward
+PAR_SEQ = ((torch.bfloat16, 16384, None), (torch.bfloat16, 16384, 2048),
+           (torch.float32, 32768, None))
+# (p7): the serving model's drives (the JAX dryrun's four, at serving
+# sizes: chunks of 64, a 32-token shared prefix)
+PAR_PREFIX = 32
+PAR_DECODE_MODES = {
+    "plain": dict(kw={}, method="run", prefix=None),
+    "chunked": dict(kw=dict(prefill_chunk=64), method="run", prefix=None),
+    "prefix": dict(kw=dict(prefill_chunk=64), method="run",
+                   prefix="shared"),
+    "run_many": dict(kw={}, method="run_many", prefix=None),
+}
+PAR_DECODE = dict(n_slots=4, max_len=512, max_new=8)
+# (p8): the MT app's CLI at the JAX CLI's defaults on the repository's
+# corpus, one epoch and a BLEU pass, on the mesh; dropout off, since the
+# port's p_dropout masks come from each rank's local shapes.  The mesh
+# rounds the batch of 129 up to 130 (dp 2, as JAX's app does); the
+# single-process run is given 130, so that both step the same rows, and so
+# is its twin with --accum-steps 2 (the same steps in exact arithmetic).
+# Every step's loss is held against the single-process run's.  At lr 0.02
+# the run's loss leaps at step 2 (2.02 -> 3.87) and from step 4 on the
+# steps amplify rounding: runs that are equal in exact arithmetic part by
+# up to 4.5e-2 relative, so the steps before PAR_MT_EXACT_STEPS are held at
+# the fp32 limit and the later ones at PAR_MT_DRIFT (my chip run, PR 24
+# call 14, _archive/p8_drift.py: steps 0-3 within 1.8e-6 and steps 4-21
+# within 1.6e-2 for the twin and the plain route, 3.8e-2 for dp2 x tp2
+# and 4.5e-2 for this mesh; a run and its repeat the same bits).
+PAR_MT = ["--dataset", "local", "--p-dropout", "0"]
+PAR_MT_MESH = ["--dp", "2", "--tp", "2", "--zero1", "--sequence-parallel"]
+PAR_MT_SINGLE = ["--batch-size", "130"]
+PAR_MT_TWIN = PAR_MT_SINGLE + ["--accum-steps", "2", "--skip-bleu"]
+PAR_MT_EXACT_STEPS = 4
+PAR_MT_DRIFT = 0.1
+# bf16 steps against the single-process port: the loss within ATTN_TOL's
+# bf16 rtol of the single-process bf16 step's; the gradients against the
+# fp32 step on the same bf16 values, each gradient's rms difference over
+# the larger of its rms and 1e-3 of the largest gradient rms (a floor for
+# gradients that are 0 in exact arithmetic, the K bias's), at most twice
+# the single-process bf16 step's (bf16 rounds the sharded step's partial
+# sums at other places: its gradients are as far from fp32's, not equal
+# to the single-process step's; CPU rehearsal at E 64-256: 0.07-0.11
+# sharded, 0.08-0.24 single)
+PAR_BF16 = {"loss_rtol": ATTN_TOL[torch.bfloat16]["out"][2],
+            "grad_vs_fp32": "at most 2x the single-process bf16 step's"}
+
+
+def par_prompts(n_vocab: int) -> dict[int, list[int]]:
+    """6 prompts of 40 to 200 tokens from a seed, each after the shared
+    32-token prefix (4 slots: two waves of admissions)."""
+    rng = np.random.default_rng(5)
+    prefix = rng.integers(1, n_vocab, PAR_PREFIX).tolist()
+    return {u: prefix + rng.integers(1, n_vocab, int(n)).tolist()
+            for u, n in enumerate(rng.integers(8, 169, 6))}, prefix
+
+
+def par_step_ok(r: dict, dtype, what: str) -> dict:
+    """A sharded step's loss and first gradients against the single-process
+    port's: fp32 at ``training_end_to_end``'s limits (loss rtol 1e-5,
+    each gradient within 1e-3 of its largest plus 1e-5 of the model's),
+    bf16 at ``PAR_BF16``."""
+    loss, ref = r["loss"][0], r["ref_loss"]
+    e = r["grad_errors"]
+    if dtype == torch.float32:
+        ok = (abs(loss - ref) <= 1e-5 * abs(ref)
+              and e["worst_over_fp32_tol"] <= 1.0)
+        lim = {"loss_rtol": 1e-5, "grad": "1e-3 max|g| + 1e-5 max|g| all"}
+    else:
+        got = r["grad_errors_vs_fp32"]["worst_rms_rel_floored"]
+        single = r["single_grad_errors_vs_fp32"]["worst_rms_rel_floored"]
+        ok = (abs(loss - ref) <= PAR_BF16["loss_rtol"] * abs(ref)
+              and got <= 2 * single)
+        lim = PAR_BF16
+    check(ok, f"{what}: sharded step {loss} / {e} against single-process "
+              f"{ref} beyond {lim}")
+    return lim
+
+
+def parallel_calls(prompts, prefix):
+    """The (p1)-(p8) rank calls, in order, for one world."""
+    batch = pdry.dryrun_batch(PAR_B, PAR_L, PAR_TRAIN["n_vocab"])
+    ref_batch = pdry.dryrun_batch(REF_B, REF_L, REF["n_vocab"],
+                                  segments=False)
+    rng = np.random.default_rng(1)
+    ids = rng.integers(0, PAR_TRAIN["n_vocab"], (PAR_B, PAR_L))
+    tgt = rng.integers(0, PAR_TRAIN["n_vocab"], (PAR_B, PAR_L))
+    modes = {k: {**v, "prefix": prefix if v["prefix"] else None}
+             for k, v in PAR_DECODE_MODES.items()}
+    mesh = dict(data=2, model=2)
+    calls = [
+        ("p1 fp32", "rank_train", dict(config_kw=PAR_MOE, batch=batch,
+                                       **mesh)),
+        ("p1 bf16 mixed", "rank_train", dict(
+            config_kw={**PAR_MOE, "dtype": torch.bfloat16}, batch=batch,
+            mixed=True, **mesh)),
+        ("p1 reference MT widths", "rank_train", dict(
+            config_kw={**REF, "p_dropout": 0.0}, batch=ref_batch,
+            **mesh)),
+        ("p2 attn_dropout", "rank_train", dict(
+            config_kw={**PAR_MOE, "attn_dropout": 0.1}, batch=batch,
+            logits=False, **mesh)),
+        ("p3 zero1 mixed", "rank_train", dict(
+            config_kw=PAR_MOE, batch=batch, mixed=True, zero1=True,
+            steps=2, **mesh)),
+        ("p4 gpipe", "rank_pipeline", dict(config_kw=PAR_TRAIN, ids=ids,
+                                          tgt=tgt, n_micro=4)),
+    ]
+    for dtype, L, window in PAR_SEQ:
+        for strategy in ("allgather", "ring"):
+            calls.append((
+                f"p5 {strategy} {str(dtype).split('.')[1]} L{L}"
+                + (f" window {window}" if window else ""),
+                "rank_sequence", dict(
+                    q=None, k=None, v=None, w=None, strategy=strategy,
+                    window=window, reference="kernel", seed=L,
+                    shape=(1, 8, L, 64), dtype=dtype,
+                    tol=ATTN_TOL[dtype])))
+    calls += [
+        ("p6 dcn", "rank_train", dict(config_kw=PAR_MOE, batch=batch,
+                                      data=1, model=2, dcn=2,
+                                      reference=False, logits=False)),
+        ("p7 sharded decode", "rank_decode", dict(
+            config_kw=SERVING, prompts=prompts, kv_quants=("none", "int8"),
+            modes=modes, reference=False, **PAR_DECODE, **mesh)),
+        ("p8 mt app", "rank_mt_main", dict(
+            argv=PAR_MT + PAR_MT_MESH + ["--workdir", os.path.join(
+                MT_WORKDIR, "parallel")])),
+    ]
+    return calls, modes
+
+
+def parallel_modes() -> dict[str, int]:
+    """The parallel layer's phase: (p1)-(p8) in one world of 4 ranks on
+    this card over gloo (``parallel.dryrun.rank_many``), each held against
+    the single-process port; (p9) a world of one over NCCL.  Returns the
+    ranks' launches of the kernels line's forms (the single-process pins'
+    excluded)."""
+    t0 = time.perf_counter()
+    smi = smi_line()
+    prompts, prefix = par_prompts(SERVING["n_vocab"])
+    calls, modes = parallel_calls(prompts, prefix)
+    # (p8)'s single-process run and its twin first, on this process
+    mt_root = os.path.join(MT_WORKDIR, "parallel")
+    for d in ("parallel_single", "parallel_twin", "parallel"):
+        shutil.rmtree(os.path.join(MT_WORKDIR, d), ignore_errors=True)
+    t = time.perf_counter()
+    single = mt_app_main(PAR_MT + PAR_MT_SINGLE + [
+        "--workdir", MT_WORKDIR + "/parallel_single"])
+    single_s = time.perf_counter() - t
+    twin = mt_app_main(PAR_MT + PAR_MT_TWIN + [
+        "--workdir", MT_WORKDIR + "/parallel_twin"])
+    for rec in (single, twin):
+        del rec["model"], rec["tokenizer"]
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ranks = pdry.run_world("tpu_flash_torch.parallel.dryrun.rank_many",
+                           PAR_WORLD, device=PAR_DEVICE, timeout=1000,
+                           calls=[(fn, kw) for _, fn, kw in calls])
+    world_s = time.perf_counter() - t
+    launches: collections.Counter = collections.Counter()
+    for r in ranks:
+        for res in r:
+            launches.update(res.get("launches", {}))
+    by = {name: [r[i] for r in ranks] for i, (name, _, _) in
+          enumerate(calls)}
+
+    def row(name, **extra):
+        rs = by[name]
+        rec = {"phase": "parallel_modes", "mode": name,
+               "transport": rs[0]["transport"],
+               "seconds_per_rank": [r["seconds"] for r in rs],
+               "peak_mb_per_rank": [r["peak_mb"] for r in rs],
+               "launches_rank0": rs[0]["launches"],
+               "card": smi, **extra}
+        log(rec)
+        check(rec["transport"] == "gloo-host",
+              f"{name}: transport {rec['transport']}")
+        check(all(r["launches"] for r in rs),
+              f"{name}: a rank launched no kernel")
+        return rs[0]
+
+    for name, dtype in (("p1 fp32", torch.float32),
+                        ("p1 bf16 mixed", torch.bfloat16),
+                        ("p1 reference MT widths", torch.float32),
+                        ("p2 attn_dropout", torch.float32)):
+        r0 = by[name][0]
+        lim = par_step_ok(r0, dtype, name)
+        row(name, loss=r0["loss"][0], single_process_loss=r0["ref_loss"],
+            grad_errors=r0["grad_errors"], limits=lim,
+            **{k: r0[k] for k in ("fp32_loss", "grad_errors_vs_fp32",
+                                  "single_grad_errors_vs_fp32")
+               if k in r0},
+            logits_max_abs_err=r0.get("logits_max_abs_err"),
+            logits_rms_rel=r0.get("logits_rms_rel"), mesh=r0["mesh"])
+    fused_ranks = [r["launches"] for r in by["p1 reference MT widths"]]
+    check(all(all(r.get(n, 0) > 0 for n in FUSED) for r in fused_ranks),
+          f"p1 reference MT widths: rows 5-8 not on every rank: "
+          f"{fused_ranks}")
+    p1 = by["p1 fp32"][0]
+    z = by["p3 zero1 mixed"][0]
+    check(z["params_vs_plain"] <= 1e-6 and z["moments_vs_plain"] <= 1e-6
+          and abs(z["loss"][0] - p1["loss"][0]) <= 1e-5 * abs(p1["loss"][0])
+          and all(r["state_bytes"] < 0.55 * r["plain_state_bytes"]
+                  for r in by["p3 zero1 mixed"]),
+          f"p3: ZeRO-1 against plain DP x TP: {z}")
+    row("p3 zero1 mixed", loss=z["loss"], plain_loss=z["plain_loss"],
+        params_vs_plain=z["params_vs_plain"],
+        moments_vs_plain=z["moments_vs_plain"],
+        state_bytes_per_rank=[r["state_bytes"]
+                              for r in by["p3 zero1 mixed"]],
+        plain_state_bytes_per_rank=[r["plain_state_bytes"]
+                                    for r in by["p3 zero1 mixed"]])
+    pp = by["p4 gpipe"][0]
+    check(abs(pp["loss"] - pp["ref_loss"]) <= 1e-5 * abs(pp["ref_loss"])
+          and pp["grad_errors"]["worst_over_fp32_tol"] <= 1.0,
+          f"p4: GPipe against single-process: {pp}")
+    row("p4 gpipe", loss=pp["loss"], single_process_loss=pp["ref_loss"],
+        grad_errors=pp["grad_errors"], grad_max_dev=pp["grad_max_dev"],
+        split_s={k: pp[k] for k in ("setup_s", "forward_s", "backward_s")})
+    for name, _, kw in calls:
+        if not name.startswith("p5"):
+            continue
+        r0 = by[name][0]
+        steps = sequence_window_steps(PAR_WORLD, kw["shape"][2]
+                                      // PAR_WORLD, kw["window"])
+        want_hops = steps - 1 if "ring" in name else None
+        check(all(e["ok"] for e in r0["errors"].values()),
+              f"{name}: against the single-process kernels: "
+              f"{r0['errors']}")
+        if want_hops is not None:
+            check(r0["hops"] == want_hops,
+                  f"{name}: {r0['hops']} ring hops, not {want_hops}")
+        row(name, errors=r0["errors"], tol=str(kw["tol"]),
+            hops=r0.get("hops"), partials_rank0=r0.get("partials"),
+            window_steps=steps, loss=r0["loss"],
+            single_process_loss=r0["ref_loss"])
+    d = by["p6 dcn"][0]
+    check(d["mesh"] == ((0, 1), (2, 3))
+          and abs(d["loss"][0] - p1["ref_loss"]) <= 1e-5 * abs(
+              p1["ref_loss"]),
+          f"p6: DCN mesh {d['mesh']} loss {d['loss']} against "
+          f"{p1['ref_loss']}")
+    row("p6 dcn", mesh=d["mesh"], loss=d["loss"][0],
+        single_process_loss=p1["ref_loss"])
+    dec = by["p7 sharded decode"][0]
+    for r in by["p7 sharded decode"][1:]:
+        check(r["completions"] == dec["completions"],
+              "p7: the ranks' completions differ")
+    held = {}
+    model = pdry.build_model(DecoderConfig(**SERVING), DEV)
+    for key, comp in dec["completions"].items():
+        mode, q = key.split("/")
+        ref = pdry.run_engine(model, mode, prompts=prompts, kv_quant=q,
+                              modes=modes, **PAR_DECODE)
+        plist = [prompts[u] for u in sorted(prompts)]
+        held[key] = compare_completions(
+            model, plist, {u: list(t) for u, (t, _) in comp.items()}, q,
+            f"p7 {key}", ref={u: list(t) for u, (t, _) in ref.items()})
+    del model
+    torch.cuda.empty_cache()
+    row("p7 sharded decode", held=held,
+        kv_heads_local=dec["kv_heads_local"])
+    mt = by["p8 mt app"][0]
+    got, want = mt["epochs"][0], single["epochs"][0]
+    ref = single["losses"][0]
+
+    def drift(losses):
+        return [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+
+    mesh_drift, twin_drift = drift(mt["losses"][0]), drift(twin["losses"][0])
+    limits = [1e-5 if i < PAR_MT_EXACT_STEPS else PAR_MT_DRIFT
+              for i in range(len(ref))]
+    check(len(mt["losses"][0]) == len(ref) > PAR_MT_EXACT_STEPS
+          and all(d <= lim for d, lim in zip(mesh_drift, limits)),
+          f"p8: the mesh's step losses {mt['losses'][0]} against the "
+          f"single-process run's {ref}: relative {mesh_drift} beyond "
+          f"{limits}")
+    check(all(r["losses"] == mt["losses"] for r in by["p8 mt app"]),
+          "p8: the ranks logged other losses")
+    check(mt["bleu"] and math.isfinite(mt["bleu"][0]["bleu"]),
+          f"p8: BLEU {mt['bleu']}")
+    row("p8 mt app", argv=PAR_MT + PAR_MT_MESH,
+        single_process_argv=PAR_MT + PAR_MT_SINGLE, epoch=got,
+        single_process_epoch=want, step_losses=mt["losses"][0],
+        single_process_step_losses=ref, step_drift=mesh_drift,
+        twin_argv=PAR_MT + PAR_MT_TWIN, twin_step_drift=twin_drift,
+        step_limits={"exact_steps": PAR_MT_EXACT_STEPS,
+                     "exact": 1e-5, "after": PAR_MT_DRIFT},
+        bleu=mt["bleu"], single_process_bleu=single["bleu"],
+        single_process_seconds=single_s)
+    launches.update(nccl_world(smi))
+    log({"phase": "parallel_modes_total",
+         "seconds": time.perf_counter() - t0, "world_seconds": world_s,
+         "launches": dict(launches), "card": smi,
+         "note": "4 ranks share one card over gloo-host: no multi-card "
+                 "speed"})
+    return dict(launches)
+
+
+def nccl_world(smi: str) -> dict[str, int]:
+    """(p9): a world of one over NCCL, a DP x TP (1 x 1) step at the
+    reference MT widths against the single-process port, and comm's
+    primitives and differentiable forms on CUDA tensors over the world
+    group.  Returns its launches."""
+    t = time.perf_counter()
+    nccl = pdry.run_world("tpu_flash_torch.parallel.dryrun.rank_nccl_step",
+                          1, device="cuda", backend="nccl", timeout=300,
+                          config_kw={**REF, "p_dropout": 0.0},
+                          batch=pdry.dryrun_batch(8, REF_L, REF["n_vocab"],
+                                                  segments=False))[0]
+    nccl_s = time.perf_counter() - t
+    c = nccl["collectives"]
+    check(nccl["backend"] == "nccl" and nccl["transport_world"] == "nccl"
+          and c["all_reduce"] == list(range(8))
+          and c["reduce_scatter"] == list(range(8))
+          and c["grad"] == [2.0] * 8 and nccl["launches"]
+          and abs(nccl["loss"][0] - nccl["ref_loss"])
+          <= 1e-5 * abs(nccl["ref_loss"]),
+          f"p9: the NCCL world of one: {nccl}")
+    log({"phase": "parallel_modes", "mode": "p9 nccl world of one",
+         "backend": nccl["backend"], "collectives": c,
+         "loss": nccl["loss"][0], "single_process_loss": nccl["ref_loss"],
+         "seconds": nccl_s, "card": smi})
+    return nccl["launches"]
+
+
 def main() -> int:
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5400,6 +5773,10 @@ def main() -> int:
     timing_harness(gen)
     log({"phase": "single_card_utilities_total",
          "seconds": time.perf_counter() - t_utils})
+    # this slice's path: the parallel modes at 4 ranks on this card; the
+    # ranks' launches join the kernels line's
+    for n, c in parallel_modes().items():
+        launches[n] = launches.get(n, 0) + c
 
     main_row = next(r for r in rows if r["cache"] == "int8"
                     and r["length"] == 1024 and r["lq"] == 1)

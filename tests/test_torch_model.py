@@ -166,18 +166,15 @@ def test_auto_attention_below_the_flash_threshold_is_naive(rng, fp32_pair):
     {"positional": "rope"}, {"moe": tnn.MoEConfig(n_experts=4, top_k=2)},
     {"kv_quant": "int8", "attention_kind": "naive"},
     {"attn_dropout": 0.1, "kv_quant": "int4"},
-    {"embedding_one_hot": True}, {"sequence_parallel": True},
+    {"embedding_one_hot": True},
 ])
 def test_unported_config_raises(over):
-    """What the config refuses: ``sequence_parallel`` is not ported and
-    names its ROADMAP.md item (A8); quantized K/V is ported, and refused
-    with the JAX package's ValueError on a dense route and for an unknown
-    mode.  Rotary positions, the routed feed-forward and the one-hot
-    embedding are ported: their models build and run."""
-    if "kv_quant" in over or "sequence_parallel" in over:
-        error, match = ((ValueError, "kv_quant") if "kv_quant" in over
-                        else (NotImplementedError, r"ROADMAP\.md.*A8"))
-        with pytest.raises(error, match=match):
+    """What the config refuses: quantized K/V is ported, and refused with
+    the JAX package's ValueError on a dense route and for an unknown mode.
+    Rotary positions, the routed feed-forward and the one-hot embedding are
+    ported: their models build and run."""
+    if "kv_quant" in over:
+        with pytest.raises(ValueError, match="kv_quant"):
             tnn.DecoderConfig(**{**CFG, **over})
         return
     model = tnn.DecoderLM(tnn.DecoderConfig(**{**CFG, **over}), device="cpu")

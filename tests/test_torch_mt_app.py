@@ -218,24 +218,6 @@ def test_metrics_logger_writes_strict_json(tmp_path):
     assert math.isfinite(recs[2]["wall"])
 
 
-@pytest.mark.parametrize("flags,label", [
-    (["--dp", "2"], "A8"), (["--tp", "2"], "A8"), (["--dcn-data", "2"], "A8"),
-    (["--zero1"], "A8"), (["--sequence-parallel"], "A8")])
-def test_unported_flags_raise_with_their_label(tmp_path, flags, label):
-    with pytest.raises(NotImplementedError, match=f"item {label}\\)"):
-        tapp.main(["--workdir", str(tmp_path)] + flags, device="cpu")
-
-
-def test_unported_arguments_raise_with_their_label():
-    tm = tnn.DecoderLM(tnn.DecoderConfig(**CFG), device="cpu")
-    for fn, args in ((tapp.generate_translations,
-                      (tm, [], "de", "en", None, 16)),
-                     (tapp.evaluate_loss, (tm, [], None, 1)),
-                     (tapp.train_epoch, (tm, None, None, [], None, 1))):
-        with pytest.raises(NotImplementedError, match="item A8\\)"):
-            fn(*args, ctx=object())
-
-
 def test_main_needs_a_card_or_cpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None takes it")

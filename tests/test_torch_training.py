@@ -341,16 +341,6 @@ def test_bf16_mixed_precision_step_keeps_dtypes(pair):
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
 
 
-def test_unported_training_options_raise(pair):
-    """chunked_vocab is ported; its vocab- and data-parallel forms are not
-    (A8)."""
-    x, w = torch.zeros(4, 8), torch.zeros(10, 8)
-    y = torch.zeros(4, dtype=torch.long)
-    for kw in (dict(axis_name="model"), dict(batch_axis="data")):
-        with pytest.raises(NotImplementedError, match="A8"):
-            F.chunked_softmax_loss(x, w, None, y, **kw)
-
-
 @pytest.mark.parametrize("chunks", [0, 4])
 def test_train_epoch_passes_chunked_vocab_to_its_step(pair, monkeypatch,
                                                       chunks):

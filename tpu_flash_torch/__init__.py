@@ -29,17 +29,21 @@ Layering, as in the JAX package:
                ``--profile``) and the points classifier
   utils/     — CUDA-event timing and the benchmark harness, roofline,
                profiling, grad_check, corpus BLEU, checkpoints, metrics log
+  parallel/  — the parallel layer on ``torch.distributed``, one process a
+               rank: DP, Megatron TP with the vocab-parallel loss and
+               sequence-parallel activations, expert parallelism, ZeRO-1,
+               GPipe, all-gather and ring attention, sharded decode
 
 Entry points (``DecoderLM``, ``DecodeEngine``, ``generate``,
 ``apps.machine_translation.main``, ``apps.points_classifier.run``) run on
-the card unless the caller passes ``device="cpu"``.  Ported so far:
-everything the JAX package does on one device (ROADMAP.md, queue A items
-A1-A7 and A9b's single-card utilities): the serving path, with float or
-weight-only quantized linears, beam search, speculative decoding and a
-shared prefix; the training path, with flash, fused or naive attention,
-windows, segments, dropout and quantized K/V, rotary positions and the
-routed MoE feed-forward; the MT app from corpus to BLEU; and the small
-pieces around them.  Not yet: ``parallel/`` (A8).
+the card unless the caller passes ``device="cpu"``.  Ported: everything
+the JAX package does (ROADMAP.md, queue A items A1-A8 and A9b's
+single-card utilities): the serving path, with float or weight-only
+quantized linears, beam search, speculative decoding and a shared prefix;
+the training path, with flash, fused or naive attention, windows,
+segments, dropout and quantized K/V, rotary positions and the routed MoE
+feed-forward; the MT app from corpus to BLEU; the parallel layer; and the
+small pieces around them.
 """
 
 __version__ = "0.1.0"

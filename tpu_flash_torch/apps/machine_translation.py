@@ -12,7 +12,14 @@ the parameters live in the module, the step runs eagerly, and the
 optimizer's new values are copied into the parameters in place.
 
 Run on the card: ``python -m tpu_flash_torch.apps.machine_translation
---dataset local``; on the CPU: ``main([...], device="cpu")``.
+--dataset local``; on the CPU: ``main([...], device="cpu")``.  On a mesh
+(``--dp``, ``--tp``, ``--dcn-data``, ``--zero1``, ``--sequence-parallel``)
+one process a rank: ``python -m torch.distributed.run --nproc-per-node N -m
+tpu_flash_torch.apps.machine_translation --dp D --tp T ...`` (N = D * T *
+H).  Every rank builds the same model from the seed, keeps its shards
+(``parallel.shard_params``) and steps its rows of each batch; rank 0 alone
+prints, writes ``metrics.jsonl`` and the tokenizer, and writes checkpoints,
+gathered to the full layout.
 
 Deviations from the JAX app:
   * ``--dataset`` takes the corpora in the repository only (``local``,
@@ -20,10 +27,9 @@ Deviations from the JAX app:
     any other name raises (``data.mt.get_dataset``);
   * ``--native-loader`` raises where the C++ loader cannot be built (the
     JAX app goes on with the Python collate);
-  * not ported yet, each raising ``NotImplementedError`` with its
-    ROADMAP.md item: ``--dp``/``--tp``/``--dcn-data`` above 1, ``--zero1``
-    and ``--sequence-parallel`` (A8, as ``ctx=`` on ``train_epoch``,
-    ``evaluate_loss`` and ``generate_translations``);
+  * ``--dcn-data`` lays the ranks out as the JAX hybrid mesh (hosts as
+    contiguous rank blocks); the processes join through
+    ``torch.distributed.run``'s rendezvous, not ``jax.distributed``;
   * ``--profile`` writes a ``torch.profiler`` trace (``utils.profiling.
     trace``: Chrome / Perfetto JSON) where JAX's writes an XProf one.
 """
@@ -47,8 +53,7 @@ from tpu_flash_torch.nn import functional as F
 from tpu_flash_torch.nn.module import init_params, num_parameters
 from tpu_flash_torch.nn.optim import (accumulate_gradients, adam,
                                       mixed_precision)
-from tpu_flash_torch.nn.transformer import (DecoderConfig, DecoderLM,
-                                            _not_ported)
+from tpu_flash_torch.nn.transformer import DecoderConfig, DecoderLM
 from tpu_flash_torch.utils.bleu import corpus_bleu
 from tpu_flash_torch.utils.checkpoint import (AsyncCheckpointer,
                                               restore_checkpoint,
@@ -57,19 +62,30 @@ from tpu_flash_torch.utils.metrics import MetricsLogger
 from tpu_flash_torch.utils.profiling import trace
 
 
-def _no_ctx(ctx, what: str) -> None:
-    if ctx is not None:
-        raise _not_ported(f"{what} under a parallel context (ctx)", "A8")
+def _under(ctx):
+    """The parallel context ``ctx`` entered, or nothing without one."""
+    if ctx is None:
+        return contextlib.nullcontext()
+    from tpu_flash_torch.parallel import parallel_context
+
+    return parallel_context(ctx)
 
 
-def make_loss_fn(model, chunked_vocab: int = 0):
+def make_loss_fn(model, chunked_vocab: int = 0, ctx=None):
     """``loss_fn(batch, *, generator=None, training=False, impl=None)``:
     masked MLE, ``sum(losses * label_token_weights)`` over every position,
     divided by the number of positions (or by ``batch["loss_norm"]`` for
     packed batches).  ``chunked_vocab`` > 0 takes the post-LN hidden state
     (``return_hidden``) through ``F.chunked_softmax_loss`` with lm_head's
     weight and bias in that many vocab slices: the [B, L, V] logits are
-    never materialized.  ``impl`` reaches the kernels' wrappers."""
+    never materialized.  ``impl`` reaches the kernels' wrappers.
+
+    Under a parallel context ``ctx`` the batch is this rank's rows and the
+    chunked form is the vocab-parallel loss over the rank's ``lm_head``
+    shard (its dW left to the step's average over the data group); the
+    full-logits form takes the logits the model gathers.  The loss is the
+    mean over the rank's rows, which the sharded step averages over the
+    data ranks."""
 
     def loss_fn(batch, *, generator=None, training: bool = False,
                 impl=None):
@@ -78,7 +94,14 @@ def make_loss_fn(model, chunked_vocab: int = 0):
                     positions=batch.get("positions"),
                     training=training, generator=generator, impl=impl,
                     return_hidden=chunked_vocab > 0)
-        if chunked_vocab > 0:
+        if chunked_vocab > 0 and ctx is not None:
+            from tpu_flash_torch.parallel import vocab_parallel_softmax_loss
+
+            lm = model.lm_head
+            losses = vocab_parallel_softmax_loss(
+                out, lm.weight, lm.bias, batch["labels"],
+                n_chunks=chunked_vocab, ctx=ctx)
+        elif chunked_vocab > 0:
             lm = model.lm_head
             losses = F.chunked_softmax_loss(out, lm.weight, lm.bias,
                                             batch["labels"],
@@ -161,6 +184,17 @@ def place_batch(batch, device):
     return out
 
 
+def _place_batch(ctx, batch, device):
+    """A host batch to ``device``; under a parallel context this rank's rows
+    (``parallel.put_batch``) with a packed batch's ``loss_norm`` made the
+    shard's (``parallel.local_loss_norm``)."""
+    if ctx is None:
+        return place_batch(batch, device)
+    from tpu_flash_torch.parallel import local_loss_norm, put_batch
+
+    return put_batch(ctx, local_loss_norm(ctx, batch))
+
+
 def train_epoch(model, opt, opt_state, examples, collate_fn, batch_size, *,
                 seed: int = 0, generator=None, n_samples=None, max_iters=None,
                 log_every: int = 10, native_loader=None, metrics=None,
@@ -185,8 +219,17 @@ def train_epoch(model, opt, opt_state, examples, collate_fn, batch_size, *,
     read ``metrics`` (a ``utils.metrics.MetricsLogger``) logs the step,
     loss, ms a step and tokens/s.  Without a ``train_step`` the loop builds
     ``make_train_step(model, opt, chunked_vocab=chunked_vocab)``, as the
-    JAX loop does.  ``ctx`` (a parallel mesh) is A8's."""
-    _no_ctx(ctx, "train_epoch")
+    JAX loop does.  Under a parallel context ``ctx`` each rank collates the
+    same global batch and steps its rows (``_place_batch``) with
+    ``train_step``, by default ``parallel.make_sharded_train_step`` over
+    ``make_loss_fn(ctx=ctx)``; the loss read back is the data ranks'
+    mean."""
+    if train_step is None and ctx is not None:
+        from tpu_flash_torch.parallel import make_sharded_train_step
+
+        train_step = make_sharded_train_step(
+            ctx, model, opt, make_loss_fn(model, chunked_vocab=chunked_vocab,
+                                          ctx=ctx))
     if train_step is None:
         train_step = make_train_step(model, opt, chunked_vocab=chunked_vocab)
     if generator is None:
@@ -209,7 +252,7 @@ def train_epoch(model, opt, opt_state, examples, collate_fn, batch_size, *,
         if "segment_ids" in batch and "loss_norm" not in batch:
             batch["loss_norm"] = np.float32(
                 batch_size * np.shape(batch["input_ids"])[1])
-        batch = place_batch(batch, model.device)
+        batch = _place_batch(ctx, batch, model.device)
         opt_state, loss = train_step(opt_state, batch, generator)
         losses_dev.append(loss)
         step_tokens = batch["input_ids"].numel()
@@ -235,14 +278,22 @@ def train_epoch(model, opt, opt_state, examples, collate_fn, batch_size, *,
 @torch.no_grad()
 def evaluate_loss(model, examples, collate_fn, batch_size,
                   chunked_vocab: int = 0, ctx=None) -> float:
-    """Mean loss over whole batches of ``examples`` (no dropout)."""
-    _no_ctx(ctx, "evaluate_loss")
-    loss_fn = make_loss_fn(model, chunked_vocab=chunked_vocab)
+    """Mean loss over whole batches of ``examples`` (no dropout); under a
+    parallel context each rank takes its rows and the ranks' losses are
+    averaged over the data group."""
+    loss_fn = make_loss_fn(model, chunked_vocab=chunked_vocab, ctx=ctx)
     losses = []
     for i in range(0, len(examples) - batch_size + 1, batch_size):
-        batch = place_batch(collate_fn(examples[i:i + batch_size]),
-                            model.device)
-        losses.append(float(loss_fn(batch)))
+        batch = _place_batch(ctx, collate_fn(examples[i:i + batch_size]),
+                             model.device)
+        with _under(ctx):
+            loss = loss_fn(batch)
+        if ctx is not None:
+            from tpu_flash_torch.parallel import comm
+
+            loss = comm.all_reduce(loss.float(), ctx.data_group) \
+                / ctx.data_size
+        losses.append(float(loss))
     return float(np.mean(losses)) if losses else float("nan")
 
 
@@ -254,15 +305,17 @@ def generate_translations(model, examples, src_key, tgt_key, tokenizer,
     """Greedy (``beam_size`` 1) or beam KV-cache decoding of the test set
     (JAX ``apps/machine_translation.py:241-295``): ``translation_tokens``
     with pads and eos dropped, the rest decoded.  Returns the hypotheses in
-    ``examples``' order.  ``ctx`` is A8's."""
-    _no_ctx(ctx, "generate_translations")
+    ``examples``' order.  Under a parallel context ``ctx`` decoding runs
+    on the sharded model (each rank's heads, greedy rows split over the
+    data group), every rank getting every hypothesis."""
     drop = {tokenizer.vocab["<pad>"], tokenizer.vocab[f"<eos_{tgt_key}>"]}
+    with _under(ctx):
+        rows = translation_tokens(
+            model, examples, src_key, tgt_key, tokenizer, model_max_length,
+            batch_size=batch_size, max_new_tokens=max_new_tokens,
+            kv_quant=kv_quant, beam_size=beam_size, impl=impl)
     return [tokenizer.decode([t for t in row if t not in drop])
-            for row in translation_tokens(
-                model, examples, src_key, tgt_key, tokenizer,
-                model_max_length, batch_size=batch_size,
-                max_new_tokens=max_new_tokens, kv_quant=kv_quant,
-                beam_size=beam_size, impl=impl)]
+            for row in rows]
 
 
 @torch.no_grad()
@@ -374,40 +427,82 @@ def _parser() -> argparse.ArgumentParser:
                    help="a torch.profiler trace of the first epoch run "
                         "into <workdir>/profile (Chrome / Perfetto JSON)")
     p.add_argument("--dp", type=int, default=1,
-                   help="data-parallel mesh size (above 1: A8)")
+                   help="data-parallel mesh size (batch rows sharded)")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel mesh size (above 1: A8)")
+                   help="tensor-parallel mesh size (Megatron layouts; "
+                        "with --chunked-loss the vocab-parallel fused "
+                        "loss)")
     p.add_argument("--zero1", action="store_true",
-                   help="ZeRO-1 optimizer-state sharding (A8)")
+                   help="ZeRO-1: shard the optimizer state over data")
     p.add_argument("--sequence-parallel", action="store_true",
-                   help="Megatron sequence parallelism (A8)")
+                   help="Megatron sequence parallelism of the residual "
+                        "stream over the tp ranks")
     p.add_argument("--dcn-data", type=int, default=1, metavar="H",
-                   help="multi-host data parallelism (above 1: A8)")
+                   help="hosts: data = H x --dp, each host's ranks a "
+                        "contiguous block (tp within a host)")
     return p
 
 
-def _refuse_unported(args) -> None:
-    for bad, what, item in (
-            (args.dp > 1, f"--dp {args.dp}", "A8"),
-            (args.tp > 1, f"--tp {args.tp}", "A8"),
-            (args.dcn_data > 1, f"--dcn-data {args.dcn_data}", "A8"),
-            (args.zero1, "--zero1", "A8"),
-            (args.sequence_parallel, "--sequence-parallel", "A8")):
-        if bad:
-            raise _not_ported(what, item)
+def _mesh(args, device):
+    """The parallel context the mesh flags ask for (None without one), with
+    the JAX app's divisibility checks; joins the job first (``env://``
+    under ``torch.distributed.run``; a no-op where it has joined)."""
+    if args.dp * args.tp * args.dcn_data == 1 and not args.zero1:
+        return None
+    from tpu_flash_torch import parallel
+
+    for name, val in (("n_vocab", args.n_vocab), ("n_embd", args.n_embd),
+                      ("n_head", args.n_head)):
+        if val % args.tp:
+            raise SystemExit(
+                f"--tp {args.tp} requires --{name.replace('_', '-')} "
+                f"divisible by tp (got {val}); Megatron layouts shard "
+                f"these dims over the model axis")
+    parallel.initialize_distributed(device=device)
+    n = args.dp * args.tp * args.dcn_data
+    world = torch.distributed.get_world_size()
+    if n != world:
+        raise SystemExit(f"--dp {args.dp} x --tp {args.tp} x --dcn-data "
+                         f"{args.dcn_data} needs {n} ranks, have {world}")
+    return parallel.make_mesh(data=args.dp, model=args.tp,
+                              dcn_data=args.dcn_data, device=device)
+
+
+def _gathered(ctx, model, opt_state, zspecs):
+    """The parameters and optimizer state in the full layout (every rank
+    takes part; rank 0 writes them)."""
+    if ctx is None:
+        return dict(model.named_parameters()), opt_state
+    from tpu_flash_torch.parallel.zero import gather_tree
+
+    return gather_tree(ctx, model, opt_state, zspecs)
 
 
 def main(argv=None, *, device=None) -> dict:
     """The CLI (JAX ``apps/machine_translation.py:309-457``).  ``device``
     ``None`` is the card (raising without one); the tests pass ``"cpu"``.
     Returns the records it printed (``epochs``, ``bleu``, the last BLEU
-    pass's three ``samples``, ``tokenizer_vocab``) with the trained
-    ``model`` and its ``tokenizer``."""
+    pass's three ``samples``, ``tokenizer_vocab``), each epoch's step
+    ``losses``, and the trained ``model`` and its ``tokenizer``."""
     args = _parser().parse_args(argv)
-    _refuse_unported(args)
+    if args.dp * args.tp * args.dcn_data > 1 or args.zero1:
+        from tpu_flash_torch.parallel.context import rank_device
+
+        device = rank_device(device)
     device = resolve_device(device)
+    ctx = _mesh(args, device)
+    lead = ctx is None or ctx.rank == 0
+    say = print if lead else (lambda *a, **k: None)
     L = args.model_max_length
     batch_size = args.batch_size or (128 * 40 + L) // L  # reference rule
+    if ctx is not None:
+        if batch_size % ctx.data_size:
+            batch_size = -(-batch_size // ctx.data_size) * ctx.data_size
+            say(json.dumps({"batch_size_rounded_to_dp": batch_size}))
+        if args.accum_steps > 1:
+            raise SystemExit("--accum-steps composes with the single-device "
+                             "step only (use a larger --dp instead of "
+                             "accumulating under a mesh)")
     if args.accum_steps > 1:
         if args.pack:
             raise SystemExit("--accum-steps with --pack is unsupported: "
@@ -415,16 +510,17 @@ def main(argv=None, *, device=None) -> dict:
                              "splits would be ragged")
         if batch_size % args.accum_steps:
             batch_size = -(-batch_size // args.accum_steps) * args.accum_steps
-            print(json.dumps({"batch_size_rounded_to_accum": batch_size}))
+            say(json.dumps({"batch_size_rounded_to_accum": batch_size}))
     workdir = args.workdir or f"workdir_vocab{args.n_vocab}_len{L}"
     os.makedirs(workdir, exist_ok=True)
 
     dataset, src_key, tgt_key = mt.get_dataset(
         args.dataset, L, synthetic=args.synthetic or None)
-    print(json.dumps({"data_size": {s: len(d) for s, d in dataset.items()}}))
+    say(json.dumps({"data_size": {s: len(d) for s, d in dataset.items()}}))
     tokenizer = mt.get_tokenizer(
-        dataset["train"], args.n_vocab, src_key, tgt_key, workdir)
-    print(json.dumps({"tokenizer_vocab": len(tokenizer)}))
+        dataset["train"], args.n_vocab, src_key, tgt_key, workdir,
+        save=lead)
+    say(json.dumps({"tokenizer_vocab": len(tokenizer)}))
     if len(tokenizer) > args.n_vocab:
         raise SystemExit(
             f"--n-vocab {args.n_vocab} is smaller than the trained "
@@ -451,8 +547,10 @@ def main(argv=None, *, device=None) -> dict:
                 tokenizer, L)
             need = max(need, probe["input_ids"].shape[0])
         pack_rows = need + 1
-        print(json.dumps({"pack_rows": pack_rows,
-                          "examples_per_step": batch_size}))
+        if ctx is not None and pack_rows % ctx.data_size:
+            pack_rows = -(-pack_rows // ctx.data_size) * ctx.data_size
+        say(json.dumps({"pack_rows": pack_rows,
+                        "examples_per_step": batch_size}))
         drop_counter: list = []
 
         def train_collate_fn(examples):
@@ -468,16 +566,17 @@ def main(argv=None, *, device=None) -> dict:
         attention_kind=args.attention_kind,
         use_fused_kernel=args.use_fused_kernel,
         kv_quant=args.kv_quant_train,
+        sequence_parallel=args.sequence_parallel,
         dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32)
     model = DecoderLM(cfg, device=device)
     init_params(model, torch.Generator(device).manual_seed(args.seed))
-    print(f"model parameters: {num_parameters(model):,}")
+    say(f"model parameters: {num_parameters(model):,}")
 
     opt = adam(lr=args.lr)
     if args.mixed_precision:
         opt = mixed_precision(opt)
-    opt_state = opt.init({n: p.detach() for n, p in
-                          model.named_parameters()})
+    full_state = opt.init({n: p.detach() for n, p in
+                           model.named_parameters()})
 
     ckpt_dir = os.path.join(workdir, "checkpoints")
     start_epoch = 0
@@ -485,14 +584,27 @@ def main(argv=None, *, device=None) -> dict:
         try:
             tree, step, _ = restore_checkpoint(ckpt_dir)
         except FileNotFoundError:
-            print(json.dumps({"resume": "no checkpoint found, cold start"}))
+            say(json.dumps({"resume": "no checkpoint found, cold start"}))
         else:
             with torch.no_grad():
                 for n, p in model.named_parameters():
                     p.copy_(tree["params"][n])
-            opt_state = restore_like(opt_state, tree["opt_state"])
+            full_state = restore_like(full_state, tree["opt_state"])
             start_epoch = step + 1
-            print(json.dumps({"resumed_from_epoch": step}))
+            say(json.dumps({"resumed_from_epoch": step}))
+    opt_state, zspecs = full_state, None
+    if ctx is not None:
+        # the (possibly resumed) full model and state cut to this rank's
+        # shards; ZeRO-1 slices the state over data as well
+        from tpu_flash_torch.parallel import shard_params, zero1_specs
+        from tpu_flash_torch.parallel.zero import shard_tree
+
+        specs = shard_params(ctx, model)
+        if args.zero1:
+            zspecs = zero1_specs(ctx, {n: p for n, p in
+                                       model.named_parameters()}, specs)
+        opt_state = shard_tree(ctx, full_state, specs, zspecs)
+        del full_state
 
     native_loader = None
     if args.native_loader:
@@ -505,20 +617,23 @@ def main(argv=None, *, device=None) -> dict:
             batch_size=batch_size, mask_padding=args.mask_padding,
             seed=args.seed, n_threads=2, packed=args.pack,
             fixed_rows=pack_rows)
-        print(json.dumps({"native_loader": "enabled", "packed": args.pack}))
+        say(json.dumps({"native_loader": "enabled", "packed": args.pack}))
 
-    metrics = MetricsLogger(os.path.join(workdir, "metrics.jsonl"),
-                            run={"event_args": vars(args)})
+    metrics = (MetricsLogger(os.path.join(workdir, "metrics.jsonl"),
+                             run={"event_args": vars(args)}) if lead
+               else None)
     ckpt = AsyncCheckpointer()
     try:
         out = _train_loop(args, model, opt, opt_state, dataset,
                           train_collate_fn, collate_fn, batch_size,
                           start_epoch, native_loader, metrics, ckpt_dir,
-                          tokenizer, src_key, tgt_key, L, ckpt)
+                          tokenizer, src_key, tgt_key, L, ckpt, ctx=ctx,
+                          zspecs=zspecs, say=say)
     finally:
         # the write in flight lands (its error raised) before the exit
         ckpt.close()
-        metrics.close()
+        if metrics is not None:
+            metrics.close()
         if native_loader is not None:
             native_loader.close()
     return {**out, "tokenizer_vocab": len(tokenizer), "model": model,
@@ -527,24 +642,37 @@ def main(argv=None, *, device=None) -> dict:
 
 def _train_loop(args, model, opt, opt_state, dataset, train_collate_fn,
                 collate_fn, batch_size, start_epoch, native_loader, metrics,
-                ckpt_dir, tokenizer, src_key, tgt_key, L, ckpt) -> dict:
+                ckpt_dir, tokenizer, src_key, tgt_key, L, ckpt, ctx=None,
+                zspecs=None, say=print) -> dict:
     """Epochs from ``start_epoch``: train, validation loss, the epoch record
     (JAX ``apps/machine_translation.py:641-663``), an async checkpoint every
     ``--checkpoint-every`` epochs, then BLEU on the test split with three
-    sample lines."""
+    sample lines.  Under a parallel context ``ctx`` the step is the sharded
+    one (ZeRO-1's with ``--zero1``), and only rank 0 (the one whose
+    ``metrics`` is not None) writes."""
+    lead = ctx is None or ctx.rank == 0
     train_step = None
-    if args.accum_steps > 1:
+    if ctx is not None:
+        from tpu_flash_torch import parallel
+
+        loss_fn = make_loss_fn(model, chunked_vocab=args.chunked_loss,
+                               ctx=ctx)
+        make_step = (parallel.make_zero1_train_step if args.zero1
+                     else parallel.make_sharded_train_step)
+        train_step = make_step(ctx, model, opt, loss_fn)
+    elif args.accum_steps > 1:
         train_step = make_train_step(model, opt,
                                      chunked_vocab=args.chunked_loss,
                                      accum_steps=args.accum_steps)
-    out = {"epochs": [], "bleu": [], "samples": []}
+    out = {"epochs": [], "bleu": [], "samples": [], "losses": []}
     for epoch in range(start_epoch, args.n_epochs):
         traced = contextlib.nullcontext()
         if args.profile and epoch == start_epoch:
             traced = trace(os.path.join(os.path.dirname(ckpt_dir),
-                                        "profile"))
-            print(json.dumps({"profile": f"tracing epoch {epoch} -> "
-                                         "workdir/profile"}))
+                                        "profile" if lead
+                                        else f"profile_rank{ctx.rank}"))
+            say(json.dumps({"profile": f"tracing epoch {epoch} -> "
+                                       "workdir/profile"}))
         t0 = time.perf_counter()
         with traced:
             opt_state, losses, step_times, step_tokens = train_epoch(
@@ -553,10 +681,12 @@ def _train_loop(args, model, opt, opt_state, dataset, train_collate_fn,
                 n_samples=args.samples_per_epoch,
                 max_iters=args.max_iters_per_epoch,
                 native_loader=native_loader, metrics=metrics,
-                chunked_vocab=args.chunked_loss, train_step=train_step)
+                chunked_vocab=args.chunked_loss, train_step=train_step,
+                ctx=ctx, log=say)
         epoch_time = time.perf_counter() - t0
         val_loss = evaluate_loss(model, dataset["validation"], collate_fn,
-                                 batch_size, chunked_vocab=args.chunked_loss)
+                                 batch_size, chunked_vocab=args.chunked_loss,
+                                 ctx=ctx)
         mean_step = float(np.mean(step_times)) if step_times else float("nan")
         epoch_rec = {
             "epoch": epoch,
@@ -576,32 +706,37 @@ def _train_loop(args, model, opt, opt_state, dataset, train_collate_fn,
             drops.clear()
         if native_loader is not None and native_loader.packed:
             epoch_rec["packed_dropped_examples"] = native_loader.dropped()
-        print(json.dumps(epoch_rec))
-        metrics.log(step=epoch, event="epoch", **epoch_rec)
+        say(json.dumps(epoch_rec))
+        if metrics is not None:
+            metrics.log(step=epoch, event="epoch", **epoch_rec)
         out["epochs"].append(epoch_rec)
+        out["losses"].append(losses)
 
         if args.checkpoint_every and (epoch + 1) % args.checkpoint_every == 0:
-            # the host copy now, the write on the checkpointer's thread
-            ckpt.save(ckpt_dir, epoch,
-                      {"params": dict(model.named_parameters()),
-                       "opt_state": opt_state},
-                      metadata={"lr": args.lr, "config": vars(args)})
-            print(json.dumps({"checkpoint": f"{ckpt_dir}/step_{epoch}",
-                              "async": True}))
+            # the host copy now, the write on the checkpointer's thread;
+            # under a mesh every rank gathers, rank 0 writes
+            params, state = _gathered(ctx, model, opt_state, zspecs)
+            if lead:
+                ckpt.save(ckpt_dir, epoch,
+                          {"params": params, "opt_state": state},
+                          metadata={"lr": args.lr, "config": vars(args)})
+            say(json.dumps({"checkpoint": f"{ckpt_dir}/step_{epoch}",
+                            "async": True}))
 
         if not args.skip_bleu:
             hyps = generate_translations(
                 model, dataset["test"], src_key, tgt_key, tokenizer, L,
-                kv_quant=args.kv_quant, beam_size=args.beam_size)
+                kv_quant=args.kv_quant, beam_size=args.beam_size, ctx=ctx)
             scores = evaluate_bleu(dataset["test"], hyps, tgt_key)
-            print(json.dumps({"epoch": epoch, **scores}))
-            metrics.log(step=epoch, event="bleu", **scores)
+            say(json.dumps({"epoch": epoch, **scores}))
+            if metrics is not None:
+                metrics.log(step=epoch, event="bleu", **scores)
             out["bleu"].append({"epoch": epoch, **scores})
             out["samples"] = [{"src": ex[src_key], "ref": ex[tgt_key],
                                "hyp": hyp}
                               for ex, hyp in zip(dataset["test"], hyps[:3])]
             for line in out["samples"]:
-                print(json.dumps(line))
+                say(json.dumps(line))
     return out
 
 

@@ -131,15 +131,18 @@ def get_dataset(dataset_name: str = "local", model_max_length: int = 40,
 
 
 def get_tokenizer(examples, vocab_size: int, src_key: str, tgt_key: str,
-                  workdir: str) -> ByteLevelBPE:
+                  workdir: str, save: bool = True) -> ByteLevelBPE:
     """A byte-level BPE trained on the pairs of ``examples`` with the
     ``<eos_src>``, ``<eos_tgt>`` and ``<pad>`` specials (ids 0, 1, 2),
-    saved to ``workdir/tokenizer.json`` (JAX ``data/mt.py:151-172``)."""
-    os.makedirs(workdir, exist_ok=True)
+    saved to ``workdir/tokenizer.json`` (JAX ``data/mt.py:151-172``);
+    ``save=False`` (a rank other than 0) trains the same one and writes
+    nothing."""
     tokenizer = ByteLevelBPE.train_from_iterator(
         [[ex[src_key], ex[tgt_key]] for ex in examples], vocab_size,
         special_tokens=[f"<eos_{src_key}>", f"<eos_{tgt_key}>", "<pad>"])
-    tokenizer.save(os.path.join(workdir, "tokenizer.json"))
+    if save:
+        os.makedirs(workdir, exist_ok=True)
+        tokenizer.save(os.path.join(workdir, "tokenizer.json"))
     return tokenizer
 
 

@@ -22,6 +22,14 @@ shared system prompt once; admissions that start with it copy its caches
 and prefill only the rest.  The port's caches are updated in place, so each
 such admission starts from a clone of the stored prefix caches (JAX's
 immutable arrays make that copy free).
+
+Built under a parallel context (``parallel.parallel_context``) over a model
+cut by ``parallel.shard_params``, every rank runs the engine: the caches
+hold the rank's KV heads, and with a data axis the slots are split over the
+data ranks (``parallel.decode.RowSplit``), each rank's caches holding its
+slots and the decode step's logits all-gathered, so that the host logic is
+the same everywhere.  A prefill runs whole on every data rank and lands in
+the slot's owner.  Speculative decoding needs the slots whole.
 """
 
 from __future__ import annotations
@@ -128,7 +136,15 @@ class DecodeEngine:
         self._prefix_caches = {}      # is_draft -> 1-slot caches
         self._prefix_last = None
 
-        self.caches = make_caches(model, n_slots, max_len, quant=kv_quant,
+        from tpu_flash_torch.parallel.decode import RowSplit
+
+        self._rows = RowSplit(n_slots)
+        if draft_model is not None and self._rows.split:
+            raise ValueError("speculative decoding needs every slot on "
+                             "every rank: build the engine under a context "
+                             "without a data axis")
+        self.caches = make_caches(model, self._rows.n_local, max_len,
+                                  quant=kv_quant,
                                   compute_dtype=model.cfg.dtype)
         self.last_tokens = torch.zeros(n_slots, dtype=torch.int64,
                                        device=device)
@@ -224,11 +240,19 @@ class DecodeEngine:
         # logits are discarded, but an out-of-range lookup would fault on
         # the card.  A rotary model's positions are not clamped.
         positions = _positions(self.caches[0].lengths, 1, self.model, True)
-        logits, self.caches = self.model(tokens[:, None],
+        logits, self.caches = self.model(self._rows.local(tokens)[:, None],
                                          kv_caches=self.caches,
                                          positions=positions)
+        logits = self._rows.gather(logits)
         nxt = _sample_token(logits[:, 0, :], self.sampling, self.generator)
         return torch.where(active, nxt, self.pad_id)
+
+    def _scatter(self, attr: str, sub, slot: int, length: int) -> None:
+        """A prefill's 1-slot caches into ``slot``, on the rank that holds
+        it."""
+        local = self._rows.owned(slot)
+        if local is not None:
+            _scatter_subcaches(getattr(self, attr), sub, local, length)
 
     def _new_subcaches(self, model, attr: str, max_len: int):
         c = getattr(self, attr)[0]
@@ -248,7 +272,7 @@ class DecodeEngine:
         for is_draft, model, attr in self._prefill_targets():
             sub = self._new_subcaches(model, attr, self.max_len)
             logits, sub = model(ids, kv_caches=sub)
-            _scatter_subcaches(getattr(self, attr), sub, slot, len(prompt))
+            self._scatter(attr, sub, slot, len(prompt))
             if not is_draft:
                 last = logits[0, len(prompt) - 1]
         return last
@@ -302,7 +326,7 @@ class DecodeEngine:
             logits, n_chunks = self._run_chunks(
                 model, sub, rest, base,
                 interleave=not is_draft and self.draft_model is None)
-            _scatter_subcaches(getattr(self, attr), sub, slot, len(prompt))
+            self._scatter(attr, sub, slot, len(prompt))
             if not is_draft:
                 last = (self._prefix_last if n_chunks == 0
                         else logits[0, (len(rest) - 1) - (n_chunks - 1) * C])

@@ -58,10 +58,13 @@ def _sample_token(logits: torch.Tensor, cfg: SamplingConfig,
 
 def make_caches(model, batch: int, max_len: int, *, quant: str = "none",
                 compute_dtype=torch.float32) -> list[KVCache]:
-    """One cache per layer, on the model's device."""
+    """One cache per layer, on the model's device, over the KV heads the
+    model holds (``DecoderLM.kv_heads_held``: a tensor-parallel shard holds
+    its slice; a stand-in for a model without it, the config's)."""
     c = model.cfg
+    kv_heads = getattr(model, "kv_heads_held", c.kv_heads)
     return [
-        KVCache.create(batch, c.kv_heads, max_len, c.attn_hidden_dim,
+        KVCache.create(batch, kv_heads, max_len, c.attn_hidden_dim,
                        quant=quant, compute_dtype=compute_dtype,
                        device=model.device)
         for _ in range(c.n_layer)
@@ -106,16 +109,23 @@ def generate(model, prompt_ids, prompt_lengths, sampling: SamplingConfig, *,
     ``device="cpu"``.  The model must live there already.  ``n_gen``
     counts the tokens that are not ``pad_id``, as the JAX version does.
     Where ``max_len`` passes the position table, a position past it embeds
-    as NaN, as in the JAX version (``DecoderLM``'s ``nan_past_table``)."""
+    as NaN, as in the JAX version (``DecoderLM``'s ``nan_past_table``).
+    Under a parallel context with a data axis the rows are split over it
+    (``parallel.decode.RowSplit``), the logits all-gathered."""
+    from tpu_flash_torch.parallel.decode import RowSplit
+
     device = resolve_device(device)
     if model.device != device:
         raise ValueError(f"model lives on {model.device}, not {device}")
     prompt_ids = torch.as_tensor(prompt_ids, device=device).long()
     prompt_lengths = torch.as_tensor(prompt_lengths, device=device)
     B = prompt_ids.shape[0]
-    last, caches = prefill_prompt(model, prompt_ids, prompt_lengths,
+    rows = RowSplit(B)
+    last, caches = prefill_prompt(model, rows.local(prompt_ids),
+                                  rows.local(prompt_lengths),
                                   max_len=max_len, kv_quant=kv_quant,
                                   impl=impl)
+    last = rows.gather(last)
     out = torch.full((B, sampling.max_new_tokens), pad_id, dtype=torch.int64,
                      device=device)
     done = torch.zeros(B, dtype=torch.bool, device=device)
@@ -128,9 +138,9 @@ def generate(model, prompt_ids, prompt_lengths, sampling: SamplingConfig, *,
         if step + 1 == sampling.max_new_tokens or bool(done.all()):
             break
         positions = caches[0].lengths[:, None].long()
-        logits, caches = model(tok[:, None], kv_caches=caches,
+        logits, caches = model(rows.local(tok)[:, None], kv_caches=caches,
                                positions=positions, impl=impl,
                                nan_past_table=past_table)
-        last = logits[:, 0, :]
+        last = rows.gather(logits[:, 0, :])
     n_gen = (out != pad_id).sum(dim=-1)
     return out, n_gen

@@ -84,19 +84,31 @@ def chunked_softmax_loss(hidden: torch.Tensor, weight: torch.Tensor,
     like ``labels``.  Logits are fp32 products of the input dtype's values,
     as the JAX package's ``preferred_element_type=float32`` dots; the last
     chunk is padded to the chunk width with columns of -inf bias, which add
-    exactly 0.  The ``axis_name`` / ``batch_axis`` (vocab- and data-parallel)
-    forms are not ported yet (ROADMAP.md, queue A item A8)."""
-    if axis_name is not None or batch_axis is not None:
-        raise NotImplementedError(
-            "the axis_name / batch_axis (sharded) forms of "
-            "chunked_softmax_loss are not ported yet (ROADMAP.md, queue A "
-            "item A8)")
+    exactly 0.
+
+    ``axis_name`` (the Megatron vocab-parallel form) names the group of the
+    current parallel context (``"model"``), or is a process group:
+    ``weight`` / ``bias`` are this rank's vocab slice (global columns from
+    ``rank * V_local``), ``labels`` global ids, and each rank's (max,
+    sumexp, picked) triple meets the others' in one MAX and two SUM
+    all-reduces; the backward sums dx over that group.  ``batch_axis``
+    names the group the tokens are split over (``"data"``): the backward
+    sums dW and db over it (for loops that reduce no gradient otherwise)."""
     x = hidden.reshape(-1, hidden.shape[-1])
     y = labels.reshape(-1).long()
     if bias is None:
         bias = torch.zeros(weight.shape[0], device=weight.device)
+    vocab_group = batch_group = None
+    base = 0
+    if axis_name is not None or batch_axis is not None:
+        from tpu_flash_torch.parallel import comm
+
+        vocab_group = comm.resolve_group(axis_name)
+        batch_group = comm.resolve_group(batch_axis)
+        base = comm.group_rank(vocab_group) * weight.shape[0]
     losses = _ChunkedSoftmaxLoss.apply(x, weight, bias, y,
-                                       max(int(n_chunks), 1))
+                                       max(int(n_chunks), 1), base,
+                                       vocab_group, batch_group)
     return losses.reshape(labels.shape)
 
 
@@ -120,9 +132,16 @@ def _chunk_logits(x32, w, b32, c0, width, C):
 
 
 class _ChunkedSoftmaxLoss(torch.autograd.Function):
+    """``base``: the global column of ``w``'s first row; ``vocab_group``
+    the ranks that hold the other columns (None: all of them here);
+    ``batch_group`` the ranks that hold the other tokens (dW, db summed
+    over it)."""
+
     @staticmethod
-    def forward(ctx, x, w, b, y, n_chunks):
+    def forward(ctx, x, w, b, y, n_chunks, base=0, vocab_group=None,
+                batch_group=None):
         C, chunks = _chunks(w.shape[0], n_chunks)
+        y = y - base
         x32, b32 = x.float(), b.float()
         N = x.shape[0]
         m = torch.full((N,), -math.inf, device=x.device)
@@ -135,13 +154,21 @@ class _ChunkedSoftmaxLoss(torch.autograd.Function):
             s = s * torch.exp(m - shift) + torch.exp(
                 logits - shift[:, None]).sum(-1)
             rel = y - c0
-            inside = (rel >= 0) & (rel < C)
+            inside = (rel >= 0) & (rel < width)
             pc = torch.gather(logits, 1, rel.clamp(0, C - 1)[:, None])[:, 0]
             picked = torch.where(inside, pc, picked)
             m = new_m
+        if vocab_group is not None:
+            from tpu_flash_torch.parallel import comm
+
+            m_all = comm.all_reduce(m, vocab_group, comm.dist.ReduceOp.MAX)
+            s = comm.all_reduce(s * torch.exp(m - m_all), vocab_group)
+            picked = comm.all_reduce(picked, vocab_group)
+            m = m_all
         lse = m + torch.log(s)
         ctx.save_for_backward(x, w, b, y, lse)
         ctx.n_chunks = n_chunks
+        ctx.groups = (vocab_group, batch_group)
         return lse - picked
 
     @staticmethod
@@ -160,7 +187,7 @@ class _ChunkedSoftmaxLoss(torch.autograd.Function):
             logits = _chunk_logits(x32, w, b32, c0, width, C)
             p = torch.exp(logits - lse[:, None])
             rel = y - c0
-            inside = (rel >= 0) & (rel < C)
+            inside = (rel >= 0) & (rel < width)
             onehot = (cols[None, :] == rel.clamp(0, C - 1)[:, None]) \
                 & inside[:, None]
             dlogits = ((p - onehot.float()) * g32[:, None])[:, :width]
@@ -168,7 +195,15 @@ class _ChunkedSoftmaxLoss(torch.autograd.Function):
             dw[c0:c0 + width] = (dlogits.to(x.dtype).float().T @ x32
                                  ).to(w.dtype)
             db[c0:c0 + width] = dlogits.sum(0)
-        return dx.to(x.dtype), dw, db.to(b.dtype), None, None
+        vocab_group, batch_group = ctx.groups
+        if vocab_group is not None or batch_group is not None:
+            from tpu_flash_torch.parallel import comm
+
+            dx = comm.all_reduce(dx, vocab_group)
+            dw = comm.all_reduce(dw, batch_group)
+            db = comm.all_reduce(db, batch_group)
+        return (dx.to(x.dtype), dw, db.to(b.dtype), None, None, None, None,
+                None)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

@@ -89,14 +89,23 @@ class LayerNorm(torch.nn.Module):
         self.beta = torch.nn.Parameter(
             torch.zeros(dim, dtype=dtype, device=device))
 
-    def forward(self, x: torch.Tensor, *, impl=None) -> torch.Tensor:
-        """``impl`` reaches the fused kernels' wrappers."""
+    def forward(self, x: torch.Tensor, *, impl=None,
+                param_group=None) -> torch.Tensor:
+        """``impl`` reaches the fused kernels' wrappers.  ``param_group``
+        (Megatron sequence parallelism: the rows are this rank's slice of
+        the sequence) sums gamma's and beta's gradients over that group."""
+        gamma, beta = self.gamma, self.beta
+        if param_group is not None:
+            from tpu_flash_torch.parallel import comm
+
+            gamma = comm.copy_to_group(gamma, param_group)
+            beta = comm.copy_to_group(beta, param_group)
         if self.fused:
-            return fused_layer_norm(x, self.gamma, self.beta, impl=impl)
+            return fused_layer_norm(x, gamma, beta, impl=impl)
         mean = x.mean(dim=-1, keepdim=True)
         var = torch.square(x - mean).mean(dim=-1, keepdim=True)
         xhat = (x - mean) * torch.rsqrt(var + self.eps)
-        return xhat * self.gamma + self.beta
+        return xhat * gamma + beta
 
 
 class QuantizedLinear(torch.nn.Module):

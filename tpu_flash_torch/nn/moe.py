@@ -8,7 +8,15 @@ left, a token past the capacity dropped (it passes through the residual
 unchanged), and one-hot ``dispatch`` and gated ``combine`` tensors ``[T, X,
 C]`` taken through einsums, so that every expert's work is one batched
 product.  The router's Switch load-balancing term comes back beside the
-output.  The expert-parallel sharding (``expert_param_specs``) is A8's.
+output.
+
+Under a parallel context the experts are split over the model ranks
+(``expert_param_specs``): routing runs whole on every rank, each rank
+computes its experts' part of the dense dispatch, and the parts are summed
+over the model group -- the result of the JAX package's all-to-all.  On an
+uncached forward whose rows are split over the data group, the buffer
+positions, the capacity and the load-balancing term count the tokens of
+every data rank, as the JAX package's global arrays do.
 """
 
 from __future__ import annotations
@@ -28,6 +36,14 @@ class MoEConfig:
     capacity_factor: float = 1.25
     aux_weight: float = 0.01     # multiplier applied by the training loss
     router_noise: float = 0.0    # jitter std on router logits (train only)
+
+
+def expert_param_specs(expert_axis: str = "model") -> dict[str, tuple]:
+    """Specs of the MoE parameters: experts over ``expert_axis``, the
+    router replicated (JAX ``moe.py:155-167``)."""
+    return {"router": (None, None), "w_in": (expert_axis, None, None),
+            "b_in": (expert_axis, None), "w_out": (expert_axis, None, None),
+            "b_out": (expert_axis, None)}
 
 
 class MoEFeedForward(torch.nn.Module):
@@ -70,12 +86,18 @@ class MoEFeedForward(torch.nn.Module):
         """fp32 router logits [T, X] of ``tokens`` [T, E]."""
         return tokens.float() @ self.router.float()
 
-    def _route(self, logits: torch.Tensor, *, capacity: int):
+    def _route(self, logits: torch.Tensor, *, capacity: int,
+               data_group=None):
         """Top-k dispatch and combine tensors from router logits [T, X]:
         ``(dispatch [T, X, C] one-hot, combine [T, X, C] gated, aux)``, fp32,
         JAX's rounds step for step (a max and its first-index argmax a
         round, the buffer position by a cumulative sum over the tokens plus
-        the fill carried from the earlier rounds)."""
+        the fill carried from the earlier rounds).  With ``data_group`` the
+        tokens are this rank's block of the global token order: the data
+        ranks before it add their counts to each position, and the fill and
+        the means take every rank's tokens."""
+        if data_group is not None:
+            return self._route_over(logits, capacity, data_group)
         T, X = logits.shape
         k = self.moe.top_k
         probs = torch.softmax(logits.float(), dim=-1)
@@ -103,23 +125,82 @@ class MoEFeedForward(torch.nn.Module):
             (frac_routed / k) * probs.mean(dim=0))
         return dispatch, combine, aux
 
+    def _route_over(self, logits, capacity: int, group):
+        from tpu_flash_torch.parallel import comm
+
+        T, X = logits.shape
+        k = self.moe.top_k
+        n, me = comm.group_size(group), comm.group_rank(group)
+        T_all = T * n
+        probs = torch.softmax(logits.float(), dim=-1)
+        dispatch = combine = torch.zeros((), device=logits.device)
+        remaining = probs
+        fill = torch.zeros(X, device=logits.device)
+        routed = torch.zeros(X, device=logits.device)
+        for _ in range(k):
+            gate = remaining.amax(dim=-1)
+            expert = remaining.argmax(dim=-1)
+            onehot = F.one_hot(expert, X)
+            counts = comm.all_gather(onehot.sum(dim=0)[None], group, 0)
+            before = counts[:me].sum(dim=0)
+            pos = (torch.cumsum(onehot, dim=0) - 1.0) + (fill + before)[None]
+            pos_t = (pos * onehot).sum(dim=-1)
+            keep = (pos_t < capacity).float()
+            slot = F.one_hot(pos_t.long(), capacity)
+            d = onehot[:, :, None] * slot[:, None, :] * keep[:, None, None]
+            dispatch = dispatch + d
+            combine = combine + d * gate[:, None, None]
+            fill = fill + comm.all_reduce(
+                (onehot * keep[:, None]).sum(dim=0), group)
+            routed = routed + counts.sum(dim=0)
+            remaining = remaining * (1.0 - onehot)
+        mean_probs = comm.all_reduce_sum(probs.sum(dim=0), group) / T_all
+        aux = self.moe.n_experts * torch.sum(
+            (routed / T_all / k) * mean_probs)
+        return dispatch, combine, aux
+
     def forward(self, x: torch.Tensor, *, training: bool = False,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, shard=None):
         """``x`` [B, L, E] -> ``(y [B, L, E], aux)``.  ``training`` with a
         ``generator`` draws the router's noise (``router_noise > 0``), then
         the dropout after the GELU, from it in that order.  The gates are
         cast to ``x.dtype`` before their products, as in the JAX package
-        (in bf16 they are rounded)."""
-        B, L, E = x.shape
+        (in bf16 they are rounded).
+
+        ``shard`` (``transformer._Shard``): under tensor parallelism this
+        rank holds experts ``[r X/tp, (r+1) X/tp)``; the router sees the
+        whole input on every rank, the experts their copy of it, and the
+        parts of ``y`` are summed over the model group (reduce-scattered
+        along L under sequence parallelism, where ``x`` is this rank's L
+        slice)."""
+        from tpu_flash_torch.nn.transformer import (_NO_SHARD, _enter,
+                                                    _replicated)
+
+        s = _NO_SHARD if shard is None else shard
+        xr, xe = _replicated(x, s), _enter(x, s)
+        B, L, E = xr.shape
         T = B * L
-        tokens = x.reshape(T, E)
-        logits = self.router_logits(tokens)
+        tokens = xe.reshape(T, E)
+        logits = self.router_logits(xr.reshape(T, E))
         if (training and self.moe.router_noise > 0.0
                 and generator is not None):
             logits = logits + self.moe.router_noise * torch.randn(
                 logits.shape, generator=generator, device=logits.device)
-        dispatch, combine, aux = self._route(logits,
-                                             capacity=self.capacity(T))
+        n_data = 1
+        if s.data_group is not None:
+            from tpu_flash_torch.parallel import comm
+
+            n_data = comm.group_size(s.data_group)
+        dispatch, combine, aux = self._route(
+            logits, capacity=self.capacity(T * n_data),
+            data_group=s.data_group)
+        if s.group is not None:     # this rank's experts
+            from tpu_flash_torch.parallel import comm
+
+            X_l = self.w_in.shape[0]
+            x0 = comm.group_rank(s.group) * X_l
+            combine = comm.copy_to_group(combine, s.group)[:, x0:x0 + X_l]
+            dispatch = dispatch[:, x0:x0 + X_l]
         # [X, C, E] expert input buffers, one batched product each way
         expert_in = torch.einsum("txc,te->xce", dispatch.to(x.dtype), tokens)
         h = torch.einsum("xce,xef->xcf", expert_in, self.w_in)
@@ -129,4 +210,8 @@ class MoEFeedForward(torch.nn.Module):
         expert_out = torch.einsum("xcf,xfe->xce", h, self.w_out)
         expert_out = expert_out + self.b_out[:, None, :]
         y = torch.einsum("txc,xce->te", combine.to(x.dtype), expert_out)
-        return y.reshape(B, L, E), aux
+        y = y.reshape(B, L, E)
+        if s.group is not None:
+            y = (comm.scatter_sequence(y, s.group, 1) if s.sp
+                 else comm.reduce_from_group(y, s.group))
+        return y, aux

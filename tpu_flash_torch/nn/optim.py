@@ -240,7 +240,10 @@ def skip_nonfinite(tx: Transform) -> Transform:
     233-264``).  The inner update always runs and each new tensor is chosen
     against the old one with ``torch.where`` on a device flag, so the step
     makes the host wait for nothing.  Composes as
-    ``skip_nonfinite(mixed_precision(adam(...)))``."""
+    ``skip_nonfinite(mixed_precision(adam(...)))``.  Under a parallel
+    context each rank sees only its shards' gradients, so the flag is
+    reduced over every rank (a MIN all-reduce): all of them skip
+    together."""
 
     def init(params):
         return SkipState(tx.init(params), torch.zeros(
@@ -249,6 +252,12 @@ def skip_nonfinite(tx: Transform) -> Transform:
     def update(grads, state, params):
         finite = torch.stack([torch.isfinite(g).all()
                               for g in grads.values()]).all()
+        from tpu_flash_torch.parallel.context import current_context
+
+        if current_context() is not None:
+            from tpu_flash_torch.parallel import comm
+
+            finite = comm.all_ranks_true(finite)
 
         def keep(new, old):
             return tree_map(lambda n, o: torch.where(finite, n, o), new, old)

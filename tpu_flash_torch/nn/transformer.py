@@ -21,8 +21,18 @@ and ``segment_ids`` (packed sequences); ``kv_quant`` (quantized-K/V
 training) runs the flash kernels' quantized forms, and below
 ``_FLASH_AUTO_MIN_L`` on ``"auto"`` the composed graph on straight-through
 dequantized K/V, as in the JAX package; ``use_fused_kernel=True`` puts every LayerNorm, the cached forward's too, on
-the fused LayerNorm kernels.  What is not ported raises
-``NotImplementedError`` and names the ROADMAP.md item that brings it.
+the fused LayerNorm kernels.
+
+Under a parallel context (``tpu_flash_torch.parallel``) with a model axis
+above 1 the modules run Megatron tensor parallelism on parameters that
+``parallel.shard_params`` cut to this rank's slices: column-parallel q/k/v
+and FF ``linear_in`` (this rank's heads and hidden), row-parallel
+``out_projection`` and ``linear_out`` whose partial sums meet in an
+all-reduce, the experts split over the model ranks, E-sharded embeddings
+all-gathered, and a vocab-sharded ``lm_head`` whose logits are all-gathered
+(or, with ``return_hidden``, left to ``parallel.vocab_parallel_softmax_loss``).
+``sequence_parallel`` shards the residual stream along L over the model
+group (``_Shard``).  Every collective goes through ``parallel/comm.py``.
 """
 
 from __future__ import annotations
@@ -55,9 +65,90 @@ _FLASH_AUTO_MIN_L = 1024
 DECODE_MAX_LQ = 8
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, queue A item {item})")
+@dataclasses.dataclass(frozen=True)
+class _Shard:
+    """How this rank's forward is sharded: ``group`` the model group
+    (None without tensor parallelism), ``sp`` the residual stream split
+    along L over it (Megatron sequence parallelism), ``batch_offset`` this
+    rank's first global row (attention dropout's hash), ``data_group`` the
+    data group an uncached forward's rows are split over (None outside
+    one: the MoE router counts tokens over it)."""
+
+    group: Any = None
+    sp: bool = False
+    batch_offset: int = 0
+    data_group: Any = None
+
+
+_NO_SHARD = _Shard()
+
+
+def _shard_for(cfg, B: int, L: int, cached: bool) -> _Shard:
+    """The current parallel context's ``_Shard`` for a forward of ``B``
+    rows of ``L`` tokens: sequence parallelism as the JAX package's
+    ``_sequence_shard`` takes it (uncached, L dividing the model size; else
+    a no-op), the data split on uncached forwards only (a cached forward
+    serves the rows it is given)."""
+    from tpu_flash_torch.parallel.context import current_context
+
+    ctx = current_context()
+    if ctx is None:
+        return _NO_SHARD
+    g = ctx.model_group
+    sp = (cfg.sequence_parallel and g is not None and not cached
+          and L % ctx.model_size == 0)
+    return _Shard(group=g, sp=sp,
+                  batch_offset=0 if cached else ctx.data_rank * B,
+                  data_group=None if cached else ctx.data_group)
+
+
+def _enter(x, s: _Shard):
+    """The input of a column-parallel block: identity with an all-reduced
+    gradient, or under sequence parallelism the all-gather along L."""
+    if s.group is None:
+        return x
+    from tpu_flash_torch.parallel import comm
+
+    if s.sp:
+        return comm.gather_sequence(x, s.group, 1)
+    return comm.copy_to_group(x, s.group)
+
+
+def _replicated(x, s: _Shard):
+    """``x`` whole on every model rank with a replicated cotangent: under
+    sequence parallelism the all-gather along L whose backward keeps this
+    rank's slice."""
+    if s.group is None or not s.sp:
+        return x
+    from tpu_flash_torch.parallel import comm
+
+    return comm.gather_from_group(x, s.group, 1)
+
+
+def _ln(ln, x, s: _Shard, impl):
+    """A LayerNorm of the residual stream: on this rank's L slice under
+    sequence parallelism, its parameters' gradients summed over the
+    group."""
+    return ln(x, impl=impl, param_group=s.group if s.sp else None)
+
+
+def _row_parallel(lin, x, s: _Shard, impl=None):
+    """``lin(x)`` with ``lin``'s weight sharded on its input dim: this
+    rank's partial product, summed over the model group (a reduce-scatter
+    along L under sequence parallelism), then the replicated bias."""
+    if s.group is None:
+        return lin(x, impl=impl)
+    from tpu_flash_torch.parallel import comm
+
+    w = lin.weight
+    dt = torch.promote_types(x.dtype, w.dtype)
+    y = torch.nn.functional.linear(x.to(dt), w.to(dt))
+    y = (comm.scatter_sequence(y, s.group, 1) if s.sp
+         else comm.reduce_from_group(y, s.group))
+    if lin.bias is None:
+        return y
+    b = comm.copy_to_group(lin.bias, s.group) if s.sp else lin.bias
+    return y + b.to(dt)
 
 
 @dataclasses.dataclass
@@ -118,8 +209,6 @@ class DecoderConfig:
                 "kv_quant requires the flash attention path (got "
                 f"attention_kind={self.attention_kind!r}); the dense graphs "
                 "have no quantized-KV form")
-        if self.sequence_parallel:
-            raise _not_ported("sequence_parallel", "A8")
 
     @property
     def attn_hidden_dim(self) -> int:
@@ -170,8 +259,20 @@ class MultiHeadAttention(torch.nn.Module):
                 split(self.k_projection(x, impl=impl)),
                 split(self.v_projection(x, impl=impl)))
 
+    @property
+    def local_heads(self) -> tuple[int, int]:
+        """(query heads, KV heads) this rank holds: all of them, or its
+        slice under tensor parallelism."""
+        d = self.cfg.attn_hidden_dim
+
+        def out(lin):
+            return getattr(lin, "out_size", None) or lin.weight.shape[0]
+
+        return out(self.q_projection) // d, out(self.k_projection) // d
+
     def self_attention(self, q, k, v, *, kv_mask=None, segment_ids=None,
-                       impl=None, training: bool = False, generator=None):
+                       impl=None, training: bool = False, generator=None,
+                       seed_offsets=(0, 0)):
         """Uncached attention: the flash-attention kernels (``"flash"``, and
         ``"auto"`` from ``_FLASH_AUTO_MIN_L``), the fused masked-softmax
         kernels over the materialized scores (``"fused"``) or the composed
@@ -185,11 +286,16 @@ class MultiHeadAttention(torch.nn.Module):
         and drops attention probabilities by the kernels' hash of it: the
         flash kernels in-kernel, the fused and composed routes by
         multiplying P by ``dropout_keep_oracle``, the same bits (the JAX
-        package's transformer.py:204-249)."""
+        package's transformer.py:204-249).  ``seed_offsets`` (this shard's
+        first batch row and query head) make a shard's bits those of the
+        unsharded call."""
         c = self.cfg
         seed = (attention_seed(generator)
                 if training and c.attn_dropout > 0.0 and generator is not None
                 else None)
+        if seed is not None and any(seed_offsets):
+            seed = torch.cat([seed, torch.tensor(
+                seed_offsets, dtype=torch.int32, device=seed.device)])
         kind = c.attention_kind
         if kind == "auto":
             if c.kv_quant != "none" and q.shape[-2] < _FLASH_AUTO_MIN_L:
@@ -279,14 +385,18 @@ class MultiHeadAttention(torch.nn.Module):
 
     def forward(self, x, *, kv_cache=None, kv_mask=None, positions=None,
                 segment_ids=None, impl=None, training: bool = False,
-                generator=None):
+                generator=None, shard: _Shard = _NO_SHARD):
         """Uncached: returns ``[B, L, E]`` (``training`` and ``generator``
         for attention dropout).  Cached: appends this step's keys and
         values to ``kv_cache`` in place and returns ``(out, kv_cache)``.
         With ``positional="rope"`` q and k are rotated at ``positions``
-        ([B, L]; ``arange(L)`` where None) before the cache takes k."""
-        B, L, E = x.shape
+        ([B, L]; ``arange(L)`` where None) before the cache takes k.
+        ``shard``: this rank's heads, and under sequence parallelism its L
+        slice of ``x`` in and out."""
+        x = _enter(x, shard)
+        B, L, _ = x.shape
         q, k, v = self.project_to_query_key_value(x, impl)
+        E = q.shape[1] * self.cfg.attn_hidden_dim
         if self.cfg.positional == "rope":
             if positions is None:
                 positions = torch.arange(L, device=x.device).expand(B, L)
@@ -296,12 +406,20 @@ class MultiHeadAttention(torch.nn.Module):
             kv_cache.append(k, v)
             out = self._cached_attention(q, kv_cache, impl)
             out = out.transpose(1, 2).reshape(B, L, E)
-            return self.out_projection(out, impl=impl), kv_cache
+            return _row_parallel(self.out_projection, out, shard,
+                                 impl), kv_cache
+        h0 = 0
+        if shard.group is not None:
+            from tpu_flash_torch.parallel import comm
+
+            h0 = comm.group_rank(shard.group) * q.shape[1]
         out = self.self_attention(q, k, v, kv_mask=kv_mask,
                                   segment_ids=segment_ids, impl=impl,
-                                  training=training, generator=generator)
-        return self.out_projection(out.transpose(1, 2).reshape(B, L, E),
-                                   impl=impl)
+                                  training=training, generator=generator,
+                                  seed_offsets=(shard.batch_offset, h0))
+        return _row_parallel(self.out_projection,
+                             out.transpose(1, 2).reshape(B, L, E), shard,
+                             impl)
 
 
 class FeedForward(torch.nn.Module):
@@ -313,10 +431,10 @@ class FeedForward(torch.nn.Module):
         self.dropout = Dropout(cfg.p_dropout)
 
     def forward(self, x, *, training: bool = False, generator=None,
-                impl=None):
-        h = F.gelu(self.linear_in(x, impl=impl))
-        return self.linear_out(self.dropout(h, training=training,
-                                            generator=generator), impl=impl)
+                impl=None, shard: _Shard = _NO_SHARD):
+        h = F.gelu(self.linear_in(_enter(x, shard), impl=impl))
+        return _row_parallel(self.linear_out, self.dropout(
+            h, training=training, generator=generator), shard, impl)
 
 
 class TransformerLayer(torch.nn.Module):
@@ -339,27 +457,31 @@ class TransformerLayer(torch.nn.Module):
 
     def forward(self, x, *, kv_cache=None, kv_mask=None, positions=None,
                 segment_ids=None, impl=None, training: bool = False,
-                generator=None):
+                generator=None, shard: _Shard = _NO_SHARD):
         """The JAX layer's results: ``x``, or ``(x, kv_cache)`` cached,
-        each followed by the router's ``aux`` with an MoE feed-forward."""
-        h = self.ln_1(x, impl=impl)
+        each followed by the router's ``aux`` with an MoE feed-forward.
+        ``shard`` as ``DecoderLM.forward`` sets it (under sequence
+        parallelism ``x`` is this rank's L slice, and so is the result)."""
+        h = _ln(self.ln_1, x, shard, impl)
         if kv_cache is not None:
             attn_out, kv_cache = self.attention(h, kv_cache=kv_cache,
                                                 positions=positions,
-                                                impl=impl)
+                                                impl=impl, shard=shard)
         else:
             attn_out = self.attention(h, kv_mask=kv_mask,
                                       positions=positions,
                                       segment_ids=segment_ids, impl=impl,
-                                      training=training, generator=generator)
+                                      training=training, generator=generator,
+                                      shard=shard)
         out = x + attn_out
-        h = self.ln_2(out, impl=impl)
+        h = _ln(self.ln_2, out, shard, impl)
         if self.cfg.moe is not None:
-            ff_out, aux = self.ff(h, training=training, generator=generator)
+            ff_out, aux = self.ff(h, training=training, generator=generator,
+                                  shard=shard)
             extras = (aux,)
         else:
             ff_out = self.ff(h, training=training, generator=generator,
-                             impl=impl)
+                             impl=impl, shard=shard)
             extras = ()
         result = out + ff_out
         if kv_cache is not None:
@@ -427,6 +549,12 @@ class DecoderLM(torch.nn.Module):
     def device(self) -> torch.device:
         return self.token_embeddings.weight.device   # lm_head may be quantized
 
+    @property
+    def kv_heads_held(self) -> int:
+        """The KV heads this model's parameters hold: all of them, or a
+        tensor-parallel shard's slice (the caches' heads)."""
+        return self.layers[0].attention.local_heads[1]
+
     def forward(self, idx, *, kv_caches=None, kv_mask=None, positions=None,
                 segment_ids=None, training: bool = False, generator=None,
                 impl=None, return_aux: bool = False,
@@ -438,6 +566,13 @@ class DecoderLM(torch.nn.Module):
         ``functional.chunked_softmax_loss`` to train without the [B, L,
         n_vocab] logits.  With ``cfg.remat`` each layer of the uncached
         forward runs under ``torch.utils.checkpoint`` (``_remat_layer``).
+
+        Under a parallel context the rows are this rank's (put there by
+        ``parallel.put_batch``), the parameters its shards
+        (``parallel.shard_params``); logits come back whole over the vocab,
+        and ``return_hidden`` gives the replicated hidden state for
+        ``parallel.vocab_parallel_softmax_loss`` over the rank's
+        ``lm_head`` shard.
 
         ``positions`` ([1, L] or [B, L]) overrides ``arange(L)``, as decode
         needs.  ``nan_past_table`` embeds a position past ``n_positions`` as
@@ -469,6 +604,7 @@ class DecoderLM(torch.nn.Module):
             positions = torch.arange(L, device=idx.device)[None, :]
         rope_positions = (positions.expand(B, L) if c.positional == "rope"
                           else None)
+        s = _shard_for(c, B, L, kv_caches is not None)
         x = self.token_embeddings(idx)
         if (c.positional == "learned" and nan_past_table
                 and not c.embedding_one_hot):
@@ -478,7 +614,13 @@ class DecoderLM(torch.nn.Module):
         elif c.positional == "learned":
             # the one-hot product embeds a position past the table as 0
             x = x + self.position_embeddings(positions)
+        if s.group is not None:
+            from tpu_flash_torch.parallel import comm
+
+            x = comm.gather_from_group(x, s.group, -1)   # E-sharded tables
         x = self.dropout(x, training=training, generator=generator)
+        if s.sp:
+            x = comm.split_to_group(x, s.group, 1)
         new_caches = [] if kv_caches is not None else None
         moe = c.moe is not None
         aux_total = torch.zeros((), device=x.device) if moe else None
@@ -486,19 +628,28 @@ class DecoderLM(torch.nn.Module):
             if kv_caches is not None:
                 x, cache, *extras = layer(
                     x, kv_cache=kv_caches[li], positions=rope_positions,
-                    impl=impl, training=training, generator=generator)
+                    impl=impl, training=training, generator=generator,
+                    shard=s)
                 new_caches.append(cache)
             else:
                 kw = dict(kv_mask=kv_mask, positions=rope_positions,
                           segment_ids=segment_ids, impl=impl,
-                          training=training)
+                          training=training, shard=s)
                 out = (_remat_layer(layer, x, generator=generator, **kw)
                        if c.remat else layer(x, generator=generator, **kw))
                 x, *extras = out if moe else (out,)
             if moe:
                 aux_total = aux_total + extras[0]
+        if s.sp:
+            x = comm.gather_from_group(x, s.group, 1)
         x = self.ln(x, impl=impl)
-        out = x if return_hidden else self.lm_head(x, impl=impl)
+        if return_hidden:
+            out = x
+        elif s.group is None:
+            out = self.lm_head(x, impl=impl)
+        else:     # column-parallel over the vocab, then the whole logits
+            out = comm.gather_from_group(self.lm_head(
+                comm.copy_to_group(x, s.group), impl=impl), s.group, -1)
         result = (out,)
         if kv_caches is not None:
             result += (new_caches,)
